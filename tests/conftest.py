@@ -46,6 +46,11 @@ def pytest_configure(config):
         "chaos: fault-injection robustness test (CPU-fast, runs in tier-1; "
         "select with -m chaos)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's kernels); "
+        "skips elsewhere, select with -m cuda",
+    )
 
 
 @pytest.fixture()
