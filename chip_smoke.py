@@ -9,17 +9,28 @@ exits non-zero before the result lines are printed:
 1. the card's name and power limit, torch / CUDA / nvcc versions;
 2. builds the CUDA kernels from ``clearml_serving_tpu_torch/csrc`` (set-up
    time, printed with the compiler's register report);
-3. holds every kernel against its plain PyTorch version on the card at the
-   main path's shapes (bf16 and int8 pools), and times kernel, plain version
-   and the bound at the main-path shape;
+3. holds the paged decode kernel against its plain PyTorch version on the
+   card at the main path's shapes (bf16 and int8 pools), and times kernel,
+   plain version and the bound at the main-path shape;
+3b. the same for the ragged kernel over mixed rows (decode, prefill chunks
+   at history 0 and mid-history, idle rows, multi-step pads, page-crossing
+   tails; P 16/32, G 4/8, D 64/128, bf16/int8), timed at a mixed shape and
+   a prefill shape;
 4. a small model on the card against the same weights in float32 on the CPU
    (prefill + paged decode logits, bf16 and int8 KV);
+4b. the same model's ``forward_ragged`` over mixed batches;
 5. the main path: Llama-3-8B at full width (32 layers, dim 4096, bf16,
    random weights from a seed) behind the port's HTTP server, a paged KV
    cache (max_batch 8, max_seq_len 2048, page_size 16, decode_steps 4),
    four concurrent chat completions (two streaming) with bf16 KV, then again
    with int8 KV on the same weights; every kernel of the path must have
-   launched (paged attention: once per layer per decode step).
+   launched (paged attention: once per layer per decode step);
+5b. the ragged main path: the same server under ``scheduler: ragged``
+   (step_token_budget 256), four staggered chats with 600-1500-token
+   prompts, bf16 then int8 KV: mixed launches must have run, the ragged
+   kernel once per layer per ragged step, the decode kernel once per layer
+   per decode step and chained ragged window step;
+6. where the time goes: one profiled pass of each scheduler (bf16 KV).
 
 The last three lines of standard output are the card line, the ``kernels``
 JSON line and ``{"ok": true, "device": {...}}``. Timings are CUDA-event
@@ -219,7 +230,211 @@ def phase_kernels(gen) -> dict:
     return dict(err_bf16=err_bf16, err_int8=err_int8, timings=timings)
 
 
+# -- phase 3b: ragged kernel vs plain version -------------------------------------
+
+
+def ragged_operands(gen, rows, *, hkv=8, g=4, d=128, page_size=16, quant=False, layers=1,
+                    unowned_blocks=0):
+    """Random operands of one ragged launch. ``rows``: (span on the flat
+    axis, query tokens, history before them) per row; a span longer than
+    its queries is a multi-step decode row whose positions 1.. are pads.
+    ``unowned_blocks`` q blocks no row owns close the flat axis. Page-table
+    entries past each row's kv_len are random page ids."""
+    from clearml_serving_tpu_torch.models.llama import kv_store
+    from clearml_serving_tpu_torch.ops.paged_attention import RAGGED_QB, ragged_layout
+
+    dev = torch.device(DEV)
+    r = len(rows)
+    spans = [s for s, _, _ in rows]
+    starts, block_rows, block_q0, t_pad = ragged_layout(spans, RAGGED_QB)
+    block_rows = list(block_rows) + [-1] * unowned_blocks
+    block_q0 = list(block_q0) + [0] * unowned_blocks
+    t_pad += unowned_blocks * RAGGED_QB
+    row_lens = [n for _, n, _ in rows]
+    kv_lens = [n + h for _, n, h in rows]
+    pp = -(-max(kv_lens) // page_size) + 1
+    n_pages = r * pp + 1
+    q = torch.randn(t_pad, hkv, g, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(layers, hkv, n_pages, page_size, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(layers, hkv, n_pages, page_size, d, generator=gen, device=dev).bfloat16()
+    ks = vs = None
+    if quant:
+        k, ks = kv_store(k, "int8", torch.bfloat16)
+        v, vs = kv_store(v, "int8", torch.bfloat16)
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev).int() + 1).reshape(r, pp)
+    for i, length in enumerate(kv_lens):
+        live = -(-length // page_size)
+        table[i, live:] = torch.randint(0, n_pages, (pp - live,), generator=gen, device=dev,
+                                        dtype=torch.int32)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    return dict(q=q, k=k, v=v, ks=ks, vs=vs, table=table.contiguous(), kv_lens=i32(kv_lens),
+                starts=i32(starts), row_lens=i32(row_lens), block_rows=i32(block_rows),
+                block_q0=i32(block_q0))
+
+
+def ragged_args(ops, li=0, table=None):
+    kw = {"block_rows": ops["block_rows"], "block_q0": ops["block_q0"]}
+    if ops["ks"] is not None:
+        kw.update(k_scale=ops["ks"][li], v_scale=ops["vs"][li])
+    return (ops["q"], ops["k"][li], ops["v"][li],
+            ops["table"] if table is None else table, ops["kv_lens"], ops["starts"],
+            ops["row_lens"]), kw
+
+
+def check_ragged(ops, label) -> float:
+    """Ragged kernel vs the plain version in f32 on the same operands;
+    tokens no row owns (multi-step pads, alignment pads, unowned blocks)
+    must be exact zeros, and a second launch with every table entry past
+    each row's kv_len poisoned must give the same bits."""
+    from clearml_serving_tpu_torch.ops.paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_ref,
+    )
+
+    args, kw = ragged_args(ops)
+    q, k, v = args[:3]
+    out = ragged_paged_attention(*args, **kw)
+    quant = ops["ks"] is not None
+    scales = {key: kw[key] for key in ("k_scale", "v_scale") if key in kw}
+    ref = ragged_paged_attention_ref(q.float(), k if quant else k.float(),
+                                     v if quant else v.float(), *args[3:], **scales)
+    poisoned = ops["table"].clone()
+    page_size = k.shape[2]
+    for i, length in enumerate(ops["kv_lens"].tolist()):
+        poisoned[i, -(-length // page_size):] = 2 ** 30
+    args2, kw2 = ragged_args(ops, table=poisoned)
+    out2 = ragged_paged_attention(*args2, **kw2)
+    sync()
+    owned = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
+    for s, n in zip(ops["starts"].tolist(), ops["row_lens"].tolist()):
+        owned[s:s + n] = True
+    err = float((out.float() - ref).abs().max())
+    ok = torch.allclose(out.float(), ref, rtol=TOL, atol=TOL)
+    log("  {:<52} max_abs_err {:.3e}  {}".format(label, err, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("ragged_paged_attention disagrees with its plain version: " + label)
+    if not torch.equal(out, out2):
+        raise AssertionError("ragged_paged_attention read page-table entries past a kv_len")
+    if not torch.equal(out[~owned], torch.zeros_like(out[~owned])):
+        raise AssertionError("tokens no row owns are not exact zeros: " + label)
+    return err
+
+
+def ragged_bound(ops):
+    """(ms, "bytes" | "operations"): least time for the launch on these
+    operands: each live row's K/V (and scales) up to its kv_len read once,
+    q and out once, the live rows' table entries, over the memory rate; or
+    4*G*D*Hkv FLOPs per (query, causal key) pair over the bf16 peak;
+    whichever is larger."""
+    q, k = ops["q"], ops["k"]
+    t, hkv, g, d = q.shape
+    page_size = k.shape[3]
+    rows = [(kv, n) for kv, n in zip(ops["kv_lens"].tolist(), ops["row_lens"].tolist()) if n]
+    live = sum(kv for kv, _ in rows)
+    kv_bytes = 2 * live * hkv * d * k.element_size()
+    scales = 2 * live * hkv * 4 if ops["ks"] is not None else 0
+    io = 2 * q.numel() * q.element_size() + 4 * sum(-(-kv // page_size) for kv, _ in rows)
+    causal = sum((kv - n) * n + n * (n + 1) // 2 for kv, n in rows)
+    flops = 4 * g * d * hkv * causal
+    t_bytes, t_ops = (kv_bytes + scales + io) / CARD_BW, flops / CARD_BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# seven decode rows at kv_len 1024 and one 128-token chunk ending at 1024
+RAGGED_MIXED = [(1, 1, 1023)] * 7 + [(128, 128, 896)]
+# one 512-token chunk ending at 2048
+RAGGED_PREFILL = [(512, 512, 1536)]
+
+
+def phase_ragged_kernel(gen) -> dict:
+    from clearml_serving_tpu_torch.ops.paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_ref,
+    )
+
+    log("phase 3b: ragged_paged_attention kernel vs plain version (atol=rtol={})".format(TOL))
+    # decode rows, a 4-token multi-step span (3 pads), chunks at history 0
+    # and mid-history whose tails cross page boundaries, an idle row, a
+    # chunk longer than two q blocks, two unowned blocks at the end
+    mix = [(1, 1, 1023), (4, 1, 300), (37, 37, 0), (0, 0, 0), (19, 19, 77), (1, 1, 0),
+           (130, 130, 517), (1, 1, 64)]
+    cases = [
+        ("bf16 G4 D128 P16", {}),
+        ("bf16 G8 D128 P32", dict(g=8, page_size=32)),
+        ("bf16 G4 D64 P32", dict(d=64, page_size=32)),
+        ("bf16 G8 D64 P16", dict(g=8, d=64)),
+        ("int8 G4 D128 P16", dict(quant=True)),
+        ("int8 G8 D128 P32", dict(g=8, page_size=32, quant=True)),
+        ("int8 G4 D64 P16", dict(d=64, quant=True)),
+        ("int8 G8 D64 P32", dict(g=8, d=64, page_size=32, quant=True)),
+    ]
+    errs = {"bf16": 0.0, "int8": 0.0}
+    for label, kw in cases:
+        ops = ragged_operands(gen, mix, unowned_blocks=2, **kw)
+        err = check_ragged(ops, "mixed rows " + label)
+        name = "int8" if kw.get("quant") else "bf16"
+        errs[name] = max(errs[name], err)
+    for label, rows in (("mixed shape", RAGGED_MIXED), ("prefill shape", RAGGED_PREFILL)):
+        for quant in (False, True):
+            ops = ragged_operands(gen, rows, quant=quant)
+            err = check_ragged(ops, "{} {} G4 D128 P16".format(label, "int8" if quant else "bf16"))
+            name = "int8" if quant else "bf16"
+            errs[name] = max(errs[name], err)
+    timings = {}
+    layers = 4
+    for shape, rows, quants in (("mixed", RAGGED_MIXED, (False, True)),
+                                ("prefill", RAGGED_PREFILL, (False,))):
+        for quant in quants:
+            ops = ragged_operands(gen, rows, quant=quant, layers=layers)
+
+            def kernel(li, ops=ops):
+                args, kw = ragged_args(ops, li)
+                ragged_paged_attention(*args, **kw)
+
+            def plain(li, ops=ops):
+                args, kw = ragged_args(ops, li)
+                kw.pop("block_rows")
+                kw.pop("block_q0")
+                ragged_paged_attention_ref(*args, **kw)
+
+            before = ragged_paged_attention.launches
+            kernel_ms = time_launches(kernel, layers, 100)
+            plain_ms = time_launches(plain, layers, 4)
+            ragged_paged_attention.launches = before  # not the main path's launches
+            b_ms, b_by = ragged_bound(ops)
+            key = "{}_{}".format(shape, "int8" if quant else "bf16")
+            timings[key] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            log("  {} shape {}: kernel_ms {:.4f}  plain_ms {:.4f}  bound_ms {:.4f} ({})  "
+                "({:.1f}% of bound)".format(shape, "int8" if quant else "bf16", kernel_ms,
+                                            plain_ms, b_ms, b_by, 100 * b_ms / kernel_ms))
+            del ops
+            torch.cuda.empty_cache()
+    return dict(err_bf16=errs["bf16"], err_int8=errs["int8"], timings=timings)
+
+
 # -- phase 4: small model on the card vs float32 on the CPU ----------------------
+
+
+SMALL_MODEL = {"vocab_size": 512, "dim": 512, "n_layers": 2, "n_heads": 8,
+               "n_kv_heads": 4, "head_dim": 128, "ffn_dim": 1024, "rope_theta": 500000.0}
+
+
+def small_model_params(gen_seed: int):
+    """(bf16 weights on the card, the same values in float32 on the CPU)."""
+    from clearml_serving_tpu_torch.models.llama import init_params
+
+    cpu_params = init_params(dict(SMALL_MODEL, dtype="float32"),
+                             torch.Generator().manual_seed(gen_seed), device="cpu")
+
+    def to(tree, dtype, device):
+        out = {k: v.to(dtype).to(device) for k, v in tree.items() if k != "layers"}
+        out["layers"] = [{k: v.to(dtype).to(device) for k, v in layer.items()}
+                         for layer in tree["layers"]]
+        return out
+
+    card_params = to(cpu_params, torch.bfloat16, DEV)
+    return card_params, to(card_params, torch.float32, "cpu")    # the same bf16 values
 
 
 def phase_small_model(gen_seed: int) -> None:
@@ -231,22 +446,11 @@ def phase_small_model(gen_seed: int) -> None:
     1/254 of each vector's range), and the same top-1 token in 90% of rows;
     a wrong attention moves the logits by their own scale."""
     from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
-    from clearml_serving_tpu_torch.models.llama import Llama, init_params
+    from clearml_serving_tpu_torch.models.llama import Llama
 
     log("phase 4: small model, card (bf16, kernel) vs CPU (float32, plain version)")
-    base = {"vocab_size": 512, "dim": 512, "n_layers": 2, "n_heads": 8,
-            "n_kv_heads": 4, "head_dim": 128, "ffn_dim": 1024, "rope_theta": 500000.0}
-    cpu_params = init_params(dict(base, dtype="float32"),
-                             torch.Generator().manual_seed(gen_seed), device="cpu")
-
-    def to(tree, dtype, device):
-        out = {k: v.to(dtype).to(device) for k, v in tree.items() if k != "layers"}
-        out["layers"] = [{k: v.to(dtype).to(device) for k, v in layer.items()}
-                         for layer in tree["layers"]]
-        return out
-
-    card_params = to(cpu_params, torch.bfloat16, DEV)
-    ref_params = to(card_params, torch.float32, "cpu")    # the same bf16 values
+    base = SMALL_MODEL
+    card_params, ref_params = small_model_params(gen_seed)
     for kv_quant in ("", "int8"):
         cfg = dict(base, kv_quant=kv_quant)
         models = {
@@ -306,6 +510,119 @@ def phase_small_model(gen_seed: int) -> None:
             .format(kv_quant or "bf16", err, float(ref.abs().max()), agree))
         if not finite or err > 0.05 * float(ref.abs().max()) or agree < 0.9:
             raise AssertionError("small model on the card disagrees with the CPU reference")
+
+
+def phase_small_ragged(gen_seed: int) -> None:
+    """Three mixed ``forward_ragged`` steps of phase 4's model, bf16 on the
+    card (ragged kernel, q-block aligned layout) against the same weights
+    in float32 on the CPU (plain version, the same layout): decode rows at
+    several histories, prefill chunks at history 0 and mid-history, an
+    idle row. Histories are prefilled on each side; each later step's
+    decode tokens are the CPU model's greedy tokens from the step before.
+    The tolerance is phase 4's, 5% of the largest reference logit, and 0.9
+    top-1 agreement over 33 rows, where a row agrees when the card's top
+    token is the reference's or ties with it inside that tolerance: bf16
+    activations (and int8 codes of bf16 vs f32 K/V, one apart at rounding
+    ties) flip the odd near-tied row, and a flip inside the logit tolerance
+    says nothing about the kernel. The strict agreement is printed beside
+    it."""
+    from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
+    from clearml_serving_tpu_torch.models.llama import Llama
+    from clearml_serving_tpu_torch.ops.paged_attention import RAGGED_QB, ragged_layout
+
+    log("phase 4b: small model forward_ragged, card (bf16, ragged kernel) vs CPU "
+        "(float32, plain version)")
+    card_params, ref_params = small_model_params(gen_seed)
+    # (history, query tokens per step): decode rows take one token a step
+    rows = [(40, 1), (23, 1), (9, 1), (0, 20), (17, 12), (31, 1), (5, 9), (0, 0),
+            (50, 1), (12, 1), (3, 6), (28, 1)]
+    r = len(rows)
+    prompt = torch.randint(0, 256, (r, 64), generator=torch.Generator().manual_seed(2))
+    for kv_quant in ("", "int8"):
+        cfg = dict(SMALL_MODEL, kv_quant=kv_quant)
+        models = {
+            "card": Llama(dict(cfg, dtype="bfloat16"), card_params),
+            "cpu": Llama(dict(cfg, dtype="float32"), ref_params),
+        }
+        caches = {}
+        for name, model in models.items():
+            dev = model.device
+            cache = PagedKVCache(model.n_layers, model.n_kv_heads, model.head_dim,
+                                 num_pages=64, page_size=16, max_slots=r,
+                                 dtype=model.dtype, kv_quant=kv_quant, device=dev)
+            for slot, (hist, _n) in enumerate(rows):
+                if hist:
+                    _last, mini = model.prefill(prompt[slot:slot + 1, :hist].to(dev),
+                                                torch.tensor([hist], device=dev))
+                    scales = ((mini["k_scale"][:, 0], mini["v_scale"][:, 0])
+                              if kv_quant else ())
+                    cache.write_prompt(slot, mini["k"][:, 0], mini["v"][:, 0], hist, *scales)
+            caches[name] = cache
+        row_lens = [n for _h, n in rows]
+        starts, block_rows, block_q0, t = ragged_layout(row_lens, RAGGED_QB)
+        live = [slot for slot, n in enumerate(row_lens) if n]
+        decode_tok = prompt[:, 0].clone()
+        logits = {"card": [], "cpu": []}
+        for step in range(3):
+            for name, model in models.items():
+                dev = model.device
+                cache = caches[name]
+                pool = cache.pool
+                flat = {key: torch.zeros(t, dtype=torch.int32) for key in
+                        ("tokens", "tok_pos", "tok_row", "write_page", "write_offset")}
+                tok_valid = torch.zeros(t, dtype=torch.bool)
+                row_last = torch.zeros(r, dtype=torch.int32)
+                kv_lens = torch.zeros(r, dtype=torch.int32)
+                for slot, (hist, n) in enumerate(rows):
+                    if not n:
+                        continue
+                    s = int(starts[slot])
+                    pre = pool.slot_length(slot)
+                    pool.extend(slot, n)
+                    coords = pool.token_coords(slot, pre, n)
+                    if n == 1:
+                        flat["tokens"][s] = decode_tok[slot] if step else prompt[slot, hist]
+                    else:
+                        flat["tokens"][s:s + n] = prompt[slot, pre:pre + n]
+                    flat["tok_pos"][s:s + n] = pre + torch.arange(n)
+                    flat["tok_row"][s:s + n] = slot
+                    flat["write_page"][s:s + n] = torch.tensor([p for p, _ in coords])
+                    flat["write_offset"][s:s + n] = torch.tensor([o for _, o in coords])
+                    tok_valid[s:s + n] = True
+                    row_last[slot] = s + n - 1
+                    kv_lens[slot] = pre + n
+                blocks = {}
+                if torch.device(dev).type == "cuda":
+                    blocks = {"block_rows": torch.as_tensor(block_rows, device=dev),
+                              "block_q0": torch.as_tensor(block_q0, device=dev)}
+                kw = ({"k_scales": cache.k_scale, "v_scales": cache.v_scale}
+                      if kv_quant else {})
+                out = model.forward_ragged(
+                    flat["tokens"].long().to(dev), flat["tok_pos"].to(dev),
+                    flat["tok_row"].to(dev), tok_valid.to(dev), row_last.to(dev),
+                    cache.k, cache.v, torch.as_tensor(pool.page_table(8), device=dev),
+                    kv_lens.to(dev), torch.as_tensor(starts, device=dev),
+                    torch.tensor(row_lens, dtype=torch.int32, device=dev),
+                    flat["write_page"].to(dev), flat["write_offset"].to(dev),
+                    **blocks, **kw)
+                logits[name].append(out.float().cpu()[live])
+            decode_tok = torch.zeros(r, dtype=torch.long)
+            decode_tok[live] = logits["cpu"][-1].argmax(-1)
+        sync()
+        card = torch.stack(logits["card"])
+        ref = torch.stack(logits["cpu"])
+        err = float((card - ref).abs().max())
+        limit = 0.05 * float(ref.abs().max())
+        top = card.argmax(-1, keepdim=True)
+        strict = float((top[..., 0] == ref.argmax(-1)).float().mean())
+        agree = float((ref.amax(-1) - ref.gather(-1, top)[..., 0] <= limit).float().mean())
+        finite = bool(torch.isfinite(card).all())
+        log("  kv={:<5} logits max_abs_err {:.3e} (scale {:.2f}), top-1 agreement {:.2f} "
+            "(strict {:.2f}) over {} rows".format(kv_quant or "bf16", err,
+                                                 float(ref.abs().max()), agree, strict,
+                                                 card.shape[0] * card.shape[1]))
+        if not finite or err > limit or agree < 0.9:
+            raise AssertionError("forward_ragged on the card disagrees with the CPU reference")
 
 
 # -- phase 5: the main path --------------------------------------------------------
@@ -389,11 +706,11 @@ async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None):
     return results, wall, launches, counters
 
 
-def _engine(params, kv_quant, preset):
+def _engine(params, kv_quant, preset, **knobs):
     from clearml_serving_tpu_torch.llm.openai_api import build_engine
 
     cfg = {"preset": preset, "cache": "paged", "max_batch": 8, "max_seq_len": 2048,
-           "page_size": 16, "decode_steps": 4, "seed": 0}
+           "page_size": 16, "decode_steps": 4, "seed": 0, **knobs}
     if kv_quant:
         cfg["kv_quant"] = kv_quant
     return build_engine(cfg, device=DEV, params=params)
@@ -439,17 +756,21 @@ def phase_main_path(params, kv_quant: str, preset: str = "llama3-8b") -> dict:
     return out
 
 
-def phase_profile(params) -> dict:
-    """The bf16 main-path run once more under torch.profiler: device time by
-    kernel name and the device's busy share of the run's wall time (the
-    union of kernel intervals). Profiling adds host overhead, so these
-    shares describe this pass only."""
+def phase_profile(params, scheduler: str = "two_dispatch") -> dict:
+    """The bf16 main-path run of a scheduler once more under torch.profiler:
+    device time by kernel name and the device's busy share of the run's
+    wall time (the union of kernel intervals). Profiling adds host
+    overhead, so these shares describe this pass only."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine, tokenizer = _engine(params, "", "llama3-8b")
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    _results, wall, _launches, c = asyncio.run(
-        serve_and_chat(engine, tokenizer, profiler=prof))
+    if scheduler == "ragged":
+        engine, tokenizer = _engine(params, "", "llama3-8b", **RAGGED_KNOBS)
+        _results, wall, c = asyncio.run(serve_ragged(engine, tokenizer, profiler=prof))
+    else:
+        engine, tokenizer = _engine(params, "", "llama3-8b")
+        _results, wall, _launches, c = asyncio.run(
+            serve_and_chat(engine, tokenizer, profiler=prof))
     del engine
     torch.cuda.empty_cache()
     kernels = [e for e in prof.events()
@@ -470,15 +791,135 @@ def phase_profile(params) -> dict:
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     attn = sum(v for k, v in by_name.items() if "paged_attention_kernel" in k)
-    out = dict(wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
+    ragged = sum(v for k, v in by_name.items() if "ragged_attention_kernel" in k)
+    out = dict(scheduler=scheduler, wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
                busy_share=busy / 1e3 / (wall * 1e3), kernel_ms=total,
-               paged_attention_ms=attn, decode_steps=c["decode_steps"],
+               paged_attention_ms=attn, ragged_attention_ms=ragged,
+               decode_steps=c["decode_steps"], ragged_steps=c["ragged_steps"],
                top=[(k[:60], v) for k, v in top])
-    log("  profiled bf16 pass: wall {wall_ms:.1f} ms, device busy {device_busy_ms:.1f} ms "
-        "({busy_share:.1%}), kernels {kernel_ms:.1f} ms, paged attention "
-        "{paged_attention_ms:.2f} ms over {decode_steps} decode steps".format(**out))
+    log("  profiled bf16 {scheduler} pass: wall {wall_ms:.1f} ms, device busy "
+        "{device_busy_ms:.1f} ms ({busy_share:.1%}), kernels {kernel_ms:.1f} ms, paged "
+        "attention {paged_attention_ms:.2f} ms over {decode_steps} decode steps, ragged "
+        "attention {ragged_attention_ms:.2f} ms over {ragged_steps} ragged steps".format(**out))
     for name, ms in top:
         log("    {:9.2f} ms  {}".format(ms, name[:100]))
+    return out
+
+
+# -- phase 5b: the ragged main path ------------------------------------------------
+
+RAGGED_KNOBS = {"scheduler": "ragged", "step_token_budget": 256}
+_NOTES = ("Meeting notes, platform team. The paged KV cache keeps every sequence in "
+          "fixed-size pages, so memory holds only the tokens that exist. The ragged "
+          "scheduler packs decode rows and prompt chunks into one launch per step, and "
+          "the token budget bounds how much prefill rides beside the decode batch. ")
+# about 600 to 1500 tokens each through the byte tokenizer
+LONG_PROMPTS = [
+    "Summarise these notes in one paragraph. " + (_NOTES * 7)[:n]
+    for n in (560, 860, 1160, 1460)
+]
+
+
+async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None):
+    """Start the port's app, warm it up with the four long prompts, zero the
+    counts, then POST the four chats (two streaming) staggered: each is
+    sent once every earlier one has its first token, so every admission's
+    chunk rows share launches with live decode rows. Returns (results,
+    wall seconds, counters with ttft_ms, step_rows and both kernels'
+    launches)."""
+    import aiohttp
+    from aiohttp import web
+
+    from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest
+    from clearml_serving_tpu_torch.ops.paged_attention import (
+        paged_attention, ragged_paged_attention,
+    )
+    from clearml_serving_tpu_torch.serving.main import build_app
+
+    app = build_app(LLMEngineRequest(engine, tokenizer, "llama3-8b"))
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    port = runner.addresses[0][1]
+    url = "http://127.0.0.1:{}/serve/openai/v1/chat/completions".format(port)
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+            await asyncio.gather(*[post_chat(s, url, p, False, 4) for p in LONG_PROMPTS])
+            paged_attention.launches = 0
+            ragged_paged_attention.launches = 0
+            for key in engine.counters:
+                engine.counters[key] = 0
+            for key in engine.step_rows:
+                engine.step_rows[key] = 0
+            engine.ttft_ms.clear()
+            if profiler is not None:
+                profiler.start()
+            t0 = time.perf_counter()
+            tasks = []
+            for i, prompt in enumerate(LONG_PROMPTS):
+                while len(engine.ttft_ms) < i:
+                    await asyncio.sleep(0.002)
+                tasks.append(asyncio.ensure_future(
+                    post_chat(s, url, prompt, stream=i < 2, max_tokens=max_tokens)))
+            results = await asyncio.gather(*tasks)
+            wall = time.perf_counter() - t0
+            if profiler is not None:
+                sync()
+                profiler.stop()
+            counters = dict(engine.counters, ttft_ms=list(engine.ttft_ms),
+                            step_rows=dict(engine.step_rows),
+                            paged_launches=paged_attention.launches,
+                            ragged_launches=ragged_paged_attention.launches)
+    finally:
+        await runner.cleanup()
+    return results, wall, counters
+
+
+def phase_ragged_main_path(params, kv_quant: str, preset: str = "llama3-8b") -> dict:
+    engine, tokenizer = _engine(params, kv_quant, preset, **RAGGED_KNOBS)
+    prompt_tokens = [len(tokenizer.encode_chat(tokenizer.apply_chat_template(
+        [{"role": "user", "content": p}]))) for p in LONG_PROMPTS]
+    results, wall, c = asyncio.run(serve_ragged(engine, tokenizer))
+    n_layers = engine.model.n_layers
+    del engine
+    if torch.device(DEV).type == "cuda":
+        torch.cuda.empty_cache()
+    steps = c["ragged_steps"]
+    out = dict(
+        kv=kv_quant or "bf16", wall_s=wall, prompt_tokens=prompt_tokens,
+        tokens=c["tokens_emitted"], ragged_steps=steps, step_rows=c["step_rows"],
+        ragged_decode_tokens=c["ragged_decode_tokens"],
+        ragged_chain_steps=c["ragged_chain_steps"], decode_steps=c["decode_steps"],
+        ragged_launches=c["ragged_launches"], paged_launches=c["paged_launches"],
+        # engine-side: request parsed -> first token emitted, in arrival order
+        ttft_ms=c["ttft_ms"],
+        decode_tok_s=c["tokens_emitted"] / wall,
+        # engine host time per ragged step (each ends in a device->host read)
+        ragged_step_ms=c["ragged_ms"] / max(1, steps),
+        step_ms=c["decode_ms"] / max(1, c["decode_steps"]),
+    )
+    log("  kv={kv}: prompts {prompt_tokens} tokens, wall {wall_s:.3f} s, {tokens} tokens, "
+        "{decode_tok_s:.1f} tok/s aggregate; ragged steps {ragged_steps} ({ragged_step_ms:.2f} "
+        "ms each), rows {step_rows}, chained window steps {ragged_chain_steps}; decode steps "
+        "{decode_steps} ({step_ms:.2f} ms each); launches ragged {ragged_launches} paged "
+        "{paged_launches}; TTFT {ttft_ms} ms".format(**out))
+    log("  contents:", json.dumps([r["content"][:24] for r in results]))
+    if not all(r["content"] for r in results):
+        raise AssertionError("an empty completion")
+    if any(r["tokens"] is not None and r["tokens"] != 32 for r in results) or \
+            c["tokens_emitted"] != 32 * len(LONG_PROMPTS):
+        raise AssertionError("a completion stopped before max_tokens")
+    if c["step_rows"]["prefill"] < 8 or c["step_rows"]["decode"] < 1:
+        raise AssertionError("no mixed launches: step rows {}".format(c["step_rows"]))
+    if steps == 0 or c["ragged_launches"] != n_layers * steps:
+        raise AssertionError("ragged_paged_attention launched {} times for {} ragged steps of "
+                             "{} layers".format(c["ragged_launches"], steps, n_layers))
+    if c["paged_launches"] != n_layers * (c["decode_steps"] + c["ragged_chain_steps"]):
+        raise AssertionError("paged_attention launched {} times for {} decode steps and {} "
+                             "chained window steps of {} layers".format(
+                                 c["paged_launches"], c["decode_steps"],
+                                 c["ragged_chain_steps"], n_layers))
     return out
 
 
@@ -514,7 +955,9 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(0)
     kern = phase_kernels(gen)
+    rkern = phase_ragged_kernel(gen)
     phase_small_model(0)
+    phase_small_ragged(0)
 
     log("phase 5: main path, llama3-8b full width bf16 behind the HTTP server")
     t0 = time.perf_counter()
@@ -530,10 +973,15 @@ def main() -> int:
                   + [w for layer in params["layers"] for w in layer.values()])
     log("  weights {:.2f} GB made in {:.1f} s".format(n_bytes / 1e9, time.perf_counter() - t0))
     runs = [phase_main_path(params, ""), phase_main_path(params, "int8")]
+    log("phase 5b: ragged main path, llama3-8b full width, scheduler ragged, "
+        "step_token_budget 256")
+    ragged_runs = [phase_ragged_main_path(params, ""), phase_ragged_main_path(params, "int8")]
     log("phase 6: where the time goes")
     prof = phase_profile(params)
+    ragged_prof = phase_profile(params, "ragged")
 
     t = kern["timings"]
+    rt = rkern["timings"]
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -553,8 +1001,35 @@ def main() -> int:
         "ms_int8": t["int8"]["ms"],
         "plain_ms_int8": t["int8"]["plain_ms"],
         "bound_ms_int8": t["int8"]["bound_ms"],
+        "launches_ragged_path": ragged_runs[0]["paged_launches"],
+    }, {
+        "name": "ragged_paged_attention",
+        "route": "cuda",
+        "source": "clearml_serving_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "clearml_serving_tpu/ops/paged_attention.py:881",
+        "tpu": "ops/paged_attention.py:881",
+        "launches": ragged_runs[0]["ragged_launches"],
+        "launches_int8": ragged_runs[1]["ragged_launches"],
+        "max_abs_err": rkern["err_bf16"],
+        "max_err_bf16": rkern["err_bf16"],
+        "max_err_int8": rkern["err_int8"],
+        # primary shape: the mixed launch (7 decode rows at 1024 + a 128-token chunk)
+        "ms": rt["mixed_bf16"]["ms"],
+        "plain_ms": rt["mixed_bf16"]["plain_ms"],
+        "bound_ms": rt["mixed_bf16"]["bound_ms"],
+        "bound_by": rt["mixed_bf16"]["bound_by"],
+        "library_ms": None,
+        "ms_int8": rt["mixed_int8"]["ms"],
+        "plain_ms_int8": rt["mixed_int8"]["plain_ms"],
+        "bound_ms_int8": rt["mixed_int8"]["bound_ms"],
+        # one 512-token chunk at history 1536
+        "ms_prefill": rt["prefill_bf16"]["ms"],
+        "plain_ms_prefill": rt["prefill_bf16"]["plain_ms"],
+        "bound_ms_prefill": rt["prefill_bf16"]["bound_ms"],
+        "bound_by_prefill": rt["prefill_bf16"]["bound_by"],
     }]}
-    log("main path:", json.dumps({"runs": runs, "profile": prof}))
+    log("main path:", json.dumps({"runs": runs, "ragged_runs": ragged_runs,
+                                  "profile": prof, "ragged_profile": ragged_prof}))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)
     print(json.dumps(kernels))

@@ -1,13 +1,10 @@
 """Continuous-batching LLM engine over the paged KV cache.
 
 Counterpart of ``clearml_serving_tpu/llm/engine.py``'s ``LLMEngineCore`` in
-the configuration ``cache_mode="paged"``, ``scheduler="two_dispatch"``,
-``pipeline_depth=1``:
+the configuration ``cache_mode="paged"``, ``pipeline_depth=1``, under
+either scheduler:
 
 - a fixed ``max_batch`` of slots; FIFO admission into free slots;
-- admission = one prefill of the prompt padded to its bucket, its K/V
-  written into freshly allocated pages, and the first token sampled from
-  the last prompt position (emitted at once: the client's first token);
 - decode = chunks of ``decode_steps`` fused steps over the whole slot batch,
   each step ``Llama.decode_paged`` (the paged attention kernel once per
   layer) followed by sampling; the chunk's tokens reach the host once, at
@@ -15,9 +12,23 @@ the configuration ``cache_mode="paged"``, ``scheduler="two_dispatch"``,
 - a request finishes on a stop token, ``max_new_tokens`` or
   ``max_seq_len``; its pages return to the pool right away.
 
-Device work (prefill and decode chunks) runs in a worker thread, one call at
-a time, so the event loop keeps serving HTTP while the card computes. Every
-reference knob this slice does not serve raises, naming itself.
+``scheduler="two_dispatch"``: admission = one prefill of the prompt padded
+to its bucket, its K/V written into freshly allocated pages, and the first
+token sampled from the last prompt position (emitted at once: the client's
+first token).
+
+``scheduler="ragged"``: admission opens a job instead of running a prefill.
+While jobs exist, each step is ONE mixed launch (``Llama.forward_ragged``,
+the ragged attention kernel once per layer): every decode row with a
+multi-step window (``ragged_decode_steps``, widened from the budget left
+over) and prefill-chunk rows that share ``step_token_budget`` tokens in
+admission order. A decode row's window chains ``decode_paged`` steps after
+the mixed pass in the same step; a job's final chunk samples the first
+token and activates its slot. With no jobs left, decode chunks resume.
+
+Device work runs in a worker thread, one call at a time, so the event loop
+keeps serving HTTP while the card computes. Every reference knob this slice
+does not serve raises, naming itself.
 """
 
 from __future__ import annotations
@@ -27,12 +38,13 @@ import logging
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import AsyncIterator, Deque, List, Optional
+from typing import AsyncIterator, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..models.llama import Llama
+from ..ops.paged_attention import RAGGED_QB, ragged_layout
 from .kv_cache import PagedKVCache
 from .sampling import SamplingParams, sample_tokens
 from . import shapes
@@ -73,6 +85,42 @@ class GenRequest:
 
 _FINISHED = object()
 
+
+@dataclass(eq=False)  # identity semantics: jobs live in (and leave) lists
+class _RaggedJob:
+    """One admission riding the ragged scheduler: the request's prompt
+    prefills in budget-bounded chunk rows of the loop's launches, writing
+    straight into its reserved slot's pages. ``pos`` is the next
+    unprefilled prompt index; the slot stays reserved (``_admitting``)
+    until the final chunk activates it or a failure frees it."""
+
+    request: GenRequest
+    slot: int
+    pos: int = 0
+    started_at: float = field(default_factory=time.monotonic)
+
+
+class _Histogram:
+    """Fixed-bucket histogram, snapshot in the reference's
+    ``_MsHistogram`` shape."""
+
+    def __init__(self, buckets):
+        self.buckets = tuple(buckets)
+        self.counts = [0] * (len(self.buckets) + 1)
+        self.total = 0.0
+        self.n = 0
+
+    def observe(self, value: float) -> None:
+        i = next((i for i, edge in enumerate(self.buckets) if value <= edge),
+                 len(self.buckets))
+        self.counts[i] += 1
+        self.total += float(value)
+        self.n += 1
+
+    def snapshot(self) -> dict:
+        return {"buckets": list(self.buckets), "counts": list(self.counts),
+                "sum_ms": self.total, "count": self.n}
+
 # reference engine knobs this slice does not serve (each raises when set)
 UNSUPPORTED_KNOBS = (
     "mesh", "quantize", "weight_quant", "long_prefill_threshold",
@@ -81,8 +129,7 @@ UNSUPPORTED_KNOBS = (
     "prefix_cache", "prefix_cache_bytes", "prefix_cache_pages",
     "prefix_cache_host_pages", "prefix_cache_host_bytes", "tokenizer",
     "max_pending", "queue_timeout", "ttft_timeout", "total_timeout",
-    "watchdog_interval", "step_token_budget", "ragged_decode_steps",
-    "brownout", "replica",
+    "watchdog_interval", "brownout", "replica",
 )
 
 
@@ -104,6 +151,8 @@ class LLMEngineCore:
         num_pages: Optional[int] = None,
         pipeline_depth: Optional[int] = 1,
         scheduler: Optional[str] = "two_dispatch",
+        step_token_budget: Optional[int] = None,
+        ragged_decode_steps: Optional[int] = None,
         **knobs,
     ):
         for name, value in knobs.items():
@@ -119,10 +168,10 @@ class LLMEngineCore:
                 "engine knob cache_mode={!r} is not supported by the PyTorch "
                 "port yet (paged only)".format(cache_mode)
             )
-        if scheduler not in (None, "two_dispatch"):
+        sched = scheduler if scheduler is not None else "two_dispatch"
+        if sched not in ("two_dispatch", "ragged"):
             raise ValueError(
-                "engine knob scheduler={!r} is not supported by the PyTorch "
-                "port yet (two_dispatch only)".format(scheduler)
+                "scheduler must be 'two_dispatch' or 'ragged' (got {!r})".format(sched)
             )
         if pipeline_depth not in (None, 1):
             raise ValueError(
@@ -136,6 +185,38 @@ class LLMEngineCore:
         self.eos_token_id = eos_token_id
         self.decode_steps = max(1, int(decode_steps))
         self.cache_mode = "paged"
+        # -- ragged scheduling: knobs and validation as in the reference
+        self._ragged = sched == "ragged"
+        self._step_token_budget = (
+            int(step_token_budget) if step_token_budget is not None
+            else max(128, 4 * self.max_batch)
+        )
+        if self._ragged and self._step_token_budget <= self.max_batch:
+            # every decode row costs one budget token; a budget at or below
+            # max_batch could starve admissions forever
+            raise ValueError(
+                "step_token_budget ({}) must exceed max_batch ({}) so "
+                "prefill chunks always fit beside a full decode batch"
+                .format(self._step_token_budget, self.max_batch)
+            )
+        self._ragged_decode_steps = (
+            max(1, int(ragged_decode_steps)) if ragged_decode_steps is not None
+            else self.decode_steps
+        )
+        if self._ragged_decode_steps > self.decode_steps:
+            raise ValueError(
+                "ragged_decode_steps ({}) must not exceed decode_steps "
+                "({}): per-slot KV slack and page-table width are sized "
+                "from decode_steps".format(self._ragged_decode_steps, self.decode_steps)
+            )
+        self._ragged_steps_cap = shapes.decode_steps_bucket(self._ragged_decode_steps)
+        # the flat token axis of one launch: every row's segment aligns to
+        # the CUDA kernel's q block (worst case one block of waste per row);
+        # the CPU plain version packs rows densely
+        self._ragged_qb = RAGGED_QB if self.device.type == "cuda" else 1
+        waste = self.max_batch * (self._ragged_qb - 1)
+        self._ragged_tpad = (-(-(self._step_token_budget + waste) // self._ragged_qb)
+                             * self._ragged_qb)
         self._buckets = shapes.prefill_buckets(prefill_buckets, self.max_seq_len)
         # every slot can hold max_seq_len plus one decode chunk; page 0 is
         # the reserved null page
@@ -158,11 +239,25 @@ class LLMEngineCore:
         self._pending: Deque[GenRequest] = deque()
         self._loop_task: Optional[asyncio.Task] = None
         self._stopped = False
+        # ragged scheduler: in-progress chunked admissions in admission
+        # order, and the slots they reserve (loop thread)
+        self._prefill_jobs: List[_RaggedJob] = []
+        self._admitting: set = set()
         # observability: decode steps run (each = one decode_paged call, so
         # n_layers paged-attention launches), chunks, prefills, and the host
-        # wall time of the device calls (each ends in a device->host read)
+        # wall time of the device calls (each ends in a device->host read);
+        # ragged steps (each = one forward_ragged call, n_layers ragged
+        # attention launches), the decode tokens they emitted and their
+        # chained decode_paged calls
         self.counters = {"decode_steps": 0, "decode_chunks": 0, "prefills": 0,
-                         "tokens_emitted": 0, "decode_ms": 0.0, "prefill_ms": 0.0}
+                         "tokens_emitted": 0, "decode_ms": 0.0, "prefill_ms": 0.0,
+                         "ragged_steps": 0, "ragged_decode_tokens": 0,
+                         "ragged_chain_steps": 0, "ragged_ms": 0.0}
+        # rows per phase over all ragged launches, budget use per launch and
+        # decode tokens per launch (the reference's lifecycle "ragged" block)
+        self.step_rows = {"prefill": 0, "decode": 0}
+        self._hist_budget = _Histogram((0.1, 0.25, 0.5, 0.75, 0.9, 1.0))
+        self._hist_launch_tokens = _Histogram((1, 2, 4, 8, 16, 32, 64))
         # time to first token of recent requests, submission to emission (ms)
         self.ttft_ms: Deque[float] = deque(maxlen=1024)
 
@@ -214,6 +309,8 @@ class LLMEngineCore:
         for slot, request in enumerate(self._slot_req):
             if request is not None:
                 self._fail_slot(slot, err)
+        for job in list(self._prefill_jobs):
+            self._fail_ragged_job(job, err)
         while self._pending:
             request = self._pending.popleft()
             request.error = err
@@ -235,6 +332,22 @@ class LLMEngineCore:
             "kv_dtype": self.paged_cache.pool_dtype,
             "kv_pool_bytes": self.paged_cache.pool_bytes(),
             "counters": dict(self.counters),
+            "scheduler": "ragged" if self._ragged else "two_dispatch",
+            "ragged": (
+                {
+                    "step_token_budget": self._step_token_budget,
+                    "effective_budget": self._step_token_budget,
+                    "prefill_jobs": len(self._prefill_jobs),
+                    "steps": self.counters["ragged_steps"],
+                    "budget_utilization": self._hist_budget.snapshot(),
+                    "step_rows": dict(self.step_rows),
+                    "decode_steps": self._ragged_decode_steps,
+                    "decode_tokens": self.counters["ragged_decode_tokens"],
+                    "tokens_per_launch": self._hist_launch_tokens.snapshot(),
+                }
+                if self._ragged
+                else None
+            ),
         }
 
     async def wait_drained(self, timeout: float = 30.0) -> None:
@@ -252,11 +365,20 @@ class LLMEngineCore:
     async def _run_loop(self) -> None:
         try:
             while not self._stopped:
-                await self._admit()
+                if self._ragged:
+                    self._ragged_admission()
+                else:
+                    await self._admit()
                 active = np.array([r is not None for r in self._slot_req])
-                if not active.any():
+                if not active.any() and not self._prefill_jobs:
                     if not self._pending:
                         return  # drained; a new generate() restarts the loop
+                    continue
+                if self._prefill_jobs:
+                    # ragged phase: one mixed launch per step while
+                    # admissions are in progress
+                    await self._ragged_step(active)
+                    await asyncio.sleep(0)
                     continue
                 try:
                     chunk, exhausted = await asyncio.to_thread(self._decode_chunk, active)
@@ -271,6 +393,8 @@ class LLMEngineCore:
             for slot, request in enumerate(self._slot_req):
                 if request is not None:
                     self._fail_slot(slot, ex)
+            for job in list(self._prefill_jobs):
+                self._fail_ragged_job(job, ex)
             raise
 
     async def _admit(self) -> None:
@@ -325,18 +449,23 @@ class LLMEngineCore:
         self.paged_cache.write_prompt(
             slot, cache["k"][:, 0, :n], cache["v"][:, 0, :n], n, *scales
         )
+        first_id = self._first_token(request, last)
+        self.counters["prefills"] += 1
+        self.counters["prefill_ms"] += (time.perf_counter() - t0) * 1e3
+        return first_id
+
+    def _first_token(self, request: GenRequest, last_logits: torch.Tensor) -> int:
+        """A request's first token from its prompt's last logits [1, vocab]
+        (both schedulers sample it here)."""
         params = SamplingParams(
             temperature=torch.tensor([request.temperature], dtype=torch.float32,
                                      device=self.device),
             top_k=torch.tensor([request.top_k], dtype=torch.int32, device=self.device),
             top_p=torch.tensor([request.top_p], dtype=torch.float32, device=self.device),
         )
-        first = sample_tokens(last.float(), params, generator=self._gen,
+        first = sample_tokens(last_logits.float(), params, generator=self._gen,
                               all_greedy=request.temperature <= 0)
-        first_id = int(first.item())
-        self.counters["prefills"] += 1
-        self.counters["prefill_ms"] += (time.perf_counter() - t0) * 1e3
-        return first_id
+        return int(first.item())
 
     def _activate_slot(self, request: GenRequest, slot: int, first_id: int) -> None:
         self._slot_req[slot] = request
@@ -442,3 +571,325 @@ class LLMEngineCore:
             or request.prompt_len + request.produced >= self.max_seq_len
         ):
             self._finish_slot(slot, request)
+
+    # -- ragged scheduler ------------------------------------------------------
+
+    def _ragged_admission(self) -> None:
+        """FIFO admission into free slots under the ragged scheduler: each
+        request opens a job at prompt position 0 whose prompt rides the
+        loop's launches as chunk rows (the reference's
+        ``_ragged_admission_task`` and ``_start_ragged_job``; this slice has
+        no worker-thread preparation and no prefix cache, so the job opens
+        at once)."""
+        free = [i for i, r in enumerate(self._slot_req)
+                if r is None and i not in self._admitting]
+        while free and self._pending and not self._stopped:
+            request = self._pending.popleft()
+            if request.cancelled:
+                request.out_queue.put_nowait(_FINISHED)
+                continue
+            slot = free.pop(0)
+            self._admitting.add(slot)
+            self._prefill_jobs.append(_RaggedJob(request=request, slot=slot))
+
+    def _fail_ragged_job(self, job: _RaggedJob, err: Optional[BaseException]) -> None:
+        """Fail one in-progress admission (err None = cancelled): free its
+        slot's pages and unblock its consumer."""
+        if job in self._prefill_jobs:  # identity (dataclass eq=False)
+            self._prefill_jobs.remove(job)
+        self._admitting.discard(job.slot)
+        if err is not None:
+            job.request.error = err
+        job.request.out_queue.put_nowait(_FINISHED)
+        self.paged_cache.pool.free(job.slot)
+
+    def _sweep_ragged_jobs(self) -> None:
+        """Drop cancelled jobs before planning a step: budget spent on a dead
+        admission is budget stolen from live ones."""
+        for job in list(self._prefill_jobs):
+            if job.request.cancelled:
+                self._fail_ragged_job(job, None)
+
+    def _prepare_ragged(self, active_mask: np.ndarray) -> Optional[dict]:
+        """Loop-thread half of a ragged step: sweep dead jobs, give each live
+        job its token share of the budget in admission order, widen the
+        decode rows' windows from the budget left over, and lay the rows out
+        on the flat token axis. Returns None when nothing is dispatchable."""
+        self._sweep_ragged_jobs()
+        decode_mask = active_mask.copy()
+        budget = self._step_token_budget
+        n_decode = int(decode_mask.sum())
+        shares: List[tuple] = []
+        left = max(0, budget - n_decode)
+        for job in self._prefill_jobs:
+            if left <= 0:
+                break
+            take = min(left, len(job.request.prompt_ids) - job.pos)
+            if take <= 0:
+                continue
+            shares.append((job, take))
+            left -= take
+        if n_decode == 0 and not shares:
+            return None
+        # multi-step decode windows from the LEFTOVER budget, bucketed to a
+        # power of two; every row clamps to its own max-token and sequence
+        # bounds (a q=N row costs N budget tokens)
+        plain_slots = [int(s) for s in np.nonzero(decode_mask)[0]]
+        launch_steps = 1
+        if plain_slots and self._ragged_steps_cap > 1 and left > 0:
+            launch_steps = shapes.decode_steps_bucket(
+                1 + left // len(plain_slots), cap=self._ragged_steps_cap)
+        row_steps = np.zeros(self.max_batch, np.int32)
+        for slot in plain_slots:
+            request = self._slot_req[slot]
+            remaining_new = request.max_new_tokens - request.produced
+            remaining_len = self.max_seq_len - (request.prompt_len + request.produced)
+            row_steps[slot] = max(1, min(launch_steps, remaining_new, remaining_len))
+        job_of = {job.slot: (job, take) for job, take in shares}
+        # layout lens reserve each row's WHOLE window on the flat axis (a
+        # q=N decode row owns N positions: position 0 rides the mixed pass,
+        # positions 1.. are written by the chained decode steps); kernel
+        # row_lens count only the positions the mixed pass computes
+        span_lens = np.zeros(self.max_batch, np.int32)
+        row_lens = np.zeros(self.max_batch, np.int32)
+        for slot in plain_slots:
+            span_lens[slot] = row_steps[slot]
+            row_lens[slot] = 1
+        for slot, (_job, take) in job_of.items():
+            span_lens[slot] = row_lens[slot] = take
+        starts, block_rows, block_q0, tpad = ragged_layout(
+            span_lens, self._ragged_qb, total=self._ragged_tpad)
+        pool = self.paged_cache.pool
+        tokens = np.zeros(tpad, np.int64)
+        tok_pos = np.zeros(tpad, np.int32)
+        tok_row = np.zeros(tpad, np.int32)
+        tok_valid = np.zeros(tpad, bool)
+        row_last = np.zeros(self.max_batch, np.int32)
+        kv_lens = np.zeros(self.max_batch, np.int32)
+        pre_lens = np.zeros(self.max_batch, np.int32)
+        spans: Dict[int, tuple] = {}
+        for slot in range(self.max_batch):
+            n = int(span_lens[slot])
+            if n == 0:
+                continue
+            s = int(starts[slot])
+            v = int(row_lens[slot])
+            pre = pool.slot_length(slot)
+            pre_lens[slot] = pre
+            if slot in job_of:
+                job, _take = job_of[slot]
+                tokens[s:s + n] = job.request.prompt_ids[job.pos:job.pos + n]
+            else:
+                tokens[s] = self._next_token[slot]
+            spans[slot] = (s, n)
+            tok_pos[s:s + n] = pre + np.arange(n, dtype=np.int32)
+            tok_row[s:s + n] = slot
+            # reserved multi-step positions stay invalid in the mixed pass:
+            # their tokens are sampled in-launch and their K/V written by
+            # the chained decode steps
+            tok_valid[s:s + v] = True
+            row_last[slot] = s + v - 1
+            kv_lens[slot] = pre + v
+        return {
+            "decode_mask": decode_mask,
+            "shares": shares,
+            "budget": budget,
+            "sampling": self._sampling(),
+            "all_greedy": not (self._temperature[decode_mask] > 0).any(),
+            "row_steps": row_steps,
+            "launch_steps": launch_steps,
+            # per-step window mask [S-1, B]: step i runs for rows whose
+            # window is still open (EOS mid-window is masked at retire)
+            "chain_mask": (np.arange(1, launch_steps)[:, None] < row_steps[None, :]
+                           if launch_steps > 1 else None),
+            # rows whose admission completes this step: only their logits
+            # are gathered for the first token
+            "finish_slots": [job.slot for job, take in shares
+                             if job.pos + take >= len(job.request.prompt_ids)],
+            "exhausted": [],
+            "failed_jobs": [],
+            "tokens": tokens, "tok_pos": tok_pos, "tok_row": tok_row,
+            "tok_valid": tok_valid, "row_last": row_last, "kv_lens": kv_lens,
+            "pre_lens": pre_lens, "row_starts": starts, "row_lens": row_lens,
+            "spans": spans,
+            "block_rows": block_rows, "block_q0": block_q0,
+            "write_page": np.zeros(tpad, np.int32),
+            "write_offset": np.zeros(tpad, np.int32),
+        }
+
+    def _ragged_drop_row(self, plan: dict, slot: int) -> None:
+        """Worker-side removal of a row whose page extension failed: its
+        tokens become pads (null-page writes, masked compute); the retire
+        stage fails the decode request or admission job it carried."""
+        s, n = plan["spans"].pop(slot)
+        plan["tokens"][s:s + n] = 0
+        plan["tok_pos"][s:s + n] = 0
+        plan["tok_row"][s:s + n] = 0
+        plan["tok_valid"][s:s + n] = False
+        plan["row_lens"][slot] = 0
+        plan["kv_lens"][slot] = plan["pre_lens"][slot]
+        plan["row_last"][slot] = 0
+        plan["row_steps"][slot] = 0
+        if plan["chain_mask"] is not None:
+            plan["chain_mask"][:, slot] = False
+        if plan["decode_mask"][slot]:
+            plan["decode_mask"][slot] = False
+            plan["exhausted"].append(slot)
+        else:
+            job = next(j for j, _ in plan["shares"] if j.slot == slot)
+            plan["failed_jobs"].append(
+                (job, MemoryError("kv page pool exhausted during ragged admission")))
+
+    def _dispatch_ragged_device(self, plan: dict) -> dict:
+        """Worker thread: page allocation for every row's span, then the
+        step: ``forward_ragged`` over the mixed batch, sampling of the
+        decode rows, ``launch_steps - 1`` chained ``decode_paged`` steps at
+        ``kv_lens + step`` (tokens held where the window is closed), and
+        the finishing rows' logits gathered on the device."""
+        t0 = time.perf_counter()
+        pool = self.paged_cache.pool
+        wp_host, wo_host = plan["write_page"], plan["write_offset"]
+        for slot in list(plan["spans"]):
+            s, n = plan["spans"][slot]
+            try:
+                pool.extend(slot, n)
+            except MemoryError:
+                self._ragged_drop_row(plan, slot)
+                continue
+            for i, (page, offset) in enumerate(
+                    pool.token_coords(slot, int(plan["pre_lens"][slot]), n)):
+                wp_host[s + i] = page
+                wo_host[s + i] = offset
+        launch_steps = plan["launch_steps"]
+        if launch_steps > 1:
+            # a decode row's span positions 1.. become the chained steps'
+            # write coordinates; the mixed pass writes them to the null
+            # page, like any pad
+            chain_wp = np.zeros((launch_steps - 1, self.max_batch), np.int32)
+            chain_wo = np.zeros((launch_steps - 1, self.max_batch), np.int32)
+            for slot, (s, n) in plan["spans"].items():
+                if not plan["decode_mask"][slot]:
+                    continue
+                for i in range(1, n):
+                    chain_wp[i - 1, slot] = wp_host[s + i]
+                    chain_wo[i - 1, slot] = wo_host[s + i]
+                    wp_host[s + i] = 0
+                    wo_host[s + i] = 0
+        dev = self.device
+
+        def on_dev(a):
+            return torch.as_tensor(a, device=dev)
+
+        cache = self.paged_cache
+        scale_kw = ({"k_scales": cache.k_scale, "v_scales": cache.v_scale}
+                    if cache.kv_quant else {})
+        block_kw = ({"block_rows": on_dev(plan["block_rows"]),
+                     "block_q0": on_dev(plan["block_q0"])}
+                    if self._ragged_qb > 1 else {})
+        page_table = on_dev(pool.page_table(self._pages_per_seq))
+        kv_lens = on_dev(plan["kv_lens"])
+        logits = self.model.forward_ragged(
+            on_dev(plan["tokens"]), on_dev(plan["tok_pos"]), on_dev(plan["tok_row"]),
+            on_dev(plan["tok_valid"]), on_dev(plan["row_last"]), cache.k, cache.v,
+            page_table, kv_lens, on_dev(plan["row_starts"]), on_dev(plan["row_lens"]),
+            on_dev(wp_host), on_dev(wo_host), **block_kw, **scale_kw,
+        )
+        sampling, all_greedy = plan["sampling"], plan["all_greedy"]
+        tok = sample_tokens(logits, sampling, generator=self._gen, all_greedy=all_greedy)
+        steps = [tok]
+        if launch_steps > 1:
+            chain_mask = on_dev(plan["chain_mask"])
+            wp, wo = on_dev(chain_wp), on_dev(chain_wo)
+            for step in range(launch_steps - 1):
+                step_logits = self.model.decode_paged(
+                    tok.long(), cache.k, cache.v, page_table, kv_lens + step,
+                    wp[step], wo[step], **scale_kw,
+                )
+                sampled = sample_tokens(step_logits, sampling, generator=self._gen,
+                                        all_greedy=all_greedy)
+                tok = torch.where(chain_mask[step], sampled, tok)
+                steps.append(tok)
+                self.counters["ragged_chain_steps"] += 1
+        sampled = torch.stack(steps).cpu().numpy()                    # [S, B]
+        # only the finishing rows' logits stay for the first-token draw
+        # (rows pad to a power of two with row 0; a dropped row is gone)
+        finish = [s for s in plan["finish_slots"] if s in plan["spans"]]
+        finish_logits = None
+        if finish:
+            rows = np.zeros(shapes.pow2_bucket(len(finish)), np.int64)
+            rows[:len(finish)] = finish
+            finish_logits = logits[on_dev(rows)]
+        self.counters["ragged_ms"] += (time.perf_counter() - t0) * 1e3
+        return {"sampled": sampled, "logits": finish_logits, "finish_rows": finish}
+
+    async def _ragged_step(self, active_mask: np.ndarray) -> None:
+        """One ragged scheduling iteration: ONE mixed launch carries every
+        decode row and as many prefill-chunk rows as fit the budget; serial
+        dispatch -> sync -> emit. A failed launch fails the requests and
+        jobs it carried; the loop keeps serving."""
+        plan = self._prepare_ragged(active_mask)
+        if plan is None:
+            return
+        try:
+            result = await asyncio.to_thread(self._dispatch_ragged_device, plan)
+        except Exception as ex:
+            logger.exception("ragged step failed")
+            for slot in np.nonzero(plan["decode_mask"])[0]:
+                self._fail_slot(int(slot), ex)
+            for job, _take in plan["shares"]:
+                if job in self._prefill_jobs:
+                    self._fail_ragged_job(job, ex)
+            return
+        self._retire_ragged(plan, result)
+
+    def _retire_ragged(self, plan: dict, result: dict) -> None:
+        """Loop-thread tail of a ragged step: each decode row emits its
+        window in order under the mid-window EOS mask (a row finishing
+        inside its window drops the surplus) and keeps the window's last
+        token as its next pending one; each job advances by its chunk, and
+        a job whose final chunk landed samples its first token and
+        activates its slot."""
+        sampled = result["sampled"]
+        for slot in plan["exhausted"]:
+            self._fail_slot(slot, MemoryError("kv page pool exhausted for this sequence"))
+        plain_slots = [int(s) for s in np.nonzero(plan["decode_mask"])[0]]
+        emitted = 0
+        for slot in plain_slots:
+            n = int(plan["row_steps"][slot])
+            for i in range(n):
+                if self._slot_req[slot] is None:
+                    break                      # mid-window EOS mask
+                self._emit(slot, int(sampled[i, slot]))
+                emitted += 1
+            if self._slot_req[slot] is not None:
+                self._next_token[slot] = int(sampled[n - 1, slot])
+        failed = [j for j, _ in plan["failed_jobs"]]
+        live_shares = [(j, t) for j, t in plan["shares"] if not any(j is f for f in failed)]
+        self.counters["ragged_steps"] += 1
+        self.counters["ragged_decode_tokens"] += emitted
+        self.step_rows["decode"] += len(plain_slots)
+        self.step_rows["prefill"] += len(live_shares)
+        if plain_slots:
+            self._hist_launch_tokens.observe(emitted)
+        used = int(plan["row_steps"].sum()) + sum(t for _, t in live_shares)
+        self._hist_budget.observe(used / max(1, plan["budget"]))
+        for job, err in plan["failed_jobs"]:
+            self._fail_ragged_job(job, err)
+        for job, take in live_shares:
+            if job not in self._prefill_jobs:  # failed since planning
+                continue
+            job.pos += take
+            if job.pos < len(job.request.prompt_ids):
+                continue
+            # final chunk landed: the row's last-token logits are the
+            # prompt's prefill logits
+            request = job.request
+            self._prefill_jobs.remove(job)
+            self._admitting.discard(job.slot)
+            if request.cancelled:
+                request.out_queue.put_nowait(_FINISHED)
+                self.paged_cache.pool.free(job.slot)
+                continue
+            row = result["finish_rows"].index(job.slot)
+            first_id = self._first_token(request, result["logits"][row:row + 1])
+            self._activate_slot(request, job.slot, first_id)

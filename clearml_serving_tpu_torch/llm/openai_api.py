@@ -5,7 +5,7 @@ Counterpart of ``clearml_serving_tpu/llm/openai_api.py``'s
 ``engine`` block (``preset``, ``config``, ``cache``, ``kv_quant``,
 ``max_batch``, ``max_seq_len``, ``decode_steps``, ``page_size``,
 ``num_pages``, ``prefill_buckets``, ``pipeline_depth``, ``scheduler``,
-``seed``), and ``chat/completions`` (``n=1``, streaming or not,
+``step_token_budget``, ``ragged_decode_steps``, ``seed``), and ``chat/completions`` (``n=1``, streaming or not,
 ``max_tokens``, ``temperature``/``top_p``/``top_k``, ``stop`` strings) and
 ``models`` answer with the reference's response shapes. Text handling
 (stop-string trimming, streamed deltas, finish reasons) follows the
@@ -32,7 +32,7 @@ from .tokenizer import ByteTokenizer
 ENGINE_KEYS = (
     "preset", "arch", "config", "cache", "kv_quant", "max_batch", "max_seq_len",
     "decode_steps", "page_size", "num_pages", "prefill_buckets",
-    "pipeline_depth", "scheduler", "seed",
+    "pipeline_depth", "scheduler", "step_token_budget", "ragged_decode_steps", "seed",
 )
 
 CHAT_FIELDS = (
@@ -94,7 +94,18 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
         pipeline_depth=(
             int(engine_cfg["pipeline_depth"]) if engine_cfg.get("pipeline_depth") else None
         ),
+        # ragged token-budget scheduler: chunked prefill and decode rows in
+        # one launch per step, paced by step_token_budget; decode rows carry
+        # up to ragged_decode_steps chained tokens (unset: decode_steps)
         scheduler=engine_cfg.get("scheduler"),
+        step_token_budget=(
+            int(engine_cfg["step_token_budget"])
+            if engine_cfg.get("step_token_budget") else None
+        ),
+        ragged_decode_steps=(
+            int(engine_cfg["ragged_decode_steps"])
+            if engine_cfg.get("ragged_decode_steps") else None
+        ),
     )
     return engine, tokenizer
 

@@ -1,9 +1,11 @@
-"""Llama-3-family decoder in PyTorch: the prefill and paged-decode paths.
+"""Llama-3-family decoder in PyTorch: the prefill, paged-decode and ragged
+mixed-batch paths.
 
 Counterpart of ``clearml_serving_tpu/models/llama.py``. The math follows the
 reference function by function (``_rms_norm``, ``_rope``, ``_qkv``,
 ``_attend``, ``_ffn_dense``, ``_logits``, ``_block``, ``_kv_store``,
-``prefill``, ``decode_paged``), and so does the parameter layout: weights
+``prefill``, ``decode_paged``, ``forward_ragged``), and so does the
+parameter layout: weights
 are ``[in, out]`` so ``x @ w`` reads the same on both sides, and
 ``convert_params`` carries a JAX parameter tree (as numpy arrays) over
 unchanged.
@@ -12,8 +14,9 @@ This slice serves dense SiLU-GLU Llama models with GQA, an untied
 ``lm_head`` and no biases. LoRA, MoE, soft-capping, Gemma-family deltas and
 RoPE scaling raise here; they arrive with later slices of the port.
 
-``decode_paged`` writes the new token's K/V into the pools in place
-(``index_put_``), where the JAX function returns rebound pool arrays.
+``decode_paged`` and ``forward_ragged`` write the new tokens' K/V into the
+pools in place (``index_put_``), where the JAX functions return rebound pool
+arrays.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.paged_attention import paged_attention
+from ..ops.paged_attention import paged_attention, ragged_paged_attention
 
 # Named configs: full Llama-3-8B plus scaled-down variants for tests/benches
 # (copied from the reference's PRESETS).
@@ -327,6 +330,67 @@ class Llama(nn.Module):
 
             x = self._block(layer, x, attn)
         return self._logits(x)[:, 0]
+
+    @torch.no_grad()
+    def forward_ragged(self, tokens, tok_pos, tok_row, tok_valid, row_last,
+                       k_pools, v_pools, page_table, kv_lens, row_starts, row_lens,
+                       write_page, write_offset, block_rows=None, block_q0=None,
+                       lora_idx=None, *, k_scales=None, v_scales=None,
+                       row_logit_idx=None, tree_anc=None):
+        """One forward step over a ragged mixed batch (the reference's
+        ``forward_ragged``): decode rows contribute their pending token,
+        prefill rows a prompt chunk, all flattened into one token axis.
+
+        tokens/tok_pos/tok_row/tok_valid/write_page/write_offset [T] (pads:
+        token 0 at null page 0); row_last/kv_lens/row_starts/row_lens [R]
+        (kv_lens counts this step's tokens); block_rows/block_q0 the
+        kernel's q-block map (``ops.paged_attention.ragged_layout``). Every
+        token embeds at its own position, writes its K/V (and int8 scales)
+        into the pools in place, and attends through
+        ``ragged_paged_attention``. Returns logits [R, vocab] f32 at each
+        row's last real token."""
+        if lora_idx is not None:
+            raise NotImplementedError(
+                "forward_ragged lora_idx: LoRA arrives with the secondary-paths "
+                "slice of the port")
+        if row_logit_idx is not None or tree_anc is not None:
+            raise NotImplementedError(
+                "forward_ragged {}: speculative verify rows arrive with the "
+                "speculation slice of the port".format(
+                    "row_logit_idx" if row_logit_idx is not None else "tree_anc"))
+        if self.kv_quant and k_scales is None:
+            raise ValueError("kv_quant forward_ragged needs k_scales/v_scales")
+        t = tokens.shape[0]
+        cos, sin = rope(tok_pos[:, None], self.head_dim, self.theta)
+        x = self.embed[tokens][:, None]                               # [T, 1, dim]
+        wp = write_page.long()
+        wo = write_offset.long()
+        q_prescale = self.query_scale * (self.head_dim ** 0.5)
+        for li, layer in enumerate(self.layers):
+            def attn(h, li=li, layer=layer):
+                q, k, v = self._qkv(layer, h, cos, sin)               # q [T,1,H,D]
+                k_q, k_s = kv_store(k, self.kv_quant, self.dtype)
+                v_q, v_s = kv_store(v, self.kv_quant, self.dtype)
+                k_pool, v_pool = k_pools[li], v_pools[li]
+                k_pool[:, wp, wo] = k_q[:, 0].transpose(0, 1).to(k_pool.dtype)
+                v_pool[:, wp, wo] = v_q[:, 0].transpose(0, 1).to(v_pool.dtype)
+                scale_kw = {}
+                if self.kv_quant:
+                    k_scales[li][:, wp, wo] = k_s[:, 0].transpose(0, 1)
+                    v_scales[li][:, wp, wo] = v_s[:, 0].transpose(0, 1)
+                    scale_kw = {"k_scale": k_scales[li], "v_scale": v_scales[li]}
+                qg = q[:, 0].reshape(t, self.n_kv_heads, self.group, self.head_dim)
+                if q_prescale != 1.0:
+                    qg = qg * torch.tensor(q_prescale, dtype=qg.dtype, device=qg.device)
+                out = ragged_paged_attention(
+                    qg.contiguous(), k_pool, v_pool, page_table, kv_lens, row_starts,
+                    row_lens, block_rows=block_rows, block_q0=block_q0, **scale_kw,
+                )                                                     # [T,Hkv,G,D]
+                return out.reshape(t, 1, self.n_heads * self.head_dim).to(x.dtype)
+
+            x = self._block(layer, x, attn)
+        last_x = x[:, 0][row_last.long()][:, None]                    # [R, 1, dim]
+        return self._logits(last_x)[:, 0]
 
 
 def init_params(config: dict, generator: torch.Generator,

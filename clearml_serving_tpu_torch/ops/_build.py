@@ -22,7 +22,7 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("paged_attention.cu",)
+SOURCES = ("paged_attention.cu", "ragged_paged_attention.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libtpu_torch_kernels.so"
 NVCC_FLAGS = (
@@ -120,6 +120,13 @@ def load_library() -> ctypes.CDLL:
             # batch, hkv, groups, head_dim, n_pages, page_size, pages_per_seq,
             # kv_int8; stream
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = lib.tpu_torch_ragged_paged_attention
+            # q, k_pool, v_pool, k_scale, v_scale, page_table, kv_lens,
+            # row_lens, block_rows, block_q0, out; n_blocks, hkv, groups,
+            # head_dim, n_pages, page_size, pages_per_seq, n_rows, kv_int8;
+            # stream
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -1,8 +1,10 @@
-"""Paged decode attention: a CUDA kernel for Hopper and its plain version.
+"""Paged attention: CUDA kernels for Hopper and their plain versions.
 
-Counterpart of ``clearml_serving_tpu/ops/paged_attention.py`` (the Pallas
-kernel ``paged_attention`` and its XLA reference ``paged_attention_xla``).
-Layout, head-major pools as in the reference::
+Counterpart of ``clearml_serving_tpu/ops/paged_attention.py``: the Pallas
+kernels ``paged_attention`` (decode) and ``ragged_paged_attention`` (mixed
+prefill-chunk and decode rows in one launch) and their XLA references
+``paged_attention_xla`` / ``ragged_paged_attention_xla``. Layout of the
+decode kernel, head-major pools as in the reference::
 
     q            [B, Hkv, G, D]   one new token per sequence, query heads
                                   grouped under their shared KV head (GQA)
@@ -10,18 +12,22 @@ Layout, head-major pools as in the reference::
     page_table   [B, PP]  int32   page ids into the pools
     lengths      [B]      int32   tokens present in each sequence
 
-``paged_attention`` launches the hand-written kernel in
-``csrc/paged_attention.cu`` for CUDA tensors and computes
-``paged_attention_ref`` for CPU tensors. On CUDA it launches the kernel or
-raises: operands outside the kernel's gates (see ``check_kernel_gates``) are
-a ``ValueError`` naming the gate, never a silent detour to the plain
-version. ``paged_attention.launches`` counts kernel launches.
+The ragged kernel takes a flat token axis ``q [T, Hkv, G, D]`` whose rows
+are laid out by ``ragged_layout`` (see the section below).
+
+Each wrapper launches its hand-written kernel (``csrc/paged_attention.cu``,
+``csrc/ragged_paged_attention.cu``) for CUDA tensors and computes its plain
+version for CPU tensors. On CUDA it launches the kernel or raises: operands
+outside the kernel's gates are a ``ValueError`` naming the gate, never a
+silent detour to the plain version. ``<wrapper>.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ._build import load_library
@@ -32,27 +38,26 @@ KERNEL_MAX_GROUP = 8
 KERNEL_PAGE_SIZES = (16, 32)
 
 
-def paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
-                        k_scale=None, v_scale=None):
-    """Plain PyTorch version (the reference's ``paged_attention_xla``).
-
-    Gathers every table entry's page, masks tokens at or past the length,
-    and takes a stable softmax in f32; zero-length rows give zeros. int8
-    pools dequantize in f32 with the per-(token, head) scales and cast to
-    the query dtype before the attention math, as the reference does."""
-    b, hkv, _g, d = q.shape
-    p = k_pool.shape[2]
-    pp = page_table.shape[1]
+def _gather_rows(pool, scale, page_table, dtype):
+    """Each table row's pages as one sequence: [Hkv, R, PP*P, D] in
+    ``dtype`` (int8 pools dequantized in f32 with their per-token scales,
+    then cast, as the reference does)."""
+    hkv, _n, p, d = pool.shape
+    r, pp = page_table.shape
     idx = page_table.long()
-    k = k_pool[:, idx].reshape(hkv, b, pp * p, d)
-    v = v_pool[:, idx].reshape(hkv, b, pp * p, d)
-    if k_scale is not None:
-        ks = k_scale[:, idx].reshape(hkv, b, pp * p, 1)
-        vs = v_scale[:, idx].reshape(hkv, b, pp * p, 1)
-        k = (k.float() * ks).to(q.dtype)
-        v = (v.float() * vs).to(q.dtype)
-    t_idx = torch.arange(pp * p, device=q.device)[None]
-    valid = (t_idx < lengths.long()[:, None])[:, None, None, :]      # [B,1,1,T]
+    rows = pool[:, idx].reshape(hkv, r, pp * p, d)
+    if scale is None:
+        return rows
+    return (rows.float() * scale[:, idx].reshape(hkv, r, pp * p, 1)).to(dtype)
+
+
+def _attend(q, k, v, valid):
+    """Masked softmax attention of one query per batch entry over its own
+    gathered sequence: q [B, Hkv, G, D], k/v [Hkv, B, C, D], valid [B, C].
+    The decode and ragged plain versions both end here, so a ragged decode
+    row computes exactly the decode version's arithmetic."""
+    d = q.shape[-1]
+    valid = valid[:, None, None, :]                                 # [B,1,1,C]
     scores = torch.einsum("bkgd,kbtd->bkgt", q.float(), k.float()) * (d ** -0.5)
     scores = scores.masked_fill(~valid, float("-inf"))
     row_max = scores.amax(dim=-1, keepdim=True).clamp(min=-1e30)
@@ -63,9 +68,69 @@ def paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
     return out.to(q.dtype)
 
 
-def _need(cond: bool, gate: str, detail: str) -> None:
+def paged_attention_ref(q, k_pool, v_pool, page_table, lengths,
+                        k_scale=None, v_scale=None):
+    """Plain PyTorch version (the reference's ``paged_attention_xla``).
+
+    Gathers every table entry's page, masks tokens at or past the length,
+    and takes a stable softmax in f32; zero-length rows give zeros. int8
+    pools dequantize in f32 with the per-(token, head) scales and cast to
+    the query dtype before the attention math, as the reference does."""
+    k = _gather_rows(k_pool, k_scale, page_table, q.dtype)
+    v = _gather_rows(v_pool, v_scale, page_table, q.dtype)
+    t_idx = torch.arange(k.shape[2], device=q.device)[None]
+    return _attend(q, k, v, t_idx < lengths.long()[:, None])
+
+
+def _need(cond: bool, gate: str, detail: str, kernel: str = "paged_attention") -> None:
     if not cond:
-        raise ValueError("paged_attention gate {}: {}".format(gate, detail))
+        raise ValueError("{} gate {}: {}".format(kernel, gate, detail))
+
+
+def _check_heads_and_pools(q, k_pool, v_pool, k_scale, v_scale, kernel: str) -> bool:
+    """The gates both kernels share: q [*, Hkv, G, D] bf16 and the pools
+    with their scales. Returns whether the pools are int8."""
+    def need(cond, gate, detail):
+        _need(cond, gate, detail, kernel)
+
+    need(q.dim() == 4, "q.shape", "q must be 4-D [*, Hkv, G, D], got {}".format(tuple(q.shape)))
+    _, hkv, g, d = q.shape
+    need(q.dtype == torch.bfloat16, "q.dtype",
+         "the kernel takes bfloat16 queries, got {}".format(q.dtype))
+    need(d in KERNEL_HEAD_DIMS, "head_dim",
+         "head_dim must be one of {}, got {}".format(KERNEL_HEAD_DIMS, d))
+    need(1 <= g <= KERNEL_MAX_GROUP, "group",
+         "G = query heads per KV head must be 1..{}, got {}".format(KERNEL_MAX_GROUP, g))
+    need(k_pool.dim() == 4 and k_pool.shape[0] == hkv and k_pool.shape[3] == d,
+         "pool.shape", "pools must be [Hkv={}, N, P, D={}], got {}".format(
+             hkv, d, tuple(k_pool.shape)))
+    need(v_pool.shape == k_pool.shape, "pool.shape",
+         "k/v pools differ: {} vs {}".format(tuple(k_pool.shape), tuple(v_pool.shape)))
+    need(k_pool.shape[2] in KERNEL_PAGE_SIZES, "page_size",
+         "page_size must be one of {}, got {}".format(KERNEL_PAGE_SIZES, k_pool.shape[2]))
+    need(k_pool.dtype == v_pool.dtype and k_pool.dtype in (torch.bfloat16, torch.int8),
+         "pool.dtype", "pools must both be bfloat16 or both int8, got {} / {}".format(
+             k_pool.dtype, v_pool.dtype))
+    quantized = k_pool.dtype == torch.int8
+    if quantized:
+        need(k_scale is not None and v_scale is not None, "scales",
+             "int8 pools need k_scale/v_scale")
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            need(sc.dtype == torch.float32 and tuple(sc.shape) == tuple(k_pool.shape[:3]),
+                 "scales", "{} must be float32 {}, got {} {}".format(
+                     name, tuple(k_pool.shape[:3]), sc.dtype, tuple(sc.shape)))
+    else:
+        need(k_scale is None and v_scale is None, "scales",
+             "scales given but the pools are not int8")
+    return quantized
+
+
+def _check_placement(operands, kernel: str) -> None:
+    _need(all(t.is_contiguous() for t in operands), "contiguous",
+          "every operand must be contiguous", kernel)
+    _need(len({t.device for t in operands}) == 1, "device",
+          "operands on several devices: {}".format(sorted({str(t.device) for t in operands})),
+          kernel)
 
 
 def check_kernel_gates(q, k_pool, v_pool, page_table, lengths,
@@ -73,35 +138,8 @@ def check_kernel_gates(q, k_pool, v_pool, page_table, lengths,
     """Raise ``ValueError`` naming the gate when the CUDA kernel does not
     take these operands. Checks shapes, dtypes, contiguity and that all
     operands share one device; it reads no tensor values."""
-    _need(q.dim() == 4, "q.shape", "q must be [B, Hkv, G, D], got {}".format(tuple(q.shape)))
-    b, hkv, g, d = q.shape
-    _need(q.dtype == torch.bfloat16, "q.dtype",
-          "the kernel takes bfloat16 queries, got {}".format(q.dtype))
-    _need(d in KERNEL_HEAD_DIMS, "head_dim",
-          "head_dim must be one of {}, got {}".format(KERNEL_HEAD_DIMS, d))
-    _need(1 <= g <= KERNEL_MAX_GROUP, "group",
-          "G = query heads per KV head must be 1..{}, got {}".format(KERNEL_MAX_GROUP, g))
-    _need(k_pool.dim() == 4 and k_pool.shape[0] == hkv and k_pool.shape[3] == d,
-          "pool.shape", "pools must be [Hkv={}, N, P, D={}], got {}".format(
-              hkv, d, tuple(k_pool.shape)))
-    _need(v_pool.shape == k_pool.shape, "pool.shape",
-          "k/v pools differ: {} vs {}".format(tuple(k_pool.shape), tuple(v_pool.shape)))
-    _need(k_pool.shape[2] in KERNEL_PAGE_SIZES, "page_size",
-          "page_size must be one of {}, got {}".format(KERNEL_PAGE_SIZES, k_pool.shape[2]))
-    _need(k_pool.dtype == v_pool.dtype and k_pool.dtype in (torch.bfloat16, torch.int8),
-          "pool.dtype", "pools must both be bfloat16 or both int8, got {} / {}".format(
-              k_pool.dtype, v_pool.dtype))
-    quantized = k_pool.dtype == torch.int8
-    if quantized:
-        _need(k_scale is not None and v_scale is not None, "scales",
-              "int8 pools need k_scale/v_scale")
-        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
-            _need(s.dtype == torch.float32 and tuple(s.shape) == tuple(k_pool.shape[:3]),
-                  "scales", "{} must be float32 {}, got {} {}".format(
-                      name, tuple(k_pool.shape[:3]), s.dtype, tuple(s.shape)))
-    else:
-        _need(k_scale is None and v_scale is None, "scales",
-              "scales given but the pools are not int8")
+    quantized = _check_heads_and_pools(q, k_pool, v_pool, k_scale, v_scale, "paged_attention")
+    b = q.shape[0]
     _need(page_table.dim() == 2 and page_table.shape[0] == b
           and page_table.dtype == torch.int32, "page_table",
           "page_table must be int32 [B={}, PP], got {} {}".format(
@@ -112,10 +150,7 @@ def check_kernel_gates(q, k_pool, v_pool, page_table, lengths,
     operands = [q, k_pool, v_pool, page_table, lengths]
     if quantized:
         operands += [k_scale, v_scale]
-    _need(all(t.is_contiguous() for t in operands), "contiguous",
-          "every operand must be contiguous")
-    _need(len({t.device for t in operands}) == 1, "device",
-          "operands on several devices: {}".format(sorted({str(t.device) for t in operands})))
+    _check_placement(operands, "paged_attention")
 
 
 def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
@@ -151,3 +186,180 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
 
 
 paged_attention.launches = 0
+
+
+# -- ragged paged attention ------------------------------------------------------
+#
+# One launch over rows at mixed phases (prefill chunks, decode tokens),
+# flattened token-major::
+#
+#     q            [T, Hkv, G, D]   every row's tokens, segment by segment
+#     page_table   [R, PP]          one row per batch row
+#     kv_lens      [R]              tokens present per row INCLUDING this
+#                                   step's (K/V are written before the call)
+#     row_starts   [R], row_lens [R]  the ragged row map (row_lens 0 = idle)
+#
+# Query i of row r sits at absolute position kv_lens[r] - row_lens[r] + i
+# and attends KV positions up to its own. The kernel's layout is q-block
+# aligned (``ragged_layout``): each row's segment starts at a multiple of
+# ``RAGGED_QB``, so every block of RAGGED_QB tokens belongs to one row,
+# named by ``block_rows`` / ``block_q0``.
+
+# The CUDA kernel's query block (kQB in csrc/ragged_paged_attention.cu):
+# 8 tokens times G query heads gives Llama-3-8B's G=4 two 16-row tensor-core
+# tiles, while a decode row (one query) pads only 7 tokens.
+RAGGED_QB = 8
+
+
+def ragged_layout(row_lens, q_block: int = RAGGED_QB, total: Optional[int] = None):
+    """Host-side layout of a ragged batch: returns (row_starts [R],
+    block_rows [NB], block_q0 [NB], t_pad) as numpy int32, with every row's
+    flat segment aligned to ``q_block`` (the kernel's one-row-per-q-block
+    contract). ``total`` pads the flat token axis to a fixed size; blocks
+    not owned by any row carry -1."""
+    lens = np.asarray(row_lens, np.int32)
+    starts = np.zeros(lens.shape[0], np.int32)
+    off = 0
+    for r, n in enumerate(lens):
+        starts[r] = off
+        if n > 0:
+            off += -(-int(n) // q_block) * q_block
+    t_pad = -(-max(off, 1) // q_block) * q_block
+    if total is not None:
+        if total < t_pad:
+            raise ValueError(
+                "ragged layout needs {} tokens but total={}".format(t_pad, total)
+            )
+        t_pad = -(-int(total) // q_block) * q_block
+    nb = t_pad // q_block
+    block_rows = np.full(nb, -1, np.int32)
+    block_q0 = np.zeros(nb, np.int32)
+    for r, n in enumerate(lens):
+        if n <= 0:
+            continue
+        b0 = int(starts[r]) // q_block
+        for j in range(-(-int(n) // q_block)):
+            block_rows[b0 + j] = r
+            block_q0[b0 + j] = j * q_block
+    return starts, block_rows, block_q0, int(t_pad)
+
+
+def ragged_paged_attention_ref(q, k_pool, v_pool, page_table, kv_lens,
+                               row_starts, row_lens, k_scale=None, v_scale=None,
+                               tree_anc=None):
+    """Plain PyTorch version (the reference's ``ragged_paged_attention_xla``).
+
+    Returns [T, Hkv, G, D] with zeros at tokens no row owns. Each token's
+    causal bound selects the keys of its row's gathered pages; the attention
+    itself is the decode version's (``_attend``), so a decode row's output
+    is bitwise the decode plain version's on the same operands.
+
+    ``tree_anc`` ([T, DMAX] int32) prunes draft-tree verify rows inside the
+    causal bound: a token attends its row's history plus the in-row indices
+    listed in its row of ``tree_anc``; ``tree_anc[t, 0] == -2`` keeps token
+    t plain causal (``clearml_serving_tpu/ops/paged_attention.py``
+    ``tree_ancestors`` layout)."""
+    t = q.shape[0]
+    dev = q.device
+    t_idx = torch.arange(t, device=dev)
+    starts = row_starts.long()
+    ends = starts + row_lens.long()
+    in_row = (t_idx[None, :] >= starts[:, None]) & (t_idx[None, :] < ends[:, None])  # [R, T]
+    tok_valid = in_row.any(dim=0)
+    tok_row = in_row.to(torch.uint8).argmax(dim=0)                                   # first row
+    kv = kv_lens.long()
+    qi = t_idx - starts[tok_row]
+    base = (kv - row_lens.long())[tok_row]
+    bound = torch.where(tok_valid, torch.minimum(base + qi + 1, kv[tok_row]), 0)     # [T]
+    k = _gather_rows(k_pool, k_scale, page_table, q.dtype)[:, tok_row]              # [Hkv,T,C,D]
+    v = _gather_rows(v_pool, v_scale, page_table, q.dtype)[:, tok_row]
+    cap = torch.arange(k.shape[2], device=dev)[None, :]
+    valid = cap < bound[:, None]                                                     # [T, C]
+    if tree_anc is not None:
+        off = cap - base[:, None]
+        anc = (off[:, :, None] == tree_anc.long()[:, None, :]).any(dim=-1)
+        plain = (tree_anc[:, 0] == -2)[:, None]
+        valid = valid & (plain | (off < 0) | anc)
+    return _attend(q, k, v, valid)
+
+
+def check_ragged_gates(q, k_pool, v_pool, page_table, kv_lens, row_starts, row_lens,
+                       block_rows=None, block_q0=None, k_scale=None, v_scale=None,
+                       tree_anc=None) -> None:
+    """Raise ``ValueError`` naming the gate when the CUDA ragged kernel does
+    not take these operands; it reads no tensor values."""
+    kernel = "ragged_paged_attention"
+
+    def need(cond, gate, detail):
+        _need(cond, gate, detail, kernel)
+
+    need(tree_anc is None, "tree_anc",
+         "the draft-tree mask is not in the CUDA kernel yet (it arrives with the "
+         "speculation slice of the port)")
+    need(block_rows is not None and block_q0 is not None, "block_map",
+         "the kernel needs the host-built q-block map block_rows/block_q0 (ragged_layout)")
+    quantized = _check_heads_and_pools(q, k_pool, v_pool, k_scale, v_scale, kernel)
+    t = q.shape[0]
+    need(t % RAGGED_QB == 0, "q_block",
+         "the flat token count {} must be a multiple of RAGGED_QB={}".format(t, RAGGED_QB))
+    r = page_table.shape[0] if page_table.dim() == 2 else -1
+    need(page_table.dim() == 2 and page_table.dtype == torch.int32, "page_table",
+         "page_table must be int32 [R, PP], got {} {}".format(
+             page_table.dtype, tuple(page_table.shape)))
+    for name, x in (("kv_lens", kv_lens), ("row_starts", row_starts), ("row_lens", row_lens)):
+        need(tuple(x.shape) == (r,) and x.dtype == torch.int32, name,
+             "{} must be int32 [R={}], got {} {}".format(name, r, x.dtype, tuple(x.shape)))
+    for name, x in (("block_rows", block_rows), ("block_q0", block_q0)):
+        need(tuple(x.shape) == (t // RAGGED_QB,) and x.dtype == torch.int32, "block_map",
+             "{} must be int32 [T/RAGGED_QB={}], got {} {}".format(
+                 name, t // RAGGED_QB, x.dtype, tuple(x.shape)))
+    operands = [q, k_pool, v_pool, page_table, kv_lens, row_lens, block_rows, block_q0]
+    if quantized:
+        operands += [k_scale, v_scale]
+    _check_placement(operands, kernel)
+
+
+def ragged_paged_attention(q, k_pool, v_pool, page_table, kv_lens, row_starts, row_lens, *,
+                           block_rows: Optional[torch.Tensor] = None,
+                           block_q0: Optional[torch.Tensor] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           tree_anc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Ragged paged attention over mixed rows, ``[T, Hkv, G, D]`` in q's
+    dtype.
+
+    CPU tensors take ``ragged_paged_attention_ref`` (which needs no block
+    map and packs rows densely or aligned alike); CUDA tensors launch the
+    kernel on the current stream (no synchronisation) or raise. The kernel
+    reads the row map through ``block_rows``/``block_q0`` and ignores
+    ``row_starts``."""
+    if k_pool.dtype == torch.int8 and k_scale is None:
+        raise ValueError("int8 KV pools need k_scale/v_scale operands (per-token dequant)")
+    if q.device.type == "cpu":
+        return ragged_paged_attention_ref(q, k_pool, v_pool, page_table, kv_lens,
+                                          row_starts, row_lens, k_scale, v_scale, tree_anc)
+    if q.device.type != "cuda":
+        raise ValueError("ragged_paged_attention runs on cuda or cpu, got {}".format(q.device))
+    check_ragged_gates(q, k_pool, v_pool, page_table, kv_lens, row_starts, row_lens,
+                       block_rows, block_q0, k_scale, v_scale, tree_anc)
+    t, hkv, g, d = q.shape
+    _, n_pages, page_size, _ = k_pool.shape
+    out = torch.empty_like(q)
+    quantized = k_pool.dtype == torch.int8
+    rc = load_library().tpu_torch_ragged_paged_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        page_table.data_ptr(), kv_lens.data_ptr(), row_lens.data_ptr(),
+        block_rows.data_ptr(), block_q0.data_ptr(), out.data_ptr(),
+        t // RAGGED_QB, hkv, g, d, n_pages, page_size, page_table.shape[1],
+        page_table.shape[0], int(quantized),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError("ragged_paged_attention kernel launch failed: cudaError {}".format(rc))
+    ragged_paged_attention.launches += 1
+    return out
+
+
+ragged_paged_attention.launches = 0

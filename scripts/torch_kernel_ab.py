@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""A/B the port's paged attention kernel against another version of it on
-one GPU, in one process: the change (this checkout's sources) and a
+"""A/B one of the port's attention kernels against another version of it
+on one GPU, in one process: the change (this checkout's sources) and a
 baseline (the sources of another checkout, e.g. the parent commit unpacked
 with ``git archive`` into a directory that .gitignore lists).
 
-    python3 scripts/torch_kernel_ab.py --baseline build/parent
+    python3 scripts/torch_kernel_ab.py --baseline build/parent [--kernel ragged]
 
 Both libraries are built with the same ``nvcc`` flags and called through the
 same C entry point on the same operands. Each case is held against the plain
 PyTorch version (atol = rtol = 2e-2, as chip_smoke.py) and timed in turns
 baseline, change, change, baseline (CUDA events over 300 launches rotating
 through 4 layers' pools, so L2 holds no layer from one call to the next).
-Prints the card line, then one JSON line per case.
+``--kernel paged`` (the default) times decode attention over batches of
+lengths; ``--kernel ragged`` times ragged attention at chip_smoke.py's mixed
+and prefill shapes. Prints the card line, then one JSON line per case.
 """
 
 from __future__ import annotations
@@ -30,7 +32,11 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from clearml_serving_tpu_torch.ops import _build  # noqa: E402
-from clearml_serving_tpu_torch.ops.paged_attention import paged_attention_ref  # noqa: E402
+from clearml_serving_tpu_torch.ops.paged_attention import (  # noqa: E402
+    RAGGED_QB,
+    paged_attention_ref,
+    ragged_paged_attention_ref,
+)
 
 CASES = {
     "8x96": [96] * 8,
@@ -53,11 +59,73 @@ def build_baseline(base: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
+RAGGED_CASES = {
+    "mixed": cs.RAGGED_MIXED,
+    "prefill": cs.RAGGED_PREFILL,
+    "mixed_rows": [(1, 1, 1023), (4, 1, 300), (37, 37, 0), (0, 0, 0), (19, 19, 77),
+                   (130, 130, 517), (1, 1, 64)],
+}
+
+
 def entry(lib: ctypes.CDLL):
     fn = lib.tpu_torch_paged_attention
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def ragged_entry(lib: ctypes.CDLL):
+    fn = lib.tpu_torch_ragged_paged_attention
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ragged_launch(fn, out, q, k, v, table, kv_lens, _starts, row_lens, *, block_rows,
+                  block_q0, k_scale=None, v_scale=None):
+    quant = k.dtype == torch.int8
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+            table.data_ptr(), kv_lens.data_ptr(), row_lens.data_ptr(), block_rows.data_ptr(),
+            block_q0.data_ptr(), out.data_ptr(), q.shape[0] // RAGGED_QB, q.shape[1],
+            q.shape[2], q.shape[3], k.shape[1], k.shape[2], table.shape[1], table.shape[0],
+            int(quant), torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError("launch failed: cudaError {}".format(rc))
+
+
+def ab_ragged(fns, gen, layers) -> None:
+    for quant in (False, True):
+        for case, rows in RAGGED_CASES.items():
+            ops = cs.ragged_operands(gen, rows, quant=quant, layers=layers)
+            argl = [cs.ragged_args(ops, li) for li in range(layers)]
+            args, kw = argl[0]
+            q, k, v = args[:3]
+            scales = {key: kw[key] for key in ("k_scale", "v_scale") if key in kw}
+            ref = ragged_paged_attention_ref(q.float(), k if quant else k.float(),
+                                             v if quant else v.float(), *args[3:], **scales)
+            b_ms, b_by = cs.ragged_bound(ops)
+            row = {"case": case, "kv": "int8" if quant else "bf16",
+                   "bound_ms": b_ms, "bound_by": b_by}
+            outs = {}
+            for name, fn in fns.items():
+                outs[name] = torch.empty_like(q)
+                ragged_launch(fn, outs[name], *args, **kw)
+            torch.cuda.synchronize()
+            for name in fns:
+                row[name + "_max_abs_err"] = float((outs[name].float() - ref).abs().max())
+                if not torch.allclose(outs[name].float(), ref, rtol=cs.TOL, atol=cs.TOL):
+                    raise AssertionError("{} disagrees with the plain version".format(name))
+            row["bitwise_equal"] = bool(torch.equal(outs["change"], outs["baseline"]))
+            for name in ("baseline", "change", "change", "baseline"):
+
+                def call(li, fn=fns[name], out=outs[name]):
+                    ragged_launch(fn, out, *argl[li][0], **argl[li][1])
+
+                row.setdefault(name + "_ms", []).append(cs.time_launches(call, layers, 300))
+            print(json.dumps(row), flush=True)
+            del ops, argl
+            torch.cuda.empty_cache()
 
 
 def launch(fn, out, q, k, v, table, lengths, k_scale=None, v_scale=None):
@@ -75,14 +143,20 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", required=True, type=Path,
                         help="root of the checkout holding the baseline sources")
+    parser.add_argument("--kernel", choices=("paged", "ragged"), default="paged",
+                        help="which kernel to compare (default: paged decode attention)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ab: needs a GPU", file=sys.stderr)
         return 2
-    fns = {"change": entry(_build.load_library()), "baseline": entry(build_baseline(args.baseline))}
     print(cs.card_line(), flush=True)
     gen = torch.Generator("cuda").manual_seed(0)
     layers = 4
+    if args.kernel == "ragged":
+        ab_ragged({"change": ragged_entry(_build.load_library()),
+                   "baseline": ragged_entry(build_baseline(args.baseline))}, gen, layers)
+        return 0
+    fns = {"change": entry(_build.load_library()), "baseline": entry(build_baseline(args.baseline))}
     for quant in (False, True):
         for case, lengths in CASES.items():
             ops = cs.paged_operands(gen, lengths=lengths, quant=quant, layers=layers)

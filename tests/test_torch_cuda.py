@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the CUDA
-paged attention kernel against its plain PyTorch version, its gates and
-launch count, and the engine on the card. They skip elsewhere. This file
+paged attention kernels (decode and ragged) against their plain PyTorch
+versions, their gates and launch counts, and the engine on the card under
+both schedulers. They skip elsewhere. This file
 imports neither jax nor the JAX package, so on the card it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -17,8 +18,12 @@ import torch
 from clearml_serving_tpu_torch.llm.engine import GenRequest, LLMEngineCore
 from clearml_serving_tpu_torch.models.llama import Llama, init_params, kv_store
 from clearml_serving_tpu_torch.ops.paged_attention import (
+    RAGGED_QB,
     paged_attention,
     paged_attention_ref,
+    ragged_layout,
+    ragged_paged_attention,
+    ragged_paged_attention_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -106,5 +111,130 @@ def test_engine_on_the_card_runs_the_kernel(cuda):
     streams = asyncio.run(run())
     assert all(1 <= len(s) <= 9 for s in streams)
     assert paged_attention.launches == model.n_layers * engine.counters["decode_steps"] > 0
+    pool = engine.paged_cache.pool
+    assert pool.free_pages == pool.num_pages - 1
+
+
+# ragged rows: (span in the flat axis, query tokens, history before them).
+# Decode rows, a 4-token multi-step decode span (positions 1..3 are pads),
+# prefill chunks at history 0 and mid-history crossing page boundaries, an
+# idle row, a chunk longer than two q blocks.
+RAGGED_ROWS = [(1, 1, 40), (4, 1, 17), (13, 13, 0), (0, 0, 0), (9, 9, 35), (1, 1, 0),
+               (21, 21, 100)]
+
+
+def _ragged_operands(dev, *, g, d, page_size, quant, rows=RAGGED_ROWS, hkv=4, seed=0,
+                     extra_blocks=2):
+    gen = torch.Generator(dev).manual_seed(seed)
+    spans = [s for s, _, _ in rows]
+    row_lens = torch.tensor([n for _, n, _ in rows], dtype=torch.int32)
+    kv_lens = row_lens + torch.tensor([h for _, _, h in rows], dtype=torch.int32)
+    starts, block_rows, block_q0, t_pad = ragged_layout(spans, RAGGED_QB)
+    t_pad += extra_blocks * RAGGED_QB         # unowned blocks at the end
+    block_rows = list(block_rows) + [-1] * extra_blocks
+    block_q0 = list(block_q0) + [0] * extra_blocks
+    r = len(rows)
+    pp = -(-int(kv_lens.max()) // page_size) + 1
+    n = r * pp + 1
+    q = torch.randn(t_pad, hkv, g, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(hkv, n, page_size, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(hkv, n, page_size, d, generator=gen, device=dev).bfloat16()
+    scales = {}
+    if quant:
+        k, ks = kv_store(k, "int8", torch.bfloat16)
+        v, vs = kv_store(v, "int8", torch.bfloat16)
+        scales = {"k_scale": ks, "v_scale": vs}
+    table = (torch.randperm(n - 1, generator=gen, device=dev).int() + 1).reshape(r, pp)
+    i32 = dict(dtype=torch.int32, device=dev)
+    args = (q, k, v, table.contiguous(), kv_lens.to(dev), torch.tensor(starts, **i32),
+            row_lens.to(dev))
+    blocks = dict(block_rows=torch.tensor(block_rows, **i32),
+                  block_q0=torch.tensor(block_q0, **i32))
+    return args, blocks, scales
+
+
+def _owned(args):
+    _q, _k, _v, _table, _kv, starts, row_lens = args
+    owned = torch.zeros(args[0].shape[0], dtype=torch.bool)
+    for s, n in zip(starts.tolist(), row_lens.tolist()):
+        owned[s:s + n] = True
+    return owned.to(args[0].device)
+
+
+@pytest.mark.parametrize("page_size", [16, 32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_ragged_kernel_matches_plain_version(cuda, quant, g, d, page_size):
+    args, blocks, scales = _ragged_operands(cuda, g=g, d=d, page_size=page_size, quant=quant)
+    before = ragged_paged_attention.launches
+    out = ragged_paged_attention(*args, **blocks, **scales)
+    assert ragged_paged_attention.launches == before + 1
+    q, k, v = args[:3]
+    ref = ragged_paged_attention_ref(q.float(), k if quant else k.float(),
+                                     v if quant else v.float(), *args[3:], **scales)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    owned = _owned(args)
+    # multi-step pads, alignment pads and unowned blocks: exact zeros
+    assert torch.equal(out[~owned], torch.zeros_like(out[~owned]))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_ragged_table_entries_past_kv_lens_are_never_read(cuda, quant):
+    args, blocks, scales = _ragged_operands(cuda, g=4, d=128, page_size=16, quant=quant)
+    out = ragged_paged_attention(*args, **blocks, **scales)
+    table, kv_lens = args[3], args[4]
+    poisoned = table.clone()
+    for i, n in enumerate(kv_lens.tolist()):
+        poisoned[i, -(-n // 16):] = 2 ** 30   # an out-of-range read would fault
+    out2 = ragged_paged_attention(*args[:3], poisoned, *args[4:], **blocks, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+def test_ragged_gate_violations_raise_on_cuda(cuda):
+    args, blocks, _ = _ragged_operands(cuda, g=4, d=64, page_size=16, quant=False)
+    q = args[0]
+    with pytest.raises(ValueError, match="ragged_paged_attention gate tree_anc"):
+        ragged_paged_attention(*args, **blocks, tree_anc=torch.full(
+            (q.shape[0], 4), -2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="gate block_map"):
+        ragged_paged_attention(*args)
+    with pytest.raises(ValueError, match="gate q_block"):
+        ragged_paged_attention(q[:-1].contiguous(), *args[1:], **blocks)
+    with pytest.raises(ValueError, match="gate q.dtype"):
+        ragged_paged_attention(q.float(), *args[1:], **blocks)
+    with pytest.raises(ValueError, match="gate page_table"):
+        ragged_paged_attention(*args[:3], args[3].long(), *args[4:], **blocks)
+    with pytest.raises(ValueError, match="gate head_dim"):
+        ragged_paged_attention(q[..., :32].contiguous(), args[1][..., :32].contiguous(),
+                               args[2][..., :32].contiguous(), *args[3:], **blocks)
+
+
+def test_ragged_engine_on_the_card_runs_both_kernels(cuda):
+    cfg = {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 4,
+           "n_kv_heads": 2, "head_dim": 64, "ffn_dim": 512, "dtype": "bfloat16"}
+    model = Llama(cfg, init_params(cfg, torch.Generator(cuda).manual_seed(0), device=cuda))
+    engine = LLMEngineCore(model, max_batch=2, max_seq_len=128, decode_steps=4,
+                           page_size=16, scheduler="ragged", step_token_budget=16)
+
+    async def run():
+        async def one(n, delay):
+            await asyncio.sleep(delay)
+            return [t async for t in engine.generate(
+                GenRequest(prompt_ids=list(range(1, n + 1)), max_new_tokens=9))]
+        return await asyncio.gather(one(5, 0.0), one(40, 0.05), one(20, 0.1))
+
+    paged_attention.launches = 0
+    ragged_paged_attention.launches = 0
+    streams = asyncio.run(run())
+    c = engine.counters
+    assert all(1 <= len(s) <= 9 for s in streams)
+    assert c["ragged_steps"] > 0
+    assert ragged_paged_attention.launches == model.n_layers * c["ragged_steps"]
+    assert paged_attention.launches == model.n_layers * (
+        c["decode_steps"] + c["ragged_chain_steps"])
     pool = engine.paged_cache.pool
     assert pool.free_pages == pool.num_pages - 1

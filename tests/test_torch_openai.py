@@ -101,10 +101,10 @@ def served(tmp_path_factory):
         np_params = jax.tree.map(
             np.asarray, mrp._engine_processor_lookup[URL].engine.params)
 
-        def port_app():
+        def port_app(**aux):
             # a fresh engine per app: the app stops its engine on cleanup
             engine, tok = build_engine(
-                dict(ENGINE_CFG), device="cpu",
+                dict(ENGINE_CFG, **aux), device="cpu",
                 params=convert_params(np_params, device="cpu"),
             )
             return build_app(LLMEngineRequest(engine, tok, URL))
@@ -128,6 +128,17 @@ def test_chat_content_is_byte_identical_to_reference(served):
     assert [g[2] for g in got] == [w[2] for w in want]
     for i in range(0, len(got), 2):
         assert got[i][0] == got[i + 1][0]
+
+
+def test_ragged_route_content_is_byte_identical_to_reference(served):
+    """The same bodies through a port endpoint whose aux block selects the
+    ragged scheduler (prompts prefill in 12-token chunks, decode rows take
+    two-token windows) return the reference's content, finish reasons and
+    usage."""
+    _mrp, port_app, want = served
+    got = _run(port_app(scheduler="ragged", step_token_budget=12, ragged_decode_steps=2),
+               _chat_all)
+    assert got == want
 
 
 def test_stop_string_trims_like_reference(served):
