@@ -16,9 +16,16 @@ exits non-zero before the result lines are printed:
    at history 0 and mid-history, idle rows, multi-step pads, page-crossing
    tails; P 16/32, G 4/8, D 64/128, bf16/int8), timed at a mixed shape and
    a prefill shape;
+3c. the w4a16 matmul kernel against its plain version at every Llama-3-8B
+   projection shape, M 8 (decode), 312 (the ragged flat axis) and 2048
+   (the longest prefill bucket; not the lm_head, which a prefill runs on
+   the last row only), timed beside its bound, the plain version, a bf16
+   ``torch.matmul`` on the dequantized weight and PyTorch's
+   ``_weight_int4pack_mm``;
 4. a small model on the card against the same weights in float32 on the CPU
    (prefill + paged decode logits, bf16 and int8 KV);
 4b. the same model's ``forward_ragged`` over mixed batches;
+4c. 4 and 4b again on int4 weights (the same packed codes on both sides);
 5. the main path: Llama-3-8B at full width (32 layers, dim 4096, bf16,
    random weights from a seed) behind the port's HTTP server, a paged KV
    cache (max_batch 8, max_seq_len 2048, page_size 16, decode_steps 4),
@@ -30,7 +37,14 @@ exits non-zero before the result lines are printed:
    prompts, bf16 then int8 KV: mixed launches must have run, the ragged
    kernel once per layer per ragged step, the decode kernel once per layer
    per decode step and chained ragged window step;
-6. where the time goes: one profiled pass of each scheduler (bf16 KV).
+5c. the w4a16 main path: the same weights quantized to group-int4 on the
+   card (``weight_quant: int4``, bf16 KV) under phase 5's traffic with two
+   of its prompts swapped for long ones (prefill buckets 1024 and 2048),
+   then phase 5b's: the int4 kernel once per projection per forward call (7
+   per layer and the lm_head) and ``health()["weights"]``; then a short
+   two-dispatch run on int8 weights;
+6. where the time goes: one profiled pass of each scheduler (bf16 KV) and
+   one of the two-dispatch path on int4 weights.
 
 The last three lines of standard output are the card line, the ``kernels``
 JSON line and ``{"ok": true, "device": {...}}``. Timings are CUDA-event
@@ -155,6 +169,30 @@ def time_launches(fn, n_layers, iters) -> float:
         fn(i % n_layers)
     end.record()
     sync()
+    return start.elapsed_time(end) / iters
+
+
+def time_graph(fn, n_layers, iters) -> float:
+    """Mean ms per call of ``iters`` calls captured in one CUDA graph and
+    replayed: device time without the host's per-call cost (an int4 decode
+    call is shorter than its wrapper's Python work, so ``time_launches``
+    would time the host). Rotates through the layers' operands as
+    ``time_launches`` does."""
+    for li in range(n_layers):
+        fn(li)
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i % n_layers)
+    graph.replay()
+    sync()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    sync()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -413,6 +451,163 @@ def phase_ragged_kernel(gen) -> dict:
     return dict(err_bf16=errs["bf16"], err_int8=errs["int8"], timings=timings)
 
 
+# -- phase 3c: the w4a16 matmul kernel vs plain version ---------------------------
+
+# Llama-3-8B's projections as (K, N), with their calls per decode step (one
+# forward over 32 layers: 7 projections per layer and the lm_head)
+INT4_SHAPES = {
+    "wq/wo": ((4096, 4096), 64),
+    "wk/wv": ((4096, 1024), 64),
+    "w_gate/w_up": ((4096, 14336), 64),
+    "w_down": ((14336, 4096), 32),
+    "lm_head": ((4096, 128256), 1),
+}
+INT4_PRIMARY = ("w_gate/w_up", 8)   # the kernels line's headline call
+# a decode batch; the ragged flat axis; the longest prefill bucket
+INT4_ROWS = (8, 312, 2048)
+
+
+def int4_rows(name):
+    """The row counts the main path gives a projection: a prefill takes
+    the lm_head on its last row only."""
+    return [m for m in INT4_ROWS if name != "lm_head" or m <= 312]
+
+
+def int4_bound(m, k, n, groups):
+    """(ms, "bytes" | "operations"): least time for x [m, k] @ dequant(W
+    [k, n]): the packed codes, the scales, x and the output each moved once
+    over the memory rate, or 2*m*k*n operations over the bf16 peak."""
+    nbytes = k * n // 2 + groups * n * 4 + m * k * 2 + m * n * 2
+    t_bytes, t_ops = nbytes / CARD_BW, 2.0 * m * k * n / CARD_BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_int4(x, qs):
+    """PyTorch's own w4a16 product on the same function, or the error that
+    refused it: ``_weight_int4pack_mm`` on the codes repacked by
+    ``_convert_weight_to_int4pack`` ([N, K/2] uint8, even K in the high
+    nibble) with zero offsets (it dequantizes (code - 8) * scale + zero).
+    Returns (call(i) on copy i of the weights, None) or (None, error).
+    Timed only; the port never calls it."""
+    try:
+        packed = []
+        for q, s in qs:
+            repacked = (((q & 0xF) << 4) | (q >> 4)).t().contiguous()
+            sz = torch.stack([s, torch.zeros_like(s)], dim=-1).bfloat16().contiguous()
+            packed.append((torch.ops.aten._convert_weight_to_int4pack(repacked, 8), sz,
+                           2 * q.shape[0] // s.shape[0]))
+
+        def call(i):
+            w, sz, group = packed[i]
+            return torch.ops.aten._weight_int4pack_mm(x, w, group, sz)
+
+        call(0)
+        return call, None
+    except Exception as ex:  # the yardstick only: a refusal is recorded, not fatal
+        return None, "{}: {}".format(type(ex).__name__, str(ex).splitlines()[0][:200])
+
+
+def phase_int4_kernel(gen) -> dict:
+    """Kernel vs the plain version computed in f32 on the same bf16 inputs
+    at every projection shape and both row counts; then times at each:
+    the kernel, the plain version as the card would run it (bf16 dequant,
+    then torch.matmul), a bf16 torch.matmul on the dequantized weight and
+    the library's int4 product, rotating through copies of the weights that
+    together exceed the 50 MB L2. Device times come from CUDA-graph
+    replays; ``eager_ms`` is the kernel called through its Python wrapper
+    one call after another, the per-call cost the host-bound main path
+    pays."""
+    from clearml_serving_tpu_torch.ops.fused_matmul import (
+        fused_int4_matmul, int4_matmul_plain,
+    )
+    from clearml_serving_tpu_torch.ops.quant import dequantize_int4, quantize_int4
+
+    log("phase 3c: fused_int4_matmul kernel vs plain version (atol=rtol={})".format(TOL))
+    dev = torch.device(DEV)
+    err = 0.0
+    timings = {}
+    for name, ((k, n), _calls) in INT4_SHAPES.items():
+        w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+        q, s = quantize_int4(w)
+        del w
+        groups = s.shape[0]
+        copies = max(2, -(-120_000_000 // (q.numel() + s.numel() * 4)))
+        qs = [(q, s)] + [(q.clone(), s.clone()) for _ in range(copies - 1)]
+        w_bf16 = dequantize_int4(q, s, torch.bfloat16)
+        copies_bf16 = max(2, -(-120_000_000 // (w_bf16.numel() * 2)))
+        ws = [w_bf16] + [w_bf16.clone() for _ in range(copies_bf16 - 1)]
+        for m in int4_rows(name):
+            x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+            out = fused_int4_matmul(x, q, s)
+            ref = int4_matmul_plain(x.float(), q, s, torch.float32)
+            sync()
+            e = float((out.float() - ref).abs().max())
+            ok = bool(torch.isfinite(out).all()) and torch.allclose(out.float(), ref,
+                                                                    rtol=TOL, atol=TOL)
+            log("  {:<12} x[{}, {}] @ W[{}, {}]  max_abs_err {:.3e}  {}".format(
+                name, m, k, k, n, e, "ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError("fused_int4_matmul disagrees with its plain version: "
+                                     "{} M={}".format(name, m))
+            err = max(err, e)
+            del out, ref
+            before = fused_int4_matmul.launches
+
+            def kernel(i, x=x):
+                fused_int4_matmul(x, *qs[i])
+
+            def plain(i, x=x):
+                int4_matmul_plain(x, *qs[i], torch.bfloat16)
+
+            def bf16(i, x=x):
+                torch.matmul(x, ws[i])
+
+            iters = 400 if m <= 16 else 100 if m <= 512 else 20
+            row = dict(ms=time_graph(kernel, copies, iters),
+                       eager_ms=time_launches(kernel, copies, iters),
+                       plain_ms=time_graph(plain, copies, max(4, copies)),
+                       bf16_ms=time_graph(bf16, copies_bf16, iters))
+            lib_call, lib_err = library_int4(x, qs)
+            row["library_ms"] = None
+            row["library_error"] = lib_err
+            if lib_call is not None:
+                got = lib_call(0).float()
+                want = int4_matmul_plain(x.float(), q, s, torch.float32)
+                lib_diff = float((got - want).abs().max())
+                if torch.allclose(got, want, rtol=TOL, atol=TOL):
+                    row["library_ms"] = time_graph(lib_call, copies, iters)
+                else:
+                    row["library_error"] = "disagrees with the plain version: max_abs_err " \
+                                           "{:.3e}".format(lib_diff)
+                del got, want
+            fused_int4_matmul.launches = before
+            row["bound_ms"], row["bound_by"] = int4_bound(m, k, n, groups)
+            row["max_abs_err"] = e
+            timings[(name, m)] = row
+            log("    kernel_ms {ms:.4f} (eager {eager_ms:.4f})  plain_ms {plain_ms:.4f}  bf16_ms "
+                "{bf16_ms:.4f}  library_ms {lib}  bound_ms {bound_ms:.4f} ({bound_by}, "
+                "{share:.1f}% of bound){note}".format(
+                    lib="{:.4f}".format(row["library_ms"]) if row["library_ms"] else "null",
+                    share=100 * row["bound_ms"] / row["ms"],
+                    note="  [library: {}]".format(lib_err or row["library_error"])
+                    if row["library_error"] else "", **row))
+            del x
+        del qs, ws, q, s, w_bf16
+        torch.cuda.empty_cache()
+    # the 225 calls of one decode step at M = 8, from the per-shape times
+    step = {key: sum(timings[(name, 8)][key] * calls
+                     for name, (_shape, calls) in INT4_SHAPES.items())
+            for key in ("ms", "eager_ms", "plain_ms", "bf16_ms", "bound_ms")}
+    libs = [timings[(name, 8)]["library_ms"] for name in INT4_SHAPES]
+    step["library_ms"] = (sum(t * calls for t, (_s, calls) in zip(libs, INT4_SHAPES.values()))
+                          if all(t is not None for t in libs) else None)
+    log("  one decode step's 225 calls at M=8: kernel {ms:.4f} ms (eager {eager_ms:.4f}), "
+        "bound {bound_ms:.4f} ms, bf16 matmul {bf16_ms:.4f} ms, library {lib} ms, plain "
+        "{plain_ms:.4f} ms".format(lib="{:.4f}".format(step["library_ms"])
+                                    if step["library_ms"] is not None else "null", **step))
+    return dict(err=err, timings=timings, decode_step=step)
+
+
 # -- phase 4: small model on the card vs float32 on the CPU ----------------------
 
 
@@ -420,24 +615,50 @@ SMALL_MODEL = {"vocab_size": 512, "dim": 512, "n_layers": 2, "n_heads": 8,
                "n_kv_heads": 4, "head_dim": 128, "ffn_dim": 1024, "rope_theta": 500000.0}
 
 
-def small_model_params(gen_seed: int):
-    """(bf16 weights on the card, the same values in float32 on the CPU)."""
+def _to(tree, device, dtype=None):
+    """A parameter tree on ``device``; floating leaves cast to ``dtype``
+    when given, quantized codes and scales moved as they are."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device, None if k in ("_q4", "_scale4", "_q8", "_scale") else dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device, dtype) for v in tree]
+    return tree.to(device=device, dtype=dtype) if dtype is not None else tree.to(device)
+
+
+def small_model_params(gen_seed: int, weight_quant: str = ""):
+    """(bf16 weights on the card, the same values in float32 on the CPU);
+    with ``weight_quant`` both sides hold the same quantized codes and
+    scales, made from the bf16 values."""
     from clearml_serving_tpu_torch.models.llama import init_params
+    from clearml_serving_tpu_torch.ops.quant import quantize_llama_params
 
     cpu_params = init_params(dict(SMALL_MODEL, dtype="float32"),
                              torch.Generator().manual_seed(gen_seed), device="cpu")
-
-    def to(tree, dtype, device):
-        out = {k: v.to(dtype).to(device) for k, v in tree.items() if k != "layers"}
-        out["layers"] = [{k: v.to(dtype).to(device) for k, v in layer.items()}
-                         for layer in tree["layers"]]
-        return out
-
-    card_params = to(cpu_params, torch.bfloat16, DEV)
-    return card_params, to(card_params, torch.float32, "cpu")    # the same bf16 values
+    card_params = _to(cpu_params, DEV, torch.bfloat16)
+    ref_params = _to(card_params, "cpu", torch.float32)    # the same bf16 values
+    if weight_quant:
+        ref_params = quantize_llama_params(ref_params, bits=4 if weight_quant == "int4" else 8)
+        card_params = _to(ref_params, DEV, torch.bfloat16)
+    return card_params, ref_params
 
 
-def phase_small_model(gen_seed: int) -> None:
+def int4_launches_per_forward(model) -> int:
+    """fused_int4_matmul launches of one forward call of an int4 model on
+    the card: 7 projections per layer and the lm_head (0 otherwise)."""
+    if model.weight_quant != "int4" or model.device.type != "cuda":
+        return 0
+    return 7 * model.n_layers + 1
+
+
+def check_int4_launches(model, launches: int, forwards: int, label: str) -> None:
+    want = int4_launches_per_forward(model) * forwards
+    if launches != want:
+        raise AssertionError("{}: fused_int4_matmul launched {} times for {} forward calls "
+                             "(want {})".format(label, launches, forwards, want))
+
+
+def phase_small_model(gen_seed: int, weight_quant: str = "") -> None:
     """Prefill + 4 paged decode steps of a 2-layer model with head_dim 128
     (G=2) in bf16 on the card (paged attention kernel) against the same
     weights in float32 on the CPU (plain version). Teacher-forced on the
@@ -447,11 +668,16 @@ def phase_small_model(gen_seed: int) -> None:
     a wrong attention moves the logits by their own scale."""
     from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
     from clearml_serving_tpu_torch.models.llama import Llama
+    from clearml_serving_tpu_torch.ops.fused_matmul import fused_int4_matmul
 
-    log("phase 4: small model, card (bf16, kernel) vs CPU (float32, plain version)")
+    if weight_quant:
+        log("phase 4c: small model on {} weights, card (bf16, kernels) vs CPU (float32, "
+            "plain versions)".format(weight_quant))
+    else:
+        log("phase 4: small model, card (bf16, kernel) vs CPU (float32, plain version)")
     base = SMALL_MODEL
-    card_params, ref_params = small_model_params(gen_seed)
-    for kv_quant in ("", "int8"):
+    card_params, ref_params = small_model_params(gen_seed, weight_quant)
+    for kv_quant in (("",) if weight_quant else ("", "int8")):
         cfg = dict(base, kv_quant=kv_quant)
         models = {
             "card": Llama(dict(cfg, dtype="bfloat16"), card_params),
@@ -459,6 +685,7 @@ def phase_small_model(gen_seed: int) -> None:
         }
         prompt = torch.randint(0, 256, (2, 40), generator=torch.Generator().manual_seed(1))
         lens = [40, 23]
+        int4_before = fused_int4_matmul.launches
         logits = {}
         caches = {}
         for name, model in models.items():
@@ -501,18 +728,23 @@ def phase_small_model(gen_seed: int) -> None:
                 logits[name].append(out.float().cpu())
             tokens = logits["cpu"][-1].argmax(-1)
         sync()
+        # two prefills and four decode steps on the card
+        int4_launches = fused_int4_matmul.launches - int4_before
+        check_int4_launches(models["card"], int4_launches, len(lens) + 4, "phase 4c")
         card = torch.stack(logits["card"])
         ref = torch.stack(logits["cpu"])
         err = float((card - ref).abs().max())
         agree = float((card.argmax(-1) == ref.argmax(-1)).float().mean())
         finite = bool(torch.isfinite(card).all())
-        log("  kv={:<5} logits max_abs_err {:.3e} (scale {:.2f}), top-1 agreement {:.2f}"
-            .format(kv_quant or "bf16", err, float(ref.abs().max()), agree))
+        log("  kv={:<5} logits max_abs_err {:.3e} (scale {:.2f}), top-1 agreement {:.2f}, "
+            "fused_int4_matmul launches {}".format(kv_quant or "bf16", err,
+                                                   float(ref.abs().max()), agree,
+                                                   int4_launches))
         if not finite or err > 0.05 * float(ref.abs().max()) or agree < 0.9:
             raise AssertionError("small model on the card disagrees with the CPU reference")
 
 
-def phase_small_ragged(gen_seed: int) -> None:
+def phase_small_ragged(gen_seed: int, weight_quant: str = "") -> None:
     """Three mixed ``forward_ragged`` steps of phase 4's model, bf16 on the
     card (ragged kernel, q-block aligned layout) against the same weights
     in float32 on the CPU (plain version, the same layout): decode rows at
@@ -528,18 +760,22 @@ def phase_small_ragged(gen_seed: int) -> None:
     it."""
     from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
     from clearml_serving_tpu_torch.models.llama import Llama
+    from clearml_serving_tpu_torch.ops.fused_matmul import fused_int4_matmul
     from clearml_serving_tpu_torch.ops.paged_attention import RAGGED_QB, ragged_layout
 
-    log("phase 4b: small model forward_ragged, card (bf16, ragged kernel) vs CPU "
-        "(float32, plain version)")
-    card_params, ref_params = small_model_params(gen_seed)
+    log("phase 4{}: small model forward_ragged{}, card (bf16, kernels) vs CPU "
+        "(float32, plain versions)".format("c" if weight_quant else "b",
+                                           " on {} weights".format(weight_quant)
+                                           if weight_quant else ""))
+    card_params, ref_params = small_model_params(gen_seed, weight_quant)
     # (history, query tokens per step): decode rows take one token a step
     rows = [(40, 1), (23, 1), (9, 1), (0, 20), (17, 12), (31, 1), (5, 9), (0, 0),
             (50, 1), (12, 1), (3, 6), (28, 1)]
     r = len(rows)
     prompt = torch.randint(0, 256, (r, 64), generator=torch.Generator().manual_seed(2))
-    for kv_quant in ("", "int8"):
+    for kv_quant in (("",) if weight_quant else ("", "int8")):
         cfg = dict(SMALL_MODEL, kv_quant=kv_quant)
+        int4_before = fused_int4_matmul.launches
         models = {
             "card": Llama(dict(cfg, dtype="bfloat16"), card_params),
             "cpu": Llama(dict(cfg, dtype="float32"), ref_params),
@@ -609,6 +845,10 @@ def phase_small_ragged(gen_seed: int) -> None:
             decode_tok = torch.zeros(r, dtype=torch.long)
             decode_tok[live] = logits["cpu"][-1].argmax(-1)
         sync()
+        # the histories' prefills and three mixed steps on the card
+        int4_launches = fused_int4_matmul.launches - int4_before
+        check_int4_launches(models["card"], int4_launches,
+                            sum(1 for hist, _n in rows if hist) + 3, "phase 4c ragged")
         card = torch.stack(logits["card"])
         ref = torch.stack(logits["cpu"])
         err = float((card - ref).abs().max())
@@ -618,9 +858,9 @@ def phase_small_ragged(gen_seed: int) -> None:
         agree = float((ref.amax(-1) - ref.gather(-1, top)[..., 0] <= limit).float().mean())
         finite = bool(torch.isfinite(card).all())
         log("  kv={:<5} logits max_abs_err {:.3e} (scale {:.2f}), top-1 agreement {:.2f} "
-            "(strict {:.2f}) over {} rows".format(kv_quant or "bf16", err,
-                                                 float(ref.abs().max()), agree, strict,
-                                                 card.shape[0] * card.shape[1]))
+            "(strict {:.2f}) over {} rows, fused_int4_matmul launches {}".format(
+                kv_quant or "bf16", err, float(ref.abs().max()), agree, strict,
+                card.shape[0] * card.shape[1], int4_launches))
         if not finite or err > limit or agree < 0.9:
             raise AssertionError("forward_ragged on the card disagrees with the CPU reference")
 
@@ -663,14 +903,15 @@ async def post_chat(session, url, prompt, stream, max_tokens):
                     total_s=time.perf_counter() - t0)
 
 
-async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None):
-    """Start the port's app on a local port, warm it up with the same four
+async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None, prompts=PROMPTS):
+    """Start the port's app on a local port, warm it up with the same
     prompts (first-use costs of every prefill bucket), zero the counts, POST
-    the four chats concurrently (two streaming) and read the counts."""
+    the chats concurrently (the first two streaming) and read the counts."""
     import aiohttp
     from aiohttp import web
 
     from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest
+    from clearml_serving_tpu_torch.ops.fused_matmul import fused_int4_matmul
     from clearml_serving_tpu_torch.ops.paged_attention import paged_attention
     from clearml_serving_tpu_torch.serving.main import build_app
 
@@ -683,8 +924,9 @@ async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None):
     url = "http://127.0.0.1:{}/serve/openai/v1/chat/completions".format(port)
     try:
         async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
-            await asyncio.gather(*[post_chat(s, url, p, False, 4) for p in PROMPTS])
+            await asyncio.gather(*[post_chat(s, url, p, False, 4) for p in prompts])
             paged_attention.launches = 0
+            fused_int4_matmul.launches = 0
             for key in engine.counters:
                 engine.counters[key] = 0
             engine.ttft_ms.clear()
@@ -693,14 +935,15 @@ async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None):
             t0 = time.perf_counter()
             results = await asyncio.gather(*[
                 post_chat(s, url, p, stream=i < 2, max_tokens=max_tokens)
-                for i, p in enumerate(PROMPTS)
+                for i, p in enumerate(prompts)
             ])
             wall = time.perf_counter() - t0
             if profiler is not None:
                 sync()
                 profiler.stop()
             launches = paged_attention.launches
-            counters = dict(engine.counters, ttft_ms=sorted(engine.ttft_ms))
+            counters = dict(engine.counters, ttft_ms=sorted(engine.ttft_ms),
+                            int4_launches=fused_int4_matmul.launches)
     finally:
         await runner.cleanup()
     return results, wall, launches, counters
@@ -716,17 +959,68 @@ def _engine(params, kv_quant, preset, **knobs):
     return build_engine(cfg, device=DEV, params=params)
 
 
-def phase_main_path(params, kv_quant: str, preset: str = "llama3-8b") -> dict:
-    engine, tokenizer = _engine(params, kv_quant, preset)
+def expected_weight_bytes(preset: str, weight_quant: str) -> int:
+    """Bytes of every weight leaf of ``preset`` in bf16, its projections in
+    ``weight_quant``'s leaf format: what ``health()["weights"]["bytes"]``
+    must read."""
+    from clearml_serving_tpu_torch.models.llama import resolve_config
+    from clearml_serving_tpu_torch.ops.quant import int4_groups
+
+    cfg = resolve_config({"preset": preset})
+    dim, ffn, vocab = int(cfg["dim"]), int(cfg["ffn_dim"]), int(cfg["vocab_size"])
+    heads, kv = int(cfg["n_heads"]), int(cfg["n_kv_heads"])
+    hd = dim // heads
+
+    def leaf(k, n):
+        if weight_quant == "int4":
+            return k * n // 2 + int4_groups(k) * n * 4
+        if weight_quant == "int8":
+            return k * n + n * 4
+        return k * n * 2
+
+    layer = 2 * dim * 2 + sum(leaf(k, n) for k, n in (
+        (dim, heads * hd), (dim, kv * hd), (dim, kv * hd), (heads * hd, dim),
+        (dim, ffn), (dim, ffn), (ffn, dim)))
+    return vocab * dim * 2 + dim * 2 + leaf(dim, vocab) + int(cfg["n_layers"]) * layer
+
+
+def check_weights(engine, preset: str, weight_quant: str) -> dict:
+    weights = engine.health()["weights"]
+    want = {"quant": weight_quant or "none", "bytes": expected_weight_bytes(preset, weight_quant)}
+    if weights != want:
+        raise AssertionError("health()['weights'] reads {}, want {}".format(weights, want))
+    return weights
+
+
+def check_int4_route(engine, c, label) -> None:
+    """The int4 kernel once per projection per forward call of the run."""
+    forwards = c["prefills"] + c["decode_steps"] + c["ragged_steps"] + c["ragged_chain_steps"]
+    check_int4_launches(engine.model, c["int4_launches"], forwards, label)
+
+
+def phase_main_path(params, kv_quant: str, preset: str = "llama3-8b", weight_quant: str = "",
+                    max_tokens: int = 32, prompts=PROMPTS) -> dict:
+    from clearml_serving_tpu_torch.llm import shapes
+
+    knobs = {"weight_quant": weight_quant} if weight_quant else {}
+    engine, tokenizer = _engine(params, kv_quant, preset, **knobs)
+    weights = check_weights(engine, preset, weight_quant)
     pools = engine.paged_cache.pool_bytes()
-    results, wall, launches, c = asyncio.run(serve_and_chat(engine, tokenizer))
+    prefill_rows = [shapes.bucket_for(len(tokenizer.encode_chat(tokenizer.apply_chat_template(
+        [{"role": "user", "content": p}]))), engine._buckets, engine.max_seq_len)
+        for p in prompts]
+    results, wall, launches, c = asyncio.run(
+        serve_and_chat(engine, tokenizer, max_tokens=max_tokens, prompts=prompts))
     n_layers = engine.model.n_layers
+    check_int4_route(engine, c, "main path " + (weight_quant or "bf16"))
     del engine
     if torch.device(DEV).type == "cuda":
         torch.cuda.empty_cache()
     streamed = [r for r in results if r["ttft_s"] is not None]
     steps = c["decode_steps"]
     out = dict(
+        weights=weight_quant or "bf16", weight_bytes=weights["bytes"],
+        int4_launches=c["int4_launches"], prefills=c["prefills"], prefill_rows=prefill_rows,
         kv=kv_quant or "bf16", wall_s=wall, launches=launches, decode_steps=steps,
         tokens=c["tokens_emitted"],
         # engine-side: request parsed -> first token emitted
@@ -741,14 +1035,15 @@ def phase_main_path(params, kv_quant: str, preset: str = "llama3-8b") -> dict:
         prefill_ms=c["prefill_ms"] / max(1, c["prefills"]),
         pool_gib=(pools["kv"] + pools["scale"]) / 2 ** 30,
     )
-    log("  kv={kv}: wall {wall_s:.3f} s, {tokens} tokens, decode steps {decode_steps} "
-        "({step_ms:.2f} ms each), prefill {prefill_ms:.2f} ms each, paged_attention "
-        "launches {launches}, TTFT {ttft_ms} ms, {decode_tok_s:.1f} tok/s "
-        "aggregate, pools {pool_gib:.2f} GiB".format(**out))
+    log("  weights={weights} ({weight_bytes} bytes) kv={kv}: wall {wall_s:.3f} s, {tokens} "
+        "tokens, decode steps {decode_steps} ({step_ms:.2f} ms each), prefill {prefill_ms:.2f} "
+        "ms each, paged_attention launches {launches}, fused_int4_matmul launches "
+        "{int4_launches}, prefill rows {prefill_rows}, TTFT {ttft_ms} ms, "
+        "{decode_tok_s:.1f} tok/s aggregate, pools {pool_gib:.2f} GiB".format(**out))
     log("  contents:", json.dumps([r["content"][:24] for r in results]))
     if not all(r["content"] for r in results):
         raise AssertionError("an empty completion")
-    if any(r["tokens"] is not None and r["tokens"] != 32 for r in results):
+    if any(r["tokens"] is not None and r["tokens"] != max_tokens for r in results):
         raise AssertionError("a completion stopped before max_tokens")
     if steps == 0 or launches != n_layers * steps:
         raise AssertionError("paged_attention launched {} times for {} decode steps of {} "
@@ -756,19 +1051,20 @@ def phase_main_path(params, kv_quant: str, preset: str = "llama3-8b") -> dict:
     return out
 
 
-def phase_profile(params, scheduler: str = "two_dispatch") -> dict:
-    """The bf16 main-path run of a scheduler once more under torch.profiler:
+def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "") -> dict:
+    """The bf16-KV main-path run of a scheduler once more under torch.profiler:
     device time by kernel name and the device's busy share of the run's
     wall time (the union of kernel intervals). Profiling adds host
     overhead, so these shares describe this pass only."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    knobs = {"weight_quant": weight_quant} if weight_quant else {}
     if scheduler == "ragged":
-        engine, tokenizer = _engine(params, "", "llama3-8b", **RAGGED_KNOBS)
+        engine, tokenizer = _engine(params, "", "llama3-8b", **RAGGED_KNOBS, **knobs)
         _results, wall, c = asyncio.run(serve_ragged(engine, tokenizer, profiler=prof))
     else:
-        engine, tokenizer = _engine(params, "", "llama3-8b")
+        engine, tokenizer = _engine(params, "", "llama3-8b", **knobs)
         _results, wall, _launches, c = asyncio.run(
             serve_and_chat(engine, tokenizer, profiler=prof))
     del engine
@@ -792,15 +1088,17 @@ def phase_profile(params, scheduler: str = "two_dispatch") -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     attn = sum(v for k, v in by_name.items() if "paged_attention_kernel" in k)
     ragged = sum(v for k, v in by_name.items() if "ragged_attention_kernel" in k)
-    out = dict(scheduler=scheduler, wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
-               busy_share=busy / 1e3 / (wall * 1e3), kernel_ms=total,
-               paged_attention_ms=attn, ragged_attention_ms=ragged,
-               decode_steps=c["decode_steps"], ragged_steps=c["ragged_steps"],
-               top=[(k[:60], v) for k, v in top])
-    log("  profiled bf16 {scheduler} pass: wall {wall_ms:.1f} ms, device busy "
+    int4 = sum(v for k, v in by_name.items() if "w4a16_" in k)
+    out = dict(scheduler=scheduler, weights=weight_quant or "bf16", wall_ms=wall * 1e3,
+               device_busy_ms=busy / 1e3, busy_share=busy / 1e3 / (wall * 1e3),
+               kernel_ms=total, paged_attention_ms=attn, ragged_attention_ms=ragged,
+               int4_matmul_ms=int4, decode_steps=c["decode_steps"],
+               ragged_steps=c["ragged_steps"], top=[(k[:60], v) for k, v in top])
+    log("  profiled {weights}-weight {scheduler} pass: wall {wall_ms:.1f} ms, device busy "
         "{device_busy_ms:.1f} ms ({busy_share:.1%}), kernels {kernel_ms:.1f} ms, paged "
         "attention {paged_attention_ms:.2f} ms over {decode_steps} decode steps, ragged "
-        "attention {ragged_attention_ms:.2f} ms over {ragged_steps} ragged steps".format(**out))
+        "attention {ragged_attention_ms:.2f} ms over {ragged_steps} ragged steps, int4 "
+        "matmul {int4_matmul_ms:.2f} ms".format(**out))
     for name, ms in top:
         log("    {:9.2f} ms  {}".format(ms, name[:100]))
     return out
@@ -831,6 +1129,7 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None):
     from aiohttp import web
 
     from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest
+    from clearml_serving_tpu_torch.ops.fused_matmul import fused_int4_matmul
     from clearml_serving_tpu_torch.ops.paged_attention import (
         paged_attention, ragged_paged_attention,
     )
@@ -848,6 +1147,7 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None):
             await asyncio.gather(*[post_chat(s, url, p, False, 4) for p in LONG_PROMPTS])
             paged_attention.launches = 0
             ragged_paged_attention.launches = 0
+            fused_int4_matmul.launches = 0
             for key in engine.counters:
                 engine.counters[key] = 0
             for key in engine.step_rows:
@@ -870,23 +1170,30 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None):
             counters = dict(engine.counters, ttft_ms=list(engine.ttft_ms),
                             step_rows=dict(engine.step_rows),
                             paged_launches=paged_attention.launches,
-                            ragged_launches=ragged_paged_attention.launches)
+                            ragged_launches=ragged_paged_attention.launches,
+                            int4_launches=fused_int4_matmul.launches)
     finally:
         await runner.cleanup()
     return results, wall, counters
 
 
-def phase_ragged_main_path(params, kv_quant: str, preset: str = "llama3-8b") -> dict:
-    engine, tokenizer = _engine(params, kv_quant, preset, **RAGGED_KNOBS)
+def phase_ragged_main_path(params, kv_quant: str, preset: str = "llama3-8b",
+                           weight_quant: str = "") -> dict:
+    knobs = {"weight_quant": weight_quant} if weight_quant else {}
+    engine, tokenizer = _engine(params, kv_quant, preset, **RAGGED_KNOBS, **knobs)
+    weights = check_weights(engine, preset, weight_quant)
     prompt_tokens = [len(tokenizer.encode_chat(tokenizer.apply_chat_template(
         [{"role": "user", "content": p}]))) for p in LONG_PROMPTS]
     results, wall, c = asyncio.run(serve_ragged(engine, tokenizer))
     n_layers = engine.model.n_layers
+    check_int4_route(engine, c, "ragged main path " + (weight_quant or "bf16"))
     del engine
     if torch.device(DEV).type == "cuda":
         torch.cuda.empty_cache()
     steps = c["ragged_steps"]
     out = dict(
+        weights=weight_quant or "bf16", weight_bytes=weights["bytes"],
+        int4_launches=c["int4_launches"],
         kv=kv_quant or "bf16", wall_s=wall, prompt_tokens=prompt_tokens,
         tokens=c["tokens_emitted"], ragged_steps=steps, step_rows=c["step_rows"],
         ragged_decode_tokens=c["ragged_decode_tokens"],
@@ -899,11 +1206,12 @@ def phase_ragged_main_path(params, kv_quant: str, preset: str = "llama3-8b") -> 
         ragged_step_ms=c["ragged_ms"] / max(1, steps),
         step_ms=c["decode_ms"] / max(1, c["decode_steps"]),
     )
-    log("  kv={kv}: prompts {prompt_tokens} tokens, wall {wall_s:.3f} s, {tokens} tokens, "
-        "{decode_tok_s:.1f} tok/s aggregate; ragged steps {ragged_steps} ({ragged_step_ms:.2f} "
-        "ms each), rows {step_rows}, chained window steps {ragged_chain_steps}; decode steps "
-        "{decode_steps} ({step_ms:.2f} ms each); launches ragged {ragged_launches} paged "
-        "{paged_launches}; TTFT {ttft_ms} ms".format(**out))
+    log("  weights={weights} kv={kv}: prompts {prompt_tokens} tokens, wall {wall_s:.3f} s, "
+        "{tokens} tokens, {decode_tok_s:.1f} tok/s aggregate; ragged steps {ragged_steps} "
+        "({ragged_step_ms:.2f} ms each), rows {step_rows}, chained window steps "
+        "{ragged_chain_steps}; decode steps {decode_steps} ({step_ms:.2f} ms each); launches "
+        "ragged {ragged_launches} paged {paged_launches} int4 {int4_launches}; TTFT {ttft_ms} "
+        "ms".format(**out))
     log("  contents:", json.dumps([r["content"][:24] for r in results]))
     if not all(r["content"] for r in results):
         raise AssertionError("an empty completion")
@@ -931,6 +1239,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from clearml_serving_tpu_torch.models.llama import init_params
     from clearml_serving_tpu_torch.ops import _build
+    from clearml_serving_tpu_torch.ops.quant import quantize_llama_params
 
     t_start = time.perf_counter()
     card = card_line()
@@ -956,8 +1265,11 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     kern = phase_kernels(gen)
     rkern = phase_ragged_kernel(gen)
+    int4k = phase_int4_kernel(gen)
     phase_small_model(0)
     phase_small_ragged(0)
+    phase_small_model(0, "int4")
+    phase_small_ragged(0, "int4")
 
     log("phase 5: main path, llama3-8b full width bf16 behind the HTTP server")
     t0 = time.perf_counter()
@@ -976,9 +1288,27 @@ def main() -> int:
     log("phase 5b: ragged main path, llama3-8b full width, scheduler ragged, "
         "step_token_budget 256")
     ragged_runs = [phase_ragged_main_path(params, ""), phase_ragged_main_path(params, "int8")]
+    log("phase 5c: w4a16 main path, llama3-8b full width, int4 weights quantized on the card")
+    t0 = time.perf_counter()
+    # after the lm_head's columns past the byte ids are zeroed: a zero column
+    # quantizes to scale 1.0 and level 0, so it stays exactly zero
+    qparams = quantize_llama_params(params, bits=4)
+    sync()
+    log("  quantized in {:.1f} s".format(time.perf_counter() - t0))
+    # the packed tree with its redundant knob under phase 5's traffic with
+    # two long prompts (prefills of 1024 and 2048 rows through the kernel),
+    # then 5b's; then build_engine quantizes the bf16 tree to int8 itself
+    long_prefills = PROMPTS[:2] + [LONG_PROMPTS[0], LONG_PROMPTS[-1]]
+    int4_runs = [phase_main_path(qparams, "", weight_quant="int4", prompts=long_prefills),
+                 phase_ragged_main_path(qparams, "", weight_quant="int4")]
+    if max(int4_runs[0]["prefill_rows"]) <= 512:
+        raise AssertionError("no int4 prefill above 512 rows: {}".format(
+            int4_runs[0]["prefill_rows"]))
+    int8_run = phase_main_path(params, "", weight_quant="int8", max_tokens=8)
     log("phase 6: where the time goes")
     prof = phase_profile(params)
     ragged_prof = phase_profile(params, "ragged")
+    int4_prof = phase_profile(qparams, weight_quant="int4")
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -1027,9 +1357,30 @@ def main() -> int:
         "plain_ms_prefill": rt["prefill_bf16"]["plain_ms"],
         "bound_ms_prefill": rt["prefill_bf16"]["bound_ms"],
         "bound_by_prefill": rt["prefill_bf16"]["bound_by"],
+    }, {
+        "name": "fused_int4_matmul",
+        "route": "cuda",
+        "source": "clearml_serving_tpu_torch/csrc/fused_int4_matmul.cu",
+        "replaces": "clearml_serving_tpu/ops/fused_matmul.py:271",
+        "tpu": "ops/fused_matmul.py:271",
+        # phase 5c under phase 5's traffic with long prompts: 225 per forward call
+        "launches": int4_runs[0]["int4_launches"],
+        "launches_ragged_path": int4_runs[1]["int4_launches"],
+        "max_abs_err": int4k["err"],
+        # primary call: a decode batch through w_gate / w_up
+        "shape": "x[{1},4096] @ W[4096,14336] ({0})".format(*INT4_PRIMARY),
+        **{key: int4k["timings"][INT4_PRIMARY][key]
+           for key in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                       "library_error", "bf16_ms")},
+        # the 225 calls of one decode step at M = 8, summed from the shapes' times
+        "decode_step": int4k["decode_step"],
+        "per_shape": [dict(shape=name, m=m, **row)
+                      for (name, m), row in int4k["timings"].items()],
     }]}
     log("main path:", json.dumps({"runs": runs, "ragged_runs": ragged_runs,
-                                  "profile": prof, "ragged_profile": ragged_prof}))
+                                  "int4_runs": int4_runs, "int8_run": int8_run,
+                                  "profile": prof, "ragged_profile": ragged_prof,
+                                  "int4_profile": int4_prof}))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)
     print(json.dumps(kernels))

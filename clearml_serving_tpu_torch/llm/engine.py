@@ -27,8 +27,10 @@ the mixed pass in the same step; a job's final chunk samples the first
 token and activates its slot. With no jobs left, decode chunks resume.
 
 Device work runs in a worker thread, one call at a time, so the event loop
-keeps serving HTTP while the card computes. Every reference knob this slice
-does not serve raises, naming itself.
+keeps serving HTTP while the card computes. The model arrives with its
+weights already in their serving format (``build_engine`` quantizes them);
+``weight_quant``/``quantize`` are accepted when they name that format.
+Every reference knob this slice does not serve raises, naming itself.
 """
 
 from __future__ import annotations
@@ -123,7 +125,7 @@ class _Histogram:
 
 # reference engine knobs this slice does not serve (each raises when set)
 UNSUPPORTED_KNOBS = (
-    "mesh", "quantize", "weight_quant", "long_prefill_threshold",
+    "mesh", "long_prefill_threshold",
     "long_bucket_step", "chunked_prefill_size", "prefill_segments_per_decode",
     "prefill_stall_timeout", "speculation", "spec_tree", "lora_adapters",
     "prefix_cache", "prefix_cache_bytes", "prefix_cache_pages",
@@ -153,6 +155,8 @@ class LLMEngineCore:
         scheduler: Optional[str] = "two_dispatch",
         step_token_budget: Optional[int] = None,
         ragged_decode_steps: Optional[int] = None,
+        quantize: Optional[str] = None,
+        weight_quant: Optional[str] = None,
         **knobs,
     ):
         for name, value in knobs.items():
@@ -178,6 +182,35 @@ class LLMEngineCore:
                 "engine knob pipeline_depth={!r} is not supported by the "
                 "PyTorch port yet (1 only)".format(pipeline_depth)
             )
+        # weight quantization: the reference's knob checks, against the
+        # format the model's weights already have
+        if weight_quant and quantize and weight_quant != quantize:
+            raise ValueError(
+                "weight_quant={!r} conflicts with the legacy quantize={!r} "
+                "alias; set only one".format(weight_quant, quantize)
+            )
+        quantize = weight_quant or quantize
+        pre = model.weight_quant
+        if quantize and quantize not in ("int8", "int4"):
+            raise ValueError(
+                "unsupported weight_quant mode {!r} (expected 'int8' or "
+                "'int4')".format(quantize)
+            )
+        if pre and quantize and pre != quantize:
+            raise ValueError(
+                "weight_quant={!r} requested but the bundle is already "
+                "{}-quantized (scripts/quantize_ckpt.py output); drop the "
+                "knob or quantize from the original full-precision "
+                "checkpoint".format(quantize, pre)
+            )
+        if quantize and not pre:
+            raise ValueError(
+                "weight_quant={!r} requested but the model's weights are not "
+                "quantized: the PyTorch port quantizes the parameters before "
+                "building Llama (ops.quant.quantize_llama_params, or aux "
+                "engine.weight_quant through build_engine)".format(quantize)
+            )
+        self.weight_quant = pre
         self.model = model
         self.device = model.device
         self.max_batch = int(max_batch)
@@ -331,6 +364,10 @@ class LLMEngineCore:
             "free_pages": self.paged_cache.pool.free_pages,
             "kv_dtype": self.paged_cache.pool_dtype,
             "kv_pool_bytes": self.paged_cache.pool_bytes(),
+            "weights": {
+                "quant": self.weight_quant or "none",
+                "bytes": self.model.weight_bytes(),
+            },
             "counters": dict(self.counters),
             "scheduler": "ragged" if self._ragged else "two_dispatch",
             "ragged": (

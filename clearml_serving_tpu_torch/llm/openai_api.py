@@ -5,7 +5,9 @@ Counterpart of ``clearml_serving_tpu/llm/openai_api.py``'s
 ``engine`` block (``preset``, ``config``, ``cache``, ``kv_quant``,
 ``max_batch``, ``max_seq_len``, ``decode_steps``, ``page_size``,
 ``num_pages``, ``prefill_buckets``, ``pipeline_depth``, ``scheduler``,
-``step_token_budget``, ``ragged_decode_steps``, ``seed``), and ``chat/completions`` (``n=1``, streaming or not,
+``step_token_budget``, ``ragged_decode_steps``, ``weight_quant`` and its
+legacy alias ``quantize``, ``seed``), and ``chat/completions`` (``n=1``,
+streaming or not,
 ``max_tokens``, ``temperature``/``top_p``/``top_k``, ``stop`` strings) and
 ``models`` answer with the reference's response shapes. Text handling
 (stop-string trimming, streamed deltas, finish reasons) follows the
@@ -26,13 +28,15 @@ import torch
 
 from ..device import resolve_device
 from ..models.llama import Llama, init_params, resolve_config
+from ..ops.quant import detect_weight_quant, quantize_llama_params
 from .engine import GenRequest, LLMEngineCore
 from .tokenizer import ByteTokenizer
 
 ENGINE_KEYS = (
     "preset", "arch", "config", "cache", "kv_quant", "max_batch", "max_seq_len",
     "decode_steps", "page_size", "num_pages", "prefill_buckets",
-    "pipeline_depth", "scheduler", "step_token_budget", "ragged_decode_steps", "seed",
+    "pipeline_depth", "scheduler", "step_token_budget", "ragged_decode_steps",
+    "weight_quant", "quantize", "seed",
 )
 
 CHAT_FIELDS = (
@@ -53,7 +57,10 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
                  params: Optional[Dict[str, Any]] = None):
     """(engine, tokenizer) from an aux ``engine`` block. Weights are random,
     made on ``device`` from ``seed`` (the weightless preset mode), unless
-    ``params`` (``init_params``/``convert_params`` output) is given."""
+    ``params`` (``init_params``/``convert_params`` output, full precision or
+    already quantized) is given. ``weight_quant`` (or ``quantize``)
+    quantizes full-precision weights before the model is built; on an
+    already-packed tree it must name the tree's format."""
     unknown = sorted(k for k in engine_cfg if k not in ENGINE_KEYS)
     if unknown:
         raise ValueError(
@@ -65,6 +72,24 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     if not engine_cfg.get("preset"):
         raise ValueError("the PyTorch port serves aux engine.preset models only "
                          "(bundle loading arrives with a later slice)")
+    # weight quantization, validated before any weight is made, with the
+    # reference's load-time checks and words
+    weight_quant = engine_cfg.get("weight_quant", engine_cfg.get("quantize"))
+    legacy = engine_cfg.get("quantize")
+    if engine_cfg.get("weight_quant") and legacy and engine_cfg["weight_quant"] != legacy:
+        raise ValueError(
+            "aux engine.weight_quant={!r} conflicts with the legacy "
+            "engine.quantize={!r} alias; set only one".format(
+                engine_cfg["weight_quant"], legacy
+            )
+        )
+    if weight_quant in ("", None):
+        weight_quant = None
+    elif str(weight_quant) not in ("int8", "int4"):
+        raise ValueError(
+            "aux engine.weight_quant must be 'int8' or 'int4': got "
+            "{!r}".format(weight_quant)
+        )
     dev = resolve_device(device)
     cfg = resolve_config({"preset": engine_cfg["preset"], **(engine_cfg.get("config") or {})})
     if engine_cfg.get("kv_quant"):
@@ -73,6 +98,8 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
         gen = torch.Generator(dev)
         gen.manual_seed(int(engine_cfg.get("seed", 0)))
         params = init_params(cfg, gen, device=dev)
+    if weight_quant and not detect_weight_quant(params):
+        params = quantize_llama_params(params, bits=4 if weight_quant == "int4" else 8)
     model = Llama(cfg, params)
     tokenizer = ByteTokenizer(vocab_size=max(int(cfg["vocab_size"]), 259))
     cache = engine_cfg.get("cache", "dense")
@@ -106,6 +133,9 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
             int(engine_cfg["ragged_decode_steps"])
             if engine_cfg.get("ragged_decode_steps") else None
         ),
+        # the engine holds the model to the knob (a packed tree of another
+        # format raises, naming the tree's format)
+        weight_quant=weight_quant,
     )
     return engine, tokenizer
 

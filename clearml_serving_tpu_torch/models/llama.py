@@ -11,7 +11,11 @@ are ``[in, out]`` so ``x @ w`` reads the same on both sides, and
 unchanged.
 
 This slice serves dense SiLU-GLU Llama models with GQA, an untied
-``lm_head`` and no biases. LoRA, MoE, soft-capping, Gemma-family deltas and
+``lm_head`` and no biases, with full-precision, int8 or group-int4 (w4a16)
+projection weights (``ops/quant.py`` leaves). Every projection goes through
+``_mm``, as in the reference: int4 leaves through ``fused_int4_matmul`` (the
+CUDA kernel on the card), int8 leaves dequantized to the model dtype and
+then ``torch.matmul``. LoRA, MoE, soft-capping, Gemma-family deltas and
 RoPE scaling raise here; they arrive with later slices of the port.
 
 ``decode_paged`` and ``forward_ragged`` write the new tokens' K/V into the
@@ -29,7 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.fused_matmul import fused_int4_matmul
 from ..ops.paged_attention import paged_attention, ragged_paged_attention
+from ..ops.quant import dequantize, dequantize_int4
 
 # Named configs: full Llama-3-8B plus scaled-down variants for tests/benches
 # (copied from the reference's PRESETS).
@@ -83,6 +89,11 @@ def check_config(cfg: dict) -> None:
                 "llama config {}={!r} is not ported yet (dense llama only in "
                 "this slice)".format(key, cfg[key])
             )
+    if not bool(cfg.get("int4_fused", True)):
+        raise NotImplementedError(
+            "llama config int4_fused={!r} is not ported yet: the PyTorch port "
+            "serves int4 weights through the fused kernel only".format(cfg["int4_fused"])
+        )
     act = str(cfg.get("hidden_act", "silu"))
     if act != "silu":
         raise NotImplementedError("hidden_act {!r} is not ported yet".format(act))
@@ -149,8 +160,49 @@ def kv_store(x, kv_quant: str, dtype: torch.dtype):
     return q, scale.float()
 
 
+class QuantWeight(nn.Module):
+    """A quantized projection leaf (``ops/quant.py``): int4 ``_q4`` packed
+    uint8 [K/2, N] with ``_scale4`` f32 [K/g, N], or int8 ``_q8`` [K, N]
+    with ``_scale`` f32 [1, N], held as buffers ``q`` and ``scale``.
+    ``shape`` is the logical [K, N] of the weight."""
+
+    def __init__(self, leaf: Dict[str, torch.Tensor]):
+        super().__init__()
+        if set(leaf) == {"_q4", "_scale4"}:
+            self.quant = "int4"
+            q, scale = leaf["_q4"], leaf["_scale4"]
+            k = 2 * q.shape[-2]
+        elif set(leaf) == {"_q8", "_scale"}:
+            self.quant = "int8"
+            q, scale = leaf["_q8"], leaf["_scale"]
+            k = q.shape[-2]
+        else:
+            raise ValueError("unknown quantized leaf {}".format(sorted(leaf)))
+        want_q = torch.uint8 if self.quant == "int4" else torch.int8
+        groups = scale.shape[0] if scale.dim() == 2 else 0
+        if (q.dim() != 2 or q.dtype != want_q or scale.dim() != 2
+                or scale.dtype != torch.float32 or scale.shape[1] != q.shape[1]
+                or groups < 1 or k % groups or (self.quant == "int8" and groups != 1)):
+            raise ValueError(
+                "{} leaf: q {} {} with scale {} {} is not a packed [K/2|K, N] weight "
+                "with [groups, N] float32 scales".format(
+                    self.quant, q.dtype, tuple(q.shape), scale.dtype, tuple(scale.shape)))
+        self.register_buffer("q", q)
+        self.register_buffer("scale", scale)
+        self.shape = (k, q.shape[1])
+
+
+def _leaf(value):
+    """A parameter leaf as the model holds it: quantized dicts as
+    ``QuantWeight``, tensors as frozen parameters."""
+    if isinstance(value, dict):
+        return QuantWeight(value)
+    return nn.Parameter(value, requires_grad=False)
+
+
 class LlamaLayer(nn.Module):
-    """One decoder block's weights, ``[in, out]`` like the reference."""
+    """One decoder block's weights, ``[in, out]`` like the reference; the
+    projections may be quantized leaves (``QuantWeight``)."""
 
     def __init__(self, params: Dict[str, torch.Tensor]):
         super().__init__()
@@ -162,7 +214,7 @@ class LlamaLayer(nn.Module):
                 .format(missing, extra)
             )
         for key in LAYER_KEYS:
-            setattr(self, key, nn.Parameter(params[key], requires_grad=False))
+            setattr(self, key, _leaf(params[key]))
 
 
 class Llama(nn.Module):
@@ -194,7 +246,7 @@ class Llama(nn.Module):
                 len(params["layers"]), self.n_layers))
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
         self.final_norm = nn.Parameter(params["final_norm"], requires_grad=False)
-        self.lm_head = nn.Parameter(params["lm_head"], requires_grad=False)
+        self.lm_head = _leaf(params["lm_head"])
         self.layers = nn.ModuleList(LlamaLayer(p) for p in params["layers"])
         expect = {
             "embed": (self.vocab_size, self.dim),
@@ -214,13 +266,43 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    @property
+    def weight_quant(self) -> str:
+        """"int4"/"int8" when the projections are quantized leaves, else ""."""
+        for module in self.modules():
+            if isinstance(module, QuantWeight):
+                return module.quant
+        return ""
+
+    def weight_bytes(self) -> int:
+        """Bytes of every weight leaf (packed codes and scales included)."""
+        return sum(t.numel() * t.element_size()
+                   for t in list(self.parameters()) + list(self.buffers()))
+
     # -- shared layer math (the reference's build() closures) ---------------
+
+    def _w(self, w):
+        """The weight of a leaf in the model dtype: quantized leaves
+        dequantize (the reference's ``_w`` accessor)."""
+        if isinstance(w, QuantWeight):
+            if w.quant == "int8":
+                return dequantize(w.q, w.scale, self.dtype)
+            return dequantize_int4(w.q, w.scale, self.dtype)
+        return w
+
+    def _mm(self, w, x):
+        """``x @ weight`` with quantization-aware routing, the one place a
+        projection touches its weight: int4 leaves take the fused
+        dequant-matmul, everything else ``x @ _w(w)``."""
+        if isinstance(w, QuantWeight) and w.quant == "int4":
+            return fused_int4_matmul(x, w.q, w.scale, dtype=self.dtype)
+        return x @ self._w(w)
 
     def _qkv(self, layer, x, cos, sin):
         b, s, _ = x.shape
-        q = (x @ layer.wq).reshape(b, s, self.n_heads, self.head_dim)
-        k = (x @ layer.wk).reshape(b, s, self.n_kv_heads, self.head_dim)
-        v = (x @ layer.wv).reshape(b, s, self.n_kv_heads, self.head_dim)
+        q = self._mm(layer.wq, x).reshape(b, s, self.n_heads, self.head_dim)
+        k = self._mm(layer.wk, x).reshape(b, s, self.n_kv_heads, self.head_dim)
+        v = self._mm(layer.wv, x).reshape(b, s, self.n_kv_heads, self.head_dim)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def _attend(self, q, k, v, mask):
@@ -234,15 +316,16 @@ class Llama(nn.Module):
         return out.reshape(b, s, self.n_heads * self.head_dim)
 
     def _ffn(self, layer, x):
-        return (F.silu(x @ layer.w_gate) * (x @ layer.w_up)) @ layer.w_down
+        h = F.silu(self._mm(layer.w_gate, x)) * self._mm(layer.w_up, x)
+        return self._mm(layer.w_down, h)
 
     def _logits(self, x):
         x = rms_norm(x, self.final_norm, self.eps)
-        return (x @ self.lm_head).float()
+        return self._mm(self.lm_head, x).float()
 
     def _block(self, layer, x, attn_fn):
         h = rms_norm(x, layer.attn_norm, self.eps)
-        x = x + attn_fn(h) @ layer.wo
+        x = x + self._mm(layer.wo, attn_fn(h))
         h = rms_norm(x, layer.ffn_norm, self.eps)
         return x + self._ffn(layer, h)
 
@@ -434,12 +517,16 @@ def init_params(config: dict, generator: torch.Generator,
     return params
 
 
-def _to_tensor(a, device) -> torch.Tensor:
+_QUANT_LEAF_KEYS = ({"_q4", "_scale4"}, {"_q8", "_scale"})
+
+
+def _to_tensor(a, device):
+    """One leaf to ``device``: an array, or a quantized leaf's dict of
+    arrays (``_q4``/``_scale4`` or ``_q8``/``_scale``)."""
     if isinstance(a, dict):
-        raise NotImplementedError(
-            "quantized weight leaves ({}) are not ported yet; weight_quant "
-            "arrives with the fused_int4_matmul slice".format(sorted(a))
-        )
+        if set(a) not in _QUANT_LEAF_KEYS:
+            raise ValueError("unknown quantized leaf keys {}".format(sorted(a)))
+        return {k: _to_tensor(v, device) for k, v in a.items()}
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy())
@@ -451,16 +538,22 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 def convert_params(np_tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """The weight carrier: a reference parameter tree (``build(cfg).init``
-    pulled to numpy, per-layer list or ``scan_layers`` stacked dict) ->
-    this module's tree on ``device``, layout and dtype kept."""
+    or ``quantize_llama_params`` output pulled to numpy, per-layer list or
+    ``scan_layers`` stacked dict) -> this module's tree on ``device``,
+    layout and dtype kept. Quantized leaves stay dicts of tensors; stacked
+    ones are sliced per layer."""
     dev = resolve_device(device)
     extra = sorted(set(np_tree) - {"embed", "final_norm", "lm_head", "layers"})
     if extra:
         raise NotImplementedError("unsupported parameter keys {}".format(extra))
     layers = np_tree["layers"]
     if isinstance(layers, dict):  # scan_layers: leaves stacked [L, ...]
-        n = len(next(iter(layers.values())))
-        layers = [{k: v[i] for k, v in layers.items()} for i in range(n)]
+        def layer_slice(v, i):
+            return {k: a[i] for k, a in v.items()} if isinstance(v, dict) else v[i]
+
+        first = next(iter(layers.values()))
+        n = len(next(iter(first.values())) if isinstance(first, dict) else first)
+        layers = [{k: layer_slice(v, i) for k, v in layers.items()} for i in range(n)]
     out: Dict[str, Any] = {
         key: _to_tensor(np_tree[key], dev) for key in ("embed", "final_norm", "lm_head")
         if key in np_tree

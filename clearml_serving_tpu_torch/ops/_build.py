@@ -22,7 +22,7 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("paged_attention.cu", "ragged_paged_attention.cu")
+SOURCES = ("paged_attention.cu", "ragged_paged_attention.cu", "fused_int4_matmul.cu")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libtpu_torch_kernels.so"
 NVCC_FLAGS = (
@@ -127,6 +127,10 @@ def load_library() -> ctypes.CDLL:
             # head_dim, n_pages, page_size, pages_per_seq, n_rows, kv_int8;
             # stream
             fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = lib.tpu_torch_fused_int4_matmul
+            # x, packed, scale, out; m, k, n, group; stream
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib

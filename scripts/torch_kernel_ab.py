@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""A/B one of the port's attention kernels against another version of it
-on one GPU, in one process: the change (this checkout's sources) and a
-baseline (the sources of another checkout, e.g. the parent commit unpacked
-with ``git archive`` into a directory that .gitignore lists).
+"""A/B one of the port's kernels against another version of it on one GPU,
+in one process: the change (this checkout's sources) and a baseline (the
+sources of another checkout, e.g. the parent commit unpacked with ``git
+archive`` into a directory that .gitignore lists).
 
-    python3 scripts/torch_kernel_ab.py --baseline build/parent [--kernel ragged]
+    python3 scripts/torch_kernel_ab.py --baseline build/parent [--kernel ragged|int4]
 
 Both libraries are built with the same ``nvcc`` flags and called through the
 same C entry point on the same operands. Each case is held against the plain
@@ -13,7 +13,11 @@ baseline, change, change, baseline (CUDA events over 300 launches rotating
 through 4 layers' pools, so L2 holds no layer from one call to the next).
 ``--kernel paged`` (the default) times decode attention over batches of
 lengths; ``--kernel ragged`` times ragged attention at chip_smoke.py's mixed
-and prefill shapes. Prints the card line, then one JSON line per case.
+and prefill shapes; ``--kernel int4`` times the w4a16 matmul at every
+Llama-3-8B projection shape at chip_smoke.py's row counts (8, 312 and 2048;
+the lm_head at 8 and 312),
+rotating through copies of the weights that together exceed the L2. Prints
+the card line, then one JSON line per case.
 """
 
 from __future__ import annotations
@@ -32,11 +36,13 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from clearml_serving_tpu_torch.ops import _build  # noqa: E402
+from clearml_serving_tpu_torch.ops.fused_matmul import int4_matmul_plain  # noqa: E402
 from clearml_serving_tpu_torch.ops.paged_attention import (  # noqa: E402
     RAGGED_QB,
     paged_attention_ref,
     ragged_paged_attention_ref,
 )
+from clearml_serving_tpu_torch.ops.quant import quantize_int4  # noqa: E402
 
 CASES = {
     "8x96": [96] * 8,
@@ -128,6 +134,58 @@ def ab_ragged(fns, gen, layers) -> None:
             torch.cuda.empty_cache()
 
 
+def int4_entry(lib: ctypes.CDLL):
+    try:
+        fn = lib.tpu_torch_fused_int4_matmul
+    except AttributeError:
+        raise SystemExit("this library has no fused_int4_matmul kernel")
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def int4_launch(fn, out, x, q, s):
+    m, k = x.shape
+    rc = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, q.shape[1],
+            k // s.shape[0], torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError("launch failed: cudaError {}".format(rc))
+
+
+def ab_int4(fns, gen) -> None:
+    for name, ((k, n), _calls) in cs.INT4_SHAPES.items():
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        q, s = quantize_int4(w)
+        del w
+        copies = max(2, -(-120_000_000 // (q.numel() + s.numel() * 4)))
+        qs = [(q, s)] + [(q.clone(), s.clone()) for _ in range(copies - 1)]
+        for m in cs.int4_rows(name):
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            ref = int4_matmul_plain(x.float(), q, s, torch.float32)
+            b_ms, b_by = cs.int4_bound(m, k, n, s.shape[0])
+            row = {"case": name, "m": m, "k": k, "n": n, "bound_ms": b_ms, "bound_by": b_by}
+            outs = {}
+            for key, fn in fns.items():
+                outs[key] = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+                int4_launch(fn, outs[key], x, q, s)
+            torch.cuda.synchronize()
+            for key in fns:
+                row[key + "_max_abs_err"] = float((outs[key].float() - ref).abs().max())
+                if not torch.allclose(outs[key].float(), ref, rtol=cs.TOL, atol=cs.TOL):
+                    raise AssertionError("{} disagrees with the plain version".format(key))
+            row["bitwise_equal"] = bool(torch.equal(outs["change"], outs["baseline"]))
+            for key in ("baseline", "change", "change", "baseline"):
+
+                def call(i, fn=fns[key], out=outs[key], x=x):
+                    int4_launch(fn, out, x, *qs[i])
+
+                row.setdefault(key + "_ms", []).append(
+                    cs.time_launches(call, copies, 400 if m <= 16 else 100 if m <= 512 else 20))
+            print(json.dumps(row), flush=True)
+        del qs, q, s
+        torch.cuda.empty_cache()
+
+
 def launch(fn, out, q, k, v, table, lengths, k_scale=None, v_scale=None):
     quant = k.dtype == torch.int8
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -143,7 +201,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", required=True, type=Path,
                         help="root of the checkout holding the baseline sources")
-    parser.add_argument("--kernel", choices=("paged", "ragged"), default="paged",
+    parser.add_argument("--kernel", choices=("paged", "ragged", "int4"), default="paged",
                         help="which kernel to compare (default: paged decode attention)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -155,6 +213,10 @@ def main() -> int:
     if args.kernel == "ragged":
         ab_ragged({"change": ragged_entry(_build.load_library()),
                    "baseline": ragged_entry(build_baseline(args.baseline))}, gen, layers)
+        return 0
+    if args.kernel == "int4":
+        ab_int4({"change": int4_entry(_build.load_library()),
+                 "baseline": int4_entry(build_baseline(args.baseline))}, gen)
         return 0
     fns = {"change": entry(_build.load_library()), "baseline": entry(build_baseline(args.baseline))}
     for quant in (False, True):

@@ -1,7 +1,8 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the CUDA
-paged attention kernels (decode and ragged) against their plain PyTorch
-versions, their gates and launch counts, and the engine on the card under
-both schedulers. They skip elsewhere. This file
+paged attention kernels (decode and ragged) and the w4a16 matmul against
+their plain PyTorch versions, their gates and launch counts, and the engine
+on the card under both schedulers, with bf16 and int4 weights. They skip
+elsewhere. This file
 imports neither jax nor the JAX package, so on the card it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -17,6 +18,7 @@ import torch
 
 from clearml_serving_tpu_torch.llm.engine import GenRequest, LLMEngineCore
 from clearml_serving_tpu_torch.models.llama import Llama, init_params, kv_store
+from clearml_serving_tpu_torch.ops.fused_matmul import fused_int4_matmul, int4_matmul_plain
 from clearml_serving_tpu_torch.ops.paged_attention import (
     RAGGED_QB,
     paged_attention,
@@ -25,6 +27,7 @@ from clearml_serving_tpu_torch.ops.paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_ref,
 )
+from clearml_serving_tpu_torch.ops.quant import quantize_int4, quantize_llama_params
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=2e-2, atol=2e-2)
@@ -238,3 +241,121 @@ def test_ragged_engine_on_the_card_runs_both_kernels(cuda):
         c["decode_steps"] + c["ragged_chain_steps"])
     pool = engine.paged_cache.pool
     assert pool.free_pages == pool.num_pages - 1
+
+
+# -- the w4a16 matmul ------------------------------------------------------------
+
+# Llama-3-8B's projections as (K, N)
+LLAMA3_8B_PROJECTIONS = {
+    "wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
+    "w_gate": (4096, 14336), "w_up": (4096, 14336), "w_down": (14336, 4096),
+    "lm_head": (4096, 128256),
+}
+
+
+def _int4_operands(dev, m, k, n, groups, seed=0):
+    """bf16 activations ~N(0, 1) and random packed codes with scales that
+    keep the outputs ~N(0, 1)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+    q = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
+    s = (torch.rand(groups, n, generator=gen, device=dev) + 0.5) * (0.5 / k ** 0.5)
+    return x, q, s
+
+
+def _check_int4(x, q, s):
+    before = fused_int4_matmul.launches
+    out = fused_int4_matmul(x, q, s, dtype=torch.bfloat16)
+    assert fused_int4_matmul.launches == before + 1
+    ref = int4_matmul_plain(x.float(), q, s, torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref, **TOL)
+
+
+@pytest.mark.parametrize("m", [1, 8, 128, 312])
+@pytest.mark.parametrize("name", sorted(LLAMA3_8B_PROJECTIONS))
+def test_int4_kernel_matches_plain_version_at_llama3_8b_shapes(cuda, name, m):
+    k, n = LLAMA3_8B_PROJECTIONS[name]
+    _check_int4(*_int4_operands(cuda, m, k, n, k // 128, seed=m))
+
+
+@pytest.mark.parametrize("m,k,n,groups", [
+    (5, 128, 64, 1),       # K = group: one group
+    (20, 96, 48, 1),       # K % 128 != 0: the one-group fallback
+    (3, 4096, 256, 1),     # one group across 32 pipeline stages
+    (40, 240, 32, 5),      # groups of 48 end mid-stage
+    (17, 512, 80, 32),     # groups of 16, eight end in every stage
+], ids=["k_eq_group", "fallback_96", "group_4096", "group_48", "group_16"])
+def test_int4_kernel_group_sizes(cuda, m, k, n, groups):
+    _check_int4(*_int4_operands(cuda, m, k, n, groups))
+
+
+def test_int4_kernel_on_quantized_weights(cuda):
+    """Real codes from the quantizer: the kernel against x @ dequantize."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    w = torch.randn(1024, 768, generator=gen, device=cuda) * 1024 ** -0.5
+    q, s = quantize_int4(w)
+    x = torch.randn(8, 1024, generator=gen, device=cuda).bfloat16()
+    _check_int4(x, q, s)
+
+
+@pytest.mark.parametrize("m", [1024, 2048])
+@pytest.mark.parametrize("name", ["w_gate", "w_down"])
+def test_int4_kernel_matches_plain_version_at_prefill_rows(cuda, name, m):
+    """Two-dispatch prefill buckets past 512 rows launch the kernel too."""
+    k, n = LLAMA3_8B_PROJECTIONS[name]
+    _check_int4(*_int4_operands(cuda, m, k, n, k // 128, seed=m))
+
+
+def test_int4_gate_violations_raise_on_cuda(cuda):
+    x, q, s = _int4_operands(cuda, 4, 256, 128, 2)
+    cases = [
+        ((x.float(), q, s), "gate x.dtype"),
+        ((x, q.to(torch.int8), s), "gate packed.dtype"),
+        ((x, q, s.bfloat16()), "gate scale.dtype"),
+        ((x, q[None], s[None]), "gate 2-D"),
+        ((x[:, :128].contiguous(), q, s), "gate K"),
+        ((x, q, s[:, :64]), "gate scale.shape"),
+        ((x, q, torch.ones(3, 128, device=cuda)), "gate groups"),
+        ((x[:, :48].contiguous(), q[:24], torch.ones(2, 128, device=cuda)), "gate group"),
+        ((x, q[:, :8].contiguous(), s[:, :8].contiguous()), "gate N"),
+        ((x[:0], q, s), "gate rows"),
+        ((x, torch.zeros(128, 256, dtype=torch.uint8, device=cuda)[:, ::2], s),
+         "gate contiguous"),
+        ((x, q.cpu(), s), "gate device"),
+    ]
+    before = fused_int4_matmul.launches
+    for args, gate in cases:
+        with pytest.raises(ValueError, match=gate):
+            fused_int4_matmul(*args)
+    assert fused_int4_matmul.launches == before
+
+
+@pytest.mark.parametrize("scheduler", ["two_dispatch", "ragged"])
+def test_int4_engine_on_the_card_runs_the_kernel(cuda, scheduler):
+    cfg = {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 4,
+           "n_kv_heads": 2, "head_dim": 64, "ffn_dim": 512, "dtype": "bfloat16"}
+    params = quantize_llama_params(
+        init_params(cfg, torch.Generator(cuda).manual_seed(0), device=cuda), bits=4)
+    model = Llama(cfg, params)
+    knobs = {"scheduler": "ragged", "step_token_budget": 16} if scheduler == "ragged" else {}
+    engine = LLMEngineCore(model, max_batch=2, max_seq_len=128, decode_steps=4,
+                           page_size=16, prefill_buckets=[32, 64], weight_quant="int4",
+                           **knobs)
+
+    async def run():
+        async def one(n, delay):
+            await asyncio.sleep(delay)
+            return [t async for t in engine.generate(
+                GenRequest(prompt_ids=list(range(1, n + 1)), max_new_tokens=9))]
+        return await asyncio.gather(one(5, 0.0), one(40, 0.05), one(20, 0.1))
+
+    fused_int4_matmul.launches = 0
+    streams = asyncio.run(run())
+    c = engine.counters
+    assert all(1 <= len(s) <= 9 for s in streams)
+    forwards = c["prefills"] + c["decode_steps"] + c["ragged_steps"] + c["ragged_chain_steps"]
+    assert forwards > 0
+    assert fused_int4_matmul.launches == (7 * model.n_layers + 1) * forwards
+    assert engine.health()["weights"]["quant"] == "int4"
