@@ -16,6 +16,10 @@ exits non-zero before the result lines are printed:
    at history 0 and mid-history, idle rows, multi-step pads, page-crossing
    tails; P 16/32, G 4/8, D 64/128, bf16/int8), timed at a mixed shape and
    a prefill shape;
+   Then the ragged kernel's draft-tree mask (``tree_anc``): chain and
+   forest verify rows of k+1 = 5 tokens beside decode rows and a chunk,
+   bf16 and int8, against the plain version (a chain must give the
+   unmasked launch's bits), timed beside the same launch without the mask;
 3c. the w4a16 matmul kernel against its plain version at every Llama-3-8B
    projection shape, M 8 (decode), 312 (the ragged flat axis) and 2048
    (the longest prefill bucket; not the lm_head, which a prefill runs on
@@ -26,6 +30,8 @@ exits non-zero before the result lines are printed:
    (prefill + paged decode logits, bf16 and int8 KV);
 4b. the same model's ``forward_ragged`` over mixed batches;
 4c. 4 and 4b again on int4 weights (the same packed codes on both sides);
+4d. the same model's ``forward_ragged`` with chain and forest verify rows
+   (last-token and per-position verify logits);
 5. the main path: Llama-3-8B at full width (32 layers, dim 4096, bf16,
    random weights from a seed) behind the port's HTTP server, a paged KV
    cache (max_batch 8, max_seq_len 2048, page_size 16, decode_steps 4),
@@ -43,11 +49,20 @@ exits non-zero before the result lines are printed:
    then phase 5b's: the int4 kernel once per projection per forward call (7
    per layer and the lm_head) and ``health()["weights"]``; then a short
    two-dispatch run on int8 weights;
-6. where the time goes: one profiled pass of each scheduler (bf16 KV) and
-   one of the two-dispatch path on int4 weights.
+5d. speculative verify rows: the same server under ``scheduler: ragged``
+   with ``speculation: ngram``, ``spec_k`` 4, four staggered repetitive
+   chats (one at temperature 0.7): a plain ragged arm, a chain arm, a tree
+   arm (``spec_branch`` 2) on bf16 KV, a plain and a tree arm on int8 KV; verify
+   rows and tree depths must show, the ragged kernel once per layer per
+   ragged step, its tree variant once per layer per verify step; decode
+   tokens per launch, TTFT and tokens/s per arm, and whether the greedy
+   streams equal the plain arm's (reported, not asserted);
+6. where the time goes: one profiled pass of each scheduler (bf16 KV), one
+   of phase 5d's tree arm and one of the two-dispatch path on int4 weights.
 
 The last three lines of standard output are the card line, the ``kernels``
-JSON line and ``{"ok": true, "device": {...}}``. Timings are CUDA-event
+JSON line (every kernel, and the ragged kernel's tree variant) and
+``{"ok": true, "device": {...}}``. Timings are CUDA-event
 times on the card; ``bound_ms`` is computed from this run's operands.
 """
 
@@ -322,28 +337,30 @@ def ragged_args(ops, li=0, table=None):
             ops["row_lens"]), kw
 
 
-def check_ragged(ops, label) -> float:
-    """Ragged kernel vs the plain version in f32 on the same operands;
-    tokens no row owns (multi-step pads, alignment pads, unowned blocks)
-    must be exact zeros, and a second launch with every table entry past
-    each row's kv_len poisoned must give the same bits."""
+def check_ragged(ops, label, tree_anc=None) -> float:
+    """Ragged kernel vs the plain version in f32 on the same operands (with
+    ``tree_anc``, both masked by it); tokens no row owns (multi-step pads,
+    alignment pads, unowned blocks) must be exact zeros, and a second
+    launch with every table entry past each row's kv_len poisoned must
+    give the same bits."""
     from clearml_serving_tpu_torch.ops.paged_attention import (
         ragged_paged_attention, ragged_paged_attention_ref,
     )
 
     args, kw = ragged_args(ops)
     q, k, v = args[:3]
-    out = ragged_paged_attention(*args, **kw)
+    out = ragged_paged_attention(*args, **kw, tree_anc=tree_anc)
     quant = ops["ks"] is not None
     scales = {key: kw[key] for key in ("k_scale", "v_scale") if key in kw}
     ref = ragged_paged_attention_ref(q.float(), k if quant else k.float(),
-                                     v if quant else v.float(), *args[3:], **scales)
+                                     v if quant else v.float(), *args[3:], **scales,
+                                     tree_anc=tree_anc)
     poisoned = ops["table"].clone()
     page_size = k.shape[2]
     for i, length in enumerate(ops["kv_lens"].tolist()):
         poisoned[i, -(-length // page_size):] = 2 ** 30
     args2, kw2 = ragged_args(ops, table=poisoned)
-    out2 = ragged_paged_attention(*args2, **kw2)
+    out2 = ragged_paged_attention(*args2, **kw2, tree_anc=tree_anc)
     sync()
     owned = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
     for s, n in zip(ops["starts"].tolist(), ops["row_lens"].tolist()):
@@ -360,21 +377,30 @@ def check_ragged(ops, label) -> float:
     return err
 
 
-def ragged_bound(ops):
+def ragged_bound(ops, tree_anc=None):
     """(ms, "bytes" | "operations"): least time for the launch on these
     operands: each live row's K/V (and scales) up to its kv_len read once,
-    q and out once, the live rows' table entries, over the memory rate; or
-    4*G*D*Hkv FLOPs per (query, causal key) pair over the bf16 peak;
-    whichever is larger."""
+    q and out once, the live rows' table entries (and ``tree_anc``), over
+    the memory rate; or 4*G*D*Hkv FLOPs per visible (query, key) pair (the
+    causal pairs, a tree query's in-row pairs only its listed ancestors)
+    over the bf16 peak; whichever is larger."""
     q, k = ops["q"], ops["k"]
     t, hkv, g, d = q.shape
     page_size = k.shape[3]
-    rows = [(kv, n) for kv, n in zip(ops["kv_lens"].tolist(), ops["row_lens"].tolist()) if n]
-    live = sum(kv for kv, _ in rows)
+    rows = [(kv, n, s) for kv, n, s in zip(ops["kv_lens"].tolist(), ops["row_lens"].tolist(),
+                                           ops["starts"].tolist()) if n]
+    live = sum(kv for kv, _, _ in rows)
     kv_bytes = 2 * live * hkv * d * k.element_size()
     scales = 2 * live * hkv * 4 if ops["ks"] is not None else 0
-    io = 2 * q.numel() * q.element_size() + 4 * sum(-(-kv // page_size) for kv, _ in rows)
-    causal = sum((kv - n) * n + n * (n + 1) // 2 for kv, n in rows)
+    io = 2 * q.numel() * q.element_size() + 4 * sum(-(-kv // page_size) for kv, _, _ in rows)
+    causal = sum((kv - n) * n + n * (n + 1) // 2 for kv, n, _ in rows)
+    if tree_anc is not None:
+        io += tree_anc.numel() * 4
+        anc = tree_anc.cpu()
+        for _kv, n, s in rows:
+            for i in range(n):
+                if int(anc[s + i, 0]) != -2:
+                    causal -= (i + 1) - int((anc[s + i] >= 0).sum())
     flops = 4 * g * d * hkv * causal
     t_bytes, t_ops = (kv_bytes + scales + io) / CARD_BW, flops / CARD_BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -446,6 +472,95 @@ def phase_ragged_kernel(gen) -> dict:
             log("  {} shape {}: kernel_ms {:.4f}  plain_ms {:.4f}  bound_ms {:.4f} ({})  "
                 "({:.1f}% of bound)".format(shape, "int8" if quant else "bf16", kernel_ms,
                                             plain_ms, b_ms, b_by, 100 * b_ms / kernel_ms))
+            del ops
+            torch.cuda.empty_cache()
+    return dict(err_bf16=errs["bf16"], err_int8=errs["int8"], timings=timings)
+
+
+# the draft-tree launch of the speculative main path: four verify rows of
+# k+1 = 5 tokens at 1024 history, three decode rows at 1024, one 128-token
+# chunk ending at 1024
+RAGGED_TREE = [(5, 5, 1024)] * 4 + [(1, 1, 1023)] * 3 + [(128, 128, 896)]
+# a verify row's topology: a chain, or the n-gram forest at spec_branch 2
+# (a depth-3 primary branch and one root sibling)
+TREE_TOPOLOGIES = {"chain": [-1, 0, 1, 2, 3], "forest": [-1, 0, 1, 2, 0]}
+
+
+def tree_anc_for(ops, parents):
+    """[T, k+1] ancestor lists: each verify row (5 query tokens) takes
+    ``parents``; decode and chunk tokens keep the -2 plain-causal sentinel."""
+    from clearml_serving_tpu_torch.ops.paged_attention import tree_ancestors
+
+    anc = torch.full((ops["q"].shape[0], len(parents)), -1, dtype=torch.int32)
+    anc[:, 0] = -2
+    row_anc = torch.from_numpy(tree_ancestors(parents, width=len(parents)))
+    for s, n in zip(ops["starts"].tolist(), ops["row_lens"].tolist()):
+        if n == len(parents):
+            anc[s:s + n] = row_anc
+    return anc.to(ops["q"].device)
+
+
+def phase_tree_kernel(gen) -> dict:
+    """The ragged kernel's draft-tree mask: chain and forest verify rows
+    beside decode rows and a chunk, bf16 and int8, against the plain
+    version; a chain topology must give the plain-causal launch's bits.
+    Then the tree launch is timed beside the same launch without the mask,
+    the plain version and the bound."""
+    from clearml_serving_tpu_torch.ops.paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_ref,
+    )
+
+    log("phase 3b (tree_anc): ragged kernel's draft-tree mask vs plain version "
+        "(atol=rtol={})".format(TOL))
+    errs = {"bf16": 0.0, "int8": 0.0}
+    timings = {}
+    layers = 4
+    for quant in (False, True):
+        name = "int8" if quant else "bf16"
+        for topo, parents in TREE_TOPOLOGIES.items():
+            ops = ragged_operands(gen, RAGGED_TREE, quant=quant, layers=layers)
+            anc = tree_anc_for(ops, parents)
+            errs[name] = max(errs[name], check_ragged(
+                ops, "tree shape {} {} G4 D128 P16".format(topo, name), tree_anc=anc))
+            args, kw = ragged_args(ops)
+            if topo == "chain":
+                same = torch.equal(ragged_paged_attention(*args, **kw, tree_anc=anc),
+                                   ragged_paged_attention(*args, **kw))
+                sync()
+                if not same:
+                    raise AssertionError("a chain topology changed the kernel's bits")
+
+            def kernel(li, ops=ops, anc=anc):
+                args, kw = ragged_args(ops, li)
+                ragged_paged_attention(*args, **kw, tree_anc=anc)
+
+            def untree(li, ops=ops):
+                args, kw = ragged_args(ops, li)
+                ragged_paged_attention(*args, **kw)
+
+            def plain(li, ops=ops, anc=anc):
+                args, kw = ragged_args(ops, li)
+                kw.pop("block_rows")
+                kw.pop("block_q0")
+                ragged_paged_attention_ref(*args, **kw, tree_anc=anc)
+
+            before = (ragged_paged_attention.launches, ragged_paged_attention.tree_launches)
+            # in turns (masked, unmasked, unmasked, masked): the two differ
+            # by less than the spread of back-to-back timings
+            turns = [time_launches(fn, layers, 100) for fn in (kernel, untree, untree, kernel)]
+            kernel_ms = (turns[0] + turns[3]) / 2
+            untree_ms = (turns[1] + turns[2]) / 2
+            plain_ms = time_launches(plain, layers, 4)
+            # not the main path's launches
+            ragged_paged_attention.launches, ragged_paged_attention.tree_launches = before
+            b_ms, b_by = ragged_bound(ops, anc)
+            timings["{}_{}".format(topo, name)] = dict(
+                ms=kernel_ms, untree_ms=untree_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+            log("  tree shape {} {}: kernel_ms {:.4f} (same launch without the mask "
+                "{:.4f})  plain_ms {:.4f}  bound_ms {:.4f} ({})  ({:.1f}% of bound)".format(
+                    topo, name, kernel_ms, untree_ms, plain_ms, b_ms, b_by,
+                    100 * b_ms / kernel_ms))
             del ops
             torch.cuda.empty_cache()
     return dict(err_bf16=errs["bf16"], err_int8=errs["int8"], timings=timings)
@@ -865,6 +980,123 @@ def phase_small_ragged(gen_seed: int, weight_quant: str = "") -> None:
             raise AssertionError("forward_ragged on the card disagrees with the CPU reference")
 
 
+def phase_small_verify(gen_seed: int) -> None:
+    """One ``forward_ragged`` step of phase 4's model with speculative
+    verify rows: chain and forest rows of k+1 = 5 tokens at several
+    histories (a forest node at its path depth's RoPE position) beside
+    decode rows, a prefill chunk and an idle row, bf16 on the card (ragged
+    kernel with its tree mask, q-block aligned layout) against the same
+    weights in float32 on the CPU (plain version, the same layout). Both
+    the last-token logits and the per-position verify logits are held to
+    phase 4b's tolerance (5% of the largest reference logit, 0.9 top-1
+    agreement up to ties inside it)."""
+    from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
+    from clearml_serving_tpu_torch.models.llama import Llama
+    from clearml_serving_tpu_torch.ops.paged_attention import (
+        RAGGED_QB, ragged_layout, ragged_paged_attention, tree_ancestors,
+    )
+
+    log("phase 4d: small model forward_ragged with verify rows, card (bf16, kernels) vs "
+        "CPU (float32, plain versions)")
+    card_params, ref_params = small_model_params(gen_seed)
+    # (history, query tokens, verify topology)
+    rows = [(40, 5, "chain"), (23, 1, None), (9, 5, "forest"), (0, 20, None),
+            (31, 5, "forest"), (0, 0, None), (12, 5, "chain"), (28, 1, None)]
+    depth_of = {"chain": [0, 1, 2, 3, 4], "forest": [0, 1, 2, 3, 1]}
+    r = len(rows)
+    gen = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, 256, (r, 64), generator=gen)
+    row_lens = [n for _h, n, _t in rows]
+    starts, block_rows, block_q0, t = ragged_layout(row_lens, RAGGED_QB)
+    tokens = torch.zeros(t, dtype=torch.long)
+    tok_pos = torch.zeros(t, dtype=torch.int32)
+    tok_row = torch.zeros(t, dtype=torch.int32)
+    tok_valid = torch.zeros(t, dtype=torch.bool)
+    row_last = torch.zeros(r, dtype=torch.int32)
+    kv_lens = torch.zeros(r, dtype=torch.int32)
+    anc = torch.full((t, 5), -1, dtype=torch.int32)
+    anc[:, 0] = -2
+    row_logit_idx = torch.zeros(r, 5, dtype=torch.int32)
+    for slot, (hist, n, topo) in enumerate(rows):
+        if not n:
+            continue
+        s = int(starts[slot])
+        tokens[s:s + n] = prompt[slot, hist:hist + n]
+        depth = torch.tensor(depth_of[topo]) if topo else torch.arange(n)
+        if topo:
+            anc[s:s + n] = torch.from_numpy(tree_ancestors(TREE_TOPOLOGIES[topo], width=5))
+        tok_pos[s:s + n] = hist + depth
+        tok_row[s:s + n] = slot
+        tok_valid[s:s + n] = True
+        row_last[slot] = s + n - 1
+        kv_lens[slot] = hist + n
+        row_logit_idx[slot] = s + torch.clamp(torch.arange(5), max=n - 1)
+    live = [slot for slot, n in enumerate(row_lens) if n]
+    for kv_quant in ("", "int8"):
+        cfg = dict(SMALL_MODEL, kv_quant=kv_quant)
+        models = {
+            "card": Llama(dict(cfg, dtype="bfloat16"), card_params),
+            "cpu": Llama(dict(cfg, dtype="float32"), ref_params),
+        }
+        outs = {}
+        tree_before = ragged_paged_attention.tree_launches
+        for name, model in models.items():
+            dev = model.device
+            cache = PagedKVCache(model.n_layers, model.n_kv_heads, model.head_dim,
+                                 num_pages=64, page_size=16, max_slots=r,
+                                 dtype=model.dtype, kv_quant=kv_quant, device=dev)
+            pool = cache.pool
+            write_page = torch.zeros(t, dtype=torch.int32)
+            write_offset = torch.zeros(t, dtype=torch.int32)
+            for slot, (hist, n, _topo) in enumerate(rows):
+                if hist:
+                    _last, mini = model.prefill(prompt[slot:slot + 1, :hist].to(dev),
+                                                torch.tensor([hist], device=dev))
+                    scales = ((mini["k_scale"][:, 0], mini["v_scale"][:, 0])
+                              if kv_quant else ())
+                    cache.write_prompt(slot, mini["k"][:, 0], mini["v"][:, 0], hist, *scales)
+                if n:
+                    s = int(starts[slot])
+                    pool.extend(slot, n)
+                    coords = pool.token_coords(slot, hist, n)
+                    write_page[s:s + n] = torch.tensor([p for p, _ in coords])
+                    write_offset[s:s + n] = torch.tensor([o for _, o in coords])
+            blocks = {}
+            if torch.device(dev).type == "cuda":
+                blocks = {"block_rows": torch.as_tensor(block_rows, device=dev),
+                          "block_q0": torch.as_tensor(block_q0, device=dev)}
+            kw = ({"k_scales": cache.k_scale, "v_scales": cache.v_scale} if kv_quant else {})
+            last, gathered = model.forward_ragged(
+                tokens.to(dev), tok_pos.to(dev), tok_row.to(dev), tok_valid.to(dev),
+                row_last.to(dev), cache.k, cache.v,
+                torch.as_tensor(pool.page_table(8), device=dev), kv_lens.to(dev),
+                torch.as_tensor(starts, device=dev),
+                torch.tensor(row_lens, dtype=torch.int32, device=dev),
+                write_page.to(dev), write_offset.to(dev), **blocks, **kw,
+                row_logit_idx=row_logit_idx.to(dev), tree_anc=anc.to(dev))
+            outs[name] = torch.cat([last.float().cpu()[live],
+                                    gathered.float().cpu()[live].reshape(-1, last.shape[-1])])
+        sync()
+        tree_launches = ragged_paged_attention.tree_launches - tree_before
+        if models["card"].device.type == "cuda" and tree_launches != models["card"].n_layers:
+            raise AssertionError("phase 4d: {} tree launches for one forward call of {} "
+                                 "layers".format(tree_launches, models["card"].n_layers))
+        card, ref = outs["card"], outs["cpu"]
+        err = float((card - ref).abs().max())
+        limit = 0.05 * float(ref.abs().max())
+        top = card.argmax(-1, keepdim=True)
+        strict = float((top[:, 0] == ref.argmax(-1)).float().mean())
+        agree = float((ref.amax(-1) - ref.gather(-1, top)[:, 0] <= limit).float().mean())
+        finite = bool(torch.isfinite(card).all())
+        log("  kv={:<5} last + verify logits max_abs_err {:.3e} (scale {:.2f}), top-1 "
+            "agreement {:.2f} (strict {:.2f}) over {} rows, tree launches {}".format(
+                kv_quant or "bf16", err, float(ref.abs().max()), agree, strict,
+                card.shape[0], tree_launches))
+        if not finite or err > limit or agree < 0.9:
+            raise AssertionError("forward_ragged verify rows on the card disagree with the "
+                                 "CPU reference")
+
+
 # -- phase 5: the main path --------------------------------------------------------
 
 PROMPTS = [
@@ -875,9 +1107,9 @@ PROMPTS = [
 ]
 
 
-async def post_chat(session, url, prompt, stream, max_tokens):
+async def post_chat(session, url, prompt, stream, max_tokens, sampling=None):
     body = {"model": "llama3-8b", "messages": [{"role": "user", "content": prompt}],
-            "max_tokens": max_tokens, "stream": stream}
+            "max_tokens": max_tokens, "stream": stream, **(sampling or {})}
     t0 = time.perf_counter()
     async with session.post(url, json=body) as r:
         if r.status != 200:
@@ -1063,6 +1295,12 @@ def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "
     if scheduler == "ragged":
         engine, tokenizer = _engine(params, "", "llama3-8b", **RAGGED_KNOBS, **knobs)
         _results, wall, c = asyncio.run(serve_ragged(engine, tokenizer, profiler=prof))
+    elif scheduler == "ragged-tree":
+        # phase 5d's tree arm under its traffic
+        engine, tokenizer = _engine(params, "", "llama3-8b", **TREE_KNOBS, **knobs)
+        _results, wall, c = asyncio.run(serve_ragged(
+            engine, tokenizer, max_tokens=SPEC_MAX_TOKENS, profiler=prof, prompts=SPEC_PROMPTS,
+            samplings=SPEC_SAMPLINGS))
     else:
         engine, tokenizer = _engine(params, "", "llama3-8b", **knobs)
         _results, wall, _launches, c = asyncio.run(
@@ -1118,13 +1356,14 @@ LONG_PROMPTS = [
 ]
 
 
-async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None):
-    """Start the port's app, warm it up with the four long prompts, zero the
-    counts, then POST the four chats (two streaming) staggered: each is
-    sent once every earlier one has its first token, so every admission's
-    chunk rows share launches with live decode rows. Returns (results,
-    wall seconds, counters with ttft_ms, step_rows and both kernels'
-    launches)."""
+async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None, prompts=None,
+                       samplings=None):
+    """Start the port's app, warm it up with the prompts (default: the four
+    long ones), zero the counts, then POST the chats (the first two
+    streaming) staggered: each is sent once every earlier one has its first
+    token, so every admission's chunk rows share launches with live decode
+    rows. Returns (results, wall seconds, counters with ttft_ms, step_rows
+    and the kernels' launches)."""
     import aiohttp
     from aiohttp import web
 
@@ -1144,9 +1383,12 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None):
     url = "http://127.0.0.1:{}/serve/openai/v1/chat/completions".format(port)
     try:
         async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
-            await asyncio.gather(*[post_chat(s, url, p, False, 4) for p in LONG_PROMPTS])
+            prompts = prompts or LONG_PROMPTS
+            samplings = samplings or [None] * len(prompts)
+            await asyncio.gather(*[post_chat(s, url, p, False, 4) for p in prompts])
             paged_attention.launches = 0
             ragged_paged_attention.launches = 0
+            ragged_paged_attention.tree_launches = 0
             fused_int4_matmul.launches = 0
             for key in engine.counters:
                 engine.counters[key] = 0
@@ -1157,11 +1399,12 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None):
                 profiler.start()
             t0 = time.perf_counter()
             tasks = []
-            for i, prompt in enumerate(LONG_PROMPTS):
+            for i, prompt in enumerate(prompts):
                 while len(engine.ttft_ms) < i:
                     await asyncio.sleep(0.002)
                 tasks.append(asyncio.ensure_future(
-                    post_chat(s, url, prompt, stream=i < 2, max_tokens=max_tokens)))
+                    post_chat(s, url, prompt, stream=i < 2, max_tokens=max_tokens,
+                              sampling=samplings[i])))
             results = await asyncio.gather(*tasks)
             wall = time.perf_counter() - t0
             if profiler is not None:
@@ -1171,6 +1414,7 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None):
                             step_rows=dict(engine.step_rows),
                             paged_launches=paged_attention.launches,
                             ragged_launches=ragged_paged_attention.launches,
+                            tree_launches=ragged_paged_attention.tree_launches,
                             int4_launches=fused_int4_matmul.launches)
     finally:
         await runner.cleanup()
@@ -1231,6 +1475,119 @@ def phase_ragged_main_path(params, kv_quant: str, preset: str = "llama3-8b",
     return out
 
 
+# -- phase 5d: speculative verify rows on the ragged main path ----------------
+
+SPEC_KNOBS = dict(RAGGED_KNOBS, speculation="ngram", spec_k=4)
+TREE_KNOBS = dict(SPEC_KNOBS, spec_tree=True, spec_branch=2)
+# (arm, KV, knobs): on bf16 KV the plain ragged arm the greedy streams are
+# held to, then chain and tree verify rows; on int8 KV a plain and a tree arm
+SPEC_ARMS = [("plain", "", RAGGED_KNOBS), ("chain", "", SPEC_KNOBS), ("tree", "", TREE_KNOBS),
+             ("plain", "int8", RAGGED_KNOBS), ("tree", "int8", TREE_KNOBS)]
+# repetitive chats (the n-gram proposer drafts from repeats); the third
+# samples at temperature 0.7 among its 40 likeliest tokens (the random
+# weights' lm_head is zero past the 256 byte ids, which render as nothing)
+SPEC_PROMPTS = [
+    "Copy this list exactly: " + "red, green, blue, " * 24,
+    "Continue the pattern: " + "1 2 3 4 5 6 7 8 9 10 " * 12,
+    "Say it again and again: " + "the quick brown fox. " * 20,
+    "Repeat: " + "ab ab ab ab cd cd cd cd " * 14,
+]
+SPEC_SAMPLINGS = [None, None, {"temperature": 0.7, "top_k": 40}, None]
+SPEC_MAX_TOKENS = 64
+
+
+def first_difference(a: str, b: str):
+    """Index of the first differing character of two strings (None when
+    they are equal)."""
+    if a == b:
+        return None
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def phase_spec_main_path(params, arm: str, kv_quant: str, knobs: dict,
+                         preset: str = "llama3-8b") -> dict:
+    """Llama-3-8B behind the HTTP app under ``scheduler: ragged`` (budget
+    256) with the arm's speculation knobs; four staggered repetitive chats,
+    one sampled. Checks verify rows ran (and tree depths on the tree arm)
+    and the launch identities: the ragged kernel once per layer per ragged
+    step, its tree variant once per layer per verify step of a tree
+    engine, the decode kernel once per layer per decode and chained window
+    step."""
+    engine, tokenizer = _engine(params, kv_quant, preset, **knobs)
+    results, wall, c = asyncio.run(serve_ragged(
+        engine, tokenizer, max_tokens=SPEC_MAX_TOKENS, prompts=SPEC_PROMPTS,
+        samplings=SPEC_SAMPLINGS))
+    ragged = engine.health()["ragged"]
+    n_layers = engine.model.n_layers
+    del engine
+    if torch.device(DEV).type == "cuda":
+        torch.cuda.empty_cache()
+    steps = c["ragged_steps"]
+    out = dict(
+        arm=arm, kv=kv_quant or "bf16", wall_s=wall, tokens=c["tokens_emitted"],
+        ragged_steps=steps, verify_steps=c["ragged_verify_steps"], step_rows=c["step_rows"],
+        decode_steps=c["decode_steps"], ragged_chain_steps=c["ragged_chain_steps"],
+        ragged_launches=c["ragged_launches"], tree_launches=c["tree_launches"],
+        paged_launches=c["paged_launches"],
+        # decode tokens a ragged launch committed (accepted drafts + bonus)
+        accepted_per_launch=c["ragged_decode_tokens"] / max(1, steps),
+        ttft_ms=c["ttft_ms"], tok_s=c["tokens_emitted"] / wall,
+        ragged_step_ms=c["ragged_ms"] / max(1, steps),
+        spec_acceptance=ragged["spec_acceptance"], spec_tree_depth=ragged["spec_tree_depth"],
+        spec_proposer=ragged["spec_proposer"],
+        contents=[r["content"] for r in results],
+    )
+    log("  {arm} kv={kv}: wall {wall_s:.3f} s, {tokens} tokens, {tok_s:.1f} tok/s; ragged "
+        "steps {ragged_steps} ({ragged_step_ms:.2f} ms each; {verify_steps} with verify "
+        "rows), {accepted_per_launch:.3f} decode tokens per launch, rows {step_rows}; "
+        "launches ragged {ragged_launches} (tree {tree_launches}) paged {paged_launches}; "
+        "TTFT {ttft_ms} ms; proposer {spec_proposer}".format(**out))
+    if not all(r["content"] for r in results):
+        raise AssertionError("an empty completion")
+    if c["tokens_emitted"] != SPEC_MAX_TOKENS * len(SPEC_PROMPTS):
+        raise AssertionError("a completion stopped before max_tokens: {} tokens".format(
+            c["tokens_emitted"]))
+    if steps == 0 or c["ragged_launches"] != n_layers * steps:
+        raise AssertionError("ragged_paged_attention launched {} times for {} ragged steps of "
+                             "{} layers".format(c["ragged_launches"], steps, n_layers))
+    if c["paged_launches"] != n_layers * (c["decode_steps"] + c["ragged_chain_steps"]):
+        raise AssertionError("paged_attention launched {} times for {} decode and {} chained "
+                             "steps".format(c["paged_launches"], c["decode_steps"],
+                                            c["ragged_chain_steps"]))
+    tree = bool(knobs.get("spec_tree"))
+    if c["tree_launches"] != (n_layers * c["ragged_verify_steps"] if tree else 0):
+        raise AssertionError("{} tree launches for {} verify steps ({} arm)".format(
+            c["tree_launches"], c["ragged_verify_steps"], arm))
+    if knobs.get("speculation") and c["step_rows"]["spec_verify"] < 1:
+        raise AssertionError("no verify rows ran: {}".format(c["step_rows"]))
+    if tree and ragged["spec_tree_depth"]["count"] < 1:
+        raise AssertionError("no tree acceptance depth recorded")
+    return out
+
+
+def compare_spec_streams(spec_runs) -> None:
+    """Each speculative arm's greedy contents against the plain ragged arm's
+    on the same KV (bf16 cuBLAS at other row counts may flip a near tie at
+    full width: reported, not asserted), and the tree arm's against the
+    chain arm's."""
+    greedy = [i for i, sampling in enumerate(SPEC_SAMPLINGS) if sampling is None]
+    for run in spec_runs:
+        if run["arm"] == "plain":
+            continue
+        plain_run = next(r for r in spec_runs if r["arm"] == "plain" and r["kv"] == run["kv"])
+        run["greedy_vs_plain"] = [first_difference(run["contents"][i], plain_run["contents"][i])
+                                  for i in greedy]
+        chain_run = next((r for r in spec_runs if r["arm"] == "chain" and r["kv"] == run["kv"]),
+                         None)
+        if run["arm"] == "tree" and chain_run is not None:
+            run["greedy_vs_chain"] = [
+                first_difference(run["contents"][i], chain_run["contents"][i]) for i in greedy]
+        log("  {} kv={}: greedy streams match the plain ragged arm's: {} (first differing "
+            "character per greedy chat: {}; against the chain arm: {})".format(
+                run["arm"], run["kv"], all(d is None for d in run["greedy_vs_plain"]),
+                run["greedy_vs_plain"], run.get("greedy_vs_chain", "n/a")))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU",
@@ -1265,9 +1622,11 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     kern = phase_kernels(gen)
     rkern = phase_ragged_kernel(gen)
+    tkern = phase_tree_kernel(gen)
     int4k = phase_int4_kernel(gen)
     phase_small_model(0)
     phase_small_ragged(0)
+    phase_small_verify(0)
     phase_small_model(0, "int4")
     phase_small_ragged(0, "int4")
 
@@ -1305,13 +1664,23 @@ def main() -> int:
         raise AssertionError("no int4 prefill above 512 rows: {}".format(
             int4_runs[0]["prefill_rows"]))
     int8_run = phase_main_path(params, "", weight_quant="int8", max_tokens=8)
+    log("phase 5d: speculative verify rows, llama3-8b full width, scheduler ragged, "
+        "step_token_budget 256, speculation ngram, spec_k 4")
+    spec_runs = [phase_spec_main_path(params, arm, kv, knobs) for arm, kv, knobs in SPEC_ARMS]
+    compare_spec_streams(spec_runs)
+    for run in spec_runs:
+        run["contents"] = [text[:24] for text in run["contents"]]
     log("phase 6: where the time goes")
     prof = phase_profile(params)
     ragged_prof = phase_profile(params, "ragged")
+    tree_prof = phase_profile(params, "ragged-tree")
     int4_prof = phase_profile(qparams, weight_quant="int4")
 
     t = kern["timings"]
     rt = rkern["timings"]
+    tt = tkern["timings"]
+    tree_bf16 = next(r for r in spec_runs if r["arm"] == "tree" and r["kv"] == "bf16")
+    tree_int8 = next(r for r in spec_runs if r["arm"] == "tree" and r["kv"] == "int8")
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -1358,6 +1727,32 @@ def main() -> int:
         "bound_ms_prefill": rt["prefill_bf16"]["bound_ms"],
         "bound_by_prefill": rt["prefill_bf16"]["bound_by"],
     }, {
+        "name": "ragged_paged_attention[tree_anc]",
+        "route": "cuda",
+        "source": "clearml_serving_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "clearml_serving_tpu/ops/paged_attention.py:701",
+        "tpu": "ops/paged_attention.py:701-722, the tree branch of the kernel called at :881",
+        # phase 5d's tree arm: once per layer per verify step
+        "launches": tree_bf16["tree_launches"],
+        "launches_int8": tree_int8["tree_launches"],
+        "max_abs_err": tkern["err_bf16"],
+        "max_err_bf16": tkern["err_bf16"],
+        "max_err_int8": tkern["err_int8"],
+        # primary shape: 4 forest verify rows of 5 at 1024 history, 3 decode
+        # rows at 1024, a 128-token chunk
+        "ms": tt["forest_bf16"]["ms"],
+        "plain_ms": tt["forest_bf16"]["plain_ms"],
+        "bound_ms": tt["forest_bf16"]["bound_ms"],
+        "bound_by": tt["forest_bf16"]["bound_by"],
+        "library_ms": None,
+        # the same launch without the mask, timed in turns with it
+        "ms_without_mask": tt["forest_bf16"]["untree_ms"],
+        "ms_chain": tt["chain_bf16"]["ms"],
+        "ms_int8": tt["forest_int8"]["ms"],
+        "ms_int8_without_mask": tt["forest_int8"]["untree_ms"],
+        "plain_ms_int8": tt["forest_int8"]["plain_ms"],
+        "bound_ms_int8": tt["forest_int8"]["bound_ms"],
+    }, {
         "name": "fused_int4_matmul",
         "route": "cuda",
         "source": "clearml_serving_tpu_torch/csrc/fused_int4_matmul.cu",
@@ -1379,7 +1774,9 @@ def main() -> int:
     }]}
     log("main path:", json.dumps({"runs": runs, "ragged_runs": ragged_runs,
                                   "int4_runs": int4_runs, "int8_run": int8_run,
+                                  "spec_runs": spec_runs,
                                   "profile": prof, "ragged_profile": ragged_prof,
+                                  "tree_profile": tree_prof,
                                   "int4_profile": int4_prof}))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)

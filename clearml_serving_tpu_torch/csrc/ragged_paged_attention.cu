@@ -15,10 +15,29 @@
 //   row_lens     [R]             query tokens per row (0 = idle)
 //   block_rows   [T/kQB]         owning row per q block, -1 = no row
 //   block_q0     [T/kQB]         in-row index of the block's first query
+//   tree_anc     [T, DMAX]       optional int32 ancestor lists (below)
 //   out          [T, Hkv, G, D]  bf16
 //
 // Query i of row r attends KV positions < kv_lens[r] - row_lens[r] + i + 1.
-// Queries with q0 + i >= row_lens[r] and blocks no row owns give zeros. The
+// Queries with q0 + i >= row_lens[r] and blocks no row owns give zeros.
+//
+// Draft-tree verify rows (the TPU kernel's `tree` branch, :701-722): with
+// tree_anc, a query whose tree_anc[t, 0] is not -2 sees, inside that same
+// causal limit, only the row's history (in-row offset t - base < 0) and the
+// in-row offsets listed in its own tree_anc row (-1 pads). Queries with
+// tree_anc[t, 0] == -2 stay plain causal. The node order is parent before
+// child, so the causal limit still bounds every ancestor: trees change the
+// mask inside the tiles already loaded, never the page walk. The variant is
+// a template parameter (TREE), so the non-tree kernel is the code it was.
+// Each thread reads the lists of its two fragment rows once, before the
+// tile loop, into a plain flag and a 64-bit mask of allowed offsets 0..63;
+// a listed offset of 64 or more (a row of more than 64 nodes) is found by
+// scanning the list, a path no verify row of the engine takes. Only tiles
+// that reach past the row's history (t0 + kTile > base) test the tree:
+// the history tiles of a verify row run the plain loop. The mask moves no
+// bytes: a tree launch has the bound of the same plain launch.
+//
+// The kernel applies D**-0.5 itself (the caller folds any query_scale into q).
 // kernel applies D**-0.5 itself (the caller folds any query_scale into q).
 // For int8 pools the K scale multiplies the f32 scores per key, the V scale
 // multiplies the probabilities before the PV product, and the softmax
@@ -160,7 +179,17 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
         "f"(c[2]), "f"(c[3]));
 }
 
-template <int D, bool INT8, int GP>
+// One query's draft-tree visibility: `plain` (no tree mask), or the
+// allowed in-row offsets 0..63 as bits of `allow`, with `wide` set when its
+// list also names offsets past 63 (found by scanning `anc`).
+struct TreeRow {
+  bool plain;
+  bool wide;
+  unsigned long long allow;
+  const int* anc;
+};
+
+template <int D, bool INT8, int GP, bool TREE>
 __global__ void __launch_bounds__(Tiling<GP>::kThreads)
     ragged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                             const typename KvType<INT8>::T* __restrict__ k_pool,
@@ -168,9 +197,10 @@ __global__ void __launch_bounds__(Tiling<GP>::kThreads)
                             const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                             const int* __restrict__ page_table, const int* __restrict__ kv_lens,
                             const int* __restrict__ row_lens, const int* __restrict__ block_rows,
-                            const int* __restrict__ block_q0, __nv_bfloat16* __restrict__ out,
-                            int hkv, int groups, int n_pages, int page_shift, int pages_per_seq,
-                            int n_rows, float sm_scale) {
+                            const int* __restrict__ block_q0, const int* __restrict__ tree_anc,
+                            __nv_bfloat16* __restrict__ out, int hkv, int groups, int n_pages,
+                            int page_shift, int pages_per_seq, int n_rows, int tree_width,
+                            float sm_scale) {
   using T = typename KvType<INT8>::T;
   constexpr int kM = Tiling<GP>::kM;
   constexpr int kThreads = Tiling<GP>::kThreads;
@@ -234,6 +264,43 @@ __global__ void __launch_bounds__(Tiling<GP>::kThreads)
   };
   const int lim_lo = limit(r_lo);
   const int lim_hi = limit(r_hi);
+
+  // draft-tree rows: each fragment row's ancestor list, read once
+  auto tree_row = [&](int r) -> TreeRow {
+    TreeRow m{true, false, 0ull, nullptr};
+    if (r >= kM || q0 + r / GP >= row_len) return m;  // dead row: limit 0
+    const int* a = tree_anc + (static_cast<size_t>(blk) * kQB + r / GP) * tree_width;
+    if (a[0] == -2) return m;
+    m.plain = false;
+    m.anc = a;
+    for (int i = 0; i < tree_width; ++i) {
+      const int off = a[i];
+      if (off >= 0 && off < 64) {
+        m.allow |= 1ull << off;
+      } else if (off >= 64) {
+        m.wide = true;
+      }
+    }
+    return m;
+  };
+  TreeRow tr_lo{true, false, 0ull, nullptr};
+  TreeRow tr_hi{true, false, 0ull, nullptr};
+  if constexpr (TREE) {
+    tr_lo = tree_row(r_lo);
+    tr_hi = tree_row(r_hi);
+  }
+  // key t, inside a fragment row's causal limit, passes its tree mask
+  auto tree_visible = [&](int t, const TreeRow& m) -> bool {
+    if (m.plain) return true;
+    const int off = t - base;  // in-row offset; < 0 is the row's history
+    if (off < 0) return true;
+    if (off < 64) return (m.allow >> off) & 1ull;
+    if (!m.wide) return false;
+    for (int i = 0; i < tree_width; ++i) {
+      if (m.anc[i] == off) return true;
+    }
+    return false;
+  };
 
   // the row's page ids up to the bound, read once (the tile loads would
   // otherwise wait on a dependent global read before each copy)
@@ -346,7 +413,10 @@ __global__ void __launch_bounds__(Tiling<GP>::kThreads)
       }
     }
 
-    // scale, mask past each row's causal limit, online softmax in f32
+    // scale, mask past each row's causal limit (and, in a tile that holds
+    // in-row keys, by each row's tree), online softmax in f32; a key the
+    // tree masks is -inf here, so its probability below is exactly 0
+    const bool tree_tile = TREE && t0 + kTile > base;
     float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
@@ -360,8 +430,14 @@ __global__ void __launch_bounds__(Tiling<GP>::kThreads)
           a *= ks_s[buf][kc];
           b *= ks_s[buf][kc];
         }
-        s[nt][e] = t < lim_lo ? a : -INFINITY;
-        s[nt][2 + e] = t < lim_hi ? b : -INFINITY;
+        bool vis_lo = t < lim_lo;
+        bool vis_hi = t < lim_hi;
+        if (tree_tile) {
+          vis_lo = vis_lo && tree_visible(t, tr_lo);
+          vis_hi = vis_hi && tree_visible(t, tr_hi);
+        }
+        s[nt][e] = vis_lo ? a : -INFINITY;
+        s[nt][2 + e] = vis_hi ? b : -INFINITY;
         mx_lo = fmaxf(mx_lo, s[nt][e]);
         mx_hi = fmaxf(mx_hi, s[nt][2 + e]);
       }
@@ -476,59 +552,68 @@ struct Args {
   const void* row_lens;
   const void* block_rows;
   const void* block_q0;
+  const void* tree_anc;
   void* out;
-  int n_blocks, hkv, groups, n_pages, page_shift, pages_per_seq, n_rows;
+  int n_blocks, hkv, groups, n_pages, page_shift, pages_per_seq, n_rows, tree_width;
 };
 
-template <int D, bool INT8, int GP>
+template <int D, bool INT8, int GP, bool TREE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using T = typename KvType<INT8>::T;
   const float sm_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   const dim3 grid(a.n_blocks, a.hkv);
-  ragged_attention_kernel<D, INT8, GP><<<grid, Tiling<GP>::kThreads, 0, stream>>>(
+  ragged_attention_kernel<D, INT8, GP, TREE><<<grid, Tiling<GP>::kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.k_pool),
       static_cast<const T*>(a.v_pool), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.page_table),
       static_cast<const int*>(a.kv_lens), static_cast<const int*>(a.row_lens),
       static_cast<const int*>(a.block_rows), static_cast<const int*>(a.block_q0),
-      static_cast<__nv_bfloat16*>(a.out), a.hkv, a.groups, a.n_pages, a.page_shift,
-      a.pages_per_seq, a.n_rows, sm_scale);
+      static_cast<const int*>(a.tree_anc), static_cast<__nv_bfloat16*>(a.out), a.hkv,
+      a.groups, a.n_pages, a.page_shift, a.pages_per_seq, a.n_rows, a.tree_width, sm_scale);
   return cudaGetLastError();
 }
 
-template <int D, bool INT8>
+template <int D, bool INT8, bool TREE>
 cudaError_t launch_g(const Args& a, cudaStream_t stream) {
-  if (a.groups <= 1) return launch<D, INT8, 1>(a, stream);
-  if (a.groups <= 2) return launch<D, INT8, 2>(a, stream);
-  if (a.groups <= 4) return launch<D, INT8, 4>(a, stream);
-  return launch<D, INT8, 8>(a, stream);
+  if (a.groups <= 1) return launch<D, INT8, 1, TREE>(a, stream);
+  if (a.groups <= 2) return launch<D, INT8, 2, TREE>(a, stream);
+  if (a.groups <= 4) return launch<D, INT8, 4, TREE>(a, stream);
+  return launch<D, INT8, 8, TREE>(a, stream);
+}
+
+template <int D, bool INT8>
+cudaError_t launch_t(const Args& a, cudaStream_t stream) {
+  return a.tree_anc ? launch_g<D, INT8, true>(a, stream) : launch_g<D, INT8, false>(a, stream);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. Returns the cudaError_t of the launch
 // (0 on success); the Python wrapper has checked shapes, types and gates.
+// tree_anc null selects the plain causal kernel; otherwise tree_width is
+// its DMAX (1..64).
 extern "C" int tpu_torch_ragged_paged_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
     const void* v_scale, const void* page_table, const void* kv_lens, const void* row_lens,
-    const void* block_rows, const void* block_q0, void* out, int n_blocks, int hkv, int groups,
-    int head_dim, int n_pages, int page_size, int pages_per_seq, int n_rows, int kv_int8,
-    void* stream) {
+    const void* block_rows, const void* block_q0, const void* tree_anc, void* out,
+    int n_blocks, int hkv, int groups, int head_dim, int n_pages, int page_size,
+    int pages_per_seq, int n_rows, int kv_int8, int tree_width, void* stream) {
   if (groups < 1 || groups > kMaxG || (page_size != 16 && page_size != 32) ||
-      (head_dim != 64 && head_dim != 128)) {
+      (head_dim != 64 && head_dim != 128) ||
+      (tree_anc != nullptr && (tree_width < 1 || tree_width > 64))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_blocks * hkv == 0) return static_cast<int>(cudaSuccess);
-  const Args a{q,       k_pool,   v_pool, k_scale, v_scale,
-               page_table, kv_lens, row_lens, block_rows, block_q0,
-               out,     n_blocks, hkv,    groups,  n_pages,
-               page_size == 16 ? 4 : 5, pages_per_seq, n_rows};
+  const Args a{q,          k_pool,  v_pool,   k_scale,    v_scale, page_table,
+               kv_lens,    row_lens, block_rows, block_q0, tree_anc, out,
+               n_blocks,   hkv,     groups,   n_pages,    page_size == 16 ? 4 : 5,
+               pages_per_seq, n_rows, tree_width};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (head_dim == 128) {
-    err = kv_int8 ? launch_g<128, true>(a, s) : launch_g<128, false>(a, s);
+    err = kv_int8 ? launch_t<128, true>(a, s) : launch_t<128, false>(a, s);
   } else {
-    err = kv_int8 ? launch_g<64, true>(a, s) : launch_g<64, false>(a, s);
+    err = kv_int8 ? launch_t<64, true>(a, s) : launch_t<64, false>(a, s);
   }
   return static_cast<int>(err);
 }

@@ -26,6 +26,18 @@ admission order. A decode row's window chains ``decode_paged`` steps after
 the mixed pass in the same step; a job's final chunk samples the first
 token and activates its slot. With no jobs left, decode chunks resume.
 
+``speculation="ngram"`` (ragged scheduler only): eligible decode slots
+(greedy, or sampled with ``spec_sampling``) ride the mixed launches as
+verify rows of q = ``spec_k``+1 tokens, the pending token and k drafts
+proposed from the slot's own history (``llm/spec_proposer.py``); ragged
+steps then run even without admissions. A chain row is plain causal; with
+``spec_tree`` the drafts form a forest of up to ``spec_branch`` root
+continuations and each node attends its ancestor path only (the kernel's
+``tree_anc`` mask). Acceptance (greedy argmax match, or rejection sampling
+for sampled rows) runs on the device in the same step; a tree row's
+accepted nodes have their K/V moved to their path depths, and the retire
+truncates each verify row to what it kept before emitting it.
+
 Device work runs in a worker thread, one call at a time, so the event loop
 keeps serving HTTP while the card computes. The model arrives with its
 weights already in their serving format (``build_engine`` quantizes them);
@@ -46,9 +58,16 @@ import numpy as np
 import torch
 
 from ..models.llama import Llama
-from ..ops.paged_attention import RAGGED_QB, ragged_layout
+from ..ops.paged_attention import RAGGED_QB, ragged_layout, tree_ancestors
 from .kv_cache import PagedKVCache
-from .sampling import SamplingParams, sample_tokens
+from .sampling import (
+    SamplingParams,
+    greedy_tree_walk,
+    sample_tokens,
+    speculative_sample_chain,
+    speculative_sample_tree,
+)
+from .spec_proposer import chain_parents, make_proposer
 from . import shapes
 
 logger = logging.getLogger(__name__)
@@ -127,7 +146,7 @@ class _Histogram:
 UNSUPPORTED_KNOBS = (
     "mesh", "long_prefill_threshold",
     "long_bucket_step", "chunked_prefill_size", "prefill_segments_per_decode",
-    "prefill_stall_timeout", "speculation", "spec_tree", "lora_adapters",
+    "prefill_stall_timeout", "lora_adapters",
     "prefix_cache", "prefix_cache_bytes", "prefix_cache_pages",
     "prefix_cache_host_pages", "prefix_cache_host_bytes", "tokenizer",
     "max_pending", "queue_timeout", "ttft_timeout", "total_timeout",
@@ -157,6 +176,12 @@ class LLMEngineCore:
         ragged_decode_steps: Optional[int] = None,
         quantize: Optional[str] = None,
         weight_quant: Optional[str] = None,
+        speculation: Optional[str] = None,
+        spec_k: int = 4,
+        spec_ngram: int = 2,
+        spec_sampling: bool = True,
+        spec_tree: bool = False,
+        spec_branch: int = 2,
         **knobs,
     ):
         for name, value in knobs.items():
@@ -243,6 +268,37 @@ class LLMEngineCore:
                 "from decode_steps".format(self._ragged_decode_steps, self.decode_steps)
             )
         self._ragged_steps_cap = shapes.decode_steps_bucket(self._ragged_decode_steps)
+        # -- speculation: verify rows of the ragged launches, with the
+        # reference's knob checks and words
+        if speculation:
+            if speculation != "ngram":
+                raise ValueError("speculation must be 'ngram' (got {!r})".format(speculation))
+            if not self._ragged:
+                raise ValueError(
+                    "speculation={!r} needs scheduler='ragged' in the PyTorch port: "
+                    "verify rows ride the ragged launches, and the two-dispatch serial "
+                    "speculation scan is not ported yet".format(speculation))
+        self._speculation = speculation or None
+        self._spec_sampling = bool(spec_sampling)
+        self._spec_k = max(1, int(spec_k))
+        self._spec_ngram = max(1, int(spec_ngram))
+        self._spec_tree = bool(spec_tree)
+        if self._spec_tree and not self._speculation:
+            raise ValueError(
+                "spec_tree needs speculation='ngram' (the tree is a "
+                "topology over the n-gram proposer's drafts)"
+            )
+        self._spec_proposer = None
+        if self._speculation:
+            self._spec_proposer = (
+                make_proposer("ngram-forest", ngram=self._spec_ngram,
+                              branch=max(1, int(spec_branch)))
+                if self._spec_tree
+                else make_proposer("ngram-chain", ngram=self._spec_ngram)
+            )
+        # per-slot slack sized as the reference's (decode_steps verify rows
+        # of k+1 tokens); the table width and default pool cover it
+        spec_slack = self.decode_steps * (self._spec_k + 1) if self._speculation else 0
         # the flat token axis of one launch: every row's segment aligns to
         # the CUDA kernel's q block (worst case one block of waste per row);
         # the CPU plain version packs rows densely
@@ -251,9 +307,10 @@ class LLMEngineCore:
         self._ragged_tpad = (-(-(self._step_token_budget + waste) // self._ragged_qb)
                              * self._ragged_qb)
         self._buckets = shapes.prefill_buckets(prefill_buckets, self.max_seq_len)
-        # every slot can hold max_seq_len plus one decode chunk; page 0 is
-        # the reserved null page
-        self._pages_per_seq = -(-(self.max_seq_len + self.decode_steps) // int(page_size))
+        # every slot can hold max_seq_len plus one decode chunk (or the
+        # speculation slack); page 0 is the reserved null page
+        self._pages_per_seq = -(-(self.max_seq_len + max(self.decode_steps, spec_slack))
+                                // int(page_size))
         total_pages = num_pages or (self.max_batch * self._pages_per_seq + 1)
         self.paged_cache = PagedKVCache(
             model.n_layers, model.n_kv_heads, model.head_dim,
@@ -269,6 +326,10 @@ class LLMEngineCore:
         self._temperature = np.zeros(self.max_batch, np.float32)
         self._top_k = np.zeros(self.max_batch, np.int32)
         self._top_p = np.ones(self.max_batch, np.float32)
+        # speculation history: each slot's prompt and every emitted token
+        # (the proposer's input), filled at activation and ragged retires
+        self._tokbuf = (np.zeros((self.max_batch, self.max_seq_len + spec_slack + 1), np.int32)
+                        if self._speculation else None)
         self._pending: Deque[GenRequest] = deque()
         self._loop_task: Optional[asyncio.Task] = None
         self._stopped = False
@@ -281,16 +342,23 @@ class LLMEngineCore:
         # wall time of the device calls (each ends in a device->host read);
         # ragged steps (each = one forward_ragged call, n_layers ragged
         # attention launches), the decode tokens they emitted and their
-        # chained decode_paged calls
+        # chained decode_paged calls, and the ragged steps whose launch
+        # carried verify rows (on tree engines, each launches the ragged
+        # kernel's tree variant once per layer)
         self.counters = {"decode_steps": 0, "decode_chunks": 0, "prefills": 0,
                          "tokens_emitted": 0, "decode_ms": 0.0, "prefill_ms": 0.0,
                          "ragged_steps": 0, "ragged_decode_tokens": 0,
-                         "ragged_chain_steps": 0, "ragged_ms": 0.0}
-        # rows per phase over all ragged launches, budget use per launch and
-        # decode tokens per launch (the reference's lifecycle "ragged" block)
-        self.step_rows = {"prefill": 0, "decode": 0}
+                         "ragged_chain_steps": 0, "ragged_verify_steps": 0,
+                         "ragged_ms": 0.0}
+        # rows per phase over all ragged launches, budget use per launch,
+        # decode tokens per launch, the mean accepted-draft fraction of a
+        # launch's verify rows and a tree row's accepted path depth (the
+        # reference's lifecycle "ragged" block)
+        self.step_rows = {"prefill": 0, "decode": 0, "spec_verify": 0}
         self._hist_budget = _Histogram((0.1, 0.25, 0.5, 0.75, 0.9, 1.0))
         self._hist_launch_tokens = _Histogram((1, 2, 4, 8, 16, 32, 64))
+        self._hist_spec_accept = _Histogram((0.0, 0.2, 0.4, 0.6, 0.8, 1.0))
+        self._hist_spec_tree_depth = _Histogram((0, 1, 2, 3, 4, 8, 16))
         # time to first token of recent requests, submission to emission (ms)
         self.ttft_ms: Deque[float] = deque(maxlen=1024)
 
@@ -381,6 +449,13 @@ class LLMEngineCore:
                     "decode_steps": self._ragged_decode_steps,
                     "decode_tokens": self.counters["ragged_decode_tokens"],
                     "tokens_per_launch": self._hist_launch_tokens.snapshot(),
+                    "spec_acceptance": self._hist_spec_accept.snapshot(),
+                    "spec_tree_depth": (self._hist_spec_tree_depth.snapshot()
+                                        if self._spec_tree else None),
+                    "spec_proposer": (
+                        dict(self._spec_proposer.stats(), name=self._spec_proposer.name)
+                        if self._spec_proposer is not None else None
+                    ),
                 }
                 if self._ragged
                 else None
@@ -411,9 +486,9 @@ class LLMEngineCore:
                     if not self._pending:
                         return  # drained; a new generate() restarts the loop
                     continue
-                if self._prefill_jobs:
+                if self._prefill_jobs or self._ragged_spec_wanted(active):
                     # ragged phase: one mixed launch per step while
-                    # admissions are in progress
+                    # admissions are in progress or verify rows want to run
                     await self._ragged_step(active)
                     await asyncio.sleep(0)
                     continue
@@ -507,6 +582,13 @@ class LLMEngineCore:
     def _activate_slot(self, request: GenRequest, slot: int, first_id: int) -> None:
         self._slot_req[slot] = request
         self._next_token[slot] = first_id
+        if self._tokbuf is not None:
+            # the history holds the prompt and every emitted token
+            row = np.zeros(self._tokbuf.shape[1], np.int32)
+            ids = request.prompt_ids[: self._tokbuf.shape[1] - 1]
+            row[: len(ids)] = ids
+            row[len(ids)] = first_id
+            self._tokbuf[slot] = row
         self._temperature[slot] = request.temperature
         self._top_k[slot] = request.top_k
         self._top_p[slot] = request.top_p
@@ -647,17 +729,51 @@ class LLMEngineCore:
             if job.request.cancelled:
                 self._fail_ragged_job(job, None)
 
+    def _spec_eligible_mask(self, active_mask: np.ndarray):
+        """(greedy, sampled) slot masks of verify rows: greedy rows
+        (temperature 0) replay exactly through argmax acceptance; sampled
+        rows (temperature > 0) need ``spec_sampling``'s rejection
+        sampling."""
+        greedy = active_mask & (self._temperature == 0.0)
+        sampled = (active_mask & (self._temperature > 0.0) if self._spec_sampling
+                   else np.zeros_like(greedy))
+        return greedy, sampled
+
+    def _ragged_spec_wanted(self, active_mask: np.ndarray) -> bool:
+        """With speculation on, eligible decode slots ride ragged launches as
+        verify rows, admissions or not."""
+        if not (self._ragged and self._speculation) or not active_mask.any():
+            return False
+        greedy, sampled = self._spec_eligible_mask(active_mask)
+        return bool(greedy.any() or sampled.any())
+
     def _prepare_ragged(self, active_mask: np.ndarray) -> Optional[dict]:
-        """Loop-thread half of a ragged step: sweep dead jobs, give each live
-        job its token share of the budget in admission order, widen the
-        decode rows' windows from the budget left over, and lay the rows out
-        on the flat token axis. Returns None when nothing is dispatchable."""
+        """Loop-thread half of a ragged step: sweep dead jobs, pick the
+        verify rows (each costs k extra budget tokens; rows are demoted to
+        plain decode from the highest slot while they do not fit), give
+        each live job its token share of the budget in admission order,
+        widen the plain decode rows' windows from the budget left over,
+        draft the verify rows, and lay the rows out on the flat token
+        axis. Returns None when nothing is dispatchable."""
         self._sweep_ragged_jobs()
         decode_mask = active_mask.copy()
         budget = self._step_token_budget
         n_decode = int(decode_mask.sum())
+        k_ = self._spec_k
+        spec_mask = np.zeros(self.max_batch, bool)
+        sspec_mask = np.zeros(self.max_batch, bool)
+        if self._ragged_spec_wanted(decode_mask):
+            greedy, sampled_m = self._spec_eligible_mask(decode_mask)
+            spec_mask, sspec_mask = greedy.copy(), sampled_m.copy()
+            spec_slots = [int(s) for s in np.nonzero(spec_mask | sspec_mask)[0]]
+            while spec_slots and n_decode + k_ * len(spec_slots) > budget:
+                drop = spec_slots.pop()
+                spec_mask[drop] = False
+                sspec_mask[drop] = False
+        spec_any = spec_mask | sspec_mask
+        n_spec = int(spec_any.sum())
         shares: List[tuple] = []
-        left = max(0, budget - n_decode)
+        left = max(0, budget - n_decode - k_ * n_spec)
         for job in self._prefill_jobs:
             if left <= 0:
                 break
@@ -671,7 +787,7 @@ class LLMEngineCore:
         # multi-step decode windows from the LEFTOVER budget, bucketed to a
         # power of two; every row clamps to its own max-token and sequence
         # bounds (a q=N row costs N budget tokens)
-        plain_slots = [int(s) for s in np.nonzero(decode_mask)[0]]
+        plain_slots = [int(s) for s in np.nonzero(decode_mask & ~spec_any)[0]]
         launch_steps = 1
         if plain_slots and self._ragged_steps_cap > 1 and left > 0:
             launch_steps = shapes.decode_steps_bucket(
@@ -682,16 +798,42 @@ class LLMEngineCore:
             remaining_new = request.max_new_tokens - request.produced
             remaining_len = self.max_seq_len - (request.prompt_len + request.produced)
             row_steps[slot] = max(1, min(launch_steps, remaining_new, remaining_len))
+        # drafts for the verify rows from the slots' histories: chain
+        # engines get the chain proposer, spec_tree engines the forest and
+        # the per-row tree arrays the acceptance walk and the mask take
+        drafts = None
+        tree_tokens = tree_parents = tree_depths = tree_n = None
+        if n_spec:
+            spec_slots = [int(s) for s in np.nonzero(spec_any)[0]]
+            hists = [self._slot_req[s].prompt_len + self._slot_req[s].produced
+                     for s in spec_slots]
+            forest = self._spec_proposer.propose(spec_slots, hists, self._tokbuf, k_)
+            drafts = np.zeros((self.max_batch, k_), np.int32)
+            drafts[spec_slots] = forest.tokens[:, 1:]
+            if self._spec_tree:
+                tree_tokens = np.zeros((self.max_batch, k_ + 1), np.int32)
+                tree_parents = np.broadcast_to(
+                    chain_parents(k_), (self.max_batch, k_ + 1)).copy()
+                tree_depths = np.broadcast_to(
+                    np.arange(k_ + 1, dtype=np.int32), (self.max_batch, k_ + 1)).copy()
+                tree_n = np.full(self.max_batch, k_ + 1, np.int32)
+                tree_tokens[spec_slots] = forest.tokens
+                tree_parents[spec_slots] = forest.parents
+                tree_depths[spec_slots] = forest.depths
+                tree_n[spec_slots] = forest.n_nodes
         job_of = {job.slot: (job, take) for job, take in shares}
         # layout lens reserve each row's WHOLE window on the flat axis (a
         # q=N decode row owns N positions: position 0 rides the mixed pass,
         # positions 1.. are written by the chained decode steps); kernel
-        # row_lens count only the positions the mixed pass computes
+        # row_lens count only the positions the mixed pass computes; a
+        # verify row computes all of its k+1
         span_lens = np.zeros(self.max_batch, np.int32)
         row_lens = np.zeros(self.max_batch, np.int32)
         for slot in plain_slots:
             span_lens[slot] = row_steps[slot]
             row_lens[slot] = 1
+        for slot in np.nonzero(spec_any)[0]:
+            span_lens[slot] = row_lens[slot] = k_ + 1
         for slot, (_job, take) in job_of.items():
             span_lens[slot] = row_lens[slot] = take
         starts, block_rows, block_q0, tpad = ragged_layout(
@@ -716,10 +858,20 @@ class LLMEngineCore:
             if slot in job_of:
                 job, _take = job_of[slot]
                 tokens[s:s + n] = job.request.prompt_ids[job.pos:job.pos + n]
+            elif spec_any[slot]:
+                tokens[s] = self._next_token[slot]
+                tokens[s + 1:s + n] = drafts[slot]
             else:
                 tokens[s] = self._next_token[slot]
             spans[slot] = (s, n)
-            tok_pos[s:s + n] = pre + np.arange(n, dtype=np.int32)
+            if tree_depths is not None and spec_any[slot]:
+                # a tree node's RoPE position is its path depth, not its
+                # node index: siblings share a position, and the accepted
+                # path's K/V (moved to positions pre+1..pre+acc) was
+                # embedded at exactly those positions
+                tok_pos[s:s + n] = pre + tree_depths[slot, :n]
+            else:
+                tok_pos[s:s + n] = pre + np.arange(n, dtype=np.int32)
             tok_row[s:s + n] = slot
             # reserved multi-step positions stay invalid in the mixed pass:
             # their tokens are sampled in-launch and their K/V written by
@@ -727,12 +879,33 @@ class LLMEngineCore:
             tok_valid[s:s + v] = True
             row_last[slot] = s + v - 1
             kv_lens[slot] = pre + v
+        tree_anc = None
+        if tree_parents is not None:
+            # per-token ancestor lists for the tree mask; every token outside
+            # a tree row keeps the -2 plain-causal sentinel
+            tree_anc = np.full((tpad, k_ + 1), -1, np.int32)
+            tree_anc[:, 0] = -2
+            for slot in np.nonzero(spec_any)[0]:
+                s = int(starts[slot])
+                tree_anc[s:s + k_ + 1] = tree_ancestors(
+                    tree_parents[slot], int(tree_n[slot]), width=k_ + 1)
+        row_logit_idx = None
+        if n_spec:
+            # logits at every position of each row (a row's last position
+            # repeats past its end)
+            row_logit_idx = np.zeros((self.max_batch, k_ + 1), np.int32)
+            for slot in range(self.max_batch):
+                if row_lens[slot] > 0:
+                    row_logit_idx[slot] = starts[slot] + np.minimum(
+                        np.arange(k_ + 1), row_lens[slot] - 1)
+        plain_mask = decode_mask & ~spec_any
         return {
             "decode_mask": decode_mask,
             "shares": shares,
             "budget": budget,
             "sampling": self._sampling(),
-            "all_greedy": not (self._temperature[decode_mask] > 0).any(),
+            # plain sampling serves the plain decode rows only
+            "all_greedy": not (self._temperature[plain_mask] > 0).any(),
             "row_steps": row_steps,
             "launch_steps": launch_steps,
             # per-step window mask [S-1, B]: step i runs for rows whose
@@ -745,6 +918,9 @@ class LLMEngineCore:
                              if job.pos + take >= len(job.request.prompt_ids)],
             "exhausted": [],
             "failed_jobs": [],
+            "spec_mask": spec_mask, "sspec_mask": sspec_mask, "spec_k": k_,
+            "drafts": drafts, "tree_tokens": tree_tokens, "tree_parents": tree_parents,
+            "tree_n": tree_n, "tree_anc": tree_anc, "row_logit_idx": row_logit_idx,
             "tokens": tokens, "tok_pos": tok_pos, "tok_row": tok_row,
             "tok_valid": tok_valid, "row_last": row_last, "kv_lens": kv_lens,
             "pre_lens": pre_lens, "row_starts": starts, "row_lens": row_lens,
@@ -756,8 +932,9 @@ class LLMEngineCore:
 
     def _ragged_drop_row(self, plan: dict, slot: int) -> None:
         """Worker-side removal of a row whose page extension failed: its
-        tokens become pads (null-page writes, masked compute); the retire
-        stage fails the decode request or admission job it carried."""
+        tokens become pads (null-page writes, masked compute, plain-causal
+        mask rows); the retire stage fails the decode request or admission
+        job it carried."""
         s, n = plan["spans"].pop(slot)
         plan["tokens"][s:s + n] = 0
         plan["tok_pos"][s:s + n] = 0
@@ -767,8 +944,15 @@ class LLMEngineCore:
         plan["kv_lens"][slot] = plan["pre_lens"][slot]
         plan["row_last"][slot] = 0
         plan["row_steps"][slot] = 0
+        plan["spec_mask"][slot] = False
+        plan["sspec_mask"][slot] = False
         if plan["chain_mask"] is not None:
             plan["chain_mask"][:, slot] = False
+        if plan["row_logit_idx"] is not None:
+            plan["row_logit_idx"][slot] = 0
+        if plan["tree_anc"] is not None:
+            plan["tree_anc"][s:s + n] = -1
+            plan["tree_anc"][s:s + n, 0] = -2
         if plan["decode_mask"][slot]:
             plan["decode_mask"][slot] = False
             plan["exhausted"].append(slot)
@@ -777,12 +961,86 @@ class LLMEngineCore:
             plan["failed_jobs"].append(
                 (job, MemoryError("kv page pool exhausted during ragged admission")))
 
+    def _spec_accept(self, plan: dict, spec_logits: torch.Tensor):
+        """Draft acceptance of the verify rows over their per-position
+        logits [B, k+1, vocab]: greedy rows take the argmax-match chain (or
+        the longest greedy tree path), sampled rows the rejection-sampled
+        chain (or tree). Returns (g [B, k+1], acc [B], nodes): g[b, :acc+1]
+        are the tokens a row emits; nodes [B, k+1] maps each kept row
+        position to its tree node (None on chain engines, whose accepted
+        positions are already contiguous)."""
+        dev = self.device
+
+        def on_dev(a):
+            return torch.as_tensor(a, device=dev)
+
+        spec_sel, sspec_sel = on_dev(plan["spec_mask"]), on_dev(plan["sspec_mask"])
+        sampled_rows = bool(plan["sspec_mask"].any())
+        sl = spec_logits.float()
+        zeros = torch.zeros(sl.shape[0], dtype=torch.int32, device=dev)
+        if plan["tree_anc"] is not None:
+            t_tok, t_par, t_n = (on_dev(plan[key]) for key in
+                                 ("tree_tokens", "tree_parents", "tree_n"))
+            g, acc_g, nodes = greedy_tree_walk(
+                torch.argmax(sl, dim=-1).to(torch.int32), t_tok, t_par, t_n)
+            acc = torch.where(spec_sel, acc_g, zeros)
+            if sampled_rows:
+                g_s, acc_s, nodes_s = speculative_sample_tree(
+                    sl, t_tok, t_par, t_n, plan["sampling"], generator=self._gen)
+                g = torch.where(sspec_sel[:, None], g_s, g)
+                acc = torch.where(sspec_sel, acc_s, acc)
+                nodes = torch.where(sspec_sel[:, None], nodes_s, nodes)
+            ident = torch.arange(nodes.shape[1], dtype=torch.int32, device=dev)
+            nodes = torch.where((spec_sel | sspec_sel)[:, None], nodes, ident)
+            return g, acc, nodes
+        k_ = plan["spec_k"]
+        drafts = on_dev(plan["drafts"])
+        g = torch.argmax(sl, dim=-1).to(torch.int32)                   # [B, k+1]
+        acc_g = torch.cumprod((drafts == g[:, :k_]).to(torch.int32), dim=1).sum(dim=1)
+        acc = torch.where(spec_sel, acc_g.to(torch.int32), zeros)
+        if sampled_rows:
+            g_s, acc_s = speculative_sample_chain(sl, drafts, plan["sampling"],
+                                                  generator=self._gen)
+            g = torch.where(sspec_sel[:, None], g_s, g)
+            acc = torch.where(sspec_sel, acc_s, acc)
+        return g, acc, None
+
+    def _compact_tree_kv(self, plan: dict, nodes: torch.Tensor, write_page: torch.Tensor,
+                         write_offset: torch.Tensor) -> None:
+        """KV path compaction of the tree verify rows: each accepted node's
+        just-written K/V (and int8 scales) is rewritten at its path depth,
+        so the retire's truncation to pre + 1 + acc keeps a contiguous
+        prefix, as a chain row's. Non-moves write the null page 0. The
+        sources are gathered into a new tensor before the scatter."""
+        rows = [int(s) for s in np.nonzero(plan["spec_mask"] | plan["sspec_mask"])[0]]
+        if not rows:
+            return
+        dev = self.device
+        sel = nodes[torch.as_tensor(rows, device=dev), 1:].long()     # [S, k]
+        pos = torch.arange(1, nodes.shape[1], device=dev)[None, :]
+        starts = torch.as_tensor(plan["row_starts"][rows].astype(np.int64), device=dev)
+        src = (starts[:, None] + sel).reshape(-1)
+        dst = (starts[:, None] + pos).reshape(-1)
+        move = (sel != pos).reshape(-1)
+        wp, wo = write_page.long(), write_offset.long()
+        sp, so = wp[src], wo[src]
+        dp = torch.where(move, wp[dst], 0)
+        do = torch.where(move, wo[dst], 0)
+        cache = self.paged_cache
+        pools = [cache.k, cache.v]
+        if cache.kv_quant:
+            pools += [cache.k_scale, cache.v_scale]
+        for p in pools:
+            p[:, :, dp, do] = p[:, :, sp, so]
+
     def _dispatch_ragged_device(self, plan: dict) -> dict:
         """Worker thread: page allocation for every row's span, then the
-        step: ``forward_ragged`` over the mixed batch, sampling of the
-        decode rows, ``launch_steps - 1`` chained ``decode_paged`` steps at
-        ``kv_lens + step`` (tokens held where the window is closed), and
-        the finishing rows' logits gathered on the device."""
+        step: ``forward_ragged`` over the mixed batch (verify rows read
+        their per-position logits; tree rows masked by ``tree_anc``), the
+        verify rows' acceptance and tree KV compaction, sampling of the
+        plain decode rows, ``launch_steps - 1`` chained ``decode_paged``
+        steps at ``kv_lens + step`` (tokens held where the window is
+        closed), and the finishing rows' logits gathered on the device."""
         t0 = time.perf_counter()
         pool = self.paged_cache.pool
         wp_host, wo_host = plan["write_page"], plan["write_offset"]
@@ -798,14 +1056,15 @@ class LLMEngineCore:
                 wp_host[s + i] = page
                 wo_host[s + i] = offset
         launch_steps = plan["launch_steps"]
+        spec_any = plan["spec_mask"] | plan["sspec_mask"]
         if launch_steps > 1:
-            # a decode row's span positions 1.. become the chained steps'
-            # write coordinates; the mixed pass writes them to the null
-            # page, like any pad
+            # a plain decode row's span positions 1.. become the chained
+            # steps' write coordinates; the mixed pass writes them to the
+            # null page, like any pad
             chain_wp = np.zeros((launch_steps - 1, self.max_batch), np.int32)
             chain_wo = np.zeros((launch_steps - 1, self.max_batch), np.int32)
             for slot, (s, n) in plan["spans"].items():
-                if not plan["decode_mask"][slot]:
+                if not plan["decode_mask"][slot] or spec_any[slot]:
                     continue
                 for i in range(1, n):
                     chain_wp[i - 1, slot] = wp_host[s + i]
@@ -823,14 +1082,29 @@ class LLMEngineCore:
         block_kw = ({"block_rows": on_dev(plan["block_rows"]),
                      "block_q0": on_dev(plan["block_q0"])}
                     if self._ragged_qb > 1 else {})
+        verify_kw = {}
+        if plan["row_logit_idx"] is not None:
+            verify_kw["row_logit_idx"] = on_dev(plan["row_logit_idx"])
+        if plan["tree_anc"] is not None:
+            verify_kw["tree_anc"] = on_dev(plan["tree_anc"])
         page_table = on_dev(pool.page_table(self._pages_per_seq))
         kv_lens = on_dev(plan["kv_lens"])
-        logits = self.model.forward_ragged(
+        write_page, write_offset = on_dev(wp_host), on_dev(wo_host)
+        out = self.model.forward_ragged(
             on_dev(plan["tokens"]), on_dev(plan["tok_pos"]), on_dev(plan["tok_row"]),
             on_dev(plan["tok_valid"]), on_dev(plan["row_last"]), cache.k, cache.v,
             page_table, kv_lens, on_dev(plan["row_starts"]), on_dev(plan["row_lens"]),
-            on_dev(wp_host), on_dev(wo_host), **block_kw, **scale_kw,
+            write_page, write_offset, **block_kw, **scale_kw, **verify_kw,
         )
+        spec_g = spec_acc = None
+        if plan["row_logit_idx"] is not None:
+            self.counters["ragged_verify_steps"] += 1
+            logits, spec_logits = out
+            spec_g, spec_acc, nodes = self._spec_accept(plan, spec_logits)
+            if nodes is not None:
+                self._compact_tree_kv(plan, nodes, write_page, write_offset)
+        else:
+            logits = out
         sampling, all_greedy = plan["sampling"], plan["all_greedy"]
         tok = sample_tokens(logits, sampling, generator=self._gen, all_greedy=all_greedy)
         steps = [tok]
@@ -856,8 +1130,13 @@ class LLMEngineCore:
             rows = np.zeros(shapes.pow2_bucket(len(finish)), np.int64)
             rows[:len(finish)] = finish
             finish_logits = logits[on_dev(rows)]
+        result = {"sampled": sampled, "logits": finish_logits, "finish_rows": finish,
+                  "spec_g": None, "spec_acc": None}
+        if spec_g is not None:
+            result["spec_g"] = spec_g.cpu().numpy()
+            result["spec_acc"] = spec_acc.cpu().numpy()
         self.counters["ragged_ms"] += (time.perf_counter() - t0) * 1e3
-        return {"sampled": sampled, "logits": finish_logits, "finish_rows": finish}
+        return result
 
     async def _ragged_step(self, active_mask: np.ndarray) -> None:
         """One ragged scheduling iteration: ONE mixed launch carries every
@@ -880,35 +1159,68 @@ class LLMEngineCore:
         self._retire_ragged(plan, result)
 
     def _retire_ragged(self, plan: dict, result: dict) -> None:
-        """Loop-thread tail of a ragged step: each decode row emits its
-        window in order under the mid-window EOS mask (a row finishing
-        inside its window drops the surplus) and keeps the window's last
-        token as its next pending one; each job advances by its chunk, and
-        a job whose final chunk landed samples its first token and
-        activates its slot."""
+        """Loop-thread tail of a ragged step: each verify row first gives
+        back the pages past what its acceptance kept, then every decode row
+        emits in order under the mid-window EOS mask (a row finishing
+        inside its window drops the surplus): a plain row its window, a
+        verify row its accepted drafts and the bonus token; the last
+        emitted token becomes the row's next pending one, and the
+        speculation history follows every emission. Each job advances by
+        its chunk, and a job whose final chunk landed samples its first
+        token and activates its slot."""
         sampled = result["sampled"]
+        spec_g, spec_acc = result["spec_g"], result["spec_acc"]
         for slot in plan["exhausted"]:
             self._fail_slot(slot, MemoryError("kv page pool exhausted for this sequence"))
-        plain_slots = [int(s) for s in np.nonzero(plan["decode_mask"])[0]]
+        spec_any = plan["spec_mask"] | plan["sspec_mask"]
+        decode_slots = [int(s) for s in np.nonzero(plan["decode_mask"])[0]]
+        plain_slots = [s for s in decode_slots if not spec_any[s]]
+        spec_slots = [s for s in decode_slots if spec_any[s]]
+        pool = self.paged_cache.pool
+        for slot in spec_slots:
+            # before emission: _emit frees a finishing slot's pages
+            if self._slot_req[slot] is not None:
+                pool.truncate(slot, int(plan["pre_lens"][slot]) + 1 + int(spec_acc[slot]))
         emitted = 0
-        for slot in plain_slots:
-            n = int(plan["row_steps"][slot])
-            for i in range(n):
-                if self._slot_req[slot] is None:
+
+        def window_emit(slot: int, toks: List[int]) -> None:
+            nonlocal emitted
+            for tok in toks:
+                request = self._slot_req[slot]
+                if request is None:
                     break                      # mid-window EOS mask
-                self._emit(slot, int(sampled[i, slot]))
+                if self._tokbuf is not None:
+                    idx = request.prompt_len + request.produced
+                    if idx < self._tokbuf.shape[1]:
+                        self._tokbuf[slot, idx] = tok
+                self._emit(slot, tok)
                 emitted += 1
             if self._slot_req[slot] is not None:
-                self._next_token[slot] = int(sampled[n - 1, slot])
+                self._next_token[slot] = toks[-1]
+
+        for slot in plain_slots:
+            n = int(plan["row_steps"][slot])
+            window_emit(slot, [int(sampled[i, slot]) for i in range(n)])
+        accept_fracs = []
+        for slot in spec_slots:
+            acc = int(spec_acc[slot])
+            accept_fracs.append(acc / max(1, plan["spec_k"]))
+            if self._spec_tree:
+                self._hist_spec_tree_depth.observe(acc)
+            window_emit(slot, [int(spec_g[slot, i]) for i in range(acc + 1)])
         failed = [j for j, _ in plan["failed_jobs"]]
         live_shares = [(j, t) for j, t in plan["shares"] if not any(j is f for f in failed)]
         self.counters["ragged_steps"] += 1
         self.counters["ragged_decode_tokens"] += emitted
         self.step_rows["decode"] += len(plain_slots)
+        self.step_rows["spec_verify"] += len(spec_slots)
         self.step_rows["prefill"] += len(live_shares)
-        if plain_slots:
+        if plain_slots or spec_slots:
             self._hist_launch_tokens.observe(emitted)
-        used = int(plan["row_steps"].sum()) + sum(t for _, t in live_shares)
+        if accept_fracs:
+            self._hist_spec_accept.observe(sum(accept_fracs) / len(accept_fracs))
+        used = (int(plan["row_steps"].sum()) + (plan["spec_k"] + 1) * len(spec_slots)
+                + sum(t for _, t in live_shares))
         self._hist_budget.observe(used / max(1, plan["budget"]))
         for job, err in plan["failed_jobs"]:
             self._fail_ragged_job(job, err)

@@ -70,6 +70,20 @@ class PagePool:
         """Grow a sequence by ``extra_tokens``; returns the new page ids."""
         return self.allocate(slot, self.slot_length(slot) + extra_tokens)
 
+    def truncate(self, slot: int, tokens: int) -> None:
+        """Shrink a sequence to ``tokens``, freeing its surplus pages (a
+        verify row allocates its whole k+1 span, then keeps what the
+        acceptance kept)."""
+        with self._lock:
+            if tokens > self._slot_len[slot]:
+                raise ValueError("truncate({}) past current length {}".format(
+                    tokens, self._slot_len[slot]))
+            keep = self.pages_needed(tokens)
+            surplus = self._slot_pages[slot][keep:]
+            self._slot_pages[slot] = self._slot_pages[slot][:keep]
+            self._free.extend(reversed(surplus))
+            self._slot_len[slot] = tokens
+
     def free(self, slot: int) -> None:
         with self._lock:
             self._free.extend(reversed(self._slot_pages[slot]))

@@ -5,8 +5,10 @@ Counterpart of ``clearml_serving_tpu/llm/openai_api.py``'s
 ``engine`` block (``preset``, ``config``, ``cache``, ``kv_quant``,
 ``max_batch``, ``max_seq_len``, ``decode_steps``, ``page_size``,
 ``num_pages``, ``prefill_buckets``, ``pipeline_depth``, ``scheduler``,
-``step_token_budget``, ``ragged_decode_steps``, ``weight_quant`` and its
-legacy alias ``quantize``, ``seed``), and ``chat/completions`` (``n=1``,
+``step_token_budget``, ``ragged_decode_steps``, ``speculation``,
+``spec_k``, ``spec_ngram``, ``spec_sampling``, ``spec_tree``,
+``spec_branch``, ``weight_quant`` and its legacy alias ``quantize``,
+``seed``), and ``chat/completions`` (``n=1``,
 streaming or not,
 ``max_tokens``, ``temperature``/``top_p``/``top_k``, ``stop`` strings) and
 ``models`` answer with the reference's response shapes. Text handling
@@ -36,6 +38,7 @@ ENGINE_KEYS = (
     "preset", "arch", "config", "cache", "kv_quant", "max_batch", "max_seq_len",
     "decode_steps", "page_size", "num_pages", "prefill_buckets",
     "pipeline_depth", "scheduler", "step_token_budget", "ragged_decode_steps",
+    "speculation", "spec_k", "spec_ngram", "spec_sampling", "spec_tree", "spec_branch",
     "weight_quant", "quantize", "seed",
 )
 
@@ -133,6 +136,15 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
             int(engine_cfg["ragged_decode_steps"])
             if engine_cfg.get("ragged_decode_steps") else None
         ),
+        # speculative verify rows on the ragged launches: n-gram drafts,
+        # chained or (spec_tree) branched over up to spec_branch root
+        # continuations; the engine validates the values
+        speculation=engine_cfg.get("speculation"),
+        spec_k=int(engine_cfg.get("spec_k", 4)),
+        spec_ngram=int(engine_cfg.get("spec_ngram", 2)),
+        spec_sampling=bool(engine_cfg.get("spec_sampling", True)),
+        spec_tree=bool(engine_cfg.get("spec_tree", False)),
+        spec_branch=int(engine_cfg.get("spec_branch", 2)),
         # the engine holds the model to the knob (a packed tree of another
         # format raises, naming the tree's format)
         weight_quant=weight_quant,

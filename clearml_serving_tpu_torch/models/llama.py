@@ -431,19 +431,33 @@ class Llama(nn.Module):
         token embeds at its own position, writes its K/V (and int8 scales)
         into the pools in place, and attends through
         ``ragged_paged_attention``. Returns logits [R, vocab] f32 at each
-        row's last real token."""
+        row's last real token.
+
+        Speculative verify rows: ``tree_anc`` [T, DMAX] int32 (the
+        ``tree_ancestors`` layout, -2 in column 0 for plain-causal tokens)
+        masks draft-tree rows down to each node's ancestor path; with
+        ``row_logit_idx`` [R, W] (flat token indices) the call returns
+        ``(last, gathered)``, the gathered logits [R, W, vocab] f32 beside
+        the last-token logits, which keep their own compute path."""
         if lora_idx is not None:
             raise NotImplementedError(
                 "forward_ragged lora_idx: LoRA arrives with the secondary-paths "
                 "slice of the port")
-        if row_logit_idx is not None or tree_anc is not None:
-            raise NotImplementedError(
-                "forward_ragged {}: speculative verify rows arrive with the "
-                "speculation slice of the port".format(
-                    "row_logit_idx" if row_logit_idx is not None else "tree_anc"))
         if self.kv_quant and k_scales is None:
             raise ValueError("kv_quant forward_ragged needs k_scales/v_scales")
         t = tokens.shape[0]
+        if row_logit_idx is not None and (
+                row_logit_idx.dim() != 2 or row_logit_idx.shape[0] != row_last.shape[0]
+                or row_logit_idx.dtype not in (torch.int32, torch.int64)):
+            raise ValueError(
+                "forward_ragged row_logit_idx must be integer [R={}, W], got {} {}".format(
+                    row_last.shape[0], row_logit_idx.dtype, tuple(row_logit_idx.shape)))
+        if tree_anc is not None and (
+                tree_anc.dim() != 2 or tree_anc.shape[0] != t
+                or tree_anc.dtype != torch.int32):
+            raise ValueError(
+                "forward_ragged tree_anc must be int32 [T={}, DMAX], got {} {}".format(
+                    t, tree_anc.dtype, tuple(tree_anc.shape)))
         cos, sin = rope(tok_pos[:, None], self.head_dim, self.theta)
         x = self.embed[tokens][:, None]                               # [T, 1, dim]
         wp = write_page.long()
@@ -467,13 +481,19 @@ class Llama(nn.Module):
                     qg = qg * torch.tensor(q_prescale, dtype=qg.dtype, device=qg.device)
                 out = ragged_paged_attention(
                     qg.contiguous(), k_pool, v_pool, page_table, kv_lens, row_starts,
-                    row_lens, block_rows=block_rows, block_q0=block_q0, **scale_kw,
+                    row_lens, block_rows=block_rows, block_q0=block_q0,
+                    tree_anc=tree_anc, **scale_kw,
                 )                                                     # [T,Hkv,G,D]
                 return out.reshape(t, 1, self.n_heads * self.head_dim).to(x.dtype)
 
             x = self._block(layer, x, attn)
         last_x = x[:, 0][row_last.long()][:, None]                    # [R, 1, dim]
-        return self._logits(last_x)[:, 0]
+        last = self._logits(last_x)[:, 0]
+        if row_logit_idx is None:
+            return last
+        # the verify rows need logits at every candidate position: R*W
+        # lm_head rows, never a T-wide logits matrix
+        return last, self._logits(x[:, 0][row_logit_idx.long()])     # [R, W, vocab]
 
 
 def init_params(config: dict, generator: torch.Generator,

@@ -198,9 +198,13 @@ paged_attention.launches = 0
 #     kv_lens      [R]              tokens present per row INCLUDING this
 #                                   step's (K/V are written before the call)
 #     row_starts   [R], row_lens [R]  the ragged row map (row_lens 0 = idle)
+#     tree_anc     [T, DMAX]        optional ancestor lists of draft-tree
+#                                   verify rows (``tree_ancestors``; -2 in
+#                                   column 0 keeps a token plain causal)
 #
 # Query i of row r sits at absolute position kv_lens[r] - row_lens[r] + i
-# and attends KV positions up to its own. The kernel's layout is q-block
+# and attends KV positions up to its own (a tree query: its row's history
+# and its listed ancestors among them). The kernel's layout is q-block
 # aligned (``ragged_layout``): each row's segment starts at a multiple of
 # ``RAGGED_QB``, so every block of RAGGED_QB tokens belongs to one row,
 # named by ``block_rows`` / ``block_q0``.
@@ -244,6 +248,43 @@ def ragged_layout(row_lens, q_block: int = RAGGED_QB, total: Optional[int] = Non
     return starts, block_rows, block_q0, int(t_pad)
 
 
+# the CUDA kernel turns each query's ancestor list into a 64-bit mask of
+# in-row offsets, read once per query (csrc/ragged_paged_attention.cu)
+KERNEL_MAX_TREE_WIDTH = 64
+
+
+def tree_ancestors(parents, n_nodes=None, *, width=None):
+    """Host-side tree mask metadata for a draft-tree verify row: per-node
+    ancestor lists (the reference's ``tree_ancestors``).
+
+    ``parents`` [N] int32 with ``parents[0] == -1`` and ``parents[j] < j``
+    (``llm.spec_proposer.DraftForest`` layout). Returns ``[N, width]``
+    int32 where row j lists the in-row indices of node j's root-to-node
+    path, itself included, -1 padded. ``width`` defaults to N (the deepest
+    possible chain). Dead nodes (>= ``n_nodes``) get all -1 rows: they
+    still mask causally but match no ancestor, so they attend history only.
+
+    ``anc[t, 0] == -2`` is the plain-causal sentinel of the attention
+    functions; this function never emits it (the engine stamps it on every
+    token outside a tree row)."""
+    parents = np.asarray(parents, np.int32)
+    n = parents.shape[0]
+    live = n if n_nodes is None else int(n_nodes)
+    w = n if width is None else int(width)
+    out = np.full((n, w), -1, np.int32)
+    for j in range(live):
+        chain = []
+        node = j
+        while node >= 0:
+            chain.append(node)
+            node = int(parents[node])
+        if len(chain) > w:
+            raise ValueError(
+                "tree depth {} exceeds ancestor width {}".format(len(chain), w))
+        out[j, : len(chain)] = chain[::-1]
+    return out
+
+
 def ragged_paged_attention_ref(q, k_pool, v_pool, page_table, kv_lens,
                                row_starts, row_lens, k_scale=None, v_scale=None,
                                tree_anc=None):
@@ -257,8 +298,7 @@ def ragged_paged_attention_ref(q, k_pool, v_pool, page_table, kv_lens,
     ``tree_anc`` ([T, DMAX] int32) prunes draft-tree verify rows inside the
     causal bound: a token attends its row's history plus the in-row indices
     listed in its row of ``tree_anc``; ``tree_anc[t, 0] == -2`` keeps token
-    t plain causal (``clearml_serving_tpu/ops/paged_attention.py``
-    ``tree_ancestors`` layout)."""
+    t plain causal (the ``tree_ancestors`` layout)."""
     t = q.shape[0]
     dev = q.device
     t_idx = torch.arange(t, device=dev)
@@ -293,9 +333,6 @@ def check_ragged_gates(q, k_pool, v_pool, page_table, kv_lens, row_starts, row_l
     def need(cond, gate, detail):
         _need(cond, gate, detail, kernel)
 
-    need(tree_anc is None, "tree_anc",
-         "the draft-tree mask is not in the CUDA kernel yet (it arrives with the "
-         "speculation slice of the port)")
     need(block_rows is not None and block_q0 is not None, "block_map",
          "the kernel needs the host-built q-block map block_rows/block_q0 (ragged_layout)")
     quantized = _check_heads_and_pools(q, k_pool, v_pool, k_scale, v_scale, kernel)
@@ -314,6 +351,13 @@ def check_ragged_gates(q, k_pool, v_pool, page_table, kv_lens, row_starts, row_l
              "{} must be int32 [T/RAGGED_QB={}], got {} {}".format(
                  name, t // RAGGED_QB, x.dtype, tuple(x.shape)))
     operands = [q, k_pool, v_pool, page_table, kv_lens, row_lens, block_rows, block_q0]
+    if tree_anc is not None:
+        need(tree_anc.dtype == torch.int32 and tree_anc.dim() == 2
+             and tree_anc.shape[0] == t
+             and 1 <= tree_anc.shape[1] <= KERNEL_MAX_TREE_WIDTH, "tree_anc",
+             "tree_anc must be int32 [T={}, DMAX] with 1 <= DMAX <= {}, got {} {}".format(
+                 t, KERNEL_MAX_TREE_WIDTH, tree_anc.dtype, tuple(tree_anc.shape)))
+        operands.append(tree_anc)
     if quantized:
         operands += [k_scale, v_scale]
     _check_placement(operands, kernel)
@@ -332,7 +376,10 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, kv_lens, row_starts, r
     map and packs rows densely or aligned alike); CUDA tensors launch the
     kernel on the current stream (no synchronisation) or raise. The kernel
     reads the row map through ``block_rows``/``block_q0`` and ignores
-    ``row_starts``."""
+    ``row_starts``. ``tree_anc`` ([T, DMAX] int32, ``tree_ancestors``
+    layout, -2 in column 0 for plain-causal tokens) selects the kernel's
+    draft-tree mask; it is counted in ``.launches`` like any other launch,
+    and in ``.tree_launches`` besides."""
     if k_pool.dtype == torch.int8 and k_scale is None:
         raise ValueError("int8 KV pools need k_scale/v_scale operands (per-token dequant)")
     if q.device.type == "cpu":
@@ -351,15 +398,20 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, kv_lens, row_starts, r
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         page_table.data_ptr(), kv_lens.data_ptr(), row_lens.data_ptr(),
-        block_rows.data_ptr(), block_q0.data_ptr(), out.data_ptr(),
+        block_rows.data_ptr(), block_q0.data_ptr(),
+        tree_anc.data_ptr() if tree_anc is not None else None, out.data_ptr(),
         t // RAGGED_QB, hkv, g, d, n_pages, page_size, page_table.shape[1],
         page_table.shape[0], int(quantized),
+        tree_anc.shape[1] if tree_anc is not None else 0,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError("ragged_paged_attention kernel launch failed: cudaError {}".format(rc))
     ragged_paged_attention.launches += 1
+    if tree_anc is not None:
+        ragged_paged_attention.tree_launches += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.tree_launches = 0

@@ -80,22 +80,33 @@ def entry(lib: ctypes.CDLL):
     return fn
 
 
-def ragged_entry(lib: ctypes.CDLL):
+def has_tree_mask(root: Path) -> bool:
+    """Whether a checkout's ragged kernel takes the draft-tree mask: its C
+    entry point then has a tree_anc pointer and a tree width."""
+    src = root / "clearml_serving_tpu_torch" / "csrc" / "ragged_paged_attention.cu"
+    return "tree_anc" in src.read_text()
+
+
+def ragged_entry(lib: ctypes.CDLL, tree_mask: bool):
     fn = lib.tpu_torch_ragged_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    n_ptr, n_int = (12, 10) if tree_mask else (11, 9)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return fn, tree_mask
 
 
-def ragged_launch(fn, out, q, k, v, table, kv_lens, _starts, row_lens, *, block_rows,
+def ragged_launch(entry, out, q, k, v, table, kv_lens, _starts, row_lens, *, block_rows,
                   block_q0, k_scale=None, v_scale=None):
+    """One launch without the tree mask, through either entry point."""
+    fn, tree_mask = entry
     quant = k.dtype == torch.int8
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
             table.data_ptr(), kv_lens.data_ptr(), row_lens.data_ptr(), block_rows.data_ptr(),
-            block_q0.data_ptr(), out.data_ptr(), q.shape[0] // RAGGED_QB, q.shape[1],
-            q.shape[2], q.shape[3], k.shape[1], k.shape[2], table.shape[1], table.shape[0],
-            int(quant), torch.cuda.current_stream().cuda_stream)
+            block_q0.data_ptr()] + ([None] if tree_mask else []) + [out.data_ptr()]
+    ints = [q.shape[0] // RAGGED_QB, q.shape[1], q.shape[2], q.shape[3], k.shape[1],
+            k.shape[2], table.shape[1], table.shape[0], int(quant)] + ([0] if tree_mask else [])
+    rc = fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError("launch failed: cudaError {}".format(rc))
 
@@ -211,8 +222,9 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     layers = 4
     if args.kernel == "ragged":
-        ab_ragged({"change": ragged_entry(_build.load_library()),
-                   "baseline": ragged_entry(build_baseline(args.baseline))}, gen, layers)
+        ab_ragged({"change": ragged_entry(_build.load_library(), has_tree_mask(ROOT)),
+                   "baseline": ragged_entry(build_baseline(args.baseline),
+                                            has_tree_mask(args.baseline))}, gen, layers)
         return 0
     if args.kernel == "int4":
         ab_int4({"change": int4_entry(_build.load_library()),

@@ -1,7 +1,9 @@
 """Tests of the PyTorch port that need an NVIDIA GPU and nvcc: the CUDA
-paged attention kernels (decode and ragged) and the w4a16 matmul against
-their plain PyTorch versions, their gates and launch counts, and the engine
-on the card under both schedulers, with bf16 and int4 weights. They skip
+paged attention kernels (decode and ragged, the ragged one with and without
+its draft-tree mask) and the w4a16 matmul against their plain PyTorch
+versions, their gates and launch counts, and the engine on the card under
+both schedulers, with bf16 and int4 weights and with speculative verify
+rows. They skip
 elsewhere. This file
 imports neither jax nor the JAX package, so on the card it runs as
 
@@ -26,6 +28,7 @@ from clearml_serving_tpu_torch.ops.paged_attention import (
     ragged_layout,
     ragged_paged_attention,
     ragged_paged_attention_ref,
+    tree_ancestors,
 )
 from clearml_serving_tpu_torch.ops.quant import quantize_int4, quantize_llama_params
 
@@ -200,9 +203,11 @@ def test_ragged_table_entries_past_kv_lens_are_never_read(cuda, quant):
 def test_ragged_gate_violations_raise_on_cuda(cuda):
     args, blocks, _ = _ragged_operands(cuda, g=4, d=64, page_size=16, quant=False)
     q = args[0]
-    with pytest.raises(ValueError, match="ragged_paged_attention gate tree_anc"):
-        ragged_paged_attention(*args, **blocks, tree_anc=torch.full(
-            (q.shape[0], 4), -2, dtype=torch.int32, device=cuda))
+    for bad in (torch.full((q.shape[0], 4), -2, dtype=torch.int64, device=cuda),
+                torch.full((q.shape[0] - RAGGED_QB, 4), -2, dtype=torch.int32, device=cuda),
+                torch.full((q.shape[0], 65), -2, dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError, match="ragged_paged_attention gate tree_anc"):
+            ragged_paged_attention(*args, **blocks, tree_anc=bad)
     with pytest.raises(ValueError, match="gate block_map"):
         ragged_paged_attention(*args)
     with pytest.raises(ValueError, match="gate q_block"):
@@ -242,6 +247,142 @@ def test_ragged_engine_on_the_card_runs_both_kernels(cuda):
     pool = engine.paged_cache.pool
     assert pool.free_pages == pool.num_pages - 1
 
+
+
+# -- the draft-tree mask -----------------------------------------------------------
+
+# verify rows of k+1 = 5 tokens (rows 0, 2 and 5) beside decode rows, a
+# prefill chunk and an idle row; the chunk and decode tokens keep the -2
+# plain-causal sentinel in the same launch
+TREE_ROWS = [(5, 5, 40), (1, 1, 17), (5, 5, 0), (13, 13, 9), (0, 0, 0), (5, 5, 100),
+             (1, 1, 3)]
+TOPOLOGIES = {
+    "chain": ([-1, 0, 1, 2, 3], 5),
+    "forest": ([-1, 0, 1, 0, 0], 5),      # a depth-2 branch and two siblings
+    "dead_nodes": ([-1, 0, 0, -1, -1], 3),  # nodes 3, 4 past n_nodes
+}
+
+
+def _tree_anc(args, rows, topologies, width):
+    """[T, width] ancestor lists: verify row i takes topologies[i] (parents,
+    n_nodes); every other token -2."""
+    starts = args[5].tolist()
+    anc = torch.full((args[0].shape[0], width), -1, dtype=torch.int32)
+    anc[:, 0] = -2
+    for i, (parents, n_nodes) in topologies.items():
+        s = starts[i]
+        anc[s:s + len(parents)] = torch.from_numpy(
+            tree_ancestors(parents, n_nodes, width=width))
+    return anc.to(args[0].device)
+
+
+def _check_tree(args, blocks, scales, anc, quant):
+    before = ragged_paged_attention.launches
+    out = ragged_paged_attention(*args, **blocks, **scales, tree_anc=anc)
+    assert ragged_paged_attention.launches == before + 1
+    q, k, v = args[:3]
+    ref = ragged_paged_attention_ref(q.float(), k if quant else k.float(),
+                                     v if quant else v.float(), *args[3:], **scales,
+                                     tree_anc=anc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    owned = _owned(args)
+    assert torch.equal(out[~owned], torch.zeros_like(out[~owned]))
+    return out
+
+
+@pytest.mark.parametrize("topology", ["chain", "forest", "dead_nodes"])
+@pytest.mark.parametrize("g,d,page_size", [(4, 128, 16), (8, 64, 32)])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_tree_kernel_matches_plain_version(cuda, quant, g, d, page_size, topology):
+    args, blocks, scales = _ragged_operands(cuda, g=g, d=d, page_size=page_size, quant=quant,
+                                            rows=TREE_ROWS)
+    parents, n_nodes = TOPOLOGIES[topology]
+    anc = _tree_anc(args, TREE_ROWS, {0: (parents, n_nodes), 2: (parents, n_nodes),
+                                      5: TOPOLOGIES["forest"]}, width=5)
+    out = _check_tree(args, blocks, scales, anc, quant)
+    plain = ragged_paged_attention(*args, **blocks, **scales)
+    torch.cuda.synchronize()
+    # the mask changes the verify rows only
+    verify = torch.zeros(out.shape[0], dtype=torch.bool, device=cuda)
+    for i in (0, 2, 5):
+        s = int(args[5][i])
+        verify[s:s + 5] = True
+    assert torch.equal(out[~verify], plain[~verify])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_chain_topology_is_bitwise_the_plain_kernel(cuda, quant):
+    args, blocks, scales = _ragged_operands(cuda, g=4, d=128, page_size=16, quant=quant,
+                                            rows=TREE_ROWS)
+    anc = _tree_anc(args, TREE_ROWS, {i: TOPOLOGIES["chain"] for i in (0, 2, 5)}, width=5)
+    tree = ragged_paged_attention(*args, **blocks, **scales, tree_anc=anc)
+    plain = ragged_paged_attention(*args, **blocks, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(tree, plain)
+
+
+@pytest.mark.parametrize("case", ["dmax1", "dmax64_chain", "offsets_past_63"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_tree_kernel_widths(cuda, quant, case):
+    """DMAX 1 (a root-only row, its dead nodes see history only), DMAX 64
+    (a 64-node chain: every bit of the offset mask), and a 72-node tree
+    whose lists name offsets 64..71 (the list scan past the mask)."""
+    if case == "dmax1":
+        rows = [(5, 5, 30), (1, 1, 9), (20, 20, 4)]
+        topo, width = {0: ([-1, 0, 0, 0, 0], 1)}, 1
+    elif case == "dmax64_chain":
+        rows = [(64, 64, 30), (1, 1, 9), (20, 20, 4)]
+        topo, width = {0: ([-1] + list(range(63)), 64)}, 64
+    else:
+        parents = [-1] + list(range(40)) + [0] * 16 + list(range(56, 71))
+        rows = [(72, 72, 25), (1, 1, 9), (20, 20, 4)]
+        topo, width = {0: (parents, 72)}, 64
+    args, blocks, scales = _ragged_operands(cuda, g=4, d=128, page_size=16, quant=quant,
+                                            rows=rows)
+    anc = _tree_anc(args, rows, topo, width)
+    if case == "offsets_past_63":
+        assert int(anc.max()) >= 64
+    _check_tree(args, blocks, scales, anc, quant)
+
+
+@pytest.mark.parametrize("spec", [{"speculation": "ngram"},
+                                  {"speculation": "ngram", "spec_tree": True}],
+                         ids=["chain", "tree"])
+def test_spec_engine_on_the_card_runs_the_kernels(cuda, spec):
+    """Verify rows on the card: every ragged step launches the ragged
+    kernel once per layer (tree steps with the mask), decode windows the
+    decode kernel; a temperature-0.7 row completes beside greedy ones."""
+    cfg = {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 4,
+           "n_kv_heads": 2, "head_dim": 64, "ffn_dim": 512, "dtype": "bfloat16"}
+    model = Llama(cfg, init_params(cfg, torch.Generator(cuda).manual_seed(0), device=cuda))
+    engine = LLMEngineCore(model, max_batch=3, max_seq_len=128, decode_steps=4,
+                           page_size=16, scheduler="ragged", step_token_budget=24,
+                           spec_k=4, **spec)
+
+    async def run():
+        async def one(ids, delay, temperature=0.0):
+            await asyncio.sleep(delay)
+            return [t async for t in engine.generate(GenRequest(
+                prompt_ids=ids, max_new_tokens=24, temperature=temperature))]
+        return await asyncio.gather(one([5, 9, 2, 17] * 5, 0.0),
+                                    one([3, 3, 7] * 9, 0.05),
+                                    one(list(range(1, 30)), 0.1, 0.7))
+
+    paged_attention.launches = 0
+    ragged_paged_attention.launches = 0
+    streams = asyncio.run(run())
+    c = engine.counters
+    assert [len(s) for s in streams] == [24, 24, 24]
+    ragged = engine.health()["ragged"]
+    assert ragged["step_rows"]["spec_verify"] >= 1
+    if spec.get("spec_tree"):
+        assert ragged["spec_tree_depth"]["count"] >= 1
+    assert ragged_paged_attention.launches == model.n_layers * c["ragged_steps"]
+    assert paged_attention.launches == model.n_layers * (
+        c["decode_steps"] + c["ragged_chain_steps"])
+    pool = engine.paged_cache.pool
+    assert pool.free_pages == pool.num_pages - 1
 
 # -- the w4a16 matmul ------------------------------------------------------------
 

@@ -131,19 +131,22 @@ def test_forward_ragged_matches_reference(tiny_np, kv_quant):
             np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
 
 
-@pytest.mark.parametrize("kw,name", [
-    ({"lora_idx": torch.zeros(2, dtype=torch.int32)}, "lora_idx"),
-    ({"row_logit_idx": torch.zeros(2, 2, dtype=torch.int32)}, "row_logit_idx"),
-    ({"tree_anc": torch.full((4, 2), -2, dtype=torch.int32)}, "tree_anc"),
+@pytest.mark.parametrize("kw,name,error", [
+    ({"lora_idx": torch.zeros(2, dtype=torch.int32)}, "lora_idx", NotImplementedError),
+    ({"row_logit_idx": torch.zeros(3, 2, dtype=torch.int32)}, "row_logit_idx", ValueError),
+    ({"tree_anc": torch.full((4, 2), -2, dtype=torch.int64)}, "tree_anc", ValueError),
 ], ids=["lora_idx", "row_logit_idx", "tree_anc"])
-def test_forward_ragged_later_slice_operands_raise(tiny_np, kw, name):
+def test_forward_ragged_later_slice_operands_raise(tiny_np, kw, name, error):
+    """LoRA rows belong to a later slice and raise naming it; the verify
+    operands (ported: tests/test_torch_spec_engine.py) raise naming
+    themselves when their shape or dtype is not the call's."""
     model = Llama(TINY, convert_params(tiny_np, device="cpu"))
     cache = PagedKVCache(model.n_layers, model.n_kv_heads, model.head_dim, num_pages=4,
                          page_size=4, max_slots=2, dtype=torch.float32, device="cpu")
     i32 = lambda *s: torch.zeros(*s, dtype=torch.int32)  # noqa: E731
     args = (i32(4).long(), i32(4), i32(4), torch.zeros(4, dtype=torch.bool), i32(2),
             cache.k, cache.v, i32(2, 1), i32(2), i32(2), i32(2), i32(4), i32(4))
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(error, match=name):
         model.forward_ragged(*args, **kw)
 
 

@@ -160,6 +160,25 @@ def test_ref_matches_pallas_interpret(quant, page_size):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16_values", "int8"])
+def test_ref_with_tree_anc_matches_pallas_interpret(quant, page_size):
+    """The plain version's draft-tree mask against the TPU kernel's own
+    ``tree`` branch (interpret mode) on the same operands."""
+    ops = _setup(24 + quant, quant=quant, page_size=page_size,
+                 pp=5 if page_size == 8 else 3)
+    anc = _tree_anc(ops)
+    args, kw = _torch(ops, anc)
+    jargs, jkw = _jax(ops, anc)
+    out = ragged_paged_attention_ref(*args, **kw).numpy()
+    ref = np.asarray(jax_ragged_paged_attention(
+        *jargs, block_rows=jnp.asarray(ops["block_rows"]),
+        block_q0=jnp.asarray(ops["block_q0"]), k_scale=jkw["k_scale"],
+        v_scale=jkw["v_scale"], tree_anc=jkw["tree_anc"], pages_per_block=2, q_block=8,
+        interpret=True))
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16_values", "int8"])
 def test_decode_rows_bitwise_equal_decode_plain_version(quant):
     """An all-decode batch through the ragged plain version equals the
@@ -255,7 +274,11 @@ _I8 = dict(k_pool=torch.zeros(8, 33, 16, 128, dtype=torch.int8),
 
 
 @pytest.mark.parametrize("over,gate", [
-    (dict(tree_anc=torch.zeros(312, 4, dtype=torch.int32)), "tree_anc"),
+    (dict(tree_anc=torch.zeros(312, 4, dtype=torch.int64)), "tree_anc"),
+    (dict(tree_anc=torch.zeros(304, 4, dtype=torch.int32)), "tree_anc"),
+    (dict(tree_anc=torch.zeros(312, 65, dtype=torch.int32)), "tree_anc"),
+    (dict(tree_anc=torch.zeros(312, 0, dtype=torch.int32)), "tree_anc"),
+    (dict(tree_anc=torch.zeros(5, 312, dtype=torch.int32).t()), "contiguous"),
     (dict(block_rows=None), "block_map"),
     (dict(block_q0=torch.zeros(39, dtype=torch.int64)), "block_map"),
     (dict(q=torch.zeros(300, 8, 4, 128, dtype=torch.bfloat16)), "q_block"),
@@ -273,7 +296,8 @@ _I8 = dict(k_pool=torch.zeros(8, 33, 16, 128, dtype=torch.int8),
     (dict(row_lens=torch.zeros(8, dtype=torch.int64)), "row_lens"),
     (dict(q=torch.zeros(312, 4, 8, 128, dtype=torch.bfloat16).transpose(1, 2)),
      "contiguous"),
-], ids=["tree_anc", "no_block_map", "block_q0_i64", "t_not_aligned", "q_f32", "d96",
+], ids=["tree_anc", "tree_anc_rows", "tree_anc_dmax65", "tree_anc_dmax0",
+        "tree_anc_strided", "no_block_map", "block_q0_i64", "t_not_aligned", "q_f32", "d96",
         "g16", "p64", "f16_pool", "int8_no_scales", "table_i64", "kv_lens_short",
         "row_lens_i64", "strided_q"])
 def test_ragged_gates_raise_naming_the_gate(over, gate):
@@ -282,8 +306,11 @@ def test_ragged_gates_raise_naming_the_gate(over, gate):
         check_ragged_gates(**_main_path_operands(**over))
 
 
-@pytest.mark.parametrize("over", [{}, dict(_I8, k_scale=torch.zeros(8, 33, 16),
-                                           v_scale=torch.zeros(8, 33, 16))],
-                         ids=["bf16", "int8"])
+@pytest.mark.parametrize("over", [
+    {}, dict(_I8, k_scale=torch.zeros(8, 33, 16), v_scale=torch.zeros(8, 33, 16)),
+    dict(tree_anc=torch.full((312, 5), -2, dtype=torch.int32)),
+    dict(tree_anc=torch.full((312, 1), -2, dtype=torch.int32)),
+    dict(tree_anc=torch.full((312, 64), -2, dtype=torch.int32)),
+], ids=["bf16", "int8", "tree_k4", "tree_dmax1", "tree_dmax64"])
 def test_ragged_gates_accept_the_main_path(over):
     check_ragged_gates(**_main_path_operands(**over))
