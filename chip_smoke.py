@@ -21,7 +21,8 @@ exits non-zero before the result lines are printed:
    bf16 and int8, against the plain version (a chain must give the
    unmasked launch's bits), timed beside the same launch without the mask;
 3c. the w4a16 matmul kernel against its plain version at every Llama-3-8B
-   projection shape, M 8 (decode), 312 (the ragged flat axis) and 2048
+   projection shape, M 1 and 8 (decode; K split across CTAs, two calls must
+   give the same bits), 312 (the ragged flat axis) and 2048
    (the longest prefill bucket; not the lm_head, which a prefill runs on
    the last row only), timed beside its bound, the plain version, a bf16
    ``torch.matmul`` on the dequantized weight and PyTorch's
@@ -578,14 +579,15 @@ INT4_SHAPES = {
     "lm_head": ((4096, 128256), 1),
 }
 INT4_PRIMARY = ("w_gate/w_up", 8)   # the kernels line's headline call
-# a decode batch; the ragged flat axis; the longest prefill bucket
-INT4_ROWS = (8, 312, 2048)
+# one decode row; a decode batch; the ragged flat axis; the longest prefill
+# bucket
+INT4_ROWS = (1, 8, 312, 2048)
 
 
-def int4_rows(name):
+def int4_rows(name, rows=INT4_ROWS):
     """The row counts the main path gives a projection: a prefill takes
     the lm_head on its last row only."""
-    return [m for m in INT4_ROWS if name != "lm_head" or m <= 312]
+    return [m for m in rows if name != "lm_head" or m <= 312]
 
 
 def int4_bound(m, k, n, groups):
@@ -654,8 +656,12 @@ def phase_int4_kernel(gen) -> dict:
         for m in int4_rows(name):
             x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
             out = fused_int4_matmul(x, q, s)
+            again = fused_int4_matmul(x, q, s)
             ref = int4_matmul_plain(x.float(), q, s, torch.float32)
             sync()
+            if not torch.equal(out, again):
+                raise AssertionError("fused_int4_matmul gave other bits on a second call: "
+                                     "{} M={}".format(name, m))
             e = float((out.float() - ref).abs().max())
             ok = bool(torch.isfinite(out).all()) and torch.allclose(out.float(), ref,
                                                                     rtol=TOL, atol=TOL)
@@ -665,7 +671,7 @@ def phase_int4_kernel(gen) -> dict:
                 raise AssertionError("fused_int4_matmul disagrees with its plain version: "
                                      "{} M={}".format(name, m))
             err = max(err, e)
-            del out, ref
+            del out, again, ref
             before = fused_int4_matmul.launches
 
             def kernel(i, x=x):
@@ -716,10 +722,11 @@ def phase_int4_kernel(gen) -> dict:
     libs = [timings[(name, 8)]["library_ms"] for name in INT4_SHAPES]
     step["library_ms"] = (sum(t * calls for t, (_s, calls) in zip(libs, INT4_SHAPES.values()))
                           if all(t is not None for t in libs) else None)
-    log("  one decode step's 225 calls at M=8: kernel {ms:.4f} ms (eager {eager_ms:.4f}), "
-        "bound {bound_ms:.4f} ms, bf16 matmul {bf16_ms:.4f} ms, library {lib} ms, plain "
-        "{plain_ms:.4f} ms".format(lib="{:.4f}".format(step["library_ms"])
-                                    if step["library_ms"] is not None else "null", **step))
+    log("  one decode step's 225 calls at M=8: kernel {ms:.4f} ms (eager {eager_ms:.4f}; "
+        "{share:.1f}% of bound), bound {bound_ms:.4f} ms, library {lib} ms, bf16 matmul "
+        "{bf16_ms:.4f} ms, plain {plain_ms:.4f} ms".format(
+            lib="{:.4f}".format(step["library_ms"]) if step["library_ms"] is not None
+            else "null", share=100 * step["bound_ms"] / step["ms"], **step))
     return dict(err=err, timings=timings, decode_step=step)
 
 

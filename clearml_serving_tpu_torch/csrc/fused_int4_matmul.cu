@@ -44,20 +44,31 @@
 //
 // Decode tiling (M <= 16): the weight is the A operand and x the B operand
 // (out^T = W^T x^T), so a 16-row weight tile meets the n8 x tile and no
-// tensor-core row is spent on padding when M <= 8. A CTA owns 32 columns
-// (64 for the lm_head's wide N) and its 8 warps split each stage, four
-// k-steps apiece (two for the lm_head, whose larger stages would leave one
-// CTA per SM); their totals are summed through shared memory at the end.
+// tensor-core row is spent on padding when M <= 8 (two n8 blocks for 9-16
+// rows). At these rows the product does 4M operations per packed byte, far
+// below the ~295 per byte where the tensor cores would bind: only bytes and
+// their latency count. A CTA owns 128 columns (two column warps of 64), so
+// each packed row is read as 128 contiguous bytes, and its other warps
+// split each stage's K. K is split across CTAs (grid y) until the card holds one
+// full wave of CTAs (decode_plan): narrow N (wk/wv: 8 column tiles) still
+// fills every SM. Each split stores its f32 partial [M, N] into a
+// workspace the wrapper allocates, and a second kernel adds the splits in
+// split order and writes bf16: no atomics, so the same inputs give the
+// same bits on every call. Calls whose columns alone fill the card (the
+// lm_head) take one split and store bf16 directly. Both kernels launch as
+// programmatic dependents (launch_dependent), so a launch overlaps the
+// previous kernel's tail without reordering any memory access.
 // Larger M (prefill buckets, the ragged flat axis) takes 64-row blocks with
 // 2x2 warps of 32x32, x as the A operand.
 //
-// Known limits, left to later work: narrow N still gives few CTAs (wk/wv at
-// N = 1024 give 32), so a decode call there cannot fill the card (split-K
-// across CTAs fixes that); no TMA, no wgmma.
+// Known limits, left to later work: no TMA, no wgmma; the block tiling
+// reaches ~15% of its bound at M = 312 and 2048.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -133,189 +144,216 @@ cudaError_t opt_in(Kernel kernel, int smem, bool (&done)[kMaxDevices]) {
   return cudaSuccess;
 }
 
-// ---- decode tiling: M <= 16 ---------------------------------------------------
+// ---- decode tiling: M <= 16, K split across CTAs ---------------------------------
 
-constexpr int kDecWarps = 8;                 // warps of a CTA; they split K
+constexpr int kDecWarps = 8;                 // warps of a CTA
 constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecNJ = 4;                    // 16-column weight tiles per warp: 64 columns
+constexpr int kDecWC = 2;                    // warps side by side over the columns
+constexpr int kDecWK = kDecWarps / kDecWC;   // warps along K
+constexpr int kDecKS = 4;                    // k-steps per warp per stage
+constexpr int kDecKC = 16 * kDecKS * kDecWK;      // K rows per stage (256)
+constexpr int kDecPR = kDecKC / 2;                // packed rows per stage
+constexpr int kDecBN = 64 * kDecWC;               // columns (= bytes of a packed row) per CTA
+constexpr int kDecXStride = kDecKC + 8;           // bf16: rows shift 4 banks
+constexpr int kDecWBytes = kDecPR * kDecBN;
+constexpr int kDecStages = 4;                // cp.async ring: three stages in flight
 
-// MB: 8-row blocks of x (1 or 2); NJ: 16-column weight tiles per CTA (2 or
-// 4); KS: k-steps per warp per stage. Lane (g, t) serves columns n0 +
-// 2*NJ*g + (0 .. 2*NJ-1): in tile j, weight row g is column 2j and row
-// g + 8 is column 2j + 1.
-template <int MB, int NJ, int KS>
+// A CTA owns kDecBN = 128 columns, so it reads 128 contiguous bytes of each
+// packed row; column warp wc (of 2) serves 64 of them and the 4 warps of a
+// column split each stage's K. Lane (g, t) of column warp wc serves columns
+// n0 + 64 wc + 8 g + (0 .. 7): in weight tile j, its fragment row g is
+// column 2j and row g + 8 is column 2j + 1, so its 8 bytes of a packed row
+// are contiguous.
+//
+// A staged packed row is its 128 bytes unpadded, eight 16-byte chunks,
+// chunk c of row r stored at c ^ 2 (r & 3): a half warp's 8-byte reads
+// (rows t = 0..3, 32 bytes each) then fall in four disjoint 8-bank ranges.
+// Rows t and t + 4 share the permutation.
+__device__ __forceinline__ int dec_w_offset(int row, int byte) {
+  return row * kDecBN + (((byte >> 4) ^ ((row & 3) << 1)) << 4) + (byte & 15);
+}
+
+// MB: 8-row blocks of x, 1 for M <= 8 and 2 for M 9..16.
+template <int MB>
 struct DecTiling {
-  static constexpr int kDecKC = 16 * KS * kDecWarps;      // K rows per stage
-  static constexpr int kDecPR = kDecKC / 2;               // packed rows per stage
-  static constexpr int kDecScaleRows = kDecKC / 16;       // groups (>= 16 rows) per stage
-  static constexpr int kBN = 16 * NJ;
-  static constexpr int kLaneBytes = 2 * NJ;                 // per packed row
-  static constexpr int kWStride = NJ == 2 ? 32 : 96;        // bytes: conflict-free lane reads
   static constexpr int kXRows = 8 * MB;
-  static constexpr int kXStride = kDecKC + 8;               // bf16: rows shift 4 banks
-  static constexpr int kWBytes = kDecPR * kWStride;
-  static constexpr int kXBytes = kXRows * kXStride * 2;
-  static constexpr int kSBytes = kDecScaleRows * kBN * 4;
-  static constexpr int kStageBytes = kWBytes + kXBytes + kSBytes;
-  static constexpr int kE = MB * NJ * 4;                    // f32 sums per lane
+  static constexpr int kXBytes = kXRows * kDecXStride * 2;
+  static constexpr int kStageBytes = kDecWBytes + kXBytes;
+  static constexpr int kSmem = kDecStages * kStageBytes;
+  static constexpr int kE = MB * kDecNJ * 4;           // f32 sums per lane
   static constexpr int kRedBytes = kDecWarps * 32 * (kE + 1) * 4;
   static_assert(kStageBytes % 16 == 0, "stages must stay 16-byte aligned");
+  static_assert(kRedBytes <= kSmem, "reduction scratch must fit");
 };
 
-template <int MB, int NJ, int KS, int STAGES>
+// acc += part * one group's scales for a lane's 8 columns (sa: columns 0-3,
+// sb: 4-7); part restarts at zero
+template <int MB>
+__device__ __forceinline__ void fold_group(float (&part)[MB][kDecNJ][4],
+                                           float (&acc)[MB][kDecNJ][4], const float4& sa,
+                                           const float4& sb) {
+  const float sv[2 * kDecNJ] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb) {
+#pragma unroll
+    for (int j = 0; j < kDecNJ; ++j) {
+      acc[mb][j][0] += part[mb][j][0] * sv[2 * j];
+      acc[mb][j][1] += part[mb][j][1] * sv[2 * j];
+      acc[mb][j][2] += part[mb][j][2] * sv[2 * j + 1];
+      acc[mb][j][3] += part[mb][j][3] * sv[2 * j + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[mb][j][e] = 0.f;
+    }
+  }
+}
+
+// One CTA: kDecBN columns (blockIdx.x) over split blockIdx.y of K. The
+// gridDim.y splits take contiguous, equal shares of K in units of `unit`
+// rows (whole groups where there are at least as many groups as splits,
+// else 16-row k-steps). With `partial` null (one split) the CTA stores bf16
+// into `out`; else it stores its f32 sum into partial[split] and
+// w4a16_split_sum adds the splits up. Packed rows and x stream through the
+// shared-memory ring; a warp reads the 8 scales of its columns' running
+// group from global memory (L2) when the group starts, ahead of its fold.
+template <int MB>
 __global__ void __launch_bounds__(kDecThreads)
     w4a16_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
-                        const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int m,
-                        int k, int n, int group) {
-  using Tl = DecTiling<MB, NJ, KS>;
-  constexpr int kDecKC = Tl::kDecKC;
-  constexpr int kDecPR = Tl::kDecPR;
-  static_assert(Tl::kRedBytes <= STAGES * Tl::kStageBytes, "reduction scratch must fit");
+                        const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ partial, int m, int k, int n, int group, int unit) {
+  using Tl = DecTiling<MB>;
+  constexpr int kNJ = kDecNJ;
+  constexpr int kWK = kDecWK;
+  constexpr int kKC = kDecKC;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int wk = warp % kWK;  // this warp's place along K
+  const int wc = warp / kWK;  // and over the columns
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const int n0 = blockIdx.x * Tl::kBN;
-  const int k2 = k >> 1;
-  const int n_chunks = (k + kDecKC - 1) / kDecKC;
+  const int n0 = blockIdx.x * kDecBN;
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
+  const int units = k / unit;
+  const int kb = split * units / splits * unit;        // this split's K rows: [kb, ke)
+  const int ke = (split + 1) * units / splits * unit;
+  const int n_chunks = (ke - kb + kKC - 1) / kKC;
 
   auto w_s = [&](int buf) { return smem + buf * Tl::kStageBytes; };
   auto x_s = [&](int buf) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + buf * Tl::kStageBytes + Tl::kWBytes);
-  };
-  auto s_s = [&](int buf) {
-    return reinterpret_cast<float*>(smem + buf * Tl::kStageBytes + Tl::kWBytes + Tl::kXBytes);
+    return reinterpret_cast<__nv_bfloat16*>(smem + buf * Tl::kStageBytes + kDecWBytes);
   };
 
   auto load_stage = [&](int c, int buf) {
-    const int kc0 = c * kDecKC;
+    const int kc0 = kb + c * kKC;
     unsigned char* ws = w_s(buf);
-    for (int i = tid; i < kDecPR * (Tl::kBN / 16); i += kDecThreads) {
-      const int r = i / (Tl::kBN / 16);
-      const int ch = i % (Tl::kBN / 16);
-      if (kc0 / 2 + r < k2 && n0 + ch * 16 < n) {
-        cp_async16(ws + r * Tl::kWStride + ch * 16,
+    for (int i = tid; i < kDecPR * (kDecBN / 16); i += kDecThreads) {
+      const int r = i / (kDecBN / 16);
+      const int ch = i % (kDecBN / 16);
+      if (kc0 / 2 + r < ke / 2 && n0 + ch * 16 < n) {
+        cp_async16(ws + dec_w_offset(r, ch * 16),
                    packed + static_cast<size_t>(kc0 / 2 + r) * n + n0 + ch * 16);
       } else {
-        zero16(ws + r * Tl::kWStride + ch * 16);
+        zero16(ws + dec_w_offset(r, ch * 16));
       }
     }
     __nv_bfloat16* xs = x_s(buf);
-    for (int i = tid; i < Tl::kXRows * (kDecKC / 8); i += kDecThreads) {
-      const int r = i / (kDecKC / 8);
-      const int col = kc0 + (i % (kDecKC / 8)) * 8;
-      if (r < m && col < k) {
-        cp_async16(xs + r * Tl::kXStride + (col - kc0), x + static_cast<size_t>(r) * k + col);
+    for (int i = tid; i < Tl::kXRows * (kKC / 8); i += kDecThreads) {
+      const int r = i / (kKC / 8);
+      const int col = kc0 + (i % (kKC / 8)) * 8;
+      if (r < m && col < ke) {
+        cp_async16(xs + r * kDecXStride + (col - kc0), x + static_cast<size_t>(r) * k + col);
       } else {
-        zero16(xs + r * Tl::kXStride + (col - kc0));
-      }
-    }
-    // the scale rows of every group with a row in this stage
-    const int g_first = kc0 / group;
-    const int g_rows = (min(kc0 + kDecKC, k) - 1) / group - g_first + 1;
-    float* ss = s_s(buf);
-    for (int i = tid; i < g_rows * (Tl::kBN / 4); i += kDecThreads) {
-      const int r = i / (Tl::kBN / 4);
-      const int ch = i % (Tl::kBN / 4);
-      if (n0 + ch * 4 < n) {
-        cp_async16(ss + r * Tl::kBN + ch * 4,
-                   scale + static_cast<size_t>(g_first + r) * n + n0 + ch * 4);
-      } else {
-        zero16(ss + r * Tl::kBN + ch * 4);
+        zero16(xs + r * kDecXStride + (col - kc0));
       }
     }
   };
 
-  float part[MB][NJ][4];  // the running group's sum, unscaled
-  float acc[MB][NJ][4];   // the scaled total
+  float part[MB][kNJ][4];  // the running group's sum, unscaled
+  float acc[MB][kNJ][4];   // the scaled total
 #pragma unroll
   for (int mb = 0; mb < MB; ++mb) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
+    for (int j = 0; j < kNJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[mb][j][e] = acc[mb][j][e] = 0.f;
     }
   }
-  // this warp's k-steps are every kDecWarps-th one: rows 16 * warp + 128 * i
-  int g_cur = (16 * warp) / group;  // the group of the warp's next k-step
-  int pos = (16 * warp) % group;    // that k-step's first row within it
+  // this lane's 8 columns (all past N or none: N % 16 == 0) and their
+  // scales in the running group
+  const int col0 = n0 + 64 * wc + 8 * gid;
+  const float* scol = scale + col0;
+  float4 sa = make_float4(0.f, 0.f, 0.f, 0.f), sb = sa;
+  bool have_scales = false;
+  // this warp's k-steps are every kWK-th one of the split: rows kb + 16 wk
+  // + 16 kWK i
+  int g_cur = (kb + 16 * wk) / group;  // the group of the warp's next k-step
+  int pos = (kb + 16 * wk) % group;    // that k-step's first row within it
+  bool pending = false;                // part holds rows not folded yet
+  // launched as a programmatic dependent (launch_dependent): wait for the
+  // stream's previous kernel before touching global memory; then let the
+  // next kernel (the split sum, or the next call) be scheduled
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
+  for (int s = 0; s < kDecStages - 1; ++s) {
     if (s < n_chunks) load_stage(s, s);
     cp_async_commit();
   }
 
   for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait<kDecStages - 2>();
     __syncthreads();  // stage c has landed; every warp is done with stage c - 1
-    if (c + STAGES - 1 < n_chunks) load_stage(c + STAGES - 1, (c + STAGES - 1) % STAGES);
+    if (c + kDecStages - 1 < n_chunks) {
+      load_stage(c + kDecStages - 1, (c + kDecStages - 1) % kDecStages);
+    }
     cp_async_commit();  // possibly empty: keeps the wait count uniform
 
-    const int buf = c % STAGES;
+    const int buf = c % kDecStages;
     const unsigned char* ws = w_s(buf);
     const __nv_bfloat16* xs = x_s(buf);
-    const float* ss = s_s(buf);
-    const int kc0 = c * kDecKC;
-    const int g_first = kc0 / group;
+    const int kc0 = kb + c * kKC;
 #pragma unroll
-    for (int h = 0; h < KS; ++h) {
-      const int ks = warp + kDecWarps * h;  // k-step within the stage
-      if (kc0 + 16 * ks >= k) break;
-      // this lane's weight bytes in packed rows t and t + 4 of the k-step
-      const unsigned char* wr = ws + (ks * 8 + tig) * Tl::kWStride + gid * Tl::kLaneBytes;
-      uint32_t lo[2 * NJ], hi[2 * NJ];  // A registers of rows t and t + 4
-      if constexpr (NJ == 4) {
-        const uint2 a = *reinterpret_cast<const uint2*>(wr);
-        const uint2 b = *reinterpret_cast<const uint2*>(wr + 4 * Tl::kWStride);
-        int4_quad(a.x, lo);
-        int4_quad(a.y, lo + 4);
-        int4_quad(b.x, hi);
-        int4_quad(b.y, hi + 4);
-      } else {
-        int4_quad(*reinterpret_cast<const uint32_t*>(wr), lo);
-        int4_quad(*reinterpret_cast<const uint32_t*>(wr + 4 * Tl::kWStride), hi);
+    for (int h = 0; h < kDecKS; ++h) {
+      const int ks = wk + kWK * h;  // k-step within the stage
+      if (kc0 + 16 * ks >= ke) break;
+      if (!have_scales && col0 < n) {
+        sa = __ldg(reinterpret_cast<const float4*>(scol + static_cast<size_t>(g_cur) * n));
+        sb = __ldg(reinterpret_cast<const float4*>(scol + static_cast<size_t>(g_cur) * n + 4));
       }
+      have_scales = true;
+      // this lane's weight bytes in packed rows t and t + 4 of the k-step
+      const unsigned char* wr = ws + dec_w_offset(ks * 8 + tig, 64 * wc + gid * 8);
+      uint32_t lo[2 * kNJ], hi[2 * kNJ];  // A registers of rows t and t + 4
+      const uint2 a = *reinterpret_cast<const uint2*>(wr);
+      const uint2 b = *reinterpret_cast<const uint2*>(wr + 4 * kDecBN);
+      int4_quad(a.x, lo);
+      int4_quad(a.y, lo + 4);
+      int4_quad(b.x, hi);
+      int4_quad(b.y, hi + 4);
       uint32_t b0[MB], b1[MB];
 #pragma unroll
       for (int mb = 0; mb < MB; ++mb) {
-        const __nv_bfloat16* xr = xs + (mb * 8 + gid) * Tl::kXStride + ks * 16 + 2 * tig;
+        const __nv_bfloat16* xr = xs + (mb * 8 + gid) * kDecXStride + ks * 16 + 2 * tig;
         b0[mb] = *reinterpret_cast<const uint32_t*>(xr);
         b1[mb] = *reinterpret_cast<const uint32_t*>(xr + 8);
       }
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const uint32_t a[4] = {lo[2 * j], lo[2 * j + 1], hi[2 * j], hi[2 * j + 1]};
+      for (int j = 0; j < kNJ; ++j) {
+        const uint32_t af[4] = {lo[2 * j], lo[2 * j + 1], hi[2 * j], hi[2 * j + 1]};
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb) mma_bf16(part[mb][j], a, b0[mb], b1[mb]);
+        for (int mb = 0; mb < MB; ++mb) mma_bf16(part[mb][j], af, b0[mb], b1[mb]);
       }
+      pending = true;
       // the warp's next k-step lies in another group: fold this one in
-      int np = pos + 16 * kDecWarps;
+      int np = pos + 16 * kWK;
       if (np >= group) {
-        const float* srow = ss + (g_cur - g_first) * Tl::kBN + gid * 2 * NJ;
-        float sv[2 * NJ];
-#pragma unroll
-        for (int q = 0; q < NJ / 2; ++q) {
-          const float4 v = *reinterpret_cast<const float4*>(srow + 4 * q);
-          sv[4 * q] = v.x;
-          sv[4 * q + 1] = v.y;
-          sv[4 * q + 2] = v.z;
-          sv[4 * q + 3] = v.w;
-        }
-#pragma unroll
-        for (int mb = 0; mb < MB; ++mb) {
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            acc[mb][j][0] += part[mb][j][0] * sv[2 * j];
-            acc[mb][j][1] += part[mb][j][1] * sv[2 * j];
-            acc[mb][j][2] += part[mb][j][2] * sv[2 * j + 1];
-            acc[mb][j][3] += part[mb][j][3] * sv[2 * j + 1];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) part[mb][j][e] = 0.f;
-          }
-        }
+        fold_group<MB>(part, acc, sa, sb);
+        pending = have_scales = false;
         while (np >= group) {
           np -= group;
           ++g_cur;
@@ -324,52 +362,194 @@ __global__ void __launch_bounds__(kDecThreads)
       pos = np;
     }
   }
+  // the split ends inside the warp's last group (a split of k-steps in the
+  // middle of a group): fold what it holds
+  if (pending) fold_group<MB>(part, acc, sa, sb);
 
-  // sum the warps' totals through shared memory, then store in bf16
+  // sum the K warps' totals through shared memory, then store
   cp_async_wait<0>();
   __syncthreads();
   float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int mb = 0; mb < MB; ++mb) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
+    for (int j = 0; j < kNJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        red[(warp * 32 + lane) * (Tl::kE + 1) + (mb * NJ + j) * 4 + e] = acc[mb][j][e];
+        red[(warp * 32 + lane) * (Tl::kE + 1) + (mb * kNJ + j) * 4 + e] = acc[mb][j][e];
       }
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < 32 * Tl::kE; idx += kDecThreads) {
-    const int ln = idx / Tl::kE;
+  float* split_out = partial ? partial + static_cast<size_t>(split) * m * n : nullptr;
+  for (int idx = tid; idx < kDecWC * 32 * Tl::kE; idx += kDecThreads) {
+    const int cw = idx / (32 * Tl::kE);
+    const int ln = (idx / Tl::kE) % 32;
     const int e = idx % Tl::kE;
     float v = 0.f;
 #pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) v += red[(w * 32 + ln) * (Tl::kE + 1) + e];
+    for (int w = 0; w < kWK; ++w) v += red[((cw * kWK + w) * 32 + ln) * (Tl::kE + 1) + e];
     // C of tile j: rows g (column 2j) and g + 8 (column 2j + 1), columns
     // 2t and 2t + 1 of the m-block
-    const int mb = e / (NJ * 4);
-    const int j = (e / 4) % NJ;
+    const int mb = e / (kNJ * 4);
+    const int j = (e / 4) % kNJ;
     const int row = mb * 8 + 2 * (ln & 3) + (e & 1);
-    const int col = n0 + 2 * NJ * (ln >> 2) + 2 * j + ((e >> 1) & 1);
-    if (row < m && col < n) out[static_cast<size_t>(row) * n + col] = __float2bfloat16_rn(v);
+    const int col = n0 + 64 * cw + 2 * kNJ * (ln >> 2) + 2 * j + ((e >> 1) & 1);
+    if (row < m && col < n) {
+      if (split_out) {
+        split_out[static_cast<size_t>(row) * n + col] = v;
+      } else {
+        out[static_cast<size_t>(row) * n + col] = __float2bfloat16_rn(v);
+      }
+    }
   }
 }
 
-template <int MB, int NJ, int KS, int STAGES>
-cudaError_t launch_decode(const void* x, const void* packed, const void* scale, void* out,
-                          int m, int k, int n, int group, cudaStream_t stream) {
-  using Tl = DecTiling<MB, NJ, KS>;
-  constexpr int smem = STAGES * Tl::kStageBytes;
-  auto kernel = w4a16_decode_kernel<MB, NJ, KS, STAGES>;
+constexpr int kSumThreads = 128;
+constexpr int kMaxSplits = 16;  // K splits of a decode call (decode_plan)
+
+// out = bf16(partial[0] + partial[1] + ... + partial[splits - 1]), in that
+// order, four elements a thread: the same bits on every call. Launched as a
+// programmatic dependent of the decode kernel (launch_dependent), so its
+// launch overlaps the decode kernel's run.
+__global__ void __launch_bounds__(kSumThreads)
+    w4a16_split_sum(const float* __restrict__ partial, __nv_bfloat16* __restrict__ out, int mn,
+                    int splits) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int i = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= mn) return;
+  auto at = [&](int s) {
+    return __ldcg(reinterpret_cast<const float4*>(partial + static_cast<size_t>(s) * mn + i));
+  };
+  auto add = [](float4& a, const float4& b) {
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  };
+  float4 b[kMaxSplits];  // every split's load in flight (splits <= kMaxSplits)
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    if (s < splits) b[s] = at(s);
+  }
+  float4 a = b[0];
+#pragma unroll
+  for (int s = 1; s < kMaxSplits; ++s) {
+    if (s < splits) add(a, b[s]);
+  }
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a.x, a.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(a.z, a.w);
+  *reinterpret_cast<uint2*>(out + i) =
+      make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+}
+
+// The split of K for a decode call. The card is filled when every SM holds
+// as many CTAs as fit at once: `resident` CTAs. Column tiles alone give n /
+// 128 CTAs (8 for wk/wv, 32 for wq/wo and w_down, 112 for
+// w_gate/w_up, 1002 for the lm_head), so K is split into as many shares as
+// fit in one such wave, never more: a second, partial wave would leave most
+// SMs idle while it runs. A share keeps at least one stage of K. Shares
+// are whole groups where K holds at least as many groups as shares, else
+// whole 16-row k-steps (the one-group fallback): the scale-after-dot fold
+// is linear, so a group may straddle two shares. At most kMaxSplits shares:
+// w4a16_split_sum then keeps every share's load in flight at once, and
+// each further share adds partial sums to write and read.
+struct DecPlan {
+  int splits;
+  int unit;
+};
+
+DecPlan decode_plan(int k, int n, int group, int resident) {
+  const int tiles = (n + kDecBN - 1) / kDecBN;
+  int splits = std::min(std::max(1, resident / tiles), kMaxSplits);
+  splits = std::min(splits, std::max(1, k / kDecKC));
+  const int unit = k / group >= splits ? group : 16;
+  return {std::min(splits, k / unit), unit};
+}
+
+// CTAs of w4a16_decode_kernel<MB> resident on the current device at once;
+// opts the kernel into its shared memory first. Cached per device.
+template <int MB>
+cudaError_t decode_resident(int* resident) {
   static bool opted_in[kMaxDevices] = {};
-  cudaError_t err = opt_in(kernel, smem, opted_in);
+  static int cached[kMaxDevices] = {};
+  auto kernel = w4a16_decode_kernel<MB>;
+  cudaError_t err = opt_in(kernel, DecTiling<MB>::kSmem, opted_in);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + Tl::kBN - 1) / Tl::kBN);
-  kernel<<<grid, kDecThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), m, k, n, group);
-  return cudaGetLastError();
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (!cached[dev]) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDecThreads,
+                                                        DecTiling<MB>::kSmem);
+    if (err != cudaSuccess) return err;
+    cached[dev] = sms * std::max(1, per_sm);
+  }
+  *resident = cached[dev];
+  return cudaSuccess;
+}
+
+// Launches `kernel` as a programmatic dependent of the stream's previous
+// kernel: its CTAs may be scheduled while that kernel finishes (once all
+// of that kernel's CTAs have run griddepcontrol.launch_dependents, or
+// exited), and the kernel's griddepcontrol.wait, ahead of any global memory
+// access, holds them until the previous kernel has completed and its
+// stores are visible. The order of memory effects is the stream's; only the
+// launch latency overlaps.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, int threads, int smem,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int MB>
+cudaError_t decode_workspace(int m, int k, int n, int group, long long* bytes) {
+  int resident = 0;
+  cudaError_t err = decode_resident<MB>(&resident);
+  if (err != cudaSuccess) return err;
+  const DecPlan plan = decode_plan(k, n, group, resident);
+  *bytes = plan.splits > 1 ? 4LL * plan.splits * m * n : 0;
+  return cudaSuccess;
+}
+
+template <int MB>
+cudaError_t launch_decode(const void* x, const void* packed, const void* scale, void* out,
+                          void* workspace, long long workspace_bytes, int m, int k, int n,
+                          int group, cudaStream_t stream) {
+  int resident = 0;
+  cudaError_t err = decode_resident<MB>(&resident);
+  if (err != cudaSuccess) return err;
+  const DecPlan plan = decode_plan(k, n, group, resident);
+  float* partial = nullptr;
+  if (plan.splits > 1) {
+    if (workspace == nullptr || workspace_bytes < 4LL * plan.splits * m * n) {
+      return cudaErrorInvalidValue;
+    }
+    partial = static_cast<float*>(workspace);
+  }
+  err = launch_dependent(w4a16_decode_kernel<MB>,
+                         dim3((n + kDecBN - 1) / kDecBN, plan.splits), kDecThreads,
+                         DecTiling<MB>::kSmem, stream, static_cast<const __nv_bfloat16*>(x),
+                         static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
+                         static_cast<__nv_bfloat16*>(out), partial, m, k, n, group, plan.unit);
+  if (err != cudaSuccess || partial == nullptr) return err;
+  return launch_dependent(w4a16_split_sum, dim3((m * n / 4 + kSumThreads - 1) / kSumThreads),
+                          kSumThreads, 0, stream, static_cast<const float*>(partial),
+                          static_cast<__nv_bfloat16*>(out), m * n, plan.splits);
 }
 
 // ---- block tiling: M > 16 -------------------------------------------------------
@@ -577,29 +757,46 @@ cudaError_t launch_block(const void* x, const void* packed, const void* scale, v
   return cudaGetLastError();
 }
 
+bool bad_args(int m, int k, int n, int group) {
+  return m < 0 || k <= 0 || n <= 0 || group <= 0 || group % 16 || k % group || n % 16 ||
+         (m + kBM - 1) / kBM > 65535;
+}
+
 }  // namespace
 
-// C entry point, bound with ctypes. Returns the cudaError_t of the launch
-// (0 on success); the Python wrapper has checked shapes, types and gates.
+// C entry points, bound with ctypes. Each returns a cudaError_t (0 on
+// success); the Python wrapper has checked shapes, types and gates.
+
+// Bytes of f32 workspace the call (m, k, n, group) needs for its split-K
+// partial sums (0 when K is not split), into *bytes.
+extern "C" int tpu_torch_fused_int4_workspace(int m, int k, int n, int group,
+                                              long long* bytes) {
+  *bytes = 0;
+  if (bad_args(m, k, n, group)) return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0 || m > 16) return static_cast<int>(cudaSuccess);
+  const cudaError_t err = m <= 8 ? decode_workspace<1>(m, k, n, group, bytes)
+                                 : decode_workspace<2>(m, k, n, group, bytes);
+  return static_cast<int>(err);
+}
+
+// out = x @ dequant(packed, scale). `workspace` holds at least the bytes
+// tpu_torch_fused_int4_workspace reports (null when it reports 0), on the
+// same stream: the call's split-K partial sums.
 extern "C" int tpu_torch_fused_int4_matmul(const void* x, const void* packed, const void* scale,
-                                           void* out, int m, int k, int n, int group,
-                                           void* stream) {
-  if (m < 0 || k <= 0 || n <= 0 || group <= 0 || group % 16 || k % group || n % 16 ||
-      (m + kBM - 1) / kBM > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                           void* out, void* workspace, int m, int k, int n,
+                                           int group, long long workspace_bytes, void* stream) {
+  if (bad_args(m, k, n, group)) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (m > 16) {
     err = launch_block<3>(x, packed, scale, out, m, k, n, group, s);
-  } else if (n >= 64 * 264) {
-    // wide N (the lm_head): 64-column CTAs still give two per SM
-    err = m <= 8 ? launch_decode<1, 4, 2, 4>(x, packed, scale, out, m, k, n, group, s)
-                 : launch_decode<2, 4, 2, 4>(x, packed, scale, out, m, k, n, group, s);
+  } else if (m <= 8) {
+    err = launch_decode<1>(x, packed, scale, out, workspace, workspace_bytes, m, k, n,
+                                  group, s);
   } else {
-    err = m <= 8 ? launch_decode<1, 2, 4, 4>(x, packed, scale, out, m, k, n, group, s)
-                 : launch_decode<2, 2, 4, 4>(x, packed, scale, out, m, k, n, group, s);
+    err = launch_decode<2>(x, packed, scale, out, workspace, workspace_bytes, m, k, n,
+                                  group, s);
   }
   return static_cast<int>(err);
 }

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from ..models.llama import Llama
+from ..ops.gates import check_engine_gates
 from ..ops.paged_attention import RAGGED_QB, ragged_layout, tree_ancestors
 from .kv_cache import PagedKVCache
 from .sampling import (
@@ -312,6 +313,15 @@ class LLMEngineCore:
         self._pages_per_seq = -(-(self.max_seq_len + max(self.decode_steps, spec_slack))
                                 // int(page_size))
         total_pages = num_pages or (self.max_batch * self._pages_per_seq + 1)
+        if self.device.type == "cuda":
+            # a configuration outside a kernel's gates fails here, at load,
+            # not at every request's first launch
+            check_engine_gates(
+                page_size=int(page_size), n_kv_heads=model.n_kv_heads,
+                head_dim=model.head_dim, group=model.group, dtype=model.dtype,
+                kv_dtype=torch.int8 if model.kv_quant else model.dtype, ragged=self._ragged,
+                tree_width=self._spec_k + 1 if self._spec_tree else None,
+                int4_weights=model.int4_weight_shapes())
         self.paged_cache = PagedKVCache(
             model.n_layers, model.n_kv_heads, model.head_dim,
             num_pages=total_pages, page_size=int(page_size),

@@ -274,6 +274,12 @@ class Llama(nn.Module):
                 return module.quant
         return ""
 
+    def int4_weight_shapes(self):
+        """``(name, K, N, groups)`` of every int4 projection leaf."""
+        return [(name, module.shape[0], module.shape[1], module.scale.shape[0])
+                for name, module in self.named_modules()
+                if isinstance(module, QuantWeight) and module.quant == "int4"]
+
     def weight_bytes(self) -> int:
         """Bytes of every weight leaf (packed codes and scales included)."""
         return sum(t.numel() * t.element_size()

@@ -129,8 +129,14 @@ def load_library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fn = lib.tpu_torch_fused_int4_matmul
-            # x, packed, scale, out; m, k, n, group; stream
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            # x, packed, scale, out, workspace; m, k, n, group;
+            # workspace_bytes; stream
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                           + [ctypes.c_longlong, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            fn = lib.tpu_torch_fused_int4_workspace
+            # m, k, n, group; out: workspace bytes
+            fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -15,12 +15,14 @@ The wrapper launches the hand-written kernel (``csrc/fused_int4_matmul.cu``)
 for CUDA tensors and computes the plain version for CPU tensors. On CUDA it
 launches the kernel at any row count (the kernel streams x in tiles; the
 TPU kernel's 256-row VMEM limit does not carry over) or raises a
-``ValueError`` naming the gate. ``fused_int4_matmul.launches`` counts
-kernel launches.
+``ValueError`` naming the gate. ``fused_int4_matmul.launches`` counts the
+calls that launched the kernel (one per call, also when a decode call's
+split-K adds a second, summing launch).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -103,7 +105,10 @@ def fused_int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
 
     CPU tensors take ``int4_matmul_plain`` (``dtype`` pins its dequant
     dtype, the model's activation dtype). CUDA tensors launch the kernel on
-    the current stream (no synchronisation; output in x's dtype) or raise."""
+    the current stream (no synchronisation; output in x's dtype) or raise.
+    Decode rows (M <= 16) may split K across CTAs: the call then allocates
+    the f32 workspace the library asks for, and the kernel's second pass
+    adds the splits in a fixed order (the same bits on every call)."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scale, dtype)
     if x.device.type != "cuda":
@@ -114,10 +119,20 @@ def fused_int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
     k2, n = packed.shape
     k = 2 * k2
     m = x.numel() // k
+    group = k // scale.shape[0]
+    lib = load_library()
+    ws_bytes = ctypes.c_longlong(0)
+    rc = lib.tpu_torch_fused_int4_workspace(m, k, n, group, ctypes.byref(ws_bytes))
+    if rc != 0:
+        raise RuntimeError("fused_int4_matmul workspace query failed: cudaError {}".format(rc))
     out = torch.empty(tuple(x.shape[:-1]) + (n,), dtype=x.dtype, device=x.device)
-    rc = load_library().tpu_torch_fused_int4_matmul(
+    # split-K partial sums, allocated on the current stream for this call only
+    ws = (torch.empty(ws_bytes.value, dtype=torch.uint8, device=x.device)
+          if ws_bytes.value else None)
+    rc = lib.tpu_torch_fused_int4_matmul(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        m, k, n, k // scale.shape[0], torch.cuda.current_stream(x.device).cuda_stream,
+        ws.data_ptr() if ws is not None else None, m, k, n, group, ws_bytes.value,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError("fused_int4_matmul kernel launch failed: cudaError {}".format(rc))

@@ -5,6 +5,7 @@ sources of another checkout, e.g. the parent commit unpacked with ``git
 archive`` into a directory that .gitignore lists).
 
     python3 scripts/torch_kernel_ab.py --baseline build/parent [--kernel ragged|int4]
+        [--rows 1,8,16]
 
 Both libraries are built with the same ``nvcc`` flags and called through the
 same C entry point on the same operands. Each case is held against the plain
@@ -14,10 +15,13 @@ through 4 layers' pools, so L2 holds no layer from one call to the next).
 ``--kernel paged`` (the default) times decode attention over batches of
 lengths; ``--kernel ragged`` times ragged attention at chip_smoke.py's mixed
 and prefill shapes; ``--kernel int4`` times the w4a16 matmul at every
-Llama-3-8B projection shape at chip_smoke.py's row counts (8, 312 and 2048;
-the lm_head at 8 and 312),
-rotating through copies of the weights that together exceed the L2. Prints
-the card line, then one JSON line per case.
+Llama-3-8B projection shape at M 1, 8, 16, 312 and 2048 (the lm_head up to
+312; ``--rows`` picks a subset), in CUDA-graph replays rotating through
+copies of the weights that together exceed the L2, beside the library's
+int4 product and a bf16 matmul, and sums one decode step's 225 calls per
+decode row count; either checkout's C entry point (with or without the
+split-K workspace) is called. Prints the card line, then one JSON line per
+case.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from clearml_serving_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention_ref,
     ragged_paged_attention_ref,
 )
-from clearml_serving_tpu_torch.ops.quant import quantize_int4  # noqa: E402
+from clearml_serving_tpu_torch.ops.quant import dequantize_int4, quantize_int4  # noqa: E402
 
 CASES = {
     "8x96": [96] * 8,
@@ -145,56 +149,133 @@ def ab_ragged(fns, gen, layers) -> None:
             torch.cuda.empty_cache()
 
 
-def int4_entry(lib: ctypes.CDLL):
+def has_int4_workspace(root: Path) -> bool:
+    """Whether a checkout's int4 kernel splits K for decode rows: its C
+    entry point then takes a workspace pointer and its size, and a second
+    entry point reports the size."""
+    src = root / "clearml_serving_tpu_torch" / "csrc" / "fused_int4_matmul.cu"
+    return "tpu_torch_fused_int4_workspace" in src.read_text()
+
+
+def int4_entry(lib: ctypes.CDLL, workspace: bool):
     try:
         fn = lib.tpu_torch_fused_int4_matmul
     except AttributeError:
         raise SystemExit("this library has no fused_int4_matmul kernel")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    if not workspace:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return fn, None
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong,
+                                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    query = lib.tpu_torch_fused_int4_workspace
+    query.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    query.restype = ctypes.c_int
+    return fn, query
 
 
-def int4_launch(fn, out, x, q, s):
-    m, k = x.shape
-    rc = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, q.shape[1],
-            k // s.shape[0], torch.cuda.current_stream().cuda_stream)
+def int4_launcher(entry, m, k, n, group):
+    """launch(out, x, q, s) through either entry point, with the workspace
+    this shape needs allocated once up front (calls run in stream order).
+    Each call launches on the stream current at the call, so a CUDA graph
+    captures it."""
+    fn, query = entry
+    if query is None:
+        def launch(out, x, q, s):
+            rc = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n, group,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError("launch failed: cudaError {}".format(rc))
+        return launch, 0
+    nbytes = ctypes.c_longlong(0)
+    rc = query(m, k, n, group, ctypes.byref(nbytes))
     if rc:
-        raise RuntimeError("launch failed: cudaError {}".format(rc))
+        raise RuntimeError("workspace query failed: cudaError {}".format(rc))
+    ws = torch.empty(max(1, nbytes.value), dtype=torch.uint8, device="cuda")
+
+    def launch(out, x, q, s):
+        rc = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                m, k, n, group, nbytes.value, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError("launch failed: cudaError {}".format(rc))
+    return launch, nbytes.value
 
 
-def ab_int4(fns, gen) -> None:
-    for name, ((k, n), _calls) in cs.INT4_SHAPES.items():
+# the row counts timed per projection shape (chip_smoke.py's and 16, the
+# largest decode batch of the decode tiling)
+INT4_AB_ROWS = (1, 8, 16, 312, 2048)
+
+
+def ab_int4(entries, gen, rows) -> None:
+    """Per shape and row count: both kernels against the plain version,
+    bitwise equality and determinism, then CUDA-graph device times in turns
+    baseline, change, change, baseline, beside the library's int4 product
+    and a bf16 matmul on the dequantized weight. Then, per decode row
+    count, one decode step's 225 calls summed from the shapes' times (each
+    kernel's better turn)."""
+    steps = {}
+    for name, ((k, n), calls) in cs.INT4_SHAPES.items():
         w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
         q, s = quantize_int4(w)
         del w
+        group = k // s.shape[0]
         copies = max(2, -(-120_000_000 // (q.numel() + s.numel() * 4)))
         qs = [(q, s)] + [(q.clone(), s.clone()) for _ in range(copies - 1)]
-        for m in cs.int4_rows(name):
+        w_bf16 = dequantize_int4(q, s, torch.bfloat16)
+        copies_bf16 = max(2, -(-120_000_000 // (w_bf16.numel() * 2)))
+        ws = [w_bf16] + [w_bf16.clone() for _ in range(copies_bf16 - 1)]
+        for m in cs.int4_rows(name, rows):
             x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
             ref = int4_matmul_plain(x.float(), q, s, torch.float32)
             b_ms, b_by = cs.int4_bound(m, k, n, s.shape[0])
             row = {"case": name, "m": m, "k": k, "n": n, "bound_ms": b_ms, "bound_by": b_by}
-            outs = {}
-            for key, fn in fns.items():
+            launches, outs = {}, {}
+            for key, entry in entries.items():
+                launches[key], row[key + "_workspace_bytes"] = int4_launcher(entry, m, k, n,
+                                                                             group)
                 outs[key] = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
-                int4_launch(fn, outs[key], x, q, s)
+                launches[key](outs[key], x, q, s)
+            again = torch.empty_like(outs["change"])
+            launches["change"](again, x, q, s)
             torch.cuda.synchronize()
-            for key in fns:
+            for key in entries:
                 row[key + "_max_abs_err"] = float((outs[key].float() - ref).abs().max())
                 if not torch.allclose(outs[key].float(), ref, rtol=cs.TOL, atol=cs.TOL):
                     raise AssertionError("{} disagrees with the plain version".format(key))
             row["bitwise_equal"] = bool(torch.equal(outs["change"], outs["baseline"]))
+            row["deterministic"] = bool(torch.equal(outs["change"], again))
+            if not row["deterministic"]:
+                raise AssertionError("two calls of the change on the same inputs differ")
+            iters = 400 if m <= 16 else 100 if m <= 512 else 20
             for key in ("baseline", "change", "change", "baseline"):
 
-                def call(i, fn=fns[key], out=outs[key], x=x):
-                    int4_launch(fn, out, x, *qs[i])
+                def call(i, launch=launches[key], out=outs[key], x=x):
+                    launch(out, x, *qs[i])
 
-                row.setdefault(key + "_ms", []).append(
-                    cs.time_launches(call, copies, 400 if m <= 16 else 100 if m <= 512 else 20))
+                row.setdefault(key + "_ms", []).append(cs.time_graph(call, copies, iters))
+            row["bf16_ms"] = cs.time_graph(lambda i, x=x: torch.matmul(x, ws[i]), copies_bf16,
+                                           iters)
+            lib_call, lib_err = cs.library_int4(x, qs)
+            row["library_ms"] = (cs.time_graph(lib_call, copies, iters)
+                                 if lib_call is not None else None)
+            if lib_err:
+                row["library_error"] = lib_err
+            for key in ("baseline", "change"):
+                row[key + "_share_of_bound"] = b_ms / min(row[key + "_ms"])
             print(json.dumps(row), flush=True)
-        del qs, q, s
+            if m <= 16:
+                steps.setdefault(m, []).append((calls, row))
+            del x, outs, again
+        del qs, ws, q, s, w_bf16
         torch.cuda.empty_cache()
+    for m, shape_rows in steps.items():
+        step = {"case": "decode_step", "m": m, "calls": sum(c for c, _ in shape_rows)}
+        for key in ("baseline_ms", "change_ms", "library_ms", "bf16_ms", "bound_ms"):
+            ts = [min(r[key]) if isinstance(r[key], list) else r[key] for _, r in shape_rows]
+            step[key] = (None if None in ts
+                         else sum(t * c for t, (c, _) in zip(ts, shape_rows)))
+        print(json.dumps(step), flush=True)
 
 
 def launch(fn, out, q, k, v, table, lengths, k_scale=None, v_scale=None):
@@ -214,6 +295,8 @@ def main() -> int:
                         help="root of the checkout holding the baseline sources")
     parser.add_argument("--kernel", choices=("paged", "ragged", "int4"), default="paged",
                         help="which kernel to compare (default: paged decode attention)")
+    parser.add_argument("--rows", default=",".join(map(str, INT4_AB_ROWS)),
+                        help="int4: comma-separated row counts to time (default: %(default)s)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ab: needs a GPU", file=sys.stderr)
@@ -227,8 +310,10 @@ def main() -> int:
                                             has_tree_mask(args.baseline))}, gen, layers)
         return 0
     if args.kernel == "int4":
-        ab_int4({"change": int4_entry(_build.load_library()),
-                 "baseline": int4_entry(build_baseline(args.baseline))}, gen)
+        ab_int4({"change": int4_entry(_build.load_library(), has_int4_workspace(ROOT)),
+                 "baseline": int4_entry(build_baseline(args.baseline),
+                                        has_int4_workspace(args.baseline))},
+                gen, [int(r) for r in args.rows.split(",")])
         return 0
     fns = {"change": entry(_build.load_library()), "baseline": entry(build_baseline(args.baseline))}
     for quant in (False, True):

@@ -14,12 +14,14 @@ rounding and another summation order; the plain version computes in f32 on
 the same operands)."""
 
 import asyncio
+import ctypes
 
 import pytest
 import torch
 
 from clearml_serving_tpu_torch.llm.engine import GenRequest, LLMEngineCore
 from clearml_serving_tpu_torch.models.llama import Llama, init_params, kv_store
+from clearml_serving_tpu_torch.ops._build import load_library
 from clearml_serving_tpu_torch.ops.fused_matmul import fused_int4_matmul, int4_matmul_plain
 from clearml_serving_tpu_torch.ops.paged_attention import (
     RAGGED_QB,
@@ -414,7 +416,7 @@ def _check_int4(x, q, s):
     torch.testing.assert_close(out.float(), ref, **TOL)
 
 
-@pytest.mark.parametrize("m", [1, 8, 128, 312])
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 128, 312])
 @pytest.mark.parametrize("name", sorted(LLAMA3_8B_PROJECTIONS))
 def test_int4_kernel_matches_plain_version_at_llama3_8b_shapes(cuda, name, m):
     k, n = LLAMA3_8B_PROJECTIONS[name]
@@ -430,6 +432,43 @@ def test_int4_kernel_matches_plain_version_at_llama3_8b_shapes(cuda, name, m):
 ], ids=["k_eq_group", "fallback_96", "group_4096", "group_48", "group_16"])
 def test_int4_kernel_group_sizes(cuda, m, k, n, groups):
     _check_int4(*_int4_operands(cuda, m, k, n, groups))
+
+
+def _int4_workspace_bytes(m, k, n, groups):
+    """The split-K workspace the kernel asks for (0: K is not split)."""
+    nbytes = ctypes.c_longlong(0)
+    assert load_library().tpu_torch_fused_int4_workspace(m, k, n, k // groups,
+                                                         ctypes.byref(nbytes)) == 0
+    return nbytes.value
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("k,n,groups", [
+    (4800, 1024, 100),   # groups of 48: shares of 6-7 groups, stages end mid-group
+    (4096, 1024, 256),   # groups of 16
+    (4096, 1024, 1),     # one group of 4096: every share boundary inside it
+    (4000, 64, 1),       # one group; 250 k-steps over 15 uneven shares
+    (4000, 80, 1),       # the same over two column tiles, 48 columns past N
+], ids=["group_48", "group_16", "one_group_4096", "one_group_4000", "one_group_n80"])
+def test_int4_split_k_boundaries_inside_groups(cuda, k, n, groups, m):
+    """Decode rows split K across CTAs; a share may start and end inside a
+    group (16-row shares when K holds fewer groups than shares)."""
+    assert _int4_workspace_bytes(m, k, n, groups) > 0
+    _check_int4(*_int4_operands(cuda, m, k, n, groups, seed=k + m))
+
+
+@pytest.mark.parametrize("m,name", [(1, "wk"), (8, "wq"), (16, "w_down"), (8, "w_gate")])
+def test_int4_decode_calls_are_deterministic(cuda, m, name):
+    """The split-K sum adds the shares in a fixed order: two calls on the
+    same inputs give the same bits."""
+    k, n = LLAMA3_8B_PROJECTIONS[name]
+    x, q, s = _int4_operands(cuda, m, k, n, k // 128, seed=7)
+    if name != "w_gate":
+        assert _int4_workspace_bytes(m, k, n, k // 128) > 0
+    first = fused_int4_matmul(x, q, s)
+    second = fused_int4_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_int4_kernel_on_quantized_weights(cuda):
@@ -500,3 +539,35 @@ def test_int4_engine_on_the_card_runs_the_kernel(cuda, scheduler):
     assert forwards > 0
     assert fused_int4_matmul.launches == (7 * model.n_layers + 1) * forwards
     assert engine.health()["weights"]["quant"] == "int4"
+
+
+# -- kernel gates at engine construction --------------------------------------------
+
+GATE_CFG = {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 4, "n_kv_heads": 2,
+            "head_dim": 64, "ffn_dim": 512, "dtype": "bfloat16"}
+
+
+@pytest.mark.parametrize("cfg,knobs,gate", [
+    ({}, {"page_size": 8}, "paged_attention gate page_size"),
+    ({"head_dim": 96}, {}, "paged_attention gate head_dim"),
+    ({"dtype": "float32"}, {}, "paged_attention gate q.dtype"),
+    ({}, {"scheduler": "ragged", "speculation": "ngram", "spec_tree": True, "spec_k": 64},
+     "ragged_paged_attention gate tree_anc"),
+], ids=["page_size_8", "head_dim_96", "float32_model", "tree_spec_k_64"])
+def test_engine_outside_a_gate_raises_at_construction(cuda, cfg, knobs, gate):
+    cfg = dict(GATE_CFG, **cfg)
+    model = Llama(cfg, init_params(cfg, torch.Generator(cuda).manual_seed(0), device=cuda))
+    kw = dict(max_batch=2, max_seq_len=128, decode_steps=4, page_size=16)
+    kw.update(knobs)
+    with pytest.raises(ValueError, match="^" + gate + ": "):
+        LLMEngineCore(model, **kw)
+
+
+def test_int4_engine_outside_the_kernel_gate_raises_at_construction(cuda):
+    """A projection whose N is not a multiple of 16 (ffn_dim 520)."""
+    cfg = dict(GATE_CFG, ffn_dim=520)
+    params = quantize_llama_params(
+        init_params(cfg, torch.Generator(cuda).manual_seed(0), device=cuda), bits=4)
+    with pytest.raises(ValueError, match=r"^fused_int4_matmul gate N: .*layers\.0\.w_gate"):
+        LLMEngineCore(Llama(cfg, params), max_batch=2, max_seq_len=128, page_size=16,
+                      weight_quant="int4")
