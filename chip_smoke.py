@@ -21,12 +21,13 @@ exits non-zero before the result lines are printed:
    bf16 and int8, against the plain version (a chain must give the
    unmasked launch's bits), timed beside the same launch without the mask;
 3c. the w4a16 matmul kernel against its plain version at every Llama-3-8B
-   projection shape, M 1 and 8 (decode; K split across CTAs, two calls must
-   give the same bits), 312 (the ragged flat axis) and 2048
-   (the longest prefill bucket; not the lm_head, which a prefill runs on
-   the last row only), timed beside its bound, the plain version, a bf16
-   ``torch.matmul`` on the dequantized weight and PyTorch's
-   ``_weight_int4pack_mm``;
+   projection shape, M 1 and 8 (the decode tiling), 312 (the ragged flat
+   axis) and 2048 (the longest prefill bucket; not the lm_head, which a
+   prefill runs on the last row only; both through the block tiling), two
+   calls giving the same bits, timed beside its bound, the plain version, a
+   bf16 ``torch.matmul`` on the dequantized weight and PyTorch's
+   ``_weight_int4pack_mm``; then summed over one decode step's 225 calls
+   at M = 8 and one ragged step's 224 projection calls at M = 312;
 4. a small model on the card against the same weights in float32 on the CPU
    (prefill + paged decode logits, bf16 and int8 KV);
 4b. the same model's ``forward_ragged`` over mixed batches;
@@ -57,7 +58,8 @@ exits non-zero before the result lines are printed:
    rows and tree depths must show, the ragged kernel once per layer per
    ragged step, its tree variant once per layer per verify step; decode
    tokens per launch, TTFT and tokens/s per arm, and whether the greedy
-   streams equal the plain arm's (reported, not asserted);
+   streams equal the plain arm's (reported, not asserted; where a greedy
+   stream leaves the plain arm's, the top-2 logit margin at that token);
 6. where the time goes: one profiled pass of each scheduler (bf16 KV), one
    of phase 5d's tree arm and one of the two-dispatch path on int4 weights.
 
@@ -579,9 +581,10 @@ INT4_SHAPES = {
     "lm_head": ((4096, 128256), 1),
 }
 INT4_PRIMARY = ("w_gate/w_up", 8)   # the kernels line's headline call
-# one decode row; a decode batch; the ragged flat axis; the longest prefill
+# one decode row; a decode batch; the shortest prefill bucket (the block
+# tiling's 64-token instance); the ragged flat axis; the longest prefill
 # bucket
-INT4_ROWS = (1, 8, 312, 2048)
+INT4_ROWS = (1, 8, 64, 312, 2048)
 
 
 def int4_rows(name, rows=INT4_ROWS):
@@ -626,7 +629,7 @@ def library_int4(x, qs):
 
 def phase_int4_kernel(gen) -> dict:
     """Kernel vs the plain version computed in f32 on the same bf16 inputs
-    at every projection shape and both row counts; then times at each:
+    at every projection shape and each of INT4_ROWS; then times at each:
     the kernel, the plain version as the card would run it (bf16 dequant,
     then torch.matmul), a bf16 torch.matmul on the dequantized weight and
     the library's int4 product, rotating through copies of the weights that
@@ -727,7 +730,21 @@ def phase_int4_kernel(gen) -> dict:
         "{bf16_ms:.4f} ms, plain {plain_ms:.4f} ms".format(
             lib="{:.4f}".format(step["library_ms"]) if step["library_ms"] is not None
             else "null", share=100 * step["bound_ms"] / step["ms"], **step))
-    return dict(err=err, timings=timings, decode_step=step)
+    # the 224 projection calls of one ragged step on the 312-token flat axis
+    # (its lm_head runs on the rows' last tokens only)
+    projections = [(name, calls) for name, (_shape, calls) in INT4_SHAPES.items()
+                   if name != "lm_head"]
+    ragged = {key: sum(timings[(name, 312)][key] * calls for name, calls in projections)
+              for key in ("ms", "eager_ms", "plain_ms", "bf16_ms", "bound_ms")}
+    libs = [timings[(name, 312)]["library_ms"] for name, _calls in projections]
+    ragged["library_ms"] = (sum(t * calls for t, (_n, calls) in zip(libs, projections))
+                            if all(t is not None for t in libs) else None)
+    log("  one ragged step's 224 projection calls at M=312: kernel {ms:.4f} ms (eager "
+        "{eager_ms:.4f}; {share:.1f}% of bound), bound {bound_ms:.4f} ms, library {lib} ms, "
+        "bf16 matmul {bf16_ms:.4f} ms, plain {plain_ms:.4f} ms".format(
+            lib="{:.4f}".format(ragged["library_ms"]) if ragged["library_ms"] is not None
+            else "null", share=100 * ragged["bound_ms"] / ragged["ms"], **ragged))
+    return dict(err=err, timings=timings, decode_step=step, ragged_step=ragged)
 
 
 # -- phase 4: small model on the card vs float32 on the CPU ----------------------
@@ -1521,6 +1538,7 @@ def phase_spec_main_path(params, arm: str, kv_quant: str, knobs: dict,
     engine, the decode kernel once per layer per decode and chained window
     step."""
     engine, tokenizer = _engine(params, kv_quant, preset, **knobs)
+    streams = record_streams(engine)
     results, wall, c = asyncio.run(serve_ragged(
         engine, tokenizer, max_tokens=SPEC_MAX_TOKENS, prompts=SPEC_PROMPTS,
         samplings=SPEC_SAMPLINGS))
@@ -1543,6 +1561,9 @@ def phase_spec_main_path(params, arm: str, kv_quant: str, knobs: dict,
         spec_acceptance=ragged["spec_acceptance"], spec_tree_depth=ragged["spec_tree_depth"],
         spec_proposer=ragged["spec_proposer"],
         contents=[r["content"] for r in results],
+        # each chat's (prompt ids, generated ids), from its last request
+        token_ids=[next((p, ids) for p, ids in streams.items()
+                        if prompt in tokenizer.decode(p)) for prompt in SPEC_PROMPTS],
     )
     log("  {arm} kv={kv}: wall {wall_s:.3f} s, {tokens} tokens, {tok_s:.1f} tok/s; ragged "
         "steps {ragged_steps} ({ragged_step_ms:.2f} ms each; {verify_steps} with verify "
@@ -1572,11 +1593,47 @@ def phase_spec_main_path(params, arm: str, kv_quant: str, knobs: dict,
     return out
 
 
-def compare_spec_streams(spec_runs) -> None:
+def record_streams(engine) -> dict:
+    """Wraps ``engine.generate`` so that every request's generated token ids
+    are kept, by prompt ids (a later request with the same prompt replaces
+    an earlier one: the timed run replaces the warm-up)."""
+    streams = {}
+    generate = engine.generate
+
+    async def recording(request):
+        ids = streams[tuple(request.prompt_ids)] = []
+        async for token in generate(request):
+            ids.append(token)
+            yield token
+
+    engine.generate = recording
+    return streams
+
+
+def logit_margins(model, prompt_ids, ids, step, other):
+    """At generated position ``step`` of a greedy stream: the top logit, the
+    top-2 margin of the model's logits and the logit of ``ids[step]`` less
+    that of ``other`` (the token another arm took there), from one bf16
+    prefill of the prompt and the stream's first ``step`` tokens (the
+    logits are bf16 values: distinct ones near a top logit in [2**e,
+    2**(e+1)) lie at least 2**(e-7) apart)."""
+    seq = list(prompt_ids) + list(ids[:step])
+    tokens = torch.tensor([seq], dtype=torch.long, device=model.device)
+    logits, _cache = model.prefill(tokens, torch.tensor([len(seq)]))
+    logits = logits[0]
+    top = torch.topk(logits, 2).values
+    return dict(top1=float(top[0]), top2_margin=float(top[0] - top[1]),
+                taken_minus_other=float(logits[ids[step]] - logits[other]),
+                taken_is_argmax=int(logits.argmax()) == ids[step])
+
+
+def compare_spec_streams(spec_runs, model=None) -> None:
     """Each speculative arm's greedy contents against the plain ragged arm's
     on the same KV (bf16 cuBLAS at other row counts may flip a near tie at
     full width: reported, not asserted), and the tree arm's against the
-    chain arm's."""
+    chain arm's. With ``model``, at the first generated token where an arm
+    leaves the plain arm's greedy stream, logs the top-2 logit margin of
+    that step (``logit_margins`` on the plain arm's prefix)."""
     greedy = [i for i, sampling in enumerate(SPEC_SAMPLINGS) if sampling is None]
     for run in spec_runs:
         if run["arm"] == "plain":
@@ -1584,6 +1641,22 @@ def compare_spec_streams(spec_runs) -> None:
         plain_run = next(r for r in spec_runs if r["arm"] == "plain" and r["kv"] == run["kv"])
         run["greedy_vs_plain"] = [first_difference(run["contents"][i], plain_run["contents"][i])
                                   for i in greedy]
+        run["greedy_margins"] = []
+        for i in greedy:
+            prompt_ids, ids = plain_run["token_ids"][i]
+            _prompt, spec_ids = run["token_ids"][i]
+            step = next((j for j, (a, b) in enumerate(zip(ids, spec_ids)) if a != b), None)
+            if step is None or model is None:
+                continue
+            margins = dict(chat=i, token=step, plain=ids[step], spec=spec_ids[step],
+                           **logit_margins(model, prompt_ids, ids, step, spec_ids[step]))
+            run["greedy_margins"].append(margins)
+            log("  {} kv={} chat {}: first differing token {} (plain {} vs {} {}): top logit "
+                "{:.4g}, top-2 margin {:.4g}, logit(plain) - logit({}) {:.4g}, plain's token "
+                "is the argmax: {}".format(
+                    run["arm"], run["kv"], i, step, ids[step], run["arm"], spec_ids[step],
+                    margins["top1"], margins["top2_margin"], run["arm"],
+                    margins["taken_minus_other"], margins["taken_is_argmax"]))
         chain_run = next((r for r in spec_runs if r["arm"] == "chain" and r["kv"] == run["kv"]),
                          None)
         if run["arm"] == "tree" and chain_run is not None:
@@ -1601,7 +1674,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from clearml_serving_tpu_torch.models.llama import init_params
+    from clearml_serving_tpu_torch.models.llama import Llama, init_params
     from clearml_serving_tpu_torch.ops import _build
     from clearml_serving_tpu_torch.ops.quant import quantize_llama_params
 
@@ -1674,9 +1747,10 @@ def main() -> int:
     log("phase 5d: speculative verify rows, llama3-8b full width, scheduler ragged, "
         "step_token_budget 256, speculation ngram, spec_k 4")
     spec_runs = [phase_spec_main_path(params, arm, kv, knobs) for arm, kv, knobs in SPEC_ARMS]
-    compare_spec_streams(spec_runs)
+    compare_spec_streams(spec_runs, Llama({"preset": "llama3-8b"}, params))
     for run in spec_runs:
         run["contents"] = [text[:24] for text in run["contents"]]
+        del run["token_ids"]
     log("phase 6: where the time goes")
     prof = phase_profile(params)
     ragged_prof = phase_profile(params, "ragged")
@@ -1776,6 +1850,8 @@ def main() -> int:
                        "library_error", "bf16_ms")},
         # the 225 calls of one decode step at M = 8, summed from the shapes' times
         "decode_step": int4k["decode_step"],
+        # the block tiling: one ragged step's 224 projection calls at M = 312
+        "ragged_step": int4k["ragged_step"],
         "per_shape": [dict(shape=name, m=m, **row)
                       for (name, m), row in int4k["timings"].items()],
     }]}

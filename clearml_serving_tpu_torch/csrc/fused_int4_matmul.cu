@@ -15,55 +15,71 @@
 // multiplied AFTER the dot by that group's per-column scale, summed in f32:
 // out = sum_g scale[g, :] * (x[:, group g] @ level[group g, :]).
 //
-// What bounds it on this card: decode calls (M <= 8) read every packed byte
-// once for 2*M operations each, so they are bound by bytes (3.35 TB/s);
-// K/2*N packed bytes are a quarter of the bf16 weight. At M = 312 (the
-// ragged flat axis) a Llama-3-8B w_gate call is ~36.6 GFLOP against ~30 MB
-// and the tensor cores bound it (989 TFLOP/s bf16).
+// What bounds it on this card: a call reads K/2*N packed bytes (a quarter
+// of the bf16 weight) and does 2*M*K*N operations, 4M per packed byte. The
+// tensor cores bind above ~295 operations per byte (989 TFLOP/s bf16
+// against 3.35 TB/s): decode rows and block calls up to M ~ 64 are bound
+// by bytes; the ragged flat axis (M = 312) and prefills by operations (a
+// Llama-3-8B w_gate call at M = 312: 36.6 GFLOP, at least 0.037 ms).
 //
 // Common to both tilings:
-// - mma.sync m16n8k16, bf16 in, f32 sums. A tensor-core fragment gives each
-//   lane K rows (2t, 2t+1) of one weight column, which is exactly one packed
-//   byte. Packed bytes are read from shared memory four or eight at a time
-//   and become bf16 pairs with a byte permute, a mask and one subtraction:
-//   the nibbles land in the mantissas of 128.0 (0x4300 | nibble = 128 +
-//   nibble), minus 136 gives the level, exactly. Which output column each
-//   register slot serves is chosen so that a lane's bytes are contiguous.
-//   The TPU kernel's even/odd split of x is a Mosaic workaround and is not
-//   carried over.
-// - K is walked in stages through a ring of shared-memory buffers filled
-//   with cp.async, several stages in flight (the counterpart of the TPU
-//   kernel's two-slot DMA plan, which double-buffers one group's packed
-//   rows): the stage's packed tile, its x tile and the scale rows of the
-//   groups it touches. Rows past K or M and columns past N are zero-filled,
-//   never read.
-// - A warp's partial sum of the running group is folded into its total,
-//   times the scale of each output column, when its next k-step lies in
-//   another group, so any group size that is a multiple of 16 works (the
-//   one-group fallback of K % 128 != 0 included).
+// - out^T = W^T x^T: the dequantized weight is the tensor cores' A operand,
+//   held in registers, and x the B operand. A lane's A fragment (the
+//   m16n8k16 layout, which a wgmma register A keeps per warp) holds K rows
+//   (2t, 2t+1) of one weight column: exactly one packed byte. It becomes a
+//   bf16 pair with a byte permute, a mask and one subtraction: the nibbles
+//   land in the mantissas of 128.0 (0x4300 | nibble = 128 + nibble), minus
+//   136 gives the level, exactly. No dequantized weight goes through
+//   memory. Which output column each accumulator row serves is chosen so
+//   that a lane's bytes of a packed row are contiguous. The TPU kernel's
+//   even/odd split of x is a Mosaic workaround and is not carried over.
+// - The TPU kernel's algebra: a group's f32 partial sum is folded into the
+//   total times the group's per-column scales after the dot, so any group
+//   size that is a multiple of 16 works (the one-group fallback of K % 128
+//   != 0 included).
+// - K is split across CTAs until the CTAs fill one wave of the card; each
+//   split stores its f32 partial [M, N] into a workspace the wrapper
+//   allocates, and w4a16_split_sum adds the splits in split order and
+//   writes bf16: no atomics, so the same inputs give the same bits on
+//   every call. Calls whose tiles alone fill the card take one split and
+//   store bf16 directly. The kernels launch as programmatic dependents
+//   (launch_dependent), so a launch overlaps the previous kernel's tail
+//   without reordering any memory access.
 //
-// Decode tiling (M <= 16): the weight is the A operand and x the B operand
-// (out^T = W^T x^T), so a 16-row weight tile meets the n8 x tile and no
-// tensor-core row is spent on padding when M <= 8 (two n8 blocks for 9-16
-// rows). At these rows the product does 4M operations per packed byte, far
-// below the ~295 per byte where the tensor cores would bind: only bytes and
-// their latency count. A CTA owns 128 columns (two column warps of 64), so
-// each packed row is read as 128 contiguous bytes, and its other warps
-// split each stage's K. K is split across CTAs (grid y) until the card holds one
-// full wave of CTAs (decode_plan): narrow N (wk/wv: 8 column tiles) still
-// fills every SM. Each split stores its f32 partial [M, N] into a
-// workspace the wrapper allocates, and a second kernel adds the splits in
-// split order and writes bf16: no atomics, so the same inputs give the
-// same bits on every call. Calls whose columns alone fill the card (the
-// lm_head) take one split and store bf16 directly. Both kernels launch as
-// programmatic dependents (launch_dependent), so a launch overlaps the
-// previous kernel's tail without reordering any memory access.
-// Larger M (prefill buckets, the ragged flat axis) takes 64-row blocks with
-// 2x2 warps of 32x32, x as the A operand.
+// Decode tiling (M <= 16): mma.sync m16n8k16, so a 16-row weight tile
+// meets the n8 x tile and no tensor-core row is spent on padding when M <=
+// 8 (two n8 blocks for 9-16 rows). At these rows only bytes and their
+// latency count. A CTA owns 128 columns (two column warps of 64), so each
+// packed row is read as 128 contiguous bytes, and its other warps split
+// each stage's K; packed rows and x stream through a ring of shared-memory
+// stages filled with cp.async (zero-filled past K, M and N). K is split
+// across CTAs (grid y, decode_plan): narrow N (wk/wv: 8 column tiles)
+// still fills every SM.
 //
-// Known limits, left to later work: no TMA, no wgmma; the block tiling
-// reaches ~15% of its bound at M = 312 and 2048.
+// Block tiling (M > 16; the ragged flat axis, prefill buckets, verify
+// rows): wgmma fed by TMA. A CTA owns 128 columns and BN tokens (32, 64 or
+// 160; one tile holds all rows up to 64, so each packed byte is read once
+// per call). Two consumer warpgroups each run m64nBNk16 wgmma on 64 of the
+// columns, the weight from registers and x from shared memory; one
+// producer warp keeps an 8-stage ring filled by TMA behind full and empty
+// mbarriers (x: BN tokens by 64 K rows; packed: 32 rows of 128 bytes; both
+// with the 128-byte swizzle that wgmma's descriptor reads), and TMA's zero
+// fill covers rows past M and K and columns past N. k-steps go to the
+// tensor cores in pairs behind one fence, so a pair's products run while
+// the next pair is dequantized. The group fold waits for the group's
+// products; the other warpgroup's products fill that gap. K is split
+// across grid z as above (block_plan).
+//
+// Known limits, left to later work: the block tiling stays under half of
+// its operations bound at M = 312 and 2048 (PERF.md). Bytes and L2 do not
+// hold it: timed on the card, the loop barely gained when the TMA copies
+// after the first ring were left out, but ran much faster with constant A
+// fragments, and as slowly when the same dequantization instructions ran
+// in the idle producer warps instead: those instructions slow the tensor
+// cores wherever they run. Fewer of them per weight need another packed
+// layout.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,16 +105,6 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ void zero16(void* smem) {
   *reinterpret_cast<uint4*>(smem) = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// Four 8x8 b16 matrices from shared memory; lane i names row i % 8 of
-// matrix i / 8; lane t receives row t / 4, columns 2 * (t % 4) and +1 of
-// each matrix.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
 }
 
 // c += a * b on one m16n8k16 tile: a [16 x 16] bf16 row-major fragment,
@@ -444,9 +450,9 @@ __global__ void __launch_bounds__(kSumThreads)
       make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
 }
 
-// The split of K for a decode call. The card is filled when every SM holds
-// as many CTAs as fit at once: `resident` CTAs. Column tiles alone give n /
-// 128 CTAs (8 for wk/wv, 32 for wq/wo and w_down, 112 for
+// The split of K for a call. The card is filled when every SM holds as
+// many CTAs as fit at once: `resident` CTAs. A decode call's column tiles
+// alone give n / 128 CTAs (8 for wk/wv, 32 for wq/wo and w_down, 112 for
 // w_gate/w_up, 1002 for the lm_head), so K is split into as many shares as
 // fit in one such wave, never more: a second, partial wave would leave most
 // SMs idle while it runs. A share keeps at least one stage of K. Shares
@@ -455,27 +461,28 @@ __global__ void __launch_bounds__(kSumThreads)
 // is linear, so a group may straddle two shares. At most kMaxSplits shares:
 // w4a16_split_sum then keeps every share's load in flight at once, and
 // each further share adds partial sums to write and read.
-struct DecPlan {
+struct SplitPlan {
   int splits;
   int unit;
 };
 
-DecPlan decode_plan(int k, int n, int group, int resident) {
-  const int tiles = (n + kDecBN - 1) / kDecBN;
+// The split of K over `tiles` CTA tiles, each share at least `min_rows`
+// rows of K.
+SplitPlan split_plan(int tiles, int k, int group, int min_rows, int resident) {
   int splits = std::min(std::max(1, resident / tiles), kMaxSplits);
-  splits = std::min(splits, std::max(1, k / kDecKC));
+  splits = std::min(splits, std::max(1, k / min_rows));
   const int unit = k / group >= splits ? group : 16;
   return {std::min(splits, k / unit), unit};
 }
 
-// CTAs of w4a16_decode_kernel<MB> resident on the current device at once;
-// opts the kernel into its shared memory first. Cached per device.
-template <int MB>
-cudaError_t decode_resident(int* resident) {
+// CTAs of `kernel` resident on the current device at once, with `threads`
+// threads and `smem` bytes of shared memory each; opts the kernel into its
+// shared memory first. Cached per device.
+template <auto kernel>
+cudaError_t resident_ctas(int threads, int smem, int* resident) {
   static bool opted_in[kMaxDevices] = {};
   static int cached[kMaxDevices] = {};
-  auto kernel = w4a16_decode_kernel<MB>;
-  cudaError_t err = opt_in(kernel, DecTiling<MB>::kSmem, opted_in);
+  cudaError_t err = opt_in(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
   int dev = 0;
   err = cudaGetDevice(&dev);
@@ -484,13 +491,23 @@ cudaError_t decode_resident(int* resident) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDecThreads,
-                                                        DecTiling<MB>::kSmem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err != cudaSuccess) return err;
     cached[dev] = sms * std::max(1, per_sm);
   }
   *resident = cached[dev];
   return cudaSuccess;
+}
+
+template <int MB>
+cudaError_t decode_plan(int k, int n, int group, SplitPlan* plan) {
+  int resident = 0;
+  const cudaError_t err =
+      resident_ctas<w4a16_decode_kernel<MB>>(kDecThreads, DecTiling<MB>::kSmem, &resident);
+  if (err == cudaSuccess) {
+    *plan = split_plan((n + kDecBN - 1) / kDecBN, k, group, kDecKC, resident);
+  }
+  return err;
 }
 
 // Launches `kernel` as a programmatic dependent of the stream's previous
@@ -516,250 +533,544 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, int threads, 
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-template <int MB>
-cudaError_t decode_workspace(int m, int k, int n, int group, long long* bytes) {
-  int resident = 0;
-  cudaError_t err = decode_resident<MB>(&resident);
-  if (err != cudaSuccess) return err;
-  const DecPlan plan = decode_plan(k, n, group, resident);
-  *bytes = plan.splits > 1 ? 4LL * plan.splits * m * n : 0;
+// The f32 partial sums of a call split plan.splits ways: null for one
+// split, else the workspace, which must hold them.
+cudaError_t split_partials(SplitPlan plan, int m, int n, void* workspace,
+                           long long workspace_bytes, float** partial) {
+  *partial = nullptr;
+  if (plan.splits == 1) return cudaSuccess;
+  if (workspace == nullptr || workspace_bytes < 4LL * plan.splits * m * n) {
+    return cudaErrorInvalidValue;
+  }
+  *partial = static_cast<float*>(workspace);
   return cudaSuccess;
+}
+
+// out = the sum of the splits' partials (nothing to do for one split).
+cudaError_t sum_splits(const float* partial, void* out, int m, int n, int splits,
+                       cudaStream_t stream) {
+  if (partial == nullptr) return cudaSuccess;
+  return launch_dependent(w4a16_split_sum, dim3((m * n / 4 + kSumThreads - 1) / kSumThreads),
+                          kSumThreads, 0, stream, partial, static_cast<__nv_bfloat16*>(out),
+                          m * n, splits);
 }
 
 template <int MB>
 cudaError_t launch_decode(const void* x, const void* packed, const void* scale, void* out,
                           void* workspace, long long workspace_bytes, int m, int k, int n,
                           int group, cudaStream_t stream) {
-  int resident = 0;
-  cudaError_t err = decode_resident<MB>(&resident);
-  if (err != cudaSuccess) return err;
-  const DecPlan plan = decode_plan(k, n, group, resident);
+  SplitPlan plan;
+  cudaError_t err = decode_plan<MB>(k, n, group, &plan);
   float* partial = nullptr;
-  if (plan.splits > 1) {
-    if (workspace == nullptr || workspace_bytes < 4LL * plan.splits * m * n) {
-      return cudaErrorInvalidValue;
-    }
-    partial = static_cast<float*>(workspace);
-  }
+  if (err == cudaSuccess) err = split_partials(plan, m, n, workspace, workspace_bytes, &partial);
+  if (err != cudaSuccess) return err;
   err = launch_dependent(w4a16_decode_kernel<MB>,
                          dim3((n + kDecBN - 1) / kDecBN, plan.splits), kDecThreads,
                          DecTiling<MB>::kSmem, stream, static_cast<const __nv_bfloat16*>(x),
                          static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
                          static_cast<__nv_bfloat16*>(out), partial, m, k, n, group, plan.unit);
-  if (err != cudaSuccess || partial == nullptr) return err;
-  return launch_dependent(w4a16_split_sum, dim3((m * n / 4 + kSumThreads - 1) / kSumThreads),
-                          kSumThreads, 0, stream, static_cast<const float*>(partial),
-                          static_cast<__nv_bfloat16*>(out), m * n, plan.splits);
+  if (err != cudaSuccess) return err;
+  return sum_splits(partial, out, m, n, plan.splits, stream);
 }
 
-// ---- block tiling: M > 16 -------------------------------------------------------
+// ---- block tiling: M > 16, wgmma fed by TMA ---------------------------------------
 
-constexpr int kKC = 128;            // K rows per pipeline stage
-constexpr int kPR = kKC / 2;        // packed rows per stage
-constexpr int kKSteps = kKC / 16;   // tensor-core k-steps per stage
-constexpr int kBN = 64;             // output columns per CTA
-constexpr int kThreads = 128;       // 2 x 2 warps
-constexpr int kBM = 64;             // rows per CTA
-constexpr int kMT = 2;              // 16-row m-tiles per warp
-constexpr int kNT = 4;              // 8-column n-tiles per warp
-constexpr int kMaxScaleRows = kKC / 16;  // groups (>= 16 rows) ending in one stage
-constexpr int kXStride = kKC + 8;   // bf16 per staged x row: ldmatrix rows shift 4 banks
-constexpr int kWStride = kBN + 32;  // bytes per staged packed row: conflict-free word reads
-constexpr int kXBytes = kBM * kXStride * 2;
-constexpr int kWBytes = kPR * kWStride;
-constexpr int kSBytes = kMaxScaleRows * kBN * 4;
-constexpr int kStageBytes = kXBytes + kWBytes + kSBytes;
-static_assert(kStageBytes % 16 == 0, "stages must stay 16-byte aligned");
+// A CTA owns kBlkCols = 128 output columns and BN tokens. Consumer
+// warpgroup wg takes columns 64 wg .. + 63 as one m64 wgmma tile (the
+// dequantized weight is A, from registers) against all BN tokens (x is B,
+// from shared memory, shared by both); one producer warp keeps TMA loads in
+// flight.
+constexpr int kBlkCols = 128;                  // output columns (= bytes of a packed row) per CTA
+constexpr int kBlkKC = 64;                     // K rows per stage: one 128-byte x row
+constexpr int kBlkPR = kBlkKC / 2;             // packed rows per stage
+constexpr int kBlkWBytes = kBlkPR * kBlkCols;  // the packed tile of a stage: one box, 4 KB
+constexpr int kBlkConsumers = kBlkCols / 64;            // consumer warpgroups, 64 columns each
+constexpr int kBlkThreads = 128 * (kBlkConsumers + 1);  // and the producer warpgroup
+// registers a thread after setmaxnreg: the producer gives its share to the
+// consumers (128 * 40 + 256 * 232 <= 65536)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 
-// Warp (wm, wn) owns rows 32 wm .. +31 and columns 32 wn .. +31 of the CTA;
-// lane (g, t)'s B operand in n-tile nt is column 32 wn + 4 g + nt, so its
-// accumulators hold columns 32 wn + 8 t + (0 .. 7).
-template <int STAGES>
-__global__ void __launch_bounds__(kThreads)
-    w4a16_block_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
-                       const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int m,
-                       int k, int n, int group) {
-  extern __shared__ __align__(16) unsigned char smem[];
+template <int BN>
+struct BlkTiling {
+  static constexpr int kAcc = BN / 2;           // f32 per thread of the m64 x BN tile
+  static constexpr int kXBytes = BN * 128;      // the x tile of a stage: BN rows of 128 B
+  static constexpr int kStageBytes = kXBytes + kBlkWBytes;
+  static constexpr int kStages = 8;
+  // the ring, its full and empty barriers, and slack to align the ring to
+  // the 1024-byte period of the 128-byte swizzle
+  static constexpr int kSmem = kStages * kStageBytes + 16 * kStages + 1024;
+  static_assert(kXBytes % 1024 == 0, "stages must keep the swizzle's 1024-byte alignment");
+};
+
+// Two packed bytes (the low 16 bits of w) -> two bf16 pairs, as int4_quad
+// does for four, with the nibble mask and the exponent of 128.0 applied by
+// one lop3 (0x43004300 kept in a register).
+__device__ __forceinline__ void int4_pair(uint32_t w, uint32_t* r) {
+  const uint32_t w4 = w >> 4;
+  const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
+  uint32_t exp128;
+  asm("mov.b32 %0, 0x43004300;\n" : "=r"(exp128));
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    uint32_t t;
+    asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n"  // (a & b) | c
+        : "=r"(t)
+        : "r"(__byte_perm(w, w4, 0x4400u + 0x1111u * j)), "n"(0x000F000F), "r"(exp128));
+    __nv_bfloat162 v = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&t), off);
+    r[j] = *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed (a
+// fresh barrier counts its phase of parity 1 as complete). The loop stays
+// inside the asm block (its labels are local to the block).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Arrive on the barrier from the threads with `arrive` set: a predicate,
+// not a branch, so the consumers' wgmma path has no divergent code.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool arrive) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(static_cast<int>(arrive))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// One 2-D TMA box into shared memory; completion counts on `bar`. Rows and
+// columns outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Descriptor of a K-major B operand in shared memory with the 128-byte
+// swizzle (as TMA writes it): rows of 128 bytes, 8-row atoms 1024 bytes
+// apart. A k-step of 16 bf16 moves the start address by 32 bytes (+2).
+__device__ __forceinline__ uint64_t b_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// Byte `col` of row `row` of a TMA box with the 128-byte swizzle: 16-byte
+// chunk c of row r lies at chunk c ^ (r % 8) (the box is 1024-byte aligned).
+__device__ __forceinline__ int swz128(int row, int col) {
+  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
+}
+
+// d (+)= A [64 x 16] bf16 from registers (m16n8k16's A layout per warp) *
+// B [16 x N] bf16 in shared memory (desc); scale_d = 0 overwrites d.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t* a, uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t* a, uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<160> {
+  static __device__ __forceinline__ void mma(float (&d)[80], const uint32_t* a, uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79"
+        "}, {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+// One CTA: kBlkCols columns (blockIdx.y) by BN tokens (blockIdx.x) over split
+// blockIdx.z of K, in shares of `unit` rows as the decode kernel's. With
+// `partial` null (one split) it stores bf16 into `out`; else its f32 sum
+// into partial[split] for w4a16_split_sum.
+//
+// Warpgroup wg's warp w, lane (g, t): A rows 16 w + g and 16 w + g + 8
+// serve columns cb and cb + 1, with cb = 64 wg + 16 w + 2 g, so the lane's
+// bytes of a packed row are one aligned 16-bit word; a warp's reads of
+// packed rows t = 0..3 fall in four different swizzled chunks, no bank
+// twice. Its accumulators hold tokens 8 j + 2 t and + 1.
+template <int BN>
+__global__ void __launch_bounds__(kBlkThreads, 1)
+    w4a16_block_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap, const float* __restrict__ scale,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ partial, int m, int k,
+                       int n, int group, int unit) {
+  using Tl = BlkTiling<BN>;
+  constexpr int kS = Tl::kStages;
+  constexpr int kAcc = Tl::kAcc;
+  constexpr int kSteps = kBlkKC / 16;  // k-steps per stage
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const unsigned char* smem = smem_raw + (ring - raw);
+  const uint32_t full0 = ring + kS * Tl::kStageBytes;  // full[s] at full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * kS;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
+  // the warp index through a shuffle, so the compiler knows it is uniform
+  // across the warp and the role branch below is not divergent for wgmma
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int m0 = blockIdx.x * BN;
+  const int n0 = blockIdx.y * kBlkCols;
+  const int split = blockIdx.z;
+  const int splits = gridDim.z;
+  const int units = k / unit;
+  const int kb = split * units / splits * unit;  // this split's K rows: [kb, ke)
+  const int ke = (split + 1) * units / splits * unit;
+  const int steps = (ke - kb) / 16;
+  const int n_chunks = (steps + kSteps - 1) / kSteps;
+
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full0 + 8 * s, 1);                   // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, 4 * kBlkConsumers);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // launched as a programmatic dependent (launch_dependent): wait for the
+  // stream's previous kernel before touching global memory
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  if (warp >= 4 * kBlkConsumers) {
+    // producer: stage c holds x[m0 .. m0 + BN, kc0 .. kc0 + 64] and the
+    // 32 packed rows from kc0 / 2 of the CTA's columns
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 4 * kBlkConsumers && lane == 0) {
+      for (int c = 0; c < n_chunks; ++c) {
+        const int s = c % kS;
+        mbar_wait(empty0 + 8 * s, ((c / kS) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, Tl::kStageBytes);
+        const uint32_t dst = ring + s * Tl::kStageBytes;
+        const int kc0 = kb + c * kBlkKC;
+        tma_load_2d(dst, &xmap, full0 + 8 * s, kc0, m0);
+        tma_load_2d(dst + Tl::kXBytes, &wmap, full0 + 8 * s, n0, kc0 / 2);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = warp >> 2;
+  const int w = warp & 3;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int k2 = k >> 1;
-  const int n_chunks = (k + kKC - 1) / kKC;
+  const int cb = 64 * wg + 16 * w + 2 * gid;  // the lane's two columns (and packed bytes)
+  const bool col_ok = n0 + cb < n;             // both or neither (N % 16 == 0)
 
-  auto x_s = [&](int buf) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + buf * kStageBytes);
+  float part[kAcc];  // the running group's sum, unscaled (written by wgmma)
+  float acc[kAcc];   // the scaled total
+#pragma unroll
+  for (int e = 0; e < kAcc; ++e) part[e] = acc[e] = 0.f;
+  // the lane's scale row, clamped into the tensor for lanes past N (whose
+  // sums are never stored), so every lane loads without a branch
+  const float* scol = scale + min(n0 + cb, n - 2);
+  // K rows 2t, 2t+1 (packed row t) and 2t+8, 2t+9 (row t + 4) of the
+  // lane's two columns, k-step h of stage buffer `ws`: A rows g (column
+  // cb) and g + 8 (cb + 1)
+  auto dequant = [&](const unsigned char* ws, int h, uint32_t* a) {
+    int4_pair(*reinterpret_cast<const uint16_t*>(ws + swz128(8 * h + tig, cb)), a);
+    int4_pair(*reinterpret_cast<const uint16_t*>(ws + swz128(8 * h + tig + 4, cb)), a + 2);
   };
-  auto w_s = [&](int buf) { return smem + buf * kStageBytes + kXBytes; };
-  auto s_s = [&](int buf) {
-    return reinterpret_cast<float*>(smem + buf * kStageBytes + kXBytes + kWBytes);
-  };
+  int g_cur = kb / group;         // the running group
+  int left = group - kb % group;  // its K rows from the next k-step on
+  float2 sv = make_float2(0.f, 0.f);  // its scales, columns cb and cb + 1
+  bool pending = false;               // part holds rows not folded yet
+  bool paired = false;  // the previous k-step's fragments were made with this one's
 
-  auto load_stage = [&](int c, int buf) {
-    const int kc0 = c * kKC;
-    __nv_bfloat16* xs = x_s(buf);
-    for (int i = tid; i < kBM * (kKC / 8); i += kThreads) {
-      const int r = i / (kKC / 8);
-      const int col = kc0 + (i % (kKC / 8)) * 8;
-      if (m0 + r < m && col < k) {
-        cp_async16(xs + r * kXStride + (col - kc0), x + static_cast<size_t>(m0 + r) * k + col);
-      } else {
-        zero16(xs + r * kXStride + (col - kc0));
-      }
-    }
-    unsigned char* ws = w_s(buf);
-    for (int i = tid; i < kPR * (kBN / 16); i += kThreads) {
-      const int r = i / (kBN / 16);
-      const int ch = i % (kBN / 16);
-      if (kc0 / 2 + r < k2 && n0 + ch * 16 < n) {
-        cp_async16(ws + r * kWStride + ch * 16,
-                   packed + static_cast<size_t>(kc0 / 2 + r) * n + n0 + ch * 16);
-      } else {
-        zero16(ws + r * kWStride + ch * 16);
-      }
-    }
-    // the scale rows of the groups whose last row lies in this stage
-    const int g_lo = kc0 / group;
-    const int g_hi = min(kc0 + kKC, k) / group;
-    float* ss = s_s(buf);
-    for (int i = tid; i < (g_hi - g_lo) * (kBN / 4); i += kThreads) {
-      const int r = i / (kBN / 4);
-      const int ch = i % (kBN / 4);
-      if (n0 + ch * 4 < n) {
-        cp_async16(ss + r * kBN + ch * 4, scale + static_cast<size_t>(g_lo + r) * n + n0 + ch * 4);
-      } else {
-        zero16(ss + r * kBN + ch * 4);
-      }
-    }
-  };
-
-  float part[kMT][kNT][4];  // the running group's sum, unscaled
-  float acc[kMT][kNT][4];   // the scaled total
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[mt][nt][e] = acc[mt][nt][e] = 0.f;
-    }
-  }
-  int g_cur = 0;     // the group the partial sum belongs to
-  int left = group;  // its K rows still to come
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_chunks) load_stage(s, s);
-    cp_async_commit();
-  }
-
+  // k-steps go to the tensor cores in pairs behind one fence and one commit
+  // (a pair never spans a group's end): a pair's products run while the
+  // next pair is dequantized into the other half of abuf
+  uint32_t abuf[2][8];
   for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage c has landed; every warp is done with stage c - 1
-    if (c + STAGES - 1 < n_chunks) load_stage(c + STAGES - 1, (c + STAGES - 1) % STAGES);
-    cp_async_commit();  // possibly empty: keeps the wait count uniform
-
-    const int buf = c % STAGES;
-    const __nv_bfloat16* xs = x_s(buf);
-    const unsigned char* ws = w_s(buf);
-    const float* ss = s_s(buf);
-    const int kc0 = c * kKC;
-    const int g_lo = kc0 / group;
-    const int steps = min(kKSteps, (k - kc0) / 16);
+    const int s = c % kS;
+    mbar_wait(full0 + 8 * s, (c / kS) & 1);
+    const unsigned char* ws = smem + s * Tl::kStageBytes + Tl::kXBytes;
+    const uint64_t desc = b_desc(ring + s * Tl::kStageBytes);
 #pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
+    for (int h = 0; h < kSteps; ++h) {
+      const int ks = c * kSteps + h;
       if (ks >= steps) break;
-      uint32_t a[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        ldmatrix_x4(a[mt], xs + ((wm * kMT + mt) * 16 + (lane & 15)) * kXStride + ks * 16 +
-                               (lane >> 4) * 8);
+      uint32_t* a = abuf[h / 2] + 4 * (h & 1);
+      if (!pending) {
+        sv = __ldg(reinterpret_cast<const float2*>(scol + static_cast<size_t>(g_cur) * n));
       }
-      // four packed bytes per row: n-tiles 0..3 of this lane's column
-      const unsigned char* wr = ws + (ks * 8 + tig) * kWStride + 32 * wn + 4 * gid;
-      uint32_t b0[kNT], b1[kNT];
-      int4_quad(*reinterpret_cast<const uint32_t*>(wr), b0);                 // K rows 2t, 2t+1
-      int4_quad(*reinterpret_cast<const uint32_t*>(wr + 4 * kWStride), b1);  // 2t+8, 2t+9
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) mma_bf16(part[mt][nt], a[mt], b0[nt], b1[nt]);
-      }
-      left -= 16;
-      if (left == 0) {  // the group ends here: fold it in, times its scales
-        const float* srow = ss + (g_cur - g_lo) * kBN + 32 * wn + 8 * tig;
-        const float4 s_a = *reinterpret_cast<const float4*>(srow);      // columns 8t + nt
-        const float4 s_b = *reinterpret_cast<const float4*>(srow + 4);  // 8t + 4 + nt
-        const float sa[kNT] = {s_a.x, s_a.y, s_a.z, s_a.w};
-        const float sb[kNT] = {s_b.x, s_b.y, s_b.z, s_b.w};
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            acc[mt][nt][0] += part[mt][nt][0] * sa[nt];
-            acc[mt][nt][1] += part[mt][nt][1] * sb[nt];
-            acc[mt][nt][2] += part[mt][nt][2] * sa[nt];
-            acc[mt][nt][3] += part[mt][nt][3] * sb[nt];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
-          }
+      bool commit = true;
+      if (!paired) {
+        dequant(ws, h, a);
+        // an even k-step takes the next one along when both lie in this
+        // group and this share
+        if ((h & 1) == 0 && ks + 1 < steps && left > 16) {
+          dequant(ws, h + 1, a + 4);
+          commit = false;
         }
-        ++g_cur;
-        left = group;
+        wgmma_fence();
       }
+      Wgmma<BN>::mma(part, a, desc + 2 * h, pending);
+      paired = !commit;
+      pending = true;
+      left -= 16;
+      if (commit) {
+        wgmma_commit();
+        if (left == 0 || ks == steps - 1) {
+          // the group (or the share) ends here: fold it in, times its scales
+          wgmma_wait<0>();
+#pragma unroll
+          for (int e = 0; e < kAcc; ++e) acc[e] += part[e] * ((e & 2) ? sv.y : sv.x);
+          pending = false;
+          if (left == 0) {
+            ++g_cur;
+            left = group;
+          }
+        } else {
+          wgmma_wait<1>();  // the previous pair's products are done
+        }
+      }
+      // every product reading the previous stage is done once the first
+      // commit of this stage has waited for what came before: hand it back
+      if (h == 1 && c > 0) mbar_arrive_if(empty0 + 8 * ((c - 1) % kS), lane == 0);
     }
   }
 
-  // each lane holds columns 32 wn + 8 t + (0 .. 7) of two rows per m-tile:
-  // one 16-byte store per row
-  const int col = n0 + 32 * wn + 8 * tig;
-  if (col >= n) return;
+  if (!col_ok) return;
+  // accumulator e of 8-token block j: token 8 j + 2 t + (e & 1), A row
+  // g + 8 (e >> 1): column cb + (e >> 1)
+  float* split_out = partial ? partial + static_cast<size_t>(split) * m * n : nullptr;
+  const int tok0 = m0 + 2 * tig;
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
+  for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + (wm * kMT + mt) * 16 + gid + 8 * half;
-      if (row >= m) continue;
-      uint32_t v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        // columns 8t + 2q and 8t + 2q + 1: n-tiles (2q, 2q + 1) of the
-        // first accumulator column pair below 4, of the second above
-        const int lo_c = 2 * q, hi_c = 2 * q + 1;
-        const float f0 = lo_c < 4 ? acc[mt][lo_c][2 * half] : acc[mt][lo_c - 4][2 * half + 1];
-        const float f1 = hi_c < 4 ? acc[mt][hi_c][2 * half] : acc[mt][hi_c - 4][2 * half + 1];
-        __nv_bfloat162 p = __floats2bfloat162_rn(f0, f1);
-        v[q] = *reinterpret_cast<uint32_t*>(&p);
+    for (int odd = 0; odd < 2; ++odd) {
+      const int tok = tok0 + 8 * j + odd;
+      if (tok >= m) continue;
+      const float v0 = acc[4 * j + odd], v1 = acc[4 * j + 2 + odd];
+      const size_t at = static_cast<size_t>(tok) * n + n0 + cb;
+      if (split_out) {
+        *reinterpret_cast<float2*>(split_out + at) = make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(v0, v1);
       }
-      *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * n + col) =
-          make_uint4(v[0], v[1], v[2], v[3]);
     }
   }
 }
 
-template <int STAGES>
-cudaError_t launch_block(const void* x, const void* packed, const void* scale, void* out, int m,
-                         int k, int n, int group, cudaStream_t stream) {
-  constexpr int smem = STAGES * kStageBytes;
-  auto kernel = w4a16_block_kernel<STAGES>;
-  static bool opted_in[kMaxDevices] = {};
-  cudaError_t err = opt_in(kernel, smem, opted_in);
+// cuTensorMapEncodeTiled from the CUDA driver API, found at run time, so the library
+// needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major [outer, inner] tensor of `row_bytes` per row, read in boxes of
+// [box_outer, box_inner] with the 128-byte swizzle; outside reads give zeros.
+cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                          uint64_t inner, uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
+                          uint32_t box_outer) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The token tile: one tile covers all of M up to 64 rows (those calls are
+// bound by bytes, so each packed byte is read once; up to 32 rows, as the
+// verify lm_head's gathered rows at spec_k 2-3, a 32-token tile takes 1-4%
+// less time on an H100 than a 64-token one), 160 above (the widest the
+// registers hold: a sum and a group's partial sum, 80 f32 each).
+int block_tokens(int m) { return m <= 32 ? 32 : m <= 64 ? 64 : 160; }
+
+// The split of K for a block call, over its CTA tiles of 128 columns by BN
+// tokens (at M = 312, two token tiles: 16 tiles for wk/wv, split 8 ways;
+// 64 for wq/wo and w_down, split 2 ways; 224 for w_gate/w_up, not split),
+// each share at least four stages of K.
+template <int BN>
+cudaError_t block_plan(int m, int k, int n, int group, SplitPlan* plan) {
+  int resident = 0;
+  const cudaError_t err =
+      resident_ctas<w4a16_block_kernel<BN>>(kBlkThreads, BlkTiling<BN>::kSmem, &resident);
+  if (err == cudaSuccess) {
+    // a wave or more of tiles takes one split: clamped there, the count fits an int
+    const long long tiles = 1LL * ((n + kBlkCols - 1) / kBlkCols) * ((m + BN - 1) / BN);
+    *plan = split_plan(static_cast<int>(std::min<long long>(tiles, resident)), k, group,
+                       4 * kBlkKC, resident);
+  }
+  return err;
+}
+
+template <int BN>
+cudaError_t launch_block(const void* x, const void* packed, const void* scale, void* out,
+                         void* workspace, long long workspace_bytes, int m, int k, int n,
+                         int group, cudaStream_t stream) {
+  SplitPlan plan;
+  cudaError_t err = block_plan<BN>(m, k, n, group, &plan);
+  float* partial = nullptr;
+  if (err == cudaSuccess) err = split_partials(plan, m, n, workspace, workspace_bytes, &partial);
+  CUtensorMap xmap, wmap;
+  if (err == cudaSuccess) {
+    err = tensor_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, k, m, 2ull * k, kBlkKC, BN);
+  }
+  if (err == cudaSuccess) {
+    err = tensor_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, n, k / 2, n, kBlkCols,
+                        kBlkPR);
+  }
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), m, k, n, group);
-  return cudaGetLastError();
+  err = launch_dependent(w4a16_block_kernel<BN>,
+                         dim3((m + BN - 1) / BN, (n + kBlkCols - 1) / kBlkCols, plan.splits),
+                         kBlkThreads, BlkTiling<BN>::kSmem, stream, xmap, wmap,
+                         static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
+                         partial, m, k, n, group, plan.unit);
+  if (err != cudaSuccess) return err;
+  return sum_splits(partial, out, m, n, plan.splits, stream);
 }
 
+// The plan of the call (m, k, n, group): the tiling its row count takes.
+cudaError_t call_plan(int m, int k, int n, int group, SplitPlan* plan) {
+  if (m <= 8) return decode_plan<1>(k, n, group, plan);
+  if (m <= 16) return decode_plan<2>(k, n, group, plan);
+  const int bn = block_tokens(m);
+  return bn == 32   ? block_plan<32>(m, k, n, group, plan)
+         : bn == 64 ? block_plan<64>(m, k, n, group, plan)
+                    : block_plan<160>(m, k, n, group, plan);
+}
+
+// The wrapper's gates; a row count past a 32-bit int (KERNEL_MAX_ROWS) cannot
+// reach here. The block tiling puts column tiles on grid y (KERNEL_MAX_COLS).
 bool bad_args(int m, int k, int n, int group) {
   return m < 0 || k <= 0 || n <= 0 || group <= 0 || group % 16 || k % group || n % 16 ||
-         (m + kBM - 1) / kBM > 65535;
+         n > 65535 * kBlkCols;
 }
 
 }  // namespace
@@ -773,9 +1084,10 @@ extern "C" int tpu_torch_fused_int4_workspace(int m, int k, int n, int group,
                                               long long* bytes) {
   *bytes = 0;
   if (bad_args(m, k, n, group)) return static_cast<int>(cudaErrorInvalidValue);
-  if (m == 0 || m > 16) return static_cast<int>(cudaSuccess);
-  const cudaError_t err = m <= 8 ? decode_workspace<1>(m, k, n, group, bytes)
-                                 : decode_workspace<2>(m, k, n, group, bytes);
+  if (m == 0) return static_cast<int>(cudaSuccess);
+  SplitPlan plan;
+  const cudaError_t err = call_plan(m, k, n, group, &plan);
+  if (err == cudaSuccess && plan.splits > 1) *bytes = 4LL * plan.splits * m * n;
   return static_cast<int>(err);
 }
 
@@ -788,15 +1100,12 @@ extern "C" int tpu_torch_fused_int4_matmul(const void* x, const void* packed, co
   if (bad_args(m, k, n, group)) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (m > 16) {
-    err = launch_block<3>(x, packed, scale, out, m, k, n, group, s);
-  } else if (m <= 8) {
-    err = launch_decode<1>(x, packed, scale, out, workspace, workspace_bytes, m, k, n,
-                                  group, s);
-  } else {
-    err = launch_decode<2>(x, packed, scale, out, workspace, workspace_bytes, m, k, n,
-                                  group, s);
-  }
+  const auto launch = m <= 8                    ? launch_decode<1>
+                      : m <= 16                 ? launch_decode<2>
+                      : block_tokens(m) == 32   ? launch_block<32>
+                      : block_tokens(m) == 64   ? launch_block<64>
+                                                : launch_block<160>;
+  const cudaError_t err =
+      launch(x, packed, scale, out, workspace, workspace_bytes, m, k, n, group, s);
   return static_cast<int>(err);
 }

@@ -15,9 +15,11 @@ The wrapper launches the hand-written kernel (``csrc/fused_int4_matmul.cu``)
 for CUDA tensors and computes the plain version for CPU tensors. On CUDA it
 launches the kernel at any row count (the kernel streams x in tiles; the
 TPU kernel's 256-row VMEM limit does not carry over) or raises a
-``ValueError`` naming the gate. ``fused_int4_matmul.launches`` counts the
-calls that launched the kernel (one per call, also when a decode call's
-split-K adds a second, summing launch).
+``ValueError`` naming the gate: up to 16 rows the decode tiling
+(``mma.sync``, ``cp.async``), above it the block tiling (``wgmma`` fed by
+TMA). ``fused_int4_matmul.launches`` counts the calls that launched the
+kernel (one per call, also when a split of K adds a second, summing
+launch).
 """
 
 from __future__ import annotations
@@ -31,12 +33,14 @@ from ._build import load_library
 from .quant import dequantize_int4
 
 # the kernel's gates (csrc/fused_int4_matmul.cu): K rows per tensor-core
-# k-step, the column multiple of its 16-byte copies, and the rows of its
-# 65535 row blocks (the grid's y limit)
+# k-step, the column multiple of its 16-byte copies and tensor-map rows,
+# the columns of the block tiling's grid (65535 CTA columns of 128 on grid
+# y) and the rows its C entry point takes (a 32-bit int)
 KERNEL_K_STEP = 16
 KERNEL_N_MULTIPLE = 16
-KERNEL_ROW_BLOCK = 64
-KERNEL_MAX_ROWS = 65535 * KERNEL_ROW_BLOCK
+KERNEL_COL_BLOCK = 128
+KERNEL_MAX_COLS = 65535 * KERNEL_COL_BLOCK
+KERNEL_MAX_ROWS = 2 ** 31 - 1
 
 
 def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
@@ -82,12 +86,15 @@ def int4_kernel_unsupported_reason(x: torch.Tensor, packed: torch.Tensor,
     if n % KERNEL_N_MULTIPLE:
         return "N: N={} is not a multiple of {} (16-byte row copies)".format(
             n, KERNEL_N_MULTIPLE)
+    if n > KERNEL_MAX_COLS:
+        return "N: N={} exceeds the grid's {} column tiles of {}".format(
+            n, KERNEL_MAX_COLS // KERNEL_COL_BLOCK, KERNEL_COL_BLOCK)
     m = x.numel() // k if k else 0
     if m == 0:
         return "rows: empty activation batch"
     if m > KERNEL_MAX_ROWS:
-        return "rows: {} rows exceed the grid's {} blocks of {} rows".format(
-            m, KERNEL_MAX_ROWS // KERNEL_ROW_BLOCK, KERNEL_ROW_BLOCK)
+        return "rows: {} rows exceed the kernel's 32-bit row count ({})".format(
+            m, KERNEL_MAX_ROWS)
     operands = (x, packed, scale)
     if not all(t.is_contiguous() for t in operands):
         return "contiguous: every operand must be contiguous"
@@ -106,9 +113,10 @@ def fused_int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
     CPU tensors take ``int4_matmul_plain`` (``dtype`` pins its dequant
     dtype, the model's activation dtype). CUDA tensors launch the kernel on
     the current stream (no synchronisation; output in x's dtype) or raise.
-    Decode rows (M <= 16) may split K across CTAs: the call then allocates
-    the f32 workspace the library asks for, and the kernel's second pass
-    adds the splits in a fixed order (the same bits on every call)."""
+    A call whose tiles do not fill the card splits K across CTAs: it then
+    allocates the f32 workspace the library asks for, and the kernel's
+    second pass adds the splits in a fixed order (the same bits on every
+    call)."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scale, dtype)
     if x.device.type != "cuda":

@@ -15,13 +15,16 @@ through 4 layers' pools, so L2 holds no layer from one call to the next).
 ``--kernel paged`` (the default) times decode attention over batches of
 lengths; ``--kernel ragged`` times ragged attention at chip_smoke.py's mixed
 and prefill shapes; ``--kernel int4`` times the w4a16 matmul at every
-Llama-3-8B projection shape at M 1, 8, 16, 312 and 2048 (the lm_head up to
-312; ``--rows`` picks a subset), in CUDA-graph replays rotating through
-copies of the weights that together exceed the L2, beside the library's
-int4 product and a bf16 matmul, and sums one decode step's 225 calls per
-decode row count; either checkout's C entry point (with or without the
-split-K workspace) is called. Prints the card line, then one JSON line per
-case.
+Llama-3-8B projection shape at M 1, 8, 16, 40, 64, 312 and 2048 (the
+lm_head up to 312; ``--rows`` picks a subset), in CUDA-graph replays
+rotating through copies of the weights that together exceed the L2, and
+called one after another (``eager_ms``, CUDA events) with the host's cost of
+enqueueing one call (``host_us``), beside the library's int4 product and a
+bf16 matmul; it sums one decode step's 225 calls per decode row count (M <=
+16) and one ragged step's 224 projection calls at M = 312. Either checkout's C entry point (with or without the
+split-K workspace) is called. ``bitwise_equal`` says whether the two
+outputs share every bit (expected where the change leaves a tiling as it
+was). Prints the card line, then one JSON line per case.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -202,18 +206,36 @@ def int4_launcher(entry, m, k, n, group):
     return launch, nbytes.value
 
 
-# the row counts timed per projection shape (chip_smoke.py's and 16, the
-# largest decode batch of the decode tiling)
-INT4_AB_ROWS = (1, 8, 16, 312, 2048)
+# the row counts timed per projection shape: chip_smoke.py's, 16 (the
+# largest batch of the decode tiling), 40 (the verify lm_head's gathered
+# rows) and 64 (the smallest prefill bucket)
+INT4_AB_ROWS = (1, 8, 16, 40, 64, 312, 2048)
+
+
+def host_us(call, copies, n=64) -> float:
+    """Host microseconds to enqueue one call (the C entry point's planning,
+    tensor-map encoding and launches), from the wall time of ``n`` calls
+    issued back to back; the device finishes them after the clock stops."""
+    for i in range(copies):
+        call(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        call(i % copies)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * elapsed / n
 
 
 def ab_int4(entries, gen, rows) -> None:
     """Per shape and row count: both kernels against the plain version,
-    bitwise equality and determinism, then CUDA-graph device times in turns
-    baseline, change, change, baseline, beside the library's int4 product
+    bitwise equality and determinism, then CUDA-graph device times, eager
+    times and host enqueue times in turns baseline, change, change,
+    baseline, beside the library's int4 product
     and a bf16 matmul on the dequantized weight. Then, per decode row
     count, one decode step's 225 calls summed from the shapes' times (each
-    kernel's better turn)."""
+    kernel's better turn), and at M = 312 one ragged step's 224 projection
+    calls (every shape but the lm_head)."""
     steps = {}
     for name, ((k, n), calls) in cs.INT4_SHAPES.items():
         w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
@@ -254,6 +276,9 @@ def ab_int4(entries, gen, rows) -> None:
                     launch(out, x, *qs[i])
 
                 row.setdefault(key + "_ms", []).append(cs.time_graph(call, copies, iters))
+                row.setdefault(key + "_eager_ms", []).append(
+                    cs.time_launches(call, copies, iters))
+                row.setdefault(key + "_host_us", []).append(host_us(call, copies))
             row["bf16_ms"] = cs.time_graph(lambda i, x=x: torch.matmul(x, ws[i]), copies_bf16,
                                            iters)
             lib_call, lib_err = cs.library_int4(x, qs)
@@ -264,14 +289,16 @@ def ab_int4(entries, gen, rows) -> None:
             for key in ("baseline", "change"):
                 row[key + "_share_of_bound"] = b_ms / min(row[key + "_ms"])
             print(json.dumps(row), flush=True)
-            if m <= 16:
+            if m <= 16 or (m == 312 and name != "lm_head"):
                 steps.setdefault(m, []).append((calls, row))
             del x, outs, again
         del qs, ws, q, s, w_bf16
         torch.cuda.empty_cache()
     for m, shape_rows in steps.items():
-        step = {"case": "decode_step", "m": m, "calls": sum(c for c, _ in shape_rows)}
-        for key in ("baseline_ms", "change_ms", "library_ms", "bf16_ms", "bound_ms"):
+        step = {"case": "decode_step" if m <= 16 else "ragged_step", "m": m,
+                "calls": sum(c for c, _ in shape_rows)}
+        for key in ("baseline_ms", "change_ms", "baseline_eager_ms", "change_eager_ms",
+                    "baseline_host_us", "change_host_us", "library_ms", "bf16_ms", "bound_ms"):
             ts = [min(r[key]) if isinstance(r[key], list) else r[key] for _, r in shape_rows]
             step[key] = (None if None in ts
                          else sum(t * c for t, (c, _) in zip(ts, shape_rows)))

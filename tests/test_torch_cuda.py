@@ -488,6 +488,56 @@ def test_int4_kernel_matches_plain_version_at_prefill_rows(cuda, name, m):
     _check_int4(*_int4_operands(cuda, m, k, n, k // 128, seed=m))
 
 
+# the block tiling (M > 16): each row count with every projection shape the
+# main path gives it (the lm_head on gathered rows only, up to the ragged
+# flat axis)
+INT4_BLOCK_ROWS = [17, 24, 40, 64, 65, 127, 312, 1024, 2048]
+INT4_SHAPES = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024), "w_gate/w_up": (4096, 14336),
+               "w_down": (14336, 4096), "lm_head": (4096, 128256)}
+
+
+@pytest.mark.parametrize("m,name", [(m, name) for m in INT4_BLOCK_ROWS for name in INT4_SHAPES
+                                    if name != "lm_head" or m <= 312])
+def test_int4_block_tiling_matches_plain_version(cuda, m, name):
+    k, n = INT4_SHAPES[name]
+    _check_int4(*_int4_operands(cuda, m, k, n, k // 128, seed=m + n))
+
+
+@pytest.mark.parametrize("m,k,n,groups", [
+    (100, 512, 80, 32),     # groups of 16: four end in every stage; N past one CTA's 128 columns
+    (65, 240, 32, 5),       # groups of 48; K ends 48 rows into its last stage
+    (300, 1024, 400, 8),    # groups of 128; N = 400, a multiple of 16 but not of 128
+    (130, 4000, 144, 1),    # the one-group fallback: K = 4000 ends inside a stage
+], ids=["group_16", "group_48_k_tail", "group_128_n400", "one_group_4000"])
+def test_int4_block_tiling_groups_and_edges(cuda, m, k, n, groups):
+    _check_int4(*_int4_operands(cuda, m, k, n, groups, seed=m + k))
+
+
+@pytest.mark.parametrize("m,k,n,groups", [
+    (40, 4000, 64, 1),      # one CTA tile: K split 15 ways into 16-row shares of one group
+    (24, 4800, 1024, 100),  # groups of 48: shares of 6-7 groups, stages end mid-group
+    (312, 4096, 1024, 32),  # wk/wv on the ragged flat axis: 24 tiles, K split
+    (64, 4096, 1024, 1),    # one group of 4096: every share boundary inside it
+], ids=["one_group_4000", "group_48", "wk_312", "one_group_4096"])
+def test_int4_block_split_k_boundaries_inside_groups(cuda, m, k, n, groups):
+    """Block calls whose CTA tiles do not fill the card split K as decode
+    calls do, and a share may start and end inside a group."""
+    assert _int4_workspace_bytes(m, k, n, groups) > 0
+    _check_int4(*_int4_operands(cuda, m, k, n, groups, seed=k + m))
+
+
+@pytest.mark.parametrize("m,name", [(40, "wq/wo"), (312, "wk/wv"), (312, "w_gate/w_up"),
+                                    (2048, "w_down")])
+def test_int4_block_calls_are_deterministic(cuda, m, name):
+    """No atomics in the block tiling either: two calls give the same bits."""
+    k, n = INT4_SHAPES[name]
+    x, q, s = _int4_operands(cuda, m, k, n, k // 128, seed=11)
+    first = fused_int4_matmul(x, q, s)
+    second = fused_int4_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_int4_gate_violations_raise_on_cuda(cuda):
     x, q, s = _int4_operands(cuda, 4, 256, 128, 2)
     cases = [

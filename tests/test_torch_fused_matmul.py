@@ -30,6 +30,7 @@ from clearml_serving_tpu.ops.quant import quantize_llama_params as ref_quantize_
 from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
 from clearml_serving_tpu_torch.models.llama import Llama, QuantWeight, convert_params
 from clearml_serving_tpu_torch.ops.fused_matmul import (
+    KERNEL_MAX_COLS,
     KERNEL_MAX_ROWS,
     fused_int4_matmul,
     int4_kernel_unsupported_reason,
@@ -128,7 +129,8 @@ def _ok_operands(m=4, k=256, n=128, group=128):
     ("stacked", "2-D"), ("packed_int8", "packed.dtype"), ("scale_bf16", "scale.dtype"),
     ("x_f32", "x.dtype"), ("k_mismatch", "K"), ("k_odd", "K"), ("scale_cols", "scale.shape"),
     ("groups", "groups"), ("group_24", "group"), ("n_8", "N"), ("empty", "rows"),
-    ("grid_rows", "rows"), ("strided", "contiguous"), ("misaligned", "alignment"),
+    ("grid_rows", "rows"), ("grid_cols", "N"), ("strided", "contiguous"),
+    ("misaligned", "alignment"),
 ])
 def test_kernel_gates_name_themselves(case, gate):
     x, q, s = _ok_operands()
@@ -157,12 +159,33 @@ def test_kernel_gates_name_themselves(case, gate):
         x = torch.zeros(0, 256, dtype=torch.bfloat16)
     elif case == "grid_rows":
         x = torch.empty(KERNEL_MAX_ROWS + 1, 256, dtype=torch.bfloat16, device="meta")
+    elif case == "grid_cols":
+        q = torch.empty(128, KERNEL_MAX_COLS + 16, dtype=torch.uint8, device="meta")
+        s = torch.empty(2, KERNEL_MAX_COLS + 16, dtype=torch.float32, device="meta")
     elif case == "strided":
         q = torch.zeros(128, 256, dtype=torch.uint8)[:, ::2]
     elif case == "misaligned":
         x = torch.zeros(4 * 256 + 1, dtype=torch.bfloat16)[1:].reshape(4, 256)
     reason = int4_kernel_unsupported_reason(x, q, s)
     assert reason is not None and reason.startswith(gate + ":"), reason
+
+
+def test_grid_gates_state_the_kernels_limits():
+    """The row count is the C entry point's 32-bit int; the columns are the
+    block tiling's grid y of 65535 tiles of 128. Each limit itself passes."""
+
+    def reason(m, n):
+        return int4_kernel_unsupported_reason(
+            torch.empty(m, 256, dtype=torch.bfloat16, device="meta"),
+            torch.empty(128, n, dtype=torch.uint8, device="meta"),
+            torch.empty(2, n, dtype=torch.float32, device="meta"))
+
+    assert reason(KERNEL_MAX_ROWS, 128) is None
+    assert reason(4, KERNEL_MAX_COLS) is None
+    assert reason(KERNEL_MAX_ROWS + 1, 128) == (
+        "rows: 2147483648 rows exceed the kernel's 32-bit row count (2147483647)")
+    assert reason(4, KERNEL_MAX_COLS + 16) == (
+        "N: N=8388496 exceeds the grid's 65535 column tiles of 128")
 
 
 def test_kernel_takes_every_llama3_8b_projection_shape():
