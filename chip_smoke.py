@@ -9,9 +9,12 @@ exits non-zero before the result lines are printed:
 1. the card's name and power limit, torch / CUDA / nvcc versions;
 2. builds the CUDA kernels from ``clearml_serving_tpu_torch/csrc`` (set-up
    time, printed with the compiler's register report);
-3. holds the paged decode kernel against its plain PyTorch version on the
-   card at the main path's shapes (bf16 and int8 pools), and times kernel,
-   plain version and the bound at the main-path shape;
+3. holds the paged decode kernel (the key-range split and its combine)
+   against its plain PyTorch version on the card at the main path's shapes
+   (bf16 and int8 pools), and times it in CUDA-graph replays and eagerly
+   at 8 rows x 1024 and x 2048 tokens and at mixed lengths, beside its
+   bound, the plain version (at 8 x 1024) and, as a yardstick that reads no
+   page table, SDPA over the same K/V gathered contiguous;
 3b. the same for the ragged kernel over mixed rows (decode, prefill chunks
    at history 0 and mid-history, idle rows, multi-step pads, page-crossing
    tails; P 16/32, G 4/8, D 64/128, bf16/int8), timed at a mixed shape and
@@ -248,6 +251,8 @@ def phase_kernels(gen) -> dict:
                      "bf16 B8 Hkv8 G4 D64 P16 mixed"),
         check_kernel(paged_operands(gen, lengths=[1024] * 8),
                      "bf16 B8 Hkv8 G4 D128 P16 8x1024"),
+        check_kernel(paged_operands(gen, lengths=[2048] * 8),
+                     "bf16 B8 Hkv8 G4 D128 P16 8x2048"),
     )
     err_int8 = max(
         check_kernel(paged_operands(gen, lengths=mixed, quant=True),
@@ -256,34 +261,75 @@ def phase_kernels(gen) -> dict:
                                     quant=True), "int8 B8 Hkv8 G8 D128 P32 mixed"),
         check_kernel(paged_operands(gen, lengths=[1024] * 8, quant=True),
                      "int8 B8 Hkv8 G4 D128 P16 8x1024"),
+        check_kernel(paged_operands(gen, lengths=[2048] * 8, quant=True),
+                     "int8 B8 Hkv8 G4 D128 P16 8x2048"),
     )
     timings = {}
     layers = 4
     for quant in (False, True):
-        ops = paged_operands(gen, lengths=[1024] * 8, quant=quant, layers=layers)
+        for case, lengths in PAGED_CASES.items():
+            ops = paged_operands(gen, lengths=lengths, quant=quant, layers=layers)
 
-        def kernel(li, ops=ops):
-            args, kw = layer_args(ops, li)
-            paged_attention(*args, **kw)
+            def kernel(li, ops=ops):
+                args, kw = layer_args(ops, li)
+                paged_attention(*args, **kw)
 
-        def plain(li, ops=ops):
-            args, kw = layer_args(ops, li)
-            paged_attention_ref(*args, **kw)
+            def plain(li, ops=ops):
+                args, kw = layer_args(ops, li)
+                paged_attention_ref(*args, **kw)
 
-        before = paged_attention.launches
-        kernel_ms = time_launches(kernel, layers, 200)
-        plain_ms = time_launches(plain, layers, 20)
-        paged_attention.launches = before   # timing launches are not the main path's
-        name = "int8" if quant else "bf16"
-        b_ms, b_by = bound(ops)
-        timings[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        log("  {} main-path shape (B8 x 1024 live tokens): kernel_ms {:.4f}  plain_ms "
-            "{:.4f}  bound_ms {:.4f}  ({:.1f}% of bound)".format(
-                name, kernel_ms, plain_ms, timings[name]["bound_ms"],
-                100 * timings[name]["bound_ms"] / kernel_ms))
-        del ops
-    torch.cuda.empty_cache()
+            before = paged_attention.launches
+            graph_ms = time_graph(kernel, layers, 200)
+            eager_ms = time_launches(kernel, layers, 200)
+            plain_ms = time_launches(plain, layers, 10) if case == "8x1024" else None
+            paged_attention.launches = before   # timing launches are not the main path's
+            name = "{}_{}".format("int8" if quant else "bf16", case)
+            b_ms, b_by = bound(ops)
+            timings[name] = dict(ms=graph_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by, share=b_ms / graph_ms,
+                                 sdpa_gathered_ms=sdpa_yardstick(ops, layers))
+            log("  {}: graph_ms {:.4f}  eager_ms {:.4f}  plain_ms {}  bound_ms {:.5f} "
+                "({:.1f}% of bound)  sdpa over gathered K/V {}".format(
+                    name, graph_ms, eager_ms,
+                    "{:.4f}".format(plain_ms) if plain_ms is not None else "-", b_ms,
+                    100 * b_ms / graph_ms, timings[name]["sdpa_gathered_ms"]))
+            del ops
+            torch.cuda.empty_cache()
     return dict(err_bf16=err_bf16, err_int8=err_int8, timings=timings)
+
+
+# phase 3's timed batches: every row at 1024 and at 2048 tokens, and mixed lengths
+PAGED_CASES = {"8x1024": [1024] * 8, "8x2048": [2048] * 8,
+               "mixed": [0, 1, 17, 1024, 2048, 700, 1500, 64]}
+
+
+def sdpa_yardstick(ops, n_layers):
+    """A yardstick, not the same function: ms of one
+    ``scaled_dot_product_attention`` call over the same K/V already gathered
+    contiguous (dequantized to bf16 for int8 pools), so it reads no page
+    table; the port never calls it. Timed in a CUDA graph over the layers.
+    None for batches of unequal lengths (they would need a mask)."""
+    lengths = ops["lengths"].tolist()
+    if len(set(lengths)) != 1:
+        return None
+    q = ops["q"]
+    b, hkv, g, d = q.shape
+    page_size = ops["k"].shape[3]
+    pages = ops["table"][:, : -(-lengths[0] // page_size)].long()
+    qq = q.reshape(b, hkv * g, 1, d)
+    kv = []
+    for li in range(n_layers):
+        pair = []
+        for pool, scale in ((ops["k"][li], ops["ks"]), (ops["v"][li], ops["vs"])):
+            rows = pool[:, pages].reshape(hkv, b, -1, d)
+            if scale is not None:
+                rows = (rows.float() * scale[li][:, pages].reshape(hkv, b, -1, 1)).bfloat16()
+            pair.append(rows.transpose(0, 1)[:, :, : lengths[0]].contiguous())
+        kv.append(pair)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = time_graph(lambda li: sdpa(qq, kv[li][0], kv[li][1], enable_gqa=True), n_layers, 200)
+    del kv
+    return ms
 
 
 # -- phase 3b: ragged kernel vs plain version -------------------------------------
@@ -1348,7 +1394,9 @@ def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "
             end = t1
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    attn = sum(v for k, v in by_name.items() if "paged_attention_kernel" in k)
+    # the decode kernel's two grids (csrc/paged_attention.cu)
+    attn = sum(v for k, v in by_name.items()
+               if "paged_split_kernel" in k or "paged_combine_kernel" in k)
     ragged = sum(v for k, v in by_name.items() if "ragged_attention_kernel" in k)
     int4 = sum(v for k, v in by_name.items() if "w4a16_" in k)
     out = dict(scheduler=scheduler, weights=weight_quant or "bf16", wall_ms=wall * 1e3,
@@ -1773,14 +1821,20 @@ def main() -> int:
         "max_abs_err": kern["err_bf16"],
         "max_err_bf16": kern["err_bf16"],
         "max_err_int8": kern["err_int8"],
-        "ms": t["bf16"]["ms"],
-        "plain_ms": t["bf16"]["plain_ms"],
-        "bound_ms": t["bf16"]["bound_ms"],
-        "bound_by": t["bf16"]["bound_by"],
+        # primary shape: 8 rows x 1024 tokens, bf16 pools; CUDA-graph device
+        # time (eager_ms: calls one after another through the wrapper)
+        "ms": t["bf16_8x1024"]["ms"],
+        "eager_ms": t["bf16_8x1024"]["eager_ms"],
+        "plain_ms": t["bf16_8x1024"]["plain_ms"],
+        "bound_ms": t["bf16_8x1024"]["bound_ms"],
+        "bound_by": t["bf16_8x1024"]["bound_by"],
         "library_ms": None,
-        "ms_int8": t["int8"]["ms"],
-        "plain_ms_int8": t["int8"]["plain_ms"],
-        "bound_ms_int8": t["int8"]["bound_ms"],
+        # a yardstick that reads no page table: SDPA over the K/V gathered contiguous
+        "sdpa_gathered_ms": t["bf16_8x1024"]["sdpa_gathered_ms"],
+        "ms_int8": t["int8_8x1024"]["ms"],
+        "plain_ms_int8": t["int8_8x1024"]["plain_ms"],
+        "bound_ms_int8": t["int8_8x1024"]["bound_ms"],
+        "per_case": [dict(case=name, **row) for name, row in t.items()],
         "launches_ragged_path": ragged_runs[0]["paged_launches"],
     }, {
         "name": "ragged_paged_attention",

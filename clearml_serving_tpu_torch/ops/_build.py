@@ -116,10 +116,10 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             fn = lib.tpu_torch_paged_attention
-            # q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, out;
-            # batch, hkv, groups, head_dim, n_pages, page_size, pages_per_seq,
-            # kv_int8; stream
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            # q, k_pool, v_pool, k_scale, v_scale, page_table, lengths, out,
+            # part_acc, part_m, part_l; batch, hkv, groups, head_dim, n_pages,
+            # page_size, pages_per_seq, kv_int8, splits, span; stream
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fn = lib.tpu_torch_ragged_paged_attention
             # q, k_pool, v_pool, k_scale, v_scale, page_table, kv_lens,

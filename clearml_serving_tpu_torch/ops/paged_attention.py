@@ -25,6 +25,7 @@ launches.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -36,6 +37,41 @@ from ._build import load_library
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_GROUP = 8
 KERNEL_PAGE_SIZES = (16, 32)
+
+# The decode kernel splits each row's key range across CTAs: spans are a
+# multiple of SPLIT_QUANTUM tokens (kSpanQuantum in csrc/paged_attention.cu:
+# four warps' 16-token tiles, whole pages of 16 and of 32), sized so that a
+# full table gives about SPLIT_TARGET_CTAS CTAs (four per SM of an H100's
+# 132), and never shorter than SPLIT_MIN_SPAN tokens: in development
+# timings on an H100 a call's fixed cost (the two grids, the length and
+# page-table reads before the first copy, the combine) made shorter spans
+# slower at every batch timed, 1 x 2048 tokens included. At the engine's
+# table (129 pages of 16) and 8 rows that is 9 spans of 256 tokens. The
+# query heads (G) do not enter: a span's bytes do not depend on them, and
+# its partials (G * D floats) stay under an eighth of its int8 K/V bytes
+# (2 * 256 * D) up to G = 8.
+SPLIT_QUANTUM = 64
+SPLIT_TARGET_CTAS = 4 * 132
+SPLIT_MIN_SPAN = 256
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(batch: int, hkv: int, pages_per_seq: int, page_size: int):
+    """(splits, span) of the decode kernel's key-range split, from shapes
+    alone (never from ``lengths``, which lives on the device: reading it
+    would synchronise the host and break CUDA-graph capture). ``span`` is a
+    positive multiple of ``SPLIT_QUANTUM`` and ``splits * span`` covers the
+    table's ``pages_per_seq * page_size`` tokens with no split wholly past
+    them."""
+    capacity = pages_per_seq * page_size
+
+    def quanta(tokens):
+        return max(1, -(-tokens // SPLIT_QUANTUM))
+
+    span = max(quanta(-(-capacity * max(1, batch * hkv) // SPLIT_TARGET_CTAS)),
+               quanta(SPLIT_MIN_SPAN))
+    span = min(span, quanta(capacity)) * SPLIT_QUANTUM
+    return max(1, -(-capacity // span)), span
 
 
 def _gather_rows(pool, scale, page_table, dtype):
@@ -159,7 +195,9 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
     """Paged GQA decode attention, ``[B, Hkv, G, D]`` in q's dtype.
 
     CPU tensors take ``paged_attention_ref``; CUDA tensors launch the
-    kernel on the current stream (no synchronisation) or raise."""
+    kernel on the current stream (no synchronisation) or raise. On CUDA a
+    call is two grids, the key-range split (``split_plan``) and the
+    combine of its f32 partials, and counts one launch."""
     if k_pool.dtype == torch.int8 and k_scale is None:
         raise ValueError("int8 KV pools need k_scale/v_scale operands (per-token dequant)")
     if q.device.type == "cpu":
@@ -169,14 +207,23 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
     check_kernel_gates(q, k_pool, v_pool, page_table, lengths, k_scale, v_scale)
     b, hkv, g, d = q.shape
     _, n_pages, page_size, _ = k_pool.shape
+    pages_per_seq = page_table.shape[1]
+    splits, span = split_plan(b, hkv, pages_per_seq, page_size)
     out = torch.empty_like(q)
+    # the f32 partials in one buffer: acc [B, Hkv, S, G, D], then m and l
+    # [B, Hkv, S, G] each (one allocation: the wrapper's host time is part
+    # of every eager decode step)
+    n_acc, n_ml = b * hkv * splits * g * d, b * hkv * splits * g
+    part = torch.empty(n_acc + 2 * n_ml, dtype=torch.float32, device=q.device)
+    acc = part.data_ptr()
     quantized = k_pool.dtype == torch.int8
     rc = load_library().tpu_torch_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, hkv, g, d, n_pages, page_size, page_table.shape[1], int(quantized),
+        acc, acc + 4 * n_acc, acc + 4 * (n_acc + n_ml),
+        b, hkv, g, d, n_pages, page_size, pages_per_seq, int(quantized), splits, span,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:

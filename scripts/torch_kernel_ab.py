@@ -4,7 +4,7 @@ in one process: the change (this checkout's sources) and a baseline (the
 sources of another checkout, e.g. the parent commit unpacked with ``git
 archive`` into a directory that .gitignore lists).
 
-    python3 scripts/torch_kernel_ab.py --baseline build/parent [--kernel ragged|int4]
+    python3 scripts/torch_kernel_ab.py --baseline build/parent [--kernel paged|ragged|int4]
         [--rows 1,8,16]
 
 Both libraries are built with the same ``nvcc`` flags and called through the
@@ -13,7 +13,12 @@ PyTorch version (atol = rtol = 2e-2, as chip_smoke.py) and timed in turns
 baseline, change, change, baseline (CUDA events over 300 launches rotating
 through 4 layers' pools, so L2 holds no layer from one call to the next).
 ``--kernel paged`` (the default) times decode attention over batches of
-lengths; ``--kernel ragged`` times ragged attention at chip_smoke.py's mixed
+lengths (``CASES``: 8 rows of 96, 1024 and 2048 tokens and mixed lengths) in
+CUDA-graph replays, called one after another (``eager_ms``) and as host
+enqueue time per call (``host_us``), through either C entry point (with or
+without the key-range split's partials, detected from the source), with
+two-call bit equality of the change; ``--kernel ragged`` times ragged
+attention at chip_smoke.py's mixed
 and prefill shapes; ``--kernel int4`` times the w4a16 matmul at every
 Llama-3-8B projection shape at M 1, 8, 16, 40, 64, 312 and 2048 (the
 lm_head up to 312; ``--rows`` picks a subset), in CUDA-graph replays
@@ -49,6 +54,7 @@ from clearml_serving_tpu_torch.ops.paged_attention import (  # noqa: E402
     RAGGED_QB,
     paged_attention_ref,
     ragged_paged_attention_ref,
+    split_plan,
 )
 from clearml_serving_tpu_torch.ops.quant import dequantize_int4, quantize_int4  # noqa: E402
 
@@ -81,11 +87,20 @@ RAGGED_CASES = {
 }
 
 
-def entry(lib: ctypes.CDLL):
+def has_split_partials(root: Path) -> bool:
+    """Whether a checkout's decode kernel splits the key range across CTAs:
+    its C entry point then takes the f32 partials' pointers, the split
+    count and the span."""
+    src = root / "clearml_serving_tpu_torch" / "csrc" / "paged_attention.cu"
+    return "part_acc" in src.read_text()
+
+
+def entry(lib: ctypes.CDLL, split: bool):
     fn = lib.tpu_torch_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    n_ptr, n_int = (11, 10) if split else (8, 8)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return fn, split
 
 
 def has_tree_mask(root: Path) -> bool:
@@ -305,15 +320,72 @@ def ab_int4(entries, gen, rows) -> None:
         print(json.dumps(step), flush=True)
 
 
-def launch(fn, out, q, k, v, table, lengths, k_scale=None, v_scale=None):
+def launch(entry, out, q, k, v, table, lengths, k_scale=None, v_scale=None):
+    """One call through either entry point; the split one gets its f32
+    partials allocated here as the wrapper does (``split_plan``, one
+    buffer)."""
+    fn, split = entry
     quant = k.dtype == torch.int8
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    b, hkv, g, d = q.shape
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-            table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            q.shape[0], q.shape[1], q.shape[2], q.shape[3], k.shape[1], k.shape[2],
-            table.shape[1], int(quant), torch.cuda.current_stream().cuda_stream)
+            table.data_ptr(), lengths.data_ptr(), out.data_ptr()]
+    ints = [b, hkv, g, d, k.shape[1], k.shape[2], table.shape[1], int(quant)]
+    if split:
+        splits, span = split_plan(b, hkv, table.shape[1], k.shape[2])
+        n_acc, n_ml = b * hkv * splits * g * d, b * hkv * splits * g
+        acc = torch.empty(n_acc + 2 * n_ml, dtype=torch.float32, device=q.device).data_ptr()
+        ptrs += [acc, acc + 4 * n_acc, acc + 4 * (n_acc + n_ml)]
+        ints += [splits, span]
+    rc = fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError("launch failed: cudaError {}".format(rc))
+
+
+def ab_paged(entries, gen, layers) -> None:
+    """Per case and pool type: both kernels against the plain version,
+    bitwise equality (expected false against a checkout without the split:
+    the summation order differs) and two-call equality of the change, then
+    CUDA-graph device times, eager times and host enqueue times in turns
+    baseline, change, change, baseline, beside the bound and its share."""
+    for quant in (False, True):
+        for case, lengths in CASES.items():
+            ops = cs.paged_operands(gen, lengths=lengths, quant=quant, layers=layers)
+            argl = [cs.layer_args(ops, li) for li in range(layers)]
+            (q, k, v, table, lens), kw = argl[0]
+            ref = paged_attention_ref(q.float(), k if quant else k.float(),
+                                      v if quant else v.float(), table, lens, **kw)
+            b_ms, b_by = cs.bound(ops)
+            row = {"case": case, "kv": "int8" if quant else "bf16",
+                   "bound_ms": b_ms, "bound_by": b_by}
+            outs = {}
+            for name, fn in entries.items():
+                outs[name] = torch.empty_like(q)
+                launch(fn, outs[name], *argl[0][0], **argl[0][1])
+            again = torch.empty_like(q)
+            launch(entries["change"], again, *argl[0][0], **argl[0][1])
+            torch.cuda.synchronize()
+            for name in entries:
+                row[name + "_max_abs_err"] = float((outs[name].float() - ref).abs().max())
+                if not torch.allclose(outs[name].float(), ref, rtol=cs.TOL, atol=cs.TOL):
+                    raise AssertionError("{} disagrees with the plain version".format(name))
+            row["bitwise_equal"] = bool(torch.equal(outs["change"], outs["baseline"]))
+            row["deterministic"] = bool(torch.equal(outs["change"], again))
+            if not row["deterministic"]:
+                raise AssertionError("two calls of the change on the same inputs differ")
+            for name in ("baseline", "change", "change", "baseline"):
+
+                def call(li, fn=entries[name], out=outs[name]):
+                    launch(fn, out, *argl[li][0], **argl[li][1])
+
+                row.setdefault(name + "_ms", []).append(cs.time_graph(call, layers, 300))
+                row.setdefault(name + "_eager_ms", []).append(cs.time_launches(call, layers, 300))
+                row.setdefault(name + "_host_us", []).append(host_us(call, layers))
+            for name in ("baseline", "change"):
+                row[name + "_share_of_bound"] = b_ms / min(row[name + "_ms"])
+            print(json.dumps(row), flush=True)
+            del ops, argl
+            torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -342,36 +414,9 @@ def main() -> int:
                                         has_int4_workspace(args.baseline))},
                 gen, [int(r) for r in args.rows.split(",")])
         return 0
-    fns = {"change": entry(_build.load_library()), "baseline": entry(build_baseline(args.baseline))}
-    for quant in (False, True):
-        for case, lengths in CASES.items():
-            ops = cs.paged_operands(gen, lengths=lengths, quant=quant, layers=layers)
-            argl = [cs.layer_args(ops, li) for li in range(layers)]
-            (q, k, v, table, lens), kw = argl[0]
-            ref = paged_attention_ref(q.float(), k if quant else k.float(),
-                                      v if quant else v.float(), table, lens, **kw)
-            b_ms, b_by = cs.bound(ops)
-            row = {"case": case, "kv": "int8" if quant else "bf16",
-                   "bound_ms": b_ms, "bound_by": b_by}
-            outs = {}
-            for name, fn in fns.items():
-                outs[name] = torch.empty_like(q)
-                launch(fn, outs[name], *argl[0][0], **argl[0][1])
-            torch.cuda.synchronize()
-            for name in fns:
-                err = float((outs[name].float() - ref).abs().max())
-                row[name + "_max_abs_err"] = err
-                if not torch.allclose(outs[name].float(), ref, rtol=cs.TOL, atol=cs.TOL):
-                    raise AssertionError("{} disagrees with the plain version".format(name))
-            row["bitwise_equal"] = bool(torch.equal(outs["change"], outs["baseline"]))
-            for name in ("baseline", "change", "change", "baseline"):
-                out = outs[name]
-
-                def call(li, fn=fns[name], out=out):
-                    launch(fn, out, *argl[li][0], **argl[li][1])
-
-                row.setdefault(name + "_ms", []).append(cs.time_launches(call, layers, 300))
-            print(json.dumps(row), flush=True)
+    ab_paged({"change": entry(_build.load_library(), has_split_partials(ROOT)),
+              "baseline": entry(build_baseline(args.baseline),
+                                has_split_partials(args.baseline))}, gen, layers)
     return 0
 
 

@@ -30,6 +30,7 @@ from clearml_serving_tpu_torch.ops.paged_attention import (
     ragged_layout,
     ragged_paged_attention,
     ragged_paged_attention_ref,
+    split_plan,
     tree_ancestors,
 )
 from clearml_serving_tpu_torch.ops.quant import quantize_int4, quantize_llama_params
@@ -92,6 +93,77 @@ def test_table_entries_past_the_length_are_never_read(cuda, quant):
     out2 = paged_attention(q, k, v, poisoned, lens, **scales)
     torch.cuda.synchronize()
     assert torch.equal(out, out2)
+
+
+def _span_lengths(page_size, hkv=4):
+    """Twelve lengths at every boundary of the kernel's key-range split for
+    a table of more than three spans: 0, 1, a page, each span's edges, and
+    the table's capacity."""
+    pp = 1
+    while True:  # the plan depends on the table width: find one with > 3 spans
+        splits, span = split_plan(12, hkv, pp, page_size)
+        if pp * page_size > 3 * span:
+            break
+        pp += 1
+    lengths = [0, 1, page_size - 1, page_size, span - 1, span, span + 1, 2 * span - 1,
+               2 * span, 2 * span + 1, 3 * span, pp * page_size]
+    return lengths, splits, span
+
+
+@pytest.mark.parametrize("page_size", [16, 32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_kernel_at_every_span_boundary(cuda, quant, g, d, page_size):
+    lengths, splits, _span = _span_lengths(page_size)
+    assert splits >= 4
+    q, k, v, table, lens, scales = _operands(cuda, g=g, d=d, page_size=page_size,
+                                             quant=quant, lengths=lengths)
+    pp = table.shape[1]
+    table = table[:, :pp - 1].contiguous()  # capacity = the longest length
+    out = paged_attention(q, k, v, table, lens, **scales)
+    ref = paged_attention_ref(q.float(), k if quant else k.float(),
+                              v if quant else v.float(), table, lens, **scales)
+    poisoned = table.clone()
+    for i, n in enumerate(lengths):
+        poisoned[i, -(-n // page_size):] = 2 ** 30   # an out-of-range read would fault
+    out2 = paged_attention(q, k, v, poisoned, lens, **scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    assert torch.equal(out, out2)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))  # length 0 -> zeros
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_two_calls_give_equal_bits(cuda, quant):
+    q, k, v, table, lens, scales = _operands(cuda, g=4, d=128, page_size=16, quant=quant,
+                                             lengths=[2000, 1, 700, 0, 1024, 63, 64, 65])
+    before = paged_attention.launches
+    out = paged_attention(q, k, v, table, lens, **scales)
+    again = paged_attention(q, k, v, table, lens, **scales)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 2  # two grids a call, one count
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_graph_captured_call_gives_the_eager_bits(cuda, quant):
+    # a host read of a device value in the wrapper would make the capture raise
+    q, k, v, table, lens, scales = _operands(cuda, g=4, d=128, page_size=16, quant=quant,
+                                             lengths=[1500, 17, 0, 256, 1024, 255, 600, 1])
+    eager = paged_attention(q, k, v, table, lens, **scales)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = paged_attention(q, k, v, table, lens, **scales)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    lens.copy_(torch.tensor([3, 17, 1, 0, 1024, 2000, 600, 64], dtype=torch.int32))
+    graph.replay()  # new lengths, same graph: no length was baked in on the host
+    ref = paged_attention(q, k, v, table, lens, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, ref)
 
 
 def test_gate_violation_raises_on_cuda(cuda):
