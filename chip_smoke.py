@@ -19,10 +19,13 @@ exits non-zero before the result lines are printed:
    at history 0 and mid-history, idle rows, multi-step pads, page-crossing
    tails; P 16/32, G 4/8, D 64/128, bf16/int8), timed at a mixed shape and
    a prefill shape;
-   Then the ragged kernel's draft-tree mask (``tree_anc``): chain and
-   forest verify rows of k+1 = 5 tokens beside decode rows and a chunk,
-   bf16 and int8, against the plain version (a chain must give the
-   unmasked launch's bits), timed beside the same launch without the mask;
+   Then the ragged kernel's draft-tree mask (``tree_anc``): chain, forest
+   and dead-node verify rows of k+1 = 5 tokens beside decode rows and a
+   chunk, at phase 5d's verify launch (no chunk, no row long enough to
+   split) and at the same launch with longer rows (every row's keys
+   split), bf16 and int8, against the plain version (a chain must give the
+   unmasked launch's bits), timed beside the same launch without the mask
+   and, at the verify launches, beside it with its key-range split off;
 3c. the w4a16 matmul kernel against its plain version at every Llama-3-8B
    projection shape, M 1 and 8 (the decode tiling), 312 (the ragged flat
    axis) and 2048 (the longest prefill bucket; not the lm_head, which a
@@ -75,6 +78,7 @@ times on the card; ``bound_ms`` is computed from this run's operands.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
 import subprocess
@@ -336,25 +340,27 @@ def sdpa_yardstick(ops, n_layers):
 
 
 def ragged_operands(gen, rows, *, hkv=8, g=4, d=128, page_size=16, quant=False, layers=1,
-                    unowned_blocks=0):
+                    unowned_blocks=0, flat=None, pages_per_seq=None):
     """Random operands of one ragged launch. ``rows``: (span on the flat
     axis, query tokens, history before them) per row; a span longer than
     its queries is a multi-step decode row whose positions 1.. are pads.
-    ``unowned_blocks`` q blocks no row owns close the flat axis. Page-table
-    entries past each row's kv_len are random page ids."""
+    ``unowned_blocks`` q blocks no row owns close the flat axis, or q
+    blocks no row owns pad it to ``flat`` tokens. The page table has
+    ``pages_per_seq`` columns (default: one more than the longest row
+    needs); entries past each row's kv_len are random page ids."""
     from clearml_serving_tpu_torch.models.llama import kv_store
     from clearml_serving_tpu_torch.ops.paged_attention import RAGGED_QB, ragged_layout
 
     dev = torch.device(DEV)
     r = len(rows)
     spans = [s for s, _, _ in rows]
-    starts, block_rows, block_q0, t_pad = ragged_layout(spans, RAGGED_QB)
+    starts, block_rows, block_q0, t_pad = ragged_layout(spans, RAGGED_QB, total=flat)
     block_rows = list(block_rows) + [-1] * unowned_blocks
     block_q0 = list(block_q0) + [0] * unowned_blocks
     t_pad += unowned_blocks * RAGGED_QB
     row_lens = [n for _, n, _ in rows]
     kv_lens = [n + h for _, n, h in rows]
-    pp = -(-max(kv_lens) // page_size) + 1
+    pp = pages_per_seq or -(-max(kv_lens) // page_size) + 1
     n_pages = r * pp + 1
     q = torch.randn(t_pad, hkv, g, d, generator=gen, device=dev).bfloat16()
     k = torch.randn(layers, hkv, n_pages, page_size, d, generator=gen, device=dev).bfloat16()
@@ -512,49 +518,164 @@ def phase_ragged_kernel(gen) -> dict:
                 ragged_paged_attention_ref(*args, **kw)
 
             before = ragged_paged_attention.launches
-            kernel_ms = time_launches(kernel, layers, 100)
+            args, kw = ragged_args(ops)
+            once, again = ragged_paged_attention(*args, **kw), ragged_paged_attention(*args, **kw)
+            sync()
+            if not torch.equal(once, again):
+                raise AssertionError("two ragged calls on the same inputs differ")
+            graph_ms = time_graph(kernel, layers, 200)
+            eager_ms = time_launches(kernel, layers, 100)
             plain_ms = time_launches(plain, layers, 4)
             ragged_paged_attention.launches = before  # not the main path's launches
             b_ms, b_by = ragged_bound(ops)
             key = "{}_{}".format(shape, "int8" if quant else "bf16")
-            timings[key] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-            log("  {} shape {}: kernel_ms {:.4f}  plain_ms {:.4f}  bound_ms {:.4f} ({})  "
-                "({:.1f}% of bound)".format(shape, "int8" if quant else "bf16", kernel_ms,
-                                            plain_ms, b_ms, b_by, 100 * b_ms / kernel_ms))
+            timings[key] = dict(ms=graph_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by, share=b_ms / graph_ms)
+            if shape == "prefill":
+                timings[key]["sdpa_gathered_ms"] = sdpa_causal_yardstick(ops, layers)
+            log("  {} shape {}: graph_ms {:.4f}  eager_ms {:.4f}  plain_ms {:.4f}  bound_ms "
+                "{:.4f} ({})  ({:.1f}% of bound){}".format(
+                    shape, "int8" if quant else "bf16", graph_ms, eager_ms, plain_ms, b_ms, b_by,
+                    100 * b_ms / graph_ms,
+                    "  sdpa over gathered K/V {}".format(timings[key]["sdpa_gathered_ms"])
+                    if shape == "prefill" else ""))
             del ops
             torch.cuda.empty_cache()
     return dict(err_bf16=errs["bf16"], err_int8=errs["int8"], timings=timings)
 
 
-# the draft-tree launch of the speculative main path: four verify rows of
-# k+1 = 5 tokens at 1024 history, three decode rows at 1024, one 128-token
-# chunk ending at 1024
+def sdpa_causal_yardstick(ops, n_layers):
+    """A yardstick, not the same function: ms of one
+    ``scaled_dot_product_attention`` call with a lower-right causal mask
+    (``torch.nn.attention.bias.causal_lower_right``) over one chunk row's
+    K/V already gathered contiguous (bf16 pools only), so it reads no page
+    table; the port never calls it. Timed in a CUDA graph over the layers;
+    None (with the error) where the call is refused."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    (kv_len,) = ops["kv_lens"].tolist()
+    q = ops["q"]
+    t, hkv, g, d = q.shape
+    page_size = ops["k"].shape[3]
+    pages = ops["table"][0, : -(-kv_len // page_size)].long()
+    qq = q.reshape(1, t, hkv * g, d).transpose(1, 2)
+    kv = [[pool[:, pages].reshape(hkv, -1, d)[None, :, :kv_len].contiguous()
+           for pool in (ops["k"][li], ops["v"][li])] for li in range(n_layers)]
+    mask = causal_lower_right(t, kv_len)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        return time_graph(lambda li: sdpa(qq, kv[li][0], kv[li][1], attn_mask=mask,
+                                          enable_gqa=True), n_layers, 50)
+    except Exception as exc:  # a yardstick only: record why it is missing
+        log("  sdpa yardstick refused: {}".format(str(exc).splitlines()[0][:200]))
+        return None
+
+
+# a draft-tree launch with a chunk: four verify rows of k+1 = 5 tokens at
+# 1024 history, three decode rows at 1024, one 128-token chunk ending at
+# 1024 (no row's keys reach a span past the chunk's, so none splits)
 RAGGED_TREE = [(5, 5, 1024)] * 4 + [(1, 1, 1023)] * 3 + [(128, 128, 896)]
-# a verify row's topology: a chain, or the n-gram forest at spec_branch 2
-# (a depth-3 primary branch and one root sibling)
-TREE_TOPOLOGIES = {"chain": [-1, 0, 1, 2, 3], "forest": [-1, 0, 1, 2, 0]}
+# the verify launch of phase 5d's tree arm (its chats hold 300 to 550
+# tokens): four verify rows of 5 and two decode rows, no chunk row, two idle
+# rows (R 8), on the engine's table (129 pages of 16) and flat axis (312
+# tokens): no row holds more than 3 spans' keys, so none splits
+RAGGED_VERIFY = ([(5, 5, 300), (5, 5, 380), (5, 5, 460), (5, 5, 550), (1, 1, 420), (1, 1, 500)]
+                 + [(0, 0, 0)] * 2)
+# the same launch later in longer chats: every row splits, 6 long rows of 8
+# heads into 2 spans each (of 512 to 768 keys)
+RAGGED_VERIFY_LONG = ([(5, 5, 900), (5, 5, 1100), (5, 5, 1300), (5, 5, 1500), (1, 1, 1000),
+                       (1, 1, 1400)] + [(0, 0, 0)] * 2)
+VERIFY_LAYOUT = dict(flat=312, pages_per_seq=129)
+# a verify row's topology as (parents, live nodes): a chain, the n-gram
+# forest at spec_branch 2 (a depth-3 primary branch and one root sibling),
+# and a tree whose last two nodes are dead (past its live nodes)
+TREE_TOPOLOGIES = {"chain": ([-1, 0, 1, 2, 3], 5), "forest": ([-1, 0, 1, 2, 0], 5),
+                   "dead_nodes": ([-1, 0, 0, -1, -1], 3)}
+# (shape, rows, layout, topologies timed)
+TREE_SHAPES = [("tree", RAGGED_TREE, {}, ("chain", "forest")),
+               ("verify", RAGGED_VERIFY, VERIFY_LAYOUT, ("chain", "forest")),
+               ("verify_long", RAGGED_VERIFY_LONG, VERIFY_LAYOUT, ("forest",))]
 
 
-def tree_anc_for(ops, parents):
+def tree_anc_for(ops, topology):
     """[T, k+1] ancestor lists: each verify row (5 query tokens) takes
-    ``parents``; decode and chunk tokens keep the -2 plain-causal sentinel."""
+    ``topology`` (parents, live nodes); decode and chunk tokens keep the -2
+    plain-causal sentinel."""
     from clearml_serving_tpu_torch.ops.paged_attention import tree_ancestors
 
+    parents, n_nodes = topology
     anc = torch.full((ops["q"].shape[0], len(parents)), -1, dtype=torch.int32)
     anc[:, 0] = -2
-    row_anc = torch.from_numpy(tree_ancestors(parents, width=len(parents)))
+    row_anc = torch.from_numpy(tree_ancestors(parents, n_nodes, width=len(parents)))
     for s, n in zip(ops["starts"].tolist(), ops["row_lens"].tolist()):
         if n == len(parents):
             anc[s:s + n] = row_anc
     return anc.to(ops["q"].device)
 
 
+@contextlib.contextmanager
+def fixed_span(span=None):
+    """Calls made inside run the ragged kernel with spans of ``span``
+    tokens (a multiple of 64), or with its key-range split off (None: one
+    span covering the whole table): a timing comparison only; the port
+    always takes ``ragged_split_plan``."""
+    from clearml_serving_tpu_torch.ops import paged_attention as pa
+
+    plan = pa.ragged_split_plan
+
+    def fixed(t, n_rows, hkv, pages_per_seq, page_size):
+        capacity = pages_per_seq * page_size
+        whole = -(-capacity // pa.SPLIT_QUANTUM) * pa.SPLIT_QUANTUM
+        width = min(span or whole, whole)
+        return max(1, -(-capacity // width)), width
+
+    pa.ragged_split_plan = fixed
+    try:
+        yield
+    finally:
+        pa.ragged_split_plan = plan
+
+
+TREE_PAIRS = 10  # alternating (masked, unmasked) graph replays per case
+
+
+def graph_turns(fns, n_layers, iters, turns):
+    """ms per call of each of ``fns``, each captured once in a CUDA graph
+    of ``iters`` calls (rotating through the layers) and replayed in turns
+    a, b, ..., a, b, ...: one list of ``turns`` times per function."""
+    graphs = []
+    for fn in fns:
+        for li in range(n_layers):
+            fn(li)
+        sync()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(iters):
+                fn(i % n_layers)
+        graph.replay()
+        graphs.append(graph)
+    sync()
+    times = tuple([] for _ in fns)
+    for _ in range(turns):
+        for graph, out in zip(graphs, times):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            graph.replay()
+            end.record()
+            sync()
+            out.append(start.elapsed_time(end) / iters)
+    del graphs
+    return times
+
+
 def phase_tree_kernel(gen) -> dict:
-    """The ragged kernel's draft-tree mask: chain and forest verify rows
-    beside decode rows and a chunk, bf16 and int8, against the plain
-    version; a chain topology must give the plain-causal launch's bits.
-    Then the tree launch is timed beside the same launch without the mask,
-    the plain version and the bound."""
+    """The ragged kernel's draft-tree mask at TREE_SHAPES: verify rows of
+    every topology beside decode rows (and a chunk), bf16 and int8, against
+    the plain version; a chain topology must give the plain-causal launch's
+    bits. Then each timed launch is timed beside the same launch without
+    the mask, the plain version and the bound, and at the verify shapes
+    beside the same launch with its key-range split off."""
     from clearml_serving_tpu_torch.ops.paged_attention import (
         ragged_paged_attention, ragged_paged_attention_ref,
     )
@@ -564,54 +685,81 @@ def phase_tree_kernel(gen) -> dict:
     errs = {"bf16": 0.0, "int8": 0.0}
     timings = {}
     layers = 4
-    for quant in (False, True):
-        name = "int8" if quant else "bf16"
-        for topo, parents in TREE_TOPOLOGIES.items():
-            ops = ragged_operands(gen, RAGGED_TREE, quant=quant, layers=layers)
-            anc = tree_anc_for(ops, parents)
-            errs[name] = max(errs[name], check_ragged(
-                ops, "tree shape {} {} G4 D128 P16".format(topo, name), tree_anc=anc))
-            args, kw = ragged_args(ops)
-            if topo == "chain":
-                same = torch.equal(ragged_paged_attention(*args, **kw, tree_anc=anc),
-                                   ragged_paged_attention(*args, **kw))
-                sync()
-                if not same:
-                    raise AssertionError("a chain topology changed the kernel's bits")
+    for shape, rows, layout, timed in TREE_SHAPES:
+        for quant in (False, True):
+            name = "int8" if quant else "bf16"
+            for topo, topology in TREE_TOPOLOGIES.items():
+                ops = ragged_operands(gen, rows, quant=quant, layers=layers, **layout)
+                anc = tree_anc_for(ops, topology)
+                errs[name] = max(errs[name], check_ragged(
+                    ops, "{} shape {} {} G4 D128 P16".format(shape, topo, name), tree_anc=anc))
+                args, kw = ragged_args(ops)
+                if topo == "chain":
+                    same = torch.equal(ragged_paged_attention(*args, **kw, tree_anc=anc),
+                                       ragged_paged_attention(*args, **kw))
+                    sync()
+                    if not same:
+                        raise AssertionError("a chain topology changed the kernel's bits: "
+                                             + shape)
+                if topo not in timed:
+                    continue
 
-            def kernel(li, ops=ops, anc=anc):
-                args, kw = ragged_args(ops, li)
-                ragged_paged_attention(*args, **kw, tree_anc=anc)
+                def kernel(li, ops=ops, anc=anc):
+                    args, kw = ragged_args(ops, li)
+                    ragged_paged_attention(*args, **kw, tree_anc=anc)
 
-            def untree(li, ops=ops):
-                args, kw = ragged_args(ops, li)
-                ragged_paged_attention(*args, **kw)
+                def untree(li, ops=ops):
+                    args, kw = ragged_args(ops, li)
+                    ragged_paged_attention(*args, **kw)
 
-            def plain(li, ops=ops, anc=anc):
-                args, kw = ragged_args(ops, li)
-                kw.pop("block_rows")
-                kw.pop("block_q0")
-                ragged_paged_attention_ref(*args, **kw, tree_anc=anc)
+                def unsplit(li):
+                    with fixed_span():
+                        kernel(li)
 
-            before = (ragged_paged_attention.launches, ragged_paged_attention.tree_launches)
-            # in turns (masked, unmasked, unmasked, masked): the two differ
-            # by less than the spread of back-to-back timings
-            turns = [time_launches(fn, layers, 100) for fn in (kernel, untree, untree, kernel)]
-            kernel_ms = (turns[0] + turns[3]) / 2
-            untree_ms = (turns[1] + turns[2]) / 2
-            plain_ms = time_launches(plain, layers, 4)
-            # not the main path's launches
-            ragged_paged_attention.launches, ragged_paged_attention.tree_launches = before
-            b_ms, b_by = ragged_bound(ops, anc)
-            timings["{}_{}".format(topo, name)] = dict(
-                ms=kernel_ms, untree_ms=untree_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
-            log("  tree shape {} {}: kernel_ms {:.4f} (same launch without the mask "
-                "{:.4f})  plain_ms {:.4f}  bound_ms {:.4f} ({})  ({:.1f}% of bound)".format(
-                    topo, name, kernel_ms, untree_ms, plain_ms, b_ms, b_by,
-                    100 * b_ms / kernel_ms))
-            del ops
-            torch.cuda.empty_cache()
+                def plain(li, ops=ops, anc=anc):
+                    args, kw = ragged_args(ops, li)
+                    kw.pop("block_rows")
+                    kw.pop("block_q0")
+                    ragged_paged_attention_ref(*args, **kw, tree_anc=anc)
+
+                before = (ragged_paged_attention.launches, ragged_paged_attention.tree_launches)
+                # the mask's cost: graph replays of the masked and the unmasked
+                # launch in alternating pairs (their difference is smaller than
+                # the spread of back-to-back timings)
+                masked, unmasked = graph_turns((kernel, untree), layers, 100, TREE_PAIRS)
+                kernel_ms, untree_ms = min(masked), min(unmasked)
+                diffs = sorted(a - b for a, b in zip(masked, unmasked))
+                row = dict(ms=kernel_ms, untree_ms=untree_ms,
+                           mask_cost_ms=diffs[len(diffs) // 2],
+                           mask_cost_spread_ms=[diffs[0], diffs[-1]])
+                split_note = ""
+                if shape.startswith("verify"):
+                    # the split's worth on the verify launches: the same tree
+                    # launch with one span, in alternating pairs
+                    split, whole = graph_turns((kernel, unsplit), layers, 100, TREE_PAIRS)
+                    gains = sorted(b - a for a, b in zip(split, whole))
+                    row.update(one_span_ms=min(whole), split_gain_ms=gains[len(gains) // 2],
+                               split_gain_spread_ms=[gains[0], gains[-1]])
+                    split_note = ("; with one span {:.4f}, one span - split median {:.5f}, "
+                                  "range {:.5f} .. {:.5f}".format(
+                                      min(whole), gains[len(gains) // 2], gains[0], gains[-1]))
+                eager_ms = time_launches(kernel, layers, 100)
+                plain_ms = time_launches(plain, layers, 4)
+                # not the main path's launches
+                ragged_paged_attention.launches, ragged_paged_attention.tree_launches = before
+                b_ms, b_by = ragged_bound(ops, anc)
+                row.update(eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           share=b_ms / kernel_ms)
+                timings["{}_{}_{}".format(shape, topo, name)] = row
+                log("  {} shape {} {}: graph_ms {:.4f} (same launch without the mask {:.4f}; "
+                    "masked - unmasked over {} alternating pairs: median {:.5f}, range {:.5f} "
+                    ".. {:.5f}{})  eager_ms {:.4f}  plain_ms {:.4f}  bound_ms {:.4f} ({})  "
+                    "({:.1f}% of bound)".format(
+                        shape, topo, name, kernel_ms, untree_ms, len(diffs),
+                        diffs[len(diffs) // 2], diffs[0], diffs[-1], split_note, eager_ms,
+                        plain_ms, b_ms, b_by, 100 * b_ms / kernel_ms))
+                del ops
+                torch.cuda.empty_cache()
     return dict(err_bf16=errs["bf16"], err_int8=errs["int8"], timings=timings)
 
 
@@ -1094,7 +1242,7 @@ def phase_small_verify(gen_seed: int) -> None:
         tokens[s:s + n] = prompt[slot, hist:hist + n]
         depth = torch.tensor(depth_of[topo]) if topo else torch.arange(n)
         if topo:
-            anc[s:s + n] = torch.from_numpy(tree_ancestors(TREE_TOPOLOGIES[topo], width=5))
+            anc[s:s + n] = torch.from_numpy(tree_ancestors(*TREE_TOPOLOGIES[topo], width=5))
         tok_pos[s:s + n] = hist + depth
         tok_row[s:s + n] = slot
         tok_valid[s:s + n] = True
@@ -1355,8 +1503,9 @@ def phase_main_path(params, kv_quant: str, preset: str = "llama3-8b", weight_qua
 
 def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "") -> dict:
     """The bf16-KV main-path run of a scheduler once more under torch.profiler:
-    device time by kernel name and the device's busy share of the run's
-    wall time (the union of kernel intervals). Profiling adds host
+    device time by kernel name, each ported kernel's time (the union of
+    its grids' intervals) and the device's busy share of the run's wall
+    time (the union of all kernel intervals). Profiling adds host
     overhead, so these shares describe this pass only."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1379,26 +1528,35 @@ def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "
     torch.cuda.empty_cache()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name, spans = {}, []
+    by_name = {}
     for e in kernels:
-        t0, t1 = e.time_range.start, e.time_range.end
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0) / 1e3
-        spans.append((t0, t1))
-    busy, end = 0.0, None
-    for t0, t1 in sorted(spans):
-        if end is None or t0 > end:
-            busy += t1 - t0
-            end = t1
-        elif t1 > end:
-            busy += t1 - end
-            end = t1
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + (e.time_range.end - e.time_range.start) / 1e3)
+
+    def busy_ms(match=lambda name: True):
+        """ms of the union of the matching kernels' intervals: a grid
+        launched as a programmatic dependent shows from its early start,
+        while it waits on the grid before it, so a sum would count the
+        overlap twice."""
+        busy, end = 0.0, None
+        for t0, t1 in sorted((e.time_range.start, e.time_range.end)
+                             for e in kernels if match(e.name)):
+            if end is None or t0 > end:
+                busy += t1 - t0
+                end = t1
+            elif t1 > end:
+                busy += t1 - end
+                end = t1
+        return busy / 1e3
+
+    busy = busy_ms() * 1e3
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # the decode kernel's two grids (csrc/paged_attention.cu)
-    attn = sum(v for k, v in by_name.items()
-               if "paged_split_kernel" in k or "paged_combine_kernel" in k)
-    ragged = sum(v for k, v in by_name.items() if "ragged_attention_kernel" in k)
-    int4 = sum(v for k, v in by_name.items() if "w4a16_" in k)
+    attn = busy_ms(lambda k: "paged_split_kernel" in k or "paged_combine_kernel" in k)
+    # the ragged kernel's two grids (csrc/ragged_paged_attention.cu)
+    ragged = busy_ms(lambda k: "ragged_attention_" in k)
+    int4 = busy_ms(lambda k: "w4a16_" in k)
     out = dict(scheduler=scheduler, weights=weight_quant or "bf16", wall_ms=wall * 1e3,
                device_busy_ms=busy / 1e3, busy_share=busy / 1e3 / (wall * 1e3),
                kernel_ms=total, paged_attention_ms=attn, ragged_attention_ms=ragged,
@@ -1716,13 +1874,32 @@ def compare_spec_streams(spec_runs, model=None) -> None:
                 run["greedy_vs_plain"], run.get("greedy_vs_chain", "n/a")))
 
 
+def llama3_8b_params() -> dict:
+    """Phase 5's weights: Llama-3-8B at full width on the card, random from
+    seed 0. Random weights emit random ids; the byte tokenizer renders only
+    ids < 256, so the lm_head keeps its columns for the 256 byte ids and
+    zeroes the rest: the model then writes text (and never EOS)."""
+    from clearml_serving_tpu_torch.models.llama import init_params
+
+    t0 = time.perf_counter()
+    params = init_params({"preset": "llama3-8b"}, torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    params["lm_head"][:, 256:] = 0
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for t in
+                  [params["embed"], params["lm_head"], params["final_norm"]]
+                  + [w for layer in params["layers"] for w in layer.values()])
+    log("  weights {:.2f} GB made in {:.1f} s".format(n_bytes / 1e9, time.perf_counter() - t0))
+    return params
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU",
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from clearml_serving_tpu_torch.models.llama import Llama, init_params
+    from clearml_serving_tpu_torch.models.llama import Llama
     from clearml_serving_tpu_torch.ops import _build
     from clearml_serving_tpu_torch.ops.quant import quantize_llama_params
 
@@ -1759,18 +1936,7 @@ def main() -> int:
     phase_small_ragged(0, "int4")
 
     log("phase 5: main path, llama3-8b full width bf16 behind the HTTP server")
-    t0 = time.perf_counter()
-    cfg = {"preset": "llama3-8b"}
-    params = init_params(cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
-    # random weights emit random ids; the byte tokenizer renders only ids
-    # < 256, so the lm_head keeps its columns for the 256 byte ids and
-    # zeroes the rest: the model then writes text (and never EOS)
-    params["lm_head"][:, 256:] = 0
-    sync()
-    n_bytes = sum(t.numel() * t.element_size() for t in
-                  [params["embed"], params["lm_head"], params["final_norm"]]
-                  + [w for layer in params["layers"] for w in layer.values()])
-    log("  weights {:.2f} GB made in {:.1f} s".format(n_bytes / 1e9, time.perf_counter() - t0))
+    params = llama3_8b_params()
     runs = [phase_main_path(params, ""), phase_main_path(params, "int8")]
     log("phase 5b: ragged main path, llama3-8b full width, scheduler ragged, "
         "step_token_budget 256")
@@ -1847,20 +2013,29 @@ def main() -> int:
         "max_abs_err": rkern["err_bf16"],
         "max_err_bf16": rkern["err_bf16"],
         "max_err_int8": rkern["err_int8"],
-        # primary shape: the mixed launch (7 decode rows at 1024 + a 128-token chunk)
+        # primary shape: the mixed launch (7 decode rows at 1024 + a 128-token
+        # chunk); CUDA-graph device time (eager_ms: calls one after another
+        # through the wrapper)
         "ms": rt["mixed_bf16"]["ms"],
+        "eager_ms": rt["mixed_bf16"]["eager_ms"],
         "plain_ms": rt["mixed_bf16"]["plain_ms"],
         "bound_ms": rt["mixed_bf16"]["bound_ms"],
         "bound_by": rt["mixed_bf16"]["bound_by"],
         "library_ms": None,
         "ms_int8": rt["mixed_int8"]["ms"],
+        "eager_ms_int8": rt["mixed_int8"]["eager_ms"],
         "plain_ms_int8": rt["mixed_int8"]["plain_ms"],
         "bound_ms_int8": rt["mixed_int8"]["bound_ms"],
         # one 512-token chunk at history 1536
         "ms_prefill": rt["prefill_bf16"]["ms"],
+        "eager_ms_prefill": rt["prefill_bf16"]["eager_ms"],
         "plain_ms_prefill": rt["prefill_bf16"]["plain_ms"],
         "bound_ms_prefill": rt["prefill_bf16"]["bound_ms"],
         "bound_by_prefill": rt["prefill_bf16"]["bound_by"],
+        # a yardstick that reads no page table: SDPA, lower-right causal,
+        # over the prefill row's K/V gathered contiguous
+        "sdpa_gathered_ms_prefill": rt["prefill_bf16"]["sdpa_gathered_ms"],
+        "per_case": [dict(case=name, **row) for name, row in rt.items()],
     }, {
         "name": "ragged_paged_attention[tree_anc]",
         "route": "cuda",
@@ -1873,20 +2048,32 @@ def main() -> int:
         "max_abs_err": tkern["err_bf16"],
         "max_err_bf16": tkern["err_bf16"],
         "max_err_int8": tkern["err_int8"],
-        # primary shape: 4 forest verify rows of 5 at 1024 history, 3 decode
-        # rows at 1024, a 128-token chunk
-        "ms": tt["forest_bf16"]["ms"],
-        "plain_ms": tt["forest_bf16"]["plain_ms"],
-        "bound_ms": tt["forest_bf16"]["bound_ms"],
-        "bound_by": tt["forest_bf16"]["bound_by"],
+        # primary shape: phase 5d's verify launch (4 forest verify rows of 5 at
+        # 300-550 history, 2 decode rows, every row's keys split); CUDA-graph
+        # device time (eager_ms: calls one after another)
+        "ms": tt["verify_forest_bf16"]["ms"],
+        "eager_ms": tt["verify_forest_bf16"]["eager_ms"],
+        "plain_ms": tt["verify_forest_bf16"]["plain_ms"],
+        "bound_ms": tt["verify_forest_bf16"]["bound_ms"],
+        "bound_by": tt["verify_forest_bf16"]["bound_by"],
         "library_ms": None,
-        # the same launch without the mask, timed in turns with it
-        "ms_without_mask": tt["forest_bf16"]["untree_ms"],
-        "ms_chain": tt["chain_bf16"]["ms"],
-        "ms_int8": tt["forest_int8"]["ms"],
-        "ms_int8_without_mask": tt["forest_int8"]["untree_ms"],
-        "plain_ms_int8": tt["forest_int8"]["plain_ms"],
-        "bound_ms_int8": tt["forest_int8"]["bound_ms"],
+        # the same launch without the mask, in graph replays alternating
+        # with it; mask_cost_ms: the median of the pairs' differences
+        "ms_without_mask": tt["verify_forest_bf16"]["untree_ms"],
+        "mask_cost_ms": tt["verify_forest_bf16"]["mask_cost_ms"],
+        # the same launch with one span (split off), alternating with it;
+        # split_gain_ms: the median of (one span - split)
+        "ms_one_span": tt["verify_forest_bf16"]["one_span_ms"],
+        "split_gain_ms": tt["verify_forest_bf16"]["split_gain_ms"],
+        "ms_chain": tt["verify_chain_bf16"]["ms"],
+        "ms_int8": tt["verify_forest_int8"]["ms"],
+        "eager_ms_int8": tt["verify_forest_int8"]["eager_ms"],
+        "ms_int8_without_mask": tt["verify_forest_int8"]["untree_ms"],
+        "mask_cost_ms_int8": tt["verify_forest_int8"]["mask_cost_ms"],
+        "ms_int8_one_span": tt["verify_forest_int8"]["one_span_ms"],
+        "plain_ms_int8": tt["verify_forest_int8"]["plain_ms"],
+        "bound_ms_int8": tt["verify_forest_int8"]["bound_ms"],
+        "per_case": [dict(case=name, **row) for name, row in tt.items()],
     }, {
         "name": "fused_int4_matmul",
         "route": "cuda",

@@ -123,10 +123,11 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn = lib.tpu_torch_ragged_paged_attention
             # q, k_pool, v_pool, k_scale, v_scale, page_table, kv_lens,
-            # row_lens, block_rows, block_q0, tree_anc, out; n_blocks, hkv,
-            # groups, head_dim, n_pages, page_size, pages_per_seq, n_rows,
-            # kv_int8, tree_width; stream
-            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            # row_starts, row_lens, block_rows, block_q0, tree_anc, out,
+            # part_acc, part_m, part_l; n_blocks, hkv, groups, head_dim,
+            # n_pages, page_size, pages_per_seq, n_rows, kv_int8, tree_width,
+            # splits, span; stream
+            fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fn = lib.tpu_torch_fused_int4_matmul
             # x, packed, scale, out, workspace; m, k, n, group;

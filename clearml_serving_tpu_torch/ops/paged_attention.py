@@ -262,6 +262,34 @@ paged_attention.launches = 0
 RAGGED_QB = 8
 
 
+@functools.lru_cache(maxsize=256)
+def ragged_split_plan(t: int, n_rows: int, hkv: int, pages_per_seq: int, page_size: int):
+    """(splits, span) of the ragged kernel's key-range split, from shapes
+    alone (never from ``kv_lens``, ``row_lens`` or the block map, which live
+    on the device: reading them would synchronise the host and break
+    CUDA-graph capture). Only a row of at most ``RAGGED_QB`` queries splits,
+    so at most min(T/RAGGED_QB, R) rows split; the plan is ``split_plan``'s
+    for that many rows: ``splits`` span slots a row and the least span,
+    ``span`` tokens (at least ``SPLIT_MIN_SPAN``, a multiple of
+    ``SPLIT_QUANTUM``), ``splits * span`` covering the table's
+    ``pages_per_seq * page_size`` tokens. The kernel decides on the device
+    which rows split and into how many of the slots (spans of ``span``
+    tokens or wider): those whose keys exceed 3 spans and a span past the
+    launch's longest prefill chunk. At the engine's shapes (T 312, R 8,
+    Hkv 8, 129 pages of 16) that is 9 slots of 256 tokens."""
+    return split_plan(max(1, min(t // RAGGED_QB, n_rows)), hkv, pages_per_seq, page_size)
+
+
+def ragged_partial_sizes(n_rows: int, hkv: int, splits: int, groups: int, head_dim: int):
+    """(acc, m) element counts of the ragged kernel's f32 partials for a
+    split plan: acc [R, Hkv, S, RAGGED_QB, G, D], m and l [R, Hkv, S,
+    RAGGED_QB, G] each; none when nothing splits (S = 1)."""
+    if splits == 1:
+        return 0, 0
+    n_ml = n_rows * hkv * splits * RAGGED_QB * groups
+    return n_ml * head_dim, n_ml
+
+
 def ragged_layout(row_lens, q_block: int = RAGGED_QB, total: Optional[int] = None):
     """Host-side layout of a ragged batch: returns (row_starts [R],
     block_rows [NB], block_q0 [NB], t_pad) as numpy int32, with every row's
@@ -397,7 +425,8 @@ def check_ragged_gates(q, k_pool, v_pool, page_table, kv_lens, row_starts, row_l
         need(tuple(x.shape) == (t // RAGGED_QB,) and x.dtype == torch.int32, "block_map",
              "{} must be int32 [T/RAGGED_QB={}], got {} {}".format(
                  name, t // RAGGED_QB, x.dtype, tuple(x.shape)))
-    operands = [q, k_pool, v_pool, page_table, kv_lens, row_lens, block_rows, block_q0]
+    operands = [q, k_pool, v_pool, page_table, kv_lens, row_starts, row_lens, block_rows,
+                block_q0]
     if tree_anc is not None:
         need(tree_anc.dtype == torch.int32 and tree_anc.dim() == 2
              and tree_anc.shape[0] == t
@@ -422,11 +451,14 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, kv_lens, row_starts, r
     CPU tensors take ``ragged_paged_attention_ref`` (which needs no block
     map and packs rows densely or aligned alike); CUDA tensors launch the
     kernel on the current stream (no synchronisation) or raise. The kernel
-    reads the row map through ``block_rows``/``block_q0`` and ignores
-    ``row_starts``. ``tree_anc`` ([T, DMAX] int32, ``tree_ancestors``
-    layout, -2 in column 0 for plain-causal tokens) selects the kernel's
-    draft-tree mask; it is counted in ``.launches`` like any other launch,
-    and in ``.tree_launches`` besides."""
+    reads the row map through ``block_rows``/``block_q0``, and a short
+    row's block through ``row_starts`` (``ragged_layout``'s). On CUDA a call
+    is two grids, the attention (short rows' keys split by
+    ``ragged_split_plan``) and the combine of the split rows' f32 partials,
+    and counts one launch. ``tree_anc`` ([T, DMAX] int32,
+    ``tree_ancestors`` layout, -2 in column 0 for plain-causal tokens)
+    selects the kernel's draft-tree mask; it is counted in ``.launches``
+    like any other launch, and in ``.tree_launches`` besides."""
     if k_pool.dtype == torch.int8 and k_scale is None:
         raise ValueError("int8 KV pools need k_scale/v_scale operands (per-token dequant)")
     if q.device.type == "cpu":
@@ -438,18 +470,27 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, kv_lens, row_starts, r
                        block_rows, block_q0, k_scale, v_scale, tree_anc)
     t, hkv, g, d = q.shape
     _, n_pages, page_size, _ = k_pool.shape
+    n_rows, pages_per_seq = page_table.shape
+    splits, span = ragged_split_plan(t, n_rows, hkv, pages_per_seq, page_size)
     out = torch.empty_like(q)
+    # the f32 partials in one buffer: acc, then m and l (one allocation: the
+    # wrapper's host time is part of every eager ragged step)
+    n_acc, n_ml = ragged_partial_sizes(n_rows, hkv, splits, g, d)
+    part = acc = m = l = None
+    if n_acc:
+        part = torch.empty(n_acc + 2 * n_ml, dtype=torch.float32, device=q.device)
+        acc = part.data_ptr()
+        m, l = acc + 4 * n_acc, acc + 4 * (n_acc + n_ml)
     quantized = k_pool.dtype == torch.int8
     rc = load_library().tpu_torch_ragged_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        page_table.data_ptr(), kv_lens.data_ptr(), row_lens.data_ptr(),
+        page_table.data_ptr(), kv_lens.data_ptr(), row_starts.data_ptr(), row_lens.data_ptr(),
         block_rows.data_ptr(), block_q0.data_ptr(),
-        tree_anc.data_ptr() if tree_anc is not None else None, out.data_ptr(),
-        t // RAGGED_QB, hkv, g, d, n_pages, page_size, page_table.shape[1],
-        page_table.shape[0], int(quantized),
-        tree_anc.shape[1] if tree_anc is not None else 0,
+        tree_anc.data_ptr() if tree_anc is not None else None, out.data_ptr(), acc, m, l,
+        t // RAGGED_QB, hkv, g, d, n_pages, page_size, pages_per_seq, n_rows, int(quantized),
+        tree_anc.shape[1] if tree_anc is not None else 0, splits, span,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:

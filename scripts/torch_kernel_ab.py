@@ -18,8 +18,10 @@ CUDA-graph replays, called one after another (``eager_ms``) and as host
 enqueue time per call (``host_us``), through either C entry point (with or
 without the key-range split's partials, detected from the source), with
 two-call bit equality of the change; ``--kernel ragged`` times ragged
-attention at chip_smoke.py's mixed
-and prefill shapes; ``--kernel int4`` times the w4a16 matmul at every
+attention the same way (either C entry point: with or without the draft-tree
+mask, with or without the short rows' key-range split) at chip_smoke.py's
+mixed, prefill and draft-tree shapes (chain, forest and dead-node verify
+rows) and a batch of mixed rows; ``--kernel int4`` times the w4a16 matmul at every
 Llama-3-8B projection shape at M 1, 8, 16, 40, 64, 312 and 2048 (the
 lm_head up to 312; ``--rows`` picks a subset), in CUDA-graph replays
 rotating through copies of the weights that together exceed the L2, and
@@ -54,6 +56,8 @@ from clearml_serving_tpu_torch.ops.paged_attention import (  # noqa: E402
     RAGGED_QB,
     paged_attention_ref,
     ragged_paged_attention_ref,
+    ragged_partial_sizes,
+    ragged_split_plan,
     split_plan,
 )
 from clearml_serving_tpu_torch.ops.quant import dequantize_int4, quantize_int4  # noqa: E402
@@ -85,6 +89,8 @@ RAGGED_CASES = {
     "mixed_rows": [(1, 1, 1023), (4, 1, 300), (37, 37, 0), (0, 0, 0), (19, 19, 77),
                    (130, 130, 517), (1, 1, 64)],
 }
+# chip_smoke.py's draft-tree launch, with chain, forest and dead-node verify rows
+RAGGED_TREE_CASES = {"tree_" + topo: topology for topo, topology in cs.TREE_TOPOLOGIES.items()}
 
 
 def has_split_partials(root: Path) -> bool:
@@ -110,59 +116,103 @@ def has_tree_mask(root: Path) -> bool:
     return "tree_anc" in src.read_text()
 
 
-def ragged_entry(lib: ctypes.CDLL, tree_mask: bool):
+def has_ragged_split(root: Path) -> bool:
+    """Whether a checkout's ragged kernel splits short rows' keys across
+    CTAs: its C entry point then takes row_starts, the f32 partials'
+    pointers, the split count and the span."""
+    src = root / "clearml_serving_tpu_torch" / "csrc" / "ragged_paged_attention.cu"
+    return "part_acc" in src.read_text()
+
+
+def ragged_entry(lib: ctypes.CDLL, tree_mask: bool, split: bool):
     fn = lib.tpu_torch_ragged_paged_attention
-    n_ptr, n_int = (12, 10) if tree_mask else (11, 9)
+    n_ptr, n_int = (16, 12) if split else (12, 10) if tree_mask else (11, 9)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, tree_mask
+    return fn, tree_mask, split
 
 
-def ragged_launch(entry, out, q, k, v, table, kv_lens, _starts, row_lens, *, block_rows,
-                  block_q0, k_scale=None, v_scale=None):
-    """One launch without the tree mask, through either entry point."""
-    fn, tree_mask = entry
+def ragged_launch(entry, out, q, k, v, table, kv_lens, starts, row_lens, *, block_rows,
+                  block_q0, k_scale=None, v_scale=None, tree_anc=None):
+    """One launch through any of the three entry points; the split one gets
+    its f32 partials allocated here as the wrapper does (one buffer)."""
+    fn, tree_mask, split = entry
     quant = k.dtype == torch.int8
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-            table.data_ptr(), kv_lens.data_ptr(), row_lens.data_ptr(), block_rows.data_ptr(),
-            block_q0.data_ptr()] + ([None] if tree_mask else []) + [out.data_ptr()]
-    ints = [q.shape[0] // RAGGED_QB, q.shape[1], q.shape[2], q.shape[3], k.shape[1],
-            k.shape[2], table.shape[1], table.shape[0], int(quant)] + ([0] if tree_mask else [])
+    t, hkv, g, d = q.shape
+    n_rows, pages_per_seq = table.shape
+    scales = [k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None]
+    tree = [tree_anc.data_ptr() if tree_anc is not None else None] if tree_mask else []
+    width = [tree_anc.shape[1] if tree_anc is not None else 0] if tree_mask else []
+    ints = [t // RAGGED_QB, hkv, g, d, k.shape[1], k.shape[2], pages_per_seq, n_rows,
+            int(quant)] + width
+    if split:
+        splits, span = ragged_split_plan(t, n_rows, hkv, pages_per_seq, k.shape[2])
+        n_acc, n_ml = ragged_partial_sizes(n_rows, hkv, splits, g, d)
+        part, buf = [None] * 3, None
+        if n_acc:
+            buf = torch.empty(n_acc + 2 * n_ml, dtype=torch.float32, device=q.device)
+            acc = buf.data_ptr()
+            part = [acc, acc + 4 * n_acc, acc + 4 * (n_acc + n_ml)]
+        ptrs = ([q.data_ptr(), k.data_ptr(), v.data_ptr()] + scales
+                + [table.data_ptr(), kv_lens.data_ptr(), starts.data_ptr(), row_lens.data_ptr(),
+                   block_rows.data_ptr(), block_q0.data_ptr()] + tree + [out.data_ptr()] + part)
+        ints += [splits, span]
+    else:
+        ptrs = ([q.data_ptr(), k.data_ptr(), v.data_ptr()] + scales
+                + [table.data_ptr(), kv_lens.data_ptr(), row_lens.data_ptr(),
+                   block_rows.data_ptr(), block_q0.data_ptr()] + tree + [out.data_ptr()])
     rc = fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError("launch failed: cudaError {}".format(rc))
 
 
 def ab_ragged(fns, gen, layers) -> None:
+    """Per case and pool type: both kernels against the plain version,
+    bitwise equality (expected false against a checkout without the split:
+    the summation order differs) and two-call equality of the change, then
+    CUDA-graph device times, eager times and host enqueue times in turns
+    baseline, change, change, baseline, beside the bound and its share."""
+    cases = [(case, rows, None) for case, rows in RAGGED_CASES.items()]
+    cases += [(case, cs.RAGGED_TREE, topology) for case, topology in RAGGED_TREE_CASES.items()]
     for quant in (False, True):
-        for case, rows in RAGGED_CASES.items():
+        for case, rows, topology in cases:
             ops = cs.ragged_operands(gen, rows, quant=quant, layers=layers)
+            anc = cs.tree_anc_for(ops, topology) if topology is not None else None
             argl = [cs.ragged_args(ops, li) for li in range(layers)]
             args, kw = argl[0]
             q, k, v = args[:3]
             scales = {key: kw[key] for key in ("k_scale", "v_scale") if key in kw}
             ref = ragged_paged_attention_ref(q.float(), k if quant else k.float(),
-                                             v if quant else v.float(), *args[3:], **scales)
-            b_ms, b_by = cs.ragged_bound(ops)
+                                             v if quant else v.float(), *args[3:], **scales,
+                                             tree_anc=anc)
+            b_ms, b_by = cs.ragged_bound(ops, anc)
             row = {"case": case, "kv": "int8" if quant else "bf16",
                    "bound_ms": b_ms, "bound_by": b_by}
             outs = {}
             for name, fn in fns.items():
                 outs[name] = torch.empty_like(q)
-                ragged_launch(fn, outs[name], *args, **kw)
+                ragged_launch(fn, outs[name], *args, **kw, tree_anc=anc)
+            again = torch.empty_like(q)
+            ragged_launch(fns["change"], again, *args, **kw, tree_anc=anc)
             torch.cuda.synchronize()
             for name in fns:
                 row[name + "_max_abs_err"] = float((outs[name].float() - ref).abs().max())
                 if not torch.allclose(outs[name].float(), ref, rtol=cs.TOL, atol=cs.TOL):
                     raise AssertionError("{} disagrees with the plain version".format(name))
             row["bitwise_equal"] = bool(torch.equal(outs["change"], outs["baseline"]))
+            row["deterministic"] = bool(torch.equal(outs["change"], again))
+            if not row["deterministic"]:
+                raise AssertionError("two calls of the change on the same inputs differ")
             for name in ("baseline", "change", "change", "baseline"):
 
                 def call(li, fn=fns[name], out=outs[name]):
-                    ragged_launch(fn, out, *argl[li][0], **argl[li][1])
+                    ragged_launch(fn, out, *argl[li][0], **argl[li][1], tree_anc=anc)
 
-                row.setdefault(name + "_ms", []).append(cs.time_launches(call, layers, 300))
+                row.setdefault(name + "_ms", []).append(cs.time_graph(call, layers, 300))
+                row.setdefault(name + "_eager_ms", []).append(cs.time_launches(call, layers, 300))
+                row.setdefault(name + "_host_us", []).append(host_us(call, layers))
+            for name in ("baseline", "change"):
+                row[name + "_share_of_bound"] = b_ms / min(row[name + "_ms"])
             print(json.dumps(row), flush=True)
             del ops, argl
             torch.cuda.empty_cache()
@@ -404,9 +454,11 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     layers = 4
     if args.kernel == "ragged":
-        ab_ragged({"change": ragged_entry(_build.load_library(), has_tree_mask(ROOT)),
+        ab_ragged({"change": ragged_entry(_build.load_library(), has_tree_mask(ROOT),
+                                          has_ragged_split(ROOT)),
                    "baseline": ragged_entry(build_baseline(args.baseline),
-                                            has_tree_mask(args.baseline))}, gen, layers)
+                                            has_tree_mask(args.baseline),
+                                            has_ragged_split(args.baseline))}, gen, layers)
         return 0
     if args.kernel == "int4":
         ab_int4({"change": int4_entry(_build.load_library(), has_int4_workspace(ROOT)),

@@ -30,6 +30,7 @@ from clearml_serving_tpu_torch.ops.paged_attention import (
     ragged_layout,
     ragged_paged_attention,
     ragged_paged_attention_ref,
+    ragged_split_plan,
     split_plan,
     tree_ancestors,
 )
@@ -204,7 +205,7 @@ RAGGED_ROWS = [(1, 1, 40), (4, 1, 17), (13, 13, 0), (0, 0, 0), (9, 9, 35), (1, 1
 
 
 def _ragged_operands(dev, *, g, d, page_size, quant, rows=RAGGED_ROWS, hkv=4, seed=0,
-                     extra_blocks=2):
+                     extra_blocks=2, pp=None):
     gen = torch.Generator(dev).manual_seed(seed)
     spans = [s for s, _, _ in rows]
     row_lens = torch.tensor([n for _, n, _ in rows], dtype=torch.int32)
@@ -214,7 +215,7 @@ def _ragged_operands(dev, *, g, d, page_size, quant, rows=RAGGED_ROWS, hkv=4, se
     block_rows = list(block_rows) + [-1] * extra_blocks
     block_q0 = list(block_q0) + [0] * extra_blocks
     r = len(rows)
-    pp = -(-int(kv_lens.max()) // page_size) + 1
+    pp = pp or -(-int(kv_lens.max()) // page_size) + 1
     n = r * pp + 1
     q = torch.randn(t_pad, hkv, g, d, generator=gen, device=dev).bfloat16()
     k = torch.randn(hkv, n, page_size, d, generator=gen, device=dev).bfloat16()
@@ -321,6 +322,127 @@ def test_ragged_engine_on_the_card_runs_both_kernels(cuda):
     pool = engine.paged_cache.pool
     assert pool.free_pages == pool.num_pages - 1
 
+
+
+# -- the ragged kernel's key-range split ------------------------------------------
+
+SPLIT_CAPACITY = 1600  # a table of 100 pages of 16 (50 of 32): 7 slots of 256
+
+
+def _split_rows(page_size):
+    """(rows, capacity, span): decode rows at every boundary of the split
+    (1, a page, a span's edges, 3 span, the longest that does not split, 3
+    span + 1, the shortest that does, 4 span and 4 span + 1, the capacity;
+    the kernel splits rows whose keys exceed 3 spans and a span past the
+    launch's longest chunk, 130 keys here, into at most max(2, 128 / (8
+    long rows * 4 heads)) = 4 spans: of 256 up to 4 span keys, of 320 at 4
+    span + 1, of 448 at the capacity), verify rows of 5 queries at 3 span +
+    1 (queries 0-3 see nothing in the last span) and at the capacity, a
+    4-token multi-step span, rows of 8 (the longest that splits), 9 (the
+    shortest that does not) and 130 queries, an idle row."""
+    span = 256
+    cap = SPLIT_CAPACITY
+    rows = [(1, 1, n - 1) for n in (1, page_size - 1, page_size, span - 1, span, span + 1,
+                                    3 * span, 3 * span + 1, 4 * span, 4 * span + 1, cap)]
+    rows += [(5, 5, 3 * span - 4), (5, 5, cap - 5), (4, 1, 900), (8, 8, 3 * span + 3),
+             (9, 9, 0), (130, 130, 0), (0, 0, 0)]
+    return rows, cap, span
+
+
+def _split_operands(cuda, *, g, d, page_size, quant, seed=0):
+    rows, cap, span = _split_rows(page_size)
+    args, blocks, scales = _ragged_operands(cuda, g=g, d=d, page_size=page_size, quant=quant,
+                                            rows=rows, seed=seed, pp=cap // page_size)
+    t, hkv = args[0].shape[:2]
+    assert ragged_split_plan(t, len(rows), hkv, cap // page_size, page_size) == (7, span)
+    return rows, args, blocks, scales
+
+
+def _poisoned(args, page_size):
+    """The page table with every entry past each row's kv_len out of range
+    (a read of one would fault)."""
+    table, kv_lens = args[3], args[4]
+    poisoned = table.clone()
+    for i, n in enumerate(kv_lens.tolist()):
+        poisoned[i, -(-n // page_size):] = 2 ** 30
+    return (*args[:3], poisoned, *args[4:])
+
+
+@pytest.mark.parametrize("page_size", [16, 32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_ragged_kernel_at_every_span_boundary(cuda, quant, g, d, page_size):
+    _rows, args, blocks, scales = _split_operands(cuda, g=g, d=d, page_size=page_size,
+                                                  quant=quant)
+    out = ragged_paged_attention(*args, **blocks, **scales)
+    q, k, v = args[:3]
+    ref = ragged_paged_attention_ref(q.float(), k if quant else k.float(),
+                                     v if quant else v.float(), *args[3:], **scales)
+    out2 = ragged_paged_attention(*_poisoned(args, page_size), **blocks, **scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    assert torch.equal(out, out2)
+    owned = _owned(args)
+    # multi-step pads, dead queries of split blocks and unowned blocks: exact zeros
+    assert torch.equal(out[~owned], torch.zeros_like(out[~owned]))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_ragged_two_calls_give_equal_bits(cuda, quant):
+    _rows, args, blocks, scales = _split_operands(cuda, g=4, d=128, page_size=16, quant=quant)
+    before = ragged_paged_attention.launches
+    out = ragged_paged_attention(*args, **blocks, **scales)
+    again = ragged_paged_attention(*args, **blocks, **scales)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.launches == before + 2  # two grids a call, one count
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_ragged_graph_captured_call_gives_the_eager_bits(cuda, quant):
+    # a host read of a device value in the wrapper would make the capture raise
+    _rows, args, blocks, scales = _split_operands(cuda, g=4, d=128, page_size=16, quant=quant)
+    eager = ragged_paged_attention(*args, **blocks, **scales)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ragged_paged_attention(*args, **blocks, **scales)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    # new histories, same graph: no length was baked in on the host (each
+    # short row 97 keys longer: other rows split, into spans of other widths)
+    kv_lens, row_lens = args[4], args[6]
+    short = ((row_lens >= 1) & (row_lens <= RAGGED_QB)).int()
+    kv_lens.copy_(torch.minimum(kv_lens + 97 * short,
+                                torch.tensor(SPLIT_CAPACITY, dtype=torch.int32, device=cuda)))
+    graph.replay()
+    ref = ragged_paged_attention(*args, **blocks, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, ref)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_ragged_split_tree_rows(cuda, quant):
+    """Verify rows whose keys are split: a forest masks only the span that
+    holds the row's own keys (within 2e-2 of the plain version), and a
+    chain gives the unmasked launch's bits; each tree call counts one
+    launch and one tree launch, a plain call no tree launch."""
+    rows, args, blocks, scales = _split_operands(cuda, g=4, d=128, page_size=16, quant=quant)
+    verify = {i: TOPOLOGIES["forest"] for i, (_s, n, _h) in enumerate(rows) if n == 5}
+    assert len(verify) == 2
+    forest = _tree_anc(args, rows, verify, width=5)
+    chain = _tree_anc(args, rows, {i: TOPOLOGIES["chain"] for i in verify}, width=5)
+    launches, tree_launches = (ragged_paged_attention.launches,
+                               ragged_paged_attention.tree_launches)
+    _check_tree(args, blocks, scales, forest, quant)
+    masked = ragged_paged_attention(*args, **blocks, **scales, tree_anc=chain)
+    plain = ragged_paged_attention(*args, **blocks, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(masked, plain)
+    assert ragged_paged_attention.launches == launches + 3
+    assert ragged_paged_attention.tree_launches == tree_launches + 2
 
 
 # -- the draft-tree mask -----------------------------------------------------------
