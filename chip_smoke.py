@@ -66,8 +66,18 @@ exits non-zero before the result lines are printed:
    tokens per launch, TTFT and tokens/s per arm, and whether the greedy
    streams equal the plain arm's (reported, not asserted; where a greedy
    stream leaves the plain arm's, the top-2 logit margin at that token);
-6. where the time goes: one profiled pass of each scheduler (bf16 KV), one
-   of phase 5d's tree arm and one of the two-dispatch path on int4 weights.
+5e. pipelined decode: one decode chunk (8 rows at 0-1500 tokens, 4 steps)
+   captured into a CUDA graph and replayed must equal the eager chunk on a
+   clone of its pools bit for bit, tokens and pages, for bf16 and int8 KV
+   and int4 weights, greedy and sampled (a replay counts n_layers x 4
+   decode-attention and 225 x 4 int4 launches, a capture none); then phase
+   5's traffic and a steadier one (eight chats of 128 tokens) at depth 1
+   (serial, eager) and depth 2 (graphs captured by the endpoint's
+   ``warmup``): equal greedy contents, no capture while serving, and each
+   arm's wall ms per decode step, dispatch and retire ms and tok/s;
+6. where the time goes: one profiled pass of each scheduler (bf16 KV; the
+   two-dispatch path at depth 2 and at depth 1), one of phase 5d's tree arm
+   and one of the two-dispatch path on int4 weights.
 
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, and the ragged kernel's tree variant) and
@@ -1353,10 +1363,13 @@ async def post_chat(session, url, prompt, stream, max_tokens, sampling=None):
                     total_s=time.perf_counter() - t0)
 
 
-async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None, prompts=PROMPTS):
-    """Start the port's app on a local port, warm it up with the same
-    prompts (first-use costs of every prefill bucket), zero the counts, POST
-    the chats concurrently (the first two streaming) and read the counts."""
+async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None, prompts=PROMPTS,
+                         warmup="off"):
+    """Start the port's app on a local port (aux ``engine.warmup`` mode
+    ``warmup``), warm it up with the same prompts (first-use costs of every
+    prefill bucket), zero the counts (their values at that point are kept
+    as ``warm_counters``), POST the chats concurrently (the first two
+    streaming) and read the counts."""
     import aiohttp
     from aiohttp import web
 
@@ -1365,7 +1378,7 @@ async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None, prompt
     from clearml_serving_tpu_torch.ops.paged_attention import paged_attention
     from clearml_serving_tpu_torch.serving.main import build_app
 
-    app = build_app(LLMEngineRequest(engine, tokenizer, "llama3-8b"))
+    app = build_app(LLMEngineRequest(engine, tokenizer, "llama3-8b", warmup=warmup))
     runner = web.AppRunner(app)
     await runner.setup()
     site = web.TCPSite(runner, "127.0.0.1", 0)
@@ -1375,6 +1388,8 @@ async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None, prompt
     try:
         async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
             await asyncio.gather(*[post_chat(s, url, p, False, 4) for p in prompts])
+            await engine.wait_drained()
+            warm_counters = dict(engine.counters)
             paged_attention.launches = 0
             fused_int4_matmul.launches = 0
             for key in engine.counters:
@@ -1388,25 +1403,28 @@ async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None, prompt
                 for i, p in enumerate(prompts)
             ])
             wall = time.perf_counter() - t0
+            await engine.wait_drained()
             if profiler is not None:
                 sync()
                 profiler.stop()
             launches = paged_attention.launches
             counters = dict(engine.counters, ttft_ms=sorted(engine.ttft_ms),
-                            int4_launches=fused_int4_matmul.launches)
+                            int4_launches=fused_int4_matmul.launches,
+                            warm_counters=warm_counters,
+                            pipeline=engine.lifecycle_stats()["pipeline"])
     finally:
         await runner.cleanup()
     return results, wall, launches, counters
 
 
-def _engine(params, kv_quant, preset, **knobs):
+def _engine(params, kv_quant, preset, cuda_graphs=True, **knobs):
     from clearml_serving_tpu_torch.llm.openai_api import build_engine
 
     cfg = {"preset": preset, "cache": "paged", "max_batch": 8, "max_seq_len": 2048,
            "page_size": 16, "decode_steps": 4, "seed": 0, **knobs}
     if kv_quant:
         cfg["kv_quant"] = kv_quant
-    return build_engine(cfg, device=DEV, params=params)
+    return build_engine(cfg, device=DEV, params=params, cuda_graphs=cuda_graphs)
 
 
 def expected_weight_bytes(preset: str, weight_quant: str) -> int:
@@ -1501,29 +1519,46 @@ def phase_main_path(params, kv_quant: str, preset: str = "llama3-8b", weight_qua
     return out
 
 
-def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "") -> dict:
-    """The bf16-KV main-path run of a scheduler once more under torch.profiler:
-    device time by kernel name, each ported kernel's time (the union of
-    its grids' intervals) and the device's busy share of the run's wall
-    time (the union of all kernel intervals). Profiling adds host
-    overhead, so these shares describe this pass only."""
+def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "",
+                  pipeline_depth=None, cuda_graphs: bool = True, traffic=None) -> dict:
+    """The bf16-KV main-path run of a scheduler once more under torch.profiler
+    (two-dispatch: phase 5's traffic, or ``traffic``, a ``PIPELINE_TRAFFIC``
+    entry): device time by kernel name, each ported kernel's time (the
+    union of its grids' intervals) and the device's busy share of the run's
+    wall time (the union of all kernel intervals). Profiling adds host
+    overhead, so these shares describe this pass only. On a two-dispatch
+    pass whose decode chunks replayed graphs, the decode kernel's and the
+    int4 kernel's instances in the trace must equal their ``launches``
+    counts over the same window: a replay adds the counts its capture
+    recorded, and this holds them to kernels the card ran. Other passes
+    count every launch in the wrapper and only print the comparison: an
+    eager pass's trace has come up short (1020 of 1024 counted grids on an
+    H100), as if the profiler dropped records."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     knobs = {"weight_quant": weight_quant} if weight_quant else {}
+    if pipeline_depth is not None:
+        knobs["pipeline_depth"] = pipeline_depth
+    label = "phase5"
     if scheduler == "ragged":
-        engine, tokenizer = _engine(params, "", "llama3-8b", **RAGGED_KNOBS, **knobs)
+        engine, tokenizer = _engine(params, "", "llama3-8b", cuda_graphs, **RAGGED_KNOBS, **knobs)
         _results, wall, c = asyncio.run(serve_ragged(engine, tokenizer, profiler=prof))
+        label = "phase5b"
     elif scheduler == "ragged-tree":
         # phase 5d's tree arm under its traffic
-        engine, tokenizer = _engine(params, "", "llama3-8b", **TREE_KNOBS, **knobs)
+        engine, tokenizer = _engine(params, "", "llama3-8b", cuda_graphs, **TREE_KNOBS, **knobs)
         _results, wall, c = asyncio.run(serve_ragged(
             engine, tokenizer, max_tokens=SPEC_MAX_TOKENS, profiler=prof, prompts=SPEC_PROMPTS,
             samplings=SPEC_SAMPLINGS))
+        label = "phase5d"
     else:
-        engine, tokenizer = _engine(params, "", "llama3-8b", **knobs)
-        _results, wall, _launches, c = asyncio.run(
-            serve_and_chat(engine, tokenizer, profiler=prof))
+        label, prompts, max_tokens = traffic or ("phase5", PROMPTS, 32)
+        engine, tokenizer = _engine(params, "", "llama3-8b", cuda_graphs, **knobs)
+        _results, wall, launches, c = asyncio.run(serve_and_chat(
+            engine, tokenizer, max_tokens=max_tokens, profiler=prof, prompts=prompts))
+        c["paged_launches"] = launches
+    depth, graphs = engine.pipeline_depth, engine._graphs is not None
     del engine
     torch.cuda.empty_cache()
     kernels = [e for e in prof.events()
@@ -1557,16 +1592,36 @@ def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "
     # the ragged kernel's two grids (csrc/ragged_paged_attention.cu)
     ragged = busy_ms(lambda k: "ragged_attention_" in k)
     int4 = busy_ms(lambda k: "w4a16_" in k)
-    out = dict(scheduler=scheduler, weights=weight_quant or "bf16", wall_ms=wall * 1e3,
+    # one split grid per decode-attention call, one main grid per int4 call
+    # (csrc/paged_attention.cu, csrc/fused_int4_matmul.cu)
+    traced_paged = sum("paged_split_kernel" in e.name for e in kernels)
+    traced_int4 = sum("w4a16_decode_kernel" in e.name or "w4a16_block_kernel" in e.name
+                      for e in kernels)
+    out = dict(scheduler=scheduler, traffic=label, weights=weight_quant or "bf16", depth=depth,
+               graphs=graphs, wall_ms=wall * 1e3,
                device_busy_ms=busy / 1e3, busy_share=busy / 1e3 / (wall * 1e3),
                kernel_ms=total, paged_attention_ms=attn, ragged_attention_ms=ragged,
                int4_matmul_ms=int4, decode_steps=c["decode_steps"],
-               ragged_steps=c["ragged_steps"], top=[(k[:60], v) for k, v in top])
-    log("  profiled {weights}-weight {scheduler} pass: wall {wall_ms:.1f} ms, device busy "
+               step_ms=c["decode_ms"] / max(1, c["decode_steps"]),
+               ragged_steps=c["ragged_steps"], graph_replays=c["graph_replays"],
+               paged_launches=c["paged_launches"], traced_paged=traced_paged,
+               int4_launches=c["int4_launches"], traced_int4=traced_int4,
+               top=[(k[:60], v) for k, v in top])
+    log("  profiled {weights}-weight {scheduler} pass, {traffic} traffic (depth {depth}, graphs "
+        "{graphs}): wall {wall_ms:.1f} ms, device busy "
         "{device_busy_ms:.1f} ms ({busy_share:.1%}), kernels {kernel_ms:.1f} ms, paged "
-        "attention {paged_attention_ms:.2f} ms over {decode_steps} decode steps, ragged "
+        "attention {paged_attention_ms:.2f} ms over {decode_steps} decode steps "
+        "({step_ms:.2f} ms each), ragged "
         "attention {ragged_attention_ms:.2f} ms over {ragged_steps} ragged steps, int4 "
-        "matmul {int4_matmul_ms:.2f} ms".format(**out))
+        "matmul {int4_matmul_ms:.2f} ms; {graph_replays} replays; in the trace "
+        "{traced_paged} decode-attention and {traced_int4} int4 grids, counted "
+        "{paged_launches} and {int4_launches}".format(**out))
+    if scheduler == "two_dispatch" and graphs and (traced_paged, traced_int4) != (
+            c["paged_launches"], c["int4_launches"]):
+        raise AssertionError("the trace holds {} decode-attention and {} int4 grids, the "
+                             "counts say {} and {}".format(traced_paged, traced_int4,
+                                                           c["paged_launches"],
+                                                           c["int4_launches"]))
     for name, ms in top:
         log("    {:9.2f} ms  {}".format(ms, name[:100]))
     return out
@@ -1637,6 +1692,7 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None, prompts=
                               sampling=samplings[i])))
             results = await asyncio.gather(*tasks)
             wall = time.perf_counter() - t0
+            await engine.wait_drained()
             if profiler is not None:
                 sync()
                 profiler.stop()
@@ -1874,6 +1930,200 @@ def compare_spec_streams(spec_runs, model=None) -> None:
                 run["greedy_vs_plain"], run.get("greedy_vs_chain", "n/a")))
 
 
+# -- phase 5e: pipelined decode, each chunk one CUDA-graph replay -------------------
+
+# (KV, weights) of the graph checks
+GRAPH_CASES = [("", ""), ("int8", ""), ("", "int4")]
+# one decode chunk's rows: seven slots at 40-1500 tokens and an idle one
+CHUNK_LENGTHS = [1500, 40, 700, 1000, 300, 1200, 90, 0]
+CHUNK_STEPS = 4
+
+
+def graph_chunk_case(params, kv_quant: str, weights: str, sampled: bool) -> dict:
+    """One Llama-3-8B decode chunk (8 rows, 4 steps, the engine's page
+    table) captured into a CUDA graph (``DecodeGraphs``) and replayed,
+    against ``run_chunk`` run eagerly on a clone of the same pools: the
+    tokens, the device chain and every pool page must be equal bit for
+    bit; a replay adds n_layers x steps decode-attention launches (and 225
+    x steps int4 ones), the capture none; the counts one replay added are
+    returned. Random pool contents; one row's
+    token comes from a host override. Times a replay and an eager chunk
+    (CUDA events, means over 5 and 3 runs)."""
+    import types
+
+    from clearml_serving_tpu_torch.llm.decode_graph import ChunkLayout, DecodeGraphs, run_chunk
+    from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
+    from clearml_serving_tpu_torch.llm.sampling import gumbel_noise
+    from clearml_serving_tpu_torch.models.llama import Llama
+    from clearml_serving_tpu_torch.ops.fused_matmul import fused_int4_matmul
+    from clearml_serving_tpu_torch.ops.paged_attention import paged_attention
+
+    n = CHUNK_STEPS
+    model = Llama(dict({"preset": "llama3-8b"}, **({"kv_quant": kv_quant} if kv_quant else {})),
+                  params)
+    b, page = len(CHUNK_LENGTHS), 32 if kv_quant else 16
+    pages_per_seq = -(-(2048 + n) // page)
+    cache = PagedKVCache(model.n_layers, model.n_kv_heads, model.head_dim,
+                         num_pages=sum(-(-(t + n) // page) for t in CHUNK_LENGTHS) + 1,
+                         page_size=page, max_slots=b, dtype=model.dtype, kv_quant=kv_quant,
+                         device=DEV)
+    gen = torch.Generator(DEV).manual_seed(5)
+    if kv_quant:
+        for pool in (cache.k, cache.v):
+            pool.copy_(torch.randint(-127, 128, pool.shape, generator=gen, device=DEV))
+        for scale in (cache.k_scale, cache.v_scale):
+            scale.copy_(torch.rand(scale.shape, generator=gen, device=DEV) * 0.02)
+    else:
+        for pool in (cache.k, cache.v):
+            pool.copy_(torch.randn(pool.shape, generator=gen, device=DEV))
+    layout = ChunkLayout(b, pages_per_seq, n)
+    i32 = torch.zeros(layout.size_i32, dtype=torch.int32, pin_memory=True)
+    f32 = torch.zeros(layout.size_f32, dtype=torch.float32, pin_memory=True)
+    v = layout.views(i32.numpy(), f32.numpy())
+    for slot, length in enumerate(CHUNK_LENGTHS[:-1]):
+        cache.pool.allocate(slot, length + n)
+        for i, (pg, off) in enumerate(cache.pool.token_coords(slot, length, n)):
+            v["write_pages"][slot, i], v["write_offsets"][slot, i] = pg, off
+    v["page_table"][:] = cache.pool.page_table(pages_per_seq)
+    v["lengths0"][:] = CHUNK_LENGTHS
+    v["temperature"][:] = [0.7, 0.0, 1.0, 0.7, 0.0, 1.3, 0.7, 0.0] if sampled else 0.0
+    v["top_k"][:] = [0, 0, 40, 0, 0, 0, 20, 0]
+    v["top_p"][:] = [1.0, 1.0, 1.0, 0.9, 1.0, 1.0, 0.95, 1.0]
+    v["override_tokens"][1], v["override_mask"][1] = 65, 1
+    chain = torch.randint(0, 256, (b,), generator=gen, device=DEV, dtype=torch.int32)
+    noise = gumbel_noise((n, b, model.vocab_size), gen, DEV) if sampled else None
+    pools = ("k", "v", "k_scale", "v_scale")
+    eager_cache = types.SimpleNamespace(kv_quant=kv_quant, **{
+        name: None if getattr(cache, name) is None else getattr(cache, name).clone()
+        for name in pools})
+    dev_views = layout.views(i32.to(DEV), f32.to(DEV))
+    eager = run_chunk(model, eager_cache, dev_views, chain, noise, n)
+    graphs = DecodeGraphs(model, cache, layout, n)
+    graphs.chain.copy_(chain)
+    paged_attention.launches = fused_int4_matmul.launches = 0
+    graphs.capture(greedy=not sampled)
+    if (paged_attention.launches, fused_int4_matmul.launches) != (0, 0):
+        raise AssertionError("a capture counted launches")
+    out = graphs.replay(not sampled, i32, f32, noise)
+    sync()
+    label = "{} KV, {} weights, {}".format(kv_quant or "bf16", weights or "bf16",
+                                          "sampled" if sampled else "greedy")
+    if not torch.equal(out, eager) or not torch.equal(graphs.chain, eager[:, -1]):
+        raise AssertionError("graph replay tokens differ from the eager chunk ({})".format(label))
+    for name in pools:
+        if getattr(cache, name) is not None and not torch.equal(getattr(cache, name),
+                                                                getattr(eager_cache, name)):
+            raise AssertionError("graph replay wrote other {} pages ({})".format(name, label))
+    # the counts one replay added, as measured (the kernels line prints them)
+    per_replay = {"paged_attention": paged_attention.launches,
+                  "fused_int4_matmul": fused_int4_matmul.launches}
+    want = {"paged_attention": model.n_layers * n,
+            "fused_int4_matmul": int4_launches_per_forward(model) * n}
+    if per_replay != want:
+        raise AssertionError("a replay counted {} launches, want {} ({})".format(
+            per_replay, want, label))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graphs.replay(not sampled, i32, f32, noise)
+    end.record()
+    sync()
+    replay_ms = start.elapsed_time(end) / 5
+    start.record()
+    for _ in range(3):
+        run_chunk(model, eager_cache, dev_views, chain, noise, n)
+    end.record()
+    sync()
+    eager_ms = start.elapsed_time(end) / 3
+    del graphs, cache, eager_cache
+    torch.cuda.empty_cache()
+    log("  {}: replay bitwise the eager chunk; {:.3f} ms a chunk replayed, {:.3f} ms "
+        "eager".format(label, replay_ms, eager_ms))
+    return dict(kv=kv_quant or "bf16", weights=weights or "bf16",
+                variant="sampled" if sampled else "greedy", replay_ms=replay_ms,
+                eager_ms=eager_ms, bitwise=True, launches_per_replay=per_replay)
+
+
+# phase 5's traffic, and a steadier one: eight chats of 128 tokens
+PIPELINE_TRAFFIC = [("phase5", PROMPTS, 32), ("steady", PROMPTS * 2, 128)]
+
+
+# (label, depth, cuda_graphs): the eager serial loop, graphs in the serial
+# loop, graphs in the pipeline; the middle arm splits the graphs' gain from
+# the pipelining's
+PIPELINE_ARMS = [("eager1", 1, False), ("graphs1", 1, True), ("graphs2", 2, True)]
+
+
+def phase_pipeline_arms(params, preset: str = "llama3-8b", traffics=PIPELINE_TRAFFIC) -> list:
+    """Each traffic in each of ``PIPELINE_ARMS`` on the same engine config
+    and weights (graph arms captured by the endpoint's ``warmup:
+    startup``): the greedy contents must be equal across the arms, the
+    decode kernel launched n_layers times per decode step, and a graph arm
+    must have captured both variants at warmup and none while serving, one
+    replay per chunk. Reports wall ms per decode step (the loop's time in
+    decode steps over the steps; at depth 2 a chunk computing under a
+    prefill's host time is not in it), the mean dispatch and retire ms, and
+    tok/s."""
+    runs = []
+    for traffic, prompts, max_tokens in traffics:
+        arms = {}
+        for arm, depth, cuda_graphs in PIPELINE_ARMS:
+            engine, tokenizer = _engine(params, "", preset, cuda_graphs, pipeline_depth=depth)
+            results, wall, launches, c = asyncio.run(serve_and_chat(
+                engine, tokenizer, max_tokens=max_tokens, prompts=prompts,
+                warmup="startup" if cuda_graphs else "off"))
+            n_layers = engine.model.n_layers
+            graphs = engine._graphs is not None
+            depth = engine.pipeline_depth
+            del engine
+            if torch.device(DEV).type == "cuda":
+                torch.cuda.empty_cache()
+            warm, pipe = c["warm_counters"], c["pipeline"]
+            steps = c["decode_steps"]
+            out = dict(
+                traffic=traffic, arm=arm, depth=depth, graphs=graphs, wall_s=wall,
+                tokens=c["tokens_emitted"], decode_steps=steps, launches=launches,
+                step_ms=c["decode_ms"] / max(1, steps),
+                dispatch_ms=pipe["dispatch_ms"]["sum_ms"] / max(1, pipe["dispatch_ms"]["count"]),
+                retire_ms=pipe["retire_ms"]["sum_ms"] / max(1, pipe["retire_ms"]["count"]),
+                decode_tok_s=c["tokens_emitted"] / wall,
+                prefill_ms=c["prefill_ms"] / max(1, c["prefills"]),
+                warmup_captures=warm["graph_captures"], serve_captures=c["serve_captures"],
+                replays=c["graph_replays"], chunks=c["decode_chunks"],
+                contents=[r["content"] for r in results])
+            log("  {traffic} {arm} (depth {depth}, graphs {graphs}): wall {wall_s:.3f} s, "
+                "{tokens} tokens, {decode_tok_s:.1f} tok/s, {decode_steps} decode steps at "
+                "{step_ms:.2f} ms each, dispatch {dispatch_ms:.2f} ms, retire {retire_ms:.2f} "
+                "ms, prefill {prefill_ms:.2f} ms; captures {warmup_captures} at warmup, "
+                "{serve_captures} serving; replays {replays} of {chunks} chunks".format(**out))
+            if steps == 0 or launches != n_layers * steps:
+                raise AssertionError("paged_attention launched {} times for {} decode steps "
+                                     "of {} layers".format(launches, steps, n_layers))
+            if c["tokens_emitted"] != max_tokens * len(prompts):
+                raise AssertionError("a completion stopped before max_tokens")
+            on_card = torch.device(DEV).type == "cuda"
+            if graphs != (cuda_graphs and on_card) or (graphs and (
+                    warm["graph_captures"] != 2 or warm["serve_captures"] != 0
+                    or c["serve_captures"] != 0 or c["graph_replays"] != c["decode_chunks"])):
+                raise AssertionError("{} {}: graphs {}, captures {} at warmup, {} / {} while "
+                                     "serving, {} replays of {} chunks".format(
+                                         traffic, arm, graphs, warm["graph_captures"],
+                                         warm["serve_captures"], c["serve_captures"],
+                                         c["graph_replays"], c["decode_chunks"]))
+            arms[arm] = out
+        base = arms[PIPELINE_ARMS[0][0]]["contents"]
+        for arm, out in arms.items():
+            if out["contents"] != base:
+                raise AssertionError("{}: greedy contents differ between {} and {}: {}".format(
+                    traffic, PIPELINE_ARMS[0][0], arm,
+                    [first_difference(a, b) for a, b in zip(base, out["contents"])]))
+        log("  {}: greedy contents equal in {}".format(traffic, ", ".join(arms)))
+        for out in arms.values():
+            out["contents"] = [text[:24] for text in out["contents"]]
+            runs.append(out)
+    return runs
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -1965,8 +2215,18 @@ def main() -> int:
     for run in spec_runs:
         run["contents"] = [text[:24] for text in run["contents"]]
         del run["token_ids"]
+    log("phase 5e: pipelined decode, llama3-8b full width, each decode chunk one CUDA-graph "
+        "replay")
+    graph_cases = [graph_chunk_case(qparams if weights else params, kv, weights, sampled)
+                   for kv, weights in GRAPH_CASES for sampled in (False, True)]
+    pipeline_runs = phase_pipeline_arms(params)
     log("phase 6: where the time goes")
     prof = phase_profile(params)
+    serial_prof = phase_profile(params, pipeline_depth=1, cuda_graphs=False)
+    # the steadier traffic in each arm of phase 5e
+    steady_profs = [phase_profile(params, pipeline_depth=depth, cuda_graphs=cuda_graphs,
+                                  traffic=PIPELINE_TRAFFIC[1])
+                    for _arm, depth, cuda_graphs in PIPELINE_ARMS]
     ragged_prof = phase_profile(params, "ragged")
     tree_prof = phase_profile(params, "ragged-tree")
     int4_prof = phase_profile(qparams, weight_quant="int4")
@@ -1976,6 +2236,11 @@ def main() -> int:
     tt = tkern["timings"]
     tree_bf16 = next(r for r in spec_runs if r["arm"] == "tree" and r["kv"] == "bf16")
     tree_int8 = next(r for r in spec_runs if r["arm"] == "tree" and r["kv"] == "int8")
+
+    def per_replay(kernel, kv, weights):
+        """The launches one replay of phase 5e's greedy chunk added."""
+        return next(g["launches_per_replay"][kernel] for g in graph_cases
+                    if (g["kv"], g["weights"], g["variant"]) == (kv, weights, "greedy"))
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -1984,6 +2249,9 @@ def main() -> int:
         "tpu": "ops/paged_attention.py:399",
         "launches": runs[0]["launches"],
         "launches_int8": runs[1]["launches"],
+        # counted in one replay of phase 5e's decode chunk (bf16 / int8 KV)
+        "launches_per_replay": per_replay("paged_attention", "bf16", "bf16"),
+        "launches_per_replay_int8": per_replay("paged_attention", "int8", "bf16"),
         "max_abs_err": kern["err_bf16"],
         "max_err_bf16": kern["err_bf16"],
         "max_err_int8": kern["err_int8"],
@@ -2083,6 +2351,8 @@ def main() -> int:
         # phase 5c under phase 5's traffic with long prompts: 225 per forward call
         "launches": int4_runs[0]["int4_launches"],
         "launches_ragged_path": int4_runs[1]["int4_launches"],
+        # counted in one replay of phase 5e's decode chunk on int4 weights
+        "launches_per_replay": per_replay("fused_int4_matmul", "bf16", "int4"),
         "max_abs_err": int4k["err"],
         # primary call: a decode batch through w_gate / w_up
         "shape": "x[{1},4096] @ W[4096,14336] ({0})".format(*INT4_PRIMARY),
@@ -2098,8 +2368,11 @@ def main() -> int:
     }]}
     log("main path:", json.dumps({"runs": runs, "ragged_runs": ragged_runs,
                                   "int4_runs": int4_runs, "int8_run": int8_run,
-                                  "spec_runs": spec_runs,
-                                  "profile": prof, "ragged_profile": ragged_prof,
+                                  "spec_runs": spec_runs, "graph_cases": graph_cases,
+                                  "pipeline_runs": pipeline_runs,
+                                  "profile": prof, "serial_profile": serial_prof,
+                                  "steady_profiles": steady_profs,
+                                  "ragged_profile": ragged_prof,
                                   "tree_profile": tree_prof,
                                   "int4_profile": int4_prof}))
     log("total {:.1f} s".format(time.perf_counter() - t_start))

@@ -1,16 +1,30 @@
 """Continuous-batching LLM engine over the paged KV cache.
 
 Counterpart of ``clearml_serving_tpu/llm/engine.py``'s ``LLMEngineCore`` in
-the configuration ``cache_mode="paged"``, ``pipeline_depth=1``, under
-either scheduler:
+the configuration ``cache_mode="paged"``, under either scheduler:
 
 - a fixed ``max_batch`` of slots; FIFO admission into free slots;
 - decode = chunks of ``decode_steps`` fused steps over the whole slot batch,
   each step ``Llama.decode_paged`` (the paged attention kernel once per
-  layer) followed by sampling; the chunk's tokens reach the host once, at
-  its end, and fan out to the per-request queues;
+  layer) followed by sampling (``llm/decode_graph.py``); the chunk's tokens
+  reach the host once, at its end, and fan out to the per-request queues;
 - a request finishes on a stop token, ``max_new_tokens`` or
-  ``max_seq_len``; its pages return to the pool right away.
+  ``max_seq_len``; its pages return to the pool once no chunk in flight
+  still writes them.
+
+Pipelined decode (the reference's ``docs/pipelined_decode.md``): a bounded
+queue of dispatched chunks, ``pipeline_depth`` deep (``TPUSERVE_PIPELINE_DEPTH``,
+default 2). Each step overlaps the oldest chunk's retirement (readback and
+emission) with the next chunk's dispatch, whose token input chains on the
+device from the chunk before it. A slot freed at a retire stays quarantined,
+its pages unfreed, until every chunk dispatched before that retire has
+retired; a request certain to finish inside the chunks in flight is left out
+of the next dispatch. On the card each chunk is one CUDA-graph replay
+(``DecodeGraphs``, captured by ``warmup()`` or at a chunk's first use of its
+variant), at every depth; depth 1 is the serial loop, dispatch -> sync ->
+emit. ``cuda_graphs=False`` launches a chunk's kernels one by one from
+Python instead: the eager arm that the card's checks hold the graphs
+against. On the CPU the worker thread carries the compute.
 
 ``scheduler="two_dispatch"``: admission = one prefill of the prompt padded
 to its bucket, its K/V written into freshly allocated pages, and the first
@@ -38,7 +52,7 @@ for sampled rows) runs on the device in the same step; a tree row's
 accepted nodes have their K/V moved to their path depths, and the retire
 truncates each verify row to what it kept before emitting it.
 
-Device work runs in a worker thread, one call at a time, so the event loop
+Device work runs in worker threads, on one CUDA stream, so the event loop
 keeps serving HTTP while the card computes. The model arrives with its
 weights already in their serving format (``build_engine`` quantizes them);
 ``weight_quant``/``quantize`` are accepted when they name that format.
@@ -49,6 +63,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -60,10 +75,12 @@ import torch
 from ..models.llama import Llama
 from ..ops.gates import check_engine_gates
 from ..ops.paged_attention import RAGGED_QB, ragged_layout, tree_ancestors
+from .decode_graph import ChunkLayout, DecodeGraphs, run_chunk
 from .kv_cache import PagedKVCache
 from .sampling import (
     SamplingParams,
     greedy_tree_walk,
+    gumbel_noise,
     sample_tokens,
     speculative_sample_chain,
     speculative_sample_tree,
@@ -106,6 +123,39 @@ class GenRequest:
 
 
 _FINISHED = object()
+
+# chunks dispatched ahead of retirement: 1 is the serial dispatch -> sync ->
+# emit loop; 2 (the reference's default) overlaps chunk N's readback and
+# emission with chunk N+1's dispatch
+_DEFAULT_PIPELINE_DEPTH = 2
+# the reference's _MsHistogram buckets (ms)
+_MS_BUCKETS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 1000.0)
+
+
+def _env_pipeline_depth() -> int:
+    raw = os.environ.get("TPUSERVE_PIPELINE_DEPTH", "")
+    try:
+        return max(1, int(raw)) if raw else _DEFAULT_PIPELINE_DEPTH
+    except ValueError:
+        return _DEFAULT_PIPELINE_DEPTH
+
+
+@dataclass
+class _InFlightChunk:
+    """One dispatched-but-unretired decode chunk. ``tokens`` [B, steps]
+    int32 lies on the host: on the card a pinned buffer that an
+    asynchronous copy fills, complete once ``ready`` (a CUDA event) is;
+    on the CPU the dispatch computed it. ``active_mask`` is the host
+    snapshot the dispatch was built from: the retire stage emits exactly
+    those slots."""
+
+    seq: int
+    active_mask: np.ndarray
+    tokens: torch.Tensor
+    ready: Optional["torch.cuda.Event"] = None
+    # slots dropped from this chunk because the pool could not hold their
+    # page extension (failed when the chunk lands)
+    exhausted: List[int] = field(default_factory=list)
 
 
 @dataclass(eq=False)  # identity semantics: jobs live in (and leave) lists
@@ -171,7 +221,7 @@ class LLMEngineCore:
         cache_mode: str = "paged",
         page_size: int = 16,
         num_pages: Optional[int] = None,
-        pipeline_depth: Optional[int] = 1,
+        pipeline_depth: Optional[int] = None,
         scheduler: Optional[str] = "two_dispatch",
         step_token_budget: Optional[int] = None,
         ragged_decode_steps: Optional[int] = None,
@@ -183,6 +233,7 @@ class LLMEngineCore:
         spec_sampling: bool = True,
         spec_tree: bool = False,
         spec_branch: int = 2,
+        cuda_graphs: bool = True,
         **knobs,
     ):
         for name, value in knobs.items():
@@ -202,11 +253,6 @@ class LLMEngineCore:
         if sched not in ("two_dispatch", "ragged"):
             raise ValueError(
                 "scheduler must be 'two_dispatch' or 'ragged' (got {!r})".format(sched)
-            )
-        if pipeline_depth not in (None, 1):
-            raise ValueError(
-                "engine knob pipeline_depth={!r} is not supported by the "
-                "PyTorch port yet (1 only)".format(pipeline_depth)
             )
         # weight quantization: the reference's knob checks, against the
         # format the model's weights already have
@@ -330,6 +376,35 @@ class LLMEngineCore:
         )
         self._gen = torch.Generator(self.device)
         self._gen.manual_seed(int(rng_seed))
+        # -- pipelined decode: the bounded in-flight queue, the slot-reuse
+        # barrier and the device-resident token chain
+        self.pipeline_depth = (max(1, int(pipeline_depth)) if pipeline_depth is not None
+                               else _env_pipeline_depth())
+        self._inflight: Deque[_InFlightChunk] = deque()
+        self._dispatch_seq = 0
+        # (seq, active_mask) of a chunk whose worker-thread dispatch is in
+        # progress: the barrier must see it, since the concurrent retire
+        # stage can free slots
+        self._dispatching: Optional[tuple] = None
+        # slot -> dispatch seq that must retire before the slot's pages are
+        # freed and the slot re-admitted
+        self._quarantine: Dict[int, int] = {}
+        # slots whose host token must win over the device chain at the next
+        # dispatch (fresh admissions; all of them after a chain reset)
+        self._slot_overrides = np.ones(self.max_batch, bool)
+        self._layout = ChunkLayout(self.max_batch, self._pages_per_seq, self.decode_steps)
+        # every worker enqueues on this stream (torch's current stream is
+        # per thread), so prefills, chunks and readbacks run in order
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
+        # on the card each chunk is a CUDA-graph replay unless cuda_graphs
+        # is off; the eager arm keeps its chain in _chain
+        self._graphs = (DecodeGraphs(model, self.paged_cache, self._layout, self.decode_steps)
+                        if self._stream is not None and cuda_graphs else None)
+        self._chain = torch.zeros(self.max_batch, dtype=torch.int32, device=self.device)
+        self._warming = False
+        self._hist_dispatch = _Histogram(_MS_BUCKETS)
+        self._hist_retire = _Histogram(_MS_BUCKETS)
         # slot bookkeeping (loop thread)
         self._slot_req: List[Optional[GenRequest]] = [None] * self.max_batch
         self._next_token = np.zeros(self.max_batch, np.int32)
@@ -347,9 +422,12 @@ class LLMEngineCore:
         # order, and the slots they reserve (loop thread)
         self._prefill_jobs: List[_RaggedJob] = []
         self._admitting: set = set()
-        # observability: decode steps run (each = one decode_paged call, so
-        # n_layers paged-attention launches), chunks, prefills, and the host
-        # wall time of the device calls (each ends in a device->host read);
+        # observability: decode steps dispatched (each = one decode_paged
+        # call, so n_layers paged-attention launches), chunks, prefills, the
+        # loop's wall time in decode steps (dispatch and retire, overlapped
+        # at depth > 1) and the prefills' host time (each ends in a read);
+        # CUDA-graph captures, replays, and the captures a dispatch made
+        # while serving (none once warmup() has captured every variant);
         # ragged steps (each = one forward_ragged call, n_layers ragged
         # attention launches), the decode tokens they emitted and their
         # chained decode_paged calls, and the ragged steps whose launch
@@ -359,7 +437,8 @@ class LLMEngineCore:
                          "tokens_emitted": 0, "decode_ms": 0.0, "prefill_ms": 0.0,
                          "ragged_steps": 0, "ragged_decode_tokens": 0,
                          "ragged_chain_steps": 0, "ragged_verify_steps": 0,
-                         "ragged_ms": 0.0}
+                         "ragged_ms": 0.0, "graph_captures": 0, "graph_replays": 0,
+                         "serve_captures": 0}
         # rows per phase over all ragged launches, budget use per launch,
         # decode tokens per launch, the mean accepted-draft fraction of a
         # launch's verify rows and a tree row's accepted path depth (the
@@ -413,6 +492,15 @@ class LLMEngineCore:
             # emission point (no-op after a normal finish)
             request.cancelled = True
 
+    async def warmup(self) -> dict:
+        """Serve the warmup sweep (``llm/warmup.py``) before traffic: every
+        prefill bucket's first use, and one decode chunk of each CUDA-graph
+        variant, which captures it. Captures after this count in
+        ``counters["serve_captures"]``."""
+        from . import warmup as _warmup
+
+        return await _warmup.run_warmup(self)
+
     def stop(self) -> None:
         """Stop the loop and fail every active and pending request."""
         self._stopped = True
@@ -447,6 +535,7 @@ class LLMEngineCore:
                 "bytes": self.model.weight_bytes(),
             },
             "counters": dict(self.counters),
+            "pipeline": self._pipeline_snapshot(),
             "scheduler": "ragged" if self._ragged else "two_dispatch",
             "ragged": (
                 {
@@ -472,6 +561,25 @@ class LLMEngineCore:
             ),
         }
 
+    def _pipeline_snapshot(self) -> dict:
+        return {
+            "depth": self.pipeline_depth,
+            "inflight": len(self._inflight),
+            "dispatch_ms": self._hist_dispatch.snapshot(),
+            "retire_ms": self._hist_retire.snapshot(),
+        }
+
+    def lifecycle_stats(self) -> dict:
+        """Scrape-time snapshot, the reference's ``lifecycle_stats`` keys
+        this slice serves (counters monotonic, gauges instantaneous)."""
+        return {
+            "queue_depth": len(self._pending),
+            "active_slots": self.active_slots,
+            "ready": int(not self._stopped),
+            "pipeline": self._pipeline_snapshot(),
+            "scheduler": "ragged" if self._ragged else "two_dispatch",
+        }
+
     async def wait_drained(self, timeout: float = 30.0) -> None:
         """Await the loop going idle (no active slots, nothing pending)."""
         task = self._loop_task
@@ -492,25 +600,28 @@ class LLMEngineCore:
                 else:
                     await self._admit()
                 active = np.array([r is not None for r in self._slot_req])
-                if not active.any() and not self._prefill_jobs:
+                if not active.any() and not self._inflight and not self._prefill_jobs:
                     if not self._pending:
                         return  # drained; a new generate() restarts the loop
                     continue
-                if self._prefill_jobs or self._ragged_spec_wanted(active):
-                    # ragged phase: one mixed launch per step while
-                    # admissions are in progress or verify rows want to run
-                    await self._ragged_step(active)
-                    await asyncio.sleep(0)
-                    continue
                 try:
-                    chunk, exhausted = await asyncio.to_thread(self._decode_chunk, active)
+                    if self._prefill_jobs or self._ragged_spec_wanted(active):
+                        # ragged phase: one mixed launch per step while
+                        # admissions are in progress or verify rows want
+                        # to run. The pipeline drains first, one chunk per
+                        # iteration, so the host mirrors the plan reads
+                        # are current
+                        if self._inflight:
+                            await self._retire_oldest()
+                        else:
+                            await self._ragged_step(active)
+                    else:
+                        await self._decode_step(active)
                 except Exception as ex:
-                    logger.exception("decode chunk failed")
-                    for slot in np.nonzero(active)[0]:
-                        self._fail_slot(int(slot), ex)
-                    continue
-                self._retire_chunk(active, chunk, exhausted)
+                    await self._handle_step_failure(ex)
                 await asyncio.sleep(0)  # let HTTP handlers interleave
+            # stopped: wait out the chunks still writing pages, then free them
+            await self._discard_pipeline()
         except BaseException as ex:
             for slot, request in enumerate(self._slot_req):
                 if request is not None:
@@ -518,11 +629,24 @@ class LLMEngineCore:
             for job in list(self._prefill_jobs):
                 self._fail_ragged_job(job, ex)
             raise
+        finally:
+            # the pipeline dies with the loop; after a cancellation its
+            # deferred frees run without waiting for the card
+            self._drop_pipeline()
+
+    def _on_stream(self, fn, *args):
+        """Run ``fn`` on the engine's stream: a worker thread starts on the
+        default one."""
+        if self._stream is None:
+            return fn(*args)
+        with torch.cuda.stream(self._stream):
+            return fn(*args)
 
     async def _admit(self) -> None:
         """FIFO admission of pending requests into free slots: prefill,
-        pages, first token."""
-        free = [i for i, r in enumerate(self._slot_req) if r is None]
+        pages, first token. A quarantined slot is not free yet."""
+        free = [i for i, r in enumerate(self._slot_req)
+                if r is None and i not in self._quarantine]
         while free and self._pending and not self._stopped:
             request = self._pending.popleft()
             if request.cancelled:
@@ -530,7 +654,8 @@ class LLMEngineCore:
                 continue
             slot = free.pop(0)
             try:
-                first_id = await asyncio.to_thread(self._prefill_into_slot, request, slot)
+                first_id = await asyncio.to_thread(
+                    self._on_stream, self._prefill_into_slot, request, slot)
             except Exception as ex:
                 # a failed admission fails only its own request
                 self.paged_cache.pool.free(slot)
@@ -592,6 +717,8 @@ class LLMEngineCore:
     def _activate_slot(self, request: GenRequest, slot: int, first_id: int) -> None:
         self._slot_req[slot] = request
         self._next_token[slot] = first_id
+        # the next dispatch takes this slot's token from the host
+        self._slot_overrides[slot] = True
         if self._tokbuf is not None:
             # the history holds the prompt and every emitted token
             row = np.zeros(self._tokbuf.shape[1], np.int32)
@@ -604,74 +731,314 @@ class LLMEngineCore:
         self._top_p[slot] = request.top_p
         self._emit(slot, first_id)
 
-    def _decode_chunk(self, active: np.ndarray):
-        """Worker thread: ``decode_steps`` fused decode steps over the slot
-        batch. Pre-allocates each active slot's pages for the whole chunk
-        host-side; a slot the pool cannot extend is dropped from the chunk
-        (its row writes the null page) and reported for failing."""
+    # -- pipelined decode: dispatch / retire ----------------------------------
+
+    async def _decode_step(self, active_mask: np.ndarray) -> None:
+        """One pipelined scheduling step. The in-flight queue fills to
+        ``pipeline_depth - 1`` chunks; then each step overlaps the oldest
+        chunk's retirement (readback in a worker thread, emission on the
+        loop) with the next chunk's dispatch in a worker thread, whose
+        token input chains on the device. At depth 1 this is the serial
+        dispatch -> sync -> emit loop."""
         t0 = time.perf_counter()
+        try:
+            fill_target = max(1, self.pipeline_depth - 1)
+            dispatch_mask = self._dispatchable_mask(active_mask)
+            while dispatch_mask.any() and len(self._inflight) < fill_target:
+                await self._dispatch_or_recover(dispatch_mask.copy())
+                # a dispatch can fail slots (pool exhaustion): drop them
+                # before topping up further
+                active_mask &= np.array([r is not None for r in self._slot_req])
+                dispatch_mask = self._dispatchable_mask(active_mask)
+            if not self._inflight:
+                return
+            # the retiring chunk stays queued until its emissions land: the
+            # concurrent dispatch's barrier and masking count its steps
+            entry = self._inflight[0]
+            if dispatch_mask.any() and len(self._inflight) < self.pipeline_depth:
+                dispatch_res, retire_res = await asyncio.gather(
+                    self._dispatch_async(dispatch_mask.copy()),
+                    self._retire_chunk(entry),
+                    return_exceptions=True,
+                )
+                if self._inflight and self._inflight[0] is entry:
+                    self._inflight.popleft()
+                # failures surface after both stages settled; a retire
+                # failure loses chunk N's tokens for every stream, so it
+                # outranks the dispatch's
+                if isinstance(retire_res, BaseException):
+                    raise retire_res
+                if isinstance(dispatch_res, BaseException):
+                    await self._recover_failed_dispatch()
+                    raise dispatch_res
+            else:
+                await self._retire_oldest()
+        finally:
+            self.counters["decode_ms"] += (time.perf_counter() - t0) * 1e3
+
+    async def _dispatch_or_recover(self, mask: np.ndarray) -> None:
+        """Dispatch with failure recovery, where no retire runs
+        concurrently (the gather branch recovers after both settle)."""
+        try:
+            await self._dispatch_async(mask)
+        except Exception:
+            await self._recover_failed_dispatch()
+            raise
+
+    async def _recover_failed_dispatch(self) -> None:
+        """A dispatch raised after its prep consumed the host overrides:
+        retire what is still in flight (valid results) so the host mirrors
+        are current, then forget the device chain, so the next dispatch
+        takes every token from them."""
+        while self._inflight:
+            await self._retire_oldest()
+        self._reset_device_chains()
+
+    async def _retire_oldest(self) -> None:
+        """Retire the oldest in-flight chunk; it leaves the queue once its
+        emissions landed."""
+        entry = self._inflight[0]
+        await self._retire_chunk(entry)
+        if self._inflight and self._inflight[0] is entry:
+            self._inflight.popleft()
+
+    def _dispatchable_mask(self, active_mask: np.ndarray) -> np.ndarray:
+        """Slots worth including in the NEXT chunk: active, and not already
+        certain to finish inside the chunks in flight (by their token
+        budget or the sequence limit; a stop token stays unpredictable, and
+        its surplus tokens are dropped at emission)."""
+        if not self._inflight and self._dispatching is None:
+            return active_mask
+        pending = np.zeros(self.max_batch, np.int64)
+        for entry in self._inflight:
+            pending += entry.active_mask * self.decode_steps
+        if self._dispatching is not None:
+            pending += self._dispatching[1] * self.decode_steps
+        mask = active_mask.copy()
+        for slot in np.nonzero(active_mask)[0]:
+            request = self._slot_req[slot]
+            if request is not None and request.produced + pending[slot] >= min(
+                    request.max_new_tokens, self.max_seq_len - request.prompt_len):
+                mask[slot] = False
+        return mask
+
+    async def _dispatch_async(self, active_mask: np.ndarray) -> None:
+        """Dispatch one chunk: its host state is snapshotted on the loop
+        thread (``_prepare_dispatch``), then the device work runs in a
+        worker thread, possibly beside the previous chunk's retirement.
+        Appends the in-flight entry and fails pool-exhausted slots."""
+        prep = self._prepare_dispatch(active_mask)
+        # barrier visibility: a slot freed by the concurrent retire must
+        # see this chunk before its entry lands in the queue
+        self._dispatching = (prep["seq"], prep["active_mask"])
+        try:
+            entry = await asyncio.to_thread(self._on_stream, self._dispatch_device, prep)
+        finally:
+            self._dispatching = None
+        self._inflight.append(entry)
+        for slot in entry.exhausted:
+            self._fail_slot(slot, MemoryError("kv page pool exhausted for this sequence"))
+
+    def _prepare_dispatch(self, active_mask: np.ndarray) -> dict:
+        """Loop-thread half of a dispatch: allocate the chunk's pages
+        host-side (a slot the pool cannot extend leaves the chunk, its row
+        writing the null page) and write every host input of the chunk
+        into its own staging buffers (``ChunkLayout``; pinned on the card),
+        so the worker never reads state the concurrent retire stage
+        changes, and no later change reaches a copy still pending."""
         pool = self.paged_cache.pool
         n = self.decode_steps
-        lengths0 = pool.lengths().copy()          # pre-extension lengths
-        write_pages = np.zeros((self.max_batch, n), np.int32)   # null page 0
-        write_offsets = np.zeros((self.max_batch, n), np.int32)
+        pin = self._stream is not None
+        host_i32 = torch.empty(self._layout.size_i32, dtype=torch.int32, pin_memory=pin)
+        host_f32 = torch.empty(self._layout.size_f32, dtype=torch.float32, pin_memory=pin)
+        v = self._layout.views(host_i32.numpy(), host_f32.numpy())
+        v["lengths0"][:] = pool.lengths()                 # pre-extension lengths
+        v["write_pages"][:] = 0                            # null page 0
+        v["write_offsets"][:] = 0
         exhausted = []
-        for slot in np.nonzero(active)[0]:
+        for slot in np.nonzero(active_mask)[0]:
             slot = int(slot)
-            start = pool.slot_length(slot)
+            start = int(v["lengths0"][slot])
             try:
                 pool.extend(slot, n)
             except MemoryError:
+                active_mask[slot] = False
                 exhausted.append(slot)
                 continue
             for i, (page, offset) in enumerate(pool.token_coords(slot, start, n)):
-                write_pages[slot, i] = page
-                write_offsets[slot, i] = offset
-        dev = self.device
-        page_table = torch.as_tensor(pool.page_table(self._pages_per_seq), device=dev)
-        lengths0_t = torch.as_tensor(lengths0, device=dev)
-        wp = torch.as_tensor(write_pages, device=dev)
-        wo = torch.as_tensor(write_offsets, device=dev)
-        tokens = torch.as_tensor(self._next_token.astype(np.int64), device=dev)
-        sampling = self._sampling()
-        all_greedy = not (self._temperature[active] > 0).any()
-        cache = self.paged_cache
-        scale_kw = ({"k_scales": cache.k_scale, "v_scales": cache.v_scale}
-                    if cache.kv_quant else {})
-        steps = []
-        for step in range(n):
-            logits = self.model.decode_paged(
-                tokens, cache.k, cache.v, page_table, lengths0_t + step,
-                wp[:, step], wo[:, step], **scale_kw,
-            )
-            sampled = sample_tokens(logits, sampling, generator=self._gen,
-                                    all_greedy=all_greedy)
-            steps.append(sampled)
-            tokens = sampled.long()
-            self.counters["decode_steps"] += 1
-        chunk = torch.stack(steps, dim=1).cpu().numpy()
-        self.counters["decode_chunks"] += 1
-        self.counters["decode_ms"] += (time.perf_counter() - t0) * 1e3
-        return chunk, exhausted
+                v["write_pages"][slot, i] = page
+                v["write_offsets"][slot, i] = offset
+        v["page_table"][:] = pool.page_table(self._pages_per_seq)
+        v["override_tokens"][:] = self._next_token
+        v["override_mask"][:] = self._slot_overrides
+        self._slot_overrides[:] = False
+        v["temperature"][:] = self._temperature
+        v["top_k"][:] = self._top_k
+        v["top_p"][:] = self._top_p
+        self._dispatch_seq += 1
+        return {
+            "seq": self._dispatch_seq,
+            "active_mask": active_mask,
+            "exhausted": exhausted,
+            "host_i32": host_i32,
+            "host_f32": host_f32,
+            # the greedy variant draws no noise
+            "greedy": not (self._temperature[active_mask] > 0).any(),
+        }
 
-    def _retire_chunk(self, active: np.ndarray, chunk: np.ndarray,
-                      exhausted: List[int]) -> None:
-        for slot in exhausted:
-            self._fail_slot(slot, MemoryError("kv page pool exhausted for this sequence"))
-        for slot in np.nonzero(active)[0]:
-            slot = int(slot)
-            if slot in exhausted:
-                continue
+    def _dispatch_device(self, prep: dict) -> _InFlightChunk:
+        """Worker-thread half of a dispatch, on the engine's stream: the
+        chunk's noise (sampled variant: one draw from the engine's
+        generator), the chunk itself (one graph replay on the card, eager
+        launches on the CPU or with ``cuda_graphs`` off), and the copy of its tokens to the
+        host that the retire stage waits for. Touches only what the retire
+        stage never reads: the chain, the graphs and the dispatch
+        histogram."""
+        t0 = time.perf_counter()
+        n = self.decode_steps
+        noise = (None if prep["greedy"] else
+                 gumbel_noise((n, self.max_batch, self.model.vocab_size), self._gen, self.device))
+        if self._graphs is not None:
+            greedy = prep["greedy"]
+            if not self._graphs.captured(greedy):
+                self._capture(greedy)
+            out = self._graphs.replay(greedy, prep["host_i32"], prep["host_f32"], noise)
+            self.counters["graph_replays"] += 1
+        else:
+            views = self._layout.views(prep["host_i32"].to(self.device, non_blocking=True),
+                                       prep["host_f32"].to(self.device, non_blocking=True))
+            out = run_chunk(self.model, self.paged_cache, views, self._chain, noise, n)
+            self._chain = out[:, -1]
+        tokens, ready = out, None
+        if self._stream is not None:
+            tokens = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            tokens.copy_(out, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        self.counters["decode_steps"] += n
+        self.counters["decode_chunks"] += 1
+        self._hist_dispatch.observe((time.perf_counter() - t0) * 1e3)
+        return _InFlightChunk(seq=prep["seq"], active_mask=prep["active_mask"],
+                              tokens=tokens, ready=ready, exhausted=prep["exhausted"])
+
+    def _capture(self, greedy: bool) -> None:
+        """Capture a decode-chunk variant: inside ``warmup()`` in the
+        global mode (the card is the engine's alone), while serving in the
+        thread-local one (a retire may read back meanwhile), counted in
+        ``serve_captures``. A failed capture raises: the chunk never runs
+        eagerly instead."""
+        try:
+            self._graphs.capture(
+                greedy, capture_error_mode="global" if self._warming else "thread_local")
+        except Exception as ex:
+            raise RuntimeError("CUDA-graph capture of the {} decode chunk failed: {}".format(
+                "greedy" if greedy else "sampled", ex)) from ex
+        self.counters["graph_captures"] += 1
+        if not self._warming:
+            self.counters["serve_captures"] += 1
+
+    def _capture_graphs(self) -> None:
+        """Capture every decode-chunk variant not captured yet
+        (``warmup()``; nothing on the CPU or with ``cuda_graphs`` off)."""
+        for greedy in (True, False):
+            if self._graphs is not None and not self._graphs.captured(greedy):
+                self._capture(greedy)
+
+    async def _retire_chunk(self, entry: _InFlightChunk) -> None:
+        """Readback and emission of the oldest chunk, while the next one
+        computes: the host token mirrors re-anchor, the chunk's tokens fan
+        out to the slots of its dispatch mask (a finishing slot frees or
+        quarantines its pages), and slots whose barrier was this chunk are
+        released."""
+        t0 = time.perf_counter()
+        if entry.ready is not None and not entry.ready.query():
+            await asyncio.to_thread(entry.ready.synchronize)
+        chunk = entry.tokens.numpy()
+        slots = [int(s) for s in np.nonzero(entry.active_mask)[0]]
+        for slot in slots:
             self._next_token[slot] = int(chunk[slot, -1])
+        for slot in slots:
             for token_id in chunk[slot]:
                 # _emit frees the slot on finish; the rest of the chunk for
                 # that slot is dropped by the None check inside _emit
                 self._emit(slot, int(token_id))
+        self._release_quarantine(entry.seq)
+        self._hist_retire.observe((time.perf_counter() - t0) * 1e3)
+
+    async def _handle_step_failure(self, ex: Exception) -> None:
+        """A decode step raised (dispatch, capture or retire): every
+        request's device state is suspect, so the pipeline is discarded and
+        every active request fails with the error; the loop keeps
+        serving."""
+        logger.exception("decode step failed")
+        await self._discard_pipeline()
+        for slot, request in enumerate(self._slot_req):
+            if request is not None:
+                self._fail_slot(slot, ex)
+
+    # -- pipelined decode: slot-reuse barrier ---------------------------------
+
+    def _pipeline_barrier(self, slot: int) -> Optional[int]:
+        """Newest in-flight (or dispatching) chunk that still decodes
+        ``slot`` (None when the pipeline holds no reference)."""
+        barrier = None
+        for entry in self._inflight:
+            if entry.active_mask[slot]:
+                barrier = entry.seq
+        if self._dispatching is not None and self._dispatching[1][slot]:
+            barrier = self._dispatching[0]
+        return barrier
+
+    def _free_slot_pages(self, slot: int) -> None:
+        """Release a freed slot's pages: at once when no chunk in flight
+        still decodes the slot, else at the retire of the newest one that
+        does. Until then the slot is quarantined against re-admission: that
+        chunk still writes the slot's pages, and its retire would hand a
+        new occupant the dead request's tokens."""
+        barrier = self._pipeline_barrier(slot)
+        if barrier is not None:
+            self._quarantine[slot] = barrier
+            return
+        self.paged_cache.pool.free(slot)
+
+    def _release_quarantine(self, retired_seq: int) -> None:
+        """Retire point: slots whose barrier has passed become reusable and
+        their deferred page frees run."""
+        for slot, barrier in list(self._quarantine.items()):
+            if barrier <= retired_seq:
+                del self._quarantine[slot]
+                if self._slot_req[slot] is None and slot not in self._admitting:
+                    self.paged_cache.pool.free(slot)
+
+    async def _discard_pipeline(self) -> None:
+        """Drop every in-flight chunk (a failed step, or stop) once the card
+        has finished the work already enqueued: a dropped chunk may still
+        be writing its slots' pages. The wait runs in a worker thread."""
+        self._inflight.clear()
+        if self._stream is not None:
+            await asyncio.to_thread(self._stream.synchronize)
+        self._drop_pipeline()
+
+    def _drop_pipeline(self) -> None:
+        """Forget the in-flight queue and the device chain, and run the
+        deferred page frees."""
+        self._inflight.clear()
+        pending = list(self._quarantine)
+        self._quarantine.clear()
+        self._reset_device_chains()
+        for slot in pending:
+            if self._slot_req[slot] is None and slot not in self._admitting:
+                self.paged_cache.pool.free(slot)
+
+    def _reset_device_chains(self) -> None:
+        """Forget the device-resident token chain: the next dispatch takes
+        every slot's token from the host mirror."""
+        self._slot_overrides[:] = True
 
     def _fail_slot(self, slot: int, err: BaseException) -> None:
         request = self._slot_req[slot]
         self._slot_req[slot] = None
-        self.paged_cache.pool.free(slot)
+        self._free_slot_pages(slot)
         if request is not None:
             request.error = err
             request.out_queue.put_nowait(_FINISHED)
@@ -679,7 +1046,7 @@ class LLMEngineCore:
     def _finish_slot(self, slot: int, request: GenRequest) -> None:
         request.out_queue.put_nowait(_FINISHED)
         self._slot_req[slot] = None
-        self.paged_cache.pool.free(slot)
+        self._free_slot_pages(slot)
 
     def _emit(self, slot: int, token_id: int) -> None:
         request = self._slot_req[slot]
@@ -711,7 +1078,7 @@ class LLMEngineCore:
         no worker-thread preparation and no prefix cache, so the job opens
         at once)."""
         free = [i for i, r in enumerate(self._slot_req)
-                if r is None and i not in self._admitting]
+                if r is None and i not in self._admitting and i not in self._quarantine]
         while free and self._pending and not self._stopped:
             request = self._pending.popleft()
             if request.cancelled:
@@ -1151,13 +1518,16 @@ class LLMEngineCore:
     async def _ragged_step(self, active_mask: np.ndarray) -> None:
         """One ragged scheduling iteration: ONE mixed launch carries every
         decode row and as many prefill-chunk rows as fit the budget; serial
-        dispatch -> sync -> emit. A failed launch fails the requests and
-        jobs it carried; the loop keeps serving."""
+        dispatch -> sync -> emit, with the pipeline drained. A failed launch
+        fails the requests and jobs it carried; the loop keeps serving."""
+        # the decode chunks after this step take every token from the host
+        # mirrors this step's retire updates
+        self._reset_device_chains()
         plan = self._prepare_ragged(active_mask)
         if plan is None:
             return
         try:
-            result = await asyncio.to_thread(self._dispatch_ragged_device, plan)
+            result = await asyncio.to_thread(self._on_stream, self._dispatch_ragged_device, plan)
         except Exception as ex:
             logger.exception("ragged step failed")
             for slot in np.nonzero(plan["decode_mask"])[0]:

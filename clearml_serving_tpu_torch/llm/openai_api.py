@@ -8,7 +8,8 @@ Counterpart of ``clearml_serving_tpu/llm/openai_api.py``'s
 ``step_token_budget``, ``ragged_decode_steps``, ``speculation``,
 ``spec_k``, ``spec_ngram``, ``spec_sampling``, ``spec_tree``,
 ``spec_branch``, ``weight_quant`` and its legacy alias ``quantize``,
-``seed``), and ``chat/completions`` (``n=1``,
+``seed``; ``warmup``, which ``warmup_mode`` reads for the endpoint), and
+``chat/completions`` (``n=1``,
 streaming or not,
 ``max_tokens``, ``temperature``/``top_p``/``top_k``, ``stop`` strings) and
 ``models`` answer with the reference's response shapes. Text handling
@@ -21,7 +22,9 @@ naming it; the router maps that to a 422.
 
 from __future__ import annotations
 
+import asyncio
 import json
+import logging
 import time
 import uuid
 from typing import Any, AsyncIterator, Dict, List, Optional
@@ -39,7 +42,7 @@ ENGINE_KEYS = (
     "decode_steps", "page_size", "num_pages", "prefill_buckets",
     "pipeline_depth", "scheduler", "step_token_budget", "ragged_decode_steps",
     "speculation", "spec_k", "spec_ngram", "spec_sampling", "spec_tree", "spec_branch",
-    "weight_quant", "quantize", "seed",
+    "weight_quant", "quantize", "seed", "warmup",
 )
 
 CHAT_FIELDS = (
@@ -56,19 +59,42 @@ def _gen_id(prefix: str) -> str:
     return "{}-{}".format(prefix, uuid.uuid4().hex[:24])
 
 
+def warmup_mode(engine_cfg: Dict[str, Any]) -> str:
+    """The aux ``engine.warmup`` knob as the reference reads it: "off"
+    (the default) or "startup" (``llm/warmup.py``); a typo raises naming
+    the knob. The reference's "full" adds steps for the prefix cache and
+    the ragged variants, which the port does not have yet, so it raises
+    too."""
+    mode = str(engine_cfg.get("warmup", "off")).lower()
+    if mode in ("1", "true", "on"):
+        mode = "startup"
+    if mode in ("0", "false"):
+        mode = "off"
+    if mode not in ("off", "startup", "full"):
+        raise ValueError("aux engine.warmup must be off/startup/full: got {!r}".format(
+            engine_cfg.get("warmup")))
+    if mode == "full":
+        raise ValueError("aux engine.warmup 'full' is not supported by the PyTorch port yet "
+                         "(its prefix-cache and ragged steps are not ported): use 'startup'")
+    return mode
+
+
 def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None, cuda_graphs: bool = True):
     """(engine, tokenizer) from an aux ``engine`` block. Weights are random,
     made on ``device`` from ``seed`` (the weightless preset mode), unless
     ``params`` (``init_params``/``convert_params`` output, full precision or
     already quantized) is given. ``weight_quant`` (or ``quantize``)
     quantizes full-precision weights before the model is built; on an
-    already-packed tree it must name the tree's format."""
+    already-packed tree it must name the tree's format. ``cuda_graphs=False``
+    builds the eager arm (``LLMEngineCore``'s argument; no aux key sets
+    it)."""
     unknown = sorted(k for k in engine_cfg if k not in ENGINE_KEYS)
     if unknown:
         raise ValueError(
             "aux engine keys {} are not supported by the PyTorch port yet".format(unknown)
         )
+    warmup_mode(engine_cfg)  # a typo'd knob fails at load
     if engine_cfg.get("arch", "llama") != "llama":
         raise ValueError("aux engine.arch {!r} is not supported by the PyTorch port "
                          "yet".format(engine_cfg["arch"]))
@@ -148,17 +174,39 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
         # the engine holds the model to the knob (a packed tree of another
         # format raises, naming the tree's format)
         weight_quant=weight_quant,
+        cuda_graphs=cuda_graphs,
     )
     return engine, tokenizer
 
 
 class LLMEngineRequest:
-    """One engine per served model: the chat and models routes."""
+    """One engine per served model: the chat and models routes. With
+    ``warmup`` other than "off" (``warmup_mode``), the first requests wait
+    for the engine's warmup sweep."""
 
-    def __init__(self, engine: LLMEngineCore, tokenizer, model_name: str = "model"):
+    def __init__(self, engine: LLMEngineCore, tokenizer, model_name: str = "model",
+                 warmup: str = "off"):
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
+        self._warmup_needed = warmup != "off"
+        self._warmup_task = None
+
+    async def _ensure_warm(self) -> None:
+        """First arrivals share one warmup task and wait for it; afterwards
+        this is one attribute read. A failed warmup is logged and not
+        retried: a decode-graph variant it left uncaptured is captured at
+        its first use, and a capture that fails there fails its step."""
+        if not self._warmup_needed:
+            return
+        if self._warmup_task is None:
+            self._warmup_task = asyncio.ensure_future(self.engine.warmup())
+        try:
+            await asyncio.shield(self._warmup_task)
+        except Exception as ex:
+            logging.getLogger(__name__).warning("engine warmup failed: %s", ex,
+                                                exc_info=True)
+        self._warmup_needed = False
 
     # -- request parsing -----------------------------------------------------
 
@@ -297,6 +345,7 @@ class LLMEngineRequest:
         created = _now()
         request = self._gen_request_from_body(body, prompt_ids)
         self.engine.validate(request)
+        await self._ensure_warm()
 
         def chat_chunk(choice) -> str:
             chunk = {

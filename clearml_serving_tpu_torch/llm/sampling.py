@@ -9,8 +9,12 @@ temperature is 0. A categorical draw is ``argmax(scaled + gumbel)``, which
 is how ``jax.random.categorical`` samples too, so a caller (a test) that
 passes the reference's Gumbel draws as ``noise`` (and, for the speculative
 samplers, its uniform draws as ``uniform``) gets the reference's tokens.
-Without them the draws come from the given ``torch.Generator``. Penalties,
-logit bias and per-request seeds arrive with a later slice of the port.
+Without them the draws come from the given ``torch.Generator``. The engine's
+decode chunk draws all its steps' noise at once (``gumbel_noise`` of
+``[steps, B, V]``, outside the chunk's CUDA graph, whose own draws would
+repeat at every replay) and passes each step's slice as ``noise``.
+Penalties, logit bias and per-request seeds arrive with a later slice of
+the port.
 """
 
 from __future__ import annotations

@@ -238,6 +238,13 @@ class Llama(nn.Module):
         self.dtype = torch_dtype(cfg)
         self.kv_quant = str(cfg.get("kv_quant") or "")
         self.query_scale = float(cfg.get("query_scale") or self.head_dim ** -0.5)
+        # the attention kernels scale scores by head_dim**-0.5 themselves; a
+        # family query_scale folds into q before them. A Python scalar keeps
+        # a decode step free of host-to-device copies (CUDA-graph capture),
+        # and rounding it to the model dtype keeps the bits of a product
+        # with a 0-dim tensor of that dtype
+        self.q_prescale = float(torch.tensor(self.query_scale * self.head_dim ** 0.5,
+                                             dtype=self.dtype))
         for key in ("embed", "final_norm", "lm_head"):
             if key not in params:
                 raise ValueError("params need {!r}".format(key))
@@ -393,9 +400,6 @@ class Llama(nn.Module):
         wp = write_page.long()
         wo = write_offset.long()
         attend_len = lengths + 1
-        # the kernel scales scores by head_dim**-0.5 itself; a family
-        # query_scale folds into q before it
-        q_prescale = self.query_scale * (self.head_dim ** 0.5)
         for li, layer in enumerate(self.layers):
             def attn(h, li=li, layer=layer):
                 q, k, v = self._qkv(layer, h, cos, sin)               # q [B,1,H,D]
@@ -411,8 +415,8 @@ class Llama(nn.Module):
                     v_scales[li][:, wp, wo] = v_s[:, 0].transpose(0, 1)
                     scale_kw = {"k_scale": k_scales[li], "v_scale": v_scales[li]}
                 qg = q[:, 0].reshape(b, self.n_kv_heads, self.group, self.head_dim)
-                if q_prescale != 1.0:
-                    qg = qg * torch.tensor(q_prescale, dtype=qg.dtype, device=qg.device)
+                if self.q_prescale != 1.0:
+                    qg = qg * self.q_prescale
                 out = paged_attention(qg.contiguous(), k_pool, v_pool, page_table,
                                       attend_len, **scale_kw)         # [B,Hkv,G,D]
                 return out.reshape(b, 1, self.n_heads * self.head_dim).to(x.dtype)
@@ -468,7 +472,6 @@ class Llama(nn.Module):
         x = self.embed[tokens][:, None]                               # [T, 1, dim]
         wp = write_page.long()
         wo = write_offset.long()
-        q_prescale = self.query_scale * (self.head_dim ** 0.5)
         for li, layer in enumerate(self.layers):
             def attn(h, li=li, layer=layer):
                 q, k, v = self._qkv(layer, h, cos, sin)               # q [T,1,H,D]
@@ -483,8 +486,8 @@ class Llama(nn.Module):
                     v_scales[li][:, wp, wo] = v_s[:, 0].transpose(0, 1)
                     scale_kw = {"k_scale": k_scales[li], "v_scale": v_scales[li]}
                 qg = q[:, 0].reshape(t, self.n_kv_heads, self.group, self.head_dim)
-                if q_prescale != 1.0:
-                    qg = qg * torch.tensor(q_prescale, dtype=qg.dtype, device=qg.device)
+                if self.q_prescale != 1.0:
+                    qg = qg * self.q_prescale
                 out = ragged_paged_attention(
                     qg.contiguous(), k_pool, v_pool, page_table, kv_lens, row_starts,
                     row_lens, block_rows=block_rows, block_q0=block_q0,

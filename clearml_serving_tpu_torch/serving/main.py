@@ -24,7 +24,7 @@ from typing import Any
 from aiohttp import web
 
 from ..llm.engine import EngineUnavailableError
-from ..llm.openai_api import LLMEngineRequest, build_engine
+from ..llm.openai_api import LLMEngineRequest, build_engine, warmup_mode
 
 _OPENAI = "/serve/openai/v1/"
 
@@ -124,8 +124,10 @@ def main(argv=None) -> None:
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8080)
     args = parser.parse_args(argv)
-    engine, tokenizer = build_engine(json.loads(args.engine_config), device=args.device)
-    app = build_app(LLMEngineRequest(engine, tokenizer, args.model_name))
+    engine_cfg = json.loads(args.engine_config)
+    engine, tokenizer = build_engine(engine_cfg, device=args.device)
+    app = build_app(LLMEngineRequest(engine, tokenizer, args.model_name,
+                                     warmup=warmup_mode(engine_cfg)))
     web.run_app(app, host=args.host, port=args.port)
 
 

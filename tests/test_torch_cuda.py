@@ -15,6 +15,7 @@ the same operands)."""
 
 import asyncio
 import ctypes
+import types
 
 import pytest
 import torch
@@ -815,3 +816,139 @@ def test_int4_engine_outside_the_kernel_gate_raises_at_construction(cuda):
     with pytest.raises(ValueError, match=r"^fused_int4_matmul gate N: .*layers\.0\.w_gate"):
         LLMEngineCore(Llama(cfg, params), max_batch=2, max_seq_len=128, page_size=16,
                       weight_quant="int4")
+
+
+# -- the decode chunk in CUDA graphs ------------------------------------------------
+
+SMALL_CFG = {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 4, "n_kv_heads": 2,
+             "head_dim": 64, "ffn_dim": 512, "dtype": "bfloat16"}
+
+
+def _small_model(dev, kv_quant="", weights=""):
+    cfg = dict(SMALL_CFG, kv_quant=kv_quant) if kv_quant else SMALL_CFG
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    if weights:
+        params = quantize_llama_params(params, bits=4)
+    return Llama(cfg, params)
+
+
+def _chunk_inputs(model, dev, kv_quant, sampled, b=4, n=4):
+    """A cache with random pool contents, four slots at 9-90 tokens whose
+    next n tokens are allocated (one row idle), and the chunk's packed host
+    inputs (pinned) with one host override."""
+    from clearml_serving_tpu_torch.llm.decode_graph import ChunkLayout
+    from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
+
+    page = 32 if kv_quant else 16
+    cache = PagedKVCache(model.n_layers, model.n_kv_heads, model.head_dim, num_pages=40,
+                         page_size=page, max_slots=b, dtype=model.dtype, kv_quant=kv_quant,
+                         device=dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    if kv_quant:
+        cache.k.copy_(torch.randint(-127, 128, cache.k.shape, generator=gen, device=dev))
+        cache.v.copy_(torch.randint(-127, 128, cache.v.shape, generator=gen, device=dev))
+        cache.k_scale.copy_(torch.rand(cache.k_scale.shape, generator=gen, device=dev) * 0.02)
+        cache.v_scale.copy_(torch.rand(cache.v_scale.shape, generator=gen, device=dev) * 0.02)
+    else:
+        cache.k.copy_(torch.randn(cache.k.shape, generator=gen, device=dev))
+        cache.v.copy_(torch.randn(cache.v.shape, generator=gen, device=dev))
+    pp = 6
+    layout = ChunkLayout(b, pp, n)
+    i32 = torch.zeros(layout.size_i32, dtype=torch.int32, pin_memory=True)
+    f32 = torch.zeros(layout.size_f32, dtype=torch.float32, pin_memory=True)
+    v = layout.views(i32.numpy(), f32.numpy())
+    lengths = [9, 40, 90, 0]
+    for slot, length in enumerate(lengths[:3]):
+        cache.pool.allocate(slot, length + n)
+        for i, (p, o) in enumerate(cache.pool.token_coords(slot, length, n)):
+            v["write_pages"][slot, i], v["write_offsets"][slot, i] = p, o
+    v["page_table"][:] = cache.pool.page_table(pp)
+    v["lengths0"][:] = lengths
+    v["temperature"][:] = [0.8, 0.0, 1.2, 0.0] if sampled else 0.0
+    v["top_k"][:] = [0, 0, 40, 0]
+    v["top_p"][:] = [1.0, 1.0, 0.9, 1.0]
+    v["override_tokens"][:] = [0, 300, 0, 0]
+    v["override_mask"][:] = [0, 1, 0, 0]
+    chain = torch.tensor([5, 0, 200, 9], dtype=torch.int32, device=dev)
+    from clearml_serving_tpu_torch.llm.sampling import gumbel_noise
+    noise = gumbel_noise((n, b, model.vocab_size), gen, dev) if sampled else None
+    return cache, layout, i32, f32, chain, noise
+
+
+def _pools(cache):
+    return [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None]
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("kv_quant,weights", [("", ""), ("int8", ""), ("", "int4")],
+                         ids=["bf16", "int8", "int4_weights"])
+def test_graph_replay_is_bitwise_the_eager_chunk(cuda, kv_quant, weights, sampled):
+    """One captured decode chunk's replay against ``run_chunk`` eagerly on
+    cloned pools: the same tokens and every pool page bit for bit, the
+    device chain advanced to the last step's tokens, and the launch counts
+    of a replay (none for the capture)."""
+    from clearml_serving_tpu_torch.llm.decode_graph import DecodeGraphs, run_chunk
+
+    model = _small_model(cuda, kv_quant, weights)
+    n = 4
+    cache, layout, i32, f32, chain, noise = _chunk_inputs(model, cuda, kv_quant, sampled, n=n)
+    eager_cache = types.SimpleNamespace(**{
+        name: getattr(cache, name) if name == "kv_quant" or getattr(cache, name) is None
+        else getattr(cache, name).clone() for name in ("k", "v", "k_scale", "v_scale", "kv_quant")})
+    eager = run_chunk(model, eager_cache, layout.views(i32.to(cuda), f32.to(cuda)), chain,
+                      noise, n)
+    graphs = DecodeGraphs(model, cache, layout, n)
+    graphs.chain.copy_(chain)
+    paged_attention.launches = fused_int4_matmul.launches = 0
+    graphs.capture(greedy=not sampled)
+    assert (paged_attention.launches, fused_int4_matmul.launches) == (0, 0)
+    out = graphs.replay(not sampled, i32, f32, noise)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert torch.equal(graphs.chain, eager[:, -1])
+    for got, want in zip(_pools(cache), _pools(eager_cache)):
+        assert torch.equal(got, want)
+    assert paged_attention.launches == model.n_layers * n
+    assert fused_int4_matmul.launches == ((7 * model.n_layers + 1) * n if weights else 0)
+
+
+@pytest.mark.parametrize("weights", ["", "int4"], ids=["bf16", "int4_weights"])
+def test_engine_replays_graphs_after_warmup(cuda, weights):
+    """Graphs at depth 1 and at depth 2 after ``warmup()``: both variants
+    captured at warmup, no capture while serving, one replay per chunk,
+    the kernels' counts per decode step, and greedy streams equal to the
+    eager engine's (``cuda_graphs=False``, depth 1)."""
+    model = _small_model(cuda, "", weights)
+    kw = dict(max_batch=2, max_seq_len=128, decode_steps=4, page_size=16,
+              prefill_buckets=[32, 64], weight_quant=weights or None)
+    prompts = [list(range(1, 6)), list(range(3, 43)), list(range(7, 27))]
+
+    async def run(engine):
+        async def one(ids, temperature):
+            return [t async for t in engine.generate(
+                GenRequest(prompt_ids=ids, max_new_tokens=11, temperature=temperature))]
+        return await asyncio.gather(*(one(p, 0.7 if i == 2 else 0.0)
+                                      for i, p in enumerate(prompts)))
+
+    streams = {}
+    for arm, depth, graphs in (("eager", 1, False), ("graphs1", 1, True), ("graphs2", 2, True)):
+        engine = LLMEngineCore(model, pipeline_depth=depth, cuda_graphs=graphs, **kw)
+        if graphs:
+            assert asyncio.run(engine.warmup())["graph_captures"] == 2
+        for key in engine.counters:
+            engine.counters[key] = 0
+        paged_attention.launches = fused_int4_matmul.launches = 0
+        streams[arm] = asyncio.run(run(engine))
+        c = engine.counters
+        assert paged_attention.launches == model.n_layers * c["decode_steps"] > 0
+        if weights:
+            forwards = c["prefills"] + c["decode_steps"]
+            assert fused_int4_matmul.launches == (7 * model.n_layers + 1) * forwards
+        assert c["serve_captures"] == 0
+        assert c["graph_replays"] == (c["decode_chunks"] if graphs else 0)
+        pool = engine.paged_cache.pool
+        assert pool.free_pages == pool.num_pages - 1
+        engine.stop()
+    assert [len(s) for s in streams["graphs2"]] == [11, 11, 11]
+    # the greedy streams
+    assert streams["eager"][:2] == streams["graphs1"][:2] == streams["graphs2"][:2]

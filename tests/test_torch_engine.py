@@ -115,9 +115,9 @@ def test_prompt_past_max_seq_len_is_refused(tiny_np):
 
 
 @pytest.mark.parametrize("knob", [
-    {"cache_mode": "dense"}, {"ragged_decode_steps": 8}, {"pipeline_depth": 2},
+    {"cache_mode": "dense"}, {"ragged_decode_steps": 8}, {"max_pending": 16},
     {"speculation": "ngram"}, {"prefix_cache": 8}, {"weight_quant": "int4"},
-], ids=["dense", "ragged", "depth2", "speculation", "prefix_cache", "weight_quant"])
+], ids=["dense", "ragged", "max_pending", "speculation", "prefix_cache", "weight_quant"])
 def test_unsupported_knob_raises_naming_itself(tiny_np, knob):
     model = Llama(TINY, convert_params(tiny_np, device="cpu"))
     (name,) = knob

@@ -24,6 +24,7 @@ from clearml_serving_tpu_torch.ops.paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_ref,
 )
+from torch_fp_env import fp_environment
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -135,7 +136,7 @@ def test_ref_matches_xla_reference(quant, tree):
     out = ragged_paged_attention_ref(*args, **kw).numpy()
     ref = np.asarray(ragged_paged_attention_xla(*jargs, jkw["k_scale"], jkw["v_scale"],
                                                 jkw["tree_anc"]))
-    np.testing.assert_allclose(out, ref, **TOL)
+    np.testing.assert_allclose(out, ref, **TOL, err_msg=fp_environment())
     if tree:
         # the tree mask changes the verify row and nothing else
         plain = ragged_paged_attention_ref(*args, k_scale=kw["k_scale"],

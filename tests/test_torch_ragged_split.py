@@ -47,6 +47,7 @@ from clearml_serving_tpu_torch.ops.paged_attention import (
     split_plan,
     tree_ancestors,
 )
+from torch_fp_env import fp_environment
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 STEP, KEY_GROUPS = 32, 2       # kChunk, kKG of csrc/ragged_paged_attention.cu
@@ -365,7 +366,8 @@ def test_split_combine_mirror_matches_references(quant, g, topology, reference):
     for s, n in zip(ops["starts"], ops["row_lens"]):
         owned[s:s + n] = True
     assert torch.equal(out[~owned], torch.zeros_like(out[~owned]))  # dead queries, pads
-    np.testing.assert_allclose(out.numpy(), _reference(ops, reference), **TOL)
+    np.testing.assert_allclose(out.numpy(), _reference(ops, reference), **TOL,
+                               err_msg=fp_environment())
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16_values", "int8"])
