@@ -77,7 +77,23 @@ exits non-zero before the result lines are printed:
    arm's wall ms per decode step, dispatch and retire ms and tok/s;
 6. where the time goes: one profiled pass of each scheduler (bf16 KV; the
    two-dispatch path at depth 2 and at depth 1), one of phase 5d's tree arm
-   and one of the two-dispatch path on int4 weights.
+   and one of the two-dispatch path on int4 weights;
+7. the request lifecycle of the default route: Llama-3-8B at full width
+   behind the HTTP app (bf16 KV, depth 2 with graphs, max_batch 8) with the
+   reference's default lifecycle knobs (max_pending 32, a 30 s watchdog,
+   preemption, brownout). 8 batch-class chats at 128 tokens alone, then with
+   an interactive arrival (a preemption; every batch content must equal its
+   unpreempted run), then on an engine with preemption off (the
+   interactive TTFT with and without preemption); 40 concurrent chats at 16
+   tokens (200s and 429s, each 429 with Retry-After and ``code:
+   overloaded``, beside the observed admission drain rate); a 1 ms TTFT
+   budget on a 2048-bucket prompt (408) and a 1 s ``timeout`` that cuts a
+   stream (an SSE error event); the drain with 4 streams in flight (new
+   chats 503 ``draining``, the streams finish, every page back); on an
+   engine with a 2 s watchdog, a 6 s retire stall injected while 4 chats
+   have chunks in flight (503 ``engine_stalled``, /ready 503 then 200, free
+   pages and the next chat's content as before the trip). The decode kernel
+   once per layer per decode step of the default engine's traffic.
 
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, and the ragged kernel's tree variant) and
@@ -89,6 +105,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -1533,7 +1550,28 @@ def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "
     recorded, and this holds them to kernels the card ran. Other passes
     count every launch in the wrapper and only print the comparison: an
     eager pass's trace has come up short (1020 of 1024 counted grids on an
-    H100), as if the profiler dropped records."""
+    H100), and so has a graph pass's (4095 of 4096), as if the profiler
+    dropped records. A graph pass whose trace disagrees is therefore
+    profiled once more, on a fresh engine: a launch that did not run would
+    make the second trace disagree too, and then the phase fails."""
+    out = _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs, traffic)
+    if out["checked"] and not out["trace_agrees"]:
+        log("  the trace disagrees with the counts: profiling the pass once more")
+        out = _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
+                             traffic)
+        if not out["trace_agrees"]:
+            raise AssertionError("the trace holds {} decode-attention and {} int4 grids, the "
+                                 "counts say {} and {}".format(
+                                     out["traced_paged"], out["traced_int4"],
+                                     out["paged_launches"], out["int4_launches"]))
+    return out
+
+
+def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
+                   traffic) -> dict:
+    """One profiled pass of ``phase_profile``: its numbers, and whether
+    the trace's decode-attention and int4 grids equal the counts
+    (``trace_agrees``; ``checked`` on a two-dispatch pass with graphs)."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -1616,12 +1654,9 @@ def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "
         "matmul {int4_matmul_ms:.2f} ms; {graph_replays} replays; in the trace "
         "{traced_paged} decode-attention and {traced_int4} int4 grids, counted "
         "{paged_launches} and {int4_launches}".format(**out))
-    if scheduler == "two_dispatch" and graphs and (traced_paged, traced_int4) != (
-            c["paged_launches"], c["int4_launches"]):
-        raise AssertionError("the trace holds {} decode-attention and {} int4 grids, the "
-                             "counts say {} and {}".format(traced_paged, traced_int4,
-                                                           c["paged_launches"],
-                                                           c["int4_launches"]))
+    out["checked"] = scheduler == "two_dispatch" and graphs
+    out["trace_agrees"] = (traced_paged, traced_int4) == (c["paged_launches"],
+                                                          c["int4_launches"])
     for name, ms in top:
         log("    {:9.2f} ms  {}".format(ms, name[:100]))
     return out
@@ -2124,6 +2159,321 @@ def phase_pipeline_arms(params, preset: str = "llama3-8b", traffics=PIPELINE_TRA
     return runs
 
 
+# -- phase 7: the request lifecycle of the default route ------------------------
+
+LIFECYCLE_PROMPT = "Write a short story about a lighthouse keeper and a storm."
+BATCH_PROMPTS = ["Batch job {}: describe the paged KV cache and its page table.".format(i)
+                 for i in range(8)]
+
+
+@contextlib.asynccontextmanager
+async def served(engine, tokenizer):
+    """The port's app for ``engine`` on a local port: yields (app, base
+    URL, client session); the app's cleanup stops the engine."""
+    import aiohttp
+    from aiohttp import web
+
+    from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest
+    from clearml_serving_tpu_torch.serving.main import build_app
+
+    app = build_app(LLMEngineRequest(engine, tokenizer, "llama3-8b"))
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = "http://127.0.0.1:{}".format(runner.addresses[0][1])
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+            yield app, base, s
+    finally:
+        await runner.cleanup()
+
+
+async def lifecycle_chat(session, base, prompt, max_tokens, stream=False, **fields) -> dict:
+    """One chat through the lifecycle: its status, ``Retry-After``, error
+    code and stage, content (streamed or not), the SSE error event's type,
+    and the client's time to the first content piece."""
+    body = {"model": "llama3-8b", "messages": [{"role": "user", "content": prompt}],
+            "max_tokens": max_tokens, "stream": stream, **fields}
+    t0 = time.perf_counter()
+    async with session.post(base + "/serve/openai/v1/chat/completions", json=body) as r:
+        out = dict(status=r.status, retry_after=r.headers.get("Retry-After"), code=None,
+                   stage=None, content="", tokens=None, error=None, first_text_s=None)
+        if r.status != 200:
+            payload = await r.json()
+            out.update(code=payload.get("code"), stage=payload.get("stage"))
+        elif not stream:
+            payload = await r.json()
+            out.update(content=payload["choices"][0]["message"]["content"],
+                       tokens=payload["usage"]["completion_tokens"])
+        else:
+            pieces = []
+            async for raw in r.content:
+                line = raw.decode().strip()
+                if not line.startswith("data: {"):
+                    continue
+                chunk = json.loads(line[len("data: "):])
+                if "error" in chunk:
+                    out["error"] = chunk["error"]["type"]
+                    continue
+                piece = chunk["choices"][0]["delta"].get("content")
+                if piece:
+                    out["first_text_s"] = out["first_text_s"] or time.perf_counter() - t0
+                    pieces.append(piece)
+            out["content"] = "".join(pieces)
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+async def until(predicate, timeout: float, what: str) -> None:
+    t0 = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("timed out after {} s waiting for {}".format(timeout, what))
+        await asyncio.sleep(0.005)
+
+
+def release_card_memory() -> None:
+    """Return a dropped engine's pools and graph memory to the card."""
+    gc.collect()
+    if torch.device(DEV).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+async def preemption_run(engine, s, base, interactive: bool) -> dict:
+    """8 batch-class chats at 128 tokens; with ``interactive``, one
+    interactive chat once each has 16 tokens. Returns the batch contents,
+    the interactive's engine-side TTFT and client-side first text, and the
+    engine's preemptions."""
+    preempted0 = engine.counters["preemptions"]
+    emitted0 = engine.counters["tokens_emitted"]
+    batch = [asyncio.ensure_future(lifecycle_chat(s, base, p, 128, priority="batch"))
+             for p in BATCH_PROMPTS]
+    await until(lambda: engine.active_slots == 8, 120, "8 batch chats decoding")
+    await until(lambda: engine.counters["tokens_emitted"] - emitted0 >= 8 * 16, 120,
+                "16 tokens of each batch chat")
+    ttft_ms = first_text_ms = None
+    if interactive:
+        seen = len(engine.ttft_ms)
+        hi = await lifecycle_chat(s, base, LIFECYCLE_PROMPT, 16, stream=True)
+        # the only request admitted for the first time meanwhile (a
+        # resumed victim keeps its first TTFT)
+        new = list(engine.ttft_ms)[seen:]
+        if hi["status"] != 200 or hi["error"] or len(new) != 1:
+            raise AssertionError("interactive chat: {}, new TTFTs {}".format(hi, new))
+        ttft_ms = new[0]
+        first_text_ms = hi["first_text_s"] and hi["first_text_s"] * 1e3
+    done = await asyncio.gather(*batch)
+    await engine.wait_drained()
+    if any(d["status"] != 200 or d["tokens"] != 128 for d in done):
+        raise AssertionError("a batch chat failed: {}".format(
+            [(d["status"], d["tokens"], d["code"]) for d in done]))
+    return dict(contents=[d["content"] for d in done], ttft_ms=ttft_ms,
+                first_text_ms=first_text_ms,
+                preemptions=engine.counters["preemptions"] - preempted0)
+
+
+async def default_engine_runs(engine, tokenizer, card: str) -> dict:
+    """On one app: the preemption runs (8 batch chats alone, then with an
+    interactive arrival), 40 concurrent chats at 16 tokens under the
+    default admission bound, a 1 ms TTFT budget on a 2048-bucket prompt, a
+    total budget that cuts a stream, then the drain with 4 streams in
+    flight."""
+    from clearml_serving_tpu_torch.serving.main import drain_app
+
+    async with served(engine, tokenizer) as (app, base, s):
+        # the preemption runs come first: the overload below raises the
+        # brownout stage, whose batch cap would shorten batch chats
+        control = await preemption_run(engine, s, base, interactive=False)
+        contended = await preemption_run(engine, s, base, interactive=True)
+        if contended["preemptions"] < 1:
+            raise AssertionError("no batch chat was preempted")
+        same = [a == b for a, b in zip(control["contents"], contended["contents"])]
+        log("  preemption: {} preemption(s); batch contents equal to the unpreempted run: "
+            "{}; interactive TTFT {:.2f} ms (engine), first text {} ms (client) ({})".format(
+                contended["preemptions"], same, contended["ttft_ms"],
+                contended["first_text_ms"], card))
+        if not all(same):
+            raise AssertionError("a preempted batch stream left its unpreempted run")
+        t0 = time.perf_counter()
+        burst = await asyncio.gather(*[lifecycle_chat(s, base, PROMPTS[i % len(PROMPTS)], 16)
+                                       for i in range(40)])
+        burst_s = time.perf_counter() - t0
+        times = list(engine._admit_times)
+        drain_rate = (len(times) - 1) / (times[-1] - times[0]) if len(times) > 1 else None
+        ok = [b for b in burst if b["status"] == 200]
+        shed = [b for b in burst if b["status"] == 429]
+        if len(ok) + len(shed) != 40 or not 1 <= len(shed) <= 8:
+            raise AssertionError("overload: {} x 200, {} x 429 of 40 (other: {})".format(
+                len(ok), len(shed), [b["status"] for b in burst]))
+        if any(b["code"] != "overloaded" or not b["retry_after"] or int(b["retry_after"]) < 1
+               for b in shed):
+            raise AssertionError("a 429 without Retry-After or code overloaded: {}".format(shed))
+        if any(b["tokens"] != 16 for b in ok):
+            raise AssertionError("a served chat stopped short of 16 tokens")
+        retry_after = sorted(int(b["retry_after"]) for b in shed)
+        log("  overload: 40 concurrent chats -> {} x 200, {} x 429 in {:.3f} s; Retry-After "
+            "{} s beside the observed admission drain rate {} /s ({})".format(
+                len(ok), len(shed), burst_s, retry_after,
+                None if drain_rate is None else round(drain_rate, 3), card))
+        await engine.wait_drained()
+        # a 1 ms TTFT budget cannot hold a 2048-bucket prefill
+        ttft = await lifecycle_chat(s, base, LONG_PROMPTS[-1], 8, ttft_timeout=0.001)
+        if (ttft["status"], ttft["code"], ttft["stage"]) != (408, "deadline_exceeded", "ttft"):
+            raise AssertionError("ttft budget: {}".format(ttft))
+        cut = await lifecycle_chat(s, base, LIFECYCLE_PROMPT, 1024, stream=True, timeout=1.0)
+        if cut["status"] != 200 or cut["error"] != "DeadlineExceededError" or not cut["content"]:
+            raise AssertionError("timeout did not cut the stream: {}".format(cut))
+        log("  deadlines: ttft_timeout 0.001 s on a 2048-bucket prompt -> {} {} ({}); timeout "
+            "1.0 s cut a 1024-token stream after {} characters in {:.3f} s ({})".format(
+                ttft["status"], ttft["code"], ttft["stage"], len(cut["content"]),
+                cut["total_s"], card))
+        await engine.wait_drained()
+        # the drain: 4 streams in flight, a new chat meanwhile
+        streams = [asyncio.ensure_future(lifecycle_chat(s, base, p, 64, stream=True))
+                   for p in PROMPTS]
+        await until(lambda: engine.active_slots == 4, 120, "4 streams decoding")
+        t0 = time.perf_counter()
+        drain = asyncio.ensure_future(drain_app(app, timeout=60.0))
+        await asyncio.sleep(0.05)
+        late = await lifecycle_chat(s, base, LIFECYCLE_PROMPT, 8)
+        async with s.get(base + "/ready") as r:
+            ready = (r.status, (await r.json())["status"])
+        finished = await asyncio.gather(*streams)
+        await drain
+        drain_s = time.perf_counter() - t0
+        if (late["status"], late["code"], bool(late["retry_after"])) != (503, "draining", True):
+            raise AssertionError("a chat during the drain: {}".format(late))
+        if ready != (503, "draining"):
+            raise AssertionError("/ready during the drain: {}".format(ready))
+        if any(f["status"] != 200 or f["error"] or not f["content"] for f in finished):
+            raise AssertionError("an in-flight stream did not finish: {}".format(finished))
+        await engine.wait_drained()
+        pool = engine.paged_cache.pool
+        if engine.health()["ready"] or pool.free_pages != pool.num_pages - 1:
+            raise AssertionError("after the drain: ready {} free pages {} of {}".format(
+                engine.health()["ready"], pool.free_pages, pool.num_pages - 1))
+        log("  drain: 4 streams in flight finished with 200, a new chat got 503 draining, "
+            "/ready 503 draining; drained and stopped in {:.3f} s, every page back "
+            "({})".format(drain_s, card))
+    return dict(control=control, contended=contended, ok=len(ok), shed=len(shed),
+                retry_after=retry_after, drain_rate=drain_rate, burst_s=burst_s,
+                ttft_status=ttft["status"], cut_chars=len(cut["content"]), drain_s=drain_s)
+
+
+async def watchdog_run(engine, tokenizer, card: str) -> dict:
+    """A 2 s watchdog; the retire leg stalls 6 s (injected) while 4 chats
+    have chunks in flight: they get 503 engine_stalled, /ready reads 503
+    until recovery, then 200; the pool's free pages and the next greedy
+    chat's content equal those before the trip."""
+    from clearml_serving_tpu_torch.llm import faults
+
+    async with served(engine, tokenizer) as (_app, base, s):
+        before = await lifecycle_chat(s, base, LIFECYCLE_PROMPT, 32)
+        await engine.wait_drained()
+        free0 = engine.paged_cache.pool.free_pages
+        victims = [asyncio.ensure_future(lifecycle_chat(s, base, p, 512)) for p in PROMPTS]
+        await until(lambda: engine.active_slots == 4 and len(engine._inflight) > 0, 120,
+                    "4 chats with chunks in flight")
+        faults.configure([{"point": "engine.decode.stall", "action": "delay", "delay": 6.0,
+                           "times": 1}])
+        try:
+            t_503 = t_200 = None
+            t0 = time.perf_counter()
+            while t_200 is None and time.perf_counter() - t0 < 60:
+                async with s.get(base + "/ready") as r:
+                    now = time.perf_counter()
+                    if r.status == 503 and t_503 is None:
+                        t_503 = now
+                    elif r.status == 200 and t_503 is not None:
+                        t_200 = now
+                await asyncio.sleep(0.02)
+            outcomes = await asyncio.gather(*victims)
+        finally:
+            faults.clear()
+        await engine.wait_drained()
+        free1 = engine.paged_cache.pool.free_pages
+        after = await lifecycle_chat(s, base, LIFECYCLE_PROMPT, 32)
+        trips = engine.counters["watchdog_trips"]
+        await engine.wait_drained()
+    codes = [(o["status"], o["code"]) for o in outcomes]
+    if codes != [(503, "engine_stalled")] * 4 or trips != 1:
+        raise AssertionError("watchdog: victims {} trips {}".format(codes, trips))
+    if t_503 is None or t_200 is None:
+        raise AssertionError("/ready never went 503 then 200")
+    if free1 != free0 or after["content"] != before["content"] or after["status"] != 200:
+        raise AssertionError("after recovery: free pages {} vs {}, content equal {}".format(
+            free1, free0, after["content"] == before["content"]))
+    log("  watchdog: 4 in-flight chats -> 503 engine_stalled, one trip; /ready 503 -> 200 "
+        "in {:.3f} s (trip to ready, most of it the injected 6 s stall's remainder); free "
+        "pages {} before, {} after; the next chat's content equals the one before "
+        "({})".format(
+            t_200 - t_503, free0, free1, card))
+    return dict(trip_to_ready_s=t_200 - t_503, free_pages=free1, trips=trips)
+
+
+def phase_lifecycle(params, card: str, preset: str = "llama3-8b") -> dict:
+    """Phase 7: the default route's request lifecycle at full width, bf16
+    KV, default depth 2 with graphs, max_batch 8, behind the HTTP app, with
+    the reference's default lifecycle knobs (max_pending 32, a 30 s
+    watchdog, preemption, brownout): preemption (8 batch chats, one
+    interactive) against the same chats alone and against an engine with
+    preemption off; the overload burst, the deadlines and the drain; the
+    watchdog on an engine with a 2 s interval. The decode kernel must have
+    launched once per layer per decode step of the default engine's
+    traffic."""
+    from clearml_serving_tpu_torch.ops.paged_attention import paged_attention
+
+    t_phase = time.perf_counter()
+    engine, tokenizer = _engine(params, "", preset)
+    defaults = (engine.max_pending, engine._watchdog_interval, engine._preempt,
+                engine._brownout is not None)
+    if defaults != (32, 30.0, True, True):
+        raise AssertionError("default lifecycle knobs: {}".format(defaults))
+    n_layers = engine.model.n_layers
+    paged_attention.launches = 0
+    for key in engine.counters:
+        engine.counters[key] = 0
+    runs = asyncio.run(default_engine_runs(engine, tokenizer, card))
+    c = dict(engine.counters)
+    launches = paged_attention.launches
+    if c["decode_steps"] == 0 or launches != n_layers * c["decode_steps"]:
+        raise AssertionError("paged_attention launched {} times for {} decode steps".format(
+            launches, c["decode_steps"]))
+    control, contended = runs.pop("control"), runs.pop("contended")
+    del engine
+    release_card_memory()
+
+    async def unpreempted_run(engine, tokenizer):
+        async with served(engine, tokenizer) as (_app, base, s):
+            return await preemption_run(engine, s, base, interactive=True)
+
+    engine, tokenizer = _engine(params, "", preset, preemption=False)
+    unpreempted = asyncio.run(unpreempted_run(engine, tokenizer))
+    del engine
+    release_card_memory()
+    if unpreempted["preemptions"] or unpreempted["contents"] != control["contents"]:
+        raise AssertionError("preemption off: {} preemptions, contents equal {}".format(
+            unpreempted["preemptions"], unpreempted["contents"] == control["contents"]))
+    log("  interactive TTFT with preemption {:.2f} ms, without {:.2f} ms (engine; client "
+        "first text {} vs {} ms) ({})".format(
+            contended["ttft_ms"], unpreempted["ttft_ms"], contended["first_text_ms"],
+            unpreempted["first_text_ms"], card))
+    engine, tokenizer = _engine(params, "", preset, watchdog_interval=2)
+    watchdog = asyncio.run(watchdog_run(engine, tokenizer, card))
+    del engine
+    release_card_memory()
+    out = dict(card=card, preemptions=contended["preemptions"],
+               ttft_ms_preempt=contended["ttft_ms"], ttft_ms_no_preempt=unpreempted["ttft_ms"],
+               first_text_ms_preempt=contended["first_text_ms"],
+               first_text_ms_no_preempt=unpreempted["first_text_ms"],
+               launches=launches, decode_steps=c["decode_steps"], sheds=c["sheds_queue"],
+               deadline_ttft=c["deadline_ttft"], deadline_total=c["deadline_total"],
+               **runs, **watchdog, seconds=time.perf_counter() - t_phase)
+    log("  phase 7 in {:.1f} s".format(out["seconds"]))
+    return out
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -2230,6 +2580,9 @@ def main() -> int:
     ragged_prof = phase_profile(params, "ragged")
     tree_prof = phase_profile(params, "ragged-tree")
     int4_prof = phase_profile(qparams, weight_quant="int4")
+    log("phase 7: request lifecycle, llama3-8b full width behind the HTTP server, default "
+        "lifecycle knobs")
+    lifecycle = phase_lifecycle(params, card)
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -2374,7 +2727,8 @@ def main() -> int:
                                   "steady_profiles": steady_profs,
                                   "ragged_profile": ragged_prof,
                                   "tree_profile": tree_prof,
-                                  "int4_profile": int4_prof}))
+                                  "int4_profile": int4_prof,
+                                  "lifecycle": lifecycle}))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)
     print(json.dumps(kernels))

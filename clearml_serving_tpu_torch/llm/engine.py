@@ -52,6 +52,27 @@ for sampled rows) runs on the device in the same step; a tree row's
 accepted nodes have their K/V moved to their path depths, and the retire
 truncates each verify row to what it kept before emitting it.
 
+Request lifecycle (the reference's ``docs/robustness.md`` and
+``docs/slo_scheduling.md``): ``check_admission`` sheds with structured
+errors (``errors.py``) before a request queues: 503 once stopped, 408 on a
+budget already spent, 429 with a drain-rate ``Retry-After`` at
+``max_pending`` (a higher-class arrival evicts a queued lower-class request
+first) or when the pool cannot hold the prompt. Pending requests wait in
+per-class queues (interactive > batch > best_effort, earliest deadline
+first within a class, a starvation floor). Queue, TTFT and total deadlines
+fail requests with 408 where they wait, at their admission's commit and
+mid-decode. A watchdog task fails the in-flight requests of a decode loop
+that made no progress for ``watchdog_interval`` (503 ``engine_stalled``)
+and bumps the recover epoch; the stale dispatch or retire leg, on landing,
+discards the pipeline and frees pages only after the card finished the
+enqueued replays. A brownout controller degrades in stages under pressure
+(speculation parked, batch ``max_new_tokens`` capped, the ragged token
+budget shrunk and best-effort shed), and queued interactive work preempts
+batch-lane slots at a chunk boundary: the victim requeues with its history
+as the prompt and its KV pages, and its resume maps them back and decodes
+on, so its stream is the one it would have been. Chaos seams
+(``llm/faults.py``) drive each path in the tests.
+
 Device work runs in worker threads, on one CUDA stream, so the event loop
 keeps serving HTTP while the card computes. The model arrives with its
 weights already in their serving format (``build_engine`` quantizes them);
@@ -62,8 +83,11 @@ Every reference knob this slice does not serve raises, naming itself.
 from __future__ import annotations
 
 import asyncio
+import heapq
+import itertools
 import logging
 import os
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -72,6 +96,13 @@ from typing import AsyncIterator, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..errors import (
+    DeadlineExceededError,
+    EngineOverloadedError,
+    EngineStepError,
+    EngineStuckError,
+    EngineUnavailableError,
+)
 from ..models.llama import Llama
 from ..ops.gates import check_engine_gates
 from ..ops.paged_attention import RAGGED_QB, ragged_layout, tree_ancestors
@@ -86,13 +117,9 @@ from .sampling import (
     speculative_sample_tree,
 )
 from .spec_proposer import chain_parents, make_proposer
-from . import shapes
+from . import faults, shapes
 
 logger = logging.getLogger(__name__)
-
-
-class EngineUnavailableError(RuntimeError):
-    """The engine is stopped (or its loop died): no request is served."""
 
 
 @dataclass
@@ -105,6 +132,32 @@ class GenRequest:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
+    # SLO class: "interactive" | "batch" | "best_effort". Strict class
+    # order across the pending queues, earliest deadline first within a
+    # class; under overload best_effort sheds first, then batch, and
+    # batch-lane slots are preemptible while interactive work waits
+    priority: str = "interactive"
+    # per-request lifecycle budgets in seconds (None = the engine's
+    # defaults): the wait in the queue, the time to the first token, the
+    # whole request
+    queue_timeout: Optional[float] = None
+    ttft_timeout: Optional[float] = None
+    total_timeout: Optional[float] = None
+    # engine-internal monotonic deadlines, resolved at submission
+    _queue_deadline: Optional[float] = None
+    _ttft_deadline: Optional[float] = None
+    _deadline: Optional[float] = None
+    # engine-internal (preemptible batch lane): tokens emitted since the
+    # last (re)admission; a preempted request resumes from prompt_ids +
+    # _gen_ids, its whole history
+    _gen_ids: List[int] = field(default_factory=list)
+    # preemptions so far (bounded by the engine's preempt_budget)
+    _preempt_count: int = 0
+    # engine-internal: a preempted request's KV pages while it waits in the
+    # queue (the KV of all its history but the last token); its resume maps
+    # them back into a slot. Every queue exit that is not a resume releases
+    # them (_release_parked)
+    _parked: Optional[List[int]] = None
     # filled by the engine:
     out_queue: "asyncio.Queue" = field(default_factory=asyncio.Queue)
     produced: int = 0
@@ -153,6 +206,9 @@ class _InFlightChunk:
     active_mask: np.ndarray
     tokens: torch.Tensor
     ready: Optional["torch.cuda.Event"] = None
+    # the recover epoch the chunk was dispatched under: a watchdog trip
+    # since then makes it stale
+    epoch: int = 0
     # slots dropped from this chunk because the pool could not hold their
     # page extension (failed when the chunk lands)
     exhausted: List[int] = field(default_factory=list)
@@ -193,6 +249,161 @@ class _Histogram:
         return {"buckets": list(self.buckets), "counts": list(self.counts),
                 "sum_ms": self.total, "count": self.n}
 
+
+PRIORITY_CLASSES = ("interactive", "batch", "best_effort")
+_CLASS_RANK = {c: i for i, c in enumerate(PRIORITY_CLASSES)}
+# brownout stage 3 shrinks the ragged admission share to one chunk of this
+# many tokens beside the decode rows
+_RAGGED_BROWNOUT_CHUNK = 16
+
+
+class _ClassedPendingQueue:
+    """Per-class pending queues (the reference's ``_ClassedPendingQueue``):
+    strict class order across classes (interactive > batch >
+    best_effort), earliest deadline first within a class (requests
+    without a deadline after every deadlined one, FIFO), and a starvation
+    floor: a lower class that waited through ``floor`` consecutive
+    higher-class pops takes the next pop. The engine's callers run on the
+    event-loop thread; the lock lets tests and the watchdog's deadline
+    sweep read it from elsewhere."""
+
+    def __init__(self, starvation_floor: int = 8):
+        self._heaps: Dict[str, list] = {c: [] for c in PRIORITY_CLASSES}
+        self._seq = itertools.count()
+        self._floor = max(1, int(starvation_floor))
+        # consecutive higher-class pops each non-empty class sat through
+        self._starve = {c: 0 for c in PRIORITY_CLASSES}
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _key(request: GenRequest) -> float:
+        d = request._deadline
+        return d if d is not None else float("inf")
+
+    def put_nowait(self, request: GenRequest) -> None:
+        cls = request.priority if request.priority in self._heaps else "interactive"
+        with self._lock:
+            heapq.heappush(self._heaps[cls], (self._key(request), next(self._seq), request))
+
+    def _pop_class(self, cls: str) -> GenRequest:
+        _, _, request = heapq.heappop(self._heaps[cls])
+        self._starve[cls] = 0
+        return request
+
+    def get_nowait(self) -> GenRequest:
+        with self._lock:
+            # a class that waited through `floor` higher-class pops takes
+            # this one (the lowest starved class has waited longest)
+            for cls in reversed(PRIORITY_CLASSES):
+                if self._heaps[cls] and self._starve[cls] >= self._floor:
+                    return self._pop_class(cls)
+            for i, cls in enumerate(PRIORITY_CLASSES):
+                if self._heaps[cls]:
+                    for lower in PRIORITY_CLASSES[i + 1:]:
+                        if self._heaps[lower]:
+                            self._starve[lower] += 1
+                    return self._pop_class(cls)
+        raise asyncio.QueueEmpty
+
+    def qsize(self) -> int:
+        with self._lock:
+            return sum(len(h) for h in self._heaps.values())
+
+    def empty(self) -> bool:
+        return self.qsize() == 0
+
+    def depths(self) -> Dict[str, int]:
+        with self._lock:
+            return {c: len(h) for c, h in self._heaps.items()}
+
+    def waiting(self, cls: str) -> int:
+        """Live queued requests of ``cls``: a cancelled or failed entry
+        stays in its heap until a pop drops it, and must not make a batch
+        slot be preempted for nobody."""
+        with self._lock:
+            return sum(1 for e in self._heaps.get(cls, ())
+                       if not e[2].cancelled and e[2].error is None)
+
+    def requests(self) -> List[GenRequest]:
+        with self._lock:
+            return [e[2] for h in self._heaps.values() for e in h]
+
+    def shed_lowest(self, above: str) -> Optional[GenRequest]:
+        """Remove and return the latest-deadline queued request of the
+        lowest class strictly below ``above`` (None when there is none).
+        A resumed preemption victim (``produced > 0``, its stream already
+        open) is never shed."""
+        above_rank = _CLASS_RANK.get(above, 0)
+        with self._lock:
+            for cls in reversed(PRIORITY_CLASSES):
+                if _CLASS_RANK[cls] <= above_rank:
+                    return None
+                heap = self._heaps[cls]
+                live = [e for e in heap if not e[2].cancelled and e[2].error is None
+                        and e[2].produced == 0]
+                if not live:
+                    continue
+                victim = max(live, key=lambda e: (e[0], e[1]))
+                heap.remove(victim)
+                heapq.heapify(heap)
+                return victim[2]
+        return None
+
+    def pop_all(self) -> List[GenRequest]:
+        with self._lock:
+            out = [e[2] for h in self._heaps.values() for e in h]
+            for h in self._heaps.values():
+                h.clear()
+            return out
+
+
+class _BrownoutController:
+    """Staged overload degradation with hysteresis (the reference's
+    ``_BrownoutController``). A pressure score (the max over the queue,
+    pool, deadline and watchdog signals) sets the stage:
+
+    - 1: speculation parked;
+    - 2: and batch-class ``max_new_tokens`` capped;
+    - 3: and the ragged admission budget shrunk, best-effort shed at the
+      door.
+
+    Raising is immediate. Lowering needs the score below the stage's DOWN
+    threshold, under its UP one, and ``dwell`` seconds since the last
+    change, so a score oscillating across a threshold cannot flap."""
+
+    UP = (0.70, 0.85, 0.95)
+    DOWN = (0.50, 0.65, 0.80)
+
+    def __init__(self, dwell: float = 2.0):
+        self.dwell = float(dwell)
+        self.stage = 0
+        self.score = 0.0
+        self.signals: Dict[str, float] = {}
+        self.transitions = 0
+        self._changed_at = float("-inf")
+
+    def update(self, score: float, signals: Optional[dict] = None,
+               now: Optional[float] = None) -> int:
+        now = time.monotonic() if now is None else now
+        self.score = float(score)
+        if signals is not None:
+            self.signals = dict(signals)
+        target_up = 0
+        for i, threshold in enumerate(self.UP):
+            if self.score >= threshold:
+                target_up = i + 1
+        if target_up > self.stage:
+            self.stage = target_up
+            self.transitions += 1
+            self._changed_at = now
+        elif (self.stage > 0 and self.score < self.DOWN[self.stage - 1]
+              and now - self._changed_at >= self.dwell):
+            self.stage -= 1
+            self.transitions += 1
+            self._changed_at = now
+        return self.stage
+
+
 # reference engine knobs this slice does not serve (each raises when set)
 UNSUPPORTED_KNOBS = (
     "mesh", "long_prefill_threshold",
@@ -200,8 +411,7 @@ UNSUPPORTED_KNOBS = (
     "prefill_stall_timeout", "lora_adapters",
     "prefix_cache", "prefix_cache_bytes", "prefix_cache_pages",
     "prefix_cache_host_pages", "prefix_cache_host_bytes", "tokenizer",
-    "max_pending", "queue_timeout", "ttft_timeout", "total_timeout",
-    "watchdog_interval", "brownout", "replica",
+    "replica",
 )
 
 
@@ -234,6 +444,23 @@ class LLMEngineCore:
         spec_tree: bool = False,
         spec_branch: int = 2,
         cuda_graphs: bool = True,
+        # request lifecycle (None disables each knob; the OpenAI front
+        # turns them on by default, as the reference's does)
+        max_pending: Optional[int] = None,
+        queue_timeout: Optional[float] = None,
+        ttft_timeout: Optional[float] = None,
+        total_timeout: Optional[float] = None,
+        watchdog_interval: Optional[float] = None,
+        # preemptible batch lane: with interactive work queued and no slot
+        # free, batch-class slots are preempted at a chunk boundary and
+        # requeued; preempt_budget bounds preemptions per request
+        preempt_batch: bool = True,
+        preempt_budget: int = 2,
+        starvation_floor: int = 8,
+        # brownout controller: None -> on iff max_pending is set
+        brownout: Optional[bool] = None,
+        brownout_batch_cap: int = 32,
+        brownout_dwell: float = 2.0,
         **knobs,
     ):
         for name, value in knobs.items():
@@ -415,9 +642,44 @@ class LLMEngineCore:
         # (the proposer's input), filled at activation and ragged retires
         self._tokbuf = (np.zeros((self.max_batch, self.max_seq_len + spec_slack + 1), np.int32)
                         if self._speculation else None)
-        self._pending: Deque[GenRequest] = deque()
+        self._pending = _ClassedPendingQueue(starvation_floor)
         self._loop_task: Optional[asyncio.Task] = None
         self._stopped = False
+        # -- request lifecycle: admission bound, default budgets, the
+        # watchdog and its recover epoch
+        self.max_pending = int(max_pending) if max_pending else None
+        self._queue_timeout = float(queue_timeout) if queue_timeout else None
+        self._ttft_timeout = float(ttft_timeout) if ttft_timeout else None
+        self._total_timeout = float(total_timeout) if total_timeout else None
+        self._watchdog_interval = float(watchdog_interval) if watchdog_interval else None
+        self._watchdog_task: Optional[asyncio.Task] = None
+        self._last_progress = time.monotonic()
+        # monotonic start of the device call a worker thread is in (a
+        # prefill, a chunk dispatch, a ragged step): the watchdog's grace
+        # for first-use work (the kernel build, a CUDA-graph capture while
+        # serving, library handles)
+        self._call_since: Optional[float] = None
+        # bumped by a watchdog trip; a dispatch or retire leg that lands
+        # under an older epoch discards the pipeline and completes recovery
+        self._recover_epoch = 0
+        self._recovering = False
+        # -- SLO scheduling: sheds by (reason, class), the admission drain
+        # rate behind Retry-After, preemption and the brownout controller
+        self._class_sheds: Dict[str, Dict[str, int]] = {}
+        self._admit_times: Deque[float] = deque(maxlen=32)
+        self._admit_count = 0
+        self._preempt = bool(preempt_batch)
+        self._preempt_budget = max(0, int(preempt_budget))
+        self._brownout = (
+            _BrownoutController(dwell=brownout_dwell)
+            if (brownout if brownout is not None else max_pending is not None)
+            else None
+        )
+        self._brownout_batch_cap = max(1, int(brownout_batch_cap))
+        self._brownout_checked = 0.0
+        # (t, deadline hits, watchdog trips, admissions) anchoring the
+        # pressure window's rates
+        self._pressure_window: Optional[tuple] = None
         # ragged scheduler: in-progress chunked admissions in admission
         # order, and the slots they reserve (loop thread)
         self._prefill_jobs: List[_RaggedJob] = []
@@ -433,12 +695,18 @@ class LLMEngineCore:
         # chained decode_paged calls, and the ragged steps whose launch
         # carried verify rows (on tree engines, each launches the ragged
         # kernel's tree variant once per layer)
+        # lifecycle: sheds (queue-bound or class, pool), expired budgets by
+        # stage, watchdog trips, failed steps, preemptions, verify rows the
+        # engine.spec.tree seam demoted to plain decode
         self.counters = {"decode_steps": 0, "decode_chunks": 0, "prefills": 0,
                          "tokens_emitted": 0, "decode_ms": 0.0, "prefill_ms": 0.0,
                          "ragged_steps": 0, "ragged_decode_tokens": 0,
                          "ragged_chain_steps": 0, "ragged_verify_steps": 0,
                          "ragged_ms": 0.0, "graph_captures": 0, "graph_replays": 0,
-                         "serve_captures": 0}
+                         "serve_captures": 0,
+                         "sheds_queue": 0, "sheds_pool": 0, "deadline_queue": 0,
+                         "deadline_ttft": 0, "deadline_total": 0, "watchdog_trips": 0,
+                         "step_failures": 0, "preemptions": 0, "spec_tree_fallbacks": 0}
         # rows per phase over all ragged launches, budget use per launch,
         # decode tokens per launch, the mean accepted-draft fraction of a
         # launch's verify rows and a tree row's accepted path depth (the
@@ -464,20 +732,307 @@ class LLMEngineCore:
                     len(request.prompt_ids), self.max_seq_len
                 )
             )
+        if request.priority not in PRIORITY_CLASSES:
+            raise ValueError("priority must be one of {} (got {!r})".format(
+                "/".join(PRIORITY_CLASSES), request.priority))
         if request.max_new_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
         vocab = self.model.vocab_size
         if any(not 0 <= int(t) < vocab for t in request.prompt_ids):
             raise ValueError("prompt token id out of range for vocab {}".format(vocab))
 
+    def check_admission(self, request: GenRequest, reserve: int = 0) -> None:
+        """Load shedding: a structured 503/408/429 instead of queueing a
+        request the engine cannot serve in time. Streaming callers run this
+        before sending response headers (``generate`` checks again).
+        ``reserve``: requests the caller submits ahead of this one."""
+        if self._stopped:
+            raise EngineUnavailableError("engine is stopped")
+        tot = request.total_timeout if request.total_timeout is not None else self._total_timeout
+        if tot is not None and tot <= 0:
+            # an already-spent budget fails before any queueing: the
+            # pre-headers 408 of streaming clients
+            self.counters["deadline_total"] += 1
+            raise DeadlineExceededError(
+                "request budget {}s already elapsed at submission".format(tot), stage="total")
+        cls = request.priority if request.priority in PRIORITY_CLASSES else "interactive"
+        self._update_brownout()
+        try:
+            faults.fire("engine.admit", request=request)
+        except faults.InjectedFault as ex:
+            self._count_shed("queue", cls)
+            raise EngineOverloadedError(
+                "admission shed (injected): {}".format(ex),
+                retry_after=self._retry_after_hint(), shed_class=cls) from ex
+        try:
+            faults.fire("engine.admit.class", request=request)
+        except faults.InjectedFault as ex:
+            self._count_shed("class", cls)
+            raise EngineOverloadedError(
+                "admission shed by class policy (injected): {}".format(ex),
+                retry_after=self._retry_after_hint(), shed_class=cls) from ex
+        if self._brownout is not None and self._brownout.stage >= 3 and cls == "best_effort":
+            # deepest stage: best-effort sheds at the door
+            self._count_shed("brownout", cls)
+            raise EngineOverloadedError(
+                "brownout stage {}: best-effort traffic shed".format(self._brownout.stage),
+                retry_after=self._retry_after_hint(), shed_class=cls)
+        if self.max_pending is not None and self._pending.qsize() + reserve >= self.max_pending:
+            # evict a strictly lower-class queued request (best-effort
+            # first, then batch); only a queue with nothing lower sheds the
+            # arrival
+            victim = self._pending.shed_lowest(cls)
+            if victim is not None:
+                self._count_shed("queue", victim.priority)
+                victim.error = EngineOverloadedError(
+                    "shed from the queue by a higher-priority admission",
+                    retry_after=self._retry_after_hint(), shed_class=victim.priority)
+                victim.cancelled = True  # the admission pop drops it
+                victim.out_queue.put_nowait(_FINISHED)
+            else:
+                self._count_shed("queue", cls)
+                raise EngineOverloadedError(
+                    "pending queue full ({} waiting, bound {})".format(
+                        self._pending.qsize() + reserve, self.max_pending),
+                    retry_after=self._retry_after_hint(), shed_class=cls)
+        # pool headroom, enforced with admission control on (max_pending
+        # set): without it, requests queue until pages free
+        if self.max_pending is not None:
+            pool = self.paged_cache.pool
+            if not pool.can_allocate(len(request.prompt_ids) + 1):
+                self._count_shed("pool", cls)
+                raise EngineOverloadedError(
+                    "kv page pool saturated ({} free pages)".format(pool.free_pages),
+                    retry_after=self._retry_after_hint(), shed_class=cls)
+
+    def _count_shed(self, reason: str, cls: str) -> None:
+        """One shed, in the totals (``sheds_queue``/``sheds_pool``) and in
+        the (reason, class) table."""
+        self.counters["sheds_pool" if reason == "pool" else "sheds_queue"] += 1
+        per = self._class_sheds.setdefault(reason, {})
+        per[cls] = per.get(cls, 0) + 1
+
+    def _retry_after_hint(self, ahead: Optional[int] = None) -> float:
+        """Seconds until the queue has likely drained enough for a retry:
+        (depth ahead + 1) / the observed admission rate over the recent
+        commits, the window anchored at now (a wedged loop must not
+        advertise an old burst's rate); 1 + depth / 4 before any drain was
+        seen; clamped to [0.5, 60]."""
+        if ahead is None:
+            ahead = self._pending.qsize()
+        times = self._admit_times
+        rate = None
+        if len(times) >= 2:
+            span = time.monotonic() - times[0]
+            if span > 0:
+                rate = (len(times) - 1) / span
+        hint = (ahead + 1) / rate if rate else 1.0 + 0.25 * ahead
+        return min(60.0, max(0.5, hint))
+
+    # -- brownout ---------------------------------------------------------------
+
+    def _pressure_score(self) -> tuple:
+        """(score, signals): overload pressure in [0, ~2], the max over
+        the queue depth against its bound, the pool's occupancy, and the
+        deadline-hit and watchdog rates over a sliding ~5 s window."""
+        signals: Dict[str, float] = {}
+        if self.max_pending:
+            signals["queue"] = min(2.0, self._pending.qsize() / float(self.max_pending))
+        pool = self.paged_cache.pool
+        usable = max(1, pool.num_pages - 1)  # page 0 is the null page
+        signals["pool"] = max(0.0, (usable - pool.free_pages) / usable)
+        c = self.counters
+        deadlines = c["deadline_queue"] + c["deadline_ttft"] + c["deadline_total"]
+        now = time.monotonic()
+        win = self._pressure_window
+        if win is not None:
+            d_dead = deadlines - win[1]
+            d_trips = c["watchdog_trips"] - win[2]
+            d_admit = self._admit_count - win[3]
+            if d_dead + d_admit >= 4:
+                # a volume floor: one expired request against no admission
+                # must not send an idle engine to stage 3
+                signals["deadline"] = d_dead / float(d_dead + d_admit)
+            if d_trips > 0:
+                signals["watchdog"] = 1.0
+        if win is None or now - win[0] >= 5.0:
+            self._pressure_window = (now, deadlines, c["watchdog_trips"], self._admit_count)
+        return max(signals.values(), default=0.0), signals
+
+    def _update_brownout(self) -> None:
+        """Feed the pressure score to the controller (at most every 0.1 s;
+        from the loop top and from check_admission, so the stage stays
+        live while the loop sits in a long step)."""
+        if self._brownout is None:
+            return
+        now = time.monotonic()
+        if now - self._brownout_checked < 0.1:
+            return
+        self._brownout_checked = now
+        score, signals = self._pressure_score()
+        self._brownout.update(score, signals, now)
+
+    def _brownout_snapshot(self) -> Optional[dict]:
+        if self._brownout is None:
+            return None
+        return {"stage": self._brownout.stage, "score": round(self._brownout.score, 4),
+                "signals": {k: round(v, 4) for k, v in self._brownout.signals.items()}}
+
+    def _effective_max_new(self, request: GenRequest) -> int:
+        """Brownout stage >= 2 caps the batch lanes' generation length, so
+        long batch decodes release their slots early."""
+        if (self._brownout is not None and self._brownout.stage >= 2
+                and request.priority != "interactive"):
+            return min(request.max_new_tokens, self._brownout_batch_cap)
+        return request.max_new_tokens
+
+    def _effective_token_budget(self) -> int:
+        """The ragged step budget: brownout stage >= 3 shrinks the
+        admission share to about one minimal chunk beside the decode rows,
+        so decode slots drain ahead of new admissions."""
+        if self._brownout is not None and self._brownout.stage >= 3:
+            return min(self._step_token_budget, self.max_batch + _RAGGED_BROWNOUT_CHUNK)
+        return self._step_token_budget
+
+    # -- preemptible batch lane -----------------------------------------------
+
+    def _maybe_preempt(self) -> None:
+        """Loop thread, chunk boundary: with interactive work queued and no
+        slot free for it, preempt batch-lane slots, one per waiting
+        interactive request. A quarantined slot counts as free here: it
+        opens within a chunk, and preempting another slot meanwhile would
+        preempt twice per arrival at depth 2."""
+        if not self._preempt:
+            return
+        want = self._pending.waiting("interactive")
+        if want <= 0:
+            return
+        free = sum(1 for i, r in enumerate(self._slot_req)
+                   if r is None and i not in self._admitting)
+        need = want - free
+        while need > 0:
+            victim_slot, victim_key = None, None
+            for slot, request in enumerate(self._slot_req):
+                if request is None or request.priority == "interactive":
+                    continue
+                if request.cancelled or request.produced < 1:
+                    continue
+                if request._preempt_count >= self._preempt_budget:
+                    continue  # budget spent: immune, so batch work finishes
+                key = (_CLASS_RANK[request.priority],          # lowest class
+                       request._deadline if request._deadline is not None
+                       else float("inf"),                       # latest deadline
+                       -request.produced)                       # least progress
+                if victim_key is None or key > victim_key:
+                    victim_slot, victim_key = slot, key
+            if victim_slot is None or not self._preempt_slot(victim_slot):
+                return
+            need -= 1
+
+    def _preempt_slot(self, slot: int) -> bool:
+        """Preempt the batch-lane request in ``slot``: requeue it with its
+        whole history as the prompt, and with its KV pages, which leave the
+        slot with it; the slot is quarantined while a chunk in flight still
+        decodes it. The stream stays open: the resume maps the pages back
+        and decodes on from the last token, so no prefill recomputes the
+        history (a bf16 prefill of a Llama-3-8B history through other
+        kernels than the decode steps that wrote its KV can change a later
+        token). The reference, without its prefix cache, prefills the
+        history again; with it, it replays the stored pages. False when
+        the ``engine.preempt`` seam aborted the preemption (the request
+        keeps decoding in its slot)."""
+        request = self._slot_req[slot]
+        if request is None:
+            return False
+        try:
+            faults.fire("engine.preempt", request=request)
+        except faults.InjectedFault:
+            return False
+        self.counters["preemptions"] += 1
+        request._preempt_count += 1
+        request.prompt_ids = list(request.prompt_ids) + [int(t) for t in request._gen_ids]
+        request._gen_ids = []
+        # the pages hold the KV of the history but its last token; a chunk
+        # still in flight writes only past that, and the resume's first
+        # decode step rewrites it after that chunk on the same stream
+        request._parked = self.paged_cache.pool.detach(slot)
+        # the queue-wait budget restarts for the resume leg: time spent
+        # generating must not count against it
+        qt = request.queue_timeout if request.queue_timeout is not None else self._queue_timeout
+        request._queue_deadline = time.monotonic() + qt if qt is not None else None
+        self._slot_req[slot] = None
+        self._free_slot_pages(slot)
+        self._pending.put_nowait(request)
+        return True
+
+    # -- deadlines ------------------------------------------------------------
+
+    def _resolve_deadlines(self, request: GenRequest) -> None:
+        """Pin the request's monotonic deadlines at submission (its own
+        budgets override the engine's defaults)."""
+        now = time.monotonic()
+        qt = request.queue_timeout if request.queue_timeout is not None else self._queue_timeout
+        tt = request.ttft_timeout if request.ttft_timeout is not None else self._ttft_timeout
+        tot = request.total_timeout if request.total_timeout is not None else self._total_timeout
+        request._queue_deadline = now + qt if qt is not None else None
+        request._ttft_deadline = now + tt if tt is not None else None
+        request._deadline = now + tot if tot is not None else None
+
+    def _expire_pending(self) -> None:
+        """Fail queued requests whose queue-wait or total deadline passed
+        (the loop top, and the watchdog while the loop is wedged)."""
+        queue = self._pending.requests()
+        if not queue:
+            return
+        now = time.monotonic()
+        for request in queue:
+            if request.cancelled or request.error is not None:
+                continue
+            err = None
+            if request._queue_deadline is not None and now > request._queue_deadline:
+                self.counters["deadline_queue"] += 1
+                err = DeadlineExceededError(
+                    "request spent its queue-wait budget before admission", stage="queue")
+            elif request._deadline is not None and now > request._deadline:
+                self.counters["deadline_total"] += 1
+                err = DeadlineExceededError("request budget elapsed while queued",
+                                            stage="total")
+            if err is not None:
+                request.error = err
+                request.cancelled = True  # the admission pop drops it
+                request.out_queue.put_nowait(_FINISHED)
+
+    def _release_parked(self, request: GenRequest) -> None:
+        """Free a preempted request's parked KV pages (a queue exit other
+        than its resume)."""
+        if request._parked is not None:
+            self.paged_cache.pool.release(request._parked)
+            request._parked = None
+
+    def _deadline_error_at_commit(self, request: GenRequest) -> Optional[BaseException]:
+        """The TTFT and total deadlines, checked when an admission is about
+        to activate its slot."""
+        now = time.monotonic()
+        if (request._ttft_deadline is not None and request.first_token_at is None
+                and now > request._ttft_deadline):
+            self.counters["deadline_ttft"] += 1
+            return DeadlineExceededError("no first token within the ttft budget", stage="ttft")
+        if request._deadline is not None and now > request._deadline:
+            self.counters["deadline_total"] += 1
+            return DeadlineExceededError("request budget elapsed during admission",
+                                         stage="total")
+        return None
+
     async def generate(self, request: GenRequest) -> AsyncIterator[int]:
         """Submit a request; yields sampled token ids as they decode."""
         if self._stopped:
             raise EngineUnavailableError("engine is stopped")
         self.validate(request)
+        self.check_admission(request)
+        self._resolve_deadlines(request)
         request.prompt_len = len(request.prompt_ids)
         request.out_queue = asyncio.Queue()
-        self._pending.append(request)
+        self._pending.put_nowait(request)
         self._ensure_loop()
         try:
             while True:
@@ -502,7 +1057,8 @@ class LLMEngineCore:
         return await _warmup.run_warmup(self)
 
     def stop(self) -> None:
-        """Stop the loop and fail every active and pending request."""
+        """Stop the loop and fail every active and pending request (503);
+        the loop's exit frees the pages once the chunks in flight landed."""
         self._stopped = True
         err = EngineUnavailableError("engine stopped")
         for slot, request in enumerate(self._slot_req):
@@ -510,8 +1066,8 @@ class LLMEngineCore:
                 self._fail_slot(slot, err)
         for job in list(self._prefill_jobs):
             self._fail_ragged_job(job, err)
-        while self._pending:
-            request = self._pending.popleft()
+        for request in self._pending.pop_all():
+            self._release_parked(request)
             request.error = err
             request.out_queue.put_nowait(_FINISHED)
 
@@ -519,45 +1075,66 @@ class LLMEngineCore:
     def active_slots(self) -> int:
         return sum(1 for r in self._slot_req if r is not None)
 
-    def health(self) -> dict:
+    @property
+    def is_ready(self) -> bool:
+        """False while the engine is stopped or the watchdog is recovering
+        (the HTTP app's ``/ready``)."""
+        return not self._stopped and not self._recovering
+
+    def _lifecycle_fields(self) -> dict:
+        """The lifecycle keys ``health()`` and ``lifecycle_stats()`` share."""
         return {
-            "ready": not self._stopped,
-            "cache": self.cache_mode,
-            "device": str(self.device),
+            "queue_depth": self._pending.qsize(),
+            "queue_depths": self._pending.depths(),
             "active_slots": self.active_slots,
-            "max_batch": self.max_batch,
-            "pending": len(self._pending),
-            "free_pages": self.paged_cache.pool.free_pages,
-            "kv_dtype": self.paged_cache.pool_dtype,
-            "kv_pool_bytes": self.paged_cache.pool_bytes(),
-            "weights": {
+            "preemptions": self.counters["preemptions"],
+            "brownout": self._brownout_snapshot(),
+            "watchdog_trips": self.counters["watchdog_trips"],
+            "step_failures": self.counters["step_failures"],
+        }
+
+    def health(self) -> dict:
+        return dict(
+            self._lifecycle_fields(),
+            ready=self.is_ready,
+            stopped=self._stopped,
+            recovering=self._recovering,
+            cache=self.cache_mode,
+            device=str(self.device),
+            max_batch=self.max_batch,
+            free_pages=self.paged_cache.pool.free_pages,
+            kv_dtype=self.paged_cache.pool_dtype,
+            kv_pool_bytes=self.paged_cache.pool_bytes(),
+            weights={
                 "quant": self.weight_quant or "none",
                 "bytes": self.model.weight_bytes(),
             },
-            "counters": dict(self.counters),
-            "pipeline": self._pipeline_snapshot(),
-            "scheduler": "ragged" if self._ragged else "two_dispatch",
-            "ragged": (
-                {
-                    "step_token_budget": self._step_token_budget,
-                    "effective_budget": self._step_token_budget,
-                    "prefill_jobs": len(self._prefill_jobs),
-                    "steps": self.counters["ragged_steps"],
-                    "budget_utilization": self._hist_budget.snapshot(),
-                    "step_rows": dict(self.step_rows),
-                    "decode_steps": self._ragged_decode_steps,
-                    "decode_tokens": self.counters["ragged_decode_tokens"],
-                    "tokens_per_launch": self._hist_launch_tokens.snapshot(),
-                    "spec_acceptance": self._hist_spec_accept.snapshot(),
-                    "spec_tree_depth": (self._hist_spec_tree_depth.snapshot()
-                                        if self._spec_tree else None),
-                    "spec_proposer": (
-                        dict(self._spec_proposer.stats(), name=self._spec_proposer.name)
-                        if self._spec_proposer is not None else None
-                    ),
-                }
-                if self._ragged
-                else None
+            counters=dict(self.counters),
+            pipeline=self._pipeline_snapshot(),
+            scheduler="ragged" if self._ragged else "two_dispatch",
+            ragged=self._ragged_snapshot(),
+        )
+
+    def _ragged_snapshot(self) -> Optional[dict]:
+        if not self._ragged:
+            return None
+        return {
+            "step_token_budget": self._step_token_budget,
+            "effective_budget": self._effective_token_budget(),
+            "prefill_jobs": len(self._prefill_jobs),
+            "steps": self.counters["ragged_steps"],
+            "budget_utilization": self._hist_budget.snapshot(),
+            "step_rows": dict(self.step_rows),
+            "decode_steps": self._ragged_decode_steps,
+            "decode_tokens": self.counters["ragged_decode_tokens"],
+            "tokens_per_launch": self._hist_launch_tokens.snapshot(),
+            "spec_acceptance": self._hist_spec_accept.snapshot(),
+            "spec_tree_depth": (self._hist_spec_tree_depth.snapshot()
+                                if self._spec_tree else None),
+            "spec_tree_fallbacks": self.counters["spec_tree_fallbacks"],
+            "spec_proposer": (
+                dict(self._spec_proposer.stats(), name=self._spec_proposer.name)
+                if self._spec_proposer is not None else None
             ),
         }
 
@@ -570,15 +1147,20 @@ class LLMEngineCore:
         }
 
     def lifecycle_stats(self) -> dict:
-        """Scrape-time snapshot, the reference's ``lifecycle_stats`` keys
-        this slice serves (counters monotonic, gauges instantaneous)."""
-        return {
-            "queue_depth": len(self._pending),
-            "active_slots": self.active_slots,
-            "ready": int(not self._stopped),
-            "pipeline": self._pipeline_snapshot(),
-            "scheduler": "ragged" if self._ragged else "two_dispatch",
-        }
+        """Scrape-time snapshot with the reference's ``lifecycle_stats``
+        keys this slice serves (counters monotonic, gauges instantaneous)."""
+        c = self.counters
+        return dict(
+            self._lifecycle_fields(),
+            ready=int(self.is_ready),
+            sheds={"queue": c["sheds_queue"], "pool": c["sheds_pool"]},
+            sheds_by_class={reason: dict(per) for reason, per in self._class_sheds.items()},
+            deadlines={"queue": c["deadline_queue"], "ttft": c["deadline_ttft"],
+                       "total": c["deadline_total"]},
+            pipeline=self._pipeline_snapshot(),
+            scheduler="ragged" if self._ragged else "two_dispatch",
+            ragged=self._ragged_snapshot(),
+        )
 
     async def wait_drained(self, timeout: float = 30.0) -> None:
         """Await the loop going idle (no active slots, nothing pending)."""
@@ -589,21 +1171,39 @@ class LLMEngineCore:
     # -- loop ----------------------------------------------------------------
 
     def _ensure_loop(self) -> None:
+        loop = asyncio.get_running_loop()
         if self._loop_task is None or self._loop_task.done():
-            self._loop_task = asyncio.get_running_loop().create_task(self._run_loop())
+            self._loop_task = loop.create_task(self._run_loop())
+        if self._watchdog_interval and (self._watchdog_task is None
+                                        or self._watchdog_task.done()):
+            self._watchdog_task = loop.create_task(self._watchdog_loop())
 
     async def _run_loop(self) -> None:
         try:
             while not self._stopped:
+                self._expire_pending()
+                if self._recovering and not self._inflight:
+                    # a trip that found no stale chunk to land (the loop
+                    # was in an admission): recover at this boundary
+                    await self._finish_recovery()
+                # SLO scheduling: the brownout stage from the pressure
+                # signals, then, with interactive work waiting and no slot
+                # free, a batch-lane preemption at this chunk boundary
+                self._update_brownout()
+                self._maybe_preempt()
                 if self._ragged:
                     self._ragged_admission()
                 else:
                     await self._admit()
                 active = np.array([r is not None for r in self._slot_req])
                 if not active.any() and not self._inflight and not self._prefill_jobs:
-                    if not self._pending:
+                    if self._pending.empty():
+                        faults.fire("engine.drain")
                         return  # drained; a new generate() restarts the loop
                     continue
+                # a watchdog trip (epoch bump) during this step makes the
+                # step's results stale
+                step_epoch = self._recover_epoch
                 try:
                     if self._prefill_jobs or self._ragged_spec_wanted(active):
                         # ragged phase: one mixed launch per step while
@@ -614,11 +1214,11 @@ class LLMEngineCore:
                         if self._inflight:
                             await self._retire_oldest()
                         else:
-                            await self._ragged_step(active)
+                            await self._ragged_step(active, step_epoch)
                     else:
-                        await self._decode_step(active)
+                        await self._decode_step(active, step_epoch)
                 except Exception as ex:
-                    await self._handle_step_failure(ex)
+                    await self._handle_step_failure(ex, step_epoch)
                 await asyncio.sleep(0)  # let HTTP handlers interleave
             # stopped: wait out the chunks still writing pages, then free them
             await self._discard_pipeline()
@@ -633,6 +1233,12 @@ class LLMEngineCore:
             # the pipeline dies with the loop; after a cancellation its
             # deferred frees run without waiting for the card
             self._drop_pipeline()
+            # no worker is left: every slot the watchdog failed gets its
+            # pages back
+            self._free_unowned_slots()
+            self._recovering = False
+            if self._stopped and self._watchdog_task is not None:
+                self._watchdog_task.cancel()
 
     def _on_stream(self, fn, *args):
         """Run ``fn`` on the engine's stream: a worker thread starts on the
@@ -643,16 +1249,22 @@ class LLMEngineCore:
             return fn(*args)
 
     async def _admit(self) -> None:
-        """FIFO admission of pending requests into free slots: prefill,
-        pages, first token. A quarantined slot is not free yet."""
+        """Admission of pending requests into free slots, in the queue's
+        class order: prefill, pages, first token. A quarantined slot is
+        not free yet."""
         free = [i for i, r in enumerate(self._slot_req)
                 if r is None and i not in self._quarantine]
-        while free and self._pending and not self._stopped:
-            request = self._pending.popleft()
+        while free and not self._pending.empty() and not self._stopped:
+            request = self._pending.get_nowait()
             if request.cancelled:
+                self._release_parked(request)
                 request.out_queue.put_nowait(_FINISHED)
                 continue
             slot = free.pop(0)
+            if request._parked is not None:
+                self._resume_slot(request, slot)
+                continue
+            self._call_since = time.monotonic()
             try:
                 first_id = await asyncio.to_thread(
                     self._on_stream, self._prefill_into_slot, request, slot)
@@ -663,12 +1275,24 @@ class LLMEngineCore:
                 request.out_queue.put_nowait(_FINISHED)
                 free.insert(0, slot)
                 continue
+            finally:
+                self._call_since = None
             if self._stopped:  # stop() ran during the prefill
                 self.paged_cache.pool.free(slot)
                 request.error = EngineUnavailableError("engine stopped")
                 request.out_queue.put_nowait(_FINISHED)
                 return
+            err = self._deadline_error_at_commit(request)
+            if err is not None:
+                # the prefill outlived the request's ttft/total budget: a
+                # structured 408 instead of a slot commit
+                self.paged_cache.pool.free(slot)
+                request.error = err
+                request.out_queue.put_nowait(_FINISHED)
+                free.insert(0, slot)
+                continue
             self._activate_slot(request, slot, first_id)
+            self._last_progress = time.monotonic()
 
     def _sampling(self) -> SamplingParams:
         dev = self.device
@@ -714,26 +1338,45 @@ class LLMEngineCore:
                               all_greedy=request.temperature <= 0)
         return int(first.item())
 
-    def _activate_slot(self, request: GenRequest, slot: int, first_id: int) -> None:
+    def _occupy_slot(self, request: GenRequest, slot: int, next_token: int,
+                     history: List[int]) -> None:
+        """Slot bookkeeping of an admission's activation and of a
+        preempted request's resume: the request, the admission record
+        behind Retry-After, the next decode input (taken from the host at
+        the next dispatch), the speculation history (prompt and emitted
+        tokens) and the sampling parameters."""
         self._slot_req[slot] = request
-        self._next_token[slot] = first_id
-        # the next dispatch takes this slot's token from the host
+        self._admit_times.append(time.monotonic())
+        self._admit_count += 1
+        request._gen_ids = []  # a resume leg's history is in prompt_ids
+        self._next_token[slot] = next_token
         self._slot_overrides[slot] = True
         if self._tokbuf is not None:
-            # the history holds the prompt and every emitted token
             row = np.zeros(self._tokbuf.shape[1], np.int32)
-            ids = request.prompt_ids[: self._tokbuf.shape[1] - 1]
+            ids = history[: self._tokbuf.shape[1]]
             row[: len(ids)] = ids
-            row[len(ids)] = first_id
             self._tokbuf[slot] = row
         self._temperature[slot] = request.temperature
         self._top_k[slot] = request.top_k
         self._top_p[slot] = request.top_p
+
+    def _activate_slot(self, request: GenRequest, slot: int, first_id: int) -> None:
+        """An admission's slot goes live with its first token."""
+        self._occupy_slot(request, slot, first_id, list(request.prompt_ids) + [first_id])
         self._emit(slot, first_id)
+
+    def _resume_slot(self, request: GenRequest, slot: int) -> None:
+        """A preempted request back in a slot: its parked pages hold the KV
+        of its history but the last token, which is the next decode input;
+        its next token comes from the next decode step."""
+        pages, request._parked = request._parked, None
+        self.paged_cache.pool.attach(slot, pages, len(request.prompt_ids) - 1)
+        self._occupy_slot(request, slot, request.prompt_ids[-1], request.prompt_ids)
+        self._last_progress = time.monotonic()
 
     # -- pipelined decode: dispatch / retire ----------------------------------
 
-    async def _decode_step(self, active_mask: np.ndarray) -> None:
+    async def _decode_step(self, active_mask: np.ndarray, epoch: int) -> None:
         """One pipelined scheduling step. The in-flight queue fills to
         ``pipeline_depth - 1`` chunks; then each step overlaps the oldest
         chunk's retirement (readback in a worker thread, emission on the
@@ -745,7 +1388,7 @@ class LLMEngineCore:
             fill_target = max(1, self.pipeline_depth - 1)
             dispatch_mask = self._dispatchable_mask(active_mask)
             while dispatch_mask.any() and len(self._inflight) < fill_target:
-                await self._dispatch_or_recover(dispatch_mask.copy())
+                await self._dispatch_or_recover(dispatch_mask.copy(), epoch)
                 # a dispatch can fail slots (pool exhaustion): drop them
                 # before topping up further
                 active_mask &= np.array([r is not None for r in self._slot_req])
@@ -757,7 +1400,7 @@ class LLMEngineCore:
             entry = self._inflight[0]
             if dispatch_mask.any() and len(self._inflight) < self.pipeline_depth:
                 dispatch_res, retire_res = await asyncio.gather(
-                    self._dispatch_async(dispatch_mask.copy()),
+                    self._dispatch_async(dispatch_mask.copy(), epoch),
                     self._retire_chunk(entry),
                     return_exceptions=True,
                 )
@@ -776,11 +1419,11 @@ class LLMEngineCore:
         finally:
             self.counters["decode_ms"] += (time.perf_counter() - t0) * 1e3
 
-    async def _dispatch_or_recover(self, mask: np.ndarray) -> None:
+    async def _dispatch_or_recover(self, mask: np.ndarray, epoch: int) -> None:
         """Dispatch with failure recovery, where no retire runs
         concurrently (the gather branch recovers after both settle)."""
         try:
-            await self._dispatch_async(mask)
+            await self._dispatch_async(mask, epoch)
         except Exception:
             await self._recover_failed_dispatch()
             raise
@@ -796,7 +1439,7 @@ class LLMEngineCore:
 
     async def _retire_oldest(self) -> None:
         """Retire the oldest in-flight chunk; it leaves the queue once its
-        emissions landed."""
+        emissions landed (a recovery may have emptied the queue)."""
         entry = self._inflight[0]
         await self._retire_chunk(entry)
         if self._inflight and self._inflight[0] is entry:
@@ -805,8 +1448,9 @@ class LLMEngineCore:
     def _dispatchable_mask(self, active_mask: np.ndarray) -> np.ndarray:
         """Slots worth including in the NEXT chunk: active, and not already
         certain to finish inside the chunks in flight (by their token
-        budget or the sequence limit; a stop token stays unpredictable, and
-        its surplus tokens are dropped at emission)."""
+        budget, brownout's batch cap included, or the sequence limit; a
+        stop token stays unpredictable, and its surplus tokens are dropped
+        at emission)."""
         if not self._inflight and self._dispatching is None:
             return active_mask
         pending = np.zeros(self.max_batch, np.int64)
@@ -818,34 +1462,44 @@ class LLMEngineCore:
         for slot in np.nonzero(active_mask)[0]:
             request = self._slot_req[slot]
             if request is not None and request.produced + pending[slot] >= min(
-                    request.max_new_tokens, self.max_seq_len - request.prompt_len):
+                    self._effective_max_new(request),
+                    self.max_seq_len - request.prompt_len):
                 mask[slot] = False
         return mask
 
-    async def _dispatch_async(self, active_mask: np.ndarray) -> None:
+    async def _dispatch_async(self, active_mask: np.ndarray, epoch: int) -> None:
         """Dispatch one chunk: its host state is snapshotted on the loop
         thread (``_prepare_dispatch``), then the device work runs in a
         worker thread, possibly beside the previous chunk's retirement.
         Appends the in-flight entry and fails pool-exhausted slots."""
-        prep = self._prepare_dispatch(active_mask)
+        prep = self._prepare_dispatch(active_mask, epoch)
         # barrier visibility: a slot freed by the concurrent retire must
         # see this chunk before its entry lands in the queue
         self._dispatching = (prep["seq"], prep["active_mask"])
+        self._call_since = time.monotonic()
         try:
             entry = await asyncio.to_thread(self._on_stream, self._dispatch_device, prep)
         finally:
             self._dispatching = None
+            self._call_since = None
         self._inflight.append(entry)
+        if entry.epoch != self._recover_epoch:
+            # the watchdog tripped during this dispatch and failed its
+            # requests: queued, the entry's work is waited out with the
+            # rest of the pipeline before any page is freed
+            await self._finish_recovery()
+            return
         for slot in entry.exhausted:
             self._fail_slot(slot, MemoryError("kv page pool exhausted for this sequence"))
 
-    def _prepare_dispatch(self, active_mask: np.ndarray) -> dict:
+    def _prepare_dispatch(self, active_mask: np.ndarray, epoch: int) -> dict:
         """Loop-thread half of a dispatch: allocate the chunk's pages
         host-side (a slot the pool cannot extend leaves the chunk, its row
         writing the null page) and write every host input of the chunk
         into its own staging buffers (``ChunkLayout``; pinned on the card),
         so the worker never reads state the concurrent retire stage
         changes, and no later change reaches a copy still pending."""
+        self._last_progress = time.monotonic()
         pool = self.paged_cache.pool
         n = self.decode_steps
         pin = self._stream is not None
@@ -876,15 +1530,32 @@ class LLMEngineCore:
         v["top_k"][:] = self._top_k
         v["top_p"][:] = self._top_p
         self._dispatch_seq += 1
-        return {
+        prep = {
             "seq": self._dispatch_seq,
+            "epoch": epoch,
             "active_mask": active_mask,
             "exhausted": exhausted,
             "host_i32": host_i32,
             "host_f32": host_f32,
             # the greedy variant draws no noise
             "greedy": not (self._temperature[active_mask] > 0).any(),
+            "requests": [r for r in self._slot_req if r is not None],
         }
+        try:
+            faults.fire("engine.dispatch.prepare", requests=prep["requests"])
+        except faults.InjectedFault:
+            self._give_back_extension(prep)
+            raise
+        return prep
+
+    def _give_back_extension(self, prep: dict) -> None:
+        """A dispatch that failed before enqueueing any device work returns
+        its chunk's page extension: each slot's length goes back to where
+        the chunk found it."""
+        lengths0 = self._layout.views(prep["host_i32"].numpy(),
+                                      prep["host_f32"].numpy())["lengths0"]
+        for slot in np.nonzero(prep["active_mask"])[0]:
+            self.paged_cache.pool.truncate(int(slot), int(lengths0[slot]))
 
     def _dispatch_device(self, prep: dict) -> _InFlightChunk:
         """Worker-thread half of a dispatch, on the engine's stream: the
@@ -896,6 +1567,12 @@ class LLMEngineCore:
         histogram."""
         t0 = time.perf_counter()
         n = self.decode_steps
+        if faults.active():
+            try:
+                faults.fire("engine.decode", requests=prep["requests"])
+            except faults.InjectedFault:
+                self._give_back_extension(prep)
+                raise
         noise = (None if prep["greedy"] else
                  gumbel_noise((n, self.max_batch, self.model.vocab_size), self._gen, self.device))
         if self._graphs is not None:
@@ -917,9 +1594,11 @@ class LLMEngineCore:
             ready.record(self._stream)
         self.counters["decode_steps"] += n
         self.counters["decode_chunks"] += 1
+        self._last_progress = time.monotonic()
         self._hist_dispatch.observe((time.perf_counter() - t0) * 1e3)
         return _InFlightChunk(seq=prep["seq"], active_mask=prep["active_mask"],
-                              tokens=tokens, ready=ready, exhausted=prep["exhausted"])
+                              tokens=tokens, ready=ready, exhausted=prep["exhausted"],
+                              epoch=prep["epoch"])
 
     def _capture(self, greedy: bool) -> None:
         """Capture a decode-chunk variant: inside ``warmup()`` in the
@@ -949,10 +1628,36 @@ class LLMEngineCore:
         computes: the host token mirrors re-anchor, the chunk's tokens fan
         out to the slots of its dispatch mask (a finishing slot frees or
         quarantines its pages), and slots whose barrier was this chunk are
-        released."""
+        released. A chunk that lands under an older recover epoch was
+        failed by the watchdog: the pipeline is discarded instead."""
         t0 = time.perf_counter()
-        if entry.ready is not None and not entry.ready.query():
-            await asyncio.to_thread(entry.ready.synchronize)
+        if faults.active() or (entry.ready is not None and not entry.ready.query()):
+            requests = [r for r in self._slot_req if r is not None]
+
+            def wait():
+                # the stall seam wedges this worker, never the event loop,
+                # so the watchdog sees the stall
+                faults.fire("engine.decode.stall", requests=requests)
+                if entry.ready is not None:
+                    entry.ready.synchronize()
+
+            await asyncio.to_thread(wait)
+        if entry.epoch != self._recover_epoch:
+            await self._finish_recovery()
+            return
+        try:
+            faults.fire("engine.decode.retire",
+                        requests=[r for r in self._slot_req if r is not None])
+        except faults.InjectedFault as ex:
+            if ex.request is None:
+                raise  # batch-wide: the loop's step-failure path
+            self.counters["step_failures"] += 1
+            for slot, request in enumerate(self._slot_req):
+                if request is ex.request:
+                    self._fail_slot(slot, EngineStepError(
+                        "retire failed for this request: {}".format(ex)))
+                    break
+            # the rest of the chunk still emits
         chunk = entry.tokens.numpy()
         slots = [int(s) for s in np.nonzero(entry.active_mask)[0]]
         for slot in slots:
@@ -963,18 +1668,106 @@ class LLMEngineCore:
                 # that slot is dropped by the None check inside _emit
                 self._emit(slot, int(token_id))
         self._release_quarantine(entry.seq)
+        self._last_progress = time.monotonic()
         self._hist_retire.observe((time.perf_counter() - t0) * 1e3)
 
-    async def _handle_step_failure(self, ex: Exception) -> None:
-        """A decode step raised (dispatch, capture or retire): every
-        request's device state is suspect, so the pipeline is discarded and
-        every active request fails with the error; the loop keeps
-        serving."""
+    async def _handle_step_failure(self, ex: Exception, epoch: int) -> None:
+        """A step raised (dispatch, capture, retire or a ragged launch).
+        One attributed to a single request (a matched fault) fails that
+        request; otherwise every request's device state is suspect: the
+        pipeline is discarded and every active request and admission job
+        fails with ``EngineStepError``. The loop keeps serving."""
+        if epoch != self._recover_epoch:
+            # the watchdog already failed this step's requests
+            await self._finish_recovery()
+            return
+        self.counters["step_failures"] += 1
+        target = getattr(ex, "request", None)
+        if target is not None:
+            for slot, request in enumerate(self._slot_req):
+                if request is target:
+                    self._fail_slot(slot, EngineStepError(
+                        "decode step failed for this request: {}".format(ex)))
+                    break
+            return
         logger.exception("decode step failed")
         await self._discard_pipeline()
+        err = EngineStepError("decode step failed: {}".format(ex))
         for slot, request in enumerate(self._slot_req):
             if request is not None:
-                self._fail_slot(slot, ex)
+                self._fail_slot(slot, err)
+        for job in list(self._prefill_jobs):
+            self._fail_ragged_job(job, err)
+        self._last_progress = time.monotonic()
+
+    # -- watchdog and recovery ------------------------------------------------
+
+    async def _watchdog_loop(self) -> None:
+        """Detects a stalled loop (no progress within ``watchdog_interval``
+        while slots are active), fails only the in-flight requests and arms
+        the epoch recovery. Also expires queued requests' deadlines while
+        the loop is wedged."""
+        interval = float(self._watchdog_interval)
+        tick = max(0.01, interval / 4.0)
+        try:
+            while not self._stopped:
+                await asyncio.sleep(tick)
+                self._expire_pending()
+                if (self._loop_task is None or self._loop_task.done()
+                        or self.active_slots == 0):
+                    # nothing to supervise; stay alive for the next request
+                    self._last_progress = time.monotonic()
+                    continue
+                since = self._call_since
+                if since is not None and time.monotonic() - since < 10.0 * interval:
+                    # a worker is inside a device call: first-use work (the
+                    # kernel build, a graph capture while serving) runs
+                    # there and may take seconds. The grace is bounded; a
+                    # stalled replay shows at the retire wait, where none
+                    # applies
+                    continue
+                if time.monotonic() - self._last_progress > interval:
+                    self._watchdog_trip(interval)
+        except asyncio.CancelledError:
+            return
+
+    def _watchdog_trip(self, interval: float) -> None:
+        faults.fire("engine.watchdog",
+                    requests=[r for r in self._slot_req if r is not None])
+        self.counters["watchdog_trips"] += 1
+        self._recovering = True
+        self._recover_epoch += 1
+        err = EngineStuckError(
+            "decode loop made no progress for {:.1f}s; failing in-flight requests "
+            "and recovering".format(interval))
+        for slot, request in enumerate(self._slot_req):
+            if request is not None:
+                request.error = err
+                request.out_queue.put_nowait(_FINISHED)
+                self._slot_req[slot] = None
+                # the pages stay: a chunk in flight may still write them;
+                # _finish_recovery frees them once the card is done
+        self._last_progress = time.monotonic()
+
+    async def _finish_recovery(self) -> None:
+        """After a stale-epoch leg landed: discard the in-flight pipeline,
+        wait until the card has finished the work already enqueued on the
+        engine's stream (the replays of the discarded chunks write the
+        pages), free every unowned slot's pages and report ready again.
+        Deferred while a dispatch is mid-call: that leg completes the
+        recovery when it lands."""
+        if self._dispatching is not None:
+            return
+        await self._discard_pipeline()
+        self._free_unowned_slots()
+        self._recovering = False
+        self._last_progress = time.monotonic()
+
+    def _free_unowned_slots(self) -> None:
+        """Free the pages of every slot no request or admission owns."""
+        for slot in range(self.max_batch):
+            if self._slot_req[slot] is None and slot not in self._admitting:
+                self.paged_cache.pool.free(slot)
 
     # -- pipelined decode: slot-reuse barrier ---------------------------------
 
@@ -1055,7 +1848,19 @@ class LLMEngineCore:
         if request.cancelled:
             self._finish_slot(slot, request)
             return
+        if request._deadline is not None and time.monotonic() > request._deadline:
+            # the total budget ran out mid-decode: a structured 408, the
+            # slot reclaimed
+            self.counters["deadline_total"] += 1
+            self._fail_slot(slot, DeadlineExceededError(
+                "request budget elapsed after {} tokens".format(request.produced),
+                stage="total"))
+            return
         request.produced += 1
+        if request.priority != "interactive":
+            # preemptible lane: a preemption folds these into the resume
+            # prompt
+            request._gen_ids.append(int(token_id))
         self.counters["tokens_emitted"] += 1
         if request.first_token_at is None:
             request.first_token_at = time.time()
@@ -1063,7 +1868,7 @@ class LLMEngineCore:
         request.out_queue.put_nowait(token_id)
         if (
             token_id == self.eos_token_id
-            or request.produced >= request.max_new_tokens
+            or request.produced >= self._effective_max_new(request)
             or request.prompt_len + request.produced >= self.max_seq_len
         ):
             self._finish_slot(slot, request)
@@ -1071,22 +1876,27 @@ class LLMEngineCore:
     # -- ragged scheduler ------------------------------------------------------
 
     def _ragged_admission(self) -> None:
-        """FIFO admission into free slots under the ragged scheduler: each
-        request opens a job at prompt position 0 whose prompt rides the
-        loop's launches as chunk rows (the reference's
-        ``_ragged_admission_task`` and ``_start_ragged_job``; this slice has
-        no worker-thread preparation and no prefix cache, so the job opens
-        at once)."""
+        """Admission into free slots under the ragged scheduler, in the
+        queue's class order: each request opens a job at prompt position 0
+        whose prompt rides the loop's launches as chunk rows (the
+        reference's ``_ragged_admission_task`` and ``_start_ragged_job``;
+        this slice has no worker-thread preparation and no prefix cache,
+        so the job opens at once)."""
         free = [i for i, r in enumerate(self._slot_req)
                 if r is None and i not in self._admitting and i not in self._quarantine]
-        while free and self._pending and not self._stopped:
-            request = self._pending.popleft()
+        while free and not self._pending.empty() and not self._stopped:
+            request = self._pending.get_nowait()
             if request.cancelled:
+                self._release_parked(request)
                 request.out_queue.put_nowait(_FINISHED)
                 continue
             slot = free.pop(0)
+            if request._parked is not None:
+                self._resume_slot(request, slot)
+                continue
             self._admitting.add(slot)
             self._prefill_jobs.append(_RaggedJob(request=request, slot=slot))
+            self._last_progress = time.monotonic()
 
     def _fail_ragged_job(self, job: _RaggedJob, err: Optional[BaseException]) -> None:
         """Fail one in-progress admission (err None = cancelled): free its
@@ -1100,11 +1910,15 @@ class LLMEngineCore:
         self.paged_cache.pool.free(job.slot)
 
     def _sweep_ragged_jobs(self) -> None:
-        """Drop cancelled jobs before planning a step: budget spent on a dead
-        admission is budget stolen from live ones."""
+        """Drop cancelled and deadline-expired jobs before planning a step:
+        budget spent on a dead admission is budget stolen from live ones."""
         for job in list(self._prefill_jobs):
             if job.request.cancelled:
                 self._fail_ragged_job(job, None)
+                continue
+            err = self._deadline_error_at_commit(job.request)
+            if err is not None:
+                self._fail_ragged_job(job, err)
 
     def _spec_eligible_mask(self, active_mask: np.ndarray):
         """(greedy, sampled) slot masks of verify rows: greedy rows
@@ -1118,8 +1932,12 @@ class LLMEngineCore:
 
     def _ragged_spec_wanted(self, active_mask: np.ndarray) -> bool:
         """With speculation on, eligible decode slots ride ragged launches as
-        verify rows, admissions or not."""
+        verify rows, admissions or not. Brownout stage 1+ parks speculation:
+        the verify slack and the k wasted positions of a reject are
+        headroom an overloaded engine no longer has."""
         if not (self._ragged and self._speculation) or not active_mask.any():
+            return False
+        if self._brownout is not None and self._brownout.stage >= 1:
             return False
         greedy, sampled = self._spec_eligible_mask(active_mask)
         return bool(greedy.any() or sampled.any())
@@ -1132,9 +1950,10 @@ class LLMEngineCore:
         widen the plain decode rows' windows from the budget left over,
         draft the verify rows, and lay the rows out on the flat token
         axis. Returns None when nothing is dispatchable."""
+        self._last_progress = time.monotonic()
         self._sweep_ragged_jobs()
         decode_mask = active_mask.copy()
-        budget = self._step_token_budget
+        budget = self._effective_token_budget()
         n_decode = int(decode_mask.sum())
         k_ = self._spec_k
         spec_mask = np.zeros(self.max_batch, bool)
@@ -1142,6 +1961,18 @@ class LLMEngineCore:
         if self._ragged_spec_wanted(decode_mask):
             greedy, sampled_m = self._spec_eligible_mask(decode_mask)
             spec_mask, sspec_mask = greedy.copy(), sampled_m.copy()
+            try:
+                # chaos seam: a proposer or tree-layout failure demotes the
+                # matched row (unmatched: every verify row) to plain decode
+                # in this same launch; nothing was allocated yet
+                faults.fire("engine.spec.tree", requests=[
+                    self._slot_req[int(s)] for s in np.nonzero(spec_mask | sspec_mask)[0]])
+            except faults.InjectedFault as ex:
+                self.counters["spec_tree_fallbacks"] += 1
+                for s in np.nonzero(spec_mask | sspec_mask)[0]:
+                    if ex.request is None or self._slot_req[int(s)] is ex.request:
+                        spec_mask[int(s)] = False
+                        sspec_mask[int(s)] = False
             spec_slots = [int(s) for s in np.nonzero(spec_mask | sspec_mask)[0]]
             while spec_slots and n_decode + k_ * len(spec_slots) > budget:
                 drop = spec_slots.pop()
@@ -1172,7 +2003,7 @@ class LLMEngineCore:
         row_steps = np.zeros(self.max_batch, np.int32)
         for slot in plain_slots:
             request = self._slot_req[slot]
-            remaining_new = request.max_new_tokens - request.produced
+            remaining_new = self._effective_max_new(request) - request.produced
             remaining_len = self.max_seq_len - (request.prompt_len + request.produced)
             row_steps[slot] = max(1, min(launch_steps, remaining_new, remaining_len))
         # drafts for the verify rows from the slots' histories: chain
@@ -1515,28 +2346,39 @@ class LLMEngineCore:
         self.counters["ragged_ms"] += (time.perf_counter() - t0) * 1e3
         return result
 
-    async def _ragged_step(self, active_mask: np.ndarray) -> None:
+    async def _ragged_step(self, active_mask: np.ndarray, epoch: int) -> None:
         """One ragged scheduling iteration: ONE mixed launch carries every
         decode row and as many prefill-chunk rows as fit the budget; serial
         dispatch -> sync -> emit, with the pipeline drained. A failed launch
-        fails the requests and jobs it carried; the loop keeps serving."""
+        raises to the loop's step-failure path, which fails every request
+        and job; the loop keeps serving."""
         # the decode chunks after this step take every token from the host
         # mirrors this step's retire updates
         self._reset_device_chains()
         plan = self._prepare_ragged(active_mask)
         if plan is None:
             return
+        self._call_since = time.monotonic()
         try:
             result = await asyncio.to_thread(self._on_stream, self._dispatch_ragged_device, plan)
-        except Exception as ex:
-            logger.exception("ragged step failed")
-            for slot in np.nonzero(plan["decode_mask"])[0]:
-                self._fail_slot(int(slot), ex)
-            for job, _take in plan["shares"]:
-                if job in self._prefill_jobs:
-                    self._fail_ragged_job(job, ex)
+        finally:
+            self._call_since = None
+        if epoch != self._recover_epoch:
+            await self._ragged_recover(plan)
             return
         self._retire_ragged(plan, result)
+
+    async def _ragged_recover(self, plan: dict) -> None:
+        """The watchdog tripped during this ragged step: its decode rows'
+        requests were failed and nothing may commit. The step's device work
+        ended with its reads; the surviving jobs' pages roll back to their
+        pre-step lengths (the next step redoes the chunk), then the shared
+        recovery runs."""
+        pool = self.paged_cache.pool
+        for job, _take in plan["shares"]:
+            if job in self._prefill_jobs:
+                pool.truncate(job.slot, int(plan["pre_lens"][job.slot]))
+        await self._finish_recovery()
 
     def _retire_ragged(self, plan: dict, result: dict) -> None:
         """Loop-thread tail of a ragged step: each verify row first gives
@@ -1619,6 +2461,13 @@ class LLMEngineCore:
                 request.out_queue.put_nowait(_FINISHED)
                 self.paged_cache.pool.free(job.slot)
                 continue
+            err = self._deadline_error_at_commit(request)
+            if err is not None:
+                request.error = err
+                request.out_queue.put_nowait(_FINISHED)
+                self.paged_cache.pool.free(job.slot)
+                continue
             row = result["finish_rows"].index(job.slot)
             first_id = self._first_token(request, result["logits"][row:row + 1])
             self._activate_slot(request, job.slot, first_id)
+        self._last_progress = time.monotonic()

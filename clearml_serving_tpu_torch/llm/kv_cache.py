@@ -50,6 +50,11 @@ class PagePool:
     def pages_needed(self, tokens: int) -> int:
         return -(-tokens // self.page_size)
 
+    def can_allocate(self, tokens: int) -> bool:
+        """Whether a fresh sequence of ``tokens`` fits the free pages."""
+        with self._lock:
+            return self.pages_needed(tokens) <= len(self._free)
+
     def allocate(self, slot: int, tokens: int) -> List[int]:
         """Give ``slot`` enough pages for ``tokens`` in total; returns the
         new page ids. Raises MemoryError when the pool is exhausted."""
@@ -89,6 +94,29 @@ class PagePool:
             self._free.extend(reversed(self._slot_pages[slot]))
             self._slot_pages[slot] = []
             self._slot_len[slot] = 0
+
+    def detach(self, slot: int) -> List[int]:
+        """Take ``slot``'s pages away from it without freeing them (the slot
+        is left empty): the caller owns them until ``attach`` or
+        ``release``."""
+        with self._lock:
+            pages = self._slot_pages[slot]
+            self._slot_pages[slot] = []
+            self._slot_len[slot] = 0
+            return pages
+
+    def attach(self, slot: int, pages: List[int], tokens: int) -> None:
+        """Give the empty ``slot`` detached pages holding ``tokens`` tokens."""
+        with self._lock:
+            if self._slot_pages[slot]:
+                raise ValueError("slot {} still holds pages".format(slot))
+            self._slot_pages[slot] = list(pages)
+            self._slot_len[slot] = tokens
+
+    def release(self, pages: List[int]) -> None:
+        """Free detached pages."""
+        with self._lock:
+            self._free.extend(reversed(pages))
 
     def slot_pages(self, slot: int) -> List[int]:
         with self._lock:

@@ -8,11 +8,18 @@ Counterpart of ``clearml_serving_tpu/llm/openai_api.py``'s
 ``step_token_budget``, ``ragged_decode_steps``, ``speculation``,
 ``spec_k``, ``spec_ngram``, ``spec_sampling``, ``spec_tree``,
 ``spec_branch``, ``weight_quant`` and its legacy alias ``quantize``,
-``seed``; ``warmup``, which ``warmup_mode`` reads for the endpoint), and
-``chat/completions`` (``n=1``,
-streaming or not,
-``max_tokens``, ``temperature``/``top_p``/``top_k``, ``stop`` strings) and
-``models`` answer with the reference's response shapes. Text handling
+``seed``; ``warmup``, which ``warmup_mode`` reads for the endpoint; the
+request lifecycle's ``max_pending``, ``queue_timeout``, ``ttft_timeout``,
+``timeout``, ``watchdog_interval``, ``preemption``, ``preempt_budget``,
+``starvation_floor``, ``brownout``, ``brownout_batch_cap``,
+``brownout_dwell`` and ``default_priority``, ON by default as in the
+reference: ``max_pending = max(16, 4 * max_batch)``, a 30 s watchdog,
+preemption, and brownout with the bound), and ``chat/completions`` (``n=1``,
+streaming or not, ``max_tokens``, ``temperature``/``top_p``/``top_k``,
+``stop`` strings, ``priority``, ``timeout``, ``queue_timeout``,
+``ttft_timeout``) and ``models`` answer with the reference's response
+shapes. Admission is checked before a stream's headers, so a shed or a
+spent budget is a 429 or 408, never a mid-stream error. Text handling
 (stop-string trimming, streamed deltas, finish reasons) follows the
 reference line by line so that greedy content is byte-identical.
 
@@ -34,7 +41,7 @@ import torch
 from ..device import resolve_device
 from ..models.llama import Llama, init_params, resolve_config
 from ..ops.quant import detect_weight_quant, quantize_llama_params
-from .engine import GenRequest, LLMEngineCore
+from .engine import PRIORITY_CLASSES, GenRequest, LLMEngineCore
 from .tokenizer import ByteTokenizer
 
 ENGINE_KEYS = (
@@ -43,11 +50,15 @@ ENGINE_KEYS = (
     "pipeline_depth", "scheduler", "step_token_budget", "ragged_decode_steps",
     "speculation", "spec_k", "spec_ngram", "spec_sampling", "spec_tree", "spec_branch",
     "weight_quant", "quantize", "seed", "warmup",
+    "max_pending", "queue_timeout", "ttft_timeout", "timeout", "watchdog_interval",
+    "preemption", "preempt_budget", "starvation_floor", "brownout",
+    "brownout_batch_cap", "brownout_dwell", "default_priority",
 )
 
 CHAT_FIELDS = (
     "model", "messages", "max_tokens", "max_completion_tokens", "temperature",
     "top_p", "top_k", "stop", "stream", "n",
+    "priority", "timeout", "queue_timeout", "ttft_timeout",
 )
 
 
@@ -79,6 +90,26 @@ def warmup_mode(engine_cfg: Dict[str, Any]) -> str:
     return mode
 
 
+def default_priority(engine_cfg: Dict[str, Any]) -> str:
+    """The aux ``engine.default_priority`` knob: the class of requests
+    whose body names none. A typo raises at endpoint load, not at every
+    request that omits ``priority``."""
+    cls = str(engine_cfg.get("default_priority", "interactive"))
+    if cls not in PRIORITY_CLASSES:
+        raise ValueError("aux engine.default_priority must be one of {}: got {!r}".format(
+            "/".join(PRIORITY_CLASSES), cls))
+    return cls
+
+
+def _lifecycle_knob(engine_cfg: Dict[str, Any], key: str, default):
+    """A lifecycle knob of the aux block: absent -> ``default``, 0/false
+    -> off (None), else its float."""
+    if key not in engine_cfg:
+        return default
+    value = engine_cfg[key]
+    return float(value) if value else None
+
+
 def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
                  params: Optional[Dict[str, Any]] = None, cuda_graphs: bool = True):
     """(engine, tokenizer) from an aux ``engine`` block. Weights are random,
@@ -94,7 +125,8 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
         raise ValueError(
             "aux engine keys {} are not supported by the PyTorch port yet".format(unknown)
         )
-    warmup_mode(engine_cfg)  # a typo'd knob fails at load
+    warmup_mode(engine_cfg)  # typo'd knobs fail at load
+    default_priority(engine_cfg)
     if engine_cfg.get("arch", "llama") != "llama":
         raise ValueError("aux engine.arch {!r} is not supported by the PyTorch port "
                          "yet".format(engine_cfg["arch"]))
@@ -175,6 +207,23 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
         # format raises, naming the tree's format)
         weight_quant=weight_quant,
         cuda_graphs=cuda_graphs,
+        # the request lifecycle, on by default at the serving front as in
+        # the reference: bounded admission and a stall watchdog; 0/false
+        # disables a knob
+        max_pending=_lifecycle_knob(engine_cfg, "max_pending",
+                                    max(16, 4 * int(engine_cfg.get("max_batch", 8)))),
+        queue_timeout=_lifecycle_knob(engine_cfg, "queue_timeout", None),
+        ttft_timeout=_lifecycle_knob(engine_cfg, "ttft_timeout", None),
+        total_timeout=_lifecycle_knob(engine_cfg, "timeout", None),
+        watchdog_interval=_lifecycle_knob(engine_cfg, "watchdog_interval", 30.0),
+        # SLO scheduling: the preemptible batch lane and the brownout
+        # controller (None: on with the admission bound)
+        preempt_batch=bool(engine_cfg.get("preemption", True)),
+        preempt_budget=int(engine_cfg.get("preempt_budget", 2)),
+        starvation_floor=int(engine_cfg.get("starvation_floor", 8)),
+        brownout=bool(engine_cfg["brownout"]) if "brownout" in engine_cfg else None,
+        brownout_batch_cap=int(engine_cfg.get("brownout_batch_cap", 32)),
+        brownout_dwell=float(engine_cfg.get("brownout_dwell", 2.0)),
     )
     return engine, tokenizer
 
@@ -182,13 +231,16 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
 class LLMEngineRequest:
     """One engine per served model: the chat and models routes. With
     ``warmup`` other than "off" (``warmup_mode``), the first requests wait
-    for the engine's warmup sweep."""
+    for the engine's warmup sweep. ``default_priority`` (the aux knob, read
+    by ``default_priority``) is the class of requests whose body names
+    none."""
 
     def __init__(self, engine: LLMEngineCore, tokenizer, model_name: str = "model",
-                 warmup: str = "off"):
+                 warmup: str = "off", default_priority: str = "interactive"):
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
+        self._default_priority = default_priority
         self._warmup_needed = warmup != "off"
         self._warmup_task = None
 
@@ -224,6 +276,16 @@ class LLMEngineRequest:
             temperature=float(body.get("temperature", 0.0) or 0.0),
             top_k=int(body.get("top_k", 0) or 0),
             top_p=float(body.get("top_p", 1.0) or 1.0),
+            # lifecycle budgets in seconds (the engine's defaults apply
+            # when absent); ``timeout`` bounds the whole request
+            total_timeout=float(body["timeout"]) if body.get("timeout") is not None else None,
+            queue_timeout=(float(body["queue_timeout"])
+                           if body.get("queue_timeout") is not None else None),
+            ttft_timeout=(float(body["ttft_timeout"])
+                          if body.get("ttft_timeout") is not None else None),
+            # the body's class wins, else the endpoint's default; the
+            # engine's validate() refuses an unknown one
+            priority=str(body.get("priority") or self._default_priority),
         )
 
     @staticmethod
@@ -344,7 +406,10 @@ class LLMEngineRequest:
         completion_id = _gen_id("chatcmpl")
         created = _now()
         request = self._gen_request_from_body(body, prompt_ids)
+        # before a stream's headers: a refusal, a shed or a spent budget is
+        # a status line (422, 429, 408), not a mid-stream error
         self.engine.validate(request)
+        self.engine.check_admission(request)
         await self._ensure_warm()
 
         def chat_chunk(choice) -> str:

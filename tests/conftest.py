@@ -51,6 +51,11 @@ def pytest_configure(config):
         "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's kernels); "
         "skips elsewhere, select with -m cuda",
     )
+    config.addinivalue_line(
+        "markers",
+        "timeout(seconds): the test's own time bound (pytest-timeout "
+        "enforces it where installed; the test also bounds its run itself)",
+    )
 
 
 @pytest.fixture()

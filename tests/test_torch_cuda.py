@@ -3,7 +3,8 @@ paged attention kernels (decode and ragged, the ragged one with and without
 its draft-tree mask) and the w4a16 matmul against their plain PyTorch
 versions, their gates and launch counts, and the engine on the card under
 both schedulers, with bf16 and int4 weights and with speculative verify
-rows. They skip
+rows, and its request lifecycle over CUDA-graph replays (watchdog recovery,
+a capture inside the watchdog's grace, a preemption). They skip
 elsewhere. This file
 imports neither jax nor the JAX package, so on the card it runs as
 
@@ -15,6 +16,7 @@ the same operands)."""
 
 import asyncio
 import ctypes
+import time
 import types
 
 import pytest
@@ -952,3 +954,133 @@ def test_engine_replays_graphs_after_warmup(cuda, weights):
     assert [len(s) for s in streams["graphs2"]] == [11, 11, 11]
     # the greedy streams
     assert streams["eager"][:2] == streams["graphs1"][:2] == streams["graphs2"][:2]
+
+
+# -- the request lifecycle over graph replays --------------------------------------
+
+LIFECYCLE_KW = dict(max_batch=4, max_seq_len=256, decode_steps=4, page_size=16,
+                    prefill_buckets=[32, 64], eos_token_id=None, pipeline_depth=2)
+
+
+async def _stream(engine, request):
+    return [t async for t in engine.generate(request)]
+
+
+def test_watchdog_recovers_with_a_graph_replay_in_flight(cuda):
+    """Depth 2 with graphs captured at warmup: a 3 s retire stall (the
+    ``engine.decode.stall`` seam) while three requests have replays in
+    flight trips a 0.5 s watchdog. Those requests end with
+    EngineStuckError, the engine is not ready until the stale leg landed
+    and the stream finished the enqueued replays, the pool's free pages
+    are where they were, and the next greedy stream equals the one before
+    the trip."""
+    from clearml_serving_tpu_torch.errors import EngineStuckError
+    from clearml_serving_tpu_torch.llm import faults
+
+    engine = LLMEngineCore(_small_model(cuda), watchdog_interval=0.5, **LIFECYCLE_KW)
+    probe = dict(prompt_ids=list(range(3, 20)), max_new_tokens=24)
+
+    async def outcome(request):
+        try:
+            await _stream(engine, request)
+        except EngineStuckError:
+            return "stuck"
+        return "finished"
+
+    async def run():
+        await engine.warmup()
+        before = await _stream(engine, GenRequest(**probe))
+        await engine.wait_drained()
+        free0 = engine.paged_cache.pool.free_pages
+        victims = [GenRequest(prompt_ids=[5 + i, 9, 11], max_new_tokens=200) for i in range(3)]
+        tasks = [asyncio.ensure_future(outcome(v)) for v in victims]
+        while not (all(v.produced >= 1 for v in victims) and engine._inflight):
+            await asyncio.sleep(0.001)
+        faults.configure([{"point": "engine.decode.stall", "action": "delay", "delay": 3.0,
+                           "times": 1}])
+        saw_not_ready = False
+        try:
+            while not all(t.done() for t in tasks) or not engine.is_ready:
+                saw_not_ready |= not engine.is_ready
+                await asyncio.sleep(0.005)
+        finally:
+            faults.clear()
+        await engine.wait_drained()
+        free1 = engine.paged_cache.pool.free_pages
+        after = await _stream(engine, GenRequest(**probe))
+        await engine.wait_drained()
+        return [t.result() for t in tasks], saw_not_ready, free0, free1, before, after
+
+    outcomes, saw_not_ready, free0, free1, before, after = asyncio.run(
+        asyncio.wait_for(run(), 120))
+    assert outcomes == ["stuck"] * 3 and saw_not_ready
+    assert engine.counters["watchdog_trips"] == 1
+    assert free1 == free0 == engine.paged_cache.pool.num_pages - 1
+    assert after == before and len(after) == 24
+    assert engine.counters["graph_replays"] > 0 and engine.counters["serve_captures"] == 0
+    engine.stop()
+
+
+def test_capture_while_serving_does_not_trip_the_watchdog(cuda):
+    """No warmup: each decode-chunk variant is captured at its first use,
+    in the dispatch worker, while requests are active; each capture is
+    stretched to at least 0.9 s, over four intervals of a 0.2 s watchdog
+    and inside its grace of ten. No trip, both variants captured while
+    serving, and the greedy stream equals that of an engine that captured
+    at warmup."""
+    model = _small_model(cuda)
+    greedy = dict(prompt_ids=list(range(3, 20)), max_new_tokens=40)
+    sampled = dict(prompt_ids=list(range(7, 30)), max_new_tokens=8, temperature=0.8)
+
+    async def traffic(engine):
+        return await asyncio.gather(_stream(engine, GenRequest(**greedy)),
+                                    _stream(engine, GenRequest(**sampled)))
+
+    warm = LLMEngineCore(model, **LIFECYCLE_KW)
+    asyncio.run(warm.warmup())
+    want = asyncio.run(traffic(warm))[0]
+    warm.stop()
+    engine = LLMEngineCore(model, watchdog_interval=0.2, **LIFECYCLE_KW)
+    capture, durations = engine._graphs.capture, []
+
+    def slow_capture(greedy, capture_error_mode="global"):
+        t0 = time.perf_counter()
+        capture(greedy, capture_error_mode=capture_error_mode)
+        time.sleep(max(0.0, 0.9 - (time.perf_counter() - t0)))
+        durations.append(time.perf_counter() - t0)
+
+    engine._graphs.capture = slow_capture
+    got = asyncio.run(asyncio.wait_for(traffic(engine), 120))[0]
+    assert engine.counters["serve_captures"] == 2 and min(durations) >= 0.9
+    assert engine.counters["watchdog_trips"] == 0
+    assert got == want
+    engine.stop()
+
+
+def test_greedy_stream_is_bitwise_equal_across_a_preemption(cuda):
+    """A batch-class stream preempted for an interactive arrival (depth 2,
+    graphs) waits with its KV pages, resumes from them and gives the
+    tokens of its unpreempted run, bit for bit."""
+    model = _small_model(cuda)
+    prompt = [(i * 7 + 3) % 250 + 1 for i in range(17)]
+    kw = dict(LIFECYCLE_KW, max_batch=1)
+
+    async def contended(engine):
+        batch = GenRequest(prompt_ids=list(prompt), max_new_tokens=48, priority="batch")
+        task = asyncio.ensure_future(_stream(engine, batch))
+        while batch.produced < 8:
+            await asyncio.sleep(0.001)
+        hi = await _stream(engine, GenRequest(prompt_ids=[1, 9, 9], max_new_tokens=4))
+        return await task, hi
+
+    control = LLMEngineCore(model, **kw)
+    want = asyncio.run(_stream(control, GenRequest(prompt_ids=list(prompt), max_new_tokens=48,
+                                                   priority="batch")))
+    control.stop()
+    engine = LLMEngineCore(model, **kw)
+    got, hi = asyncio.run(asyncio.wait_for(contended(engine), 120))
+    assert engine.counters["preemptions"] == 1 and len(hi) == 4
+    assert got == want
+    pool = engine.paged_cache.pool
+    assert pool.free_pages == pool.num_pages - 1
+    engine.stop()

@@ -115,9 +115,9 @@ def test_prompt_past_max_seq_len_is_refused(tiny_np):
 
 
 @pytest.mark.parametrize("knob", [
-    {"cache_mode": "dense"}, {"ragged_decode_steps": 8}, {"max_pending": 16},
+    {"cache_mode": "dense"}, {"ragged_decode_steps": 8}, {"chunked_prefill_size": 64},
     {"speculation": "ngram"}, {"prefix_cache": 8}, {"weight_quant": "int4"},
-], ids=["dense", "ragged", "max_pending", "speculation", "prefix_cache", "weight_quant"])
+], ids=["dense", "ragged", "chunked_prefill", "speculation", "prefix_cache", "weight_quant"])
 def test_unsupported_knob_raises_naming_itself(tiny_np, knob):
     model = Llama(TINY, convert_params(tiny_np, device="cpu"))
     (name,) = knob
@@ -134,7 +134,7 @@ def test_stop_fails_active_and_pending_requests(tiny_np):
                  for p in _prompts()[:3]]
         while port.counters["decode_steps"] == 0:
             await asyncio.sleep(0.001)
-        assert len(port._pending) == 1 and port.active_slots == 2
+        assert port._pending.qsize() == 1 and port.active_slots == 2
         port.stop()
         return await asyncio.gather(*tasks, return_exceptions=True)
 

@@ -128,6 +128,28 @@ def test_depth2_streams_equal_the_reference_at_depth2(tiny_np, kv_quant, weight_
         "decode_chunks"] > 0
 
 
+@pytest.mark.parametrize("depth", [1, 2])
+def test_streams_reaching_max_seq_len_equal_the_reference(tiny_np, depth):
+    """Prompts within one chunk of ``max_seq_len``: at depth 2 the port
+    leaves a slot out of a dispatch once the chunks in flight reach the
+    sequence limit, where the reference masks by the token budget only;
+    the greedy streams, cut at the limit, are the reference's at the same
+    depth."""
+    knobs = dict(ENGINE, eos_token_id=None, page_size=16, pipeline_depth=depth,
+                 scheduler="two_dispatch")
+    prompts = [[256] + [(7 * i + 3 * j) % 250 + 1 for j in range(n - 1)]
+               for i, n in enumerate((121, 124, 126, 127))]
+    jax_engine = JaxEngine(models.build_model("llama", TINY), tiny_np, cache_mode="paged",
+                           **knobs)
+    want = _run_group(jax_engine, JaxGenRequest, prompts, max_new_tokens=40)
+    jax_engine.stop()
+    port = LLMEngineCore(Llama(TINY, convert_params(tiny_np, device="cpu")), **knobs)
+    got = _run_group(port, GenRequest, prompts, max_new_tokens=40)
+    assert got == want
+    assert [len(s) for s in got] == [7, 4, 2, 1]
+    assert _all_pages_back(port)
+
+
 def test_sampled_streams_identical_across_depths(tiny_np):
     """Sampled streams replay at either depth when every request is
     admitted before decode starts and all share max_tokens: each chunk's
@@ -164,7 +186,7 @@ def test_quarantine_defers_free_until_barrier(tiny_np):
     engine._release_quarantine(6)
     assert 0 in engine._quarantine
     # admission skips the quarantined slot
-    engine._pending.append(GenRequest(prompt_ids=[256, 3], max_new_tokens=2))
+    engine._pending.put_nowait(GenRequest(prompt_ids=[256, 3], max_new_tokens=2))
     asyncio.run(engine._admit())
     assert engine._slot_req[0] is None and engine._slot_req[1] is not None
     # the barrier's retire does

@@ -324,6 +324,40 @@ def test_verify_row_the_pool_cannot_extend_fails_only_its_request(tiny_np):
     assert pool.free_pages == pool.num_pages - 1
 
 
+def test_spec_tree_seam_demotes_only_the_matched_row(tiny_np):
+    """An ``engine.spec.tree`` raise matched to one request demotes that
+    request's verify row to plain decode in the same launch (twice): both
+    greedy streams equal an undisturbed run's and the JAX engine's under
+    the same fault, the fallbacks are counted, the other row kept
+    speculating, and no page leaks (the seam fires before any
+    allocation)."""
+    from clearml_serving_tpu.llm import faults as jax_faults
+    from clearml_serving_tpu_torch.llm import faults
+
+    marked = [211] + SPEC_A
+    spec = {"point": "engine.spec.tree", "match_token": 211, "times": 2}
+    clean = _staggered(_port(tiny_np, "", **ARMS["tree"]), GenRequest, [marked, SPEC_B])
+    jax_engine = JaxEngine(models.build_model("llama", TINY), tiny_np, cache_mode="paged",
+                           pipeline_depth=1, **ENGINE, **_page_kw(""), **ARMS["tree"])
+    engine = _port(tiny_np, "", **ARMS["tree"])
+    try:
+        jax_faults.configure([dict(spec)])
+        want = _staggered(jax_engine, JaxGenRequest, [marked, SPEC_B])
+        faults.configure([dict(spec)])
+        got = _staggered(engine, GenRequest, [marked, SPEC_B])
+    finally:
+        faults.clear()
+        jax_faults.clear()
+        jax_engine.stop()
+    assert got == want == clean
+    ragged = engine.lifecycle_stats()["ragged"]
+    assert engine.counters["spec_tree_fallbacks"] == 2 == ragged["spec_tree_fallbacks"]
+    assert jax_engine.counters["spec_tree_fallbacks"] == 2
+    assert ragged["step_rows"]["spec_verify"] >= 1
+    pool = engine.paged_cache.pool
+    assert pool.free_pages == pool.num_pages - 1
+
+
 def test_health_reports_the_spec_fields(tiny_np):
     engine = _port(tiny_np, "", **ARMS["tree"])
     ragged = engine.health()["ragged"]
