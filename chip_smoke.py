@@ -95,6 +95,22 @@ exits non-zero before the result lines are printed:
    pages and the next chat's content as before the trip). The decode kernel
    once per layer per decode step of the default engine's traffic.
 
+8. the radix prefix cache over shared, refcounted KV pages: Llama-3-8B at
+   full width (max_batch 8, max_seq_len 2048, page_size 16) with
+   ``prefix_cache`` 64, ``prefix_block`` 64, ``prefix_cache_pages`` 256 and
+   the KV sanitizer armed, two-dispatch at depth 2 with graphs and ragged
+   at budget 256, each on bf16 and int8 KV, and the eager two-dispatch
+   bf16 arm: a 1024-token shared head with 8 tails of 40-200 tokens (the
+   first chat alone, the 7 others concurrently, the first again). Hits,
+   misses and hit tokens as the tree's rule gives them; every live slot of
+   the concurrent wave maps the head's 64 page ids, 448 pages saved; the
+   head's K/V (and scale) rows unchanged bit for bit after the wave;
+   graphed = eager contents; the kernels' launches per step; every page
+   back after full eviction with 0 sanitizer failures; the hit path's last
+   logits (gathered pages + ``prefill_chunk``) within 5% of the cold
+   prefill's. Prints TTFT and prefill time cold and hit, ragged steps per
+   hit admission, pages saved and ``cow_events``.
+
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, and the ragged kernel's tree variant) and
 ``{"ok": true, "device": {...}}``. Timings are CUDA-event
@@ -2474,6 +2490,278 @@ def phase_lifecycle(params, card: str, preset: str = "llama3-8b") -> dict:
     return out
 
 
+# -- phase 8: the radix prefix cache over shared, refcounted KV pages ----------------
+
+PREFIX_KNOBS = {"prefix_cache": 64, "prefix_block": 64, "prefix_cache_pages": 256}
+PREFIX_HEAD = 1024
+PREFIX_TAILS = 8
+PREFIX_MAX_TOKENS = 32
+# (arm, kv, knobs, cuda_graphs): two-dispatch at depth 2 with graphs and
+# ragged at budget 256, each on bf16 and int8 KV, and the eager
+# two-dispatch bf16 arm the graphed one is held against
+PREFIX_ARMS = [("two_dispatch", "", {"pipeline_depth": 2}, True),
+               ("two_dispatch_eager", "", {"pipeline_depth": 2}, False),
+               ("two_dispatch", "int8", {"pipeline_depth": 2}, True),
+               ("ragged", "", RAGGED_KNOBS, True),
+               ("ragged", "int8", RAGGED_KNOBS, True)]
+
+
+def prefix_traffic(seed: int = 0):
+    """A 1024-token shared head and 8 tails of 40-200 tokens, token ids made
+    from ``seed``; each tail starts with its own token, so the prompts share
+    exactly the head."""
+    gen = torch.Generator().manual_seed(seed)
+    head = torch.randint(1, 256, (PREFIX_HEAD,), generator=gen).tolist()
+    lengths = torch.randint(40, 201, (PREFIX_TAILS,), generator=gen).tolist()
+    tails = [[i + 1] + torch.randint(1, 256, (n - 1,), generator=gen).tolist()
+             for i, n in enumerate(lengths)]
+    return head, [head + t for t in tails]
+
+
+async def _ids_stream(engine, ids, max_tokens=PREFIX_MAX_TOKENS):
+    from clearml_serving_tpu_torch.llm.engine import GenRequest
+
+    return [t async for t in engine.generate(GenRequest(prompt_ids=list(ids),
+                                                        max_new_tokens=max_tokens))]
+
+
+def _empty_prefix_cache(engine) -> None:
+    """Evict every cached run (the budget set to no node, then restored)."""
+    cache = engine._prefix
+    keep, cache.max_nodes = cache.max_nodes, 0
+    with cache._lock:
+        cache._evict_over_budget()
+    cache.max_nodes = keep
+
+
+def _pool_rows(cache, pages):
+    """The pools' rows of ``pages``: K, V and the int8 scale rows."""
+    idx = torch.as_tensor(pages, dtype=torch.long, device=cache.device)
+    return [t[:, :, idx].clone() for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)
+            if t is not None]
+
+
+def wave_sharing(engine, head_pages) -> dict:
+    """During the concurrent wave: every live slot's table starts with the
+    head's stored page ids, and the pages in use are those of an unshared
+    layout less 64 per live slot (each would own a copy of the head; a
+    slot's own stored tail blocks, held by the cache and the slot, are
+    counted once)."""
+    pool = engine.paged_cache.pool
+    tables = [pool.slot_pages(s) for s in range(pool.max_slots) if pool.slot_length(s) > 0]
+    cached = set(engine._prefix.page_refs())
+    used = pool.num_pages - 1 - pool.free_pages
+    union = set(cached).union(*map(set, tables))
+    own_stored = sum(1 for t in tables for p in t[len(head_pages):] if p in cached)
+    saved = sum(len(t) for t in tables) + len(cached) - used - own_stored
+    return dict(slots=len(tables), same_head=all(t[:len(head_pages)] == head_pages
+                                                  for t in tables),
+                used=used, union=len(union), pages_saved=saved, free_pages=pool.free_pages)
+
+
+async def prefix_arm_run(engine, head, prompts, logits_prompt=None) -> dict:
+    """A throwaway cold + hit pair on another head (first-use costs), the
+    cache emptied; then the first prompt alone (a miss and a store), the 7
+    others concurrently (the hits), the first again (a hit on its own
+    stored run), the cache emptied again."""
+    cache = engine._prefix
+    warm_head, warm = prefix_traffic(1)
+    await _ids_stream(engine, warm[0], 4)
+    await _ids_stream(engine, warm[1], 4)
+    await engine.wait_drained()
+    _empty_prefix_cache(engine)
+    for key in engine.counters:
+        engine.counters[key] = 0
+    engine.ttft_ms.clear()
+    cache.hits = cache.misses = cache.hit_tokens = 0
+    from clearml_serving_tpu_torch.ops.paged_attention import (paged_attention,
+                                                                ragged_paged_attention)
+    paged_attention.launches = ragged_paged_attention.launches = 0
+    t0 = time.perf_counter()
+    first = await _ids_stream(engine, prompts[0])
+    await engine.wait_drained()
+    c_cold = dict(engine.counters)
+    # the head's stored page ids (the probe's lookup is not counted)
+    counts = (cache.hits, cache.misses, cache.hit_tokens)
+    hit0 = cache.lookup_pages(head + [0], 0)
+    head_pages = list(hit0["pages"])
+    cache.release(hit0)
+    cache.hits, cache.misses, cache.hit_tokens = counts
+    head_rows = _pool_rows(engine.paged_cache, head_pages)
+    wave = asyncio.ensure_future(asyncio.gather(*(_ids_stream(engine, p) for p in prompts[1:])))
+    pool = engine.paged_cache.pool
+    await until(lambda: sum(pool.slot_length(s) > 0 for s in range(pool.max_slots))
+                == len(prompts) - 1 or wave.done(), 120, "the wave's slots mapped")
+    sharing = wave_sharing(engine, head_pages)
+    hits = await wave
+    await engine.wait_drained()
+    c_wave = dict(engine.counters)
+    repeat = await _ids_stream(engine, prompts[0])
+    await engine.wait_drained()
+    wall = time.perf_counter() - t0
+    c = dict(engine.counters)
+    same_head = all(torch.equal(a, b) for a, b in
+                    zip(head_rows, _pool_rows(engine.paged_cache, head_pages)))
+    ttft = list(engine.ttft_ms)
+    stats = cache.stats()
+    logits = hit_vs_cold_logits(engine, logits_prompt) if logits_prompt else None
+    out = dict(logits=logits, contents=[first] + list(hits) + [repeat], stats=stats, sharing=sharing,
+               head_pages=head_pages, head_unchanged=same_head, counters=c, wall_s=wall,
+               paged_launches=paged_attention.launches,
+               ragged_launches=ragged_paged_attention.launches,
+               ttft_cold_ms=ttft[0], ttft_hit_ms=ttft[1:],
+               prefill_ms_cold=c_cold["prefill_ms"] / max(1, c_cold["prefills"]),
+               prefill_ms_hit=((c["prefill_ms"] - c_cold["prefill_ms"])
+                               / max(1, c["prefills"] - c_cold["prefills"])),
+               ragged_steps_per_hit=(c_wave["ragged_steps"] - c_cold["ragged_steps"])
+               / (len(prompts) - 1),
+               cow_events=engine.paged_cache.pool.cow_events)
+    _empty_prefix_cache(engine)
+    out["free_after_eviction"] = pool.free_pages
+    return out
+
+
+def prefix_probe_prompt(head):
+    """A prompt that shares only the head with the stored runs: its hit
+    prefills a 200-token tail in four 64-token segments."""
+    gen = torch.Generator().manual_seed(2)
+    return head + [PREFIX_TAILS + 1] + torch.randint(1, 256, (199,), generator=gen).tolist()
+
+
+def hit_vs_cold_logits(engine, prompt) -> dict:
+    """The hit path's last logits (the shared pages gathered, the tail
+    through ``prefill_chunk`` in 64-token segments: the engine's own
+    ``_prefix_admission``) against the cold prefill's, for one prompt at
+    bf16 on the card."""
+    from clearml_serving_tpu_torch.llm import shapes
+    from clearml_serving_tpu_torch.llm.engine import GenRequest
+
+    request = GenRequest(prompt_ids=list(prompt))
+    with torch.no_grad():
+        hit_last, _cache, plen = engine._prefix_admission(request)
+        engine._release_prefix_hit(request)
+        n = len(prompt)
+        bucket = shapes.bucket_for(n, engine._buckets, engine.max_seq_len)
+        tokens = torch.zeros((1, bucket), dtype=torch.long)
+        tokens[0, :n] = torch.as_tensor(prompt)
+        cold_last, _ = engine.model.prefill(tokens.to(DEV),
+                                            torch.tensor([n], dtype=torch.int32, device=DEV))
+    hit_last, cold_last = hit_last.float()[0], cold_last.float()[0]
+    err = float((hit_last - cold_last).abs().max())
+    scale = float(cold_last.abs().max())
+    return dict(prefix_len=plen, max_abs_err=err, rel_err=err / scale,
+                top1_equal=bool(int(hit_last.argmax()) == int(cold_last.argmax())))
+
+
+def first_token_difference(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def phase_prefix_cache(params, card: str, preset: str = "llama3-8b") -> dict:
+    """Phase 8: Llama-3-8B at full width, paged cache (max_batch 8,
+    max_seq_len 2048, page_size 16), ``prefix_cache`` 64, ``prefix_block``
+    64, ``prefix_cache_pages`` 256, the KV sanitizer armed, in each arm of
+    ``PREFIX_ARMS``. Holds hits, misses and hit_tokens to the tree's rule,
+    the wave's physical sharing of the head's pages, the head's rows bit for
+    bit after the wave, graphed = eager contents, the kernels' launches,
+    every page back after eviction with a clean sanitizer, and the hit
+    path's logits within 5% of the cold prefill's."""
+    from clearml_serving_tpu_torch.ops.paged_attention import (paged_attention,
+                                                                ragged_paged_attention)
+
+    t_phase = time.perf_counter()
+    head, prompts = prefix_traffic(0)
+    armed = os.environ.get("TPUSERVE_SANITIZE")
+    os.environ["TPUSERVE_SANITIZE"] = "1"
+    runs, logits = [], None
+    try:
+        for arm, kv, knobs, graphs in PREFIX_ARMS:
+            engine, _tok = _engine(params, kv, preset, cuda_graphs=graphs,
+                                   **dict(PREFIX_KNOBS, **knobs))
+            n_layers = engine.model.n_layers
+            main = arm == "two_dispatch" and not kv
+            run = asyncio.run(prefix_arm_run(engine, head, prompts,
+                                             prefix_probe_prompt(head) if main else None))
+            cache = engine._prefix
+            rule = [cache.longest_prefix_len(len(prompts[0]))]
+            want = dict(hits=len(prompts), misses=1,
+                        hit_tokens=PREFIX_HEAD * (len(prompts) - 1) + rule[0])
+            got = {k: run["stats"][k] for k in want}
+            c = run["counters"]
+            sharing = run["sharing"]
+            checks = {
+                "hit counts": got == want,
+                "the wave shares the head's pages": (
+                    sharing["slots"] == len(prompts) - 1 and sharing["same_head"]
+                    and sharing["union"] == sharing["used"]
+                    and sharing["pages_saved"] == (len(prompts) - 1) * len(run["head_pages"])),
+                "head rows unchanged": run["head_unchanged"],
+                "paged launches": (run["paged_launches"] == n_layers * (
+                    c["decode_steps"] + c["ragged_chain_steps"]) > 0),
+                "ragged launches": run["ragged_launches"] == n_layers * c["ragged_steps"]
+                and (c["ragged_steps"] > 0) == (arm == "ragged"),
+                "every page back": (run["free_after_eviction"]
+                                    == engine.paged_cache.pool.num_pages - 1),
+                "sanitizer": (engine._sanitizer is not None
+                              and engine._sanitizer.stats()["failures"] == 0
+                              and engine._sanitizer.stats()["checks"] > 0),
+                "32 tokens each": all(len(s) == PREFIX_MAX_TOKENS for s in run["contents"]),
+            }
+            if main:
+                logits = run["logits"]
+                checks["hit vs cold logits within 5%"] = logits["rel_err"] <= 0.05
+            hit_ttft = sorted(run["ttft_hit_ms"])
+            log("  {} kv={}{}: hits {hits} misses {misses} hit_tokens {hit_tokens} (want {}); "
+                "the wave's {} slots map the head's {} pages: {}, pages saved {}; head rows "
+                "unchanged {}; TTFT cold {:.2f} ms, hit median {:.2f} max {:.2f} ms; prefill "
+                "{:.2f} ms cold, {:.2f} ms hit; ragged steps per hit admission {:.2f}; "
+                "paged_attention {} / ragged_paged_attention {} launches over {} decode, {} "
+                "chained and {} ragged steps; cow_events {}; after eviction {} free of {}; "
+                "sanitizer {}; wall {:.3f} s ({})".format(
+                    arm, kv or "bf16", "" if graphs else " (eager)", want,
+                    sharing["slots"], len(run["head_pages"]), sharing["same_head"],
+                    sharing["pages_saved"], run["head_unchanged"], run["ttft_cold_ms"],
+                    hit_ttft[len(hit_ttft) // 2], hit_ttft[-1], run["prefill_ms_cold"],
+                    run["prefill_ms_hit"], run["ragged_steps_per_hit"], run["paged_launches"],
+                    run["ragged_launches"], c["decode_steps"], c["ragged_chain_steps"],
+                    c["ragged_steps"], run["cow_events"], run["free_after_eviction"],
+                    engine.paged_cache.pool.num_pages - 1, engine._sanitizer.stats(),
+                    run["wall_s"], card, **got))
+            engine.stop()
+            del engine, cache
+            release_card_memory()
+            run.update(arm=arm, kv=kv or "bf16", graphs=graphs, checks=checks)
+            runs.append(run)
+            failed = [name for name, ok in checks.items() if not ok]
+            if failed:
+                raise AssertionError("phase 8 {} kv={}: failed {}".format(
+                    arm, kv or "bf16", failed))
+    finally:
+        if armed is None:
+            os.environ.pop("TPUSERVE_SANITIZE", None)
+        else:
+            os.environ["TPUSERVE_SANITIZE"] = armed
+    graphed, eager = runs[0], runs[1]
+    if graphed["contents"] != eager["contents"]:
+        raise AssertionError("the graphed and eager two-dispatch arms' contents differ")
+    cold, hit = runs[0]["contents"][0], runs[0]["contents"][-1]
+    log("  hit vs cold (bf16, a prompt of {} tokens, prefix {}): last logits max abs err "
+        "{:.4f} ({:.4f} of the largest), top-1 equal {}; prompt 0's contents cold vs its "
+        "repeat (a hit on its own run) first differ at token {}; graphed = eager contents "
+        "({})".format(len(prefix_probe_prompt(head)), logits["prefix_len"], logits["max_abs_err"],
+                      logits["rel_err"], logits["top1_equal"],
+                      first_token_difference(cold, hit), card))
+    for run in runs:
+        run["contents"] = [s[:8] for s in run["contents"]]
+        del run["head_pages"]
+    out = dict(card=card, runs=runs, logits=logits,
+               first_difference_cold_vs_repeat=first_token_difference(cold, hit),
+               seconds=time.perf_counter() - t_phase)
+    log("  phase 8 in {:.1f} s".format(out["seconds"]))
+    return out
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -2583,6 +2871,10 @@ def main() -> int:
     log("phase 7: request lifecycle, llama3-8b full width behind the HTTP server, default "
         "lifecycle knobs")
     lifecycle = phase_lifecycle(params, card)
+    log("phase 8: the radix prefix cache over shared, refcounted KV pages, llama3-8b full "
+        "width, prefix_cache 64, prefix_block 64, prefix_cache_pages 256")
+    prefix = phase_prefix_cache(params, card)
+    prefix_arm = {(r["arm"], r["kv"]): r for r in prefix["runs"]}
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -2623,6 +2915,11 @@ def main() -> int:
         "bound_ms_int8": t["int8_8x1024"]["bound_ms"],
         "per_case": [dict(case=name, **row) for name, row in t.items()],
         "launches_ragged_path": ragged_runs[0]["paged_launches"],
+        # phase 8: decode rows reading shared prefix pages (two-dispatch
+        # with graphs, bf16 / int8 KV, and the ragged arm's chained steps)
+        "launches_prefix": prefix_arm[("two_dispatch", "bf16")]["paged_launches"],
+        "launches_prefix_int8": prefix_arm[("two_dispatch", "int8")]["paged_launches"],
+        "launches_prefix_ragged_path": prefix_arm[("ragged", "bf16")]["paged_launches"],
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -2657,6 +2954,9 @@ def main() -> int:
         # over the prefill row's K/V gathered contiguous
         "sdpa_gathered_ms_prefill": rt["prefill_bf16"]["sdpa_gathered_ms"],
         "per_case": [dict(case=name, **row) for name, row in rt.items()],
+        # phase 8: hit admissions' tail chunk rows over mapped shared pages
+        "launches_prefix": prefix_arm[("ragged", "bf16")]["ragged_launches"],
+        "launches_prefix_int8": prefix_arm[("ragged", "int8")]["ragged_launches"],
     }, {
         "name": "ragged_paged_attention[tree_anc]",
         "route": "cuda",
@@ -2728,7 +3028,7 @@ def main() -> int:
                                   "ragged_profile": ragged_prof,
                                   "tree_profile": tree_prof,
                                   "int4_profile": int4_prof,
-                                  "lifecycle": lifecycle}))
+                                  "lifecycle": lifecycle, "prefix_cache": prefix}))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)
     print(json.dumps(kernels))

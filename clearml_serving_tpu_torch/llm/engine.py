@@ -31,6 +31,18 @@ to its bucket, its K/V written into freshly allocated pages, and the first
 token sampled from the last prompt position (emitted at once: the client's
 first token).
 
+Automatic prefix caching (``prefix_cache``, ``llm/prefix_cache.py``): a
+radix tree of block-aligned prompt prefixes whose nodes hold references on
+the pool's pages. An admission's commit stores its prompt by reference to
+the slot's own pages; a later prompt sharing a stored run maps those pages
+into its page table (no KV copy) and prefills only the tail: under
+``two_dispatch`` through ``Llama.prefill_chunk`` over the gathered pages,
+under ``ragged`` as chunk rows that read the mapped pages through the
+ragged kernel. A write into a page still shared elsewhere copies it first
+(copy on write), on the engine's stream ahead of the launch that writes
+it. ``TPUSERVE_SANITIZE=1`` audits the page accounting after every step
+and at drain (``llm/kv_sanitizer.py``).
+
 ``scheduler="ragged"``: admission opens a job instead of running a prefill.
 While jobs exist, each step is ONE mixed launch (``Llama.forward_ragged``,
 the ragged attention kernel once per layer): every decode row with a
@@ -69,8 +81,9 @@ enqueued replays. A brownout controller degrades in stages under pressure
 (speculation parked, batch ``max_new_tokens`` capped, the ragged token
 budget shrunk and best-effort shed), and queued interactive work preempts
 batch-lane slots at a chunk boundary: the victim requeues with its history
-as the prompt and its KV pages, and its resume maps them back and decodes
-on, so its stream is the one it would have been. Chaos seams
+as the prompt and its KV pages (with the cache on, its history is also
+stored for other admissions to share), and its resume maps them back and
+decodes on, so its stream is the one it would have been. Chaos seams
 (``llm/faults.py``) drive each path in the tests.
 
 Device work runs in worker threads, on one CUDA stream, so the event loop
@@ -108,6 +121,8 @@ from ..ops.gates import check_engine_gates
 from ..ops.paged_attention import RAGGED_QB, ragged_layout, tree_ancestors
 from .decode_graph import ChunkLayout, DecodeGraphs, run_chunk
 from .kv_cache import PagedKVCache
+from .kv_sanitizer import KVSanitizer, enabled as sanitizer_enabled
+from .prefix_cache import RadixPrefixCache
 from .sampling import (
     SamplingParams,
     greedy_tree_walk,
@@ -158,6 +173,10 @@ class GenRequest:
     # them back into a slot. Every queue exit that is not a resume releases
     # them (_release_parked)
     _parked: Optional[List[int]] = None
+    # engine-internal (prefix cache): a lookup's pinned hit, carried from
+    # the lookup to the commit that maps its pages; every failure path
+    # between the two releases it (_release_prefix_hit)
+    _prefix_hit: Optional[dict] = None
     # filled by the engine:
     out_queue: "asyncio.Queue" = field(default_factory=asyncio.Queue)
     produced: int = 0
@@ -409,7 +428,6 @@ UNSUPPORTED_KNOBS = (
     "mesh", "long_prefill_threshold",
     "long_bucket_step", "chunked_prefill_size", "prefill_segments_per_decode",
     "prefill_stall_timeout", "lora_adapters",
-    "prefix_cache", "prefix_cache_bytes", "prefix_cache_pages",
     "prefix_cache_host_pages", "prefix_cache_host_bytes", "tokenizer",
     "replica",
 )
@@ -461,6 +479,12 @@ class LLMEngineCore:
         brownout: Optional[bool] = None,
         brownout_batch_cap: int = 32,
         brownout_dwell: float = 2.0,
+        # automatic prefix caching: a radix tree of up to prefix_cache
+        # block-aligned prompt-prefix runs over shared, refcounted pages
+        prefix_cache: Optional[int] = None,
+        prefix_block: int = 64,
+        prefix_cache_bytes: Optional[int] = None,
+        prefix_cache_pages: Optional[int] = None,
         **knobs,
     ):
         for name, value in knobs.items():
@@ -601,6 +625,29 @@ class LLMEngineCore:
             max_slots=self.max_batch, dtype=model.dtype,
             kv_quant=model.kv_quant, device=self.device,
         )
+        # automatic prefix caching (llm/prefix_cache.py): a hit maps the
+        # cached pages into the slot's page table by reference and only
+        # the tail prefills; storing a prompt takes references on the
+        # slot's own pages
+        self._prefix: Optional[RadixPrefixCache] = None
+        if prefix_cache:
+            pool = self.paged_cache.pool
+            # shared runs cover whole pages: a block ending mid-page would
+            # put a live slot's writes inside a shared page
+            block = -(-int(prefix_block) // pool.page_size) * pool.page_size
+            # a cached page's device bytes: K and V, and the scale rows on
+            # int8 pools
+            page_bytes = sum(self.paged_cache.pool_bytes().values()) // pool.num_pages
+            self._prefix = RadixPrefixCache(
+                int(prefix_cache), block, max_bytes=prefix_cache_bytes,
+                max_pages=prefix_cache_pages, pool=pool, page_bytes=page_bytes)
+        # a hit's tail prefills in segments of this many tokens
+        self._prefix_chunk = max(1, int(prefix_block))
+        # the runtime KV sanitizer (TPUSERVE_SANITIZE=1): page accounting
+        # audited after every loop step and at drain
+        self._sanitizer = (KVSanitizer(self.paged_cache.pool, self._prefix,
+                                       paged_cache=self.paged_cache)
+                           if sanitizer_enabled() else None)
         self._gen = torch.Generator(self.device)
         self._gen.manual_seed(int(rng_seed))
         # -- pipelined decode: the bounded in-flight queue, the slot-reuse
@@ -799,7 +846,17 @@ class LLMEngineCore:
         # set): without it, requests queue until pages free
         if self.max_pending is not None:
             pool = self.paged_cache.pool
-            if not pool.can_allocate(len(request.prompt_ids) + 1):
+            need_tokens = len(request.prompt_ids) + 1
+            if self._prefix is not None:
+                # a cached prefix maps in by reference: only the tail needs
+                # fresh pages
+                need_tokens -= self._prefix.match_len(request.prompt_ids)
+            saturated = not pool.can_allocate(need_tokens)
+            try:
+                faults.fire("engine.pool", request=request)
+            except faults.InjectedFault:
+                saturated = True
+            if saturated:
                 self._count_shed("pool", cls)
                 raise EngineOverloadedError(
                     "kv page pool saturated ({} free pages)".format(pool.free_pages),
@@ -840,7 +897,13 @@ class LLMEngineCore:
             signals["queue"] = min(2.0, self._pending.qsize() / float(self.max_pending))
         pool = self.paged_cache.pool
         usable = max(1, pool.num_pages - 1)  # page 0 is the null page
-        signals["pool"] = max(0.0, (usable - pool.free_pages) / usable)
+        headroom = pool.free_pages
+        if self._prefix is not None:
+            # as the reference: the cache's pages count as headroom, though
+            # its eviction runs only when a store or an unpin finds it over
+            # a budget, never for an allocation
+            headroom += self._prefix.cached_pages
+        signals["pool"] = max(0.0, (usable - headroom) / usable)
         c = self.counters
         deadlines = c["deadline_queue"] + c["deadline_ttft"] + c["deadline_total"]
         now = time.monotonic()
@@ -933,28 +996,40 @@ class LLMEngineCore:
         """Preempt the batch-lane request in ``slot``: requeue it with its
         whole history as the prompt, and with its KV pages, which leave the
         slot with it; the slot is quarantined while a chunk in flight still
-        decodes it. The stream stays open: the resume maps the pages back
-        and decodes on from the last token, so no prefill recomputes the
-        history (a bf16 prefill of a Llama-3-8B history through other
-        kernels than the decode steps that wrote its KV can change a later
-        token). The reference, without its prefix cache, prefills the
-        history again; with it, it replays the stored pages. False when
-        the ``engine.preempt`` seam aborted the preemption (the request
-        keeps decoding in its slot)."""
+        decodes it. With the prefix cache on, the history is first stored
+        by reference to the slot's pages, as the reference stores it. The
+        stream stays open: the resume maps the pages back and decodes on
+        from the last token, so no prefill recomputes the history (a bf16
+        prefill of a Llama-3-8B history through other kernels than the
+        decode steps that wrote its KV can change a later token). The
+        reference's resume looks its stored history up and prefills the
+        tail past the stored run; without a cache it prefills the whole
+        history. False when the ``engine.preempt`` seam aborted the
+        preemption (the request keeps decoding in its slot)."""
         request = self._slot_req[slot]
         if request is None:
             return False
+        history = list(request.prompt_ids) + [int(t) for t in request._gen_ids]
+        if self._prefix is not None:
+            # the reference's store of the history, by reference to the
+            # slot's pages, so other admissions can share it: block-aligned
+            # whole pages below len(history) - 1 only, which no chunk in
+            # flight writes (they write from the last emitted token on)
+            self._prefix.store_pages(history, 0, self.paged_cache.pool.slot_pages(slot))
         try:
             faults.fire("engine.preempt", request=request)
         except faults.InjectedFault:
+            # the store above is an admission commit's store: nothing leaks
             return False
         self.counters["preemptions"] += 1
         request._preempt_count += 1
-        request.prompt_ids = list(request.prompt_ids) + [int(t) for t in request._gen_ids]
+        request.prompt_ids = history
         request._gen_ids = []
         # the pages hold the KV of the history but its last token; a chunk
         # still in flight writes only past that, and the resume's first
-        # decode step rewrites it after that chunk on the same stream
+        # decode step rewrites it after that chunk on the same stream. The
+        # slot's references leave with them as pins (the stored run needs
+        # no pin_run: these references keep its pages)
         request._parked = self.paged_cache.pool.detach(slot)
         # the queue-wait budget restarts for the resume leg: time spent
         # generating must not count against it
@@ -1091,6 +1166,11 @@ class LLMEngineCore:
             "brownout": self._brownout_snapshot(),
             "watchdog_trips": self.counters["watchdog_trips"],
             "step_failures": self.counters["step_failures"],
+            # the radix prefix cache: hits, misses, hit_tokens, nodes,
+            # cached pages and bytes, evictions (None without the cache)
+            "prefix_cache": self._prefix.stats() if self._prefix is not None else None,
+            "cow_events": self.paged_cache.pool.cow_events,
+            "sanitizer": self._sanitizer.stats() if self._sanitizer is not None else None,
         }
 
     def health(self) -> dict:
@@ -1199,6 +1279,8 @@ class LLMEngineCore:
                 if not active.any() and not self._inflight and not self._prefill_jobs:
                     if self._pending.empty():
                         faults.fire("engine.drain")
+                        # drained: nothing owns pages but the prefix cache
+                        self._sanitize("drain", drained=True)
                         return  # drained; a new generate() restarts the loop
                     continue
                 # a watchdog trip (epoch bump) during this step makes the
@@ -1219,6 +1301,10 @@ class LLMEngineCore:
                         await self._decode_step(active, step_epoch)
                 except Exception as ex:
                     await self._handle_step_failure(ex, step_epoch)
+                # armed sanitizer: the page accounting after every step,
+                # failure recoveries included; a violation raises out of
+                # the loop
+                self._sanitize("decode-step")
                 await asyncio.sleep(0)  # let HTTP handlers interleave
             # stopped: wait out the chunks still writing pages, then free them
             await self._discard_pipeline()
@@ -1239,6 +1325,10 @@ class LLMEngineCore:
             self._recovering = False
             if self._stopped and self._watchdog_task is not None:
                 self._watchdog_task.cancel()
+
+    def _sanitize(self, where: str, drained: bool = False) -> None:
+        if self._sanitizer is not None:
+            self._sanitizer.check(where, drained=drained, inflight=len(self._inflight))
 
     def _on_stream(self, fn, *args):
         """Run ``fn`` on the engine's stream: a worker thread starts on the
@@ -1270,6 +1360,7 @@ class LLMEngineCore:
                     self._on_stream, self._prefill_into_slot, request, slot)
             except Exception as ex:
                 # a failed admission fails only its own request
+                self._release_prefix_hit(request)
                 self.paged_cache.pool.free(slot)
                 request.error = ex
                 request.out_queue.put_nowait(_FINISHED)
@@ -1291,6 +1382,7 @@ class LLMEngineCore:
                 request.out_queue.put_nowait(_FINISHED)
                 free.insert(0, slot)
                 continue
+            self._store_prompt(request, slot)
             self._activate_slot(request, slot, first_id)
             self._last_progress = time.monotonic()
 
@@ -1304,26 +1396,124 @@ class LLMEngineCore:
 
     def _prefill_into_slot(self, request: GenRequest, slot: int) -> int:
         """Worker thread: prefill the prompt at its bucket, write its K/V into
-        the slot's pages, sample the first token."""
+        the slot's pages, sample the first token. A prefix-cache hit
+        prefills only the tail over the gathered shared pages, then maps
+        those pages into the slot by reference and writes the tail's K/V
+        alone (``write_prompt_shared``); the lookup's pin drops once the
+        slot holds its own references."""
         t0 = time.perf_counter()
+        if faults.active():
+            faults.fire("engine.prefill", request=request)
         ids = request.prompt_ids
         n = len(ids)
-        bucket = shapes.bucket_for(n, self._buckets, self.max_seq_len)
-        tokens = torch.zeros((1, bucket), dtype=torch.long)
-        tokens[0, :n] = torch.as_tensor(ids, dtype=torch.long)
-        tokens = tokens.to(self.device)
-        seq_lens = torch.tensor([n], dtype=torch.int32, device=self.device)
-        last, cache = self.model.prefill(tokens, seq_lens)
-        scales = ()
-        if self.model.kv_quant:
-            scales = (cache["k_scale"][:, 0, :n], cache["v_scale"][:, 0, :n])
-        self.paged_cache.write_prompt(
-            slot, cache["k"][:, 0, :n], cache["v"][:, 0, :n], n, *scales
-        )
+        hit_result = self._prefix_admission(request) if self._prefix is not None else None
+        if hit_result is not None:
+            last, cache, plen = hit_result
+            hit, request._prefix_hit = request._prefix_hit, None
+            try:
+                self.paged_cache.write_prompt_shared(
+                    slot, hit["pages"], plen, cache["k"][:, 0, plen:n], cache["v"][:, 0, plen:n],
+                    n, *self._mini_scales(cache, plen, n))
+            finally:
+                self._prefix.release(hit)
+        else:
+            bucket = shapes.bucket_for(n, self._buckets, self.max_seq_len)
+            tokens = torch.zeros((1, bucket), dtype=torch.long)
+            tokens[0, :n] = torch.as_tensor(ids, dtype=torch.long)
+            tokens = tokens.to(self.device)
+            seq_lens = torch.tensor([n], dtype=torch.int32, device=self.device)
+            last, cache = self.model.prefill(tokens, seq_lens)
+            self.paged_cache.write_prompt(
+                slot, cache["k"][:, 0, :n], cache["v"][:, 0, :n], n,
+                *self._mini_scales(cache, 0, n))
         first_id = self._first_token(request, last)
         self.counters["prefills"] += 1
         self.counters["prefill_ms"] += (time.perf_counter() - t0) * 1e3
         return first_id
+
+    def _mini_scales(self, cache: dict, lo: int, hi: int) -> tuple:
+        """A mini cache's scale rows of positions [lo, hi) (int8 KV), else
+        nothing."""
+        if not self.model.kv_quant:
+            return ()
+        return cache["k_scale"][:, 0, lo:hi], cache["v_scale"][:, 0, lo:hi]
+
+    def _prefix_bucket(self, prefix_len: int, n_tokens: int) -> Optional[int]:
+        """The mini cache's bucket: the smallest prefill bucket covering the
+        prefix plus the tail's whole segments; None when none does."""
+        c2 = self._prefix_chunk
+        required = prefix_len + -(-(n_tokens - prefix_len) // c2) * c2
+        bucket = shapes.bucket_for(required, self._buckets, self.max_seq_len)
+        if bucket < required or bucket > self.max_seq_len:
+            return None
+        return bucket
+
+    def _prefix_admission(self, request: GenRequest):
+        """Worker thread, the two-dispatch hit path (the reference's
+        ``_prefix_admission_paged``): look the prompt up; on a hit, gather
+        its pinned shared pages into a dense mini cache of the bucket's
+        size (the page list padded with the null page 0, whose rows the
+        cache length masks) on the engine's stream, and prefill the tail
+        over it. Returns ``(last_logits, mini_cache, prefix_len)`` with the
+        pinned hit on ``request._prefix_hit``, or None: a miss, or a hit no
+        bucket fits, which recomputes cold and counts as a miss. The
+        gather reads shared pages while a decode chunk may be in flight on
+        the same stream; it writes none, and nobody writes a shared page."""
+        ids = request.prompt_ids
+        hit = self._prefix.lookup_pages(ids, 0)
+        if hit is None:
+            return None
+        try:
+            plen = hit["len"]
+            bucket = self._prefix_bucket(plen, len(ids))
+            page_size = self.paged_cache.pool.page_size
+            if bucket is None or bucket % page_size:
+                self._prefix.release(hit)
+                self._prefix.uncount_hit(hit)
+                return None
+            pages = list(hit["pages"]) + [0] * (bucket // page_size - len(hit["pages"]))
+            cache = self.paged_cache.gather_pages(pages)
+            cache["length"] = torch.tensor([plen], dtype=torch.int32, device=self.device)
+            last, cache = self._prefill_tail(cache, ids, plen)
+        except BaseException:
+            self._prefix.release(hit)  # a no-op after the release above
+            raise
+        request._prefix_hit = hit
+        return last, cache, plen
+
+    def _prefill_tail(self, cache: dict, ids: List[int], prefix_len: int):
+        """Prefill the tail of ``ids`` past ``prefix_len`` in segments of
+        ``prefix_block`` tokens through ``Llama.prefill_chunk``, each
+        attending over the mini cache so far; only the last segment
+        computes logits. Returns (last_logits, cache)."""
+        c2 = self._prefix_chunk
+        starts = list(range(prefix_len, len(ids), c2))
+        last = None
+        for si, s in enumerate(starts):
+            seg = ids[s:s + c2]
+            seg_tokens = torch.zeros((1, c2), dtype=torch.long)
+            seg_tokens[0, :len(seg)] = torch.as_tensor(seg, dtype=torch.long)
+            last, cache = self.model.prefill_chunk(
+                seg_tokens.to(self.device),
+                torch.tensor([s], dtype=torch.int32, device=self.device),
+                torch.tensor([len(seg) - 1], dtype=torch.int32, device=self.device),
+                cache, with_logits=si == len(starts) - 1)
+        return last, cache
+
+    def _release_prefix_hit(self, request: GenRequest) -> None:
+        """An admission failed before its commit mapped the hit: drop the
+        lookup's pin. No-op otherwise."""
+        hit, request._prefix_hit = request._prefix_hit, None
+        if hit is not None and self._prefix is not None:
+            self._prefix.release(hit)
+
+    def _store_prompt(self, request: GenRequest, slot: int) -> None:
+        """An admission's commit: the tree takes references on the slot's
+        own pages for the prompt's block-aligned prefix (blocks already
+        stored are only touched)."""
+        if self._prefix is not None:
+            self._prefix.store_pages(request.prompt_ids, 0,
+                                     self.paged_cache.pool.slot_pages(slot))
 
     def _first_token(self, request: GenRequest, last_logits: torch.Tensor) -> int:
         """A request's first token from its prompt's last logits [1, vocab]
@@ -1573,6 +1763,11 @@ class LLMEngineCore:
             except faults.InjectedFault:
                 self._give_back_extension(prep)
                 raise
+        # copy on write: _prepare_dispatch's extensions (loop thread) may
+        # have swapped shared pages for private ones; this worker enqueues
+        # their copies on the engine's stream ahead of the replay or the
+        # launches that write them, outside the graph
+        self.paged_cache.apply_pending_cow()
         noise = (None if prep["greedy"] else
                  gumbel_noise((n, self.max_batch, self.model.vocab_size), self._gen, self.device))
         if self._graphs is not None:
@@ -1839,7 +2034,13 @@ class LLMEngineCore:
     def _finish_slot(self, slot: int, request: GenRequest) -> None:
         request.out_queue.put_nowait(_FINISHED)
         self._slot_req[slot] = None
-        self._free_slot_pages(slot)
+        try:
+            # chaos seam: a raise models a teardown that loses the slot's
+            # page references; the armed sanitizer names them at drain
+            faults.fire("engine.release", request=request)
+            self._free_slot_pages(slot)
+        except faults.InjectedFault:
+            pass
 
     def _emit(self, slot: int, token_id: int) -> None:
         request = self._slot_req[slot]
@@ -1877,11 +2078,14 @@ class LLMEngineCore:
 
     def _ragged_admission(self) -> None:
         """Admission into free slots under the ragged scheduler, in the
-        queue's class order: each request opens a job at prompt position 0
-        whose prompt rides the loop's launches as chunk rows (the
-        reference's ``_ragged_admission_task`` and ``_start_ragged_job``;
-        this slice has no worker-thread preparation and no prefix cache,
-        so the job opens at once)."""
+        queue's class order: each request opens a job whose prompt rides
+        the loop's launches as chunk rows (the reference's
+        ``_ragged_admission_task`` and ``_start_ragged_job``; the port has
+        no worker-thread preparation, so the job opens at once, and the
+        ``engine.prefill`` seam fires here). A prefix-cache hit maps its
+        shared pages into the slot by reference and opens the job at the
+        prefix's end: its chunk rows read the mapped pages through the
+        ragged kernel, and only the tail gets new pages."""
         free = [i for i, r in enumerate(self._slot_req)
                 if r is None and i not in self._admitting and i not in self._quarantine]
         while free and not self._pending.empty() and not self._stopped:
@@ -1894,9 +2098,40 @@ class LLMEngineCore:
             if request._parked is not None:
                 self._resume_slot(request, slot)
                 continue
+            try:
+                pos = self._start_ragged_job(request, slot)
+            except Exception as ex:
+                self.paged_cache.pool.free(slot)
+                request.error = ex
+                request.out_queue.put_nowait(_FINISHED)
+                free.insert(0, slot)
+                continue
             self._admitting.add(slot)
-            self._prefill_jobs.append(_RaggedJob(request=request, slot=slot))
+            self._prefill_jobs.append(_RaggedJob(request=request, slot=slot, pos=pos))
             self._last_progress = time.monotonic()
+
+    def _start_ragged_job(self, request: GenRequest, slot: int) -> int:
+        """The prompt position a ragged job opens at: a prefix-cache hit
+        whose run is page-aligned and leaves a tail is mapped into the
+        empty ``slot`` (``map_shared``) and the job starts past it; any
+        other hit recomputes cold and counts as a miss."""
+        if faults.active():
+            faults.fire("engine.prefill", request=request)
+        if self._prefix is None:
+            return 0
+        hit = self._prefix.lookup_pages(request.prompt_ids, 0)
+        if hit is None:
+            return 0
+        try:
+            plen = hit["len"]
+            if 0 < plen < len(request.prompt_ids) and plen % self.paged_cache.pool.page_size == 0:
+                self.paged_cache.pool.map_shared(slot, list(hit["pages"]), plen)
+                return plen
+            self._prefix.uncount_hit(hit)
+            return 0
+        finally:
+            # the slot holds its own references now (or none)
+            self._prefix.release(hit)
 
     def _fail_ragged_job(self, job: _RaggedJob, err: Optional[BaseException]) -> None:
         """Fail one in-progress admission (err None = cancelled): free its
@@ -1907,6 +2142,8 @@ class LLMEngineCore:
         if err is not None:
             job.request.error = err
         job.request.out_queue.put_nowait(_FINISHED)
+        # a job's slot table is authoritative: the free drops its mapped
+        # shared pages' references with the rest
         self.paged_cache.pool.free(job.slot)
 
     def _sweep_ragged_jobs(self) -> None:
@@ -2263,6 +2500,10 @@ class LLMEngineCore:
                     pool.token_coords(slot, int(plan["pre_lens"][slot]), n)):
                 wp_host[s + i] = page
                 wo_host[s + i] = offset
+        # copy on write: an extension above may have swapped a shared page
+        # for a private one; its copy is enqueued on the engine's stream
+        # (this worker's) before the launch that writes it
+        self.paged_cache.apply_pending_cow()
         launch_steps = plan["launch_steps"]
         spec_any = plan["spec_mask"] | plan["sspec_mask"]
         if launch_steps > 1:
@@ -2469,5 +2710,7 @@ class LLMEngineCore:
                 continue
             row = result["finish_rows"].index(job.slot)
             first_id = self._first_token(request, result["logits"][row:row + 1])
+            # the slot's own pages now hold the whole prompt's K/V
+            self._store_prompt(request, job.slot)
             self._activate_slot(request, job.slot, first_id)
         self._last_progress = time.monotonic()

@@ -11,6 +11,18 @@ Points (the context each carries):
 - ``engine.admit.class``  inside ``check_admission``'s class-aware path
                           (``request``); a raise forces a class-policy 429
                           carrying the request's class.
+- ``engine.pool``         inside ``check_admission``'s pool-headroom check
+                          with ``max_pending`` set (``request``); a raise
+                          reads the pool as saturated: a 429 booked under
+                          ``pool``.
+- ``engine.prefill``      at the start of an admission (``request``): in the
+                          two-dispatch prefill worker, or on the loop
+                          thread as a ragged job opens; a raise fails that
+                          admission only, ``delay`` is a slow one.
+- ``engine.release``      on the loop thread where a finished request's
+                          slot gives its pages back (``request``); a raise
+                          skips the free, a lost release that the armed KV
+                          sanitizer names at drain.
 - ``engine.decode``       in the decode-chunk dispatch worker, before the
                           device call (``requests``); ``match_token`` fails
                           only the matched request, ``delay`` is a slow
@@ -57,6 +69,9 @@ from typing import Any, List, Optional
 KNOWN_POINTS = frozenset({
     "engine.admit",
     "engine.admit.class",
+    "engine.pool",
+    "engine.prefill",
+    "engine.release",
     "engine.decode",
     "engine.decode.stall",
     "engine.decode.retire",

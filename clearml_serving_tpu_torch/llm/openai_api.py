@@ -8,7 +8,10 @@ Counterpart of ``clearml_serving_tpu/llm/openai_api.py``'s
 ``step_token_budget``, ``ragged_decode_steps``, ``speculation``,
 ``spec_k``, ``spec_ngram``, ``spec_sampling``, ``spec_tree``,
 ``spec_branch``, ``weight_quant`` and its legacy alias ``quantize``,
-``seed``; ``warmup``, which ``warmup_mode`` reads for the endpoint; the
+``seed``; the prefix cache's ``prefix_cache``, ``prefix_block``,
+``prefix_cache_mb`` and ``prefix_cache_pages`` (its host-RAM tier's
+``prefix_cache_host_pages`` and ``prefix_cache_host_mb`` raise, naming
+themselves); ``warmup``, which ``warmup_mode`` reads for the endpoint; the
 request lifecycle's ``max_pending``, ``queue_timeout``, ``ttft_timeout``,
 ``timeout``, ``watchdog_interval``, ``preemption``, ``preempt_budget``,
 ``starvation_floor``, ``brownout``, ``brownout_batch_cap``,
@@ -53,7 +56,10 @@ ENGINE_KEYS = (
     "max_pending", "queue_timeout", "ttft_timeout", "timeout", "watchdog_interval",
     "preemption", "preempt_budget", "starvation_floor", "brownout",
     "brownout_batch_cap", "brownout_dwell", "default_priority",
+    "prefix_cache", "prefix_block", "prefix_cache_mb", "prefix_cache_pages",
 )
+# the reference's host-RAM KV tier behind the prefix cache: not ported yet
+HOST_TIER_KEYS = ("prefix_cache_host_pages", "prefix_cache_host_mb")
 
 CHAT_FIELDS = (
     "model", "messages", "max_tokens", "max_completion_tokens", "temperature",
@@ -73,9 +79,8 @@ def _gen_id(prefix: str) -> str:
 def warmup_mode(engine_cfg: Dict[str, Any]) -> str:
     """The aux ``engine.warmup`` knob as the reference reads it: "off"
     (the default) or "startup" (``llm/warmup.py``); a typo raises naming
-    the knob. The reference's "full" adds steps for the prefix cache and
-    the ragged variants, which the port does not have yet, so it raises
-    too."""
+    the knob. The reference's "full" adds the compiled ragged launch
+    variants, which the port does not have yet, so it raises too."""
     mode = str(engine_cfg.get("warmup", "off")).lower()
     if mode in ("1", "true", "on"):
         mode = "startup"
@@ -86,7 +91,7 @@ def warmup_mode(engine_cfg: Dict[str, Any]) -> str:
             engine_cfg.get("warmup")))
     if mode == "full":
         raise ValueError("aux engine.warmup 'full' is not supported by the PyTorch port yet "
-                         "(its prefix-cache and ragged steps are not ported): use 'startup'")
+                         "(its ragged launch variants are not ported): use 'startup'")
     return mode
 
 
@@ -120,7 +125,12 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     already-packed tree it must name the tree's format. ``cuda_graphs=False``
     builds the eager arm (``LLMEngineCore``'s argument; no aux key sets
     it)."""
-    unknown = sorted(k for k in engine_cfg if k not in ENGINE_KEYS)
+    for key in HOST_TIER_KEYS:
+        if engine_cfg.get(key):
+            raise ValueError(
+                "aux engine.{} is not supported by the PyTorch port yet (the host-RAM "
+                "KV tier behind the prefix cache)".format(key))
+    unknown = sorted(k for k in engine_cfg if k not in ENGINE_KEYS + HOST_TIER_KEYS)
     if unknown:
         raise ValueError(
             "aux engine keys {} are not supported by the PyTorch port yet".format(unknown)
@@ -224,6 +234,17 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
         brownout=bool(engine_cfg["brownout"]) if "brownout" in engine_cfg else None,
         brownout_batch_cap=int(engine_cfg.get("brownout_batch_cap", 32)),
         brownout_dwell=float(engine_cfg.get("brownout_dwell", 2.0)),
+        # automatic prefix caching over shared, refcounted pages
+        prefix_cache=engine_cfg.get("prefix_cache"),
+        prefix_block=int(engine_cfg.get("prefix_block", 64)),
+        prefix_cache_bytes=(
+            int(float(engine_cfg["prefix_cache_mb"]) * (1 << 20))
+            if engine_cfg.get("prefix_cache_mb") else None
+        ),
+        prefix_cache_pages=(
+            int(engine_cfg["prefix_cache_pages"])
+            if engine_cfg.get("prefix_cache_pages") else None
+        ),
     )
     return engine, tokenizer
 

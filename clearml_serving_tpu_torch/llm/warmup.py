@@ -10,11 +10,15 @@ port serves:
 - the CUDA-graph capture of each decode-chunk variant (greedy, sampled),
   each preceded by one eager chunk over null rows;
 - one cold prefill per prefill bucket (and the implicit ``max_seq_len``
-  bucket past the last configured one), each with one decode chunk.
+  bucket past the last configured one), each with one decode chunk;
+- with the prefix cache on, the reference's startup subset instead
+  (``warmup_plan(full=False)``): per bucket a cold prompt whose
+  block-aligned head is stored, then a second prompt with the same head
+  that hits it (the gather and the tail's ``prefill_chunk`` segments).
 
-The reference's radix-hit, resume-tail, copy-on-write, transport and
-ragged-variant steps have nothing to warm here: the prefix cache and the
-fleet are not ported, and ragged launches run eagerly.
+The reference's full sweep (resume tails, copy-on-write and transport
+steps, the ragged variants) stays out: ragged launches run eagerly, and
+the host tier and the fleet are not ported.
 """
 
 from __future__ import annotations
@@ -31,11 +35,14 @@ def _ids(seed: int, n: int, vocab: int) -> List[int]:
 
 def warmup_plan(engine) -> List[Dict[str, Any]]:
     """The warmup request sweep for this engine's configuration: a list of
-    ``{"prompt_ids", "max_new_tokens"}`` specs in order."""
+    ``{"prompt_ids", "max_new_tokens"}`` specs in order (a pair's cold
+    prompt stores the head its second prompt hits)."""
     vocab = max(engine.model.vocab_size, 8)
     buckets = list(engine._buckets)
     if buckets[-1] < engine.max_seq_len:
         buckets.append(engine.max_seq_len)
+    if engine._prefix is not None:
+        return _prefix_pairs(engine, buckets, vocab)
     plan = []
     for b in buckets:
         # the longest prompt of bucket b that leaves room for a second
@@ -69,3 +76,23 @@ async def run_warmup(engine) -> Dict[str, Any]:
         engine._warming = False
     return {"requests": len(plan),
             "graph_captures": engine.counters["graph_captures"] - captures}
+
+
+def _prefix_pairs(engine, buckets: List[int], vocab: int) -> List[Dict[str, Any]]:
+    """The reference's ``warmup_plan(full=False)`` with a prefix cache: per
+    bucket, the largest block-aligned head that leaves room for a sub-block
+    tail in the bucket, then two tails after it (cold + store, then the
+    hit); a bucket too small for a head gets one cold prompt."""
+    block = engine._prefix.block
+    lim = max(2, min(250, vocab - 2))
+    plan = []
+    for b in buckets:
+        p = ((b - block) // block) * block if b > block else 0
+        head = _ids(b, p, vocab)
+        for rep in range(2 if p else 1):
+            tail = [(rep * 37 + j * 5 + b) % lim + 1
+                    for j in range(max(1, min(b - p, block) - 1))]
+            ids = head + tail
+            if 0 < len(ids) < engine.max_seq_len:
+                plan.append({"prompt_ids": ids, "max_new_tokens": 2})
+    return plan

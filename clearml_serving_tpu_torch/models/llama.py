@@ -1,10 +1,11 @@
-"""Llama-3-family decoder in PyTorch: the prefill, paged-decode and ragged
-mixed-batch paths.
+"""Llama-3-family decoder in PyTorch: the prefill, chunked-prefill,
+paged-decode and ragged mixed-batch paths.
 
 Counterpart of ``clearml_serving_tpu/models/llama.py``. The math follows the
 reference function by function (``_rms_norm``, ``_rope``, ``_qkv``,
 ``_attend``, ``_ffn_dense``, ``_logits``, ``_block``, ``_kv_store``,
-``prefill``, ``decode_paged``, ``forward_ragged``), and so does the
+``_kv_load``, ``prefill``, ``prefill_chunk``,
+``decode_paged``, ``forward_ragged``), and so does the
 parameter layout: weights
 are ``[in, out]`` so ``x @ w`` reads the same on both sides, and
 ``convert_params`` carries a JAX parameter tree (as numpy arrays) over
@@ -19,8 +20,8 @@ then ``torch.matmul``. LoRA, MoE, soft-capping, Gemma-family deltas and
 RoPE scaling raise here; they arrive with later slices of the port.
 
 ``decode_paged`` and ``forward_ragged`` write the new tokens' K/V into the
-pools in place (``index_put_``), where the JAX functions return rebound pool
-arrays.
+pools in place (``index_put_``), and ``prefill_chunk`` into its dense mini
+cache, where the JAX functions return rebound arrays.
 """
 
 from __future__ import annotations
@@ -379,6 +380,70 @@ class Llama(nn.Module):
         if self.kv_quant:
             cache["k_scale"] = k_s
             cache["v_scale"] = v_s
+        return last, cache
+
+    def _kv_load(self, stored, scale):
+        if scale is None:
+            return stored
+        return (stored.float() * scale[..., None]).to(self.dtype)
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens, start, last_rel, cache, *, with_logits: bool = True,
+                      lora_idx=None):
+        """Incremental prefill (the reference's ``prefill_chunk`` and its
+        layer loop ``_cached_chunk_layers``): ``tokens`` [B, C] at absolute
+        positions ``start`` [B] .. ``start + C`` write their stored K/V
+        (and int8 scales) into the dense mini ``cache`` (updated in place:
+        ``k``/``v`` [L, B, S, Hkv, D] in the stored dtype, int8 under
+        ``kv_quant`` with f32 ``k_scale``/``v_scale`` [L, B, S, Hkv], and
+        ``length`` [B]) and attend causally over everything
+        before them in it plus the chunk itself, through the stored (under
+        ``kv_quant``, dequantized) K/V. Returns ``(last, cache)``: the
+        logits [B, vocab] f32 at relative index ``last_rel`` [B] (zeros
+        [B, 1] without ``with_logits``: a non-final chunk skips the
+        lm_head) and the cache with ``length = max(length, start +
+        last_rel + 1)``. A prefix-cache hit prefills its tail this way over
+        the gathered shared pages."""
+        if lora_idx is not None:
+            raise NotImplementedError(
+                "prefill_chunk lora_idx: LoRA arrives with the secondary-paths slice "
+                "of the port")
+        b, c = tokens.shape
+        dev = tokens.device
+        start = start.to(dev).long()
+        positions = start[:, None] + torch.arange(c, device=dev)[None]   # [B, C]
+        max_len = cache["k"].shape[2]
+        visible = torch.arange(max_len, device=dev)[None, None, :] <= positions[:, :, None]
+        mask = torch.zeros(visible.shape, dtype=torch.float32, device=dev)
+        mask = mask.masked_fill(~visible, float("-inf"))[:, None]      # [B, 1, C, T]
+        cos, sin = rope(positions, self.head_dim, self.theta)
+        rows = torch.arange(b, device=dev)[:, None]
+        x = self.embed[tokens]
+        for li, layer in enumerate(self.layers):
+            def attn(h, li=li, layer=layer):
+                q, k, v = self._qkv(layer, h, cos, sin)
+                k_q, k_s = kv_store(k, self.kv_quant, self.dtype)
+                v_q, v_s = kv_store(v, self.kv_quant, self.dtype)
+                k_c, v_c = cache["k"][li], cache["v"][li]             # [B, T, Hkv, D]
+                k_c[rows, positions] = k_q.to(k_c.dtype)
+                v_c[rows, positions] = v_q.to(v_c.dtype)
+                k_sc = v_sc = None
+                if self.kv_quant:
+                    k_sc, v_sc = cache["k_scale"][li], cache["v_scale"][li]
+                    k_sc[rows, positions] = k_s
+                    v_sc[rows, positions] = v_s
+                return self._attend(q, self._kv_load(k_c, k_sc), self._kv_load(v_c, v_sc),
+                                    mask)
+
+            x = self._block(layer, x, attn)
+        last_rel = last_rel.to(dev).long()
+        if with_logits:
+            last_x = x[torch.arange(b, device=dev), last_rel.clamp(0, c - 1)][:, None]
+            last = self._logits(last_x)[:, 0]
+        else:
+            last = torch.zeros((b, 1), dtype=torch.float32, device=dev)
+        cache["length"] = torch.maximum(cache["length"].to(dev).long(),
+                                        start + last_rel + 1).to(torch.int32)
         return last, cache
 
     @torch.no_grad()

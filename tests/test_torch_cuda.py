@@ -1084,3 +1084,113 @@ def test_greedy_stream_is_bitwise_equal_across_a_preemption(cuda):
     pool = engine.paged_cache.pool
     assert pool.free_pages == pool.num_pages - 1
     engine.stop()
+
+
+# -- the prefix cache: shared pages, copy on write ---------------------------------
+
+def _random_cache(dev, kv_quant, num_pages=12, page_size=16):
+    from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
+
+    cache = PagedKVCache(2, 4, 64, num_pages=num_pages, page_size=page_size, max_slots=3,
+                         dtype=torch.bfloat16, kv_quant=kv_quant, device=dev)
+    gen = torch.Generator(dev).manual_seed(11)
+    if kv_quant:
+        cache.k.copy_(torch.randint(-127, 128, cache.k.shape, generator=gen, device=dev))
+        cache.v.copy_(torch.randint(-127, 128, cache.v.shape, generator=gen, device=dev))
+        cache.k_scale.copy_(torch.rand(cache.k_scale.shape, generator=gen, device=dev))
+        cache.v_scale.copy_(torch.rand(cache.v_scale.shape, generator=gen, device=dev))
+    else:
+        cache.k.copy_(torch.randn(cache.k.shape, generator=gen, device=dev))
+        cache.v.copy_(torch.randn(cache.v.shape, generator=gen, device=dev))
+    return cache
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8"])
+def test_cow_device_copy_equals_a_host_copy(cuda, kv_quant):
+    """Two slots whose tail pages are shared extend into them: the pool
+    swaps in private pages, and ``apply_pending_cow`` copies the data
+    planes (and the int8 scale rows) on the card; every pool equals the
+    same copies made on the host, bit for bit."""
+    cache = _random_cache(cuda, kv_quant)
+    pool = cache.pool
+    for slot, length in ((0, 21), (1, 40)):
+        pool.allocate(slot, length)
+        pool.ref_pages(pool.slot_pages(slot)[-1:])   # the tail page is shared
+        pool.extend(slot, 1)
+    assert pool.cow_events == 2
+    pairs = list(pool._pending_cow)
+    host = [t.cpu().clone() for t in _pools(cache)]
+    for t in host:
+        for src, dst in pairs:
+            t[:, :, dst] = t[:, :, src]
+    assert cache.apply_pending_cow() == 2
+    torch.cuda.synchronize()
+    for got, want in zip(_pools(cache), host):
+        assert torch.equal(got.cpu(), want)
+    assert pool.drain_pending_cow() == []
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8"])
+def test_gather_of_shared_pages_equals_plain_indexing(cuda, kv_quant):
+    """``gather_pages`` (a hit's dense mini cache, the page list padded
+    with the null page) against token-by-token indexing of the pools."""
+    cache = _random_cache(cuda, kv_quant)
+    pages = [7, 3, 9, 0, 0]
+    got = cache.gather_pages(pages)
+    p = cache.pool.page_size
+    for name, pool in zip(("k", "v", "k_scale", "v_scale"), _pools(cache)):
+        want = torch.stack([pool[:, :, pages[t // p], t % p] for t in range(len(pages) * p)],
+                           dim=1).unsqueeze(1)                    # [L, 1, S, Hkv(, D)]
+        assert torch.equal(got[name], want)
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8"])
+def test_hit_slot_decode_chunks_replayed_equal_eager(cuda, kv_quant):
+    """A prefix-cache engine with graphs against the eager one
+    (``cuda_graphs=False``), depth 2: a cold chat stores a 64-token head,
+    then two chats hit it and decode with the shared pages in their page
+    tables. The streams and every pool page but the null page are equal
+    bit for bit, the hits mapped the stored page ids, and each engine gets
+    every page back once the cache is emptied."""
+    model = _small_model(cuda, kv_quant)
+    page = 32 if kv_quant else 16
+    kw = dict(LIFECYCLE_KW, page_size=page, prefix_cache=16, prefix_block=64)
+    head = [(i * 7 + 3) % 250 + 1 for i in range(64)]
+    prompts = [head + [5, 6, 7], head + list(range(20, 41)), head + [99] * 9]
+
+    def run(graphs):
+        engine = LLMEngineCore(model, cuda_graphs=graphs, **kw)
+        paged_attention.launches = 0
+
+        async def go():
+            first = await _stream(engine, GenRequest(prompt_ids=prompts[0], max_new_tokens=12))
+            rest = await asyncio.gather(*(_stream(engine, GenRequest(prompt_ids=p,
+                                                                     max_new_tokens=12))
+                                          for p in prompts[1:]))
+            await engine.wait_drained()
+            return [first] + list(rest)
+
+        streams = asyncio.run(asyncio.wait_for(go(), 120))
+        stats = engine._prefix.stats()
+        assert (stats["hits"], stats["misses"], stats["hit_tokens"]) == (2, 1, 128)
+        assert paged_attention.launches == model.n_layers * engine.counters["decode_steps"]
+        pools = [t[:, :, 1:].clone() for t in _pools(engine.paged_cache)]
+        hit = engine._prefix.lookup_pages(head + [1], 0)
+        run_pages = list(hit["pages"])
+        engine._prefix.release(hit)
+        engine._prefix.max_nodes = 0
+        with engine._prefix._lock:
+            engine._prefix._evict_over_budget()
+        pool = engine.paged_cache.pool
+        assert pool.free_pages == pool.num_pages - 1
+        assert engine.counters["graph_replays"] == (engine.counters["decode_chunks"]
+                                                    if graphs else 0)
+        engine.stop()
+        return streams, pools, run_pages
+
+    g_streams, g_pools, g_pages = run(True)
+    e_streams, e_pools, e_pages = run(False)
+    assert g_streams == e_streams and all(len(s) == 12 for s in g_streams)
+    assert g_pages == e_pages and len(g_pages) == 64 // page
+    for got, want in zip(g_pools, e_pools):
+        assert torch.equal(got, want)

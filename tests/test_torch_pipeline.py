@@ -353,8 +353,8 @@ def test_warmup_sweep_runs_every_bucket(tiny_np):
 
 def test_warmup_aux_knob(tiny_np):
     """Aux ``engine.warmup``: a typo fails at load naming the knob (the
-    reference's words), and so does "full" (its extra steps are not
-    ported); with "startup" the first requests share one warmup
+    reference's words), and so does "full" (its ragged launch variants are
+    not ported); with "startup" the first requests share one warmup
     sweep before they are served, and the content equals an unwarmed
     endpoint's."""
     from aiohttp.test_utils import TestClient, TestServer
@@ -368,7 +368,8 @@ def test_warmup_aux_knob(tiny_np):
     with pytest.raises(ValueError, match="aux engine.warmup must be off/startup/full"):
         build_engine(dict(cfg, warmup="sometimes"), device="cpu",
                      params=convert_params(tiny_np, device="cpu"))
-    with pytest.raises(ValueError, match="aux engine.warmup 'full' is not supported"):
+    with pytest.raises(ValueError, match="aux engine.warmup 'full' is not supported.*"
+                                         "ragged launch variants"):
         build_engine(dict(cfg, warmup="full"), device="cpu",
                      params=convert_params(tiny_np, device="cpu"))
     assert [warmup_mode(c) for c in ({}, {"warmup": "on"}, {"warmup": False},
