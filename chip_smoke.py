@@ -110,6 +110,27 @@ exits non-zero before the result lines are printed:
    logits (gathered pages + ``prefill_chunk``) within 5% of the cold
    prefill's. Prints TTFT and prefill time cold and hit, ragged steps per
    hit admission, pages saved and ``cow_events``.
+9. the prefix cache's host-RAM tier and the ownership ledger: Llama-3-8B at
+   full width (max_batch 8, max_seq_len 2048, page_size 16, ``prefix_cache``
+   256, ``prefix_block`` 64), the KV sanitizer and ``TPUSERVE_LEDGER=strict``
+   armed, each engine warmed up: six 1024-token heads, one chat each (a
+   40-200-token tail, 32 tokens, greedy), twice. Arms: A two-dispatch at
+   depth 2 with graphs, bf16 KV, ``prefix_cache_pages`` 512, no tier; B the
+   same with ``prefix_cache_pages`` 128 over ``prefix_cache_host_pages``
+   512 (round 1 demotes, round 2 promotes every head from host RAM); C0 and
+   C the pair on int8 KV; D0 and D the pair under ``scheduler: ragged``
+   (budget 256). Each tiered arm's contents equal its tierless twin's;
+   every promoted page's K/V and scale rows equal a clone taken before its
+   demotion; the lookups' tiers and lengths, demotions and promotions equal
+   ``TIER_EXPECTED`` (the reference's cache over the same sequence, held by
+   ``tests/test_torch_kv_tiering.py``); every promotion reaped by drain, 0
+   sanitizer failures, no drain-zero ledger entry outstanding, no capture
+   while serving, the kernels' launches per step. Prints TTFT and prefill
+   time of cold admissions, HBM hits and host hits, the promotions' total
+   time and overlap, a 64-page demotion and promotion (bf16, int8) beside
+   a pinned-to-device and a device-to-pinned ``copy_`` of the same bytes,
+   the tier's pinned allocation time and the page count ``"auto"`` picks on
+   the machine.
 
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, and the ragged kernel's tree variant) and
@@ -2762,6 +2783,477 @@ def phase_prefix_cache(params, card: str, preset: str = "llama3-8b") -> dict:
     return out
 
 
+# -- phase 9: the host-RAM KV tier and the ownership ledger -------------------------
+
+TIER_HEADS = 6
+TIER_HEAD = 1024
+TIER_MAX_TOKENS = 32
+TIER_BASE = {"prefix_cache": 256, "prefix_block": 64}
+TIER_UNTIERED = dict(TIER_BASE, prefix_cache_pages=512)
+TIER_TIERED = dict(TIER_BASE, prefix_cache_pages=128, prefix_cache_host_pages=512)
+# (arm, kv, knobs, the arm whose contents it must equal, clone check): A
+# two-dispatch at depth 2 with graphs, bf16 KV, no tier; B the same with a
+# 128-page device budget over a 512-page host tier; C0 and C the pair on
+# int8 KV; D0 and D the pair under the ragged scheduler (budget 256). A
+# tiered arm serves the same bytes as its tierless twin, so their contents
+# must be equal. B, C and D clone every demoted and promoted page for the
+# bitwise check (device copies on the engine's stream); Bt is B without
+# the clones, the arm whose times are the tier's
+TIER_ARMS = [("A", "", dict(TIER_UNTIERED, pipeline_depth=2), None, False),
+             ("B", "", dict(TIER_TIERED, pipeline_depth=2), "A", True),
+             ("Bt", "", dict(TIER_TIERED, pipeline_depth=2), "A", False),
+             ("C0", "int8", dict(TIER_UNTIERED, pipeline_depth=2), None, False),
+             ("C", "int8", dict(TIER_TIERED, pipeline_depth=2), "C0", True),
+             ("D0", "", dict(TIER_UNTIERED, **RAGGED_KNOBS), None, False),
+             ("D", "", dict(TIER_TIERED, **RAGGED_KNOBS), "D0", True)]
+# one page's bytes at Llama-3-8B width (K and V of 32 layers x 8 KV heads x
+# 16 tokens x 128; int8 pools add f32 scale rows), device and host alike
+TIER_PAGE_BYTES = {"": 2 * 32 * 8 * 16 * 128 * 2, "int8": 2 * 32 * 8 * 16 * (128 + 4)}
+LLAMA3_VOCAB = 128256
+TIER_STATS = ("hits", "misses", "hit_tokens", "hits_by_tier", "demotions", "promotions",
+              "evictions", "nodes", "cached_pages", "host_nodes", "host_pages")
+# what the reference's RadixPrefixCache gives for phase 9's sequence of
+# lookups and stores (``tier_replay`` over ``tier_warmup_prompts()`` and
+# ``tier_traffic()``) at the arms' budgets: the stats after the warmup
+# sweep, each chat's hit (tier, length), the stats at the end.
+# tests/test_torch_kv_tiering.py replays the sequence through the
+# reference's cache and the port's and holds both to these numbers
+TIER_EXPECTED = {
+    "untiered": {
+        "warmup": {"hits": 5, "misses": 7, "hit_tokens": 3648,
+                   "hits_by_tier": {"hbm": 5, "host": 0}, "demotions": 0, "promotions": 0,
+                   "evictions": 0, "nodes": 57, "cached_pages": 228, "host_nodes": 0,
+                   "host_pages": 0},
+        "traffic": [["miss", 0]] * TIER_HEADS + [["hbm", TIER_HEAD]] * TIER_HEADS,
+        "end": {"hits": 11, "misses": 13, "hit_tokens": 9792,
+                "hits_by_tier": {"hbm": 11, "host": 0}, "demotions": 0, "promotions": 0,
+                "evictions": 44, "nodes": 128, "cached_pages": 512, "host_nodes": 0,
+                "host_pages": 0},
+    },
+    "tiered": {
+        "warmup": {"hits": 5, "misses": 7, "hit_tokens": 3648,
+                   "hits_by_tier": {"hbm": 5, "host": 0}, "demotions": 1, "promotions": 0,
+                   "evictions": 0, "nodes": 57, "cached_pages": 128, "host_nodes": 25,
+                   "host_pages": 100},
+        "traffic": [["miss", 0]] * TIER_HEADS + [["host", TIER_HEAD]] * TIER_HEADS,
+        "end": {"hits": 11, "misses": 13, "hit_tokens": 9792,
+                "hits_by_tier": {"hbm": 5, "host": 6}, "demotions": 13, "promotions": 6,
+                "evictions": 12, "nodes": 160, "cached_pages": 128, "host_nodes": 128,
+                "host_pages": 512},
+    },
+}
+
+
+def tier_traffic(seed: int = 0):
+    """Six distinct 1024-token heads (system prompts with few-shot
+    examples) and two rounds of one chat per head, each with its own
+    40-200-token tail (its first token differs from every other tail's),
+    token ids from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    heads = [torch.randint(1, 256, (TIER_HEAD,), generator=gen).tolist()
+             for _ in range(TIER_HEADS)]
+    rounds = []
+    for r in range(2):
+        lengths = torch.randint(40, 201, (TIER_HEADS,), generator=gen).tolist()
+        rounds.append([head + [240 + TIER_HEADS * r + i]
+                       + torch.randint(1, 256, (n - 1,), generator=gen).tolist()
+                       for i, (head, n) in enumerate(zip(heads, lengths))])
+    return heads, rounds
+
+
+def tier_warmup_prompts():
+    """The prompts of the warmup sweep (``llm/warmup.py``'s cold-then-hit
+    pairs) of phase 9's engines: Llama-3-8B's vocabulary, max_seq_len 2048,
+    the default prefill buckets, prefix_block 64."""
+    from types import SimpleNamespace
+
+    from clearml_serving_tpu_torch.llm import shapes, warmup
+
+    engine = SimpleNamespace(model=SimpleNamespace(vocab_size=LLAMA3_VOCAB),
+                             _buckets=shapes.prefill_buckets(None, 2048), max_seq_len=2048,
+                             _prefix=SimpleNamespace(block=TIER_BASE["prefix_block"]))
+    return [spec["prompt_ids"] for spec in warmup.warmup_plan(engine)]
+
+
+def tier_stats(cache) -> dict:
+    stats = cache.stats()
+    return {key: stats[key] for key in TIER_STATS}
+
+
+def tier_outcome(before: dict, after: dict) -> list:
+    """One chat's lookup from the cache's stats around it: ["miss", 0] or
+    [tier, hit length]."""
+    if after["misses"] > before["misses"]:
+        return ["miss", 0]
+    tier = "host" if after["hits_by_tier"]["host"] > before["hits_by_tier"]["host"] else "hbm"
+    return [tier, after["hit_tokens"] - before["hit_tokens"]]
+
+
+def tier_replay(pool, cache, warm, traffic) -> dict:
+    """Drive a ``RadixPrefixCache`` over ``pool`` (either package's) through
+    the calls an engine makes for prompts served one after another:
+    admission control's ``match_len``, the admission's lookup (a hit's
+    pages mapped into the slot, then its pin dropped), the commit's store
+    of the slot's pages. Returns the stats after ``warm``, each prompt of
+    ``traffic``'s outcome, and the stats at the end."""
+    def one(ids):
+        before = tier_stats(cache)
+        cache.match_len(ids)
+        hit = cache.lookup_pages(ids, 0)
+        pool.free(0)
+        if hit is not None:
+            pool.map_shared(0, list(hit["pages"]), hit["len"])
+            cache.release(hit)
+        pool.allocate(0, len(ids))
+        cache.store_pages(ids, 0, pool.slot_pages(0))
+        pool.free(0)
+        return tier_outcome(before, tier_stats(cache))
+
+    for ids in warm:
+        one(ids)
+    after_warm = tier_stats(cache)
+    outcomes = [one(ids) for ids in traffic]
+    return {"warmup": after_warm, "traffic": outcomes, "end": tier_stats(cache)}
+
+
+def hook_tier(pc, clone: bool) -> dict:
+    """Wrap the cache's demote and promote, timing each call on the host
+    (ms). With ``clone``, a demotion first clones the victims' rows (every
+    pool, on the engine's stream, so after the writes that made them) and
+    a promotion clones the promoted pages' rows right after its copies
+    (same stream); ``check()`` then holds each promoted page to its clone
+    from before demotion, bit for bit."""
+    clones, pairs = {}, []
+    counts = {"demotions": 0, "promotions": 0, "demote_ms": [], "promote_ms": [],
+              "promote_pages": []}
+    real_demote, real_promote = pc.demote_pages, pc.promote_pages
+
+    def rows(pages):
+        with (torch.cuda.stream(pc.stream) if pc.stream is not None
+              else contextlib.nullcontext()):
+            idx = pc._page_index(pages)
+            return [pool.index_select(2, idx) for pool in pc._pools()]
+
+    def demote(pages):
+        before = rows(pages) if clone else None
+        t0 = time.perf_counter()
+        host_ids = real_demote(pages)
+        counts["demote_ms"].append((time.perf_counter() - t0) * 1e3)
+        if clone:
+            for i, hid in enumerate(host_ids):
+                clones[hid] = [t[:, :, i] for t in before]
+        counts["demotions"] += 1
+        return host_ids
+
+    def promote(host_ids, pages):
+        want = [clones.pop(hid) for hid in host_ids] if clone else None
+        t0 = time.perf_counter()
+        real_promote(host_ids, pages)
+        counts["promote_ms"].append((time.perf_counter() - t0) * 1e3)
+        counts["promote_pages"].append(len(pages))
+        if clone:
+            got = rows(pages)
+            pairs.extend((w, [t[:, :, i] for t in got]) for i, w in enumerate(want))
+        counts["promotions"] += 1
+
+    def check() -> bool:
+        return bool(pairs) and all(torch.equal(a, b) for want, got in pairs
+                                   for a, b in zip(want, got))
+
+    pc.demote_pages, pc.promote_pages = demote, promote
+    return dict(counts=counts, pairs=pairs, check=check)
+
+
+async def tier_arm_run(engine, rounds) -> list:
+    """The two rounds, one chat at a time: each chat's contents, its
+    lookup's outcome, TTFT and prefill time."""
+    out = []
+    for r, prompts in enumerate(rounds):
+        for ids in prompts:
+            before, c0 = tier_stats(engine._prefix), dict(engine.counters)
+            tokens = await _ids_stream(engine, ids, TIER_MAX_TOKENS)
+            await engine.wait_drained()
+            out.append(dict(round=r, tokens=tokens, ttft_ms=engine.ttft_ms[-1],
+                            outcome=tier_outcome(before, tier_stats(engine._prefix)),
+                            prefill_ms=engine.counters["prefill_ms"] - c0["prefill_ms"]))
+    return out
+
+
+def tier_copy_times(kv: str, n_pages: int = 64, reps: int = 5) -> dict:
+    """The tier's copies alone, at Llama-3-8B width on a cache of its own
+    (2 x ``n_pages`` device pages, an ``n_pages`` host tier, random rows):
+    a ``n_pages``-page demotion (call to copy complete, wall; events on the
+    engine stream before the call and after it, which waits for the copy;
+    the host enqueue), then its promotion into fresh pages (the host
+    enqueue, of it the staging into pinned buffers, and the copies and
+    scatter between events on the engine stream around ``_upload_pages``),
+    the round trip bit for bit, and the yardsticks: one pinned-to-device
+    ``copy_`` and one device-to-pinned ``copy_`` of the same bytes (CUDA
+    events), and one host ``copy_`` of the same bytes between pinned
+    buffers (the staging's memcpy)."""
+    from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
+
+    pc = PagedKVCache(32, 8, 128, num_pages=2 * n_pages + 1, page_size=16, max_slots=1,
+                      dtype=torch.bfloat16, kv_quant=kv, device=DEV)
+    gen = torch.Generator(DEV).manual_seed(9)
+    for pool in pc._pools():
+        if pool.dtype == torch.int8:
+            pool.copy_(torch.randint(-127, 128, pool.shape, generator=gen, device=DEV))
+        else:
+            pool.copy_(torch.randn(pool.shape, generator=gen, device=DEV))
+    tier = pc.enable_host_tier(n_pages)
+    pages = list(range(1, n_pages + 1))
+    fresh = list(range(n_pages + 1, 2 * n_pages + 1))
+    before = [pool[:, :, pages].clone() for pool in pc._pools()]
+    res = {"alloc_s": tier.alloc_seconds, "bytes": n_pages * tier.page_bytes}
+    demote, promote = [], []
+    upload_start = torch.cuda.Event(enable_timing=True)
+    real_upload = pc._upload_pages
+
+    def upload(rows, pages):
+        upload_start.record(pc.stream)
+        staged.append(time.perf_counter())
+        real_upload(rows, pages)
+
+    pc._upload_pages = upload
+    for _ in range(reps):
+        staged = []
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        sync()
+        start.record(pc.stream)
+        t0 = time.perf_counter()
+        host_ids = pc.demote_pages(pages)
+        enqueue = time.perf_counter() - t0
+        end.record(pc.stream)
+        end.synchronize()
+        demote.append(((time.perf_counter() - t0) * 1e3, start.elapsed_time(end), enqueue * 1e6))
+        sync()
+        t0 = time.perf_counter()
+        pc.promote_pages(host_ids, fresh)
+        enqueue = time.perf_counter() - t0
+        end.record(pc.stream)
+        end.synchronize()
+        promote.append((upload_start.elapsed_time(end), enqueue * 1e6,
+                        (staged[0] - t0) * 1e3))
+        if pc.reap_promotions(force=True) != 1:
+            raise AssertionError("a promotion was not reaped")
+    res["round_trip_bitwise"] = all(torch.equal(a, pool[:, :, fresh])
+                                    for a, pool in zip(before, pc._pools()))
+    med = lambda xs: sorted(xs)[len(xs) // 2]   # noqa: E731
+    res.update(demote_wall_ms=med([d[0] for d in demote]),
+               demote_stream_ms=med([d[1] for d in demote]),
+               demote_enqueue_us=med([d[2] for d in demote]),
+               promote_stream_ms=med([p[0] for p in promote]),
+               promote_enqueue_us=med([p[1] for p in promote]),
+               promote_staging_ms=med([p[2] for p in promote]))
+    host = torch.empty(res["bytes"], dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(res["bytes"], dtype=torch.uint8, device=DEV)
+    h2d, d2h = [], []
+    for _ in range(reps):
+        for times, dst, src in ((h2d, dev, host), (d2h, host, dev)):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    res.update(h2d_copy_ms=med(h2d), d2h_copy_ms=med(d2h))
+    other = torch.empty_like(host, pin_memory=True)
+    memcpy = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        other.copy_(host)
+        memcpy.append((time.perf_counter() - t0) * 1e3)
+    res["host_memcpy_ms"] = med(memcpy)
+    del pc, tier, before, host, dev, other
+    release_card_memory()
+    return res
+
+
+def phase_kv_tier(params, card: str, preset: str = "llama3-8b") -> dict:
+    """Phase 9: the prefix cache's host-RAM tier and the ownership ledger at
+    Llama-3-8B full width (max_batch 8, max_seq_len 2048, page_size 16,
+    ``prefix_cache`` 256, ``prefix_block`` 64), the KV sanitizer and the
+    strict ledger armed, each arm of ``TIER_ARMS`` warmed up, then six
+    1024-token heads, one chat each, twice (``tier_traffic``). Holds: each
+    tiered arm's contents equal its tierless twin's in both rounds; every
+    promoted page's K/V (and scale rows) equal its clone from before
+    demotion; the lookups' tiers and hit lengths, the demotions and
+    promotions equal ``TIER_EXPECTED`` (the reference's cache over the same
+    sequence); every promotion reaped by drain; 0 sanitizer failures and
+    no drain-zero ledger entry outstanding; no capture while serving; the
+    kernels' launches per step. Prints TTFT and prefill time of cold
+    admissions, HBM hits and host hits, the promotions' total time and
+    overlap, the 64-page copies beside their yardsticks, the tier's pinned
+    allocation time and the page count "auto" would choose here."""
+    from clearml_serving_tpu_torch.llm import lifecycle_ledger
+    from clearml_serving_tpu_torch.llm.engine import auto_host_tier_pages
+    from clearml_serving_tpu_torch.llm.warmup import warmup_plan
+    from clearml_serving_tpu_torch.ops.paged_attention import (paged_attention,
+                                                                ragged_paged_attention)
+
+    t_phase = time.perf_counter()
+    _heads, rounds = tier_traffic(0)
+    warm = tier_warmup_prompts()
+    saved = {k: os.environ.get(k) for k in ("TPUSERVE_SANITIZE", "TPUSERVE_LEDGER")}
+    os.environ.update(TPUSERVE_SANITIZE="1", TPUSERVE_LEDGER="strict")
+    runs = {}
+    try:
+        for arm, kv, knobs, twin, clone in TIER_ARMS:
+            engine, _tok = _engine(params, kv, preset, **knobs)
+            tiered = engine.paged_cache.host_tier is not None
+            expected = TIER_EXPECTED["tiered" if tiered else "untiered"]
+            ledger = engine._ledger
+            ledger.reset(strict=True)
+            pc = engine.paged_cache
+            hooks = hook_tier(pc, clone) if tiered else None
+            plan_equal = [s["prompt_ids"] for s in warmup_plan(engine)] == warm
+            asyncio.run(engine.warmup())
+            after_warm = tier_stats(engine._prefix)
+            for key in engine.counters:
+                engine.counters[key] = 0
+            paged_attention.launches = ragged_paged_attention.launches = 0
+            t0 = time.perf_counter()
+            chats = asyncio.run(tier_arm_run(engine, rounds))
+            wall = time.perf_counter() - t0
+            c = dict(engine.counters)
+            end = tier_stats(engine._prefix)
+            tier = engine.lifecycle_stats()["kv_tier"]
+            lstats = ledger.stats()
+            n_layers = engine.model.n_layers
+            outcomes = [chat["outcome"] for chat in chats]
+            checks = {
+                "the warmup plan": plan_equal,
+                "stats after warmup": after_warm == expected["warmup"],
+                "hit tiers and lengths": outcomes == expected["traffic"],
+                "stats at the end": end == expected["end"],
+                "32 tokens each": all(len(ch["tokens"]) == TIER_MAX_TOKENS for ch in chats),
+                "no capture while serving": c["serve_captures"] == 0,
+                "paged launches": (paged_attention.launches == n_layers * (
+                    c["decode_steps"] + c["ragged_chain_steps"]) > 0),
+                "ragged launches": (ragged_paged_attention.launches == n_layers * c["ragged_steps"]
+                                    and (c["ragged_steps"] > 0) == ("scheduler" in knobs)),
+                "sanitizer": (engine._sanitizer.stats()["failures"] == 0
+                              and engine._sanitizer.stats()["checks"] > 0),
+                "ledger at drain": (lstats["leaks"] == 0 and lstats["double_releases"] == 0
+                                    and lstats["acquires"] > 0
+                                    and all(lstats["outstanding"][r] == 0
+                                            for r, policy in lifecycle_ledger.RESOURCES.items()
+                                            if policy["drain_zero"])),
+            }
+            if tiered:
+                checks.update({
+                    "page bytes": tier["page_bytes"] == TIER_PAGE_BYTES[kv],
+                    "tier pinned on the card": (pc.host_tier.pinned == pc.host_tier.hk.is_pinned()
+                                                == (torch.device(DEV).type == "cuda")),
+                    "every promotion reaped": (not pc._promotions
+                                               and pc.promo_reaped == hooks["counts"]["promotions"]
+                                               and hooks["counts"]["promotions"] > 0),
+                })
+            if clone:
+                checks["promoted rows equal their clones"] = hooks["check"]()
+            by = {}
+            for chat in chats:
+                by.setdefault(chat["outcome"][0], []).append(chat)
+            med = lambda xs: sorted(xs)[len(xs) // 2] if xs else None   # noqa: E731
+            run = dict(arm=arm, kv=kv or "bf16", tiered=tiered, twin=twin, checks=checks,
+                       contents=[ch["tokens"] for ch in chats], outcomes=outcomes,
+                       stats_after_warmup=after_warm, stats_end=end, kv_tier=tier,
+                       ledger=lstats, sanitizer=engine._sanitizer.stats(), wall_s=wall,
+                       counters={k: c[k] for k in ("decode_steps", "ragged_steps",
+                                                   "ragged_chain_steps", "prefills",
+                                                   "serve_captures", "graph_replays")},
+                       paged_launches=paged_attention.launches,
+                       ragged_launches=ragged_paged_attention.launches,
+                       ttft_ms={k: med([ch["ttft_ms"] for ch in v]) for k, v in by.items()},
+                       prefill_ms={k: med([ch["prefill_ms"] for ch in v])
+                                   for k, v in by.items()},
+                       alloc_s=pc.host_tier.alloc_seconds if tiered else None,
+                       tier_calls=hooks["counts"] if tiered else None,
+                       chats=[dict(outcome=ch["outcome"], ttft_ms=round(ch["ttft_ms"], 2),
+                                   prefill_ms=round(ch["prefill_ms"], 2)) for ch in chats])
+            log("  {} kv={} {}{}: lookups {}; after warmup {}; at the end {}; TTFT median ms "
+                "{}; prefill median ms {}; kv_tier demotions {} promotions {} hits {} "
+                "promo_total_ms {} promo_wait_ms {} overlap {} reaps {}; tier alloc {} s; "
+                "launches paged {} ragged {} over {} decode, {} chained, {} ragged steps; "
+                "ledger {}; sanitizer {}; wall {:.3f} s ({})".format(
+                    arm, kv or "bf16", "tiered" if tiered else "untiered",
+                    " ragged" if "scheduler" in knobs else "", outcomes, after_warm, end,
+                    run["ttft_ms"], run["prefill_ms"], tier and tier["demotions"],
+                    tier and tier["promotions"], tier and tier["hits_by_tier"],
+                    tier and tier["promo_total_ms"], tier and tier["promo_wait_ms"],
+                    tier and tier["promo_overlap_ratio"], tier and tier["reaps"],
+                    run["alloc_s"], run["paged_launches"], run["ragged_launches"],
+                    c["decode_steps"], c["ragged_chain_steps"], c["ragged_steps"], lstats,
+                    run["sanitizer"], wall, card))
+            if tiered:
+                calls = hooks["counts"]
+                log("    {}: host ms per demotion call {} (rounds of 1 or more runs); per "
+                    "promotion call {} for {} pages".format(
+                        arm, [round(x, 3) for x in calls["demote_ms"]],
+                        [round(x, 3) for x in calls["promote_ms"]], calls["promote_pages"]))
+            log("    {}: per chat (outcome, TTFT ms, prefill ms) {}".format(
+                arm, [(ch["outcome"][0], ch["ttft_ms"], ch["prefill_ms"])
+                      for ch in run["chats"]]))
+            engine.stop()
+            del engine, pc, hooks
+            release_card_memory()
+            runs[arm] = run
+            failed = [name for name, ok in checks.items() if not ok]
+            if failed:
+                raise AssertionError("phase 9 arm {}: failed {}".format(arm, failed))
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        lifecycle_ledger.get().reset(strict=False)
+        lifecycle_ledger.disarm()
+    for arm, run in runs.items():
+        if run["twin"] is not None and run["contents"] != runs[run["twin"]]["contents"]:
+            first = [first_token_difference(a, b)
+                     for a, b in zip(run["contents"], runs[run["twin"]]["contents"])]
+            raise AssertionError("phase 9: arm {}'s contents differ from arm {}'s: first "
+                                 "differences {}".format(arm, run["twin"], first))
+    # the schedulers compute a prompt through other kernels: reported only
+    ragged_vs_two = [first_token_difference(a, b)
+                     for a, b in zip(runs["D"]["contents"], runs["A"]["contents"])]
+    copies = {kv or "bf16": tier_copy_times(kv) for kv in ("", "int8")}
+    for kv, row in copies.items():
+        if not row["round_trip_bitwise"]:
+            raise AssertionError("phase 9: the {} 64-page round trip changed bits".format(kv))
+    from clearml_serving_tpu_torch.llm import kv_cache
+
+    auto = {"mem_available_bytes": kv_cache.available_host_memory_bytes(),
+            "cohosted": kv_cache.cohosted_worker_processes(),
+            **{"pages_" + (kv or "bf16"): auto_host_tier_pages(TIER_PAGE_BYTES[kv])
+               for kv in ("", "int8")}}
+    log("  each tiered arm's contents equal its tierless twin's (B = Bt = A, C = C0, D = D0); "
+        "ragged D against two-dispatch A, first differences by chat: {}".format(ragged_vs_two))
+    for kv, row in copies.items():
+        log("  64-page copies, {} ({} bytes): demotion {:.3f} ms call to copy complete, "
+            "{:.3f} ms between engine-stream events around the call, {:.1f} us enqueue; "
+            "promotion {:.1f} us enqueue ({:.3f} ms of it staging on the host), {:.3f} ms "
+            "of copies and scatter on the engine stream; yardsticks pinned->device copy_ "
+            "{:.3f} ms, device->pinned {:.3f} ms, host pinned->pinned copy_ {:.3f} ms; "
+            "round trip bitwise {}; the 64-page tier pinned in {:.3f} s ({})".format(
+                kv, row["bytes"], row["demote_wall_ms"], row["demote_stream_ms"],
+                row["demote_enqueue_us"], row["promote_enqueue_us"], row["promote_staging_ms"],
+                row["promote_stream_ms"], row["h2d_copy_ms"], row["d2h_copy_ms"],
+                row["host_memcpy_ms"], row["round_trip_bitwise"], row["alloc_s"], card))
+    log("  prefix_cache_host_mb 'auto' here: MemAvailable {} bytes, {} co-hosted process(es): "
+        "{} bf16 pages, {} int8 pages ({})".format(
+            auto["mem_available_bytes"], auto["cohosted"], auto["pages_bf16"],
+            auto["pages_int8"], card))
+    for run in runs.values():
+        run["contents"] = [t[:8] for t in run["contents"]]
+    out = dict(card=card, runs=list(runs.values()), ragged_vs_two_dispatch=ragged_vs_two,
+               copies=copies, auto=auto, seconds=time.perf_counter() - t_phase)
+    log("  phase 9 in {:.1f} s".format(out["seconds"]))
+    return out
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -2875,6 +3367,10 @@ def main() -> int:
         "width, prefix_cache 64, prefix_block 64, prefix_cache_pages 256")
     prefix = phase_prefix_cache(params, card)
     prefix_arm = {(r["arm"], r["kv"]): r for r in prefix["runs"]}
+    log("phase 9: the prefix cache's host-RAM KV tier and the ownership ledger, llama3-8b "
+        "full width, prefix_cache_pages 128 over prefix_cache_host_pages 512")
+    tier = phase_kv_tier(params, card)
+    tier_arm = {r["arm"]: r for r in tier["runs"]}
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -2920,6 +3416,11 @@ def main() -> int:
         "launches_prefix": prefix_arm[("two_dispatch", "bf16")]["paged_launches"],
         "launches_prefix_int8": prefix_arm[("two_dispatch", "int8")]["paged_launches"],
         "launches_prefix_ragged_path": prefix_arm[("ragged", "bf16")]["paged_launches"],
+        # phase 9: decode rows over promoted prefix pages (arms B and C,
+        # two-dispatch with graphs, bf16 / int8 KV, and arm D's chained steps)
+        "launches_tier": tier_arm["B"]["paged_launches"],
+        "launches_tier_int8": tier_arm["C"]["paged_launches"],
+        "launches_tier_ragged_path": tier_arm["D"]["paged_launches"],
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -2957,6 +3458,8 @@ def main() -> int:
         # phase 8: hit admissions' tail chunk rows over mapped shared pages
         "launches_prefix": prefix_arm[("ragged", "bf16")]["ragged_launches"],
         "launches_prefix_int8": prefix_arm[("ragged", "int8")]["ragged_launches"],
+        # phase 9, arm D: hit admissions' tail chunk rows over promoted pages
+        "launches_tier": tier_arm["D"]["ragged_launches"],
     }, {
         "name": "ragged_paged_attention[tree_anc]",
         "route": "cuda",
@@ -3028,7 +3531,8 @@ def main() -> int:
                                   "ragged_profile": ragged_prof,
                                   "tree_profile": tree_prof,
                                   "int4_profile": int4_prof,
-                                  "lifecycle": lifecycle, "prefix_cache": prefix}))
+                                  "lifecycle": lifecycle, "prefix_cache": prefix,
+                                  "kv_tier": tier}))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)
     print(json.dumps(kernels))

@@ -101,3 +101,10 @@ class EngineStuckError(RequestError):
     status = 503
     code = "engine_stalled"
     default_retry_after = 5.0
+
+
+class HostTierAutoSizeError(ValueError):
+    """``prefix_cache_host_mb: "auto"`` could not size the host KV tier from
+    /proc/meminfo (a platform without it, or without MemAvailable). Raised
+    when the engine is built, so an endpoint fails at load, naming the knob,
+    instead of serving without the tier its operator asked for."""

@@ -41,7 +41,16 @@ under ``ragged`` as chunk rows that read the mapped pages through the
 ragged kernel. A write into a page still shared elsewhere copies it first
 (copy on write), on the engine's stream ahead of the launch that writes
 it. ``TPUSERVE_SANITIZE=1`` audits the page accounting after every step
-and at drain (``llm/kv_sanitizer.py``).
+and at drain (``llm/kv_sanitizer.py``). With ``prefix_cache_host_pages``
+(or ``prefix_cache_host_bytes``, a size or "auto") the cache demotes runs
+over its device budgets into a pinned host-RAM tier instead of dropping
+them, and a hit on a demoted run promotes it with copies enqueued on the
+engine's stream ahead of the launches that read it; the loop reaps the
+finished promotions at its retire boundaries and waits for the rest at
+drain. ``TPUSERVE_LEDGER=1|strict`` arms the ownership ledger
+(``llm/lifecycle_ledger.py``): every acquire and release of pages, pins,
+hits, host pages, quarantine entries and promotions is recorded and
+audited per request at its exit and over the engine at drain.
 
 ``scheduler="ragged"``: admission opens a job instead of running a prefill.
 While jobs exist, each step is ONE mixed launch (``Llama.forward_ragged``,
@@ -120,6 +129,7 @@ from ..models.llama import Llama
 from ..ops.gates import check_engine_gates
 from ..ops.paged_attention import RAGGED_QB, ragged_layout, tree_ancestors
 from .decode_graph import ChunkLayout, DecodeGraphs, run_chunk
+from . import kv_cache, lifecycle_ledger
 from .kv_cache import PagedKVCache
 from .kv_sanitizer import KVSanitizer, enabled as sanitizer_enabled
 from .prefix_cache import RadixPrefixCache
@@ -169,9 +179,10 @@ class GenRequest:
     # preemptions so far (bounded by the engine's preempt_budget)
     _preempt_count: int = 0
     # engine-internal: a preempted request's KV pages while it waits in the
-    # queue (the KV of all its history but the last token); its resume maps
-    # them back into a slot. Every queue exit that is not a resume releases
-    # them (_release_parked)
+    # queue (the KV of all its history but the last token), held as pool
+    # pins (the ledger's ``pages.pin``, owned by this request); its resume
+    # maps them back into a slot. Every queue exit that is not a resume
+    # releases them (_release_parked)
     _parked: Optional[List[int]] = None
     # engine-internal (prefix cache): a lookup's pinned hit, carried from
     # the lookup to the commit that maps its pages; every failure path
@@ -202,6 +213,28 @@ _FINISHED = object()
 _DEFAULT_PIPELINE_DEPTH = 2
 # the reference's _MsHistogram buckets (ms)
 _MS_BUCKETS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 1000.0)
+# the host tier's auto-sizing (prefix_cache_host_bytes="auto"): half of
+# MemAvailable, clamped to this range
+_AUTO_HOST_TIER_MIN_BYTES = 64 << 20
+_AUTO_HOST_TIER_MAX_BYTES = 16 << 30
+
+
+def auto_host_tier_pages(page_bytes: int) -> int:
+    """The host tier's page count under ``prefix_cache_host_mb: "auto"``
+    (the reference's sizing): half of /proc/meminfo's ``MemAvailable``,
+    split between the engine processes sharing the host, clamped to 64
+    MiB-16 GiB, in pages of ``page_bytes``. Raises
+    ``HostTierAutoSizeError`` where MemAvailable cannot be read."""
+    budget = (kv_cache.available_host_memory_bytes() // 2
+              // kv_cache.cohosted_worker_processes())
+    budget = min(max(budget, _AUTO_HOST_TIER_MIN_BYTES), _AUTO_HOST_TIER_MAX_BYTES)
+    return max(1, budget // int(page_bytes))
+
+
+def _owner(request: "GenRequest"):
+    """The ledger's owner context for acquires made on ``request``'s behalf
+    (a no-op while the ledger is disarmed)."""
+    return lifecycle_ledger.owner(lifecycle_ledger.request_tag(request))
 
 
 def _env_pipeline_depth() -> int:
@@ -427,9 +460,7 @@ class _BrownoutController:
 UNSUPPORTED_KNOBS = (
     "mesh", "long_prefill_threshold",
     "long_bucket_step", "chunked_prefill_size", "prefill_segments_per_decode",
-    "prefill_stall_timeout", "lora_adapters",
-    "prefix_cache_host_pages", "prefix_cache_host_bytes", "tokenizer",
-    "replica",
+    "prefill_stall_timeout", "lora_adapters", "tokenizer", "replica",
 )
 
 
@@ -485,6 +516,10 @@ class LLMEngineCore:
         prefix_block: int = 64,
         prefix_cache_bytes: Optional[int] = None,
         prefix_cache_pages: Optional[int] = None,
+        # the host-RAM tier behind the prefix cache: its page count, or a
+        # byte budget ("auto": sized from MemAvailable)
+        prefix_cache_host_pages: Optional[int] = None,
+        prefix_cache_host_bytes=None,
         **knobs,
     ):
         for name, value in knobs.items():
@@ -495,6 +530,29 @@ class LLMEngineCore:
                     "engine knob {}={!r} is not supported by the PyTorch port "
                     "yet".format(name, value)
                 )
+        # the host tier's knobs, checked as the reference checks them: a
+        # budget that silently does nothing reads as "tiering on"
+        host_auto = (isinstance(prefix_cache_host_bytes, str)
+                     and prefix_cache_host_bytes.strip().lower() == "auto")
+        if isinstance(prefix_cache_host_bytes, str) and not host_auto:
+            raise ValueError(
+                "prefix_cache_host_bytes (aux engine.prefix_cache_host_mb) must be a size "
+                "or 'auto': got {!r}".format(prefix_cache_host_bytes))
+        if host_auto and prefix_cache_host_pages:
+            raise ValueError(
+                "prefix_cache_host_mb='auto' derives the host page count itself; drop "
+                "engine.prefix_cache_host_pages (or set an explicit size)")
+        if prefix_cache_host_bytes and not host_auto and not prefix_cache_host_pages:
+            raise ValueError(
+                "prefix_cache_host_bytes (aux engine.prefix_cache_host_mb) is set but the "
+                "host tier is disabled: set prefix_cache_host_pages (aux "
+                "engine.prefix_cache_host_pages) to enable it")
+        if (prefix_cache_host_pages or host_auto) and (cache_mode != "paged"
+                                                       or not prefix_cache):
+            raise ValueError(
+                "prefix_cache_host_pages (or prefix_cache_host_mb='auto') needs "
+                "cache_mode='paged' and a prefix_cache on a bundle with prefill_chunk (the "
+                "host tier spills the paged radix prefix cache)")
         if cache_mode != "paged":
             raise ValueError(
                 "engine knob cache_mode={!r} is not supported by the PyTorch "
@@ -638,9 +696,19 @@ class LLMEngineCore:
             # a cached page's device bytes: K and V, and the scale rows on
             # int8 pools
             page_bytes = sum(self.paged_cache.pool_bytes().values()) // pool.num_pages
+            # the host-RAM tier: pinned page slabs preallocated here, so
+            # eviction demotes into host RAM instead of dropping
+            tier_backend = None
+            if host_auto:
+                prefix_cache_host_pages = auto_host_tier_pages(page_bytes)
+                prefix_cache_host_bytes = None  # the budget is the capacity
+            if prefix_cache_host_pages:
+                self.paged_cache.enable_host_tier(int(prefix_cache_host_pages))
+                tier_backend = self.paged_cache
             self._prefix = RadixPrefixCache(
                 int(prefix_cache), block, max_bytes=prefix_cache_bytes,
-                max_pages=prefix_cache_pages, pool=pool, page_bytes=page_bytes)
+                max_pages=prefix_cache_pages, pool=pool, page_bytes=page_bytes,
+                backend=tier_backend, host_max_bytes=prefix_cache_host_bytes)
         # a hit's tail prefills in segments of this many tokens
         self._prefix_chunk = max(1, int(prefix_block))
         # the runtime KV sanitizer (TPUSERVE_SANITIZE=1): page accounting
@@ -648,6 +716,12 @@ class LLMEngineCore:
         self._sanitizer = (KVSanitizer(self.paged_cache.pool, self._prefix,
                                        paged_cache=self.paged_cache)
                            if sanitizer_enabled() else None)
+        # the ownership ledger (TPUSERVE_LEDGER=1|strict): acquires and
+        # releases audited per request at its exit and over the engine at
+        # drain; process-wide, shared by every engine of the process
+        self._ledger = lifecycle_ledger.arm() if lifecycle_ledger.enabled() else None
+        # promotions the loop saw complete
+        self._promotion_reaps = 0
         self._gen = torch.Generator(self.device)
         self._gen.manual_seed(int(rng_seed))
         # -- pipelined decode: the bounded in-flight queue, the slot-reuse
@@ -668,9 +742,10 @@ class LLMEngineCore:
         self._slot_overrides = np.ones(self.max_batch, bool)
         self._layout = ChunkLayout(self.max_batch, self._pages_per_seq, self.decode_steps)
         # every worker enqueues on this stream (torch's current stream is
-        # per thread), so prefills, chunks and readbacks run in order
-        self._stream = (torch.cuda.current_stream(self.device)
-                        if self.device.type == "cuda" else None)
+        # per thread), so prefills, chunks, readbacks and the host tier's
+        # promotions run in order; the cache's (the current stream when it
+        # was built)
+        self._stream = self.paged_cache.stream
         # on the card each chunk is a CUDA-graph replay unless cuda_graphs
         # is off; the eager arm keeps its chain in _chain
         self._graphs = (DecodeGraphs(model, self.paged_cache, self._layout, self.decode_steps)
@@ -1029,8 +1104,10 @@ class LLMEngineCore:
         # still in flight writes only past that, and the resume's first
         # decode step rewrites it after that chunk on the same stream. The
         # slot's references leave with them as pins (the stored run needs
-        # no pin_run: these references keep its pages)
-        request._parked = self.paged_cache.pool.detach(slot)
+        # no pin_run: these references keep its pages), owned by the
+        # request in the ledger
+        with _owner(request):
+            request._parked = self.paged_cache.pool.detach(slot)
         # the queue-wait budget restarts for the resume leg: time spent
         # generating must not count against it
         qt = request.queue_timeout if request.queue_timeout is not None else self._queue_timeout
@@ -1079,10 +1156,20 @@ class LLMEngineCore:
 
     def _release_parked(self, request: GenRequest) -> None:
         """Free a preempted request's parked KV pages (a queue exit other
-        than its resume)."""
-        if request._parked is not None:
-            self.paged_cache.pool.release(request._parked)
-            request._parked = None
+        than its resume). The ``engine.ledger.leak`` seam fires after the
+        pages left the request and before their pins drop: a raise loses
+        the release, which the armed ledger names at drain (``pages.pin``,
+        acquired in ``_preempt_slot``)."""
+        pages, request._parked = request._parked, None
+        if pages is None:
+            return
+        if faults.active():
+            try:
+                faults.fire("engine.ledger.leak", request=request)
+            except faults.InjectedFault:
+                return
+        with _owner(request):
+            self.paged_cache.pool.release(pages)
 
     def _deadline_error_at_commit(self, request: GenRequest) -> Optional[BaseException]:
         """The TTFT and total deadlines, checked when an admission is about
@@ -1171,7 +1258,64 @@ class LLMEngineCore:
             "prefix_cache": self._prefix.stats() if self._prefix is not None else None,
             "cow_events": self.paged_cache.pool.cow_events,
             "sanitizer": self._sanitizer.stats() if self._sanitizer is not None else None,
+            # the host-RAM tier (None without it) and the ownership ledger
+            # (None unless armed)
+            "kv_tier": self._kv_tier_snapshot(),
+            "ledger": self._ledger.stats() if self._ledger is not None else None,
         }
+
+    def _kv_tier_snapshot(self) -> Optional[dict]:
+        """The host tier's occupancy and movement, with the reference's
+        keys (None without a tier)."""
+        pc = self.paged_cache
+        if pc.host_tier is None:
+            return None
+        backend = pc.tier_stats()
+        prefix = self._prefix.stats()
+        return {
+            "pages": {"hbm": prefix["cached_pages"], "host": prefix["host_pages"]},
+            "bytes": {"hbm": prefix["cached_bytes"], "host": prefix["host_bytes"]},
+            "nodes": {"hbm": prefix["nodes"] - prefix["host_nodes"],
+                      "host": prefix["host_nodes"]},
+            "demotions": prefix["demotions"],
+            "promotions": prefix["promotions"],
+            "hits_by_tier": prefix["hits_by_tier"],
+            "host_pages_capacity": backend["host_pages_capacity"],
+            "host_pages_used": backend["host_pages_used"],
+            "demoted_pages_total": backend["demoted_pages_total"],
+            "promoted_pages_total": backend["promoted_pages_total"],
+            "promo_overlap_ratio": backend["overlap_ratio"],
+            "promo_wait_ms": backend["promo_wait_ms"],
+            "promo_total_ms": backend["promo_total_ms"],
+            "reaps": self._promotion_reaps,
+            "page_bytes": sum(pc.pool_bytes().values()) // pc.pool.num_pages,
+        }
+
+    def _reap_promotions(self, force: bool = False) -> None:
+        """Loop thread: account the host tier's promotions that completed
+        (a retire boundary); ``force`` waits for the rest (drain). A no-op
+        without a tier."""
+        if self.paged_cache.host_tier is None:
+            return
+        self._promotion_reaps += self.paged_cache.reap_promotions(force=force)
+
+    def _ledger_domains(self) -> list:
+        """The primitives whose drain-zero entries this engine audits (the
+        ledger is process-wide)."""
+        pc = self.paged_cache
+        domains = [self, pc, pc.pool]
+        if pc.host_tier is not None:
+            domains.append(pc.host_tier)
+        if self._prefix is not None:
+            domains.append(self._prefix)
+        return domains
+
+    def _ledger_audit_request(self, request: Optional[GenRequest], where: str) -> None:
+        """A request's exit (emit-finish, fail, cancel): every
+        request-scoped acquire attributed to it must be released; strict
+        mode raises on the loop thread."""
+        if self._ledger is not None and request is not None:
+            self._ledger.audit_request(lifecycle_ledger.request_tag(request), where=where)
 
     def health(self) -> dict:
         return dict(
@@ -1262,6 +1406,9 @@ class LLMEngineCore:
         try:
             while not self._stopped:
                 self._expire_pending()
+                # the host tier's promotions that completed since the last
+                # boundary
+                self._reap_promotions()
                 if self._recovering and not self._inflight:
                     # a trip that found no stale chunk to land (the loop
                     # was in an admission): recover at this boundary
@@ -1279,6 +1426,9 @@ class LLMEngineCore:
                 if not active.any() and not self._inflight and not self._prefill_jobs:
                     if self._pending.empty():
                         faults.fire("engine.drain")
+                        # promotions still in flight settle before the
+                        # drained audits
+                        self._reap_promotions(force=True)
                         # drained: nothing owns pages but the prefix cache
                         self._sanitize("drain", drained=True)
                         return  # drained; a new generate() restarts the loop
@@ -1327,8 +1477,13 @@ class LLMEngineCore:
                 self._watchdog_task.cancel()
 
     def _sanitize(self, where: str, drained: bool = False) -> None:
+        """The armed audits of a loop boundary: the KV sanitizer, then the
+        ownership ledger (its drain-zero rule once nothing is in flight)."""
         if self._sanitizer is not None:
             self._sanitizer.check(where, drained=drained, inflight=len(self._inflight))
+        if self._ledger is not None:
+            self._ledger.check(where=where, drained=drained and not self._inflight,
+                               domains=self._ledger_domains())
 
     def _on_stream(self, fn, *args):
         """Run ``fn`` on the engine's stream: a worker thread starts on the
@@ -1415,7 +1570,8 @@ class LLMEngineCore:
                     slot, hit["pages"], plen, cache["k"][:, 0, plen:n], cache["v"][:, 0, plen:n],
                     n, *self._mini_scales(cache, plen, n))
             finally:
-                self._prefix.release(hit)
+                with _owner(request):
+                    self._prefix.release(hit)
         else:
             bucket = shapes.bucket_for(n, self._buckets, self.max_seq_len)
             tokens = torch.zeros((1, bucket), dtype=torch.long)
@@ -1458,9 +1614,13 @@ class LLMEngineCore:
         pinned hit on ``request._prefix_hit``, or None: a miss, or a hit no
         bucket fits, which recomputes cold and counts as a miss. The
         gather reads shared pages while a decode chunk may be in flight on
-        the same stream; it writes none, and nobody writes a shared page."""
+        the same stream; it writes none, and nobody writes a shared page. A
+        hit on a demoted run promoted it: its copies were enqueued on this
+        stream before the lookup returned, so the gather reads them. The
+        hit and its pin are the request's in the ledger."""
         ids = request.prompt_ids
-        hit = self._prefix.lookup_pages(ids, 0)
+        with _owner(request):
+            hit = self._prefix.lookup_pages(ids, 0)
         if hit is None:
             return None
         try:
@@ -1468,7 +1628,8 @@ class LLMEngineCore:
             bucket = self._prefix_bucket(plen, len(ids))
             page_size = self.paged_cache.pool.page_size
             if bucket is None or bucket % page_size:
-                self._prefix.release(hit)
+                with _owner(request):
+                    self._prefix.release(hit)
                 self._prefix.uncount_hit(hit)
                 return None
             pages = list(hit["pages"]) + [0] * (bucket // page_size - len(hit["pages"]))
@@ -1476,7 +1637,8 @@ class LLMEngineCore:
             cache["length"] = torch.tensor([plen], dtype=torch.int32, device=self.device)
             last, cache = self._prefill_tail(cache, ids, plen)
         except BaseException:
-            self._prefix.release(hit)  # a no-op after the release above
+            with _owner(request):
+                self._prefix.release(hit)  # a no-op after the release above
             raise
         request._prefix_hit = hit
         return last, cache, plen
@@ -1505,12 +1667,14 @@ class LLMEngineCore:
         lookup's pin. No-op otherwise."""
         hit, request._prefix_hit = request._prefix_hit, None
         if hit is not None and self._prefix is not None:
-            self._prefix.release(hit)
+            with _owner(request):
+                self._prefix.release(hit)
 
     def _store_prompt(self, request: GenRequest, slot: int) -> None:
         """An admission's commit: the tree takes references on the slot's
         own pages for the prompt's block-aligned prefix (blocks already
-        stored are only touched)."""
+        stored are only touched; runs over the device budgets are demoted
+        or dropped)."""
         if self._prefix is not None:
             self._prefix.store_pages(request.prompt_ids, 0,
                                      self.paged_cache.pool.slot_pages(slot))
@@ -1863,6 +2027,9 @@ class LLMEngineCore:
                 # that slot is dropped by the None check inside _emit
                 self._emit(slot, int(token_id))
         self._release_quarantine(entry.seq)
+        # a promotion that completed while this chunk computed cost the
+        # loop nothing
+        self._reap_promotions()
         self._last_progress = time.monotonic()
         self._hist_retire.observe((time.perf_counter() - t0) * 1e3)
 
@@ -1986,6 +2153,8 @@ class LLMEngineCore:
         barrier = self._pipeline_barrier(slot)
         if barrier is not None:
             self._quarantine[slot] = barrier
+            if self._ledger is not None:
+                lifecycle_ledger.acquire("slot.quarantine", key=slot, domain=self)
             return
         self.paged_cache.pool.free(slot)
 
@@ -1995,6 +2164,9 @@ class LLMEngineCore:
         for slot, barrier in list(self._quarantine.items()):
             if barrier <= retired_seq:
                 del self._quarantine[slot]
+                if self._ledger is not None:
+                    lifecycle_ledger.release("slot.quarantine", key=slot, domain=self,
+                                             all_of_key=True)
                 if self._slot_req[slot] is None and slot not in self._admitting:
                     self.paged_cache.pool.free(slot)
 
@@ -2013,6 +2185,10 @@ class LLMEngineCore:
         self._inflight.clear()
         pending = list(self._quarantine)
         self._quarantine.clear()
+        if self._ledger is not None:
+            for slot in pending:
+                lifecycle_ledger.release("slot.quarantine", key=slot, domain=self,
+                                         all_of_key=True)
         self._reset_device_chains()
         for slot in pending:
             if self._slot_req[slot] is None and slot not in self._admitting:
@@ -2030,6 +2206,7 @@ class LLMEngineCore:
         if request is not None:
             request.error = err
             request.out_queue.put_nowait(_FINISHED)
+            self._ledger_audit_request(request, "fail")
 
     def _finish_slot(self, slot: int, request: GenRequest) -> None:
         request.out_queue.put_nowait(_FINISHED)
@@ -2041,6 +2218,7 @@ class LLMEngineCore:
             self._free_slot_pages(slot)
         except faults.InjectedFault:
             pass
+        self._ledger_audit_request(request, "cancel" if request.cancelled else "emit-finish")
 
     def _emit(self, slot: int, token_id: int) -> None:
         request = self._slot_req[slot]
@@ -2101,7 +2279,9 @@ class LLMEngineCore:
             try:
                 pos = self._start_ragged_job(request, slot)
             except Exception as ex:
-                self.paged_cache.pool.free(slot)
+                # the slot's table is authoritative: a free reclaims what a
+                # hit mapped into it before the failure, nothing otherwise
+                self._free_ragged_slot(slot)
                 request.error = ex
                 request.out_queue.put_nowait(_FINISHED)
                 free.insert(0, slot)
@@ -2114,24 +2294,28 @@ class LLMEngineCore:
         """The prompt position a ragged job opens at: a prefix-cache hit
         whose run is page-aligned and leaves a tail is mapped into the
         empty ``slot`` (``map_shared``) and the job starts past it; any
-        other hit recomputes cold and counts as a miss."""
+        other hit recomputes cold and counts as a miss. A hit on a demoted
+        run promoted it: its copies were enqueued on the engine's stream,
+        ahead of the launch whose chunk rows read the pages."""
         if faults.active():
             faults.fire("engine.prefill", request=request)
         if self._prefix is None:
             return 0
-        hit = self._prefix.lookup_pages(request.prompt_ids, 0)
-        if hit is None:
-            return 0
-        try:
-            plen = hit["len"]
-            if 0 < plen < len(request.prompt_ids) and plen % self.paged_cache.pool.page_size == 0:
-                self.paged_cache.pool.map_shared(slot, list(hit["pages"]), plen)
-                return plen
-            self._prefix.uncount_hit(hit)
-            return 0
-        finally:
-            # the slot holds its own references now (or none)
-            self._prefix.release(hit)
+        with _owner(request):
+            hit = self._prefix.lookup_pages(request.prompt_ids, 0)
+            if hit is None:
+                return 0
+            try:
+                plen = hit["len"]
+                if (0 < plen < len(request.prompt_ids)
+                        and plen % self.paged_cache.pool.page_size == 0):
+                    self.paged_cache.pool.map_shared(slot, list(hit["pages"]), plen)
+                    return plen
+                self._prefix.uncount_hit(hit)
+                return 0
+            finally:
+                # the slot holds its own references now (or none)
+                self._prefix.release(hit)
 
     def _fail_ragged_job(self, job: _RaggedJob, err: Optional[BaseException]) -> None:
         """Fail one in-progress admission (err None = cancelled): free its
@@ -2142,9 +2326,15 @@ class LLMEngineCore:
         if err is not None:
             job.request.error = err
         job.request.out_queue.put_nowait(_FINISHED)
-        # a job's slot table is authoritative: the free drops its mapped
-        # shared pages' references with the rest
-        self.paged_cache.pool.free(job.slot)
+        self._free_ragged_slot(job.slot)
+        self._ledger_audit_request(job.request, "fail-ragged")
+
+    def _free_ragged_slot(self, slot: int) -> None:
+        """Reclaim a ragged admission's slot pages (no pipeline barrier
+        applies: ragged steps run with the pipeline drained). The slot's
+        table is authoritative: the free drops its mapped shared pages'
+        references with the rest."""
+        self.paged_cache.pool.free(slot)
 
     def _sweep_ragged_jobs(self) -> None:
         """Drop cancelled and deadline-expired jobs before planning a step:
@@ -2713,4 +2903,6 @@ class LLMEngineCore:
             # the slot's own pages now hold the whole prompt's K/V
             self._store_prompt(request, job.slot)
             self._activate_slot(request, job.slot, first_id)
+        # the retire boundary's reap, as after a decode chunk
+        self._reap_promotions()
         self._last_progress = time.monotonic()

@@ -47,6 +47,21 @@ Points (the context each carries):
                           and before drafting (``requests``); a matched raise
                           demotes that row to plain decode, an unmatched one
                           every verify row of the step.
+- ``engine.kv.demote``    in the radix prefix cache as device-budget eviction
+                          is about to demote a cached run's pages to the
+                          host-RAM tier (``pages``); a raise aborts the
+                          demotion and the run drops for real.
+- ``engine.kv.promote``   as a lookup on a demoted run is about to allocate
+                          device pages and enqueue the host-to-device copy
+                          (``pages``); a raise aborts the promotion: the
+                          demoted suffix drops, the hit shortens to the
+                          resident prefix and the tail recomputes.
+- ``engine.ledger.leak``  in the teardown of a preempted request's parked
+                          pages (``_release_parked``), after they left the
+                          request and before their pins drop (``request``);
+                          a raise loses that release, which the armed
+                          ownership ledger (``TPUSERVE_LEDGER``) names at
+                          drain.
 
 :func:`configure` rejects specs naming any other point: a typo'd point would
 arm a fault that never fires.
@@ -80,6 +95,9 @@ KNOWN_POINTS = frozenset({
     "engine.drain",
     "engine.preempt",
     "engine.spec.tree",
+    "engine.kv.demote",
+    "engine.kv.promote",
+    "engine.ledger.leak",
 })
 
 
@@ -157,9 +175,11 @@ class FaultInjector:
                 return r
         return None
 
-    def fire(self, point: str, request: Any = None, requests=None) -> None:
+    def fire(self, point: str, request: Any = None, requests=None, **ctx) -> None:
         """Run every armed spec of ``point``: sleep for ``delay``, then
-        raise :class:`InjectedFault` for ``raise`` actions."""
+        raise :class:`InjectedFault` for ``raise`` actions. ``ctx`` is the
+        seam's context (``pages`` of the tier seams), which no spec
+        matches on."""
         with self._lock:
             specs = [s for s in self._specs if s.point == point]
         for spec in specs:
@@ -186,9 +206,9 @@ def active() -> bool:
     return injector.active()
 
 
-def fire(point: str, request: Any = None, requests=None) -> None:
+def fire(point: str, request: Any = None, requests=None, **ctx) -> None:
     if injector.active():
-        injector.fire(point, request=request, requests=requests)
+        injector.fire(point, request=request, requests=requests, **ctx)
 
 
 def configure(specs) -> None:

@@ -1,7 +1,6 @@
 """Runtime KV/refcount sanitizer: prove the page accounting, don't assume it.
 
-A copy of ``clearml_serving_tpu/llm/kv_sanitizer.py`` without the host-RAM
-tier's checks. Live slots, the radix prefix cache, pins (in-flight
+A copy of ``clearml_serving_tpu/llm/kv_sanitizer.py``. Live slots, the radix prefix cache, pins (in-flight
 admissions' lookup pins and the pages a preempted request parks) and
 pending copy-on-write swaps share the pool's pages under one refcount. With
 ``TPUSERVE_SANITIZE=1`` the engine asserts, after every loop step and at
@@ -23,6 +22,12 @@ drain:
 6. **Scale rows** (int8 pools): the scale pools address exactly the
    allocator's pages, so every page operation covers its scale rows; drain
    leak reports name the stranded scale rows beside the pages.
+7. **Two-tier exclusivity** (the host-RAM tier): a page lives in exactly
+   one tier. No cache node holds both a device and a host payload; every
+   allocated host id is referenced by exactly one node and every id a node
+   references is allocated; the host free list has no duplicates, does not
+   overlap the allocated ids, and with them covers the tier; an int8
+   pool's tier carries scale slabs, and the page sizes agree.
 
 Failures raise :class:`KVSanitizerError` (an AssertionError) naming the
 offending pages. The checks are host-side integer audits over a locked
@@ -133,6 +138,41 @@ class KVSanitizer:
                             self.pool.page_size,
                         )
                     )
+
+        # (7) two-tier exclusivity (the host-RAM tier)
+        tier = getattr(pc, "host_tier", None) if pc is not None else None
+        if (tier is not None and self.prefix is not None
+                and getattr(self.prefix, "_host", None) is tier):
+            host_refs, dual = self.prefix.tier_refs()
+            hsnap = tier.snapshot()
+            if dual:
+                fail("{} cache node(s) hold BOTH a device and a host payload: a page "
+                     "must live in exactly one tier".format(dual))
+            hfree, hused = hsnap["free"], hsnap["used"]
+            if len(set(hfree)) != len(hfree):
+                dupes = sorted({h for h in hfree if hfree.count(h) > 1})
+                fail("host-tier free list contains duplicates: {}".format(dupes), pages=dupes)
+            overlap = sorted(set(hfree) & hused)
+            if overlap:
+                fail("host pages {} are both free and allocated".format(overlap),
+                     pages=overlap)
+            if len(hfree) + len(hused) != hsnap["num_pages"]:
+                fail("host tier accounts for {} + {} pages of {}".format(
+                    len(hfree), len(hused), hsnap["num_pages"]))
+            orphans = sorted(h for h in hused if host_refs.get(h, 0) != 1)
+            orphans += sorted(h for h in host_refs if h not in hused)
+            if orphans:
+                fail("host-tier ownership violated (each allocated id must be referenced "
+                     "by exactly one cache node): {}".format(sorted(set(orphans))),
+                     pages=sorted(set(orphans)))
+            if quantized != tier.quantized:
+                fail("host tier {} scale slabs but the device pools are {}quantized: "
+                     "demoted scale rows no longer track their pages".format(
+                         "lacks" if not tier.quantized else "carries",
+                         "" if quantized else "not "))
+            if tier.page_size != self.pool.page_size:
+                fail("host tier page size {} != device page size {}".format(
+                    tier.page_size, self.pool.page_size))
 
         # slot-table occurrences per page (a page CAN legally appear in
         # several slots — shared prefix mapped into multiple page tables)

@@ -9,9 +9,9 @@ Counterpart of ``clearml_serving_tpu/llm/openai_api.py``'s
 ``spec_k``, ``spec_ngram``, ``spec_sampling``, ``spec_tree``,
 ``spec_branch``, ``weight_quant`` and its legacy alias ``quantize``,
 ``seed``; the prefix cache's ``prefix_cache``, ``prefix_block``,
-``prefix_cache_mb`` and ``prefix_cache_pages`` (its host-RAM tier's
-``prefix_cache_host_pages`` and ``prefix_cache_host_mb`` raise, naming
-themselves); ``warmup``, which ``warmup_mode`` reads for the endpoint; the
+``prefix_cache_mb`` and ``prefix_cache_pages``, and its host-RAM tier's
+``prefix_cache_host_pages`` and ``prefix_cache_host_mb`` (a size in MiB,
+or ``"auto"``: half of the host's available memory); ``warmup``, which ``warmup_mode`` reads for the endpoint; the
 request lifecycle's ``max_pending``, ``queue_timeout``, ``ttft_timeout``,
 ``timeout``, ``watchdog_interval``, ``preemption``, ``preempt_budget``,
 ``starvation_floor``, ``brownout``, ``brownout_batch_cap``,
@@ -57,9 +57,8 @@ ENGINE_KEYS = (
     "preemption", "preempt_budget", "starvation_floor", "brownout",
     "brownout_batch_cap", "brownout_dwell", "default_priority",
     "prefix_cache", "prefix_block", "prefix_cache_mb", "prefix_cache_pages",
+    "prefix_cache_host_pages", "prefix_cache_host_mb",
 )
-# the reference's host-RAM KV tier behind the prefix cache: not ported yet
-HOST_TIER_KEYS = ("prefix_cache_host_pages", "prefix_cache_host_mb")
 
 CHAT_FIELDS = (
     "model", "messages", "max_tokens", "max_completion_tokens", "temperature",
@@ -125,12 +124,7 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     already-packed tree it must name the tree's format. ``cuda_graphs=False``
     builds the eager arm (``LLMEngineCore``'s argument; no aux key sets
     it)."""
-    for key in HOST_TIER_KEYS:
-        if engine_cfg.get(key):
-            raise ValueError(
-                "aux engine.{} is not supported by the PyTorch port yet (the host-RAM "
-                "KV tier behind the prefix cache)".format(key))
-    unknown = sorted(k for k in engine_cfg if k not in ENGINE_KEYS + HOST_TIER_KEYS)
+    unknown = sorted(k for k in engine_cfg if k not in ENGINE_KEYS)
     if unknown:
         raise ValueError(
             "aux engine keys {} are not supported by the PyTorch port yet".format(unknown)
@@ -244,6 +238,19 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
         prefix_cache_pages=(
             int(engine_cfg["prefix_cache_pages"])
             if engine_cfg.get("prefix_cache_pages") else None
+        ),
+        # the host-RAM tier behind the prefix cache: preallocated host pages
+        # (0/unset: none), or a budget in MiB; "auto" sizes it from
+        # /proc/meminfo when the engine is built
+        prefix_cache_host_pages=(
+            int(engine_cfg["prefix_cache_host_pages"])
+            if engine_cfg.get("prefix_cache_host_pages") else None
+        ),
+        prefix_cache_host_bytes=(
+            "auto"
+            if str(engine_cfg.get("prefix_cache_host_mb", "")).strip().lower() == "auto"
+            else int(float(engine_cfg["prefix_cache_host_mb"]) * (1 << 20))
+            if engine_cfg.get("prefix_cache_host_mb") else None
         ),
     )
     return engine, tokenizer

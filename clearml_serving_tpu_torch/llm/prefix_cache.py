@@ -1,9 +1,9 @@
 """Radix-tree prefix caching over shared, refcounted KV pages.
 
 A copy of ``clearml_serving_tpu/llm/prefix_cache.py``'s
-``RadixPrefixCache`` for the paged backend, without the host-RAM tier.
-Chat traffic shares system prompts, multi-turn histories and few-shot
-templates: the KV of a shared prompt head is computed once and reused.
+``RadixPrefixCache`` for the paged backend, with its host-RAM tier. Chat
+traffic shares system prompts, multi-turn histories and few-shot templates:
+the KV of a shared prompt head is computed once and reused.
 
 - Each tree edge carries one ``block`` of tokens (a multiple of the page
   size); children are keyed by the block's token tuple, so a probe walks
@@ -24,10 +24,28 @@ templates: the KV of a shared prompt head is computed once and reused.
 The prompt's final token is never cached: it computes live to produce the
 first token's logits (``longest_prefix_len``).
 
+Host-RAM tier: with a ``backend`` (the ``PagedKVCache`` whose host tier is
+enabled), eviction under the device budgets DEMOTES instead of dropping:
+the victims' pages (and int8 scale rows) are copied into host-tier pages
+and the nodes hold host ids instead; only the host budgets drop runs for
+real (host leaf LRU). Pinned runs are neither demoted nor dropped.
+Demotion candidates come from the resident frontier (resident nodes
+without resident children), so along any root-to-leaf path the demoted
+nodes are a suffix; ``store_pages`` keeps that true by re-onlining demoted
+path nodes by reference to the admitting slot's own pages. A lookup whose
+matched run has a demoted suffix PROMOTES it: fresh device pages are
+allocated and the copies into them are enqueued on the engine's stream
+before the page ids are returned (``PagedKVCache.promote_pages``), and the
+hit is tagged ``tier="host"``. A failed promotion (pool pressure, the
+``engine.kv.promote`` seam) drops the unpinned demoted suffix and falls
+back to the resident prefix: the tail recomputes, nothing leaks.
+
 Lookups pin the returned pages (a pool pin under the tree lock), so an
 eviction cannot free them between the lookup and the slot's mapping; the
 engine releases the pin once the pages are mapped or the admission failed.
-One mutex guards the tree: admissions run in worker threads.
+One mutex guards the tree: admissions run in worker threads. Hits and
+``pin_run`` holds record into the ownership ledger
+(``llm/lifecycle_ledger.py``) when it is armed.
 """
 
 from __future__ import annotations
@@ -35,20 +53,27 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
+from . import faults
+from . import lifecycle_ledger as _ledger
+
 
 class _Node:
     """One block-granular edge of the radix tree."""
 
-    __slots__ = ("parent", "edge", "children", "pages", "nbytes", "last_used", "pinned")
+    __slots__ = ("parent", "edge", "children", "pages", "host_pages", "nbytes",
+                 "last_used", "pinned")
 
     def __init__(self, parent: Optional["_Node"], edge: Tuple[int, ...]):
         self.parent = parent
         self.edge = edge          # this node's block of tokens
         self.children: Dict[Tuple[int, ...], "_Node"] = {}
+        # device page ids, or (demoted) host-tier page ids: a tiered node
+        # holds exactly one of the two (the sanitizer's two-tier rule)
         self.pages: Optional[List[int]] = None
+        self.host_pages: Optional[List[int]] = None
         self.nbytes = 0
         self.last_used = 0
-        # pin_run() holds: eviction must not drop this node
+        # pin_run() holds: eviction must neither drop nor demote this node
         self.pinned = 0
 
 
@@ -57,17 +82,15 @@ class RadixPrefixCache:
     count, bytes (default 2 GiB) and optionally pages.
 
     ``pool`` is the engine's ``PagePool``; ``page_bytes`` the device bytes
-    of one page (K and V, and the scale rows on int8 pools). ``backend``
-    names the reference's host-RAM tier, which the port does not have: it
-    must stay None."""
+    of one page (K and V, and the scale rows on int8 pools). ``backend``:
+    the ``PagedKVCache`` whose host tier is enabled (None: eviction drops,
+    as without a tier); ``host_max_pages`` (default the tier's capacity)
+    and ``host_max_bytes`` bound the host tier."""
 
     def __init__(self, max_nodes: int = 512, block: int = 64,
                  max_bytes: Optional[int] = None, *, max_pages: Optional[int] = None,
-                 pool=None, page_bytes: int = 0, backend=None):
-        if backend is not None:
-            raise ValueError(
-                "prefix_cache_host_pages: the host-RAM KV tier behind the prefix cache "
-                "is not supported by the PyTorch port yet")
+                 pool=None, page_bytes: int = 0, backend=None,
+                 host_max_pages: Optional[int] = None, host_max_bytes: Optional[int] = None):
         if pool is None:
             raise ValueError(
                 "RadixPrefixCache needs the paged backend's pool: the dense-cache "
@@ -81,18 +104,40 @@ class RadixPrefixCache:
         self.max_pages = int(max_pages) if max_pages else None
         self._pool = pool
         self._page_bytes = int(page_bytes)
+        self._backend = backend
+        self._host = getattr(backend, "host_tier", None) if backend is not None else None
+        if backend is not None and self._host is None:
+            raise ValueError("tiering backend given but its host tier is not enabled "
+                             "(PagedKVCache.enable_host_tier)")
+        if self._host is None:
+            self.host_max_pages = None
+        else:
+            self.host_max_pages = (min(int(host_max_pages), self._host.num_pages)
+                                   if host_max_pages else self._host.num_pages)
+        self.host_max_bytes = int(host_max_bytes) if host_max_bytes else None
         self._roots: Dict[int, _Node] = {}
         # leaves (nodes without children), maintained as nodes come and go
         self._leaf_nodes: set = set()
+        # the resident frontier (with a tier): resident nodes without
+        # resident children, the demotion candidates
+        self._frontier: set = set()
         self._bytes = 0
         self._pages = 0
+        self._host_bytes = 0
+        self._host_pages = 0
         self._n_nodes = 0
+        self._n_resident = 0    # resident nodes (the device budgets)
         self._clock = 0
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
         self.hit_tokens = 0     # prompt tokens served from the cache
         self.evictions = 0
+        # tier movement, and hits by the tier that served them (hbm: the
+        # run was resident; host: it needed a promotion)
+        self.demotions = 0
+        self.promotions = 0
+        self._hit_tiers: Dict[str, int] = {"hbm": 0, "host": 0}
 
     # -- shared helpers -------------------------------------------------------
 
@@ -145,6 +190,19 @@ class RadixPrefixCache:
         self._leaf_nodes.discard(parent)
         self._leaf_nodes.add(child)
         self._n_nodes += 1
+        if self._host is not None:
+            self._frontier_fix(child)
+            self._frontier_fix(parent)
+
+    def _frontier_fix(self, node: Optional[_Node]) -> None:  # lock held by the caller
+        """Re-derive one node's membership of the resident frontier."""
+        if node is None or node.parent is None:
+            return  # roots carry no payload
+        if node.pages is not None and not any(
+                c.pages is not None for c in node.children.values()):
+            self._frontier.add(node)
+        else:
+            self._frontier.discard(node)
 
     def uncount_hit(self, hit: Optional[Dict[str, Any]]) -> None:
         """The engine could not use a returned hit and recomputed the
@@ -155,32 +213,69 @@ class RadixPrefixCache:
             self.hits -= 1
             self.misses += 1
             self.hit_tokens -= int(hit.get("len", 0))
+            tier = hit.get("tier", "hbm")
+            if tier in self._hit_tiers:
+                self._hit_tiers[tier] -= 1
 
     # -- lookups ----------------------------------------------------------------
 
     def match_len(self, ids: List[int], lora: int = 0) -> int:
         """Tokens a lookup for ``ids`` would serve from the cache, without
         pinning pages or counting a hit or a miss (admission control's pool
-        headroom: a cached prefix needs no fresh pages)."""
+        headroom: a cached prefix needs no fresh pages). With a host tier,
+        only the resident run counts: a demoted suffix allocates fresh
+        device pages when it is promoted."""
         with self._lock:
-            return self._walk(ids, lora)[1]
+            node, depth = self._walk(ids, lora)
+            if self._host is None:
+                return depth
+            resident = 0
+            for n in self._path_nodes(node):
+                if n.pages is None:
+                    break
+                resident += self.block
+        return min(resident, depth)
 
     def lookup_pages(self, ids: List[int], lora: int = 0) -> Optional[Dict[str, Any]]:
         """Longest stored block run of ``ids``: ``{"len": P, "pages":
-        [ids], "tier": "hbm"}`` with the pages PINNED for the caller, who
-        must ``release()`` the hit; None on a miss."""
+        [ids], "tier": "hbm"|"host"}`` with the pages PINNED for the
+        caller, who must ``release()`` the hit; None on a miss. A demoted
+        suffix of the run is promoted first (its copies enqueued before
+        this returns); if that fails, the unpinned suffix drops and the hit
+        shortens to the resident prefix."""
         with self._lock:
             node, depth = self._walk(ids, lora)
             if depth < self.block:
                 self.misses += 1
                 return None
+            path = self._path_nodes(node)
+            tier = "hbm"
+            if self._host is not None:
+                first_demoted = next((i for i, n in enumerate(path) if n.pages is None), None)
+                if first_demoted is not None:
+                    if self._promote_run(path[first_demoted:]):
+                        tier = "host"
+                    else:
+                        # fall back to the resident prefix; a pinned demoted
+                        # suffix survives for its pin holder
+                        if not self._subtree_pinned(path[first_demoted]):
+                            self._drop_subtree(path[first_demoted])
+                        path = path[:first_demoted]
+                        depth = first_demoted * self.block
+                        if depth < self.block:
+                            self.misses += 1
+                            return None
             self.hits += 1
             self.hit_tokens += depth
+            self._hit_tiers[tier] += 1
             pages: List[int] = []
-            for n in self._path_nodes(node):
+            for n in path:
                 pages.extend(n.pages)
             self._pool.pin_pages(pages)
-        return {"len": depth, "pages": pages, "tier": "hbm"}
+        hit = {"len": depth, "pages": pages, "tier": tier}
+        if _ledger.armed():
+            _ledger.acquire("prefix.hit", key=id(hit), domain=self)
+        return hit
 
     def release(self, hit: Optional[Dict[str, Any]]) -> None:
         """Drop a ``lookup_pages`` pin (after the slot mapping took its own
@@ -188,13 +283,18 @@ class RadixPrefixCache:
         pages = hit.pop("pages", None) if hit else None
         if pages:
             self._pool.unpin_pages(pages)
+            if _ledger.armed():
+                _ledger.release("prefix.hit", key=id(hit), domain=self)
 
     # -- storing ------------------------------------------------------------------
 
     def store_pages(self, ids: List[int], lora: int, slot_pages: List[int]) -> None:
         """Store the prompt's block-aligned prefix by REFERENCE to the
         admitting slot's pages. Blocks already in the tree are skipped:
-        their pages may belong to an earlier admission."""
+        their pages may belong to an earlier admission. With a tier, a
+        demoted node on the matched path is re-onlined by reference to the
+        slot's own pages (which hold this very prefix), top-down, before
+        new children attach below it."""
         p = self.longest_prefix_len(len(ids))
         if p < self.block:
             return
@@ -202,6 +302,30 @@ class RadixPrefixCache:
         with self._lock:
             node, depth = self._walk(ids, lora)
             now = self._clock
+            if self._host is not None:
+                reonlined = 0
+                for i, n in enumerate(self._path_nodes(node)):
+                    if n.pages is not None or n.host_pages is None:
+                        continue
+                    first = (i * self.block) // self._pool.page_size
+                    pages = list(slot_pages[first:first + ppb])
+                    if len(pages) < ppb:
+                        break  # a slot shorter than this depth: stays demoted
+                    self._pool.ref_pages(pages)
+                    self._host.free(n.host_pages)
+                    self._host_pages -= len(n.host_pages)
+                    self._host_bytes -= n.nbytes
+                    n.host_pages = None
+                    n.pages = pages
+                    self._pages += len(pages)
+                    self._bytes += n.nbytes
+                    self._n_resident += 1
+                    reonlined += 1
+                    self._frontier_fix(n)
+                    self._frontier_fix(n.parent)
+                if reonlined:
+                    # one promotion per re-onlined run, as _promote_run counts
+                    self.promotions += 1
             while depth + self.block <= p:
                 first = depth // self._pool.page_size
                 pages = list(slot_pages[first:first + ppb])
@@ -215,13 +339,15 @@ class RadixPrefixCache:
                 self._attach(node, child)
                 self._bytes += child.nbytes
                 self._pages += ppb
+                self._n_resident += 1
                 node = child
                 depth += self.block
             self._evict_over_budget()
 
     def pin_run(self, ids: List[int], lora: int = 0) -> Optional[Dict[str, Any]]:
-        """Protect the stored run for ``ids`` from eviction until
-        ``unpin_run``. Returns a handle, or None when nothing is stored."""
+        """Protect the stored run for ``ids`` from eviction and demotion
+        until ``unpin_run``. Returns a handle (``host_nodes``: how many of
+        its nodes are demoted), or None when nothing is stored."""
         with self._lock:
             node, depth = self._walk(ids, lora)
             if depth < self.block:
@@ -229,7 +355,11 @@ class RadixPrefixCache:
             nodes = self._path_nodes(node)
             for n in nodes:
                 n.pinned += 1
-            return {"nodes": nodes, "len": depth, "host_nodes": 0}
+            handle = {"nodes": nodes, "len": depth,
+                      "host_nodes": sum(1 for n in nodes if n.host_pages is not None)}
+            if _ledger.armed():
+                _ledger.acquire("prefix.resume_pin", key=id(handle), domain=self)
+            return handle
 
     def unpin_run(self, handle: Optional[Dict[str, Any]]) -> None:
         """Release a ``pin_run`` hold; the eviction it deferred runs now."""
@@ -238,36 +368,253 @@ class RadixPrefixCache:
         with self._lock:
             for n in handle.pop("nodes", ()):
                 n.pinned = max(0, n.pinned - 1)
+            if _ledger.armed():
+                _ledger.release("prefix.resume_pin", key=id(handle), domain=self)
             self._evict_over_budget()
 
-    # -- eviction -------------------------------------------------------------------
+    # -- eviction and tiering ---------------------------------------------------------
 
     def _over_budget(self) -> bool:
+        """The device budgets. With a host tier the node budget counts
+        resident nodes only: demotion keeps a node in the tree."""
+        nodes = self._n_resident if self._host is not None else self._n_nodes
         return (
-            self._n_nodes > self.max_nodes
+            nodes > self.max_nodes
             or self._bytes > self.max_bytes
             or (self.max_pages is not None and self._pages > self.max_pages)
         )
 
+    def _host_over_budget(self, extra_pages: int = 0, extra_bytes: int = 0) -> bool:
+        """The host budgets; ``extra_*`` reserves room for a demotion about
+        to land."""
+        if self._host is None:
+            return False
+        return (self._host_pages + extra_pages > self.host_max_pages
+                or (self.host_max_bytes is not None
+                    and self._host_bytes + extra_bytes > self.host_max_bytes))
+
+    def _release_node_payload(self, n: _Node) -> None:  # lock held by the caller
+        """The accounting of one node leaving the tree, in either tier: the
+        cache's page references or its host ids go."""
+        self._leaf_nodes.discard(n)
+        self._frontier.discard(n)
+        self._n_nodes -= 1
+        if n.host_pages is not None:
+            self._host_pages -= len(n.host_pages)
+            self._host_bytes -= n.nbytes
+            self._host.free(n.host_pages)
+        else:
+            self._bytes -= n.nbytes
+            if n.pages is not None:
+                self._pages -= len(n.pages)
+                self._n_resident -= 1
+                self._pool.unref_pages(n.pages)
+        n.parent = None
+        self.evictions += 1
+
     def _drop_leaf(self, victim: _Node) -> None:  # lock held by the caller
-        """Remove one leaf; the cache's page references drop with it."""
+        """Remove one leaf (either tier)."""
         parent = victim.parent
         parent.children.pop(victim.edge, None)
         if not parent.children and parent.parent is not None:
             self._leaf_nodes.add(parent)
-        self._leaf_nodes.discard(victim)
-        self._n_nodes -= 1
-        self._bytes -= victim.nbytes
-        self._pages -= len(victim.pages)
-        self._pool.unref_pages(victim.pages)
-        victim.parent = None
-        self.evictions += 1
+        self._release_node_payload(victim)
+        if self._host is not None:
+            self._frontier_fix(parent)
+
+    def _subtree_pinned(self, root: _Node) -> bool:  # lock held by the caller
+        """Whether ``root`` or a descendant holds a ``pin_run`` pin."""
+        stack = [root]
+        while stack:
+            n = stack.pop()
+            if n.pinned:
+                return True
+            stack.extend(n.children.values())
+        return False
+
+    def _drop_subtree(self, root: _Node) -> None:  # lock held by the caller
+        """Remove ``root`` and every descendant (the demote and promote
+        failures' fallbacks: the run recomputes instead of leaking)."""
+        stack, nodes = [root], []
+        while stack:
+            n = stack.pop()
+            nodes.append(n)
+            stack.extend(n.children.values())
+        parent = root.parent
+        parent.children.pop(root.edge, None)
+        if not parent.children and parent.parent is not None:
+            self._leaf_nodes.add(parent)
+        for n in nodes:
+            self._release_node_payload(n)
+        if self._host is not None:
+            self._frontier_fix(parent)
+
+    def _demote(self, victims: List[_Node]) -> bool:  # lock held by the caller
+        """Move resident frontier nodes' pages to the host tier in one
+        backend call, then drop the cache's device references (a page no
+        live slot maps returns to the free list; the backend orders any
+        later write into it after the copy). False (the caller drops
+        instead) when the tier is full or the ``engine.kv.demote`` seam
+        fires."""
+        all_pages = [p for v in victims for p in v.pages]
+        if faults.active():
+            try:
+                faults.fire("engine.kv.demote", pages=all_pages)
+            except faults.InjectedFault:
+                return False
+        try:
+            host_ids = self._backend.demote_pages(all_pages)
+        except MemoryError:
+            return False
+        i = 0
+        for victim in victims:
+            pages = victim.pages
+            k = len(pages)
+            victim.host_pages = host_ids[i:i + k]
+            i += k
+            victim.pages = None
+            self._pages -= k
+            self._bytes -= victim.nbytes
+            self._n_resident -= 1
+            self._host_pages += k
+            self._host_bytes += victim.nbytes
+            self._pool.unref_pages(pages)
+            self._frontier.discard(victim)
+            self._frontier_fix(victim.parent)
+        # one demotion per batched round (pages: the backend's count)
+        self.demotions += 1
+        return True
+
+    def _promote_run(self, nodes: List[_Node]) -> bool:  # lock held by the caller
+        """Re-online a demoted path suffix: allocate device pages, enqueue
+        the copies into them, then flip the nodes. False on pool pressure
+        or the ``engine.kv.promote`` seam; the caller then drops the
+        suffix (recompute, no leak). A failed copy raises."""
+        total = sum(len(n.host_pages) for n in nodes)
+        if faults.active():
+            try:
+                faults.fire("engine.kv.promote", pages=total)
+            except faults.InjectedFault:
+                return False
+        try:
+            fresh = self._pool.allocate_cache_pages(total)
+        except MemoryError:
+            return False
+        host_ids = [h for n in nodes for h in n.host_pages]
+        try:
+            self._backend.promote_pages(host_ids, fresh)
+        except BaseException:
+            # a failed copy is not a fallback: the payload is gone (the
+            # backend freed the host ids when it staged them). Release the
+            # fresh pages, orphan the nodes' host side so the drop below
+            # does not free it twice, drop the suffix, and raise
+            for n in nodes:
+                self._host_pages -= len(n.host_pages)
+                self._host_bytes -= n.nbytes
+                n.host_pages = None
+                n.nbytes = 0
+            self._pool.unref_pages(fresh)
+            self._drop_subtree(nodes[0])
+            raise
+        i = 0
+        for n in nodes:
+            k = len(n.host_pages)
+            n.pages = list(fresh[i:i + k])
+            i += k
+            n.host_pages = None
+            self._pages += k
+            self._bytes += n.nbytes
+            self._n_resident += 1
+            self._host_pages -= k
+            self._host_bytes -= n.nbytes
+            self._frontier_fix(n)
+            self._frontier_fix(n.parent)
+        self.promotions += 1
+        return True
+
+    def spill(self, target_pages: int = 0) -> int:
+        """Demote resident runs (LRU over the resident frontier; pinned
+        runs stay) until at most ``target_pages`` device pages remain
+        cached. A test and operations hook that forces the cold-cache state
+        the tier exists for. Returns the pages demoted."""
+        if self._host is None:
+            return 0
+        moved = 0
+        with self._lock:
+            while self._pages > target_pages:
+                victims = self._demotion_round(lambda pages, _b, _n: pages > target_pages)
+                if not victims:
+                    break
+                self._evict_host_over_budget(
+                    extra_pages=sum(len(v.pages) for v in victims),
+                    extra_bytes=sum(v.nbytes for v in victims))
+                if not self._demote(victims):
+                    break
+                moved += sum(len(v.host_pages) for v in victims)
+            self._evict_host_over_budget()
+        return moved
+
+    def _demotion_round(self, still_over) -> List[_Node]:  # lock held by the caller
+        """LRU-ordered victims whose projected removal clears
+        ``still_over(pages, bytes, resident_nodes)``, chosen up front so one
+        backend copy moves the whole round. Choosing a frontier node
+        exposes its parent as the next candidate, so a whole cold run is
+        demoted before any page of a newer one."""
+        cand = {n for n in self._frontier if not n.pinned}
+        victims: List[_Node] = []
+        selected: set = set()
+        pages, nbytes, nres = self._pages, self._bytes, self._n_resident
+        while cand and still_over(pages, nbytes, nres):
+            victim = min(cand, key=lambda n: n.last_used)
+            cand.discard(victim)
+            victims.append(victim)
+            selected.add(victim)
+            pages -= len(victim.pages)
+            nbytes -= victim.nbytes
+            nres -= 1
+            parent = victim.parent
+            if (parent is not None and parent.parent is not None
+                    and parent.pages is not None and not parent.pinned
+                    and all(c.pages is None or c in selected
+                            for c in parent.children.values())):
+                cand.add(parent)
+        return victims
 
     def _evict_over_budget(self) -> None:  # lock held by the caller
-        """Drop least recently used unpinned leaves while over a budget;
-        with every candidate pinned, the overage waits for ``unpin_run``."""
+        """LRU eviction. Without a tier: drop least recently used unpinned
+        leaves while over a budget. With one: device pressure demotes a
+        batched round of LRU frontier nodes (host room made first), and
+        only host pressure drops runs. With every candidate pinned, the
+        overage waits for ``unpin_run``."""
         while self._over_budget():
-            candidates = [n for n in self._leaf_nodes if not n.pinned]
+            if self._host is None:
+                candidates = [n for n in self._leaf_nodes if not n.pinned]
+                if not candidates:
+                    return
+                self._drop_leaf(min(candidates, key=lambda n: n.last_used))
+                continue
+            max_nodes, max_bytes, max_pages = self.max_nodes, self.max_bytes, self.max_pages
+            victims = self._demotion_round(
+                lambda pages, nbytes, nres: (
+                    nres > max_nodes or nbytes > max_bytes
+                    or (max_pages is not None and pages > max_pages)))
+            if not victims:
+                break
+            self._evict_host_over_budget(
+                extra_pages=sum(len(v.pages) for v in victims),
+                extra_bytes=sum(v.nbytes for v in victims))
+            if not self._demote(victims):
+                # the tier is full even after host eviction (pinned host
+                # runs), or the demote seam fired: drop the LRU victim and
+                # its (demoted) descendants; the loop plans the rest again
+                self._drop_subtree(victims[0])
+        self._evict_host_over_budget()
+
+    def _evict_host_over_budget(self, extra_pages: int = 0,
+                                extra_bytes: int = 0) -> None:  # lock held by the caller
+        while self._host_over_budget(extra_pages, extra_bytes):
+            candidates = [n for n in self._leaf_nodes
+                          if not n.pinned and n.host_pages is not None]
             if not candidates:
                 return
             self._drop_leaf(min(candidates, key=lambda n: n.last_used))
@@ -290,6 +637,22 @@ class RadixPrefixCache:
                 return counts
             return counts, pool.snapshot()
 
+    def tier_refs(self) -> Tuple[Dict[int, int], int]:
+        """(references per host id, nodes holding both payloads) under one
+        tree-lock hold: the sanitizer's two-tier audit."""
+        with self._lock:
+            counts: Dict[int, int] = {}
+            dual = 0
+            stack = list(self._roots.values())
+            while stack:
+                node = stack.pop()
+                stack.extend(node.children.values())
+                if node.pages is not None and node.host_pages is not None:
+                    dual += 1
+                for hid in node.host_pages or ():
+                    counts[hid] = counts.get(hid, 0) + 1
+            return counts, dual
+
     # -- observability -------------------------------------------------------------
 
     @property
@@ -304,7 +667,7 @@ class RadixPrefixCache:
         return self._n_nodes
 
     def stats(self) -> Dict[str, Any]:
-        """The reference's keys; the host-tier ones stay zero."""
+        """The reference's keys (the host ones zero without a tier)."""
         with self._lock:
             return {
                 "hits": self.hits,
@@ -314,10 +677,11 @@ class RadixPrefixCache:
                 "nodes": self._n_nodes,
                 "cached_bytes": self._bytes,
                 "cached_pages": self._pages,
-                "hits_by_tier": {"hbm": self.hits, "host": 0},
-                "host_nodes": 0,
-                "host_bytes": 0,
-                "host_pages": 0,
-                "demotions": 0,
-                "promotions": 0,
+                "hits_by_tier": dict(self._hit_tiers),
+                "host_nodes": (self._n_nodes - self._n_resident
+                               if self._host is not None else 0),
+                "host_bytes": self._host_bytes,
+                "host_pages": self._host_pages,
+                "demotions": self.demotions,
+                "promotions": self.promotions,
             }

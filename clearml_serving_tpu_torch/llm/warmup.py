@@ -14,11 +14,13 @@ port serves:
 - with the prefix cache on, the reference's startup subset instead
   (``warmup_plan(full=False)``): per bucket a cold prompt whose
   block-aligned head is stored, then a second prompt with the same head
-  that hits it (the gather and the tail's ``prefill_chunk`` segments).
+  that hits it (the gather and the tail's ``prefill_chunk`` segments);
+  with the host-RAM tier, the sweep ends by waiting for every promotion
+  it started (``reap_promotions(force=True)``).
 
 The reference's full sweep (resume tails, copy-on-write and transport
 steps, the ragged variants) stays out: ragged launches run eagerly, and
-the host tier and the fleet are not ported.
+the fleet is not ported.
 """
 
 from __future__ import annotations
@@ -72,6 +74,8 @@ async def run_warmup(engine) -> Dict[str, Any]:
             async for _ in engine.generate(request):
                 pass
             await engine.wait_drained()
+        # the pairs' hits may have promoted demoted heads
+        engine._reap_promotions(force=True)
     finally:
         engine._warming = False
     return {"requests": len(plan),

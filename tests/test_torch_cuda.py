@@ -4,7 +4,8 @@ its draft-tree mask) and the w4a16 matmul against their plain PyTorch
 versions, their gates and launch counts, and the engine on the card under
 both schedulers, with bf16 and int4 weights and with speculative verify
 rows, and its request lifecycle over CUDA-graph replays (watchdog recovery,
-a capture inside the watchdog's grace, a preemption). They skip
+a capture inside the watchdog's grace, a preemption), the prefix cache's
+shared pages and its host-RAM tier's stream-ordered copies. They skip
 elsewhere. This file
 imports neither jax nor the JAX package, so on the card it runs as
 
@@ -1194,3 +1195,145 @@ def test_hit_slot_decode_chunks_replayed_equal_eager(cuda, kv_quant):
     assert g_pages == e_pages and len(g_pages) == 64 // page
     for got, want in zip(g_pools, e_pools):
         assert torch.equal(got, want)
+
+
+# -- the prefix cache's host-RAM tier ----------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8"])
+def test_tier_round_trip_does_not_sync(cuda, kv_quant):
+    """Demote three pages into the pinned tier and promote them into fresh
+    pages under ``torch.cuda.set_sync_debug_mode("error")``: no call of
+    the round trip synchronizes (the test itself waits for the copies by
+    ``query()``, as time passing would); the promoted rows (and int8 scale
+    rows) equal the demoted ones bit for bit."""
+    cache = _random_cache(cuda, kv_quant)
+    tier = cache.enable_host_tier(4)
+    assert tier.pinned and all(t.is_pinned() for t in tier.slabs())
+    pages, fresh = [3, 5, 6], [8, 9, 11]
+    before = [t[:, :, pages].clone() for t in _pools(cache)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.ones(1, device=cuda).item()   # the mode catches a sync
+        host_ids = cache.demote_pages(pages)
+        while not all(ev.query() for _ids, ev in cache._demotions):
+            time.sleep(0.001)
+        cache.promote_pages(host_ids, fresh)
+        while cache.reap_promotions() == 0:
+            time.sleep(0.001)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert cache.promo_stage_waits == 0
+    cache.demote_pages([2])          # keeps only the copies still landing
+    assert len(cache._demotions) == 1
+    for want, pool in zip(before, _pools(cache)):
+        assert torch.equal(pool[:, :, fresh], want)
+    stats = cache.tier_stats()
+    assert (stats["demoted_pages_total"], stats["promoted_pages_total"],
+            stats["promotions_reaped"], stats["host_pages_used"]) == (4, 3, 1, 1)
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8"])
+def test_demoted_page_reallocated_and_written_at_once(cuda, kv_quant):
+    """The engine's stream is busy (a sleep kernel) when three pages are
+    demoted; their slot is freed, the same pages are allocated again and
+    overwritten on the engine's stream at once, with no host wait. The
+    host rows still equal the rows from before: the write waited for the
+    copy."""
+    cache = _random_cache(cuda, kv_quant)
+    tier = cache.enable_host_tier(4)
+    pool = cache.pool
+    pool.allocate(0, 48)
+    pages = pool.slot_pages(0)
+    before = [t[:, :, pages].movedim(2, 0).cpu() for t in _pools(cache)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)            # ~tens of ms of device time
+    host_ids = cache.demote_pages(pages)
+    pool.free(0)
+    pool.allocate(1, 48)
+    assert sorted(pool.slot_pages(1)) == sorted(pages)   # the same pages again
+    for t in _pools(cache):
+        t[:, :, pages] = -3 if t.dtype == torch.int8 else 7.0
+    torch.cuda.synchronize()
+    for want, slab in zip(before, tier.slabs()):
+        assert torch.equal(slab[host_ids], want)
+    assert all(bool((t[:, :, pages] != 0).all()) for t in _pools(cache))
+
+
+def test_reap_promotions_with_force_and_without(cuda):
+    """A promotion whose copies wait behind a busy engine stream is not
+    reaped at a retire boundary (``query()``), is reaped once done, and
+    ``force`` waits for the rest; ``overlap_ratio`` counts the wait."""
+    cache = _random_cache(cuda, "")
+    cache.enable_host_tier(4)
+    host_ids = cache.demote_pages([2, 4])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    cache.promote_pages(host_ids, [7, 8])
+    assert cache.reap_promotions() == 0          # still behind the sleep
+    assert cache.reap_promotions(force=True) == 1
+    assert cache.promo_wait_ms > 0
+    host_ids = cache.demote_pages([3])
+    torch.cuda.synchronize()
+    cache.promote_pages(host_ids, [9])
+    torch.cuda.synchronize()
+    assert cache.reap_promotions() == 1 and cache.reap_promotions(force=True) == 0
+    stats = cache.tier_stats()
+    assert stats["promotions_reaped"] == 2 and 0.0 <= stats["overlap_ratio"] < 1.0
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8"])
+def test_promotion_beside_a_replay_in_flight_is_read_by_the_next_replay(cuda, kv_quant):
+    """Depth 2 with graphs captured at warmup: a chat stores a 64-token
+    head, which is spilled to the host tier; while a long chat keeps decode
+    replays in flight, the head's second chat promotes it (its copies
+    enqueued on the engine's stream behind the replay in flight) and its
+    decode replays read the promoted pages. Both streams equal those of an
+    engine without a tier whose second chat is an HBM hit, bit for bit."""
+    model = _small_model(cuda, kv_quant)
+    page = 32 if kv_quant else 16
+    kw = dict(LIFECYCLE_KW, page_size=page, prefix_cache=16, prefix_block=64)
+    head = [(i * 7 + 3) % 250 + 1 for i in range(64)]
+    first, second = head + [5, 6, 7], head + list(range(20, 41))
+    long_chat = [(i * 11 + 5) % 250 + 1 for i in range(40)]
+
+    def run(tiered):
+        engine = LLMEngineCore(model, prefix_cache_host_pages=16 if tiered else None, **kw)
+        seen = []
+        if tiered:
+            real = engine.paged_cache.promote_pages
+
+            def promote(host_ids, pages):
+                seen.append(len(engine._inflight))
+                real(host_ids, pages)
+
+            engine.paged_cache.promote_pages = promote
+
+        async def go():
+            await engine.warmup()
+            await _stream(engine, GenRequest(prompt_ids=first, max_new_tokens=4))
+            await engine.wait_drained()
+            if tiered:
+                # the warmup's stored heads are demoted with it
+                assert engine._prefix.spill(0) >= 64 // page
+            busy = GenRequest(prompt_ids=long_chat, max_new_tokens=96)
+            busy_task = asyncio.ensure_future(_stream(engine, busy))
+            while busy.produced < 8:
+                await asyncio.sleep(0.001)
+            hit = await _stream(engine, GenRequest(prompt_ids=second, max_new_tokens=24))
+            return hit, await busy_task
+
+        streams = asyncio.run(asyncio.wait_for(go(), 180))
+        stats = engine._prefix.stats()
+        assert engine.counters["serve_captures"] == 0
+        engine.stop()
+        return streams, stats, seen
+
+    (hit_t, busy_t), stats_t, seen = run(True)
+    (hit_c, busy_c), stats_c, _ = run(False)
+    assert stats_t["hits_by_tier"]["host"] == 1 and stats_c["hits_by_tier"]["host"] == 0
+    assert seen and seen[0] >= 1          # a replay was queued when it promoted
+    assert hit_t == hit_c and busy_t == busy_c

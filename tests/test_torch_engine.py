@@ -116,7 +116,7 @@ def test_prompt_past_max_seq_len_is_refused(tiny_np):
 
 @pytest.mark.parametrize("knob", [
     {"cache_mode": "dense"}, {"ragged_decode_steps": 8}, {"chunked_prefill_size": 64},
-    {"speculation": "ngram"}, {"prefix_cache_host_pages": 8}, {"weight_quant": "int4"},
+    {"speculation": "ngram"}, {"lora_adapters": ["adapter"]}, {"weight_quant": "int4"},
 ], ids=["dense", "ragged", "chunked_prefill", "speculation", "prefix_cache", "weight_quant"])
 def test_unsupported_knob_raises_naming_itself(tiny_np, knob):
     model = Llama(TINY, convert_params(tiny_np, device="cpu"))

@@ -102,15 +102,21 @@ def test_seeded_tree_sequence_matches_reference(seed, budget):
 
 def test_lora_namespace_and_backend_knob():
     """Adapter index 0 is the only namespace the port uses; another index
-    misses. A tiering backend raises naming the host-tier knob, and the
-    dense backend (no pool) raises too."""
+    misses. A tiering backend is served once its host tier is enabled (the
+    reference's message when it is not), and the dense backend (no pool)
+    raises."""
     cache, pool = _paged_cache()
     pool.allocate(0, 6)
     cache.store_pages([1, 2, 3, 4, 5, 6], 0, pool.slot_pages(0))
     assert cache.match_len([1, 2, 3, 4, 9], 0) == 4
     assert cache.lookup_pages([1, 2, 3, 4, 9], 1) is None
-    with pytest.raises(ValueError, match="prefix_cache_host_pages"):
-        RadixPrefixCache(pool=pool, block=4, backend=object())
+    backend = PagedKVCache(1, 1, 4, num_pages=8, page_size=2, max_slots=2,
+                           dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="host tier is not enabled"):
+        RadixPrefixCache(pool=backend.pool, block=4, backend=backend)
+    backend.enable_host_tier(4)
+    tiered = RadixPrefixCache(pool=backend.pool, block=4, backend=backend, host_max_pages=3)
+    assert tiered.host_max_pages == 3 and tiered.stats()["host_pages"] == 0
     with pytest.raises(ValueError, match="dense"):
         RadixPrefixCache(block=4)
 
