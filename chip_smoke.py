@@ -132,6 +132,27 @@ exits non-zero before the result lines are printed:
    the tier's pinned allocation time and the page count ``"auto"`` picks on
    the machine.
 
+10. the sampling surface of the OpenAI routes: Llama-3-8B at full width
+   (seed-0 weights, max_batch 8, max_seq_len 2048). 10a, two-dispatch at
+   depth 2 with graphs, bf16 KV: 8 concurrent ~100-token chats of 128
+   tokens (four seeded sampled with penalties and ``top_logprobs`` 5, two
+   greedy with ``logit_bias`` and logprobs, two plain); the four seeded
+   chats again alone, at depth 1 and eager (``cuda_graphs=False``), each
+   bitwise the first contents; a +100 bias forces its token at every step;
+   ``min_tokens`` 16 with EOS biased to the top gives 16 tokens, then EOS;
+   greedy rows' chosen logprob equals their ``top_logprobs[0]``; ``n: 4``
+   with seed s equals four single requests with seeds s..s+3; ``echo`` +
+   ``logprobs`` 5 + ``max_tokens: 0`` on a 2047-token prompt (its time and
+   the rise of ``torch.cuda.max_memory_allocated``), and a greedy
+   completion scored back within 2e-2 of the decode path's entries.
+   Prints ms per decode step on 8 x 128-token chats for plain sampled,
+   extras without seeds, extras with seeds and extras with seeds +
+   logprobs, and each new graph variant's first-use capture time. 10b,
+   ragged (budget 256), int8 KV, ``speculation: ngram`` with ``spec_tree``:
+   the four seeded chats beside two repetitive greedy chats, twice, bitwise
+   equal; the extras rows never ride as verify rows (one token per decode
+   step) while the greedy ones do. The kernels' launches per step in both.
+
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, and the ragged kernel's tree variant) and
 ``{"ok": true, "device": {...}}``. Timings are CUDA-event
@@ -3254,6 +3275,312 @@ def phase_kv_tier(params, card: str, preset: str = "llama3-8b") -> dict:
     return out
 
 
+SAMPLING_NOTES = ("The port serves the OpenAI routes over paged attention on one card; this "
+                  "chat asks for a short answer about how decode batches are formed, ")
+# eight ~100-token chats: four seeded sampled with penalties and logprobs,
+# two greedy with a logit bias (one forcing 'A' at +100) and logprobs, two
+# plain
+SAMPLING_CHATS = [
+    (SAMPLING_NOTES + "seeded chat {}.".format(i),
+     {"temperature": 0.8, "top_p": 0.9, "seed": 1000 + i, "presence_penalty": 0.4,
+      "frequency_penalty": 0.3, "repetition_penalty": 1.1, "logprobs": True,
+      "top_logprobs": 5})
+    for i in range(4)
+] + [
+    (SAMPLING_NOTES + "greedy chat forced.", {"logit_bias": {"65": 100.0}, "logprobs": True,
+                                              "top_logprobs": 5}),
+    (SAMPLING_NOTES + "greedy chat nudged.", {"logit_bias": {"101": 3.0}, "logprobs": True,
+                                              "top_logprobs": 5}),
+    (SAMPLING_NOTES + "plain chat one.", {"temperature": 0.7}),
+    (SAMPLING_NOTES + "plain chat two.", {}),
+]
+SAMPLING_TOKENS = 128
+# a scored-back completion against its decode entries (bf16 logits allow
+# two ulps more: bf16_logit_ulp)
+SCORE_TOL = 2e-2
+SAMPLING_SPEC_TOKENS = 64
+# the decode-step timing variants: 8 chats each, 128 tokens
+STEP_VARIANTS = [
+    ("plain_sampled", {"temperature": 0.8}),
+    ("extras_unseeded", {"temperature": 0.8, "presence_penalty": 0.4}),
+    ("extras_seeded", {"temperature": 0.8, "presence_penalty": 0.4, "seed": 7}),
+    ("extras_seeded_logprobs", {"temperature": 0.8, "presence_penalty": 0.4, "seed": 7,
+                                "logprobs": True, "top_logprobs": 5}),
+]
+SPEC_SAMPLING_GREEDY = [SPEC_PROMPTS[0], SPEC_PROMPTS[1]]
+
+
+async def post_json(session, base, path, body) -> dict:
+    async with session.post(base + path, json=dict(body, model="llama3-8b")) as r:
+        if r.status != 200:
+            raise AssertionError("{} -> HTTP {}: {}".format(path, r.status, await r.text()))
+        return await r.json()
+
+
+async def sampling_chats(s, base, chats, max_tokens, seed_offset=0) -> list:
+    """The chats concurrently (non-streamed): per chat (content, logprob
+    content or None, completion tokens, finish reason)."""
+    async def one(prompt, fields):
+        out = await post_json(s, base, "/serve/openai/v1/chat/completions", dict(
+            fields, messages=[{"role": "user", "content": prompt}], max_tokens=max_tokens))
+        choice = out["choices"][0]
+        lp = choice["logprobs"]["content"] if choice["logprobs"] else None
+        return (choice["message"]["content"], lp, out["usage"]["completion_tokens"],
+                choice["finish_reason"])
+
+    return list(await asyncio.gather(*(one(p, f) for p, f in chats)))
+
+
+def _zero_counts(engine) -> None:
+    from clearml_serving_tpu_torch.ops.paged_attention import (
+        paged_attention, ragged_paged_attention)
+
+    for key in engine.counters:
+        engine.counters[key] = 0 if isinstance(engine.counters[key], int) else 0.0
+    paged_attention.launches = ragged_paged_attention.launches = 0
+    ragged_paged_attention.tree_launches = 0
+
+
+def _launch_counts() -> dict:
+    from clearml_serving_tpu_torch.ops.paged_attention import (
+        paged_attention, ragged_paged_attention)
+
+    return {"paged": paged_attention.launches, "ragged": ragged_paged_attention.launches,
+            "tree": ragged_paged_attention.tree_launches}
+
+
+async def sampling_10a(engine, tokenizer, card: str) -> dict:
+    """Phase 10a's traffic and holds on one two-dispatch engine (depth 2,
+    graphs, warmed up). Returns the seeded contents and the numbers."""
+    out = {}
+    async with served(engine, tokenizer) as (_app, base, s):
+        await engine.warmup()
+        _zero_counts(engine)
+        t0 = time.perf_counter()
+        first = await sampling_chats(s, base, SAMPLING_CHATS, SAMPLING_TOKENS)
+        out["wall_s"] = time.perf_counter() - t0
+        c = dict(engine.counters)
+        launches = _launch_counts()
+        n_layers = engine.model.n_layers
+        if c["decode_steps"] == 0 or launches["paged"] != n_layers * c["decode_steps"]:
+            raise AssertionError("10a: paged_attention launched {} times for {} decode steps"
+                                 .format(launches["paged"], c["decode_steps"]))
+        out.update(paged_launches=launches["paged"], decode_steps=c["decode_steps"],
+                   tokens=c["tokens_emitted"], step_ms=c["decode_ms"] / c["decode_steps"])
+        forced = first[4][0]
+        if forced != "A" * SAMPLING_TOKENS:
+            raise AssertionError("10a: +100 bias did not force 'A' at every step: {!r}".format(
+                forced[:40]))
+        for content, lp, _n, _f in first[4:6]:
+            for item in lp:
+                if item["logprob"] != item["top_logprobs"][0]["logprob"] or \
+                        item["token"] != item["top_logprobs"][0]["token"]:
+                    raise AssertionError("10a: a greedy row's chosen logprob is not its top-1: "
+                                         "{}".format(item))
+        if any(len(lp) != SAMPLING_TOKENS or len(lp[0]["top_logprobs"]) != 5
+               for _c, lp, _n, _f in first[:4]):
+            raise AssertionError("10a: a seeded chat lacks its 128 logprob entries of top 5")
+        # the four seeded chats alone (the other four absent)
+        alone = await sampling_chats(s, base, SAMPLING_CHATS[:4], SAMPLING_TOKENS)
+        # min_tokens 16 with EOS biased to the top
+        floor = await sampling_chats(s, base, [(SAMPLING_NOTES + "floor.", {
+            "min_tokens": 16, "logit_bias": {str(tokenizer.eos_token_id): 100.0}})],
+            SAMPLING_TOKENS)
+        # n = 4 with seed s against four singles with seeds s..s+3
+        body = dict(SAMPLING_CHATS[0][1], messages=[{"role": "user",
+                                                     "content": SAMPLING_CHATS[0][0]}],
+                    max_tokens=32)
+        multi = await post_json(s, base, "/serve/openai/v1/chat/completions", dict(body, n=4))
+        singles = await asyncio.gather(*(post_json(
+            s, base, "/serve/openai/v1/chat/completions", dict(body, seed=body["seed"] + i))
+            for i in range(4)))
+        # scoring: a 2047-token prompt, echo + logprobs 5 + max_tokens 0
+        ids = [(i * 37 + 11) % 95 + 32 for i in range(2047)]
+        await engine.wait_drained()
+        on_card = torch.device(DEV).type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scored = await post_json(s, base, "/serve/openai/v1/completions", {
+            "prompt": ids, "max_tokens": 0, "echo": True, "logprobs": 5})
+        score_s = time.perf_counter() - t0
+        score_rise = torch.cuda.max_memory_allocated() - mem0 if on_card else 0
+        # a greedy completion scored back
+        prompt = SAMPLING_NOTES + "score me."
+        gen = await post_json(s, base, "/serve/openai/v1/completions", {
+            "prompt": prompt, "max_tokens": 32, "logprobs": 5,
+            "return_tokens_as_token_ids": True})
+        gen_ids = [int(t.split(":")[1]) for t in gen["choices"][0]["logprobs"]["tokens"]]
+        back_ids = tokenizer.encode(prompt) + gen_ids
+        back = await post_json(s, base, "/serve/openai/v1/completions", {
+            "prompt": back_ids, "max_tokens": 0, "echo": True, "logprobs": 5})
+        await engine.wait_drained()
+        ulp = bf16_logit_ulp(engine.model, back_ids, len(gen_ids))
+        # ms per decode step on 8 x 128-token chats, per variant (a short
+        # run first captures the variant)
+        variants = {}
+        for name, fields in STEP_VARIANTS:
+            chats = [(SAMPLING_NOTES + "timing chat {}.".format(i), dict(
+                fields, **({"seed": fields["seed"] + i} if "seed" in fields else {})))
+                for i in range(8)]
+            await sampling_chats(s, base, chats, 8)
+            await engine.wait_drained()
+            for key in ("decode_ms", "decode_steps", "serve_captures"):
+                engine.counters[key] = 0
+            await sampling_chats(s, base, chats, SAMPLING_TOKENS)
+            c2 = engine.counters
+            if c2["serve_captures"]:
+                raise AssertionError("10a: a capture inside the timed {} run".format(name))
+            variants[name] = c2["decode_ms"] / max(1, c2["decode_steps"])
+        capture_ms = dict(engine.health()["graph_variants"])
+    seeded = [r[0] for r in first[:4]]
+    if [r[0] for r in alone] != seeded:
+        raise AssertionError("10a: the seeded chats alone differ from the 8-chat batch")
+    if floor[0][2] != 17 or floor[0][3] != "stop":
+        raise AssertionError("10a: min_tokens 16 under a +100 EOS gave {} tokens ({})".format(
+            floor[0][2], floor[0][3]))
+    if [c["message"]["content"] for c in multi["choices"]] != \
+            [r["choices"][0]["message"]["content"] for r in singles]:
+        raise AssertionError("10a: n=4 with seed s differs from single seeds s..s+3")
+    lp = scored["choices"][0]["logprobs"]
+    if len(lp["tokens"]) != 2047 or lp["token_logprobs"][0] is not None or any(
+            len(d) < 1 for d in lp["top_logprobs"][1:]):
+        raise AssertionError("10a: the 2047-token scoring call is malformed")
+    decode_lp = gen["choices"][0]["logprobs"]["token_logprobs"]
+    back_lp = back["choices"][0]["logprobs"]["token_logprobs"][-len(gen_ids):]
+    diffs = [abs(a - b) for a, b in zip(decode_lp, back_lp)]
+    score_err = max(diffs)
+    # both paths read bf16 logits (the lm_head's output in the model dtype,
+    # as in the reference): two forwards may round the chosen logit and the
+    # log-sum-exp's leading logits to neighbouring bf16 values, each moving
+    # a logprob by up to one ulp at the largest logit's magnitude, on top
+    # of the 2e-2
+    score_tol = SCORE_TOL + 2 * ulp
+    if len(decode_lp) != len(gen_ids) or score_err > score_tol:
+        raise AssertionError("10a: scored-back logprobs differ from the decode path's by {} "
+                             "(tolerance {} = 2e-2 + two bf16 ulps {} of the logits)".format(
+                                 score_err, score_tol, ulp))
+    out.update(seeded=seeded, score_2047_s=score_s, score_transient_bytes=score_rise,
+               score_back_max_err=score_err, score_back_over_2e2=sum(d > SCORE_TOL
+                                                                     for d in diffs),
+               score_back_tol=score_tol, step_ms_variants=variants,
+               capture_ms=capture_ms)
+    log("  10a: 8 chats x {} tokens in {:.3f} s, {:.3f} ms a decode step (paged_attention "
+        "{} launches for {} steps); forced bias, min_tokens 16 (17 with EOS), greedy top-1 "
+        "logprobs, n=4 = seeds s..s+3: held ({})".format(
+            SAMPLING_TOKENS, out["wall_s"], out["step_ms"], out["paged_launches"],
+            out["decode_steps"], card))
+    log("  10a: 2047-token echo + logprobs 5 + max_tokens 0 scored in {:.3f} s, "
+        "max_memory_allocated rose {:.1f} MiB; a greedy completion scored back within {:.2e} "
+        "of its decode entries, {} of {} tokens over 2e-2 (held to {:.5f}) ({})".format(
+            score_s, score_rise / 2 ** 20, score_err, out["score_back_over_2e2"], len(diffs),
+            score_tol, card))
+    log("  10a: ms per decode step, 8 x 128-token chats: {} ({})".format(
+        json.dumps({k: round(v, 3) for k, v in variants.items()}), card))
+    log("  10a: graph variants and first-use capture ms: {} ({})".format(
+        json.dumps({k: round(v, 1) for k, v in capture_ms.items()}), card))
+    return out
+
+
+def bf16_logit_ulp(model, ids, n_last) -> float:
+    """One bf16 ulp at the largest |logit| over the last ``n_last``
+    positions' predictions of ``ids`` (one teacher-forced forward): the
+    step by which a rounding of the logits can move a logprob."""
+    import math
+
+    dev = model.device
+    tokens = torch.tensor([ids], dtype=torch.long, device=dev)
+    hidden = model.hidden_states(tokens, torch.tensor([len(ids)], dtype=torch.int32,
+                                                      device=dev))[0]
+    logits = model.logits_of(hidden[len(ids) - 1 - n_last:len(ids) - 1])
+    top = float(logits.abs().max())
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+async def seeded_arm(engine, tokenizer) -> list:
+    async with served(engine, tokenizer) as (_app, base, s):
+        res = await sampling_chats(s, base, SAMPLING_CHATS[:4], SAMPLING_TOKENS)
+        await engine.wait_drained()
+    return [r[0] for r in res]
+
+
+async def sampling_10b(engine, tokenizer, card: str) -> dict:
+    """The four seeded chats beside two repetitive greedy chats on a ragged
+    tree-speculation engine, twice: bitwise equal; the seeded rows never
+    verify, the greedy rows do."""
+    chats = SAMPLING_CHATS[:4] + [(p, {}) for p in SPEC_SAMPLING_GREEDY]
+    verified = []
+    accept = engine._spec_accept
+
+    def spy(plan, spec_logits):
+        import numpy as np
+        slots = np.nonzero(plan["spec_mask"] | plan["sspec_mask"])[0]
+        verified.append([engine._slot_req[int(x)] for x in slots])
+        return accept(plan, spec_logits)
+
+    engine._spec_accept = spy
+    runs = []
+    async with served(engine, tokenizer) as (_app, base, s):
+        _zero_counts(engine)
+        for _ in range(2):
+            runs.append(await sampling_chats(s, base, chats, SAMPLING_SPEC_TOKENS))
+            await engine.wait_drained()
+        c = dict(engine.counters)
+        launches = _launch_counts()
+    n_layers = engine.model.n_layers
+    if [r[0] for r in runs[0]] != [r[0] for r in runs[1]]:
+        raise AssertionError("10b: the replayed composition differs")
+    extras_verified = [r for rows in verified for r in rows if r.seed is not None]
+    if extras_verified or not any(verified):
+        raise AssertionError("10b: {} seeded rows rode verify rows; {} verify steps".format(
+            len(extras_verified), len(verified)))
+    if launches["ragged"] != n_layers * c["ragged_steps"] or \
+            launches["tree"] != n_layers * c["ragged_verify_steps"] or \
+            launches["paged"] != n_layers * (c["decode_steps"] + c["ragged_chain_steps"]):
+        raise AssertionError("10b: launches {} for counters {}".format(launches, c))
+    out = dict(ragged_steps=c["ragged_steps"], verify_steps=c["ragged_verify_steps"],
+               ragged_launches=launches["ragged"], tree_launches=launches["tree"],
+               paged_launches=launches["paged"], tokens=c["tokens_emitted"])
+    log("  10b: 2 x (4 seeded + 2 greedy) chats x {} tokens, bitwise equal; {} ragged steps "
+        "({} with verify rows, none of them a seeded row); launches ragged {} tree {} paged "
+        "{} ({})".format(SAMPLING_SPEC_TOKENS, out["ragged_steps"], out["verify_steps"],
+                         out["ragged_launches"], out["tree_launches"], out["paged_launches"],
+                         card))
+    return out
+
+
+def phase_sampling(params, card: str, preset: str = "llama3-8b") -> dict:
+    """Phase 10: the sampling surface of the OpenAI routes (10a on a
+    two-dispatch engine at depth 2 with graphs and its depth-1 and eager
+    arms, 10b on a ragged tree-speculation engine with int8 KV)."""
+    t0 = time.perf_counter()
+    engine, tokenizer = _engine(params, "", preset, pipeline_depth=2)
+    a = asyncio.run(sampling_10a(engine, tokenizer, card))
+    del engine
+    release_card_memory()
+    arms = {}
+    for arm, depth, graphs in (("depth1", 1, True), ("eager", 2, False)):
+        engine, tokenizer = _engine(params, "", preset, cuda_graphs=graphs,
+                                    pipeline_depth=depth)
+        arms[arm] = asyncio.run(seeded_arm(engine, tokenizer))
+        del engine
+        release_card_memory()
+        if arms[arm] != a["seeded"]:
+            raise AssertionError("10a: the seeded chats differ in the {} arm".format(arm))
+    log("  10a: the four seeded chats bitwise equal alone, at depth 1 and eager ({})".format(
+        card))
+    engine, tokenizer = _engine(params, "int8", preset, **TREE_KNOBS)
+    b = asyncio.run(sampling_10b(engine, tokenizer, card))
+    del engine
+    release_card_memory()
+    wall = time.perf_counter() - t0
+    log("  phase 10: {:.1f} s".format(wall))
+    a.pop("seeded")
+    return dict(a, ragged=b, wall_s=wall)
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -3371,6 +3698,9 @@ def main() -> int:
         "full width, prefix_cache_pages 128 over prefix_cache_host_pages 512")
     tier = phase_kv_tier(params, card)
     tier_arm = {r["arm"]: r for r in tier["runs"]}
+    log("phase 10: the sampling surface of the OpenAI routes, llama3-8b full width: "
+        "penalties, logit bias, seeds, min_tokens, logprobs, n, completions scoring")
+    sampling = phase_sampling(params, card)
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -3421,6 +3751,10 @@ def main() -> int:
         "launches_tier": tier_arm["B"]["paged_launches"],
         "launches_tier_int8": tier_arm["C"]["paged_launches"],
         "launches_tier_ragged_path": tier_arm["D"]["paged_launches"],
+        # phase 10: the extras and logprob variants of the decode chunk (10a)
+        # and the ragged arm's chained steps (10b)
+        "launches_sampling": sampling["paged_launches"],
+        "launches_sampling_ragged_path": sampling["ragged"]["paged_launches"],
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -3460,6 +3794,8 @@ def main() -> int:
         "launches_prefix_int8": prefix_arm[("ragged", "int8")]["ragged_launches"],
         # phase 9, arm D: hit admissions' tail chunk rows over promoted pages
         "launches_tier": tier_arm["D"]["ragged_launches"],
+        # phase 10b: extras rows beside tree verify rows, int8 KV
+        "launches_sampling": sampling["ragged"]["ragged_launches"],
     }, {
         "name": "ragged_paged_attention[tree_anc]",
         "route": "cuda",
@@ -3495,6 +3831,8 @@ def main() -> int:
         "ms_int8_without_mask": tt["verify_forest_int8"]["untree_ms"],
         "mask_cost_ms_int8": tt["verify_forest_int8"]["mask_cost_ms"],
         "ms_int8_one_span": tt["verify_forest_int8"]["one_span_ms"],
+        # phase 10b's verify steps
+        "launches_sampling": sampling["ragged"]["tree_launches"],
         "plain_ms_int8": tt["verify_forest_int8"]["plain_ms"],
         "bound_ms_int8": tt["verify_forest_int8"]["bound_ms"],
         "per_case": [dict(case=name, **row) for name, row in tt.items()],
@@ -3532,7 +3870,7 @@ def main() -> int:
                                   "tree_profile": tree_prof,
                                   "int4_profile": int4_prof,
                                   "lifecycle": lifecycle, "prefix_cache": prefix,
-                                  "kv_tier": tier}))
+                                  "kv_tier": tier, "sampling": sampling}))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)
     print(json.dumps(kernels))

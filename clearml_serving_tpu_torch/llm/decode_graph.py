@@ -22,6 +22,20 @@ The Gumbel noise of a sampled chunk is drawn outside, from the engine's
 generator, and passed in: draws made inside a graph would repeat on every
 replay. A greedy chunk draws nothing (``noise`` None).
 
+The reference's extras ride the chunk as batch data (its ``_decode_chunk``,
+``clearml_serving_tpu/llm/engine.py:1634-1698``): the active mask, the
+penalties, seeds, seed counters, ``min_tokens`` floors and stop rows travel
+in the packed buffers; the generated-token histogram, the bias rows and the
+prompt masks are ``ExtrasState``'s ``[max_batch, V]`` tensors at fixed
+addresses, which each step reads and whose histogram it advances in place
+for the active rows, so it chains across steps and chunks. A seeded row's
+Gumbel row is drawn inside the graph from its seed and counter
+(``llm/prng.py``); the counters are offset per step. With logprobs a chunk
+also emits each step's chosen logprob and top-k over the penalized logits.
+``DecodeGraphs`` keys its graphs by ``ChunkVariant`` (greedy, extras,
+seeded, logprobs); the two plain variants are the ones ``warmup()``
+captures.
+
 Graphs read their inputs from static buffers and write the KV pools (and
 the int8 scale pools) by address: ``PagedKVCache`` allocates them once and
 never reallocates them. A graph's own allocations (activations, the
@@ -31,42 +45,136 @@ the graph's lifetime.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..ops.fused_matmul import fused_int4_matmul
 from ..ops.paged_attention import paged_attention
-from .sampling import SamplingParams, sample_tokens
+from .sampling import (
+    STOP_SLOTS,
+    SamplingExtras,
+    SamplingParams,
+    logprobs_of,
+    penalize_logits,
+    sample_penalized,
+    sample_tokens,
+)
 
 # the kernels a chunk launches, whose ``launches`` counts a replay adds to
 COUNTED_KERNELS = (paged_attention, fused_int4_matmul)
 
 
+class ChunkVariant(NamedTuple):
+    """One compiled shape of the chunk: every row greedy (no noise read),
+    the extras applied, a seeded row present (the in-graph draw), the
+    logprobs emitted. The plain variants are ``ChunkVariant(True)`` and
+    ``ChunkVariant(False)``."""
+
+    greedy: bool
+    extras: bool = False
+    seeded: bool = False
+    lp: bool = False
+
+    def label(self) -> str:
+        parts = ["greedy" if self.greedy else "sampled"]
+        parts += [name for name, on in (("extras", self.extras), ("seeded", self.seeded),
+                                        ("logprobs", self.lp)) if on]
+        return "+".join(parts)
+
+
+def _variant(key) -> ChunkVariant:
+    """A variant from a ``ChunkVariant`` or a bool (a plain variant:
+    greedy or sampled)."""
+    return key if isinstance(key, ChunkVariant) else ChunkVariant(bool(key))
+
+
+class ExtrasState:
+    """The device-chained rows of the extras, ``[max_batch, V]`` each and
+    allocated once, so graphs read them by address: the generated-token
+    histogram ``counts`` (int32), the dense logit ``bias`` (f32) and the
+    prompt's token mask ``pmask`` (bool). An admission's commit resets its
+    slot's rows (``reset_row``) on the engine's stream, behind any chunk in
+    flight and ahead of the next one."""
+
+    def __init__(self, batch: int, vocab: int, device):
+        self.counts = torch.zeros((batch, vocab), dtype=torch.int32, device=device)
+        self.bias = torch.zeros((batch, vocab), dtype=torch.float32, device=device)
+        self.pmask = torch.zeros((batch, vocab), dtype=torch.bool, device=device)
+
+    def reset_row(self, slot: int, first_id: Optional[int], bias_row: torch.Tensor,
+                  pmask_row: torch.Tensor) -> None:
+        """The slot's histogram holds just its first token (generated output
+        for the penalties; none for a resume), its bias and prompt mask the
+        given host rows (pinned on the card: the copies are asynchronous)."""
+        self.counts[slot].zero_()
+        if first_id is not None:
+            self.counts[slot, int(first_id)] = 1
+        self.bias[slot].copy_(bias_row, non_blocking=True)
+        self.pmask[slot].copy_(pmask_row, non_blocking=True)
+
+
 def decode_chunk(model, cache, tokens, page_table, lengths0, write_pages, write_offsets,
                  sampling: SamplingParams, noise: Optional[torch.Tensor],
-                 steps: int) -> torch.Tensor:
+                 steps: int, *, extras: Optional[SamplingExtras] = None,
+                 counts: Optional[torch.Tensor] = None,
+                 prompt_mask: Optional[torch.Tensor] = None,
+                 active: Optional[torch.Tensor] = None, lp_k: int = 0):
     """``steps`` fused decode steps over the slot batch: tokens [B] ->
     sampled tokens [B, steps] int32. Step i attends over ``lengths0 + i``
     tokens and writes its K/V at ``write_pages[:, i]``/``write_offsets[:,
     i]`` (rows the chunk skips write the null page 0). ``noise`` [steps, B,
-    V] holds each step's Gumbel draws; None means every row is greedy."""
+    V] holds each step's Gumbel draws; None means every row is greedy.
+
+    ``extras`` penalize every step's logits (its counters offset by the
+    step); the histogram ``counts`` gains each step's token for the rows of
+    ``active`` [B], in place. With ``lp_k`` > 0 the result is ``(tokens,
+    (chosen [B, steps], top_ids [B, steps, lp_k], top_lp [B, steps,
+    lp_k]))`` over the penalized logits."""
     scale_kw = ({"k_scales": cache.k_scale, "v_scales": cache.v_scale}
                 if cache.kv_quant else {})
     tokens = tokens.long()
-    out = []
+    out, lps = [], []
     for step in range(steps):
         logits = model.decode_paged(
             tokens, cache.k, cache.v, page_table, lengths0 + step,
             write_pages[:, step], write_offsets[:, step], **scale_kw,
         )
-        sampled = sample_tokens(logits, sampling,
-                                noise=None if noise is None else noise[step],
-                                all_greedy=noise is None)
+        step_noise = None if noise is None else noise[step]
+        if extras is None:
+            sampled = sample_tokens(logits, sampling, noise=step_noise,
+                                    all_greedy=noise is None)
+            lp_src = logits
+        else:
+            ex = extras._replace(counters=extras.counters + step)
+            lp_src = penalize_logits(logits.float(), ex, counts, prompt_mask)
+            sampled = sample_penalized(lp_src, sampling, noise=step_noise,
+                                       all_greedy=noise is None, extras=ex)
+            counts.scatter_add_(1, sampled.long()[:, None], active.to(counts.dtype)[:, None])
+        if lp_k:
+            lps.append(logprobs_of(lp_src, sampled, lp_k))
         out.append(sampled)
         tokens = sampled.long()
-    return torch.stack(out, dim=1)
+    toks = torch.stack(out, dim=1)
+    if not lp_k:
+        return toks
+    return toks, tuple(torch.stack(parts, dim=1) for parts in zip(*lps))
+
+
+def _extras_fields(b: int):
+    """The extras' per-row host data (int32 fields, float32 fields): read
+    by the extras variants of the chunk and the ragged launch's rows."""
+    return ((("active", (b,)), ("seeds", (b,)), ("counters", (b,)), ("min_new", (b,)),
+             ("stop", (b, STOP_SLOTS))),
+            (("presence", (b,)), ("frequency", (b,)), ("repetition", (b,))))
+
+
+def extras_host_rows(b: int) -> Dict[str, np.ndarray]:
+    """Zeroed host arrays of the extras' per-row fields, by name."""
+    i32, f32 = _extras_fields(b)
+    return dict([(name, np.zeros(shape, np.int32)) for name, shape in i32]
+                + [(name, np.zeros(shape, np.float32)) for name, shape in f32])
 
 
 class ChunkLayout:
@@ -75,10 +183,11 @@ class ChunkLayout:
 
     def __init__(self, batch: int, pages_per_seq: int, steps: int):
         b, n = batch, steps
+        ex_i32, ex_f32 = _extras_fields(b)
         self.i32 = (("page_table", (b, pages_per_seq)), ("lengths0", (b,)),
                     ("write_pages", (b, n)), ("write_offsets", (b, n)), ("top_k", (b,)),
-                    ("override_tokens", (b,)), ("override_mask", (b,)))
-        self.f32 = (("temperature", (b,)), ("top_p", (b,)))
+                    ("override_tokens", (b,)), ("override_mask", (b,))) + ex_i32
+        self.f32 = (("temperature", (b,)), ("top_p", (b,))) + ex_f32
         self.size_i32 = sum(int(np.prod(shape)) for _, shape in self.i32)
         self.size_f32 = sum(int(np.prod(shape)) for _, shape in self.f32)
 
@@ -94,14 +203,28 @@ class ChunkLayout:
 
 
 def run_chunk(model, cache, views, chain: torch.Tensor, noise: Optional[torch.Tensor],
-              steps: int) -> torch.Tensor:
+              steps: int, *, variant: Optional[ChunkVariant] = None,
+              state: Optional[ExtrasState] = None, lp_k: int = 0):
     """``decode_chunk`` over the inputs of ``ChunkLayout.views``: the token
-    input is ``chain`` where the host does not override it."""
+    input is ``chain`` where the host does not override it. An extras
+    ``variant`` reads the extras rows of the views and ``state``; a
+    logprobs one returns ``(tokens, lp)`` (``decode_chunk``)."""
     tokens = torch.where(views["override_mask"] != 0, views["override_tokens"], chain)
     sampling = SamplingParams(temperature=views["temperature"], top_k=views["top_k"],
                               top_p=views["top_p"])
+    kw = {}
+    if variant is not None and variant.extras:
+        kw = dict(extras=SamplingExtras(
+            presence=views["presence"], frequency=views["frequency"],
+            repetition=views["repetition"], bias=state.bias,
+            seeds=views["seeds"] if variant.seeded else None, counters=views["counters"],
+            min_new=views["min_new"], stop=views["stop"]),
+            counts=state.counts, prompt_mask=state.pmask, active=views["active"])
+    if variant is not None and variant.lp:
+        kw["lp_k"] = lp_k
     return decode_chunk(model, cache, tokens, views["page_table"], views["lengths0"],
-                        views["write_pages"], views["write_offsets"], sampling, noise, steps)
+                        views["write_pages"], views["write_offsets"], sampling, noise, steps,
+                        **kw)
 
 
 def _launch_counts():
@@ -109,19 +232,25 @@ def _launch_counts():
 
 
 class DecodeGraphs:
-    """The decode chunk captured as one CUDA graph per variant: greedy
-    (every row argmax, no noise read) and sampled. The reference's chunk
-    always runs all ``max_batch`` rows under an active mask, so there are
-    no batch buckets.
+    """The decode chunk captured as one CUDA graph per ``ChunkVariant``
+    (each with its own memory pool): the plain greedy (every row argmax, no
+    noise read) and sampled ones, and the extras and logprob variants,
+    captured at their first use. The reference's chunk always runs all
+    ``max_batch`` rows under an active mask, so there are no batch
+    buckets.
 
     The kernels' ``launches`` counts keep meaning kernels run on the card:
     a capture launches nothing, so its calls (and the warm-up run before
     it, set-up work) are taken back out, and each replay adds the counts
     its capture recorded."""
 
-    def __init__(self, model, cache, layout: ChunkLayout, steps: int):
+    def __init__(self, model, cache, layout: ChunkLayout, steps: int,
+                 state_fn=None, lp_k: int = 1):
         dev = model.device
         self.model, self.cache, self.layout, self.steps = model, cache, layout, steps
+        # the extras' device rows (``ExtrasState``), made at first need
+        self._state_fn = state_fn
+        self.lp_k = int(lp_k)
         self._i32 = torch.zeros(layout.size_i32, dtype=torch.int32, device=dev)
         self._f32 = torch.zeros(layout.size_f32, dtype=torch.float32, device=dev)
         self.views = layout.views(self._i32, self._f32)
@@ -130,24 +259,30 @@ class DecodeGraphs:
         # newest chunk, written by each replay's epilogue
         self.chain = torch.zeros(b, dtype=torch.int32, device=dev)
         self.noise = torch.zeros((steps, b, model.vocab_size), dtype=torch.float32, device=dev)
-        # greedy -> (graph, static output [B, steps], launches per replay)
-        self._graphs: Dict[bool, tuple] = {}
+        # variant -> (graph, static output, launches per replay)
+        self._graphs: Dict[ChunkVariant, tuple] = {}
 
-    def captured(self, greedy: bool) -> bool:
-        return greedy in self._graphs
+    def captured(self, greedy) -> bool:
+        """Whether the variant (a ``ChunkVariant``, or a bool naming a
+        plain one) is captured."""
+        return _variant(greedy) in self._graphs
 
-    def _run(self, greedy: bool) -> torch.Tensor:
+    def _run(self, variant: ChunkVariant):
         return run_chunk(self.model, self.cache, self.views, self.chain,
-                         None if greedy else self.noise, self.steps)
+                         None if variant.greedy else self.noise, self.steps, variant=variant,
+                         state=self._state_fn() if variant.extras else None, lp_k=self.lp_k)
 
-    def capture(self, greedy: bool, capture_error_mode: str = "global") -> None:
-        """Capture one variant. Called on the engine's stream with no chunk
-        of this engine in flight on another; ``"thread_local"`` lets other
-        threads keep using the card meanwhile (a capture while serving)."""
+    def capture(self, greedy, capture_error_mode: str = "global") -> None:
+        """Capture one variant (a ``ChunkVariant``, or a bool naming a plain
+        one). Called on the engine's stream with no chunk of this engine in
+        flight on another; ``"thread_local"`` lets other threads keep using
+        the card meanwhile (a capture while serving)."""
+        variant = _variant(greedy)
         dev = self.model.device
         stream = torch.cuda.current_stream(dev)
-        # null coordinates: the warm-up run writes only the null page
-        for name in ("page_table", "lengths0", "write_pages", "write_offsets"):
+        # null coordinates and no active row: the warm-up run writes only
+        # the null page and adds nothing to the extras' histogram
+        for name in ("page_table", "lengths0", "write_pages", "write_offsets", "active"):
             self.views[name].zero_()
         before = _launch_counts()
         # one eager run first, on a side stream: kernel loads, library
@@ -155,32 +290,34 @@ class DecodeGraphs:
         side = torch.cuda.Stream(dev)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
-            self._run(greedy)
+            self._run(variant)
         stream.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         start = _launch_counts()
         with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
-            out = self._run(greedy)
+            out = self._run(variant)
         per_replay = [a - b for a, b in zip(_launch_counts(), start)]
         for fn, count in zip(COUNTED_KERNELS, before):
             fn.launches = count
-        self._graphs[greedy] = (graph, out, per_replay)
+        self._graphs[variant] = (graph, out, per_replay)
 
-    def replay(self, greedy: bool, host_i32: torch.Tensor, host_f32: torch.Tensor,
-               noise: Optional[torch.Tensor]) -> torch.Tensor:
+    def replay(self, greedy, host_i32: torch.Tensor, host_f32: torch.Tensor,
+               noise: Optional[torch.Tensor]):
         """Upload a chunk's packed host inputs (pinned, so the copies are
         asynchronous; the caching host allocator keeps each buffer until
         its copy has run), replay the variant on the current stream and
-        advance the chain. Returns the static output [B, steps]: the next
-        replay overwrites it, so the caller copies it out on this stream
-        first."""
-        graph, out, per_replay = self._graphs[greedy]
+        advance the chain. Returns the static output, [B, steps] (with the
+        logprob tensors for a logprob variant): the next replay overwrites
+        it, so the caller copies it out on this stream first."""
+        variant = _variant(greedy)
+        graph, out, per_replay = self._graphs[variant]
         self._i32.copy_(host_i32, non_blocking=True)
         self._f32.copy_(host_f32, non_blocking=True)
-        if not greedy:
+        if not variant.greedy:
             self.noise.copy_(noise)
         graph.replay()
         for fn, count in zip(COUNTED_KERNELS, per_replay):
             fn.launches += count
-        self.chain.copy_(out[:, -1])
+        tokens = out[0] if variant.lp else out
+        self.chain.copy_(tokens[:, -1])
         return out

@@ -8,9 +8,25 @@ the configuration ``cache_mode="paged"``, under either scheduler:
   each step ``Llama.decode_paged`` (the paged attention kernel once per
   layer) followed by sampling (``llm/decode_graph.py``); the chunk's tokens
   reach the host once, at its end, and fan out to the per-request queues;
-- a request finishes on a stop token, ``max_new_tokens`` or
-  ``max_seq_len``; its pages return to the pool once no chunk in flight
-  still writes them.
+- a request finishes on a stop token (its ``stop_token_ids``, else EOS),
+  ``max_new_tokens`` or ``max_seq_len``; its pages return to the pool once
+  no chunk in flight still writes them.
+
+The sampling surface (the reference's ``SamplingExtras``): presence,
+frequency and repetition penalties, a logit bias, a per-request ``seed``,
+``min_tokens`` and ``logprobs`` ride every decode step as batch data. The
+histogram of generated tokens, the bias rows and the prompt masks are
+``[max_batch, V]`` device rows (``ExtrasState``), made at the first commit
+with extras and reset at every commit after, on the engine's stream; a
+chunk with an active extras slot runs the extras variant of its graph,
+which advances the histogram in place, and a seeded row's draw comes from
+``fold_in(PRNGKey(seed), counter)`` with the counter counting the chunks in
+flight, so a seeded stream is the JAX engine's whatever the depth, the
+batch or the graph. Every admission samples its first token, with its
+first logprob entry, through ``_first_token``. Rows with extras or
+logprobs never verify drafts and are never preempted; ``score_prompt``
+scores a prompt teacher-forced for the completions route's ``echo`` and
+``prompt_logprobs``.
 
 Pipelined decode (the reference's ``docs/pipelined_decode.md``): a bounded
 queue of dispatched chunks, ``pipeline_depth`` deep (``TPUSERVE_PIPELINE_DEPTH``,
@@ -128,18 +144,31 @@ from ..errors import (
 from ..models.llama import Llama
 from ..ops.gates import check_engine_gates
 from ..ops.paged_attention import RAGGED_QB, ragged_layout, tree_ancestors
-from .decode_graph import ChunkLayout, DecodeGraphs, run_chunk
+from .decode_graph import (
+    ChunkLayout,
+    ChunkVariant,
+    DecodeGraphs,
+    ExtrasState,
+    extras_host_rows,
+    run_chunk,
+)
 from . import kv_cache, lifecycle_ledger
 from .kv_cache import PagedKVCache
 from .kv_sanitizer import KVSanitizer, enabled as sanitizer_enabled
 from .prefix_cache import RadixPrefixCache
 from .sampling import (
+    STOP_SLOTS,
+    SamplingExtras,
     SamplingParams,
     greedy_tree_walk,
     gumbel_noise,
+    logprobs_of,
+    penalize_logits,
+    sample_penalized,
     sample_tokens,
     speculative_sample_chain,
     speculative_sample_tree,
+    top_k,
 )
 from .spec_proposer import chain_parents, make_proposer
 from . import faults, shapes
@@ -157,6 +186,20 @@ class GenRequest:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
+    # the tokens the request finishes on (None: the engine's EOS)
+    stop_token_ids: Optional[List[int]] = None
+    # OpenAI/vLLM sampling parameters, applied on the device as batch data
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    repetition_penalty: float = 1.0
+    seed: Optional[int] = None
+    logit_bias: Optional[Dict[int, float]] = None
+    # top alternatives to record per emitted token (None: no logprobs; 0:
+    # the chosen token's logprob only)
+    logprobs: Optional[int] = None
+    # vLLM min_tokens: the stop tokens are suppressed until this many
+    # tokens were generated
+    min_tokens: int = 0
     # SLO class: "interactive" | "batch" | "best_effort". Strict class
     # order across the pending queues, earliest deadline first within a
     # class; under overload best_effort sheds first, then batch, and
@@ -195,6 +238,10 @@ class GenRequest:
     submitted_at: float = field(default_factory=time.time)
     first_token_at: Optional[float] = None
     error: Optional[BaseException] = None
+    # per emitted token (when logprobs is not None): {"id", "logprob",
+    # "top_ids", "top_logprobs"}; entry i is appended before token i is
+    # queued, so a consumer that just received token i may read entry i
+    logprob_entries: List[dict] = field(default_factory=list)
     # set by the API layer when a stop string matched in the decoded text
     stopped_on_string: bool = False
     # set by the consumer (client gone): the engine frees the slot at the
@@ -207,6 +254,8 @@ class GenRequest:
 
 _FINISHED = object()
 
+# prompt scoring takes its softmax and top-k in blocks of this many positions
+_SCORE_BLOCK = 256
 # chunks dispatched ahead of retirement: 1 is the serial dispatch -> sync ->
 # emit loop; 2 (the reference's default) overlaps chunk N's readback and
 # emission with chunk N+1's dispatch
@@ -264,6 +313,9 @@ class _InFlightChunk:
     # slots dropped from this chunk because the pool could not hold their
     # page extension (failed when the chunk lands)
     exhausted: List[int] = field(default_factory=list)
+    # a logprob variant's (chosen [B, steps], top ids, top logprobs [B,
+    # steps, K]) on the host, filled with ``tokens``
+    lp: Optional[tuple] = None
 
 
 @dataclass(eq=False)  # identity semantics: jobs live in (and leave) lists
@@ -520,6 +572,8 @@ class LLMEngineCore:
         # byte budget ("auto": sized from MemAvailable)
         prefix_cache_host_pages: Optional[int] = None,
         prefix_cache_host_bytes=None,
+        # the top-k ceiling of logprob reporting (OpenAI top_logprobs)
+        logprobs_k: int = 20,
         **knobs,
     ):
         for name, value in knobs.items():
@@ -724,6 +778,11 @@ class LLMEngineCore:
         self._promotion_reaps = 0
         self._gen = torch.Generator(self.device)
         self._gen.manual_seed(int(rng_seed))
+        # the sampling extras: the logprob top-k every chunk reports, and
+        # the device rows (histogram, bias, prompt mask), made when the
+        # first request with extras commits and reset at every commit after
+        self._lp_k = max(1, int(logprobs_k))
+        self._extras: Optional[ExtrasState] = None
         # -- pipelined decode: the bounded in-flight queue, the slot-reuse
         # barrier and the device-resident token chain
         self.pipeline_depth = (max(1, int(pipeline_depth)) if pipeline_depth is not None
@@ -748,8 +807,11 @@ class LLMEngineCore:
         self._stream = self.paged_cache.stream
         # on the card each chunk is a CUDA-graph replay unless cuda_graphs
         # is off; the eager arm keeps its chain in _chain
-        self._graphs = (DecodeGraphs(model, self.paged_cache, self._layout, self.decode_steps)
+        self._graphs = (DecodeGraphs(model, self.paged_cache, self._layout, self.decode_steps,
+                                     state_fn=lambda: self._extras, lp_k=self._lp_k)
                         if self._stream is not None and cuda_graphs else None)
+        # first-use capture time of each variant (ms), by label
+        self._capture_ms: Dict[str, float] = {}
         self._chain = torch.zeros(self.max_batch, dtype=torch.int32, device=self.device)
         self._warming = False
         self._hist_dispatch = _Histogram(_MS_BUCKETS)
@@ -760,6 +822,14 @@ class LLMEngineCore:
         self._temperature = np.zeros(self.max_batch, np.float32)
         self._top_k = np.zeros(self.max_batch, np.int32)
         self._top_p = np.ones(self.max_batch, np.float32)
+        # the extras' host rows (the reference's per-slot arrays)
+        self._slot_extra = np.zeros(self.max_batch, bool)
+        self._presence = np.zeros(self.max_batch, np.float32)
+        self._frequency = np.zeros(self.max_batch, np.float32)
+        self._repetition = np.ones(self.max_batch, np.float32)
+        self._seeds = np.full(self.max_batch, -1, np.int64)
+        self._min_tokens = np.zeros(self.max_batch, np.int32)
+        self._stop_rows = np.full((self.max_batch, STOP_SLOTS), -1, np.int32)
         # speculation history: each slot's prompt and every emitted token
         # (the proposer's input), filled at activation and ragged retires
         self._tokbuf = (np.zeros((self.max_batch, self.max_seq_len + spec_slack + 1), np.int32)
@@ -857,11 +927,211 @@ class LLMEngineCore:
         if request.priority not in PRIORITY_CLASSES:
             raise ValueError("priority must be one of {} (got {!r})".format(
                 "/".join(PRIORITY_CLASSES), request.priority))
+        vocab = self.model.vocab_size
+        if request.logit_bias:
+            for tok in request.logit_bias:
+                try:
+                    tok_i = int(tok)
+                except (TypeError, ValueError):
+                    raise ValueError("logit_bias keys must be token ids (got {!r})".format(tok))
+                if not 0 <= tok_i < vocab:
+                    raise ValueError("logit_bias token id {} out of range for vocab {}".format(
+                        tok_i, vocab))
+        if request.repetition_penalty is not None and request.repetition_penalty <= 0:
+            raise ValueError("repetition_penalty must be > 0")
+        if request.min_tokens:
+            if request.min_tokens < 0:
+                raise ValueError("min_tokens must be >= 0")
+            if request.min_tokens > request.max_new_tokens:
+                raise ValueError("min_tokens {} exceeds max_tokens {}".format(
+                    request.min_tokens, request.max_new_tokens))
+            if len(request.stop_token_ids or []) > STOP_SLOTS:
+                # the floor's suppression rows are fixed-width: an unsuppressed
+                # stop id could end the sequence before the floor
+                raise ValueError("min_tokens supports at most {} stop_token_ids (got {})".format(
+                    STOP_SLOTS, len(request.stop_token_ids)))
+        if request.logprobs is not None:
+            if request.logprobs < 0:
+                raise ValueError("logprobs must be >= 0")
+            if request.logprobs > self._lp_k:
+                raise ValueError("logprobs={} exceeds the engine's logprobs_k={}".format(
+                    request.logprobs, self._lp_k))
         if request.max_new_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
-        vocab = self.model.vocab_size
         if any(not 0 <= int(t) < vocab for t in request.prompt_ids):
             raise ValueError("prompt token id out of range for vocab {}".format(vocab))
+
+    @property
+    def logprobs_k(self) -> int:
+        """The top-k ceiling of logprob reporting (OpenAI top_logprobs and
+        vLLM prompt_logprobs validate against it)."""
+        return self._lp_k
+
+    # -- sampling extras (penalties, bias, seeds, min_tokens) ------------------
+
+    def _request_stop_row(self, request: GenRequest) -> np.ndarray:
+        """The stop set the min_tokens floor suppresses, the one ``_emit``
+        finishes on: stop_token_ids if given, else the engine's EOS."""
+        ids = request.stop_token_ids or (
+            [self.eos_token_id] if self.eos_token_id is not None else [])
+        row = np.full(STOP_SLOTS, -1, np.int32)
+        for i, t in enumerate(ids[:STOP_SLOTS]):
+            row[i] = int(t)
+        return row
+
+    @staticmethod
+    def _request_has_extras(request: GenRequest) -> bool:
+        return bool(
+            request.presence_penalty
+            or request.frequency_penalty
+            or (request.repetition_penalty and request.repetition_penalty != 1.0)
+            or request.seed is not None
+            or request.logit_bias
+            or request.min_tokens > 0
+        )
+
+    @staticmethod
+    def _request_seed(request: GenRequest) -> int:
+        # masked before the int64 store: JSON ints are unbounded
+        return -1 if request.seed is None else int(request.seed) & 0x7FFFFFFF
+
+    @staticmethod
+    def _request_min_new(request: GenRequest) -> int:
+        return min(max(0, int(request.min_tokens or 0)), 2 ** 31 - 1)
+
+    def _extras_active(self, active_mask: np.ndarray) -> bool:
+        return self._extras is not None and bool(np.any(self._slot_extra[active_mask]))
+
+    def _bias_pmask_rows(self, request: GenRequest):
+        """The request's dense bias row and prompt-token mask [V] (host)."""
+        vocab = self.model.vocab_size
+        bias = np.zeros(vocab, np.float32)
+        for tok, value in (request.logit_bias or {}).items():
+            tok = int(tok)
+            if 0 <= tok < vocab:
+                bias[tok] = float(value)
+        pmask = np.zeros(vocab, bool)
+        pmask[[t for t in request.prompt_ids if 0 <= t < vocab]] = True
+        return bias, pmask
+
+    def _host_rows(self, bias: np.ndarray, pmask: np.ndarray):
+        """The rows as torch tensors to copy from: pinned on the card, so
+        the copies enqueue without waiting for the stream."""
+        rows = torch.from_numpy(bias), torch.from_numpy(pmask)
+        if self._stream is not None:
+            rows = tuple(r.pin_memory() for r in rows)
+        return rows
+
+    def _request_extras_row(self, request: GenRequest):
+        """Single-row extras for a first token: (extras, counts, prompt
+        mask) on the device, the histogram empty and the counter 0."""
+        dev = self.device
+        bias, pmask = self._bias_pmask_rows(request)
+        seed = self._request_seed(request)
+        extras = SamplingExtras(
+            presence=torch.tensor([request.presence_penalty], dtype=torch.float32, device=dev),
+            frequency=torch.tensor([request.frequency_penalty], dtype=torch.float32, device=dev),
+            repetition=torch.tensor([request.repetition_penalty or 1.0], dtype=torch.float32,
+                                    device=dev),
+            bias=torch.from_numpy(bias[None]).to(dev),
+            seeds=torch.tensor([seed], dtype=torch.int32, device=dev) if seed >= 0 else None,
+            counters=torch.zeros(1, dtype=torch.int32, device=dev),
+            min_new=torch.tensor([self._request_min_new(request)], dtype=torch.int32,
+                                 device=dev),
+            stop=torch.from_numpy(self._request_stop_row(request)[None]).to(dev),
+        )
+        return (extras, torch.zeros((1, self.model.vocab_size), dtype=torch.int32, device=dev),
+                torch.from_numpy(pmask[None]).to(dev))
+
+    def _set_slot_extras(self, request: GenRequest, slot: int,
+                         first_id: Optional[int]) -> None:
+        """A commit's extras rows: the host rows, and, once the device rows
+        exist (from the first commit with extras on), the slot's device rows
+        reset on the engine's stream (a previous occupant's bias, mask or
+        histogram must not reach this request)."""
+        has_extras = self._request_has_extras(request)
+        self._slot_extra[slot] = has_extras
+        self._presence[slot] = request.presence_penalty
+        self._frequency[slot] = request.frequency_penalty
+        self._repetition[slot] = request.repetition_penalty or 1.0
+        self._seeds[slot] = self._request_seed(request)
+        self._min_tokens[slot] = self._request_min_new(request)
+        self._stop_rows[slot] = self._request_stop_row(request)
+        if not has_extras and self._extras is None:
+            return
+        bias, pmask = self._host_rows(*self._bias_pmask_rows(request))
+
+        def reset():
+            # made and written on the engine's stream, which every chunk
+            # reading the rows runs on
+            if self._extras is None:
+                self._extras = ExtrasState(self.max_batch, self.model.vocab_size, self.device)
+            self._extras.reset_row(slot, first_id, bias, pmask)
+
+        self._on_stream(reset)
+
+    def _batch_extras_rows(self, v: dict, active_mask: np.ndarray) -> None:
+        """Write a chunk's extras rows into its staging views: the
+        per-slot config, and the seed counters, which account for the
+        chunks still in flight (a slot advances decode_steps per chunk that
+        decodes it; a dead slot's counter is garbage, its samples dropped
+        at retire)."""
+        produced = np.array([r.produced if r is not None else 0 for r in self._slot_req],
+                            np.int64)
+        for entry in self._inflight:
+            produced += entry.active_mask.astype(np.int64) * self.decode_steps
+        v["active"][:] = active_mask
+        v["seeds"][:] = self._seeds
+        v["counters"][:] = produced
+        v["min_new"][:] = self._min_tokens
+        v["stop"][:] = self._stop_rows
+        v["presence"][:] = self._presence
+        v["frequency"][:] = self._frequency
+        v["repetition"][:] = self._repetition
+
+    def _wants_logprobs(self, mask: np.ndarray) -> bool:
+        return any(self._slot_req[s] is not None and self._slot_req[s].logprobs is not None
+                   for s in np.nonzero(mask)[0])
+
+    def _lp_entry(self, token_id: int, chosen, top_ids, top_lp) -> dict:
+        return {"id": int(token_id), "logprob": float(chosen),
+                "top_ids": [int(t) for t in top_ids], "top_logprobs": [float(x) for x in top_lp]}
+
+    def score_prompt(self, prompt_ids: List[int]) -> List[dict]:
+        """Teacher-forced prompt scoring (the reference's ``score_prompt``):
+        logprob entries (``logprob_entries``' shape plus the exact vocab
+        ``rank``) for positions 1..n-1; the first token has no conditional.
+        One forward of the prompt at its prefill bucket, then the final norm,
+        the lm_head, ``log_softmax`` and the top-k in sequential blocks of
+        256 positions, so the float32 logits of the whole prompt never exist
+        at once. Read-only on the pools; runs on the engine's stream."""
+        n = len(prompt_ids)
+        if n < 2:
+            return []
+        return self._on_stream(self._score_prompt, list(prompt_ids))
+
+    def _score_prompt(self, ids: List[int]) -> List[dict]:
+        n = len(ids)
+        bucket = shapes.bucket_for(n, self._buckets, self.max_seq_len)
+        tokens = torch.zeros((1, bucket), dtype=torch.long)
+        tokens[0, :n] = torch.as_tensor(ids, dtype=torch.long)
+        dev = self.device
+        hidden = self.model.hidden_states(
+            tokens.to(dev), torch.tensor([n], dtype=torch.int32, device=dev))[0]
+        tgt = torch.as_tensor(ids[1:], dtype=torch.long).to(dev)
+        parts = []
+        for lo in range(0, n - 1, _SCORE_BLOCK):
+            hi = min(n - 1, lo + _SCORE_BLOCK)
+            lp = torch.log_softmax(self.model.logits_of(hidden[lo:hi]), dim=-1)
+            chosen = lp.gather(-1, tgt[lo:hi, None])[:, 0]
+            # the exact rank among the whole vocab (vLLM prompt_logprobs)
+            rank = 1 + (lp > chosen[:, None]).sum(dim=-1)
+            top_lp, top_id = top_k(lp, self._lp_k)
+            parts.append((chosen, rank, top_id, top_lp))
+        chosen, rank, top_id, top_lp = (torch.cat(p).cpu().numpy() for p in zip(*parts))
+        return [{"id": int(ids[i + 1]), "logprob": float(chosen[i]), "rank": int(rank[i]),
+                 "top_ids": top_id[i].tolist(), "top_logprobs": top_lp[i].tolist()}
+                for i in range(n - 1)]
 
     def check_admission(self, request: GenRequest, reserve: int = 0) -> None:
         """Load shedding: a structured 503/408/429 instead of queueing a
@@ -1057,6 +1327,10 @@ class LLMEngineCore:
                     continue
                 if request._preempt_count >= self._preempt_budget:
                     continue  # budget spent: immune, so batch work finishes
+                if self._request_has_extras(request) or request.logprobs is not None:
+                    # penalties over the histogram, seed counters and logprob
+                    # streams do not survive the round trip: never a victim
+                    continue
                 key = (_CLASS_RANK[request.priority],          # lowest class
                        request._deadline if request._deadline is not None
                        else float("inf"),                       # latest deadline
@@ -1334,6 +1608,9 @@ class LLMEngineCore:
                 "bytes": self.model.weight_bytes(),
             },
             counters=dict(self.counters),
+            # the decode chunk's captured graph variants and each one's
+            # capture time (ms)
+            graph_variants=dict(self._capture_ms),
             pipeline=self._pipeline_snapshot(),
             scheduler="ragged" if self._ragged else "two_dispatch",
             ragged=self._ragged_snapshot(),
@@ -1511,7 +1788,7 @@ class LLMEngineCore:
                 continue
             self._call_since = time.monotonic()
             try:
-                first_id = await asyncio.to_thread(
+                first_id, first_lp = await asyncio.to_thread(
                     self._on_stream, self._prefill_into_slot, request, slot)
             except Exception as ex:
                 # a failed admission fails only its own request
@@ -1538,7 +1815,7 @@ class LLMEngineCore:
                 free.insert(0, slot)
                 continue
             self._store_prompt(request, slot)
-            self._activate_slot(request, slot, first_id)
+            self._activate_slot(request, slot, first_id, first_lp)
             self._last_progress = time.monotonic()
 
     def _sampling(self) -> SamplingParams:
@@ -1549,13 +1826,14 @@ class LLMEngineCore:
             top_p=torch.as_tensor(self._top_p, device=dev),
         )
 
-    def _prefill_into_slot(self, request: GenRequest, slot: int) -> int:
+    def _prefill_into_slot(self, request: GenRequest, slot: int):
         """Worker thread: prefill the prompt at its bucket, write its K/V into
         the slot's pages, sample the first token. A prefix-cache hit
         prefills only the tail over the gathered shared pages, then maps
         those pages into the slot by reference and writes the tail's K/V
         alone (``write_prompt_shared``); the lookup's pin drops once the
-        slot holds its own references."""
+        slot holds its own references. Returns (first token, its logprob
+        entry or None)."""
         t0 = time.perf_counter()
         if faults.active():
             faults.fire("engine.prefill", request=request)
@@ -1582,10 +1860,10 @@ class LLMEngineCore:
             self.paged_cache.write_prompt(
                 slot, cache["k"][:, 0, :n], cache["v"][:, 0, :n], n,
                 *self._mini_scales(cache, 0, n))
-        first_id = self._first_token(request, last)
+        first = self._first_token(request, last)
         self.counters["prefills"] += 1
         self.counters["prefill_ms"] += (time.perf_counter() - t0) * 1e3
-        return first_id
+        return first
 
     def _mini_scales(self, cache: dict, lo: int, hi: int) -> tuple:
         """A mini cache's scale rows of positions [lo, hi) (int8 KV), else
@@ -1679,26 +1957,47 @@ class LLMEngineCore:
             self._prefix.store_pages(request.prompt_ids, 0,
                                      self.paged_cache.pool.slot_pages(slot))
 
-    def _first_token(self, request: GenRequest, last_logits: torch.Tensor) -> int:
-        """A request's first token from its prompt's last logits [1, vocab]
-        (both schedulers sample it here)."""
+    def _first_token(self, request: GenRequest, last_logits: torch.Tensor):
+        """A request's first token from its prompt's last logits [1, vocab],
+        and its logprob entry (None without logprobs): the request's extras
+        apply (a seeded draw at counter 0), and the entry reads the
+        penalized logits. Every admission samples here, cold prefills,
+        prefix hits and the ragged scheduler's finishing rows alike (the
+        reference's ``_first_token_from_logits``), so their first tokens
+        are the same."""
+        return self._on_stream(self._first_token_device, request, last_logits)
+
+    def _first_token_device(self, request: GenRequest, last_logits: torch.Tensor):
         params = SamplingParams(
             temperature=torch.tensor([request.temperature], dtype=torch.float32,
                                      device=self.device),
             top_k=torch.tensor([request.top_k], dtype=torch.int32, device=self.device),
             top_p=torch.tensor([request.top_p], dtype=torch.float32, device=self.device),
         )
-        first = sample_tokens(last_logits.float(), params, generator=self._gen,
-                              all_greedy=request.temperature <= 0)
-        return int(first.item())
+        logits = last_logits.float()
+        greedy = request.temperature <= 0
+        if self._request_has_extras(request):
+            extras, counts0, pmask0 = self._request_extras_row(request)
+            logits = penalize_logits(logits, extras, counts0, pmask0)
+            first = sample_penalized(logits, params, generator=self._gen, all_greedy=greedy,
+                                     extras=extras)
+        else:
+            first = sample_tokens(logits, params, generator=self._gen, all_greedy=greedy)
+        first_id = int(first.item())
+        if request.logprobs is None:
+            return first_id, None
+        chosen, top_id, top_lp = logprobs_of(logits, first, self._lp_k)
+        return first_id, self._lp_entry(first_id, chosen[0].item(), top_id[0].tolist(),
+                                        top_lp[0].tolist())
 
     def _occupy_slot(self, request: GenRequest, slot: int, next_token: int,
-                     history: List[int]) -> None:
+                     history: List[int], first_id: Optional[int] = None) -> None:
         """Slot bookkeeping of an admission's activation and of a
         preempted request's resume: the request, the admission record
         behind Retry-After, the next decode input (taken from the host at
         the next dispatch), the speculation history (prompt and emitted
-        tokens) and the sampling parameters."""
+        tokens), the sampling parameters and the extras rows (the
+        histogram holding ``first_id``)."""
         self._slot_req[slot] = request
         self._admit_times.append(time.monotonic())
         self._admit_count += 1
@@ -1713,11 +2012,14 @@ class LLMEngineCore:
         self._temperature[slot] = request.temperature
         self._top_k[slot] = request.top_k
         self._top_p[slot] = request.top_p
+        self._set_slot_extras(request, slot, first_id)
 
-    def _activate_slot(self, request: GenRequest, slot: int, first_id: int) -> None:
+    def _activate_slot(self, request: GenRequest, slot: int, first_id: int,
+                       first_lp: Optional[dict] = None) -> None:
         """An admission's slot goes live with its first token."""
-        self._occupy_slot(request, slot, first_id, list(request.prompt_ids) + [first_id])
-        self._emit(slot, first_id)
+        self._occupy_slot(request, slot, first_id, list(request.prompt_ids) + [first_id],
+                          first_id)
+        self._emit(slot, first_id, first_lp)
 
     def _resume_slot(self, request: GenRequest, slot: int) -> None:
         """A preempted request back in a slot: its parked pages hold the KV
@@ -1883,6 +2185,18 @@ class LLMEngineCore:
         v["temperature"][:] = self._temperature
         v["top_k"][:] = self._top_k
         v["top_p"][:] = self._top_p
+        # the chunk's variant: the greedy one draws no noise; extras while
+        # an active slot has them (a seeded draw only where a sampled one
+        # is seeded); logprobs while an active request asks for them
+        greedy = not (self._temperature[active_mask] > 0).any()
+        extras = self._extras_active(active_mask)
+        if extras:
+            self._batch_extras_rows(v, active_mask)
+        variant = ChunkVariant(
+            greedy=bool(greedy), extras=extras,
+            seeded=bool(extras and not greedy and (
+                self._seeds[active_mask & (self._temperature > 0)] >= 0).any()),
+            lp=self._wants_logprobs(active_mask))
         self._dispatch_seq += 1
         prep = {
             "seq": self._dispatch_seq,
@@ -1891,8 +2205,7 @@ class LLMEngineCore:
             "exhausted": exhausted,
             "host_i32": host_i32,
             "host_f32": host_f32,
-            # the greedy variant draws no noise
-            "greedy": not (self._temperature[active_mask] > 0).any(),
+            "variant": variant,
             "requests": [r for r in self._slot_req if r is not None],
         }
         try:
@@ -1932,23 +2245,31 @@ class LLMEngineCore:
         # their copies on the engine's stream ahead of the replay or the
         # launches that write them, outside the graph
         self.paged_cache.apply_pending_cow()
-        noise = (None if prep["greedy"] else
+        variant = prep["variant"]
+        noise = (None if variant.greedy else
                  gumbel_noise((n, self.max_batch, self.model.vocab_size), self._gen, self.device))
         if self._graphs is not None:
-            greedy = prep["greedy"]
-            if not self._graphs.captured(greedy):
-                self._capture(greedy)
-            out = self._graphs.replay(greedy, prep["host_i32"], prep["host_f32"], noise)
+            if not self._graphs.captured(variant):
+                self._capture(variant)
+            out = self._graphs.replay(variant, prep["host_i32"], prep["host_f32"], noise)
             self.counters["graph_replays"] += 1
         else:
             views = self._layout.views(prep["host_i32"].to(self.device, non_blocking=True),
                                        prep["host_f32"].to(self.device, non_blocking=True))
-            out = run_chunk(self.model, self.paged_cache, views, self._chain, noise, n)
-            self._chain = out[:, -1]
+            out = run_chunk(self.model, self.paged_cache, views, self._chain, noise, n,
+                            variant=variant, state=self._extras, lp_k=self._lp_k)
+            self._chain = (out[0] if variant.lp else out)[:, -1]
+        out, lp = (out[0], out[1]) if variant.lp else (out, None)
         tokens, ready = out, None
         if self._stream is not None:
             tokens = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             tokens.copy_(out, non_blocking=True)
+            if lp is not None:
+                host_lp = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                                for t in lp)
+                for dst, src in zip(host_lp, lp):
+                    dst.copy_(src, non_blocking=True)
+                lp = host_lp
             ready = torch.cuda.Event()
             ready.record(self._stream)
         self.counters["decode_steps"] += n
@@ -1957,30 +2278,35 @@ class LLMEngineCore:
         self._hist_dispatch.observe((time.perf_counter() - t0) * 1e3)
         return _InFlightChunk(seq=prep["seq"], active_mask=prep["active_mask"],
                               tokens=tokens, ready=ready, exhausted=prep["exhausted"],
-                              epoch=prep["epoch"])
+                              epoch=prep["epoch"], lp=lp)
 
-    def _capture(self, greedy: bool) -> None:
+    def _capture(self, variant: ChunkVariant) -> None:
         """Capture a decode-chunk variant: inside ``warmup()`` in the
         global mode (the card is the engine's alone), while serving in the
         thread-local one (a retire may read back meanwhile), counted in
-        ``serve_captures``. A failed capture raises: the chunk never runs
-        eagerly instead."""
+        ``serve_captures``; its time lands in ``health()["graph_variants"]``.
+        A failed capture raises: the chunk never runs eagerly instead."""
+        t0 = time.perf_counter()
         try:
             self._graphs.capture(
-                greedy, capture_error_mode="global" if self._warming else "thread_local")
+                variant, capture_error_mode="global" if self._warming else "thread_local")
         except Exception as ex:
             raise RuntimeError("CUDA-graph capture of the {} decode chunk failed: {}".format(
-                "greedy" if greedy else "sampled", ex)) from ex
+                variant.label(), ex)) from ex
+        self._capture_ms[variant.label()] = (time.perf_counter() - t0) * 1e3
         self.counters["graph_captures"] += 1
         if not self._warming:
             self.counters["serve_captures"] += 1
 
     def _capture_graphs(self) -> None:
-        """Capture every decode-chunk variant not captured yet
-        (``warmup()``; nothing on the CPU or with ``cuda_graphs`` off)."""
+        """Capture the plain decode-chunk variants not captured yet
+        (``warmup()``; nothing on the CPU or with ``cuda_graphs`` off). As
+        in the reference's sweep, the extras and logprob variants are
+        captured at their first use."""
         for greedy in (True, False):
-            if self._graphs is not None and not self._graphs.captured(greedy):
-                self._capture(greedy)
+            variant = ChunkVariant(greedy)
+            if self._graphs is not None and not self._graphs.captured(variant):
+                self._capture(variant)
 
     async def _retire_chunk(self, entry: _InFlightChunk) -> None:
         """Readback and emission of the oldest chunk, while the next one
@@ -2018,14 +2344,19 @@ class LLMEngineCore:
                     break
             # the rest of the chunk still emits
         chunk = entry.tokens.numpy()
+        lp = None if entry.lp is None else tuple(t.numpy() for t in entry.lp)
         slots = [int(s) for s in np.nonzero(entry.active_mask)[0]]
         for slot in slots:
             self._next_token[slot] = int(chunk[slot, -1])
         for slot in slots:
-            for token_id in chunk[slot]:
+            request = self._slot_req[slot]
+            want_lp = lp is not None and request is not None and request.logprobs is not None
+            for i, token_id in enumerate(chunk[slot]):
                 # _emit frees the slot on finish; the rest of the chunk for
                 # that slot is dropped by the None check inside _emit
-                self._emit(slot, int(token_id))
+                entry_lp = (self._lp_entry(token_id, lp[0][slot, i], lp[1][slot, i],
+                                           lp[2][slot, i]) if want_lp else None)
+                self._emit(slot, int(token_id), entry_lp)
         self._release_quarantine(entry.seq)
         # a promotion that completed while this chunk computed cost the
         # loop nothing
@@ -2220,7 +2551,7 @@ class LLMEngineCore:
             pass
         self._ledger_audit_request(request, "cancel" if request.cancelled else "emit-finish")
 
-    def _emit(self, slot: int, token_id: int) -> None:
+    def _emit(self, slot: int, token_id: int, lp: Optional[dict] = None) -> None:
         request = self._slot_req[slot]
         if request is None:
             return
@@ -2235,6 +2566,9 @@ class LLMEngineCore:
                 "request budget elapsed after {} tokens".format(request.produced),
                 stage="total"))
             return
+        if lp is not None and request.logprobs is not None:
+            # appended before the token is queued (GenRequest contract)
+            request.logprob_entries.append(lp)
         request.produced += 1
         if request.priority != "interactive":
             # preemptible lane: a preemption folds these into the resume
@@ -2245,8 +2579,10 @@ class LLMEngineCore:
             request.first_token_at = time.time()
             self.ttft_ms.append((request.first_token_at - request.submitted_at) * 1e3)
         request.out_queue.put_nowait(token_id)
+        stop_ids = request.stop_token_ids or (
+            [self.eos_token_id] if self.eos_token_id is not None else [])
         if (
-            token_id == self.eos_token_id
+            token_id in stop_ids
             or request.produced >= self._effective_max_new(request)
             or request.prompt_len + request.produced >= self.max_seq_len
         ):
@@ -2351,9 +2687,13 @@ class LLMEngineCore:
         """(greedy, sampled) slot masks of verify rows: greedy rows
         (temperature 0) replay exactly through argmax acceptance; sampled
         rows (temperature > 0) need ``spec_sampling``'s rejection
-        sampling."""
-        greedy = active_mask & (self._temperature == 0.0)
-        sampled = (active_mask & (self._temperature > 0.0) if self._spec_sampling
+        sampling. A slot with sampling extras or logprobs rides the launch
+        as a plain decode row instead, sampled with the chunk's semantics
+        (the reference's exclusions)."""
+        lp_free = np.array([r is None or r.logprobs is None for r in self._slot_req])
+        clean = active_mask & ~self._slot_extra & lp_free
+        greedy = clean & (self._temperature == 0.0)
+        sampled = (clean & (self._temperature > 0.0) if self._spec_sampling
                    else np.zeros_like(greedy))
         return greedy, sampled
 
@@ -2534,10 +2874,19 @@ class LLMEngineCore:
                     row_logit_idx[slot] = starts[slot] + np.minimum(
                         np.arange(k_ + 1), row_lens[slot] - 1)
         plain_mask = decode_mask & ~spec_any
+        # the plain rows' extras and logprobs (the pipeline is drained, so a
+        # row's seed counter is its produced count)
+        extras_rows = None
+        if self._extras_active(decode_mask):
+            extras_rows = extras_host_rows(self.max_batch)
+            self._batch_extras_rows(extras_rows, plain_mask)
+        want_lp = self._wants_logprobs(decode_mask)
         return {
             "decode_mask": decode_mask,
             "shares": shares,
             "budget": budget,
+            "extras_rows": extras_rows,
+            "want_lp": want_lp,
             "sampling": self._sampling(),
             # plain sampling serves the plain decode rows only
             "all_greedy": not (self._temperature[plain_mask] > 0).any(),
@@ -2564,6 +2913,41 @@ class LLMEngineCore:
             "write_page": np.zeros(tpad, np.int32),
             "write_offset": np.zeros(tpad, np.int32),
         }
+
+    def _ragged_extras(self, plan: dict):
+        """The plain rows' extras on the device (None without): the
+        ``SamplingExtras`` of the launch's step 0, and the active mask whose
+        rows the histogram counts."""
+        rows = plan["extras_rows"]
+        if rows is None:
+            return None, None
+        dev = self.device
+        t = {k: torch.as_tensor(v, device=dev) for k, v in rows.items()}
+        sampled = plan["decode_mask"] & (self._temperature > 0)
+        seeded = bool((rows["seeds"][sampled] >= 0).any())
+        extras = SamplingExtras(
+            presence=t["presence"], frequency=t["frequency"], repetition=t["repetition"],
+            bias=self._extras.bias, seeds=t["seeds"] if seeded else None,
+            counters=t["counters"], min_new=t["min_new"], stop=t["stop"])
+        return extras, t["active"]
+
+    def _sample_rows(self, logits, sampling, all_greedy, extras, mask, step: int, want_lp):
+        """One sampling step of a ragged launch's plain rows (the
+        reference's ``_sample_rows``/``_chain_sample``): the penalized
+        sample with the seed counters offset by ``step``, the histogram
+        advanced for ``mask``'s rows, and the step's logprobs (or None)."""
+        logits = logits.float()
+        if extras is None:
+            tok = sample_tokens(logits, sampling, generator=self._gen, all_greedy=all_greedy)
+            lp_src = logits
+        else:
+            ex = extras._replace(counters=extras.counters + step)
+            lp_src = penalize_logits(logits, ex, self._extras.counts, self._extras.pmask)
+            tok = sample_penalized(lp_src, sampling, generator=self._gen,
+                                   all_greedy=all_greedy, extras=ex)
+            self._extras.counts.scatter_add_(1, tok.long()[:, None],
+                                             mask.to(torch.int32)[:, None])
+        return tok, (logprobs_of(lp_src, tok, self._lp_k) if want_lp else None)
 
     def _ragged_drop_row(self, plan: dict, slot: int) -> None:
         """Worker-side removal of a row whose page extension failed: its
@@ -2745,8 +3129,10 @@ class LLMEngineCore:
         else:
             logits = out
         sampling, all_greedy = plan["sampling"], plan["all_greedy"]
-        tok = sample_tokens(logits, sampling, generator=self._gen, all_greedy=all_greedy)
-        steps = [tok]
+        want_lp = plan["want_lp"]
+        extras, active = self._ragged_extras(plan)
+        tok, lp = self._sample_rows(logits, sampling, all_greedy, extras, active, 0, want_lp)
+        steps, lps = [tok], [lp]
         if launch_steps > 1:
             chain_mask = on_dev(plan["chain_mask"])
             wp, wo = on_dev(chain_wp), on_dev(chain_wo)
@@ -2755,10 +3141,11 @@ class LLMEngineCore:
                     tok.long(), cache.k, cache.v, page_table, kv_lens + step,
                     wp[step], wo[step], **scale_kw,
                 )
-                sampled = sample_tokens(step_logits, sampling, generator=self._gen,
-                                        all_greedy=all_greedy)
+                sampled, lp = self._sample_rows(step_logits, sampling, all_greedy, extras,
+                                                chain_mask[step], step + 1, want_lp)
                 tok = torch.where(chain_mask[step], sampled, tok)
                 steps.append(tok)
+                lps.append(lp)
                 self.counters["ragged_chain_steps"] += 1
         sampled = torch.stack(steps).cpu().numpy()                    # [S, B]
         # only the finishing rows' logits stay for the first-token draw
@@ -2770,7 +3157,10 @@ class LLMEngineCore:
             rows[:len(finish)] = finish
             finish_logits = logits[on_dev(rows)]
         result = {"sampled": sampled, "logits": finish_logits, "finish_rows": finish,
-                  "spec_g": None, "spec_acc": None}
+                  "spec_g": None, "spec_acc": None, "lp": None}
+        if want_lp:
+            # step-major [S, B] (and [S, B, K]) on the host
+            result["lp"] = tuple(torch.stack(part).cpu().numpy() for part in zip(*lps))
         if spec_g is not None:
             result["spec_g"] = spec_g.cpu().numpy()
             result["spec_acc"] = spec_acc.cpu().numpy()
@@ -2835,10 +3225,11 @@ class LLMEngineCore:
             if self._slot_req[slot] is not None:
                 pool.truncate(slot, int(plan["pre_lens"][slot]) + 1 + int(spec_acc[slot]))
         emitted = 0
+        lp = result["lp"]
 
-        def window_emit(slot: int, toks: List[int]) -> None:
+        def window_emit(slot: int, toks: List[int], with_lp: bool = False) -> None:
             nonlocal emitted
-            for tok in toks:
+            for i, tok in enumerate(toks):
                 request = self._slot_req[slot]
                 if request is None:
                     break                      # mid-window EOS mask
@@ -2846,14 +3237,17 @@ class LLMEngineCore:
                     idx = request.prompt_len + request.produced
                     if idx < self._tokbuf.shape[1]:
                         self._tokbuf[slot, idx] = tok
-                self._emit(slot, tok)
+                entry = (self._lp_entry(tok, lp[0][i, slot], lp[1][i, slot], lp[2][i, slot])
+                         if with_lp and lp is not None and request.logprobs is not None
+                         else None)
+                self._emit(slot, tok, entry)
                 emitted += 1
             if self._slot_req[slot] is not None:
                 self._next_token[slot] = toks[-1]
 
         for slot in plain_slots:
             n = int(plan["row_steps"][slot])
-            window_emit(slot, [int(sampled[i, slot]) for i in range(n)])
+            window_emit(slot, [int(sampled[i, slot]) for i in range(n)], with_lp=True)
         accept_fracs = []
         for slot in spec_slots:
             acc = int(spec_acc[slot])
@@ -2899,10 +3293,10 @@ class LLMEngineCore:
                 self.paged_cache.pool.free(job.slot)
                 continue
             row = result["finish_rows"].index(job.slot)
-            first_id = self._first_token(request, result["logits"][row:row + 1])
+            first_id, first_lp = self._first_token(request, result["logits"][row:row + 1])
             # the slot's own pages now hold the whole prompt's K/V
             self._store_prompt(request, job.slot)
-            self._activate_slot(request, job.slot, first_id)
+            self._activate_slot(request, job.slot, first_id, first_lp)
         # the retire boundary's reap, as after a decode chunk
         self._reap_promotions()
         self._last_progress = time.monotonic()

@@ -1,4 +1,4 @@
-"""OpenAI-compatible chat route over the port's engine.
+"""OpenAI-compatible routes over the port's engine.
 
 Counterpart of ``clearml_serving_tpu/llm/openai_api.py``'s
 ``LLMEngineRequest`` for this slice: the engine is built from the same aux
@@ -17,17 +17,33 @@ request lifecycle's ``max_pending``, ``queue_timeout``, ``ttft_timeout``,
 ``starvation_floor``, ``brownout``, ``brownout_batch_cap``,
 ``brownout_dwell`` and ``default_priority``, ON by default as in the
 reference: ``max_pending = max(16, 4 * max_batch)``, a 30 s watchdog,
-preemption, and brownout with the bound), and ``chat/completions`` (``n=1``,
-streaming or not, ``max_tokens``, ``temperature``/``top_p``/``top_k``,
-``stop`` strings, ``priority``, ``timeout``, ``queue_timeout``,
-``ttft_timeout``) and ``models`` answer with the reference's response
-shapes. Admission is checked before a stream's headers, so a shed or a
-spent budget is a 429 or 408, never a mid-stream error. Text handling
-(stop-string trimming, streamed deltas, finish reasons) follows the
-reference line by line so that greedy content is byte-identical.
+preemption, and brownout with the bound; ``logprobs_k``, the logprob top-k ceiling, 20),
+and the routes answer with the reference's response shapes:
 
-Every other aux key and request field is refused with a ``ValueError``
-naming it; the router maps that to a 422.
+- ``chat/completions``: ``n`` choices (seed + i per choice), streaming or
+  not (``stream_options.include_usage``), ``max_tokens``,
+  ``temperature``/``top_p``/``top_k``, ``stop`` strings, the penalties
+  (``presence_penalty``, ``frequency_penalty``, ``repetition_penalty``),
+  ``logit_bias``, ``seed``, ``min_tokens``, ``logprobs`` + ``top_logprobs``,
+  ``prompt_logprobs``, ``return_tokens_as_token_ids``, ``response_role``,
+  ``priority``, ``timeout``, ``queue_timeout``, ``ttft_timeout``;
+- ``completions``: the same sampling fields, the polymorphic ``prompt``
+  (text, texts, token ids, lists of token ids), ``logprobs`` as a count,
+  ``echo``, ``best_of`` (ranked by cumulative logprob), and ``max_tokens:
+  0`` (prompt scoring: ``echo`` + ``logprobs`` through the engine's
+  ``score_prompt``); ``suffix`` is refused;
+- ``tokenize``, ``detokenize``, ``models`` and (``serving/main.py``)
+  ``version``.
+
+Admission is checked before a stream's headers, so a shed or a spent
+budget is a 429 or 408, never a mid-stream error. Text handling
+(stop-string trimming, streamed deltas, logprob entries, finish reasons)
+follows the reference line by line so that content is byte-identical.
+
+Guided decoding and tools (``response_format``, ``guided_*``, ``tools``,
+``tool_choice``, ``parallel_tool_calls``) are not ported yet and are
+refused by name; so is every other aux key and request field the port
+does not know. The router maps a ``ValueError`` to a 422.
 """
 
 from __future__ import annotations
@@ -37,15 +53,16 @@ import json
 import logging
 import time
 import uuid
-from typing import Any, AsyncIterator, Dict, List, Optional
+from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 
 import torch
 
 from ..device import resolve_device
 from ..models.llama import Llama, init_params, resolve_config
 from ..ops.quant import detect_weight_quant, quantize_llama_params
+from ..version import __version__
 from .engine import PRIORITY_CLASSES, GenRequest, LLMEngineCore
-from .tokenizer import ByteTokenizer
+from .tokenizer import ByteTokenizer, token_repr, token_str
 
 ENGINE_KEYS = (
     "preset", "arch", "config", "cache", "kv_quant", "max_batch", "max_seq_len",
@@ -57,14 +74,21 @@ ENGINE_KEYS = (
     "preemption", "preempt_budget", "starvation_floor", "brownout",
     "brownout_batch_cap", "brownout_dwell", "default_priority",
     "prefix_cache", "prefix_block", "prefix_cache_mb", "prefix_cache_pages",
-    "prefix_cache_host_pages", "prefix_cache_host_mb",
+    "prefix_cache_host_pages", "prefix_cache_host_mb", "logprobs_k",
 )
 
-CHAT_FIELDS = (
-    "model", "messages", "max_tokens", "max_completion_tokens", "temperature",
-    "top_p", "top_k", "stop", "stream", "n",
-    "priority", "timeout", "queue_timeout", "ttft_timeout",
+# the body fields of both generating routes
+_SAMPLING_FIELDS = (
+    "model", "max_tokens", "max_completion_tokens", "temperature", "top_p", "top_k", "stop",
+    "stream", "stream_options", "n", "seed", "presence_penalty", "frequency_penalty",
+    "repetition_penalty", "logit_bias", "min_tokens", "logprobs", "prompt_logprobs",
+    "return_tokens_as_token_ids", "priority", "timeout", "queue_timeout", "ttft_timeout",
 )
+CHAT_FIELDS = _SAMPLING_FIELDS + ("messages", "top_logprobs", "response_role")
+COMPLETION_FIELDS = _SAMPLING_FIELDS + ("prompt", "echo", "best_of", "suffix")
+# guided decoding and tools: the reference's, not ported yet
+GUIDED_FIELDS = ("response_format", "guided_choice", "guided_regex", "guided_json", "tools",
+                 "tool_choice", "parallel_tool_calls")
 
 
 def _now() -> int:
@@ -211,6 +235,8 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
         # format raises, naming the tree's format)
         weight_quant=weight_quant,
         cuda_graphs=cuda_graphs,
+        # OpenAI's top_logprobs ceiling, as the reference reads it
+        logprobs_k=int(engine_cfg.get("logprobs_k", 20)),
         # the request lifecycle, on by default at the serving front as in
         # the reference: bounded admission and a stall watchdog; 0/false
         # disables a knob
@@ -257,10 +283,11 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
 
 
 class LLMEngineRequest:
-    """One engine per served model: the chat and models routes. With
-    ``warmup`` other than "off" (``warmup_mode``), the first requests wait
-    for the engine's warmup sweep. ``default_priority`` (the aux knob, read
-    by ``default_priority``) is the class of requests whose body names
+    """One engine per served model: the chat, completions, tokenize,
+    detokenize and models routes. With ``warmup`` other than "off"
+    (``warmup_mode``), the first requests wait for the engine's warmup
+    sweep. ``default_priority`` (the aux knob, read by
+    ``default_priority``) is the class of requests whose body names
     none."""
 
     def __init__(self, engine: LLMEngineCore, tokenizer, model_name: str = "model",
@@ -290,20 +317,49 @@ class LLMEngineRequest:
 
     # -- request parsing -----------------------------------------------------
 
-    def _gen_request_from_body(self, body: Dict[str, Any], prompt_ids: List[int]) -> GenRequest:
-        unknown = sorted(k for k, v in body.items() if k not in CHAT_FIELDS and v is not None)
+    @staticmethod
+    def _check_fields(body: Dict[str, Any], allowed) -> None:
+        """Refuse, by name, the fields of guided decoding and tools, then
+        every field the route does not know."""
+        guided = sorted(k for k in GUIDED_FIELDS if body.get(k) is not None
+                        and not (k == "response_format" and isinstance(body[k], dict)
+                                 and body[k].get("type") in (None, "text")))
+        if guided:
+            raise ValueError(
+                "request fields {} (guided decoding and tools) are not supported by the "
+                "PyTorch port yet".format(guided))
+        unknown = sorted(k for k, v in body.items()
+                         if k not in allowed and k not in GUIDED_FIELDS and v is not None)
         if unknown:
             raise ValueError(
-                "request fields {} are not supported by the PyTorch port yet".format(unknown)
-            )
-        if int(body.get("n", 1) or 1) != 1:
-            raise ValueError("n != 1 is not supported by the PyTorch port yet")
-        return GenRequest(
+                "request fields {} are not supported by the PyTorch port yet".format(unknown))
+
+    def _gen_request_from_body(self, body: Dict[str, Any], prompt_ids: List[int],
+                               chat: bool = True) -> GenRequest:
+        logit_bias = body.get("logit_bias") or None
+        if logit_bias is not None:
+            logit_bias = {int(k): float(v) for k, v in logit_bias.items()}
+        # logprobs: chat takes `logprobs: bool` + `top_logprobs: int`;
+        # completions take `logprobs: int` (0 = the chosen token only)
+        if chat:
+            logprobs = (int(body.get("top_logprobs", 0) or 0) if body.get("logprobs")
+                        else None)
+        else:
+            raw_lp = body.get("logprobs")
+            logprobs = int(raw_lp) if raw_lp is not None and raw_lp is not False else None
+        request = GenRequest(
             prompt_ids=prompt_ids,
             max_new_tokens=int(body.get("max_tokens") or body.get("max_completion_tokens") or 128),
             temperature=float(body.get("temperature", 0.0) or 0.0),
             top_k=int(body.get("top_k", 0) or 0),
             top_p=float(body.get("top_p", 1.0) or 1.0),
+            presence_penalty=float(body.get("presence_penalty", 0.0) or 0.0),
+            frequency_penalty=float(body.get("frequency_penalty", 0.0) or 0.0),
+            repetition_penalty=float(body.get("repetition_penalty", 1.0) or 1.0),
+            seed=int(body["seed"]) if body.get("seed") is not None else None,
+            logit_bias=logit_bias,
+            logprobs=logprobs,
+            min_tokens=int(body.get("min_tokens", 0) or 0),
             # lifecycle budgets in seconds (the engine's defaults apply
             # when absent); ``timeout`` bounds the whole request
             total_timeout=float(body["timeout"]) if body.get("timeout") is not None else None,
@@ -315,6 +371,25 @@ class LLMEngineRequest:
             # engine's validate() refuses an unknown one
             priority=str(body.get("priority") or self._default_priority),
         )
+        # vLLM return_tokens_as_token_ids: logprob token strings become
+        # "token_id:<id>" (API-layer formatting, not an engine field)
+        request.tokens_as_ids = bool(body.get("return_tokens_as_token_ids"))
+        return request
+
+    def _n_requests(self, body: Dict[str, Any], prompt_ids: List[int],
+                    chat: bool = True) -> List[GenRequest]:
+        """OpenAI ``n`` choices: n independent requests through the batch; a
+        seeded request's choice i takes seed + i, so choices differ."""
+        n = int(body.get("n", 1) or 1)
+        if n < 1:
+            raise ValueError("n must be >= 1")
+        requests = []
+        for i in range(n):
+            r = self._gen_request_from_body(body, list(prompt_ids), chat=chat)
+            if r.seed is not None and i:
+                r.seed = r.seed + i
+            requests.append(r)
+        return requests
 
     @staticmethod
     def _stops_from_body(body: Dict[str, Any]) -> List[str]:
@@ -333,7 +408,8 @@ class LLMEngineRequest:
         return min(hits) if hits else -1
 
     def _tokens_covering(self, ids: List[int], n_chars: int) -> int:
-        """Smallest token count whose decoded prefix covers n_chars."""
+        """Smallest token count whose decoded prefix covers n_chars (trims
+        tokens, logprobs and usage to the emitted text)."""
         j = len(ids)
         while j > 0 and len(self.tokenizer.decode(ids[: j - 1])) >= n_chars:
             j -= 1
@@ -378,13 +454,30 @@ class LLMEngineRequest:
             finish = self._finish_reason(request)
         return {"text": self.tokenizer.decode(ids), "ids": ids, "finish_reason": finish}
 
-    async def _stream_deltas(self, request: GenRequest, stops: List[str]) -> AsyncIterator[str]:
-        """Text deltas; stop strings hold back a potential stop-prefix tail
-        so a matched stop is never partially emitted."""
+    async def _stream_deltas(self, request: GenRequest,
+                             stops: List[str]) -> AsyncIterator[Dict[str, Any]]:
+        """``{"delta", "entries"}`` pieces: text deltas, with the logprob
+        entries of the tokens whose text they carry (None without
+        logprobs). Stop strings hold back a potential stop-prefix tail so a
+        matched stop is never partially emitted; entries never lead the
+        text."""
         ids: List[int] = []
         sent = ""
         holdback = max((len(s) for s in stops), default=1) - 1
         eos = self.tokenizer.eos_token_id
+        lp_cursor = 0
+
+        def take_entries(upto_tokens: int):
+            nonlocal lp_cursor
+            new = request.logprob_entries[lp_cursor:upto_tokens]
+            lp_cursor = max(lp_cursor, upto_tokens)
+            return new
+
+        def entries_for(n_chars: int):
+            if request.logprobs is None:
+                return None
+            return take_entries(self._tokens_covering(ids, n_chars))
+
         async for token in self.engine.generate(request):
             if eos is not None and token == eos:
                 break
@@ -400,15 +493,17 @@ class LLMEngineRequest:
                     j = self._tokens_covering(ids, cut)
                     del ids[j:]
                     request.produced = j
-                    if cut > len(sent):
-                        yield text[len(sent):cut]
+                    entries = take_entries(j) if request.logprobs is not None else None
+                    if cut > len(sent) or entries:
+                        yield {"delta": text[len(sent):cut], "entries": entries}
                     return
                 text = text[: len(text) - holdback] if holdback else text
             if len(text) > len(sent):
                 prev = len(sent)
                 sent = text
-                yield text[prev:]
-        # flush the held-back tail (and a final legitimate replacement char)
+                yield {"delta": text[prev:], "entries": entries_for(len(text))}
+        # flush the held-back tail (and a final legitimate replacement
+        # char), with the entries of tokens that decoded to no text
         text = self.tokenizer.decode(ids)
         if stops:
             cut = self._first_stop_hit(text, stops)
@@ -418,14 +513,159 @@ class LLMEngineRequest:
                 j = self._tokens_covering(ids, cut)
                 del ids[j:]
                 request.produced = j
-        if len(text) > len(sent):
-            yield text[len(sent):]
+        tail_entries = take_entries(len(ids)) if request.logprobs is not None else None
+        if len(text) > len(sent) or tail_entries:
+            yield {"delta": text[len(sent):], "entries": tail_entries}
+
+    # -- logprob payloads (chat and completions shapes) ----------------------
+
+    def _chat_lp_entries(self, entries: List[dict], k: int, as_ids: bool = False) -> List[dict]:
+        content = []
+        for entry in entries:
+            tok = token_repr(self.tokenizer, entry["id"], as_ids)
+            tops = []
+            for t, lp in zip(entry["top_ids"][:k], entry["top_logprobs"][:k]):
+                ts = token_repr(self.tokenizer, t, as_ids)
+                tops.append({"token": ts, "logprob": lp, "bytes": list(ts.encode("utf-8"))})
+            content.append({"token": tok, "logprob": entry["logprob"],
+                            "bytes": list(tok.encode("utf-8")), "top_logprobs": tops})
+        return content
+
+    def _chat_logprobs(self, request: GenRequest, ids: List[int]) -> Dict[str, Any]:
+        return {"content": self._chat_lp_entries(
+            request.logprob_entries[: len(ids)], int(request.logprobs or 0),
+            as_ids=getattr(request, "tokens_as_ids", False))}
+
+    def _completion_lp_entries(self, entries: List[dict], k: int, offset: int = 0,
+                               as_ids: bool = False) -> Tuple[Dict[str, Any], int]:
+        """(logprobs block, next text offset); offsets track the emitted
+        text, in token-id mode too."""
+        tokens, token_logprobs, top_logprobs, offsets = [], [], [], []
+        for entry in entries:
+            decoded = token_str(self.tokenizer, entry["id"])
+            tokens.append("token_id:{}".format(int(entry["id"])) if as_ids else decoded)
+            token_logprobs.append(entry["logprob"])
+            top_logprobs.append({token_repr(self.tokenizer, t, as_ids): lp for t, lp in
+                                 zip(entry["top_ids"][:k], entry["top_logprobs"][:k])})
+            offsets.append(offset)
+            offset += len(decoded)
+        return {"tokens": tokens, "token_logprobs": token_logprobs,
+                "top_logprobs": top_logprobs, "text_offset": offsets}, offset
+
+    def _completion_logprobs(self, request: GenRequest, ids: List[int]) -> Dict[str, Any]:
+        lp, _ = self._completion_lp_entries(
+            request.logprob_entries[: len(ids)], int(request.logprobs or 0),
+            as_ids=getattr(request, "tokens_as_ids", False))
+        return lp
+
+    def _prompt_logprobs_n(self, body: Dict[str, Any]) -> Optional[int]:
+        """The vLLM ``prompt_logprobs`` knob (None = off), validated."""
+        raw = body.get("prompt_logprobs")
+        if raw is None or raw is False:
+            return None
+        n_top = int(raw)
+        if n_top < 0:
+            raise ValueError("prompt_logprobs must be >= 0")
+        ceiling = int(self.engine.logprobs_k)
+        if n_top > ceiling:
+            raise ValueError("prompt_logprobs {} exceeds the engine ceiling {}".format(
+                n_top, ceiling))
+        return n_top
+
+    def _prompt_logprobs_payload(self, prompt_ids: List[int], n_top: int,
+                                 entries=None) -> List[Optional[dict]]:
+        """vLLM ``prompt_logprobs``: per prompt position a dict token_id ->
+        {logprob, rank, decoded_token} of the top ``n_top`` and the actual
+        token with its exact rank (the first position None). Device work
+        unless ``entries`` are given: callers run it off the event loop."""
+        if entries is None:
+            entries = self.engine.score_prompt(prompt_ids)
+        out: List[Optional[dict]] = [None]
+        for e, tok in zip(entries, prompt_ids[1:]):
+            d: Dict[str, Any] = {}
+            for r_i, (t, lp) in enumerate(zip(e["top_ids"][:n_top], e["top_logprobs"][:n_top])):
+                d[str(int(t))] = {"logprob": lp, "rank": r_i + 1,
+                                  "decoded_token": token_str(self.tokenizer, t)}
+            d.setdefault(str(int(tok)), {"logprob": e["logprob"], "rank": int(e["rank"]),
+                                         "decoded_token": token_str(self.tokenizer, tok)})
+            out.append(d)
+        return out
+
+    def _echo_prompt_logprobs(self, prompt_ids: List[int], request: GenRequest, entries=None):
+        """OpenAI ``echo`` + ``logprobs``: the block starts with the prompt's
+        tokens (the first with null logprob and top), scored by one
+        teacher-forced pass. Returns (block, next text offset)."""
+        k = int(request.logprobs or 0)
+        as_ids = getattr(request, "tokens_as_ids", False)
+        if entries is None:
+            entries = self.engine.score_prompt(prompt_ids)
+        first = token_repr(self.tokenizer, prompt_ids[0], as_ids)
+        lp, offset = self._completion_lp_entries(
+            entries, k, offset=len(token_str(self.tokenizer, prompt_ids[0])), as_ids=as_ids)
+        lp["tokens"].insert(0, first)
+        lp["token_logprobs"].insert(0, None)
+        lp["top_logprobs"].insert(0, None)
+        lp["text_offset"].insert(0, 0)
+        return lp, offset
+
+    async def _fanout_stream(self, requests: List[GenRequest], stops: List[str], *,
+                             head, delta, finish, usage) -> AsyncIterator[str]:
+        """Multi-choice SSE (chat and completions): one ``_stream_deltas``
+        pump per choice feeds a queue, chunks interleave by arrival tagged
+        with their choice's index; ``head`` leads, ``usage()`` (or None)
+        trails. Every slot is freed on completion and on disconnect."""
+        queue: "asyncio.Queue" = asyncio.Queue()
+
+        async def pump(i, req):
+            try:
+                async for piece in self._stream_deltas(req, stops):
+                    await queue.put((i, "delta", piece))
+                await queue.put((i, "finish", None))
+            except Exception as ex:  # surfaced as an SSE error event
+                await queue.put((i, "error", ex))
+
+        tasks: List[asyncio.Task] = []
+        try:
+            for chunk in head:
+                yield chunk
+            tasks = [asyncio.get_running_loop().create_task(pump(i, r))
+                     for i, r in enumerate(requests)]
+            live = len(requests)
+            while live:
+                i, kind, payload = await queue.get()
+                if kind == "error":
+                    yield _sse_error(payload)
+                    yield "data: [DONE]\n\n"
+                    return
+                if kind == "finish":
+                    yield finish(i, requests[i])
+                    live -= 1
+                    continue
+                yield delta(i, requests[i], payload)
+            tail = usage()
+            if tail is not None:
+                yield tail
+            yield "data: [DONE]\n\n"
+        finally:
+            for t in tasks:
+                t.cancel()
+            for r in requests:
+                r.cancel()
+
+    def _admit_all(self, requests: List[GenRequest]) -> None:
+        """Validation and admission before any header: a refusal, a shed or
+        a spent budget is a status line, not a broken stream; the reserve
+        counts the batch's own earlier choices."""
+        for i, r in enumerate(requests):
+            self.engine.validate(r)
+            self.engine.check_admission(r, reserve=i)
 
     # -- routes --------------------------------------------------------------
 
     async def v1_chat_completions(self, body: Dict[str, Any]):
         """A response dict, or an async iterator of SSE lines when
         ``stream`` is set (validated before the first line)."""
+        self._check_fields(body, CHAT_FIELDS)
         messages = body.get("messages") or []
         prompt = self.tokenizer.apply_chat_template(messages)
         prompt_ids = self.tokenizer.encode_chat(prompt)
@@ -433,65 +673,382 @@ class LLMEngineRequest:
         model = body.get("model", self.model_name)
         completion_id = _gen_id("chatcmpl")
         created = _now()
-        request = self._gen_request_from_body(body, prompt_ids)
-        # before a stream's headers: a refusal, a shed or a spent budget is
-        # a status line (422, 429, 408), not a mid-stream error
-        self.engine.validate(request)
-        self.engine.check_admission(request)
-        await self._ensure_warm()
+        role = str(body.get("response_role") or "assistant")
+        include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
 
-        def chat_chunk(choice) -> str:
-            chunk = {
-                "id": completion_id, "object": "chat.completion.chunk",
-                "created": created, "model": model, "choices": [choice],
-            }
+        def chat_chunk(choice, usage="omit") -> str:
+            chunk = {"id": completion_id, "object": "chat.completion.chunk",
+                     "created": created, "model": model,
+                     "choices": [choice] if choice is not None else []}
+            if include_usage:
+                # every chunk carries usage null; a final choices-less
+                # chunk carries the totals
+                chunk["usage"] = None if usage == "omit" else usage
             return "data: {}\n\n".format(json.dumps(chunk))
 
+        plp_n = self._prompt_logprobs_n(body)  # validated before any device work
+        if body.get("stream") and plp_n is not None:
+            raise ValueError("prompt_logprobs is not supported with streaming")
+        requests = self._n_requests(body, prompt_ids)
+        self._admit_all(requests)
+        await self._ensure_warm()
+
         if body.get("stream"):
-            async def sse():
-                try:
-                    yield chat_chunk({"index": 0, "delta": {"role": "assistant"},
-                                      "finish_reason": None})
-                    try:
-                        async for delta in self._stream_deltas(request, stops):
-                            yield chat_chunk({"index": 0, "delta": {"content": delta},
-                                              "finish_reason": None})
-                    except Exception as ex:
-                        yield "data: {}\n\n".format(json.dumps(
-                            {"error": {"message": str(ex), "type": type(ex).__name__}}
-                        ))
-                        yield "data: [DONE]\n\n"
-                        return
-                    yield chat_chunk({"index": 0, "delta": {},
-                                      "finish_reason": self._finish_reason(request)})
-                    yield "data: [DONE]\n\n"
-                finally:
-                    # normal end and client disconnect alike: free the slot
-                    request.cancel()
+            def chat_delta(i, req, piece):
+                choice = {"index": i, "delta": {"content": piece["delta"]},
+                          "finish_reason": None}
+                if piece.get("entries") is not None:
+                    choice["logprobs"] = {"content": self._chat_lp_entries(
+                        piece["entries"], int(req.logprobs or 0),
+                        as_ids=getattr(req, "tokens_as_ids", False))}
+                return chat_chunk(choice)
 
-            return sse()
+            def chat_finish(i, req):
+                return chat_chunk({"index": i, "delta": {},
+                                   "finish_reason": self._finish_reason(req)})
 
-        res = await self._collect_text(request, stops)
-        return {
+            def chat_usage():
+                if not include_usage:
+                    return None
+                total = sum(r.produced for r in requests)
+                return chat_chunk(None, usage={
+                    "prompt_tokens": requests[0].prompt_len, "completion_tokens": total,
+                    "total_tokens": requests[0].prompt_len + total})
+
+            return self._fanout_stream(
+                requests, stops,
+                head=[chat_chunk({"index": i, "delta": {"role": role}, "finish_reason": None})
+                      for i in range(len(requests))],
+                delta=chat_delta, finish=chat_finish, usage=chat_usage)
+
+        results = await asyncio.gather(*[self._collect_text(r, stops) for r in requests])
+        plp_payload = None
+        if plp_n is not None:
+            # one scoring pass, shared by the choices
+            plp_payload = await asyncio.to_thread(self._prompt_logprobs_payload, prompt_ids,
+                                                  plp_n)
+        choices = [{
+            "index": i,
+            "message": {"role": role, "content": res["text"]},
+            "finish_reason": res["finish_reason"],
+            "logprobs": (self._chat_logprobs(r, res["ids"]) if r.logprobs is not None
+                         else None),
+        } for i, (r, res) in enumerate(zip(requests, results))]
+        completion_tokens = sum(r.produced for r in requests)
+        out = {
             "id": completion_id,
             "object": "chat.completion",
             "created": created,
             "model": model,
-            "choices": [{
-                "index": 0,
-                "message": {"role": "assistant", "content": res["text"]},
-                "finish_reason": res["finish_reason"],
-                "logprobs": None,
-            }],
+            "choices": choices,
+            # the prompt counts once whatever n is
             "usage": {
-                "prompt_tokens": request.prompt_len,
-                "completion_tokens": request.produced,
-                "total_tokens": request.prompt_len + request.produced,
+                "prompt_tokens": requests[0].prompt_len,
+                "completion_tokens": completion_tokens,
+                "total_tokens": requests[0].prompt_len + completion_tokens,
             },
         }
+        if plp_payload is not None:
+            # a top-level field in the chat shape (per choice in completions)
+            out["prompt_logprobs"] = plp_payload
+        return out
+
+    def _check_token_ids(self, ids: List[int]) -> List[int]:
+        vocab = self.engine.model.vocab_size
+        for t in ids:
+            if not 0 <= int(t) < vocab:
+                raise ValueError("token id {} out of range for vocab size {}".format(t, vocab))
+        return [int(t) for t in ids]
+
+    def _encode_prompts(self, prompt) -> List[List[int]]:
+        """The completions ``prompt``: str | [str] | [int] | [[int]]; token
+        ids pass through, range-checked."""
+        if isinstance(prompt, str):
+            return [self.tokenizer.encode(prompt)]
+        if isinstance(prompt, list):
+            if not prompt:
+                return [self.tokenizer.encode("")]
+            if all(isinstance(p, int) for p in prompt):
+                return [self._check_token_ids(prompt)]
+            if all(isinstance(p, list) for p in prompt):
+                return [self._check_token_ids(p) for p in prompt]
+            return [self.tokenizer.encode(str(p)) for p in prompt]
+        return [self.tokenizer.encode(str(prompt))]
+
+    async def v1_completions(self, body: Dict[str, Any]):
+        """A response dict, or an async iterator of SSE lines when
+        ``stream`` is set (one prompt; validated before the first line)."""
+        self._check_fields(body, COMPLETION_FIELDS)
+        if body.get("suffix") is not None:
+            # fill-in-middle needs a FIM template: refused, as vLLM does,
+            # before any tokenization
+            raise ValueError("suffix is not supported (no fill-in-middle template)")
+        prompt_id_lists = self._encode_prompts(body.get("prompt") or "")
+        stops = self._stops_from_body(body)
+        model = body.get("model", self.model_name)
+        completion_id = _gen_id("cmpl")
+        created = _now()
+        plp_n = self._prompt_logprobs_n(body)  # validated before any device work
+        if body.get("stream") and plp_n is not None:
+            raise ValueError("prompt_logprobs is not supported with streaming")
+        raw_max = body.get("max_tokens", body.get("max_completion_tokens"))
+        if raw_max is not None and int(raw_max) == 0:
+            # the prompt-scoring call: nothing generated
+            return await self._zero_completion(body, prompt_id_lists, model, completion_id,
+                                               created, plp_n)
+        echo = bool(body.get("echo"))
+        if body.get("stream"):
+            return await self._stream_completion(body, prompt_id_lists, stops, model,
+                                                 completion_id, created, echo)
+
+        # n choices per prompt (choice index prompt-major); best_of
+        # candidates per prompt, the top n by cumulative logprob returned,
+        # every candidate billed
+        n = int(body.get("n", 1) or 1)
+        best_of = int(body.get("best_of") or n)
+        if best_of < n:
+            raise ValueError("best_of must be >= n")
+        cand_body = dict(body, n=best_of) if best_of != n else body
+        requests: List[GenRequest] = []
+        for ids in prompt_id_lists:
+            requests.extend(self._n_requests(cand_body, ids, chat=False))
+        # ranking needs the chosen logprobs: collected internally when the
+        # client asked for none, and left out of the reply
+        lp_internal = best_of != n and requests[0].logprobs is None
+        if lp_internal:
+            for r in requests:
+                r.logprobs = 0
+        self._admit_all(requests)
+        await self._ensure_warm()
+        results = await asyncio.gather(*[self._collect_text(r, stops) for r in requests])
+        if best_of != n:
+            def cumulative_lp(i: int) -> float:
+                # +1 keeps the finishing token's entry (EOS is stripped from
+                # ids), as vLLM's cumulative_logprob does
+                ents = requests[i].logprob_entries[: len(results[i]["ids"]) + 1]
+                return sum(e["logprob"] for e in ents)
+
+            sel: List[int] = []
+            for p in range(len(prompt_id_lists)):
+                grp = sorted(range(p * best_of, (p + 1) * best_of), key=cumulative_lp,
+                             reverse=True)
+                sel.extend(grp[:n])
+        else:
+            sel = list(range(len(requests)))
+        # echo + logprobs and prompt_logprobs share one scoring pass per
+        # prompt, off the event loop
+        echo_lp: Dict[int, Any] = {}
+        plp: Dict[int, Any] = {}
+        want_echo_lp = echo and requests[0].logprobs is not None and not lp_internal
+        if want_echo_lp or plp_n is not None:
+            def build_payloads(ids, req0):
+                entries = self.engine.score_prompt(ids)
+                e = self._echo_prompt_logprobs(ids, req0, entries=entries) if want_echo_lp \
+                    else None
+                q = (self._prompt_logprobs_payload(ids, plp_n, entries=entries)
+                     if plp_n is not None else None)
+                return e, q
+
+            for p, ids in enumerate(prompt_id_lists):
+                e, q = await asyncio.to_thread(build_payloads, ids, requests[p * best_of])
+                if e is not None:
+                    echo_lp[p] = e
+                if q is not None:
+                    plp[p] = q
+        choices = []
+        for i, idx in enumerate(sel):
+            r, res = requests[idx], results[idx]
+            choice = {
+                "index": i,
+                "text": res["text"],
+                "finish_reason": res["finish_reason"],
+                "logprobs": (self._completion_logprobs(r, res["ids"])
+                             if r.logprobs is not None and not lp_internal else None),
+            }
+            if idx // best_of in plp:
+                choice["prompt_logprobs"] = plp[idx // best_of]
+            if echo:
+                choice["text"] = self.tokenizer.decode(r.prompt_ids) + res["text"]
+                if idx // best_of in echo_lp:
+                    lp0, off = echo_lp[idx // best_of]
+                    lp = {k2: list(v2) for k2, v2 in lp0.items()}
+                    gen_lp, _ = self._completion_lp_entries(
+                        r.logprob_entries[: len(res["ids"])], int(r.logprobs or 0),
+                        offset=off, as_ids=getattr(r, "tokens_as_ids", False))
+                    for key in ("tokens", "token_logprobs", "top_logprobs", "text_offset"):
+                        lp[key].extend(gen_lp[key])
+                    choice["logprobs"] = lp
+            choices.append(choice)
+        prompt_tokens = sum(len(ids) for ids in prompt_id_lists)
+        completion_tokens = sum(r.produced for r in requests)
+        return {
+            "id": completion_id,
+            "object": "text_completion",
+            "created": created,
+            "model": model,
+            "choices": choices,
+            "usage": {"prompt_tokens": prompt_tokens, "completion_tokens": completion_tokens,
+                      "total_tokens": prompt_tokens + completion_tokens},
+        }
+
+    async def _stream_completion(self, body, prompt_id_lists, stops, model, completion_id,
+                                 created, echo: bool):
+        """Streamed completions of one prompt with n choices; ``echo`` leads
+        each choice with the prompt text (and its scored entries)."""
+        if len(prompt_id_lists) != 1:
+            raise ValueError("streaming completions support a single prompt per request")
+        stream_n = int(body.get("n", 1) or 1)
+        if body.get("best_of") is not None and int(body["best_of"]) != stream_n:
+            # which candidate to emit is known only at the end
+            raise ValueError("best_of must equal n when streaming")
+        requests = self._n_requests(body, prompt_id_lists[0], chat=False)
+        self._admit_all(requests)
+        await self._ensure_warm()
+        include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
+
+        def cmpl_chunk(choices, usage="omit") -> str:
+            chunk = {"id": completion_id, "object": "text_completion", "created": created,
+                     "model": model, "choices": choices}
+            if include_usage:
+                chunk["usage"] = None if usage == "omit" else usage
+            return "data: {}\n\n".format(json.dumps(chunk))
+
+        lp_offsets = [0] * stream_n
+
+        def cmpl_delta(i, req, piece):
+            choice = {"index": i, "text": piece["delta"], "finish_reason": None}
+            if piece.get("entries") is not None:
+                lp, lp_offsets[i] = self._completion_lp_entries(
+                    piece["entries"], int(req.logprobs or 0), offset=lp_offsets[i],
+                    as_ids=getattr(req, "tokens_as_ids", False))
+                choice["logprobs"] = lp
+            return cmpl_chunk([choice])
+
+        def cmpl_finish(i, req):
+            return cmpl_chunk([{"index": i, "text": "",
+                                "finish_reason": self._finish_reason(req)}])
+
+        def cmpl_usage():
+            if not include_usage:
+                return None
+            total = sum(r.produced for r in requests)
+            return cmpl_chunk([], usage={
+                "prompt_tokens": requests[0].prompt_len, "completion_tokens": total,
+                "total_tokens": requests[0].prompt_len + total})
+
+        async def sse():
+            head = []
+            if echo:
+                prompt_text = self.tokenizer.decode(prompt_id_lists[0])
+                echo_lp = None
+                if requests[0].logprobs is not None:
+                    echo_lp, off = await asyncio.to_thread(
+                        self._echo_prompt_logprobs, prompt_id_lists[0], requests[0])
+                    lp_offsets[:] = [off] * stream_n
+                for i in range(stream_n):
+                    first = {"index": i, "text": prompt_text, "finish_reason": None}
+                    if echo_lp is not None:
+                        first["logprobs"] = {k: list(v) for k, v in echo_lp.items()}
+                    head.append(cmpl_chunk([first]))
+            async for chunk in self._fanout_stream(requests, stops, head=head,
+                                                   delta=cmpl_delta, finish=cmpl_finish,
+                                                   usage=cmpl_usage):
+                yield chunk
+
+        return sse()
+
+    async def _zero_completion(self, body, prompt_id_lists, model, completion_id, created,
+                               plp_n=None):
+        """``max_tokens: 0`` completions: nothing is generated; ``echo`` +
+        ``logprobs`` and ``prompt_logprobs`` still apply (one scoring pass
+        per prompt, off the event loop). The canonical prompt-scoring
+        call."""
+        echo = bool(body.get("echo"))
+        n = int(body.get("n", 1) or 1)
+        if n < 1:
+            raise ValueError("n must be >= 1")
+        choices = []
+        for ids in prompt_id_lists:
+            if not ids:
+                raise ValueError("prompt must not be empty")
+            # a probe runs the validation every generating path runs
+            probe = self._gen_request_from_body(body, list(ids), chat=False)
+            probe.max_new_tokens = 1
+            probe.prompt_len = len(ids)
+            self.engine.validate(probe)
+            text = self.tokenizer.decode(ids) if echo else ""
+            lp = None
+            plp_payload = None
+            if (probe.logprobs is not None and echo) or plp_n is not None:
+                def build_payloads(ids=ids, probe=probe):
+                    entries = self.engine.score_prompt(ids)
+                    e = (self._echo_prompt_logprobs(ids, probe, entries=entries)
+                         if probe.logprobs is not None and echo else None)
+                    q = (self._prompt_logprobs_payload(ids, plp_n, entries=entries)
+                         if plp_n is not None else None)
+                    return e, q
+
+                e, plp_payload = await asyncio.to_thread(build_payloads)
+                if e is not None:
+                    lp = e[0]
+            if probe.logprobs is not None and lp is None:
+                # logprobs without echo: nothing generated, an empty block
+                lp = {"tokens": [], "token_logprobs": [], "top_logprobs": [],
+                      "text_offset": []}
+            for _ in range(n):
+                choice = {"index": len(choices), "text": text, "finish_reason": "length",
+                          "logprobs": dict(lp) if lp is not None else None}
+                if plp_payload is not None:
+                    choice["prompt_logprobs"] = plp_payload
+                choices.append(choice)
+        prompt_tokens = sum(len(i) for i in prompt_id_lists)
+        out = {
+            "id": completion_id,
+            "object": "text_completion",
+            "created": created,
+            "model": model,
+            "choices": choices,
+            "usage": {"prompt_tokens": prompt_tokens, "completion_tokens": 0,
+                      "total_tokens": prompt_tokens},
+        }
+        if not body.get("stream"):
+            return out
+        include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
+
+        async def sse():
+            for ch in choices:
+                chunk = {"id": completion_id, "object": "text_completion", "created": created,
+                         "model": model, "choices": [ch]}
+                if include_usage:
+                    chunk["usage"] = None
+                yield "data: {}\n\n".format(json.dumps(chunk))
+            if include_usage:
+                yield "data: {}\n\n".format(json.dumps({
+                    "id": completion_id, "object": "text_completion", "created": created,
+                    "model": model, "choices": [], "usage": out["usage"]}))
+            yield "data: [DONE]\n\n"
+
+        return sse()
 
     async def v1_models(self, body: Dict[str, Any]) -> Dict[str, Any]:
         return {"object": "list", "data": [{
             "id": self.model_name, "object": "model", "created": _now(),
             "owned_by": "tpu-serving",
         }]}
+
+    @staticmethod
+    async def version(body: Dict[str, Any]) -> Dict[str, Any]:
+        return {"version": __version__}
+
+    async def v1_tokenize(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        ids = self.tokenizer.encode(str(body.get("prompt") or body.get("text") or ""))
+        return {"tokens": ids, "count": len(ids), "max_model_len": self.engine.max_seq_len}
+
+    async def v1_detokenize(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        ids = body.get("tokens") or []
+        return {"prompt": self.tokenizer.decode([int(i) for i in ids])}
+
+
+def _sse_error(ex: BaseException) -> str:
+    return "data: {}\n\n".format(json.dumps(
+        {"error": {"message": str(ex), "type": type(ex).__name__}}))

@@ -13,8 +13,18 @@ Without them the draws come from the given ``torch.Generator``. The engine's
 decode chunk draws all its steps' noise at once (``gumbel_noise`` of
 ``[steps, B, V]``, outside the chunk's CUDA graph, whose own draws would
 repeat at every replay) and passes each step's slice as ``noise``.
-Penalties, logit bias and per-request seeds arrive with a later slice of
-the port.
+
+The reference's extras (``SamplingExtras``, ``penalize_logits``): logit
+bias, presence/frequency penalties over the generated-token histogram
+(``counts``), the repetition penalty over generated and prompt tokens
+(``prompt_mask``), and the ``min_tokens`` floor over each row's stop set,
+applied before temperature to greedy and sampled rows alike. A row with a
+per-request seed draws its Gumbel row from ``fold_in(PRNGKey(seed),
+counter)`` (``llm/prng.py``, bitwise ``jax.random``), inside the chunk's
+graph, so a seeded request gives the JAX server's tokens whatever the
+batch around it; unseeded rows keep the engine generator's draws.
+``logprobs_of`` gives the chosen token's logprob and the top-k over the
+penalized, unwarped logits (the reference's ``_lp_of``).
 """
 
 from __future__ import annotations
@@ -23,11 +33,33 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .prng import seeded_gumbel
+
+# stop tokens the min_tokens floor suppresses per request (the reference's
+# engine-level _STOP_SLOTS)
+STOP_SLOTS = 8
+
 
 class SamplingParams(NamedTuple):
     temperature: torch.Tensor  # [B] float32; 0 => greedy
     top_k: torch.Tensor        # [B] int32; 0 => disabled
     top_p: torch.Tensor        # [B] float32; 1.0 => disabled
+
+
+class SamplingExtras(NamedTuple):
+    """Per-row penalty, bias, seed and min_tokens state (the reference's
+    ``SamplingExtras``)."""
+
+    presence: torch.Tensor    # [B] f32; 0 disables
+    frequency: torch.Tensor   # [B] f32; 0 disables
+    repetition: torch.Tensor  # [B] f32; 1.0 disables
+    bias: torch.Tensor        # [B, V] f32 dense additive bias
+    # [B] int32, < 0 unseeded; None: no row of the batch is seeded (the
+    # seeded draw is skipped)
+    seeds: Optional[torch.Tensor]
+    counters: torch.Tensor    # [B] int32 tokens generated before this one
+    min_new: Optional[torch.Tensor] = None  # [B] int32; 0 disables
+    stop: Optional[torch.Tensor] = None     # [B, STOP_SLOTS] int32, -1-padded
 
 
 def make_sampling_params(batch, temperature=0.0, top_k=0, top_p=1.0,
@@ -64,6 +96,56 @@ def warp_logits(logits, temperature, top_k, top_p):
     return scaled.masked_fill(scaled < cutoff, float("-inf"))
 
 
+def penalize_logits(logits: torch.Tensor, extras: SamplingExtras,
+                    counts: Optional[torch.Tensor],
+                    prompt_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Bias and penalties on raw logits [B, V], before temperature, in the
+    reference's order: bias; frequency (by count) and presence (flat) over
+    the generated-token histogram ``counts`` [B, V] int32; the repetition
+    penalty (divide positive logits, multiply negative ones) over every
+    token generated or in the prompt (``prompt_mask`` [B, V] bool); then
+    the min_tokens floor: a row below ``min_new`` loses its stop tokens,
+    unless they are all it has left (a row is never blanked)."""
+    logits = logits + extras.bias
+    seen = None
+    if counts is not None:
+        counts_f = counts.float()
+        logits = logits - extras.frequency[:, None] * counts_f
+        logits = logits - extras.presence[:, None] * (counts_f > 0)
+        seen = counts > 0
+    if prompt_mask is not None:
+        seen = prompt_mask if seen is None else (seen | prompt_mask)
+    if seen is not None:
+        rp = extras.repetition[:, None]
+        logits = torch.where(seen, torch.where(logits > 0, logits / rp, logits * rp), logits)
+    if extras.min_new is not None and extras.stop is not None:
+        v_idx = torch.arange(logits.shape[-1], dtype=torch.int32, device=logits.device)
+        is_stop = (v_idx[None, None, :] == extras.stop[:, :, None]).any(dim=1)   # [B, V]
+        others_alive = (logits.masked_fill(is_stop, float("-inf")) > -1e29).any(
+            dim=-1, keepdim=True)
+        blocked = (extras.counters < extras.min_new)[:, None] & is_stop & others_alive
+        logits = logits.masked_fill(blocked, -1e30)
+    return logits
+
+
+def logprobs_of(logits: torch.Tensor, chosen: torch.Tensor, k: int):
+    """(chosen logprob [B], top ids [B, k] int32, top logprobs [B, k]) of
+    ``log_softmax(logits)``; callers pass the penalized logits where extras
+    apply (reported logprobs reflect what was sampled from)."""
+    lp_full = torch.log_softmax(logits.float(), dim=-1)
+    chosen_lp = lp_full.gather(-1, chosen.long()[:, None])[:, 0]
+    top_lp, top_id = top_k(lp_full, k)
+    return chosen_lp, top_id, top_lp
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: (values, int32 indices), equal
+    values in index order (a stable sort; ``torch.topk`` leaves ties
+    unordered)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k].to(torch.int32)
+
+
 def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     tiny = torch.finfo(torch.float32).tiny
     u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
@@ -73,17 +155,39 @@ def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.T
 def sample_tokens(logits: torch.Tensor, params: SamplingParams, *,
                   generator: Optional[torch.Generator] = None,
                   noise: Optional[torch.Tensor] = None,
-                  all_greedy: bool = False) -> torch.Tensor:
+                  all_greedy: bool = False,
+                  extras: Optional[SamplingExtras] = None,
+                  counts: Optional[torch.Tensor] = None,
+                  prompt_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits [B, V] float32 -> token ids [B] int32. Rows with temperature
     <= 0 take the argmax; others sample from the temperature-scaled,
-    top-k/top-p-filtered distribution. ``all_greedy`` (known host-side)
-    skips the sampling work when no row samples."""
+    top-k/top-p-filtered distribution. ``extras`` (with ``counts`` and
+    ``prompt_mask``) penalize both paths first, and seed the rows that
+    carry a seed. ``all_greedy`` (known host-side) skips the sampling work
+    when no row samples."""
+    if extras is not None:
+        logits = penalize_logits(logits, extras, counts, prompt_mask)
+    return sample_penalized(logits, params, generator=generator, noise=noise,
+                            all_greedy=all_greedy, extras=extras)
+
+
+def sample_penalized(logits: torch.Tensor, params: SamplingParams, *,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None,
+                     all_greedy: bool = False,
+                     extras: Optional[SamplingExtras] = None) -> torch.Tensor:
+    """``sample_tokens`` over logits the caller already penalized: a seeded
+    row of ``extras`` draws its Gumbel row from its seed and counter, the
+    other rows from ``noise`` (or ``generator``)."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     if all_greedy:
         return greedy
     scaled = warp_logits(logits, params.temperature, params.top_k, params.top_p)
     if noise is None:
         noise = gumbel_noise(scaled.shape, generator, scaled.device)
+    if extras is not None and extras.seeds is not None:
+        seeded = seeded_gumbel(extras.seeds, extras.counters, scaled.shape[-1])
+        noise = torch.where((extras.seeds >= 0)[:, None], seeded, noise)
     sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
     return torch.where(params.temperature <= 0.0, greedy, sampled)
 

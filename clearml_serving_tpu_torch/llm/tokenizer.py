@@ -3,7 +3,8 @@
 Copied from ``clearml_serving_tpu/llm/tokenizer.py`` so the port imports
 nothing of the JAX package; it must stay identical to the reference's, since
 chat content is compared byte for byte. The HuggingFace tokenizer wrapper
-arrives with bundle loading.
+arrives with bundle loading. ``token_str`` and ``token_repr`` are the
+reference route's token strings of logprob entries.
 """
 
 from __future__ import annotations
@@ -43,3 +44,14 @@ class ByteTokenizer:
             parts.append("<|{}|>\n{}\n".format(m.get("role", "user"), m.get("content", "")))
         parts.append("<|assistant|>\n")
         return "".join(parts)
+
+
+def token_str(tokenizer, tid: int) -> str:
+    """One token's decoded text (a logprob entry's ``token``)."""
+    return tokenizer.decode([int(tid)])
+
+
+def token_repr(tokenizer, tid: int, as_ids: bool) -> str:
+    """vLLM ``return_tokens_as_token_ids``: ``"token_id:<id>"`` instead of
+    the decoded piece (tokens that decode alike stay apart)."""
+    return "token_id:{}".format(int(tid)) if as_ids else token_str(tokenizer, tid)

@@ -7,8 +7,10 @@ launches (kernel loads, library handles, allocator growth) and for the
 CUDA-graph capture of each decode-chunk variant. The sweep keeps what the
 port serves:
 
-- the CUDA-graph capture of each decode-chunk variant (greedy, sampled),
-  each preceded by one eager chunk over null rows;
+- the CUDA-graph capture of each plain decode-chunk variant (greedy,
+  sampled), each preceded by one eager chunk over null rows; as in the
+  reference's sweep, the extras and logprob variants are captured at
+  their first use;
 - one cold prefill per prefill bucket (and the implicit ``max_seq_len``
   bucket past the last configured one), each with one decode chunk;
 - with the prefix cache on, the reference's startup subset instead

@@ -351,6 +351,26 @@ class Llama(nn.Module):
         logits [B, vocab] f32, cache) where cache holds the stored K/V of
         every position, ``k``/``v`` [L, B, S, Hkv, D] (int8 under
         ``kv_quant``, with f32 ``k_scale``/``v_scale`` [L, B, S, Hkv])."""
+        b = tokens.shape[0]
+        dev = tokens.device
+        new_k, new_v = [], []
+        x = self._causal_pass(tokens, seq_lens, new_k, new_v)
+        last_pos = (seq_lens.to(dev).long() - 1).clamp(min=0)
+        last_x = x[torch.arange(b, device=dev), last_pos][:, None]    # [B, 1, D]
+        last = self._logits(last_x)[:, 0]
+        k_q, k_s = kv_store(torch.stack(new_k), self.kv_quant, self.dtype)
+        v_q, v_s = kv_store(torch.stack(new_v), self.kv_quant, self.dtype)
+        cache = {"k": k_q, "v": v_q}
+        if self.kv_quant:
+            cache["k_scale"] = k_s
+            cache["v_scale"] = v_s
+        return last, cache
+
+    def _causal_pass(self, tokens, seq_lens, new_k=None, new_v=None):
+        """The prompt's causal forward through every layer: right-padded
+        tokens [B, S] -> the last layer's output [B, S, D] (before the final
+        norm); each layer's K/V is appended to ``new_k``/``new_v`` when
+        given."""
         b, s = tokens.shape
         dev = tokens.device
         positions = torch.arange(s, device=dev).expand(b, s)
@@ -362,25 +382,30 @@ class Llama(nn.Module):
         mask = mask.masked_fill(~visible, float("-inf"))[:, None]
         cos, sin = rope(positions, self.head_dim, self.theta)
         x = self.embed[tokens]
-        new_k, new_v = [], []
         for layer in self.layers:
             def attn(h, layer=layer):
                 q, k, v = self._qkv(layer, h, cos, sin)
-                new_k.append(k)
-                new_v.append(v)
+                if new_k is not None:
+                    new_k.append(k)
+                    new_v.append(v)
                 return self._attend(q, k, v, mask)
 
             x = self._block(layer, x, attn)
-        last_pos = (seq_lens.to(dev).long() - 1).clamp(min=0)
-        last_x = x[torch.arange(b, device=dev), last_pos][:, None]    # [B, 1, D]
-        last = self._logits(last_x)[:, 0]
-        k_q, k_s = kv_store(torch.stack(new_k), self.kv_quant, self.dtype)
-        v_q, v_s = kv_store(torch.stack(new_v), self.kv_quant, self.dtype)
-        cache = {"k": k_q, "v": v_q}
-        if self.kv_quant:
-            cache["k_scale"] = k_s
-            cache["v_scale"] = v_s
-        return last, cache
+        return x
+
+    @torch.no_grad()
+    def hidden_states(self, tokens: torch.Tensor, seq_lens: torch.Tensor) -> torch.Tensor:
+        """Right-padded tokens [B, S] -> every position's last-layer output
+        [B, S, D] (``logits_of`` makes them logits); no K/V is kept. The
+        forward of the reference's ``apply``, whose logits its prompt
+        scoring reads at every position."""
+        return self._causal_pass(tokens, seq_lens)
+
+    @torch.no_grad()
+    def logits_of(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and lm_head: last-layer outputs [..., D] -> logits
+        [..., vocab] f32 (the lm_head in the model dtype, then widened)."""
+        return self._logits(x)
 
     def _kv_load(self, stored, scale):
         if scale is None:

@@ -2,7 +2,9 @@
 
 Counterpart of ``clearml_serving_tpu/serving/main.py``'s ``build_app`` for
 this slice: ``POST /serve/openai/v1/chat/completions``,
-``GET /serve/openai/v1/models``, ``GET /health`` (liveness) and
+``/serve/openai/v1/completions``, ``/serve/openai/v1/tokenize`` and
+``/serve/openai/v1/detokenize``, ``GET /serve/openai/v1/models``, ``GET|POST
+/serve/openai/version`` (no body needed), ``GET /health`` (liveness) and
 ``GET /ready`` (readiness: 503 while draining or while the engine is
 stopped or recovering from a watchdog trip, with its brownout stage). The
 OpenAI routes pick the endpoint by the body's ``model`` field, like the
@@ -36,6 +38,9 @@ from ..errors import RequestError
 from ..llm.openai_api import LLMEngineRequest, build_engine, default_priority, warmup_mode
 
 _OPENAI = "/serve/openai/v1/"
+# the OpenAI routes that take a body naming the model: route -> handler
+_ROUTES = {"chat/completions": "v1_chat_completions", "completions": "v1_completions",
+           "tokenize": "v1_tokenize", "detokenize": "v1_detokenize"}
 
 
 def _request_error_response(ex: RequestError) -> web.Response:
@@ -80,7 +85,8 @@ def build_app(endpoint: LLMEngineRequest) -> web.Application:
                                      status=422)
         if route == "models":
             return web.json_response(await endpoint.v1_models(body))
-        if route != "chat/completions":
+        handler = _ROUTES.get(route)
+        if handler is None:
             return web.json_response({"detail": "unknown route {!r}".format(route)}, status=404)
         if not isinstance(body, dict) or not body.get("model"):
             return web.json_response(
@@ -93,7 +99,7 @@ def build_app(endpoint: LLMEngineRequest) -> web.Application:
                     body["model"])}, status=404,
             )
         try:
-            out = await endpoint.v1_chat_completions(body)
+            out = await getattr(endpoint, handler)(body)
         except RequestError as ex:
             return _request_error_response(ex)
         except (ValueError, TypeError) as ex:
@@ -129,6 +135,10 @@ def build_app(endpoint: LLMEngineRequest) -> web.Application:
             pass
         return resp
 
+    async def version(request: web.Request) -> web.Response:
+        # model-independent: answers without a body or a model
+        return web.json_response(await endpoint.version({}))
+
     async def health(request: web.Request) -> web.Response:
         return web.json_response({
             "status": "ok",
@@ -157,6 +167,7 @@ def build_app(endpoint: LLMEngineRequest) -> web.Application:
     async def _stop_engine(app: web.Application) -> None:
         endpoint.engine.stop()
 
+    app.router.add_route("*", "/serve/openai/version", version)
     app.router.add_post(_OPENAI + "{route:.+}", openai_route)
     app.router.add_get(_OPENAI + "{route:models}", openai_route)
     app.router.add_get("/health", health)

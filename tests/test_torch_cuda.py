@@ -1337,3 +1337,149 @@ def test_promotion_beside_a_replay_in_flight_is_read_by_the_next_replay(cuda, kv
     assert stats_t["hits_by_tier"]["host"] == 1 and stats_c["hits_by_tier"]["host"] == 0
     assert seen and seen[0] >= 1          # a replay was queued when it promoted
     assert hit_t == hit_c and busy_t == busy_c
+
+
+# -- the sampling surface: extras and logprob variants of the chunk -----------------
+
+CHUNK_VARIANTS = [
+    dict(greedy=True, extras=True), dict(greedy=False, extras=True),
+    dict(greedy=False, extras=True, seeded=True), dict(greedy=True, lp=True),
+    dict(greedy=False, lp=True), dict(greedy=False, extras=True, seeded=True, lp=True),
+]
+
+
+def _extras_inputs(layout, i32, f32, vocab, dev, b=4):
+    """Extras rows in the chunk's staging views and a filled ExtrasState:
+    a random histogram, bias and prompt mask; seeds on two rows."""
+    from clearml_serving_tpu_torch.llm.decode_graph import ExtrasState
+
+    v = layout.views(i32.numpy(), f32.numpy())
+    v["active"][:] = [1, 1, 1, 0]
+    v["seeds"][:] = [7, -1, 2 ** 31 - 1, 3]
+    v["counters"][:] = [0, 5, 17, 2]
+    v["min_new"][:] = [3, 0, 30, 0]
+    v["stop"][:] = -1
+    v["stop"][:, 0] = 257
+    v["presence"][:] = [0.5, 0.0, 0.2, 0.0]
+    v["frequency"][:] = [0.3, 0.0, 0.7, 0.0]
+    v["repetition"][:] = [1.2, 1.0, 0.9, 1.0]
+    state = ExtrasState(b, vocab, dev)
+    gen = torch.Generator(dev).manual_seed(9)
+    state.counts.copy_(torch.randint(0, 3, state.counts.shape, generator=gen, device=dev,
+                                     dtype=torch.int32)
+                       * (torch.rand(state.counts.shape, generator=gen, device=dev) < 0.05))
+    state.bias.copy_(torch.randn(state.bias.shape, generator=gen, device=dev)
+                     * (torch.rand(state.bias.shape, generator=gen, device=dev) < 0.02))
+    state.pmask.copy_(torch.rand(state.pmask.shape, generator=gen, device=dev) < 0.03)
+    return state
+
+
+@pytest.mark.parametrize("variant", CHUNK_VARIANTS, ids=lambda v: "+".join(
+    k for k, on in v.items() if on and k != "greedy") + ("_greedy" if v["greedy"] else "_sampled"))
+def test_extras_variant_replay_is_bitwise_the_eager_chunk(cuda, variant):
+    """Each new chunk variant captured and replayed against ``run_chunk``
+    eagerly on cloned pools and extras rows: the tokens, the logprob
+    outputs, the advanced histogram and every pool page bit for bit."""
+    from clearml_serving_tpu_torch.llm.decode_graph import ChunkVariant, DecodeGraphs, run_chunk
+
+    model = _small_model(cuda)
+    n = 4
+    key = ChunkVariant(**variant)
+    cache, layout, i32, f32, chain, noise = _chunk_inputs(model, cuda, "", not key.greedy, n=n)
+    state = _extras_inputs(layout, i32, f32, model.vocab_size, cuda)
+    eager_state = types.SimpleNamespace(counts=state.counts.clone(), bias=state.bias,
+                                        pmask=state.pmask)
+    eager_cache = types.SimpleNamespace(kv_quant="", k=cache.k.clone(), v=cache.v.clone(),
+                                        k_scale=None, v_scale=None)
+    eager = run_chunk(model, eager_cache, layout.views(i32.to(cuda), f32.to(cuda)), chain,
+                      noise, n, variant=key, state=eager_state, lp_k=5)
+    graphs = DecodeGraphs(model, cache, layout, n, state_fn=lambda: state, lp_k=5)
+    graphs.chain.copy_(chain)
+    counts0 = state.counts.clone()
+    graphs.capture(key)
+    # the capture's warm-up run had no active row: the histogram is untouched
+    assert torch.equal(state.counts, counts0)
+    out = graphs.replay(key, i32, f32, noise)
+    torch.cuda.synchronize()
+    got, want = (out[0], eager[0]) if key.lp else (out, eager)
+    assert torch.equal(got, want)
+    if key.lp:
+        for a, b in zip(out[1], eager[1]):
+            assert torch.equal(a, b)
+    assert torch.equal(state.counts, eager_state.counts)
+    if key.extras:
+        # the active rows' histograms grew by the chunk's tokens
+        assert int((state.counts - counts0)[:3].sum()) == 3 * n
+    assert torch.equal(cache.k, eager_cache.k) and torch.equal(cache.v, eager_cache.v)
+
+
+@pytest.mark.parametrize("shape", [(512,), (4, 8, 1031)])
+def test_prng_bits_on_the_card_equal_the_cpus(cuda, shape):
+    """Threefry bits and uniforms bitwise on the card and the CPU; the
+    Gumbel rows within 1e-6 (``log`` may differ by an ulp)."""
+    from clearml_serving_tpu_torch.llm import prng
+
+    for seed in (0, 1, 2 ** 31 - 1):
+        for counter in (0, 1, 1000):
+            keys = {}
+            for dev in ("cpu", cuda):
+                k1, k2 = prng.fold_in(*prng.prng_key(torch.tensor(seed, device=dev)),
+                                      torch.tensor(counter, device=dev))
+                keys[str(dev)] = (k1, k2)
+            bits = [prng.random_bits(*keys[d], shape).cpu() for d in ("cpu", str(cuda))]
+            assert torch.equal(bits[0], bits[1])
+            unif = [prng.uniform(b, 1e-38, 1.0) for b in (bits[0], bits[1].to(cuda))]
+            assert torch.equal(unif[0], unif[1].cpu())
+    seeds = torch.tensor([0, 1, 2 ** 31 - 1, 5, -1], dtype=torch.int32)
+    counters = torch.tensor([0, 9, 1000, 3, 4], dtype=torch.int32)
+    cpu = prng.seeded_gumbel(seeds, counters, 4099)
+    card = prng.seeded_gumbel(seeds.to(cuda), counters.to(cuda), 4099).cpu()
+    torch.testing.assert_close(card, cpu, rtol=1e-6, atol=1e-6)
+
+
+def test_commit_reset_beside_a_replay_in_flight(cuda):
+    """Depth 2 with graphs: a slot that served a request with a strong bias
+    is reused, mid-decode of a long seeded chat whose replays stay in
+    flight, by a request with penalties and no bias; its reset rows are
+    enqueued behind the replay in flight, so its stream (and the long
+    chat's) equal those on fresh engines, and the eager engine at depth 1
+    gives the same seeded streams."""
+    model = _small_model(cuda)
+    kw = dict(LIFECYCLE_KW, max_batch=2)
+    long_chat = GenRequest(prompt_ids=[(i * 11 + 5) % 250 + 1 for i in range(40)],
+                           max_new_tokens=96, temperature=0.8, top_p=0.9, seed=5,
+                           presence_penalty=0.3)
+    biased = dict(prompt_ids=list(range(3, 23)), max_new_tokens=6, logit_bias={97: 40.0})
+    reuse = dict(prompt_ids=list(range(30, 50)), max_new_tokens=24, temperature=0.7,
+                 seed=8, frequency_penalty=0.5, logprobs=2)
+
+    def clone(r):
+        return GenRequest(prompt_ids=list(r.prompt_ids), max_new_tokens=r.max_new_tokens,
+                          temperature=r.temperature, top_p=r.top_p, seed=r.seed,
+                          presence_penalty=r.presence_penalty)
+
+    async def busy_run(engine, busy):
+        await engine.warmup()
+        first = await _stream(engine, GenRequest(**biased))
+        assert first == [97] * 6
+        task = asyncio.ensure_future(_stream(engine, busy))
+        while busy.produced < 8:
+            await asyncio.sleep(0.001)
+        inflight = len(engine._inflight)
+        again = GenRequest(**reuse)
+        got = await _stream(engine, again)
+        return got, again.logprob_entries, await task, inflight
+
+    engine = LLMEngineCore(model, **kw)
+    got, entries, long_got, inflight = asyncio.run(asyncio.wait_for(
+        busy_run(engine, clone(long_chat)), 180))
+    engine.stop()
+    assert inflight >= 1
+    for graphs, depth in ((True, 2), (False, 1)):
+        alone = LLMEngineCore(model, **dict(kw, pipeline_depth=depth), cuda_graphs=graphs)
+        solo = GenRequest(**reuse)
+        want = asyncio.run(_stream(alone, solo))
+        want_long = asyncio.run(_stream(alone, clone(long_chat)))
+        alone.stop()
+        assert got == want and long_got == want_long
+        assert [e["top_ids"] for e in entries] == [e["top_ids"] for e in solo.logprob_entries]

@@ -153,10 +153,10 @@ def test_streams_reaching_max_seq_len_equal_the_reference(tiny_np, depth):
 def test_sampled_streams_identical_across_depths(tiny_np):
     """Sampled streams replay at either depth when every request is
     admitted before decode starts and all share max_tokens: each chunk's
-    noise is then one draw of the same shape, in the same order. The port
-    has no per-request seeds yet, so a request admitted mid-decode draws
+    noise is then one draw of the same shape, in the same order. These
+    requests carry no seed, so a request admitted mid-decode would draw
     its first token at another point of the generator's sequence at depth
-    2 than at depth 1."""
+    2 than at depth 1 (seeded ones do not: tests/test_torch_extras_engine.py)."""
     outs = {}
     for depth in (1, 2):
         engine = _port(tiny_np, pipeline_depth=depth, rng_seed=7)
@@ -203,9 +203,9 @@ def test_quarantine_never_hands_a_slot_over_before_its_barrier(tiny_np, monkeypa
     activate = engine._activate_slot
     seen = []
 
-    def checked(request, slot, first_id):
+    def checked(request, slot, *first):
         seen.append((slot, engine._pipeline_barrier(slot)))
-        activate(request, slot, first_id)
+        activate(request, slot, *first)
 
     monkeypatch.setattr(engine, "_activate_slot", checked)
     _run_group(engine, GenRequest, PROMPTS, max_new_tokens=9)
