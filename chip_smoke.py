@@ -153,6 +153,29 @@ exits non-zero before the result lines are printed:
    equal; the extras rows never ride as verify rows (one token per decode
    step) while the greedy ones do. The kernels' launches per step in both.
 
+11. guided decoding and tool calling on the OpenAI routes, under the
+   ownership ledger: Llama-3-8B at full width (seed-0 weights, the byte
+   tokenizer at vocab 128256). 11a, two-dispatch at depth 2 with graphs,
+   bf16 KV: 8 concurrent ~100-token chats of up to 128 tokens (two
+   ``guided_regex`` compass headings, a ``guided_choice``, two
+   ``json_schema`` objects with an enum, an integer and a boolean, one of
+   them seeded with penalties, a ``json_object``, two plain), every one
+   greedy or seeded, again at depth 1 and eager: the same tokens. Every
+   guided output that stopped is a whole match of its grammar (a schema's
+   object has its keys and types); one cut at ``max_tokens`` walks its
+   byte DFA without dying. 11b, the same engine: ``tool_choice``
+   required, forced by name (streamed and not, the same call) and auto over
+   two tools with an enum and a boolean parameter; a required or forced
+   call answers ``finish_reason: "tool_calls"`` with schema-valid
+   arguments. Prints the host ms to compile each kind at the vocab, the
+   tables' bucket and bytes, each guided variant's first-use capture time
+   and ms per decode step on 8 x 128-token chats, plain sampled against
+   guided in turns. 11c, ragged (budget 256), int8 KV, tree speculation,
+   profiled: 11a's six guided chats beside two repetitive greedy chats; no
+   guided row is ever a verify row, and the kernels' launches equal the
+   counters and the trace's grids. Every grammar reference returns and
+   the ledger has no drain-zero entry left at each drain.
+
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, and the ragged kernel's tree variant) and
 ``{"ok": true, "device": {...}}``. Timings are CUDA-event
@@ -1595,7 +1618,8 @@ def phase_main_path(params, kv_quant: str, preset: str = "llama3-8b", weight_qua
 
 
 def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "",
-                  pipeline_depth=None, cuda_graphs: bool = True, traffic=None) -> dict:
+                  pipeline_depth=None, cuda_graphs: bool = True, traffic=None,
+                  check_reader: bool = False) -> dict:
     """The bf16-KV main-path run of a scheduler once more under torch.profiler
     (two-dispatch: phase 5's traffic, or ``traffic``, a ``PIPELINE_TRAFFIC``
     entry): device time by kernel name, each ported kernel's time (the
@@ -1611,8 +1635,11 @@ def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "
     H100), and so has a graph pass's (4095 of 4096), as if the profiler
     dropped records. A graph pass whose trace disagrees is therefore
     profiled once more, on a fresh engine: a launch that did not run would
-    make the second trace disagree too, and then the phase fails."""
-    out = _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs, traffic)
+    make the second trace disagree too, and then the phase fails. With
+    ``check_reader`` the trace's raw reading is held to ``prof.events()``
+    (``device_events``)."""
+    out = _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs, traffic,
+                         check_reader)
     if out["checked"] and not out["trace_agrees"]:
         log("  the trace disagrees with the counts: profiling the pass once more")
         out = _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
@@ -1625,13 +1652,33 @@ def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "
     return out
 
 
+def device_events(prof, check: bool = False) -> list:
+    """The device events of a stopped torch.profiler trace as (name, start
+    µs, end µs from the trace's start), read from its raw kineto records,
+    as ``prof.events()`` converts them: ``prof.events()`` builds the whole
+    host-op tree first, which takes tens of seconds on these traces. With
+    ``check`` the two readings must be equal."""
+    results = prof.profiler.kineto_results
+    t0 = results.trace_start_ns()
+    out = [(e.name(), (e.start_ns() - t0) / 1e3, (e.end_ns() - t0) / 1e3)
+           for e in results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if check:
+        ref = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sorted(out) != sorted(ref):
+            raise AssertionError("the raw trace holds {} device events, prof.events() {}"
+                                 .format(len(out), len(ref)))
+    return out
+
+
 def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
-                   traffic) -> dict:
+                   traffic, check_reader=False) -> dict:
     """One profiled pass of ``phase_profile``: its numbers, and whether
     the trace's decode-attention and int4 grids equal the counts
     (``trace_agrees``; ``checked`` on a two-dispatch pass with graphs)."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_pass = time.perf_counter()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     knobs = {"weight_quant": weight_quant} if weight_quant else {}
     if pipeline_depth is not None:
@@ -1657,12 +1704,12 @@ def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
     depth, graphs = engine.pipeline_depth, engine._graphs is not None
     del engine
     torch.cuda.empty_cache()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    t_trace = time.perf_counter()
+    kernels = device_events(prof, check=check_reader)
+    t_trace = time.perf_counter() - t_trace
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + (e.time_range.end - e.time_range.start) / 1e3)
+    for name, t0, t1 in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3
 
     def busy_ms(match=lambda name: True):
         """ms of the union of the matching kernels' intervals: a grid
@@ -1670,8 +1717,7 @@ def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
         while it waits on the grid before it, so a sum would count the
         overlap twice."""
         busy, end = 0.0, None
-        for t0, t1 in sorted((e.time_range.start, e.time_range.end)
-                             for e in kernels if match(e.name)):
+        for t0, t1 in sorted((t0, t1) for name, t0, t1 in kernels if match(name)):
             if end is None or t0 > end:
                 busy += t1 - t0
                 end = t1
@@ -1690,9 +1736,9 @@ def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
     int4 = busy_ms(lambda k: "w4a16_" in k)
     # one split grid per decode-attention call, one main grid per int4 call
     # (csrc/paged_attention.cu, csrc/fused_int4_matmul.cu)
-    traced_paged = sum("paged_split_kernel" in e.name for e in kernels)
-    traced_int4 = sum("w4a16_decode_kernel" in e.name or "w4a16_block_kernel" in e.name
-                      for e in kernels)
+    traced_paged = sum("paged_split_kernel" in name for name, _t0, _t1 in kernels)
+    traced_int4 = sum("w4a16_decode_kernel" in name or "w4a16_block_kernel" in name
+                      for name, _t0, _t1 in kernels)
     out = dict(scheduler=scheduler, traffic=label, weights=weight_quant or "bf16", depth=depth,
                graphs=graphs, wall_ms=wall * 1e3,
                device_busy_ms=busy / 1e3, busy_share=busy / 1e3 / (wall * 1e3),
@@ -1702,7 +1748,8 @@ def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
                ragged_steps=c["ragged_steps"], graph_replays=c["graph_replays"],
                paged_launches=c["paged_launches"], traced_paged=traced_paged,
                int4_launches=c["int4_launches"], traced_int4=traced_int4,
-               top=[(k[:60], v) for k, v in top])
+               top=[(k[:60], v) for k, v in top],
+               pass_s=time.perf_counter() - t_pass, trace_s=t_trace)
     log("  profiled {weights}-weight {scheduler} pass, {traffic} traffic (depth {depth}, graphs "
         "{graphs}): wall {wall_ms:.1f} ms, device busy "
         "{device_busy_ms:.1f} ms ({busy_share:.1%}), kernels {kernel_ms:.1f} ms, paged "
@@ -1711,7 +1758,8 @@ def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
         "attention {ragged_attention_ms:.2f} ms over {ragged_steps} ragged steps, int4 "
         "matmul {int4_matmul_ms:.2f} ms; {graph_replays} replays; in the trace "
         "{traced_paged} decode-attention and {traced_int4} int4 grids, counted "
-        "{paged_launches} and {int4_launches}".format(**out))
+        "{paged_launches} and {int4_launches}; the pass {pass_s:.1f} s, reading its trace "
+        "{trace_s:.1f} s".format(**out))
     out["checked"] = scheduler == "two_dispatch" and graphs
     out["trace_agrees"] = (traced_paged, traced_int4) == (c["paged_launches"],
                                                           c["int4_launches"])
@@ -3581,6 +3629,523 @@ def phase_sampling(params, card: str, preset: str = "llama3-8b") -> dict:
     return dict(a, ragged=b, wall_s=wall)
 
 
+# -- phase 11: guided decoding and tool calling ----------------------------------------
+
+GUIDED_NOTES = ("The port constrains decoding by a grammar on one card; this chat asks for "
+                "an answer in a fixed shape, ")
+GUIDED_SCHEMA = {"type": "object", "properties": {
+    "dir": {"enum": ["north", "south", "east", "west"]}, "n": {"type": "integer"},
+    "ok": {"type": "boolean"}}, "required": ["dir", "n", "ok"]}
+GUIDED_REGEX = "(north|south|east|west)"
+GUIDED_CHOICES = ["yes", "no", "not sure"]
+_SCHEMA_FORMAT = {"type": "json_schema", "json_schema": {"name": "reading",
+                                                         "schema": GUIDED_SCHEMA}}
+# eight ~100-token chats: two compass regexes (greedy, seeded), a choice, two
+# schemas (greedy, seeded with penalties), a json_object and two plain ones;
+# every one greedy or seeded, so the depth-1 eager run must give its tokens
+GUIDED_CHATS = [
+    (GUIDED_NOTES + "compass one.", {"guided_regex": GUIDED_REGEX}),
+    (GUIDED_NOTES + "compass two.", {"guided_regex": GUIDED_REGEX, "temperature": 0.8,
+                                      "seed": 21}),
+    (GUIDED_NOTES + "a choice.", {"guided_choice": GUIDED_CHOICES, "temperature": 0.8,
+                                   "seed": 22}),
+    (GUIDED_NOTES + "schema one.", {"response_format": _SCHEMA_FORMAT}),
+    (GUIDED_NOTES + "schema two.", {"response_format": _SCHEMA_FORMAT, "temperature": 0.8,
+                                     "seed": 23, "presence_penalty": 0.4,
+                                     "frequency_penalty": 0.3}),
+    (GUIDED_NOTES + "any object.", {"response_format": {"type": "json_object"},
+                                     "temperature": 0.8, "seed": 24}),
+    (GUIDED_NOTES + "plain one.", {}),
+    (GUIDED_NOTES + "plain two.", {"temperature": 0.7, "seed": 25}),
+]
+GUIDED_TOKENS = 128
+# each chat reports its token ids (the holds walk ids, not decoded text)
+_IDS = {"logprobs": True, "top_logprobs": 1, "return_tokens_as_token_ids": True}
+GUIDED_TOOLS = [
+    {"type": "function", "function": {
+        "name": "set_heading", "description": "Turn the ship to a compass heading",
+        "parameters": {"type": "object", "properties": {
+            "heading": {"enum": ["north", "south", "east", "west"]}},
+            "required": ["heading"]}}},
+    {"type": "function", "function": {
+        "name": "lights", "description": "Switch the deck lights",
+        "parameters": {"type": "object", "properties": {"on": {"type": "boolean"}},
+                       "required": ["on"]}}},
+]
+# a tool call's budget: the longest call the two tools admit is ~60 bytes
+TOOL_TOKENS = 96
+# (label, tool_choice, streamed): required, forced by name (streamed and
+# not: the same call), auto
+TOOL_CASES = [("required", "required", False),
+              ("forced", {"type": "function", "function": {"name": "lights"}}, False),
+              ("forced_streamed", {"type": "function", "function": {"name": "lights"}}, True),
+              ("auto", "auto", False)]
+# the decode-step timing: 8 chats x 128 tokens, plain sampled against the
+# same chats under a grammar that admits no EOS before 128 characters
+GUIDED_STEP_VARIANTS = [
+    ("plain_sampled", {"temperature": 0.8}),
+    ("guided_sampled", {"temperature": 0.8, "guided_regex": "[a-z ]{128,160}"}),
+]
+
+
+def guided_pattern(fields: dict):
+    """The regex a chat's guided fields compile from (the route's
+    ``_guided_spec``), or None for a plain chat."""
+    from clearml_serving_tpu_torch.llm import guided
+
+    if fields.get("guided_regex"):
+        return fields["guided_regex"]
+    if fields.get("guided_choice"):
+        return "({})".format("|".join(guided._regex_escape_literal(c)
+                                      for c in fields["guided_choice"]))
+    rf = fields.get("response_format") or {}
+    if rf.get("type") == "json_schema":
+        return guided.json_schema_to_regex(rf["json_schema"]["schema"])
+    if rf.get("type") == "json_object":
+        return guided.json_object_regex(3)
+    return None
+
+
+def check_guided_output(label: str, fields: dict, ids: list, finish: str, eos: int) -> str:
+    """One guided chat's hold: a "stop" output is a whole match of its
+    grammar (and, for a schema, a JSON object with its keys and types); a
+    "length" one walks the grammar's byte DFA without dying. Returns the
+    verdict's word."""
+    from clearml_serving_tpu_torch.llm import guided
+
+    pattern = guided_pattern(fields)
+    dfa = guided.ByteDFA.from_regex(pattern)
+    # the grammar admits byte ids alone, and EOS once it is satisfied
+    body_ids = ids[:-1] if finish == "stop" and ids and ids[-1] == eos else ids
+    stray = [t for t in body_ids if t >= 256]
+    if stray:
+        raise AssertionError("11: {} emitted non-byte ids {} under its grammar".format(
+            label, stray[:8]))
+    body = bytes(body_ids)
+    if finish == "stop":
+        if not dfa.matches(body):
+            raise AssertionError("11: {} stopped on {!r}, not a match of its grammar".format(
+                label, body[:80]))
+        text = body.decode("utf-8")
+        rf = fields.get("response_format") or {}
+        if rf.get("type") == "json_schema":
+            obj = json.loads(text)
+            if (set(obj) != {"dir", "n", "ok"} or obj["dir"] not in
+                    GUIDED_SCHEMA["properties"]["dir"]["enum"] or type(obj["n"]) is not int
+                    or type(obj["ok"]) is not bool):
+                raise AssertionError("11: {} is not its schema's object: {}".format(label, obj))
+        elif rf.get("type") == "json_object" and not isinstance(json.loads(text), dict):
+            raise AssertionError("11: {} is not a JSON object: {!r}".format(label, text))
+        elif fields.get("guided_choice") and text not in fields["guided_choice"]:
+            raise AssertionError("11: {} is not one of its choices: {!r}".format(label, text))
+        return "match"
+    if finish != "length" or eos in ids:
+        raise AssertionError("11: {} finished {!r}".format(label, finish))
+    state = 0
+    for b in body:
+        state = int(dfa.trans[state, b])
+        if state < 0:
+            raise AssertionError("11: {}'s {} bytes leave its grammar".format(label, len(body)))
+    return "live prefix"
+
+
+async def guided_chats(s, base, chats, max_tokens) -> list:
+    """The chats concurrently: per chat (content, token ids, finish reason);
+    a chat whose fields turn logprobs off reports no ids (None)."""
+    async def one(prompt, fields):
+        out = await post_json(s, base, "/serve/openai/v1/chat/completions", dict(
+            _IDS, messages=[{"role": "user", "content": prompt}], max_tokens=max_tokens,
+            **fields))
+        choice = out["choices"][0]
+        ids = ([int(e["token"].split(":")[1]) for e in choice["logprobs"]["content"]]
+               if choice["logprobs"] else None)
+        return choice["message"]["content"], ids, choice["finish_reason"]
+
+    return list(await asyncio.gather(*(one(p, f) for p, f in chats)))
+
+
+async def tool_call(s, base, tool_choice, streamed: bool) -> dict:
+    """One chat with the two tools: (finish reason, content, [(name,
+    arguments)]) from the JSON reply or the SSE deltas."""
+    body = {"model": "llama3-8b", "messages": [{"role": "user", "content":
+            GUIDED_NOTES + "steer the ship and mind the lights."}], "max_tokens": TOOL_TOKENS,
+            "temperature": 0.8, "seed": 31, "tools": GUIDED_TOOLS, "tool_choice": tool_choice,
+            "stream": streamed}
+    if not streamed:
+        out = await post_json(s, base, "/serve/openai/v1/chat/completions", body)
+        choice = out["choices"][0]
+        calls = [(c["function"]["name"], c["function"]["arguments"])
+                 for c in choice["message"].get("tool_calls") or []]
+        return {"finish": choice["finish_reason"], "content": choice["message"]["content"],
+                "calls": calls}
+    content, calls, finish = [], {}, None
+    async with s.post(base + "/serve/openai/v1/chat/completions", json=body) as r:
+        if r.status != 200:
+            raise AssertionError("11b: HTTP {}: {}".format(r.status, await r.text()))
+        async for raw in r.content:
+            line = raw.decode().strip()
+            if not line.startswith("data: {"):
+                continue
+            chunk = json.loads(line[len("data: "):])
+            if "error" in chunk:
+                raise AssertionError("11b: SSE error {}".format(chunk["error"]))
+            for ch in chunk["choices"]:
+                delta = ch["delta"]
+                content.append(delta.get("content") or "")
+                for tc in delta.get("tool_calls") or []:
+                    name, args = calls.get(tc["index"], ("", ""))
+                    fn = tc.get("function") or {}
+                    calls[tc["index"]] = (name + (fn.get("name") or ""),
+                                          args + (fn.get("arguments") or ""))
+                finish = ch.get("finish_reason") or finish
+    return {"finish": finish, "content": "".join(content) or None,
+            "calls": [calls[i] for i in sorted(calls)]}
+
+
+def check_tool_call(label: str, res: dict, forced) -> None:
+    """A required or forced chat answers one schema-valid call with
+    finish_reason "tool_calls"; an auto one answers calls or content."""
+    if label == "auto" and res["finish"] != "tool_calls":
+        if res["finish"] not in ("stop", "length") or res["calls"]:
+            raise AssertionError("11b: auto answered {}".format(res))
+        return
+    if res["finish"] != "tool_calls" or not res["calls"]:
+        raise AssertionError("11b: {} answered no call: {}".format(label, res))
+    for name, args in res["calls"]:
+        obj = json.loads(args)
+        if forced and name != forced:
+            raise AssertionError("11b: {} called {}, not {}".format(label, name, forced))
+        if name == "set_heading":
+            ok = set(obj) == {"heading"} and obj["heading"] in ("north", "south", "east", "west")
+        elif name == "lights":
+            ok = set(obj) == {"on"} and type(obj["on"]) is bool
+        else:
+            ok = False
+        if not ok:
+            raise AssertionError("11b: {} called {}({})".format(label, name, args))
+
+
+def spy_compiles() -> tuple:
+    """Time the engine's own grammar compiles (its admission workers call
+    ``guided.compile_guided`` once per new grammar, and
+    ``token_byte_table`` once per engine): host ms and states by kind, the
+    tool calls' schemas apart. Returns (the dict it fills, a function that
+    removes the spy)."""
+    from clearml_serving_tpu_torch.llm import guided
+
+    out = {}
+    compile_guided, token_byte_table = guided.compile_guided, guided.token_byte_table
+    choice = guided_pattern({"guided_choice": GUIDED_CHOICES})
+
+    def timed_table(*args, **kwargs):
+        t0 = time.perf_counter()
+        table = token_byte_table(*args, **kwargs)
+        out.setdefault("token_byte_table", (time.perf_counter() - t0) * 1e3)
+        return table
+
+    def timed_compile(spec, *args, **kwargs):
+        t0 = time.perf_counter()
+        grammar = compile_guided(spec, *args, **kwargs)
+        ms = (time.perf_counter() - t0) * 1e3
+        kind = spec.kind
+        if kind == "regex":
+            kind = {GUIDED_REGEX: "regex", choice: "choice"}.get(spec.payload, "regex_other")
+        elif kind == "json_schema" and json.loads(spec.payload) != GUIDED_SCHEMA:
+            kind = "tool_schema"
+        if kind not in out:
+            out[kind], out[kind + "_states"] = ms, grammar.n_states
+        return grammar
+
+    guided.compile_guided, guided.token_byte_table = timed_compile, timed_table
+
+    def restore():
+        guided.compile_guided, guided.token_byte_table = compile_guided, token_byte_table
+
+    return out, restore
+
+
+def check_registry(engine, label: str) -> dict:
+    """At drain: every grammar reference back, no DFA state left in a slot,
+    and (the ledger armed) no guided.ref, or any drain-zero resource,
+    outstanding."""
+    from clearml_serving_tpu_torch.llm import lifecycle_ledger
+
+    health = engine.health()
+    reg = health["guided"]
+    if reg["refs"] != 0 or (engine._gstate >= 0).any():
+        raise AssertionError("11{}: registry {} at drain, states {}".format(
+            label, reg, engine._gstate.tolist()))
+    ledger = health["ledger"]
+    if ledger is not None:
+        held = {r: n for r, n in ledger["outstanding"].items()
+                if lifecycle_ledger.RESOURCES[r]["drain_zero"] and n}
+        if ledger["leaks"] or ledger["double_releases"] or held:
+            raise AssertionError("11{}: ledger {}".format(label, ledger))
+    return reg
+
+
+async def guided_11a(engine, tokenizer, card: str) -> dict:
+    """Phase 11a's traffic and holds (two-dispatch, depth 2, graphs, warmed
+    up), and 11b's tool calls on the same engine."""
+    out = {}
+    eos = tokenizer.eos_token_id
+    n_layers = engine.model.n_layers
+    async with served(engine, tokenizer) as (_app, base, s):
+        await engine.warmup()
+        reserved0 = torch.cuda.memory_reserved() if torch.device(DEV).type == "cuda" else 0
+        _zero_counts(engine)
+        t0 = time.perf_counter()
+        first = await guided_chats(s, base, GUIDED_CHATS, GUIDED_TOKENS)
+        out["wall_s"] = time.perf_counter() - t0
+        await engine.wait_drained()
+        c = dict(engine.counters)
+        launches = _launch_counts()
+        if c["decode_steps"] == 0 or launches["paged"] != n_layers * c["decode_steps"]:
+            raise AssertionError("11a: paged_attention launched {} times for {} decode steps"
+                                 .format(launches["paged"], c["decode_steps"]))
+        verdicts = [check_guided_output(p[-14:], f, ids, finish, eos) if guided_pattern(f)
+                    else finish for (p, f), (_t, ids, finish) in zip(GUIDED_CHATS, first)]
+        out.update(paged_launches=launches["paged"], decode_steps=c["decode_steps"],
+                   tokens=c["tokens_emitted"], verdicts=verdicts,
+                   finishes=[r[2] for r in first], captures=c["serve_captures"])
+        tools = {}
+        for label, choice, streamed in TOOL_CASES:
+            tools[label] = await tool_call(s, base, choice, streamed)
+            check_tool_call(label, tools[label], "lights" if "forced" in label else None)
+        if tools["forced"]["calls"] != tools["forced_streamed"]["calls"]:
+            raise AssertionError("11b: the streamed forced call {} is not the non-streamed "
+                                 "one {}".format(tools["forced_streamed"], tools["forced"]))
+        # ms per decode step, plain sampled against guided in turns (plain,
+        # guided, guided, plain; a short run first captures each variant)
+        steps = {name: [] for name, _f in GUIDED_STEP_VARIANTS}
+        for name, fields in GUIDED_STEP_VARIANTS + GUIDED_STEP_VARIANTS[::-1]:
+            chats = [(GUIDED_NOTES + "timing chat {}.".format(i), fields) for i in range(8)]
+            if not steps[name]:
+                await sampling_chats(s, base, chats, 8)
+                await engine.wait_drained()
+            for key in ("decode_ms", "decode_steps", "serve_captures"):
+                engine.counters[key] = 0
+            await sampling_chats(s, base, chats, GUIDED_TOKENS)
+            await engine.wait_drained()
+            c2 = engine.counters
+            if c2["serve_captures"]:
+                raise AssertionError("11a: a capture inside the timed {} run".format(name))
+            steps[name].append(c2["decode_ms"] / max(1, c2["decode_steps"]))
+        reg = check_registry(engine, "a")
+        capture_ms = {k: v for k, v in engine.health()["graph_variants"].items()
+                      if "guided" in k}
+        memory = guided_memory(engine, reserved0)
+    out.update(ids=[r[1] for r in first], tools=tools, step_ms=steps, registry=reg,
+               capture_ms=capture_ms, memory=memory)
+    log("  11a: 8 chats x <= {} tokens in {:.3f} s (paged_attention {} launches for {} decode "
+        "steps); outputs {}: held ({})".format(GUIDED_TOKENS, out["wall_s"],
+                                                out["paged_launches"], out["decode_steps"],
+                                                verdicts, card))
+    log("  11b: tool calls {} ({})".format(json.dumps(tools), card))
+    log("  11a: ms per decode step, 8 x {}-token chats, plain sampled and guided in turns "
+        "(P G G P): {} ({})".format(GUIDED_TOKENS, json.dumps({k: [round(x, 3) for x in v]
+                                                 for k, v in steps.items()}), card))
+    log("  11a: guided graph variants, first-use capture ms: {}; tables {} ({})".format(
+        json.dumps({k: round(v, 1) for k, v in capture_ms.items()}), json.dumps(reg), card))
+    log("  11a: device memory of guided decoding: {} ({})".format(json.dumps(memory), card))
+    return out
+
+
+def graph_pool_mib(engine) -> dict:
+    """MiB of each captured graph's private memory pool (the segments of
+    ``torch.cuda.memory_snapshot()`` whose pool is the graph's), by
+    variant label."""
+    graphs = engine._graphs._graphs if engine._graphs is not None else {}
+    if not graphs:
+        return {}
+    by_pool = {}
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg.get("segment_pool_id") or ())
+        by_pool[pool] = by_pool.get(pool, 0) + seg["total_size"]
+    return {v.label(): by_pool.get(tuple(graph.pool()), 0) / 2**20
+            for v, (graph, _out, _n) in graphs.items()}
+
+
+def guided_memory(engine, reserved0: int) -> dict:
+    """After 11a: the rise of ``memory_reserved`` since warmup (a capture
+    empties the allocator's cache first, so this is a floor), each graph's
+    pool, the tables' buffers and the guided graphs alive. Holds that no
+    outgrown bucket outlives its drop: every buffer pair and guided graph
+    is the current bucket's or one awaiting it."""
+    engine._drop_outgrown_buckets()
+    alive = sorted({v.label() for v in (engine._graphs._graphs if engine._graphs else {})
+                    if v.guided})
+    buckets = sorted(engine._gdev)
+    stale = [b for b, _e in engine._gstale]
+    if sorted(set(buckets) - set(stale)) != [engine._gbucket] or any(
+            v.guided not in buckets for v in (engine._graphs._graphs if engine._graphs else {})
+            if v.guided):
+        raise AssertionError("11a: table buckets {} (current {}, awaiting drop {}), guided "
+                             "graphs {}".format(buckets, engine._gbucket, stale, alive))
+    reserved = torch.cuda.memory_reserved() if torch.device(DEV).type == "cuda" else 0
+    return {"reserved_rise_mib": (reserved - reserved0) / 2**20,
+            "graph_pool_mib": {k: round(v, 1) for k, v in graph_pool_mib(engine).items()},
+            "table_mib": engine.health()["guided"]["table_bytes"] / 2**20,
+            "buckets": buckets, "guided_graphs": alive}
+
+
+async def guided_ids_arm(engine, tokenizer) -> list:
+    async with served(engine, tokenizer) as (_app, base, s):
+        res = await guided_chats(s, base, GUIDED_CHATS, GUIDED_TOKENS)
+        await engine.wait_drained()
+        check_registry(engine, "a")
+    return [r[1] for r in res]
+
+
+def trace_grids(prof) -> dict:
+    """The ported attention kernels' main grids in a torch.profiler trace:
+    one ``ragged_attention_kernel`` per ragged call, one
+    ``paged_split_kernel`` per decode-attention call."""
+    names = [name for name, _t0, _t1 in device_events(prof)]
+    return {"ragged": sum("ragged_attention_kernel" in n for n in names),
+            "paged": sum("paged_split_kernel" in n for n in names)}
+
+
+async def guided_11c_pass(engine, tokenizer, profiler) -> dict:
+    """11a's guided chats beside two repetitive greedy chats on a ragged
+    tree-speculation engine (int8 KV), profiled when ``profiler`` is given:
+    the outputs, the launch counts and the verify rows' requests."""
+    # the greedy chats without logprobs: a logprob row never verifies
+    chats = GUIDED_CHATS[:6] + [(p, {"logprobs": False}) for p in SPEC_SAMPLING_GREEDY]
+    verified = []
+    accept = engine._spec_accept
+
+    def spy(plan, spec_logits):
+        import numpy as np
+        slots = np.nonzero(plan["spec_mask"] | plan["sspec_mask"])[0]
+        verified.append([(engine._slot_req[int(x)], int(engine._gstate[int(x)]))
+                         for x in slots])
+        return accept(plan, spec_logits)
+
+    engine._spec_accept = spy
+    async with served(engine, tokenizer) as (_app, base, s):
+        _zero_counts(engine)
+        ctx = profiler if profiler is not None else contextlib.nullcontext()
+        with ctx:
+            res = await guided_chats(s, base, chats, SAMPLING_SPEC_TOKENS)
+            await engine.wait_drained()
+            if torch.device(DEV).type == "cuda":
+                torch.cuda.synchronize()
+        c = dict(engine.counters)
+        launches = _launch_counts()
+        reg = check_registry(engine, "c")
+    return {"res": res, "counters": c, "launches": launches, "verified": verified,
+            "registry": reg}
+
+
+def guided_11c(params, preset: str, card: str, eos: int) -> dict:
+    """Phase 11c: the ragged tree-speculation pass, profiled; its launch
+    counts held to the counters and to the trace's grids. The profiler has
+    dropped a record now and then (phase 6): a trace that disagrees is
+    profiled once more on a fresh engine, the retry is reported in the
+    kernels line (``trace_retries_guided``), and a second disagreement
+    fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = torch.device(DEV).type == "cuda"
+    retries = []
+    while True:
+        t_pass = time.perf_counter()
+        engine, tokenizer = _engine(params, "int8", preset, **TREE_KNOBS)
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            if on_card else None
+        p = asyncio.run(guided_11c_pass(engine, tokenizer, prof))
+        n_layers = engine.model.n_layers
+        del engine
+        release_card_memory()
+        c, launches = p["counters"], p["launches"]
+        if launches["ragged"] != n_layers * c["ragged_steps"] or \
+                launches["tree"] != n_layers * c["ragged_verify_steps"] or \
+                launches["paged"] != n_layers * (c["decode_steps"] + c["ragged_chain_steps"]):
+            raise AssertionError("11c: launches {} for counters {}".format(launches, c))
+        t_trace = time.perf_counter()
+        grids = trace_grids(prof) if prof is not None else {
+            "ragged": launches["ragged"], "paged": launches["paged"]}
+        t_trace = time.perf_counter() - t_trace
+        if grids == {"ragged": launches["ragged"], "paged": launches["paged"]}:
+            break
+        if retries:
+            raise AssertionError("11c: the trace holds {} grids, the counts say {}, twice"
+                                 .format(grids, launches))
+        retries.append({"traced": grids, "counted": {k: launches[k] for k in grids}})
+        log("  11c: the trace holds {} grids, the counts say {}: profiling once more".format(
+            grids, launches))
+    guided_verified = [r for rows in p["verified"] for r, g in rows
+                       if r.guided is not None or g >= 0]
+    if guided_verified or not any(p["verified"]):
+        raise AssertionError("11c: {} guided rows rode verify rows; {} verify steps".format(
+            len(guided_verified), len(p["verified"])))
+    chats = GUIDED_CHATS[:6]
+    verdicts = [check_guided_output(prompt[-14:], fields, ids, finish, eos)
+                for (prompt, fields), (_t, ids, finish) in zip(chats, p["res"])]
+    out = dict(ragged_steps=c["ragged_steps"], verify_steps=c["ragged_verify_steps"],
+               ragged_launches=launches["ragged"], tree_launches=launches["tree"],
+               paged_launches=launches["paged"], traced=grids, verdicts=verdicts,
+               registry=p["registry"], tokens=c["tokens_emitted"], trace_retries=retries,
+               pass_s=time.perf_counter() - t_pass, trace_s=t_trace)
+    log("  11c: 6 guided + 2 repetitive greedy chats x {} tokens, int8 KV, tree speculation: "
+        "{} ragged steps ({} with verify rows, none of them a guided row); launches ragged {} "
+        "tree {} paged {}, the trace's grids {} ({} retries); outputs {}; the pass {:.1f} s, "
+        "reading its trace {:.1f} s ({})".format(
+            SAMPLING_SPEC_TOKENS, out["ragged_steps"], out["verify_steps"],
+            out["ragged_launches"], out["tree_launches"], out["paged_launches"],
+            json.dumps(grids), len(retries), verdicts, out["pass_s"], t_trace, card))
+    return out
+
+
+def phase_guided(params, card: str, preset: str = "llama3-8b") -> dict:
+    """Phase 11: guided decoding and tool calling on the OpenAI routes (11a
+    on a two-dispatch engine at depth 2 with graphs and its depth-1 eager
+    arm, 11b the tool_choice modes on the same engine, 11c on a ragged
+    tree-speculation engine with int8 KV), under the ownership ledger."""
+    from clearml_serving_tpu_torch.llm import lifecycle_ledger
+
+    t0 = time.perf_counter()
+    os.environ["TPUSERVE_LEDGER"] = "1"
+    try:
+        engine, tokenizer = _engine(params, "", preset, pipeline_depth=2)
+        vocab = engine.model.vocab_size
+        eos = tokenizer.eos_token_id
+        compile_ms, restore = spy_compiles()
+        try:
+            a = asyncio.run(guided_11a(engine, tokenizer, card))
+        finally:
+            restore()
+        del engine
+        release_card_memory()
+        log("  11: host ms of the engine's compile of each kind at vocab {}, in its admission "
+            "worker: {} ({})".format(vocab, json.dumps({
+                k: round(v, 1) if isinstance(v, float) else v
+                for k, v in compile_ms.items()}), card))
+        split = {"11a+11b": time.perf_counter() - t0}
+        engine, tokenizer = _engine(params, "", preset, cuda_graphs=False, pipeline_depth=1)
+        eager_ids = asyncio.run(guided_ids_arm(engine, tokenizer))
+        del engine
+        release_card_memory()
+        split["11a eager"] = time.perf_counter() - t0 - sum(split.values())
+        if eager_ids != a["ids"]:
+            diff = [i for i, (x, y) in enumerate(zip(eager_ids, a["ids"])) if x != y]
+            raise AssertionError("11a: chats {} differ between depth 2 with graphs and depth 1 "
+                                 "eager".format(diff))
+        log("  11a: the 8 chats' tokens equal at depth 1 eager ({})".format(card))
+        c = guided_11c(params, preset, card, eos)
+        split["11c"] = time.perf_counter() - t0 - sum(split.values())
+    finally:
+        os.environ.pop("TPUSERVE_LEDGER", None)
+        lifecycle_ledger.get().reset(strict=False)
+        lifecycle_ledger.disarm()
+    wall = time.perf_counter() - t0
+    log("  phase 11: {:.1f} s ({})".format(wall, ", ".join(
+        "{} {:.1f} s".format(k, v) for k, v in split.items())))
+    a.pop("ids")
+    return dict(a, compile_ms=compile_ms, ragged=c, wall_s=wall)
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -3611,6 +4176,14 @@ def main() -> int:
     from clearml_serving_tpu_torch.ops.quant import quantize_llama_params
 
     t_start = time.perf_counter()
+    seconds, t_mark = {}, [t_start]
+
+    def mark(name):
+        """The seconds since the last mark, by phase."""
+        now = time.perf_counter()
+        seconds[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
     card = card_line()
     log("phase 1: card", card)
     log("  torch {} cuda {} device {} x{}".format(
@@ -3631,17 +4204,20 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("  ptxas:", line.strip())
 
+    mark("1-2")
     gen = torch.Generator("cuda").manual_seed(0)
     kern = phase_kernels(gen)
     rkern = phase_ragged_kernel(gen)
     tkern = phase_tree_kernel(gen)
     int4k = phase_int4_kernel(gen)
+    mark("3")
     phase_small_model(0)
     phase_small_ragged(0)
     phase_small_verify(0)
     phase_small_model(0, "int4")
     phase_small_ragged(0, "int4")
 
+    mark("4")
     log("phase 5: main path, llama3-8b full width bf16 behind the HTTP server")
     params = llama3_8b_params()
     runs = [phase_main_path(params, ""), phase_main_path(params, "int8")]
@@ -3672,13 +4248,15 @@ def main() -> int:
     for run in spec_runs:
         run["contents"] = [text[:24] for text in run["contents"]]
         del run["token_ids"]
+    mark("5-5d")
     log("phase 5e: pipelined decode, llama3-8b full width, each decode chunk one CUDA-graph "
         "replay")
     graph_cases = [graph_chunk_case(qparams if weights else params, kv, weights, sampled)
                    for kv, weights in GRAPH_CASES for sampled in (False, True)]
     pipeline_runs = phase_pipeline_arms(params)
+    mark("5e")
     log("phase 6: where the time goes")
-    prof = phase_profile(params)
+    prof = phase_profile(params, check_reader=True)
     serial_prof = phase_profile(params, pipeline_depth=1, cuda_graphs=False)
     # the steadier traffic in each arm of phase 5e
     steady_profs = [phase_profile(params, pipeline_depth=depth, cuda_graphs=cuda_graphs,
@@ -3687,20 +4265,29 @@ def main() -> int:
     ragged_prof = phase_profile(params, "ragged")
     tree_prof = phase_profile(params, "ragged-tree")
     int4_prof = phase_profile(qparams, weight_quant="int4")
+    mark("6")
     log("phase 7: request lifecycle, llama3-8b full width behind the HTTP server, default "
         "lifecycle knobs")
     lifecycle = phase_lifecycle(params, card)
     log("phase 8: the radix prefix cache over shared, refcounted KV pages, llama3-8b full "
         "width, prefix_cache 64, prefix_block 64, prefix_cache_pages 256")
+    mark("7")
     prefix = phase_prefix_cache(params, card)
+    mark("8")
     prefix_arm = {(r["arm"], r["kv"]): r for r in prefix["runs"]}
     log("phase 9: the prefix cache's host-RAM KV tier and the ownership ledger, llama3-8b "
         "full width, prefix_cache_pages 128 over prefix_cache_host_pages 512")
     tier = phase_kv_tier(params, card)
+    mark("9")
     tier_arm = {r["arm"]: r for r in tier["runs"]}
     log("phase 10: the sampling surface of the OpenAI routes, llama3-8b full width: "
         "penalties, logit bias, seeds, min_tokens, logprobs, n, completions scoring")
     sampling = phase_sampling(params, card)
+    mark("10")
+    log("phase 11: guided decoding and tool calling on the OpenAI routes, llama3-8b full "
+        "width: regex, choice, JSON schema, json_object, tool_choice modes")
+    guided = phase_guided(params, card)
+    mark("11")
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -3755,6 +4342,10 @@ def main() -> int:
         # and the ragged arm's chained steps (10b)
         "launches_sampling": sampling["paged_launches"],
         "launches_sampling_ragged_path": sampling["ragged"]["paged_launches"],
+        # phase 11: the guided variants of the decode chunk (11a) and the
+        # ragged arm's chained steps (11c)
+        "launches_guided": guided["paged_launches"],
+        "launches_guided_ragged_path": guided["ragged"]["paged_launches"],
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -3796,6 +4387,10 @@ def main() -> int:
         "launches_tier": tier_arm["D"]["ragged_launches"],
         # phase 10b: extras rows beside tree verify rows, int8 KV
         "launches_sampling": sampling["ragged"]["ragged_launches"],
+        # phase 11c: guided rows beside tree verify rows, int8 KV; a retry
+        # of its profiled pass (the first trace disagreed with the counts)
+        "launches_guided": guided["ragged"]["ragged_launches"],
+        "trace_retries_guided": guided["ragged"]["trace_retries"],
     }, {
         "name": "ragged_paged_attention[tree_anc]",
         "route": "cuda",
@@ -3833,6 +4428,8 @@ def main() -> int:
         "ms_int8_one_span": tt["verify_forest_int8"]["one_span_ms"],
         # phase 10b's verify steps
         "launches_sampling": sampling["ragged"]["tree_launches"],
+        # phase 11c's verify steps, beside guided rows
+        "launches_guided": guided["ragged"]["tree_launches"],
         "plain_ms_int8": tt["verify_forest_int8"]["plain_ms"],
         "bound_ms_int8": tt["verify_forest_int8"]["bound_ms"],
         "per_case": [dict(case=name, **row) for name, row in tt.items()],
@@ -3870,7 +4467,9 @@ def main() -> int:
                                   "tree_profile": tree_prof,
                                   "int4_profile": int4_prof,
                                   "lifecycle": lifecycle, "prefix_cache": prefix,
-                                  "kv_tier": tier, "sampling": sampling}))
+                                  "kv_tier": tier, "sampling": sampling,
+                                  "guided": guided}))
+    log("seconds by phase:", json.dumps(seconds))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)
     print(json.dumps(kernels))

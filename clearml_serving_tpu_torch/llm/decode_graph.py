@@ -32,9 +32,17 @@ for the active rows, so it chains across steps and chunks. A seeded row's
 Gumbel row is drawn inside the graph from its seed and counter
 (``llm/prng.py``); the counters are offset per step. With logprobs a chunk
 also emits each step's chosen logprob and top-k over the penalized logits.
+
+Guided decoding rides the same way (the reference chunk body's order:
+grammar mask, penalized sample, histogram count, DFA advance): each slot's
+DFA state is a device ``[B]`` int32 chain beside the token chain, which the
+host overrides per slot as it does tokens, and the grammar tables
+(``llm/guided.py``'s combined mask bits and byte DFA, padded to a
+power-of-two state count) sit at fixed addresses, one buffer pair per
+bucket, so a guided variant's graph is keyed by its bucket.
 ``DecodeGraphs`` keys its graphs by ``ChunkVariant`` (greedy, extras,
-seeded, logprobs); the two plain variants are the ones ``warmup()``
-captures.
+seeded, logprobs, guided bucket); the two plain variants are the ones
+``warmup()`` captures.
 
 Graphs read their inputs from static buffers and write the KV pools (and
 the int8 scale pools) by address: ``PagedKVCache`` allocates them once and
@@ -45,6 +53,7 @@ the graph's lifetime.
 
 from __future__ import annotations
 
+import gc
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -58,6 +67,8 @@ from .sampling import (
     SamplingParams,
     logprobs_of,
     penalize_logits,
+    guided_advance,
+    guided_mask,
     sample_penalized,
     sample_tokens,
 )
@@ -69,18 +80,22 @@ COUNTED_KERNELS = (paged_attention, fused_int4_matmul)
 class ChunkVariant(NamedTuple):
     """One compiled shape of the chunk: every row greedy (no noise read),
     the extras applied, a seeded row present (the in-graph draw), the
-    logprobs emitted. The plain variants are ``ChunkVariant(True)`` and
-    ``ChunkVariant(False)``."""
+    logprobs emitted, and ``guided``: the state bucket of the grammar
+    tables a guided slot reads (0: no guided slot). The plain variants are
+    ``ChunkVariant(True)`` and ``ChunkVariant(False)``."""
 
     greedy: bool
     extras: bool = False
     seeded: bool = False
     lp: bool = False
+    guided: int = 0
 
     def label(self) -> str:
         parts = ["greedy" if self.greedy else "sampled"]
         parts += [name for name, on in (("extras", self.extras), ("seeded", self.seeded),
                                         ("logprobs", self.lp)) if on]
+        if self.guided:
+            parts.append("guided{}".format(self.guided))
         return "+".join(parts)
 
 
@@ -120,7 +135,8 @@ def decode_chunk(model, cache, tokens, page_table, lengths0, write_pages, write_
                  steps: int, *, extras: Optional[SamplingExtras] = None,
                  counts: Optional[torch.Tensor] = None,
                  prompt_mask: Optional[torch.Tensor] = None,
-                 active: Optional[torch.Tensor] = None, lp_k: int = 0):
+                 active: Optional[torch.Tensor] = None, lp_k: int = 0,
+                 guided: Optional[tuple] = None, gstate: Optional[torch.Tensor] = None):
     """``steps`` fused decode steps over the slot batch: tokens [B] ->
     sampled tokens [B, steps] int32. Step i attends over ``lengths0 + i``
     tokens and writes its K/V at ``write_pages[:, i]``/``write_offsets[:,
@@ -131,7 +147,12 @@ def decode_chunk(model, cache, tokens, page_table, lengths0, write_pages, write_
     step); the histogram ``counts`` gains each step's token for the rows of
     ``active`` [B], in place. With ``lp_k`` > 0 the result is ``(tokens,
     (chosen [B, steps], top_ids [B, steps, lp_k], top_lp [B, steps,
-    lp_k]))`` over the penalized logits."""
+    lp_k]))`` over the penalized logits.
+
+    ``guided`` (mask bits, byte table, token bytes, token lengths) masks
+    every step's logits by the rows' DFA states ``gstate`` [B] int32 (< 0:
+    unguided) before the extras, and advances the states of ``active``'s
+    rows by the sampled tokens; the result is then ``(result, states)``."""
     scale_kw = ({"k_scales": cache.k_scale, "v_scales": cache.v_scale}
                 if cache.kv_quant else {})
     tokens = tokens.long()
@@ -142,6 +163,8 @@ def decode_chunk(model, cache, tokens, page_table, lengths0, write_pages, write_
             write_pages[:, step], write_offsets[:, step], **scale_kw,
         )
         step_noise = None if noise is None else noise[step]
+        if guided is not None:
+            logits = guided_mask(logits.float(), gstate, guided[0])
         if extras is None:
             sampled = sample_tokens(logits, sampling, noise=step_noise,
                                     all_greedy=noise is None)
@@ -152,14 +175,16 @@ def decode_chunk(model, cache, tokens, page_table, lengths0, write_pages, write_
             sampled = sample_penalized(lp_src, sampling, noise=step_noise,
                                        all_greedy=noise is None, extras=ex)
             counts.scatter_add_(1, sampled.long()[:, None], active.to(counts.dtype)[:, None])
+        if guided is not None:
+            gstate = guided_advance(gstate, sampled, active != 0, *guided[1:])
         if lp_k:
             lps.append(logprobs_of(lp_src, sampled, lp_k))
         out.append(sampled)
         tokens = sampled.long()
     toks = torch.stack(out, dim=1)
-    if not lp_k:
-        return toks
-    return toks, tuple(torch.stack(parts, dim=1) for parts in zip(*lps))
+    result = toks if not lp_k else (
+        toks, tuple(torch.stack(parts, dim=1) for parts in zip(*lps)))
+    return result if guided is None else (result, gstate)
 
 
 def _extras_fields(b: int):
@@ -186,7 +211,8 @@ class ChunkLayout:
         ex_i32, ex_f32 = _extras_fields(b)
         self.i32 = (("page_table", (b, pages_per_seq)), ("lengths0", (b,)),
                     ("write_pages", (b, n)), ("write_offsets", (b, n)), ("top_k", (b,)),
-                    ("override_tokens", (b,)), ("override_mask", (b,))) + ex_i32
+                    ("override_tokens", (b,)), ("override_mask", (b,)),
+                    ("override_gstate", (b,)), ("override_gmask", (b,))) + ex_i32
         self.f32 = (("temperature", (b,)), ("top_p", (b,))) + ex_f32
         self.size_i32 = sum(int(np.prod(shape)) for _, shape in self.i32)
         self.size_f32 = sum(int(np.prod(shape)) for _, shape in self.f32)
@@ -204,11 +230,15 @@ class ChunkLayout:
 
 def run_chunk(model, cache, views, chain: torch.Tensor, noise: Optional[torch.Tensor],
               steps: int, *, variant: Optional[ChunkVariant] = None,
-              state: Optional[ExtrasState] = None, lp_k: int = 0):
+              state: Optional[ExtrasState] = None, lp_k: int = 0,
+              tables: Optional[tuple] = None, gchain: Optional[torch.Tensor] = None):
     """``decode_chunk`` over the inputs of ``ChunkLayout.views``: the token
     input is ``chain`` where the host does not override it. An extras
     ``variant`` reads the extras rows of the views and ``state``; a
-    logprobs one returns ``(tokens, lp)`` (``decode_chunk``)."""
+    logprobs one returns ``(tokens, lp)`` (``decode_chunk``). A guided one
+    reads the grammar ``tables`` and the DFA states ``gchain`` where the
+    host does not override them (``override_gmask``), and returns
+    ``(result, states)``."""
     tokens = torch.where(views["override_mask"] != 0, views["override_tokens"], chain)
     sampling = SamplingParams(temperature=views["temperature"], top_k=views["top_k"],
                               top_p=views["top_p"])
@@ -222,6 +252,9 @@ def run_chunk(model, cache, views, chain: torch.Tensor, noise: Optional[torch.Te
             counts=state.counts, prompt_mask=state.pmask, active=views["active"])
     if variant is not None and variant.lp:
         kw["lp_k"] = lp_k
+    if variant is not None and variant.guided:
+        kw.update(guided=tables, active=views["active"], gstate=torch.where(
+            views["override_gmask"] != 0, views["override_gstate"], gchain))
     return decode_chunk(model, cache, tokens, views["page_table"], views["lengths0"],
                         views["write_pages"], views["write_offsets"], sampling, noise, steps,
                         **kw)
@@ -234,8 +267,10 @@ def _launch_counts():
 class DecodeGraphs:
     """The decode chunk captured as one CUDA graph per ``ChunkVariant``
     (each with its own memory pool): the plain greedy (every row argmax, no
-    noise read) and sampled ones, and the extras and logprob variants,
-    captured at their first use. The reference's chunk always runs all
+    noise read) and sampled ones, and the extras, logprob and guided
+    variants, captured at their first use. A guided variant reads the
+    grammar tables of its bucket (``tables_fn(bucket)``, buffers that never
+    move) and chains the DFA states in ``gchain``. The reference's chunk always runs all
     ``max_batch`` rows under an active mask, so there are no batch
     buckets.
 
@@ -245,11 +280,14 @@ class DecodeGraphs:
     its capture recorded."""
 
     def __init__(self, model, cache, layout: ChunkLayout, steps: int,
-                 state_fn=None, lp_k: int = 1):
+                 state_fn=None, lp_k: int = 1, tables_fn=None):
         dev = model.device
         self.model, self.cache, self.layout, self.steps = model, cache, layout, steps
         # the extras' device rows (``ExtrasState``), made at first need
         self._state_fn = state_fn
+        # a state bucket's grammar tables (mask bits, byte table, token
+        # bytes, token lengths), at fixed addresses
+        self._tables_fn = tables_fn
         self.lp_k = int(lp_k)
         self._i32 = torch.zeros(layout.size_i32, dtype=torch.int32, device=dev)
         self._f32 = torch.zeros(layout.size_f32, dtype=torch.float32, device=dev)
@@ -258,6 +296,8 @@ class DecodeGraphs:
         # the device-resident token chain: the last sampled token of the
         # newest chunk, written by each replay's epilogue
         self.chain = torch.zeros(b, dtype=torch.int32, device=dev)
+        # the DFA-state chain, written by each guided replay's epilogue
+        self.gchain = torch.full((b,), -1, dtype=torch.int32, device=dev)
         self.noise = torch.zeros((steps, b, model.vocab_size), dtype=torch.float32, device=dev)
         # variant -> (graph, static output, launches per replay)
         self._graphs: Dict[ChunkVariant, tuple] = {}
@@ -267,10 +307,18 @@ class DecodeGraphs:
         plain one) is captured."""
         return _variant(greedy) in self._graphs
 
+    def drop_guided(self, bucket: int) -> None:
+        """Free the graphs (and their memory pools) of the guided variants
+        of a grammar-table bucket no launch reads any more."""
+        for variant in [v for v in self._graphs if v.guided == bucket]:
+            del self._graphs[variant]
+
     def _run(self, variant: ChunkVariant):
         return run_chunk(self.model, self.cache, self.views, self.chain,
                          None if variant.greedy else self.noise, self.steps, variant=variant,
-                         state=self._state_fn() if variant.extras else None, lp_k=self.lp_k)
+                         state=self._state_fn() if variant.extras else None, lp_k=self.lp_k,
+                         tables=self._tables_fn(variant.guided) if variant.guided else None,
+                         gchain=self.gchain)
 
     def capture(self, greedy, capture_error_mode: str = "global") -> None:
         """Capture one variant (a ``ChunkVariant``, or a bool naming a plain
@@ -294,8 +342,17 @@ class DecodeGraphs:
         stream.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         start = _launch_counts()
-        with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
-            out = self._run(variant)
+        # the cycle collector stays off during the capture: a dead engine's
+        # graphs and events it would free there release CUDA resources from
+        # inside the capture, which invalidates it
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
+                out = self._run(variant)
+        finally:
+            if gc_was_on:
+                gc.enable()
         per_replay = [a - b for a, b in zip(_launch_counts(), start)]
         for fn, count in zip(COUNTED_KERNELS, before):
             fn.launches = count
@@ -306,9 +363,10 @@ class DecodeGraphs:
         """Upload a chunk's packed host inputs (pinned, so the copies are
         asynchronous; the caching host allocator keeps each buffer until
         its copy has run), replay the variant on the current stream and
-        advance the chain. Returns the static output, [B, steps] (with the
-        logprob tensors for a logprob variant): the next replay overwrites
-        it, so the caller copies it out on this stream first."""
+        advance the chains. Returns the static output, [B, steps] (with the
+        logprob tensors for a logprob variant, and ``(output, states)`` for
+        a guided one): the next replay overwrites it, so the caller copies
+        it out on this stream first."""
         variant = _variant(greedy)
         graph, out, per_replay = self._graphs[variant]
         self._i32.copy_(host_i32, non_blocking=True)
@@ -318,6 +376,10 @@ class DecodeGraphs:
         graph.replay()
         for fn, count in zip(COUNTED_KERNELS, per_replay):
             fn.launches += count
-        tokens = out[0] if variant.lp else out
+        result = out
+        if variant.guided:
+            result, gstate = out
+            self.gchain.copy_(gstate)
+        tokens = result[0] if variant.lp else result
         self.chain.copy_(tokens[:, -1])
         return out

@@ -28,6 +28,20 @@ logprobs never verify drafts and are never preempted; ``score_prompt``
 scores a prompt teacher-forced for the completions route's ``echo`` and
 ``prompt_logprobs``.
 
+Guided decoding (the reference's ``llm/guided.py`` grammars): a request's
+``guided`` spec compiles once per unique spec, in the admission worker,
+into one COMBINED state space (each grammar at its own state offset), so
+mixed-grammar batches share one mask/byte-table pair; the device copy is
+padded to a power-of-two state count, one buffer pair per bucket at a
+fixed address, written on the engine's stream. The first token is masked
+by the grammar's start row and its state walked on the host; each decode
+step then masks, samples and advances every guided slot's DFA state on
+the device, chained across chunks as the tokens are (a guided variant of
+the chunk's graph per bucket). Guided slots never verify drafts and are
+never preempted; a grammar's registry reference (the ledger's
+``guided.ref``) moves from the admission to the slot at commit and drops
+when the slot frees.
+
 Pipelined decode (the reference's ``docs/pipelined_decode.md``): a bounded
 queue of dispatched chunks, ``pipeline_depth`` deep (``TPUSERVE_PIPELINE_DEPTH``,
 default 2). Each step overlaps the oldest chunk's retirement (readback and
@@ -123,13 +137,14 @@ from __future__ import annotations
 import asyncio
 import heapq
 import itertools
+import json
 import logging
 import os
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import AsyncIterator, Deque, Dict, List, Optional
+from typing import Any, AsyncIterator, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -153,14 +168,18 @@ from .decode_graph import (
     run_chunk,
 )
 from . import kv_cache, lifecycle_ledger
+from . import guided as _guided
 from .kv_cache import PagedKVCache
 from .kv_sanitizer import KVSanitizer, enabled as sanitizer_enabled
 from .prefix_cache import RadixPrefixCache
 from .sampling import (
+    GUIDED_FILL,
     STOP_SLOTS,
     SamplingExtras,
     SamplingParams,
     greedy_tree_walk,
+    guided_advance,
+    guided_mask,
     gumbel_noise,
     logprobs_of,
     penalize_logits,
@@ -200,6 +219,9 @@ class GenRequest:
     # vLLM min_tokens: the stop tokens are suppressed until this many
     # tokens were generated
     min_tokens: int = 0
+    # grammar constraint (llm/guided.py GuidedSpec): compiled at admission,
+    # enforced on the device inside the decode chunk
+    guided: Optional[Any] = None
     # SLO class: "interactive" | "batch" | "best_effort". Strict class
     # order across the pending queues, earliest deadline first within a
     # class; under overload best_effort sheds first, then batch, and
@@ -231,6 +253,11 @@ class GenRequest:
     # the lookup to the commit that maps its pages; every failure path
     # between the two releases it (_release_prefix_hit)
     _prefix_hit: Optional[dict] = None
+    # engine-internal (guided decoding): the combined-table DFA state after
+    # the first token, and the registry key whose reference the admission
+    # holds until its commit hands it to the slot
+    _gstate0: int = -1
+    _guided_key: Optional[str] = None
     # filled by the engine:
     out_queue: "asyncio.Queue" = field(default_factory=asyncio.Queue)
     produced: int = 0
@@ -262,6 +289,8 @@ _SCORE_BLOCK = 256
 _DEFAULT_PIPELINE_DEPTH = 2
 # the reference's _MsHistogram buckets (ms)
 _MS_BUCKETS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 1000.0)
+# the combined grammar tables' state budget: states are int16 on the device
+_GUIDED_STATE_BUDGET = 32000
 # the host tier's auto-sizing (prefix_cache_host_bytes="auto"): half of
 # MemAvailable, clamped to this range
 _AUTO_HOST_TIER_MIN_BYTES = 64 << 20
@@ -316,6 +345,8 @@ class _InFlightChunk:
     # a logprob variant's (chosen [B, steps], top ids, top logprobs [B,
     # steps, K]) on the host, filled with ``tokens``
     lp: Optional[tuple] = None
+    # a guided variant's DFA states [B] after the chunk, on the host
+    gstate: Optional[torch.Tensor] = None
 
 
 @dataclass(eq=False)  # identity semantics: jobs live in (and leave) lists
@@ -512,7 +543,7 @@ class _BrownoutController:
 UNSUPPORTED_KNOBS = (
     "mesh", "long_prefill_threshold",
     "long_bucket_step", "chunked_prefill_size", "prefill_segments_per_decode",
-    "prefill_stall_timeout", "lora_adapters", "tokenizer", "replica",
+    "prefill_stall_timeout", "lora_adapters", "replica",
 )
 
 
@@ -574,6 +605,9 @@ class LLMEngineCore:
         prefix_cache_host_bytes=None,
         # the top-k ceiling of logprob reporting (OpenAI top_logprobs)
         logprobs_k: int = 20,
+        # guided decoding's token byte tables come from it (None: guided
+        # requests are refused)
+        tokenizer=None,
         **knobs,
     ):
         for name, value in knobs.items():
@@ -783,6 +817,39 @@ class LLMEngineCore:
         # first request with extras commits and reset at every commit after
         self._lp_k = max(1, int(logprobs_k))
         self._extras: Optional[ExtrasState] = None
+        # guided decoding: grammars compile once per unique spec into ONE
+        # combined state space (per-grammar offsets), so mixed-grammar
+        # batches share one mask/byte-table pair. The device copy pads the
+        # state count to a power of two: one buffer pair per bucket, never
+        # moved (graphs read it by address), written on the engine's stream.
+        # The bucket only grows; an outgrown bucket's buffers and graphs go
+        # once the launches that read them have run
+        self._guided_lock = threading.Lock()
+        self._tokenizer = tokenizer
+        self._grammars: Dict[str, dict] = {}          # key -> entry
+        self._gmask_np: Optional[np.ndarray] = None   # [S, ceil(V/8)] uint8
+        self._gbyte_np: Optional[np.ndarray] = None   # [S, 256] int16
+        self._gtok_bytes = None                       # the tokenizer's token_byte_table
+        self._gtok_np = None                          # (tok_bytes [V, 16], tok_len [V])
+        self._gtok_dev = None
+        self._gdev: Dict[int, tuple] = {}             # bucket -> (mask, byte) buffers
+        self._gbucket = 0                             # the bucket holding the rows
+        self._gsynced = 0                             # host rows copied into it
+        self._gstale: List[tuple] = []                # (outgrown bucket, event after its reads)
+        # guided admissions whose grammar compiles in a worker (the task's
+        # strong refs), and the (request, slot) pairs handed back to the
+        # loop, each slot reserved in _admitting meanwhile
+        self._grammar_preps: set = set()
+        self._prepped: Deque[tuple] = deque()
+        # bumped when every grammar drained and the tables were rebuilt:
+        # states chained on the device from before are stale
+        self._gepoch = 0
+        # the epoch of the last guided dispatch (None after a plain one or a
+        # chain reset): a guided dispatch under another takes every slot's
+        # state from the host mirror
+        self._gchain_epoch: Optional[int] = None
+        self._gstate = np.full(self.max_batch, -1, np.int32)
+        self._slot_guided_key: List[Optional[str]] = [None] * self.max_batch
         # -- pipelined decode: the bounded in-flight queue, the slot-reuse
         # barrier and the device-resident token chain
         self.pipeline_depth = (max(1, int(pipeline_depth)) if pipeline_depth is not None
@@ -808,11 +875,13 @@ class LLMEngineCore:
         # on the card each chunk is a CUDA-graph replay unless cuda_graphs
         # is off; the eager arm keeps its chain in _chain
         self._graphs = (DecodeGraphs(model, self.paged_cache, self._layout, self.decode_steps,
-                                     state_fn=lambda: self._extras, lp_k=self._lp_k)
+                                     state_fn=lambda: self._extras, lp_k=self._lp_k,
+                                     tables_fn=self._guided_tables_of)
                         if self._stream is not None and cuda_graphs else None)
         # first-use capture time of each variant (ms), by label
         self._capture_ms: Dict[str, float] = {}
         self._chain = torch.zeros(self.max_batch, dtype=torch.int32, device=self.device)
+        self._gchain = torch.full((self.max_batch,), -1, dtype=torch.int32, device=self.device)
         self._warming = False
         self._hist_dispatch = _Histogram(_MS_BUCKETS)
         self._hist_retire = _Histogram(_MS_BUCKETS)
@@ -960,6 +1029,224 @@ class LLMEngineCore:
             raise ValueError("max_tokens must be >= 1")
         if any(not 0 <= int(t) < vocab for t in request.prompt_ids):
             raise ValueError("prompt token id out of range for vocab {}".format(vocab))
+        if request.guided is not None:
+            if self._tokenizer is None:
+                raise ValueError("guided decoding needs the engine's tokenizer "
+                                 "(constructed without one)")
+            if self.eos_token_id is None:
+                raise ValueError("guided decoding requires an eos token")
+            spec = request.guided
+            if spec.kind not in ("regex", "json_schema", "json_object"):
+                raise ValueError("unknown guided kind {!r}".format(spec.kind))
+            # a cheap syntactic pre-flight, so a 4xx precedes the stream's
+            # headers; the full compile (the token lifting) runs at admission
+            try:
+                if spec.kind == "regex":
+                    _guided._Parser(spec.payload).parse()
+                elif spec.kind == "json_schema":
+                    _guided.json_schema_to_regex(json.loads(spec.payload))
+            except _guided.RegexError as ex:
+                raise ValueError("invalid guided grammar: {}".format(ex))
+            except Exception as ex:
+                raise ValueError("invalid guided schema: {}".format(ex))
+
+    # -- guided decoding: the grammar registry ---------------------------------
+
+    def _ensure_grammar(self, request: GenRequest) -> dict:
+        """Compile (or reuse) the request's grammar and splice it into the
+        combined host tables; the request takes one registry reference
+        (``guided.ref``). Runs in an admission worker: the compile (DFA and
+        token lifting) can take seconds at a large vocab. Returns the
+        registry entry {offset, n_states, start, terminal, refs}."""
+        key = request.guided.cache_key()
+        with self._guided_lock:
+            entry = self._grammars.get(key)
+            if entry is not None:
+                entry["refs"] += 1
+                request._guided_key = key
+                self._ledger_guided_acquire(key, request)
+                return entry
+            token_bytes = self._gtok_bytes
+        # the O(V) token byte table is the tokenizer's: built once, shared
+        # by every grammar's compile and the device walk
+        if token_bytes is None:
+            token_bytes = _guided.token_byte_table(self._tokenizer, self.model.vocab_size)
+        # compile outside the lock (pure); splice under it
+        grammar = _guided.compile_guided(request.guided, self._tokenizer, self.model.vocab_size,
+                                         self.eos_token_id, token_bytes=token_bytes)
+        with self._guided_lock:
+            entry = self._grammars.get(key)
+            if entry is not None:  # another admission raced this one: reuse its
+                entry["refs"] += 1
+                request._guided_key = key
+                self._ledger_guided_acquire(key, request)
+                return entry
+            if self._gtok_bytes is None:
+                self._gtok_bytes = token_bytes
+            if self._gtok_np is None:
+                self._gtok_np = _guided.build_token_byte_arrays(token_bytes)
+            # int16 device states: the combined table stays bounded so
+            # offsets never wrap; fails only this request, and only while
+            # many distinct grammars are alive at once
+            total = self._gmask_np.shape[0] if self._gmask_np is not None else 0
+            if total + grammar.n_states > _GUIDED_STATE_BUDGET:
+                raise ValueError(
+                    "guided-grammar state budget exhausted ({} + {} states); retry when "
+                    "active grammars drain".format(total, grammar.n_states))
+            # compaction, only when every grammar is dead (no slot state and
+            # no admission holds a key: a partial rebuild would shift the
+            # offsets under states already computed)
+            if self._grammars and all(e["refs"] <= 0 for e in self._grammars.values()):
+                self._grammars.clear()
+                self._gmask_np = self._gbyte_np = None
+                self._gepoch += 1
+                self._gsynced = 0
+            offset = self._gmask_np.shape[0] if self._gmask_np is not None else 0
+            entry = {"offset": offset, "n_states": grammar.n_states,
+                     "terminal": offset + grammar.terminal, "start": offset + grammar.start,
+                     "refs": 1, "grammar": grammar}
+            self._grammars[key] = entry
+            self._append_guided_tables_locked(grammar)
+            request._guided_key = key
+            self._ledger_guided_acquire(key, request)
+            return entry
+
+    def _append_guided_tables_locked(self, grammar) -> None:
+        """Append a grammar's rows to the combined host tables, its byte
+        transitions shifted by its offset."""
+        offset = self._gmask_np.shape[0] if self._gmask_np is not None else 0
+        byte = grammar.byte_trans.astype(np.int32)
+        byte = np.where(byte == _guided.DEAD, _guided.DEAD, byte + offset).astype(np.int16)
+        if self._gmask_np is None:
+            self._gmask_np = grammar.mask_bits.copy()
+            self._gbyte_np = byte
+        else:
+            self._gmask_np = np.vstack([self._gmask_np, grammar.mask_bits])
+            self._gbyte_np = np.vstack([self._gbyte_np, byte])
+
+    def _guided_device_tables(self) -> int:
+        """Loop thread, before a launch with a guided slot: the state
+        bucket of the combined tables (the power of two at or above their
+        state count), its device buffers made current. The copies go on
+        the engine's stream, so they land behind every launch in flight
+        and ahead of this one: rows appended since the last call, or the
+        whole padded table after a growth into a larger bucket or a
+        rebuild. The bucket never shrinks (a rebuild keeps it), so buckets
+        do not come and go with the traffic; an outgrown bucket's buffers
+        and graphs are dropped once the launches enqueued before the growth
+        have run (``_drop_outgrown_buckets``)."""
+        self._drop_outgrown_buckets()
+        with self._guided_lock:
+            if self._gmask_np is None:
+                return 0
+            rows = self._gmask_np.shape[0]
+            bucket = max(shapes.pow2_bucket(rows), self._gbucket)
+            if bucket == self._gbucket and self._gsynced == rows:
+                return bucket
+            lo = self._gsynced if bucket == self._gbucket else 0
+            if bucket != self._gbucket and self._gbucket:
+                event = None
+                if self._stream is not None:
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+                self._gstale.append((self._gbucket, event))
+            self._on_stream(self._write_guided_tables, bucket, self._gmask_np,
+                            self._gbyte_np, lo)
+            self._gbucket, self._gsynced = bucket, rows
+            return bucket
+
+    def _drop_outgrown_buckets(self) -> None:
+        """Free the buffers and graphs of the buckets the tables outgrew
+        whose last reader has run: every launch that read one was enqueued
+        before the event recorded at the growth."""
+        while self._gstale and (self._gstale[0][1] is None or self._gstale[0][1].query()):
+            bucket, _event = self._gstale.pop(0)
+            self._gdev.pop(bucket, None)
+            if self._graphs is not None:
+                self._graphs.drop_guided(bucket)
+
+    def _write_guided_tables(self, bucket: int, mask_np: np.ndarray, byte_np: np.ndarray,
+                             lo: int) -> None:
+        """Rows ``lo`` on of the combined tables into the bucket's buffers
+        (from ``lo`` 0, the padding too: mask rows empty, byte rows DEAD)."""
+        dev = self.device
+        rows = mask_np.shape[0]
+        pair = self._gdev.get(bucket)
+        if pair is None:
+            pair = (torch.zeros((bucket, mask_np.shape[1]), dtype=torch.uint8, device=dev),
+                    torch.full((bucket, 256), _guided.DEAD, dtype=torch.int16, device=dev))
+            self._gdev[bucket] = pair
+        hi = bucket if lo == 0 else rows
+        mask = np.zeros((hi - lo, mask_np.shape[1]), np.uint8)
+        mask[:rows - lo] = mask_np[lo:rows]
+        byte = np.full((hi - lo, 256), _guided.DEAD, np.int16)
+        byte[:rows - lo] = byte_np[lo:rows]
+        for dst, src in zip(pair, (mask, byte)):
+            dst[lo:hi].copy_(self._host_tensor(src), non_blocking=True)
+        if self._gtok_dev is None:
+            self._gtok_dev = tuple(self._host_tensor(a).to(dev, non_blocking=True)
+                                   for a in self._gtok_np)
+
+    def _host_tensor(self, array: np.ndarray) -> torch.Tensor:
+        """A host array as a tensor to copy from: pinned on the card, so
+        the copy enqueues without waiting for the stream (the caching host
+        allocator keeps it until the copy ran)."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        return t.pin_memory() if self._stream is not None else t
+
+    def _guided_tables_of(self, bucket: int) -> tuple:
+        """(mask bits, byte table, token bytes, token lengths) on the
+        device, the first two the bucket's buffers."""
+        return self._gdev[bucket] + self._gtok_dev
+
+    def _guided_snapshot(self) -> dict:
+        """The registry's size: grammars, their references, the combined
+        state count, the device bucket and the device tables' bytes."""
+        with self._guided_lock:
+            states = self._gmask_np.shape[0] if self._gmask_np is not None else 0
+            return {
+                "grammars": len(self._grammars),
+                "refs": sum(e["refs"] for e in self._grammars.values()),
+                "states": states,
+                "bucket": self._gbucket,
+                "table_bytes": sum(t.numel() * t.element_size()
+                                   for pair in self._gdev.values() for t in pair),
+            }
+
+    def _release_guided(self, slot: int, request: Optional[GenRequest] = None) -> None:
+        """A slot frees: its DFA state clears and its grammar reference
+        drops. The key was captured at commit (``_slot_req[slot]`` is
+        already None on some finish paths); a caller holding the request
+        passes it, so the ledger discharges that request's entry."""
+        self._gstate[slot] = -1
+        key, self._slot_guided_key[slot] = self._slot_guided_key[slot], None
+        if key is not None:
+            self._deref_guided_key(key, request)
+
+    def _deref_guided_request(self, request: GenRequest) -> None:
+        """An admission failed or was dropped before its commit: return the
+        reference ``_ensure_grammar`` took (no-op otherwise)."""
+        key, request._guided_key = request._guided_key, None
+        if key is not None:
+            self._deref_guided_key(key, request)
+
+    def _deref_guided_key(self, key: str, request: Optional[GenRequest] = None) -> None:
+        with self._guided_lock:
+            entry = self._grammars.get(key)
+            if entry is not None:
+                entry["refs"] -= 1
+                if self._ledger is not None:
+                    self._ledger.release(
+                        "guided.ref", key=key, domain=self,
+                        owner=lifecycle_ledger.request_tag(request) if request is not None
+                        else None)
+
+    def _ledger_guided_acquire(self, key: str, request: GenRequest) -> None:
+        """One registry reference taken on the request's behalf
+        (``_ensure_grammar``'s three take paths)."""
+        if self._ledger is not None:
+            self._ledger.acquire("guided.ref", key=key, domain=self,
+                                 owner=lifecycle_ledger.request_tag(request))
 
     @property
     def logprobs_k(self) -> int:
@@ -1014,14 +1301,6 @@ class LLMEngineCore:
         pmask[[t for t in request.prompt_ids if 0 <= t < vocab]] = True
         return bias, pmask
 
-    def _host_rows(self, bias: np.ndarray, pmask: np.ndarray):
-        """The rows as torch tensors to copy from: pinned on the card, so
-        the copies enqueue without waiting for the stream."""
-        rows = torch.from_numpy(bias), torch.from_numpy(pmask)
-        if self._stream is not None:
-            rows = tuple(r.pin_memory() for r in rows)
-        return rows
-
     def _request_extras_row(self, request: GenRequest):
         """Single-row extras for a first token: (extras, counts, prompt
         mask) on the device, the histogram empty and the counter 0."""
@@ -1059,7 +1338,7 @@ class LLMEngineCore:
         self._stop_rows[slot] = self._request_stop_row(request)
         if not has_extras and self._extras is None:
             return
-        bias, pmask = self._host_rows(*self._bias_pmask_rows(request))
+        bias, pmask = (self._host_tensor(a) for a in self._bias_pmask_rows(request))
 
         def reset():
             # made and written on the engine's stream, which every chunk
@@ -1327,9 +1606,11 @@ class LLMEngineCore:
                     continue
                 if request._preempt_count >= self._preempt_budget:
                     continue  # budget spent: immune, so batch work finishes
-                if self._request_has_extras(request) or request.logprobs is not None:
-                    # penalties over the histogram, seed counters and logprob
-                    # streams do not survive the round trip: never a victim
+                if (self._request_has_extras(request) or request.logprobs is not None
+                        or request.guided is not None or self._gstate[slot] >= 0):
+                    # penalties over the histogram, seed counters, logprob
+                    # streams and a grammar's DFA state do not survive the
+                    # round trip: never a victim
                     continue
                 key = (_CLASS_RANK[request.priority],          # lowest class
                        request._deadline if request._deadline is not None
@@ -1502,6 +1783,7 @@ class LLMEngineCore:
                 self._fail_slot(slot, err)
         for job in list(self._prefill_jobs):
             self._fail_ragged_job(job, err)
+        self._fail_prepped(err)
         for request in self._pending.pop_all():
             self._release_parked(request)
             request.error = err
@@ -1611,6 +1893,9 @@ class LLMEngineCore:
             # the decode chunk's captured graph variants and each one's
             # capture time (ms)
             graph_variants=dict(self._capture_ms),
+            # the grammar registry: grammars, references, combined states,
+            # the device bucket and its tables' bytes
+            guided=self._guided_snapshot(),
             pipeline=self._pipeline_snapshot(),
             scheduler="ragged" if self._ragged else "two_dispatch",
             ragged=self._ragged_snapshot(),
@@ -1701,6 +1986,12 @@ class LLMEngineCore:
                     await self._admit()
                 active = np.array([r is not None for r in self._slot_req])
                 if not active.any() and not self._inflight and not self._prefill_jobs:
+                    if self._grammar_preps:
+                        # nothing to decode while grammars compile: their
+                        # admissions open when a worker hands one back
+                        await asyncio.wait(set(self._grammar_preps),
+                                           return_when=asyncio.FIRST_COMPLETED)
+                        continue
                     if self._pending.empty():
                         faults.fire("engine.drain")
                         # promotions still in flight settle before the
@@ -1741,6 +2032,7 @@ class LLMEngineCore:
                     self._fail_slot(slot, ex)
             for job in list(self._prefill_jobs):
                 self._fail_ragged_job(job, ex)
+            self._fail_prepped(ex)
             raise
         finally:
             # the pipeline dies with the loop; after a cancellation its
@@ -1773,9 +2065,13 @@ class LLMEngineCore:
     async def _admit(self) -> None:
         """Admission of pending requests into free slots, in the queue's
         class order: prefill, pages, first token. A quarantined slot is
-        not free yet."""
+        not free yet. A guided request whose grammar is not compiled yet
+        compiles in a worker first (``_start_grammar_prep``), its slot
+        reserved, and is admitted into that slot at a later turn."""
+        for request, slot in self._take_prepped():
+            await self._admit_into(request, slot)
         free = [i for i, r in enumerate(self._slot_req)
-                if r is None and i not in self._quarantine]
+                if r is None and i not in self._quarantine and i not in self._admitting]
         while free and not self._pending.empty() and not self._stopped:
             request = self._pending.get_nowait()
             if request.cancelled:
@@ -1786,37 +2082,105 @@ class LLMEngineCore:
             if request._parked is not None:
                 self._resume_slot(request, slot)
                 continue
-            self._call_since = time.monotonic()
-            try:
-                first_id, first_lp = await asyncio.to_thread(
-                    self._on_stream, self._prefill_into_slot, request, slot)
-            except Exception as ex:
-                # a failed admission fails only its own request
-                self._release_prefix_hit(request)
-                self.paged_cache.pool.free(slot)
-                request.error = ex
-                request.out_queue.put_nowait(_FINISHED)
-                free.insert(0, slot)
+            if self._needs_grammar_compile(request):
+                self._start_grammar_prep(request, slot)
                 continue
-            finally:
-                self._call_since = None
-            if self._stopped:  # stop() ran during the prefill
-                self.paged_cache.pool.free(slot)
-                request.error = EngineUnavailableError("engine stopped")
-                request.out_queue.put_nowait(_FINISHED)
-                return
-            err = self._deadline_error_at_commit(request)
-            if err is not None:
-                # the prefill outlived the request's ttft/total budget: a
-                # structured 408 instead of a slot commit
-                self.paged_cache.pool.free(slot)
-                request.error = err
-                request.out_queue.put_nowait(_FINISHED)
+            if not await self._admit_into(request, slot):
                 free.insert(0, slot)
+
+    async def _admit_into(self, request: GenRequest, slot: int) -> bool:
+        """Prefill one request into a free slot and commit it; False when
+        the admission failed and the slot is free again."""
+        self._call_since = time.monotonic()
+        try:
+            first_id, first_lp = await asyncio.to_thread(
+                self._on_stream, self._prefill_into_slot, request, slot)
+        except Exception as ex:
+            # a failed admission fails only its own request
+            self._release_prefix_hit(request)
+            self._deref_guided_request(request)
+            self.paged_cache.pool.free(slot)
+            request.error = ex
+            request.out_queue.put_nowait(_FINISHED)
+            return False
+        finally:
+            self._call_since = None
+        if self._stopped:  # stop() ran during the prefill
+            self._deref_guided_request(request)
+            self.paged_cache.pool.free(slot)
+            request.error = EngineUnavailableError("engine stopped")
+            request.out_queue.put_nowait(_FINISHED)
+            return True
+        err = self._deadline_error_at_commit(request)
+        if err is not None:
+            # the prefill outlived the request's ttft/total budget: a
+            # structured 408 instead of a slot commit
+            self._deref_guided_request(request)
+            self.paged_cache.pool.free(slot)
+            request.error = err
+            request.out_queue.put_nowait(_FINISHED)
+            return False
+        self._store_prompt(request, slot)
+        self._activate_slot(request, slot, first_id, first_lp)
+        self._last_progress = time.monotonic()
+        return True
+
+    # -- guided admissions: the grammar compile off the loop -------------------
+
+    def _needs_grammar_compile(self, request: GenRequest) -> bool:
+        """A guided request whose grammar the registry does not hold yet
+        (a compile can take seconds at a large vocab)."""
+        if request.guided is None or request._guided_key is not None:
+            return False
+        with self._guided_lock:
+            return request.guided.cache_key() not in self._grammars
+
+    def _start_grammar_prep(self, request: GenRequest, slot: int) -> None:
+        """Loop thread: reserve ``slot`` and compile the request's grammar
+        in a worker (the reference's admission task), while the loop goes
+        on decoding the live rows; the request comes back through
+        ``_prepped``."""
+        self._admitting.add(slot)
+        task = asyncio.get_running_loop().create_task(self._grammar_prep(request, slot))
+        self._grammar_preps.add(task)
+        task.add_done_callback(self._grammar_preps.discard)
+
+    async def _grammar_prep(self, request: GenRequest, slot: int) -> None:
+        try:
+            await asyncio.to_thread(self._ensure_grammar, request)
+        except Exception as ex:
+            self._admitting.discard(slot)
+            request.error = ex
+            request.out_queue.put_nowait(_FINISHED)
+            return
+        self._prepped.append((request, slot))
+        if self._stopped:
+            self._fail_prepped(EngineUnavailableError("engine stopped"))
+        elif self._loop_task is None or self._loop_task.done():
+            # the loop died meanwhile: nobody admits the request
+            self._fail_prepped(EngineUnavailableError("engine loop exited"))
+
+    def _take_prepped(self):
+        """Loop thread: yield the compiled guided admissions to open now,
+        each with the slot it reserved; a cancelled one returns its
+        reference instead."""
+        while self._prepped and not self._stopped:
+            request, slot = self._prepped.popleft()
+            self._admitting.discard(slot)
+            if request.cancelled:
+                self._deref_guided_request(request)
+                request.out_queue.put_nowait(_FINISHED)
                 continue
-            self._store_prompt(request, slot)
-            self._activate_slot(request, slot, first_id, first_lp)
-            self._last_progress = time.monotonic()
+            yield request, slot
+
+    def _fail_prepped(self, err: BaseException) -> None:
+        """Fail every compiled guided admission not opened yet."""
+        while self._prepped:
+            request, slot = self._prepped.popleft()
+            self._admitting.discard(slot)
+            self._deref_guided_request(request)
+            request.error = err
+            request.out_queue.put_nowait(_FINISHED)
 
     def _sampling(self) -> SamplingParams:
         dev = self.device
@@ -1959,10 +2323,13 @@ class LLMEngineCore:
 
     def _first_token(self, request: GenRequest, last_logits: torch.Tensor):
         """A request's first token from its prompt's last logits [1, vocab],
-        and its logprob entry (None without logprobs): the request's extras
-        apply (a seeded draw at counter 0), and the entry reads the
-        penalized logits. Every admission samples here, cold prefills,
-        prefix hits and the ragged scheduler's finishing rows alike (the
+        and its logprob entry (None without logprobs): a guided request's
+        grammar (compiled here unless its admission did) masks the logits by
+        its start row, the request's extras apply (a seeded draw at counter
+        0), the entry reads the masked, penalized logits, and the token's
+        bytes walk the grammar's DFA on the host into ``_gstate0`` (EOS to
+        its terminal). Every admission samples here, cold prefills, prefix
+        hits and the ragged scheduler's finishing rows alike (the
         reference's ``_first_token_from_logits``), so their first tokens
         are the same."""
         return self._on_stream(self._first_token_device, request, last_logits)
@@ -1976,6 +2343,18 @@ class LLMEngineCore:
         )
         logits = last_logits.float()
         greedy = request.temperature <= 0
+        gentry = None
+        if request.guided is not None:
+            if request._guided_key is not None:
+                with self._guided_lock:
+                    gentry = self._grammars.get(request._guided_key)
+            if gentry is None:
+                gentry = self._ensure_grammar(request)
+            with self._guided_lock:
+                row = self._gmask_np[gentry["start"]]
+            allowed = np.unpackbits(row, bitorder="little")[: logits.shape[-1]] > 0
+            logits = torch.where(torch.from_numpy(allowed).to(self.device)[None, :], logits,
+                                 torch.full_like(logits, GUIDED_FILL))
         if self._request_has_extras(request):
             extras, counts0, pmask0 = self._request_extras_row(request)
             logits = penalize_logits(logits, extras, counts0, pmask0)
@@ -1984,11 +2363,28 @@ class LLMEngineCore:
         else:
             first = sample_tokens(logits, params, generator=self._gen, all_greedy=greedy)
         first_id = int(first.item())
+        if gentry is not None:
+            request._gstate0 = self._walk_first_token(gentry, first_id)
         if request.logprobs is None:
             return first_id, None
         chosen, top_id, top_lp = logprobs_of(logits, first, self._lp_k)
         return first_id, self._lp_entry(first_id, chosen[0].item(), top_id[0].tolist(),
                                         top_lp[0].tolist())
+
+    def _walk_first_token(self, gentry: dict, token_id: int) -> int:
+        """The grammar state after a first token: its bytes walked through
+        the byte DFA on the host (EOS goes to the grammar's terminal)."""
+        if token_id == self.eos_token_id:
+            return gentry["terminal"]
+        state = gentry["start"]
+        with self._guided_lock:
+            byte_np = self._gbyte_np
+            tok_bytes, tok_len = self._gtok_np
+        for b in tok_bytes[token_id][: int(tok_len[token_id])]:
+            state = int(byte_np[state, int(b)])
+            if state < 0:
+                break
+        return state
 
     def _occupy_slot(self, request: GenRequest, slot: int, next_token: int,
                      history: List[int], first_id: Optional[int] = None) -> None:
@@ -1996,9 +2392,13 @@ class LLMEngineCore:
         preempted request's resume: the request, the admission record
         behind Retry-After, the next decode input (taken from the host at
         the next dispatch), the speculation history (prompt and emitted
-        tokens), the sampling parameters and the extras rows (the
-        histogram holding ``first_id``)."""
+        tokens), the sampling parameters, the extras rows (the histogram
+        holding ``first_id``) and the DFA state, with the grammar reference
+        handed from the request to the slot."""
         self._slot_req[slot] = request
+        key, request._guided_key = request._guided_key, None
+        self._slot_guided_key[slot] = key
+        self._gstate[slot] = request._gstate0 if key is not None else -1
         self._admit_times.append(time.monotonic())
         self._admit_count += 1
         request._gen_ids = []  # a resume leg's history is in prompt_ids
@@ -2181,6 +2581,19 @@ class LLMEngineCore:
         v["page_table"][:] = pool.page_table(self._pages_per_seq)
         v["override_tokens"][:] = self._next_token
         v["override_mask"][:] = self._slot_overrides
+        v["active"][:] = active_mask
+        # a guided slot in the chunk: the grammar tables of the state
+        # bucket, and the DFA states, chained on the device like the tokens
+        # (fresh commits from the host) unless the device chain is not this
+        # table generation's: the last chunk was plain, the chain was reset
+        # or every grammar drained and the tables were rebuilt
+        gbucket = (self._guided_device_tables()
+                   if (self._gstate[active_mask] >= 0).any() else 0)
+        if gbucket:
+            v["override_gstate"][:] = self._gstate
+            v["override_gmask"][:] = (self._slot_overrides
+                                      | (self._gchain_epoch != self._gepoch))
+        self._gchain_epoch = self._gepoch if gbucket else None
         self._slot_overrides[:] = False
         v["temperature"][:] = self._temperature
         v["top_k"][:] = self._top_k
@@ -2196,7 +2609,7 @@ class LLMEngineCore:
             greedy=bool(greedy), extras=extras,
             seeded=bool(extras and not greedy and (
                 self._seeds[active_mask & (self._temperature > 0)] >= 0).any()),
-            lp=self._wants_logprobs(active_mask))
+            lp=self._wants_logprobs(active_mask), guided=gbucket)
         self._dispatch_seq += 1
         prep = {
             "seq": self._dispatch_seq,
@@ -2248,16 +2661,25 @@ class LLMEngineCore:
         variant = prep["variant"]
         noise = (None if variant.greedy else
                  gumbel_noise((n, self.max_batch, self.model.vocab_size), self._gen, self.device))
+        gstate = None
         if self._graphs is not None:
             if not self._graphs.captured(variant):
                 self._capture(variant)
             out = self._graphs.replay(variant, prep["host_i32"], prep["host_f32"], noise)
+            if variant.guided:
+                out, gstate = out
             self.counters["graph_replays"] += 1
         else:
             views = self._layout.views(prep["host_i32"].to(self.device, non_blocking=True),
                                        prep["host_f32"].to(self.device, non_blocking=True))
             out = run_chunk(self.model, self.paged_cache, views, self._chain, noise, n,
-                            variant=variant, state=self._extras, lp_k=self._lp_k)
+                            variant=variant, state=self._extras, lp_k=self._lp_k,
+                            tables=(self._guided_tables_of(variant.guided)
+                                    if variant.guided else None),
+                            gchain=self._gchain)
+            if variant.guided:
+                out, gstate = out
+                self._gchain = gstate
             self._chain = (out[0] if variant.lp else out)[:, -1]
         out, lp = (out[0], out[1]) if variant.lp else (out, None)
         tokens, ready = out, None
@@ -2270,6 +2692,10 @@ class LLMEngineCore:
                 for dst, src in zip(host_lp, lp):
                     dst.copy_(src, non_blocking=True)
                 lp = host_lp
+            if gstate is not None:
+                host_g = torch.empty(gstate.shape, dtype=gstate.dtype, pin_memory=True)
+                host_g.copy_(gstate, non_blocking=True)
+                gstate = host_g
             ready = torch.cuda.Event()
             ready.record(self._stream)
         self.counters["decode_steps"] += n
@@ -2278,7 +2704,7 @@ class LLMEngineCore:
         self._hist_dispatch.observe((time.perf_counter() - t0) * 1e3)
         return _InFlightChunk(seq=prep["seq"], active_mask=prep["active_mask"],
                               tokens=tokens, ready=ready, exhausted=prep["exhausted"],
-                              epoch=prep["epoch"], lp=lp)
+                              epoch=prep["epoch"], lp=lp, gstate=gstate)
 
     def _capture(self, variant: ChunkVariant) -> None:
         """Capture a decode-chunk variant: inside ``warmup()`` in the
@@ -2301,8 +2727,8 @@ class LLMEngineCore:
     def _capture_graphs(self) -> None:
         """Capture the plain decode-chunk variants not captured yet
         (``warmup()``; nothing on the CPU or with ``cuda_graphs`` off). As
-        in the reference's sweep, the extras and logprob variants are
-        captured at their first use."""
+        in the reference's sweep, the extras, logprob and guided variants
+        are captured at their first use."""
         for greedy in (True, False):
             variant = ChunkVariant(greedy)
             if self._graphs is not None and not self._graphs.captured(variant):
@@ -2345,9 +2771,13 @@ class LLMEngineCore:
             # the rest of the chunk still emits
         chunk = entry.tokens.numpy()
         lp = None if entry.lp is None else tuple(t.numpy() for t in entry.lp)
+        gstate = None if entry.gstate is None else entry.gstate.numpy()
         slots = [int(s) for s in np.nonzero(entry.active_mask)[0]]
         for slot in slots:
             self._next_token[slot] = int(chunk[slot, -1])
+            if gstate is not None and self._slot_req[slot] is not None:
+                # a slot freed since the dispatch keeps its cleared state
+                self._gstate[slot] = int(gstate[slot])
         for slot in slots:
             request = self._slot_req[slot]
             want_lp = lp is not None and request is not None and request.logprobs is not None
@@ -2438,6 +2868,7 @@ class LLMEngineCore:
                 request.error = err
                 request.out_queue.put_nowait(_FINISHED)
                 self._slot_req[slot] = None
+                self._release_guided(slot, request)
                 # the pages stay: a chunk in flight may still write them;
                 # _finish_recovery frees them once the card is done
         self._last_progress = time.monotonic()
@@ -2526,13 +2957,16 @@ class LLMEngineCore:
                 self.paged_cache.pool.free(slot)
 
     def _reset_device_chains(self) -> None:
-        """Forget the device-resident token chain: the next dispatch takes
-        every slot's token from the host mirror."""
+        """Forget the device-resident token and DFA-state chains: the next
+        dispatch takes every slot's token and state from the host
+        mirrors."""
         self._slot_overrides[:] = True
+        self._gchain_epoch = None
 
     def _fail_slot(self, slot: int, err: BaseException) -> None:
         request = self._slot_req[slot]
         self._slot_req[slot] = None
+        self._release_guided(slot, request)
         self._free_slot_pages(slot)
         if request is not None:
             request.error = err
@@ -2542,6 +2976,7 @@ class LLMEngineCore:
     def _finish_slot(self, slot: int, request: GenRequest) -> None:
         request.out_queue.put_nowait(_FINISHED)
         self._slot_req[slot] = None
+        self._release_guided(slot, request)
         try:
             # chaos seam: a raise models a teardown that loses the slot's
             # page references; the armed sanitizer names them at drain
@@ -2594,12 +3029,16 @@ class LLMEngineCore:
         """Admission into free slots under the ragged scheduler, in the
         queue's class order: each request opens a job whose prompt rides
         the loop's launches as chunk rows (the reference's
-        ``_ragged_admission_task`` and ``_start_ragged_job``; the port has
-        no worker-thread preparation, so the job opens at once, and the
+        ``_ragged_admission_task`` and ``_start_ragged_job``; the port's
+        only worker-thread preparation is a guided request's grammar
+        compile (``_start_grammar_prep``), whose job opens at a later turn
+        into the slot it reserved; any other job opens at once, and the
         ``engine.prefill`` seam fires here). A prefix-cache hit maps its
         shared pages into the slot by reference and opens the job at the
         prefix's end: its chunk rows read the mapped pages through the
         ragged kernel, and only the tail gets new pages."""
+        for request, slot in self._take_prepped():
+            self._open_ragged_job(request, slot)
         free = [i for i, r in enumerate(self._slot_req)
                 if r is None and i not in self._admitting and i not in self._quarantine]
         while free and not self._pending.empty() and not self._stopped:
@@ -2612,19 +3051,33 @@ class LLMEngineCore:
             if request._parked is not None:
                 self._resume_slot(request, slot)
                 continue
-            try:
-                pos = self._start_ragged_job(request, slot)
-            except Exception as ex:
-                # the slot's table is authoritative: a free reclaims what a
-                # hit mapped into it before the failure, nothing otherwise
-                self._free_ragged_slot(slot)
-                request.error = ex
-                request.out_queue.put_nowait(_FINISHED)
-                free.insert(0, slot)
+            if self._needs_grammar_compile(request):
+                self._start_grammar_prep(request, slot)
                 continue
-            self._admitting.add(slot)
-            self._prefill_jobs.append(_RaggedJob(request=request, slot=slot, pos=pos))
-            self._last_progress = time.monotonic()
+            if not self._open_ragged_job(request, slot):
+                free.insert(0, slot)
+
+    def _open_ragged_job(self, request: GenRequest, slot: int) -> bool:
+        """Open one request's job in a free slot (its grammar, if any,
+        already compiled: the registry reference is taken here if the prep
+        did not take it); False when it failed and the slot is free
+        again."""
+        try:
+            if request.guided is not None and request._guided_key is None:
+                self._ensure_grammar(request)
+            pos = self._start_ragged_job(request, slot)
+        except Exception as ex:
+            # the slot's table is authoritative: a free reclaims what a
+            # hit mapped into it before the failure, nothing otherwise
+            self._deref_guided_request(request)
+            self._free_ragged_slot(slot)
+            request.error = ex
+            request.out_queue.put_nowait(_FINISHED)
+            return False
+        self._admitting.add(slot)
+        self._prefill_jobs.append(_RaggedJob(request=request, slot=slot, pos=pos))
+        self._last_progress = time.monotonic()
+        return True
 
     def _start_ragged_job(self, request: GenRequest, slot: int) -> int:
         """The prompt position a ragged job opens at: a prefix-cache hit
@@ -2659,6 +3112,7 @@ class LLMEngineCore:
         if job in self._prefill_jobs:  # identity (dataclass eq=False)
             self._prefill_jobs.remove(job)
         self._admitting.discard(job.slot)
+        self._deref_guided_request(job.request)
         if err is not None:
             job.request.error = err
         job.request.out_queue.put_nowait(_FINISHED)
@@ -2687,11 +3141,11 @@ class LLMEngineCore:
         """(greedy, sampled) slot masks of verify rows: greedy rows
         (temperature 0) replay exactly through argmax acceptance; sampled
         rows (temperature > 0) need ``spec_sampling``'s rejection
-        sampling. A slot with sampling extras or logprobs rides the launch
-        as a plain decode row instead, sampled with the chunk's semantics
-        (the reference's exclusions)."""
+        sampling. A slot with sampling extras, a grammar or logprobs rides
+        the launch as a plain decode row instead, sampled with the chunk's
+        semantics (the reference's exclusions)."""
         lp_free = np.array([r is None or r.logprobs is None for r in self._slot_req])
-        clean = active_mask & ~self._slot_extra & lp_free
+        clean = active_mask & ~self._slot_extra & (self._gstate < 0) & lp_free
         greedy = clean & (self._temperature == 0.0)
         sampled = (clean & (self._temperature > 0.0) if self._spec_sampling
                    else np.zeros_like(greedy))
@@ -2881,12 +3335,18 @@ class LLMEngineCore:
             extras_rows = extras_host_rows(self.max_batch)
             self._batch_extras_rows(extras_rows, plain_mask)
         want_lp = self._wants_logprobs(decode_mask)
+        # guided plain rows: the grammar tables of the state bucket, and the
+        # rows' DFA states from the host mirror (the pipeline is drained)
+        gbucket = (self._guided_device_tables()
+                   if (self._gstate[decode_mask] >= 0).any() else 0)
         return {
             "decode_mask": decode_mask,
             "shares": shares,
             "budget": budget,
             "extras_rows": extras_rows,
             "want_lp": want_lp,
+            "gbucket": gbucket,
+            "gstate": self._gstate.copy() if gbucket else None,
             "sampling": self._sampling(),
             # plain sampling serves the plain decode rows only
             "all_greedy": not (self._temperature[plain_mask] > 0).any(),
@@ -2931,12 +3391,18 @@ class LLMEngineCore:
             counters=t["counters"], min_new=t["min_new"], stop=t["stop"])
         return extras, t["active"]
 
-    def _sample_rows(self, logits, sampling, all_greedy, extras, mask, step: int, want_lp):
+    def _sample_rows(self, logits, sampling, all_greedy, extras, mask, step: int, want_lp,
+                     guided=None, gstate=None):
         """One sampling step of a ragged launch's plain rows (the
-        reference's ``_sample_rows``/``_chain_sample``): the penalized
-        sample with the seed counters offset by ``step``, the histogram
-        advanced for ``mask``'s rows, and the step's logprobs (or None)."""
+        reference's ``_sample_rows``/``_chain_sample``, the chunk body's
+        order): the grammar mask of the rows' DFA states ``gstate`` (with
+        ``guided`` tables), the penalized sample with the seed counters
+        offset by ``step``, the histogram advanced for ``mask``'s rows, the
+        states advanced for ``mask``'s rows, and the step's logprobs (or
+        None). Returns (tokens, logprobs, states)."""
         logits = logits.float()
+        if guided is not None:
+            logits = guided_mask(logits, gstate, guided[0])
         if extras is None:
             tok = sample_tokens(logits, sampling, generator=self._gen, all_greedy=all_greedy)
             lp_src = logits
@@ -2947,7 +3413,9 @@ class LLMEngineCore:
                                    all_greedy=all_greedy, extras=ex)
             self._extras.counts.scatter_add_(1, tok.long()[:, None],
                                              mask.to(torch.int32)[:, None])
-        return tok, (logprobs_of(lp_src, tok, self._lp_k) if want_lp else None)
+        if guided is not None:
+            gstate = guided_advance(gstate, tok, mask, *guided[1:])
+        return tok, (logprobs_of(lp_src, tok, self._lp_k) if want_lp else None), gstate
 
     def _ragged_drop_row(self, plan: dict, slot: int) -> None:
         """Worker-side removal of a row whose page extension failed: its
@@ -3131,7 +3599,14 @@ class LLMEngineCore:
         sampling, all_greedy = plan["sampling"], plan["all_greedy"]
         want_lp = plan["want_lp"]
         extras, active = self._ragged_extras(plan)
-        tok, lp = self._sample_rows(logits, sampling, all_greedy, extras, active, 0, want_lp)
+        guided = gstate = None
+        if plan["gbucket"]:
+            guided = self._guided_tables_of(plan["gbucket"])
+            gstate = on_dev(plan["gstate"])
+            # the plain rows of the launch, after any dropped row
+            active = on_dev(plan["decode_mask"] & ~spec_any)
+        tok, lp, gstate = self._sample_rows(logits, sampling, all_greedy, extras, active, 0,
+                                            want_lp, guided, gstate)
         steps, lps = [tok], [lp]
         if launch_steps > 1:
             chain_mask = on_dev(plan["chain_mask"])
@@ -3141,8 +3616,9 @@ class LLMEngineCore:
                     tok.long(), cache.k, cache.v, page_table, kv_lens + step,
                     wp[step], wo[step], **scale_kw,
                 )
-                sampled, lp = self._sample_rows(step_logits, sampling, all_greedy, extras,
-                                                chain_mask[step], step + 1, want_lp)
+                sampled, lp, gstate = self._sample_rows(
+                    step_logits, sampling, all_greedy, extras, chain_mask[step], step + 1,
+                    want_lp, guided, gstate)
                 tok = torch.where(chain_mask[step], sampled, tok)
                 steps.append(tok)
                 lps.append(lp)
@@ -3157,7 +3633,8 @@ class LLMEngineCore:
             rows[:len(finish)] = finish
             finish_logits = logits[on_dev(rows)]
         result = {"sampled": sampled, "logits": finish_logits, "finish_rows": finish,
-                  "spec_g": None, "spec_acc": None, "lp": None}
+                  "spec_g": None, "spec_acc": None, "lp": None,
+                  "gstate": None if gstate is None else gstate.cpu().numpy()}
         if want_lp:
             # step-major [S, B] (and [S, B, K]) on the host
             result["lp"] = tuple(torch.stack(part).cpu().numpy() for part in zip(*lps))
@@ -3245,9 +3722,12 @@ class LLMEngineCore:
             if self._slot_req[slot] is not None:
                 self._next_token[slot] = toks[-1]
 
+        gstate = result["gstate"]
         for slot in plain_slots:
             n = int(plan["row_steps"][slot])
             window_emit(slot, [int(sampled[i, slot]) for i in range(n)], with_lp=True)
+            if gstate is not None and self._slot_req[slot] is not None:
+                self._gstate[slot] = int(gstate[slot])
         accept_fracs = []
         for slot in spec_slots:
             acc = int(spec_acc[slot])
@@ -3283,11 +3763,13 @@ class LLMEngineCore:
             self._prefill_jobs.remove(job)
             self._admitting.discard(job.slot)
             if request.cancelled:
+                self._deref_guided_request(request)
                 request.out_queue.put_nowait(_FINISHED)
                 self.paged_cache.pool.free(job.slot)
                 continue
             err = self._deadline_error_at_commit(request)
             if err is not None:
+                self._deref_guided_request(request)
                 request.error = err
                 request.out_queue.put_nowait(_FINISHED)
                 self.paged_cache.pool.free(job.slot)

@@ -14,7 +14,7 @@ instrumented primitives) and a count. The engine then audits:
 - **at drain** (where the KV sanitizer audits): every ``drain_zero``
   resource must have no outstanding entry in the auditing engine's
   domains (slot pages, pins, hits, quarantine entries, promotions in
-  flight);
+  flight, grammar-registry references);
 - **always**: a release with nothing outstanding is a double free.
 
 In strict mode :meth:`OwnershipLedger.check` raises :class:`LedgerError`
@@ -70,6 +70,7 @@ RESOURCES: Dict[str, Dict[str, Any]] = {
     "host.pages": {"scope": "cache", "drain_zero": False},
     "slot.quarantine": {"scope": "engine", "drain_zero": True},
     "kv.promotion": {"scope": "engine", "drain_zero": True},
+    "guided.ref": {"scope": "request", "drain_zero": True},
 }
 
 # frames whose code lives in these basenames are the instrumented

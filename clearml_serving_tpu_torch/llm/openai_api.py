@@ -26,8 +26,16 @@ and the routes answer with the reference's response shapes:
   (``presence_penalty``, ``frequency_penalty``, ``repetition_penalty``),
   ``logit_bias``, ``seed``, ``min_tokens``, ``logprobs`` + ``top_logprobs``,
   ``prompt_logprobs``, ``return_tokens_as_token_ids``, ``response_role``,
-  ``priority``, ``timeout``, ``queue_timeout``, ``ttft_timeout``;
-- ``completions``: the same sampling fields, the polymorphic ``prompt``
+  ``priority``, ``timeout``, ``queue_timeout``, ``ttft_timeout``; guided
+  decoding (``response_format`` ``json_object``/``json_schema``, vLLM's
+  ``guided_regex``, ``guided_json`` and ``guided_choice``: the engine masks
+  every token by the compiled grammar, ``llm/guided.py``) and tools
+  (``tools``, ``tool_choice`` none/auto/required/forced,
+  ``parallel_tool_calls``; ``llm/tools.py``): required and forced compile
+  the tool-call JSON into the grammar, auto parses the finished text (and
+  holds back a possible call while streaming), and a parsed call answers
+  with ``tool_calls`` and ``finish_reason: "tool_calls"``;
+- ``completions``: the same sampling and guided fields, the polymorphic ``prompt``
   (text, texts, token ids, lists of token ids), ``logprobs`` as a count,
   ``echo``, ``best_of`` (ranked by cumulative logprob), and ``max_tokens:
   0`` (prompt scoring: ``echo`` + ``logprobs`` through the engine's
@@ -40,10 +48,9 @@ budget is a 429 or 408, never a mid-stream error. Text handling
 (stop-string trimming, streamed deltas, logprob entries, finish reasons)
 follows the reference line by line so that content is byte-identical.
 
-Guided decoding and tools (``response_format``, ``guided_*``, ``tools``,
-``tool_choice``, ``parallel_tool_calls``) are not ported yet and are
-refused by name; so is every other aux key and request field the port
-does not know. The router maps a ``ValueError`` to a 422.
+Every aux key and request field the port does not know is refused by
+name. The router maps a ``ValueError`` to a 422: a malformed grammar or
+schema is one, before any stream header.
 """
 
 from __future__ import annotations
@@ -62,7 +69,19 @@ from ..models.llama import Llama, init_params, resolve_config
 from ..ops.quant import detect_weight_quant, quantize_llama_params
 from ..version import __version__
 from .engine import PRIORITY_CLASSES, GenRequest, LLMEngineCore
+from .guided import GuidedSpec, _regex_escape_literal
 from .tokenizer import ByteTokenizer, token_repr, token_str
+from .tools import (
+    TOOL_TAG,
+    parse_tool_calls,
+    render_chat_with_tools,
+    resolve_tool_choice,
+    split_tag_holdback,
+    strip_tool_blocks,
+    tool_call_objects,
+    tool_call_schema,
+    validate_tools,
+)
 
 ENGINE_KEYS = (
     "preset", "arch", "config", "cache", "kv_quant", "max_batch", "max_seq_len",
@@ -83,12 +102,11 @@ _SAMPLING_FIELDS = (
     "stream", "stream_options", "n", "seed", "presence_penalty", "frequency_penalty",
     "repetition_penalty", "logit_bias", "min_tokens", "logprobs", "prompt_logprobs",
     "return_tokens_as_token_ids", "priority", "timeout", "queue_timeout", "ttft_timeout",
+    "response_format", "guided_choice", "guided_regex", "guided_json",
 )
-CHAT_FIELDS = _SAMPLING_FIELDS + ("messages", "top_logprobs", "response_role")
+CHAT_FIELDS = _SAMPLING_FIELDS + ("messages", "top_logprobs", "response_role", "tools",
+                                  "tool_choice", "parallel_tool_calls")
 COMPLETION_FIELDS = _SAMPLING_FIELDS + ("prompt", "echo", "best_of", "suffix")
-# guided decoding and tools: the reference's, not ported yet
-GUIDED_FIELDS = ("response_format", "guided_choice", "guided_regex", "guided_json", "tools",
-                 "tool_choice", "parallel_tool_calls")
 
 
 def _now() -> int:
@@ -237,6 +255,8 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
         cuda_graphs=cuda_graphs,
         # OpenAI's top_logprobs ceiling, as the reference reads it
         logprobs_k=int(engine_cfg.get("logprobs_k", 20)),
+        # guided decoding's token byte tables
+        tokenizer=tokenizer,
         # the request lifecycle, on by default at the serving front as in
         # the reference: bounded admission and a stall watchdog; 0/false
         # disables a knob
@@ -319,23 +339,17 @@ class LLMEngineRequest:
 
     @staticmethod
     def _check_fields(body: Dict[str, Any], allowed) -> None:
-        """Refuse, by name, the fields of guided decoding and tools, then
-        every field the route does not know."""
-        guided = sorted(k for k in GUIDED_FIELDS if body.get(k) is not None
-                        and not (k == "response_format" and isinstance(body[k], dict)
-                                 and body[k].get("type") in (None, "text")))
-        if guided:
-            raise ValueError(
-                "request fields {} (guided decoding and tools) are not supported by the "
-                "PyTorch port yet".format(guided))
-        unknown = sorted(k for k, v in body.items()
-                         if k not in allowed and k not in GUIDED_FIELDS and v is not None)
+        """Refuse, by name, every field the route does not know."""
+        unknown = sorted(k for k, v in body.items() if k not in allowed and v is not None)
         if unknown:
             raise ValueError(
                 "request fields {} are not supported by the PyTorch port yet".format(unknown))
 
     def _gen_request_from_body(self, body: Dict[str, Any], prompt_ids: List[int],
-                               chat: bool = True) -> GenRequest:
+                               chat: bool = True, guided_override=None) -> GenRequest:
+        """``guided_override``: a ``GuidedSpec`` that supersedes the body's
+        own ``response_format``/``guided_*`` (tool_choice required or
+        forced compiles the tool-call JSON into the grammar)."""
         logit_bias = body.get("logit_bias") or None
         if logit_bias is not None:
             logit_bias = {int(k): float(v) for k, v in logit_bias.items()}
@@ -360,6 +374,7 @@ class LLMEngineRequest:
             logit_bias=logit_bias,
             logprobs=logprobs,
             min_tokens=int(body.get("min_tokens", 0) or 0),
+            guided=guided_override or self._guided_spec(body),
             # lifecycle budgets in seconds (the engine's defaults apply
             # when absent); ``timeout`` bounds the whole request
             total_timeout=float(body["timeout"]) if body.get("timeout") is not None else None,
@@ -376,8 +391,44 @@ class LLMEngineRequest:
         request.tokens_as_ids = bool(body.get("return_tokens_as_token_ids"))
         return request
 
+    @staticmethod
+    def _guided_spec(body: Dict[str, Any]) -> Optional[GuidedSpec]:
+        """OpenAI ``response_format`` (``json_object``/``json_schema``) and
+        vLLM's ``guided_choice``/``guided_regex``/``guided_json`` as a
+        ``GuidedSpec`` (None: unconstrained), in the reference's order of
+        precedence."""
+        if body.get("guided_choice"):
+            choices = body["guided_choice"]
+            if not isinstance(choices, (list, tuple)) or not choices:
+                raise ValueError("guided_choice must be a non-empty list")
+            return GuidedSpec("regex", "({})".format(
+                "|".join(_regex_escape_literal(str(c)) for c in choices)))
+        if body.get("guided_regex"):
+            return GuidedSpec("regex", str(body["guided_regex"]))
+        if body.get("guided_json") is not None:
+            schema = body["guided_json"]
+            if isinstance(schema, str):
+                schema = json.loads(schema)
+            # no sort_keys: the properties' declaration order is the order
+            # the grammar emits them in
+            return GuidedSpec("json_schema", json.dumps(schema))
+        rf = body.get("response_format")
+        if not rf or isinstance(rf, str):
+            return None
+        kind = rf.get("type")
+        if kind == "json_object":
+            return GuidedSpec("json_object")
+        if kind == "json_schema":
+            schema = (rf.get("json_schema") or {}).get("schema")
+            if schema is None:
+                raise ValueError("response_format.json_schema.schema missing")
+            return GuidedSpec("json_schema", json.dumps(schema))
+        if kind in (None, "text"):
+            return None
+        raise ValueError("unsupported response_format type {!r}".format(kind))
+
     def _n_requests(self, body: Dict[str, Any], prompt_ids: List[int],
-                    chat: bool = True) -> List[GenRequest]:
+                    chat: bool = True, guided_override=None) -> List[GenRequest]:
         """OpenAI ``n`` choices: n independent requests through the batch; a
         seeded request's choice i takes seed + i, so choices differ."""
         n = int(body.get("n", 1) or 1)
@@ -385,7 +436,8 @@ class LLMEngineRequest:
             raise ValueError("n must be >= 1")
         requests = []
         for i in range(n):
-            r = self._gen_request_from_body(body, list(prompt_ids), chat=chat)
+            r = self._gen_request_from_body(body, list(prompt_ids), chat=chat,
+                                            guided_override=guided_override)
             if r.seed is not None and i:
                 r.seed = r.seed + i
             requests.append(r)
@@ -667,7 +719,23 @@ class LLMEngineRequest:
         ``stream`` is set (validated before the first line)."""
         self._check_fields(body, CHAT_FIELDS)
         messages = body.get("messages") or []
-        prompt = self.tokenizer.apply_chat_template(messages)
+        tool_mode, forced_tool = resolve_tool_choice(body)
+        # tool_choice "none" only prevents calling: the definitions stay in
+        # the prompt (a multi-turn history refers to them)
+        tools_render = validate_tools(body["tools"]) if body.get("tools") else []
+        tools = tools_render if tool_mode != "none" else []
+        tool_names = [t["name"] for t in tools]
+        guided_override = None
+        if tool_mode in ("required", "forced"):
+            # the arguments are enforced by construction: the tool-call JSON
+            # compiles into the decode grammar (no sort_keys: the name comes
+            # before the arguments)
+            guided_override = GuidedSpec(
+                "json_schema", json.dumps(tool_call_schema(tools, forced_tool)))
+        # OpenAI parallel_tool_calls (default true): false keeps one parsed
+        # call (required and forced emit exactly one by construction)
+        single_call = body.get("parallel_tool_calls") is False
+        prompt = render_chat_with_tools(self.tokenizer, messages, tools_render)
         prompt_ids = self.tokenizer.encode_chat(prompt)
         stops = self._stops_from_body(body)
         model = body.get("model", self.model_name)
@@ -689,10 +757,16 @@ class LLMEngineRequest:
         plp_n = self._prompt_logprobs_n(body)  # validated before any device work
         if body.get("stream") and plp_n is not None:
             raise ValueError("prompt_logprobs is not supported with streaming")
-        requests = self._n_requests(body, prompt_ids)
+        if body.get("stream") and tools and int(body.get("n", 1) or 1) != 1:
+            # the call sniffing and buffering is per-choice state
+            raise ValueError("streaming chat with tools supports a single choice (n=1)")
+        requests = self._n_requests(body, prompt_ids, guided_override=guided_override)
         self._admit_all(requests)
         await self._ensure_warm()
 
+        if body.get("stream") and tools:
+            return self._stream_tool_chat(requests[0], stops, tool_mode, tool_names,
+                                          single_call, role, chat_chunk, include_usage)
         if body.get("stream"):
             def chat_delta(i, req, piece):
                 choice = {"index": i, "delta": {"content": piece["delta"]},
@@ -727,13 +801,30 @@ class LLMEngineRequest:
             # one scoring pass, shared by the choices
             plp_payload = await asyncio.to_thread(self._prompt_logprobs_payload, prompt_ids,
                                                   plp_n)
-        choices = [{
-            "index": i,
-            "message": {"role": role, "content": res["text"]},
-            "finish_reason": res["finish_reason"],
-            "logprobs": (self._chat_logprobs(r, res["ids"]) if r.logprobs is not None
-                         else None),
-        } for i, (r, res) in enumerate(zip(requests, results))]
+        choices = []
+        for i, (r, res) in enumerate(zip(requests, results)):
+            choice = {
+                "index": i,
+                "message": {"role": role, "content": res["text"]},
+                "finish_reason": res["finish_reason"],
+                "logprobs": (self._chat_logprobs(r, res["ids"]) if r.logprobs is not None
+                             else None),
+            }
+            # a body's own guided response_format pins the output's shape:
+            # the JSON answer is the deliverable, not a tool call (streaming
+            # skips its call sniffing under the same condition)
+            parse_ok = tool_mode in ("required", "forced") or r.guided is None
+            if tools and parse_ok and res["finish_reason"] != "length":
+                calls = parse_tool_calls(res["text"], tool_names)
+                if calls and single_call:
+                    calls = calls[:1]
+                if calls:
+                    # prose around <tool_call> blocks stays as content
+                    prose = strip_tool_blocks(res["text"]) if TOOL_TAG in res["text"] else ""
+                    choice["message"] = {"role": role, "content": prose or None,
+                                         "tool_calls": tool_call_objects(calls)}
+                    choice["finish_reason"] = "tool_calls"
+            choices.append(choice)
         completion_tokens = sum(r.produced for r in requests)
         out = {
             "id": completion_id,
@@ -752,6 +843,143 @@ class LLMEngineRequest:
             # a top-level field in the chat shape (per choice in completions)
             out["prompt_logprobs"] = plp_payload
         return out
+
+    def _stream_tool_chat(self, request: GenRequest, stops: List[str], tool_mode: str,
+                          tool_names: List[str], single_call: bool, role: str, chat_chunk,
+                          include_usage: bool) -> AsyncIterator[str]:
+        """One streamed choice of a chat with tools (the reference's mode
+        machine): "buffer" withholds a certain or suspected tool call to
+        the end (required and forced always); "sniff" decides from the
+        first text whether it may grow into a call (auto, unless the body
+        pins a guided format); "watch" streams live while holding back a
+        possible ``<tool_call>`` tag (models narrate before calling); then
+        the parsed calls stream as ``tool_calls`` deltas with
+        ``finish_reason: "tool_calls"``, any prose around them as
+        content."""
+        buffer_all = tool_mode in ("required", "forced")
+        sniffing = tool_mode == "auto" and request.guided is None
+
+        def call_prefix(text):
+            """Could ``text`` still grow into a tool call? 'yes' (buffer to
+            the end), 'maybe' (keep sniffing), 'no' (flush)."""
+            s = text.lstrip()
+            if not s:
+                return "maybe"
+            if s.startswith(("{", "[", TOOL_TAG)):
+                return "yes"
+            if TOOL_TAG.startswith(s):
+                return "maybe"
+            return "no"
+
+        async def sse():
+            mode = "buffer" if buffer_all else ("sniff" if sniffing else "stream")
+            held: List[str] = []      # text awaiting the decision
+            stashed: List[dict] = []  # logprob entries withheld with it
+            watch_pending = ""        # the tag holdback in watch mode
+
+            def lp(entries):
+                return {"content": self._chat_lp_entries(
+                    entries, int(request.logprobs or 0),
+                    as_ids=getattr(request, "tokens_as_ids", False))}
+
+            def content_chunk(text, entries):
+                choice = {"index": 0, "delta": {"content": text}, "finish_reason": None}
+                if entries:
+                    # withheld entries ride the chunk that finally emits
+                    # their text: each is delivered once
+                    choice["logprobs"] = lp(entries)
+                return chat_chunk(choice)
+
+            def watch_emit(text):
+                """The emittable prefix of ``text``; a whole tool tag
+                switches to buffer mode, a partial one is held back."""
+                nonlocal mode, watch_pending, held
+                watch_pending += text
+                idx = watch_pending.find(TOOL_TAG)
+                if idx >= 0:
+                    emit = watch_pending[:idx]
+                    held = [watch_pending[idx:]]
+                    watch_pending = ""
+                    mode = "buffer"
+                    return emit
+                emit, watch_pending = split_tag_holdback(watch_pending)
+                return emit
+
+            try:
+                yield chat_chunk({"index": 0, "delta": {"role": role}, "finish_reason": None})
+                try:
+                    async for piece in self._stream_deltas(request, stops):
+                        entries = piece.get("entries") or []
+                        if mode in ("buffer", "sniff"):
+                            held.append(piece["delta"])
+                            stashed.extend(entries)
+                            if mode == "sniff":
+                                verdict = call_prefix("".join(held))
+                                if verdict == "yes":
+                                    mode = "buffer"
+                                elif verdict == "no":
+                                    mode = "watch"
+                                    text, held = "".join(held), []
+                                    emit = watch_emit(text)
+                                    if emit:
+                                        yield content_chunk(emit, stashed)
+                                        stashed = []
+                            continue
+                        if mode == "watch":
+                            emit = watch_emit(piece["delta"])
+                            stashed.extend(entries)
+                            if emit:
+                                yield content_chunk(emit, stashed)
+                                stashed = []
+                            continue
+                        choice = {"index": 0, "delta": {"content": piece["delta"]},
+                                  "finish_reason": None}
+                        if piece.get("entries") is not None:
+                            choice["logprobs"] = lp(piece["entries"])
+                        yield chat_chunk(choice)
+                except Exception as ex:
+                    yield _sse_error(ex)
+                    yield "data: [DONE]\n\n"
+                    return
+                finish = self._finish_reason(request)
+                text = "".join(held) + watch_pending
+                calls = (parse_tool_calls(text, tool_names)
+                         if text and finish != "length" else None)
+                if calls and single_call:
+                    calls = calls[:1]
+                if calls:
+                    prose = strip_tool_blocks(text) if TOOL_TAG in text else ""
+                    if prose:
+                        yield content_chunk(prose, stashed)
+                        stashed = []
+                    for ci, tc in enumerate(tool_call_objects(calls)):
+                        first = {"index": 0, "delta": {"tool_calls": [{
+                            "index": ci, "id": tc["id"], "type": "function",
+                            "function": {"name": tc["function"]["name"], "arguments": ""},
+                        }]}, "finish_reason": None}
+                        if ci == 0 and stashed:
+                            first["logprobs"] = lp(stashed)
+                            stashed = []
+                        yield chat_chunk(first)
+                        yield chat_chunk({"index": 0, "delta": {"tool_calls": [{
+                            "index": ci, "function": {"arguments": tc["function"]["arguments"]},
+                        }]}, "finish_reason": None})
+                    finish = "tool_calls"
+                elif text:
+                    yield content_chunk(text, stashed)
+                    stashed = []
+                yield chat_chunk({"index": 0, "delta": {}, "finish_reason": finish})
+                if include_usage:
+                    yield chat_chunk(None, usage={
+                        "prompt_tokens": request.prompt_len,
+                        "completion_tokens": request.produced,
+                        "total_tokens": request.prompt_len + request.produced})
+                yield "data: [DONE]\n\n"
+            finally:
+                # on completion and on a client disconnect: free the slot
+                request.cancel()
+
+        return sse()
 
     def _check_token_ids(self, ids: List[int]) -> List[int]:
         vocab = self.engine.model.vocab_size

@@ -25,6 +25,13 @@ graph, so a seeded request gives the JAX server's tokens whatever the
 batch around it; unseeded rows keep the engine generator's draws.
 ``logprobs_of`` gives the chosen token's logprob and the top-k over the
 penalized, unwarped logits (the reference's ``_lp_of``).
+
+Guided decoding (the reference engine's ``_guided_mask`` and
+``_guided_advance``): ``guided_mask`` keeps the token ids a slot's grammar
+state allows (a packed bit row of ``llm/guided.py``'s combined table) and
+fills the rest with -1e30, before the extras; ``guided_advance`` walks each
+sampled token's bytes through the byte DFA. Both are plain tensor ops, so
+the decode chunk's graph holds them.
 """
 
 from __future__ import annotations
@@ -338,3 +345,47 @@ def speculative_sample_chain(logits, drafts, params: SamplingParams, *,
     tokens = torch.cat([drafts.to(torch.int32), fallback[:, k:]], dim=1)
     tokens[torch.arange(b, device=dev), acc] = f_at
     return tokens, acc.to(torch.int32)
+
+
+# the fill of a token the grammar forbids: finite, as the reference's, so a
+# masked id's logprob entry is the reference's value, not -inf
+GUIDED_FILL = -1e30
+
+
+def guided_mask(logits: torch.Tensor, gstate: torch.Tensor,
+                mask_bits: torch.Tensor) -> torch.Tensor:
+    """Constrain logits [B, V] to the slots' grammar states (the
+    reference's ``_guided_mask``). ``gstate`` [B] int32 indexes the rows of
+    ``mask_bits`` [S, ceil(V/8)] uint8 (token v is bit v % 8 of byte v // 8),
+    clamped into them as JAX's gather clamps (a stale state of a larger
+    table reads a row, never past the buffer); a row with ``gstate < 0`` is
+    unguided. A row whose state allows nothing degrades to
+    unconstrained."""
+    b, v = logits.shape
+    rows = mask_bits[gstate.clamp(0, mask_bits.shape[0] - 1).long()]     # [B, Vb]
+    shifts = torch.arange(8, dtype=torch.uint8, device=logits.device)
+    bits = (rows[:, :, None] >> shifts) & 1
+    allowed = bits.reshape(b, -1)[:, :v] > 0
+    allowed = allowed | (gstate < 0)[:, None]
+    allowed = allowed | ~allowed.any(dim=-1, keepdim=True)
+    return torch.where(allowed, logits, torch.full_like(logits, GUIDED_FILL))
+
+
+def guided_advance(gstate: torch.Tensor, sampled: torch.Tensor, ok: torch.Tensor,
+                   byte_trans: torch.Tensor, tok_bytes: torch.Tensor,
+                   tok_len: torch.Tensor) -> torch.Tensor:
+    """The slots' next grammar states (the reference's ``_guided_advance``):
+    each sampled token's bytes ``tok_bytes`` [V, L] uint8 (``tok_len`` [V]
+    of them) walk ``byte_trans`` [S, 256] int16 in a fixed loop of L
+    gathers (states clamped into the table, as JAX's gather clamps);
+    zero-length tokens (EOS, specials) leave the state in place. Rows that
+    are unguided (``gstate < 0``) or not ``ok`` keep theirs."""
+    s = sampled.long()
+    tb = tok_bytes[s].long()                                            # [B, L]
+    tl = tok_len[s]                                                     # [B]
+    last = byte_trans.shape[0] - 1
+    cur = gstate.clamp(min=0)
+    for i in range(tok_bytes.shape[1]):
+        nxt = byte_trans[cur.clamp(0, last).long(), tb[:, i]].to(torch.int32)
+        cur = torch.where(tl > i, nxt, cur)
+    return torch.where((gstate >= 0) & ok, cur, gstate)

@@ -1483,3 +1483,162 @@ def test_commit_reset_beside_a_replay_in_flight(cuda):
         alone.stop()
         assert got == want and long_got == want_long
         assert [e["top_ids"] for e in entries] == [e["top_ids"] for e in solo.logprob_entries]
+
+
+# -- guided decoding: the guided variants of the chunk ------------------------------
+
+def _guided_tables(dev, vocab=512):
+    """Two grammars over the byte tokenizer in one combined table, padded to
+    its power-of-two bucket as the engine lays it out, with the token byte
+    arrays: (mask bits, byte table, token bytes, token lengths) on ``dev``,
+    the bucket, and each grammar's start state."""
+    import numpy as np
+
+    from clearml_serving_tpu_torch.llm import guided
+    from clearml_serving_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(vocab)
+    table = guided.token_byte_table(tok, vocab)
+    grams = [guided.compile_guided(guided.GuidedSpec("regex", "[a-z]{1,30}"), tok, vocab, 257,
+                                   token_bytes=table),
+             guided.compile_guided(guided.GuidedSpec("json_object"), tok, vocab, 257,
+                                   token_bytes=table)]
+    masks, bytes_, starts, offset = [], [], [], 0
+    for g in grams:
+        bt = g.byte_trans.astype(np.int32)
+        bytes_.append(np.where(bt == guided.DEAD, guided.DEAD, bt + offset).astype(np.int16))
+        masks.append(g.mask_bits)
+        starts.append(offset + g.start)
+        offset += g.n_states
+    bucket = 1
+    while bucket < offset:
+        bucket *= 2
+    mask = np.zeros((bucket, masks[0].shape[1]), np.uint8)
+    mask[:offset] = np.vstack(masks)
+    byte = np.full((bucket, 256), guided.DEAD, np.int16)
+    byte[:offset] = np.vstack(bytes_)
+    tb, tl = guided.build_token_byte_arrays(table)
+    tables = tuple(torch.from_numpy(a).to(dev) for a in (mask, byte, tb, tl))
+    return tables, bucket, starts
+
+
+GUIDED_VARIANTS = [dict(greedy=True), dict(greedy=False), dict(greedy=True, lp=True),
+                   dict(greedy=False, extras=True, seeded=True)]
+
+
+@pytest.mark.parametrize("variant", GUIDED_VARIANTS, ids=lambda v: "+".join(
+    k for k, on in v.items() if on and k != "greedy") + ("_greedy" if v["greedy"] else
+                                                        "_sampled"))
+def test_guided_variant_replay_is_bitwise_the_eager_chunk(cuda, variant):
+    """Each guided variant captured and replayed against ``run_chunk``
+    eagerly on cloned pools: the tokens, the DFA states (host overrides on
+    two rows, the device chain on the others), the state chain the replay
+    leaves, and every pool page bit for bit."""
+    from clearml_serving_tpu_torch.llm.decode_graph import ChunkVariant, DecodeGraphs, run_chunk
+
+    model = _small_model(cuda)
+    n = 4
+    tables, bucket, starts = _guided_tables(cuda)
+    key = ChunkVariant(**variant, guided=bucket)
+    cache, layout, i32, f32, chain, noise = _chunk_inputs(model, cuda, "", not key.greedy, n=n)
+    state = _extras_inputs(layout, i32, f32, model.vocab_size, cuda) if key.extras else None
+    v = layout.views(i32.numpy(), f32.numpy())
+    v["active"][:] = [1, 1, 1, 0]
+    v["override_gstate"][:] = [starts[0], starts[1], -1, -1]
+    v["override_gmask"][:] = [1, 1, 0, 0]
+    # rows 2 and 3 read the chain: a mid-grammar state, and an idle row's
+    gchain = torch.tensor([-1, -1, starts[1] + 1, starts[0]], dtype=torch.int32, device=cuda)
+    eager_cache = types.SimpleNamespace(kv_quant="", k=cache.k.clone(), v=cache.v.clone(),
+                                        k_scale=None, v_scale=None)
+    eager_state = (types.SimpleNamespace(counts=state.counts.clone(), bias=state.bias,
+                                         pmask=state.pmask) if state is not None else None)
+    eager, eager_g = run_chunk(model, eager_cache, layout.views(i32.to(cuda), f32.to(cuda)),
+                               chain, noise, n, variant=key, state=eager_state, lp_k=5,
+                               tables=tables, gchain=gchain)
+    graphs = DecodeGraphs(model, cache, layout, n, state_fn=lambda: state, lp_k=5,
+                          tables_fn=lambda b: tables)
+    graphs.chain.copy_(chain)
+    graphs.gchain.copy_(gchain)
+    graphs.capture(key)
+    out, out_g = graphs.replay(key, i32, f32, noise)
+    torch.cuda.synchronize()
+    got, want = (out[0], eager[0]) if key.lp else (out, eager)
+    assert torch.equal(got, want) and torch.equal(out_g, eager_g)
+    assert torch.equal(graphs.gchain, eager_g) and torch.equal(graphs.chain, want[:, -1])
+    if key.lp:
+        for a, b in zip(out[1], eager[1]):
+            assert torch.equal(a, b)
+    # the idle row kept its state
+    assert int(out_g[3]) == starts[0]
+    assert torch.equal(cache.k, eager_cache.k) and torch.equal(cache.v, eager_cache.v)
+
+
+def test_guided_mask_and_advance_on_the_card_equal_the_cpu(cuda):
+    from clearml_serving_tpu_torch.llm.sampling import guided_advance, guided_mask
+
+    tables, bucket, starts = _guided_tables(cuda)
+    cpu = tuple(t.cpu() for t in tables)
+    gen = torch.Generator().manual_seed(5)
+    logits = torch.randn(8, 512, generator=gen)
+    gstate = torch.randint(-1, bucket, (8,), generator=gen, dtype=torch.int32)
+    gstate[:2] = torch.tensor(starts, dtype=torch.int32)
+    sampled = torch.randint(0, 512, (8,), generator=gen, dtype=torch.int32)
+    ok = torch.rand(8, generator=gen) < 0.8
+    want_m = guided_mask(logits, gstate, cpu[0])
+    got_m = guided_mask(logits.to(cuda), gstate.to(cuda), tables[0])
+    assert torch.equal(got_m.cpu(), want_m)
+    want_a = guided_advance(gstate, sampled, ok, *cpu[1:])
+    got_a = guided_advance(gstate.to(cuda), sampled.to(cuda), ok.to(cuda), *tables[1:])
+    assert torch.equal(got_a.cpu(), want_a)
+
+
+def test_guided_tables_grow_beside_a_replay_in_flight(cuda):
+    """Depth 2 with graphs: a small grammar decodes, a second one is
+    appended to its bucket and a ``json_object`` grows the tables into a
+    larger one while chunks are in flight; every greedy stream equals the
+    eager depth-1 engine's, the guided variants were captured while
+    serving, and once the chunks that read the outgrown bucket have run its
+    buffers and graphs are gone."""
+    from clearml_serving_tpu_torch.llm.guided import GuidedSpec
+    from clearml_serving_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    specs = [GuidedSpec("regex", "[a-z]{1,40}"), GuidedSpec("regex", "(yes|no)"),
+             GuidedSpec("json_object")]
+    prompts = [[256] + [(11 * i + 5 * j) % 250 + 1 for j in range(20)] for i in range(3)]
+    outs, buckets = {}, {}
+    for arm, depth, graphs in (("eager", 1, False), ("graphs", 2, True)):
+        engine = LLMEngineCore(_small_model(cuda), max_batch=4, max_seq_len=128, page_size=16,
+                               eos_token_id=257, tokenizer=ByteTokenizer(512),
+                               pipeline_depth=depth, cuda_graphs=graphs)
+
+        async def run():
+            tasks = []
+            for spec, ids in zip(specs, prompts):
+                r = GenRequest(prompt_ids=list(ids), max_new_tokens=48, guided=spec)
+                tasks.append(asyncio.ensure_future(_stream(engine, r)))
+                while r.produced < 2 and not tasks[-1].done():
+                    await asyncio.sleep(0.001)
+            got = await asyncio.gather(*tasks)
+            await engine.wait_drained()
+            return got
+
+        seen = []
+        sync_tables = engine._guided_device_tables
+
+        def spy():
+            seen.append(sync_tables())
+            return seen[-1]
+
+        engine._guided_device_tables = spy
+        outs[arm] = asyncio.run(run())
+        buckets[arm] = sorted(set(seen))
+        engine._drop_outgrown_buckets()
+        assert list(engine._gdev) == [seen[-1]] and not engine._gstale
+        if graphs:
+            labels = [k for k in engine.health()["graph_variants"] if "guided" in k]
+            assert len(labels) >= 2 and engine.counters["serve_captures"] >= len(labels)
+            assert {v.guided for v in engine._graphs._graphs if v.guided} == {seen[-1]}
+        assert engine.health()["guided"]["refs"] == 0
+        engine.stop()
+    assert outs["graphs"] == outs["eager"]
+    assert len(buckets["graphs"]) >= 2 and buckets["graphs"] == buckets["eager"]

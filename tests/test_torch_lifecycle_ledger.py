@@ -46,9 +46,9 @@ from clearml_serving_tpu_torch.models.llama import Llama, convert_params
 TINY = {"preset": "llama-tiny", "dtype": "float32"}
 LEDGERS = {"jax": jax_ledger, "port": lifecycle_ledger}
 # the resources the port tracks: every one the reference tracks but the
-# fleet's, the transport's and guided decoding's
+# fleet's and the transport's
 PORT_RESOURCES = ("pages.slot", "pages.pin", "pages.ref", "prefix.hit", "prefix.resume_pin",
-                  "host.pages", "slot.quarantine", "kv.promotion")
+                  "host.pages", "slot.quarantine", "kv.promotion", "guided.ref")
 
 
 @pytest.fixture(scope="module")

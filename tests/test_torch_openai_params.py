@@ -10,8 +10,10 @@ llama-tiny float32 weights (the reference endpoint's parameters carried
 over by ``convert_params``); sampled cases are seeded, so the port must
 give the reference's tokens. Responses are held equal with ids and
 timestamps left out: content, token ids, offsets and statuses exactly,
-logprobs within 1e-5. The guided-decoding and tools fields stay refused
-by the port, by name."""
+logprobs within 1e-5. The guided-decoding and tools fields are served on
+chat as the reference serves them (``tests/test_torch_guided_api.py``
+holds their responses); the completions route refuses the tools fields
+by name."""
 
 import asyncio
 import json
@@ -303,23 +305,34 @@ def test_version_route(served):
     ("parallel_tool_calls", False),
 ])
 def test_guided_and_tools_fields_refused_by_name(served, field, value):
-    _run_jax, run_port = served
-    calls = [(CHAT, _chat(**{field: value})), (CMPL, _cmpl(**{field: value}))]
-    for status, _ in run_port(calls):
-        assert status == 422
+    """Chat answers each field with the reference's status (the guided
+    fields served; the tools' preamble outgrowing this engine's 128-token
+    context, and ``tool_choice`` without tools, refused as the reference
+    refuses them); completions serve the guided fields and refuse the tools
+    fields by name, fields of the chat route only."""
+    run_jax, run_port = served
+    chat = [(CHAT, _chat(max_tokens=2, **{field: value}))]
+    want, got = run_jax(chat), run_port(chat)
+    assert [s for s, _ in got] == [s for s, _ in want]
+    tool_field = field in ("tools", "tool_choice", "parallel_tool_calls")
+    if not tool_field:
+        assert got[0][0] == 200
 
     async def detail():
         engine, tok = build_engine(dict(ENGINE_CFG, max_seq_len=64), device="cpu")
         client = TestClient(TestServer(build_app(LLMEngineRequest(engine, tok, URL))))
         await client.start_server()
         try:
-            r = await client.post(CHAT, json=_chat(**{field: value}))
-            return (await r.json())["detail"]
+            r = await client.post(CMPL, json=_cmpl(max_tokens=2, **{field: value}))
+            return r.status, (await r.json())
         finally:
             await client.close()
 
-    text = asyncio.run(detail())
-    assert field in text and "guided decoding and tools" in text
+    status, payload = asyncio.run(detail())
+    if tool_field:
+        assert status == 422 and field in payload["detail"]
+    else:
+        assert status == 200 and payload["choices"][0]["text"] is not None
     # a text response_format is no constraint: served
     ok = run_port([(CHAT, _chat(max_tokens=2, response_format={"type": "text"}))])
     assert ok[0][0] == 200
