@@ -27,9 +27,10 @@ exits non-zero before the result lines are printed:
    unmasked launch's bits), timed beside the same launch without the mask
    and, at the verify launches, beside it with its key-range split off;
 3c. the w4a16 matmul kernel against its plain version at every Llama-3-8B
-   projection shape, M 1 and 8 (the decode tiling), 312 (the ragged flat
+   projection shape, M 1 and 8 (the decode tiling), 64, 256 (a chunked
+   prefill's segment, phase 12; not the lm_head), 312 (the ragged flat
    axis) and 2048 (the longest prefill bucket; not the lm_head, which a
-   prefill runs on the last row only; both through the block tiling), two
+   prefill runs on the last row only; all through the block tiling), two
    calls giving the same bits, timed beside its bound, the plain version, a
    bf16 ``torch.matmul`` on the dequantized weight and PyTorch's
    ``_weight_int4pack_mm``; then summed over one decode step's 225 calls
@@ -84,7 +85,7 @@ exits non-zero before the result lines are printed:
    preemption, brownout). 8 batch-class chats at 128 tokens alone, then with
    an interactive arrival (a preemption; every batch content must equal its
    unpreempted run), then on an engine with preemption off (the
-   interactive TTFT with and without preemption); 40 concurrent chats at 16
+   interactive TTFT with and without preemption); 48 concurrent chats at 16
    tokens (200s and 429s, each 429 with Retry-After and ``code:
    overloaded``, beside the observed admission drain rate); a 1 ms TTFT
    budget on a 2048-bucket prompt (408) and a 1 s ``timeout`` that cuts a
@@ -176,6 +177,32 @@ exits non-zero before the result lines are printed:
    counters and the trace's grids. Every grammar reference returns and
    the ledger has no drain-zero entry left at each drain.
 
+12. the two-dispatch admission as the reference runs it: each admission
+   prefills in a worker beside the decode chunks, its first token and mini
+   cache committed at the next chunk boundary, the prefill gate pacing its
+   dispatches. Llama-3-8B at full width (seed-0 weights), two-dispatch at
+   depth 2 with graphs, max_batch 8. 12a, bf16 KV, on one engine: seven
+   ~100-token chats decode 256 tokens each; once all decode, a
+   1536-token prompt (bucket 2048) is admitted, in three arms: the gate
+   off, the default gate (2 segments per decode chunk) and the gate with
+   ``chunked_prefill`` 256. Per arm: the live rows' worst and median
+   emission gap inside the admission window, the admitted prompt's TTFT,
+   the live rows' tok/s, the pipeline's dispatch and retire ms and the
+   prefill dispatches between decode chunks (at most the budget in the
+   paced arms). The live rows' greedy streams are equal in every arm; the
+   chunked first-token logits within 5% of the one-dispatch prefill's.
+   Then a serve-time CUDA-graph capture (a seeded chat's variant) while
+   the admitted prompt prefills in 128-token segments: the capture holds,
+   and the live and seeded streams are as without it. 12b, int4 weights
+   with ``chunked_prefill`` 256 under 12a's traffic: every int4 launch is
+   a one-dispatch prefill's 225, a segment's 224 plus one lm_head, or a
+   replayed step's 225. 12c, the strict ledger and the KV sanitizer with
+   the prefix cache: the admitted prompt hits a stored 1024-token head and
+   prefills its 512-token tail in 8 paced segments; the drain audits are
+   clean. Prints the peak of ``max_memory_allocated``. The parent's serial
+   admission under 12a's traffic is measured by
+   ``scripts/admission_ab.py --baseline DIR`` in the same call.
+
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, and the ragged kernel's tree variant) and
 ``{"ok": true, "device": {...}}``. Timings are CUDA-event
@@ -209,6 +236,21 @@ def log(*parts) -> None:
 def sync() -> None:
     if torch.device(DEV).type == "cuda":
         torch.cuda.synchronize()
+
+
+# seconds between the last synchronize and a profiler's stop: kineto drops
+# as out of range the GPU records it places after the stop, and a stop
+# right after the synchronize lost the last replay's kernels (traces 10-68
+# grids short of the counts, "Out-of-range = 560" and 858 records)
+PROFILE_TAIL_S = 0.1
+
+
+def stop_profiler(profiler) -> None:
+    """Stop a profiler once the card has run everything enqueued, with
+    ``PROFILE_TAIL_S`` of margin so its last kernels stay in the trace."""
+    sync()
+    time.sleep(PROFILE_TAIL_S)
+    profiler.stop()
 
 
 def card_line() -> str:
@@ -884,15 +926,16 @@ INT4_SHAPES = {
 }
 INT4_PRIMARY = ("w_gate/w_up", 8)   # the kernels line's headline call
 # one decode row; a decode batch; the shortest prefill bucket (the block
-# tiling's 64-token instance); the ragged flat axis; the longest prefill
-# bucket
-INT4_ROWS = (1, 8, 64, 312, 2048)
+# tiling's 64-token instance); a chunked-prefill segment (phase 12's
+# chunked_prefill 256); the ragged flat axis; the longest prefill bucket
+INT4_ROWS = (1, 8, 64, 256, 312, 2048)
+INT4_SEGMENT_ROWS = 256
 
 
 def int4_rows(name, rows=INT4_ROWS):
-    """The row counts the main path gives a projection: a prefill takes
-    the lm_head on its last row only."""
-    return [m for m in rows if name != "lm_head" or m <= 312]
+    """The row counts the main path gives a projection: a prefill, and a
+    chunked prefill's segment, takes the lm_head on its last row only."""
+    return [m for m in rows if name != "lm_head" or (m <= 312 and m != INT4_SEGMENT_ROWS)]
 
 
 def int4_bound(m, k, n, groups):
@@ -1503,8 +1546,7 @@ async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None, prompt
             wall = time.perf_counter() - t0
             await engine.wait_drained()
             if profiler is not None:
-                sync()
-                profiler.stop()
+                stop_profiler(profiler)
             launches = paged_attention.launches
             counters = dict(engine.counters, ttft_ms=sorted(engine.ttft_ms),
                             int4_launches=fused_int4_matmul.launches,
@@ -1835,8 +1877,7 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None, prompts=
             wall = time.perf_counter() - t0
             await engine.wait_drained()
             if profiler is not None:
-                sync()
-                profiler.stop()
+                stop_profiler(profiler)
             counters = dict(engine.counters, ttft_ms=list(engine.ttft_ms),
                             step_rows=dict(engine.step_rows),
                             paged_launches=paged_attention.launches,
@@ -2268,6 +2309,9 @@ def phase_pipeline_arms(params, preset: str = "llama3-8b", traffics=PIPELINE_TRA
 # -- phase 7: the request lifecycle of the default route ------------------------
 
 LIFECYCLE_PROMPT = "Write a short story about a lighthouse keeper and a storm."
+# the overload burst: the default admission bound (32 queued) and the 8
+# slots that admissions take at once, then 8 more that must shed
+LIFECYCLE_BURST = 48
 BATCH_PROMPTS = ["Batch job {}: describe the paged KV cache and its page table.".format(i)
                  for i in range(8)]
 
@@ -2381,7 +2425,7 @@ async def preemption_run(engine, s, base, interactive: bool) -> dict:
 
 async def default_engine_runs(engine, tokenizer, card: str) -> dict:
     """On one app: the preemption runs (8 batch chats alone, then with an
-    interactive arrival), 40 concurrent chats at 16 tokens under the
+    interactive arrival), 48 concurrent chats at 16 tokens under the
     default admission bound, a 1 ms TTFT budget on a 2048-bucket prompt, a
     total budget that cuts a stream, then the drain with 4 streams in
     flight."""
@@ -2403,24 +2447,25 @@ async def default_engine_runs(engine, tokenizer, card: str) -> dict:
             raise AssertionError("a preempted batch stream left its unpreempted run")
         t0 = time.perf_counter()
         burst = await asyncio.gather(*[lifecycle_chat(s, base, PROMPTS[i % len(PROMPTS)], 16)
-                                       for i in range(40)])
+                                       for i in range(LIFECYCLE_BURST)])
         burst_s = time.perf_counter() - t0
         times = list(engine._admit_times)
         drain_rate = (len(times) - 1) / (times[-1] - times[0]) if len(times) > 1 else None
         ok = [b for b in burst if b["status"] == 200]
         shed = [b for b in burst if b["status"] == 429]
-        if len(ok) + len(shed) != 40 or not 1 <= len(shed) <= 8:
-            raise AssertionError("overload: {} x 200, {} x 429 of 40 (other: {})".format(
-                len(ok), len(shed), [b["status"] for b in burst]))
+        bound = engine.max_pending
+        if len(ok) + len(shed) != LIFECYCLE_BURST or not 1 <= len(shed) <= LIFECYCLE_BURST - bound:
+            raise AssertionError("overload: {} x 200, {} x 429 of {} (other: {})".format(
+                len(ok), len(shed), LIFECYCLE_BURST, [b["status"] for b in burst]))
         if any(b["code"] != "overloaded" or not b["retry_after"] or int(b["retry_after"]) < 1
                for b in shed):
             raise AssertionError("a 429 without Retry-After or code overloaded: {}".format(shed))
         if any(b["tokens"] != 16 for b in ok):
             raise AssertionError("a served chat stopped short of 16 tokens")
         retry_after = sorted(int(b["retry_after"]) for b in shed)
-        log("  overload: 40 concurrent chats -> {} x 200, {} x 429 in {:.3f} s; Retry-After "
+        log("  overload: {} concurrent chats -> {} x 200, {} x 429 in {:.3f} s; Retry-After "
             "{} s beside the observed admission drain rate {} /s ({})".format(
-                len(ok), len(shed), burst_s, retry_after,
+                LIFECYCLE_BURST, len(ok), len(shed), burst_s, retry_after,
                 None if drain_rate is None else round(drain_rate, 3), card))
         await engine.wait_drained()
         # a 1 ms TTFT budget cannot hold a 2048-bucket prefill
@@ -2649,11 +2694,31 @@ def wave_sharing(engine, head_pages) -> dict:
                 used=used, union=len(union), pages_saved=saved, free_pages=pool.free_pages)
 
 
+def commit_together(engine) -> None:
+    """Two-dispatch admissions prefill in workers and commit as they land;
+    from here on, the engine commits only once every admission in flight
+    has landed, all at one boundary and in slot order, so a concurrent wave
+    goes live together, with page ids that do not depend on which prefill
+    landed first."""
+    commit = engine._commit_ready
+
+    def together():
+        if engine._ready and len(engine._ready) == len(engine._admitting):
+            landed = sorted(engine._ready, key=lambda item: item[1])
+            engine._ready.clear()
+            engine._ready.extend(landed)
+            commit()
+
+    engine._commit_ready = together
+
+
 async def prefix_arm_run(engine, head, prompts, logits_prompt=None) -> dict:
     """A throwaway cold + hit pair on another head (first-use costs), the
     cache emptied; then the first prompt alone (a miss and a store), the 7
-    others concurrently (the hits), the first again (a hit on its own
-    stored run), the cache emptied again."""
+    others concurrently (the hits, committed together: ``commit_together``),
+    the first again (a hit on its own stored run), the cache emptied
+    again."""
+    commit_together(engine)
     cache = engine._prefix
     warm_head, warm = prefix_traffic(1)
     await _ids_stream(engine, warm[0], 4)
@@ -4031,6 +4096,9 @@ async def guided_11c_pass(engine, tokenizer, profiler) -> dict:
             await engine.wait_drained()
             if torch.device(DEV).type == "cuda":
                 torch.cuda.synchronize()
+                if profiler is not None:
+                    # the last kernels stay in the trace (``stop_profiler``)
+                    time.sleep(PROFILE_TAIL_S)
         c = dict(engine.counters)
         launches = _launch_counts()
         reg = check_registry(engine, "c")
@@ -4146,6 +4214,535 @@ def phase_guided(params, card: str, preset: str = "llama3-8b") -> dict:
     return dict(a, compile_ms=compile_ms, ragged=c, wall_s=wall)
 
 
+# -- phase 12: the two-dispatch admission beside decode --------------------------
+
+ADMIT_CHATS = [
+    "Write a haiku about the sea, then explain which image in it matters most to you.",
+    "Explain paged attention in two sentences for an engineer new to serving.",
+    "List three prime numbers larger than one hundred and say how you checked them.",
+    "What is the capital of France? Answer in one word, then say why it matters.",
+    "Describe a lighthouse keeper's evening routine in four short sentences please.",
+    "Give two reasons a serving engine batches requests, each in one sentence.",
+    "Name a river in Europe and a river in Asia, and compare their lengths briefly.",
+]
+ADMIT_LIVE_TOKENS = 256     # each live chat's tokens
+ADMIT_LONG = 1536           # the admitted prompt's tokens (prefill bucket 2048)
+ADMIT_LONG_TOKENS = 32
+ADMIT_CHUNK = 256           # chunked_prefill of the chunked arms
+ADMIT_HEAD = 1024           # 12c: the stored head the admitted prompt hits
+# arrivals closer than this (s) came from one retire: one emission
+ADMIT_EMISSION_S = 1e-3
+# 12a's arms on one engine: (label, prefill_segments_per_decode, chunked_prefill)
+ADMIT_ARMS = [("gate_off", 0, None), ("gate2", 2, None), ("gate2_chunked", 2, ADMIT_CHUNK)]
+ADMIT_LOGIT_TOL = 0.05      # the small-model tolerance of phase 4
+# the capture arm: a seeded sampled chat committed while the admitted prompt
+# still prefills (128-token segments, one per decode chunk)
+ADMIT_SEEDED = {"temperature": 0.8, "top_k": 40, "seed": 1234}
+
+
+def admission_traffic(tokenizer):
+    """12a's prompts: seven ~100-token chats through the chat template, and
+    the admitted prompt of ``ADMIT_LONG`` tokens (BOS and the notes'
+    bytes)."""
+    live = [tokenizer.encode_chat(tokenizer.apply_chat_template(
+        [{"role": "user", "content": text}])) for text in ADMIT_CHATS]
+    text = "Summarise these notes in one paragraph. " + _NOTES * 12
+    long_ids = [tokenizer.bos_token_id] + list(text.encode())[:ADMIT_LONG - 1]
+    return live, long_ids
+
+
+def timed_prefills(model) -> list:
+    """Wrap the model's prefill entry points (once) to record each call's
+    host ms: the enqueue of its launches, since no call waits for the card.
+    Returns the list the calls append to."""
+    if not hasattr(model, "_prefill_call_ms"):
+        model._prefill_call_ms = []
+        for name in ("prefill", "prefill_chunk"):
+            def timed(*args, _fn=getattr(model, name), **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    model._prefill_call_ms.append((time.perf_counter() - t0) * 1e3)
+
+            setattr(model, name, timed)
+    return model._prefill_call_ms
+
+
+def admission_recorder(engine, budget: int):
+    """Stand a recording gate in the engine's ``_prefill_gate``: every
+    prefill dispatch's acquisition ("P") and every deposit ("D", a decode
+    chunk retired) is appended under the gate's lock, so the record's
+    order is the order in which permits were taken and refreshed. With
+    ``budget`` 0 it never paces (the gate-off arm). ``calls`` are the host
+    ms of the model's prefill calls (``timed_prefills``). Returns it."""
+    from clearml_serving_tpu_torch.llm.engine import _PrefillGate
+
+    class Recorder(_PrefillGate):
+        def __init__(self):
+            super().__init__(max(1, budget))
+            self.events = []
+            self.calls = timed_prefills(engine.model)
+
+        def deposit(self):
+            with self._cond:
+                super().deposit()
+                self.events.append("D")
+
+        def acquire(self, bypass=False):
+            with self._cond:
+                if budget:
+                    super().acquire(bypass)
+                self.events.append("P")
+
+    engine._prefill_gate = Recorder()
+    return engine._prefill_gate
+
+
+def emissions(times: list) -> list:
+    """A row's emission times: the first arrival of each run of arrivals
+    closer than ``ADMIT_EMISSION_S`` (the tokens of one retired chunk)."""
+    out, last = [], None
+    for t in times:
+        if last is None or t - last > ADMIT_EMISSION_S:
+            out.append(t)
+        last = t
+    return out
+
+
+def max_run(events: str) -> int:
+    """The most prefill dispatches ("P") between two decode chunks ("D")."""
+    return max((len(run) for run in events.split("D")), default=0)
+
+
+async def admission_run(engine, request_cls, live, long_ids, recorder=None, seeded=None,
+                        capture_log=None) -> dict:
+    """12a's traffic on ``engine`` (an entry point a user calls,
+    ``generate``): the live chats decode ``ADMIT_LIVE_TOKENS`` each; once
+    every one has emitted a decode chunk, the long prompt is submitted
+    (greedy, ``ADMIT_LONG_TOKENS``), with ``seeded``'s prompt beside it
+    when given. Reads the live rows' emission gaps inside the admission
+    window (submission to the admitted prompt's first token), its TTFT,
+    the live rows' tok/s in the window and over the run, the pipeline's
+    dispatch and retire ms in the window, and the gate's record there."""
+    n = len(live)
+    rows = n + 1 + (seeded is not None)
+    arrivals = [[] for _ in range(rows)]
+    tokens = [[] for _ in range(rows)]
+
+    async def consume(i, ids, max_new, **kw):
+        async for t in engine.generate(request_cls(prompt_ids=list(ids),
+                                                   max_new_tokens=max_new, **kw)):
+            arrivals[i].append(time.perf_counter())
+            tokens[i].append(int(t))
+
+    tasks = [asyncio.ensure_future(consume(i, ids, ADMIT_LIVE_TOKENS))
+             for i, ids in enumerate(live)]
+    steps = engine.decode_steps
+    await until(lambda: all(len(a) > steps for a in arrivals[:n]), 300, "the live rows decoding")
+    pipe0 = engine.lifecycle_stats()["pipeline"]
+    if recorder is not None:
+        with recorder._cond:
+            recorder.events.clear()
+            recorder.calls.clear()
+    if capture_log is not None:
+        capture_log.clear()
+    t_submit = time.perf_counter()
+    if seeded is not None:
+        tasks.append(asyncio.ensure_future(consume(n + 1, seeded, ADMIT_LONG_TOKENS,
+                                                   **ADMIT_SEEDED)))
+    tasks.append(asyncio.ensure_future(consume(n, long_ids, ADMIT_LONG_TOKENS)))
+    await until(lambda: arrivals[n], 300, "the admitted prompt's first token")
+    t_first = arrivals[n][0]
+    pipe1 = engine.lifecycle_stats()["pipeline"]
+    events, calls = None, None
+    if recorder is not None:
+        with recorder._cond:
+            events = "".join(recorder.events)
+            calls = list(recorder.calls)
+    await asyncio.gather(*tasks)
+    await engine.wait_drained()
+    gaps, steady = [], []
+    for times in arrivals[:n]:
+        ems = emissions(times)
+        for a, b in zip(ems, ems[1:]):
+            (gaps if b > t_submit and a < t_first else steady).append((b - a) * 1e3)
+    window = t_first - t_submit
+    in_window = sum(1 for times in arrivals[:n] for t in times if t_submit <= t <= t_first)
+    live_times = [t for times in arrivals[:n] for t in times]
+
+    def mean_ms(key):
+        d = pipe1[key]["count"] - pipe0[key]["count"]
+        return (pipe1[key]["sum_ms"] - pipe0[key]["sum_ms"]) / d if d else None
+
+    gaps.sort()
+    return dict(
+        worst_gap_ms=max(gaps) if gaps else None,
+        median_gap_ms=gaps[len(gaps) // 2] if gaps else None,
+        steady_gap_ms=sorted(steady)[len(steady) // 2] if steady else None,
+        gaps_in_window=len(gaps), ttft_ms=window * 1e3,
+        live_tok_s_window=in_window / window,
+        live_tok_s=len(live_times) / (max(live_times) - min(live_times)),
+        dispatch_ms=mean_ms("dispatch_ms"), retire_ms=mean_ms("retire_ms"),
+        dispatch_ms_run=pipe1["dispatch_ms"]["sum_ms"] / max(1, pipe1["dispatch_ms"]["count"]),
+        retire_ms_run=pipe1["retire_ms"]["sum_ms"] / max(1, pipe1["retire_ms"]["count"]),
+        events=events, prefill_dispatches=events.count("P") if events is not None else None,
+        # host ms of each prefill call in the window (the enqueue of its
+        # launches beside the loop's threads)
+        prefill_call_ms=calls,
+        max_segments_between_chunks=max_run(events) if events else None,
+        tokens=tokens, captures_during=list(capture_log or ()))
+
+
+def log_admission(label: str, run: dict, card: str) -> None:
+    log("  {} ({}): admitted TTFT {:.2f} ms; live rows' emission gaps in the window: worst "
+        "{} ms, median {} ms ({} gaps; steady median {} ms; each emission up to 4 tokens); "
+        "live tok/s {:.1f} in the window, {:.1f} over the run; dispatch {} ms, retire {} ms in "
+        "the window ({:.2f}, {:.2f} over the run); prefill dispatches {} in the window, at most "
+        "{} between decode chunks ({})".format(
+            label, card, run["ttft_ms"], _r(run["worst_gap_ms"]), _r(run["median_gap_ms"]),
+            run["gaps_in_window"], _r(run["steady_gap_ms"]), run["live_tok_s_window"],
+            run["live_tok_s"], _r(run["dispatch_ms"]), _r(run["retire_ms"]),
+            run["dispatch_ms_run"], run["retire_ms_run"], run["prefill_dispatches"],
+            run["max_segments_between_chunks"], (run["events"] or "not recorded")[:80]))
+    if run.get("prefill_call_ms"):
+        log("    host ms of its prefill calls in the window: {}".format(
+            [round(ms, 1) for ms in run["prefill_call_ms"]]))
+
+
+def _r(x):
+    return None if x is None else round(x, 2)
+
+
+def check_admission_tokens(label: str, run: dict, n_live: int) -> None:
+    lens = [len(t) for t in run["tokens"]]
+    want = [ADMIT_LIVE_TOKENS] * n_live + [ADMIT_LONG_TOKENS] * (len(lens) - n_live)
+    if lens != want:
+        raise AssertionError("{}: token counts {}, want {}".format(label, lens, want))
+
+
+ADMIT_SLEEP_CYCLES = 1_000_000_000   # ~0.5 s of the card's clock, ahead of a timed prefill
+
+
+def prefill_costs(engine, ids: list, c: int) -> dict:
+    """The admitted prompt's prefill on the idle card, one dispatch and in
+    C-token segments (the engine's own ``_prefill_segments``): the host ms
+    to enqueue its launches and the device ms to run them. A ~0.5 s device
+    sleep goes first, so the launches queue up before the card reaches
+    them: the device ms then holds no host gap, and a host ms near the
+    sleep says the host waited for the card (its launch queue full)."""
+    from clearml_serving_tpu_torch.llm import shapes
+
+    n = len(ids)
+    bucket = shapes.bucket_for(n, engine._buckets, engine.max_seq_len)
+    tokens = torch.zeros((1, bucket), dtype=torch.long)
+    tokens[0, :n] = torch.as_tensor(ids)
+    tokens = tokens.to(DEV)
+    seq_lens = torch.tensor([n], dtype=torch.int32, device=DEV)
+    calls = {"one_dispatch": lambda: engine.model.prefill(tokens, seq_lens),
+             "chunked": lambda: engine._prefill_segments(
+                 engine.model.init_cache(1, -(-bucket // c) * c), ids, 0, c)}
+    out = {}
+    for label, call in calls.items():
+        with torch.no_grad():
+            call()                                   # allocator warm
+            sync()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(ADMIT_SLEEP_CYCLES)
+            start.record()
+            t0 = time.perf_counter()
+            call()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            end.record()
+            sync()
+        out[label] = dict(host_ms=host_ms, device_ms=start.elapsed_time(end))
+    return out
+
+
+def chunked_first_logits(engine, ids: list, c: int) -> dict:
+    """The admitted prompt's first-token logits through the engine's
+    chunked path (``_prefill_segments`` over ``init_cache`` of the bucket
+    rounded up to C) against its one-dispatch prefill, on the card."""
+    from clearml_serving_tpu_torch.llm import shapes
+
+    n = len(ids)
+    bucket = shapes.bucket_for(n, engine._buckets, engine.max_seq_len)
+    tokens = torch.zeros((1, bucket), dtype=torch.long)
+    tokens[0, :n] = torch.as_tensor(ids)
+    with torch.no_grad():
+        plain, _ = engine.model.prefill(tokens.to(DEV),
+                                        torch.tensor([n], dtype=torch.int32, device=DEV))
+        chunked, _ = engine._prefill_segments(engine.model.init_cache(1, -(-bucket // c) * c),
+                                              ids, 0, c)
+    plain, chunked = plain.float()[0], chunked.float()[0]
+    err = float((chunked - plain).abs().max())
+    return dict(max_abs_err=err, rel_err=err / float(plain.abs().max()),
+                top1_equal=bool(int(chunked.argmax()) == int(plain.argmax())))
+
+
+def arm_admission(engine, budget: int, chunk):
+    """Set one engine's admission knobs for an arm, as the constructor's
+    ``prefill_segments_per_decode`` (a recording gate, pacing at
+    ``budget``) and ``chunked_prefill_size``. Returns the recorder."""
+    engine._chunked = int(chunk or 0)
+    return admission_recorder(engine, budget)
+
+
+async def admission_12a(engine, tokenizer, card: str) -> dict:
+    from clearml_serving_tpu_torch.llm.engine import GenRequest
+    from clearml_serving_tpu_torch.ops.paged_attention import paged_attention
+
+    live, long_ids = admission_traffic(tokenizer)
+    await engine.warmup()
+    # first use of the chunked segments' shapes, before any measured arm;
+    # then the admitted prompt alone, with no decode beside it, each way
+    engine._chunked = ADMIT_CHUNK
+    async for _ in engine.generate(GenRequest(prompt_ids=long_ids, max_new_tokens=2)):
+        pass
+    await engine.wait_drained()
+    alone = {}
+    for label, chunk in (("one_dispatch", None), ("chunked", ADMIT_CHUNK)):
+        recorder = arm_admission(engine, 2, chunk)
+        recorder.calls.clear()
+        async for _ in engine.generate(GenRequest(prompt_ids=long_ids, max_new_tokens=1)):
+            pass
+        await engine.wait_drained()
+        alone[label] = dict(ttft_ms=engine.ttft_ms[-1], prefill_call_ms=list(recorder.calls))
+    log("  12a: the admitted prompt alone: one dispatch TTFT {:.2f} ms (its prefill call's host "
+        "ms {}), chunked {} TTFT {:.2f} ms (segments' host ms {}) ({})".format(
+            alone["one_dispatch"]["ttft_ms"],
+            [round(ms, 1) for ms in alone["one_dispatch"]["prefill_call_ms"]], ADMIT_CHUNK,
+            alone["chunked"]["ttft_ms"],
+            [round(ms, 1) for ms in alone["chunked"]["prefill_call_ms"]], card))
+    costs = None
+    if torch.device(DEV).type == "cuda":
+        costs = prefill_costs(engine, long_ids, ADMIT_CHUNK)
+        log("  12a: the admitted prompt's prefill on the idle card, its launches queued "
+            "behind a device sleep: one dispatch host {:.2f} ms, device {:.2f} ms; {} "
+            "segments of {} host {:.2f} ms, device {:.2f} ms ({})".format(
+                costs["one_dispatch"]["host_ms"], costs["one_dispatch"]["device_ms"],
+                -(-len(long_ids) // ADMIT_CHUNK), ADMIT_CHUNK, costs["chunked"]["host_ms"],
+                costs["chunked"]["device_ms"], card))
+    n_layers = engine.model.n_layers
+    runs = {}
+    for label, budget, chunk in ADMIT_ARMS:
+        recorder = arm_admission(engine, budget, chunk)
+        _zero_counts(engine)
+        run = await admission_run(engine, GenRequest, live, long_ids, recorder)
+        launches = paged_attention.launches
+        check_admission_tokens(label, run, len(live))
+        steps = engine.counters["decode_steps"]
+        # (the wrappers count CUDA launches only)
+        if steps == 0 or launches != n_layers * steps * (torch.device(DEV).type == "cuda"):
+            raise AssertionError("12a {}: paged_attention launched {} times for {} decode steps "
+                                 "of {} layers".format(label, launches, steps, n_layers))
+        if budget and run["max_segments_between_chunks"] > budget:
+            raise AssertionError("12a {}: {} prefill dispatches between two decode chunks, "
+                                 "budget {}: {}".format(label, run["max_segments_between_chunks"],
+                                                        budget, run["events"]))
+        want = -(-len(long_ids) // chunk) if chunk else 1
+        if run["prefill_dispatches"] != want:
+            raise AssertionError("12a {}: {} prefill dispatches in the window, want {}".format(
+                label, run["prefill_dispatches"], want))
+        run["launches"] = launches
+        run["serve_captures"] = engine.counters["serve_captures"]
+        log_admission("12a " + label, run, card)
+        runs[label] = run
+    base = runs[ADMIT_ARMS[0][0]]["tokens"]
+    for label, run in runs.items():
+        if run["tokens"][:len(live)] != base[:len(live)]:
+            raise AssertionError("12a {}: a live row's greedy stream differs from {}'s: {}".format(
+                label, ADMIT_ARMS[0][0], [first_token_difference(a, b) for a, b in
+                                          zip(base[:len(live)], run["tokens"][:len(live)])]))
+    if runs["gate2"]["tokens"][-1] != base[-1]:
+        raise AssertionError("12a: the admitted stream differs between gate_off and gate2")
+    logits = chunked_first_logits(engine, long_ids, ADMIT_CHUNK)
+    chunk_diff = first_token_difference(base[-1], runs["gate2_chunked"]["tokens"][-1])
+    log("  12a: live rows' greedy streams equal in every arm; the admitted stream's first "
+        "difference chunked vs unchunked: {}; its first-token logits chunked vs one dispatch: "
+        "max_abs_err {:.4e}, rel {:.4f} (tolerance {}), top-1 equal {} ({})".format(
+            chunk_diff, logits["max_abs_err"], logits["rel_err"], ADMIT_LOGIT_TOL,
+            logits["top1_equal"], card))
+    if not logits["rel_err"] <= ADMIT_LOGIT_TOL:
+        raise AssertionError("12a: chunked first-token logits off by {:.4f} of scale".format(
+            logits["rel_err"]))
+    # a serve-time capture (the seeded variant's first use) while the
+    # admitted prompt prefills in its worker: 128-token segments, one per
+    # decode chunk, so its train spans the seeded chat's commit
+    seeded, capture_log = live[-1], []
+    capture = engine._capture
+
+    def logged_capture(variant):
+        capture_log.append((variant.label(), bool(engine._admitting)))
+        capture(variant)
+
+    engine._capture = logged_capture
+    recorder = arm_admission(engine, 1, 128)
+    _zero_counts(engine)
+    cap = await admission_run(engine, GenRequest, live[:-1], long_ids, recorder,
+                              seeded=seeded, capture_log=capture_log)
+    engine._capture = capture
+    check_admission_tokens("12a capture", cap, len(live) - 1)
+    during = [label for label, admitting in cap["captures_during"] if admitting]
+    if engine._graphs is not None and not during:
+        raise AssertionError("12a capture: no capture while an admission prefilled: {}".format(
+            cap["captures_during"]))
+    if cap["tokens"][:len(live) - 1] != base[:len(live) - 1]:
+        raise AssertionError("12a capture: a live row's stream differs beside the capture")
+    alone = []
+    arm_admission(engine, 2, None)
+    async for t in engine.generate(GenRequest(prompt_ids=list(seeded),
+                                              max_new_tokens=ADMIT_LONG_TOKENS,
+                                              **ADMIT_SEEDED)):
+        alone.append(int(t))
+    await engine.wait_drained()
+    if cap["tokens"][-1] != alone:
+        raise AssertionError("12a capture: the seeded stream differs from its run alone at {}"
+                             .format(first_token_difference(cap["tokens"][-1], alone)))
+    log_admission("12a capture (chunked 128, budget 1, a seeded chat beside)", cap, card)
+    log("  12a capture: {} captured while an admission prefilled; the live rows' and the "
+        "seeded chat's streams as without it ({})".format(during, card))
+    for run in list(runs.values()) + [cap]:
+        run.pop("tokens")
+    return dict(runs=runs, alone=alone, costs=costs, capture=dict(cap, captured=during),
+                logits=logits,
+                chunked_first_difference=chunk_diff)
+
+
+async def admission_12b(engine, tokenizer, card: str) -> dict:
+    """12a's traffic on int4 weights with chunked prefill: every int4 launch
+    of the run is a one-dispatch prefill's 225, a chunked prefill's 224 per
+    segment and one lm_head, or a replay's 225 per step."""
+    from clearml_serving_tpu_torch.llm.engine import GenRequest
+    from clearml_serving_tpu_torch.ops.fused_matmul import fused_int4_matmul
+    from clearml_serving_tpu_torch.ops.paged_attention import paged_attention
+
+    live, long_ids = admission_traffic(tokenizer)
+    await engine.warmup()
+    recorder = arm_admission(engine, 2, ADMIT_CHUNK)
+    _zero_counts(engine)
+    fused_int4_matmul.launches = 0
+    run = await admission_run(engine, GenRequest, live, long_ids, recorder)
+    check_admission_tokens("12b", run, len(live))
+    c = dict(engine.counters)
+    segments = -(-len(long_ids) // ADMIT_CHUNK)
+    per_step = int4_launches_per_forward(engine.model)
+    # (no int4 launch off the card)
+    want = per_step * (len(live) + c["decode_steps"]) + (
+        (per_step - 1) * segments + 1 if per_step else 0)
+    got = fused_int4_matmul.launches
+    log("  12b int4 weights, chunked {}: fused_int4_matmul launches {} = {} x {} one-dispatch "
+        "prefills + ({} - 1) x {} segments + 1 lm_head + {} x {} decode steps in {} replays: "
+        "{}; paged_attention {} ({})".format(
+            ADMIT_CHUNK, got, per_step, len(live), per_step, segments, per_step,
+            c["decode_steps"], c["graph_replays"], "held" if got == want else "want {}".format(
+                want), paged_attention.launches, card))
+    if got != want or c["prefills"] != len(live) + 1:
+        raise AssertionError("12b: fused_int4_matmul launched {} times, want {} ({} prefills)"
+                             .format(got, want, c["prefills"]))
+    if run["max_segments_between_chunks"] > 2:
+        raise AssertionError("12b: {} segments between two decode chunks: {}".format(
+            run["max_segments_between_chunks"], run["events"]))
+    log_admission("12b int4 gate2_chunked", run, card)
+    run.pop("tokens")
+    return dict(run, int4_launches=got, segments=segments, replays=c["graph_replays"])
+
+
+async def admission_12c(engine, tokenizer, card: str) -> dict:
+    """12a's traffic under the strict ledger and the KV sanitizer with the
+    prefix cache: the admitted prompt hits a stored ``ADMIT_HEAD``-token
+    head and prefills its tail in ``prefix_block`` segments, paced by the
+    gate; the drain audits must be clean."""
+    from clearml_serving_tpu_torch.llm import lifecycle_ledger
+    from clearml_serving_tpu_torch.llm.engine import GenRequest
+
+    live, long_ids = admission_traffic(tokenizer)
+    engine._ledger.reset(strict=True)
+    await engine.warmup()
+    head = long_ids[:ADMIT_HEAD]
+    async for _ in engine.generate(GenRequest(prompt_ids=head + [7] * 64, max_new_tokens=2)):
+        pass
+    await engine.wait_drained()
+    hits0 = engine._prefix.stats()["hits"]
+    recorder = arm_admission(engine, 2, None)
+    _zero_counts(engine)
+    run = await admission_run(engine, GenRequest, live, long_ids, recorder)
+    check_admission_tokens("12c", run, len(live))
+    block = engine._prefix.block
+    segments = -(-(len(long_ids) - ADMIT_HEAD) // block)
+    engine._ledger.check("drain", drained=True, domains=engine._ledger_domains())
+    stats = engine._ledger.stats()
+    outstanding = {r: n for r, n in stats["outstanding"].items()
+                   if lifecycle_ledger.RESOURCES[r]["drain_zero"] and n}
+    hits = engine._prefix.stats()["hits"] - hits0
+    log("  12c strict ledger, prefix hit of {} tokens, tail {} tokens in {} segments of {}: "
+        "prefill dispatches {} in the window, at most {} between decode chunks; ledger leaks "
+        "{}, double releases {}, drain-zero outstanding {}, sanitizer failures {} ({})".format(
+            ADMIT_HEAD, len(long_ids) - ADMIT_HEAD, segments, block, run["prefill_dispatches"],
+            run["max_segments_between_chunks"], stats["leaks"], stats["double_releases"],
+            outstanding, engine._sanitizer.failures, card))
+    if hits < 1 or run["prefill_dispatches"] != segments or segments < 2:
+        raise AssertionError("12c: {} hits, {} prefill dispatches for {} tail segments".format(
+            hits, run["prefill_dispatches"], segments))
+    if stats["leaks"] or stats["double_releases"] or outstanding or engine._sanitizer.failures:
+        raise AssertionError("12c: the drain audit is not clean: {}".format(stats))
+    if run["max_segments_between_chunks"] > 2:
+        raise AssertionError("12c: {} segments between two decode chunks: {}".format(
+            run["max_segments_between_chunks"], run["events"]))
+    log_admission("12c hit tail", run, card)
+    run.pop("tokens")
+    return dict(run, hits=hits, segments=segments, leaks=stats["leaks"])
+
+
+def phase_admission(params, qparams, card: str, preset: str = "llama3-8b") -> dict:
+    """Phase 12: the two-dispatch admission beside decode (depth 2 with
+    graphs, max_batch 8): 12a's arms on one bf16 engine, the capture arm,
+    12b on int4 weights, 12c under the strict ledger with a prefix hit;
+    the peak of ``max_memory_allocated`` over the phase."""
+    from clearml_serving_tpu_torch.llm import lifecycle_ledger
+
+    t0 = time.perf_counter()
+    on_card = torch.device(DEV).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        base_mib = torch.cuda.memory_allocated() / 2 ** 20
+    engine, tokenizer = _engine(params, "", preset, pipeline_depth=2)
+    a = asyncio.run(admission_12a(engine, tokenizer, card))
+    # the peak over 12a's arms: the pools, the graphs, and the prefills'
+    # mini caches and activations beside live decode
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20 if on_card else None
+    del engine
+    release_card_memory()
+    split = {"12a": time.perf_counter() - t0}
+    engine, tokenizer = _engine(qparams, "", preset, pipeline_depth=2, weight_quant="int4",
+                                chunked_prefill=ADMIT_CHUNK)
+    b = asyncio.run(admission_12b(engine, tokenizer, card))
+    del engine
+    release_card_memory()
+    split["12b"] = time.perf_counter() - t0 - sum(split.values())
+    os.environ["TPUSERVE_LEDGER"] = "strict"
+    os.environ["TPUSERVE_SANITIZE"] = "1"
+    try:
+        engine, tokenizer = _engine(params, "", preset, pipeline_depth=2,
+                                    **PREFIX_KNOBS)
+        c = asyncio.run(admission_12c(engine, tokenizer, card))
+        del engine
+        release_card_memory()
+    finally:
+        os.environ.pop("TPUSERVE_LEDGER", None)
+        os.environ.pop("TPUSERVE_SANITIZE", None)
+        lifecycle_ledger.get().reset(strict=False)
+        lifecycle_ledger.disarm()
+    split["12c"] = time.perf_counter() - t0 - sum(split.values())
+    wall = time.perf_counter() - t0
+    log("  phase 12: {:.1f} s ({}); max_memory_allocated over 12a {} MiB, {} MiB above its "
+        "start ({})".format(wall, ", ".join("{} {:.1f} s".format(k, v) for k, v in split.items()),
+                            _r(peak_mib), _r(peak_mib - base_mib) if on_card else None, card))
+    return dict(a, int4=b, ledger=c, peak_mib=peak_mib,
+                peak_rise_mib=peak_mib - base_mib if on_card else None, wall_s=wall)
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -4165,12 +4762,29 @@ def llama3_8b_params() -> dict:
     return params
 
 
+KINETO_MAX_GPU_BUFFER_MB = 1024
+
+
+def kineto_config(root: str) -> None:
+    """Raise the profiler's cap on its GPU record buffers (kineto's
+    default, 128 MB, filled on phase 6's busiest passes: "Processed 647658
+    GPU records (128664512 bytes)", the records past it dropped) through a
+    config file in the checkout's ``build/``, read when the profiler
+    starts. An explicit ``KINETO_CONFIG`` wins."""
+    path = os.path.join(root, "build", "kineto.conf")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("ACTIVITIES_MAX_GPU_BUFFER_SIZE_MB={}\n".format(KINETO_MAX_GPU_BUFFER_MB))
+    os.environ.setdefault("KINETO_CONFIG", path)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a GPU",
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    kineto_config(os.path.dirname(os.path.abspath(__file__)))
     from clearml_serving_tpu_torch.models.llama import Llama
     from clearml_serving_tpu_torch.ops import _build
     from clearml_serving_tpu_torch.ops.quant import quantize_llama_params
@@ -4288,6 +4902,10 @@ def main() -> int:
         "width: regex, choice, JSON schema, json_object, tool_choice modes")
     guided = phase_guided(params, card)
     mark("11")
+    log("phase 12: the two-dispatch admission beside decode, llama3-8b full width: prefills "
+        "in admission workers, the prefill gate, chunked prefill")
+    admission = phase_admission(params, qparams, card)
+    mark("12")
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -4346,6 +4964,9 @@ def main() -> int:
         # ragged arm's chained steps (11c)
         "launches_guided": guided["paged_launches"],
         "launches_guided_ragged_path": guided["ragged"]["paged_launches"],
+        # phase 12a: decode replays beside admissions prefilling in workers
+        # (the gate at 2, chunked prefill 256)
+        "launches_admission": admission["runs"]["gate2_chunked"]["launches"],
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -4442,6 +5063,9 @@ def main() -> int:
         # phase 5c under phase 5's traffic with long prompts: 225 per forward call
         "launches": int4_runs[0]["int4_launches"],
         "launches_ragged_path": int4_runs[1]["int4_launches"],
+        # phase 12b: 12a's traffic on int4 weights with 256-token chunked
+        # prefill segments (M = 256) beside the decode replays
+        "launches_admission": admission["int4"]["int4_launches"],
         # counted in one replay of phase 5e's decode chunk on int4 weights
         "launches_per_replay": per_replay("fused_int4_matmul", "bf16", "int4"),
         "max_abs_err": int4k["err"],
@@ -4468,7 +5092,7 @@ def main() -> int:
                                   "int4_profile": int4_prof,
                                   "lifecycle": lifecycle, "prefix_cache": prefix,
                                   "kv_tier": tier, "sampling": sampling,
-                                  "guided": guided}))
+                                  "guided": guided, "admission": admission}))
     log("seconds by phase:", json.dumps(seconds))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)

@@ -59,6 +59,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import launch_counts
 from ..ops.fused_matmul import fused_int4_matmul
 from ..ops.paged_attention import paged_attention
 from .sampling import (
@@ -260,8 +261,9 @@ def run_chunk(model, cache, views, chain: torch.Tensor, noise: Optional[torch.Te
                         **kw)
 
 
-def _launch_counts():
-    return [fn.launches for fn in COUNTED_KERNELS]
+def _own_launches():
+    """This thread's counted launches of each of ``COUNTED_KERNELS``."""
+    return [launch_counts.own(fn) for fn in COUNTED_KERNELS]
 
 
 class DecodeGraphs:
@@ -277,7 +279,8 @@ class DecodeGraphs:
     The kernels' ``launches`` counts keep meaning kernels run on the card:
     a capture launches nothing, so its calls (and the warm-up run before
     it, set-up work) are taken back out, and each replay adds the counts
-    its capture recorded."""
+    its capture recorded. Both are the capturing thread's own calls
+    (``ops.launch_counts``): an admission worker may launch meanwhile."""
 
     def __init__(self, model, cache, layout: ChunkLayout, steps: int,
                  state_fn=None, lp_k: int = 1, tables_fn=None):
@@ -332,7 +335,7 @@ class DecodeGraphs:
         # the null page and adds nothing to the extras' histogram
         for name in ("page_table", "lengths0", "write_pages", "write_offsets", "active"):
             self.views[name].zero_()
-        before = _launch_counts()
+        before = _own_launches()
         # one eager run first, on a side stream: kernel loads, library
         # handles and workspaces are set up outside the capture
         side = torch.cuda.Stream(dev)
@@ -341,7 +344,7 @@ class DecodeGraphs:
             self._run(variant)
         stream.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        start = _launch_counts()
+        start = _own_launches()
         # the cycle collector stays off during the capture: a dead engine's
         # graphs and events it would free there release CUDA resources from
         # inside the capture, which invalidates it
@@ -353,9 +356,10 @@ class DecodeGraphs:
         finally:
             if gc_was_on:
                 gc.enable()
-        per_replay = [a - b for a, b in zip(_launch_counts(), start)]
-        for fn, count in zip(COUNTED_KERNELS, before):
-            fn.launches = count
+        now = _own_launches()
+        per_replay = [a - b for a, b in zip(now, start)]
+        for fn, was, count in zip(COUNTED_KERNELS, before, now):
+            launch_counts.add(fn, was - count)
         self._graphs[variant] = (graph, out, per_replay)
 
     def replay(self, greedy, host_i32: torch.Tensor, host_f32: torch.Tensor,
@@ -375,7 +379,7 @@ class DecodeGraphs:
             self.noise.copy_(noise)
         graph.replay()
         for fn, count in zip(COUNTED_KERNELS, per_replay):
-            fn.launches += count
+            launch_counts.add(fn, count)
         result = out
         if variant.guided:
             result, gstate = out

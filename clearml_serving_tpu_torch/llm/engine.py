@@ -56,10 +56,22 @@ emit. ``cuda_graphs=False`` launches a chunk's kernels one by one from
 Python instead: the eager arm that the card's checks hold the graphs
 against. On the CPU the worker thread carries the compute.
 
-``scheduler="two_dispatch"``: admission = one prefill of the prompt padded
-to its bucket, its K/V written into freshly allocated pages, and the first
-token sampled from the last prompt position (emitted at once: the client's
-first token).
+``scheduler="two_dispatch"``: each admission prefills in a background task
+(``_admission_task``) whose worker thread, on the engine's stream, runs the
+prompt's prefill at its bucket (with ``chunked_prefill_size`` C, a prompt
+longer than C in C-token ``prefill_chunk`` segments over a fresh dense
+mini cache) and samples the first token from the last prompt position; it
+touches no slot and no page. The task hands the first token and the mini
+cache to the ``_ready`` queue, and the loop commits them at its next chunk
+boundary, interactive first: the K/V is written into the slot's pages,
+the prompt stored in the prefix cache, the slot activated and the first
+token emitted. Decode chunks keep dispatching meanwhile. ``_PrefillGate``
+paces the prefill dispatches against them: while decode is active, at most
+``prefill_segments_per_decode`` segments (default 2; brownout stage 3: 1)
+enter the stream per retired chunk, a single-dispatch interactive
+admission bypasses it, and ``prefill_stall_timeout`` bounds a wait. One
+dispatch's launches enqueue under a lock, so they stay contiguous on the
+stream beside other admissions', as the reference's compiled dispatch is.
 
 Automatic prefix caching (``prefix_cache``, ``llm/prefix_cache.py``): a
 radix tree of block-aligned prompt prefixes whose nodes hold references on
@@ -499,8 +511,9 @@ class _BrownoutController:
 
     - 1: speculation parked;
     - 2: and batch-class ``max_new_tokens`` capped;
-    - 3: and the ragged admission budget shrunk, best-effort shed at the
-      door.
+    - 3: and the admission budget shrunk (the ragged step's token share,
+      or the two-dispatch prefill gate's segments per chunk), best-effort
+      shed at the door.
 
     Raising is immediate. Lowering needs the score below the stage's DOWN
     threshold, under its UP one, and ``dwell`` seconds since the last
@@ -539,11 +552,79 @@ class _BrownoutController:
         return self.stage
 
 
+class _PrefillGate:
+    """Decode-first pacing of the two-dispatch admission prefills (the
+    reference's ``_PrefillGate``).
+
+    Admission prefills run in worker threads beside the decode chunks, and
+    every dispatch lands on the engine's one stream: an unpaced segment
+    train would enqueue ahead of the next decode chunk and stretch the live
+    rows' inter-token gaps. While decode is active, at most
+    ``segments_per_chunk`` prefill dispatches enter the stream per decode
+    chunk: the loop ``deposit()``s that many permits at each retire, and an
+    admission thread ``acquire()``s one per dispatch.
+
+    ``stall_timeout`` bounds a wait the other way: when decode stops
+    depositing (the loop wedged), a waiting prefill proceeds after that many
+    seconds. It must exceed one decode chunk by far, or segments would time
+    out past the gate mid-chunk and void the bound."""
+
+    def __init__(self, segments_per_chunk: int = 2, stall_timeout: float = 2.0):
+        self._spc_cfg = max(1, int(segments_per_chunk))
+        self._spc = self._spc_cfg
+        self._stall_timeout = float(stall_timeout)
+        self._cond = threading.Condition()
+        self._permits = self._spc
+        self._active = False
+
+    def set_budget(self, segments_per_chunk: Optional[int]) -> None:
+        """Brownout's override of the per-chunk budget (stage 3 sets 1, so
+        decode slots drain ahead of new admissions); None restores the
+        configured value."""
+        with self._cond:
+            self._spc = (max(1, int(segments_per_chunk)) if segments_per_chunk
+                         else self._spc_cfg)
+            self._permits = min(self._permits, self._spc)
+            self._cond.notify_all()
+
+    def set_active(self, active: bool) -> None:
+        """Loop thread: whether decode has live slots; inactive opens the
+        gate."""
+        with self._cond:
+            self._active = bool(active)
+            if not self._active:
+                self._permits = self._spc
+                self._cond.notify_all()
+
+    def deposit(self) -> None:
+        """Loop thread: a decode chunk retired. Permits are set, never
+        accumulated: an idle stretch must not bank a burst for later."""
+        with self._cond:
+            self._permits = self._spc
+            self._cond.notify_all()
+
+    def acquire(self, bypass: bool = False) -> None:
+        """Admission thread: wait (boundedly) before one prefill dispatch.
+        ``bypass``: a single-dispatch interactive admission skips the
+        pacing, since one dispatch cannot train, and parking a first token
+        behind a batch admission's permit inverts priorities; an
+        interactive segment train is paced like any other."""
+        if bypass:
+            return
+        with self._cond:
+            if not self._active:
+                return
+            if self._permits <= 0:
+                self._cond.wait_for(lambda: self._permits > 0 or not self._active,
+                                    timeout=self._stall_timeout)
+            if self._permits > 0:
+                self._permits -= 1
+            # timed out without a permit: proceed (the starvation bound)
+
+
 # reference engine knobs this slice does not serve (each raises when set)
 UNSUPPORTED_KNOBS = (
-    "mesh", "long_prefill_threshold",
-    "long_bucket_step", "chunked_prefill_size", "prefill_segments_per_decode",
-    "prefill_stall_timeout", "lora_adapters", "replica",
+    "mesh", "long_prefill_threshold", "long_bucket_step", "lora_adapters", "replica",
 )
 
 
@@ -567,6 +648,14 @@ class LLMEngineCore:
         scheduler: Optional[str] = "two_dispatch",
         step_token_budget: Optional[int] = None,
         ragged_decode_steps: Optional[int] = None,
+        # two-dispatch admissions: prompts longer than chunked_prefill_size
+        # prefill in segments of that many tokens; the prefill gate admits
+        # prefill_segments_per_decode of them per decode chunk while decode
+        # is active (None/0: no gate), a wait bounded by
+        # prefill_stall_timeout seconds (None: 2.0)
+        chunked_prefill_size: Optional[int] = None,
+        prefill_segments_per_decode: Optional[int] = 2,
+        prefill_stall_timeout: Optional[float] = None,
         quantize: Optional[str] = None,
         weight_quant: Optional[str] = None,
         speculation: Optional[str] = None,
@@ -712,6 +801,16 @@ class LLMEngineCore:
                 "from decode_steps".format(self._ragged_decode_steps, self.decode_steps)
             )
         self._ragged_steps_cap = shapes.decode_steps_bucket(self._ragged_decode_steps)
+        # -- two-dispatch admission: chunked prefill and the prefill gate.
+        # The ragged scheduler builds no gate: its admissions ride the
+        # decode launches, paced by the step token budget
+        self._chunked = int(chunked_prefill_size or 0)
+        self._prefill_gate = (
+            _PrefillGate(int(prefill_segments_per_decode),
+                         **({"stall_timeout": float(prefill_stall_timeout)}
+                            if prefill_stall_timeout else {}))
+            if (prefill_segments_per_decode and not self._ragged) else None
+        )
         # -- speculation: verify rows of the ragged launches, with the
         # reference's knob checks and words
         if speculation:
@@ -812,6 +911,14 @@ class LLMEngineCore:
         self._promotion_reaps = 0
         self._gen = torch.Generator(self.device)
         self._gen.manual_seed(int(rng_seed))
+        # the generator is drawn from by the admission workers' first
+        # tokens and the decode dispatch's noise, on two threads
+        self._rng_lock = threading.Lock()
+        # the admission workers' counter updates
+        self._count_lock = threading.Lock()
+        # held by an admission worker while it enqueues one prefill
+        # dispatch (``_prefill_dispatch``)
+        self._prefill_lock = threading.Lock()
         # the sampling extras: the logprob top-k every chunk reports, and
         # the device rows (histogram, bias, prompt mask), made when the
         # first request with extras commits and reset at every commit after
@@ -836,9 +943,10 @@ class LLMEngineCore:
         self._gbucket = 0                             # the bucket holding the rows
         self._gsynced = 0                             # host rows copied into it
         self._gstale: List[tuple] = []                # (outgrown bucket, event after its reads)
-        # guided admissions whose grammar compiles in a worker (the task's
-        # strong refs), and the (request, slot) pairs handed back to the
-        # loop, each slot reserved in _admitting meanwhile
+        # ragged scheduler: guided admissions whose grammar compiles in a
+        # worker (the task's strong refs), and the (request, slot) pairs
+        # handed back to the loop, each slot reserved in _admitting
+        # meanwhile (two-dispatch admissions compile in their admission task)
         self._grammar_preps: set = set()
         self._prepped: Deque[tuple] = deque()
         # bumped when every grammar drained and the tables were rebuilt:
@@ -915,10 +1023,11 @@ class LLMEngineCore:
         self._watchdog_interval = float(watchdog_interval) if watchdog_interval else None
         self._watchdog_task: Optional[asyncio.Task] = None
         self._last_progress = time.monotonic()
-        # monotonic start of the device call a worker thread is in (a
-        # prefill, a chunk dispatch, a ragged step): the watchdog's grace
-        # for first-use work (the kernel build, a CUDA-graph capture while
-        # serving, library handles)
+        # monotonic start of the loop's device call a worker thread is in (a
+        # chunk dispatch, a ragged step): the watchdog's grace for first-use
+        # work (the kernel build, a CUDA-graph capture while serving,
+        # library handles). Admission prefills never set it: the loop keeps
+        # making progress beside them
         self._call_since: Optional[float] = None
         # bumped by a watchdog trip; a dispatch or retire leg that lands
         # under an older epoch discards the pipeline and completes recovery
@@ -945,6 +1054,14 @@ class LLMEngineCore:
         # order, and the slots they reserve (loop thread)
         self._prefill_jobs: List[_RaggedJob] = []
         self._admitting: set = set()
+        # two-dispatch admissions: the background tasks (strong refs: the
+        # event loop keeps only weak ones), the (request, slot, first id,
+        # mini cache, first logprob entry) tuples they hand the loop, and
+        # the event that wakes an idle loop when one lands (made per loop
+        # run: an asyncio.Event binds to the event loop it first waits on)
+        self._admission_tasks: set = set()
+        self._ready: Deque[tuple] = deque()
+        self._wake: Optional[asyncio.Event] = None
         # observability: decode steps dispatched (each = one decode_paged
         # call, so n_layers paged-attention launches), chunks, prefills, the
         # loop's wall time in decode steps (dispatch and retire, overlapped
@@ -1194,6 +1311,14 @@ class LLMEngineCore:
         t = torch.from_numpy(np.ascontiguousarray(array))
         return t.pin_memory() if self._stream is not None else t
 
+    def _device_tensor(self, values, dtype) -> torch.Tensor:
+        """Host values (a list or an array; ``dtype`` a numpy dtype) on the
+        engine's device, copied on the current stream without waiting for
+        the work queued on it: an admission worker's inputs must not wait
+        for the decode chunks enqueued ahead of them."""
+        return self._host_tensor(np.asarray(values, dtype=dtype)).to(self.device,
+                                                                    non_blocking=True)
+
     def _guided_tables_of(self, bucket: int) -> tuple:
         """(mask bits, byte table, token bytes, token lengths) on the
         device, the first two the bucket's buffers."""
@@ -1308,19 +1433,17 @@ class LLMEngineCore:
         bias, pmask = self._bias_pmask_rows(request)
         seed = self._request_seed(request)
         extras = SamplingExtras(
-            presence=torch.tensor([request.presence_penalty], dtype=torch.float32, device=dev),
-            frequency=torch.tensor([request.frequency_penalty], dtype=torch.float32, device=dev),
-            repetition=torch.tensor([request.repetition_penalty or 1.0], dtype=torch.float32,
-                                    device=dev),
-            bias=torch.from_numpy(bias[None]).to(dev),
-            seeds=torch.tensor([seed], dtype=torch.int32, device=dev) if seed >= 0 else None,
+            presence=self._device_tensor([request.presence_penalty], np.float32),
+            frequency=self._device_tensor([request.frequency_penalty], np.float32),
+            repetition=self._device_tensor([request.repetition_penalty or 1.0], np.float32),
+            bias=self._device_tensor(bias[None], np.float32),
+            seeds=self._device_tensor([seed], np.int32) if seed >= 0 else None,
             counters=torch.zeros(1, dtype=torch.int32, device=dev),
-            min_new=torch.tensor([self._request_min_new(request)], dtype=torch.int32,
-                                 device=dev),
-            stop=torch.from_numpy(self._request_stop_row(request)[None]).to(dev),
+            min_new=self._device_tensor([self._request_min_new(request)], np.int32),
+            stop=self._device_tensor(self._request_stop_row(request)[None], np.int32),
         )
         return (extras, torch.zeros((1, self.model.vocab_size), dtype=torch.int32, device=dev),
-                torch.from_numpy(pmask[None]).to(dev))
+                self._device_tensor(pmask[None], pmask.dtype))
 
     def _set_slot_extras(self, request: GenRequest, slot: int,
                          first_id: Optional[int]) -> None:
@@ -1557,7 +1680,12 @@ class LLMEngineCore:
             return
         self._brownout_checked = now
         score, signals = self._pressure_score()
-        self._brownout.update(score, signals, now)
+        prev = self._brownout.stage
+        stage = self._brownout.update(score, signals, now)
+        if stage != prev and self._prefill_gate is not None:
+            # stage 3 shrinks the prefill budget to one segment per decode
+            # chunk; a lower stage restores the configured value
+            self._prefill_gate.set_budget(1 if stage >= 3 else None)
 
     def _brownout_snapshot(self) -> Optional[dict]:
         if self._brownout is None:
@@ -1751,6 +1879,7 @@ class LLMEngineCore:
         request.out_queue = asyncio.Queue()
         self._pending.put_nowait(request)
         self._ensure_loop()
+        self._wake_loop()  # a loop idling on admissions in flight admits it now
         try:
             while True:
                 token = await request.out_queue.get()
@@ -1775,7 +1904,8 @@ class LLMEngineCore:
 
     def stop(self) -> None:
         """Stop the loop and fail every active and pending request (503);
-        the loop's exit frees the pages once the chunks in flight landed."""
+        the loop's exit frees the pages once the chunks in flight landed.
+        An admission still prefilling fails when its worker returns."""
         self._stopped = True
         err = EngineUnavailableError("engine stopped")
         for slot, request in enumerate(self._slot_req):
@@ -1784,10 +1914,12 @@ class LLMEngineCore:
         for job in list(self._prefill_jobs):
             self._fail_ragged_job(job, err)
         self._fail_prepped(err)
+        self._drain_ready(err)
         for request in self._pending.pop_all():
             self._release_parked(request)
             request.error = err
             request.out_queue.put_nowait(_FINISHED)
+        self._wake_loop()  # an idle loop runs its exit now
 
     @property
     def active_slots(self) -> int:
@@ -1965,6 +2097,7 @@ class LLMEngineCore:
             self._watchdog_task = loop.create_task(self._watchdog_loop())
 
     async def _run_loop(self) -> None:
+        self._wake = asyncio.Event()
         try:
             while not self._stopped:
                 self._expire_pending()
@@ -1972,8 +2105,8 @@ class LLMEngineCore:
                 # boundary
                 self._reap_promotions()
                 if self._recovering and not self._inflight:
-                    # a trip that found no stale chunk to land (the loop
-                    # was in an admission): recover at this boundary
+                    # a trip that found no stale chunk to land: recover at
+                    # this boundary
                     await self._finish_recovery()
                 # SLO scheduling: the brownout stage from the pressure
                 # signals, then, with interactive work waiting and no slot
@@ -1983,14 +2116,26 @@ class LLMEngineCore:
                 if self._ragged:
                     self._ragged_admission()
                 else:
-                    await self._admit()
+                    # start admission tasks into free slots, then commit the
+                    # prefills that landed since the last boundary
+                    self._admit()
+                    self._commit_ready()
                 active = np.array([r is not None for r in self._slot_req])
+                if self._prefill_gate is not None:
+                    # pace prefills while decode is live; open otherwise
+                    self._prefill_gate.set_active(bool(active.any() or self._inflight))
                 if not active.any() and not self._inflight and not self._prefill_jobs:
                     if self._grammar_preps:
                         # nothing to decode while grammars compile: their
                         # admissions open when a worker hands one back
                         await asyncio.wait(set(self._grammar_preps),
                                            return_when=asyncio.FIRST_COMPLETED)
+                        continue
+                    if self._admitting or self._ready:
+                        # idle with admissions in flight: sleep until one
+                        # lands or a request arrives
+                        await self._wake.wait()
+                        self._wake.clear()
                         continue
                     if self._pending.empty():
                         faults.fire("engine.drain")
@@ -2033,8 +2178,15 @@ class LLMEngineCore:
             for job in list(self._prefill_jobs):
                 self._fail_ragged_job(job, ex)
             self._fail_prepped(ex)
+            self._drain_ready(ex)
             raise
         finally:
+            if self._prefill_gate is not None:
+                # no decode left to pace against: release the waiters
+                self._prefill_gate.set_active(False)
+            if self._stopped:
+                # admissions that landed while stop() raced the loop
+                self._drain_ready(EngineUnavailableError("engine stopped"))
             # the pipeline dies with the loop; after a cancellation its
             # deferred frees run without waiting for the card
             self._drop_pipeline()
@@ -2062,16 +2214,19 @@ class LLMEngineCore:
         with torch.cuda.stream(self._stream):
             return fn(*args)
 
-    async def _admit(self) -> None:
-        """Admission of pending requests into free slots, in the queue's
-        class order: prefill, pages, first token. A quarantined slot is
-        not free yet. A guided request whose grammar is not compiled yet
-        compiles in a worker first (``_start_grammar_prep``), its slot
-        reserved, and is admitted into that slot at a later turn."""
-        for request, slot in self._take_prepped():
-            await self._admit_into(request, slot)
+    def _wake_loop(self) -> None:
+        if self._wake is not None:
+            self._wake.set()
+
+    def _admit(self) -> None:
+        """Loop thread, two-dispatch: start one admission task per pending
+        request, in the queue's class order, each into a free slot it
+        reserves in ``_admitting`` until its commit or failure. A
+        quarantined slot is not free yet. A preempted request resumes at
+        once (``_resume_slot``): its pages hold its history."""
         free = [i for i, r in enumerate(self._slot_req)
                 if r is None and i not in self._quarantine and i not in self._admitting]
+        loop = asyncio.get_running_loop()
         while free and not self._pending.empty() and not self._stopped:
             request = self._pending.get_nowait()
             if request.cancelled:
@@ -2082,50 +2237,86 @@ class LLMEngineCore:
             if request._parked is not None:
                 self._resume_slot(request, slot)
                 continue
-            if self._needs_grammar_compile(request):
-                self._start_grammar_prep(request, slot)
-                continue
-            if not await self._admit_into(request, slot):
-                free.insert(0, slot)
+            self._admitting.add(slot)
+            task = loop.create_task(self._admission_task(request, slot))
+            self._admission_tasks.add(task)
+            task.add_done_callback(self._admission_tasks.discard)
 
-    async def _admit_into(self, request: GenRequest, slot: int) -> bool:
-        """Prefill one request into a free slot and commit it; False when
-        the admission failed and the slot is free again."""
-        self._call_since = time.monotonic()
+    async def _admission_task(self, request: GenRequest, slot: int) -> None:
+        """One admission's background half: the grammar compile, the
+        prefill and the first token in a worker thread, on the engine's
+        stream (``_prefill_device``), handed to the loop through
+        ``_ready``."""
         try:
-            first_id, first_lp = await asyncio.to_thread(
-                self._on_stream, self._prefill_into_slot, request, slot)
+            first_id, mini_cache, first_lp = await asyncio.to_thread(
+                self._on_stream, self._prefill_device, request)
         except Exception as ex:
             # a failed admission fails only its own request
-            self._release_prefix_hit(request)
-            self._deref_guided_request(request)
-            self.paged_cache.pool.free(slot)
-            request.error = ex
-            request.out_queue.put_nowait(_FINISHED)
-            return False
-        finally:
-            self._call_since = None
-        if self._stopped:  # stop() ran during the prefill
-            self._deref_guided_request(request)
-            self.paged_cache.pool.free(slot)
-            request.error = EngineUnavailableError("engine stopped")
-            request.out_queue.put_nowait(_FINISHED)
-            return True
-        err = self._deadline_error_at_commit(request)
-        if err is not None:
-            # the prefill outlived the request's ttft/total budget: a
-            # structured 408 instead of a slot commit
-            self._deref_guided_request(request)
-            self.paged_cache.pool.free(slot)
-            request.error = err
-            request.out_queue.put_nowait(_FINISHED)
-            return False
-        self._store_prompt(request, slot)
-        self._activate_slot(request, slot, first_id, first_lp)
-        self._last_progress = time.monotonic()
-        return True
+            self._abandon_admission(request, slot, ex)
+            self._wake_loop()
+            return
+        if self._stopped:
+            self._abandon_admission(request, slot, EngineUnavailableError("engine stopped"))
+            return
+        self._ready.append((request, slot, first_id, mini_cache, first_lp))
+        self._wake_loop()
+        if self._loop_task is None or self._loop_task.done():
+            # the loop died between the prefill and the hand-off: nobody
+            # commits what waits in the queue
+            self._drain_ready(EngineUnavailableError("engine loop exited"))
 
-    # -- guided admissions: the grammar compile off the loop -------------------
+    def _abandon_admission(self, request: GenRequest, slot: int,
+                           err: Optional[BaseException]) -> None:
+        """An admission that will not commit (failed, cancelled, expired,
+        stopped): its grammar reference and prefix pin drop, its consumer
+        ends (``err`` None: cancelled), and its slot, which holds no page,
+        is free again."""
+        self._admitting.discard(slot)
+        self._deref_guided_request(request)
+        self._release_prefix_hit(request)
+        if err is not None:
+            request.error = err
+        request.out_queue.put_nowait(_FINISHED)
+        self._ledger_audit_request(request, "admission")
+
+    def _commit_ready(self) -> None:
+        """Loop thread, at a chunk boundary: commit the admissions that
+        landed, interactive first (a commit is a first token, so class
+        order holds here too). A cancelled request, or one past its TTFT or
+        total deadline, drops instead."""
+        if not self._ready:
+            return
+        batch = sorted(self._ready, key=lambda item: _CLASS_RANK.get(item[0].priority, 0))
+        self._ready.clear()
+        for request, slot, first_id, mini_cache, first_lp in batch:
+            if request.cancelled:
+                self._abandon_admission(request, slot, None)
+                continue
+            err = self._deadline_error_at_commit(request)
+            if err is not None:
+                # the prefill outlived the request's budget: a structured
+                # 408 instead of a slot commit
+                self._abandon_admission(request, slot, err)
+                continue
+            self._admitting.discard(slot)
+            try:
+                self._on_stream(self._insert_prefill, slot, mini_cache, request)
+            except Exception as ex:
+                # the pool could not hold the prompt: only this request fails
+                self.paged_cache.pool.free(slot)
+                self._abandon_admission(request, slot, ex)
+                continue
+            self._activate_slot(request, slot, first_id, first_lp)
+            self._last_progress = time.monotonic()
+
+    def _drain_ready(self, err: BaseException) -> None:
+        """Fail every landed admission not committed yet (stop, loop
+        exit)."""
+        while self._ready:
+            request, slot, _first, _cache, _lp = self._ready.popleft()
+            self._abandon_admission(request, slot, err)
+
+    # -- ragged guided admissions: the grammar compile off the loop ------------
 
     def _needs_grammar_compile(self, request: GenRequest) -> bool:
         """A guided request whose grammar the registry does not hold yet
@@ -2136,10 +2327,11 @@ class LLMEngineCore:
             return request.guided.cache_key() not in self._grammars
 
     def _start_grammar_prep(self, request: GenRequest, slot: int) -> None:
-        """Loop thread: reserve ``slot`` and compile the request's grammar
-        in a worker (the reference's admission task), while the loop goes
-        on decoding the live rows; the request comes back through
-        ``_prepped``."""
+        """Loop thread, ragged scheduler: reserve ``slot`` and compile the
+        request's grammar in a worker (the reference's
+        ``_ragged_admission_task``), while the loop goes on decoding the
+        live rows; the request comes back through ``_prepped``. (A
+        two-dispatch admission compiles in its own admission task.)"""
         self._admitting.add(slot)
         task = asyncio.get_running_loop().create_task(self._grammar_prep(request, slot))
         self._grammar_preps.add(task)
@@ -2190,23 +2382,63 @@ class LLMEngineCore:
             top_p=torch.as_tensor(self._top_p, device=dev),
         )
 
-    def _prefill_into_slot(self, request: GenRequest, slot: int):
-        """Worker thread: prefill the prompt at its bucket, write its K/V into
-        the slot's pages, sample the first token. A prefix-cache hit
-        prefills only the tail over the gathered shared pages, then maps
-        those pages into the slot by reference and writes the tail's K/V
-        alone (``write_prompt_shared``); the lookup's pin drops once the
-        slot holds its own references. Returns (first token, its logprob
-        entry or None)."""
+    def _prefill_device(self, request: GenRequest):
+        """Worker thread, on the engine's stream, beside the decode chunks:
+        a guided request's grammar compiles first, then the prompt
+        prefills into a dense mini cache and the first token is sampled.
+        Touches no slot state and no page. A prefix-cache hit prefills only
+        the tail over its gathered shared pages, its pinned hit left on
+        ``request._prefix_hit`` for the commit; a prompt longer than
+        ``chunked_prefill_size`` C (no hit, its bucket rounded up to a
+        multiple of C within ``max_seq_len``) prefills in C-token segments,
+        each paced by the gate; any other takes one dispatch, which a
+        single interactive admission runs past the gate. Returns (first
+        token, mini cache, first logprob entry or None)."""
         t0 = time.perf_counter()
         if faults.active():
             faults.fire("engine.prefill", request=request)
+        if request.guided is not None and request._guided_key is None:
+            self._ensure_grammar(request)
         ids = request.prompt_ids
         n = len(ids)
-        hit_result = self._prefix_admission(request) if self._prefix is not None else None
+        bypass = request.priority == "interactive"
+        hit_result = self._prefix_admission(request, bypass) if self._prefix is not None else None
         if hit_result is not None:
-            last, cache, plen = hit_result
-            hit, request._prefix_hit = request._prefix_hit, None
+            last, cache, _plen = hit_result
+        else:
+            bucket = shapes.bucket_for(n, self._buckets, self.max_seq_len)
+            c = self._chunked
+            # the chunked mini cache is a multiple of C: the last segment's
+            # index write past the cache would raise
+            chunk_bucket = -(-bucket // c) * c if c else 0
+            if c > 0 and n > c and chunk_bucket <= self.max_seq_len:
+                cache = self.model.init_cache(1, chunk_bucket)
+                last, cache = self._prefill_segments(cache, ids, 0, c)
+            else:
+                tokens = np.zeros((1, bucket), np.int64)
+                tokens[0, :n] = ids
+                tokens = self._device_tensor(tokens, np.int64)
+                seq_lens = self._device_tensor([n], np.int32)
+                last, cache = self._prefill_dispatch(self.model.prefill, tokens, seq_lens,
+                                                     bypass=bypass)
+        first_id, first_lp = self._first_token(request, last)
+        with self._count_lock:
+            self.counters["prefills"] += 1
+            self.counters["prefill_ms"] += (time.perf_counter() - t0) * 1e3
+        return first_id, cache, first_lp
+
+    def _insert_prefill(self, slot: int, cache: dict, request: GenRequest) -> None:
+        """Loop thread, on the engine's stream, at a chunk boundary (the
+        commit half of an admission): write the mini cache's prompt K/V
+        into the slot's fresh pages, or on a prefix hit map the hit's
+        shared pages by reference and write the tail alone, dropping the
+        lookup's pin once the slot holds its own references; then store
+        the prompt in the prefix cache. Page pressure is decided here,
+        on the thread that extends the live slots."""
+        n = len(request.prompt_ids)
+        hit, request._prefix_hit = request._prefix_hit, None
+        if hit is not None:
+            plen = hit["len"]
             try:
                 self.paged_cache.write_prompt_shared(
                     slot, hit["pages"], plen, cache["k"][:, 0, plen:n], cache["v"][:, 0, plen:n],
@@ -2215,19 +2447,10 @@ class LLMEngineCore:
                 with _owner(request):
                     self._prefix.release(hit)
         else:
-            bucket = shapes.bucket_for(n, self._buckets, self.max_seq_len)
-            tokens = torch.zeros((1, bucket), dtype=torch.long)
-            tokens[0, :n] = torch.as_tensor(ids, dtype=torch.long)
-            tokens = tokens.to(self.device)
-            seq_lens = torch.tensor([n], dtype=torch.int32, device=self.device)
-            last, cache = self.model.prefill(tokens, seq_lens)
             self.paged_cache.write_prompt(
                 slot, cache["k"][:, 0, :n], cache["v"][:, 0, :n], n,
                 *self._mini_scales(cache, 0, n))
-        first = self._first_token(request, last)
-        self.counters["prefills"] += 1
-        self.counters["prefill_ms"] += (time.perf_counter() - t0) * 1e3
-        return first
+        self._store_prompt(request, slot)
 
     def _mini_scales(self, cache: dict, lo: int, hi: int) -> tuple:
         """A mini cache's scale rows of positions [lo, hi) (int8 KV), else
@@ -2246,20 +2469,21 @@ class LLMEngineCore:
             return None
         return bucket
 
-    def _prefix_admission(self, request: GenRequest):
+    def _prefix_admission(self, request: GenRequest, bypass: bool = False):
         """Worker thread, the two-dispatch hit path (the reference's
         ``_prefix_admission_paged``): look the prompt up; on a hit, gather
         its pinned shared pages into a dense mini cache of the bucket's
         size (the page list padded with the null page 0, whose rows the
         cache length masks) on the engine's stream, and prefill the tail
-        over it. Returns ``(last_logits, mini_cache, prefix_len)`` with the
-        pinned hit on ``request._prefix_hit``, or None: a miss, or a hit no
-        bucket fits, which recomputes cold and counts as a miss. The
-        gather reads shared pages while a decode chunk may be in flight on
-        the same stream; it writes none, and nobody writes a shared page. A
-        hit on a demoted run promoted it: its copies were enqueued on this
-        stream before the lookup returned, so the gather reads them. The
-        hit and its pin are the request's in the ledger."""
+        over it (``bypass``: the gate's, for a one-segment tail). Returns
+        ``(last_logits, mini_cache, prefix_len)`` with the pinned hit on
+        ``request._prefix_hit``, or None: a miss, or a hit no bucket fits,
+        which recomputes cold and counts as a miss. The gather reads shared
+        pages while a decode chunk may be in flight on the same stream; it
+        writes none, and nobody writes a shared page. A hit on a demoted
+        run promoted it: its copies were enqueued on this stream before the
+        lookup returned, so the gather reads them. The hit and its pin are
+        the request's in the ledger."""
         ids = request.prompt_ids
         with _owner(request):
             hit = self._prefix.lookup_pages(ids, 0)
@@ -2276,8 +2500,8 @@ class LLMEngineCore:
                 return None
             pages = list(hit["pages"]) + [0] * (bucket // page_size - len(hit["pages"]))
             cache = self.paged_cache.gather_pages(pages)
-            cache["length"] = torch.tensor([plen], dtype=torch.int32, device=self.device)
-            last, cache = self._prefill_tail(cache, ids, plen)
+            cache["length"] = self._device_tensor([plen], np.int32)
+            last, cache = self._prefill_segments(cache, ids, plen, self._prefix_chunk, bypass)
         except BaseException:
             with _owner(request):
                 self._prefix.release(hit)  # a no-op after the release above
@@ -2285,24 +2509,37 @@ class LLMEngineCore:
         request._prefix_hit = hit
         return last, cache, plen
 
-    def _prefill_tail(self, cache: dict, ids: List[int], prefix_len: int):
-        """Prefill the tail of ``ids`` past ``prefix_len`` in segments of
-        ``prefix_block`` tokens through ``Llama.prefill_chunk``, each
-        attending over the mini cache so far; only the last segment
-        computes logits. Returns (last_logits, cache)."""
-        c2 = self._prefix_chunk
-        starts = list(range(prefix_len, len(ids), c2))
+    def _prefill_segments(self, cache: dict, ids: List[int], start: int, c: int,
+                          bypass: bool = False):
+        """Prefill ``ids`` past ``start`` in segments of ``c`` tokens
+        through ``Llama.prefill_chunk``, each attending over the mini cache
+        so far (a prefix hit's tail, or a chunked cold prefill from 0);
+        only the last segment computes logits. Each segment first takes a
+        permit of the prefill gate; ``bypass`` skips it for a one-segment
+        train only. Returns (last_logits, cache)."""
+        starts = list(range(start, len(ids), c))
+        bypass = bypass and len(starts) == 1
         last = None
         for si, s in enumerate(starts):
-            seg = ids[s:s + c2]
-            seg_tokens = torch.zeros((1, c2), dtype=torch.long)
-            seg_tokens[0, :len(seg)] = torch.as_tensor(seg, dtype=torch.long)
-            last, cache = self.model.prefill_chunk(
-                seg_tokens.to(self.device),
-                torch.tensor([s], dtype=torch.int32, device=self.device),
-                torch.tensor([len(seg) - 1], dtype=torch.int32, device=self.device),
-                cache, with_logits=si == len(starts) - 1)
+            seg = ids[s:s + c]
+            seg_tokens = np.zeros((1, c), np.int64)
+            seg_tokens[0, :len(seg)] = seg
+            last, cache = self._prefill_dispatch(
+                self.model.prefill_chunk, self._device_tensor(seg_tokens, np.int64),
+                self._device_tensor([s], np.int32), self._device_tensor([len(seg) - 1], np.int32),
+                cache, with_logits=si == len(starts) - 1, bypass=bypass)
         return last, cache
+
+    def _prefill_dispatch(self, fn, *args, bypass: bool = False, **kwargs):
+        """One prefill dispatch of an admission worker: a permit of the
+        prefill gate (``bypass``: none needed), then ``fn``'s launches under
+        ``_prefill_lock``, so one dispatch's kernels stay contiguous on the
+        engine's stream whatever other admissions enqueue meanwhile, as the
+        reference's dispatch (one compiled program) is."""
+        if self._prefill_gate is not None:
+            self._prefill_gate.acquire(bypass=bypass)
+        with self._prefill_lock:
+            return fn(*args, **kwargs)
 
     def _release_prefix_hit(self, request: GenRequest) -> None:
         """An admission failed before its commit mapped the hit: drop the
@@ -2335,11 +2572,11 @@ class LLMEngineCore:
         return self._on_stream(self._first_token_device, request, last_logits)
 
     def _first_token_device(self, request: GenRequest, last_logits: torch.Tensor):
+        # inputs copied without a host wait: the only wait is the token's read
         params = SamplingParams(
-            temperature=torch.tensor([request.temperature], dtype=torch.float32,
-                                     device=self.device),
-            top_k=torch.tensor([request.top_k], dtype=torch.int32, device=self.device),
-            top_p=torch.tensor([request.top_p], dtype=torch.float32, device=self.device),
+            temperature=self._device_tensor([request.temperature], np.float32),
+            top_k=self._device_tensor([request.top_k], np.int32),
+            top_p=self._device_tensor([request.top_p], np.float32),
         )
         logits = last_logits.float()
         greedy = request.temperature <= 0
@@ -2353,15 +2590,17 @@ class LLMEngineCore:
             with self._guided_lock:
                 row = self._gmask_np[gentry["start"]]
             allowed = np.unpackbits(row, bitorder="little")[: logits.shape[-1]] > 0
-            logits = torch.where(torch.from_numpy(allowed).to(self.device)[None, :], logits,
+            logits = torch.where(self._device_tensor(allowed, np.bool_)[None, :], logits,
                                  torch.full_like(logits, GUIDED_FILL))
         if self._request_has_extras(request):
             extras, counts0, pmask0 = self._request_extras_row(request)
             logits = penalize_logits(logits, extras, counts0, pmask0)
-            first = sample_penalized(logits, params, generator=self._gen, all_greedy=greedy,
-                                     extras=extras)
+            with self._rng_lock:
+                first = sample_penalized(logits, params, generator=self._gen,
+                                         all_greedy=greedy, extras=extras)
         else:
-            first = sample_tokens(logits, params, generator=self._gen, all_greedy=greedy)
+            with self._rng_lock:
+                first = sample_tokens(logits, params, generator=self._gen, all_greedy=greedy)
         first_id = int(first.item())
         if gentry is not None:
             request._gstate0 = self._walk_first_token(gentry, first_id)
@@ -2659,8 +2898,11 @@ class LLMEngineCore:
         # launches that write them, outside the graph
         self.paged_cache.apply_pending_cow()
         variant = prep["variant"]
-        noise = (None if variant.greedy else
-                 gumbel_noise((n, self.max_batch, self.model.vocab_size), self._gen, self.device))
+        noise = None
+        if not variant.greedy:
+            with self._rng_lock:
+                noise = gumbel_noise((n, self.max_batch, self.model.vocab_size), self._gen,
+                                     self.device)
         gstate = None
         if self._graphs is not None:
             if not self._graphs.captured(variant):
@@ -2778,6 +3020,9 @@ class LLMEngineCore:
             if gstate is not None and self._slot_req[slot] is not None:
                 # a slot freed since the dispatch keeps its cleared state
                 self._gstate[slot] = int(gstate[slot])
+        if self._prefill_gate is not None:
+            # a decode chunk is done: the next prefill dispatches' budget
+            self._prefill_gate.deposit()
         for slot in slots:
             request = self._slot_req[slot]
             want_lp = lp is not None and request is not None and request.logprobs is not None

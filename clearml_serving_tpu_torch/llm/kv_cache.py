@@ -632,8 +632,8 @@ class PagedKVCache:
         pairs = self.pool.drain_pending_cow()
         if not pairs:
             return 0
-        srcs = torch.as_tensor([s for s, _ in pairs], dtype=torch.long).to(self.device)
-        dsts = torch.as_tensor([d for _, d in pairs], dtype=torch.long).to(self.device)
+        srcs = self._page_index([s for s, _ in pairs])
+        dsts = self._page_index([d for _, d in pairs])
         for pool in self._pools():
             pool[:, :, dsts] = pool[:, :, srcs]
         return len(pairs)
@@ -650,10 +650,12 @@ class PagedKVCache:
                                     pin=self.device.type == "cuda")
         return self.host_tier
 
-    def _page_index(self, pages: List[int]) -> torch.Tensor:
-        """``pages`` as an int64 index on the pools' device, copied from a
-        pinned buffer on the current stream (no host wait)."""
-        idx = torch.tensor(pages, dtype=torch.long)
+    def _page_index(self, pages) -> torch.Tensor:
+        """``pages`` (ids or an int64 host tensor) as an int64 index on the
+        pools' device, copied from a pinned buffer on the current stream:
+        no host wait for the work queued on it (the caching host allocator
+        keeps the buffer until the copy ran)."""
+        idx = torch.as_tensor(pages, dtype=torch.long)
         if self.device.type != "cuda":
             return idx
         return idx.pin_memory().to(self.device, non_blocking=True)
@@ -841,7 +843,7 @@ class PagedKVCache:
         ``k_scale``/``v_scale`` ``[L, 1, S, Hkv]`` on int8 pools), the
         layout ``Llama.prefill_chunk`` reads. A prefix-cache hit's compute
         input; the pages themselves are mapped by reference."""
-        idx = torch.as_tensor(pages, dtype=torch.long).to(self.device)
+        idx = self._page_index(pages)
         out = {}
         names = ("k", "v", "k_scale", "v_scale")
         for name, pool in zip(names, self._pools()):
@@ -866,8 +868,8 @@ class PagedKVCache:
         pos = torch.arange(start, start + s)
         page_ids = torch.as_tensor(pages, dtype=torch.long)[pos // self.pool.page_size]
         offsets = pos % self.pool.page_size
-        page_ids = page_ids.to(self.device)
-        offsets = offsets.to(self.device)
+        page_ids = self._page_index(page_ids)
+        offsets = self._page_index(offsets)
         # (:, :, page, offset) with adjacent index tensors takes [L, Hkv, S, D]
         self.k[:, :, page_ids, offsets] = k_stack.permute(0, 2, 1, 3).to(self.k.dtype)
         self.v[:, :, page_ids, offsets] = v_stack.permute(0, 2, 1, 3).to(self.v.dtype)

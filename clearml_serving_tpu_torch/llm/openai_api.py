@@ -87,6 +87,7 @@ ENGINE_KEYS = (
     "preset", "arch", "config", "cache", "kv_quant", "max_batch", "max_seq_len",
     "decode_steps", "page_size", "num_pages", "prefill_buckets",
     "pipeline_depth", "scheduler", "step_token_budget", "ragged_decode_steps",
+    "chunked_prefill", "prefill_segments_per_decode", "prefill_stall_timeout",
     "speculation", "spec_k", "spec_ngram", "spec_sampling", "spec_tree", "spec_branch",
     "weight_quant", "quantize", "seed", "warmup",
     "max_pending", "queue_timeout", "ttft_timeout", "timeout", "watchdog_interval",
@@ -240,6 +241,12 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
             int(engine_cfg["ragged_decode_steps"])
             if engine_cfg.get("ragged_decode_steps") else None
         ),
+        # two-dispatch admissions, as the reference maps them: chunked
+        # prefill segments (aux chunked_prefill) and the prefill gate, on
+        # at 2 segments per decode chunk unless set to 0
+        chunked_prefill_size=engine_cfg.get("chunked_prefill"),
+        prefill_segments_per_decode=engine_cfg.get("prefill_segments_per_decode", 2),
+        prefill_stall_timeout=engine_cfg.get("prefill_stall_timeout"),
         # speculative verify rows on the ragged launches: n-gram drafts,
         # chained or (spec_tree) branched over up to spec_branch root
         # continuations; the engine validates the values

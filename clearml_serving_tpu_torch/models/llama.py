@@ -4,7 +4,7 @@ paged-decode and ragged mixed-batch paths.
 Counterpart of ``clearml_serving_tpu/models/llama.py``. The math follows the
 reference function by function (``_rms_norm``, ``_rope``, ``_qkv``,
 ``_attend``, ``_ffn_dense``, ``_logits``, ``_block``, ``_kv_store``,
-``_kv_load``, ``prefill``, ``prefill_chunk``,
+``_kv_load``, ``init_cache``, ``prefill``, ``prefill_chunk``,
 ``decode_paged``, ``forward_ragged``), and so does the
 parameter layout: weights
 are ``[in, out]`` so ``x @ w`` reads the same on both sides, and
@@ -406,6 +406,24 @@ class Llama(nn.Module):
         """Final norm and lm_head: last-layer outputs [..., D] -> logits
         [..., vocab] f32 (the lm_head in the model dtype, then widened)."""
         return self._logits(x)
+
+    def init_cache(self, b: int, length: int) -> dict:
+        """An empty dense mini cache for ``prefill_chunk`` (the reference
+        bundle's ``init_cache``): zero ``k``/``v`` [L, b, length, Hkv, D]
+        in the stored dtype (int8 under ``kv_quant``, with zero f32
+        ``k_scale``/``v_scale`` [L, b, length, Hkv]) and ``length`` [b]
+        zeros. ``prefill_chunk`` writes it in place, so every chunked
+        admission takes its own."""
+        dev = self.device
+        shape = (self.n_layers, b, length, self.n_kv_heads, self.head_dim)
+        dtype = torch.int8 if self.kv_quant else self.dtype
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev),
+                 "length": torch.zeros((b,), dtype=torch.int32, device=dev)}
+        if self.kv_quant:
+            cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+            cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        return cache
 
     def _kv_load(self, stored, scale):
         if scale is None:

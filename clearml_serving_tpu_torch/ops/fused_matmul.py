@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from . import launch_counts
 from ._build import load_library
 from .quant import dequantize_int4
 
@@ -144,7 +145,7 @@ def fused_int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
     )
     if rc != 0:
         raise RuntimeError("fused_int4_matmul kernel launch failed: cudaError {}".format(rc))
-    fused_int4_matmul.launches += 1
+    launch_counts.add(fused_int4_matmul)
     return out
 
 

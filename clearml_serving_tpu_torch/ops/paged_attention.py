@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import launch_counts
 from ._build import load_library
 
 # the kernel's gates (csrc/paged_attention.cu)
@@ -228,7 +229,7 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
     )
     if rc != 0:
         raise RuntimeError("paged_attention kernel launch failed: cudaError {}".format(rc))
-    paged_attention.launches += 1
+    launch_counts.add(paged_attention)
     return out
 
 
@@ -495,9 +496,9 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, kv_lens, row_starts, r
     )
     if rc != 0:
         raise RuntimeError("ragged_paged_attention kernel launch failed: cudaError {}".format(rc))
-    ragged_paged_attention.launches += 1
+    launch_counts.add(ragged_paged_attention)
     if tree_anc is not None:
-        ragged_paged_attention.tree_launches += 1
+        launch_counts.add(ragged_paged_attention, attr="tree_launches")
     return out
 
 

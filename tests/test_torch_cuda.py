@@ -1162,6 +1162,18 @@ def test_hit_slot_decode_chunks_replayed_equal_eager(cuda, kv_quant):
     def run(graphs):
         engine = LLMEngineCore(model, cuda_graphs=graphs, **kw)
         paged_attention.launches = 0
+        # the two hits prefill at once; they commit together, in slot
+        # order, so their tails' page ids do not depend on which landed first
+        commit = engine._commit_ready
+
+        def in_slot_order():
+            if engine._ready and len(engine._ready) == len(engine._admitting):
+                landed = sorted(engine._ready, key=lambda item: item[1])
+                engine._ready.clear()
+                engine._ready.extend(landed)
+                commit()
+
+        engine._commit_ready = in_slot_order
 
         async def go():
             first = await _stream(engine, GenRequest(prompt_ids=prompts[0], max_new_tokens=12))

@@ -115,7 +115,7 @@ def test_prompt_past_max_seq_len_is_refused(tiny_np):
 
 
 @pytest.mark.parametrize("knob", [
-    {"cache_mode": "dense"}, {"ragged_decode_steps": 8}, {"chunked_prefill_size": 64},
+    {"cache_mode": "dense"}, {"ragged_decode_steps": 8}, {"long_prefill_threshold": 512},
     {"speculation": "ngram"}, {"lora_adapters": ["adapter"]}, {"weight_quant": "int4"},
 ], ids=["dense", "ragged", "chunked_prefill", "speculation", "prefix_cache", "weight_quant"])
 def test_unsupported_knob_raises_naming_itself(tiny_np, knob):
@@ -132,7 +132,8 @@ def test_stop_fails_active_and_pending_requests(tiny_np):
         tasks = [asyncio.ensure_future(_collect(port, GenRequest(prompt_ids=p,
                                                                  max_new_tokens=100)))
                  for p in _prompts()[:3]]
-        while port.counters["decode_steps"] == 0:
+        # admissions commit one by one beside decode: wait for both slots
+        while port.counters["decode_steps"] == 0 or port.active_slots < 2:
             await asyncio.sleep(0.001)
         assert port._pending.qsize() == 1 and port.active_slots == 2
         port.stop()

@@ -482,7 +482,9 @@ def test_plain_chunks_keep_their_variant_keys(tiny_np):
     engine._prepare_dispatch = spy
     _run(engine, GenRequest, port_guided,
          [(PROMPTS[0], None, dict()), (PROMPTS[1], None, dict(temperature=0.9))])
-    assert variants and set(variants) == {ChunkVariant(False)}
+    # the greedy row may commit, and decode alone, before the sampled one
+    assert ChunkVariant(False) in variants
+    assert set(variants) <= {ChunkVariant(False), ChunkVariant(True)}
     plain = len(variants)
     _run(engine, GenRequest, port_guided, [(PROMPTS[0], None, dict())])
     assert set(variants[plain:]) == {ChunkVariant(True)}

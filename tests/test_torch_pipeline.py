@@ -14,6 +14,7 @@ replaced, the warmup sweep and the aux ``engine.warmup`` knob.
 """
 
 import asyncio
+import threading
 
 import jax
 import numpy as np
@@ -150,16 +151,52 @@ def test_streams_reaching_max_seq_len_equal_the_reference(tiny_np, depth):
     assert _all_pages_back(port)
 
 
+def _admit_in_order_and_together(engine, n):
+    """Make the first ``n`` admissions draw their first tokens in the order
+    the loop started them, one worker after another, and commit all ``n``
+    at one boundary: the generator's draws then come in one order,
+    whatever the depth (admission workers otherwise race for it, beside
+    the decode chunks' noise)."""
+    started, turn, cond = [], [0], threading.Condition()
+    task, prefill, commit = engine._admission_task, engine._prefill_device, engine._commit_ready
+
+    def admission_task(request, slot):
+        started.append(request)
+        return task(request, slot)
+
+    def prefill_device(request):
+        i = next(k for k, r in enumerate(started) if r is request)
+        with cond:
+            cond.wait_for(lambda: turn[0] == i)
+        try:
+            return prefill(request)
+        finally:
+            with cond:
+                turn[0] += 1
+                cond.notify_all()
+
+    def commit_ready():
+        if len(started) > n or len(engine._ready) >= n:
+            commit()
+
+    engine._admission_task = admission_task
+    engine._prefill_device = prefill_device
+    engine._commit_ready = commit_ready
+
+
 def test_sampled_streams_identical_across_depths(tiny_np):
     """Sampled streams replay at either depth when every request is
     admitted before decode starts and all share max_tokens: each chunk's
     noise is then one draw of the same shape, in the same order. These
     requests carry no seed, so a request admitted mid-decode would draw
     its first token at another point of the generator's sequence at depth
-    2 than at depth 1 (seeded ones do not: tests/test_torch_extras_engine.py)."""
+    2 than at depth 1 (seeded ones do not: tests/test_torch_extras_engine.py);
+    the admissions prefill beside decode, so the test holds their commits
+    to one boundary and their draws to one order."""
     outs = {}
     for depth in (1, 2):
         engine = _port(tiny_np, pipeline_depth=depth, rng_seed=7)
+        _admit_in_order_and_together(engine, 2)
         outs[depth] = _run_group(engine, GenRequest, PROMPTS[:2], max_new_tokens=17,
                                  temperature=0.9, top_k=40)
         engine.stop()
@@ -185,9 +222,19 @@ def test_quarantine_defers_free_until_barrier(tiny_np):
     # an older retire does not release it
     engine._release_quarantine(6)
     assert 0 in engine._quarantine
-    # admission skips the quarantined slot
+    # admission skips the quarantined slot: its task reserves slot 1, and
+    # the commit activates it there
     engine._pending.put_nowait(GenRequest(prompt_ids=[256, 3], max_new_tokens=2))
-    asyncio.run(engine._admit())
+
+    async def admit():
+        engine._loop_task = asyncio.current_task()  # this coroutine plays the loop
+        engine._admit()
+        assert engine._admitting == {1}
+        await asyncio.gather(*engine._admission_tasks)
+        engine._commit_ready()
+        engine._loop_task = None
+
+    asyncio.run(admit())
     assert engine._slot_req[0] is None and engine._slot_req[1] is not None
     # the barrier's retire does
     engine._inflight.clear()
