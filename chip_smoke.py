@@ -77,8 +77,9 @@ exits non-zero before the result lines are printed:
    ``warmup``): equal greedy contents, no capture while serving, and each
    arm's wall ms per decode step, dispatch and retire ms and tok/s;
 6. where the time goes: one profiled pass of each scheduler (bf16 KV; the
-   two-dispatch path at depth 2 and at depth 1), one of phase 5d's tree arm
-   and one of the two-dispatch path on int4 weights;
+   two-dispatch path at depth 2 and at depth 1), each of 5e's arms on the
+   steady traffic at 64 tokens a chat, one of phase 5d's tree arm and one
+   of the two-dispatch path on int4 weights;
 7. the request lifecycle of the default route: Llama-3-8B at full width
    behind the HTTP app (bf16 KV, depth 2 with graphs, max_batch 8) with the
    reference's default lifecycle knobs (max_pending 32, a 30 s watchdog,
@@ -203,6 +204,35 @@ exits non-zero before the result lines are printed:
    admission under 12a's traffic is measured by
    ``scripts/admission_ab.py --baseline DIR`` in the same call.
 
+13. the control plane in front of the LLM route: the port's CLI, run in
+   process on a fresh state root, creates a service, sets the file stats
+   broker at metric frequency 1, adds the ``llm`` endpoint ``chat``
+   (Llama-3-8B at full width, bf16 weights made by the endpoint from seed
+   0, paged cache with int8 KV, ``warmup: startup``, max_batch 8) and a
+   ``custom`` endpoint whose preprocess code runs one torch op on the card.
+   ``setup_processor()`` builds both at its launch, before the app's loop
+   runs; its sync daemon polls every second. 13a: 8 concurrent ~100-token
+   chats of 64 tokens (half streaming) through
+   ``/serve/openai/v1/chat/completions`` and one through ``/serve/chat``:
+   token ids and contents equal a directly built engine's on the same
+   seed-0 weights (the direct app, timed the same way: TTFT and ms a
+   decode step beside the processor's), ``paged_attention`` launches 32
+   per decode step, ``serve_captures`` 0, and one broker packet per request
+   with ``gen_tokens``, ``prompt_tokens`` and ``ttft``. 13b: while 4 streams
+   decode on ``chat``, the CLI adds a Llama-3.2-1B-shaped endpoint
+   ``chat2``; the daemon picks it up, ``chat2`` answers, and the streams end
+   unbroken with the direct engine's tokens. The CLI removes ``chat2``:
+   after the sync, once its requests end, its engine is stopped, and it is
+   gone where the eviction's release returns (the endpoint's request still
+   held, nothing collected by the script). ``torch.cuda.memory_allocated()``
+   comes back within 64 MiB of its value before ``chat2``; a second
+   add/remove cycle of ``chat2`` leaves it no higher than the first removal
+   did (all three printed). Then a seeded chat on ``chat``
+   captures its graph variant at serve time while the CLI removes the
+   ``custom`` endpoint and the sync evicts it: the eviction's release waits
+   for the capture (``CAPTURE_LOCK``), and the seeded stream is the direct
+   engine's.
+
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, and the ragged kernel's tree variant) and
 ``{"ok": true, "device": {...}}``. Timings are CUDA-event
@@ -218,7 +248,10 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import weakref
 
 import torch
 
@@ -1504,6 +1537,34 @@ async def post_chat(session, url, prompt, stream, max_tokens, sampling=None):
                     total_s=time.perf_counter() - t0)
 
 
+def processor_app(engine, tokenizer, url: str = "llama3-8b", **engine_cfg):
+    """The port's router (``build_app(processor)``) over a processor whose
+    ``llm`` endpoint ``url`` serves ``engine`` (``LLMEngineRequest.wrap``;
+    ``engine_cfg``: the endpoint's knobs, such as ``warmup``), on a fresh
+    state root under ``build/``. The app's cleanup stops the engine."""
+    from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest
+    from clearml_serving_tpu_torch.serving.main import build_app
+    from clearml_serving_tpu_torch.serving.model_request_processor import (
+        ModelRequestProcessor,
+    )
+
+    processor = ModelRequestProcessor(state_root=state_dir(), force_create=True, name=url,
+                                      device=DEV)
+    proc = LLMEngineRequest.wrap(engine, tokenizer, url, engine_cfg=engine_cfg)
+    processor.add_endpoint(proc.endpoint)
+    processor.serialize()
+    processor.deserialize(skip_sync=True)
+    processor._engine_processor_lookup[url] = proc
+    return build_app(processor)
+
+
+def state_dir() -> str:
+    """A fresh control-plane state root under the checkout's ``build/``."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "state")
+    os.makedirs(root, exist_ok=True)
+    return tempfile.mkdtemp(dir=root)
+
+
 async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None, prompts=PROMPTS,
                          warmup="off"):
     """Start the port's app on a local port (aux ``engine.warmup`` mode
@@ -1514,12 +1575,10 @@ async def serve_and_chat(engine, tokenizer, max_tokens=32, profiler=None, prompt
     import aiohttp
     from aiohttp import web
 
-    from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest
     from clearml_serving_tpu_torch.ops.fused_matmul import fused_int4_matmul
     from clearml_serving_tpu_torch.ops.paged_attention import paged_attention
-    from clearml_serving_tpu_torch.serving.main import build_app
 
-    app = build_app(LLMEngineRequest(engine, tokenizer, "llama3-8b", warmup=warmup))
+    app = processor_app(engine, tokenizer, warmup=warmup)
     runner = web.AppRunner(app)
     await runner.setup()
     site = web.TCPSite(runner, "127.0.0.1", 0)
@@ -1835,14 +1894,12 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None, prompts=
     import aiohttp
     from aiohttp import web
 
-    from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest
     from clearml_serving_tpu_torch.ops.fused_matmul import fused_int4_matmul
     from clearml_serving_tpu_torch.ops.paged_attention import (
         paged_attention, ragged_paged_attention,
     )
-    from clearml_serving_tpu_torch.serving.main import build_app
 
-    app = build_app(LLMEngineRequest(engine, tokenizer, "llama3-8b"))
+    app = processor_app(engine, tokenizer)
     runner = web.AppRunner(app)
     await runner.setup()
     site = web.TCPSite(runner, "127.0.0.1", 0)
@@ -2228,6 +2285,9 @@ def graph_chunk_case(params, kv_quant: str, weights: str, sampled: bool) -> dict
 
 # phase 5's traffic, and a steadier one: eight chats of 128 tokens
 PIPELINE_TRAFFIC = [("phase5", PROMPTS, 32), ("steady", PROMPTS * 2, 128)]
+# phase 6 profiles the steady traffic at 32 tokens a chat: its three
+# profiled passes (the eager one above all) set much of the script's length
+PROFILED_STEADY = ("steady", PROMPTS * 2, 32)
 
 
 # (label, depth, cuda_graphs): the eager serial loop, graphs in the serial
@@ -2323,10 +2383,7 @@ async def served(engine, tokenizer):
     import aiohttp
     from aiohttp import web
 
-    from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest
-    from clearml_serving_tpu_torch.serving.main import build_app
-
-    app = build_app(LLMEngineRequest(engine, tokenizer, "llama3-8b"))
+    app = processor_app(engine, tokenizer)
     runner = web.AppRunner(app)
     await runner.setup()
     site = web.TCPSite(runner, "127.0.0.1", 0)
@@ -2485,7 +2542,7 @@ async def default_engine_runs(engine, tokenizer, card: str) -> dict:
                    for p in PROMPTS]
         await until(lambda: engine.active_slots == 4, 120, "4 streams decoding")
         t0 = time.perf_counter()
-        drain = asyncio.ensure_future(drain_app(app, timeout=60.0))
+        drain = asyncio.ensure_future(drain_app(app, app["processor"], timeout=60.0))
         await asyncio.sleep(0.05)
         late = await lifecycle_chat(s, base, LIFECYCLE_PROMPT, 8)
         async with s.get(base + "/ready") as r:
@@ -4743,6 +4800,498 @@ def phase_admission(params, qparams, card: str, preset: str = "llama3-8b") -> di
                 peak_rise_mib=peak_mib - base_mib if on_card else None, wall_s=wall)
 
 
+# -- phase 13: the control plane in front of the LLM route --------------------
+
+# the endpoints' aux engine blocks, written by the CLI as key=value pairs
+CP_ENGINE = {"preset": "llama3-8b", "cache": "paged", "kv_quant": "int8", "warmup": "startup",
+             "max_batch": 8, "max_seq_len": 2048, "seed": 0}
+CP_SMALL = {"preset": "llama3-1b", "cache": "paged", "max_batch": 4, "max_seq_len": 1024,
+            "seed": 0}
+CP_TOPICS = ["the sea", "paged attention", "a lighthouse", "prime numbers", "the city of Paris",
+             "a mountain railway", "compilers", "green tea"]
+CP_PROMPTS = ["Write four calm sentences about {} for a reader who has never heard of it, "
+              "then end with one question.".format(t) for t in CP_TOPICS]
+CP_TOKENS = 64
+CP_STREAM_TOKENS = 256
+CP_SEEDED = {"temperature": 0.8, "seed": 7}
+CP_MEMORY_SLACK = 64 << 20
+OPENAI_CHAT = "/serve/openai/v1/chat/completions"
+CP_PROBE_CODE = '''import torch
+
+
+class Preprocess:
+    """One torch op on the card per request, over a table made at load."""
+
+    def __init__(self):
+        self.table = torch.arange(1024, device="cuda", dtype=torch.float32)
+
+    def process(self, data, state, collect_fn):
+        x = torch.tensor(data["x"], device="cuda", dtype=torch.float32)
+        return {"y": (x * 2 + self.table[: x.numel()]).tolist()}
+'''
+
+
+def cp_body(model, prompt, max_tokens, stream, **fields) -> dict:
+    return {"model": model, "messages": [{"role": "user", "content": prompt}],
+            "max_tokens": max_tokens, "stream": stream, **fields}
+
+
+async def cp_chat(session, base, path, body) -> dict:
+    """One chat: its content and finish reason, streamed or not; a status
+    other than 200 or an SSE error event fails the run."""
+    t0 = time.perf_counter()
+    async with session.post(base + path, json=body) as r:
+        if r.status != 200:
+            raise AssertionError("{} HTTP {}: {}".format(path, r.status, await r.text()))
+        if not body.get("stream"):
+            out = await r.json()
+            choice = out["choices"][0]
+            return dict(content=choice["message"]["content"], finish=choice["finish_reason"],
+                        total_s=time.perf_counter() - t0)
+        pieces, finish, done = [], None, False
+        async for raw in r.content:
+            line = raw.decode().strip()
+            done = done or line == "data: [DONE]"
+            if not line.startswith("data: {"):
+                continue
+            chunk = json.loads(line[len("data: "):])
+            if "error" in chunk:
+                raise AssertionError("stream error on {}: {}".format(path, chunk["error"]))
+            choice = chunk["choices"][0]
+            pieces.append(choice["delta"].get("content") or "")
+            finish = choice["finish_reason"] or finish
+        if not done:
+            raise AssertionError("a stream on {} ended without [DONE]".format(path))
+        return dict(content="".join(pieces), finish=finish, total_s=time.perf_counter() - t0)
+
+
+def cp_ids(tokenizer, prompt):
+    return tuple(tokenizer.encode_chat(tokenizer.apply_chat_template(
+        [{"role": "user", "content": prompt}])))
+
+
+async def cp_traffic(s, base, engine, model) -> dict:
+    """13a's traffic on one app: a first chat (it awaits the endpoint's
+    warmup), the counts zeroed, 8 concurrent chats (every other one
+    streaming) and one through ``/serve/<model>``; the counts after."""
+    from clearml_serving_tpu_torch.ops.fused_matmul import fused_int4_matmul
+
+    t0 = time.perf_counter()
+    await cp_chat(s, base, OPENAI_CHAT, cp_body(model, "Warm up.", 4, False))
+    warm_s = time.perf_counter() - t0
+    await engine.wait_drained()
+    _zero_counts(engine)
+    fused_int4_matmul.launches = 0
+    engine.ttft_ms.clear()
+    t0 = time.perf_counter()
+    results = await asyncio.gather(*[
+        cp_chat(s, base, OPENAI_CHAT, cp_body(model, p, CP_TOKENS, i % 2 == 1))
+        for i, p in enumerate(CP_PROMPTS)])
+    results.append(await cp_chat(s, base, "/serve/" + model, {
+        "messages": [{"role": "user", "content": CP_PROMPTS[0]}], "max_tokens": CP_TOKENS}))
+    wall = time.perf_counter() - t0
+    await engine.wait_drained()
+    c = engine.counters
+    steps = c["decode_steps"]
+    return dict(contents=[r["content"] for r in results],
+                finish=[r["finish"] for r in results], warm_s=warm_s, wall_s=wall,
+                launches=_launch_counts(), int4_launches=fused_int4_matmul.launches,
+                decode_steps=steps, step_ms=c["decode_ms"] / max(1, steps),
+                ttft_ms=sorted(engine.ttft_ms), serve_captures=c["serve_captures"],
+                n_layers=engine.model.n_layers,
+                graph_replays=c["graph_replays"])
+
+
+async def cp_streams(s, base, model, n=4) -> list:
+    return [asyncio.ensure_future(cp_chat(s, base, OPENAI_CHAT, cp_body(
+        model, p, CP_STREAM_TOKENS, True))) for p in CP_PROMPTS[:n]]
+
+
+def check_cp_traffic(label, run) -> None:
+    launches, n_layers = run["launches"], run["n_layers"]
+    if run["decode_steps"] == 0 or launches["paged"] != n_layers * run["decode_steps"]:
+        raise AssertionError("{}: paged_attention launched {} times for {} decode steps of {} "
+                             "layers".format(label, launches["paged"], run["decode_steps"],
+                                             n_layers))
+    if launches["ragged"] or launches["tree"] or run["int4_launches"]:
+        raise AssertionError("{}: kernels off this path launched: {} int4 {}".format(
+            label, launches, run["int4_launches"]))
+    if run["serve_captures"] or not run["graph_replays"]:
+        raise AssertionError("{}: serve_captures {} graph_replays {} after warmup".format(
+            label, run["serve_captures"], run["graph_replays"]))
+    if any(f != "length" for f in run["finish"]):
+        raise AssertionError("{}: a chat ended before max_tokens: {}".format(label, run["finish"]))
+
+
+def middle(values):
+    """The median of a sorted list."""
+    return values[len(values) // 2] if values else float("nan")
+
+
+def card_memory() -> int:
+    """``memory_allocated`` at a quiet point."""
+    gc.collect()
+    sync()
+    return torch.cuda.memory_allocated()
+
+
+async def add_chat2(s, base, processor, cli, engine) -> dict:
+    """The CLI adds ``chat2``, the sync daemon picks it up and it answers:
+    the seconds to the pickup, ``engine``'s live slots there, the reply and
+    ``memory_allocated`` with ``chat2`` built."""
+    t0 = time.perf_counter()
+    await asyncio.to_thread(cli, ["--yes", "model", "add", "--engine", "llm", "--endpoint",
+                                  "chat2", "--aux-config"]
+                            + ["engine.{}={}".format(k, json.dumps(v))
+                               for k, v in CP_SMALL.items()])
+    await until(lambda: "chat2" in processor._endpoints, 30, "the sync daemon to pick chat2 up")
+    picked_s = time.perf_counter() - t0
+    live = engine.active_slots
+    reply = await cp_chat(s, base, OPENAI_CHAT, cp_body("chat2", CP_PROMPTS[1], 16, False))
+    return dict(picked_up_s=picked_s, live_at_pickup=live, chat2=reply["content"],
+                memory_during=torch.cuda.memory_allocated())
+
+
+async def remove_chat2(processor, cli) -> float:
+    """The CLI removes ``chat2``; the eviction stops its engine and
+    releases it (``_release``, under ``CAPTURE_LOCK``). The engine must be
+    gone where the release returns, with the endpoint's request still held
+    here and nothing collected by this script. Returns the seconds from
+    the CLI to the release."""
+    proc = processor._engine_processor_lookup["chat2"]
+    ref = weakref.ref(proc.engine)
+    release, released = proc._release, []
+
+    def recording_release():
+        release()
+        released.append(ref() is None)
+
+    proc._release = recording_release
+    t0 = time.perf_counter()
+    await asyncio.to_thread(cli, ["--yes", "model", "remove", "--endpoint", "chat2"])
+    await until(lambda: bool(released), 60, "chat2's engine to be released")
+    freed_s = time.perf_counter() - t0
+    del proc._release
+    if "chat2" in processor._engine_processor_lookup or released != [True]:
+        raise AssertionError("chat2's engine outlived its release")
+    return freed_s
+
+
+class WatchedLock:
+    """A lock's stand-in that records how long each blocking acquire
+    waited (the eviction's wait for a capture that holds ``CAPTURE_LOCK``),
+    and signals ``waiting`` when one starts to wait."""
+
+    def __init__(self, lock):
+        self.lock, self.waits, self.waiting = lock, [], threading.Event()
+
+    def __enter__(self):
+        if not self.lock.acquire(blocking=False):
+            self.waiting.set()
+            t0 = time.perf_counter()
+            self.lock.acquire()
+            self.waits.append(time.perf_counter() - t0)
+        return self
+
+    def __exit__(self, *exc):
+        self.lock.release()
+
+
+async def direct_control_arm() -> dict:
+    """The direct app: an engine built from 13's aux block by ``build_engine``
+    (the same seed-0 weights the endpoint makes), wrapped into a processor:
+    13a's traffic, 13b's four streams and the seeded chat; token ids by
+    prompt."""
+    import aiohttp
+    from aiohttp import web
+
+    from clearml_serving_tpu_torch.llm.openai_api import build_engine
+
+    engine, tokenizer = build_engine(CP_ENGINE, device=DEV)
+    streams = record_streams(engine)
+    app = processor_app(engine, tokenizer, "chat", warmup=CP_ENGINE["warmup"])
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = "http://127.0.0.1:{}".format(runner.addresses[0][1])
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+            run = await cp_traffic(s, base, engine, "chat")
+            check_cp_traffic("13a direct", run)
+            run["streams_13a"] = {k: list(v) for k, v in streams.items()}
+            long_streams = await asyncio.gather(*(await cp_streams(s, base, "chat")))
+            seeded = await cp_chat(s, base, OPENAI_CHAT, cp_body(
+                "chat", CP_PROMPTS[5], CP_TOKENS, True, **CP_SEEDED))
+            await engine.wait_drained()
+    finally:
+        await runner.cleanup()
+    run.update(streams={k: list(v) for k, v in streams.items()},
+               long_contents=[r["content"] for r in long_streams], seeded=seeded["content"])
+    return run
+
+
+async def control_plane_runs(processor, cli) -> dict:
+    """13a-13b on the processor ``setup_processor()`` launched: the app on
+    a local port, the CLI changing the service under load."""
+    import aiohttp
+    from aiohttp import web
+
+    from clearml_serving_tpu_torch.serving import model_request_processor as mrp_module
+    from clearml_serving_tpu_torch.serving.main import build_app
+
+    proc = processor._engine_processor_lookup["chat"]
+    engine, tokenizer = proc.engine, proc.tokenizer
+    del proc
+    streams = record_streams(engine)
+    app = build_app(processor)
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = "http://127.0.0.1:{}".format(runner.addresses[0][1])
+    out = {}
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+            # 13a
+            run = await cp_traffic(s, base, engine, "chat")
+            check_cp_traffic("13a processor", run)
+            run["streams_13a"] = {k: list(v) for k, v in streams.items()}
+            async with s.post(base + "/serve/probe", json={"x": [1, 2, 3]}) as r:
+                probe = (r.status, await r.json())
+            if probe != (200, {"y": [2.0, 5.0, 8.0]}):
+                raise AssertionError("the custom endpoint answered {}".format(probe))
+            out["13a"] = run
+            # 13b: chat2 added while four streams decode on chat, then
+            # removed; a second cycle with nothing else live
+            before = card_memory()
+            live = await cp_streams(s, base, "chat")
+            await until(lambda: engine.active_slots == 4, 120, "4 streams decoding")
+            cycle = await add_chat2(s, base, processor, cli, engine)
+            live_after_chat2 = engine.active_slots
+            long_streams = await asyncio.gather(*live)
+            await engine.wait_drained()
+            freed_s = await remove_chat2(processor, cli)
+            after = card_memory()
+            again = await add_chat2(s, base, processor, cli, engine)
+            freed2_s = await remove_chat2(processor, cli)
+            after2 = card_memory()
+            out["13b"] = dict(cycle, live_after_chat2=live_after_chat2, chat2=cycle["chat2"][:24],
+                              memory_before=before, memory_after=after, freed_s=freed_s,
+                              picked_up2_s=again["picked_up_s"],
+                              memory_during2=again["memory_during"], memory_after2=after2,
+                              freed2_s=freed2_s,
+                              long_contents=[r["content"] for r in long_streams],
+                              long_finish=[r["finish"] for r in long_streams])
+            if cycle["live_at_pickup"] != 4:
+                raise AssertionError("the streams ended before the update: {} live at the "
+                                     "pickup".format(cycle["live_at_pickup"]))
+            if abs(after - before) > CP_MEMORY_SLACK or after2 > after:
+                raise AssertionError("memory_allocated {} B before chat2, {} B after its "
+                                     "removal, {} B after the second removal".format(
+                                         before, after, after2))
+            # 13b: a serve-time capture (the seeded variant) while the
+            # custom endpoint is evicted: the capture holds CAPTURE_LOCK as
+            # it enters the graph, the eviction starts there and its
+            # release waits on the lock; the capture goes on meanwhile
+            watched = WatchedLock(mrp_module.CAPTURE_LOCK)
+            mrp_module.CAPTURE_LOCK = watched
+            real_graph = torch.cuda.graph
+            evicted = {}
+
+            def evict() -> None:
+                evicted["start"] = time.perf_counter()
+                cli(["--yes", "model", "remove", "--endpoint", "probe"])
+                processor.deserialize()
+                evicted["end"] = time.perf_counter()
+
+            class graph_beside_eviction:
+                """``torch.cuda.graph`` that starts the eviction as the
+                capture, holding the lock, enters the graph, and waits
+                until the eviction's release waits on the lock."""
+
+                def __init__(self, *args, **kwargs):
+                    self.ctx = real_graph(*args, **kwargs)
+
+                def __enter__(self):
+                    evicted["thread"] = threading.Thread(target=evict)
+                    evicted["thread"].start()
+                    evicted["release_pending"] = watched.waiting.wait(30.0)
+                    evicted["capture_start"] = time.perf_counter()
+                    return self.ctx.__enter__()
+
+                def __exit__(self, *exc):
+                    try:
+                        return self.ctx.__exit__(*exc)
+                    finally:
+                        evicted["capture_end"] = time.perf_counter()
+
+            captures0 = engine.counters["serve_captures"]
+            failures0 = engine.counters["step_failures"]
+            torch.cuda.graph = graph_beside_eviction
+            try:
+                seeded = await cp_chat(s, base, OPENAI_CHAT, cp_body(
+                    "chat", CP_PROMPTS[5], CP_TOKENS, True, **CP_SEEDED))
+                await asyncio.to_thread(evicted["thread"].join)
+            finally:
+                torch.cuda.graph = real_graph
+                mrp_module.CAPTURE_LOCK = watched.lock
+            await engine.wait_drained()
+            out["13b_capture"] = dict(
+                seeded=seeded["content"],
+                capture_ms=(evicted["capture_end"] - evicted["capture_start"]) * 1e3,
+                eviction_ms=(evicted["end"] - evicted["start"]) * 1e3,
+                release_pending_in_capture=evicted["release_pending"],
+                release_waits_ms=[w * 1e3 for w in watched.waits],
+                serve_captures=engine.counters["serve_captures"] - captures0,
+                step_failures=engine.counters["step_failures"] - failures0)
+            if "probe" in processor._engine_processor_lookup:
+                raise AssertionError("the custom endpoint was not evicted")
+            if (out["13b_capture"]["serve_captures"] != 1 or out["13b_capture"]["step_failures"]
+                    or not evicted["release_pending"] or not watched.waits):
+                raise AssertionError("the seeded capture beside the eviction: {}".format(
+                    out["13b_capture"]))
+    finally:
+        await runner.cleanup()
+    out["streams"] = {k: list(v) for k, v in streams.items()}
+    return out
+
+
+def broker_packets(broker_dir: str, url: str, want: int, timeout: float = 20.0) -> list:
+    """The stats packets of endpoint ``url`` in the file broker, once
+    ``want`` have arrived (the sender drains its queue every 5 s)."""
+    from clearml_serving_tpu_torch.statistics.broker import make_consumer
+
+    consumer, packets = make_consumer("file://" + broker_dir), []
+    t0 = time.perf_counter()
+    while True:
+        packets += [p for p in consumer.poll() if p.get("_url") == url]
+        if len(packets) >= want or time.perf_counter() - t0 > timeout:
+            return packets
+        time.sleep(0.25)
+
+
+def phase_control_plane(card: str) -> dict:
+    """Phase 13 (module docstring): the direct app first, then the CLI, the
+    processor's launch and the runs behind its router."""
+    from clearml_serving_tpu_torch.__main__ import cli
+    from clearml_serving_tpu_torch.serving.main import setup_processor
+    from clearml_serving_tpu_torch.state import StateStore
+
+    t0 = time.perf_counter()
+    direct = asyncio.run(direct_control_arm())
+    direct_s = time.perf_counter() - t0
+    release_card_memory()
+    root = state_dir()
+    broker = os.path.join(root, "broker")
+    env = {"TPUSERVE_STATE_ROOT": root, "TPUSERVE_POLL_FREQ": str(1.0 / 60)}
+    saved = {k: os.environ.get(k) for k in list(env) + ["TPUSERVE_SERVICE_ID"]}
+    os.environ.update(env)
+    processor = None
+    try:
+        probe = os.path.join(root, "probe_preprocess.py")
+        with open(probe, "w") as f:
+            f.write(CP_PROBE_CODE)
+        steps = [["create", "--name", "chip-smoke"],
+                 ["--yes", "config", "--metric-log-freq", "1",
+                  "--stats-broker", "file://" + broker],
+                 ["--yes", "model", "add", "--engine", "llm", "--endpoint", "chat",
+                  "--aux-config"] + ["engine.{}={}".format(k, json.dumps(v))
+                                     for k, v in CP_ENGINE.items()],
+                 ["--yes", "model", "add", "--engine", "custom", "--endpoint", "probe",
+                  "--preprocess", probe]]
+        for argv in steps:
+            if cli(argv) != 0:
+                raise AssertionError("the CLI failed: {}".format(argv))
+        os.environ["TPUSERVE_SERVICE_ID"] = StateStore(root).find_service("chip-smoke").id
+        t0 = time.perf_counter()
+        processor = setup_processor(device=DEV)
+        sync()  # the endpoint's weights are drawn on the card asynchronously
+        launch_s = time.perf_counter() - t0
+        if set(processor._engine_processor_lookup) != {"chat", "probe"}:
+            raise AssertionError("the launch built {}".format(
+                sorted(processor._engine_processor_lookup)))
+        t0 = time.perf_counter()
+        runs = asyncio.run(control_plane_runs(processor, cli))
+        runs_s = time.perf_counter() - t0
+        # one stats packet per chat request: the warm-up, 13a's nine, 13b's
+        # four streams and the seeded chat
+        n_chat = 1 + len(CP_PROMPTS) + 1 + 4 + 1
+        packets = broker_packets(broker, "chat", n_chat)
+    finally:
+        if processor is not None:
+            processor.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    # the same token ids as the direct engine, by prompt: 13a's chats (and
+    # the warm-up), then 13b's streams across the update and the seeded
+    # stream across the eviction, which replace their prompts' entries
+    a = runs["13a"]
+    for label, got, want in (("13a", a["streams_13a"], direct["streams_13a"]),
+                             ("13b", runs["streams"], direct["streams"])):
+        # the warmup's own prompts are recorded too
+        if set(got) != set(want) or len(got) < len(CP_PROMPTS) + 1:
+            raise AssertionError("{}: the recorded prompts differ: {} and {}".format(
+                label, len(got), len(want)))
+        differ = [k for k in got if got[k] != want[k]]
+        if differ:
+            raise AssertionError("{}: token ids differ from the direct engine's on {} of {} "
+                                 "prompts".format(label, len(differ), len(got)))
+    if a["contents"] != direct["contents"]:
+        raise AssertionError("13a contents differ from the direct app's")
+    if runs["13b"]["long_contents"] != direct["long_contents"]:
+        raise AssertionError("13b's streams across the update differ from the direct app's")
+    if runs["13b_capture"]["seeded"] != direct["seeded"]:
+        raise AssertionError("the seeded stream across the eviction differs from the direct "
+                             "app's")
+    missing = [p for p in packets if not {"gen_tokens", "prompt_tokens", "ttft"} <= set(p)]
+    if len(packets) != n_chat or missing:
+        raise AssertionError("{} stats packets for {} chat requests, {} without the engine's "
+                             "keys".format(len(packets), n_chat, len(missing)))
+    out = dict(launch_s=launch_s, direct_s=direct_s, runs_s=runs_s,
+               warm_s={"direct": direct["warm_s"], "processor": a["warm_s"]},
+               ttft_ms={"direct": direct["ttft_ms"], "processor": a["ttft_ms"]},
+               step_ms={"direct": direct["step_ms"], "processor": a["step_ms"]},
+               decode_steps={"direct": direct["decode_steps"], "processor": a["decode_steps"]},
+               launches=a["launches"]["paged"], packets=len(packets),
+               contents={"direct": [t[:24] for t in direct["contents"]],
+                         "processor": [t[:24] for t in a["contents"]]},
+               packet_keys=sorted(packets[0]), **{k: runs[k] for k in ("13b", "13b_capture")})
+    out["13b"] = dict(out["13b"], long_contents=[t[:24] for t in out["13b"]["long_contents"]])
+    log("  13a: contents (processor):", json.dumps([t[:24] for t in a["contents"]]))
+    log("  13a: contents (direct):   ", json.dumps([t[:24] for t in direct["contents"]]))
+    first = next(iter(sorted(a["streams_13a"])))
+    log("  13a: first token ids of one chat, processor {} / direct {}".format(
+        a["streams_13a"][first][:8], direct["streams_13a"][first][:8]))
+    log("  13a: launch {:.1f} s (both endpoints built); first request (warmup) {:.1f} s "
+        "processor / {:.1f} s direct; TTFT median {:.2f} ms processor / {:.2f} ms direct; "
+        "{:.3f} ms a decode step processor / {:.3f} direct; paged_attention launches {} = "
+        "{} layers x {} decode steps; serve_captures 0; {} broker packets with {} ({})".format(
+            launch_s, a["warm_s"], direct["warm_s"], middle(a["ttft_ms"]),
+            middle(direct["ttft_ms"]), a["step_ms"], direct["step_ms"], a["launches"]["paged"],
+            a["n_layers"], a["decode_steps"], len(packets), sorted(packets[0]), card))
+    b = runs["13b"]
+    log("  13b: chat2 picked up {:.2f} s after the CLI with {} streams live ({} after chat2 "
+        "answered); streams finished {}; memory_allocated before chat2 {} B, during {} B, "
+        "after its removal {} B ({:+d} B; released {:.2f} s after the CLI); second cycle: "
+        "picked up {:.2f} s, during {} B, after {} B ({:+d} B against the first removal; "
+        "released {:.2f} s) ({})".format(
+            b["picked_up_s"], b["live_at_pickup"], b["live_after_chat2"], b["long_finish"],
+            b["memory_before"], b["memory_during"], b["memory_after"],
+            b["memory_after"] - b["memory_before"], b["freed_s"], b["picked_up2_s"],
+            b["memory_during2"], b["memory_after2"], b["memory_after2"] - b["memory_after"],
+            b["freed2_s"], card))
+    cap = runs["13b_capture"]
+    log("  13b: the seeded variant captured in {:.1f} ms with the eviction's release pending "
+        "on CAPTURE_LOCK (it waited {} ms; the eviction took {:.1f} ms); seeded stream equal to "
+        "the direct app's".format(cap["capture_ms"], cap["release_waits_ms"],
+                                  cap["eviction_ms"]))
+    return out
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -4874,7 +5423,7 @@ def main() -> int:
     serial_prof = phase_profile(params, pipeline_depth=1, cuda_graphs=False)
     # the steadier traffic in each arm of phase 5e
     steady_profs = [phase_profile(params, pipeline_depth=depth, cuda_graphs=cuda_graphs,
-                                  traffic=PIPELINE_TRAFFIC[1])
+                                  traffic=PROFILED_STEADY)
                     for _arm, depth, cuda_graphs in PIPELINE_ARMS]
     ragged_prof = phase_profile(params, "ragged")
     tree_prof = phase_profile(params, "ragged-tree")
@@ -4906,6 +5455,10 @@ def main() -> int:
         "in admission workers, the prefill gate, chunked prefill")
     admission = phase_admission(params, qparams, card)
     mark("12")
+    log("phase 13: the control plane in front of the LLM route: the CLI, the processor and "
+        "its sync daemon, the /serve/{tail} router, llama3-8b full width int8 KV")
+    control = phase_control_plane(card)
+    mark("13")
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -4967,6 +5520,9 @@ def main() -> int:
         # phase 12a: decode replays beside admissions prefilling in workers
         # (the gate at 2, chunked prefill 256)
         "launches_admission": admission["runs"]["gate2_chunked"]["launches"],
+        # phase 13a: decode replays of the endpoint the processor built
+        # from the CLI's service, behind the router
+        "launches_control_plane": control["launches"],
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -5092,7 +5648,8 @@ def main() -> int:
                                   "int4_profile": int4_prof,
                                   "lifecycle": lifecycle, "prefix_cache": prefix,
                                   "kv_tier": tier, "sampling": sampling,
-                                  "guided": guided, "admission": admission}))
+                                  "guided": guided, "admission": admission,
+                                  "control_plane": control}))
     log("seconds by phase:", json.dumps(seconds))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)

@@ -53,12 +53,15 @@ the graph's lifetime.
 
 from __future__ import annotations
 
+import concurrent.futures
 import gc
+import threading
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..device import CAPTURE_LOCK
 from ..ops import launch_counts
 from ..ops.fused_matmul import fused_int4_matmul
 from ..ops.paged_attention import paged_attention
@@ -76,6 +79,42 @@ from .sampling import (
 
 # the kernels a chunk launches, whose ``launches`` counts a replay adds to
 COUNTED_KERNELS = (paged_attention, fused_int4_matmul)
+
+
+# device index -> (warm-up stream, capture stream): every capture on the
+# device warms up on the first and captures on the second. cuBLAS keeps a
+# 32 MiB workspace per (thread's handle, stream) pair for the life of the
+# process, so a new stream per capture would leave one more behind each
+# time. The graphs all use the capture stream's workspace; an eager run on
+# that stream would write it while another engine's graph replays.
+_CAPTURE_STREAMS: Dict[int, tuple] = {}
+
+
+def _capture_streams(dev: torch.device) -> tuple:
+    """The device's warm-up and capture streams (made at its first capture;
+    the caller holds ``CAPTURE_LOCK``)."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = (torch.cuda.Stream(index), torch.cuda.Stream(index))
+    return _CAPTURE_STREAMS[index]
+
+
+# The one thread every capture runs on, made at the first capture: each
+# thread has its own cuBLAS handle, so captures from the engines' worker
+# threads would each leave a workspace of their own on the capture stream.
+_CAPTURE_THREAD: list = []
+_CAPTURE_THREAD_MADE = threading.Lock()
+
+
+def _on_capture_thread(fn, *args):
+    """Run ``fn(*args)`` on the capture thread and return its result (its
+    exception is raised here). The caller must not hold ``CAPTURE_LOCK``,
+    which the capture takes."""
+    with _CAPTURE_THREAD_MADE:
+        if not _CAPTURE_THREAD:
+            _CAPTURE_THREAD.append(concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="cuda-graph-capture"))
+    return _CAPTURE_THREAD[0].submit(fn, *args).result()
 
 
 class ChunkVariant(NamedTuple):
@@ -329,38 +368,49 @@ class DecodeGraphs:
         flight on another; ``"thread_local"`` lets other threads keep using
         the card meanwhile (a capture while serving)."""
         variant = _variant(greedy)
-        dev = self.model.device
-        stream = torch.cuda.current_stream(dev)
-        # null coordinates and no active row: the warm-up run writes only
-        # the null page and adds nothing to the extras' histogram
-        for name in ("page_table", "lengths0", "write_pages", "write_offsets", "active"):
-            self.views[name].zero_()
-        before = _own_launches()
-        # one eager run first, on a side stream: kernel loads, library
-        # handles and workspaces are set up outside the capture
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            self._run(variant)
-        stream.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        start = _own_launches()
-        # the cycle collector stays off during the capture: a dead engine's
-        # graphs and events it would free there release CUDA resources from
-        # inside the capture, which invalidates it
-        gc_was_on = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
-                out = self._run(variant)
-        finally:
-            if gc_was_on:
-                gc.enable()
-        now = _own_launches()
-        per_replay = [a - b for a, b in zip(now, start)]
-        for fn, was, count in zip(COUNTED_KERNELS, before, now):
-            launch_counts.add(fn, was - count)
-        self._graphs[variant] = (graph, out, per_replay)
+        stream = torch.cuda.current_stream(self.model.device)
+        _on_capture_thread(self._capture_on, variant, stream, capture_error_mode)
+
+    def _capture_on(self, variant: ChunkVariant, stream: "torch.cuda.Stream",
+                    capture_error_mode: str) -> None:
+        """``capture``'s body, on the capture thread, ordered after the
+        caller's ``stream``."""
+        with torch.cuda.stream(stream):
+            dev = self.model.device
+            # null coordinates and no active row: the warm-up run writes only
+            # the null page and adds nothing to the extras' histogram
+            for name in ("page_table", "lengths0", "write_pages", "write_offsets", "active"):
+                self.views[name].zero_()
+            before = _own_launches()
+            graph = torch.cuda.CUDAGraph()
+            # the lock keeps another thread's release of a dropped engine
+            # out of the capture
+            with CAPTURE_LOCK:
+                warm, side = _capture_streams(dev)
+                # one eager run first, on the warm-up stream: kernel loads
+                # and library handles are set up outside the capture
+                warm.wait_stream(stream)
+                with torch.cuda.stream(warm):
+                    self._run(variant)
+                stream.wait_stream(warm)
+                start = _own_launches()
+                # the cycle collector stays off during the capture: a dead
+                # engine's graphs and events it would free there release
+                # CUDA resources from inside the capture, which invalidates it
+                gc_was_on = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(graph, stream=side,
+                                          capture_error_mode=capture_error_mode):
+                        out = self._run(variant)
+                finally:
+                    if gc_was_on:
+                        gc.enable()
+            now = _own_launches()
+            per_replay = [a - b for a, b in zip(now, start)]
+            for fn, was, count in zip(COUNTED_KERNELS, before, now):
+                launch_counts.add(fn, was - count)
+            self._graphs[variant] = (graph, out, per_replay)
 
     def replay(self, greedy, host_i32: torch.Tensor, host_f32: torch.Tensor,
                noise: Optional[torch.Tensor]):

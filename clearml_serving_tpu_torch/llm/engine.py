@@ -1921,6 +1921,22 @@ class LLMEngineCore:
             request.out_queue.put_nowait(_FINISHED)
         self._wake_loop()  # an idle loop runs its exit now
 
+    async def stop_when_idle(self) -> None:
+        """Stop once the requests in flight have ended: wait for the loop
+        to drain (a request that arrives meanwhile restarts it and is
+        waited for too), then ``stop()``, and return once the loop and the
+        watchdog have exited. Nothing then holds the engine but its
+        owner (the processor's eviction)."""
+        while self._loop_task is not None and not self._loop_task.done():
+            await asyncio.wait([self._loop_task])
+        self.stop()
+        if self._watchdog_task is not None:
+            self._watchdog_task.cancel()
+        pending = [t for t in (self._loop_task, self._watchdog_task)
+                   if t is not None and not t.done()]
+        if pending:
+            await asyncio.wait(pending)
+
     @property
     def active_slots(self) -> int:
         return sum(1 for r in self._slot_req if r is not None)

@@ -1,10 +1,14 @@
-"""OpenAI-compatible routes over the port's engine.
+"""OpenAI-compatible LLM engine endpoint (the ``llm`` engine type).
 
 Counterpart of ``clearml_serving_tpu/llm/openai_api.py``'s
-``LLMEngineRequest`` for this slice: the engine is built from the same aux
-``engine`` block (``preset``, ``config``, ``cache``, ``kv_quant``,
-``max_batch``, ``max_seq_len``, ``decode_steps``, ``page_size``,
-``num_pages``, ``prefill_buckets``, ``pipeline_depth``, ``scheduler``,
+``LLMEngineRequest``: a ``BaseEngineRequest`` registered as ``llm``, which
+the processor builds per endpoint (``serving/model_request_processor.py``)
+and the router dispatches to by serve type
+(``/serve/openai/v1/chat/completions`` -> ``v1_chat_completions``; a plain
+``POST /serve/<endpoint>`` is a non-streaming chat completion). The engine
+is built on the processor's device from the endpoint's aux ``engine``
+block (``preset``, ``config``, ``cache``, ``kv_quant``, ``max_batch``,
+``max_seq_len``, ``decode_steps``, ``page_size``, ``num_pages``, ``prefill_buckets``, ``pipeline_depth``, ``scheduler``,
 ``step_token_budget``, ``ragged_decode_steps``, ``speculation``,
 ``spec_k``, ``spec_ngram``, ``spec_sampling``, ``spec_tree``,
 ``spec_branch``, ``weight_quant`` and its legacy alias ``quantize``,
@@ -18,7 +22,12 @@ request lifecycle's ``max_pending``, ``queue_timeout``, ``ttft_timeout``,
 ``brownout_dwell`` and ``default_priority``, ON by default as in the
 reference: ``max_pending = max(16, 4 * max_batch)``, a 30 s watchdog,
 preemption, and brownout with the bound; ``logprobs_k``, the logprob top-k ceiling, 20),
-and the routes answer with the reference's response shapes:
+and the aux ``chat`` block (its ``response_role``) sits beside them.
+Weights are random, made from ``seed`` (the reference's preset mode): a
+model bundle has no loader in the port yet. The routes answer with the
+reference's response shapes, and report the reference's per-request stats
+(``gen_tokens``, ``prompt_tokens``, ``ttft``) through ``collect_fn``; a
+stream reports when it ends (``StreamingOutput.on_complete``):
 
 - ``chat/completions``: ``n`` choices (seed + i per choice), streaming or
   not (``stream_options.include_usage``), ``max_tokens``,
@@ -40,8 +49,7 @@ and the routes answer with the reference's response shapes:
   ``echo``, ``best_of`` (ranked by cumulative logprob), and ``max_tokens:
   0`` (prompt scoring: ``echo`` + ``logprobs`` through the engine's
   ``score_prompt``); ``suffix`` is refused;
-- ``tokenize``, ``detokenize``, ``models`` and (``serving/main.py``)
-  ``version``.
+- ``tokenize``, ``detokenize``, ``models`` and ``version``.
 
 Admission is checked before a stream's headers, so a shed or a spent
 budget is a 429 or 408, never a mid-stream error. Text handling
@@ -56,6 +64,7 @@ schema is one, before any stream header.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import logging
 import time
@@ -64,9 +73,12 @@ from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 
 import torch
 
-from ..device import resolve_device
+from ..device import CAPTURE_LOCK, resolve_device
+from ..engines.base import BaseEngineRequest, EndpointModelError, register_engine
 from ..models.llama import Llama, init_params, resolve_config
 from ..ops.quant import detect_weight_quant, quantize_llama_params
+from ..serving.endpoints import ModelEndpoint
+from ..serving.responses import StreamingOutput
 from ..version import __version__
 from .engine import PRIORITY_CLASSES, GenRequest, LLMEngineCore
 from .guided import GuidedSpec, _regex_escape_literal
@@ -309,22 +321,80 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     return engine, tokenizer
 
 
-class LLMEngineRequest:
-    """One engine per served model: the chat, completions, tokenize,
-    detokenize and models routes. With ``warmup`` other than "off"
-    (``warmup_mode``), the first requests wait for the engine's warmup
-    sweep. ``default_priority`` (the aux knob, read by
-    ``default_priority``) is the class of requests whose body names
-    none."""
+@register_engine("llm", modules=["torch"])
+class LLMEngineRequest(BaseEngineRequest):
+    """One engine per endpoint per process: the chat, completions, tokenize,
+    detokenize and models routes. With aux ``engine.warmup`` other than
+    "off" (``warmup_mode``), the first requests wait for the engine's warmup
+    sweep; ``engine.default_priority`` (``default_priority``) is the class
+    of requests whose body names none. The engine binds its loop and
+    watchdog tasks to the serving loop at the first request, so an
+    endpoint built before the loop runs (the processor's launch) serves
+    from it."""
 
-    def __init__(self, engine: LLMEngineCore, tokenizer, model_name: str = "model",
-                 warmup: str = "off", default_priority: str = "interactive"):
-        self.engine = engine
-        self.tokenizer = tokenizer
-        self.model_name = model_name
-        self._default_priority = default_priority
-        self._warmup_needed = warmup != "off"
+    is_preprocess_async = True
+    is_process_async = True
+    is_postprocess_async = True
+
+    def __init__(self, *args, **kwargs):
+        self.engine: Optional[LLMEngineCore] = None
+        self.tokenizer = None
+        self._model_name = "model"
+        # the aux engine.chat block (the reference's vLLM chat settings):
+        # response_role
+        self._chat_cfg: Dict[str, Any] = {}
+        self._default_priority = "interactive"
+        self._warmup_needed = False
         self._warmup_task = None
+        self._retiring = False
+        self._retire_task = None
+        super().__init__(*args, **kwargs)
+
+    @classmethod
+    def wrap(cls, engine: LLMEngineCore, tokenizer, serving_url: str,
+             engine_cfg: Optional[Dict[str, Any]] = None, **kwargs) -> "LLMEngineRequest":
+        """The endpoint ``serving_url`` over an engine the caller built (the
+        tests' and ``chip_smoke.py``'s carried weights). ``engine_cfg`` is
+        the aux ``engine`` block the endpoint records; only its endpoint
+        knobs (``warmup``, ``default_priority``, ``chat``) are read, since
+        the engine exists. The processor's path builds the engine from the
+        block instead."""
+        endpoint = ModelEndpoint(engine_type="llm", serving_url=serving_url,
+                                 auxiliary_cfg={"engine": dict(engine_cfg or {})})
+        self = cls.__new__(cls)
+        self._carried = (engine, tokenizer)
+        self.__init__(endpoint, **kwargs)
+        return self
+
+    def _native_load(self) -> Any:
+        aux = self.endpoint.auxiliary_cfg if isinstance(self.endpoint.auxiliary_cfg, dict) else {}
+        unknown = sorted(k for k in aux if k != "engine")
+        if unknown:
+            raise ValueError("aux config keys {} are not supported by the PyTorch port "
+                             "yet".format(unknown))
+        engine_cfg = dict(aux.get("engine") or {})
+        self._chat_cfg = dict(engine_cfg.pop("chat", None) or {})
+        # endpoint knobs, refused at load when mistyped
+        warmup = warmup_mode(engine_cfg)
+        self._default_priority = default_priority(engine_cfg)
+        carried = getattr(self, "_carried", None)
+        if carried is not None:
+            self.engine, self.tokenizer = carried
+            self._carried = None
+        elif self._model_local_path:
+            raise EndpointModelError(
+                "llm endpoint {!r} names a model bundle; the PyTorch port has no loader "
+                "for the bundle format yet: serve aux_config engine.preset".format(
+                    self.endpoint.serving_url))
+        elif engine_cfg.get("preset"):
+            self.engine, self.tokenizer = build_engine(engine_cfg, device=self.device)
+        else:
+            raise EndpointModelError(
+                "llm endpoint {!r} needs a model bundle or aux_config engine.preset".format(
+                    self.endpoint.serving_url))
+        self._warmup_needed = warmup != "off"
+        self._model_name = self.endpoint.serving_url
+        return self.engine
 
     async def _ensure_warm(self) -> None:
         """First arrivals share one warmup task and wait for it; afterwards
@@ -341,6 +411,53 @@ class LLMEngineRequest:
             logging.getLogger(__name__).warning("engine warmup failed: %s", ex,
                                                 exc_info=True)
         self._warmup_needed = False
+
+    # -- eviction --------------------------------------------------------------
+
+    def retire(self) -> None:
+        """The processor dropped this endpoint (removed or changed; called
+        under ``CAPTURE_LOCK`` on the sync thread). The engine's loop and
+        watchdog tasks hold it, so the collector alone would never free
+        it: once its in-flight requests end it is stopped, and the last
+        reference drops under ``CAPTURE_LOCK``, outside any capture. An
+        engine that never served is released now."""
+        engine = self.engine
+        if engine is None or self._retiring:
+            return
+        self._retiring = True
+        task = engine._loop_task or engine._watchdog_task
+        loop = task.get_loop() if task is not None else None
+        if loop is None or loop.is_closed():
+            engine.stop()
+            self._drop_engine()
+            return
+        loop.call_soon_threadsafe(self._start_retire)
+
+    def _start_retire(self) -> None:
+        # held: the loop keeps only weak references to tasks
+        self._retire_task = asyncio.get_running_loop().create_task(self._retire())
+
+    async def _retire(self) -> None:
+        try:
+            await self.engine.stop_when_idle()
+            if self._warmup_task is not None:
+                await asyncio.wait([self._warmup_task])
+            await asyncio.to_thread(self._release)
+        except Exception:
+            logging.getLogger(__name__).exception("retiring the engine of endpoint %r failed",
+                                                  self.endpoint.serving_url)
+
+    def _release(self) -> None:
+        with CAPTURE_LOCK:
+            self._drop_engine()
+            gc.collect()
+
+    def _drop_engine(self) -> None:
+        """Drop every reference this request holds to its engine
+        (``_load_model`` keeps it as ``_model`` too)."""
+        self.engine = None
+        self._model = None
+        self._warmup_task = None
 
     # -- request parsing -----------------------------------------------------
 
@@ -449,6 +566,18 @@ class LLMEngineRequest:
                 r.seed = r.seed + i
             requests.append(r)
         return requests
+
+    @staticmethod
+    def _report_gen_stats(request: GenRequest, collect_fn) -> None:
+        """TTFT and token counts into the sampled stats (the reference's
+        per-endpoint metrics). Streams report when their body ends: the
+        processor defers their packet to ``StreamingOutput.on_complete``."""
+        if collect_fn is None:
+            return
+        stats = {"gen_tokens": request.produced, "prompt_tokens": request.prompt_len}
+        if request.first_token_at is not None:
+            stats["ttft"] = round(request.first_token_at - request.submitted_at, 6)
+        collect_fn(stats)
 
     @staticmethod
     def _stops_from_body(body: Dict[str, Any]) -> List[str]:
@@ -667,8 +796,8 @@ class LLMEngineRequest:
         lp["text_offset"].insert(0, 0)
         return lp, offset
 
-    async def _fanout_stream(self, requests: List[GenRequest], stops: List[str], *,
-                             head, delta, finish, usage) -> AsyncIterator[str]:
+    async def _fanout_stream(self, requests: List[GenRequest], stops: List[str], collect_fn,
+                             *, head, delta, finish, usage) -> AsyncIterator[str]:
         """Multi-choice SSE (chat and completions): one ``_stream_deltas``
         pump per choice feeds a queue, chunks interleave by arrival tagged
         with their choice's index; ``head`` leads, ``usage()`` (or None)
@@ -710,6 +839,7 @@ class LLMEngineRequest:
                 t.cancel()
             for r in requests:
                 r.cancel()
+                self._report_gen_stats(r, collect_fn)
 
     def _admit_all(self, requests: List[GenRequest]) -> None:
         """Validation and admission before any header: a refusal, a shed or
@@ -721,8 +851,9 @@ class LLMEngineRequest:
 
     # -- routes --------------------------------------------------------------
 
-    async def v1_chat_completions(self, body: Dict[str, Any]):
-        """A response dict, or an async iterator of SSE lines when
+    async def v1_chat_completions(self, body: Dict[str, Any], state: Optional[dict] = None,
+                                  collect_fn=None):
+        """A response dict, or a ``StreamingOutput`` of SSE lines when
         ``stream`` is set (validated before the first line)."""
         self._check_fields(body, CHAT_FIELDS)
         messages = body.get("messages") or []
@@ -745,10 +876,12 @@ class LLMEngineRequest:
         prompt = render_chat_with_tools(self.tokenizer, messages, tools_render)
         prompt_ids = self.tokenizer.encode_chat(prompt)
         stops = self._stops_from_body(body)
-        model = body.get("model", self.model_name)
+        model = body.get("model", self._model_name)
         completion_id = _gen_id("chatcmpl")
         created = _now()
-        role = str(body.get("response_role") or "assistant")
+        # the body's response_role, else the endpoint's aux chat block's
+        role = str(body.get("response_role") or self._chat_cfg.get("response_role")
+                   or "assistant")
         include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
 
         def chat_chunk(choice, usage="omit") -> str:
@@ -773,7 +906,8 @@ class LLMEngineRequest:
 
         if body.get("stream") and tools:
             return self._stream_tool_chat(requests[0], stops, tool_mode, tool_names,
-                                          single_call, role, chat_chunk, include_usage)
+                                          single_call, role, chat_chunk, include_usage,
+                                          collect_fn)
         if body.get("stream"):
             def chat_delta(i, req, piece):
                 choice = {"index": i, "delta": {"content": piece["delta"]},
@@ -796,13 +930,15 @@ class LLMEngineRequest:
                     "prompt_tokens": requests[0].prompt_len, "completion_tokens": total,
                     "total_tokens": requests[0].prompt_len + total})
 
-            return self._fanout_stream(
-                requests, stops,
+            return StreamingOutput(self._fanout_stream(
+                requests, stops, collect_fn,
                 head=[chat_chunk({"index": i, "delta": {"role": role}, "finish_reason": None})
                       for i in range(len(requests))],
-                delta=chat_delta, finish=chat_finish, usage=chat_usage)
+                delta=chat_delta, finish=chat_finish, usage=chat_usage))
 
         results = await asyncio.gather(*[self._collect_text(r, stops) for r in requests])
+        for r in requests:
+            self._report_gen_stats(r, collect_fn)
         plp_payload = None
         if plp_n is not None:
             # one scoring pass, shared by the choices
@@ -853,7 +989,7 @@ class LLMEngineRequest:
 
     def _stream_tool_chat(self, request: GenRequest, stops: List[str], tool_mode: str,
                           tool_names: List[str], single_call: bool, role: str, chat_chunk,
-                          include_usage: bool) -> AsyncIterator[str]:
+                          include_usage: bool, collect_fn) -> StreamingOutput:
         """One streamed choice of a chat with tools (the reference's mode
         machine): "buffer" withholds a certain or suspected tool call to
         the end (required and forced always); "sniff" decides from the
@@ -983,10 +1119,12 @@ class LLMEngineRequest:
                         "total_tokens": request.prompt_len + request.produced})
                 yield "data: [DONE]\n\n"
             finally:
-                # on completion and on a client disconnect: free the slot
+                # on completion and on a client disconnect: free the slot,
+                # then report the stream's stats
                 request.cancel()
+                self._report_gen_stats(request, collect_fn)
 
-        return sse()
+        return StreamingOutput(sse())
 
     def _check_token_ids(self, ids: List[int]) -> List[int]:
         vocab = self.engine.model.vocab_size
@@ -1010,8 +1148,9 @@ class LLMEngineRequest:
             return [self.tokenizer.encode(str(p)) for p in prompt]
         return [self.tokenizer.encode(str(prompt))]
 
-    async def v1_completions(self, body: Dict[str, Any]):
-        """A response dict, or an async iterator of SSE lines when
+    async def v1_completions(self, body: Dict[str, Any], state: Optional[dict] = None,
+                             collect_fn=None):
+        """A response dict, or a ``StreamingOutput`` of SSE lines when
         ``stream`` is set (one prompt; validated before the first line)."""
         self._check_fields(body, COMPLETION_FIELDS)
         if body.get("suffix") is not None:
@@ -1020,7 +1159,7 @@ class LLMEngineRequest:
             raise ValueError("suffix is not supported (no fill-in-middle template)")
         prompt_id_lists = self._encode_prompts(body.get("prompt") or "")
         stops = self._stops_from_body(body)
-        model = body.get("model", self.model_name)
+        model = body.get("model", self._model_name)
         completion_id = _gen_id("cmpl")
         created = _now()
         plp_n = self._prompt_logprobs_n(body)  # validated before any device work
@@ -1030,11 +1169,11 @@ class LLMEngineRequest:
         if raw_max is not None and int(raw_max) == 0:
             # the prompt-scoring call: nothing generated
             return await self._zero_completion(body, prompt_id_lists, model, completion_id,
-                                               created, plp_n)
+                                               created, collect_fn, plp_n)
         echo = bool(body.get("echo"))
         if body.get("stream"):
             return await self._stream_completion(body, prompt_id_lists, stops, model,
-                                                 completion_id, created, echo)
+                                                 completion_id, created, echo, collect_fn)
 
         # n choices per prompt (choice index prompt-major); best_of
         # candidates per prompt, the top n by cumulative logprob returned,
@@ -1056,6 +1195,8 @@ class LLMEngineRequest:
         self._admit_all(requests)
         await self._ensure_warm()
         results = await asyncio.gather(*[self._collect_text(r, stops) for r in requests])
+        for r in requests:
+            self._report_gen_stats(r, collect_fn)
         if best_of != n:
             def cumulative_lp(i: int) -> float:
                 # +1 keeps the finishing token's entry (EOS is stripped from
@@ -1127,7 +1268,7 @@ class LLMEngineRequest:
         }
 
     async def _stream_completion(self, body, prompt_id_lists, stops, model, completion_id,
-                                 created, echo: bool):
+                                 created, echo: bool, collect_fn):
         """Streamed completions of one prompt with n choices; ``echo`` leads
         each choice with the prompt text (and its scored entries)."""
         if len(prompt_id_lists) != 1:
@@ -1185,15 +1326,15 @@ class LLMEngineRequest:
                     if echo_lp is not None:
                         first["logprobs"] = {k: list(v) for k, v in echo_lp.items()}
                     head.append(cmpl_chunk([first]))
-            async for chunk in self._fanout_stream(requests, stops, head=head,
+            async for chunk in self._fanout_stream(requests, stops, collect_fn, head=head,
                                                    delta=cmpl_delta, finish=cmpl_finish,
                                                    usage=cmpl_usage):
                 yield chunk
 
-        return sse()
+        return StreamingOutput(sse())
 
     async def _zero_completion(self, body, prompt_id_lists, model, completion_id, created,
-                               plp_n=None):
+                               collect_fn=None, plp_n=None):
         """``max_tokens: 0`` completions: nothing is generated; ``echo`` +
         ``logprobs`` and ``prompt_logprobs`` still apply (one scoring pass
         per prompt, off the event loop). The canonical prompt-scoring
@@ -1236,6 +1377,9 @@ class LLMEngineRequest:
                 if plp_payload is not None:
                     choice["prompt_logprobs"] = plp_payload
                 choices.append(choice)
+        if collect_fn is not None:
+            collect_fn({"gen_tokens": 0,
+                        "prompt_tokens": sum(len(i) for i in prompt_id_lists)})
         prompt_tokens = sum(len(i) for i in prompt_id_lists)
         out = {
             "id": completion_id,
@@ -1263,25 +1407,51 @@ class LLMEngineRequest:
                     "model": model, "choices": [], "usage": out["usage"]}))
             yield "data: [DONE]\n\n"
 
-        return sse()
+        return StreamingOutput(sse())
 
-    async def v1_models(self, body: Dict[str, Any]) -> Dict[str, Any]:
+    async def v1_models(self, body: Dict[str, Any], state: Optional[dict] = None,
+                        collect_fn=None) -> Dict[str, Any]:
         return {"object": "list", "data": [{
-            "id": self.model_name, "object": "model", "created": _now(),
+            "id": self._model_name, "object": "model", "created": _now(),
             "owned_by": "tpu-serving",
         }]}
 
-    @staticmethod
-    async def version(body: Dict[str, Any]) -> Dict[str, Any]:
+    async def version(self, body: Dict[str, Any], state: Optional[dict] = None,
+                      collect_fn=None) -> Dict[str, Any]:
         return {"version": __version__}
 
-    async def v1_tokenize(self, body: Dict[str, Any]) -> Dict[str, Any]:
+    async def v1_tokenize(self, body: Dict[str, Any], state: Optional[dict] = None,
+                          collect_fn=None) -> Dict[str, Any]:
         ids = self.tokenizer.encode(str(body.get("prompt") or body.get("text") or ""))
         return {"tokens": ids, "count": len(ids), "max_model_len": self.engine.max_seq_len}
 
-    async def v1_detokenize(self, body: Dict[str, Any]) -> Dict[str, Any]:
+    async def v1_detokenize(self, body: Dict[str, Any], state: Optional[dict] = None,
+                            collect_fn=None) -> Dict[str, Any]:
         ids = body.get("tokens") or []
         return {"prompt": self.tokenizer.decode([int(i) for i in ids])}
+
+    # -- phases ----------------------------------------------------------------
+
+    async def preprocess(self, body: Any, state: dict, collect_fn=None) -> Any:
+        if self._preprocess is not None and hasattr(self._preprocess, "preprocess"):
+            out = self._preprocess.preprocess(body, state, collect_fn)
+            if asyncio.iscoroutine(out):
+                out = await out
+            return out
+        return body
+
+    async def process(self, data: Any, state: dict, collect_fn=None) -> Any:
+        """A plain ``POST /serve/<endpoint>``: a non-streaming chat
+        completion (a body with ``stream`` streams)."""
+        return await self.v1_chat_completions(data or {}, state, collect_fn)
+
+    async def postprocess(self, data: Any, state: dict, collect_fn=None) -> Any:
+        if self._preprocess is not None and hasattr(self._preprocess, "postprocess"):
+            out = self._preprocess.postprocess(data, state, collect_fn)
+            if asyncio.iscoroutine(out):
+                out = await out
+            return out
+        return data
 
 
 def _sse_error(ex: BaseException) -> str:

@@ -1,201 +1,425 @@
-"""HTTP front of the port: an aiohttp app serving one LLM endpoint.
+"""Serving HTTP router (aiohttp).
 
-Counterpart of ``clearml_serving_tpu/serving/main.py``'s ``build_app`` for
-this slice: ``POST /serve/openai/v1/chat/completions``,
-``/serve/openai/v1/completions``, ``/serve/openai/v1/tokenize`` and
-``/serve/openai/v1/detokenize``, ``GET /serve/openai/v1/models``, ``GET|POST
-/serve/openai/version`` (no body needed), ``GET /health`` (liveness) and
-``GET /ready`` (readiness: 503 while draining or while the engine is
-stopped or recovering from a watchdog trip, with its brownout stage). The
-OpenAI routes pick the endpoint by the body's ``model`` field, like the
-reference router; an unknown model is a 404, a refused request a 422, and
-a request-lifecycle error (``errors.RequestError``) its own status and
-payload with a ``Retry-After`` header (408, 429, 503). SIGTERM drains:
-new requests shed with 503 ``draining`` while in-flight ones finish (up to
-``TPUSERVE_DRAIN_TIMEOUT`` seconds, default 30), then the engine stops.
-The control plane (state store, endpoint registry,
-``ModelRequestProcessor``) arrives with a later slice.
+Route surface parity with the reference FastAPI app
+(clearml_serving/serving/main.py:1-233):
 
-Start a server::
+- ``POST /serve/{endpoint}``, ``/serve/{endpoint}/{version}``;
+- OpenAI-compatible ``POST|GET /serve/openai/{endpoint_type...}`` where the
+  path tail (e.g. ``v1/chat/completions``) becomes the serve type and
+  ``body["model"]`` names the endpoint;
+- transparent gzip request decompression;
+- error taxonomy: 404 endpoint-not-found, 422 model/backend/value errors,
+  500 internal (with the instance id in the payload);
+- hardware-OOM policy: crash-and-restart (``os._exit(1)``) unless dev mode
+  (reference main.py:111-123: ``torch.cuda.OutOfMemoryError``);
+- streaming: engines may return a ``StreamingOutput`` (async generator) which
+  is forwarded as an SSE response through the router unchanged — preserving the
+  pre/process/post hook contract the same way the reference passes vLLM's
+  StreamingResponse through.
 
-    python -m clearml_serving_tpu_torch.serving.main \\
-        --engine-config '{"preset": "llama3-8b", "cache": "paged"}'
+The route prefix is configurable via ``TPUSERVE_DEFAULT_SERVE_SUFFIX``
+(default "serve"). Process model: single process, or ``TPUSERVE_NUM_PROCESS``
+forked workers sharing the port via SO_REUSEPORT (gunicorn-equivalent).
+
+The port's copy of ``clearml_serving_tpu/serving/main.py``. It differs in
+four places: there is no replica fleet, so ``/health`` and ``/ready`` carry
+no fleet detail; there is no profiler server (the reference's starts JAX's);
+``main()`` takes ``--device`` (default ``cuda``), which the processor passes
+to every engine it builds; and the app's cleanup stops the loaded engines.
+Nothing here touches CUDA: the parent imports the engine modules before it
+forks workers, and each worker builds its engines on its own.
+
+Start the control plane and a server::
+
+    python -m clearml_serving_tpu_torch create --name demo
+    python -m clearml_serving_tpu_torch model add --engine llm --endpoint chat \
+        --aux-config engine.preset=llama3-8b engine.cache=paged engine.kv_quant=int8
+    python -m clearml_serving_tpu_torch.serving.main [--device cuda]
+
+then ``POST /serve/openai/v1/chat/completions`` with ``"model": "chat"``, or
+``POST /serve/chat``.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import gzip
 import json
 import os
 import signal
 import traceback
 from typing import Any, Optional
 
+import torch
 from aiohttp import web
 
+from .model_request_processor import (
+    EndpointBackendError,
+    EndpointNotFoundException,
+    ModelRequestProcessor,
+    ServingInitializationError,
+)
+from .responses import JSONOutput, StreamingOutput, TextOutput
+from ..engines.base import EndpointModelError
 from ..errors import RequestError
-from ..llm.openai_api import LLMEngineRequest, build_engine, default_priority, warmup_mode
-
-_OPENAI = "/serve/openai/v1/"
-# the OpenAI routes that take a body naming the model: route -> handler
-_ROUTES = {"chat/completions": "v1_chat_completions", "completions": "v1_completions",
-           "tokenize": "v1_tokenize", "detokenize": "v1_detokenize"}
 
 
-def _request_error_response(ex: RequestError) -> web.Response:
-    """A lifecycle error as its status and payload, with a ``Retry-After``
-    hint (whole seconds, at least 1) so clients back off."""
+def _is_device_oom(ex: BaseException) -> bool:
+    """Only the CUDA allocator's failure qualifies, never user-code error
+    text."""
+    return isinstance(ex, torch.cuda.OutOfMemoryError)
+
+
+def _instance_id(processor: Optional[ModelRequestProcessor]) -> str:
+    return getattr(processor, "_instance_id", "unknown") if processor else "unknown"
+
+
+def _request_error_response(
+    ex: RequestError, processor: Optional[ModelRequestProcessor]
+) -> web.Response:
+    """Structured lifecycle errors (errors.RequestError) map to their own
+    status (408 deadline, 429/503 shed, 503/504 upstream) with a
+    ``Retry-After`` hint so clients back off instead of hammering."""
+    payload = ex.payload()
+    payload["instance"] = _instance_id(processor)
     headers = {}
     if ex.retry_after is not None:
         headers["Retry-After"] = str(max(1, int(round(ex.retry_after))))
-    return web.json_response(ex.payload(), status=ex.status, headers=headers)
+    return web.json_response(payload, status=ex.status, headers=headers)
 
 
-def build_app(endpoint: LLMEngineRequest) -> web.Application:
-    app = web.Application()
-    app["endpoint"] = endpoint
-    # drain state: once draining, new requests shed with 503 while the
-    # in-flight ones (counted here) finish. A mutable dict: the handlers
-    # change it, never the app's mapping
+async def _read_body(request: web.Request) -> Any:
+    content_type = request.headers.get("Content-Type", "")
+    if content_type.startswith("multipart/form-data"):
+        # OpenAI audio API shape: file upload + form fields (model, language,
+        # response_format, ...) — fields land in a dict, the upload's bytes
+        # under its field name (usually "file")
+        fields: dict = {}
+        async for part in await request.multipart():
+            if part.name is None:
+                continue
+            data = await part.read(decode=True)
+            if part.filename is not None:
+                fields[part.name] = data
+            else:
+                fields[part.name] = data.decode("utf-8", "replace")
+        return fields
+    raw = await request.read()
+    # aiohttp transparently decompresses Content-Encoding: gzip; only
+    # decompress here if the payload still carries the gzip magic (e.g. a
+    # proxy stripped the header, or double-compressed clients).
+    if raw[:2] == b"\x1f\x8b" and (
+        request.headers.get("Content-Encoding", "").lower() == "gzip"
+        or "gzip" in request.headers.get("Content-Type", "")
+    ):
+        raw = gzip.decompress(raw)
+    if not raw:
+        return None
+    content_type = request.headers.get("Content-Type", "")
+    if content_type and "application/json" not in content_type and "text/" not in content_type:
+        return raw  # binary passthrough (e.g. image payloads, reference pytorch example)
+    try:
+        return json.loads(raw)
+    except (json.JSONDecodeError, UnicodeDecodeError):
+        return raw
+
+
+def _engine_health(processor: ModelRequestProcessor) -> dict:
+    """Per-endpoint engine health for /ready: any loaded processor exposing
+    an ``engine`` with a ``health()`` surface (the LLM engine core)
+    contributes; plain CPU engines are stateless and always ready."""
+    out = {}
+    for url, proc in getattr(processor, "_engine_processor_lookup", {}).items():
+        engine = getattr(proc, "engine", None)
+        health = getattr(engine, "health", None)
+        if callable(health):
+            try:
+                out[url] = health()
+            except Exception as ex:
+                out[url] = {"ready": False, "error": str(ex)}
+    return out
+
+
+def build_app(processor: ModelRequestProcessor) -> web.Application:
+    app = web.Application(client_max_size=int(os.environ.get("TPUSERVE_MAX_BODY", 64 * 1024 * 1024)))
+    app["processor"] = processor
+    # SIGTERM drain state: once draining, new requests shed with 503 while
+    # in-flight ones (inflight counter) finish up to the drain timeout.
+    # A plain mutable dict: aiohttp deprecates reassigning app keys after
+    # startup, so the handlers mutate THIS object, never the app mapping.
     app["lifecycle"] = {"draining": False, "inflight": 0}
+    serve_suffix = os.environ.get("TPUSERVE_DEFAULT_SERVE_SUFFIX", "serve").strip("/")
+    dev_mode = bool(os.environ.get("TPUSERVE_DEV_MODE"))
 
-    async def _body(request: web.Request) -> Any:
-        if not request.can_read_body:
-            return {}
-        return await request.json()
+    async def process_with_exceptions(
+        base_url: str, version: Optional[str], body: Any, serve_type: str
+    ) -> web.StreamResponse:
+        try:
+            out = await processor.process_request(
+                base_url=base_url, version=version, request_body=body, serve_type=serve_type
+            )
+        except EndpointNotFoundException as ex:
+            return web.json_response(
+                {"detail": "Error processing request: {}".format(ex)}, status=404
+            )
+        except RequestError as ex:
+            return _request_error_response(ex, processor)
+        except (EndpointModelError, EndpointBackendError, ValueError) as ex:
+            return web.json_response(
+                {
+                    "detail": "Error processing request: {} {}".format(
+                        type(ex).__name__, ex
+                    ),
+                    "instance": _instance_id(processor),
+                },
+                status=422,
+            )
+        except ServingInitializationError as ex:
+            return web.json_response(
+                {"detail": "Service not ready: {}".format(ex)}, status=500
+            )
+        except Exception as ex:
+            if _is_device_oom(ex):
+                # device OOM: the engine's state may be poisoned — crash so
+                # the container restart loop brings up a clean process
+                # (reference CUDA-OOM policy, main.py:111-123).
+                if not dev_mode:
+                    traceback.print_exc()
+                    os._exit(1)
+            traceback.print_exc()
+            return web.json_response(
+                {
+                    "detail": "Internal error: {} {}".format(type(ex).__name__, ex),
+                    "instance": _instance_id(processor),
+                },
+                status=500,
+            )
+        if isinstance(out, StreamingOutput):
+            resp = web.StreamResponse(
+                status=200,
+                headers={
+                    "Content-Type": out.content_type,
+                    "Cache-Control": "no-cache",
+                },
+            )
+            return resp, out  # handled by caller (needs the request to prepare)
+        if isinstance(out, JSONOutput):
+            return web.json_response(out.payload, status=out.status)
+        if isinstance(out, TextOutput):
+            return web.Response(text=out.text, content_type=out.content_type)
+        if isinstance(out, (bytes, bytearray)):
+            return web.Response(body=bytes(out), content_type="application/octet-stream")
+        try:
+            return web.json_response(out)
+        except (TypeError, ValueError) as ex:
+            return web.json_response(
+                {
+                    "detail": "Endpoint returned a non-JSON-serializable response "
+                    "({}); return bytes or JSON-compatible types".format(ex),
+                    "instance": _instance_id(processor),
+                },
+                status=500,
+            )
 
-    async def openai_route(request: web.Request) -> web.StreamResponse:
+    async def _respond(request: web.Request, result) -> web.StreamResponse:
+        if isinstance(result, tuple):  # streaming
+            resp, out = result
+            try:
+                try:
+                    # prepare inside the guard: a disconnect racing the 200
+                    # headers must still close the generator + emit stats
+                    await resp.prepare(request)
+                    async for chunk in out.generator:
+                        if isinstance(chunk, str):
+                            chunk = chunk.encode("utf-8")
+                        await resp.write(chunk)
+                except ConnectionResetError:
+                    pass
+            finally:
+                # deliver GeneratorExit into the engine's SSE body NOW (frees
+                # the decode slot on disconnect), then emit deferred stats
+                aclose = getattr(out.generator, "aclose", None)
+                if aclose is not None:
+                    try:
+                        await aclose()
+                    except Exception:  # the client is gone: nobody receives it
+                        pass
+                if out.on_complete is not None:
+                    out.on_complete()
+            try:
+                await resp.write_eof()
+            except ConnectionResetError:
+                pass
+            return resp
+        return result
+
+    async def serve_model(request: web.Request) -> web.StreamResponse:
         state = app["lifecycle"]
         if state["draining"]:
-            return web.json_response({"detail": "server is draining", "code": "draining"},
-                                     status=503, headers={"Retry-After": "5"})
+            # graceful shutdown: stop admitting, let in-flight work finish
+            return web.json_response(
+                {"detail": "server is draining", "code": "draining"},
+                status=503,
+                headers={"Retry-After": "5"},
+            )
         state["inflight"] += 1
         try:
-            return await _openai_route(request)
+            return await _serve_model_inner(request)
         finally:
             state["inflight"] -= 1
 
-    async def _openai_route(request: web.Request) -> web.StreamResponse:
-        route = request.match_info["route"]
+    async def _serve_model_inner(request: web.Request) -> web.StreamResponse:
+        tail = request.match_info["tail"].strip("/")
         try:
-            body = await _body(request)
-        except (ValueError, UnicodeDecodeError) as ex:
-            return web.json_response({"detail": "unreadable request body: {}".format(ex)},
-                                     status=422)
-        if route == "models":
-            return web.json_response(await endpoint.v1_models(body))
-        handler = _ROUTES.get(route)
-        if handler is None:
-            return web.json_response({"detail": "unknown route {!r}".format(route)}, status=404)
-        if not isinstance(body, dict) or not body.get("model"):
-            return web.json_response(
-                {"detail": "OpenAI route requires a JSON body with a 'model' field"},
-                status=422,
-            )
-        if body["model"] != endpoint.model_name:
-            return web.json_response(
-                {"detail": "Error processing request: model {!r} not found".format(
-                    body["model"])}, status=404,
-            )
-        try:
-            out = await getattr(endpoint, handler)(body)
-        except RequestError as ex:
-            return _request_error_response(ex)
-        except (ValueError, TypeError) as ex:
-            return web.json_response(
-                {"detail": "Error processing request: {} {}".format(type(ex).__name__, ex)},
-                status=422,
-            )
+            body = await _read_body(request)
         except Exception as ex:
-            traceback.print_exc()
+            # malformed multipart/body must follow the 422 JSON error
+            # contract, not aiohttp's default 500 page
             return web.json_response(
-                {"detail": "Internal error: {} {}".format(type(ex).__name__, ex)},
-                status=500,
+                {"detail": "unreadable request body: {}".format(ex)}, status=422
             )
-        if isinstance(out, dict):
-            return web.json_response(out)
-        resp = web.StreamResponse(
-            status=200,
-            headers={"Content-Type": "text/event-stream", "Cache-Control": "no-cache"},
-        )
-        try:
-            try:
-                await resp.prepare(request)
-                async for line in out:
-                    await resp.write(line.encode("utf-8"))
-            except ConnectionResetError:
-                pass
-        finally:
-            # frees the decode slot now if the client went away
-            await out.aclose()
-        try:
-            await resp.write_eof()
-        except ConnectionResetError:
-            pass
-        return resp
+        if tail.startswith("openai/"):
+            # OpenAI-compatible: serve type is the path, endpoint is body.model
+            serve_type = tail[len("openai/"):]
+            if serve_type == "version":
+                # model-independent (reference show_version): answer without
+                # requiring a body/model so plain GET works
+                from ..version import __version__
 
-    async def version(request: web.Request) -> web.Response:
-        # model-independent: answers without a body or a model
-        return web.json_response(await endpoint.version({}))
+                return web.json_response({"version": __version__})
+            if not isinstance(body, dict) or not body.get("model"):
+                return web.json_response(
+                    {"detail": "OpenAI route requires a JSON body with a 'model' field"},
+                    status=422,
+                )
+            result = await process_with_exceptions(
+                base_url=str(body["model"]), version=None, body=body, serve_type=serve_type
+            )
+            return await _respond(request, result)
+        parts = tail.split("/")
+        # longest-match: try full tail as endpoint, else endpoint/version split
+        version = None
+        base_url = tail
+        if len(parts) > 1:
+            # membership-only check on the live dicts (no per-request copies)
+            if tail not in processor._endpoints and tail not in processor._model_monitoring_endpoints:
+                base_url, version = "/".join(parts[:-1]), parts[-1]
+        result = await process_with_exceptions(
+            base_url=base_url, version=version, body=body, serve_type="process"
+        )
+        return await _respond(request, result)
 
     async def health(request: web.Request) -> web.Response:
+        # liveness: 200 while the process serves anything; /ready below is
+        # the routing signal
         return web.json_response({
             "status": "ok",
-            "endpoints": [endpoint.model_name],
-            "engine": endpoint.engine.health(),
+            "instance": _instance_id(processor),
+            "endpoints": sorted(processor.list_endpoints()),
         })
 
+    async def dashboard(request: web.Request) -> web.Response:
+        return web.json_response(processor.get_serving_layout())
+
     async def ready(request: web.Request) -> web.Response:
-        """Readiness, apart from /health's liveness: 503 while draining or
-        while the engine is not ready, so a load balancer stops routing
-        here while /health keeps the process alive. A browned-out engine
-        is still ready (it sheds by policy); its stage is reported."""
-        engine_health = endpoint.engine.health()
-        name = endpoint.model_name
-        stage = (engine_health.get("brownout") or {}).get("stage", 0)
-        body = {"brownout": {name: stage} if stage else {},
-                "engines": {name: engine_health}}
+        """Readiness (distinct from /health liveness): 503 while draining or
+        while any loaded engine reports not-ready (stopped / watchdog
+        recovery in progress) — so load balancers stop routing here while
+        /health keeps the container from being killed."""
+        engines = _engine_health(processor)
+        # no replica groups in the port: the fleet block stays empty
+        fleet = {}
+        not_ready = sorted(
+            url for url, h in engines.items() if not h.get("ready")
+        )
+        # brownout summary (docs/slo_scheduling.md): a browned-out engine is
+        # still READY — it is shedding load by policy, not failing — but
+        # operators and load balancers watching /ready should see the stage
+        brownout = {
+            url: (h.get("brownout") or {}).get("stage", 0)
+            for url, h in engines.items()
+            if (h.get("brownout") or {}).get("stage")
+        }
         draining = app["lifecycle"]["draining"]
-        if draining or not engine_health["ready"]:
+        if draining or not_ready:
             return web.json_response(
-                dict(body, status="draining" if draining else "not_ready",
-                     not_ready=[] if engine_health["ready"] else [name]),
-                status=503, headers={"Retry-After": "5"})
-        return web.json_response(dict(body, status="ready"))
+                {
+                    "status": "draining" if draining else "not_ready",
+                    "instance": _instance_id(processor),
+                    "not_ready": not_ready,
+                    "brownout": brownout,
+                    "fleet": fleet,
+                    "engines": engines,
+                },
+                status=503,
+                headers={"Retry-After": "5"},
+            )
+        return web.json_response(
+            {
+                "status": "ready",
+                "instance": _instance_id(processor),
+                "brownout": brownout,
+                "fleet": fleet,
+                "engines": engines,
+            }
+        )
 
-    async def _stop_engine(app: web.Application) -> None:
-        endpoint.engine.stop()
-
-    app.router.add_route("*", "/serve/openai/version", version)
-    app.router.add_post(_OPENAI + "{route:.+}", openai_route)
-    app.router.add_get(_OPENAI + "{route:models}", openai_route)
+    app.router.add_post("/{}/{{tail:.+}}".format(serve_suffix), serve_model)
+    app.router.add_get("/{}/{{tail:openai/.+}}".format(serve_suffix), serve_model)
     app.router.add_get("/health", health)
     app.router.add_get("/ready", ready)
-    app.on_cleanup.append(_stop_engine)
+    app.router.add_get("/dashboard", dashboard)
+    app.router.add_get("/", health)
+
+    async def _stop_engines(app: web.Application) -> None:
+        # the app's shutdown stops what its engines hold on the card
+        for proc in list(processor._engine_processor_lookup.values()):
+            stop = getattr(getattr(proc, "engine", None), "stop", None)
+            if callable(stop):
+                stop()
+
+    app.on_cleanup.append(_stop_engines)
     return app
 
 
-async def drain_app(app: web.Application, timeout: Optional[float] = None) -> None:
-    """Graceful drain: stop admitting (the routes answer 503 ``draining``
-    from now on), wait for the in-flight requests up to ``timeout``
-    seconds (``TPUSERVE_DRAIN_TIMEOUT``, default 30), then stop the
-    engine, which fails whatever is left with 503 and frees its pages once
-    the chunks in flight land."""
+async def drain_app(
+    app: web.Application,
+    processor: Optional[ModelRequestProcessor],
+    timeout: Optional[float] = None,
+) -> None:
+    """Graceful drain: stop admitting (serve_model starts answering 503 the
+    moment ``draining`` flips), wait for in-flight requests up to
+    ``timeout`` seconds, then stop the engines and daemons cleanly. Called
+    from the SIGTERM handler; exposed separately so tests can drive it."""
     state = app["lifecycle"]
     state["draining"] = True
     if timeout is None:
         timeout = float(os.environ.get("TPUSERVE_DRAIN_TIMEOUT", 30.0))
-    loop = asyncio.get_running_loop()
-    deadline = loop.time() + timeout
-    while state["inflight"] > 0 and loop.time() < deadline:
+    deadline = asyncio.get_running_loop().time() + timeout
+    while state["inflight"] > 0 and asyncio.get_running_loop().time() < deadline:
         await asyncio.sleep(0.05)
-    app["endpoint"].engine.stop()
+    if processor is not None:
+        for proc in list(
+            getattr(processor, "_engine_processor_lookup", {}).values()
+        ):
+            engine = getattr(proc, "engine", None)
+            stop = getattr(engine, "stop", None)
+            if callable(stop):
+                try:
+                    stop()
+                except Exception:
+                    traceback.print_exc()
+        try:
+            processor.stop()
+        except Exception:
+            traceback.print_exc()
 
 
 def install_graceful_drain(app: web.Application) -> None:
-    """SIGTERM -> drain -> exit: after the drain the process sends itself
-    SIGINT, so aiohttp's own shutdown (connections, cleanup hooks) runs."""
+    """SIGTERM -> drain -> exit. aiohttp's run_app exits on SIGINT; after
+    the drain completes we re-raise SIGINT against ourselves so its normal
+    graceful-shutdown path (connection close, cleanup hooks) runs."""
 
     async def _on_startup(app: web.Application) -> None:
         loop = asyncio.get_running_loop()
@@ -203,13 +427,14 @@ def install_graceful_drain(app: web.Application) -> None:
         def _begin_drain() -> None:
             state = app["lifecycle"]
             if state["draining"]:
-                return  # a second SIGTERM: the drain is under way
-            # set before the task runs, so back-to-back signals start one
-            # drain
+                return  # second SIGTERM: drain already in progress
+            # flip synchronously: the guard above must close the window
+            # BEFORE the drain task gets scheduled, or back-to-back SIGTERMs
+            # would spawn duplicate drains (and duplicate exit SIGINTs)
             state["draining"] = True
 
             async def _drain_then_exit() -> None:
-                await drain_app(app)
+                await drain_app(app, app.get("processor"))
                 os.kill(os.getpid(), signal.SIGINT)
 
             # held: the loop keeps only weak references to tasks
@@ -218,29 +443,78 @@ def install_graceful_drain(app: web.Application) -> None:
         try:
             loop.add_signal_handler(signal.SIGTERM, _begin_drain)
         except (NotImplementedError, RuntimeError):
-            pass  # no signal handlers here: the default handling stays
+            pass  # non-unix / nested-loop environments keep default handling
 
     app.on_startup.append(_on_startup)
 
 
+def setup_processor(device: str = "cuda") -> ModelRequestProcessor:
+    """Resolve the control-plane service (env TPUSERVE_SERVICE_ID, or the most
+    recent service) and launch the sync/stats daemons
+    (reference init.py setup_task + startup_event). The engines are built
+    on ``device`` at the launch's prefetch."""
+    from ..engines import load_engine_modules
+
+    load_engine_modules()
+    service_id = os.environ.get("TPUSERVE_SERVICE_ID") or os.environ.get(
+        "CLEARML_SERVING_TASK_ID"
+    )
+    processor = ModelRequestProcessor(service_id=service_id or None, device=device)
+    poll_freq_min = float(os.environ.get("TPUSERVE_POLL_FREQ", 5.0))
+    processor.launch(poll_frequency_sec=poll_freq_min * 60.0)
+    return processor
+
+
 def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--engine-config", required=True,
-                        help="JSON aux engine block, e.g. "
-                             "'{\"preset\": \"llama3-8b\", \"cache\": \"paged\"}'")
-    parser.add_argument("--model-name", default="model",
-                        help="the OpenAI 'model' this server answers to")
-    parser.add_argument("--device", default="cuda")
-    parser.add_argument("--host", default="127.0.0.1")
-    parser.add_argument("--port", type=int, default=8080)
+    parser = argparse.ArgumentParser(description="The port's serving router over the "
+                                     "control plane (TPUSERVE_* environment).")
+    parser.add_argument("--device", default="cuda",
+                        help="where the engines run: cuda (the default) or cpu")
     args = parser.parse_args(argv)
-    engine_cfg = json.loads(args.engine_config)
-    engine, tokenizer = build_engine(engine_cfg, device=args.device)
-    app = build_app(LLMEngineRequest(engine, tokenizer, args.model_name,
-                                     warmup=warmup_mode(engine_cfg),
-                                     default_priority=default_priority(engine_cfg)))
-    install_graceful_drain(app)
-    web.run_app(app, host=args.host, port=args.port)
+    port = int(os.environ.get("TPUSERVE_PORT", 8080))
+    host = os.environ.get("TPUSERVE_HOST", "0.0.0.0")
+    num_proc = int(os.environ.get("TPUSERVE_NUM_PROCESS", 1))
+
+    if num_proc > 1:
+        # gunicorn-equivalent pre-fork model: N workers share the port via
+        # SO_REUSEPORT; each builds its own processor (and CUDA context)
+        # post-fork. The engine modules are imported once here, before the
+        # fork; nothing in them touches CUDA.
+        import multiprocessing
+
+        from ..engines import load_engine_modules
+
+        load_engine_modules()
+
+        def _worker():
+            processor = setup_processor(args.device)
+            app = build_app(processor)
+            install_graceful_drain(app)
+            web.run_app(
+                app, host=host, port=port, reuse_port=True,
+                print=None,
+            )
+
+        procs = [multiprocessing.Process(target=_worker) for _ in range(num_proc)]
+        for p in procs:
+            p.start()
+
+        def _forward_term(signum, frame):
+            # pre-fork mode: SIGTERM lands on THIS parent (pid 1 in a
+            # container) — forward it so every worker runs its graceful
+            # drain instead of dying with the parent
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+
+        signal.signal(signal.SIGTERM, _forward_term)
+        for p in procs:
+            p.join()
+    else:
+        processor = setup_processor(args.device)
+        app = build_app(processor)
+        install_graceful_drain(app)
+        web.run_app(app, host=host, port=port)
 
 
 if __name__ == "__main__":

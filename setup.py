@@ -40,6 +40,9 @@ setup(
             "tpu-serving-inference = clearml_serving_tpu.serving.main:main",
             "tpu-serving-engine = clearml_serving_tpu.engine_server.server:main",
             "tpu-serving-statistics = clearml_serving_tpu.statistics.main:main",
+            # the PyTorch/H100 port's CLI and inference server
+            "tpu-serving-torch = clearml_serving_tpu_torch.__main__:main",
+            "tpu-serving-torch-inference = clearml_serving_tpu_torch.serving.main:main",
         ]
     },
 )

@@ -17,6 +17,7 @@ the same operands)."""
 
 import asyncio
 import ctypes
+import json
 import time
 import types
 
@@ -1654,3 +1655,126 @@ def test_guided_tables_grow_beside_a_replay_in_flight(cuda):
         engine.stop()
     assert outs["graphs"] == outs["eager"]
     assert len(buckets["graphs"]) >= 2 and buckets["graphs"] == buckets["eager"]
+
+
+def test_chat_through_the_processor_and_router(cuda, tmp_path):
+    """The control plane on the card: an ``llm`` endpoint that the processor
+    builds on its default device from the aux block (llama-tiny widened to
+    the kernels' head width, bf16, warmed at the first request) answers one
+    chat through ``build_app(processor)``, streamed and not, with the same
+    content; its decode chunks are graph replays that launch the decode
+    kernel once per layer and step, and nothing is captured while serving."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from clearml_serving_tpu_torch.serving.endpoints import ModelEndpoint
+    from clearml_serving_tpu_torch.serving.main import build_app
+    from clearml_serving_tpu_torch.serving.model_request_processor import (
+        ModelRequestProcessor,
+    )
+
+    load_library()
+    engine_cfg = {"preset": "llama-tiny", "config": {
+        "dim": 256, "n_heads": 4, "n_kv_heads": 2, "head_dim": 64, "ffn_dim": 512,
+        "dtype": "bfloat16"}, "cache": "paged", "max_batch": 2, "max_seq_len": 128,
+        "prefill_buckets": [32, 64], "warmup": "startup"}
+    mrp = ModelRequestProcessor(state_root=str(tmp_path), force_create=True, name="card")
+    mrp.add_endpoint(ModelEndpoint(engine_type="llm", serving_url="tiny",
+                                   auxiliary_cfg={"engine": engine_cfg}))
+    mrp.serialize()
+    mrp.deserialize(skip_sync=True)
+    body = {"model": "tiny", "max_tokens": 12,
+            "messages": [{"role": "user", "content": "hello"}]}
+
+    async def run():
+        client = TestClient(TestServer(build_app(mrp)))
+        await client.start_server()
+        try:
+            r = await client.post("/serve/openai/v1/chat/completions", json=body)
+            assert r.status == 200, await r.text()
+            plain = (await r.json())["choices"][0]["message"]["content"]
+            engine = mrp._engine_processor_lookup["tiny"].engine
+            await engine.wait_drained()
+            paged_attention.launches = 0
+            for key in ("decode_steps", "serve_captures", "graph_replays"):
+                engine.counters[key] = 0
+            r = await client.post("/serve/openai/v1/chat/completions",
+                                  json=dict(body, stream=True))
+            assert r.status == 200
+            pieces = []
+            for line in (await r.text()).splitlines():
+                if line.startswith("data: {"):
+                    pieces.append(json.loads(line[6:])["choices"][0]["delta"].get("content")
+                                  or "")
+            await engine.wait_drained()
+            return plain, "".join(pieces), engine
+        finally:
+            await client.close()
+
+    plain, streamed, engine = asyncio.run(run())
+    assert streamed == plain
+    assert engine.model.device.type == "cuda"
+    assert engine.counters["graph_replays"] > 0 and engine.counters["serve_captures"] == 0
+    assert paged_attention.launches == engine.model.n_layers * engine.counters["decode_steps"] > 0
+
+
+def test_cli_and_inference_server_serve_a_chat_on_the_card(cuda, tmp_path):
+    """The user's steps on the card: ``python -m clearml_serving_tpu_torch
+    create``, ``model add --engine llm``, then ``python -m
+    clearml_serving_tpu_torch.serving.main`` (its default device, ``cuda``)
+    answers a chat, and SIGTERM drains it to exit 0."""
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import urllib.request
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, TPUSERVE_STATE_ROOT=str(tmp_path / "state"), TPUSERVE_PORT=str(port),
+               TPUSERVE_HOST="127.0.0.1")
+    config = json.dumps({"dim": 256, "n_heads": 4, "n_kv_heads": 2, "head_dim": 64,
+                         "ffn_dim": 512, "dtype": "bfloat16"})
+    for argv in (["create", "--name", "card"],
+                 ["--yes", "model", "add", "--engine", "llm", "--endpoint", "tiny",
+                  "--aux-config", "engine.preset=llama-tiny", "engine.config=" + config,
+                  "engine.cache=paged", "engine.max_batch=2", "engine.max_seq_len=128",
+                  "engine.prefill_buckets=[32,64]"]):
+        out = subprocess.run([sys.executable, "-m", "clearml_serving_tpu_torch"] + argv,
+                             cwd=str(root), env=env, capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr[-3000:]
+    server = subprocess.Popen([sys.executable, "-m", "clearml_serving_tpu_torch.serving.main"],
+                              cwd=str(root), env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    base = "http://127.0.0.1:{}".format(port)
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                with urllib.request.urlopen(base + "/ready", timeout=5) as r:
+                    ready = json.loads(r.read())
+                break
+            except OSError:
+                assert server.poll() is None and time.monotonic() < deadline, "server not up"
+                time.sleep(0.5)
+        assert ready["engines"]["tiny"]["ready"]
+        body = {"model": "tiny", "max_tokens": 8,
+                "messages": [{"role": "user", "content": "hello"}]}
+        req = urllib.request.Request(base + "/serve/openai/v1/chat/completions",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            assert r.status == 200
+            assert json.loads(r.read())["usage"]["completion_tokens"] >= 1
+    finally:
+        server.send_signal(signal.SIGTERM)
+        try:
+            rc = server.wait(timeout=60)
+        finally:
+            if server.poll() is None:
+                server.kill()
+                server.wait(timeout=30)
+    assert rc == 0, server.stdout.read()[-3000:]

@@ -25,9 +25,9 @@ from aiohttp.test_utils import TestClient, TestServer
 from clearml_serving_tpu.serving.endpoints import ModelEndpoint
 from clearml_serving_tpu.serving.main import build_app as jax_build_app
 from clearml_serving_tpu.serving.model_request_processor import ModelRequestProcessor
-from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest, build_engine
+from clearml_serving_tpu_torch.llm.openai_api import build_engine
 from clearml_serving_tpu_torch.models.llama import convert_params
-from clearml_serving_tpu_torch.serving.main import build_app
+from torch_serving import port_app
 
 # the tool preamble is ~500 byte tokens: the context holds it
 ENGINE_CFG = {
@@ -122,7 +122,7 @@ def served(tmp_path_factory):
         def run_port(calls):
             engine, tok = build_engine(dict(ENGINE_CFG), device="cpu",
                                        params=convert_params(np_params, device="cpu"))
-            return _run(build_app(LLMEngineRequest(engine, tok, URL)), calls)
+            return _run(port_app(engine, tok, URL), calls)
 
         yield run_jax, run_port
     finally:

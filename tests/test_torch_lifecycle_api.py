@@ -35,9 +35,10 @@ from clearml_serving_tpu.serving.main import build_app as jax_build_app
 from clearml_serving_tpu.serving.main import drain_app as jax_drain_app
 from clearml_serving_tpu.serving.model_request_processor import ModelRequestProcessor
 from clearml_serving_tpu_torch.llm import faults
-from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest, build_engine
+from clearml_serving_tpu_torch.llm.openai_api import build_engine
 from clearml_serving_tpu_torch.models.llama import convert_params
 from clearml_serving_tpu_torch.serving.main import build_app, drain_app
+from torch_serving import port_processor
 
 URL = "tiny_llm"
 CHAT = "/serve/openai/v1/chat/completions"
@@ -103,7 +104,7 @@ class Front:
     def __init__(self, name, mrp, state=None, cfg=QUIET):
         self.name, self.mrp, self.state, self.cfg = name, mrp, state, cfg
         self.faults = jax_faults if name == "jax" else faults
-        self._endpoint = None
+        self._port = None
 
     def app(self):
         if self.name == "jax":
@@ -111,18 +112,18 @@ class Front:
         params = jax.tree.map(np.asarray, _ref_engine(self.mrp).params)
         engine, tok = build_engine(dict(self.cfg), device="cpu",
                                    params=convert_params(params, device="cpu"))
-        self._endpoint = LLMEngineRequest(engine, tok, URL)
-        return build_app(self._endpoint)
+        self._port = port_processor(engine, tok, URL)
+        return build_app(self._port)
 
     @property
     def engine(self):
-        return _ref_engine(self.mrp) if self.name == "jax" else self._endpoint.engine
+        return _ref_engine(self.mrp) if self.name == "jax" else _ref_engine(self._port)
 
     async def drain(self, app, timeout):
         if self.name == "jax":
             await jax_drain_app(app, self.mrp, timeout=timeout)
         else:
-            await drain_app(app, timeout=timeout)
+            await drain_app(app, self._port, timeout=timeout)
 
 
 def _ref_engine(mrp):

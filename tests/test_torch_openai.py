@@ -17,9 +17,9 @@ from aiohttp.test_utils import TestClient, TestServer
 from clearml_serving_tpu.serving.endpoints import ModelEndpoint
 from clearml_serving_tpu.serving.main import build_app as jax_build_app
 from clearml_serving_tpu.serving.model_request_processor import ModelRequestProcessor
-from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest, build_engine
+from clearml_serving_tpu_torch.llm.openai_api import build_engine
 from clearml_serving_tpu_torch.models.llama import convert_params
-from clearml_serving_tpu_torch.serving.main import build_app
+from torch_serving import port_app as processor_app
 
 ENGINE_CFG = {
     "preset": "llama-tiny",
@@ -107,7 +107,7 @@ def served(tmp_path_factory):
                 dict(ENGINE_CFG, **aux), device="cpu",
                 params=convert_params(np_params, device="cpu"),
             )
-            return build_app(LLMEngineRequest(engine, tok, URL))
+            return processor_app(engine, tok, URL)
 
         yield mrp, port_app, want
     finally:
@@ -160,13 +160,16 @@ def test_models_health_and_refusals(served):
     _mrp, port_app, _want = served
 
     async def fn(client):
-        r = await client.get("/serve/openai/v1/models")
+        # the router's OpenAI routes name the endpoint by the body's model
+        r = await client.post("/serve/openai/v1/models", json={"model": URL})
         assert r.status == 200
         assert (await r.json())["data"][0]["id"] == URL
         r = await client.get("/health")
+        assert r.status == 200 and (await r.json())["endpoints"] == [URL]
+        r = await client.get("/ready")
         assert r.status == 200
-        health = await r.json()
-        assert health["engine"]["cache"] == "paged" and health["engine"]["ready"]
+        health = (await r.json())["engines"][URL]
+        assert health["cache"] == "paged" and health["ready"]
         r = await client.post(CHAT, json=dict(BODIES[0], model="nope"))
         assert r.status == 404
         # a field the chat route does not take is refused by name

@@ -27,9 +27,9 @@ from aiohttp.test_utils import TestClient, TestServer
 from clearml_serving_tpu.serving.endpoints import ModelEndpoint
 from clearml_serving_tpu.serving.main import build_app as jax_build_app
 from clearml_serving_tpu.serving.model_request_processor import ModelRequestProcessor
-from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest, build_engine
+from clearml_serving_tpu_torch.llm.openai_api import build_engine
 from clearml_serving_tpu_torch.models.llama import convert_params
-from clearml_serving_tpu_torch.serving.main import build_app
+from torch_serving import port_app
 
 ENGINE_CFG = {
     "preset": "llama-tiny",
@@ -112,7 +112,7 @@ def served(tmp_path_factory):
             # a fresh engine per app: the app stops its engine on cleanup
             engine, tok = build_engine(dict(ENGINE_CFG), device="cpu",
                                        params=convert_params(np_params, device="cpu"))
-            return _run(build_app(LLMEngineRequest(engine, tok, URL)), calls)
+            return _run(port_app(engine, tok, URL), calls)
 
         yield run_jax, run_port
     finally:
@@ -288,7 +288,7 @@ def test_version_route(served):
             await client.close()
 
     engine, tok = build_engine(dict(ENGINE_CFG, max_seq_len=64), device="cpu")
-    status, body, post_status = asyncio.run(fn(build_app(LLMEngineRequest(engine, tok, URL))))
+    status, body, post_status = asyncio.run(fn(port_app(engine, tok, URL)))
     assert (status, post_status) == (200, 200)
     from clearml_serving_tpu.version import __version__
     assert body == {"version": __version__}
@@ -320,7 +320,7 @@ def test_guided_and_tools_fields_refused_by_name(served, field, value):
 
     async def detail():
         engine, tok = build_engine(dict(ENGINE_CFG, max_seq_len=64), device="cpu")
-        client = TestClient(TestServer(build_app(LLMEngineRequest(engine, tok, URL))))
+        client = TestClient(TestServer(port_app(engine, tok, URL)))
         await client.start_server()
         try:
             r = await client.post(CMPL, json=_cmpl(max_tokens=2, **{field: value}))

@@ -406,9 +406,9 @@ def test_warmup_aux_knob(tiny_np):
     endpoint's."""
     from aiohttp.test_utils import TestClient, TestServer
 
-    from clearml_serving_tpu_torch.llm.openai_api import (
-        LLMEngineRequest, build_engine, warmup_mode)
+    from clearml_serving_tpu_torch.llm.openai_api import build_engine, warmup_mode
     from clearml_serving_tpu_torch.serving.main import build_app
+    from torch_serving import port_processor
 
     cfg = {"preset": "llama-tiny", "config": {"dtype": "float32"}, "max_batch": 2,
            "max_seq_len": 128, "prefill_buckets": [32, 64], "cache": "paged"}
@@ -427,8 +427,9 @@ def test_warmup_aux_knob(tiny_np):
     async def serve(mode):
         engine, tok = build_engine(dict(cfg, warmup=mode), device="cpu",
                                    params=convert_params(tiny_np, device="cpu"))
-        endpoint = LLMEngineRequest(engine, tok, "m", warmup=warmup_mode({"warmup": mode}))
-        client = TestClient(TestServer(build_app(endpoint)))
+        mrp = port_processor(engine, tok, "m", warmup=mode)
+        endpoint = mrp._engine_processor_lookup["m"]
+        client = TestClient(TestServer(build_app(mrp)))
         await client.start_server()
         try:
             rs = await asyncio.gather(*[client.post("/serve/openai/v1/chat/completions",

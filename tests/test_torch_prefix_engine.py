@@ -380,8 +380,8 @@ def test_openai_route_content_equals_reference_with_the_cache(tmp_path):
     from clearml_serving_tpu.serving.endpoints import ModelEndpoint
     from clearml_serving_tpu.serving.main import build_app as jax_build_app
     from clearml_serving_tpu.serving.model_request_processor import ModelRequestProcessor
-    from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest, build_engine
-    from clearml_serving_tpu_torch.serving.main import build_app
+    from clearml_serving_tpu_torch.llm.openai_api import build_engine
+    from torch_serving import port_app
 
     cfg = {"preset": "llama-tiny", "config": {"dtype": "float32"}, "max_batch": 2,
            "max_seq_len": 160, "prefill_buckets": [32, 64, 128], "cache": "paged",
@@ -424,6 +424,6 @@ def test_openai_route_content_equals_reference_with_the_cache(tmp_path):
         else:
             os.environ["TPUSERVE_STATE_ROOT"] = old
     engine, tok = build_engine(cfg, device="cpu", params=convert_params(np_params, device="cpu"))
-    got = asyncio.run(chats(build_app(LLMEngineRequest(engine, tok, "tiny_llm"))))
+    got = asyncio.run(chats(port_app(engine, tok, "tiny_llm")))
     assert got == want and all(got)
     assert engine._prefix.stats()["hits"] == jax_hits >= 2

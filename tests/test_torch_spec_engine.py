@@ -32,11 +32,11 @@ from clearml_serving_tpu.llm.kv_cache import PagedKVCache as JaxPagedKVCache
 from clearml_serving_tpu.ops.paged_attention import tree_ancestors as jax_tree_ancestors
 from clearml_serving_tpu_torch.llm.engine import GenRequest, LLMEngineCore
 from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
-from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest, build_engine
+from clearml_serving_tpu_torch.llm.openai_api import build_engine
 from clearml_serving_tpu_torch.llm.spec_proposer import DraftForest
 from clearml_serving_tpu_torch.models.llama import Llama, convert_params
 from clearml_serving_tpu_torch.ops.paged_attention import ragged_layout
-from clearml_serving_tpu_torch.serving.main import build_app
+from torch_serving import port_app
 
 TINY = {"preset": "llama-tiny", "dtype": "float32"}
 ATOL = 1e-4
@@ -422,7 +422,7 @@ CHAT = "/serve/openai/v1/chat/completions"
 def _http_contents(tiny_np, **aux):
     engine, tok = build_engine(dict(AUX, **aux), device="cpu",
                                params=convert_params(tiny_np, device="cpu"))
-    app = build_app(LLMEngineRequest(engine, tok, "tiny_llm"))
+    app = port_app(engine, tok, "tiny_llm")
 
     async def run():
         client = TestClient(TestServer(app))

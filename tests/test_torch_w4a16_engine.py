@@ -35,10 +35,10 @@ from clearml_serving_tpu.serving.endpoints import ModelEndpoint
 from clearml_serving_tpu.serving.main import build_app as jax_build_app
 from clearml_serving_tpu.serving.model_request_processor import ModelRequestProcessor
 from clearml_serving_tpu_torch.llm.engine import GenRequest, LLMEngineCore
-from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest, build_engine
+from clearml_serving_tpu_torch.llm.openai_api import build_engine
 from clearml_serving_tpu_torch.models.llama import Llama, convert_params
 from clearml_serving_tpu_torch.ops.quant import quantize_llama_params
-from clearml_serving_tpu_torch.serving.main import build_app
+from torch_serving import port_app
 
 WIDE = {"preset": "llama-tiny", "dtype": "float32", "dim": 256, "n_heads": 4,
         "n_kv_heads": 2, "ffn_dim": 512}
@@ -222,7 +222,7 @@ def test_int4_route_content_is_byte_identical_to_reference(mrp):
     # the reference endpoint's weights, already packed: the knob is a no-op
     engine, tok = build_engine(aux, device="cpu", params=convert_params(packed, device="cpu"))
     assert engine.health()["weights"] == ref_engine.lifecycle_stats()["weights"]
-    got = _run(build_app(LLMEngineRequest(engine, tok, "w4")),
+    got = _run(port_app(engine, tok, "w4"),
                lambda c: asyncio.gather(*(_chat(c, b, "w4") for b in BODIES)))
     assert got == want and any(text for _s, text in got)
 
