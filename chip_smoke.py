@@ -72,7 +72,7 @@ exits non-zero before the result lines are printed:
    clone of its pools bit for bit, tokens and pages, for bf16 and int8 KV
    and int4 weights, greedy and sampled (a replay counts n_layers x 4
    decode-attention and 225 x 4 int4 launches, a capture none); then phase
-   5's traffic and a steadier one (eight chats of 128 tokens) at depth 1
+   5's traffic and a steadier one (eight chats of 64 tokens) at depth 1
    (serial, eager) and depth 2 (graphs captured by the endpoint's
    ``warmup``): equal greedy contents, no capture while serving, and each
    arm's wall ms per decode step, dispatch and retire ms and tok/s;
@@ -116,7 +116,7 @@ exits non-zero before the result lines are printed:
    full width (max_batch 8, max_seq_len 2048, page_size 16, ``prefix_cache``
    256, ``prefix_block`` 64), the KV sanitizer and ``TPUSERVE_LEDGER=strict``
    armed, each engine warmed up: six 1024-token heads, one chat each (a
-   40-200-token tail, 32 tokens, greedy), twice. Arms: A two-dispatch at
+   40-200-token tail, 16 tokens, greedy), twice. Arms: A two-dispatch at
    depth 2 with graphs, bf16 KV, ``prefix_cache_pages`` 512, no tier; B the
    same with ``prefix_cache_pages`` 128 over ``prefix_cache_host_pages``
    512 (round 1 demotes, round 2 promotes every head from host RAM); C0 and
@@ -136,7 +136,7 @@ exits non-zero before the result lines are printed:
 
 10. the sampling surface of the OpenAI routes: Llama-3-8B at full width
    (seed-0 weights, max_batch 8, max_seq_len 2048). 10a, two-dispatch at
-   depth 2 with graphs, bf16 KV: 8 concurrent ~100-token chats of 128
+   depth 2 with graphs, bf16 KV: 8 concurrent ~100-token chats of 64
    tokens (four seeded sampled with penalties and ``top_logprobs`` 5, two
    greedy with ``logit_bias`` and logprobs, two plain); the four seeded
    chats again alone, at depth 1 and eager (``cuda_graphs=False``), each
@@ -147,7 +147,7 @@ exits non-zero before the result lines are printed:
    ``logprobs`` 5 + ``max_tokens: 0`` on a 2047-token prompt (its time and
    the rise of ``torch.cuda.max_memory_allocated``), and a greedy
    completion scored back within 2e-2 of the decode path's entries.
-   Prints ms per decode step on 8 x 128-token chats for plain sampled,
+   Prints ms per decode step on 8 x 64-token chats for plain sampled,
    extras without seeds, extras with seeds and extras with seeds +
    logprobs, and each new graph variant's first-use capture time. 10b,
    ragged (budget 256), int8 KV, ``speculation: ngram`` with ``spec_tree``:
@@ -158,7 +158,7 @@ exits non-zero before the result lines are printed:
 11. guided decoding and tool calling on the OpenAI routes, under the
    ownership ledger: Llama-3-8B at full width (seed-0 weights, the byte
    tokenizer at vocab 128256). 11a, two-dispatch at depth 2 with graphs,
-   bf16 KV: 8 concurrent ~100-token chats of up to 128 tokens (two
+   bf16 KV: 8 concurrent ~100-token chats of up to 64 tokens (two
    ``guided_regex`` compass headings, a ``guided_choice``, two
    ``json_schema`` objects with an enum, an integer and a boolean, one of
    them seeded with penalties, a ``json_object``, two plain), every one
@@ -171,7 +171,7 @@ exits non-zero before the result lines are printed:
    call answers ``finish_reason: "tool_calls"`` with schema-valid
    arguments. Prints the host ms to compile each kind at the vocab, the
    tables' bucket and bytes, each guided variant's first-use capture time
-   and ms per decode step on 8 x 128-token chats, plain sampled against
+   and ms per decode step on 8 x 64-token chats, plain sampled against
    guided in turns. 11c, ragged (budget 256), int8 KV, tree speculation,
    profiled: 11a's six guided chats beside two repetitive greedy chats; no
    guided row is ever a verify row, and the kernels' launches equal the
@@ -232,6 +232,55 @@ exits non-zero before the result lines are printed:
    ``custom`` endpoint and the sync evicts it: the eviction's release waits
    for the capture (``CAPTURE_LOCK``), and the seeded stream is the direct
    engine's.
+
+14. the replica fleet, through the CLI, the processor and its router: a
+   processor launched with the single-engine endpoint ``single`` (phase
+   13's Llama-3-8B block with ``prefix_cache`` 64, ``prefix_block`` 64);
+   the CLI then adds ``fleet`` (the same block with ``replicas: 2`` and a
+   2 s watchdog: one set of seed-0 weights, two ``LLMEngineCore`` replicas
+   on streams of their own, each with its pool and graphs), which the
+   daemon builds and warms. 14a: 4 conversations x 3 turns (each turn the
+   last one's messages plus ~100 characters; 300-700 tokens; 32 tokens
+   greedy), two conversations per replica by the router's math: every
+   turn of a conversation runs on one replica (route ``affine``), turns 2-3
+   hit that replica's cache (2 hits per conversation there, none
+   elsewhere), token ids and contents equal ``single``'s on the same
+   messages, ``paged_attention`` once per layer per decode step of the two
+   replicas, no capture while serving; the second replica's rise in
+   ``memory_allocated`` (the fleet's rise less the single endpoint's) under
+   8 GB; ``/ready`` shows both ring members; ``generate_latest`` in the
+   process shows the lifecycle families with ``replica="r0"`` and
+   ``"r1"``, ``router_replicas`` 2 and ``tpu_hbm_bytes_in_use{device="0"}``.
+   14b: 4 greedy streams of 128 tokens, two per replica; a 5 s retire stall
+   (``engine.decode.stall``) on r1 mid-stream trips its watchdog; both its
+   streams resume on r0: every status 200, no error event, each stream
+   ends at 128 tokens, the tokens before the trip kept and none repeated,
+   each continuation a fresh request's on r0 with the history as its
+   prompt; r1 re-warms through its gate and rejoins the ring (the seconds
+   to resume and to rejoin printed). The CLI removes ``fleet``: its group
+   and both engines are gone where the release returns, the registry
+   holds no entry for them, ``memory_allocated`` is back within 64 MiB;
+   added, warmed and removed a second time, it leaves ``memory_allocated``
+   where the first removal did (+0 B).
+   14c: ``replica_roles: [prefill, decode]``, under ``two_dispatch`` and
+   under ``ragged`` at budget 256 (endpoints added and removed in turn):
+   2 chats with ~1024-token prompts x 32 tokens, one after the other (a
+   ragged launch's rows depend on what else rides it): the prefill replica ships
+   both prefixes (draft-ahead partial frames under ``ragged``), no drop,
+   the decode replica hits both; the shipped rows, the prefill replica's
+   pages and the decode replica's imported pages hold the same bits; the
+   decode replica's streams equal a hit on the prefill replica at the
+   same prefix length. The prefill replica is then given the same two
+   chats directly, at once, and where that differs from one after the
+   other is printed (what rides beside a row, on a monolithic engine).
+   Two new chats at once through the fleet: every status 200 and 32
+   tokens, both ship and hit, bitwise pages, nothing dropped. Prints ship
+   ms (the prefill replica's loop stall), receive ms, TTFT beside
+   ``single``'s cold TTFT and where the stream first differs from the cold
+   monolithic one. The two-dispatch arm's removal leaves no more
+   ``memory_allocated`` than the fleet's did (the same streams and
+   threads); the ragged arm is added, warmed and removed a second time,
+   +0 B against its first removal.
 
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, and the ragged kernel's tree variant) and
@@ -2283,8 +2332,9 @@ def graph_chunk_case(params, kv_quant: str, weights: str, sampled: bool) -> dict
                 eager_ms=eager_ms, bitwise=True, launches_per_replay=per_replay)
 
 
-# phase 5's traffic, and a steadier one: eight chats of 128 tokens
-PIPELINE_TRAFFIC = [("phase5", PROMPTS, 32), ("steady", PROMPTS * 2, 128)]
+# phase 5's traffic, and a steadier one: eight chats of 64 tokens (128 before
+# phase 14 came: a depth cut)
+PIPELINE_TRAFFIC = [("phase5", PROMPTS, 32), ("steady", PROMPTS * 2, 64)]
 # phase 6 profiles the steady traffic at 32 tokens a chat: its three
 # profiled passes (the eager one above all) set much of the script's length
 PROFILED_STEADY = ("steady", PROMPTS * 2, 32)
@@ -2850,7 +2900,7 @@ def hit_vs_cold_logits(engine, prompt) -> dict:
 
     request = GenRequest(prompt_ids=list(prompt))
     with torch.no_grad():
-        hit_last, _cache, plen = engine._prefix_admission(request)
+        hit_last, _cache, plen = engine._run_gated(engine._prefix_admission(request))
         engine._release_prefix_hit(request)
         n = len(prompt)
         bucket = shapes.bucket_for(n, engine._buckets, engine.max_seq_len)
@@ -2978,7 +3028,7 @@ def phase_prefix_cache(params, card: str, preset: str = "llama3-8b") -> dict:
 
 TIER_HEADS = 6
 TIER_HEAD = 1024
-TIER_MAX_TOKENS = 32
+TIER_MAX_TOKENS = 16   # 32 before phase 14's second cycles came (a depth cut)
 TIER_BASE = {"prefix_cache": 256, "prefix_block": 64}
 TIER_UNTIERED = dict(TIER_BASE, prefix_cache_pages=512)
 TIER_TIERED = dict(TIER_BASE, prefix_cache_pages=128, prefix_cache_host_pages=512)
@@ -3318,7 +3368,8 @@ def phase_kv_tier(params, card: str, preset: str = "llama3-8b") -> dict:
                 "stats after warmup": after_warm == expected["warmup"],
                 "hit tiers and lengths": outcomes == expected["traffic"],
                 "stats at the end": end == expected["end"],
-                "32 tokens each": all(len(ch["tokens"]) == TIER_MAX_TOKENS for ch in chats),
+                "{} tokens each".format(TIER_MAX_TOKENS): all(
+                    len(ch["tokens"]) == TIER_MAX_TOKENS for ch in chats),
                 "no capture while serving": c["serve_captures"] == 0,
                 "paged launches": (paged_attention.launches == n_layers * (
                     c["decode_steps"] + c["ragged_chain_steps"]) > 0),
@@ -3464,12 +3515,12 @@ SAMPLING_CHATS = [
     (SAMPLING_NOTES + "plain chat one.", {"temperature": 0.7}),
     (SAMPLING_NOTES + "plain chat two.", {}),
 ]
-SAMPLING_TOKENS = 128
+SAMPLING_TOKENS = 64   # 128 before phase 14 came (a depth cut)
 # a scored-back completion against its decode entries (bf16 logits allow
 # two ulps more: bf16_logit_ulp)
 SCORE_TOL = 2e-2
 SAMPLING_SPEC_TOKENS = 64
-# the decode-step timing variants: 8 chats each, 128 tokens
+# the decode-step timing variants: 8 chats each, SAMPLING_TOKENS tokens
 STEP_VARIANTS = [
     ("plain_sampled", {"temperature": 0.8}),
     ("extras_unseeded", {"temperature": 0.8, "presence_penalty": 0.4}),
@@ -3588,7 +3639,7 @@ async def sampling_10a(engine, tokenizer, card: str) -> dict:
             "prompt": back_ids, "max_tokens": 0, "echo": True, "logprobs": 5})
         await engine.wait_drained()
         ulp = bf16_logit_ulp(engine.model, back_ids, len(gen_ids))
-        # ms per decode step on 8 x 128-token chats, per variant (a short
+        # ms per decode step on 8 x SAMPLING_TOKENS-token chats, per variant (a short
         # run first captures the variant)
         variants = {}
         for name, fields in STEP_VARIANTS:
@@ -3647,7 +3698,7 @@ async def sampling_10a(engine, tokenizer, card: str) -> dict:
         "of its decode entries, {} of {} tokens over 2e-2 (held to {:.5f}) ({})".format(
             score_s, score_rise / 2 ** 20, score_err, out["score_back_over_2e2"], len(diffs),
             score_tol, card))
-    log("  10a: ms per decode step, 8 x 128-token chats: {} ({})".format(
+    log("  10a: ms per decode step, 8 x {}-token chats: {} ({})".format(SAMPLING_TOKENS,
         json.dumps({k: round(v, 3) for k, v in variants.items()}), card))
     log("  10a: graph variants and first-use capture ms: {} ({})".format(
         json.dumps({k: round(v, 1) for k, v in capture_ms.items()}), card))
@@ -3780,7 +3831,7 @@ GUIDED_CHATS = [
     (GUIDED_NOTES + "plain one.", {}),
     (GUIDED_NOTES + "plain two.", {"temperature": 0.7, "seed": 25}),
 ]
-GUIDED_TOKENS = 128
+GUIDED_TOKENS = 64   # 128 before phase 14 came (a depth cut)
 # each chat reports its token ids (the holds walk ids, not decoded text)
 _IDS = {"logprobs": True, "top_logprobs": 1, "return_tokens_as_token_ids": True}
 GUIDED_TOOLS = [
@@ -3802,7 +3853,7 @@ TOOL_CASES = [("required", "required", False),
               ("forced", {"type": "function", "function": {"name": "lights"}}, False),
               ("forced_streamed", {"type": "function", "function": {"name": "lights"}}, True),
               ("auto", "auto", False)]
-# the decode-step timing: 8 chats x 128 tokens, plain sampled against the
+# the decode-step timing: 8 chats x GUIDED_TOKENS tokens, plain sampled against the
 # same chats under a grammar that admits no EOS before 128 characters
 GUIDED_STEP_VARIANTS = [
     ("plain_sampled", {"temperature": 0.8}),
@@ -4346,11 +4397,12 @@ def admission_recorder(engine, budget: int):
                 super().deposit()
                 self.events.append("D")
 
-        def acquire(self, bypass=False):
+        def take(self, bypass=False):
             with self._cond:
-                if budget:
-                    super().acquire(bypass)
-                self.events.append("P")
+                taken = super().take(bypass) if budget else True
+                if taken:
+                    self.events.append("P")
+                return taken
 
     engine._prefill_gate = Recorder()
     return engine._prefill_gate
@@ -4497,8 +4549,8 @@ def prefill_costs(engine, ids: list, c: int) -> dict:
     tokens = tokens.to(DEV)
     seq_lens = torch.tensor([n], dtype=torch.int32, device=DEV)
     calls = {"one_dispatch": lambda: engine.model.prefill(tokens, seq_lens),
-             "chunked": lambda: engine._prefill_segments(
-                 engine.model.init_cache(1, -(-bucket // c) * c), ids, 0, c)}
+             "chunked": lambda: engine._run_gated(engine._prefill_segments(
+                 engine.model.init_cache(1, -(-bucket // c) * c), ids, 0, c))}
     out = {}
     for label, call in calls.items():
         with torch.no_grad():
@@ -4530,8 +4582,8 @@ def chunked_first_logits(engine, ids: list, c: int) -> dict:
     with torch.no_grad():
         plain, _ = engine.model.prefill(tokens.to(DEV),
                                         torch.tensor([n], dtype=torch.int32, device=DEV))
-        chunked, _ = engine._prefill_segments(engine.model.init_cache(1, -(-bucket // c) * c),
-                                              ids, 0, c)
+        chunked, _ = engine._run_gated(engine._prefill_segments(
+            engine.model.init_cache(1, -(-bucket // c) * c), ids, 0, c))
     plain, chunked = plain.float()[0], chunked.float()[0]
     err = float((chunked - plain).abs().max())
     return dict(max_abs_err=err, rel_err=err / float(plain.abs().max()),
@@ -5292,6 +5344,804 @@ def phase_control_plane(card: str) -> dict:
     return out
 
 
+# -- phase 14: the replica fleet -----------------------------------------------------
+
+# the endpoints' aux engine blocks, written by the CLI as key=value pairs:
+# the single engine and the fleets over the same seed-0 weights (each
+# endpoint draws them once); the fleets' watchdog at 2 s for 14b
+FLEET_BASE = dict(CP_ENGINE, prefix_cache=64, prefix_block=64)
+FLEET_WATCHDOG_S = 2
+FLEET_STALL_S = 5.0
+FLEET_TURN_TOKENS = 32          # 14a: 4 conversations x 3 turns
+FLEET_STREAM_TOKENS = 128       # 14b: 4 greedy streams
+FLEET_DISAGG_TOKENS = 32        # 14c: 2 chats
+FLEET_DISAGG_CHARS = 1024       # 14c's prompts' characters (~1 token each)
+FLEET_SECOND_REPLICA_LIMIT = 8 << 30
+_FLEET_WORDS = ("tide harbour lantern gull rope anchor mast sail compass reef current "
+                "channel buoy keel hull deck stern bow wave shore").split()
+
+
+def fleet_text(seed: int, chars: int) -> str:
+    """Deterministic prose of about ``chars`` characters."""
+    words, i = [], seed * 7
+    while sum(len(w) + 1 for w in words) < chars:
+        words.append(_FLEET_WORDS[(i * 5 + seed) % len(_FLEET_WORDS)])
+        i += 1
+    return " ".join(words)[:chars]
+
+
+def fleet_home(tokenizer, messages, block: int) -> str:
+    """The replica a 2-replica ring routes ``messages`` to (the router's
+    own math: the affinity key over the prompt's head blocks, HRW)."""
+    from clearml_serving_tpu_torch.serving.replica_router import affinity_key, hrw_order
+
+    ids = chat_ids(tokenizer, messages)
+    return ["r0", "r1"][hrw_order(affinity_key(ids, block), ["r0", "r1"])[0]]
+
+
+def chat_ids(tokenizer, messages) -> tuple:
+    """A chat's prompt ids, as the OpenAI route computes them."""
+    return tuple(tokenizer.encode_chat(tokenizer.apply_chat_template(messages)))
+
+
+def balanced_openers(tokenizer, first: int, n: int, chars: int, block: int,
+                     tag: str) -> list:
+    """``n`` opening messages (distinct first words) of which half home
+    on each replica."""
+    picked = {"r0": [], "r1": []}
+    seed = first
+    while min(len(v) for v in picked.values()) < n // 2:
+        text = "{} {}: {}".format(tag, seed, fleet_text(seed, chars))
+        home = fleet_home(tokenizer, [{"role": "user", "content": text}], block)
+        if len(picked[home]) < n // 2:
+            picked[home].append(text)
+        seed += 1
+    return [t for pair in zip(picked["r0"], picked["r1"]) for t in pair]
+
+
+def record_fleet(engines, runs=None) -> dict:
+    """Wraps each engine's ``generate``: every request's token ids and
+    times, by (replica id, prompt ids), into ``runs`` (a new dict if None)."""
+    runs = {} if runs is None else runs
+    for engine in engines:
+        generate = engine.generate
+
+        async def recording(request, engine=engine, generate=generate):
+            rec = runs[(engine.replica_id, tuple(request.prompt_ids))] = {
+                "tokens": [], "t0": time.perf_counter(), "t_first": None}
+            async for token in generate(request):
+                if rec["t_first"] is None:
+                    rec["t_first"] = time.perf_counter()
+                rec["tokens"].append(int(token))
+                yield token
+
+        engine.generate = recording
+    return runs
+
+
+async def fleet_chat(s, base, model, messages, max_tokens, stream) -> dict:
+    """One chat: status, content, finish reason and the usage's completion
+    tokens (a stream asks for its usage chunk); an SSE error event is kept."""
+    body = {"model": model, "messages": messages, "max_tokens": max_tokens, "stream": stream}
+    if stream:
+        body["stream_options"] = {"include_usage": True}
+    async with s.post(base + OPENAI_CHAT, json=body) as r:
+        if r.status != 200:
+            return dict(status=r.status, error=await r.text())
+        if not stream:
+            out = await r.json()
+            return dict(status=200, content=out["choices"][0]["message"]["content"],
+                        finish=out["choices"][0]["finish_reason"],
+                        completion=out["usage"]["completion_tokens"], error=None)
+        pieces, finish, completion, error = [], None, None, None
+        async for raw in r.content:
+            line = raw.decode().strip()
+            if not line.startswith("data: {"):
+                continue
+            chunk = json.loads(line[len("data: "):])
+            if "error" in chunk:
+                error = chunk["error"]
+                continue
+            if chunk.get("usage"):
+                completion = chunk["usage"]["completion_tokens"]
+            for choice in chunk.get("choices") or ():
+                pieces.append(choice["delta"].get("content") or "")
+                finish = choice["finish_reason"] or finish
+        return dict(status=200, content="".join(pieces), finish=finish, completion=completion,
+                    error=error)
+
+
+def check_chats(label, results, max_tokens) -> None:
+    bad = [r for r in results if r["status"] != 200 or r.get("error")
+           or r["finish"] != "length" or r["completion"] != max_tokens]
+    if bad:
+        raise AssertionError("{}: {} of {} chats not 200 / length / {} tokens: {}".format(
+            label, len(bad), len(results), max_tokens, bad[:2]))
+
+
+def fleet_of(processor, url):
+    proc = processor._engine_processor_lookup[url]
+    return proc.engine
+
+
+async def add_endpoint(processor, cli, url, aux) -> float:
+    """The CLI adds ``url``; returns the seconds to the daemon's pickup."""
+    t0 = time.perf_counter()
+    argv = ["--yes", "model", "add", "--engine", "llm", "--endpoint", url, "--aux-config"]
+    await asyncio.to_thread(cli, argv + ["engine.{}={}".format(k, json.dumps(v))
+                                         for k, v in aux.items()])
+    await until(lambda: url in processor._endpoints, 60,
+                "the sync daemon to pick {} up".format(url))
+    return time.perf_counter() - t0
+
+
+async def remove_fleet(processor, cli, url) -> dict:
+    """The CLI removes ``url``; its group and every replica engine must be
+    gone where the eviction's release returns (nothing collected here), and
+    the process registry must hold no entry for them."""
+    from prometheus_client import REGISTRY, generate_latest
+
+    proc = processor._engine_processor_lookup[url]
+    group = proc.engine
+    refs = [weakref.ref(group)] + [weakref.ref(r.engine) for r in group.replicas]
+    del group
+    release, released = proc._release, []
+
+    def recording_release():
+        release()
+        released.append([ref() is None for ref in refs])
+
+    proc._release = recording_release
+    t0 = time.perf_counter()
+    await asyncio.to_thread(cli, ["--yes", "model", "remove", "--endpoint", url])
+    await until(lambda: bool(released), 60, "{}'s engines to be released".format(url))
+    freed_s = time.perf_counter() - t0
+    del proc._release
+    if url in processor._engine_processor_lookup or released != [[True] * len(refs)]:
+        raise AssertionError("{}'s engines outlived their release: {}".format(url, released))
+    left = [line for line in generate_latest(REGISTRY).decode().splitlines()
+            if 'model="{}"'.format(url) in line]
+    if left:
+        raise AssertionError("the registry still holds {}: {}".format(url, left[:3]))
+    return dict(freed_s=freed_s)
+
+
+def workspace_blocks() -> dict:
+    """Live 32 MiB blocks (a cuBLAS workspace's size) by the stream their
+    segment belongs to: where the card's memory went between two
+    readings."""
+    if torch.device(DEV).type != "cuda":
+        return {}
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        n = sum(1 for b in seg["blocks"]
+                if b["state"] == "active_allocated" and b["size"] == 32 << 20)
+        if n:
+            out[seg["stream"]] = out.get(seg["stream"], 0) + n
+    return out
+
+
+async def drained(*engines) -> None:
+    """Every engine drained (no loop variable left bound to one: the
+    removal's hold needs the eviction to hold the last reference)."""
+    await asyncio.gather(*[e.wait_drained() for e in engines])
+
+
+def _mean_ms(snap) -> float:
+    return snap["sum_ms"] / max(1, sum(snap["counts"]))
+
+
+async def single_conversations(s, base, tok, block) -> tuple:
+    """14a's traffic on ``single``: 4 conversations x 3 turns (two homed
+    on each replica of a 2-replica ring by the router's math), each turn
+    the last one's messages, its reply and ~100 new characters. Returns
+    the messages of every turn and the replies."""
+    openers = balanced_openers(tok, 0, 4, 300, block, "Conversation")
+    convs = [[{"role": "user", "content": o}] for o in openers]
+    turns, results = [], []
+    t0 = time.perf_counter()
+    for turn in range(3):
+        msgs = [list(c) for c in convs]
+        turns.append(msgs)
+        replies = await asyncio.gather(*[
+            fleet_chat(s, base, "single", m, FLEET_TURN_TOKENS, False) for m in msgs])
+        results += replies
+        for c, reply in zip(convs, replies):
+            c += [{"role": "assistant", "content": reply.get("content", "")},
+                  {"role": "user", "content": fleet_text(40 + turn * 4 + len(c), 100)}]
+    check_chats("14a single", results, FLEET_TURN_TOKENS)
+    return turns, results, time.perf_counter() - t0
+
+
+async def fleet_14a(s, base, processor, tok, runs, turns, single_results) -> dict:
+    """The same turns on ``fleet`` (half the chats streaming): each
+    conversation on one replica, affine, turns 2-3 hits there, the token
+    ids and contents of ``single``."""
+    from clearml_serving_tpu_torch.ops.paged_attention import paged_attention
+
+    group = fleet_of(processor, "fleet")
+    results = []
+    for rep in group.replicas:
+        _zero_counts(rep.engine)
+    hits0 = {r.name: r.engine._prefix.stats()["hits"] for r in group.replicas}
+    routes0 = group.router.stats()["requests"]
+    t0 = time.perf_counter()
+    for msgs in turns:
+        results += await asyncio.gather(*[
+            fleet_chat(s, base, "fleet", m, FLEET_TURN_TOKENS, i % 2 == 1)
+            for i, m in enumerate(msgs)])
+    await drained(*[r.engine for r in group.replicas])
+    wall = time.perf_counter() - t0
+    check_chats("14a fleet", results, FLEET_TURN_TOKENS)
+    launches = paged_attention.launches
+    steps = sum(r.engine.counters["decode_steps"] for r in group.replicas)
+    n_layers = group.model.n_layers
+    if launches != n_layers * steps or steps == 0:
+        raise AssertionError("14a: paged_attention launched {} times for {} decode steps of "
+                             "{} layers on the two replicas".format(launches, steps, n_layers))
+    captures = {r.name: r.engine.counters["serve_captures"] for r in group.replicas}
+    if any(captures.values()):
+        raise AssertionError("14a: captures while serving: {}".format(captures))
+    homes = []
+    for c in range(4):
+        ids = [chat_ids(tok, turns[t][c]) for t in range(3)]
+        where = {name for name in ("r0", "r1") for i in ids if (name, i) in runs}
+        if len(where) != 1:
+            raise AssertionError("14a: conversation {} ran on {}".format(c, where))
+        homes.append(where.pop())
+    routes = group.router.stats()["requests"]
+    affine = {n: routes[n]["affine"] - routes0[n]["affine"] for n in routes}
+    moved = sum(routes[n][k] - routes0[n][k] for n in routes for k in ("spill", "rebalance"))
+    hits = {r.name: r.engine._prefix.stats()["hits"] - hits0[r.name] for r in group.replicas}
+    want_hits = {n: 2 * homes.count(n) for n in ("r0", "r1")}
+    if moved or affine != {n: 3 * homes.count(n) for n in ("r0", "r1")} or hits != want_hits:
+        raise AssertionError("14a: homes {} routes {} (spill/rebalance {}) hits {} (want "
+                             "{})".format(homes, affine, moved, hits, want_hits))
+    differ = []
+    for t in range(3):
+        for c in range(4):
+            ids = chat_ids(tok, turns[t][c])
+            if runs[(homes[c], ids)]["tokens"] != runs[(None, ids)]["tokens"]:
+                differ.append((c, t))
+    if differ:
+        raise AssertionError("14a: token ids differ from the single engine's on (conversation, "
+                             "turn) {}".format(differ))
+    if [r["content"] for r in results] != [r["content"] for r in single_results]:
+        raise AssertionError("14a: contents differ from the single endpoint's")
+    ttft = []
+    for t in range(3):
+        for c in range(4):
+            rec = runs[(homes[c], chat_ids(tok, turns[t][c]))]
+            ttft.append((rec["t_first"] - rec["t0"]) * 1e3)
+    step_ms = {r.name: r.engine.counters["decode_ms"] / max(1, r.engine.counters["decode_steps"])
+               for r in group.replicas}
+    return dict(homes=homes, hits=hits, affine=affine, launches=launches, decode_steps=steps,
+                ttft_ms=ttft, wall_s=wall, step_ms=step_ms)
+
+
+async def fleet_14b(s, base, processor, tok, runs, block) -> dict:
+    """4 greedy streams x 128 tokens, two per replica; a retire stall on r1
+    trips its watchdog mid-stream; its two streams resume on r0."""
+    from clearml_serving_tpu_torch.llm import faults
+    from clearml_serving_tpu_torch.llm.engine import GenRequest
+
+    group = fleet_of(processor, "fleet")
+    r0, r1 = (r.engine for r in group.replicas)
+    openers = balanced_openers(tok, 100, 4, 300, block, "Stream")
+    msgs = [[{"role": "user", "content": o}] for o in openers]
+    ids = [chat_ids(tok, m) for m in msgs]
+    homes = [fleet_home(tok, m, block) for m in msgs]
+    victims = [i for i, h in enumerate(homes) if h == "r1"]
+    others = {t for i, p in enumerate(ids) if homes[i] == "r0" for t in p}
+    marker = next(t for t in ids[victims[0]] if t not in others)
+    trips0, failovers0 = r1.counters["watchdog_trips"], group.failovers
+    ej0 = group.router.stats()["ejections"]["r1"]
+    rd0 = group.router.stats()["readmissions"]["r1"]
+    chats = [asyncio.ensure_future(fleet_chat(s, base, "fleet", m, FLEET_STREAM_TOKENS, True))
+             for m in msgs]
+    await until(lambda: all(len(runs.get(("r1", ids[v]), {}).get("tokens", ())) >= 24
+                            for v in victims), 120, "the victims' first 24 tokens")
+    faults.configure([{"point": "engine.decode.stall", "action": "delay",
+                       "delay": FLEET_STALL_S, "times": 1, "match_token": int(marker)}])
+    try:
+        await until(lambda: r1.counters["watchdog_trips"] > trips0, 30, "r1's watchdog trip")
+        t_trip = time.perf_counter()
+        results = await asyncio.gather(*chats)
+    finally:
+        faults.clear()
+    check_chats("14b", results, FLEET_STREAM_TOKENS)
+    # the tripped replica recovers, re-warms through its gate and rejoins
+    while "r1" not in group.router.ring():
+        if time.perf_counter() - t_trip > 120:
+            raise AssertionError("r1 did not rejoin the ring: {}".format(group.router.stats()))
+        group.router.sweep()
+        await asyncio.sleep(0.02)
+    rejoin_s = time.perf_counter() - t_trip
+    await r0.wait_drained()
+    out = dict(homes=homes, victims=victims, failovers=group.failovers - failovers0,
+               rejoin_s=rejoin_s, rewarm_s=group.replicas[1].warm_seconds[-1], streams=[])
+    resume_s = []
+    for v in victims:
+        pre = runs[("r1", ids[v])]["tokens"]
+        history = tuple(ids[v]) + tuple(pre)
+        clone = runs.get(("r0", history))
+        if not pre or clone is None or len(pre) + len(clone["tokens"]) != FLEET_STREAM_TOKENS:
+            raise AssertionError("14b: stream {} emitted {} tokens on r1 and resumed with {} on "
+                                 "r0".format(v, len(pre), clone and len(clone["tokens"])))
+        resume_s.append(clone["t_first"] - t_trip)
+        # the continuation is a fresh request's on the sibling, cold
+        _empty_prefix_cache(r0)
+        fresh = [int(t) async for t in r0.generate(GenRequest(
+            prompt_ids=list(history), max_new_tokens=len(clone["tokens"])))]
+        if fresh != clone["tokens"]:
+            raise AssertionError("14b: stream {}'s continuation differs from a fresh request "
+                                 "on r0 at token {}".format(v, first_difference(
+                                     fresh, clone["tokens"])))
+        out["streams"].append(dict(before_trip=len(pre), after=len(clone["tokens"])))
+    await r0.wait_drained()
+    stats = group.router.stats()
+    if (out["failovers"] != len(victims) or r1.counters["watchdog_trips"] != trips0 + 1
+            or r0.counters["watchdog_trips"] or stats["ejections"]["r1"] <= ej0
+            or stats["readmissions"]["r1"] <= rd0 or stats["ring"] != ["r0", "r1"]):
+        raise AssertionError("14b: failovers {}, trips r0 {} r1 {}, router {}".format(
+            out["failovers"], r0.counters["watchdog_trips"], r1.counters["watchdog_trips"],
+            stats))
+    captures = [r.engine.counters["serve_captures"] for r in group.replicas]
+    if any(captures):
+        raise AssertionError("14b: captures while serving: {}".format(captures))
+    out["resume_s"] = resume_s
+    return out
+
+
+def shipment_pages_equal(shipment, engine, ids) -> bool:
+    """The shipment's rows equal, bit for bit, the pages ``engine``'s prefix
+    cache holds for ``ids`` (a lookup whose hit is given back uncounted)."""
+    hit = engine._prefix.lookup_pages(list(ids), 0)
+    if hit is None or len(hit["pages"]) < shipment.pages:
+        if hit is not None:
+            engine._prefix.release(hit)
+            engine._prefix.uncount_hit(hit)
+        return False
+    pages = list(hit["pages"][:shipment.pages])
+    engine._prefix.release(hit)
+    engine._prefix.uncount_hit(hit)
+    got = engine.paged_cache.export_pages(pages)
+    return all(torch.equal(got[name], getattr(shipment, name))
+               for name in ("hk", "hv", "hk_scale", "hv_scale")
+               if getattr(shipment, name) is not None)
+
+
+def _ship_counts(pre, dec, group, received) -> dict:
+    """The ship counters 14c holds, on both replicas and the transport."""
+    ps, ds = pre._kv_ship_snapshot(), dec._kv_ship_snapshot()
+    tr = ds["transport"]
+    return dict(ships=ps["ships"], ship_drops=ps["ship_drops"], draft_aborts=ps["draft_aborts"],
+                receives=ds["receives"], hits=ds["hits"], recomputes=ds["recomputes"],
+                dropped=tr["dropped"], assembly_drops=tr["assembly_drops"],
+                partial_frames=tr["partial_frames"],
+                leg_failures=group._disagg_snapshot()["ship_leg_failures"],
+                received=len(received))
+
+
+def check_ships(label, before, after, ragged: bool) -> None:
+    """Two chats' worth of ships between two ``_ship_counts`` readings:
+    both shipped and hit on the decode replica, under ragged in partial
+    frames too, nothing dropped, aborted or recomputed."""
+    d = {k: after[k] - before[k] for k in after}
+    want = dict(ships=2, ship_drops=0, draft_aborts=0, receives=2, hits=2, recomputes=0,
+                dropped=0, assembly_drops=0, leg_failures=0, received=2)
+    if any(d[k] != v for k, v in want.items()) or (ragged and d["partial_frames"] < 1):
+        raise AssertionError("{}: ship counters moved by {}".format(label, d))
+
+
+def check_shipped_pages(label, received, pre, dec, ids) -> None:
+    """Each shipment's rows, the decode replica's imported pages and the
+    prefill replica's own pages of the prompt: the same bits."""
+    from clearml_serving_tpu_torch.llm.kv_transport import shipment_key
+
+    by_key = {shipment_key(list(i), dec._prefix.block, 0): i for i in ids}
+    for shipment in received:
+        i = by_key[shipment.key]
+        if not (shipment_pages_equal(shipment, dec, i) and shipment_pages_equal(shipment, pre, i)):
+            raise AssertionError("{}: the imported pages differ from the exported "
+                                 "ones".format(label))
+
+
+async def fleet_14c(s, base, processor, cli, tok, runs, url, aux, cold) -> dict:
+    """One disaggregated arm: ``url`` added, warmed, two long chats one
+    after the other with every hold, the same two chats given the prefill
+    replica directly (a monolithic engine) at once and one after the
+    other, then two new chats at once with the holds that do not depend on
+    what rides beside a row; then removed."""
+    from clearml_serving_tpu_torch.ops.paged_attention import (
+        paged_attention, ragged_paged_attention)
+    from clearml_serving_tpu_torch.llm.engine import GenRequest
+
+    picked_s = await add_endpoint(processor, cli, url, aux)
+    t0 = time.perf_counter()
+    await fleet_chat(s, base, url, [{"role": "user", "content": "Warm up."}], 4, False)
+    warm_s = time.perf_counter() - t0
+    group = fleet_of(processor, url)
+    pre, dec = (r.engine for r in group.replicas)
+    arm_runs = record_fleet([pre, dec])
+    await drained(pre, dec)
+    _zero_counts(pre)
+    _zero_counts(dec)
+    received = []
+    recv = group.transport.recv
+
+    def recording_recv(dst, key):
+        shipment = recv(dst, key)
+        if shipment is not None:
+            received.append(shipment)
+        return shipment
+
+    group.transport.recv = recording_recv
+    msgs = [[{"role": "user", "content": "Report {}: {}".format(i, fleet_text(
+        200 + i, FLEET_DISAGG_CHARS))}] for i in range(2)]
+    ids = [chat_ids(tok, m) for m in msgs]
+    # one chat after the other: a ragged launch's rows depend on what else
+    # rides it, and each stream is held to a lone hit on the prefill replica
+    t0 = time.perf_counter()
+    results = [await fleet_chat(s, base, url, m, FLEET_DISAGG_TOKENS, True) for m in msgs]
+    wall = time.perf_counter() - t0
+    await drained(pre, dec)
+    check_chats("14c " + url, results, FLEET_DISAGG_TOKENS)
+    # TTFT: from the prefill leg's start to the decode replica's first token
+    ttft = [(arm_runs[("r1", i)]["t_first"] - arm_runs[("r0", i)]["t0"]) * 1e3 for i in ids]
+    launches = _launch_counts()
+    n_layers = group.model.n_layers
+    c = [e.counters for e in (pre, dec)]
+    paged_want = n_layers * sum(x["decode_steps"] + x["ragged_chain_steps"] for x in c)
+    ragged_want = n_layers * sum(x["ragged_steps"] for x in c)
+    if launches["paged"] != paged_want or launches["ragged"] != ragged_want or (
+            aux.get("scheduler") == "ragged") != (ragged_want > 0):
+        raise AssertionError("14c {}: launches {} against {} paged and {} ragged".format(
+            url, launches, paged_want, ragged_want))
+    ps, ds = pre._kv_ship_snapshot(), dec._kv_ship_snapshot()
+    tr = ds["transport"]
+    ragged = aux.get("scheduler") == "ragged"
+    zero = dict.fromkeys(_ship_counts(pre, dec, group, received), 0)
+    check_ships("14c " + url, zero, _ship_counts(pre, dec, group, received), ragged)
+    check_shipped_pages("14c " + url, received, pre, dec, ids)
+    # a single engine hitting the same prefix length: the prefill replica,
+    # which holds the prompts, asked directly, one chat after the other;
+    # then both at once (the witness of what rides beside a row)
+    def requests(prompts):
+        return [GenRequest(prompt_ids=list(i), max_new_tokens=FLEET_DISAGG_TOKENS)
+                for i in prompts]
+
+    direct = [await _direct(pre, r) for r in requests(ids)]
+    streams = [arm_runs[("r1", i)]["tokens"] for i in ids]
+    if streams != direct:
+        raise AssertionError("14c {}: the decode replica's streams differ from a hit on the "
+                             "prefill replica at tokens {}".format(
+                                 url, [first_difference(a, b) for a, b in zip(streams, direct)]))
+    together = await asyncio.gather(*[_direct(pre, r) for r in requests(ids)])
+    ship_ms, receive_ms = _mean_ms(ps["ship_ms"]), _mean_ms(ds["receive_ms"])
+    out = dict(picked_up_s=picked_s, warm_s=warm_s, wall_s=wall,
+               ship_ms=ship_ms, receive_ms=receive_ms,
+               ships=ps["ships"], ship_pages=ps["ship_pages"], draft_ships=ps["draft_ships"],
+               draft_pages=ps["draft_pages"], partial_frames=tr["partial_frames"],
+               hits=ds["hits"], launches=launches,
+               ttft_ms=ttft,
+               first_difference_from_cold=[first_difference(st, cold[i]) for i, st in
+                                           zip(ids, streams)],
+               monolithic_together_vs_alone=[first_difference(a, b)
+                                             for a, b in zip(together, direct)])
+    # the concurrent pass: two new chats at once (new heads: nothing of
+    # them is cached on either replica)
+    msgs = [[{"role": "user", "content": "Summary {}: {}".format(i, fleet_text(
+        200 + i, FLEET_DISAGG_CHARS))}] for i in range(2)]
+    ids2 = [chat_ids(tok, m) for m in msgs]
+    await drained(pre, dec)
+    before = _ship_counts(pre, dec, group, received)
+    del received[:]
+    results = await asyncio.gather(*[fleet_chat(s, base, url, m, FLEET_DISAGG_TOKENS, True)
+                                     for m in msgs])
+    await drained(pre, dec)
+    check_chats("14c concurrent " + url, results, FLEET_DISAGG_TOKENS)
+    after = _ship_counts(pre, dec, group, received)
+    before["received"] = 0
+    check_ships("14c concurrent " + url, before, after, ragged)
+    check_shipped_pages("14c concurrent " + url, received, pre, dec, ids2)
+    streams2 = [arm_runs[("r1", i)]["tokens"] for i in ids2]
+    alone2 = [await _direct(pre, r) for r in requests(ids2)]
+    out.update(concurrent_ships=after["ships"] - before["ships"],
+               concurrent_hits=after["hits"] - before["hits"],
+               concurrent_partial_frames=after["partial_frames"] - before["partial_frames"],
+               concurrent_vs_alone=[first_difference(a, b) for a, b in zip(streams2, alone2)])
+    del group, pre, dec, recv  # the eviction must be the last to hold them
+    out.update(await remove_fleet(processor, cli, url))
+    return out
+
+
+async def _direct(engine, request) -> list:
+    return [int(t) async for t in engine.generate(request)]
+
+
+async def cycle_again(s, base, processor, cli, url, aux) -> dict:
+    """``url`` added once more, its replicas warmed by one chat, and
+    removed (``remove_fleet``'s holds): the seconds, and
+    ``memory_allocated`` after the removal."""
+    picked = await add_endpoint(processor, cli, url, aux)
+    await fleet_chat(s, base, url, [{"role": "user", "content": "Warm up."}], 4, False)
+    await drained(*[r.engine for r in fleet_of(processor, url).replicas])
+    out = await remove_fleet(processor, cli, url)
+    return dict(out, picked_up_s=picked,
+                memory_after=card_memory() if torch.device(DEV).type == "cuda" else 0)
+
+
+# the statistics controller whose device gauges phase 14 reads (one per
+# process: its gauges register on the process registry)
+_STATS: list = []
+
+
+@contextlib.contextmanager
+def fleet_memory_readings(readings: dict):
+    """``memory_allocated`` after each engine ``build_engine`` constructs
+    (``readings["built"]``) and after each replica's warm gate opens
+    (``readings["warmed"]``, by replica), while the block runs."""
+    from clearml_serving_tpu_torch.llm import openai_api
+    from clearml_serving_tpu_torch.llm import replica as replica_mod
+
+    on_card = torch.device(DEV).type == "cuda"
+    real_core, real_warm = openai_api.LLMEngineCore, replica_mod.EngineReplica.ensure_warm
+
+    def recording_core(*args, **kwargs):
+        engine = real_core(*args, **kwargs)
+        if on_card:
+            sync()
+            readings["built"].append(torch.cuda.memory_allocated())
+        return engine
+
+    async def recording_warm(self):
+        await real_warm(self)
+        if on_card:
+            sync()
+            readings["warmed"].setdefault(self.name, torch.cuda.memory_allocated())
+
+    openai_api.LLMEngineCore = recording_core
+    replica_mod.EngineReplica.ensure_warm = recording_warm
+    try:
+        yield readings
+    finally:
+        openai_api.LLMEngineCore = real_core
+        replica_mod.EngineReplica.ensure_warm = real_warm
+
+
+async def fleet_runs(processor, cli, tok, card: str) -> dict:
+    """14a, 14b, the removal and 14c behind the processor's router, each
+    logged as it ends."""
+    import aiohttp
+    from aiohttp import web
+    from prometheus_client import REGISTRY, generate_latest
+
+    from clearml_serving_tpu_torch.serving.main import build_app
+    from clearml_serving_tpu_torch.statistics.metrics import StatisticsController
+
+    single = processor._engine_processor_lookup["single"].engine
+    runs = record_fleet([single])
+    app = build_app(processor)
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = "http://127.0.0.1:{}".format(runner.addresses[0][1])
+    on_card = torch.device(DEV).type == "cuda"
+    block = FLEET_BASE["prefix_block"]
+    out = {}
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+            await fleet_chat(s, base, "single", [{"role": "user", "content": "Warm up."}], 4,
+                             False)
+            # the single endpoint's traffic first (14a's turns and 14c's
+            # cold streams), so that its first uses precede the fleet's
+            # memory readings
+            _zero_counts(single)
+            turns, single_results, single_wall = await single_conversations(s, base, tok, block)
+            single_step_ms = single.counters["decode_ms"] / max(1, single.counters["decode_steps"])
+            msgs = [[{"role": "user", "content": "Report {}: {}".format(i, fleet_text(
+                200 + i, FLEET_DISAGG_CHARS))}] for i in range(2)]
+            cold = await asyncio.gather(*[fleet_chat(s, base, "single", m, FLEET_DISAGG_TOKENS,
+                                                     True) for m in msgs])
+            check_chats("14c single", cold, FLEET_DISAGG_TOKENS)
+            await single.wait_drained()
+            cold_ids = {chat_ids(tok, m): runs[(None, chat_ids(tok, m))] for m in msgs}
+            out["14c_single_ttft_ms"] = [(r["t_first"] - r["t0"]) * 1e3
+                                        for r in cold_ids.values()]
+            cold_tokens = {k: r["tokens"] for k, r in cold_ids.items()}
+            mem_single = card_memory() if on_card else 0
+            blocks_single = workspace_blocks()
+            # memory_allocated after each replica is built and after each
+            # warms (its graphs): the second replica's own rise
+            readings = {"built": [], "warmed": {}}
+            with fleet_memory_readings(readings):
+                picked = await add_endpoint(processor, cli, "fleet",
+                                            dict(FLEET_BASE, replicas=2,
+                                                 watchdog_interval=FLEET_WATCHDOG_S))
+                t0 = time.perf_counter()
+                await fleet_chat(s, base, "fleet", [{"role": "user", "content": "Warm up."}],
+                                 4, False)
+                warm_s = time.perf_counter() - t0
+            group = fleet_of(processor, "fleet")
+            record_fleet([r.engine for r in group.replicas], runs)
+            await drained(*[r.engine for r in group.replicas])
+            mem_fleet = card_memory() if on_card else 0
+            ready = await (await s.get(base + "/ready")).json()
+            ring = ready["fleet"]["fleet"]["ring"]
+            if ring != ["r0", "r1"]:
+                raise AssertionError("/ready's fleet ring: {}".format(ready["fleet"]))
+            out["14a"] = await fleet_14a(s, base, processor, tok, runs, turns, single_results)
+            # the exporter, in process: a statistics controller's device
+            # gauges beside the fleet's collectors
+            if not _STATS:
+                _STATS.append(StatisticsController("", registry=REGISTRY))
+            _STATS[0].update_device_gauges()
+            text = generate_latest(REGISTRY).decode()
+            want = ['engine_ready{model="fleet",replica="r0"} 1.0',
+                    'engine_ready{model="fleet",replica="r1"} 1.0',
+                    'router_replicas{model="fleet"} 2.0',
+                    'engine_kv_pool_bytes{kind="kv",model="fleet",replica="r1"}']
+            if on_card:
+                want.append('tpu_hbm_bytes_in_use{device="0"}')
+            missing = [w for w in want if w not in text]
+            if missing:
+                raise AssertionError("14a: the Prometheus export lacks {}".format(missing))
+            a = out["14a"]
+            built, warmed = readings["built"], readings["warmed"]
+            second = ((built[1] - built[0]) + (warmed["r1"] - warmed["r0"])
+                      if on_card else 0)
+            weights = group.model.weight_bytes()
+            a.update(picked_up_s=picked, warm_s=warm_s, memory_single=mem_single,
+                     memory_fleet=mem_fleet, second_replica_rise=second, weight_bytes=weights,
+                     ring=ring, exported=want)
+            log("  14a: homes {}, prefix hits per replica {}, affine routes {}, token ids "
+                "equal the single endpoint's on all 12 turns; paged_attention {} = {} layers x "
+                "{} decode steps; fleet picked up {:.2f} s after the CLI, its first request "
+                "(both replicas' warmup) {:.2f} s; memory_allocated: the fleet +{} B ({} B of "
+                "weights, once), the second replica +{} B (built +{} B, warmed +{} B) "
+                "({})".format(
+                    a["homes"], a["hits"], a["affine"], a["launches"],
+                    a["launches"] // max(1, a["decode_steps"]), a["decode_steps"], picked,
+                    warm_s, mem_fleet - mem_single, weights, second,
+                    built[1] - built[0] if on_card else 0,
+                    warmed["r1"] - warmed["r0"] if on_card else 0, card))
+            a.update(single_wall_s=single_wall, single_step_ms=single_step_ms)
+            log("  14a: TTFT ms by turn (conversation order) {}; 12 chats in {:.2f} s on the "
+                "fleet, {:.2f} s on the single engine; ms a decode step {} on the replicas, "
+                "{:.3f} on the single engine; exported {}".format(
+                    [round(x, 2) for x in a["ttft_ms"]], a["wall_s"], single_wall,
+                    {k: round(v, 3) for k, v in a["step_ms"].items()}, single_step_ms, want))
+            if on_card and not 0 < second < FLEET_SECOND_REPLICA_LIMIT:
+                raise AssertionError("the fleet's second replica added {} B".format(second))
+            out["14b"] = await fleet_14b(s, base, processor, tok, runs, block)
+            b = out["14b"]
+            log("  14b: victims {} on r1 tripped its watchdog ({} s stall, {} s interval); {} "
+                "failovers to r0, resumed {} s after the trip, each continuation a fresh "
+                "request's on r0; tokens before the trip / after: {}; r1 re-warmed in {:.2f} s "
+                "and rejoined the ring {:.2f} s after the trip ({})".format(
+                    b["victims"], FLEET_STALL_S, FLEET_WATCHDOG_S, b["failovers"],
+                    [round(x, 3) for x in b["resume_s"]], b["streams"], b["rewarm_s"],
+                    b["rejoin_s"], card))
+            del group  # the eviction must be the last to hold it
+            out["removal"] = r = await remove_fleet(processor, cli, "fleet")
+            mem_after = card_memory() if on_card else 0
+            r.update(memory_before=mem_single, memory_after=mem_after,
+                     workspace_blocks_before=blocks_single,
+                     workspace_blocks_after=workspace_blocks())
+            log("  removal: the fleet's group and both engines gone where the release "
+                "returned ({:.2f} s after the CLI), no registry entry left; memory_allocated "
+                "{} B before the fleet, {} B after ({:+d} B); live 32 MiB blocks by stream "
+                "before {}, after {} ({})".format(
+                    r["freed_s"], mem_single, mem_after, mem_after - mem_single, blocks_single,
+                    r["workspace_blocks_after"], card))
+            if abs(mem_after - mem_single) > CP_MEMORY_SLACK:
+                raise AssertionError("memory_allocated {} B before the fleet, {} B after its "
+                                     "removal".format(mem_single, mem_after))
+            # a second cycle on the same streams and threads adds nothing
+            fleet_aux = dict(FLEET_BASE, replicas=2, watchdog_interval=FLEET_WATCHDOG_S)
+            r["second_cycle"] = again = await cycle_again(s, base, processor, cli, "fleet",
+                                                          fleet_aux)
+            log("  removal, second cycle: the fleet added again, warmed and removed ({:.2f} s "
+                "after the CLI); memory_allocated {} B after ({:+d} B against the first "
+                "removal) ({})".format(again["freed_s"], again["memory_after"],
+                                       again["memory_after"] - mem_after, card))
+            if again["memory_after"] != mem_after:
+                raise AssertionError("memory_allocated {} B after the fleet's first removal, {} "
+                                     "B after the second".format(mem_after,
+                                                                 again["memory_after"]))
+            roles = {"replicas": 2, "replica_roles": ["prefill", "decode"],
+                     "watchdog_interval": FLEET_WATCHDOG_S}
+            out["14c"] = {}
+            for arm, knobs in (("two_dispatch", {}),
+                               ("ragged", {"scheduler": "ragged", "step_token_budget": 256})):
+                url = "disagg" if arm == "two_dispatch" else "disagg_ragged"
+                aux = dict(FLEET_BASE, **roles, **knobs)
+                out["14c"][arm] = c = await fleet_14c(s, base, processor, cli, tok, runs, url,
+                                                      aux, cold_tokens)
+                c["memory_after"] = card_memory() if on_card else 0
+                log("  14c {}: ships {} ({} pages; {} draft frames of {} pages, {} partial "
+                    "frames received), decode hits {}; ship_ms {:.3f} (the prefill replica's "
+                    "loop stall), receive_ms {:.3f}; TTFT ms {} disaggregated / {} monolithic "
+                    "cold; first difference from the cold monolithic stream at token {}; "
+                    "streams equal a hit on the prefill replica; removed in {:.2f} s, "
+                    "memory_allocated {:+d} B against before the fleet ({})".format(
+                        arm, c["ships"], c["ship_pages"], c["draft_ships"], c["draft_pages"],
+                        c["partial_frames"], c["hits"], c["ship_ms"], c["receive_ms"],
+                        [round(x, 2) for x in c["ttft_ms"]],
+                        [round(x, 2) for x in out["14c_single_ttft_ms"]],
+                        c["first_difference_from_cold"], c["freed_s"],
+                        c["memory_after"] - mem_single, card))
+                log("  14c {}: the prefill replica given the two chats directly, at once "
+                    "against one after the other: first differences {}; two new chats at once "
+                    "through the fleet: 200 / length, ships {}, decode hits {}, partial frames "
+                    "{}, pages bitwise, nothing dropped; their first differences from a lone "
+                    "hit on the prefill replica {}".format(
+                        arm, c["monolithic_together_vs_alone"], c["concurrent_ships"],
+                        c["concurrent_hits"], c["concurrent_partial_frames"],
+                        c["concurrent_vs_alone"]))
+                if arm == "two_dispatch" and c["memory_after"] > mem_after:
+                    # the fleet's streams and threads again: nothing new
+                    raise AssertionError("memory_allocated {} B after the fleet's removal, {} B "
+                                         "after 14c two_dispatch's".format(
+                                             mem_after, c["memory_after"]))
+                if arm == "ragged":
+                    c["second_cycle"] = again = await cycle_again(s, base, processor, cli, url,
+                                                                  aux)
+                    log("  14c ragged, second cycle: added again, warmed and removed; "
+                        "memory_allocated {:+d} B against its first removal ({})".format(
+                            again["memory_after"] - c["memory_after"], card))
+                    if again["memory_after"] != c["memory_after"]:
+                        raise AssertionError("memory_allocated {} B after 14c ragged's first "
+                                             "removal, {} B after the second".format(
+                                                 c["memory_after"], again["memory_after"]))
+    finally:
+        await runner.cleanup()
+    return out
+
+
+def phase_fleet(card: str) -> dict:
+    """Phase 14 (module docstring): the CLI, a processor launched with the
+    single endpoint, then the fleet endpoints added and removed by the CLI
+    while it serves."""
+    from clearml_serving_tpu_torch.__main__ import cli
+    from clearml_serving_tpu_torch.llm.tokenizer import ByteTokenizer
+    from clearml_serving_tpu_torch.models.llama import resolve_config
+    from clearml_serving_tpu_torch.serving.main import setup_processor
+    from clearml_serving_tpu_torch.state import StateStore
+
+    root = state_dir()
+    env = {"TPUSERVE_STATE_ROOT": root, "TPUSERVE_POLL_FREQ": str(1.0 / 60)}
+    saved = {k: os.environ.get(k) for k in list(env) + ["TPUSERVE_SERVICE_ID"]}
+    os.environ.update(env)
+    processor = None
+    cfg = resolve_config({"preset": FLEET_BASE["preset"], **(FLEET_BASE.get("config") or {})})
+    tok = ByteTokenizer(vocab_size=max(int(cfg["vocab_size"]), 259))
+    try:
+        for argv in (["create", "--name", "chip-smoke-fleet"],
+                     ["--yes", "model", "add", "--engine", "llm", "--endpoint", "single",
+                      "--aux-config"] + ["engine.{}={}".format(k, json.dumps(v))
+                                         for k, v in FLEET_BASE.items()]):
+            if cli(argv) != 0:
+                raise AssertionError("the CLI failed: {}".format(argv))
+        os.environ["TPUSERVE_SERVICE_ID"] = StateStore(root).find_service("chip-smoke-fleet").id
+        processor = setup_processor(device=DEV)
+        sync()
+        t0 = time.perf_counter()
+        out = asyncio.run(fleet_runs(processor, cli, tok, card))
+        out["runs_s"] = time.perf_counter() - t0
+    finally:
+        if processor is not None:
+            processor.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -5459,6 +6309,12 @@ def main() -> int:
         "its sync daemon, the /serve/{tail} router, llama3-8b full width int8 KV")
     control = phase_control_plane(card)
     mark("13")
+    release_card_memory()
+    log("phase 14: the replica fleet: two Llama-3-8B replicas over one weight set behind the "
+        "prefix-affine router, failover to a sibling, disaggregated prefill/decode over the "
+        "shared-slab KV transport, the Prometheus exporter")
+    fleet = phase_fleet(card)
+    mark("14")
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -5523,6 +6379,12 @@ def main() -> int:
         # phase 13a: decode replays of the endpoint the processor built
         # from the CLI's service, behind the router
         "launches_control_plane": control["launches"],
+        # phase 14a: decode replays of the two replicas of the fleet
+        # endpoint (4 conversations x 3 turns)
+        "launches_fleet": fleet["14a"]["launches"],
+        # phase 14c: the disaggregated arms' decode launches
+        "launches_disagg": fleet["14c"]["two_dispatch"]["launches"]["paged"],
+        "launches_disagg_ragged_path": fleet["14c"]["ragged"]["launches"]["paged"],
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -5568,6 +6430,9 @@ def main() -> int:
         # of its profiled pass (the first trace disagreed with the counts)
         "launches_guided": guided["ragged"]["ragged_launches"],
         "trace_retries_guided": guided["ragged"]["trace_retries"],
+        # phase 14c: the ragged disaggregated arm (the prefill replica's
+        # chunk rows, the decode replica's tail rows), both replicas
+        "launches_disagg": fleet["14c"]["ragged"]["launches"]["ragged"],
     }, {
         "name": "ragged_paged_attention[tree_anc]",
         "route": "cuda",
@@ -5649,7 +6514,7 @@ def main() -> int:
                                   "lifecycle": lifecycle, "prefix_cache": prefix,
                                   "kv_tier": tier, "sampling": sampling,
                                   "guided": guided, "admission": admission,
-                                  "control_plane": control}))
+                                  "control_plane": control, "fleet": fleet}))
     log("seconds by phase:", json.dumps(seconds))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)

@@ -81,22 +81,34 @@ from .sampling import (
 COUNTED_KERNELS = (paged_attention, fused_int4_matmul)
 
 
-# device index -> (warm-up stream, capture stream): every capture on the
-# device warms up on the first and captures on the second. cuBLAS keeps a
-# 32 MiB workspace per (thread's handle, stream) pair for the life of the
-# process, so a new stream per capture would leave one more behind each
-# time. The graphs all use the capture stream's workspace; an eager run on
-# that stream would write it while another engine's graph replays.
-_CAPTURE_STREAMS: Dict[int, tuple] = {}
+# Every capture warms up on one stream per device and captures on the
+# capture stream kept for the engine's stream: (device index, engine
+# stream) -> capture stream.
+# cuBLAS keeps a 32 MiB workspace per (thread's handle, stream) for the
+# life of the process, so a new stream per capture would leave one more
+# behind each time. The graphs use their capture stream's workspace: an
+# eager run on that stream would write it while a graph replays, and so
+# would the replay of another graph captured there on another engine
+# stream. Engines on one stream replay in order; engines on separate
+# streams (a fleet's replicas) capture on streams of their own, so their
+# concurrent replays use separate workspaces. The warm-up runs, eager and
+# serialized by ``CAPTURE_LOCK``, share one stream whose workspace no
+# graph uses.
+_WARM_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+_CAPTURE_STREAMS: Dict[tuple, "torch.cuda.Stream"] = {}
 
 
-def _capture_streams(dev: torch.device) -> tuple:
-    """The device's warm-up and capture streams (made at its first capture;
-    the caller holds ``CAPTURE_LOCK``)."""
+def _capture_streams(dev: torch.device, stream: "torch.cuda.Stream") -> tuple:
+    """The warm-up stream and the capture stream of the engines on
+    ``stream`` (made at their first capture; the caller holds
+    ``CAPTURE_LOCK``)."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if index not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[index] = (torch.cuda.Stream(index), torch.cuda.Stream(index))
-    return _CAPTURE_STREAMS[index]
+    if index not in _WARM_STREAMS:
+        _WARM_STREAMS[index] = torch.cuda.Stream(index)
+    key = (index, stream.cuda_stream)
+    if key not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[key] = torch.cuda.Stream(index)
+    return _WARM_STREAMS[index], _CAPTURE_STREAMS[key]
 
 
 # The one thread every capture runs on, made at the first capture: each
@@ -386,7 +398,7 @@ class DecodeGraphs:
             # the lock keeps another thread's release of a dropped engine
             # out of the capture
             with CAPTURE_LOCK:
-                warm, side = _capture_streams(dev)
+                warm, side = _capture_streams(dev, stream)
                 # one eager run first, on the warm-up stream: kernel loads
                 # and library handles are set up outside the capture
                 warm.wait_stream(stream)

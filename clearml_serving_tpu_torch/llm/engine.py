@@ -69,7 +69,10 @@ token emitted. Decode chunks keep dispatching meanwhile. ``_PrefillGate``
 paces the prefill dispatches against them: while decode is active, at most
 ``prefill_segments_per_decode`` segments (default 2; brownout stage 3: 1)
 enter the stream per retired chunk, a single-dispatch interactive
-admission bypasses it, and ``prefill_stall_timeout`` bounds a wait. One
+admission bypasses it, and ``prefill_stall_timeout`` bounds a wait. A
+dispatch the gate holds back hands the admission back to the event loop,
+which waits for the permit there (``_run_prefill``), so the stream's one
+prefill thread serves the other admissions meanwhile. One
 dispatch's launches enqueue under a lock, so they stay contiguous on the
 stream beside other admissions', as the reference's compiled dispatch is.
 
@@ -137,9 +140,24 @@ stored for other admissions to share), and its resume maps them back and
 decodes on, so its stream is the one it would have been. Chaos seams
 (``llm/faults.py``) drive each path in the tests.
 
-Device work runs in worker threads, on one CUDA stream, so the event loop
-keeps serving HTTP while the card computes. The model arrives with its
-weights already in their serving format (``build_engine`` quantizes them);
+Disaggregated prefill/decode (``llm/replica.py`` with roles): an engine
+wired to a KV transport (``attach_kv_transport``) ships a prefill leg's
+storable prefix pages at its commit (``_maybe_ship``; under the ragged
+scheduler, whole pages ship ahead as partial frames at each chunk boundary,
+``_maybe_ship_draft``), and a decode replica imports a shipment into its
+prefix cache before the stream's admission (``receive_shipment``), which
+then runs as a prefix hit. Every failure drops to a recompute.
+
+Device work runs in worker threads, on the engine's CUDA stream (the
+current stream when it was built: a replica group builds its replicas
+past the first on streams of their own), so the event loop keeps serving
+HTTP while the card computes. The engines on one stream enqueue their
+prefills on that stream's one prefill thread, one dispatch per job, and
+each runs its steps on a thread of its own, leased from the stream's pool
+(``device.prefill_worker``, ``device.lease_step_worker``). The engines of
+a group share one ``Llama``.
+The model arrives with its weights already in their serving format
+(``build_engine`` quantizes them);
 ``weight_quant``/``quantize`` are accepted when they name that format.
 Every reference knob this slice does not serve raises, naming itself.
 """
@@ -147,6 +165,8 @@ Every reference knob this slice does not serve raises, naming itself.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import functools
 import heapq
 import itertools
 import json
@@ -154,6 +174,7 @@ import logging
 import os
 import threading
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Deque, Dict, List, Optional
@@ -168,6 +189,7 @@ from ..errors import (
     EngineStuckError,
     EngineUnavailableError,
 )
+from ..device import lease_step_worker, prefill_worker, return_step_worker
 from ..models.llama import Llama
 from ..ops.gates import check_engine_gates
 from ..ops.paged_attention import RAGGED_QB, ragged_layout, tree_ancestors
@@ -270,6 +292,12 @@ class GenRequest:
     # holds until its commit hands it to the slot
     _gstate0: int = -1
     _guided_key: Optional[str] = None
+    # disaggregated prefill/decode (llm/replica.py): the group sets
+    # _ship_to on the prefill leg's clone (the decode replica its commit
+    # ships the prefix pages to) and _shipped on the original request, so
+    # the decode replica's admission books the shipped prefix's fate
+    _ship_to: Optional[str] = None
+    _shipped: bool = False
     # filled by the engine:
     out_queue: "asyncio.Queue" = field(default_factory=asyncio.Queue)
     produced: int = 0
@@ -292,6 +320,16 @@ class GenRequest:
 
 
 _FINISHED = object()
+
+
+class _ShipShim:
+    """Carrier for the ``engine.kv.receive`` fault seam, which matches on
+    ``prompt_ids`` (the receive runs before the stream's request exists on
+    the decode replica)."""
+
+    def __init__(self, prompt_ids: List[int]):
+        self.prompt_ids = list(prompt_ids)
+
 
 # prompt scoring takes its softmax and top-k in blocks of this many positions
 _SCORE_BLOCK = 256
@@ -556,13 +594,14 @@ class _PrefillGate:
     """Decode-first pacing of the two-dispatch admission prefills (the
     reference's ``_PrefillGate``).
 
-    Admission prefills run in worker threads beside the decode chunks, and
-    every dispatch lands on the engine's one stream: an unpaced segment
-    train would enqueue ahead of the next decode chunk and stretch the live
-    rows' inter-token gaps. While decode is active, at most
+    Admission prefills run on their stream's prefill thread beside the
+    decode chunks, and every dispatch lands on the engine's one stream: an
+    unpaced segment train would enqueue ahead of the next decode chunk and
+    stretch the live rows' inter-token gaps. While decode is active, at most
     ``segments_per_chunk`` prefill dispatches enter the stream per decode
     chunk: the loop ``deposit()``s that many permits at each retire, and an
-    admission thread ``acquire()``s one per dispatch.
+    admission takes one per dispatch by awaiting ``wait()`` on the loop (a
+    thread blocks in ``acquire()`` instead); both go through ``take()``.
 
     ``stall_timeout`` bounds a wait the other way: when decode stops
     depositing (the loop wedged), a waiting prefill proceeds after that many
@@ -576,6 +615,18 @@ class _PrefillGate:
         self._cond = threading.Condition()
         self._permits = self._spc
         self._active = False
+        # futures of the admissions awaiting a permit on an event loop
+        self._waiters: List[asyncio.Future] = []
+
+    def _notify(self) -> None:
+        """Under ``_cond``: wake every waiter, blocked or awaiting."""
+        self._cond.notify_all()
+        waiters, self._waiters = self._waiters, []
+        for fut in waiters:
+            try:
+                fut.get_loop().call_soon_threadsafe(_resolve, fut)
+            except RuntimeError:
+                pass  # its loop has closed
 
     def set_budget(self, segments_per_chunk: Optional[int]) -> None:
         """Brownout's override of the per-chunk budget (stage 3 sets 1, so
@@ -585,7 +636,7 @@ class _PrefillGate:
             self._spc = (max(1, int(segments_per_chunk)) if segments_per_chunk
                          else self._spc_cfg)
             self._permits = min(self._permits, self._spc)
-            self._cond.notify_all()
+            self._notify()
 
     def set_active(self, active: bool) -> None:
         """Loop thread: whether decode has live slots; inactive opens the
@@ -594,37 +645,65 @@ class _PrefillGate:
             self._active = bool(active)
             if not self._active:
                 self._permits = self._spc
-                self._cond.notify_all()
+                self._notify()
 
     def deposit(self) -> None:
         """Loop thread: a decode chunk retired. Permits are set, never
         accumulated: an idle stretch must not bank a burst for later."""
         with self._cond:
             self._permits = self._spc
-            self._cond.notify_all()
+            self._notify()
 
-    def acquire(self, bypass: bool = False) -> None:
-        """Admission thread: wait (boundedly) before one prefill dispatch.
-        ``bypass``: a single-dispatch interactive admission skips the
-        pacing, since one dispatch cannot train, and parking a first token
-        behind a batch admission's permit inverts priorities; an
-        interactive segment train is paced like any other."""
+    def take(self, bypass: bool = False) -> bool:
+        """Whether one prefill dispatch may enter the stream now, taking a
+        permit where one is needed. ``bypass``: a single-dispatch
+        interactive admission skips the pacing, since one dispatch cannot
+        train, and parking a first token behind a batch admission's permit
+        inverts priorities; an interactive segment train is paced like any
+        other."""
         if bypass:
-            return
+            return True
         with self._cond:
             if not self._active:
-                return
-            if self._permits <= 0:
-                self._cond.wait_for(lambda: self._permits > 0 or not self._active,
-                                    timeout=self._stall_timeout)
+                return True
             if self._permits > 0:
                 self._permits -= 1
-            # timed out without a permit: proceed (the starvation bound)
+                return True
+            return False
+
+    def acquire(self, bypass: bool = False) -> None:
+        """Thread: wait (boundedly) before one prefill dispatch; timed out
+        without a permit, it proceeds (the starvation bound)."""
+        with self._cond:
+            self._cond.wait_for(lambda: self.take(bypass), timeout=self._stall_timeout)
+
+    async def wait(self, bypass: bool = False) -> None:
+        """Event loop: ``acquire`` without blocking the loop."""
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + self._stall_timeout
+        while True:
+            with self._cond:
+                if self.take(bypass):
+                    return
+                fut = loop.create_future()
+                self._waiters.append(fut)
+            left = deadline - loop.time()
+            if left <= 0:
+                return
+            try:
+                await asyncio.wait_for(fut, left)
+            except asyncio.TimeoutError:
+                return
+
+
+def _resolve(fut: asyncio.Future) -> None:
+    if not fut.done():
+        fut.set_result(None)
 
 
 # reference engine knobs this slice does not serve (each raises when set)
 UNSUPPORTED_KNOBS = (
-    "mesh", "long_prefill_threshold", "long_bucket_step", "lora_adapters", "replica",
+    "mesh", "long_prefill_threshold", "long_bucket_step", "lora_adapters",
 )
 
 
@@ -697,6 +776,10 @@ class LLMEngineCore:
         # guided decoding's token byte tables come from it (None: guided
         # requests are refused)
         tokenizer=None,
+        # this engine's replica id in a fleet ("rN", llm/replica.py): its
+        # health() and lifecycle_stats() carry it, and the metrics label
+        # its series with it
+        replica: Optional[str] = None,
         **knobs,
     ):
         for name, value in knobs.items():
@@ -770,6 +853,7 @@ class LLMEngineCore:
             )
         self.weight_quant = pre
         self.model = model
+        self.replica_id = str(replica) if replica is not None else None
         self.device = model.device
         self.max_batch = int(max_batch)
         self.max_seq_len = int(max_seq_len)
@@ -980,6 +1064,14 @@ class LLMEngineCore:
         # promotions run in order; the cache's (the current stream when it
         # was built)
         self._stream = self.paged_cache.stream
+        # the stream's one prefill thread, and a step thread of the
+        # engine's own, leased from the stream's pool until the engine is
+        # collected: cuBLAS keeps a 32 MiB workspace per (thread, stream),
+        # which the event loop's pool of worker threads would multiply, for
+        # every stream a fleet adds (``device.prefill_worker``)
+        self._workers = {"prefill": prefill_worker(self._stream),
+                         "step": lease_step_worker(self._stream)}
+        weakref.finalize(self, return_step_worker, self._stream, self._workers["step"])
         # on the card each chunk is a CUDA-graph replay unless cuda_graphs
         # is off; the eager arm keeps its chain in _chain
         self._graphs = (DecodeGraphs(model, self.paged_cache, self._layout, self.decode_steps,
@@ -1096,6 +1188,25 @@ class LLMEngineCore:
         self._hist_spec_tree_depth = _Histogram((0, 1, 2, 3, 4, 8, 16))
         # time to first token of recent requests, submission to emission (ms)
         self.ttft_ms: Deque[float] = deque(maxlen=1024)
+        # -- disaggregated prefill/decode: the KV-transport endpoint and the
+        # replica's role (attach_kv_transport; None: a monolithic engine),
+        # the ship and receive counters, each slot's draft-ahead stream
+        # (offset shipped so far, aborted), and the ship / receive times
+        self._kv_transport = None
+        self.replica_role = "hybrid"
+        self._kv_ship_stats = {
+            "ships": 0, "ship_pages": 0, "ship_drops": 0, "receives": 0,
+            "receive_pages": 0, "receive_empty": 0, "receive_failures": 0,
+            "hits": 0, "recomputes": 0, "draft_ships": 0, "draft_pages": 0,
+            "draft_aborts": 0,
+        }
+        self._kv_draft_ahead: Dict[int, dict] = {}
+        self._hist_ship_ms = _Histogram(_MS_BUCKETS)
+        self._hist_receive_ms = _Histogram(_MS_BUCKETS)
+        # set by a replica group whose engines share the card: their
+        # captures, warmup's included, run in the thread-local mode, since
+        # a sibling may be serving meanwhile
+        self._cohosted = False
 
     # -- request surface -----------------------------------------------------
 
@@ -1966,6 +2077,10 @@ class LLMEngineCore:
             # (None unless armed)
             "kv_tier": self._kv_tier_snapshot(),
             "ledger": self._ledger.stats() if self._ledger is not None else None,
+            # the pools' bytes by kind and dtype, and the KV transport's
+            # movement (None on a monolithic engine)
+            "kv_pool": self._kv_pool_snapshot(),
+            "kv_ship": self._kv_ship_snapshot(),
         }
 
     def _kv_tier_snapshot(self) -> Optional[dict]:
@@ -1999,7 +2114,8 @@ class LLMEngineCore:
         """Loop thread: account the host tier's promotions that completed
         (a retire boundary); ``force`` waits for the rest (drain). A no-op
         without a tier."""
-        if self.paged_cache.host_tier is None:
+        if self.paged_cache.host_tier is None and self._kv_transport is None:
+            # a transport's imports ride the promotions' records
             return
         self._promotion_reaps += self.paged_cache.reap_promotions(force=force)
 
@@ -2021,8 +2137,207 @@ class LLMEngineCore:
         if self._ledger is not None and request is not None:
             self._ledger.audit_request(lifecycle_ledger.request_tag(request), where=where)
 
+    # -- disaggregated prefill/decode ------------------------------------------
+
+    def attach_kv_transport(self, endpoint, role: str = "hybrid") -> None:
+        """Wire a KV-transport endpoint (``llm/kv_transport.py``) and this
+        replica's role into the engine (the replica group does, at its
+        construction). The shipment payload is the radix-storable prefix,
+        so a transport needs the prefix cache."""
+        if role not in ("prefill", "decode", "hybrid"):
+            raise ValueError("replica role must be prefill/decode/hybrid: got {!r}".format(role))
+        if endpoint is not None and self._prefix is None:
+            raise ValueError(
+                "KV transport needs cache_mode='paged' and a prefix_cache (the shipment "
+                "payload is the radix-storable prefix)")
+        self._kv_transport = endpoint
+        self.replica_role = role
+
+    def _ship_shipment(self, request: GenRequest, pages: List[int], prefix_len: int,
+                       offset: int, final: bool) -> bool:
+        """Export ``pages`` (a synchronous readback: it waits for the work
+        enqueued on the engine's stream) and send them to
+        ``request._ship_to``; False when the transport dropped them."""
+        from .kv_transport import KVShipment, shipment_key
+
+        slabs = self.paged_cache.export_pages(pages)
+        return self._kv_transport.send(request._ship_to, KVShipment(
+            key=shipment_key(request.prompt_ids, self._prefix.block, 0),
+            src=self.replica_id or "r?", prefix_len=prefix_len,
+            page_size=self.paged_cache.pool.page_size, lora=0,
+            hk=slabs["hk"], hv=slabs["hv"], hk_scale=slabs.get("hk_scale"),
+            hv_scale=slabs.get("hv_scale"), page_offset=offset, final=final))
+
+    def _maybe_ship_draft(self, job: _RaggedJob) -> None:
+        """Draft-ahead shipping (loop thread): at a ragged chunk boundary,
+        the job's newly final storable pages ship as an unsealed partial
+        frame, overlapping the rest of the prefill. The last storable page
+        is always held back for the commit's seal (``_maybe_ship``). An
+        injected ``kv.ship.partial`` fault, a failed export or send, or a
+        transport drop aborts the job's whole draft-ahead stream and skips
+        the seal: the receiver's unsealed assembly never becomes
+        consumable, and the decode replica recomputes."""
+        request = job.request
+        if not request._ship_to or self._kv_transport is None or self._prefix is None:
+            return
+        storable = self._prefix.longest_prefix_len(len(request.prompt_ids))
+        if storable < self._prefix.block:
+            return
+        page_size = self.paged_cache.pool.page_size
+        state = self._kv_draft_ahead.get(job.slot)
+        if state is not None and state["aborted"]:
+            return
+        n_pages = min(min(job.pos, storable) // page_size, storable // page_size - 1)
+        offset = state["offset"] if state is not None else 0
+        if n_pages <= offset:
+            return
+        if state is None:
+            state = self._kv_draft_ahead[job.slot] = {"offset": 0, "aborted": False}
+        pages = self.paged_cache.pool.slot_pages(job.slot)[offset:n_pages]
+        try:
+            faults.fire("kv.ship.partial", request=request)
+            sent = self._ship_shipment(request, pages, n_pages * page_size, offset, False)
+        except faults.InjectedFault:
+            sent = False
+        except Exception as ex:  # best-effort by contract
+            logger.warning("draft-ahead kv ship to %s aborted (%s: %s); decode-side recompute",
+                           request._ship_to, type(ex).__name__, ex)
+            sent = False
+        if not sent:
+            state["aborted"] = True
+            self._kv_ship_stats["draft_aborts"] += 1
+            return
+        state["offset"] = n_pages
+        self._kv_ship_stats["draft_ships"] += 1
+        self._kv_ship_stats["draft_pages"] += n_pages - offset
+
+    def _maybe_ship(self, request: GenRequest, slot: int) -> None:
+        """Ship at the commit (loop thread): the just-committed admission's
+        block-aligned prefix pages export into a shipment addressed to
+        ``request._ship_to``. After draft-ahead frames only the tail pages
+        ship, as the sealing final frame; an aborted draft-ahead stream
+        skips the seal. Best-effort: an injected ``engine.kv.ship`` fault,
+        a failed export or a full receive slab drops the shipment (counted
+        in ``ship_drops``) and the decode replica recomputes; nothing here
+        fails the request."""
+        state = self._kv_draft_ahead.pop(slot, None)
+        if not request._ship_to or self._kv_transport is None or self._prefix is None:
+            return
+        if state is not None and state["aborted"]:
+            self._kv_ship_stats["ship_drops"] += 1
+            return
+        offset = state["offset"] if state is not None else 0
+        prefix_len = self._prefix.longest_prefix_len(len(request.prompt_ids))
+        if prefix_len < self._prefix.block:
+            return
+        t0 = time.perf_counter()
+        n_pages = prefix_len // self.paged_cache.pool.page_size
+        pages = self.paged_cache.pool.slot_pages(slot)[offset:n_pages]
+        try:
+            faults.fire("engine.kv.ship", request=request)
+            sent = self._ship_shipment(request, pages, prefix_len, offset, True)
+        except faults.InjectedFault:
+            sent = False
+        except Exception as ex:  # best-effort by contract
+            logger.warning("kv ship to %s dropped (%s: %s); decode-side recompute",
+                           request._ship_to, type(ex).__name__, ex)
+            sent = False
+        if not sent:
+            self._kv_ship_stats["ship_drops"] += 1
+            return
+        self._kv_ship_stats["ships"] += 1
+        # the whole prefix: the head pages rode the draft frames
+        self._kv_ship_stats["ship_pages"] += n_pages
+        self._hist_ship_ms.observe((time.perf_counter() - t0) * 1e3)
+
+    def receive_shipment(self, prompt_ids: List[int], lora: int = 0) -> dict:
+        """Receive and import (the decode replica's half): pop the shipment
+        for the prompt's prefix from this replica's receive slab and attach
+        it to the prefix cache (``RadixPrefixCache.store_shipped``): fresh
+        pages allocated, their upload enqueued on the engine's stream, the
+        nodes attached last. The next admission's lookup then hits the
+        shipped run, and its gather is enqueued after the upload.
+
+        Called on the engine's loop thread (the replica group's coroutine
+        runs on the loop every replica of the group serves from), where the
+        commits allocate pages too. Returns ``{"status": "imported" |
+        "empty" | "failed" | "off", "pages": n}``; ``failed`` (an injected
+        ``engine.kv.receive`` fault, pool pressure, a geometry mismatch)
+        drops the shipment with no page leaked."""
+        if self._kv_transport is None or self._prefix is None:
+            return {"status": "off", "pages": 0}
+        from .kv_transport import shipment_key
+
+        shipment = self._kv_transport.recv(shipment_key(prompt_ids, self._prefix.block, lora))
+        if shipment is None:
+            self._kv_ship_stats["receive_empty"] += 1
+            return {"status": "empty", "pages": 0}
+        t0 = time.perf_counter()
+        try:
+            faults.fire("engine.kv.receive", request=_ShipShim(prompt_ids))
+            with self._on_stream_ctx():
+                pages = self._prefix.store_shipped(prompt_ids, lora, shipment, self.paged_cache)
+        except (faults.InjectedFault, MemoryError, ValueError) as ex:
+            self._kv_ship_stats["receive_failures"] += 1
+            return {"status": "failed", "pages": 0, "error": repr(ex)[:200]}
+        self._kv_ship_stats["receives"] += 1
+        self._kv_ship_stats["receive_pages"] += pages
+        self._hist_receive_ms.observe((time.perf_counter() - t0) * 1e3)
+        return {"status": "imported", "pages": pages}
+
+    def _count_ship_outcome(self, request: GenRequest) -> None:
+        """Admission-time ship accounting on the decode replica, once per
+        request the group marked ``_shipped``: a hit when its whole storable
+        prefix is resident, else a recompute (a transport drop, an
+        eviction, a failed receive)."""
+        if not request._shipped or self._prefix is None:
+            return
+        request._shipped = False
+        ids = request.prompt_ids
+        storable = self._prefix.longest_prefix_len(len(ids))
+        hit = storable >= self._prefix.block and self._prefix.match_len(ids, 0) >= storable
+        with self._count_lock:
+            self._kv_ship_stats["hits" if hit else "recomputes"] += 1
+
+    def _kv_ship_snapshot(self) -> Optional[dict]:
+        """The KV transport's movement block (the reference's keys); None
+        without a transport."""
+        if self._kv_transport is None:
+            return None
+        s = self._kv_ship_stats
+        judged = s["hits"] + s["recomputes"]
+        return {
+            "role": self.replica_role,
+            "ships": s["ships"],
+            "ship_pages": s["ship_pages"],
+            "ship_drops": s["ship_drops"],
+            "receives": s["receives"],
+            "receive_pages": s["receive_pages"],
+            "receive_empty": s["receive_empty"],
+            "receive_failures": s["receive_failures"],
+            "hits": s["hits"],
+            "recomputes": s["recomputes"],
+            "hit_rate": round(s["hits"] / judged, 4) if judged else None,
+            "draft_ships": s["draft_ships"],
+            "draft_pages": s["draft_pages"],
+            "draft_aborts": s["draft_aborts"],
+            # the share of the shipped prefix pages that overlapped the
+            # prefill instead of waiting for the commit
+            "overlap_ratio": (round(s["draft_pages"] / s["ship_pages"], 4)
+                              if s["ship_pages"] else 0.0),
+            "ship_ms": self._hist_ship_ms.snapshot(),
+            "receive_ms": self._hist_receive_ms.snapshot(),
+            "transport": self._kv_transport.stats(),
+        }
+
+    def _kv_pool_snapshot(self) -> dict:
+        """The paged pools' capacity block (the reference's keys)."""
+        pc = self.paged_cache
+        return dict(pc.pool_bytes(), dtype=pc.pool_dtype, num_pages=pc.pool.num_pages,
+                    page_size=pc.pool.page_size)
+
     def health(self) -> dict:
-        return dict(
+        out = dict(
             self._lifecycle_fields(),
             ready=self.is_ready,
             stopped=self._stopped,
@@ -2048,6 +2363,9 @@ class LLMEngineCore:
             scheduler="ragged" if self._ragged else "two_dispatch",
             ragged=self._ragged_snapshot(),
         )
+        if self.replica_id is not None:
+            out["replica"] = self.replica_id
+        return out
 
     def _ragged_snapshot(self) -> Optional[dict]:
         if not self._ragged:
@@ -2084,7 +2402,7 @@ class LLMEngineCore:
         """Scrape-time snapshot with the reference's ``lifecycle_stats``
         keys this slice serves (counters monotonic, gauges instantaneous)."""
         c = self.counters
-        return dict(
+        out = dict(
             self._lifecycle_fields(),
             ready=int(self.is_ready),
             sheds={"queue": c["sheds_queue"], "pool": c["sheds_pool"]},
@@ -2095,6 +2413,9 @@ class LLMEngineCore:
             scheduler="ragged" if self._ragged else "two_dispatch",
             ragged=self._ragged_snapshot(),
         )
+        if self.replica_id is not None:
+            out["replica"] = self.replica_id
+        return out
 
     async def wait_drained(self, timeout: float = 30.0) -> None:
         """Await the loop going idle (no active slots, nothing pending)."""
@@ -2222,12 +2543,21 @@ class LLMEngineCore:
             self._ledger.check(where=where, drained=drained and not self._inflight,
                                domains=self._ledger_domains())
 
+    def _on_stream_ctx(self):
+        """The engine's stream as the current stream (a no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    async def _on_worker(self, role: str, fn, *args):
+        """``fn(*args)`` on the engine's stream in its ``role`` thread."""
+        return await asyncio.get_running_loop().run_in_executor(
+            self._workers[role], functools.partial(self._on_stream, fn, *args))
+
     def _on_stream(self, fn, *args):
         """Run ``fn`` on the engine's stream: a worker thread starts on the
         default one."""
-        if self._stream is None:
-            return fn(*args)
-        with torch.cuda.stream(self._stream):
+        with self._on_stream_ctx():
             return fn(*args)
 
     def _wake_loop(self) -> None:
@@ -2259,13 +2589,15 @@ class LLMEngineCore:
             task.add_done_callback(self._admission_tasks.discard)
 
     async def _admission_task(self, request: GenRequest, slot: int) -> None:
-        """One admission's background half: the grammar compile, the
-        prefill and the first token in a worker thread, on the engine's
-        stream (``_prefill_device``), handed to the loop through
-        ``_ready``."""
+        """One admission's background half: the grammar compile in a
+        thread of its own (host work, kept off the stream's one prefill
+        thread, which the other admissions share), then the prefill and
+        the first token on the prefill thread, on the engine's stream
+        (``_run_prefill``), handed to the loop through ``_ready``."""
         try:
-            first_id, mini_cache, first_lp = await asyncio.to_thread(
-                self._on_stream, self._prefill_device, request)
+            if request.guided is not None and request._guided_key is None:
+                await asyncio.to_thread(self._ensure_grammar, request)
+            first_id, mini_cache, first_lp = await self._run_prefill(request)
         except Exception as ex:
             # a failed admission fails only its own request
             self._abandon_admission(request, slot, ex)
@@ -2398,27 +2730,84 @@ class LLMEngineCore:
             top_p=torch.as_tensor(self._top_p, device=dev),
         )
 
-    def _prefill_device(self, request: GenRequest):
-        """Worker thread, on the engine's stream, beside the decode chunks:
-        a guided request's grammar compiles first, then the prompt
-        prefills into a dense mini cache and the first token is sampled.
-        Touches no slot state and no page. A prefix-cache hit prefills only
-        the tail over its gathered shared pages, its pinned hit left on
+    async def _run_prefill(self, request: GenRequest):
+        """Loop thread: run an admission's prefill (``_prefill_steps``) on
+        the stream's prefill thread, one job per dispatch, so the jobs of
+        the stream's admissions interleave. Each dispatch's gate permit is
+        awaited here, on the loop (``_PrefillGate.wait``): no thread parks
+        on the gate, and a bypassing interactive dispatch waits behind at
+        most one job. The first token is sampled in a thread of its own,
+        since its read waits for the card. Returns (first token, mini
+        cache, first logprob entry or None)."""
+        steps = self._prefill_steps(request)
+        try:
+            done, value = await self._on_worker("prefill", self._advance_prefill, steps)
+            while not done:
+                if self._prefill_gate is not None:
+                    await self._prefill_gate.wait(value)
+                done, value = await self._on_worker("prefill", self._advance_prefill, steps)
+        finally:
+            # cancelled at the gate: the generator's handlers drop its pin
+            if not steps.gi_running:
+                steps.close()
+        last, cache, t0 = value
+        first_id, first_lp = await asyncio.to_thread(self._first_token, request, last)
+        with self._count_lock:
+            self.counters["prefills"] += 1
+            self.counters["prefill_ms"] += (time.perf_counter() - t0) * 1e3
+        return first_id, cache, first_lp
+
+    def _advance_prefill(self, steps):
+        """Prefill thread: run ``steps`` on to its next dispatch's permit,
+        ``(False, bypass)``, or to its end, ``(True, result)``. A dispatch
+        past the gate (``bypass``) waits for no permit: it runs in this
+        job."""
+        gate = self._prefill_gate
+        try:
+            bypass = next(steps)
+            while bypass and (gate is None or gate.take(bypass)):
+                bypass = next(steps)
+            return False, bypass
+        except StopIteration as stop:
+            return True, stop.value
+
+    def _run_gated(self, steps):
+        """Run a prefill generator (``_prefill_steps``, ``_prefix_admission``,
+        ``_prefill_segments``) to its end on the calling thread, waiting
+        for each of the gate's permits there; returns its result."""
+        try:
+            while True:
+                bypass = next(steps)
+                if self._prefill_gate is not None:
+                    self._prefill_gate.acquire(bypass)
+        except StopIteration as stop:
+            return stop.value
+
+    def _prefill_steps(self, request: GenRequest):
+        """Prefill thread, on the engine's stream, beside the decode
+        chunks (a generator: it yields before each dispatch for the gate's
+        permit, its ``bypass`` flag, to its driver, ``_run_prefill``): the
+        prompt prefills into a dense mini cache. Touches no slot state and
+        no page. A prefix-cache hit prefills only the tail over its
+        gathered shared pages, its pinned hit left on
         ``request._prefix_hit`` for the commit; a prompt longer than
         ``chunked_prefill_size`` C (no hit, its bucket rounded up to a
         multiple of C within ``max_seq_len``) prefills in C-token segments,
         each paced by the gate; any other takes one dispatch, which a
-        single interactive admission runs past the gate. Returns (first
-        token, mini cache, first logprob entry or None)."""
+        single interactive admission runs past the gate. Returns (the last
+        prompt position's logits, the mini cache, its start time)."""
         t0 = time.perf_counter()
         if faults.active():
             faults.fire("engine.prefill", request=request)
+        # a shipped prefix's fate, booked before the lookup uses it
+        self._count_ship_outcome(request)
         if request.guided is not None and request._guided_key is None:
             self._ensure_grammar(request)
         ids = request.prompt_ids
         n = len(ids)
         bypass = request.priority == "interactive"
-        hit_result = self._prefix_admission(request, bypass) if self._prefix is not None else None
+        hit_result = ((yield from self._prefix_admission(request, bypass))
+                      if self._prefix is not None else None)
         if hit_result is not None:
             last, cache, _plen = hit_result
         else:
@@ -2429,19 +2818,15 @@ class LLMEngineCore:
             chunk_bucket = -(-bucket // c) * c if c else 0
             if c > 0 and n > c and chunk_bucket <= self.max_seq_len:
                 cache = self.model.init_cache(1, chunk_bucket)
-                last, cache = self._prefill_segments(cache, ids, 0, c)
+                last, cache = yield from self._prefill_segments(cache, ids, 0, c)
             else:
                 tokens = np.zeros((1, bucket), np.int64)
                 tokens[0, :n] = ids
                 tokens = self._device_tensor(tokens, np.int64)
                 seq_lens = self._device_tensor([n], np.int32)
-                last, cache = self._prefill_dispatch(self.model.prefill, tokens, seq_lens,
-                                                     bypass=bypass)
-        first_id, first_lp = self._first_token(request, last)
-        with self._count_lock:
-            self.counters["prefills"] += 1
-            self.counters["prefill_ms"] += (time.perf_counter() - t0) * 1e3
-        return first_id, cache, first_lp
+                last, cache = yield from self._prefill_dispatch(
+                    self.model.prefill, tokens, seq_lens, bypass=bypass)
+        return last, cache, t0
 
     def _insert_prefill(self, slot: int, cache: dict, request: GenRequest) -> None:
         """Loop thread, on the engine's stream, at a chunk boundary (the
@@ -2467,6 +2852,9 @@ class LLMEngineCore:
                 slot, cache["k"][:, 0, :n], cache["v"][:, 0, :n], n,
                 *self._mini_scales(cache, 0, n))
         self._store_prompt(request, slot)
+        # the slot's pages hold the whole prompt: a prefill leg ships its
+        # storable prefix to the decode replica
+        self._maybe_ship(request, slot)
 
     def _mini_scales(self, cache: dict, lo: int, hi: int) -> tuple:
         """A mini cache's scale rows of positions [lo, hi) (int8 KV), else
@@ -2486,7 +2874,8 @@ class LLMEngineCore:
         return bucket
 
     def _prefix_admission(self, request: GenRequest, bypass: bool = False):
-        """Worker thread, the two-dispatch hit path (the reference's
+        """Prefill thread, a generator as ``_prefill_steps``, the
+        two-dispatch hit path (the reference's
         ``_prefix_admission_paged``): look the prompt up; on a hit, gather
         its pinned shared pages into a dense mini cache of the bucket's
         size (the page list padded with the null page 0, whose rows the
@@ -2517,7 +2906,8 @@ class LLMEngineCore:
             pages = list(hit["pages"]) + [0] * (bucket // page_size - len(hit["pages"]))
             cache = self.paged_cache.gather_pages(pages)
             cache["length"] = self._device_tensor([plen], np.int32)
-            last, cache = self._prefill_segments(cache, ids, plen, self._prefix_chunk, bypass)
+            last, cache = yield from self._prefill_segments(cache, ids, plen,
+                                                            self._prefix_chunk, bypass)
         except BaseException:
             with _owner(request):
                 self._prefix.release(hit)  # a no-op after the release above
@@ -2527,12 +2917,13 @@ class LLMEngineCore:
 
     def _prefill_segments(self, cache: dict, ids: List[int], start: int, c: int,
                           bypass: bool = False):
-        """Prefill ``ids`` past ``start`` in segments of ``c`` tokens
-        through ``Llama.prefill_chunk``, each attending over the mini cache
-        so far (a prefix hit's tail, or a chunked cold prefill from 0);
-        only the last segment computes logits. Each segment first takes a
-        permit of the prefill gate; ``bypass`` skips it for a one-segment
-        train only. Returns (last_logits, cache)."""
+        """A generator as ``_prefill_steps``: prefill ``ids`` past
+        ``start`` in segments of ``c`` tokens through
+        ``Llama.prefill_chunk``, each attending over the mini cache so far
+        (a prefix hit's tail, or a chunked cold prefill from 0); only the
+        last segment computes logits. Each segment first takes a permit of
+        the prefill gate; ``bypass`` skips it for a one-segment train
+        only. Returns (last_logits, cache)."""
         starts = list(range(start, len(ids), c))
         bypass = bypass and len(starts) == 1
         last = None
@@ -2540,20 +2931,20 @@ class LLMEngineCore:
             seg = ids[s:s + c]
             seg_tokens = np.zeros((1, c), np.int64)
             seg_tokens[0, :len(seg)] = seg
-            last, cache = self._prefill_dispatch(
+            last, cache = yield from self._prefill_dispatch(
                 self.model.prefill_chunk, self._device_tensor(seg_tokens, np.int64),
                 self._device_tensor([s], np.int32), self._device_tensor([len(seg) - 1], np.int32),
                 cache, with_logits=si == len(starts) - 1, bypass=bypass)
         return last, cache
 
     def _prefill_dispatch(self, fn, *args, bypass: bool = False, **kwargs):
-        """One prefill dispatch of an admission worker: a permit of the
-        prefill gate (``bypass``: none needed), then ``fn``'s launches under
+        """One prefill dispatch of an admission, a generator: it yields
+        ``bypass`` for its driver to take a permit of the prefill gate
+        (``bypass``: none needed), then runs ``fn``'s launches under
         ``_prefill_lock``, so one dispatch's kernels stay contiguous on the
-        engine's stream whatever other admissions enqueue meanwhile, as the
+        engine's stream whatever else enqueues prefills meanwhile, as the
         reference's dispatch (one compiled program) is."""
-        if self._prefill_gate is not None:
-            self._prefill_gate.acquire(bypass=bypass)
+        yield bypass
         with self._prefill_lock:
             return fn(*args, **kwargs)
 
@@ -2789,7 +3180,7 @@ class LLMEngineCore:
         self._dispatching = (prep["seq"], prep["active_mask"])
         self._call_since = time.monotonic()
         try:
-            entry = await asyncio.to_thread(self._on_stream, self._dispatch_device, prep)
+            entry = await self._on_worker("step", self._dispatch_device, prep)
         finally:
             self._dispatching = None
             self._call_since = None
@@ -2969,11 +3360,14 @@ class LLMEngineCore:
         global mode (the card is the engine's alone), while serving in the
         thread-local one (a retire may read back meanwhile), counted in
         ``serve_captures``; its time lands in ``health()["graph_variants"]``.
-        A failed capture raises: the chunk never runs eagerly instead."""
+        A failed capture raises: the chunk never runs eagerly instead.
+        Engines of a replica group capture in the thread-local mode
+        always: a sibling may be serving meanwhile."""
         t0 = time.perf_counter()
         try:
             self._graphs.capture(
-                variant, capture_error_mode="global" if self._warming else "thread_local")
+                variant, capture_error_mode=("global" if self._warming and not self._cohosted
+                                             else "thread_local"))
         except Exception as ex:
             raise RuntimeError("CUDA-graph capture of the {} decode chunk failed: {}".format(
                 variant.label(), ex)) from ex
@@ -3351,6 +3745,7 @@ class LLMEngineCore:
             faults.fire("engine.prefill", request=request)
         if self._prefix is None:
             return 0
+        self._count_ship_outcome(request)
         with _owner(request):
             hit = self._prefix.lookup_pages(request.prompt_ids, 0)
             if hit is None:
@@ -3384,7 +3779,9 @@ class LLMEngineCore:
         """Reclaim a ragged admission's slot pages (no pipeline barrier
         applies: ragged steps run with the pipeline drained). The slot's
         table is authoritative: the free drops its mapped shared pages'
-        references with the rest."""
+        references with the rest. A draft-ahead stream it started is never
+        sealed: the receiver's unsealed assembly ages out."""
+        self._kv_draft_ahead.pop(slot, None)
         self.paged_cache.pool.free(slot)
 
     def _sweep_ragged_jobs(self) -> None:
@@ -3464,12 +3861,24 @@ class LLMEngineCore:
         n_spec = int(spec_any.sum())
         shares: List[tuple] = []
         left = max(0, budget - n_decode - k_ * n_spec)
-        for job in self._prefill_jobs:
+        for job in list(self._prefill_jobs):
             if left <= 0:
                 break
             take = min(left, len(job.request.prompt_ids) - job.pos)
             if take <= 0:
                 continue
+            if faults.active():
+                try:
+                    # chaos seam: the budget admission of one job into this
+                    # step; a raise sheds that admission alone
+                    faults.fire("engine.admit.budget", request=job.request)
+                except faults.InjectedFault as ex:
+                    self._count_shed("budget", job.request.priority)
+                    self._fail_ragged_job(job, EngineOverloadedError(
+                        "ragged budget admission shed (injected): {}".format(ex),
+                        retry_after=self._retry_after_hint(),
+                        shed_class=job.request.priority))
+                    continue
             shares.append((job, take))
             left -= take
         if n_decode == 0 and not shares:
@@ -3919,7 +4328,7 @@ class LLMEngineCore:
             return
         self._call_since = time.monotonic()
         try:
-            result = await asyncio.to_thread(self._on_stream, self._dispatch_ragged_device, plan)
+            result = await self._on_worker("step", self._dispatch_ragged_device, plan)
         finally:
             self._call_since = None
         if epoch != self._recover_epoch:
@@ -4017,6 +4426,9 @@ class LLMEngineCore:
                 continue
             job.pos += take
             if job.pos < len(job.request.prompt_ids):
+                # the chunk made whole storable pages final: a prefill leg
+                # ships them ahead of its commit
+                self._maybe_ship_draft(job)
                 continue
             # final chunk landed: the row's last-token logits are the
             # prompt's prefill logits
@@ -4026,19 +4438,20 @@ class LLMEngineCore:
             if request.cancelled:
                 self._deref_guided_request(request)
                 request.out_queue.put_nowait(_FINISHED)
-                self.paged_cache.pool.free(job.slot)
+                self._free_ragged_slot(job.slot)
                 continue
             err = self._deadline_error_at_commit(request)
             if err is not None:
                 self._deref_guided_request(request)
                 request.error = err
                 request.out_queue.put_nowait(_FINISHED)
-                self.paged_cache.pool.free(job.slot)
+                self._free_ragged_slot(job.slot)
                 continue
             row = result["finish_rows"].index(job.slot)
             first_id, first_lp = self._first_token(request, result["logits"][row:row + 1])
             # the slot's own pages now hold the whole prompt's K/V
             self._store_prompt(request, job.slot)
+            self._maybe_ship(request, job.slot)
             self._activate_slot(request, job.slot, first_id, first_lp)
         # the retire boundary's reap, as after a decode chunk
         self._reap_promotions()

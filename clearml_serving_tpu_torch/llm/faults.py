@@ -62,6 +62,30 @@ Points (the context each carries):
                           a raise loses that release, which the armed
                           ownership ledger (``TPUSERVE_LEDGER``) names at
                           drain.
+- ``engine.admit.budget`` in the ragged planner as an admission job is about
+                          to take its share of the step token budget
+                          (``request``); a raise aborts that admission only
+                          (a structured ``EngineStepError``), the step
+                          carries on.
+- ``engine.kv.ship``      at a prefill replica's commit, before the prefix
+                          pages export into a transport shipment
+                          (``request``); a raise drops the shipment (counted
+                          in ``ship_drops``): the decode replica recomputes.
+- ``kv.ship.partial``     at a ragged chunk boundary, before a draft-ahead
+                          frame exports (``request``); a raise aborts the
+                          request's whole draft-ahead stream and skips the
+                          seal: the decode replica recomputes.
+- ``engine.kv.receive``   on the decode replica as a popped shipment is
+                          about to import (``request``: a shim whose
+                          ``prompt_ids`` are the prompt's); a raise fails
+                          the receive, and the group re-routes the stream.
+- ``router.pick``         in the replica router as a pick is about to
+                          return (``request``); a raise falls to the next
+                          ring member, counted as a ``rebalance``.
+- ``router.eject``        per replica at each ring sweep; the shim's
+                          ``prompt_ids`` holds the replica INDEX, so
+                          ``match_token: <index>`` force-ejects exactly that
+                          replica while the spec stays armed.
 
 :func:`configure` rejects specs naming any other point: a typo'd point would
 arm a fault that never fires.
@@ -98,6 +122,12 @@ KNOWN_POINTS = frozenset({
     "engine.kv.demote",
     "engine.kv.promote",
     "engine.ledger.leak",
+    "engine.admit.budget",
+    "engine.kv.ship",
+    "kv.ship.partial",
+    "engine.kv.receive",
+    "router.pick",
+    "router.eject",
 })
 
 

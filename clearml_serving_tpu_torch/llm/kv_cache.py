@@ -790,6 +790,34 @@ class PagedKVCache:
             if _ledger.armed():
                 _ledger.acquire("kv.promotion", domain=self)
 
+    def import_pages(self, hk, hv, pages: List[int], hk_scale=None, hv_scale=None) -> None:
+        """Re-online shipped page slabs (``llm/kv_transport.py`` ``KVShipment``
+        rows: ``[n, L, Hkv, P, D]`` page-major host tensors, with the
+        ``[n, L, Hkv, P]`` scale rows on int8 pools) into ``pages``, freshly
+        allocated device pages, through the promotion's path
+        (``_upload_pages``): the copies and the scatter are enqueued on
+        ``stream`` before this returns, and the record keeps the rows alive
+        until ``reap_promotions`` sees them done. The rows are the
+        receiver's alone (the transport's recv pops them), so they are read
+        in place; rows that are not pinned are staged into pinned buffers
+        on the card, so the copies stay asynchronous."""
+        if len(pages) != int(hk.shape[0]):
+            raise ValueError("import of {} slab rows into {} device pages".format(
+                hk.shape[0], len(pages)))
+        self._require_scales(hk_scale, hv_scale)
+        slabs = [hk, hv] + ([hk_scale, hv_scale] if self.kv_quant else [])
+        for slab, pool in zip(slabs, self._pools()):
+            want = tuple(pool.movedim(2, 0).shape[1:])
+            if tuple(slab.shape[1:]) != want or slab.dtype != pool.dtype or len(slab) != len(pages):
+                raise ValueError("shipped rows {} {} do not fit the pool's {} {}".format(
+                    tuple(slab.shape), slab.dtype, want, pool.dtype))
+        staged = []
+        for slab in slabs:
+            if self.device.type == "cuda" and not slab.is_pinned():
+                slab = torch.empty(slab.shape, dtype=slab.dtype, pin_memory=True).copy_(slab)
+            staged.append(slab)
+        self._upload_pages(staged, pages)
+
     def reap_promotions(self, force: bool = False) -> int:
         """Account the promotions whose copies completed (the engine's
         retire boundaries: ``query()``, no wait); ``force`` waits for every

@@ -71,6 +71,9 @@ RESOURCES: Dict[str, Dict[str, Any]] = {
     "slot.quarantine": {"scope": "engine", "drain_zero": True},
     "kv.promotion": {"scope": "engine", "drain_zero": True},
     "guided.ref": {"scope": "request", "drain_zero": True},
+    # a KV shipment sent and not yet consumed: the receiving replica's
+    # mailbox holds it (cache-like, never drain-zero)
+    "transport.shipment": {"scope": "cache", "drain_zero": False},
 }
 
 # frames whose code lives in these basenames are the instrumented

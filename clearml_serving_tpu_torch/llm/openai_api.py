@@ -21,8 +21,13 @@ request lifecycle's ``max_pending``, ``queue_timeout``, ``ttft_timeout``,
 ``starvation_floor``, ``brownout``, ``brownout_batch_cap``,
 ``brownout_dwell`` and ``default_priority``, ON by default as in the
 reference: ``max_pending = max(16, 4 * max_batch)``, a 30 s watchdog,
-preemption, and brownout with the bound; ``logprobs_k``, the logprob top-k ceiling, 20),
-and the aux ``chat`` block (its ``response_role``) sits beside them.
+preemption, and brownout with the bound; ``logprobs_k``, the logprob top-k ceiling, 20;
+the fleet's ``replicas``, ``replica_roles``, ``router_affinity_blocks``,
+``router_spill_queue_depth``, ``router_spill_stage``, ``router_fleet_shed_stage``,
+``kv_transport_pages``, ``replica_backend`` and ``kv_transport_backend``:
+``fleet_config``), and the aux ``chat`` block (its ``response_role``) sits
+beside them. With ``replicas`` > 1 the endpoint serves a ``ReplicaGroup``
+(``llm/replica.py``), and its metrics carry each replica's label.
 Weights are random, made from ``seed`` (the reference's preset mode): a
 model bundle has no loader in the port yet. The routes answer with the
 reference's response shapes, and report the reference's per-request stats
@@ -69,11 +74,12 @@ import json
 import logging
 import time
 import uuid
+import weakref
 from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 
 import torch
 
-from ..device import CAPTURE_LOCK, resolve_device
+from ..device import CAPTURE_LOCK, replica_stream, resolve_device
 from ..engines.base import BaseEngineRequest, EndpointModelError, register_engine
 from ..models.llama import Llama, init_params, resolve_config
 from ..ops.quant import detect_weight_quant, quantize_llama_params
@@ -107,6 +113,10 @@ ENGINE_KEYS = (
     "brownout_batch_cap", "brownout_dwell", "default_priority",
     "prefix_cache", "prefix_block", "prefix_cache_mb", "prefix_cache_pages",
     "prefix_cache_host_pages", "prefix_cache_host_mb", "logprobs_k",
+    # the replica fleet (llm/replica.py, serving/replica_router.py)
+    "replicas", "replica_roles", "replica_backend", "router_affinity_blocks",
+    "router_spill_queue_depth", "router_spill_stage", "router_fleet_shed_stage",
+    "kv_transport_pages", "kv_transport_backend",
 )
 
 # the body fields of both generating routes
@@ -160,6 +170,73 @@ def default_priority(engine_cfg: Dict[str, Any]) -> str:
     return cls
 
 
+def fleet_config(engine_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The aux fleet knobs, validated at endpoint load as the reference
+    validates them: ``replicas`` (1..16), ``replica_roles`` (a list or a
+    comma string of prefill/decode/hybrid, with ``replicas`` >= 2),
+    ``replica_backend`` (inprocess/process) and ``kv_transport_backend``
+    (shared/socket). The port serves the in-process backend over the
+    shared-slab transport: ``process`` and ``socket`` raise, naming the
+    knob, and nothing falls back. Returns the ``ReplicaGroup`` arguments
+    with ``replicas``."""
+    raw = engine_cfg.get("replicas")
+    if raw is None:
+        n = 1
+    else:
+        try:
+            n = int(raw)
+            if float(raw) != n:  # 2.5 must not truncate
+                raise ValueError(raw)
+        except (TypeError, ValueError):
+            raise ValueError("aux engine.replicas must be an integer >= 1: got {!r}".format(raw))
+    if not 1 <= n <= 16:
+        raise ValueError("aux engine.replicas must be in 1..16: got {}".format(n))
+    raw_roles = engine_cfg.get("replica_roles")
+    roles = None
+    if raw_roles is not None:
+        if isinstance(raw_roles, str):
+            roles = [r.strip().lower() for r in raw_roles.split(",") if r.strip()]
+        elif isinstance(raw_roles, (list, tuple)):
+            roles = [str(r).strip().lower() for r in raw_roles]
+        else:
+            raise ValueError(
+                "aux engine.replica_roles must be a list (or comma string) of "
+                "prefill/decode/hybrid: got {!r}".format(raw_roles))
+        if n <= 1:
+            raise ValueError("aux engine.replica_roles needs engine.replicas >= 2 (got {} "
+                             "replica)".format(n))
+    backend = str(engine_cfg.get("replica_backend", "inprocess")).strip().lower()
+    if backend not in ("inprocess", "process"):
+        raise ValueError("aux engine.replica_backend must be inprocess/process: got {!r}".format(
+            engine_cfg.get("replica_backend")))
+    transport = str(engine_cfg.get("kv_transport_backend", "shared")).strip().lower()
+    if transport not in ("shared", "socket"):
+        raise ValueError("aux engine.kv_transport_backend must be shared/socket: got {!r}".format(
+            engine_cfg.get("kv_transport_backend")))
+    if backend == "process":
+        if n <= 1:
+            raise ValueError("aux engine.replica_backend=process needs engine.replicas >= 2 "
+                             "(got {})".format(n))
+        raise ValueError("aux engine.replica_backend 'process' is not supported by the "
+                         "PyTorch port yet (worker processes are not ported): use 'inprocess'")
+    if transport == "socket":
+        raise ValueError("aux engine.kv_transport_backend 'socket' is not supported by the "
+                         "PyTorch port yet (its kv_wire transport is not ported): use 'shared'")
+    spill = engine_cfg.get("router_spill_queue_depth")
+    return {
+        "replicas": n,
+        "roles": roles,
+        "affinity_blocks": int(engine_cfg.get("router_affinity_blocks", 4)),
+        # `is not None`: an explicit 0 is "never spill on queue depth"
+        "spill_queue_depth": int(spill) if spill is not None else None,
+        "spill_brownout_stage": int(engine_cfg.get("router_spill_stage", 2)),
+        "fleet_shed_stage": int(engine_cfg.get("router_fleet_shed_stage", 3)),
+        "kv_transport_pages": (int(engine_cfg["kv_transport_pages"])
+                               if engine_cfg.get("kv_transport_pages") else None),
+        "kv_transport_backend": transport,
+    }
+
+
 def _lifecycle_knob(engine_cfg: Dict[str, Any], key: str, default):
     """A lifecycle knob of the aux block: absent -> ``default``, 0/false
     -> off (None), else its float."""
@@ -178,14 +255,19 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     quantizes full-precision weights before the model is built; on an
     already-packed tree it must name the tree's format. ``cuda_graphs=False``
     builds the eager arm (``LLMEngineCore``'s argument; no aux key sets
-    it)."""
+    it). With ``replicas`` > 1 the engine is a ``ReplicaGroup``: ONE
+    ``Llama`` (one set of weights) and that many ``LLMEngineCore`` replicas
+    over it ("r0", "r1", ...), each with its own KV pool and graphs, and
+    each on a stream of its own: replica 0 on the current stream, the
+    others on ``device.replica_stream``."""
     unknown = sorted(k for k in engine_cfg if k not in ENGINE_KEYS)
     if unknown:
         raise ValueError(
             "aux engine keys {} are not supported by the PyTorch port yet".format(unknown)
         )
-    warmup_mode(engine_cfg)  # typo'd knobs fail at load
+    warmup = warmup_mode(engine_cfg)  # typo'd knobs fail at load
     default_priority(engine_cfg)
+    fleet = fleet_config(engine_cfg)
     if engine_cfg.get("arch", "llama") != "llama":
         raise ValueError("aux engine.arch {!r} is not supported by the PyTorch port "
                          "yet".format(engine_cfg["arch"]))
@@ -223,8 +305,7 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     model = Llama(cfg, params)
     tokenizer = ByteTokenizer(vocab_size=max(int(cfg["vocab_size"]), 259))
     cache = engine_cfg.get("cache", "dense")
-    engine = LLMEngineCore(
-        model,
+    kwargs = dict(
         max_batch=int(engine_cfg.get("max_batch", 8)),
         max_seq_len=int(engine_cfg.get("max_seq_len", cfg.get("max_seq_len", 2048))),
         prefill_buckets=engine_cfg.get("prefill_buckets"),
@@ -318,7 +399,25 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
             if engine_cfg.get("prefix_cache_host_mb") else None
         ),
     )
-    return engine, tokenizer
+    n = fleet.pop("replicas")
+    if n == 1:
+        return LLMEngineCore(model, **kwargs), tokenizer
+    from .replica import ReplicaGroup
+
+    engines = []
+    for i in range(n):
+        # "rN" everywhere: the engine's replica id is the ring member's
+        # name, the metrics' label and the /ready block's key. Replica 0
+        # stays on the current stream, the others get streams of their own
+        if dev.type == "cuda" and i > 0:
+            stream = replica_stream(dev, i)
+            # the weights were written on the stream current here
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                engines.append(LLMEngineCore(model, replica="r{}".format(i), **kwargs))
+        else:
+            engines.append(LLMEngineCore(model, replica="r{}".format(i), **kwargs))
+    return ReplicaGroup(engines, warmup_mode=warmup, **fleet), tokenizer
 
 
 @register_engine("llm", modules=["torch"])
@@ -394,7 +493,78 @@ class LLMEngineRequest(BaseEngineRequest):
                     self.endpoint.serving_url))
         self._warmup_needed = warmup != "off"
         self._model_name = self.endpoint.serving_url
+        self._register_metrics()
         return self.engine
+
+    def _register_metrics(self) -> None:
+        """Prometheus wiring, as the reference's ``_register_metrics``:
+        the engine's prefix cache and lifecycle provider under the
+        endpoint's name, or, on a fleet, each replica's under
+        ``<name>@rN`` (their series carry ``model`` and ``replica``) and
+        the router's. A provider holds its engine weakly, and the release
+        of an evicted engine drops every entry this request registered
+        (``_unregister_metrics``), so the process-wide registry never pins
+        an evicted engine's weights and pools."""
+        from ..statistics import metrics
+
+        model = self._model_name
+        self._metric_entries = []
+
+        def lifecycle_provider(engine_ref, inject_model=None):
+            def provider():
+                engine = engine_ref()
+                if engine is None:
+                    return None
+                s = engine.lifecycle_stats()
+                if inject_model is not None:
+                    s["model"] = inject_model
+                return s
+            return provider
+
+        def register(engine, key, replica=None):
+            if engine._prefix is not None:
+                collector = metrics.register_prefix_cache(
+                    engine._prefix, engine.paged_cache.pool, key=key,
+                    model=model if replica is not None else None, replica=replica)
+                self._metric_entries.append((collector, key, engine._prefix))
+            provider = lifecycle_provider(weakref.ref(engine),
+                                          model if replica is not None else None)
+            collector = metrics.register_engine_lifecycle(provider, key=key)
+            self._metric_entries.append((collector, key, provider))
+
+        replicas = getattr(self.engine, "replicas", None)
+        if replicas is None:
+            register(self.engine, model)
+            # a previous fleet incarnation's per-replica entries
+            metrics.prune_prefix_caches(model, {model})
+            metrics.prune_engine_lifecycle(model, {model})
+            metrics.prune_replica_router(model, set())
+            return
+        keep = {"{}@{}".format(model, r.name) for r in replicas}
+        for replica in replicas:
+            register(replica.engine, "{}@{}".format(model, replica.name), replica.name)
+        metrics.prune_prefix_caches(model, keep)
+        metrics.prune_engine_lifecycle(model, keep)
+        group_ref = weakref.ref(self.engine)
+
+        def router_provider():
+            group = group_ref()
+            if group is None:
+                return None
+            s = group.router.stats()
+            s["model"] = model
+            return s
+
+        collector = metrics.register_replica_router(router_provider, key=model)
+        self._metric_entries.append((collector, model, router_provider))
+
+    def _unregister_metrics(self) -> None:
+        """Drop the entries ``_register_metrics`` made that are still this
+        request's (a newer incarnation of the endpoint may have replaced
+        them under the same key)."""
+        for collector, key, value in getattr(self, "_metric_entries", None) or ():
+            collector.remove_entry(key, only=value)
+        self._metric_entries = []
 
     async def _ensure_warm(self) -> None:
         """First arrivals share one warmup task and wait for it; afterwards
@@ -454,7 +624,9 @@ class LLMEngineRequest(BaseEngineRequest):
 
     def _drop_engine(self) -> None:
         """Drop every reference this request holds to its engine
-        (``_load_model`` keeps it as ``_model`` too)."""
+        (``_load_model`` keeps it as ``_model`` too), and the metrics'
+        entries for it."""
+        self._unregister_metrics()
         self.engine = None
         self._model = None
         self._warmup_task = None
@@ -901,8 +1073,10 @@ class LLMEngineRequest(BaseEngineRequest):
             # the call sniffing and buffering is per-choice state
             raise ValueError("streaming chat with tools supports a single choice (n=1)")
         requests = self._n_requests(body, prompt_ids, guided_override=guided_override)
-        self._admit_all(requests)
+        # the warmup first, as the reference's routes await it: a fleet's
+        # ring admits no replica before its warmup gate opened
         await self._ensure_warm()
+        self._admit_all(requests)
 
         if body.get("stream") and tools:
             return self._stream_tool_chat(requests[0], stops, tool_mode, tool_names,
@@ -1192,8 +1366,10 @@ class LLMEngineRequest(BaseEngineRequest):
         if lp_internal:
             for r in requests:
                 r.logprobs = 0
-        self._admit_all(requests)
+        # the warmup first, as the reference's routes await it: a fleet's
+        # ring admits no replica before its warmup gate opened
         await self._ensure_warm()
+        self._admit_all(requests)
         results = await asyncio.gather(*[self._collect_text(r, stops) for r in requests])
         for r in requests:
             self._report_gen_stats(r, collect_fn)
@@ -1278,8 +1454,10 @@ class LLMEngineRequest(BaseEngineRequest):
             # which candidate to emit is known only at the end
             raise ValueError("best_of must equal n when streaming")
         requests = self._n_requests(body, prompt_id_lists[0], chat=False)
-        self._admit_all(requests)
+        # the warmup first, as the reference's routes await it: a fleet's
+        # ring admits no replica before its warmup gate opened
         await self._ensure_warm()
+        self._admit_all(requests)
         include_usage = bool((body.get("stream_options") or {}).get("include_usage"))
 
         def cmpl_chunk(choices, usage="omit") -> str:

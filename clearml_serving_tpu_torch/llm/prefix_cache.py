@@ -53,6 +53,8 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch
+
 from . import faults
 from . import lifecycle_ledger as _ledger
 
@@ -343,6 +345,92 @@ class RadixPrefixCache:
                 node = child
                 depth += self.block
             self._evict_over_budget()
+
+    def store_shipped(self, ids: List[int], lora: int, shipment, backend) -> int:
+        """Attach a KV-transport shipment (``llm/kv_transport.py``
+        ``KVShipment``) as RESIDENT nodes for the prompt's block-aligned
+        prefix: the receive half of disaggregated prefill/decode (the
+        reference's ``store_shipped``). ``backend`` is the ``PagedKVCache``
+        whose ``import_pages`` enqueues the upload: fresh device pages are
+        allocated, their copies ENQUEUED on the cache's stream, and only
+        then do the nodes attach and the page ids become visible.
+
+        Blocks already resident are skipped (their pages may be shared with
+        live slots); demoted path nodes re-online from the shipment.
+        Returns the device pages imported (0: nothing missing). Raises
+        MemoryError on pool pressure and ValueError on a geometry mismatch;
+        the caller drops the shipment, with no page leaked either way."""
+        page_size = self._pool.page_size
+        if int(shipment.page_size) != page_size:
+            raise ValueError("shipment page size {} != pool page size {}".format(
+                shipment.page_size, page_size))
+        if bool(shipment.hk_scale is not None) != bool(getattr(backend, "kv_quant", "")):
+            raise ValueError(
+                "shipment quantization does not match the pool (scales {}, kv_quant "
+                "{!r})".format("present" if shipment.hk_scale is not None else "absent",
+                               getattr(backend, "kv_quant", "")))
+        p = min(self.longest_prefix_len(len(ids)), int(shipment.prefix_len))
+        if p < self.block:
+            return 0
+        ppb = self.block // page_size
+        with self._lock:
+            node, depth = self._walk(ids, lora)
+            now = self._clock
+            # one import job per missing block: demoted path nodes re-online,
+            # absent blocks attach as new children
+            jobs: List[tuple] = []
+            for i, n in enumerate(self._path_nodes(node)):
+                if n.pages is None and n.host_pages is not None:
+                    jobs.append((i * self.block, n))
+            d = depth
+            while d + self.block <= p:
+                jobs.append((d, None))
+                d += self.block
+            if not jobs:
+                return 0
+            total = len(jobs) * ppb
+            fresh = self._pool.allocate_cache_pages(total)
+            try:
+                rows = [tok_depth // page_size + j for tok_depth, _ in jobs for j in range(ppb)]
+                if rows == list(range(rows[0], rows[0] + len(rows))):
+                    sel = slice(rows[0], rows[0] + len(rows))   # a view
+                else:
+                    sel = torch.as_tensor(rows)                 # a copy
+                backend.import_pages(
+                    shipment.hk[sel], shipment.hv[sel], fresh,
+                    shipment.hk_scale[sel] if shipment.hk_scale is not None else None,
+                    shipment.hv_scale[sel] if shipment.hv_scale is not None else None)
+            except BaseException:
+                self._pool.unref_pages(fresh)
+                raise
+            # the upload is enqueued: publish the page ids
+            for i, (tok_depth, existing) in enumerate(jobs):
+                pages = list(fresh[i * ppb:(i + 1) * ppb])
+                if existing is not None:
+                    if self._host is not None:
+                        self._host.free(existing.host_pages)
+                    self._host_pages -= len(existing.host_pages)
+                    self._host_bytes -= existing.nbytes
+                    existing.host_pages = None
+                    existing.pages = pages
+                    existing.last_used = now
+                    self._bytes += existing.nbytes
+                    self._pages += ppb
+                    self._n_resident += 1
+                    self._frontier_fix(existing)
+                    self._frontier_fix(existing.parent)
+                    continue
+                child = _Node(node, tuple(ids[tok_depth:tok_depth + self.block]))
+                child.pages = pages
+                child.nbytes = ppb * self._page_bytes
+                child.last_used = now
+                self._attach(node, child)
+                self._bytes += child.nbytes
+                self._pages += ppb
+                self._n_resident += 1
+                node = child
+            self._evict_over_budget()
+        return total
 
     def pin_run(self, ids: List[int], lora: int = 0) -> Optional[Dict[str, Any]]:
         """Protect the stored run for ``ids`` from eviction and demotion

@@ -22,8 +22,7 @@ The route prefix is configurable via ``TPUSERVE_DEFAULT_SERVE_SUFFIX``
 forked workers sharing the port via SO_REUSEPORT (gunicorn-equivalent).
 
 The port's copy of ``clearml_serving_tpu/serving/main.py``. It differs in
-four places: there is no replica fleet, so ``/health`` and ``/ready`` carry
-no fleet detail; there is no profiler server (the reference's starts JAX's);
+three places: there is no profiler server (the reference's starts JAX's);
 ``main()`` takes ``--device`` (default ``cuda``), which the processor passes
 to every engine it builds; and the app's cleanup stops the loaded engines.
 Nothing here touches CUDA: the parent imports the engine modules before it
@@ -127,8 +126,9 @@ async def _read_body(request: web.Request) -> Any:
 
 def _engine_health(processor: ModelRequestProcessor) -> dict:
     """Per-endpoint engine health for /ready: any loaded processor exposing
-    an ``engine`` with a ``health()`` surface (the LLM engine core)
-    contributes; plain CPU engines are stateless and always ready."""
+    an ``engine`` with a ``health()`` surface (the LLM engine core, or a
+    replica group's fleet aggregate) contributes; plain CPU engines are
+    stateless and always ready."""
     out = {}
     for url, proc in getattr(processor, "_engine_processor_lookup", {}).items():
         engine = getattr(proc, "engine", None)
@@ -138,6 +138,52 @@ def _engine_health(processor: ModelRequestProcessor) -> dict:
                 out[url] = health()
             except Exception as ex:
                 out[url] = {"ready": False, "error": str(ex)}
+    return out
+
+
+def _fleet_health(processor: ModelRequestProcessor) -> dict:
+    """Health of REPLICA-GROUP engines only (those with a ``router``):
+    /health is a liveness probe and must not pay every plain engine's full
+    health snapshot, nor run ring sweeps it then discards, on each poll."""
+    out = {}
+    for url, proc in getattr(processor, "_engine_processor_lookup", {}).items():
+        engine = getattr(proc, "engine", None)
+        if getattr(engine, "router", None) is None:
+            continue
+        try:
+            out[url] = engine.health()
+        except Exception as ex:
+            out[url] = {"ready": False, "error": str(ex)}
+    return out
+
+
+def _fleet_summary(engines: dict) -> dict:
+    """The replica-fleet view of the engine healths: an endpoint backed by
+    a replica group reports each replica's state and the router's ring. It
+    is READY iff its ring has >= 1 member (the group's own ``ready``), so
+    one tripped replica never flips /ready while its siblings serve."""
+    out = {}
+    for url, h in engines.items():
+        router = h.get("router")
+        if not isinstance(router, dict):
+            continue  # a single engine: no fleet block
+        out[url] = {
+            "replicas": router.get("replicas"),
+            "ring_size": router.get("ring_size"),
+            "ring": router.get("ring"),
+            "ready": bool(h.get("ready")),
+            "failovers": h.get("failovers", 0),
+            "fleet_brownout": router.get("fleet_brownout"),
+            "per_replica": {
+                name: {
+                    "ready": bool(rh.get("ready")),
+                    "ring_state": rh.get("ring_state"),
+                    "brownout_stage": (rh.get("brownout") or {}).get("stage", 0),
+                    "queue_depth": rh.get("queue_depth", 0),
+                }
+                for name, rh in (h.get("replicas") or {}).items()
+            },
+        }
     return out
 
 
@@ -312,12 +358,16 @@ def build_app(processor: ModelRequestProcessor) -> web.Application:
 
     async def health(request: web.Request) -> web.Response:
         # liveness: 200 while the process serves anything; /ready below is
-        # the routing signal
-        return web.json_response({
+        # the routing signal. Fleet endpoints show each replica here too
+        payload = {
             "status": "ok",
             "instance": _instance_id(processor),
             "endpoints": sorted(processor.list_endpoints()),
-        })
+        }
+        fleet = _fleet_summary(_fleet_health(processor))
+        if fleet:
+            payload["fleet"] = fleet
+        return web.json_response(payload)
 
     async def dashboard(request: web.Request) -> web.Response:
         return web.json_response(processor.get_serving_layout())
@@ -328,8 +378,9 @@ def build_app(processor: ModelRequestProcessor) -> web.Application:
         recovery in progress) — so load balancers stop routing here while
         /health keeps the container from being killed."""
         engines = _engine_health(processor)
-        # no replica groups in the port: the fleet block stays empty
-        fleet = {}
+        # a replica-group endpoint aggregates its own readiness (ready iff
+        # >= 1 ring member); the fleet block carries each replica's state
+        fleet = _fleet_summary(engines)
         not_ready = sorted(
             url for url, h in engines.items() if not h.get("ready")
         )

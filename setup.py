@@ -43,6 +43,7 @@ setup(
             # the PyTorch/H100 port's CLI and inference server
             "tpu-serving-torch = clearml_serving_tpu_torch.__main__:main",
             "tpu-serving-torch-inference = clearml_serving_tpu_torch.serving.main:main",
+            "tpu-serving-torch-statistics = clearml_serving_tpu_torch.statistics.main:main",
         ]
     },
 )

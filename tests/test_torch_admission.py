@@ -247,9 +247,10 @@ def test_aux_keys_reach_the_engine(tiny_np):
 
 
 class _RecordingGate(_PrefillGate):
-    """The gate, recording each paced acquisition ("P") and each deposit
-    ("D": a decode chunk retired) under its own lock, so the record's order
-    is the order in which permits were taken and refreshed."""
+    """The gate, recording each dispatch it lets through ("P" when paced)
+    and each deposit ("D": a decode chunk retired) under its own lock, so
+    the record's order is the order in which permits were taken and
+    refreshed."""
 
     def __init__(self, events, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -260,11 +261,13 @@ class _RecordingGate(_PrefillGate):
             super().deposit()
             self.events.append("D")
 
-    def acquire(self, bypass=False):
+    def take(self, bypass=False):
         with self._cond:
             paced = self._active and not bypass
-            super().acquire(bypass)
-            self.events.append("P" if paced else "p")
+            taken = super().take(bypass)
+            if taken:
+                self.events.append("P" if paced else "p")
+            return taken
 
 
 def test_prefill_segments_interleave_with_decode(tiny_np):
@@ -310,6 +313,46 @@ def test_prefill_segments_interleave_with_decode(tiny_np):
     # the segments overlapped decode: chunks were dispatched between them
     first, last = seq.index("P"), seq.rindex("P")
     assert seq[first:last].count("d") >= 7, seq
+    assert _all_pages_back(engine)
+
+
+def test_interactive_admission_passes_a_gated_segment_train(tiny_np):
+    """A one-dispatch interactive admission that arrives while a batch
+    admission's segment train waits at the gate is not queued behind the
+    train: the train waits for its permits on the event loop, so the
+    stream's prefill thread takes the interactive dispatch at once, and
+    its first token lands while the train still has segments to go."""
+    engine = _port(tiny_np, max_batch=3, chunked_prefill_size=4, decode_steps=1,
+                   pipeline_depth=1, prefill_buckets=[16, 32, 64], eos_token_id=None)
+    events = []
+    engine._prefill_gate = _RecordingGate(events, segments_per_chunk=1, stall_timeout=10.0)
+
+    async def run():
+        live = engine.generate(GenRequest(prompt_ids=[256, 1, 2], max_new_tokens=100))
+        out_live = [await live.__anext__()]
+        # 33 tokens: 9 segments of 4, one per decode chunk
+        batch = asyncio.ensure_future(_collect(engine, GenRequest(
+            prompt_ids=[256] + list(range(1, 33)), max_new_tokens=2, priority="batch")))
+        while events.count("P") < 2:
+            await asyncio.sleep(0.001)
+        mark = len(events)
+        inter = engine.generate(GenRequest(prompt_ids=[256, 7, 8], max_new_tokens=2,
+                                           priority="interactive"))
+        out_inter = [await inter.__anext__()]
+        paced_at_first = events.count("P")
+        out_inter += [t async for t in inter]
+        out_batch = await batch
+        out_live += [t async for t in live]
+        return out_live, out_batch, out_inter, mark, paced_at_first
+
+    out_live, out_batch, out_inter, mark, paced = asyncio.run(asyncio.wait_for(run(), 120))
+    assert len(out_live) == 100 and len(out_batch) == 2 and len(out_inter) == 2
+    seq = "".join(events)
+    assert seq.count("P") == 9, seq
+    # the interactive dispatch went through between two of the train's
+    # segments, and its first token came before the train's last one
+    assert seq.index("p", mark) < seq.rindex("P"), seq
+    assert paced < 9, seq
     assert _all_pages_back(engine)
 
 

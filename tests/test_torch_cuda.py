@@ -1778,3 +1778,172 @@ def test_cli_and_inference_server_serve_a_chat_on_the_card(cuda, tmp_path):
                 server.kill()
                 server.wait(timeout=30)
     assert rc == 0, server.stdout.read()[-3000:]
+
+
+# -- the replica fleet on one card ------------------------------------------------
+
+
+def _replica_engines(model, dev, n=2, **kw):
+    """``n`` engines over one model, replica 0 on the current stream and
+    the others on their replica streams (as ``build_engine`` builds a
+    fleet)."""
+    from clearml_serving_tpu_torch.device import replica_stream
+
+    engines = [LLMEngineCore(model, replica="r0", **kw)]
+    for i in range(1, n):
+        stream = replica_stream(dev, i)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            engines.append(LLMEngineCore(model, replica="r{}".format(i), **kw))
+    return engines
+
+
+def test_interactive_prefill_passes_a_chunked_batch_admission(cuda):
+    """On the card, at depth 1 with graphs: a one-dispatch interactive
+    admission that arrives while a chunked batch admission's segment train
+    waits at the prefill gate (one segment per decode chunk) is not queued
+    behind the train on the stream's prefill thread: its dispatch goes
+    through between two of the train's segments, and its first token lands
+    before the train's last segment does."""
+    from clearml_serving_tpu_torch.llm.engine import _PrefillGate
+
+    events = []
+
+    class Recording(_PrefillGate):
+        def deposit(self):
+            with self._cond:
+                super().deposit()
+                events.append("D")
+
+        def take(self, bypass=False):
+            with self._cond:
+                paced = self._active and not bypass
+                taken = super().take(bypass)
+                if taken:
+                    events.append("P" if paced else "p")
+                return taken
+
+    load_library()
+    engine = LLMEngineCore(_small_model(cuda), max_batch=3, max_seq_len=256, decode_steps=1,
+                           page_size=16, prefill_buckets=[16, 64, 128], eos_token_id=None,
+                           pipeline_depth=1, chunked_prefill_size=16)
+    engine._prefill_gate = Recording(segments_per_chunk=1, stall_timeout=10.0)
+
+    async def run():
+        await engine.warmup()
+        live = engine.generate(GenRequest(prompt_ids=[5, 1, 2], max_new_tokens=200))
+        out_live = [await live.__anext__()]
+        # 129 tokens: 9 segments of 16, one per decode chunk
+        batch = asyncio.ensure_future(_stream(engine, GenRequest(
+            prompt_ids=[5] + [i % 500 + 1 for i in range(128)], max_new_tokens=2,
+            priority="batch")))
+        while events.count("P") < 2:
+            await asyncio.sleep(0.0005)
+        mark = len(events)
+        inter = engine.generate(GenRequest(prompt_ids=[5, 7, 8], max_new_tokens=2,
+                                           priority="interactive"))
+        out_inter = [await inter.__anext__()]
+        paced_at_first = events.count("P")
+        out_inter += [t async for t in inter]
+        out_batch = await batch
+        out_live += [t async for t in live]
+        return out_live, out_batch, out_inter, mark, paced_at_first
+
+    out_live, out_batch, out_inter, mark, paced = asyncio.run(asyncio.wait_for(run(), 120))
+    engine.stop()
+    assert len(out_live) == 200 and len(out_batch) == 2 and len(out_inter) == 2
+    seq = "".join(events)
+    assert seq.count("P") == 9, seq
+    assert seq.index("p", mark) < seq.rindex("P"), seq
+    assert paced < 9, seq
+
+
+def test_two_engines_over_one_llama_decode_concurrently_bitwise(cuda):
+    """Two replicas over ONE Llama, each on its own stream with its own
+    pool and graphs (captured on capture streams of their own; each
+    replica's prefills and steps on threads of its own): four streams on
+    each at once give every token each engine gives alone."""
+    load_library()
+    model = _small_model(cuda)
+    a, b = _replica_engines(model, cuda, **LIFECYCLE_KW)
+    for e in (a, b):
+        e._cohosted = True
+    assert a.model is b.model and a._stream.cuda_stream != b._stream.cuda_stream
+    assert a._workers["prefill"] is not b._workers["prefill"]
+    prompts = {e: [[(e is b) * 50 + i * 11 + j % 97 + 1 for j in range(9 + 13 * i)]
+                   for i in range(4)] for e in (a, b)}
+
+    async def traffic(e):
+        return await asyncio.gather(*[_stream(e, GenRequest(prompt_ids=p, max_new_tokens=48))
+                                      for p in prompts[e]])
+
+    async def run():
+        await a.warmup()
+        await b.warmup()
+        alone = [await traffic(a), await traffic(b)]
+        await a.wait_drained()
+        await b.wait_drained()
+        together = await asyncio.gather(traffic(a), traffic(b))
+        return alone, list(together)
+
+    alone, together = asyncio.run(asyncio.wait_for(run(), 240))
+    assert together == alone
+    assert alone[0] != alone[1]
+    for e in (a, b):
+        assert e.counters["graph_replays"] > 0 and e.counters["serve_captures"] == 0
+        e.stop()
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8"])
+def test_export_import_between_two_pools_is_bitwise(cuda, kv_quant):
+    """Pages exported from one pool and imported into another (on another
+    stream, as a decode replica's) hold the same bits."""
+    from clearml_serving_tpu_torch.device import replica_stream
+
+    src = _random_cache(cuda, kv_quant)
+    side = replica_stream(cuda, 1)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        dst = _random_cache(cuda, kv_quant)
+    pages = [3, 4, 7, 9]
+    slabs = src.export_pages(pages)
+    assert all(t.is_pinned() for t in slabs.values() if t is not None)
+    fresh = [10, 2, 5, 8]
+    dst.import_pages(slabs["hk"], slabs["hv"], fresh, slabs.get("hk_scale"),
+                     slabs.get("hv_scale"))
+    assert dst.reap_promotions(force=True) == 1
+    back = dst.export_pages(fresh)
+    for name, t in slabs.items():
+        if t is not None:
+            assert torch.equal(back[name], t), name
+    for pool_src, pool_dst in zip(src._pools(), dst._pools()):
+        assert torch.equal(pool_dst[:, :, fresh], pool_src[:, :, pages])
+
+
+def test_device_gauges_make_no_context_in_a_fresh_process(cuda):
+    """The statistics service's device gauges in a process without a CUDA
+    context: no gauge and no context made; in this process (which holds
+    one) the card's bytes in use and its size."""
+    import subprocess
+    import sys
+
+    from prometheus_client import CollectorRegistry
+
+    from clearml_serving_tpu_torch.statistics.metrics import StatisticsController
+
+    code = ("import torch\n"
+            "from prometheus_client import CollectorRegistry\n"
+            "from clearml_serving_tpu_torch.statistics.metrics import StatisticsController\n"
+            "r = CollectorRegistry()\n"
+            "StatisticsController('', registry=r).update_device_gauges()\n"
+            "print(torch.cuda.is_initialized(), "
+            "r.get_sample_value('tpu_hbm_bytes_in_use', {'device': '0'}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, check=True).stdout.split()
+    assert out == ["False", "None"]
+    torch.zeros(1, device=cuda)
+    registry = CollectorRegistry()
+    StatisticsController("", registry=registry).update_device_gauges()
+    used = registry.get_sample_value("tpu_hbm_bytes_in_use", {"device": "0"})
+    limit = registry.get_sample_value("tpu_hbm_bytes_limit", {"device": "0"})
+    assert used == torch.cuda.memory_allocated(0) and limit == torch.cuda.mem_get_info(0)[1]

@@ -48,7 +48,8 @@ LEDGERS = {"jax": jax_ledger, "port": lifecycle_ledger}
 # the resources the port tracks: every one the reference tracks but the
 # fleet's and the transport's
 PORT_RESOURCES = ("pages.slot", "pages.pin", "pages.ref", "prefix.hit", "prefix.resume_pin",
-                  "host.pages", "slot.quarantine", "kv.promotion", "guided.ref")
+                  "host.pages", "slot.quarantine", "kv.promotion", "guided.ref",
+                  "transport.shipment")
 
 
 @pytest.fixture(scope="module")

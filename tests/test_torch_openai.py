@@ -187,7 +187,7 @@ def test_models_health_and_refusals(served):
 
 
 @pytest.mark.parametrize("key", [
-    pytest.param("kv_transport_pages", id="prefix_cache"), "speculation", "weight_quant"])
+    pytest.param("lora_adapters", id="prefix_cache"), "speculation", "weight_quant"])
 def test_unsupported_aux_engine_keys_raise(key):
     with pytest.raises(ValueError, match=key):
         build_engine(dict(ENGINE_CFG, **{key: 8}), device="cpu")

@@ -14,7 +14,6 @@ replaced, the warmup sweep and the aux ``engine.warmup`` knob.
 """
 
 import asyncio
-import threading
 
 import jax
 import numpy as np
@@ -153,34 +152,32 @@ def test_streams_reaching_max_seq_len_equal_the_reference(tiny_np, depth):
 
 def _admit_in_order_and_together(engine, n):
     """Make the first ``n`` admissions draw their first tokens in the order
-    the loop started them, one worker after another, and commit all ``n``
+    the loop started them, one prefill after another, and commit all ``n``
     at one boundary: the generator's draws then come in one order,
-    whatever the depth (admission workers otherwise race for it, beside
-    the decode chunks' noise)."""
-    started, turn, cond = [], [0], threading.Condition()
-    task, prefill, commit = engine._admission_task, engine._prefill_device, engine._commit_ready
+    whatever the depth (admissions otherwise interleave their prefill
+    dispatches, beside the decode chunks' noise)."""
+    started, turn = [], [0]
+    task, prefill, commit = engine._admission_task, engine._run_prefill, engine._commit_ready
 
     def admission_task(request, slot):
         started.append(request)
         return task(request, slot)
 
-    def prefill_device(request):
+    async def run_prefill(request):
         i = next(k for k, r in enumerate(started) if r is request)
-        with cond:
-            cond.wait_for(lambda: turn[0] == i)
+        while turn[0] != i:
+            await asyncio.sleep(0.001)
         try:
-            return prefill(request)
+            return await prefill(request)
         finally:
-            with cond:
-                turn[0] += 1
-                cond.notify_all()
+            turn[0] += 1
 
     def commit_ready():
         if len(started) > n or len(engine._ready) >= n:
             commit()
 
     engine._admission_task = admission_task
-    engine._prefill_device = prefill_device
+    engine._run_prefill = run_prefill
     engine._commit_ready = commit_ready
 
 
