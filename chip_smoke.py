@@ -76,7 +76,8 @@ exits non-zero before the result lines are printed:
    (serial, eager) and depth 2 (graphs captured by the endpoint's
    ``warmup``): equal greedy contents, no capture while serving, and each
    arm's wall ms per decode step, dispatch and retire ms and tok/s;
-6. where the time goes: one profiled pass of each scheduler (bf16 KV; the
+6. where the time goes, at Llama-3-8B's widths and 16 of its 32 layers
+   (``PROFILE_LAYERS``): one profiled pass of each scheduler (bf16 KV; the
    two-dispatch path at depth 2 and at depth 1), each of 5e's arms on the
    steady traffic at 64 tokens a chat, one of phase 5d's tree arm and one
    of the two-dispatch path on int4 weights;
@@ -207,7 +208,8 @@ exits non-zero before the result lines are printed:
 13. the control plane in front of the LLM route: the port's CLI, run in
    process on a fresh state root, creates a service, sets the file stats
    broker at metric frequency 1, adds the ``llm`` endpoint ``chat``
-   (Llama-3-8B at full width, bf16 weights made by the endpoint from seed
+   (Llama-3-8B's widths at 8 of its 32 layers, ``CP_LAYERS``, as in phase
+   14; bf16 weights made by the endpoint from seed
    0, paged cache with int8 KV, ``warmup: startup``, max_batch 8) and a
    ``custom`` endpoint whose preprocess code runs one torch op on the card.
    ``setup_processor()`` builds both at its launch, before the app's loop
@@ -235,7 +237,8 @@ exits non-zero before the result lines are printed:
 
 14. the replica fleet, through the CLI, the processor and its router: a
    processor launched with the single-engine endpoint ``single`` (phase
-   13's Llama-3-8B block with ``prefix_cache`` 64, ``prefix_block`` 64);
+   13's Llama-3-8B block, 8 of its 32 layers, with ``prefix_cache`` 64,
+   ``prefix_block`` 64);
    the CLI then adds ``fleet`` (the same block with ``replicas: 2`` and a
    2 s watchdog: one set of seed-0 weights, two ``LLMEngineCore`` replicas
    on streams of their own, each with its pool and graphs), which the
@@ -281,6 +284,45 @@ exits non-zero before the result lines are printed:
    ``memory_allocated`` than the fleet's did (the same streams and
    threads); the ragged arm is added, warmed and removed a second time,
    +0 B against its first removal.
+
+15. the process fleet, through the CLI, the processor and its router: a
+   processor launched with ``single`` (phase 14's block at all 32 of
+   Llama-3-8B's layers); the CLI adds
+   ``fleet``, the same block with ``replicas: 2`` and ``replica_backend:
+   process``: two worker processes (``serving/process_replica.py``), each
+   drawing the seed-0 weights on its own CUDA context, with its own pool
+   and graphs, booting at once and warming at once; this process holds no
+   weight of theirs (its ``memory_allocated`` rises by less than 64 MiB).
+   15a: 4 conversations x 2 turns (32 tokens greedy, half streamed), two
+   per worker: each conversation on one worker, its second turn a hit
+   there, token ids and contents equal ``single``'s; each worker's kernel
+   launches (read from it) once per layer per decode step; ``nvidia-smi``
+   lists two compute processes more (on the card's machine a row per
+   process, each with pid 1 and the container's summed memory) and the
+   card's bytes in use (``mem_get_info``) rise by at least what the
+   workers reserved; ``/ready`` and
+   ``/health`` carry both ring members with their ``process`` blocks;
+   ``generate_latest`` the lifecycle families of ``r0`` and ``r1`` and the
+   ``process`` backend; no restart without a fault; ms a decode step per
+   worker and the longest heartbeat. 15b: 4 greedy streams x 128 tokens,
+   two per worker; ``replica.proc.crash`` SIGKILLs worker r1 mid-stream:
+   every status 200, each stream at 128 tokens, the tokens before the kill
+   kept and none repeated, each continuation a fresh request's (the
+   history as its prompt) on the restarted r1; r1 comes back as a new
+   process (as many ``nvidia-smi`` rows and bytes in use as before the
+   kill: the old process and its memory are gone), re-warms through its gate
+   and rejoins the ring (the seconds to resume, respawn, warm and rejoin).
+   The CLI removes ``fleet``: the group and its proxies gone where the
+   release returns, no registry entry, every worker gone within 30 s,
+   ``nvidia-smi``'s rows back to their count before the fleet and the
+   bytes in use within 2 GiB of theirs, the fleet's directory removed.
+   15c: ``replica_roles:
+   [prefill, decode]`` over the socket KV wire, two-dispatch then ragged at
+   budget 256: 2 chats of ~1024-token prompts x 32 tokens one after the
+   other: both ship (partial frames under ragged) and hit, no drop, no wire
+   error; the decode worker's streams equal a hit on the prefill worker;
+   ship ms, frame bytes, the send's round trip, receive ms and TTFT beside
+   ``single``'s cold TTFT; each arm removed as ``fleet`` was.
 
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, and the ragged kernel's tree variant) and
@@ -1821,16 +1863,25 @@ def device_events(prof, check: bool = False) -> list:
     return out
 
 
+# phase 6 profiles Llama-3-8B's widths at 16 of its 32 layers (the
+# script's time limit, since phase 15 joined it)
+PROFILE_LAYERS = 16
+
+
 def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
                    traffic, check_reader=False) -> dict:
     """One profiled pass of ``phase_profile``: its numbers, and whether
     the trace's decode-attention and int4 grids equal the counts
-    (``trace_agrees``; ``checked`` on a two-dispatch pass with graphs)."""
+    (``trace_agrees``; ``checked`` on a two-dispatch pass with graphs).
+    The model is the first ``PROFILE_LAYERS`` layers of ``params``."""
     from torch.profiler import ProfilerActivity, profile
 
     t_pass = time.perf_counter()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    knobs = {"weight_quant": weight_quant} if weight_quant else {}
+    params = dict(params, layers=params["layers"][:PROFILE_LAYERS])
+    knobs = {"config": {"n_layers": PROFILE_LAYERS}}
+    if weight_quant:
+        knobs["weight_quant"] = weight_quant
     if pipeline_depth is not None:
         knobs["pipeline_depth"] = pipeline_depth
     label = "phase5"
@@ -4855,8 +4906,12 @@ def phase_admission(params, qparams, card: str, preset: str = "llama3-8b") -> di
 # -- phase 13: the control plane in front of the LLM route --------------------
 
 # the endpoints' aux engine blocks, written by the CLI as key=value pairs
-CP_ENGINE = {"preset": "llama3-8b", "cache": "paged", "kv_quant": "int8", "warmup": "startup",
-             "max_batch": 8, "max_seq_len": 2048, "seed": 0}
+# phases 13 and 14 run Llama-3-8B's widths at 8 of its 32 layers (the
+# script's time limit, since phase 15 joined it); phase 15 runs all 32
+CP_LAYERS = 8
+CP_ENGINE = {"preset": "llama3-8b", "config": {"n_layers": CP_LAYERS}, "cache": "paged",
+             "kv_quant": "int8", "warmup": "startup", "max_batch": 8, "max_seq_len": 2048,
+             "seed": 0}
 CP_SMALL = {"preset": "llama3-1b", "cache": "paged", "max_batch": 4, "max_seq_len": 1024,
             "seed": 0}
 CP_TOPICS = ["the sea", "paged attention", "a lighthouse", "prime numbers", "the city of Paris",
@@ -4864,7 +4919,9 @@ CP_TOPICS = ["the sea", "paged attention", "a lighthouse", "prime numbers", "the
 CP_PROMPTS = ["Write four calm sentences about {} for a reader who has never heard of it, "
               "then end with one question.".format(t) for t in CP_TOPICS]
 CP_TOKENS = 64
-CP_STREAM_TOKENS = 256
+# 13b's streams must outlive chat2's pickup (0.3-1.1 s): 768 tokens at
+# CP_LAYERS' ~3.2 ms a step
+CP_STREAM_TOKENS = 768
 CP_SEEDED = {"temperature": 0.8, "seed": 7}
 CP_MEMORY_SLACK = 64 << 20
 OPENAI_CHAT = "/serve/openai/v1/chat/completions"
@@ -6142,6 +6199,552 @@ def phase_fleet(card: str) -> dict:
     return out
 
 
+# -- phase 15: the process fleet ------------------------------------------------------
+
+# 15's endpoint: phase 14's block served by two worker processes, each with
+# its own CUDA context, Llama, pool and graphs
+PROC_BASE = {k: v for k, v in FLEET_BASE.items() if k != "config"}   # all 32 layers
+PROC_FLEET = dict(PROC_BASE, replicas=2, replica_backend="process",
+                  watchdog_interval=FLEET_WATCHDOG_S)
+PROC_TURN_TOKENS = 32           # 15a: 4 conversations x 2 turns
+PROC_STREAM_TOKENS = 128        # 15b: 4 greedy streams
+PROC_DISAGG_TOKENS = 32         # 15c: 2 chats of ~1024-token prompts
+PROC_PARENT_LIMIT = 64 << 20    # the parent's rise in memory_allocated
+PROC_GONE_S = 30.0              # a removed fleet's workers must be gone by then
+PROC_SLACK = 2 << 30            # the card's bytes in use back where they were
+
+
+def compute_app_rows() -> list:
+    """The card's compute processes as ``nvidia-smi`` lists them: (pid,
+    used MiB) rows. (On the card's machine each process of the container is
+    a row of its own, every row with pid 1 and the container's summed
+    memory: the rows count the processes.)"""
+    if torch.device(DEV).type != "cuda":
+        return []
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    rows = []
+    for line in out.strip().splitlines():
+        pid, used = [x.strip() for x in line.split(",")[:2]]
+        rows.append((int(pid), int(used) if used.isdigit() else 0))
+    return rows
+
+
+def card_used() -> int:
+    """Bytes in use on the card, by every process (``mem_get_info``; 0 off
+    the card)."""
+    if torch.device(DEV).type != "cuda":
+        return 0
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def worker_memory(group) -> dict:
+    """Each worker's ``memory_allocated`` and ``memory_reserved``, read in
+    the worker."""
+    return {r.name: r.engine.device_memory() for r in group.replicas}
+
+
+def worker_health(group) -> dict:
+    return {r.name: r.engine.health() for r in group.replicas}
+
+
+def zero_worker_counts(group) -> None:
+    for r in group.replicas:
+        r.engine.launch_counts(reset=True)
+
+
+def worker_launches(group) -> dict:
+    """The kernels' launches summed over the workers, beside what their
+    counters say they must be."""
+    total = {"paged": 0, "ragged": 0, "tree": 0, "int4": 0}
+    want = {"paged": 0, "ragged": 0}
+    n_layers = group.model.n_layers
+    for name, h in worker_health(group).items():
+        counts = group._replica_by_name(name).engine.launch_counts()
+        for k in total:
+            total[k] += counts[k]
+        c = h["counters"]
+        want["paged"] += n_layers * (c["decode_steps"] + c["ragged_chain_steps"])
+        want["ragged"] += n_layers * c["ragged_steps"]
+    return dict(total, want_paged=want["paged"], want_ragged=want["ragged"])
+
+
+def check_launches(label, launches, ragged: bool) -> None:
+    if (launches["paged"] != launches["want_paged"] or launches["paged"] == 0
+            or launches["ragged"] != launches["want_ragged"]
+            or ragged != (launches["ragged"] > 0)):
+        raise AssertionError("{}: launches {}".format(label, launches))
+
+
+def worker_step_ms(health: dict) -> float:
+    c = health["counters"]
+    return c["decode_ms"] / max(1, c["decode_steps"])
+
+
+async def proc_conversations(s, base, url, turns_in=None, tok=None, block=64) -> tuple:
+    """15a's traffic on ``url``: 4 conversations x 2 turns (two homed on
+    each worker of a 2-replica ring by the router's math), each turn the
+    last one's messages, its reply and ~100 new characters; half the chats
+    stream. With ``turns_in`` the turns are replayed as given. Returns the
+    turns and the replies."""
+    if turns_in is None:
+        openers = balanced_openers(tok, 300, 4, 300, block, "Conversation")
+        convs = [[{"role": "user", "content": o}] for o in openers]
+    turns, results = [], []
+    for turn in range(2):
+        msgs = turns_in[turn] if turns_in is not None else [list(c) for c in convs]
+        turns.append(msgs)
+        replies = await asyncio.gather(*[
+            fleet_chat(s, base, url, m, PROC_TURN_TOKENS, i % 2 == 1)
+            for i, m in enumerate(msgs)])
+        results += replies
+        if turns_in is None:
+            for c, reply in zip(convs, replies):
+                c += [{"role": "assistant", "content": reply.get("content", "")},
+                      {"role": "user", "content": fleet_text(60 + turn * 4 + len(c), 100)}]
+    check_chats("15a " + url, results, PROC_TURN_TOKENS)
+    return turns, results
+
+
+async def proc_15a(s, base, processor, tok, runs, turns, single_results) -> dict:
+    """The same turns on ``fleet``: each conversation on one worker, its
+    second turn a hit there, the token ids and contents of ``single``."""
+    group = fleet_of(processor, "fleet")
+    zero_worker_counts(group)
+    hits0 = {n: h["prefix_cache"]["hits"] for n, h in worker_health(group).items()}
+    t0 = time.perf_counter()
+    _, results = await proc_conversations(s, base, "fleet", turns_in=turns)
+    await drained(*[r.engine for r in group.replicas])
+    wall = time.perf_counter() - t0
+    launches = worker_launches(group)
+    check_launches("15a", launches, ragged=False)
+    health = worker_health(group)
+    homes = []
+    for c in range(4):
+        ids = [chat_ids(tok, turns[t][c]) for t in range(2)]
+        where = {name for name in ("r0", "r1") for i in ids if (name, i) in runs}
+        if len(where) != 1:
+            raise AssertionError("15a: conversation {} ran on {}".format(c, where))
+        homes.append(where.pop())
+    hits = {n: health[n]["prefix_cache"]["hits"] - hits0[n] for n in health}
+    if hits != {n: homes.count(n) for n in ("r0", "r1")} or sorted(homes) != ["r0", "r0",
+                                                                              "r1", "r1"]:
+        raise AssertionError("15a: homes {} hits {}".format(homes, hits))
+    differ = [(c, t) for t in range(2) for c in range(4)
+              if runs[(homes[c], chat_ids(tok, turns[t][c]))]["tokens"]
+              != runs[(None, chat_ids(tok, turns[t][c]))]["tokens"]]
+    if differ:
+        first = [first_difference(
+            runs[(homes[c], chat_ids(tok, turns[t][c]))]["tokens"],
+            runs[(None, chat_ids(tok, turns[t][c]))]["tokens"]) for c, t in differ]
+        raise AssertionError("15a: token ids differ from the single engine's on (conversation, "
+                             "turn) {} at tokens {}".format(differ, first))
+    if [r["content"] for r in results] != [r["content"] for r in single_results]:
+        raise AssertionError("15a: contents differ from the single endpoint's")
+    captures = {n: h["counters"]["serve_captures"] for n, h in health.items()}
+    if any(captures.values()):
+        raise AssertionError("15a: captures while serving: {}".format(captures))
+    ttft = [(runs[(homes[c], chat_ids(tok, turns[t][c]))]["t_first"]
+             - runs[(homes[c], chat_ids(tok, turns[t][c]))]["t0"]) * 1e3
+            for t in range(2) for c in range(4)]
+    return dict(homes=homes, hits=hits, launches=launches, wall_s=wall, ttft_ms=ttft,
+                step_ms={n: worker_step_ms(h) for n, h in health.items()},
+                decode_steps={n: h["counters"]["decode_steps"] for n, h in health.items()})
+
+
+async def proc_15b(s, base, processor, tok, runs, block) -> dict:
+    """4 greedy streams x 128 tokens, two per worker; ``replica.proc.crash``
+    SIGKILLs worker r1 mid-stream; its streams resume on r0, and r1 comes
+    back as a new process through its warm gate."""
+    from clearml_serving_tpu_torch.llm import faults
+    from clearml_serving_tpu_torch.llm.engine import GenRequest
+
+    group = fleet_of(processor, "fleet")
+    r0, r1 = group.replicas
+    openers = balanced_openers(tok, 400, 4, 300, block, "Stream")
+    msgs = [[{"role": "user", "content": o}] for o in openers]
+    ids = [chat_ids(tok, m) for m in msgs]
+    homes = [fleet_home(tok, m, block) for m in msgs]
+    victims = [i for i, h in enumerate(homes) if h == "r1"]
+    pid0, failovers0 = r1.engine.pid, group.failovers
+    rows_before, used_before = compute_app_rows(), card_used()
+    chats = [asyncio.ensure_future(fleet_chat(s, base, "fleet", m, PROC_STREAM_TOKENS, True))
+             for m in msgs]
+    await until(lambda: all(len(runs.get(("r1", ids[v]), {}).get("tokens", ())) >= 24
+                            for v in victims), 120, "the victims' first 24 tokens")
+    faults.configure([{"point": "replica.proc.crash", "action": "raise", "match_token": 1,
+                       "times": 1}])
+    try:
+        await until(lambda: not r1.engine.is_ready, 30, "r1's worker to die")
+        t_dead = time.perf_counter()
+        results = await asyncio.gather(*chats)
+    finally:
+        faults.clear()
+    check_chats("15b", results, PROC_STREAM_TOKENS)
+    await until(lambda: r1.restarts == 1 and r1.engine.is_ready, 180, "r1's restart")
+    t_attached = time.perf_counter()
+    while "r1" not in group.router.ring():
+        if time.perf_counter() - t_dead > 240:
+            raise AssertionError("r1 did not rejoin the ring: {}".format(group.router.stats()))
+        group.router.sweep()
+        await asyncio.sleep(0.02)
+    t_rejoin = time.perf_counter()
+    pid1 = r1.engine.pid
+    if pid1 == pid0 or pid_alive(pid0):
+        raise AssertionError("15b: r1's worker {} -> {}, the old one alive: {}".format(
+            pid0, pid1, pid_alive(pid0)))
+    # the killed worker went with its memory: as many compute processes as
+    # before the kill, the card's use where it was, not one worker more
+    rows_after, used_after = compute_app_rows(), card_used()
+    if len(rows_after) != len(rows_before) or abs(used_after - used_before) > PROC_SLACK:
+        raise AssertionError("15b: nvidia-smi rows {} and {} B in use after the restart, {} "
+                             "and {} B before the kill".format(rows_after, used_after,
+                                                              rows_before, used_before))
+    out = dict(homes=homes, victims=victims, failovers=group.failovers - failovers0,
+               pids=[pid0, pid1], rows=[len(rows_before), len(rows_after)],
+               used=[used_before, used_after], streams=[], resume_s=[],
+               respawn_s=t_attached - t_dead, warm_s=r1.warm_seconds[-1],
+               rejoin_s=t_rejoin - t_dead)
+    for v in victims:
+        pre = runs[("r1", ids[v])]["tokens"]
+        history = tuple(ids[v]) + tuple(pre)
+        clone = runs.get(("r0", history))
+        if not pre or clone is None or len(pre) + len(clone["tokens"]) != PROC_STREAM_TOKENS:
+            raise AssertionError("15b: stream {} emitted {} tokens on r1 and resumed with {} on "
+                                 "r0".format(v, len(pre), clone and len(clone["tokens"])))
+        out["resume_s"].append(clone["t_first"] - t_dead)
+        # the continuation is a fresh request's with the history as its
+        # prompt: on the restarted r1 (a new process, cold; pinned there),
+        # and, reported, on r0 (whose cache now holds the history)
+        request = GenRequest(prompt_ids=list(history), max_new_tokens=len(clone["tokens"]))
+        request._replica_name = "r1"
+        fresh = [int(t) async for t in group.generate(request)]
+        if request._replica_name != "r1" or fresh != clone["tokens"]:
+            raise AssertionError("15b: stream {}'s continuation differs from a fresh request "
+                                 "on the restarted r1 at token {} (served on {})".format(
+                                     v, first_difference(fresh, clone["tokens"]),
+                                     request._replica_name))
+        warm = await _direct(r0.engine, GenRequest(prompt_ids=list(history),
+                                                   max_new_tokens=len(clone["tokens"])))
+        out["streams"].append(dict(before_kill=len(pre), after=len(clone["tokens"]),
+                                   r0_hit_first_difference=first_difference(
+                                       warm, clone["tokens"])))
+    await drained(r0.engine, r1.engine)
+    if (out["failovers"] != len(victims) or r1.restarts != 1 or r0.restarts != 0
+            or group.router.stats()["ring"] != ["r0", "r1"]):
+        raise AssertionError("15b: failovers {}, restarts r0 {} r1 {}, ring {}".format(
+            out["failovers"], r0.restarts, r1.restarts, group.router.stats()["ring"]))
+    return out
+
+
+async def remove_process_fleet(processor, cli, url, before: tuple) -> dict:
+    """``remove_fleet``'s holds, and: every worker gone within 30 s, the
+    card's compute processes and its bytes in use back where they were
+    before the fleet (``before``: rows, bytes), the fleet's directory
+    removed."""
+    group = fleet_of(processor, url)
+    pids = [r.engine.pid for r in group.replicas]
+    base = group._process_runtime.base_dir
+    del group
+    t0 = time.perf_counter()
+    out = await remove_fleet(processor, cli, url)
+    await until(lambda: not any(pid_alive(p) for p in pids), PROC_GONE_S,
+                "{}'s workers to exit".format(url))
+    out["workers_gone_s"] = time.perf_counter() - t0
+    if os.path.exists(base):
+        raise AssertionError("{}'s directory {} outlived it".format(url, base))
+    rows, used = compute_app_rows(), card_used()
+    out.update(pids=pids, rows=len(rows), used=used)
+    if len(rows) != len(before[0]) or used > before[1] + PROC_SLACK:
+        raise AssertionError("{}: nvidia-smi rows {} and {} B in use after the removal, {} "
+                             "and {} B before the fleet".format(url, rows, used, *before))
+    return out
+
+
+async def proc_15c(s, base, processor, cli, tok, url, aux, cold, card_before) -> dict:
+    """One disaggregated arm over the socket KV wire: ``url`` added and
+    warmed, two long chats one after the other; the decode worker's
+    streams equal a hit on the prefill worker; then removed."""
+    from clearml_serving_tpu_torch.llm.engine import GenRequest
+
+    picked = await add_endpoint(processor, cli, url, aux)
+    t0 = time.perf_counter()
+    await fleet_chat(s, base, url, [{"role": "user", "content": "Warm up."}], 4, False)
+    boot_warm_s = time.perf_counter() - t0
+    group = fleet_of(processor, url)
+    pre, dec = (r.engine for r in group.replicas)
+    arm_runs = record_fleet([pre, dec])
+    await drained(pre, dec)
+    zero_worker_counts(group)
+    before = worker_health(group)
+    msgs = [[{"role": "user", "content": "Report {}: {}".format(i, fleet_text(
+        200 + i, FLEET_DISAGG_CHARS))}] for i in range(2)]
+    ids = [chat_ids(tok, m) for m in msgs]
+    results = [await fleet_chat(s, base, url, m, PROC_DISAGG_TOKENS, True) for m in msgs]
+    await drained(pre, dec)
+    check_chats("15c " + url, results, PROC_DISAGG_TOKENS)
+    ragged = aux.get("scheduler") == "ragged"
+    launches = worker_launches(group)
+    check_launches("15c " + url, launches, ragged)
+    after = worker_health(group)
+    ps0, ps = before["r0"]["kv_ship"], after["r0"]["kv_ship"]
+    ds0, ds = before["r1"]["kv_ship"], after["r1"]["kv_ship"]
+    pw0, pw = ps0["transport"]["wire"], ps["transport"]["wire"]
+    dw0, dw = ds0["transport"]["wire"], ds["transport"]["wire"]
+    d = dict(ships=ps["ships"] - ps0["ships"], ship_pages=ps["ship_pages"] - ps0["ship_pages"],
+             ship_drops=ps["ship_drops"] - ps0["ship_drops"],
+             draft_aborts=ps["draft_aborts"] - ps0["draft_aborts"],
+             receives=ds["receives"] - ds0["receives"], hits=ds["hits"] - ds0["hits"],
+             recomputes=ds["recomputes"] - ds0["recomputes"],
+             dropped=ds["transport"]["dropped"] - ds0["transport"]["dropped"],
+             assembly_drops=(ds["transport"]["assembly_drops"]
+                             - ds0["transport"]["assembly_drops"]),
+             partial_frames=(ds["transport"]["partial_frames"]
+                             - ds0["transport"]["partial_frames"]),
+             send_failures=pw["send_failures"] - pw0["send_failures"],
+             recv_failures=dw["recv_failures"] - dw0["recv_failures"],
+             frames=pw["frames_sent"] - pw0["frames_sent"],
+             wire_bytes=pw["bytes_sent"] - pw0["bytes_sent"],
+             leg_failures=group.ship_leg_failures)
+    want = dict(ships=2, ship_drops=0, draft_aborts=0, receives=2, hits=2, recomputes=0,
+                dropped=0, assembly_drops=0, send_failures=0, recv_failures=0, leg_failures=0)
+    if (any(d[k] != v for k, v in want.items()) or d["ship_pages"] <= 0
+            or (ragged and d["partial_frames"] < 1) or d["wire_bytes"] <= 0):
+        raise AssertionError("15c {}: ship counters moved by {}".format(url, d))
+    ttft = [(arm_runs[("r1", i)]["t_first"] - arm_runs[("r0", i)]["t0"]) * 1e3 for i in ids]
+    # a single engine hitting the same prefix length: the prefill worker,
+    # which holds the prompts, asked directly, one chat after the other
+    direct = [await _direct(pre, GenRequest(prompt_ids=list(i),
+                                            max_new_tokens=PROC_DISAGG_TOKENS))
+              for i in ids]
+    streams = [arm_runs[("r1", i)]["tokens"] for i in ids]
+    if streams != direct:
+        raise AssertionError("15c {}: the decode worker's streams differ from a hit on the "
+                             "prefill worker at tokens {}".format(
+                                 url, [first_difference(a, b) for a, b in zip(streams, direct)]))
+    out = dict(d, picked_up_s=picked, boot_warm_s=boot_warm_s,
+               warm_s=[r.warm_seconds[-1] for r in group.replicas],
+               ship_ms=_mean_ms(ps["ship_ms"]), receive_ms=_mean_ms(ds["receive_ms"]),
+               rtt_ms=_mean_ms(pw["rtt_ms"]), frame_bytes=d["wire_bytes"] / max(1, d["frames"]),
+               ttft_ms=ttft, launches=launches,
+               first_difference_from_cold=[first_difference(st, cold[i])
+                                           for i, st in zip(ids, streams)],
+               ping_ms_max={r.name: max(r.ping_ms_max) for r in group.replicas})
+    del group, pre, dec  # the eviction must be the last to hold them
+    out["removal"] = await remove_process_fleet(processor, cli, url, card_before)
+    return out
+
+
+async def process_fleet_runs(processor, cli, tok, card: str) -> dict:
+    """15a, 15b, the removal and 15c behind the processor's router, each
+    logged as it ends."""
+    import aiohttp
+    from aiohttp import web
+    from prometheus_client import REGISTRY, generate_latest
+
+    from clearml_serving_tpu_torch.serving.main import build_app
+
+    single = processor._engine_processor_lookup["single"].engine
+    runs = record_fleet([single])
+    app = build_app(processor)
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = "http://127.0.0.1:{}".format(runner.addresses[0][1])
+    on_card = torch.device(DEV).type == "cuda"
+    block = PROC_BASE["prefix_block"]
+    out = {}
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=900)) as s:
+            t0 = time.perf_counter()
+            await fleet_chat(s, base, "single", [{"role": "user", "content": "Warm up."}], 4,
+                             False)
+            _zero_counts(single)
+            turns, single_results = await proc_conversations(s, base, "single", tok=tok,
+                                                             block=block)
+            single_step = single.counters["decode_ms"] / max(1, single.counters["decode_steps"])
+            msgs = [[{"role": "user", "content": "Report {}: {}".format(i, fleet_text(
+                200 + i, FLEET_DISAGG_CHARS))}] for i in range(2)]
+            cold = await asyncio.gather(*[fleet_chat(s, base, "single", m, PROC_DISAGG_TOKENS,
+                                                     True) for m in msgs])
+            check_chats("15c single", cold, PROC_DISAGG_TOKENS)
+            await single.wait_drained()
+            cold_ids = {chat_ids(tok, m): runs[(None, chat_ids(tok, m))] for m in msgs}
+            out["single"] = dict(step_ms=single_step, s=time.perf_counter() - t0,
+                                 cold_ttft_ms=[(r["t_first"] - r["t0"]) * 1e3
+                                               for r in cold_ids.values()])
+            cold_tokens = {k: r["tokens"] for k, r in cold_ids.items()}
+            release_card_memory()
+            free, total = torch.cuda.mem_get_info() if on_card else (0, 0)
+            mem0 = card_memory() if on_card else 0
+            before = (compute_app_rows(), card_used())
+            log("  15: before the workers spawn: mem_get_info free {} of {} B, this process "
+                "memory_allocated {} B, memory_reserved {} B; nvidia-smi compute processes {} "
+                "({})".format(free, total, mem0, torch.cuda.memory_reserved() if on_card else 0,
+                              before[0], card))
+            picked = await add_endpoint(processor, cli, "fleet", PROC_FLEET)
+            t0 = time.perf_counter()
+            await fleet_chat(s, base, "fleet", [{"role": "user", "content": "Warm up."}], 4,
+                             False)
+            boot_warm_s = time.perf_counter() - t0
+            group = fleet_of(processor, "fleet")
+            record_fleet([r.engine for r in group.replicas], runs)
+            await drained(*[r.engine for r in group.replicas])
+            mem1 = card_memory() if on_card else 0
+            pids = [r.engine.pid for r in group.replicas]
+            if len(set(pids)) != 2 or os.getpid() in pids:
+                raise AssertionError("15a: worker pids {} (this process {})".format(
+                    pids, os.getpid()))
+            if mem1 - mem0 >= PROC_PARENT_LIMIT:
+                raise AssertionError("15a: this process's memory_allocated rose {} B with the "
+                                     "process fleet".format(mem1 - mem0))
+            # both workers are compute processes of the card, and its use rose
+            # by at least what their caching allocators reserved
+            used1, wmem, rows = card_used(), worker_memory(group), compute_app_rows()
+            if on_card and (len(rows) != len(before[0]) + 2 or used1 - before[1] < sum(
+                    m["reserved"] for m in wmem.values())):
+                raise AssertionError("15a: nvidia-smi rows {} (before {}), {} B in use "
+                                     "(before {}); the workers reserved {}".format(
+                                         rows, before[0], used1, before[1], wmem))
+            out["15a"] = a = await proc_15a(s, base, processor, tok, runs, turns,
+                                            single_results)
+            ready = await (await s.get(base + "/ready")).json()
+            health = await (await s.get(base + "/health")).json()
+            for doc in (ready, health):
+                fleet = doc["fleet"]["fleet"]
+                got = {n: (row.get("process") or {}).get("pid")
+                       for n, row in fleet["per_replica"].items()}
+                if fleet["ring"] != ["r0", "r1"] or got != dict(zip(("r0", "r1"), pids)):
+                    raise AssertionError("15a: /ready or /health fleet block {}".format(fleet))
+            text = generate_latest(REGISTRY).decode()
+            want = ['engine_ready{model="fleet",replica="r0"} 1.0',
+                    'engine_ready{model="fleet",replica="r1"} 1.0',
+                    'engine_kv_pool_bytes{kind="kv",model="fleet",replica="r1"}',
+                    'router_replica_backend{backend="process",model="fleet"} 1.0']
+            missing = [w for w in want if w not in text]
+            if missing:
+                raise AssertionError("15a: the Prometheus export lacks {}".format(missing))
+            restarts = [r.restarts for r in group.replicas]
+            if any(restarts):
+                raise AssertionError("15a: restarts no fault caused: {}".format(restarts))
+            a.update(picked_up_s=picked, boot_warm_s=boot_warm_s, pids=pids,
+                     rows=[len(before[0]), len(rows)], used=[before[1], used1],
+                     worker_memory=wmem,
+                     warm_s=[r.warm_seconds[-1] for r in group.replicas],
+                     parent_rise=mem1 - mem0, single_step_ms=single_step,
+                     ping_ms_max={r.name: max(r.ping_ms_max) for r in group.replicas},
+                     exported=want)
+            log("  15a: workers {} (this process {}); nvidia-smi's compute process rows {} -> "
+                "{}, the card's bytes in use {} -> {}, the workers' allocated/reserved B {}; "
+                "this process's "
+                "memory_allocated {:+d} B; picked up {:.2f} s after the CLI, first request "
+                "(boot and both workers' warmup) {:.2f} s, warm s {}; homes {}, hits {}, ids "
+                "and contents equal single's; launches {}; ms a decode step {} on the workers "
+                "against {:.3f} on single (phase 14a's replicas in its line); TTFT ms {}; "
+                "longest ping ms {} ({})".format(
+                    pids, os.getpid(), before[0], rows, before[1], used1,
+                    {n: (m.get("allocated"), m.get("reserved")) for n, m in wmem.items()},
+                    mem1 - mem0, picked, boot_warm_s,
+                    [round(x, 2) for x in a["warm_s"]], a["homes"], a["hits"], a["launches"],
+                    {k: round(v, 3) for k, v in a["step_ms"].items()}, single_step,
+                    [round(x, 2) for x in a["ttft_ms"]],
+                    {k: round(v, 2) for k, v in a["ping_ms_max"].items()}, card))
+            del group
+            out["15b"] = b = await proc_15b(s, base, processor, tok, runs, block)
+            log("  15b: r1's worker {} SIGKILLed mid-stream (victims {}, tokens before the kill "
+                "/ after {}); {} failovers to r0, resumed {} s after the death; respawned "
+                "(new pid {}, handshake) {:.2f} s, re-warmed in {:.2f} s, back in the ring "
+                "{:.2f} s after the death; each continuation equals a fresh request on the "
+                "restarted r1; nvidia-smi's compute process rows {} and the card's bytes in "
+                "use {} before the kill / after the restart ({})".format(
+                    b["pids"][0], b["victims"], b["streams"], b["failovers"],
+                    [round(x, 3) for x in b["resume_s"]], b["pids"][1], b["respawn_s"],
+                    b["warm_s"], b["rejoin_s"], b["rows"], b["used"], card))
+            out["removal"] = r = await remove_process_fleet(processor, cli, "fleet", before)
+            log("  removal: group and proxies gone where the release returned ({:.2f} s), "
+                "no registry entry, workers {} gone {:.2f} s after the CLI, nvidia-smi's "
+                "compute process rows {} and the card's bytes in use {} (before the fleet {} "
+                "and {}), the fleet's directory removed ({})".format(
+                    r["freed_s"], r["pids"], r["workers_gone_s"], r["rows"], r["used"],
+                    len(before[0]), before[1], card))
+            roles = {"replica_roles": ["prefill", "decode"]}
+            out["15c"] = {}
+            for arm, knobs in (("two_dispatch", {}),
+                               ("ragged", {"scheduler": "ragged", "step_token_budget": 256})):
+                url = "pdisagg" if arm == "two_dispatch" else "pdisagg_ragged"
+                out["15c"][arm] = c = await proc_15c(s, base, processor, cli, tok, url,
+                                                     dict(PROC_FLEET, **roles, **knobs),
+                                                     cold_tokens, before)
+                log("  15c {}: ships {} ({} pages, {} frames of {:.0f} B mean, {} partial "
+                    "frames received), decode hits {}, drops and wire errors 0; ship_ms {:.3f}, "
+                    "send round trip {:.3f} ms, receive_ms {:.3f}; TTFT ms {} disaggregated / "
+                    "{} single cold; streams equal a hit on the prefill worker, first "
+                    "difference from the cold stream {}; first request {:.2f} s; longest "
+                    "ping ms {}; workers gone {:.2f} s after the CLI ({})".format(
+                        arm, c["ships"], c["ship_pages"], c["frames"], c["frame_bytes"],
+                        c["partial_frames"], c["hits"], c["ship_ms"], c["rtt_ms"],
+                        c["receive_ms"], [round(x, 2) for x in c["ttft_ms"]],
+                        [round(x, 2) for x in out["single"]["cold_ttft_ms"]],
+                        c["first_difference_from_cold"], c["boot_warm_s"],
+                        {k: round(v, 2) for k, v in c["ping_ms_max"].items()},
+                        c["removal"]["workers_gone_s"], card))
+    finally:
+        await runner.cleanup()
+    return out
+
+
+def phase_process_fleet(card: str) -> dict:
+    """Phase 15 (module docstring): a processor launched with ``single``,
+    then the process fleets added and removed by the CLI while it serves."""
+    from clearml_serving_tpu_torch.__main__ import cli
+    from clearml_serving_tpu_torch.llm.tokenizer import ByteTokenizer
+    from clearml_serving_tpu_torch.models.llama import resolve_config
+    from clearml_serving_tpu_torch.serving.main import setup_processor
+    from clearml_serving_tpu_torch.state import StateStore
+
+    root = state_dir()
+    env = {"TPUSERVE_STATE_ROOT": root, "TPUSERVE_POLL_FREQ": str(1.0 / 60)}
+    saved = {k: os.environ.get(k) for k in list(env) + ["TPUSERVE_SERVICE_ID"]}
+    os.environ.update(env)
+    processor = None
+    cfg = resolve_config({"preset": PROC_BASE["preset"], **(PROC_BASE.get("config") or {})})
+    tok = ByteTokenizer(vocab_size=max(int(cfg["vocab_size"]), 259))
+    try:
+        for argv in (["create", "--name", "chip-smoke-process-fleet"],
+                     ["--yes", "model", "add", "--engine", "llm", "--endpoint", "single",
+                      "--aux-config"] + ["engine.{}={}".format(k, json.dumps(v))
+                                         for k, v in PROC_BASE.items()]):
+            if cli(argv) != 0:
+                raise AssertionError("the CLI failed: {}".format(argv))
+        os.environ["TPUSERVE_SERVICE_ID"] = StateStore(root).find_service(
+            "chip-smoke-process-fleet").id
+        processor = setup_processor(device=DEV)
+        sync()
+        t0 = time.perf_counter()
+        out = asyncio.run(process_fleet_runs(processor, cli, tok, card))
+        out["runs_s"] = time.perf_counter() - t0
+    finally:
+        if processor is not None:
+            processor.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -6196,6 +6799,7 @@ def main() -> int:
         now = time.perf_counter()
         seconds[name] = round(now - t_mark[0], 1)
         t_mark[0] = now
+        log("  (phase {}: {} s, {:.1f} s in all)".format(name, seconds[name], now - t_start))
 
     card = card_line()
     log("phase 1: card", card)
@@ -6268,7 +6872,8 @@ def main() -> int:
                    for kv, weights in GRAPH_CASES for sampled in (False, True)]
     pipeline_runs = phase_pipeline_arms(params)
     mark("5e")
-    log("phase 6: where the time goes")
+    log("phase 6: where the time goes, llama3-8b widths at {} of its 32 layers".format(
+        PROFILE_LAYERS))
     prof = phase_profile(params, check_reader=True)
     serial_prof = phase_profile(params, pipeline_depth=1, cuda_graphs=False)
     # the steadier traffic in each arm of phase 5e
@@ -6306,7 +6911,8 @@ def main() -> int:
     admission = phase_admission(params, qparams, card)
     mark("12")
     log("phase 13: the control plane in front of the LLM route: the CLI, the processor and "
-        "its sync daemon, the /serve/{tail} router, llama3-8b full width int8 KV")
+        "its sync daemon, the /serve/{{tail}} router, llama3-8b widths at {} of its 32 layers, "
+        "int8 KV".format(CP_LAYERS))
     control = phase_control_plane(card)
     mark("13")
     release_card_memory()
@@ -6315,6 +6921,15 @@ def main() -> int:
         "shared-slab KV transport, the Prometheus exporter")
     fleet = phase_fleet(card)
     mark("14")
+    # phase 15's workers draw their own weights on the card, beside this
+    # process's endpoint: phase 5's weights go back to the card first
+    del params, qparams
+    release_card_memory()
+    log("phase 15: the process fleet: two Llama-3-8B worker processes, each with its own CUDA "
+        "context, pool and graphs, behind the router; a real SIGKILL and the restart with "
+        "re-warm; disaggregated prefill/decode over the socket KV wire")
+    pfleet = phase_process_fleet(card)
+    mark("15")
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -6385,6 +7000,12 @@ def main() -> int:
         # phase 14c: the disaggregated arms' decode launches
         "launches_disagg": fleet["14c"]["two_dispatch"]["launches"]["paged"],
         "launches_disagg_ragged_path": fleet["14c"]["ragged"]["launches"]["paged"],
+        # phase 15a: the two worker processes' decode launches (their own
+        # counts, zeroed in each worker before the traffic)
+        "launches_process_fleet": pfleet["15a"]["launches"]["paged"],
+        # phase 15c: the disaggregated workers' decode launches
+        "launches_process_disagg": pfleet["15c"]["two_dispatch"]["launches"]["paged"],
+        "launches_process_disagg_ragged_path": pfleet["15c"]["ragged"]["launches"]["paged"],
     }, {
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -6433,6 +7054,8 @@ def main() -> int:
         # phase 14c: the ragged disaggregated arm (the prefill replica's
         # chunk rows, the decode replica's tail rows), both replicas
         "launches_disagg": fleet["14c"]["ragged"]["launches"]["ragged"],
+        # phase 15c: the ragged arm's workers (prefill and decode)
+        "launches_process_disagg": pfleet["15c"]["ragged"]["launches"]["ragged"],
     }, {
         "name": "ragged_paged_attention[tree_anc]",
         "route": "cuda",
@@ -6514,7 +7137,8 @@ def main() -> int:
                                   "lifecycle": lifecycle, "prefix_cache": prefix,
                                   "kv_tier": tier, "sampling": sampling,
                                   "guided": guided, "admission": admission,
-                                  "control_plane": control, "fleet": fleet}))
+                                  "control_plane": control, "fleet": fleet,
+                                  "process_fleet": pfleet}))
     log("seconds by phase:", json.dumps(seconds))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)

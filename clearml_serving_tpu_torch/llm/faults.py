@@ -79,6 +79,27 @@ Points (the context each carries):
                           about to import (``request``: a shim whose
                           ``prompt_ids`` are the prompt's); a raise fails
                           the receive, and the group re-routes the stream.
+- ``transport.wire.send`` in the socket KV transport (``llm/kv_wire.py``)
+                          before a shipment is framed and written to the
+                          destination's listener; a raise drops the
+                          shipment sender-side (a counted wire send failure,
+                          ``send`` returns False) and the decode replica
+                          recomputes, as after a full receive slab.
+- ``transport.wire.recv`` on the receiving endpoint's listener thread before
+                          a received frame is decoded and validated; a raise
+                          drops the frame leak-free (nothing was attached:
+                          the slabs are views into the frame's buffer),
+                          nacks the sender, and the stream falls back to
+                          recompute, the path a truncated or lying frame
+                          takes through ``WireFormatError``.
+- ``replica.proc.crash``  in a process replica's supervisor tick
+                          (``serving/process_replica.py``), with the replica
+                          INDEX as the shim's ``prompt_ids`` (the
+                          ``router.eject`` convention): ``match_token:
+                          <index>`` SIGKILLs exactly that worker process,
+                          a real worker death (end of file mid-stream, then
+                          failover on history-as-prompt, ejection and the
+                          bounded restart with re-warm).
 - ``router.pick``         in the replica router as a pick is about to
                           return (``request``); a raise falls to the next
                           ring member, counted as a ``rebalance``.
@@ -126,6 +147,9 @@ KNOWN_POINTS = frozenset({
     "engine.kv.ship",
     "kv.ship.partial",
     "engine.kv.receive",
+    "transport.wire.send",
+    "transport.wire.recv",
+    "replica.proc.crash",
     "router.pick",
     "router.eject",
 })

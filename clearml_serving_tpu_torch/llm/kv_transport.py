@@ -1,8 +1,8 @@
 """KV transport: cross-replica shipping of prefilled KV pages.
 
-The port's copy of ``clearml_serving_tpu/llm/kv_transport.py``, without
-its socket wire (``to_wire``/``from_wire``, which belong to ``kv_wire``):
-the in-process shared-slab backend only.
+The port's copy of ``clearml_serving_tpu/llm/kv_transport.py``: the
+in-process shared-slab backend, and the shipment's wire codec
+(``to_wire``/``from_wire``), whose socket backend is ``llm/kv_wire.py``.
 
 Disaggregated prefill/decode splits the two jobs of a serving replica over
 role-specialized replicas: PREFILL replicas run the admission, DECODE
@@ -121,6 +121,23 @@ class KVShipment:
             per += int(self.hk_scale.nbytes) + int(self.hv_scale.nbytes)
         return per
 
+    # -- wire codec (llm/kv_wire.py) -----------------------------------------
+
+    def to_wire(self) -> bytearray:
+        """One self-validating frame for the socket backend (header:
+        geometry/dtype/lora/content key; body: the raw slabs)."""
+        from .kv_wire import shipment_to_wire
+
+        return shipment_to_wire(self)
+
+    @staticmethod
+    def from_wire(frame) -> "KVShipment":
+        """Decode and validate a frame into a shipment whose slabs are
+        zero-copy views; raises ``kv_wire.WireFormatError`` (before any
+        attach) on truncation or geometry/dtype/key lies."""
+        from .kv_wire import shipment_from_wire
+
+        return shipment_from_wire(frame)
 
 
 class TransportEndpoint:

@@ -74,6 +74,10 @@ RESOURCES: Dict[str, Dict[str, Any]] = {
     # a KV shipment sent and not yet consumed: the receiving replica's
     # mailbox holds it (cache-like, never drain-zero)
     "transport.shipment": {"scope": "cache", "drain_zero": False},
+    # a socket KV wire's cached peer connection (llm/kv_wire.py) and a
+    # process replica's worker process (serving/process_replica.py)
+    "transport.wire.conn": {"scope": "cache", "drain_zero": False},
+    "replica.worker_proc": {"scope": "engine", "drain_zero": False},
 }
 
 # frames whose code lives in these basenames are the instrumented

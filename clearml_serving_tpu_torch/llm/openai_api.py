@@ -174,11 +174,12 @@ def fleet_config(engine_cfg: Dict[str, Any]) -> Dict[str, Any]:
     """The aux fleet knobs, validated at endpoint load as the reference
     validates them: ``replicas`` (1..16), ``replica_roles`` (a list or a
     comma string of prefill/decode/hybrid, with ``replicas`` >= 2),
-    ``replica_backend`` (inprocess/process) and ``kv_transport_backend``
-    (shared/socket). The port serves the in-process backend over the
-    shared-slab transport: ``process`` and ``socket`` raise, naming the
-    knob, and nothing falls back. Returns the ``ReplicaGroup`` arguments
-    with ``replicas``."""
+    ``replica_backend`` (inprocess: N engines in this process; process:
+    supervised worker processes, ``serving/process_replica.py``, which
+    needs ``replicas`` >= 2) and ``kv_transport_backend`` (shared: in-heap
+    slab mailboxes; socket: ``llm/kv_wire.py``; a process fleet's workers
+    always ship over sockets). Returns the ``ReplicaGroup`` arguments with
+    ``replicas`` and ``replica_backend``."""
     raw = engine_cfg.get("replicas")
     if raw is None:
         n = 1
@@ -205,6 +206,11 @@ def fleet_config(engine_cfg: Dict[str, Any]) -> Dict[str, Any]:
         if n <= 1:
             raise ValueError("aux engine.replica_roles needs engine.replicas >= 2 (got {} "
                              "replica)".format(n))
+        for role in roles:
+            # before any worker process starts (the group checks them too)
+            if role not in ("prefill", "decode", "hybrid"):
+                raise ValueError("engine.replica_roles entries must be prefill/decode/"
+                                 "hybrid: got {!r}".format(role))
     backend = str(engine_cfg.get("replica_backend", "inprocess")).strip().lower()
     if backend not in ("inprocess", "process"):
         raise ValueError("aux engine.replica_backend must be inprocess/process: got {!r}".format(
@@ -213,15 +219,9 @@ def fleet_config(engine_cfg: Dict[str, Any]) -> Dict[str, Any]:
     if transport not in ("shared", "socket"):
         raise ValueError("aux engine.kv_transport_backend must be shared/socket: got {!r}".format(
             engine_cfg.get("kv_transport_backend")))
-    if backend == "process":
-        if n <= 1:
-            raise ValueError("aux engine.replica_backend=process needs engine.replicas >= 2 "
-                             "(got {})".format(n))
-        raise ValueError("aux engine.replica_backend 'process' is not supported by the "
-                         "PyTorch port yet (worker processes are not ported): use 'inprocess'")
-    if transport == "socket":
-        raise ValueError("aux engine.kv_transport_backend 'socket' is not supported by the "
-                         "PyTorch port yet (its kv_wire transport is not ported): use 'shared'")
+    if backend == "process" and n <= 1:
+        raise ValueError("aux engine.replica_backend=process needs engine.replicas >= 2 "
+                         "(got {})".format(n))
     spill = engine_cfg.get("router_spill_queue_depth")
     return {
         "replicas": n,
@@ -234,6 +234,7 @@ def fleet_config(engine_cfg: Dict[str, Any]) -> Dict[str, Any]:
         "kv_transport_pages": (int(engine_cfg["kv_transport_pages"])
                                if engine_cfg.get("kv_transport_pages") else None),
         "kv_transport_backend": transport,
+        "replica_backend": backend,
     }
 
 
@@ -259,7 +260,11 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     ``Llama`` (one set of weights) and that many ``LLMEngineCore`` replicas
     over it ("r0", "r1", ...), each with its own KV pool and graphs, and
     each on a stream of its own: replica 0 on the current stream, the
-    others on ``device.replica_stream``."""
+    others on ``device.replica_stream``. With ``replica_backend: process``
+    the replicas are worker processes (``serving/process_replica.py``),
+    each drawing the same weights from ``seed`` on its own device (or
+    loading ``params`` from a file written once for them): this process
+    makes no weight."""
     unknown = sorted(k for k in engine_cfg if k not in ENGINE_KEYS)
     if unknown:
         raise ValueError(
@@ -296,16 +301,65 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     cfg = resolve_config({"preset": engine_cfg["preset"], **(engine_cfg.get("config") or {})})
     if engine_cfg.get("kv_quant"):
         cfg["kv_quant"] = str(engine_cfg["kv_quant"])
+    seed = int(engine_cfg.get("seed", 0))
+    tokenizer = make_tokenizer(cfg)
+    kwargs = engine_kwargs(engine_cfg, cfg, tokenizer, weight_quant, cuda_graphs)
+    n = fleet.pop("replicas")
+    if fleet.pop("replica_backend") == "process":
+        from ..serving.process_replica import build_process_fleet
+
+        # the JSON-safe engine kwargs: each worker rebuilds its tokenizer
+        worker_kwargs = {k: v for k, v in kwargs.items() if k != "tokenizer"}
+        fleet.pop("kv_transport_backend")
+        group = build_process_fleet(
+            {"config": cfg, "seed": seed, "weight_quant": weight_quant}, worker_kwargs, n,
+            warmup_mode=warmup, device=str(dev), params=params, **fleet)
+        return group, tokenizer
+    model = make_llama(cfg, dev, seed, weight_quant, params)
+    if n == 1:
+        return LLMEngineCore(model, **kwargs), tokenizer
+    from .replica import ReplicaGroup
+
+    engines = []
+    for i in range(n):
+        # "rN" everywhere: the engine's replica id is the ring member's
+        # name, the metrics' label and the /ready block's key. Replica 0
+        # stays on the current stream, the others get streams of their own
+        if dev.type == "cuda" and i > 0:
+            stream = replica_stream(dev, i)
+            # the weights were written on the stream current here
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                engines.append(LLMEngineCore(model, replica="r{}".format(i), **kwargs))
+        else:
+            engines.append(LLMEngineCore(model, replica="r{}".format(i), **kwargs))
+    return ReplicaGroup(engines, warmup_mode=warmup, **fleet), tokenizer
+
+
+def make_tokenizer(cfg: Dict[str, Any]) -> ByteTokenizer:
+    return ByteTokenizer(vocab_size=max(int(cfg["vocab_size"]), 259))
+
+
+def make_llama(cfg: Dict[str, Any], dev: torch.device, seed: int,
+               weight_quant: Optional[str], params: Optional[Dict[str, Any]] = None) -> Llama:
+    """The served model: ``params`` (full precision or packed), else
+    random weights drawn on ``dev`` from ``seed``; full-precision weights
+    are quantized to ``weight_quant`` first. A process replica's worker
+    builds its model here too, from the same arguments."""
     if params is None:
         gen = torch.Generator(dev)
-        gen.manual_seed(int(engine_cfg.get("seed", 0)))
+        gen.manual_seed(int(seed))
         params = init_params(cfg, gen, device=dev)
     if weight_quant and not detect_weight_quant(params):
         params = quantize_llama_params(params, bits=4 if weight_quant == "int4" else 8)
-    model = Llama(cfg, params)
-    tokenizer = ByteTokenizer(vocab_size=max(int(cfg["vocab_size"]), 259))
+    return Llama(cfg, params)
+
+
+def engine_kwargs(engine_cfg: Dict[str, Any], cfg: Dict[str, Any], tokenizer,
+                  weight_quant: Optional[str], cuda_graphs: bool) -> Dict[str, Any]:
+    """``LLMEngineCore``'s keyword arguments from an aux ``engine`` block."""
     cache = engine_cfg.get("cache", "dense")
-    kwargs = dict(
+    return dict(
         max_batch=int(engine_cfg.get("max_batch", 8)),
         max_seq_len=int(engine_cfg.get("max_seq_len", cfg.get("max_seq_len", 2048))),
         prefill_buckets=engine_cfg.get("prefill_buckets"),
@@ -399,25 +453,6 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
             if engine_cfg.get("prefix_cache_host_mb") else None
         ),
     )
-    n = fleet.pop("replicas")
-    if n == 1:
-        return LLMEngineCore(model, **kwargs), tokenizer
-    from .replica import ReplicaGroup
-
-    engines = []
-    for i in range(n):
-        # "rN" everywhere: the engine's replica id is the ring member's
-        # name, the metrics' label and the /ready block's key. Replica 0
-        # stays on the current stream, the others get streams of their own
-        if dev.type == "cuda" and i > 0:
-            stream = replica_stream(dev, i)
-            # the weights were written on the stream current here
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                engines.append(LLMEngineCore(model, replica="r{}".format(i), **kwargs))
-        else:
-            engines.append(LLMEngineCore(model, replica="r{}".format(i), **kwargs))
-    return ReplicaGroup(engines, warmup_mode=warmup, **fleet), tokenizer
 
 
 @register_engine("llm", modules=["torch"])
@@ -501,8 +536,9 @@ class LLMEngineRequest(BaseEngineRequest):
         the engine's prefix cache and lifecycle provider under the
         endpoint's name, or, on a fleet, each replica's under
         ``<name>@rN`` (their series carry ``model`` and ``replica``) and
-        the router's. A provider holds its engine weakly, and the release
-        of an evicted engine drops every entry this request registered
+        the router's (a process replica's lifecycle block is read from its
+        worker over the sync channel). A provider holds its engine weakly,
+        and the release of an evicted engine drops every entry this request registered
         (``_unregister_metrics``), so the process-wide registry never pins
         an evicted engine's weights and pools."""
         from ..statistics import metrics
@@ -522,7 +558,10 @@ class LLMEngineRequest(BaseEngineRequest):
             return provider
 
         def register(engine, key, replica=None):
-            if engine._prefix is not None:
+            # a process replica's proxy has a routing-only prefix probe (its
+            # cache lives in the worker and reports through the lifecycle
+            # block, read over the sync channel)
+            if engine._prefix is not None and hasattr(engine._prefix, "stats"):
                 collector = metrics.register_prefix_cache(
                     engine._prefix, engine.paged_cache.pool, key=key,
                     model=model if replica is not None else None, replica=replica)
@@ -598,8 +637,11 @@ class LLMEngineRequest(BaseEngineRequest):
         task = engine._loop_task or engine._watchdog_task
         loop = task.get_loop() if task is not None else None
         if loop is None or loop.is_closed():
+            # (a process fleet has no loop task here: its stop reaps the
+            # workers; its proxies' cycles go with the collection)
             engine.stop()
-            self._drop_engine()
+            del engine
+            self._release()
             return
         loop.call_soon_threadsafe(self._start_retire)
 

@@ -1,9 +1,9 @@
 """Replica engine group: N ``LLMEngineCore`` replicas behind one
 prefix-affine router.
 
-The port's copy of ``clearml_serving_tpu/llm/replica.py`` (in-process
-replicas; the process backend is not ported). ``ReplicaGroup`` presents the
-single-engine surface the OpenAI front and the router consume
+The port's copy of ``clearml_serving_tpu/llm/replica.py``.
+``ReplicaGroup`` presents the single-engine surface the OpenAI front and
+the router consume
 (``validate`` / ``check_admission`` / ``generate`` / ``score_prompt`` /
 ``warmup`` / ``health`` / ``lifecycle_stats`` / ``stop``), so a fleet drops
 in wherever one engine stood. Routing is ``serving/replica_router.py``'s:
@@ -24,11 +24,14 @@ resume WRONG (the resume resets the penalty histogram and the DFA state)
 and propagate their error instead, as do request-attributable errors
 (deadlines, sheds, per-request step failures).
 
-The replicas share one ``Llama`` (read-only for compute) and each has its
-own KV pool, stream and CUDA graphs (``llm/openai_api.py`` builds them).
-With replica roles, a prefill replica ships each stream's prefix pages to
-its decode replica through ``llm/kv_transport.py`` before the stream runs
-there (``_disagg_preamble``).
+In-process replicas share one ``Llama`` (read-only for compute) and each
+has its own KV pool, stream and CUDA graphs (``llm/openai_api.py`` builds
+them). With replica roles, a prefill replica ships each stream's prefix
+pages to its decode replica before the stream runs there
+(``_disagg_preamble``), through ``llm/kv_transport.py``'s shared slabs or
+``llm/kv_wire.py``'s sockets (``kv_transport_backend``). The process
+backend (``serving/process_replica.py``) assembles the same group from
+supervised worker processes through ``_finish_init``.
 """
 
 from __future__ import annotations
@@ -174,8 +177,9 @@ class ReplicaGroup:
         # engine.kv_transport_pages); default: four full-prefix shipments
         kv_transport_pages: Optional[int] = None,
         # KV transport backend (aux engine.kv_transport_backend): "shared"
-        # = in-heap slab mailboxes; the reference's "socket" wire is not
-        # ported yet
+        # = in-heap slab mailboxes, "socket" = the wire-framed socket
+        # backend (llm/kv_wire.py): the same mailbox semantics, with the
+        # shipments crossing a real byte boundary
         kv_transport_backend: str = "shared",
     ):
         if not engines:
@@ -185,10 +189,6 @@ class ReplicaGroup:
                 "engine.kv_transport_backend must be shared/socket: got "
                 "{!r}".format(kv_transport_backend)
             )
-        if kv_transport_backend == "socket":
-            raise ValueError(
-                "engine.kv_transport_backend 'socket' is not supported by the PyTorch "
-                "port yet (its kv_wire transport is not ported): use 'shared'")
         self.replicas = [
             EngineReplica(i, engine, warmup_mode=warmup_mode)
             for i, engine in enumerate(engines)
@@ -235,11 +235,18 @@ class ReplicaGroup:
                         engines[0].max_seq_len
                     )
                     kv_transport_pages = max(64, 4 * per_seq)
-                from .kv_transport import SharedSlabTransport
+                if kv_transport_backend == "socket":
+                    from .kv_wire import SocketSlabFabric
 
-                self.transport = SharedSlabTransport(
-                    capacity_pages=int(kv_transport_pages)
-                )
+                    self.transport = SocketSlabFabric(
+                        capacity_pages=int(kv_transport_pages)
+                    )
+                else:
+                    from .kv_transport import SharedSlabTransport
+
+                    self.transport = SharedSlabTransport(
+                        capacity_pages=int(kv_transport_pages)
+                    )
             role_map = {
                 replica.name: role
                 for replica, role in zip(self.replicas, roles)
@@ -250,20 +257,52 @@ class ReplicaGroup:
                     if self.transport is not None else None,
                     role=role,
                 )
-        # which replica backend runs this fleet (exported on the router's
-        # stats for the info-gauge metric)
-        self.replica_backend = "inprocess"
+        self._finish_init(
+            self.replicas,
+            block=block,
+            role_map=role_map,
+            disaggregated=self._disaggregated,
+            transport=self.transport,
+            spill_queue_depth=spill_queue_depth,
+            spill_brownout_stage=spill_brownout_stage,
+            fleet_shed_stage=fleet_shed_stage,
+            affinity_blocks=affinity_blocks,
+            replica_backend="inprocess",
+            max_pending_hint=engines[0].max_pending,
+            runtime=None,
+        )
+        # co-hosted engines: every capture runs in the thread-local mode
+        # (a sibling may serve while one re-warms)
+        if len(engines) > 1:
+            for engine in engines:
+                engine._cohosted = True
+
+    def _finish_init(self, replicas, *, block, role_map, disaggregated,
+                     transport, spill_queue_depth, spill_brownout_stage,
+                     fleet_shed_stage, affinity_blocks, replica_backend,
+                     max_pending_hint, runtime):
+        """The construction's shared tail: router and counters. Called by
+        ``__init__`` (in-process engines) and by ``build_process_fleet``
+        (``serving/process_replica.py``), which assembles its ring from
+        worker processes and has no engine objects in hand: each proxy
+        replica arrives built."""
+        self.replicas = replicas
+        self._disaggregated = bool(disaggregated)
+        self.transport = transport
+        # which replica backend runs this fleet ("inprocess" | "process");
+        # exported on the router's stats for the info-gauge metric
+        self.replica_backend = str(replica_backend)
+        self._process_runtime = runtime
         # spill bound defaults to half the admission bound: deep enough
         # that transient bursts stay affine, shallow enough to redirect
         # before the affine member starts shedding. An EXPLICIT 0 disables
         # queue-depth spill (maps to the router's None spelling).
-        max_pending = engines[0].max_pending
-        if spill_queue_depth is None and max_pending:
-            spill_queue_depth = max(2, int(max_pending) // 2)
+        if spill_queue_depth is None and max_pending_hint:
+            spill_queue_depth = max(2, int(max_pending_hint) // 2)
         elif spill_queue_depth is not None and int(spill_queue_depth) <= 0:
             spill_queue_depth = None
         self.router = ReplicaRouter(
-            self.replicas,
+            replicas,
             block=block,
             affinity_blocks=affinity_blocks,
             spill_queue_depth=spill_queue_depth,
@@ -278,11 +317,6 @@ class ReplicaGroup:
         self.ship_leg_failures = 0  # leg failed -> decode-side recompute
         self.ship_warm_skips = 0    # decode already held the prefix
         self.receive_reroutes = 0   # receive failed -> hybrid re-route
-        # co-hosted engines: every capture runs in the thread-local mode
-        # (a sibling may serve while one re-warms)
-        if len(engines) > 1:
-            for engine in engines:
-                engine._cohosted = True
 
     # -- single-engine surface (config/readonly) ----------------------------
 
@@ -325,8 +359,12 @@ class ReplicaGroup:
     # -- request path -------------------------------------------------------
 
     def validate(self, request) -> None:
-        # replicas are identically configured: validation is config-only
-        self._first_engine().validate(request)
+        # replicas are identically configured: validation is config-only,
+        # and a ring member answers it (a process replica's worker may be
+        # down while its sibling serves)
+        replica = self._replica_by_name(next(iter(self.router.ring()), None))
+        engine = replica.engine if replica is not None else self._first_engine()
+        engine.validate(request)
 
     def check_admission(self, request, reserve: int = 0) -> None:
         """Route and pre-admit: the chosen replica is pinned on the request
@@ -600,8 +638,9 @@ class ReplicaGroup:
         replica's own gate task (``_warm_task``): a concurrent ring sweep
         (a /ready probe mid-warmup) sees ``warming`` and never schedules a
         second run_warmup on the same engine; a gate task already in flight
-        is awaited instead."""
-        results = []
+        is awaited instead. In-process replicas warm one after another (their
+        captures share the process); a process fleet's workers at once."""
+        results, started = [], []
         for replica in self.replicas:
             if replica.warming:
                 try:
@@ -613,6 +652,14 @@ class ReplicaGroup:
             replica._warm_task = asyncio.get_running_loop().create_task(
                 replica.ensure_warm()
             )
+            started.append(replica)
+            if self.replica_backend == "process":
+                continue  # worker processes warm at once, each on its own
+            try:
+                await asyncio.shield(replica._warm_task)
+            except Exception:  # ensure_warm logs its own failure
+                pass
+        for replica in started:
             try:
                 await asyncio.shield(replica._warm_task)
             except Exception:  # ensure_warm logs its own failure
@@ -628,16 +675,30 @@ class ReplicaGroup:
     def stop(self) -> None:
         for replica in self.replicas:
             replica.engine.stop()
+        self._close_resources()
         self.router.sweep()
+
+    def _close_resources(self) -> None:
+        """The OS resources a fleet holds beyond its engines: the socket
+        fabric's listeners, unix paths and directory, and the process
+        backend's runtime (it joins the supervisors, reaps every worker and
+        drops the control listener and the spec directory)."""
+        if self.transport is not None and hasattr(self.transport, "close"):
+            self.transport.close()
+        runtime = getattr(self, "_process_runtime", None)
+        if runtime is not None:
+            runtime.close()
 
     async def stop_when_idle(self) -> None:
         """Each replica's ``stop_when_idle`` (the eviction's retire), then
-        the ring sweep that ejects them all."""
+        the fleet's OS resources close (a process fleet's workers are
+        reaped), then the ring sweep that ejects them all."""
         for replica in self.replicas:
             await replica.engine.stop_when_idle()
         for replica in self.replicas:
             if replica._warm_task is not None and not replica._warm_task.done():
                 await asyncio.wait([replica._warm_task])
+        await asyncio.to_thread(self._close_resources)
         self.router.sweep()
 
     @property

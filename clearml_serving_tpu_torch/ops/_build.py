@@ -4,14 +4,19 @@ The sources under ``clearml_serving_tpu_torch/csrc`` are compiled for
 ``sm_90a`` into one shared library with a plain C interface,
 ``build/kernels/libtpu_torch_kernels.so`` at the repository root. The build
 runs at first use, one ``nvcc`` process per source, all started together,
-and runs again whenever the hash of the sources and flags changes. Nothing is
-built or loaded when a module is imported: the CPU tests import every module
-on machines without ``nvcc``.
+and runs again whenever the hash of the sources and flags changes. The check
+and the build hold an exclusive ``fcntl.flock`` on ``build/kernels/.lock``:
+the object files have fixed names, so processes that reach their first kernel
+together (a process fleet's workers on a cold tree) take turns, and the later
+ones find the library current. Nothing is built or loaded when a module is
+imported: the CPU tests import every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -59,11 +64,27 @@ def _digest() -> str:
     return h.hexdigest()
 
 
+@contextlib.contextmanager
+def _interprocess_lock():
+    """The build directory's exclusive lock, across processes."""
+    with open(BUILD_DIR / ".lock", "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build() -> Path:
     """Compile the library unless a current one exists; returns its path.
     The compiler's register and shared-memory report (``-Xptxas -v``) is
     kept in ``build/kernels/build.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _interprocess_lock():
+        return _build_locked()
+
+
+def _build_locked() -> Path:
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = _digest()

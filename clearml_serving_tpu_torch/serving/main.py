@@ -161,7 +161,8 @@ def _fleet_summary(engines: dict) -> dict:
     """The replica-fleet view of the engine healths: an endpoint backed by
     a replica group reports each replica's state and the router's ring. It
     is READY iff its ring has >= 1 member (the group's own ``ready``), so
-    one tripped replica never flips /ready while its siblings serve."""
+    one tripped replica never flips /ready while its siblings serve. A
+    process replica's row carries its worker's ``process`` block."""
     out = {}
     for url, h in engines.items():
         router = h.get("router")
@@ -180,6 +181,11 @@ def _fleet_summary(engines: dict) -> dict:
                     "ring_state": rh.get("ring_state"),
                     "brownout_stage": (rh.get("brownout") or {}).get("stage", 0),
                     "queue_depth": rh.get("queue_depth", 0),
+                    # a process replica's worker: backend, pid, alive,
+                    # restarts (absent on in-process replicas)
+                    **({"process": {k: rh["process"].get(k) for k in
+                                    ("backend", "pid", "alive", "restarts")}}
+                       if isinstance(rh.get("process"), dict) else {}),
                 }
                 for name, rh in (h.get("replicas") or {}).items()
             },

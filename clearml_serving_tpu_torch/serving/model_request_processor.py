@@ -127,6 +127,10 @@ class FastSimpleQueue:
             self._last_notify = time.time()
             self._event.set()
 
+    def wake(self) -> None:
+        """End a ``get_all`` wait now (a stop)."""
+        self._event.set()
+
     def get_all(self, timeout: float) -> List[Any]:
         self._event.wait(timeout=timeout)
         self._event.clear()
@@ -820,7 +824,16 @@ class ModelRequestProcessor:
         self._stats_sender.start()
 
     def stop(self) -> None:
+        """Stop the sync daemon and the stats sender, and wait for them:
+        each holds this processor, and through it every endpoint's engine,
+        until it returns (the sender's wait is cut short; what it has
+        queued is sent first)."""
         self._stop_event.set()
+        self._stats_queue.wake()
+        for name in ("_sync_daemon", "_stats_sender"):
+            thread = getattr(self, name, None)
+            if thread is not None and thread is not threading.current_thread():
+                thread.join(timeout=30.0)
 
     def _sync_daemon_loop(self) -> None:
         while not self._stop_event.wait(timeout=self._poll_frequency_sec):

@@ -16,7 +16,7 @@ them):
 - the scrape-time collectors of the LLM engines (prefix cache, request
   lifecycle, replica router), registered by ``llm/openai_api.py``. The
   reference's families that nothing in the port produces (the compile and
-  sharding sentries', the gRPC client's, the socket KV wire's) are left out.
+  sharding sentries', the gRPC client's) are left out.
 
 Device gauges: ``tpu_hbm_bytes_in_use`` / ``tpu_hbm_bytes_limit`` (the
 reference's names, label ``device``) read ``torch.cuda.memory_stats()`` and
@@ -518,6 +518,21 @@ class EngineLifecycleCollector(_KeyedCollector):
             "shipped for committed prefixes (0 = every page waited for "
             "the seal; -> 1 = the seal carried only the held-back tail)",
         )
+        # socket KV-wire backend (llm/kv_wire.py): bytes framed onto the
+        # wire and the send->ack round trip; absent on the in-heap
+        # shared-slab backend, so the series' existence also names the
+        # fleet's transport
+        kv_ship_wire_bytes = CounterMetricFamily(
+            p + "_kv_ship_wire_bytes",
+            "KV shipment bytes crossing the socket transport, by "
+            "direction (out = framed + sent, in = received + decoded); "
+            "only exported by the socket wire backend",
+        )
+        kv_ship_rtt_ms = HistogramMetricFamily(
+            p + "_kv_ship_rtt_ms",
+            "socket KV-wire send round-trip time (ms): frame write to "
+            "receiver ack, per shipment",
+        )
         # ownership discipline (docs/static_analysis.md TPU7xx): the
         # runtime ledger's live holds and its leak findings — a nonzero
         # leak total on an armed engine is a lost release on some
@@ -550,6 +565,7 @@ class EngineLifecycleCollector(_KeyedCollector):
         any_kv_pool = False
         any_kv_tier = False
         any_kv_ship = False
+        any_kv_wire = False
         any_slo = False
         any_ragged = False
         any_ledger = False
@@ -591,6 +607,16 @@ class EngineLifecycleCollector(_KeyedCollector):
                 if kv_ship.get("overlap_ratio") is not None:
                     gauge(kv_ship_overlap, key, s,
                           kv_ship["overlap_ratio"])
+                wire = (kv_ship.get("transport") or {}).get("wire") or {}
+                if wire:
+                    any_kv_wire = True
+                    counter(kv_ship_wire_bytes, key, s,
+                            wire.get("bytes_sent", 0), direction="out")
+                    counter(kv_ship_wire_bytes, key, s,
+                            wire.get("bytes_received", 0), direction="in")
+                    snap = wire.get("rtt_ms")
+                    if snap:
+                        hist(kv_ship_rtt_ms, key, s, snap)
             ledger_block = s.get("ledger") or {}
             if ledger_block:
                 any_ledger = True
@@ -709,6 +735,9 @@ class EngineLifecycleCollector(_KeyedCollector):
             yield kv_ship_ms
             yield kv_ship_hit_rate
             yield kv_ship_overlap
+        if any_kv_wire:
+            yield kv_ship_wire_bytes
+            yield kv_ship_rtt_ms
         if any_ledger:
             yield ledger_outstanding
             yield ledger_leaks

@@ -47,6 +47,13 @@ def _processor(pk, **kwargs):
     return pk.mrp.ModelRequestProcessor(**kwargs)
 
 
+@pytest.fixture(autouse=True)
+def own_cache_dir(tmp_path, monkeypatch):
+    """Each test copies user code into an artifact cache of its own: test
+    files that run at once must not rename into one shared cache."""
+    monkeypatch.setenv("TPUSERVE_CACHE_DIR", str(tmp_path / "cache"))
+
+
 @pytest.fixture(params=PACKAGES, ids=IDS)
 def pk(request):
     return _package(request.param)
@@ -596,3 +603,31 @@ def test_state_root_written_by_either_cli_is_read_alike_and_served_by_both(
         # the canary routes all traffic to m/2, which runs the uploaded code
         assert asyncio.run(mrp.process_request("m", None, {"x": [2, 5]})) == {"y": [4, 10]}
         assert asyncio.run(mrp.process_request("m/1", None, {"x": [1]})) == {"y": [2]}
+
+
+def test_stop_ends_the_processor_threads_at_once(tmp_path):
+    """``stop()`` returns with the sync daemon and the stats sender ended:
+    each holds the processor (and its endpoints' engines) while it runs,
+    and the sender's 5 s wait is cut short."""
+    import gc
+    import time
+    import weakref
+
+    from clearml_serving_tpu_torch.serving.model_request_processor import (
+        ModelRequestProcessor,
+    )
+
+    mrp = ModelRequestProcessor(state_root=str(tmp_path), force_create=True, name="stop",
+                                device="cpu")
+    mrp.serialize()
+    mrp.launch(poll_frequency_sec=300.0)
+    threads = [mrp._sync_daemon, mrp._stats_sender]
+    assert all(t.is_alive() for t in threads)
+    t0 = time.monotonic()
+    mrp.stop()
+    assert time.monotonic() - t0 < 2.0
+    assert not any(t.is_alive() for t in threads)
+    ref = weakref.ref(mrp)
+    del mrp
+    gc.collect()
+    assert ref() is None

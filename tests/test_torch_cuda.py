@@ -1947,3 +1947,90 @@ def test_device_gauges_make_no_context_in_a_fresh_process(cuda):
     used = registry.get_sample_value("tpu_hbm_bytes_in_use", {"device": "0"})
     limit = registry.get_sample_value("tpu_hbm_bytes_limit", {"device": "0"})
     assert used == torch.cuda.memory_allocated(0) and limit == torch.cuda.mem_get_info(0)[1]
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8"])
+def test_export_wire_import_between_two_pools_is_bitwise(cuda, kv_quant):
+    """Pages exported from one card pool, framed by the socket KV wire,
+    decoded (views into the frame) and imported into another pool hold
+    the same bits."""
+    from clearml_serving_tpu_torch.llm.kv_transport import KVShipment
+
+    src = _random_cache(cuda, kv_quant)
+    dst = _random_cache(cuda, kv_quant)
+    pages = [3, 4, 7, 9]
+    slabs = src.export_pages(pages)
+    shipment = KVShipment(key=b"k" * 16, src="r0", prefix_len=4 * 16, page_size=16, lora=0,
+                          hk=slabs["hk"], hv=slabs["hv"], hk_scale=slabs.get("hk_scale"),
+                          hv_scale=slabs.get("hv_scale"))
+    got = KVShipment.from_wire(shipment.to_wire())
+    fresh = [10, 2, 5, 8]
+    dst.import_pages(got.hk, got.hv, fresh, got.hk_scale, got.hv_scale)
+    assert dst.reap_promotions(force=True) == 1
+    back = dst.export_pages(fresh)
+    for name, t in slabs.items():
+        if t is not None:
+            assert torch.equal(back[name], t), name
+    for pool_src, pool_dst in zip(src._pools(), dst._pools()):
+        assert torch.equal(pool_dst[:, :, fresh], pool_src[:, :, pages])
+
+
+PROCESS_AUX = {"preset": "llama-tiny", "config": {"dim": 256, "head_dim": 64, "ffn_dim": 512},
+               "cache": "paged", "max_batch": 2, "max_seq_len": 128, "prefill_buckets": [32, 64],
+               "prefix_cache": 32, "prefix_block": 16, "seed": 0, "warmup": "startup"}
+
+
+def test_process_fleet_on_the_card_gives_the_in_process_streams(cuda):
+    """A two-worker process fleet on the card (each worker drawing the
+    seed's weights on its own context) gives the greedy streams of an
+    engine built in this process from the same aux keys; its workers are
+    processes of their own, and ``stop()`` reaps them."""
+    import os
+
+    from clearml_serving_tpu_torch.llm.openai_api import build_engine
+
+    prompts = [[i * 7 % 300 + 1 for i in range(n)] for n in (9, 40, 70)]
+
+    async def run(engine):
+        await engine.warmup()
+        out = [await _stream(engine, GenRequest(prompt_ids=p, max_new_tokens=24))
+               for p in prompts]
+        await engine.wait_drained()
+        return out
+
+    import gc
+
+    single, _ = build_engine(PROCESS_AUX, device="cuda")
+    expected = asyncio.run(run(single))
+    single.stop()
+    del single
+    gc.collect()
+    allocated = torch.cuda.memory_allocated()
+    group, _ = build_engine(dict(PROCESS_AUX, replicas=2, replica_backend="process"),
+                            device="cuda")
+    pids = [r.engine.pid for r in group.replicas]
+    try:
+        # this process makes no weight or pool of theirs
+        assert torch.cuda.memory_allocated() - allocated < 64 << 20
+        assert len(set(pids)) == 2 and os.getpid() not in pids
+        assert asyncio.run(run(group)) == expected
+        blocks = group.health()["replicas"]
+        assert {b["device"] for b in blocks.values()} == {str(torch.device("cuda", 0))}
+        for r in group.replicas:
+            assert r.engine.device_memory()["allocated"] > 0
+        assert all(b["counters"]["graph_replays"] > 0 for b in blocks.values()
+                   if b["counters"]["decode_steps"])
+    finally:
+        group.stop()
+    deadline = time.monotonic() + 30.0
+    alive = pids
+    while alive and time.monotonic() < deadline:
+        alive = []
+        for pid in pids:
+            try:
+                os.kill(pid, 0)
+                alive.append(pid)
+            except ProcessLookupError:
+                pass
+        time.sleep(0.2)
+    assert not alive, "workers survived stop(): {}".format(alive)

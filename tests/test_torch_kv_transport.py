@@ -12,7 +12,10 @@ paged KV, under the armed KV sanitizer and ownership ledger, a
 two-replica disaggregated fleet's streams (greedy and seeded, both
 schedulers, draft-ahead frames under ``ragged``) equal a monolithic
 engine's and the JAX fleet's, with the ship, partial and receive faults,
-a failed prefill replica, and a receive racing live admissions.
+a failed prefill replica, and a receive racing live admissions. The
+draft-ahead, ship-fault, receive-fault and failed-prefill contracts run
+again over the socket transport (``llm/kv_wire.py``) on both packages, as
+the reference runs them on both backends.
 """
 
 import asyncio
@@ -39,6 +42,7 @@ from clearml_serving_tpu_torch.llm.kv_transport import (
     SharedSlabTransport,
     shipment_key,
 )
+from clearml_serving_tpu_torch.llm.kv_wire import SocketSlabFabric
 from clearml_serving_tpu_torch.llm.prefix_cache import RadixPrefixCache
 from clearml_serving_tpu_torch.llm.replica import ReplicaGroup
 from clearml_serving_tpu_torch.models.llama import Llama, convert_params
@@ -309,16 +313,16 @@ class Side:
         self.faults = jax_faults if name == "jax" else faults
         self.ledger = jax_ledger if name == "jax" else lifecycle_ledger
 
-    def group(self, n=2, roles=None, **overrides):
+    def group(self, n=2, roles=None, kv_backend="shared", **overrides):
         kw = dict(GROUP_CFG, **overrides)
         if self.name == "jax":
             bundle = models.build_model("llama", QCFG)
             engines = [JaxEngine(bundle, self.tiny_np, replica="r{}".format(i), **kw)
                        for i in range(n)]
-            return JaxGroup(engines, roles=roles)
+            return JaxGroup(engines, roles=roles, kv_transport_backend=kv_backend)
         model = Llama(QCFG, convert_params(self.tiny_np, device="cpu"))
         engines = [LLMEngineCore(model, replica="r{}".format(i), **kw) for i in range(n)]
-        return ReplicaGroup(engines, roles=roles)
+        return ReplicaGroup(engines, roles=roles, kv_transport_backend=kv_backend)
 
 
 def _conv(seed, n=44):
@@ -402,13 +406,23 @@ def test_draft_ahead_frames_ship_under_ragged(tiny_np):
     boundaries (unsealed frames) and seals at the commit; the decode
     replica hits the shipped prefix and the stream equals a monolithic
     engine's and the JAX fleet's."""
+    _draft_ahead_case(tiny_np, "shared")
+
+
+def test_draft_ahead_frames_ship_under_ragged_over_the_socket_wire(tiny_np):
+    """The same over the socket transport (``llm/kv_wire.py``) on both
+    packages: the partial frames cross a real byte boundary."""
+    _draft_ahead_case(tiny_np, "socket")
+
+
+def _draft_ahead_case(tiny_np, kv_backend):
     ids = _conv(21, n=60)
 
     def scenario(side):
         expected = _mono(side, [(ids, {})], **RAGGED)
 
         async def run():
-            group = side.group(roles=["prefill", "decode"], **RAGGED)
+            group = side.group(roles=["prefill", "decode"], kv_backend=kv_backend, **RAGGED)
             got = (await _collect(side, group, ids))[0]
             await group.wait_drained()
             return group, got
@@ -451,19 +465,30 @@ def test_warm_turns_skip_the_ship_leg(tiny_np):
     assert port == ref == (1, 0)
 
 
-@pytest.mark.parametrize("point,sched", [("engine.kv.ship", {}), ("engine.kv.ship", RAGGED),
-                                         ("kv.ship.partial", RAGGED)])
+SHIP_FAULTS = [("engine.kv.ship", {}), ("engine.kv.ship", RAGGED), ("kv.ship.partial", RAGGED)]
+
+
+@pytest.mark.parametrize("point,sched", SHIP_FAULTS)
 def test_ship_faults_fall_back_to_decode_recompute(tiny_np, point, sched):
     """An injected ``engine.kv.ship`` (at the commit) or ``kv.ship.partial``
     (at a ragged chunk boundary) drops the shipment with nothing leaked;
     the decode replica recomputes and the stream is unchanged."""
+    _ship_fault_case(tiny_np, point, sched, "shared")
+
+
+@pytest.mark.parametrize("point,sched", SHIP_FAULTS)
+def test_ship_faults_fall_back_to_decode_recompute_over_the_socket_wire(tiny_np, point, sched):
+    _ship_fault_case(tiny_np, point, sched, "socket")
+
+
+def _ship_fault_case(tiny_np, point, sched, kv_backend):
     ids = _conv(11, n=60)
 
     def scenario(side):
         expected = _mono(side, [(ids, {})], **sched)
 
         async def run():
-            group = side.group(roles=["prefill", "decode"], **sched)
+            group = side.group(roles=["prefill", "decode"], kv_backend=kv_backend, **sched)
             side.faults.configure([{"point": point, "action": "raise", "times": 1}])
             try:
                 got = (await _collect(side, group, ids))[0]
@@ -488,13 +513,22 @@ def test_ship_faults_fall_back_to_decode_recompute(tiny_np, point, sched):
 
 
 def test_receive_fault_reroutes_to_hybrid(tiny_np):
+    _receive_fault_case(tiny_np, "shared")
+
+
+def test_receive_fault_reroutes_to_hybrid_over_the_socket_wire(tiny_np):
+    _receive_fault_case(tiny_np, "socket")
+
+
+def _receive_fault_case(tiny_np, kv_backend):
     ids = _conv(13)
 
     def scenario(side):
         expected = _mono(side, [(ids, {})])
 
         async def run():
-            group = side.group(n=3, roles=["prefill", "decode", "hybrid"])
+            group = side.group(n=3, roles=["prefill", "decode", "hybrid"],
+                               kv_backend=kv_backend)
             side.faults.configure([{"point": "engine.kv.receive", "action": "raise",
                                     "times": 1}])
             try:
@@ -521,13 +555,21 @@ def test_failed_prefill_replica_degrades_to_decode_side_prefill(tiny_np):
     """The prefill replica fails mid-leg: the stream completes on the
     decode replica, which prefills for itself; once the prefill replica is
     stopped, later requests run no leg at all."""
+    _failed_prefill_case(tiny_np, "shared")
+
+
+def test_failed_prefill_replica_degrades_to_decode_side_prefill_over_the_socket_wire(tiny_np):
+    _failed_prefill_case(tiny_np, "socket")
+
+
+def _failed_prefill_case(tiny_np, kv_backend):
     ids = _conv(17)
 
     def scenario(side):
         expected = _mono(side, [(ids, {})])
 
         async def run():
-            group = side.group(roles=["prefill", "decode"])
+            group = side.group(roles=["prefill", "decode"], kv_backend=kv_backend)
             side.faults.configure([{"point": "engine.prefill", "action": "raise",
                                     "times": 1}])
             try:
@@ -610,8 +652,13 @@ def test_group_roles_and_backends_are_validated(tiny_np):
     with pytest.raises(ValueError, match="kv_transport_backend"):
         ReplicaGroup(list(engines), roles=["prefill", "decode"],
                      kv_transport_backend="carrier-pigeon")
-    with pytest.raises(ValueError, match="socket.*not supported by the PyTorch port"):
-        ReplicaGroup(list(engines), roles=["prefill", "decode"], kv_transport_backend="socket")
+    # the socket backend wires every engine to an endpoint of one fabric
+    group = ReplicaGroup(list(engines), roles=["prefill", "decode"],
+                         kv_transport_backend="socket")
+    assert isinstance(group.transport, SocketSlabFabric)
+    assert [e._kv_transport for e in engines] == [group.transport.register("r0"),
+                                                  group.transport.register("r1")]
+    group.stop()
     bare = [LLMEngineCore(model, **small) for _ in range(2)]
     with pytest.raises(ValueError, match="paged"):
         ReplicaGroup(bare, roles=["prefill", "decode"])

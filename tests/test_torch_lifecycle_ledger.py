@@ -45,11 +45,11 @@ from clearml_serving_tpu_torch.models.llama import Llama, convert_params
 
 TINY = {"preset": "llama-tiny", "dtype": "float32"}
 LEDGERS = {"jax": jax_ledger, "port": lifecycle_ledger}
-# the resources the port tracks: every one the reference tracks but the
-# fleet's and the transport's
+# the resources the port tracks, with the reference's policies: the KV
+# primitives', the transport's, the socket wire's and the process fleet's
 PORT_RESOURCES = ("pages.slot", "pages.pin", "pages.ref", "prefix.hit", "prefix.resume_pin",
                   "host.pages", "slot.quarantine", "kv.promotion", "guided.ref",
-                  "transport.shipment")
+                  "transport.shipment", "transport.wire.conn", "replica.worker_proc")
 
 
 @pytest.fixture(scope="module")

@@ -689,20 +689,30 @@ def test_fleet_knobs_are_refused_at_load_as_the_reference_refuses_them(knobs, wo
 
 
 @pytest.mark.parametrize("knobs,words", [
-    ({"replica_backend": "process"}, "replica_backend 'process' is not supported by the "
-                                     "PyTorch port yet"),
-    ({"replica_roles": ["prefill", "decode"], "kv_transport_backend": "socket"},
-     "kv_transport_backend 'socket' is not supported by the PyTorch port yet"),
-])
+    ({"replica_backend": "process", "replicas": 1},
+     "replica_backend=process needs engine.replicas >= 2"),
+    ({"replica_backend": "process", "replica_roles": ["prefill", "decoder"]},
+     "prefill/decode/hybrid"),
+], ids=["process_one_replica", "process_bad_role"])
 def test_process_backend_and_socket_transport_raise_by_name(knobs, words, monkeypatch):
-    """The reference's ``process`` replicas and ``socket`` transport are
-    validated, then refused by name: nothing falls back, and no weight is
-    made."""
+    """The ``process`` backend is validated at load, refused by name before
+    any worker starts or any weight is made; nothing falls back. One
+    replica raises the reference's words on both packages; a bad role the
+    port refuses before it spawns, where the reference spawns its workers
+    first (they exit, and its build fails on that instead). (Served
+    fleets: ``test_torch_process_replica.py``; the ``socket`` transport:
+    ``test_torch_kv_transport.py``.)"""
     from clearml_serving_tpu_torch.llm import openai_api
+    from clearml_serving_tpu_torch.serving import process_replica
 
     monkeypatch.setattr(openai_api, "init_params", lambda *a, **k: pytest.fail("weights made"))
+    monkeypatch.setattr(process_replica, "build_process_fleet",
+                        lambda *a, **k: pytest.fail("workers started"))
     with pytest.raises(ValueError, match=words):
         openai_api.build_engine(dict(FLEET_AUX, **knobs), device="cpu")
+    if "replica_roles" not in knobs:
+        with pytest.raises(ValueError, match=words):
+            _jax_fleet_processor(dict(FLEET_AUX, **knobs))
 
 
 def test_replicas_build_one_llama(monkeypatch):

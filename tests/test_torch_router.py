@@ -65,6 +65,13 @@ def _served(pkg, root, tmp_path):
     return mrp
 
 
+@pytest.fixture(autouse=True)
+def own_cache_dir(tmp_path, monkeypatch):
+    """Each test copies user code into an artifact cache of its own: test
+    files that run at once must not rename into one shared cache."""
+    monkeypatch.setenv("TPUSERVE_CACHE_DIR", str(tmp_path / "cache"))
+
+
 @pytest.fixture()
 def served(state_root, tmp_path):
     """{"reference": processor, "port": processor}, the same endpoints."""
