@@ -48,7 +48,7 @@
 //    so its K rows are one contiguous block of the pool, and so are its V
 //    rows. Lane 0 fetches them with Hopper's bulk tensor copies (TMA,
 //    cp.async.bulk.tensor ... mbarrier::complete_tx::bytes): the pool is a
-//    2-D tensor of Hkv*N*P rows, a tile side one or two boxes of 16 rows by
+//    2-D tensor of Hkv*N*P rows, a tile side one to four boxes of 16 rows by
 //    128 bytes (64 for int8 at D=64), written with the swizzle of that
 //    width so that ldmatrix and word reads of 8 rows at one column hit 8
 //    different banks; for int8, one 1-D bulk copy each brings the tile's 16
@@ -57,8 +57,9 @@
 //    times over. Not one 1-D copy per row either: a first draft did that
 //    (32 copies a tile, rows padded by 16 bytes); in development builds on
 //    an H100 the boxes took less time on int8 pools and the same on bf16.
-//    Three stages per warp put up to 12 tiles (96 KB in bf16 at D=128) in
-//    flight per CTA.
+//    Three stages per warp put up to 12 tiles (96 KB in bf16 at D=128, 192
+//    KB at D=256: 193 KB of shared memory a CTA, one CTA an SM) in flight
+//    per CTA.
 // 3. QK^T and PV on mma.sync m16n8k16 (bf16 in, f32 sums), the G query
 //    heads as the rows of a 16-row tile (rows past G are zero), bf16 K/V
 //    fragments by ldmatrix (.trans for V), the score fragments reused in
@@ -130,6 +131,7 @@ struct Stage {
   static constexpr int kBytes = (kScaleOff + (INT8 ? 2 * kTile * 4 : 0) + 1023) / 1024 * 1024;
   static constexpr int kSmem = kWarps * kStages * kBytes + 1024;  // + alignment slack
   static_assert(kBoxBytes == 128 || kBoxBytes == 64, "a swizzle of 128 or 64 bytes");
+  static_assert(kSmem <= 227 * 1024, "a CTA takes at most 227 KB of shared memory");
 };
 
 // Byte offset of byte c of row r of one side of a stage: box c / kBoxBytes,
@@ -798,7 +800,8 @@ extern "C" int tpu_torch_paged_attention(const void* q, const void* k_pool, cons
                                          int splits, int span, void* stream) {
   const long long capacity = static_cast<long long>(pages_per_seq) * page_size;
   if (groups < 1 || groups > kMaxG || (page_size != 16 && page_size != 32) ||
-      (head_dim != 64 && head_dim != 128) || span <= 0 || span % kSpanQuantum != 0 ||
+      (head_dim != 64 && head_dim != 128 && head_dim != 256) || span <= 0 ||
+      span % kSpanQuantum != 0 ||
       splits < 1 || static_cast<long long>(splits) * span < capacity ||
       static_cast<long long>(splits - 1) * span >= (capacity > 0 ? capacity : 1) ||
       splits > 65535) {
@@ -834,7 +837,9 @@ extern "C" int tpu_torch_paged_attention(const void* q, const void* k_pool, cons
                span};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (head_dim == 128) {
+  if (head_dim == 256) {
+    err = kv_int8 ? launch<256, true>(a, s) : launch<256, false>(a, s);
+  } else if (head_dim == 128) {
     err = kv_int8 ? launch<128, true>(a, s) : launch<128, false>(a, s);
   } else {
     err = kv_int8 ? launch<64, true>(a, s) : launch<64, false>(a, s);

@@ -79,15 +79,16 @@
 //    not split: each of their q blocks walks its keys in one CTA.
 // 2. Every CTA keeps several tiles in flight with no block barrier per
 //    tile. Its compute warps are kMT m-tiles (16 rows of (query, head)
-//    pairs each) times kKG = 2 key groups; key group k takes every other
-//    32-key step of the CTA's range, two 16-key stages a step, through its
-//    own ring of kStages = 6 stages, each with a full and an empty mbarrier,
+//    pairs each) times kKG = 2 key groups (1 at D = 256 and GP = 8, see
+//    Tiling); key group k takes every other 32-key step of the CTA's
+//    range, two 16-key stages a step, through its own ring of kStages = 6
+//    stages, each with a full and an empty mbarrier,
 //    and its warps run their own online softmax. One more warp only copies:
 //    it walks the groups' steps, and before refilling a stage waits on its
 //    empty barrier (one arrival per m-tile that holds a live query: a
 //    decode row's CTA runs one m-tile, its other compute warps idle). Its
 //    lane 0 fetches a stage with Hopper's bulk tensor copies (TMA): the
-//    pool is a 2-D tensor of Hkv*N*P rows, a stage side one or two boxes of
+//    pool is a 2-D tensor of Hkv*N*P rows, a stage side one to four boxes of
 //    16 rows by 128 bytes (64 for int8 at D=64), written with the swizzle of
 //    that width so that ldmatrix and word reads of 8 rows at one column hit
 //    8 different banks; for int8 one 1-D bulk copy each brings the stage's
@@ -111,6 +112,11 @@
 //    become bf16 (exactly) a 32-bit word of four codes at a time, by bit
 //    operations and a bf16x2 subtraction (i8pair_to_bf16x2, as
 //    csrc/paged_attention.cu), not through float conversions.
+//    At D = 256 (Gemma's head_dim) a warp's output accumulator is 128 f32
+//    registers a thread; the query fragments would add 64 more, so the CTA
+//    copies its queries into shared memory once (after the rings, QFrags)
+//    and QK^T walks the head dim in k-step pairs, reading each pair's
+//    fragments there, with the step's score tiles inside the pair.
 // 4. A split row's CTAs write f32 partials (acc unnormalised, m, l) indexed
 //    by row: [R, Hkv, S, kQB, G, D] and [R, Hkv, S, kQB, G] twice, 9.4 MB at
 //    the engine's shapes (R 8, Hkv 8, S 9, G 4, D 128). Indexed by flat
@@ -158,7 +164,6 @@ constexpr int kQB = 8;       // query tokens per q block (ops/paged_attention.py
 constexpr int kTile = 16;    // keys per stage: the rows of a TMA box, inside one page
 constexpr int kChunk = 2 * kTile;  // keys a warp takes per step: two stages
 constexpr int kStages = 6;   // ring stages per key group (three steps)
-constexpr int kKG = 2;       // key groups per CTA
 constexpr int kMaxG = 8;
 constexpr int kSpanQuantum = 64;  // a split's span is a multiple of this (ops SPLIT_QUANTUM)
 constexpr int kSplitMinSpans = 3;  // a row splits only past this many spans' keys
@@ -175,20 +180,26 @@ struct KvType<true> {
   using T = int8_t;
 };
 
-static_assert(kStages % 2 == 0 && kSpanQuantum % (kKG * kChunk) == 0,
-              "a step takes two stages; a span deals its steps evenly to the key groups");
+static_assert(kStages % 2 == 0, "a step takes two stages");
 
 // GP: the query-head count rounded up to 1, 2, 4 or 8. The CTA's rows are
 // (query, head) pairs, row = query * GP + head, padded to one 16-row mma
 // tile when kQB * GP < 16. kMT m-tiles times kKG key groups of compute
-// warps, and one copy warp.
-template <int GP>
+// warps, and one copy warp. kKG is 2, but 1 at D = 256 and GP = 8: a warp
+// there holds a 128-register output accumulator, and 9 warps put 3 on one
+// of the SM's four register files (16384 registers each), capping a thread
+// at 168 registers, so the kernel spilled (ptxas: 340-632 bytes); 5 warps
+// put at most 2 on each, leaving 255.
+template <int GP, int D>
 struct Tiling {
   static constexpr int kM = kQB * GP;
   static constexpr int kMT = kM >= 16 ? kM / 16 : 1;
+  static constexpr int kKG = (D > 128 && GP == 8) ? 1 : 2;  // key groups per CTA
   static constexpr int kWarps = kMT * kKG;  // compute warps
   static constexpr int kThreads = 32 * (kWarps + 1);
   static constexpr int kRows = kMT * 16;  // rows of the merge area per key group
+  static_assert(kSpanQuantum % (kKG * kChunk) == 0,
+                "a span deals its steps evenly to the key groups");
 };
 
 // Shared-memory layout of one ring stage: the tile's K rows, its V rows,
@@ -210,15 +221,38 @@ struct Stage {
   static_assert(kBoxBytes == 128 || kBoxBytes == 64, "a swizzle of 128 or 64 bytes");
 };
 
-// Dynamic shared memory of a CTA: the key groups' rings, reused after the
+// Where a compute warp keeps its m-tile's query fragments. Up to D = 128
+// in registers, read once: D / 4 registers a thread. At D = 256 they would
+// take 64 registers beside the 128 of the output accumulator and the 32 of
+// a step's scores, past the 224 a thread of a GP = 8 CTA (288 threads) may
+// hold, so the CTA copies its queries into shared memory once and each
+// QK^T k-step pair reads its fragments there (8 registers a thread).
+template <int D>
+struct QFrags {
+  static constexpr bool kInSmem = D > 128;
+  // a row of D bf16 plus 16 bytes: 8 rows at one column hit 8 different
+  // 4-bank groups (stride 132 words), so a warp's fragment read is
+  // conflict-free
+  static constexpr int kRowBytes = 2 * D + 16;
+};
+
+// Dynamic shared memory of a CTA: the key groups' rings, then (at D = 256)
+// the queries, [kRows][QFrags::kRowBytes]; the rings are reused after the
 // loop for the merge of the groups' states ([kKG][kRows] m and l, then
-// [kKG][kRows][D] acc, f32), plus alignment slack.
+// [kKG][kRows][D] acc, f32); plus alignment slack. At D = 256 in bf16 that
+// is at most 192 KB of rings (two key groups, GP <= 4: 16 KB of queries)
+// or 96 KB and 33 KB of queries (one key group, GP = 8), under the 227 KB a
+// CTA may take.
 template <int D, bool INT8, int GP>
 struct Smem {
-  using Tl = Tiling<GP>;
+  using Tl = Tiling<GP, D>;
   static constexpr int kRing = Stage<D, INT8>::kBytes * kStages;
-  static constexpr int kMerge = kKG * Tl::kRows * (2 + D) * 4;
-  static constexpr int kBytes = (kKG * kRing > kMerge ? kKG * kRing : kMerge) + 1024;
+  static constexpr int kQ = QFrags<D>::kInSmem ? Tl::kRows * QFrags<D>::kRowBytes : 0;
+  static constexpr int kMerge = Tl::kKG * Tl::kRows * (2 + D) * 4;
+  static constexpr int kBytes =
+      (Tl::kKG * kRing + kQ > kMerge ? Tl::kKG * kRing + kQ : kMerge) + 1024;
+  // the static barriers and the reduction's words take the rest
+  static_assert(kBytes + 512 <= 227 * 1024, "a CTA takes at most 227 KB of shared memory");
 };
 
 // Byte offset of byte c of row r of one side of a stage: box c / kBoxBytes,
@@ -445,7 +479,7 @@ struct TreeRow {
 };
 
 template <int D, bool INT8, int GP, bool TREE>
-__global__ void __launch_bounds__(Tiling<GP>::kThreads)
+__global__ void __launch_bounds__(Tiling<GP, D>::kThreads)
     ragged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
@@ -453,8 +487,10 @@ __global__ void __launch_bounds__(Tiling<GP>::kThreads)
                             const RowMap map, const int* __restrict__ tree_anc,
                             __nv_bfloat16* __restrict__ out, Partials part, int hkv, int groups,
                             int n_pages, int page_shift, int tree_width, float score_scale) {
-  using Tl = Tiling<GP>;
+  using Tl = Tiling<GP, D>;
   using St = Stage<D, INT8>;
+  using Qf = QFrags<D>;
+  constexpr int kKG = Tl::kKG;
   constexpr int kKSteps = D / 16;  // QK^T k-steps over the head dim
   constexpr int kDT = D / 8;       // 8-column output tiles
   constexpr int kNT = kChunk / 8;  // 8-key score tiles per step
@@ -567,6 +603,23 @@ __global__ void __launch_bounds__(Tiling<GP>::kThreads)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // at D = 256, the block's (query, head) rows into shared memory after the
+  // rings, 16 bytes a thread at a time (rows past the block's and heads
+  // past `groups` are zero)
+  unsigned char* const q_smem = stages + kKG * kStages * St::kBytes;
+  if constexpr (Qf::kInSmem) {
+    constexpr int kVecs = D / 8;  // 16-byte pieces of a row
+    for (int c = tid; c < Tl::kRows * kVecs; c += Tl::kThreads) {
+      const int r = c / kVecs;
+      const int v = c % kVecs;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (r < Tl::kM && r % GP < groups) {
+        const size_t tok = static_cast<size_t>(blk) * kQB + r / GP;
+        x = reinterpret_cast<const uint4*>(q + ((tok * hkv + h) * groups + r % GP) * D)[v];
+      }
+      *reinterpret_cast<uint4*>(q_smem + r * Qf::kRowBytes + v * 16) = x;
+    }
+  }
   __syncthreads();
 
   // this thread's two fragment rows (lo, hi = lo + 8) of the warp's m-tile
@@ -670,8 +723,8 @@ __global__ void __launch_bounds__(Tiling<GP>::kThreads)
   // the order the B fragments hold them: bf16 K comes by ldmatrix in plain
   // order (pairs tig*2, +1 and tig*2 + 8, +9); an int8 lane reads one 32-bit
   // word of dims tig*4 .. tig*4 + 3, so its fragment pairs are those.
-  uint32_t qf[kKSteps][4];
-  {
+  uint32_t qf[Qf::kInSmem ? 1 : kKSteps][4];
+  if constexpr (!Qf::kInSmem) {
     auto q_row = [&](int r) -> const __nv_bfloat16* {
       if (!consumer || r >= Tl::kM || r % GP >= groups) return nullptr;
       const size_t tok = static_cast<size_t>(blk) * kQB + r / GP;
@@ -750,30 +803,77 @@ __global__ void __launch_bounds__(Tiling<GP>::kThreads)
     for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = s2[nt][e] = 0.f;
-      if (nt >= 2 && !two) continue;
-      const unsigned char* stage = nt < 2 ? stage0 : stage1;
-      const int kr = (nt & 1) * 8;
-      if constexpr (INT8) {
+    }
+    if constexpr (Qf::kInSmem) {
+      // a k-step pair's query fragments from shared memory, then every
+      // score tile's mma of those k-steps: the tiles' chains interleave,
+      // so one chain a tile (s2 stays zero)
+      const unsigned char* const q_lo = q_smem + r_lo * Qf::kRowBytes;
+      const unsigned char* const q_hi = q_smem + r_hi * Qf::kRowBytes;
+      auto q_frag = [&](int ks, uint32_t(&f)[4]) {
+        const int c0 = 2 * (ks * 16 + (INT8 ? tig * 4 : tig * 2));
+        const int c1 = c0 + (INT8 ? 4 : 16);
+        f[0] = *reinterpret_cast<const uint32_t*>(q_lo + c0);
+        f[1] = *reinterpret_cast<const uint32_t*>(q_hi + c0);
+        f[2] = *reinterpret_cast<const uint32_t*>(q_lo + c1);
+        f[3] = *reinterpret_cast<const uint32_t*>(q_hi + c1);
+      };
+#pragma unroll 1
+      for (int kp = 0; kp < kKSteps / 2; ++kp) {
+        uint32_t qa[4], qb[4];
+        q_frag(2 * kp, qa);
+        q_frag(2 * kp + 1, qb);
 #pragma unroll
-        for (int ks = 0; ks < kKSteps; ++ks) {
-          // codes c0..c3 of dims tig*4 ..: bytes (c0, c2, c1, c3), so the
-          // pairs (c0, c1) and, shifted by 8, (c2, c3) sit in bits 0-7, 16-23
-          const uint32_t w = __byte_perm(
-              *reinterpret_cast<const uint32_t*>(stage + swz<D, INT8>(kr + gid,
-                                                                      ks * 16 + tig * 4)),
-              0u, 0x3120u);
-          mma_bf16(s[nt], qf[ks], i8pair_to_bf16x2(w), i8pair_to_bf16x2(w >> 8));
+        for (int nt = 0; nt < kNT; ++nt) {
+          if (nt >= 2 && !two) continue;
+          const unsigned char* stage = nt < 2 ? stage0 : stage1;
+          const int kr = (nt & 1) * 8;
+          if constexpr (INT8) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const uint32_t w = __byte_perm(
+                  *reinterpret_cast<const uint32_t*>(
+                      stage + swz<D, INT8>(kr + gid, (2 * kp + j) * 16 + tig * 4)),
+                  0u, 0x3120u);
+              mma_bf16(s[nt], j ? qb : qa, i8pair_to_bf16x2(w), i8pair_to_bf16x2(w >> 8));
+            }
+          } else {
+            uint32_t bfr[4];
+            ldmatrix_x4(bfr, smem_u32(stage) +
+                                 swz<D, INT8>(kr + (lane & 7), kp * 64 + (lane >> 3) * 16));
+            mma_bf16(s[nt], qa, bfr[0], bfr[1]);
+            mma_bf16(s[nt], qb, bfr[2], bfr[3]);
+          }
         }
-      } else {
-        // matrices j = 0..3: keys kr.. x head-dim columns 8j.. of a
-        // 32-column slab: the B fragments of two k-steps
+      }
+    } else {
 #pragma unroll
-        for (int kp = 0; kp < kKSteps / 2; ++kp) {
-          uint32_t bfr[4];
-          ldmatrix_x4(bfr, smem_u32(stage) +
-                               swz<D, INT8>(kr + (lane & 7), kp * 64 + (lane >> 3) * 16));
-          mma_bf16(s[nt], qf[2 * kp], bfr[0], bfr[1]);
-          mma_bf16(s2[nt], qf[2 * kp + 1], bfr[2], bfr[3]);
+      for (int nt = 0; nt < kNT; ++nt) {
+        if (nt >= 2 && !two) continue;
+        const unsigned char* stage = nt < 2 ? stage0 : stage1;
+        const int kr = (nt & 1) * 8;
+        if constexpr (INT8) {
+#pragma unroll
+          for (int ks = 0; ks < kKSteps; ++ks) {
+            // codes c0..c3 of dims tig*4 ..: bytes (c0, c2, c1, c3), so the
+            // pairs (c0, c1) and, shifted by 8, (c2, c3) sit in bits 0-7, 16-23
+            const uint32_t w = __byte_perm(
+                *reinterpret_cast<const uint32_t*>(stage + swz<D, INT8>(kr + gid,
+                                                                        ks * 16 + tig * 4)),
+                0u, 0x3120u);
+            mma_bf16(s[nt], qf[ks], i8pair_to_bf16x2(w), i8pair_to_bf16x2(w >> 8));
+          }
+        } else {
+          // matrices j = 0..3: keys kr.. x head-dim columns 8j.. of a
+          // 32-column slab: the B fragments of two k-steps
+#pragma unroll
+          for (int kp = 0; kp < kKSteps / 2; ++kp) {
+            uint32_t bfr[4];
+            ldmatrix_x4(bfr, smem_u32(stage) +
+                                 swz<D, INT8>(kr + (lane & 7), kp * 64 + (lane >> 3) * 16));
+            mma_bf16(s[nt], qf[2 * kp], bfr[0], bfr[1]);
+            mma_bf16(s2[nt], qf[2 * kp + 1], bfr[2], bfr[3]);
+          }
         }
       }
     }
@@ -1187,7 +1287,7 @@ struct Args {
 
 template <int D, bool INT8, int GP, bool TREE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using Tl = Tiling<GP>;
+  using Tl = Tiling<GP, D>;
   constexpr int kSmem = Smem<D, INT8, GP>::kBytes;
   static bool done[kMaxDevices] = {};
   auto kernel = ragged_attention_kernel<D, INT8, GP, TREE>;
@@ -1248,7 +1348,7 @@ extern "C" int tpu_torch_ragged_paged_attention(
     int tree_width, int splits, int span, void* stream) {
   const long long capacity = static_cast<long long>(pages_per_seq) * page_size;
   if (groups < 1 || groups > kMaxG || (page_size != 16 && page_size != 32) ||
-      (head_dim != 64 && head_dim != 128) ||
+      (head_dim != 64 && head_dim != 128 && head_dim != 256) ||
       (tree_anc != nullptr && (tree_width < 1 || tree_width > 64)) || span <= 0 ||
       span % kSpanQuantum != 0 || splits < 1 || static_cast<long long>(splits) * span < capacity ||
       static_cast<long long>(splits - 1) * span >= (capacity > 0 ? capacity : 1) ||
@@ -1290,7 +1390,9 @@ extern "C" int tpu_torch_ragged_paged_attention(
                tree_width};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (head_dim == 128) {
+  if (head_dim == 256) {
+    err = kv_int8 ? launch_t<256, true>(a, s) : launch_t<256, false>(a, s);
+  } else if (head_dim == 128) {
     err = kv_int8 ? launch_t<128, true>(a, s) : launch_t<128, false>(a, s);
   } else {
     err = kv_int8 ? launch_t<64, true>(a, s) : launch_t<64, false>(a, s);

@@ -81,7 +81,7 @@ import torch
 
 from ..device import CAPTURE_LOCK, replica_stream, resolve_device
 from ..engines.base import BaseEngineRequest, EndpointModelError, register_engine
-from ..models.llama import Llama, init_params, resolve_config
+from ..models.llama import Llama, init_params, paged_unsupported_reason, resolve_config
 from ..ops.quant import detect_weight_quant, quantize_llama_params
 from ..serving.endpoints import ModelEndpoint
 from ..serving.responses import StreamingOutput
@@ -298,9 +298,16 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
             "{!r}".format(weight_quant)
         )
     dev = resolve_device(device)
+    # engine.config lies over the preset: a family no preset matches (Qwen2.5,
+    # Gemma) names every key there, nested rope_scaling included
     cfg = resolve_config({"preset": engine_cfg["preset"], **(engine_cfg.get("config") or {})})
     if engine_cfg.get("kv_quant"):
         cfg["kv_quant"] = str(engine_cfg["kv_quant"])
+    # a family the paged kernels do not serve is refused with the
+    # reference's words before any weight is made
+    reason = paged_unsupported_reason(cfg) if engine_cfg.get("cache") == "paged" else None
+    if reason:
+        raise ValueError(reason)
     seed = int(engine_cfg.get("seed", 0))
     tokenizer = make_tokenizer(cfg)
     kwargs = engine_kwargs(engine_cfg, cfg, tokenizer, weight_quant, cuda_graphs)

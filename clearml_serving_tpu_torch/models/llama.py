@@ -11,13 +11,17 @@ are ``[in, out]`` so ``x @ w`` reads the same on both sides, and
 ``convert_params`` carries a JAX parameter tree (as numpy arrays) over
 unchanged.
 
-This slice serves dense SiLU-GLU Llama models with GQA, an untied
-``lm_head`` and no biases, with full-precision, int8 or group-int4 (w4a16)
-projection weights (``ops/quant.py`` leaves). Every projection goes through
-``_mm``, as in the reference: int4 leaves through ``fused_int4_matmul`` (the
-CUDA kernel on the card), int8 leaves dequantized to the model dtype and
-then ``torch.matmul``. LoRA, MoE, soft-capping, Gemma-family deltas and
-RoPE scaling raise here; they arrive with later slices of the port.
+The families of the reference's paged path are served: dense SiLU-GLU
+Llama-3 with GQA, RoPE scaling (``llama3``, ``linear``, ``yarn``,
+``longrope``), Qwen2's QKV biases (``attn_bias``), tied embeddings, and the
+Gemma deltas (``norm_offset`` norms, GeGLU ``hidden_act``, ``embed_scale``,
+a ``head_dim`` decoupled from ``dim``, a ``query_scale`` override), with
+full-precision, int8 or group-int4 (w4a16) projection weights
+(``ops/quant.py`` leaves). Every projection goes through ``_mm``, as in the
+reference: int4 leaves through ``fused_int4_matmul`` (the CUDA kernel on
+the card), int8 leaves dequantized to the model dtype and then
+``torch.matmul``. LoRA, MoE, soft-capping, sliding windows and Gemma-2's
+post-block norms raise here; they arrive with later slices of the port.
 
 ``decode_paged`` and ``forward_ragged`` write the new tokens' K/V into the
 pools in place (``index_put_``), and ``prefill_chunk`` into its dense mini
@@ -26,6 +30,7 @@ cache, where the JAX functions return rebound arrays.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -57,6 +62,7 @@ PRESETS: Dict[str, Dict[str, Any]] = {
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm",
               "w_gate", "w_up", "w_down")
+BIAS_KEYS = ("bq", "bk", "bv")   # Qwen2's QKV biases (``attn_bias``)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -65,10 +71,17 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 # value that means "off"
 _UNSUPPORTED = {
     "lora_rank": 0, "n_experts": 0, "attn_logit_softcap": 0.0,
-    "final_logit_softcap": 0.0, "attn_bias": False, "sliding_window": 0,
-    "alt_window": False, "post_block_norms": False, "norm_offset": False,
-    "embed_scale": 0.0, "tie_embeddings": False,
+    "final_logit_softcap": 0.0, "sliding_window": 0, "alt_window": False,
+    "post_block_norms": False,
 }
+
+def _gelu_tanh(x):
+    return F.gelu(x, approximate="tanh")
+
+
+# the FFN gate's activation by ``hidden_act`` (the reference's names)
+_ACTS = {"silu": F.silu, "gelu_tanh": _gelu_tanh, "gelu_pytorch_tanh": _gelu_tanh,
+         "gelu": F.gelu}
 
 
 def resolve_config(config: dict) -> dict:
@@ -82,13 +95,28 @@ def resolve_config(config: dict) -> dict:
     return cfg
 
 
+def paged_unsupported_reason(cfg: dict) -> Optional[str]:
+    """The reference's refusal of ``cache=paged`` for a family its paged
+    kernels do not serve (its engine's ``sliding_window`` check, then its
+    bundle's ``paged_unsupported_reason``), in its words; None when the
+    paged path serves the config."""
+    if int(cfg.get("sliding_window", 0) or 0):
+        return ("sliding_window models need engine.cache=dense (the paged "
+                "decode path does not window its attention yet)")
+    if float(cfg.get("attn_logit_softcap") or 0.0):
+        return ("attention logit softcapping (Gemma-2) is not supported by the "
+                "paged decode kernel; use engine.cache=dense")
+    return None
+
+
 def check_config(cfg: dict) -> None:
-    """Raise for every knob this slice of the port does not serve."""
+    """Raise for every knob this slice of the port does not serve, and for
+    a bad family config with the reference's words."""
     for key, off in _UNSUPPORTED.items():
         if cfg.get(key) and cfg.get(key) != off:
             raise NotImplementedError(
-                "llama config {}={!r} is not ported yet (dense llama only in "
-                "this slice)".format(key, cfg[key])
+                "llama config {}={!r} is not ported yet (the paged path's families "
+                "only in this slice)".format(key, cfg[key])
             )
     if not bool(cfg.get("int4_fused", True)):
         raise NotImplementedError(
@@ -96,49 +124,194 @@ def check_config(cfg: dict) -> None:
             "serves int4 weights through the fused kernel only".format(cfg["int4_fused"])
         )
     act = str(cfg.get("hidden_act", "silu"))
-    if act != "silu":
-        raise NotImplementedError("hidden_act {!r} is not ported yet".format(act))
+    if act not in _ACTS:
+        raise ValueError("unsupported hidden_act {!r}".format(act))
     kv_quant = str(cfg.get("kv_quant") or "")
     if kv_quant not in ("", "int8"):
         raise ValueError("kv_quant must be 'int8' (got {!r})".format(kv_quant))
     if str(cfg["dtype"]) not in _DTYPES:
         raise ValueError("unsupported dtype {!r}".format(cfg["dtype"]))
-    if int(cfg["n_heads"]) % int(cfg["n_kv_heads"]):
-        raise ValueError("n_heads must be divisible by n_kv_heads")
     rope_freqs(int(cfg.get("head_dim") or cfg["dim"] // cfg["n_heads"]),
                float(cfg["rope_theta"]), cfg.get("rope_scaling") or None)
+    if int(cfg["n_heads"]) % int(cfg["n_kv_heads"]):
+        raise ValueError("n_heads must be divisible by n_kv_heads")
 
 
 def torch_dtype(cfg: dict) -> torch.dtype:
     return _DTYPES[str(cfg["dtype"])]
 
 
-def rms_norm(x, weight, eps):
-    """f32 accumulation regardless of the activation dtype."""
+def rms_norm(x, weight, eps, offset: float = 0.0):
+    """f32 accumulation regardless of the activation dtype. ``offset``
+    applies Gemma's zero-initialized weights as (1 + w)."""
     x32 = x.float()
     norm = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (norm * weight.float()).to(x.dtype)
+    w = weight.float()
+    if offset:
+        w = offset + w
+    return (norm * w).to(x.dtype)
+
+
+def _rope_type(rope_scaling: Optional[dict]) -> Optional[str]:
+    if not rope_scaling:
+        return None
+    return rope_scaling.get("rope_type") or rope_scaling.get("type")
 
 
 def rope_freqs(head_dim: int, theta: float, rope_scaling: Optional[dict],
                device=None) -> torch.Tensor:
-    if rope_scaling:
-        rope_type = rope_scaling.get("rope_type") or rope_scaling.get("type")
-        raise NotImplementedError(
-            "rope_scaling type {!r} is not ported yet: scaled RoPE (llama3, "
-            "linear, yarn, longrope) lands with the secondary-paths slice of "
-            "the port".format(rope_type)
+    """The inverse frequencies [head_dim // 2] f32 (the reference's
+    ``_rope_freqs``): plain; ``linear`` (every frequency over the factor);
+    ``yarn`` (NTK-by-parts: a linear ramp from the unscaled high
+    frequencies to the interpolated low ones, its bands in HF's full
+    head_dim space); ``llama3`` (Llama-3.1's frequency-dependent bands).
+    ``longrope`` is position dependent (``RopeTable``): here its factors
+    are validated and the base frequencies returned. A bad config raises
+    the reference's words."""
+    freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                          device=device) / head_dim))
+    if not rope_scaling:
+        return freqs
+    rope_type = _rope_type(rope_scaling)
+    if rope_type == "linear":
+        return freqs / float(rope_scaling["factor"])
+    if rope_type == "longrope":
+        hd2 = head_dim // 2
+        for key in ("short_factor", "long_factor"):
+            fac = rope_scaling.get(key)
+            if fac is None or len(fac) != hd2:
+                raise ValueError(
+                    "rope_scaling.{} must list head_dim/2 = {} per-dim "
+                    "factors".format(key, hd2)
+                )
+        if not rope_scaling.get("original_max_position_embeddings"):
+            raise ValueError(
+                "longrope rope_scaling needs original_max_position_embeddings"
+            )
+        return freqs
+    if rope_type == "yarn":
+        factor = float(rope_scaling["factor"])
+        orig = float(
+            rope_scaling.get("original_max_position_embeddings")
+            or rope_scaling.get("max_position_embeddings")
+            or 4096
         )
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exponent)
+        beta_fast = float(rope_scaling.get("beta_fast") or 32.0)
+        beta_slow = float(rope_scaling.get("beta_slow") or 1.0)
+
+        def band(beta):
+            # the dim index whose wavelength covers `beta` periods over orig
+            return head_dim * math.log(orig / (beta * 2.0 * math.pi)) / (
+                2.0 * math.log(theta))
+
+        low, high = band(beta_fast), band(beta_slow)
+        if rope_scaling.get("truncate", True):
+            low, high = math.floor(low), math.ceil(high)
+        low = max(low, 0)
+        high = min(high, head_dim - 1)
+        if low == high:
+            high += 0.001  # prevent singularity
+        ramp = torch.clamp(
+            (torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low), 0.0, 1.0)
+        extrap_w = 1.0 - ramp  # 1 = keep unscaled, 0 = fully interpolated
+        return (freqs / factor) * (1.0 - extrap_w) + freqs * extrap_w
+    if rope_type != "llama3":
+        raise ValueError(
+            "unsupported rope_scaling type {!r} (supported: llama3, "
+            "linear, yarn, longrope)".format(rope_type)
+        )
+    factor = float(rope_scaling["factor"])
+    low = float(rope_scaling.get("low_freq_factor", 1.0))
+    high = float(rope_scaling.get("high_freq_factor", 4.0))
+    orig = float(rope_scaling.get("original_max_position_embeddings", 8192))
+    wavelen = 2.0 * math.pi / freqs
+    low_wavelen = orig / low
+    high_wavelen = orig / high
+    smooth = torch.clamp((orig / wavelen - low) / (high - low), 0.0, 1.0)
+    scaled = (1.0 - smooth) * freqs / factor + smooth * freqs
+    return torch.where(wavelen > low_wavelen, freqs / factor,
+                       torch.where(wavelen < high_wavelen, freqs, scaled))
 
 
-def rope(positions: torch.Tensor, head_dim: int, theta: float,
-         rope_scaling: Optional[dict] = None):
-    """cos/sin tables for the given positions: [..., head_dim // 2]."""
-    freqs = rope_freqs(head_dim, theta, rope_scaling, positions.device)
-    angles = positions.float()[..., None] * freqs
-    return torch.cos(angles), torch.sin(angles)
+def yarn_attention_factor(rope_scaling: dict) -> float:
+    """YaRN's attention temperature on cos/sin, in HF's order: an explicit
+    ``attention_factor``, else DeepSeek's ``mscale`` pair (both set), else
+    0.1 ln(factor) + 1."""
+    att = rope_scaling.get("attention_factor")
+    if att is not None:
+        return float(att)
+    factor = float(rope_scaling["factor"])
+
+    def get_mscale(scale, m=1.0):
+        return 1.0 if scale <= 1.0 else 0.1 * m * math.log(scale) + 1.0
+
+    mscale = rope_scaling.get("mscale")
+    mscale_all_dim = rope_scaling.get("mscale_all_dim")
+    if mscale and mscale_all_dim:
+        return get_mscale(factor, float(mscale)) / get_mscale(factor, float(mscale_all_dim))
+    return get_mscale(factor)
+
+
+def deployed_rope_scaling(cfg: dict) -> Optional[dict]:
+    """``rope_scaling`` with the reference's build-time defaults: longrope's
+    ``max_position_embeddings`` and yarn's
+    ``original_max_position_embeddings`` from the model's ``max_seq_len``
+    where the dict has none."""
+    rope_scaling = cfg.get("rope_scaling") or None
+    rope_type = _rope_type(rope_scaling)
+    if rope_type == "longrope":
+        rope_scaling = dict(rope_scaling)
+        rope_scaling.setdefault("max_position_embeddings",
+                                int(cfg.get("max_seq_len") or 0) or None)
+    elif rope_type == "yarn":
+        rope_scaling = dict(rope_scaling)
+        rope_scaling.setdefault("original_max_position_embeddings",
+                                int(cfg.get("max_seq_len") or 0) or None)
+    return rope_scaling
+
+
+class RopeTable:
+    """One model's RoPE (the reference's ``_rope``), its frequencies made
+    once on the model's device: ``table(positions)`` -> cos, sin [...,
+    head_dim // 2] f32. A call is tensor ops on the positions alone, so it
+    runs inside a CUDA graph: longrope picks its short or long factors per
+    position with a ``where``, never a host branch."""
+
+    def __init__(self, head_dim: int, theta: float, rope_scaling: Optional[dict],
+                 device=None):
+        self.rope_type = _rope_type(rope_scaling)
+        self.att = None  # the attention factor on cos/sin (yarn, longrope)
+        if self.rope_type == "longrope":
+            base = rope_freqs(head_dim, theta, None, device)
+            self.orig = float(rope_scaling["original_max_position_embeddings"])
+            self.short, self.long = (
+                base / torch.tensor(rope_scaling[key], dtype=torch.float32, device=device)
+                for key in ("short_factor", "long_factor"))
+            max_pos = float(rope_scaling.get("max_position_embeddings")
+                            or rope_scaling.get("max_seq_len") or self.orig)
+            att = rope_scaling.get("attention_factor")
+            if att is None:
+                scale = max(max_pos / self.orig, 1.0)
+                att = (1.0 if scale <= 1.0
+                       else math.sqrt(1.0 + math.log(scale) / math.log(self.orig)))
+            self.att = float(att)
+        else:
+            self.freqs = rope_freqs(head_dim, theta, rope_scaling, device)
+            if self.rope_type == "yarn":
+                self.att = yarn_attention_factor(rope_scaling)
+
+    def __call__(self, positions: torch.Tensor):
+        pos = positions.float()[..., None]
+        if self.rope_type == "longrope":
+            freqs = torch.where(pos < self.orig, self.short, self.long)
+        else:
+            freqs = self.freqs
+        angles = pos * freqs
+        cos, sin = torch.cos(angles), torch.sin(angles)
+        if self.att is not None:
+            cos, sin = cos * self.att, sin * self.att
+        return cos, sin
 
 
 def apply_rope(x, cos, sin):
@@ -203,18 +376,20 @@ def _leaf(value):
 
 class LlamaLayer(nn.Module):
     """One decoder block's weights, ``[in, out]`` like the reference; the
-    projections may be quantized leaves (``QuantWeight``)."""
+    projections may be quantized leaves (``QuantWeight``), the biases of an
+    ``attn_bias`` model stay full precision."""
 
-    def __init__(self, params: Dict[str, torch.Tensor]):
+    def __init__(self, params: Dict[str, torch.Tensor], attn_bias: bool = False):
         super().__init__()
-        missing = [k for k in LAYER_KEYS if k not in params]
-        extra = sorted(set(params) - set(LAYER_KEYS))
+        keys = LAYER_KEYS + (BIAS_KEYS if attn_bias else ())
+        missing = [k for k in keys if k not in params]
+        extra = sorted(set(params) - set(keys))
         if missing or extra:
             raise ValueError(
-                "layer params: missing {} / unsupported {} (dense llama only)"
-                .format(missing, extra)
+                "layer params: missing {} / unsupported {} (attn_bias={})"
+                .format(missing, extra, attn_bias)
             )
-        for key in LAYER_KEYS:
+        for key in keys:
             setattr(self, key, _leaf(params[key]))
 
 
@@ -236,6 +411,7 @@ class Llama(nn.Module):
         self.group = self.n_heads // self.n_kv_heads
         self.eps = float(cfg["norm_eps"])
         self.theta = float(cfg["rope_theta"])
+        self.rope_scaling = deployed_rope_scaling(cfg)
         self.dtype = torch_dtype(cfg)
         self.kv_quant = str(cfg.get("kv_quant") or "")
         self.query_scale = float(cfg.get("query_scale") or self.head_dim ** -0.5)
@@ -246,7 +422,20 @@ class Llama(nn.Module):
         # with a 0-dim tensor of that dtype
         self.q_prescale = float(torch.tensor(self.query_scale * self.head_dim ** 0.5,
                                              dtype=self.dtype))
-        for key in ("embed", "final_norm", "lm_head"):
+        # the family deltas: Qwen2's QKV biases, Gemma's (1 + w) norms, its
+        # GeGLU and its embedding normalizer, a scalar rounded to the model
+        # dtype as q_prescale is (the reference multiplies in the
+        # activation dtype)
+        self.attn_bias = bool(cfg.get("attn_bias", False))
+        self.norm_offset = 1.0 if cfg.get("norm_offset") else 0.0
+        self.act = _ACTS[str(cfg.get("hidden_act", "silu"))]
+        embed_scale = float(cfg.get("embed_scale") or 0.0)
+        self.embed_scale = (float(torch.tensor(embed_scale, dtype=self.dtype))
+                            if embed_scale else 0.0)
+        # a tied model's logits read the embedding; as in the reference, an
+        # lm_head in the tree is used whenever there is one
+        needed = ("embed", "final_norm") + (() if cfg["tie_embeddings"] else ("lm_head",))
+        for key in needed:
             if key not in params:
                 raise ValueError("params need {!r}".format(key))
         if len(params["layers"]) != self.n_layers:
@@ -254,21 +443,25 @@ class Llama(nn.Module):
                 len(params["layers"]), self.n_layers))
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
         self.final_norm = nn.Parameter(params["final_norm"], requires_grad=False)
-        self.lm_head = _leaf(params["lm_head"])
-        self.layers = nn.ModuleList(LlamaLayer(p) for p in params["layers"])
+        self.lm_head = _leaf(params["lm_head"]) if "lm_head" in params else None
+        self.layers = nn.ModuleList(LlamaLayer(p, self.attn_bias) for p in params["layers"])
+        q_dim, kv_dim = self.n_heads * self.head_dim, self.n_kv_heads * self.head_dim
         expect = {
             "embed": (self.vocab_size, self.dim),
             "lm_head": (self.dim, self.vocab_size),
-            "wq": (self.dim, self.n_heads * self.head_dim),
-            "wk": (self.dim, self.n_kv_heads * self.head_dim),
-            "wo": (self.n_heads * self.head_dim, self.dim),
+            "wq": (self.dim, q_dim),
+            "wk": (self.dim, kv_dim),
+            "wo": (q_dim, self.dim),
             "w_gate": (self.dim, int(cfg["ffn_dim"])),
         }
+        if self.attn_bias:
+            expect.update(bq=(q_dim,), bk=(kv_dim,), bv=(kv_dim,))
         for key, shape in expect.items():
             t = getattr(self, key) if hasattr(self, key) else getattr(self.layers[0], key)
-            if tuple(t.shape) != shape:
+            if t is not None and tuple(t.shape) != shape:
                 raise ValueError("{} has shape {}, config says {}".format(
                     key, tuple(t.shape), shape))
+        self.rope = RopeTable(self.head_dim, self.theta, self.rope_scaling, self.device)
 
     @property
     def device(self) -> torch.device:
@@ -314,9 +507,12 @@ class Llama(nn.Module):
 
     def _qkv(self, layer, x, cos, sin):
         b, s, _ = x.shape
-        q = self._mm(layer.wq, x).reshape(b, s, self.n_heads, self.head_dim)
-        k = self._mm(layer.wk, x).reshape(b, s, self.n_kv_heads, self.head_dim)
-        v = self._mm(layer.wv, x).reshape(b, s, self.n_kv_heads, self.head_dim)
+        q, k, v = self._mm(layer.wq, x), self._mm(layer.wk, x), self._mm(layer.wv, x)
+        if self.attn_bias:  # Qwen2-style QKV biases (kept full precision)
+            q, k, v = q + layer.bq, k + layer.bk, v + layer.bv
+        q = q.reshape(b, s, self.n_heads, self.head_dim)
+        k = k.reshape(b, s, self.n_kv_heads, self.head_dim)
+        v = v.reshape(b, s, self.n_kv_heads, self.head_dim)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def _attend(self, q, k, v, mask):
@@ -330,17 +526,25 @@ class Llama(nn.Module):
         return out.reshape(b, s, self.n_heads * self.head_dim)
 
     def _ffn(self, layer, x):
-        h = F.silu(self._mm(layer.w_gate, x)) * self._mm(layer.w_up, x)
+        h = self.act(self._mm(layer.w_gate, x)) * self._mm(layer.w_up, x)
         return self._mm(layer.w_down, h)
 
     def _logits(self, x):
-        x = rms_norm(x, self.final_norm, self.eps)
+        x = rms_norm(x, self.final_norm, self.eps, self.norm_offset)
+        if self.lm_head is None:
+            return (x @ self.embed.T).float()
         return self._mm(self.lm_head, x).float()
 
+    def _embed(self, tokens):
+        x = self.embed[tokens]
+        if self.embed_scale:
+            x = x * self.embed_scale
+        return x
+
     def _block(self, layer, x, attn_fn):
-        h = rms_norm(x, layer.attn_norm, self.eps)
+        h = rms_norm(x, layer.attn_norm, self.eps, self.norm_offset)
         x = x + self._mm(layer.wo, attn_fn(h))
-        h = rms_norm(x, layer.ffn_norm, self.eps)
+        h = rms_norm(x, layer.ffn_norm, self.eps, self.norm_offset)
         return x + self._ffn(layer, h)
 
     # -- entry points --------------------------------------------------------
@@ -380,8 +584,8 @@ class Llama(nn.Module):
         visible = causal[None] & valid[:, None, :]                    # [B, S, T]
         mask = torch.zeros(visible.shape, dtype=torch.float32, device=dev)
         mask = mask.masked_fill(~visible, float("-inf"))[:, None]
-        cos, sin = rope(positions, self.head_dim, self.theta)
-        x = self.embed[tokens]
+        cos, sin = self.rope(positions)
+        x = self._embed(tokens)
         for layer in self.layers:
             def attn(h, layer=layer):
                 q, k, v = self._qkv(layer, h, cos, sin)
@@ -459,9 +663,9 @@ class Llama(nn.Module):
         visible = torch.arange(max_len, device=dev)[None, None, :] <= positions[:, :, None]
         mask = torch.zeros(visible.shape, dtype=torch.float32, device=dev)
         mask = mask.masked_fill(~visible, float("-inf"))[:, None]      # [B, 1, C, T]
-        cos, sin = rope(positions, self.head_dim, self.theta)
+        cos, sin = self.rope(positions)
         rows = torch.arange(b, device=dev)[:, None]
-        x = self.embed[tokens]
+        x = self._embed(tokens)
         for li, layer in enumerate(self.layers):
             def attn(h, li=li, layer=layer):
                 q, k, v = self._qkv(layer, h, cos, sin)
@@ -503,8 +707,8 @@ class Llama(nn.Module):
         if self.kv_quant and k_scales is None:
             raise ValueError("kv_quant decode_paged needs k_scales/v_scales")
         b = tokens.shape[0]
-        cos, sin = rope(lengths[:, None], self.head_dim, self.theta)
-        x = self.embed[tokens][:, None]                               # [B, 1, dim]
+        cos, sin = self.rope(lengths[:, None])
+        x = self._embed(tokens)[:, None]                               # [B, 1, dim]
         wp = write_page.long()
         wo = write_offset.long()
         attend_len = lengths + 1
@@ -576,8 +780,8 @@ class Llama(nn.Module):
             raise ValueError(
                 "forward_ragged tree_anc must be int32 [T={}, DMAX], got {} {}".format(
                     t, tree_anc.dtype, tuple(tree_anc.shape)))
-        cos, sin = rope(tok_pos[:, None], self.head_dim, self.theta)
-        x = self.embed[tokens][:, None]                               # [T, 1, dim]
+        cos, sin = self.rope(tok_pos[:, None])
+        x = self._embed(tokens)[:, None]                               # [T, 1, dim]
         wp = write_page.long()
         wo = write_offset.long()
         for li, layer in enumerate(self.layers):
@@ -616,8 +820,10 @@ class Llama(nn.Module):
 def init_params(config: dict, generator: torch.Generator,
                 device="cuda") -> Dict[str, Any]:
     """Random full-width parameters made on ``device`` from ``generator``:
-    normal weights scaled by ``fan_in**-0.5`` and unit norms, like the
-    reference's ``init`` (whose JAX random bits this does not reproduce)."""
+    normal weights scaled by ``fan_in**-0.5``, unit norms (zero under
+    ``norm_offset``, applied as 1 + w), zero QKV biases under ``attn_bias``
+    and no ``lm_head`` when tied, the reference's ``init`` leaves and
+    shapes (whose JAX random bits this does not reproduce)."""
     cfg = resolve_config(config)
     check_config(cfg)
     dev = resolve_device(device)
@@ -630,27 +836,33 @@ def init_params(config: dict, generator: torch.Generator,
         w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
         return (w * fan_in ** -0.5).to(dtype)
 
-    def ones():
-        return torch.ones(dim, dtype=dtype, device=dev)
+    norm_init = torch.zeros if cfg.get("norm_offset") else torch.ones
 
-    params: Dict[str, Any] = {
-        "embed": dense((vocab, dim), dim),
-        "final_norm": ones(),
-        "lm_head": dense((dim, vocab), dim),
-        "layers": [],
-    }
+    def norm():
+        return norm_init(dim, dtype=dtype, device=dev)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dtype, device=dev)
+
+    params: Dict[str, Any] = {"embed": dense((vocab, dim), dim), "final_norm": norm()}
+    if not cfg["tie_embeddings"]:
+        params["lm_head"] = dense((dim, vocab), dim)
+    params["layers"] = []
     for _ in range(int(cfg["n_layers"])):
-        params["layers"].append({
-            "attn_norm": ones(),
+        layer = {
+            "attn_norm": norm(),
             "wq": dense((dim, n_heads * hd), dim),
             "wk": dense((dim, n_kv * hd), dim),
             "wv": dense((dim, n_kv * hd), dim),
             "wo": dense((n_heads * hd, dim), n_heads * hd),
-            "ffn_norm": ones(),
+            "ffn_norm": norm(),
             "w_gate": dense((dim, ffn), dim),
             "w_up": dense((dim, ffn), dim),
             "w_down": dense((ffn, dim), ffn),
-        })
+        }
+        if cfg.get("attn_bias"):
+            layer.update(bq=zeros(n_heads * hd), bk=zeros(n_kv * hd), bv=zeros(n_kv * hd))
+        params["layers"].append(layer)
     return params
 
 
@@ -677,8 +889,9 @@ def convert_params(np_tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """The weight carrier: a reference parameter tree (``build(cfg).init``
     or ``quantize_llama_params`` output pulled to numpy, per-layer list or
     ``scan_layers`` stacked dict) -> this module's tree on ``device``,
-    layout and dtype kept. Quantized leaves stay dicts of tensors; stacked
-    ones are sliced per layer."""
+    layout and dtype kept (a tied tree has no ``lm_head``; an
+    ``attn_bias`` tree's layers carry ``bq``/``bk``/``bv``). Quantized
+    leaves stay dicts of tensors; stacked ones are sliced per layer."""
     dev = resolve_device(device)
     extra = sorted(set(np_tree) - {"embed", "final_norm", "lm_head", "layers"})
     if extra:

@@ -34,8 +34,9 @@ import torch
 from . import launch_counts
 from ._build import load_library
 
-# the kernel's gates (csrc/paged_attention.cu)
-KERNEL_HEAD_DIMS = (64, 128)
+# the kernels' gates (csrc/paged_attention.cu, csrc/ragged_paged_attention.cu):
+# head_dim 256 is Gemma's; 96 (Phi-3-mini) is not taken
+KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_MAX_GROUP = 8
 KERNEL_PAGE_SIZES = (16, 32)
 

@@ -72,7 +72,7 @@ def _operands(dev, *, g, d, page_size, quant, lengths=MIXED, hkv=4, seed=0):
 
 
 @pytest.mark.parametrize("page_size", [16, 32])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("g", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 def test_kernel_matches_plain_version(cuda, quant, g, d, page_size):
@@ -117,7 +117,7 @@ def _span_lengths(page_size, hkv=4):
 
 
 @pytest.mark.parametrize("page_size", [16, 32])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("g", [1, 3, 4, 8])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 def test_kernel_at_every_span_boundary(cuda, quant, g, d, page_size):
@@ -201,6 +201,60 @@ def test_engine_on_the_card_runs_the_kernel(cuda):
     assert pool.free_pages == pool.num_pages - 1
 
 
+# small models of the paged path's families at head_dim 256 and 128: Gemma's
+# deltas (tied, offset norms, GeGLU, embed scale) with one and with eight
+# query heads per KV head, Qwen2's biases, Llama-3.1's scaled RoPE
+FAMILY_CFGS = {
+    "gemma_g1": {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 2, "n_kv_heads": 2,
+                 "head_dim": 256, "ffn_dim": 512, "dtype": "bfloat16", "tie_embeddings": True,
+                 "norm_offset": True, "hidden_act": "gelu_pytorch_tanh", "embed_scale": 16.0},
+    "gemma_g8": {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 8, "n_kv_heads": 1,
+                 "head_dim": 256, "ffn_dim": 512, "dtype": "bfloat16", "tie_embeddings": True,
+                 "norm_offset": True, "hidden_act": "gelu_pytorch_tanh", "embed_scale": 16.0},
+    "qwen2": {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 4, "n_kv_heads": 1,
+              "head_dim": 128, "ffn_dim": 512, "dtype": "bfloat16", "attn_bias": True},
+    "llama3_rope": {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 4,
+                    "n_kv_heads": 2, "head_dim": 64, "ffn_dim": 512, "dtype": "bfloat16",
+                    "rope_scaling": {"rope_type": "llama3", "factor": 8.0,
+                                     "original_max_position_embeddings": 32}},
+}
+
+
+@pytest.mark.parametrize("scheduler", ["two_dispatch", "ragged"])
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["bf16", "int8"])
+@pytest.mark.parametrize("family", sorted(FAMILY_CFGS))
+def test_family_engine_on_the_card_runs_the_kernels(cuda, family, kv_quant, scheduler):
+    """Each family's engine builds past the gates and serves through the
+    kernels: every decode step one paged launch a layer, every ragged step
+    one ragged launch a layer, and every page comes back."""
+    cfg = dict(FAMILY_CFGS[family], **({"kv_quant": kv_quant} if kv_quant else {}))
+    model = Llama(cfg, init_params(cfg, torch.Generator(cuda).manual_seed(0), device=cuda))
+    knobs = {"scheduler": "ragged", "step_token_budget": 16} if scheduler == "ragged" else {}
+    engine = LLMEngineCore(model, max_batch=2, max_seq_len=128, decode_steps=4,
+                           page_size=32 if kv_quant else 16, prefill_buckets=[32, 64], **knobs)
+
+    async def run():
+        async def one(n, delay):
+            await asyncio.sleep(delay)
+            return [t async for t in engine.generate(
+                GenRequest(prompt_ids=list(range(1, n + 1)), max_new_tokens=9))]
+        return await asyncio.gather(one(5, 0.0), one(40, 0.05), one(20, 0.1))
+
+    paged_attention.launches = 0
+    ragged_paged_attention.launches = 0
+    streams = asyncio.run(run())
+    c = engine.counters
+    engine.stop()
+    assert all(1 <= len(s) <= 9 for s in streams)
+    assert ragged_paged_attention.launches == model.n_layers * c["ragged_steps"]
+    assert paged_attention.launches == model.n_layers * (
+        c["decode_steps"] + c["ragged_chain_steps"]) > 0
+    if scheduler == "ragged":
+        assert c["ragged_steps"] > 0
+    pool = engine.paged_cache.pool
+    assert pool.free_pages == pool.num_pages - 1
+
+
 # ragged rows: (span in the flat axis, query tokens, history before them).
 # Decode rows, a 4-token multi-step decode span (positions 1..3 are pads),
 # prefill chunks at history 0 and mid-history crossing page boundaries, an
@@ -248,7 +302,7 @@ def _owned(args):
 
 
 @pytest.mark.parametrize("page_size", [16, 32])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 def test_ragged_kernel_matches_plain_version(cuda, quant, g, d, page_size):
@@ -374,7 +428,7 @@ def _poisoned(args, page_size):
 
 
 @pytest.mark.parametrize("page_size", [16, 32])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("g", [1, 3, 4, 8])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 def test_ragged_kernel_at_every_span_boundary(cuda, quant, g, d, page_size):
@@ -493,7 +547,8 @@ def _check_tree(args, blocks, scales, anc, quant):
 
 
 @pytest.mark.parametrize("topology", ["chain", "forest", "dead_nodes"])
-@pytest.mark.parametrize("g,d,page_size", [(4, 128, 16), (8, 64, 32)])
+@pytest.mark.parametrize("g,d,page_size", [(4, 128, 16), (8, 64, 32), (1, 256, 16),
+                                           (8, 256, 32)])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 def test_tree_kernel_matches_plain_version(cuda, quant, g, d, page_size, topology):
     args, blocks, scales = _ragged_operands(cuda, g=g, d=d, page_size=page_size, quant=quant,

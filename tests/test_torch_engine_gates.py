@@ -19,11 +19,26 @@ from clearml_serving_tpu_torch.ops.gates import check_engine_gates
 from clearml_serving_tpu_torch.ops.quant import int4_groups, quantize_llama_params
 
 
+# published widths (each model's config.json) of the families the paged
+# path serves beside Llama-3, and of one it does not
+FAMILY_WIDTHS = {
+    "qwen2.5-7b": dict(vocab_size=152064, dim=3584, n_layers=28, n_heads=28, n_kv_heads=4,
+                       ffn_dim=18944),
+    "gemma-7b": dict(vocab_size=256000, dim=3072, n_layers=28, n_heads=16, n_kv_heads=16,
+                     head_dim=256, ffn_dim=24576, tie_embeddings=True),
+    "gemma-2b": dict(vocab_size=256000, dim=2048, n_layers=18, n_heads=8, n_kv_heads=1,
+                     head_dim=256, ffn_dim=16384, tie_embeddings=True),
+    "phi-3-mini": dict(vocab_size=32064, dim=3072, n_layers=32, n_heads=32, n_kv_heads=32,
+                       ffn_dim=8192),
+}
+
+
 def _facts(preset, **over):
-    """The gate facts of a preset's engine: 16-token bf16 pages, the ragged
-    scheduler with a tree of spec_k 4, int4 projections in 128-row groups."""
-    cfg = PRESETS[preset]
-    d = cfg["dim"] // cfg["n_heads"]
+    """The gate facts of a preset's (or a family's) engine: 16-token bf16
+    pages, the ragged scheduler with a tree of spec_k 4, int4 projections in
+    128-row groups (no lm_head when tied)."""
+    cfg = PRESETS.get(preset) or FAMILY_WIDTHS[preset]
+    d = cfg.get("head_dim") or cfg["dim"] // cfg["n_heads"]
     shapes = {"wq": (cfg["dim"], cfg["n_heads"] * d),
               "wk": (cfg["dim"], cfg["n_kv_heads"] * d),
               "wv": (cfg["dim"], cfg["n_kv_heads"] * d),
@@ -32,7 +47,8 @@ def _facts(preset, **over):
               "w_down": (cfg["ffn_dim"], cfg["dim"])}
     weights = [("layers.{}.{}".format(i, name), k, n, int4_groups(k))
                for i in range(cfg["n_layers"]) for name, (k, n) in shapes.items()]
-    weights.append(("lm_head", cfg["dim"], cfg["vocab_size"], int4_groups(cfg["dim"])))
+    if not cfg.get("tie_embeddings"):
+        weights.append(("lm_head", cfg["dim"], cfg["vocab_size"], int4_groups(cfg["dim"])))
     facts = dict(page_size=16, n_kv_heads=cfg["n_kv_heads"], head_dim=d,
                  group=cfg["n_heads"] // cfg["n_kv_heads"], dtype=torch.bfloat16,
                  kv_dtype=torch.bfloat16, ragged=True, tree_width=5, int4_weights=weights)
@@ -59,9 +75,29 @@ def test_card_small_model_facts_pass(over):
     check_engine_gates(**dict(CARD_SMALL, **over))
 
 
+@pytest.mark.parametrize("over", [
+    {}, {"kv_dtype": torch.int8, "page_size": 32}, {"ragged": False, "tree_width": None},
+], ids=["bf16_pages", "int8_pages_32", "two_dispatch"])
+@pytest.mark.parametrize("family", ["qwen2.5-7b", "gemma-7b", "gemma-2b"])
+def test_paged_family_facts_pass(family, over):
+    """Qwen2.5-7B (G = 7, its int4 wk/wv N = 512 and w_gate N = 18944 at K =
+    3584), Gemma-7B (head_dim 256, G = 1) and Gemma-2B (head_dim 256,
+    G = 8) pass every kernel's gates."""
+    check_engine_gates(**_facts(family, **over))
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["two_dispatch", "ragged"])
+def test_head_dim_96_is_refused_by_name(ragged):
+    """Phi-3-mini's head_dim 96 stays outside the attention kernels (the
+    reference runs it through XLA, not its Pallas kernel)."""
+    facts = _facts("phi-3-mini", ragged=ragged, tree_width=5 if ragged else None)
+    with pytest.raises(ValueError, match=r"^paged_attention gate head_dim: .*\(64, 128, 256\)"):
+        check_engine_gates(**facts)
+
+
 def test_llama_tiny_facts_pass_every_gate_but_head_dim():
     """llama-tiny (D = 16) is a CPU preset: its head dim is outside the
-    attention kernels' 64/128, every other fact passes."""
+    attention kernels' 64/128/256, every other fact passes."""
     facts = _facts("llama-tiny")
     assert facts["head_dim"] == 16
     with pytest.raises(ValueError, match="^paged_attention gate head_dim: "):

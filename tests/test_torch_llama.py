@@ -168,26 +168,90 @@ def test_convert_params_takes_stacked_layers(tiny_params):
             np.testing.assert_array_equal(t_layer[key].numpy(), j_layer[key])
 
 
-@pytest.mark.parametrize("rope_scaling", [
-    {"rope_type": "llama3", "factor": 8.0},
-    {"rope_type": "linear", "factor": 2.0},
-    {"rope_type": "yarn", "factor": 4.0},
-    {"type": "longrope", "short_factor": [1.0] * 8, "long_factor": [1.0] * 8,
-     "original_max_position_embeddings": 128},
-], ids=["llama3", "linear", "yarn", "longrope"])
-def test_rope_scaling_raises(rope_scaling):
-    cfg = dict(TINY, rope_scaling=rope_scaling)
-    with pytest.raises(NotImplementedError, match="rope_scaling"):
+ROPE_SCALINGS = {
+    "llama3": {"rope_type": "llama3", "factor": 8.0, "original_max_position_embeddings": 16},
+    "linear": {"rope_type": "linear", "factor": 2.0},
+    "yarn": {"rope_type": "yarn", "factor": 4.0},
+    "longrope": {"type": "longrope", "short_factor": [1.0 + i / 8 for i in range(8)],
+                 "long_factor": [2.0 + i / 4 for i in range(8)],
+                 "original_max_position_embeddings": 8},
+}
+# each type with one fault: the factor missing, or a factor list of the
+# wrong length
+BAD_ROPE_SCALINGS = {
+    "llama3": {"rope_type": "llama3"},
+    "linear": {"rope_type": "linear"},
+    "yarn": {"rope_type": "yarn", "beta_fast": 16.0},
+    "longrope": dict(ROPE_SCALINGS["longrope"], long_factor=[1.0] * 4),
+}
+
+
+@pytest.mark.parametrize("rope_type", sorted(ROPE_SCALINGS))
+def test_rope_scaling_raises(rope_type):
+    """A bad config of each RoPE type raises what the reference's build()
+    raises, with the same words, before any weight is made."""
+    cfg = dict(TINY, rope_scaling=BAD_ROPE_SCALINGS[rope_type])
+    with pytest.raises((KeyError, ValueError)) as want:
+        models.build_model("llama", cfg)
+    with pytest.raises(type(want.value)) as got:
         init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("rope_type", sorted(ROPE_SCALINGS))
+def test_rope_scaling_matches_reference(rope_type):
+    """Each RoPE type's prefill logits equal the reference's on the same
+    weights (positions 0-15, past llama3's and longrope's windows)."""
+    cfg = dict(TINY, rope_scaling=ROPE_SCALINGS[rope_type])
+    bundle = models.build_model("llama", cfg)
+    params = jax.tree.map(np.asarray, bundle.init(jax.random.PRNGKey(0)))
+    model = Llama(cfg, convert_params(params, device="cpu"))
+    tokens = np.random.default_rng(3).integers(0, 512, (2, 16)).astype(np.int32)
+    seq_lens = np.array([16, 11], np.int32)
+    want, _ = bundle.prefill(params, jnp.asarray(tokens), jnp.asarray(seq_lens),
+                             bundle.init_cache(2, 16))
+    got, _ = model.prefill(torch.from_numpy(tokens).long(), torch.from_numpy(seq_lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=ATOL)
 
 
 @pytest.mark.parametrize("knob", [
     {"lora_rank": 4}, {"n_experts": 4}, {"attn_logit_softcap": 50.0},
-    {"tie_embeddings": True}, {"hidden_act": "gelu_tanh"},
-], ids=["lora", "moe", "softcap", "tied", "gelu"])
+    {"final_logit_softcap": 30.0}, {"sliding_window": 32},
+    {"alt_window": True}, {"post_block_norms": True},
+    {"int4_fused": False},
+], ids=["lora", "moe", "softcap", "final_softcap", "sliding_window", "alt_window",
+        "post_block_norms", "int4_fused"])
 def test_unsupported_model_knobs_raise(knob):
-    with pytest.raises(NotImplementedError):
+    """What stays for a later slice raises naming the knob, before any
+    weight is made."""
+    with pytest.raises(NotImplementedError, match=next(iter(knob))):
         init_params(dict(TINY, **knob), torch.Generator().manual_seed(0), device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    {"tie_embeddings": True}, {"hidden_act": "gelu_tanh"},
+], ids=["tied", "gelu"])
+def test_served_model_knobs_match_reference(knob):
+    """Knobs this port refused before the model families came: tied
+    embeddings and GeGLU give the reference's prefill logits."""
+    cfg = dict(TINY, **knob)
+    bundle = models.build_model("llama", cfg)
+    params = jax.tree.map(np.asarray, bundle.init(jax.random.PRNGKey(0)))
+    model = Llama(cfg, convert_params(params, device="cpu"))
+    tokens = np.random.default_rng(4).integers(0, 512, (1, 12)).astype(np.int32)
+    want, _ = bundle.prefill(params, jnp.asarray(tokens), jnp.asarray([12], jnp.int32),
+                             bundle.init_cache(1, 12))
+    got, _ = model.prefill(torch.from_numpy(tokens).long(), torch.tensor([12]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=ATOL)
+
+
+def test_unknown_hidden_act_raises_the_reference_words():
+    cfg = dict(TINY, hidden_act="relu2")
+    with pytest.raises(ValueError) as want:
+        models.build_model("llama", cfg)
+    with pytest.raises(ValueError) as got:
+        init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_init_params_full_width_shapes_and_scale():

@@ -1,7 +1,7 @@
 """The port's paged attention (clearml_serving_tpu_torch/ops/paged_attention.py)
 held against the reference's XLA version and its Pallas kernel in interpret
 mode, on the same numpy inputs, in float32 with atol = rtol = 1e-5 (the
-three differ only in summation order)."""
+three differ only in summation order), at head_dim 32 and at Gemma's 256."""
 
 import numpy as np
 import pytest
@@ -67,10 +67,14 @@ def _jax_args(ops):
         k_scale=j["ks"], v_scale=j["vs"])
 
 
+HEAD_DIMS = pytest.mark.parametrize("d", [32, 256], ids=["d32", "d256"])
+
+
+@HEAD_DIMS
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16_values", "int8"])
 @pytest.mark.parametrize("g", [1, 4])
-def test_ref_matches_xla_reference(quant, g):
-    ops = _setup(10 + g, g=g, quant=quant)
+def test_ref_matches_xla_reference(quant, g, d):
+    ops = _setup(10 + g, g=g, quant=quant, d=d)
     args, kw = _torch_args(ops)
     jargs, jkw = _jax_args(ops)
     out = paged_attention_ref(*args, **kw).numpy()
@@ -78,10 +82,11 @@ def test_ref_matches_xla_reference(quant, g):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
+@HEAD_DIMS
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16_values", "int8"])
 @pytest.mark.parametrize("g", [1, 4])
-def test_ref_matches_pallas_interpret(quant, g):
-    ops = _setup(20 + g, g=g, quant=quant)
+def test_ref_matches_pallas_interpret(quant, g, d):
+    ops = _setup(20 + g, g=g, quant=quant, d=d)
     args, kw = _torch_args(ops)
     jargs, jkw = _jax_args(ops)
     out = paged_attention_ref(*args, **kw).numpy()
@@ -145,6 +150,9 @@ _I8 = dict(k_pool=torch.zeros(8, 33, 16, 128, dtype=torch.int8),
     (dict(q=torch.zeros(8, 8, 4, 16, dtype=torch.bfloat16),
           k_pool=torch.zeros(8, 33, 16, 16, dtype=torch.bfloat16),
           v_pool=torch.zeros(8, 33, 16, 16, dtype=torch.bfloat16)), "head_dim"),
+    (dict(q=torch.zeros(8, 32, 1, 96, dtype=torch.bfloat16),
+          k_pool=torch.zeros(32, 33, 16, 96, dtype=torch.bfloat16),
+          v_pool=torch.zeros(32, 33, 16, 96, dtype=torch.bfloat16)), "head_dim"),
     (dict(q=torch.zeros(8, 8, 16, 128, dtype=torch.bfloat16)), "group"),
     (dict(k_pool=torch.zeros(8, 33, 8, 128, dtype=torch.bfloat16),
           v_pool=torch.zeros(8, 33, 8, 128, dtype=torch.bfloat16)), "page_size"),
@@ -156,16 +164,24 @@ _I8 = dict(k_pool=torch.zeros(8, 33, 16, 128, dtype=torch.int8),
     (dict(lengths=torch.zeros(8, dtype=torch.int64)), "lengths"),
     (dict(q=torch.zeros(8, 4, 8, 128, dtype=torch.bfloat16).transpose(1, 2)),
      "contiguous"),
-], ids=["q_f32", "d16", "g16", "p8", "mixed_pool_dtypes", "int8_no_scales",
+], ids=["q_f32", "d16", "d96_phi3_mini", "g16", "p8", "mixed_pool_dtypes", "int8_no_scales",
         "f64_scales", "table_i64", "lengths_i64", "strided_q"])
 def test_kernel_gates_raise_naming_the_gate(over, gate):
     with pytest.raises(ValueError, match="gate {}".format(gate.replace(".", r"\."))):
         check_kernel_gates(**_main_path_operands(**over))
 
 
-@pytest.mark.parametrize("over", [{}, dict(_I8, k_scale=torch.zeros(8, 33, 16),
-                                           v_scale=torch.zeros(8, 33, 16))],
-                         ids=["bf16", "int8"])
+_GEMMA = dict(q=torch.zeros(8, 16, 1, 256, dtype=torch.bfloat16),
+              k_pool=torch.zeros(16, 33, 16, 256, dtype=torch.bfloat16),
+              v_pool=torch.zeros(16, 33, 16, 256, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("over", [
+    {}, dict(_I8, k_scale=torch.zeros(8, 33, 16), v_scale=torch.zeros(8, 33, 16)),
+    _GEMMA, dict(_GEMMA, k_pool=torch.zeros(16, 33, 16, 256, dtype=torch.int8),
+                 v_pool=torch.zeros(16, 33, 16, 256, dtype=torch.int8),
+                 k_scale=torch.zeros(16, 33, 16), v_scale=torch.zeros(16, 33, 16)),
+], ids=["bf16", "int8", "d256_gemma_7b", "d256_gemma_7b_int8"])
 def test_kernel_gates_accept_the_main_path(over):
     check_kernel_gates(**_main_path_operands(**over))
 

@@ -24,6 +24,12 @@ SHAPES = [
     ((96, 40), 128),
     ((128, 64), 128),
     ((2, 64, 130), 128),
+    # Qwen2.5-7B's projections: wk/wv [3584, 512] whole, and 256 of w_gate's
+    # 18944 columns at K = 3584 (28 groups) and of w_down's at K = 18944
+    # (148 groups): a column's codes and scales depend on that column alone
+    ((3584, 512), 128),
+    ((3584, 256), 128),
+    ((18944, 256), 128),
 ]
 
 
@@ -156,6 +162,26 @@ def test_llama_trees_quantize_to_the_reference_leaves(wide_np, bits, layout):
     # norms and the embedding keep their dtype; the source tree is untouched
     assert got["embed"].dtype == torch.float32
     assert not quant.detect_weight_quant(_torch_tree(tree))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("family", [{"attn_bias": True}, {"tie_embeddings": True},
+                                    {"norm_offset": True, "head_dim": 128,
+                                     "tie_embeddings": True}],
+                         ids=["qwen2_biases", "tied", "gemma"])
+def test_family_trees_quantize_to_the_reference_leaves(family, bits):
+    """QKV biases, offset norms and the embedding stay full precision, and
+    a tied tree has no lm_head to quantize, as in the reference."""
+    cfg = dict(WIDE, **family)
+    tree = jax.tree.map(np.asarray, models.build_model("llama", cfg).init(jax.random.PRNGKey(1)))
+    want = jax.tree.map(np.asarray, ref.quantize_llama_params(
+        jax.tree.map(jnp.asarray, tree), bits=bits))
+    got = quant.quantize_llama_params(_torch_tree(tree), bits=bits)
+    _assert_trees_equal(got, want)
+    assert ("lm_head" in got) == (not family.get("tie_embeddings"))
+    layer = got["layers"][0]
+    for key in ("bq", "bk", "bv", "attn_norm", "ffn_norm"):
+        assert key not in layer or isinstance(layer[key], torch.Tensor)
 
 
 @pytest.mark.parametrize("tree,want", [

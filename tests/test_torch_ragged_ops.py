@@ -126,10 +126,14 @@ def test_ragged_layout_refuses_a_short_total():
         ragged_layout([64], 8, total=32)
 
 
+HEAD_DIMS = pytest.mark.parametrize("d", [32, 256], ids=["d32", "d256"])
+
+
+@HEAD_DIMS
 @pytest.mark.parametrize("tree", [False, True], ids=["causal", "tree_anc"])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16_values", "int8"])
-def test_ref_matches_xla_reference(quant, tree):
-    ops = _setup(10 + 2 * quant + tree, quant=quant)
+def test_ref_matches_xla_reference(quant, tree, d):
+    ops = _setup(10 + 2 * quant + tree, quant=quant, d=d)
     anc = _tree_anc(ops) if tree else None
     args, kw = _torch(ops, anc)
     jargs, jkw = _jax(ops, anc)
@@ -147,10 +151,12 @@ def test_ref_matches_xla_reference(quant, tree):
                                       np.delete(plain, np.s_[s:s + n], 0))
 
 
+@HEAD_DIMS
 @pytest.mark.parametrize("page_size", [8, 16])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16_values", "int8"])
-def test_ref_matches_pallas_interpret(quant, page_size):
-    ops = _setup(20 + quant, quant=quant, page_size=page_size, pp=5 if page_size == 8 else 3)
+def test_ref_matches_pallas_interpret(quant, page_size, d):
+    ops = _setup(20 + quant, quant=quant, page_size=page_size, pp=5 if page_size == 8 else 3,
+                 d=d)
     args, kw = _torch(ops)
     jargs, jkw = _jax(ops)
     out = ragged_paged_attention_ref(*args, **kw).numpy()
@@ -161,13 +167,14 @@ def test_ref_matches_pallas_interpret(quant, page_size):
     np.testing.assert_allclose(out, ref, **TOL)
 
 
+@HEAD_DIMS
 @pytest.mark.parametrize("page_size", [8, 16])
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16_values", "int8"])
-def test_ref_with_tree_anc_matches_pallas_interpret(quant, page_size):
+def test_ref_with_tree_anc_matches_pallas_interpret(quant, page_size, d):
     """The plain version's draft-tree mask against the TPU kernel's own
     ``tree`` branch (interpret mode) on the same operands."""
     ops = _setup(24 + quant, quant=quant, page_size=page_size,
-                 pp=5 if page_size == 8 else 3)
+                 pp=5 if page_size == 8 else 3, d=d)
     anc = _tree_anc(ops)
     args, kw = _torch(ops, anc)
     jargs, jkw = _jax(ops, anc)
@@ -307,11 +314,21 @@ def test_ragged_gates_raise_naming_the_gate(over, gate):
         check_ragged_gates(**_main_path_operands(**over))
 
 
+_D256 = dict(q=torch.zeros(312, 8, 8, 256, dtype=torch.bfloat16),
+             k_pool=torch.zeros(8, 33, 16, 256, dtype=torch.bfloat16),
+             v_pool=torch.zeros(8, 33, 16, 256, dtype=torch.bfloat16))
+
+
 @pytest.mark.parametrize("over", [
     {}, dict(_I8, k_scale=torch.zeros(8, 33, 16), v_scale=torch.zeros(8, 33, 16)),
     dict(tree_anc=torch.full((312, 5), -2, dtype=torch.int32)),
     dict(tree_anc=torch.full((312, 1), -2, dtype=torch.int32)),
     dict(tree_anc=torch.full((312, 64), -2, dtype=torch.int32)),
-], ids=["bf16", "int8", "tree_k4", "tree_dmax1", "tree_dmax64"])
+    _D256, dict(_D256, tree_anc=torch.full((312, 5), -2, dtype=torch.int32)),
+    dict(_D256, k_pool=torch.zeros(8, 33, 16, 256, dtype=torch.int8),
+         v_pool=torch.zeros(8, 33, 16, 256, dtype=torch.int8),
+         k_scale=torch.zeros(8, 33, 16), v_scale=torch.zeros(8, 33, 16)),
+], ids=["bf16", "int8", "tree_k4", "tree_dmax1", "tree_dmax64", "d256_g8", "d256_g8_tree",
+        "d256_g8_int8"])
 def test_ragged_gates_accept_the_main_path(over):
     check_ragged_gates(**_main_path_operands(**over))
