@@ -85,11 +85,23 @@ exits non-zero before the result lines are printed:
    (serial, eager) and depth 2 (graphs captured by the endpoint's
    ``warmup``): equal greedy contents, no capture while serving, and each
    arm's wall ms per decode step, dispatch and retire ms and tok/s;
+5f. the ragged launch as CUDA graphs: phase 5b's traffic (bf16 and int8
+   KV) and phase 5d's tree arm, each with aux ``warmup: full`` (every plain
+   launch key captured before traffic) and each graphed and eager
+   (``cuda_graphs: false``), then 5b's on int4 weights graphed: content
+   byte-identical graphed and eager, no capture after the warmup, every
+   ragged step one replay, the launch identities of 5b and 5d; ms a ragged
+   step, the replays' device share of it, the host split of a step
+   (``scripts/ragged_step_split.py``), capture ms and pool MiB per key;
 6. where the time goes, at Llama-3-8B's widths and 8 of its 32 layers
    (``PROFILE_LAYERS``): one profiled pass of each scheduler (bf16 KV; the
-   two-dispatch path at depth 2 and at depth 1), each of 5e's arms on the
-   steady traffic at 64 tokens a chat, one of phase 5d's tree arm and one
-   of the two-dispatch path on int4 weights;
+   two-dispatch path at depth 2 and at depth 1; the ragged one graphed,
+   its keys captured by ``warmup: full`` first), each of 5e's arms on the
+   steady traffic at 64 tokens a chat, one of phase 5d's tree arm (graphed
+   likewise), the ragged and tree passes again with their ragged steps
+   eager beside graphed decode chunks, and one of the two-dispatch path on
+   int4 weights; the graphed passes' traces must hold as many
+   decode-attention, ragged-attention and int4 grids as counted;
 7. the request lifecycle of the default route: Llama-3-8B at full width
    behind the HTTP app (bf16 KV, depth 2 with graphs, max_batch 8) with the
    reference's default lifecycle knobs (max_pending 32, a 30 s watchdog,
@@ -1956,36 +1968,41 @@ def phase_main_path(params, kv_quant: str, preset: str = "llama3-8b", weight_qua
 
 def phase_profile(params, scheduler: str = "two_dispatch", weight_quant: str = "",
                   pipeline_depth=None, cuda_graphs: bool = True, traffic=None,
-                  check_reader: bool = False) -> dict:
+                  check_reader: bool = False, ragged_graphs: bool = True) -> dict:
     """The bf16-KV main-path run of a scheduler once more under torch.profiler
     (two-dispatch: phase 5's traffic, or ``traffic``, a ``PIPELINE_TRAFFIC``
     entry): device time by kernel name, each ported kernel's time (the
     union of its grids' intervals) and the device's busy share of the run's
     wall time (the union of all kernel intervals). Profiling adds host
-    overhead, so these shares describe this pass only. On a two-dispatch
-    pass whose decode chunks replayed graphs, the decode kernel's and the
-    int4 kernel's instances in the trace must equal their ``launches``
-    counts over the same window: a replay adds the counts its capture
-    recorded, and this holds them to kernels the card ran. Other passes
-    count every launch in the wrapper and only print the comparison: an
+    overhead, so these shares describe this pass only. On a pass whose
+    steps replayed graphs (two-dispatch; ragged, its launch keys captured
+    by ``warmup: full`` before the profiler starts), the decode kernel's,
+    the ragged kernel's and the int4 kernel's instances in the trace must
+    equal their ``launches`` counts over the same window: a replay adds the
+    counts its capture recorded, and this holds them to kernels the card
+    ran. Eager passes count every launch in the wrapper and only print the
+    comparison: an
     eager pass's trace has come up short (1020 of 1024 counted grids on an
     H100), and so has a graph pass's (4095 of 4096), as if the profiler
     dropped records. A graph pass whose trace disagrees is therefore
     profiled once more, on a fresh engine: a launch that did not run would
     make the second trace disagree too, and then the phase fails. With
     ``check_reader`` the trace's raw reading is held to ``prof.events()``
-    (``device_events``)."""
+    (``device_events``). ``ragged_graphs`` off: a ragged pass's steps run
+    eagerly beside graphed decode chunks, as before the ragged graphs
+    (the same depth, to set beside the graphed pass)."""
     out = _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs, traffic,
-                         check_reader)
+                         check_reader, ragged_graphs)
     if out["checked"] and not out["trace_agrees"]:
         log("  the trace disagrees with the counts: profiling the pass once more")
         out = _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
-                             traffic)
+                             traffic, ragged_graphs=ragged_graphs)
         if not out["trace_agrees"]:
-            raise AssertionError("the trace holds {} decode-attention and {} int4 grids, the "
-                                 "counts say {} and {}".format(
-                                     out["traced_paged"], out["traced_int4"],
-                                     out["paged_launches"], out["int4_launches"]))
+            raise AssertionError("the trace holds {} decode-attention, {} ragged-attention and "
+                                 "{} int4 grids, the counts say {}, {} and {}".format(
+                                     out["traced_paged"], out["traced_ragged"],
+                                     out["traced_int4"], out["paged_launches"],
+                                     out["ragged_launches"], out["int4_launches"]))
     return out
 
 
@@ -2025,7 +2042,7 @@ def depth_cut(params, n_layers: int) -> dict:
 
 
 def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
-                   traffic, check_reader=False) -> dict:
+                   traffic, check_reader=False, ragged_graphs=True) -> dict:
     """One profiled pass of ``phase_profile``: its numbers, and whether
     the trace's decode-attention and int4 grids equal the counts
     (``trace_agrees``; ``checked`` on a two-dispatch pass with graphs).
@@ -2043,14 +2060,20 @@ def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
     label = "phase5"
     if scheduler == "ragged":
         engine, tokenizer = _engine(params, "", "llama3-8b", cuda_graphs, **RAGGED_KNOBS, **knobs)
-        _results, wall, c = asyncio.run(serve_ragged(engine, tokenizer, profiler=prof))
+        if not ragged_graphs:
+            engine._ragged_graphs = None
+        # every plain launch key captured before the profiler starts
+        _results, wall, c = asyncio.run(serve_ragged(engine, tokenizer, profiler=prof,
+                                                     warmup="full"))
         label = "phase5b"
     elif scheduler == "ragged-tree":
         # phase 5d's tree arm under its traffic
         engine, tokenizer = _engine(params, "", "llama3-8b", cuda_graphs, **TREE_KNOBS, **knobs)
+        if not ragged_graphs:
+            engine._ragged_graphs = None
         _results, wall, c = asyncio.run(serve_ragged(
             engine, tokenizer, max_tokens=SPEC_MAX_TOKENS, profiler=prof, prompts=SPEC_PROMPTS,
-            samplings=SPEC_SAMPLINGS))
+            samplings=SPEC_SAMPLINGS, warmup="full"))
         label = "phase5d"
     else:
         label, prompts, max_tokens = traffic or ("phase5", PROMPTS, 32)
@@ -2059,6 +2082,7 @@ def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
             engine, tokenizer, max_tokens=max_tokens, profiler=prof, prompts=prompts))
         c["paged_launches"] = launches
     depth, graphs = engine.pipeline_depth, engine._graphs is not None
+    ragged_graphs = engine._ragged_graphs is not None
     del engine
     torch.cuda.empty_cache()
     t_trace = time.perf_counter()
@@ -2096,30 +2120,39 @@ def _profiled_pass(params, scheduler, weight_quant, pipeline_depth, cuda_graphs,
     traced_paged = sum("paged_split_kernel" in name for name, _t0, _t1 in kernels)
     traced_int4 = sum("w4a16_decode_kernel" in name or "w4a16_block_kernel" in name
                       for name, _t0, _t1 in kernels)
+    # one main grid per ragged-attention call (csrc/ragged_paged_attention.cu)
+    traced_ragged = sum("ragged_attention_kernel" in name for name, _t0, _t1 in kernels)
     out = dict(scheduler=scheduler, traffic=label, weights=weight_quant or "bf16", depth=depth,
-               graphs=graphs, wall_ms=wall * 1e3,
+               graphs=graphs, ragged_graphs=ragged_graphs, wall_ms=wall * 1e3,
                device_busy_ms=busy / 1e3, busy_share=busy / 1e3 / (wall * 1e3),
                kernel_ms=total, paged_attention_ms=attn, ragged_attention_ms=ragged,
                int4_matmul_ms=int4, decode_steps=c["decode_steps"],
                step_ms=c["decode_ms"] / max(1, c["decode_steps"]),
                ragged_steps=c["ragged_steps"], graph_replays=c["graph_replays"],
+               ragged_replays=c["ragged_replays"],
+               ragged_step_ms=c["ragged_ms"] / max(1, c["ragged_steps"]),
                paged_launches=c["paged_launches"], traced_paged=traced_paged,
                int4_launches=c["int4_launches"], traced_int4=traced_int4,
+               ragged_launches=c.get("ragged_launches", 0), traced_ragged=traced_ragged,
                top=[(k[:60], v) for k, v in top],
                pass_s=time.perf_counter() - t_pass, trace_s=t_trace)
     log("  profiled {weights}-weight {scheduler} pass, {traffic} traffic (depth {depth}, graphs "
-        "{graphs}): wall {wall_ms:.1f} ms, device busy "
+        "{graphs}, ragged graphs {ragged_graphs}): wall {wall_ms:.1f} ms, device busy "
         "{device_busy_ms:.1f} ms ({busy_share:.1%}), kernels {kernel_ms:.1f} ms, paged "
         "attention {paged_attention_ms:.2f} ms over {decode_steps} decode steps "
         "({step_ms:.2f} ms each), ragged "
-        "attention {ragged_attention_ms:.2f} ms over {ragged_steps} ragged steps, int4 "
-        "matmul {int4_matmul_ms:.2f} ms; {graph_replays} replays; in the trace "
-        "{traced_paged} decode-attention and {traced_int4} int4 grids, counted "
-        "{paged_launches} and {int4_launches}; the pass {pass_s:.1f} s, reading its trace "
-        "{trace_s:.1f} s".format(**out))
-    out["checked"] = scheduler == "two_dispatch" and graphs
-    out["trace_agrees"] = (traced_paged, traced_int4) == (c["paged_launches"],
-                                                          c["int4_launches"])
+        "attention {ragged_attention_ms:.2f} ms over {ragged_steps} ragged steps "
+        "({ragged_step_ms:.2f} ms each), int4 matmul {int4_matmul_ms:.2f} ms; {graph_replays} "
+        "chunk and {ragged_replays} ragged replays; in the trace {traced_paged} "
+        "decode-attention, {traced_ragged} ragged-attention and {traced_int4} int4 grids, "
+        "counted {paged_launches}, {ragged_launches} and {int4_launches}; the pass "
+        "{pass_s:.1f} s, reading its trace {trace_s:.1f} s".format(**out))
+    # graphed passes: two-dispatch, and the ragged ones, whose launch keys
+    # were all captured before the profiler started
+    out["checked"] = graphs and (scheduler == "two_dispatch" or (
+        scheduler in ("ragged", "ragged-tree") and ragged_graphs))
+    out["trace_agrees"] = (traced_paged, traced_int4, traced_ragged) == (
+        c["paged_launches"], c["int4_launches"], c.get("ragged_launches", 0))
     for name, ms in top:
         log("    {:9.2f} ms  {}".format(ms, name[:100]))
     return out
@@ -2140,13 +2173,15 @@ LONG_PROMPTS = [
 
 
 async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None, prompts=None,
-                       samplings=None):
-    """Start the port's app, warm it up with the prompts (default: the four
-    long ones), zero the counts, then POST the chats (the first two
-    streaming) staggered: each is sent once every earlier one has its first
-    token, so every admission's chunk rows share launches with live decode
-    rows. Returns (results, wall seconds, counters with ttft_ms, step_rows
-    and the kernels' launches)."""
+                       samplings=None, warmup="off"):
+    """Start the port's app (aux ``engine.warmup`` mode ``warmup``), warm it
+    up with the prompts (default: the four long ones), zero the counts
+    (their values at that point are kept as ``warm_counters``), then POST
+    the chats (the first two streaming) staggered: each is sent once every
+    earlier one has its first token, so every admission's chunk rows share
+    launches with live decode rows. Returns (results, wall seconds,
+    counters with ttft_ms, step_rows and the kernels' launches, and the
+    capture warm-up runs' set-up launches)."""
     import aiohttp
     from aiohttp import web
 
@@ -2155,7 +2190,7 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None, prompts=
         paged_attention, ragged_paged_attention,
     )
 
-    app = processor_app(engine, tokenizer)
+    app = processor_app(engine, tokenizer, warmup=warmup)
     runner = web.AppRunner(app)
     await runner.setup()
     site = web.TCPSite(runner, "127.0.0.1", 0)
@@ -2167,10 +2202,11 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None, prompts=
             prompts = prompts or LONG_PROMPTS
             samplings = samplings or [None] * len(prompts)
             await asyncio.gather(*[post_chat(s, url, p, False, 4) for p in prompts])
-            paged_attention.launches = 0
-            ragged_paged_attention.launches = 0
+            await engine.wait_drained()
+            warm_counters = dict(engine.counters)
+            for fn in (paged_attention, ragged_paged_attention, fused_int4_matmul):
+                fn.launches = fn.setup_launches = 0
             ragged_paged_attention.tree_launches = 0
-            fused_int4_matmul.launches = 0
             for key in engine.counters:
                 engine.counters[key] = 0
             for key in engine.step_rows:
@@ -2196,7 +2232,10 @@ async def serve_ragged(engine, tokenizer, max_tokens=32, profiler=None, prompts=
                             paged_launches=paged_attention.launches,
                             ragged_launches=ragged_paged_attention.launches,
                             tree_launches=ragged_paged_attention.tree_launches,
-                            int4_launches=fused_int4_matmul.launches)
+                            int4_launches=fused_int4_matmul.launches,
+                            paged_setup=paged_attention.setup_launches,
+                            ragged_setup=ragged_paged_attention.setup_launches,
+                            warm_counters=warm_counters)
     finally:
         await runner.cleanup()
     return results, wall, counters
@@ -2352,6 +2391,192 @@ def phase_spec_main_path(params, arm: str, kv_quant: str, knobs: dict,
     if tree and ragged["spec_tree_depth"]["count"] < 1:
         raise AssertionError("no tree acceptance depth recorded")
     return out
+
+
+# -- phase 5f: the ragged launch as CUDA graphs --------------------------------
+
+# (arm, KV, knobs, traffic): phase 5b's traffic on bf16 and int8 KV, phase
+# 5d's tree arm on its own; each graphed and eager
+GRAPHED_ARMS = [("plain", "", RAGGED_KNOBS, "5b"), ("plain", "int8", RAGGED_KNOBS, "5b"),
+                ("tree", "", TREE_KNOBS, "5d")]
+
+
+def step_split_class():
+    """``StepSplit`` of ``scripts/ragged_step_split.py``: host timers of a
+    ragged step's parts."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "ragged_step_split.py")
+    spec = importlib.util.spec_from_file_location("ragged_step_split", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.StepSplit
+
+
+class ReplayClock:
+    """CUDA events on the engine's stream around each ragged replay (its
+    uploads, its draws' copies and the graph) while armed: the device time
+    of a graphed step, whose kernels run back to back. Armed by
+    ``serve_ragged`` around its timed traffic, with the step timers."""
+
+    def __init__(self, engine, split):
+        self.split, self.events, self.armed = split, [], False
+        graphs = engine._ragged_graphs
+        if graphs is None:
+            return
+        replay = graphs.replay
+
+        def timed(*args):
+            if not self.armed:
+                return replay(*args)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            out = replay(*args)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        graphs.replay = timed
+
+    def start(self):
+        self.armed = True
+        self.split.start()
+
+    def stop(self):
+        self.armed = False
+        self.split.stop()
+
+    def device_ms(self):
+        """Mean device ms of a replay (None: no replay timed)."""
+        if not self.events:
+            return None
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / len(self.events)
+
+
+def ragged_graph_arm(params, arm, kv, knobs, traffic, graphs, weight_quant="") -> dict:
+    """One arm of phase 5f: an engine behind the processor with aux
+    ``warmup: full`` under the traffic (``5b``: four long prompts admitted
+    beside live decode rows, ``5d``: four repetitive chats, one sampled),
+    its steps' host split, its replays' device time, its captures and graph
+    memory, and the launch identities of phase 5b and 5d."""
+    extra = {"weight_quant": weight_quant} if weight_quant else {}
+    engine, tokenizer = _engine(params, kv, "llama3-8b", graphs, **knobs, **extra)
+    split = step_split_class()()
+    clock = ReplayClock(engine, split)
+    kw = ({"max_tokens": SPEC_MAX_TOKENS, "prompts": SPEC_PROMPTS, "samplings": SPEC_SAMPLINGS}
+          if traffic == "5d" else {})
+    with split.on(engine):
+        results, wall, c = asyncio.run(serve_ragged(engine, tokenizer, profiler=clock,
+                                                    warmup="full", **kw))
+    health = engine.health()
+    per_replay = {}
+    replayed = engine._ragged_graphs is not None
+    if replayed:
+        names = ("ragged", "tree", "paged", "int4")
+        per_replay = {v.label(): dict(zip(names, counts))
+                      for v, (_g, _o, counts) in engine._ragged_graphs._graphs.items()}
+    n_layers = engine.model.n_layers
+    check_int4_route(engine, c, "5f {} {}".format(arm, weight_quant or kv or "bf16"))
+    del engine
+    torch.cuda.empty_cache()
+    steps = c["ragged_steps"]
+    out = dict(
+        arm=arm, kv=kv or "bf16", weights=weight_quant or "bf16", graphs=graphs,
+        traffic=traffic, wall_s=wall, tokens=c["tokens_emitted"], ragged_steps=steps,
+        ragged_replays=c["ragged_replays"], verify_steps=c["ragged_verify_steps"],
+        chain_steps=c["ragged_chain_steps"], decode_steps=c["decode_steps"],
+        ragged_step_ms=c["ragged_ms"] / max(1, steps),
+        replay_device_ms=clock.device_ms(), split=split.summary(),
+        serve_captures=c["warm_counters"]["serve_captures"] + c["serve_captures"],
+        ragged_launches=c["ragged_launches"], tree_launches=c["tree_launches"],
+        paged_launches=c["paged_launches"], int4_launches=c["int4_launches"],
+        capture_ms={k: v for k, v in health["graph_variants"].items() if k.startswith("ragged")},
+        pool_mib={k: v / 2 ** 20 for k, v in health["graph_pool_bytes"].items()
+                  if k.startswith("ragged")},
+        per_replay=per_replay, contents=[r["content"] for r in results])
+    if c["tokens_emitted"] != (SPEC_MAX_TOKENS * len(SPEC_PROMPTS) if traffic == "5d"
+                               else 32 * len(LONG_PROMPTS)):
+        raise AssertionError("5f {}: a completion stopped early: {} tokens".format(
+            arm, c["tokens_emitted"]))
+    if steps == 0 or c["ragged_launches"] != n_layers * steps:
+        raise AssertionError("5f {}: ragged_paged_attention launched {} times for {} ragged "
+                             "steps of {} layers".format(arm, c["ragged_launches"], steps,
+                                                         n_layers))
+    if c["paged_launches"] != n_layers * (c["decode_steps"] + c["ragged_chain_steps"]):
+        raise AssertionError("5f {}: paged_attention launched {} times for {} decode and {} "
+                             "chained steps".format(arm, c["paged_launches"], c["decode_steps"],
+                                                    c["ragged_chain_steps"]))
+    tree = bool(knobs.get("spec_tree"))
+    if c["tree_launches"] != (n_layers * c["ragged_verify_steps"] if tree else 0):
+        raise AssertionError("5f {}: {} tree launches for {} verify steps".format(
+            arm, c["tree_launches"], c["ragged_verify_steps"]))
+    if replayed and (out["serve_captures"] or c["ragged_replays"] != steps):
+        raise AssertionError("5f {}: {} captures while serving, {} replays for {} ragged "
+                             "steps".format(arm, out["serve_captures"], c["ragged_replays"],
+                                            steps))
+    return out
+
+
+def phase_ragged_graphs(params, qparams, card: str) -> dict:
+    """Phase 5f: every ragged step a CUDA-graph replay. Each arm of
+    ``GRAPHED_ARMS`` graphed and eager (``cuda_graphs: false``), aux
+    ``warmup: full``, then an int4-weight arm graphed: ms a ragged step, the
+    replays' device share of it, the eager step's host split, capture ms and
+    pool MiB per key, captures while serving, the launch counts. Holds:
+    content byte-identical graphed and eager, no capture after the warmup,
+    the launch identities."""
+    t0 = time.perf_counter()
+    runs = []
+    for arm, kv, knobs, traffic in GRAPHED_ARMS:
+        pair = [ragged_graph_arm(params, arm, kv, knobs, traffic, graphs)
+                for graphs in (True, False)]
+        if pair[0]["contents"] != pair[1]["contents"]:
+            raise AssertionError("5f {} {}: content differs graphed and eager: {}".format(
+                arm, kv or "bf16", first_difference(pair[0]["contents"][0],
+                                                    pair[1]["contents"][0])))
+        # the replays' device time over the graphed step's wall; the eager
+        # steps are not clocked on the card, so theirs is derived: the
+        # graphed replays' device time (the same kernels on the same
+        # inputs) over the eager step's wall
+        device_ms = pair[0]["replay_device_ms"]
+        if device_ms is not None:
+            pair[0]["device_share"] = device_ms / pair[0]["ragged_step_ms"]
+            pair[1]["derived_device_share"] = device_ms / pair[1]["ragged_step_ms"]
+        runs += pair
+    int4 = ragged_graph_arm(qparams, "plain", "", RAGGED_KNOBS, "5b", True, weight_quant="int4")
+    if int4["replay_device_ms"] is not None:
+        int4["device_share"] = int4["replay_device_ms"] / int4["ragged_step_ms"]
+    runs.append(int4)
+    for run in runs:
+        sp = run["split"]
+        share = "-"
+        if run.get("device_share") is not None:
+            share = "{:.1%}".format(run["device_share"])
+        elif run.get("derived_device_share") is not None:
+            share = "{:.1%} (derived from the graphed replays)".format(
+                run["derived_device_share"])
+        log("  5f {arm} kv={kv} weights={weights} {mode}: {ragged_steps} ragged steps, "
+            "{ragged_step_ms:.2f} ms each, device share {share}; host ms a step: prepare "
+            "{p:.2f}, coords {co:.2f}, enqueue {e:.2f}, reads {r:.2f}, other {o:.2f}; "
+            "serve captures {serve_captures}; launches ragged {ragged_launches} tree "
+            "{tree_launches} paged {paged_launches} int4 {int4_launches} ({card})".format(
+                mode="graphed" if run["graphs"] else "eager",
+                share=share,
+                p=sp["prepare"], co=sp["coords"], e=sp["enqueue"], r=sp["reads"],
+                o=sp["other"], card=card, **run))
+        if run["graphs"]:
+            log("    capture ms {} ; pool MiB {}".format(
+                json.dumps({k: round(v, 1) for k, v in run["capture_ms"].items()}),
+                json.dumps({k: round(v, 1) for k, v in run["pool_mib"].items()})))
+    for run in runs:
+        run["contents"] = [text[:24] for text in run["contents"]]
+    wall = time.perf_counter() - t0
+    log("  phase 5f: {:.1f} s; graph pools {:.1f} MiB on the tree arm ({})".format(
+        wall, sum(runs[4]["pool_mib"].values()), card))
+    return {"runs": runs, "wall_s": wall}
 
 
 def record_streams(engine) -> dict:
@@ -3769,16 +3994,22 @@ def _zero_counts(engine) -> None:
 
     for key in engine.counters:
         engine.counters[key] = 0 if isinstance(engine.counters[key], int) else 0.0
-    paged_attention.launches = ragged_paged_attention.launches = 0
+    for fn in (paged_attention, ragged_paged_attention):
+        fn.launches = fn.setup_launches = 0
     ragged_paged_attention.tree_launches = 0
 
 
 def _launch_counts() -> dict:
+    """The kernels' launch counts, and the set-up launches of the capture
+    warm-up runs (``*_setup``), which the counts leave out and a trace
+    holds."""
     from clearml_serving_tpu_torch.ops.paged_attention import (
         paged_attention, ragged_paged_attention)
 
     return {"paged": paged_attention.launches, "ragged": ragged_paged_attention.launches,
-            "tree": ragged_paged_attention.tree_launches}
+            "tree": ragged_paged_attention.tree_launches,
+            "paged_setup": paged_attention.setup_launches,
+            "ragged_setup": ragged_paged_attention.setup_launches}
 
 
 async def sampling_10a(engine, tokenizer, card: str) -> dict:
@@ -3944,15 +4175,16 @@ async def sampling_10b(engine, tokenizer, card: str) -> dict:
     verify, the greedy rows do."""
     chats = SAMPLING_CHATS[:4] + [(p, {}) for p in SPEC_SAMPLING_GREEDY]
     verified = []
-    accept = engine._spec_accept
+    variant_of = engine._ragged_variant
 
-    def spy(plan, spec_logits):
+    def spy(plan):
         import numpy as np
-        slots = np.nonzero(plan["spec_mask"] | plan["sspec_mask"])[0]
-        verified.append([engine._slot_req[int(x)] for x in slots])
-        return accept(plan, spec_logits)
+        if plan["row_logit_idx"] is not None:
+            slots = np.nonzero(plan["spec_mask"] | plan["sspec_mask"])[0]
+            verified.append([engine._slot_req[int(x)] for x in slots])
+        return variant_of(plan)
 
-    engine._spec_accept = spy
+    engine._ragged_variant = spy
     runs = []
     async with served(engine, tokenizer) as (_app, base, s):
         _zero_counts(engine)
@@ -4397,16 +4629,17 @@ async def guided_11c_pass(engine, tokenizer, profiler) -> dict:
     # the greedy chats without logprobs: a logprob row never verifies
     chats = GUIDED_CHATS[:6] + [(p, {"logprobs": False}) for p in SPEC_SAMPLING_GREEDY]
     verified = []
-    accept = engine._spec_accept
+    variant_of = engine._ragged_variant
 
-    def spy(plan, spec_logits):
+    def spy(plan):
         import numpy as np
-        slots = np.nonzero(plan["spec_mask"] | plan["sspec_mask"])[0]
-        verified.append([(engine._slot_req[int(x)], int(engine._gstate[int(x)]))
-                         for x in slots])
-        return accept(plan, spec_logits)
+        if plan["row_logit_idx"] is not None:
+            slots = np.nonzero(plan["spec_mask"] | plan["sspec_mask"])[0]
+            verified.append([(engine._slot_req[int(x)], int(engine._gstate[int(x)]))
+                             for x in slots])
+        return variant_of(plan)
 
-    engine._spec_accept = spy
+    engine._ragged_variant = spy
     async with served(engine, tokenizer) as (_app, base, s):
         _zero_counts(engine)
         ctx = profiler if profiler is not None else contextlib.nullcontext()
@@ -4451,15 +4684,17 @@ def guided_11c(params, preset: str, card: str, eos: int) -> dict:
                 launches["paged"] != n_layers * (c["decode_steps"] + c["ragged_chain_steps"]):
             raise AssertionError("11c: launches {} for counters {}".format(launches, c))
         t_trace = time.perf_counter()
-        grids = trace_grids(prof) if prof is not None else {
-            "ragged": launches["ragged"], "paged": launches["paged"]}
+        # the trace holds the counted launches and those of the first-use
+        # captures' warm-up runs, which the counts leave out
+        ran = {k: launches[k] + launches[k + "_setup"] for k in ("ragged", "paged")}
+        grids = trace_grids(prof) if prof is not None else dict(ran)
         t_trace = time.perf_counter() - t_trace
-        if grids == {"ragged": launches["ragged"], "paged": launches["paged"]}:
+        if grids == ran:
             break
         if retries:
             raise AssertionError("11c: the trace holds {} grids, the counts say {}, twice"
                                  .format(grids, launches))
-        retries.append({"traced": grids, "counted": {k: launches[k] for k in grids}})
+        retries.append({"traced": grids, "counted": ran})
         log("  11c: the trace holds {} grids, the counts say {}: profiling once more".format(
             grids, launches))
     guided_verified = [r for rows in p["verified"] for r, g in rows
@@ -4473,15 +4708,17 @@ def guided_11c(params, preset: str, card: str, eos: int) -> dict:
     out = dict(ragged_steps=c["ragged_steps"], verify_steps=c["ragged_verify_steps"],
                ragged_launches=launches["ragged"], tree_launches=launches["tree"],
                paged_launches=launches["paged"], traced=grids, verdicts=verdicts,
+               setup_launches={k: launches[k + "_setup"] for k in ("ragged", "paged")},
                registry=p["registry"], tokens=c["tokens_emitted"], trace_retries=retries,
                pass_s=time.perf_counter() - t_pass, trace_s=t_trace)
     log("  11c: 6 guided + 2 repetitive greedy chats x {} tokens, int8 KV, tree speculation: "
         "{} ragged steps ({} with verify rows, none of them a guided row); launches ragged {} "
-        "tree {} paged {}, the trace's grids {} ({} retries); outputs {}; the pass {:.1f} s, "
-        "reading its trace {:.1f} s ({})".format(
+        "tree {} paged {}, the captures' warm-up runs {}, the trace's grids {} ({} retries); "
+        "outputs {}; the pass {:.1f} s, reading its trace {:.1f} s ({})".format(
             SAMPLING_SPEC_TOKENS, out["ragged_steps"], out["verify_steps"],
             out["ragged_launches"], out["tree_launches"], out["paged_launches"],
-            json.dumps(grids), len(retries), verdicts, out["pass_s"], t_trace, card))
+            json.dumps(out["setup_launches"]), json.dumps(grids), len(retries), verdicts,
+            out["pass_s"], t_trace, card))
     return out
 
 
@@ -6112,8 +6349,8 @@ def fleet_memory_readings(readings: dict):
             readings["built"].append(torch.cuda.memory_allocated())
         return engine
 
-    async def recording_warm(self):
-        await real_warm(self)
+    async def recording_warm(self, full):
+        await real_warm(self, full)
         if on_card:
             sync()
             readings["warmed"].setdefault(self.name, torch.cuda.memory_allocated())
@@ -7147,6 +7384,10 @@ def main() -> int:
                    for kv, weights in GRAPH_CASES for sampled in (False, True)]
     pipeline_runs = phase_pipeline_arms(params)
     mark("5e")
+    log("phase 5f: the ragged launch as CUDA graphs, llama3-8b full width, scheduler ragged, "
+        "warmup full: phase 5b's and 5d's traffic graphed and eager, and on int4 weights")
+    ragged_graphs = phase_ragged_graphs(params, qparams, card)
+    mark("5f")
     log("phase 16: the model families of the paged path behind the HTTP server: Llama-3.1-8B "
         "(scaled RoPE) at full depth, Qwen2.5-7B (QKV biases) and Gemma-7B (head_dim 256, "
         "tied, offset norms, GeGLU) at full width, {} of 28 layers".format(FAMILY_LAYERS))
@@ -7162,6 +7403,9 @@ def main() -> int:
                     for _arm, depth, cuda_graphs in PIPELINE_ARMS]
     ragged_prof = phase_profile(params, "ragged")
     tree_prof = phase_profile(params, "ragged-tree")
+    # the same passes with their ragged steps eager, the decode chunks graphed
+    eager_ragged_profs = [phase_profile(params, scheduler, ragged_graphs=False)
+                          for scheduler in ("ragged", "ragged-tree")]
     int4_prof = phase_profile(qparams, weight_quant="int4")
     mark("6")
     log("phase 7: request lifecycle, llama3-8b full width behind the HTTP server, default "
@@ -7219,6 +7463,14 @@ def main() -> int:
     tt = tkern["timings"]
     tree_bf16 = next(r for r in spec_runs if r["arm"] == "tree" and r["kv"] == "bf16")
     tree_int8 = next(r for r in spec_runs if r["arm"] == "tree" and r["kv"] == "int8")
+    graphed = {(r["arm"], r["kv"], r["weights"]): r for r in ragged_graphs["runs"]
+               if r["graphs"]}
+    g_bf16, g_int8 = graphed[("plain", "bf16", "bf16")], graphed[("plain", "int8", "bf16")]
+    g_tree, g_int4 = graphed[("tree", "bf16", "bf16")], graphed[("plain", "bf16", "int4")]
+
+    def key_counts(run, label, kernel):
+        """What one replay of a phase-5f key adds to a kernel's count."""
+        return run["per_replay"].get(label, {}).get(kernel)
 
     def per_replay(kernel, kv, weights):
         """The launches one replay of phase 5e's greedy chunk added."""
@@ -7253,6 +7505,11 @@ def main() -> int:
         "bound_ms_int8": t["int8_8x1024"]["bound_ms"],
         "per_case": [dict(case=name, **row) for name, row in t.items()],
         "launches_ragged_path": ragged_runs[0]["paged_launches"],
+        # phase 5f: the chained window steps inside the ragged graphs (bf16
+        # KV), and one replay of the window-4 and window-2 greedy keys
+        "launches_ragged_graphs": g_bf16["paged_launches"],
+        "launches_per_replay_ragged_q4": key_counts(g_bf16, "ragged+q4+greedy", "paged"),
+        "launches_per_replay_ragged_q2": key_counts(g_bf16, "ragged+q2+greedy", "paged"),
         # phase 8: decode rows reading shared prefix pages (two-dispatch
         # with graphs, bf16 / int8 KV, and the ragged arm's chained steps)
         "launches_prefix": prefix_arm[("two_dispatch", "bf16")]["paged_launches"],
@@ -7297,6 +7554,12 @@ def main() -> int:
         "tpu": "ops/paged_attention.py:881",
         "launches": ragged_runs[0]["ragged_launches"],
         "launches_int8": ragged_runs[1]["ragged_launches"],
+        # phase 5f: every ragged step one replay, warmup full (bf16 and int8
+        # KV), and one replay of the window-1 greedy key
+        "launches_graphed": g_bf16["ragged_launches"],
+        "launches_graphed_int8": g_int8["ragged_launches"],
+        "replays_graphed": g_bf16["ragged_replays"],
+        "launches_per_replay": key_counts(g_bf16, "ragged+q1+greedy", "ragged"),
         "max_abs_err": rkern["err_bf16"],
         "max_err_bf16": rkern["err_bf16"],
         "max_err_int8": rkern["err_int8"],
@@ -7348,6 +7611,10 @@ def main() -> int:
         # phase 5d's tree arm: once per layer per verify step
         "launches": tree_bf16["tree_launches"],
         "launches_int8": tree_int8["tree_launches"],
+        # phase 5f's tree arm, every verify step one replay, and one replay
+        # of the window-1 greedy tree key
+        "launches_graphed": g_tree["tree_launches"],
+        "launches_per_replay": key_counts(g_tree, "ragged+q1+greedy+tree", "tree"),
         "max_abs_err": tkern["err_bf16"],
         "max_err_bf16": tkern["err_bf16"],
         "max_err_int8": tkern["err_int8"],
@@ -7442,6 +7709,10 @@ def main() -> int:
         "launches_admission": admission["int4"]["int4_launches"],
         # counted in one replay of phase 5e's decode chunk on int4 weights
         "launches_per_replay": per_replay("fused_int4_matmul", "bf16", "int4"),
+        # phase 5f's int4 arm: the ragged steps' replays (and the decode
+        # chunks'), and one replay of the window-1 greedy ragged key
+        "launches_ragged_graphs": g_int4["int4_launches"],
+        "launches_per_ragged_replay": key_counts(g_int4, "ragged+q1+greedy", "int4"),
         "max_abs_err": int4k["err"],
         # primary call: a decode batch through w_gate / w_up
         "shape": "x[{1},4096] @ W[4096,14336] ({0})".format(*INT4_PRIMARY),
@@ -7458,11 +7729,13 @@ def main() -> int:
     log("main path:", json.dumps({"runs": runs, "ragged_runs": ragged_runs,
                                   "int4_runs": int4_runs, "int8_run": int8_run,
                                   "spec_runs": spec_runs, "graph_cases": graph_cases,
+                                  "ragged_graphs": ragged_graphs,
                                   "pipeline_runs": pipeline_runs,
                                   "profile": prof, "serial_profile": serial_prof,
                                   "steady_profiles": steady_profs,
                                   "ragged_profile": ragged_prof,
                                   "tree_profile": tree_prof,
+                                  "eager_ragged_profiles": eager_ragged_profs,
                                   "int4_profile": int4_prof,
                                   "lifecycle": lifecycle, "prefix_cache": prefix,
                                   "kv_tier": tier, "sampling": sampling,

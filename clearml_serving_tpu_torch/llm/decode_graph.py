@@ -77,8 +77,8 @@ from .sampling import (
     sample_tokens,
 )
 
-# the kernels a chunk launches, whose ``launches`` counts a replay adds to
-COUNTED_KERNELS = (paged_attention, fused_int4_matmul)
+# the kernels a chunk launches: (wrapper, count) pairs a replay adds to
+COUNTED = ((paged_attention, "launches"), (fused_int4_matmul, "launches"))
 
 
 # Every capture warms up on one stream per device and captures on the
@@ -312,9 +312,65 @@ def run_chunk(model, cache, views, chain: torch.Tensor, noise: Optional[torch.Te
                         **kw)
 
 
-def _own_launches():
-    """This thread's counted launches of each of ``COUNTED_KERNELS``."""
-    return [launch_counts.own(fn) for fn in COUNTED_KERNELS]
+def capture_graph(run, stream: "torch.cuda.Stream", counted, capture_error_mode: str,
+                  pool=None) -> tuple:
+    """Capture ``run()`` into a new CUDA graph. Called on the capture thread
+    (``_on_capture_thread``), on ``stream`` (the engine's), with the static
+    inputs set to a launch that writes only the null page. ``run`` first runs
+    once eagerly on the warm-up stream, so kernel loads and library handles
+    are set up outside the capture, then is captured on the capture stream
+    of ``stream`` (``_capture_streams``), into ``pool`` (None: a private
+    pool of its own). The kernels' counts of ``counted`` ((wrapper, count)
+    pairs) keep meaning kernels run on the card: the capture's calls are
+    taken back out and the warm-up run's ``launches`` moved into
+    ``setup_launches``, both from this thread's own calls
+    (``ops.launch_counts``: an admission worker may launch meanwhile).
+    Returns ``(graph, static output, counts per replay, pool growth)``: the
+    rise of the card's reserved memory inside the capture, the segments the
+    pool took for it."""
+    dev = stream.device
+
+    def own():
+        return [launch_counts.own(fn, attr) for fn, attr in counted]
+
+    before = own()
+    graph = torch.cuda.CUDAGraph()
+    # the lock keeps another thread's release of a dropped engine out of
+    # the capture
+    with CAPTURE_LOCK:
+        warm, side = _capture_streams(dev, stream)
+        warm.wait_stream(stream)
+        with torch.cuda.stream(warm):
+            run()
+        stream.wait_stream(warm)
+        start = own()
+        # the cycle collector stays off during the capture: a dead engine's
+        # graphs and events it would free there release CUDA resources from
+        # inside the capture, which invalidates it
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode=capture_error_mode):
+                # read inside: entering the capture empties the cache
+                reserved = torch.cuda.memory_reserved(dev)
+                out = run()
+                grown = torch.cuda.memory_reserved(dev) - reserved
+        finally:
+            if gc_was_on:
+                gc.enable()
+    now = own()
+    for (fn, attr), was, warm_end, count in zip(counted, before, start, now):
+        launch_counts.add(fn, was - count, attr=attr)
+        if attr == "launches":
+            launch_counts.add(fn, warm_end - was, attr="setup_launches")
+    return graph, out, [a - b for a, b in zip(now, start)], grown
+
+
+def add_replay_counts(counted, per_replay) -> None:
+    """Add one replay's launches, as its capture recorded them."""
+    for (fn, attr), count in zip(counted, per_replay):
+        launch_counts.add(fn, count, attr=attr)
 
 
 class DecodeGraphs:
@@ -327,11 +383,8 @@ class DecodeGraphs:
     ``max_batch`` rows under an active mask, so there are no batch
     buckets.
 
-    The kernels' ``launches`` counts keep meaning kernels run on the card:
-    a capture launches nothing, so its calls (and the warm-up run before
-    it, set-up work) are taken back out, and each replay adds the counts
-    its capture recorded. Both are the capturing thread's own calls
-    (``ops.launch_counts``): an admission worker may launch meanwhile."""
+    The kernels' ``launches`` counts keep meaning kernels run on the card
+    (``capture_graph``): each replay adds the counts its capture recorded."""
 
     def __init__(self, model, cache, layout: ChunkLayout, steps: int,
                  state_fn=None, lp_k: int = 1, tables_fn=None):
@@ -355,6 +408,9 @@ class DecodeGraphs:
         self.noise = torch.zeros((steps, b, model.vocab_size), dtype=torch.float32, device=dev)
         # variant -> (graph, static output, launches per replay)
         self._graphs: Dict[ChunkVariant, tuple] = {}
+        # variant -> the rise of the card's reserved memory inside its
+        # capture: the segments its private pool took
+        self.pool_growth: Dict[ChunkVariant, int] = {}
 
     def captured(self, greedy) -> bool:
         """Whether the variant (a ``ChunkVariant``, or a bool naming a
@@ -366,6 +422,7 @@ class DecodeGraphs:
         of a grammar-table bucket no launch reads any more."""
         for variant in [v for v in self._graphs if v.guided == bucket]:
             del self._graphs[variant]
+            self.pool_growth.pop(variant, None)
 
     def _run(self, variant: ChunkVariant):
         return run_chunk(self.model, self.cache, self.views, self.chain,
@@ -388,40 +445,13 @@ class DecodeGraphs:
         """``capture``'s body, on the capture thread, ordered after the
         caller's ``stream``."""
         with torch.cuda.stream(stream):
-            dev = self.model.device
             # null coordinates and no active row: the warm-up run writes only
             # the null page and adds nothing to the extras' histogram
             for name in ("page_table", "lengths0", "write_pages", "write_offsets", "active"):
                 self.views[name].zero_()
-            before = _own_launches()
-            graph = torch.cuda.CUDAGraph()
-            # the lock keeps another thread's release of a dropped engine
-            # out of the capture
-            with CAPTURE_LOCK:
-                warm, side = _capture_streams(dev, stream)
-                # one eager run first, on the warm-up stream: kernel loads
-                # and library handles are set up outside the capture
-                warm.wait_stream(stream)
-                with torch.cuda.stream(warm):
-                    self._run(variant)
-                stream.wait_stream(warm)
-                start = _own_launches()
-                # the cycle collector stays off during the capture: a dead
-                # engine's graphs and events it would free there release
-                # CUDA resources from inside the capture, which invalidates it
-                gc_was_on = gc.isenabled()
-                gc.disable()
-                try:
-                    with torch.cuda.graph(graph, stream=side,
-                                          capture_error_mode=capture_error_mode):
-                        out = self._run(variant)
-                finally:
-                    if gc_was_on:
-                        gc.enable()
-            now = _own_launches()
-            per_replay = [a - b for a, b in zip(now, start)]
-            for fn, was, count in zip(COUNTED_KERNELS, before, now):
-                launch_counts.add(fn, was - count)
+            graph, out, per_replay, grown = capture_graph(
+                lambda: self._run(variant), stream, COUNTED, capture_error_mode)
+            self.pool_growth[variant] = grown
             self._graphs[variant] = (graph, out, per_replay)
 
     def replay(self, greedy, host_i32: torch.Tensor, host_f32: torch.Tensor,
@@ -440,8 +470,7 @@ class DecodeGraphs:
         if not variant.greedy:
             self.noise.copy_(noise)
         graph.replay()
-        for fn, count in zip(COUNTED_KERNELS, per_replay):
-            launch_counts.add(fn, count)
+        add_replay_counts(COUNTED, per_replay)
         result = out
         if variant.guided:
             result, gstate = out

@@ -104,7 +104,12 @@ multi-step window (``ragged_decode_steps``, widened from the budget left
 over) and prefill-chunk rows that share ``step_token_budget`` tokens in
 admission order. A decode row's window chains ``decode_paged`` steps after
 the mixed pass in the same step; a job's final chunk samples the first
-token and activates its slot. With no jobs left, decode chunks resume.
+token and activates its slot. With no jobs left, decode chunks resume. A
+step's inputs are staged on the host into two packed buffers after its
+page allocation (``_stage_ragged``, ``llm/ragged_graph.py``'s
+``RaggedLayout``); on the card the step is one CUDA-graph replay of its
+launch key (``RaggedVariant``, captured by ``warmup(full=True)`` or at its
+first use), eagerly ``run_ragged`` on the CPU or with ``cuda_graphs`` off.
 
 ``speculation="ngram"`` (ragged scheduler only): eligible decode slots
 (greedy, or sampled with ``spec_sampling``) ride the mixed launches as
@@ -202,6 +207,14 @@ from .decode_graph import (
     run_chunk,
 )
 from . import kv_cache, lifecycle_ledger
+from .ragged_graph import (
+    RaggedGraphs,
+    RaggedLayout,
+    RaggedVariant,
+    plain_variants,
+    ragged_draws,
+    run_ragged,
+)
 from . import guided as _guided
 from .kv_cache import PagedKVCache
 from .kv_sanitizer import KVSanitizer, enabled as sanitizer_enabled
@@ -211,16 +224,11 @@ from .sampling import (
     STOP_SLOTS,
     SamplingExtras,
     SamplingParams,
-    greedy_tree_walk,
-    guided_advance,
-    guided_mask,
     gumbel_noise,
     logprobs_of,
     penalize_logits,
     sample_penalized,
     sample_tokens,
-    speculative_sample_chain,
-    speculative_sample_tree,
     top_k,
 )
 from .spec_proposer import chain_parents, make_proposer
@@ -1078,6 +1086,21 @@ class LLMEngineCore:
                                      state_fn=lambda: self._extras, lp_k=self._lp_k,
                                      tables_fn=self._guided_tables_of)
                         if self._stream is not None and cuda_graphs else None)
+        # the ragged launch: its inputs' staging layout, and on the card one
+        # CUDA graph per launch key over static buffers (unless cuda_graphs
+        # is off), the verify rows' kind fixed by the engine's knobs
+        self._verify_kind = ("tree" if self._spec_tree
+                             else "chain" if self._speculation else "")
+        self._ragged_layout = (RaggedLayout(self.max_batch, self._ragged_tpad, self._ragged_qb,
+                                            self._pages_per_seq, self._ragged_steps_cap,
+                                            self._spec_k)
+                               if self._ragged else None)
+        self._ragged_graphs = (RaggedGraphs(model, self.paged_cache, self._ragged_layout,
+                                            block_map=self._ragged_qb > 1,
+                                            spec=bool(self._speculation),
+                                            state_fn=lambda: self._extras, lp_k=self._lp_k,
+                                            tables_fn=self._guided_tables_of)
+                               if self._ragged and self._graphs is not None else None)
         # first-use capture time of each variant (ms), by label
         self._capture_ms: Dict[str, float] = {}
         self._chain = torch.zeros(self.max_batch, dtype=torch.int32, device=self.device)
@@ -1173,7 +1196,7 @@ class LLMEngineCore:
                          "ragged_steps": 0, "ragged_decode_tokens": 0,
                          "ragged_chain_steps": 0, "ragged_verify_steps": 0,
                          "ragged_ms": 0.0, "graph_captures": 0, "graph_replays": 0,
-                         "serve_captures": 0,
+                         "ragged_replays": 0, "serve_captures": 0,
                          "sheds_queue": 0, "sheds_pool": 0, "deadline_queue": 0,
                          "deadline_ttft": 0, "deadline_total": 0, "watchdog_trips": 0,
                          "step_failures": 0, "preemptions": 0, "spec_tree_fallbacks": 0}
@@ -1390,8 +1413,9 @@ class LLMEngineCore:
         while self._gstale and (self._gstale[0][1] is None or self._gstale[0][1].query()):
             bucket, _event = self._gstale.pop(0)
             self._gdev.pop(bucket, None)
-            if self._graphs is not None:
-                self._graphs.drop_guided(bucket)
+            for graphs in (self._graphs, self._ragged_graphs):
+                if graphs is not None:
+                    graphs.drop_guided(bucket)
 
     def _write_guided_tables(self, bucket: int, mask_np: np.ndarray, byte_np: np.ndarray,
                              lo: int) -> None:
@@ -2004,14 +2028,15 @@ class LLMEngineCore:
             # emission point (no-op after a normal finish)
             request.cancelled = True
 
-    async def warmup(self) -> dict:
+    async def warmup(self, full: bool = False) -> dict:
         """Serve the warmup sweep (``llm/warmup.py``) before traffic: every
         prefill bucket's first use, and one decode chunk of each CUDA-graph
-        variant, which captures it. Captures after this count in
-        ``counters["serve_captures"]``."""
+        variant, which captures it; ``full``: the reference's full sweep
+        besides, with every plain ragged launch key. Captures after this
+        count in ``counters["serve_captures"]``."""
         from . import warmup as _warmup
 
-        return await _warmup.run_warmup(self)
+        return await _warmup.run_warmup(self, full=full)
 
     def stop(self) -> None:
         """Stop the loop and fail every active and pending request (503);
@@ -2353,9 +2378,14 @@ class LLMEngineCore:
                 "bytes": self.model.weight_bytes(),
             },
             counters=dict(self.counters),
-            # the decode chunk's captured graph variants and each one's
+            # the captured graph variants (the decode chunk's, and the
+            # ragged launch's keys, labelled "ragged+...") and each one's
             # capture time (ms)
             graph_variants=dict(self._capture_ms),
+            # each live graph's memory: the rise of the card's reserved
+            # bytes inside its capture (a decode-chunk variant's private
+            # pool; what the ragged keys' shared pool took for the key)
+            graph_pool_bytes=self._graph_pool_bytes(),
             # the grammar registry: grammars, references, combined states,
             # the device bucket and its tables' bytes
             guided=self._guided_snapshot(),
@@ -2365,6 +2395,13 @@ class LLMEngineCore:
         )
         if self.replica_id is not None:
             out["replica"] = self.replica_id
+        return out
+
+    def _graph_pool_bytes(self) -> Dict[str, int]:
+        out = {}
+        for graphs in (self._graphs, self._ragged_graphs):
+            if graphs is not None:
+                out.update((v.label(), n) for v, n in graphs.pool_growth.items())
         return out
 
     def _ragged_snapshot(self) -> Optional[dict]:
@@ -2721,14 +2758,6 @@ class LLMEngineCore:
             self._deref_guided_request(request)
             request.error = err
             request.out_queue.put_nowait(_FINISHED)
-
-    def _sampling(self) -> SamplingParams:
-        dev = self.device
-        return SamplingParams(
-            temperature=torch.as_tensor(self._temperature, device=dev),
-            top_k=torch.as_tensor(self._top_k, device=dev),
-            top_p=torch.as_tensor(self._top_p, device=dev),
-        )
 
     async def _run_prefill(self, request: GenRequest):
         """Loop thread: run an admission's prefill (``_prefill_steps``) on
@@ -3355,35 +3384,45 @@ class LLMEngineCore:
                               tokens=tokens, ready=ready, exhausted=prep["exhausted"],
                               epoch=prep["epoch"], lp=lp, gstate=gstate)
 
-    def _capture(self, variant: ChunkVariant) -> None:
-        """Capture a decode-chunk variant: inside ``warmup()`` in the
-        global mode (the card is the engine's alone), while serving in the
+    def _capture(self, variant) -> None:
+        """Capture a decode-chunk variant (``ChunkVariant``) or a ragged
+        launch key (``RaggedVariant``): inside ``warmup()`` in the global
+        mode (the card is the engine's alone), while serving in the
         thread-local one (a retire may read back meanwhile), counted in
         ``serve_captures``; its time lands in ``health()["graph_variants"]``.
-        A failed capture raises: the chunk never runs eagerly instead.
+        A failed capture raises: the step never runs eagerly instead.
         Engines of a replica group capture in the thread-local mode
         always: a sibling may be serving meanwhile."""
+        ragged = isinstance(variant, RaggedVariant)
+        graphs = self._ragged_graphs if ragged else self._graphs
         t0 = time.perf_counter()
         try:
-            self._graphs.capture(
+            graphs.capture(
                 variant, capture_error_mode=("global" if self._warming and not self._cohosted
                                              else "thread_local"))
         except Exception as ex:
-            raise RuntimeError("CUDA-graph capture of the {} decode chunk failed: {}".format(
-                variant.label(), ex)) from ex
+            raise RuntimeError("CUDA-graph capture of the {} {} failed: {}".format(
+                variant.label(), "ragged launch" if ragged else "decode chunk", ex)) from ex
         self._capture_ms[variant.label()] = (time.perf_counter() - t0) * 1e3
         self.counters["graph_captures"] += 1
         if not self._warming:
             self.counters["serve_captures"] += 1
 
-    def _capture_graphs(self) -> None:
+    def _capture_graphs(self, ragged: bool = False) -> None:
         """Capture the plain decode-chunk variants not captured yet
         (``warmup()``; nothing on the CPU or with ``cuda_graphs`` off). As
         in the reference's sweep, the extras, logprob and guided variants
-        are captured at their first use."""
+        are captured at their first use. With ``ragged`` (``warmup:
+        full`` on a ragged engine with graphs) every plain ragged launch key
+        too (the reference's ``warm_ragged_variants``)."""
         for greedy in (True, False):
             variant = ChunkVariant(greedy)
             if self._graphs is not None and not self._graphs.captured(variant):
+                self._capture(variant)
+        if not ragged or self._ragged_graphs is None:
+            return
+        for variant in plain_variants(self._ragged_steps_cap, self._verify_kind):
+            if not self._ragged_graphs.captured(variant):
                 self._capture(variant)
 
     async def _retire_chunk(self, entry: _InFlightChunk) -> None:
@@ -4017,7 +4056,8 @@ class LLMEngineCore:
             "want_lp": want_lp,
             "gbucket": gbucket,
             "gstate": self._gstate.copy() if gbucket else None,
-            "sampling": self._sampling(),
+            "temperature": self._temperature.copy(), "top_k": self._top_k.copy(),
+            "top_p": self._top_p.copy(),
             # plain sampling serves the plain decode rows only
             "all_greedy": not (self._temperature[plain_mask] > 0).any(),
             "row_steps": row_steps,
@@ -4043,49 +4083,6 @@ class LLMEngineCore:
             "write_page": np.zeros(tpad, np.int32),
             "write_offset": np.zeros(tpad, np.int32),
         }
-
-    def _ragged_extras(self, plan: dict):
-        """The plain rows' extras on the device (None without): the
-        ``SamplingExtras`` of the launch's step 0, and the active mask whose
-        rows the histogram counts."""
-        rows = plan["extras_rows"]
-        if rows is None:
-            return None, None
-        dev = self.device
-        t = {k: torch.as_tensor(v, device=dev) for k, v in rows.items()}
-        sampled = plan["decode_mask"] & (self._temperature > 0)
-        seeded = bool((rows["seeds"][sampled] >= 0).any())
-        extras = SamplingExtras(
-            presence=t["presence"], frequency=t["frequency"], repetition=t["repetition"],
-            bias=self._extras.bias, seeds=t["seeds"] if seeded else None,
-            counters=t["counters"], min_new=t["min_new"], stop=t["stop"])
-        return extras, t["active"]
-
-    def _sample_rows(self, logits, sampling, all_greedy, extras, mask, step: int, want_lp,
-                     guided=None, gstate=None):
-        """One sampling step of a ragged launch's plain rows (the
-        reference's ``_sample_rows``/``_chain_sample``, the chunk body's
-        order): the grammar mask of the rows' DFA states ``gstate`` (with
-        ``guided`` tables), the penalized sample with the seed counters
-        offset by ``step``, the histogram advanced for ``mask``'s rows, the
-        states advanced for ``mask``'s rows, and the step's logprobs (or
-        None). Returns (tokens, logprobs, states)."""
-        logits = logits.float()
-        if guided is not None:
-            logits = guided_mask(logits, gstate, guided[0])
-        if extras is None:
-            tok = sample_tokens(logits, sampling, generator=self._gen, all_greedy=all_greedy)
-            lp_src = logits
-        else:
-            ex = extras._replace(counters=extras.counters + step)
-            lp_src = penalize_logits(logits, ex, self._extras.counts, self._extras.pmask)
-            tok = sample_penalized(lp_src, sampling, generator=self._gen,
-                                   all_greedy=all_greedy, extras=ex)
-            self._extras.counts.scatter_add_(1, tok.long()[:, None],
-                                             mask.to(torch.int32)[:, None])
-        if guided is not None:
-            gstate = guided_advance(gstate, tok, mask, *guided[1:])
-        return tok, (logprobs_of(lp_src, tok, self._lp_k) if want_lp else None), gstate
 
     def _ragged_drop_row(self, plan: dict, slot: int) -> None:
         """Worker-side removal of a row whose page extension failed: its
@@ -4118,87 +4115,17 @@ class LLMEngineCore:
             plan["failed_jobs"].append(
                 (job, MemoryError("kv page pool exhausted during ragged admission")))
 
-    def _spec_accept(self, plan: dict, spec_logits: torch.Tensor):
-        """Draft acceptance of the verify rows over their per-position
-        logits [B, k+1, vocab]: greedy rows take the argmax-match chain (or
-        the longest greedy tree path), sampled rows the rejection-sampled
-        chain (or tree). Returns (g [B, k+1], acc [B], nodes): g[b, :acc+1]
-        are the tokens a row emits; nodes [B, k+1] maps each kept row
-        position to its tree node (None on chain engines, whose accepted
-        positions are already contiguous)."""
-        dev = self.device
-
-        def on_dev(a):
-            return torch.as_tensor(a, device=dev)
-
-        spec_sel, sspec_sel = on_dev(plan["spec_mask"]), on_dev(plan["sspec_mask"])
-        sampled_rows = bool(plan["sspec_mask"].any())
-        sl = spec_logits.float()
-        zeros = torch.zeros(sl.shape[0], dtype=torch.int32, device=dev)
-        if plan["tree_anc"] is not None:
-            t_tok, t_par, t_n = (on_dev(plan[key]) for key in
-                                 ("tree_tokens", "tree_parents", "tree_n"))
-            g, acc_g, nodes = greedy_tree_walk(
-                torch.argmax(sl, dim=-1).to(torch.int32), t_tok, t_par, t_n)
-            acc = torch.where(spec_sel, acc_g, zeros)
-            if sampled_rows:
-                g_s, acc_s, nodes_s = speculative_sample_tree(
-                    sl, t_tok, t_par, t_n, plan["sampling"], generator=self._gen)
-                g = torch.where(sspec_sel[:, None], g_s, g)
-                acc = torch.where(sspec_sel, acc_s, acc)
-                nodes = torch.where(sspec_sel[:, None], nodes_s, nodes)
-            ident = torch.arange(nodes.shape[1], dtype=torch.int32, device=dev)
-            nodes = torch.where((spec_sel | sspec_sel)[:, None], nodes, ident)
-            return g, acc, nodes
-        k_ = plan["spec_k"]
-        drafts = on_dev(plan["drafts"])
-        g = torch.argmax(sl, dim=-1).to(torch.int32)                   # [B, k+1]
-        acc_g = torch.cumprod((drafts == g[:, :k_]).to(torch.int32), dim=1).sum(dim=1)
-        acc = torch.where(spec_sel, acc_g.to(torch.int32), zeros)
-        if sampled_rows:
-            g_s, acc_s = speculative_sample_chain(sl, drafts, plan["sampling"],
-                                                  generator=self._gen)
-            g = torch.where(sspec_sel[:, None], g_s, g)
-            acc = torch.where(sspec_sel, acc_s, acc)
-        return g, acc, None
-
-    def _compact_tree_kv(self, plan: dict, nodes: torch.Tensor, write_page: torch.Tensor,
-                         write_offset: torch.Tensor) -> None:
-        """KV path compaction of the tree verify rows: each accepted node's
-        just-written K/V (and int8 scales) is rewritten at its path depth,
-        so the retire's truncation to pre + 1 + acc keeps a contiguous
-        prefix, as a chain row's. Non-moves write the null page 0. The
-        sources are gathered into a new tensor before the scatter."""
-        rows = [int(s) for s in np.nonzero(plan["spec_mask"] | plan["sspec_mask"])[0]]
-        if not rows:
-            return
-        dev = self.device
-        sel = nodes[torch.as_tensor(rows, device=dev), 1:].long()     # [S, k]
-        pos = torch.arange(1, nodes.shape[1], device=dev)[None, :]
-        starts = torch.as_tensor(plan["row_starts"][rows].astype(np.int64), device=dev)
-        src = (starts[:, None] + sel).reshape(-1)
-        dst = (starts[:, None] + pos).reshape(-1)
-        move = (sel != pos).reshape(-1)
-        wp, wo = write_page.long(), write_offset.long()
-        sp, so = wp[src], wo[src]
-        dp = torch.where(move, wp[dst], 0)
-        do = torch.where(move, wo[dst], 0)
-        cache = self.paged_cache
-        pools = [cache.k, cache.v]
-        if cache.kv_quant:
-            pools += [cache.k_scale, cache.v_scale]
-        for p in pools:
-            p[:, :, dp, do] = p[:, :, sp, so]
-
-    def _dispatch_ragged_device(self, plan: dict) -> dict:
-        """Worker thread: page allocation for every row's span, then the
-        step: ``forward_ragged`` over the mixed batch (verify rows read
-        their per-position logits; tree rows masked by ``tree_anc``), the
-        verify rows' acceptance and tree KV compaction, sampling of the
-        plain decode rows, ``launch_steps - 1`` chained ``decode_paged``
-        steps at ``kv_lens + step`` (tokens held where the window is
-        closed), and the finishing rows' logits gathered on the device."""
-        t0 = time.perf_counter()
+    def _stage_ragged(self, plan: dict):
+        """Worker-side host half of a ragged step, before any device work:
+        page allocation for every row's span (a row the pool cannot extend
+        leaves the launch, ``_ragged_drop_row``), the pending copies on
+        write enqueued on the engine's stream ahead of the launch that
+        writes the fresh pages, each token's page coordinates (a plain
+        decode row's window positions 1.. become the chained steps' write
+        coordinates, the mixed pass writing them to the null page, like any
+        pad), and every input of the launch packed into fresh staging
+        buffers (``RaggedLayout``; pinned on the card). Returns
+        ``(host_i32, host_f32)``."""
         pool = self.paged_cache.pool
         wp_host, wo_host = plan["write_page"], plan["write_offset"]
         for slot in list(plan["spans"]):
@@ -4218,10 +4145,8 @@ class LLMEngineCore:
         self.paged_cache.apply_pending_cow()
         launch_steps = plan["launch_steps"]
         spec_any = plan["spec_mask"] | plan["sspec_mask"]
+        chain_wp = chain_wo = None
         if launch_steps > 1:
-            # a plain decode row's span positions 1.. become the chained
-            # steps' write coordinates; the mixed pass writes them to the
-            # null page, like any pad
             chain_wp = np.zeros((launch_steps - 1, self.max_batch), np.int32)
             chain_wo = np.zeros((launch_steps - 1, self.max_batch), np.int32)
             for slot, (s, n) in plan["spans"].items():
@@ -4232,85 +4157,99 @@ class LLMEngineCore:
                     chain_wo[i - 1, slot] = wo_host[s + i]
                     wp_host[s + i] = 0
                     wo_host[s + i] = 0
-        dev = self.device
+        arrays = dict(plan["extras_rows"] or {})
+        arrays.update({name: plan[name] for name in (
+            "tokens", "tok_pos", "tok_row", "tok_valid", "write_page", "write_offset",
+            "block_rows", "block_q0", "row_last", "row_starts", "row_lens", "kv_lens",
+            "chain_mask", "spec_mask", "sspec_mask", "drafts", "row_logit_idx",
+            "tree_tokens", "tree_parents", "tree_n", "tree_anc", "temperature", "top_k",
+            "top_p", "gstate")})
+        arrays.update(page_table=pool.page_table(self._pages_per_seq), chain_wp=chain_wp,
+                      chain_wo=chain_wo,
+                      # the plain rows of the launch, after any dropped row:
+                      # the histogram and the DFA states advance for them
+                      active=plan["decode_mask"] & ~spec_any)
+        return self._ragged_layout.stage(arrays, pin=self._stream is not None)
 
-        def on_dev(a):
-            return torch.as_tensor(a, device=dev)
+    def _ragged_variant(self, plan: dict) -> RaggedVariant:
+        """The launch's key, from what the plan fixes: its window, its
+        verify rows' kind (from the plan's layout: a verify row dropped for
+        want of pages leaves the kind) and whether one samples, whether
+        every plain row is greedy, the extras (a sampled plain row
+        seeded), the logprobs and the grammar tables' bucket."""
+        verify = ("" if plan["row_logit_idx"] is None
+                  else "tree" if plan["tree_anc"] is not None else "chain")
+        rows = plan["extras_rows"]
+        sampled = plan["decode_mask"] & (plan["temperature"] > 0)
+        return RaggedVariant(
+            steps=plan["launch_steps"], verify=verify,
+            sampled_verify=bool(plan["sspec_mask"].any()), greedy=bool(plan["all_greedy"]),
+            extras=rows is not None,
+            seeded=rows is not None and bool((rows["seeds"][sampled] >= 0).any()),
+            lp=bool(plan["want_lp"]), guided=int(plan["gbucket"]))
 
-        cache = self.paged_cache
-        scale_kw = ({"k_scales": cache.k_scale, "v_scales": cache.v_scale}
-                    if cache.kv_quant else {})
-        block_kw = ({"block_rows": on_dev(plan["block_rows"]),
-                     "block_q0": on_dev(plan["block_q0"])}
-                    if self._ragged_qb > 1 else {})
-        verify_kw = {}
-        if plan["row_logit_idx"] is not None:
-            verify_kw["row_logit_idx"] = on_dev(plan["row_logit_idx"])
-        if plan["tree_anc"] is not None:
-            verify_kw["tree_anc"] = on_dev(plan["tree_anc"])
-        page_table = on_dev(pool.page_table(self._pages_per_seq))
-        kv_lens = on_dev(plan["kv_lens"])
-        write_page, write_offset = on_dev(wp_host), on_dev(wo_host)
-        out = self.model.forward_ragged(
-            on_dev(plan["tokens"]), on_dev(plan["tok_pos"]), on_dev(plan["tok_row"]),
-            on_dev(plan["tok_valid"]), on_dev(plan["row_last"]), cache.k, cache.v,
-            page_table, kv_lens, on_dev(plan["row_starts"]), on_dev(plan["row_lens"]),
-            write_page, write_offset, **block_kw, **scale_kw, **verify_kw,
-        )
-        spec_g = spec_acc = None
-        if plan["row_logit_idx"] is not None:
-            self.counters["ragged_verify_steps"] += 1
-            logits, spec_logits = out
-            spec_g, spec_acc, nodes = self._spec_accept(plan, spec_logits)
-            if nodes is not None:
-                self._compact_tree_kv(plan, nodes, write_page, write_offset)
-        else:
-            logits = out
-        sampling, all_greedy = plan["sampling"], plan["all_greedy"]
-        want_lp = plan["want_lp"]
-        extras, active = self._ragged_extras(plan)
-        guided = gstate = None
-        if plan["gbucket"]:
-            guided = self._guided_tables_of(plan["gbucket"])
-            gstate = on_dev(plan["gstate"])
-            # the plain rows of the launch, after any dropped row
-            active = on_dev(plan["decode_mask"] & ~spec_any)
-        tok, lp, gstate = self._sample_rows(logits, sampling, all_greedy, extras, active, 0,
-                                            want_lp, guided, gstate)
-        steps, lps = [tok], [lp]
-        if launch_steps > 1:
-            chain_mask = on_dev(plan["chain_mask"])
-            wp, wo = on_dev(chain_wp), on_dev(chain_wo)
-            for step in range(launch_steps - 1):
-                step_logits = self.model.decode_paged(
-                    tok.long(), cache.k, cache.v, page_table, kv_lens + step,
-                    wp[step], wo[step], **scale_kw,
-                )
-                sampled, lp, gstate = self._sample_rows(
-                    step_logits, sampling, all_greedy, extras, chain_mask[step], step + 1,
-                    want_lp, guided, gstate)
-                tok = torch.where(chain_mask[step], sampled, tok)
-                steps.append(tok)
-                lps.append(lp)
-                self.counters["ragged_chain_steps"] += 1
-        sampled = torch.stack(steps).cpu().numpy()                    # [S, B]
-        # only the finishing rows' logits stay for the first-token draw
-        # (rows pad to a power of two with row 0; a dropped row is gone)
+    def _run_ragged(self, variant: RaggedVariant, host_i32: torch.Tensor,
+                    host_f32: torch.Tensor, draws: dict) -> dict:
+        """The launch run eagerly (the CPU, or ``cuda_graphs`` off):
+        ``run_ragged`` over the staged buffers, uploaded."""
+        views = self._ragged_layout.views(host_i32.to(self.device, non_blocking=True),
+                                          host_f32.to(self.device, non_blocking=True))
+        return run_ragged(self.model, self.paged_cache, views, variant, draws,
+                          block_map=self._ragged_qb > 1,
+                          state=self._extras if variant.extras else None,
+                          tables=(self._guided_tables_of(variant.guided)
+                                  if variant.guided else None), lp_k=self._lp_k)
+
+    def _read_ragged(self, plan: dict, out: dict, variant: RaggedVariant) -> dict:
+        """The readback of a launch's outputs, before any later launch can
+        overwrite them: the finishing rows' logits gathered on the device
+        (rows padded to a power of two with row 0; a dropped row is gone),
+        then the host reads of the tokens, the logprobs, the verify rows'
+        tokens and acceptance and the DFA states."""
         finish = [s for s in plan["finish_slots"] if s in plan["spans"]]
         finish_logits = None
         if finish:
             rows = np.zeros(shapes.pow2_bucket(len(finish)), np.int64)
             rows[:len(finish)] = finish
-            finish_logits = logits[on_dev(rows)]
-        result = {"sampled": sampled, "logits": finish_logits, "finish_rows": finish,
-                  "spec_g": None, "spec_acc": None, "lp": None,
-                  "gstate": None if gstate is None else gstate.cpu().numpy()}
-        if want_lp:
+            finish_logits = out["logits"][self._device_tensor(rows, np.int64)]
+        result = {"sampled": out["sampled"].cpu().numpy(), "logits": finish_logits,
+                  "finish_rows": finish, "spec_g": None, "spec_acc": None, "lp": None,
+                  "gstate": None}
+        if variant.lp:
             # step-major [S, B] (and [S, B, K]) on the host
-            result["lp"] = tuple(torch.stack(part).cpu().numpy() for part in zip(*lps))
-        if spec_g is not None:
-            result["spec_g"] = spec_g.cpu().numpy()
-            result["spec_acc"] = spec_acc.cpu().numpy()
+            result["lp"] = tuple(part.cpu().numpy() for part in out["lp"])
+        if variant.verify:
+            result["spec_g"] = out["spec_g"].cpu().numpy()
+            result["spec_acc"] = out["spec_acc"].cpu().numpy()
+        if variant.guided:
+            result["gstate"] = out["gstate"].cpu().numpy()
+        return result
+
+    def _dispatch_ragged_device(self, plan: dict) -> dict:
+        """Worker thread: one ragged step in three parts. The host staging
+        (``_stage_ragged``); the device work, one CUDA-graph replay of the
+        launch's key on the card (captured at its first use), or
+        ``run_ragged`` eagerly on the CPU or with ``cuda_graphs`` off, both
+        over the same staged inputs and the draws taken here from the
+        engine's generator; the readback (``_read_ragged``). The verify and
+        chained-step counters count on the host, per launch."""
+        t0 = time.perf_counter()
+        host_i32, host_f32 = self._stage_ragged(plan)
+        variant = self._ragged_variant(plan)
+        with self._rng_lock:
+            draws = ragged_draws(variant, self.max_batch, self.model.vocab_size,
+                                 self._spec_k, self._gen, self.device)
+        if self._ragged_graphs is not None:
+            if not self._ragged_graphs.captured(variant):
+                self._capture(variant)
+            out = self._ragged_graphs.replay(variant, host_i32, host_f32, draws)
+            self.counters["ragged_replays"] += 1
+        else:
+            out = self._run_ragged(variant, host_i32, host_f32, draws)
+        if variant.verify:
+            self.counters["ragged_verify_steps"] += 1
+        self.counters["ragged_chain_steps"] += variant.steps - 1
+        result = self._read_ragged(plan, out, variant)
         self.counters["ragged_ms"] += (time.perf_counter() - t0) * 1e3
         return result
 

@@ -142,9 +142,9 @@ def _gen_id(prefix: str) -> str:
 
 def warmup_mode(engine_cfg: Dict[str, Any]) -> str:
     """The aux ``engine.warmup`` knob as the reference reads it: "off"
-    (the default) or "startup" (``llm/warmup.py``); a typo raises naming
-    the knob. The reference's "full" adds the compiled ragged launch
-    variants, which the port does not have yet, so it raises too."""
+    (the default), "startup" or "full" (``llm/warmup.py``: the full sweep
+    captures every plain ragged launch key as well); a typo raises naming
+    the knob."""
     mode = str(engine_cfg.get("warmup", "off")).lower()
     if mode in ("1", "true", "on"):
         mode = "startup"
@@ -153,9 +153,6 @@ def warmup_mode(engine_cfg: Dict[str, Any]) -> str:
     if mode not in ("off", "startup", "full"):
         raise ValueError("aux engine.warmup must be off/startup/full: got {!r}".format(
             engine_cfg.get("warmup")))
-    if mode == "full":
-        raise ValueError("aux engine.warmup 'full' is not supported by the PyTorch port yet "
-                         "(its ragged launch variants are not ported): use 'startup'")
     return mode
 
 
@@ -486,6 +483,7 @@ class LLMEngineRequest(BaseEngineRequest):
         self._chat_cfg: Dict[str, Any] = {}
         self._default_priority = "interactive"
         self._warmup_needed = False
+        self._warmup_full = False
         self._warmup_task = None
         self._retiring = False
         self._retire_task = None
@@ -534,6 +532,7 @@ class LLMEngineRequest(BaseEngineRequest):
                 "llm endpoint {!r} needs a model bundle or aux_config engine.preset".format(
                     self.endpoint.serving_url))
         self._warmup_needed = warmup != "off"
+        self._warmup_full = warmup == "full"
         self._model_name = self.endpoint.serving_url
         self._register_metrics()
         return self.engine
@@ -620,7 +619,7 @@ class LLMEngineRequest(BaseEngineRequest):
         if not self._warmup_needed:
             return
         if self._warmup_task is None:
-            self._warmup_task = asyncio.ensure_future(self.engine.warmup())
+            self._warmup_task = asyncio.ensure_future(self.engine.warmup(full=self._warmup_full))
         try:
             await asyncio.shield(self._warmup_task)
         except Exception as ex:

@@ -57,9 +57,9 @@ class EngineReplica:
     """
 
     def __init__(self, index: int, engine, *, warmup_mode: str = "off"):
-        if warmup_mode not in ("off", "startup"):
+        if warmup_mode not in ("off", "startup", "full"):
             raise ValueError(
-                "replica warmup mode must be off/startup: got {!r}".format(warmup_mode)
+                "replica warmup mode must be off/startup/full: got {!r}".format(warmup_mode)
             )
         self.index = int(index)
         self.name = "r{}".format(index)
@@ -128,14 +128,15 @@ class EngineReplica:
             # sweep from a loop context schedules the task; scheduling on
             # a never-running loop would leave the gate closed forever
             return
-        self._warm_task = loop.create_task(self.ensure_warm())
+        self._warm_task = loop.create_task(self.ensure_warm(self._warmup_mode == "full"))
 
-    async def ensure_warm(self) -> None:
+    async def ensure_warm(self, full: bool) -> None:
+        """One sweep of the gate (``full``: the reference's full sweep)."""
         from . import warmup
 
         t0 = time.perf_counter()
         try:
-            self.warm_result = await warmup.run_warmup(self.engine)
+            self.warm_result = await warmup.run_warmup(self.engine, full=full)
         except Exception as ex:  # best-effort: a variant not captured is captured at first use
             logger.warning(
                 "replica %s warmup failed (will capture at first use): %s",
@@ -633,8 +634,10 @@ class ReplicaGroup:
 
     # -- lifecycle ----------------------------------------------------------
 
-    async def warmup(self) -> dict:
-        """Warm every replica through its gate. Every sweep runs AS the
+    async def warmup(self, full: bool = False) -> dict:
+        """Warm every replica not warmed yet through its gate (``full``:
+        the endpoint's mode, the one its replicas were built with, and so
+        the sweep their own gates run). Every sweep runs AS the
         replica's own gate task (``_warm_task``): a concurrent ring sweep
         (a /ready probe mid-warmup) sees ``warming`` and never schedules a
         second run_warmup on the same engine; a gate task already in flight
@@ -650,7 +653,7 @@ class ReplicaGroup:
             if replica.warmed:
                 continue
             replica._warm_task = asyncio.get_running_loop().create_task(
-                replica.ensure_warm()
+                replica.ensure_warm(full=full)
             )
             started.append(replica)
             if self.replica_backend == "process":
@@ -669,6 +672,8 @@ class ReplicaGroup:
         return {
             "replicas": len(self.replicas),
             "requests": sum(r.get("requests", 0) for r in results),
+            "cow_buckets": sum(r.get("cow_buckets", 0) for r in results),
+            "ship_buckets": sum(r.get("ship_buckets", 0) for r in results),
             "graph_captures": sum(r.get("graph_captures", 0) for r in results),
         }
 

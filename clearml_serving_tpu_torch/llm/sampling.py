@@ -245,8 +245,7 @@ def greedy_tree_walk(greedy, tokens, parents, n_nodes):
         tok = tokens[:, j].to(torch.int32)
         ok = (j < n_nodes) & (parents[:, j] == cur) & (tok == greedy[rows, cur])
         path = torch.where((col == acc[:, None]) & ok[:, None], tok[:, None], path)
-        nodes = torch.where((col == acc[:, None] + 1) & ok[:, None],
-                            torch.tensor(j, dtype=torch.int32, device=dev), nodes)
+        nodes = torch.where((col == acc[:, None] + 1) & ok[:, None], j, nodes)
         cur = torch.where(ok, j, cur)
         acc = acc + ok.long()
     bonus = greedy[rows, cur].to(torch.int32)
@@ -294,8 +293,7 @@ def speculative_sample_tree(logits, tokens, parents, n_nodes, params: SamplingPa
         rej = test & ~ok
         path = torch.where((col == acc[:, None]) & ok[:, None],
                            tok.to(torch.int32)[:, None], path)
-        nodes = torch.where((col == acc[:, None] + 1) & ok[:, None],
-                            torch.tensor(j, dtype=torch.int32, device=dev), nodes)
+        nodes = torch.where((col == acc[:, None] + 1) & ok[:, None], j, nodes)
         rejected[:, j] = rej
         rej_mass = torch.where(ok, 0.0, torch.where(rej, rej_mass + p_tok, rej_mass))
         cur = torch.where(ok, j, cur)

@@ -150,3 +150,4 @@ def fused_int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
 
 
 fused_int4_matmul.launches = 0
+fused_int4_matmul.setup_launches = 0

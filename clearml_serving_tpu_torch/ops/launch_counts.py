@@ -2,9 +2,10 @@
 
 Each wrapper keeps its total in ``<wrapper>.launches`` (the ragged wrapper
 its draft-tree launches in ``.tree_launches`` besides), which the card's
-checks hold to the kernels the card ran. Admission workers and the decode
-loop's threads launch at once, so every change goes through :func:`add`,
-under one lock. Each thread also keeps its own tally (:func:`own`), from
+checks hold to the kernels the card ran; a CUDA-graph capture moves its
+warm-up run's launches into ``.setup_launches``. Admission workers and the
+decode loop's threads launch at once, so every change goes through
+:func:`add`, under one lock. Each thread also keeps its own tally (:func:`own`), from
 which a CUDA-graph capture takes its own calls back out of the totals
 without touching another thread's launches.
 """

@@ -235,6 +235,9 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
 
 
 paged_attention.launches = 0
+# launches a CUDA-graph capture's warm-up run made (set-up work, taken out
+# of ``launches``)
+paged_attention.setup_launches = 0
 
 
 # -- ragged paged attention ------------------------------------------------------
@@ -505,3 +508,4 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, kv_lens, row_starts, r
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.tree_launches = 0
+ragged_paged_attention.setup_launches = 0

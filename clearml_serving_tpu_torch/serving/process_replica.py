@@ -675,8 +675,8 @@ class ProcessEngineProxy:
 
     # -- lifecycle -----------------------------------------------------------------
 
-    async def warmup_rpc(self) -> dict:
-        frame = await self._require_async().call("warmup", timeout=900.0)
+    async def warmup_rpc(self, full: bool = False) -> dict:
+        frame = await self._require_async().call("warmup", timeout=900.0, full=bool(full))
         return dict(frame.get("result") or {})
 
     async def wait_drained(self, timeout: float = 30.0) -> None:
@@ -769,9 +769,9 @@ class ProcessEngineReplica:
         max_restarts: int = 1,
         startup_timeout: float = _DEFAULT_STARTUP_TIMEOUT,
     ):
-        if warmup_mode not in ("off", "startup"):
+        if warmup_mode not in ("off", "startup", "full"):
             raise ValueError(
-                "replica warmup mode must be off/startup: got {!r}".format(warmup_mode))
+                "replica warmup mode must be off/startup/full: got {!r}".format(warmup_mode))
         self.index = int(index)
         self.name = "r{}".format(index)
         if spec.get("name") != self.name:
@@ -998,14 +998,15 @@ class ProcessEngineReplica:
             loop = asyncio.get_running_loop()
         except RuntimeError:
             return
-        self._warm_task = loop.create_task(self.ensure_warm())
+        self._warm_task = loop.create_task(self.ensure_warm(self._warmup_mode == "full"))
 
-    async def ensure_warm(self) -> None:
+    async def ensure_warm(self, full: bool) -> None:
         """The warmup gate over the channel: the worker runs the engine's
-        warmup sweep; the gate's state machine here is ``EngineReplica``'s."""
+        warmup sweep (``full``: the full one); the gate's state machine here
+        is ``EngineReplica``'s."""
         t0 = time.perf_counter()
         try:
-            self.warm_result = await self.engine.warmup_rpc()
+            self.warm_result = await self.engine.warmup_rpc(full=full)
         except Exception as ex:  # best-effort: a variant not captured is captured at first use
             logger.warning("replica %s process warmup failed (will capture at first use): %s",
                            self.name, ex)
@@ -1311,9 +1312,9 @@ async def _gen_task(engine, writer, wlock, fid: int, payload: dict, live: dict) 
         live.pop(fid, None)
 
 
-async def _warmup_task(engine, writer, wlock, fid: int) -> None:
+async def _warmup_task(engine, writer, wlock, fid: int, full: bool) -> None:
     try:
-        result = await engine.warmup()
+        result = await engine.warmup(full=full)
         await _send_frame_stream(writer, wlock, {"id": fid, "result": _jsonable(result)})
     except BaseException as ex:  # noqa: BLE001 - the parent's gate logs and degrades
         await _send_frame_stream(writer, wlock, {"id": fid, "err": _err_to_dict(ex)})
@@ -1369,7 +1370,7 @@ async def _worker_serve(engine, spec: dict) -> None:
             if request is not None:
                 request.cancel()
         elif op == "warmup":
-            spawn(_warmup_task(engine, writer, wlock, fid))
+            spawn(_warmup_task(engine, writer, wlock, fid, bool(frame.get("full"))))
         elif op == "drain":
             spawn(_drain_task(engine, writer, wlock, fid, float(frame.get("timeout_s", 30.0))))
         elif op == "exit":

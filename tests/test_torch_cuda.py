@@ -2089,3 +2089,322 @@ def test_process_fleet_on_the_card_gives_the_in_process_streams(cuda):
                 pass
         time.sleep(0.2)
     assert not alive, "workers survived stop(): {}".format(alive)
+
+
+# -- the ragged launch in CUDA graphs -------------------------------------------------
+
+def _ragged_launch_inputs(model, dev, variant, kv_quant=""):
+    """A cache with random pool contents and four rows on the flat axis of
+    the engine's layout (q blocks of ``RAGGED_QB``): a 20-token prefill
+    chunk at history 30, a decode row at 50 with the variant's window, a
+    verify row of k + 1 = 5 at 40 (a forest on tree keys; greedy, or
+    sampled on a sampled-verify key) or a decode row without one, and a
+    decode row at 10. Returns (cache, layout, host_i32, host_f32, draws,
+    extras state, guided tables)."""
+    import numpy as np
+
+    from clearml_serving_tpu_torch.llm.decode_graph import ExtrasState
+    from clearml_serving_tpu_torch.llm.kv_cache import PagedKVCache
+    from clearml_serving_tpu_torch.llm.ragged_graph import RaggedLayout, ragged_draws
+
+    b, k, steps, pp = 4, 4, variant.steps, 8
+    page = 32 if kv_quant else 16
+    cache = PagedKVCache(model.n_layers, model.n_kv_heads, model.head_dim,
+                         num_pages=b * pp + 1, page_size=page, max_slots=b, dtype=model.dtype,
+                         kv_quant=kv_quant, device=dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    if kv_quant:
+        cache.k.copy_(torch.randint(-127, 128, cache.k.shape, generator=gen, device=dev))
+        cache.v.copy_(torch.randint(-127, 128, cache.v.shape, generator=gen, device=dev))
+        cache.k_scale.copy_(torch.rand(cache.k_scale.shape, generator=gen, device=dev) * 0.02)
+        cache.v_scale.copy_(torch.rand(cache.v_scale.shape, generator=gen, device=dev) * 0.02)
+    else:
+        cache.k.copy_(torch.randn(cache.k.shape, generator=gen, device=dev))
+        cache.v.copy_(torch.randn(cache.v.shape, generator=gen, device=dev))
+    table = (1 + np.arange(b * pp, dtype=np.int32)).reshape(b, pp)
+    verify = bool(variant.verify)
+    pre = np.array([30, 50, 40, 10], np.int32)
+    kind = ["chunk", "decode", "verify" if verify else "decode", "decode"]
+    span = np.array([20, steps, k + 1 if verify else steps, steps], np.int32)
+    row_lens = np.array([20, 1, k + 1 if verify else 1, 1], np.int32)
+    tpad = -(-(48 + b * (RAGGED_QB - 1)) // RAGGED_QB) * RAGGED_QB
+    starts, block_rows, block_q0, tpad = ragged_layout(span, RAGGED_QB, total=tpad)
+    rng = np.random.default_rng(5)
+    a = {name: np.zeros(tpad, np.int32) for name in ("tokens", "tok_pos", "tok_row",
+                                                     "tok_valid", "write_page", "write_offset")}
+    chain_wp = np.zeros((max(1, steps - 1), b), np.int32)[:steps - 1]
+    chain_wo = np.zeros_like(chain_wp)
+    depths = np.array([0, 1, 2, 1, 2], np.int32)
+    parents = np.array([-1, 0, 1, 0, 3], np.int32)
+    if variant.verify == "chain":
+        depths, parents = np.arange(k + 1, dtype=np.int32), np.arange(-1, k, dtype=np.int32)
+    for r in range(b):
+        s, n, v = int(starts[r]), int(span[r]), int(row_lens[r])
+        a["tokens"][s:s + n] = rng.integers(1, 256, n)
+        a["tok_pos"][s:s + n] = pre[r] + (depths[:n] if kind[r] == "verify"
+                                          else np.arange(n))
+        a["tok_row"][s:s + n] = r
+        a["tok_valid"][s:s + v] = 1
+        for i in range(n):
+            pos = int(pre[r]) + i
+            page_id, off = int(table[r, pos // page]), pos % page
+            if kind[r] == "decode" and i > 0:
+                chain_wp[i - 1, r], chain_wo[i - 1, r] = page_id, off
+            else:
+                a["write_page"][s + i], a["write_offset"][s + i] = page_id, off
+    row_logit_idx = starts[:, None] + np.minimum(np.arange(k + 1), row_lens[:, None] - 1)
+    tree_anc = np.full((tpad, k + 1), -1, np.int32)
+    tree_anc[:, 0] = -2
+    if variant.verify == "tree":
+        tree_anc[starts[2]:starts[2] + k + 1] = tree_ancestors(parents, k + 1, width=k + 1)
+    spec = np.array([0, 0, 1, 0], np.int32) if verify else np.zeros(b, np.int32)
+    sampled_rows = [1, 3] if not variant.greedy else []
+    temperature = np.zeros(b, np.float32)
+    temperature[sampled_rows] = 0.8
+    if variant.sampled_verify:
+        temperature[2] = 0.7
+    arrays = dict(a, block_rows=block_rows, block_q0=block_q0, row_starts=starts,
+                  row_lens=row_lens, row_last=starts + row_lens - 1, kv_lens=pre + row_lens,
+                  page_table=table, chain_wp=chain_wp, chain_wo=chain_wo,
+                  chain_mask=np.array([[0, 1, 0 if verify else 1, 1]] * (steps - 1), np.int32),
+                  spec_mask=spec * (0 if variant.sampled_verify else 1),
+                  sspec_mask=spec * (1 if variant.sampled_verify else 0),
+                  drafts=np.tile(rng.integers(1, 256, k).astype(np.int32), (b, 1)),
+                  row_logit_idx=row_logit_idx,
+                  tree_tokens=np.tile(rng.integers(1, 256, k + 1).astype(np.int32), (b, 1)),
+                  tree_parents=np.tile(parents, (b, 1)),
+                  tree_n=np.full(b, k + 1, np.int32), tree_anc=tree_anc,
+                  temperature=temperature, top_k=np.array([0, 40, 0, 0], np.int32),
+                  top_p=np.array([1.0, 0.9, 1.0, 1.0], np.float32),
+                  active=np.array([0, 1, 0 if verify else 1, 1], np.int32))
+    state = tables = None
+    if variant.extras:
+        state = ExtrasState(b, model.vocab_size, dev)
+        state.bias[1, 7] = 2.0
+        state.pmask[3, 3:9] = True
+        arrays.update(presence=np.full(b, 0.3, np.float32), frequency=np.full(b, 0.1, np.float32),
+                      repetition=np.full(b, 1.2, np.float32),
+                      seeds=np.array([-1, 11, -1, 5 if variant.seeded else -1], np.int32),
+                      counters=np.array([0, 3, 0, 2], np.int32),
+                      min_new=np.array([0, 2, 0, 0], np.int32))
+    if variant.guided:
+        tables, bucket, gstarts = _guided_tables(dev)
+        assert bucket == variant.guided
+        arrays["gstate"] = np.array([-1, gstarts[0], -1, gstarts[1]], np.int32)
+    layout = RaggedLayout(b, tpad, RAGGED_QB, pp, 4, k)
+    i32, f32 = layout.stage(arrays, pin=True)
+    draws = ragged_draws(variant, b, model.vocab_size, k, gen, dev)
+    return cache, layout, i32, f32, draws, state, tables
+
+
+def _ragged_key(**kw):
+    from clearml_serving_tpu_torch.llm.ragged_graph import RaggedVariant
+
+    return RaggedVariant(**kw)
+
+
+def _guided_bucket(dev):
+    return _guided_tables(dev)[1]
+
+
+RAGGED_KEYS = [
+    ("q1", dict(steps=1), "", ""),
+    ("q2_sampled", dict(steps=2, greedy=False), "", ""),
+    ("q4", dict(steps=4), "", ""),
+    ("q1_chain", dict(steps=1, verify="chain"), "", ""),
+    ("q2_chain_sampled", dict(steps=2, verify="chain", sampled_verify=True, greedy=False),
+     "", ""),
+    ("q1_tree", dict(steps=1, verify="tree"), "", ""),
+    ("q4_tree_sampled", dict(steps=4, verify="tree", sampled_verify=True), "", ""),
+    ("q2_extras_seeded", dict(steps=2, greedy=False, extras=True, seeded=True), "", ""),
+    ("q2_logprobs", dict(steps=2, lp=True), "", ""),
+    ("q2_guided", dict(steps=2, guided=-1), "", ""),
+    ("q2_tree_int8", dict(steps=2, verify="tree"), "int8", ""),
+    ("q2_chain_int4", dict(steps=2, verify="chain", greedy=False), "", "int4"),
+]
+
+
+@pytest.mark.parametrize("name,key,kv_quant,weights", RAGGED_KEYS,
+                         ids=[k[0] for k in RAGGED_KEYS])
+def test_ragged_replay_is_bitwise_the_eager_launch(cuda, name, key, kv_quant, weights):
+    """One captured ragged key's replays against ``run_ragged`` eagerly on
+    cloned pools and extras rows: the same outputs (tokens, logits,
+    acceptance, logprobs, DFA states) and every pool page but the null
+    page bit for bit; the capture launches nothing that counts, and after
+    three replays each kernel's count is three times its count a replay:
+    the ragged kernel once a layer (its tree variant on tree keys), the
+    decode kernel once a layer per chained step, the int4 kernel once per
+    projection of every forward."""
+    import numpy as np
+
+    from clearml_serving_tpu_torch.llm.ragged_graph import RaggedGraphs, run_ragged
+
+    if key.get("guided") == -1:
+        key = dict(key, guided=_guided_bucket(cuda))
+    variant = _ragged_key(**key)
+    model = _small_model(cuda, kv_quant, weights)
+    cache, layout, i32, f32, draws, state, tables = _ragged_launch_inputs(model, cuda, variant,
+                                                                          kv_quant)
+    clone = types.SimpleNamespace(**{
+        name: getattr(cache, name) if name == "kv_quant" or getattr(cache, name) is None
+        else getattr(cache, name).clone() for name in ("k", "v", "k_scale", "v_scale", "kv_quant")})
+    eager_state = None
+    if state is not None:
+        eager_state = types.SimpleNamespace(counts=state.counts.clone(), bias=state.bias,
+                                            pmask=state.pmask)
+    eager = run_ragged(model, clone, layout.views(i32.to(cuda), f32.to(cuda)), variant, draws,
+                       block_map=True, state=eager_state, tables=tables, lp_k=2)
+    graphs = RaggedGraphs(model, cache, layout, block_map=True, spec=True,
+                          state_fn=lambda: state, lp_k=2, tables_fn=lambda b: tables)
+    counted = (ragged_paged_attention, paged_attention, fused_int4_matmul)
+    for fn in counted:
+        fn.launches = 0
+    ragged_paged_attention.tree_launches = 0
+    graphs.capture(variant)
+    assert [fn.launches for fn in counted] == [0, 0, 0]
+    assert ragged_paged_attention.tree_launches == 0
+    out = graphs.replay(variant, i32, f32, draws)
+    torch.cuda.synchronize()
+    assert sorted(out) == sorted(eager)
+    for field in eager:
+        want, got = eager[field], out[field]
+        if isinstance(want, tuple):
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), field
+        else:
+            assert torch.equal(got, want), field
+    for got, want in zip(_pools(cache), _pools(clone)):
+        assert torch.equal(got[:, :, 1:], want[:, :, 1:])
+    if state is not None:
+        assert torch.equal(state.counts, eager_state.counts)
+    for _ in range(2):
+        graphs.replay(variant, i32, f32, draws)
+    torch.cuda.synchronize()
+    layers, steps = model.n_layers, variant.steps
+    assert ragged_paged_attention.launches == 3 * layers
+    assert ragged_paged_attention.tree_launches == (3 * layers if variant.verify == "tree"
+                                                    else 0)
+    assert paged_attention.launches == 3 * layers * (steps - 1)
+    forward = 7 * layers + 1
+    int4 = forward + (1 if variant.verify else 0) + forward * (steps - 1)
+    assert fused_int4_matmul.launches == (3 * int4 if weights else 0)
+    # the shared pool's first capture takes segments of its own
+    assert graphs.pool_growth[variant] > 0
+    # the launch shapes did not change the pools' layout
+    assert np.prod(cache.k.shape) == np.prod(clone.k.shape)
+
+
+RAGGED_KW = dict(max_batch=4, max_seq_len=256, decode_steps=4, page_size=16,
+                 prefill_buckets=[32, 64], scheduler="ragged", step_token_budget=48,
+                 speculation="ngram", spec_k=4, spec_tree=True, spec_branch=2)
+RAGGED_PROMPTS = [[5, 9, 2, 17, 5, 9, 2] * 3, [3, 3, 7, 3, 3, 7, 3] * 3,
+                  [(i * 7 + 3) % 250 + 1 for i in range(90)],
+                  [(i * 13 + 5) % 250 + 1 for i in range(60)]]
+
+
+async def _ragged_traffic(engine, extra=None):
+    """Two repetitive greedy chats (verify rows), a sampled chat and a long
+    prompt submitted at once, so the schedule does not depend on timing:
+    the budget admits them chunk by chunk beside the rows already decoding
+    and verifying; ``extra``: the kwargs of a fifth request (a non-plain
+    key), admitted into the first slot freed, beside the live rows."""
+    rows = [(RAGGED_PROMPTS[0], {}), (RAGGED_PROMPTS[1], {}),
+            (RAGGED_PROMPTS[2], dict(temperature=0.8)), (RAGGED_PROMPTS[3], {})]
+    if extra is not None:
+        rows.append((RAGGED_PROMPTS[3][:40], extra))
+    requests = [GenRequest(prompt_ids=list(ids), max_new_tokens=24 + 8 * i, **kw)
+                for i, (ids, kw) in enumerate(rows)]
+    outs = await asyncio.gather(*(_stream(engine, r) for r in requests))
+    await engine.wait_drained()
+    return outs, [r.logprob_entries for r in requests]
+
+
+def test_warmup_full_captures_every_plain_ragged_key(cuda):
+    """``warmup(full=True)`` captures the two chunk variants and the 18
+    plain ragged keys of a tree engine (windows 1, 2, 4 × no verify row,
+    greedy or sampled verify rows × greedy or sampled plain rows); mixed
+    ragged traffic afterwards captures nothing; every ragged step is a
+    replay whose kernels' counts follow the steps; the greedy streams equal
+    the eager engine's, and every pool page comes back."""
+    model = _small_model(cuda)
+    streams = {}
+    for arm, graphs in (("eager", False), ("graphs", True)):
+        engine = LLMEngineCore(model, cuda_graphs=graphs, **RAGGED_KW)
+        out = asyncio.run(engine.warmup(full=True))
+        assert out["graph_captures"] == (20 if graphs else 0)
+        assert out["cow_buckets"] > 0 and out["ship_buckets"] == 0
+        for key in engine.counters:
+            engine.counters[key] = 0
+        paged_attention.launches = ragged_paged_attention.launches = 0
+        ragged_paged_attention.tree_launches = 0
+        streams[arm], _lp = asyncio.run(_ragged_traffic(engine))
+        c = engine.counters
+        assert c["serve_captures"] == 0 and c["ragged_verify_steps"] > 0
+        assert c["ragged_replays"] == (c["ragged_steps"] if graphs else 0) > -1
+        assert ragged_paged_attention.launches == model.n_layers * c["ragged_steps"] > 0
+        assert ragged_paged_attention.tree_launches == model.n_layers * c["ragged_verify_steps"]
+        assert paged_attention.launches == model.n_layers * (c["decode_steps"]
+                                                             + c["ragged_chain_steps"])
+        if graphs:
+            pools = engine.health()["graph_pool_bytes"]
+            assert len([k for k in pools if k.startswith("ragged")]) == 18
+            assert len(engine.health()["graph_variants"]) == 20
+        pool = engine.paged_cache.pool
+        assert pool.free_pages == pool.num_pages - 1
+        engine.stop()
+    assert streams["graphs"] == streams["eager"]
+
+
+@pytest.mark.parametrize("extra,part", [(dict(logprobs=2), "logprobs"),
+                                        (dict(temperature=0.9, seed=4), "extras+seeded")],
+                         ids=["logprobs", "seeded"])
+def test_non_plain_ragged_key_is_captured_at_first_use(cuda, extra, part):
+    """After ``warmup(full=True)`` a request with logprobs (or a seed)
+    admitted beside live rows makes its ragged key's first use a capture
+    while serving, counted in ``serve_captures`` and timed in
+    ``graph_variants``; its stream equals the eager engine's."""
+    model = _small_model(cuda)
+    outs = {}
+    for arm, graphs in (("eager", False), ("graphs", True)):
+        engine = LLMEngineCore(model, cuda_graphs=graphs, **RAGGED_KW)
+        asyncio.run(engine.warmup(full=True))
+        engine.counters["serve_captures"] = 0
+        outs[arm] = asyncio.run(_ragged_traffic(engine, extra))
+        if graphs:
+            labels = [k for k in engine.health()["graph_variants"]
+                      if k.startswith("ragged") and part in k]
+            assert labels and engine.counters["serve_captures"] >= len(labels)
+        engine.stop()
+    assert outs["graphs"][0] == outs["eager"][0]
+    if extra.get("logprobs"):
+        got, want = outs["graphs"][1][4], outs["eager"][1][4]
+        assert [e["id"] for e in got] == [e["id"] for e in want]
+        assert [e["logprob"] for e in got] == [e["logprob"] for e in want]
+
+
+def test_guided_bucket_growth_drops_its_ragged_graphs(cuda):
+    """A guided ragged key captured over a bucket's tables; once that
+    bucket is outgrown and its readers ran, ``_drop_outgrown_buckets``
+    frees its tables and its ragged graphs (and their pool entries), and
+    keeps the plain keys."""
+    from clearml_serving_tpu_torch.llm.ragged_graph import RaggedVariant
+
+    engine = LLMEngineCore(_small_model(cuda), **RAGGED_KW)
+    tables, bucket, _starts = _guided_tables(cuda)
+    engine._gdev[bucket] = tables[:2]
+    engine._gtok_dev = tables[2:]
+    guided, plain = RaggedVariant(steps=2, guided=bucket), RaggedVariant(steps=2)
+    engine._warming = True
+    engine._on_stream(engine._capture, guided)
+    engine._on_stream(engine._capture, plain)
+    engine._warming = False
+    assert engine._ragged_graphs.captured(guided)
+    assert guided.label() in engine.health()["graph_pool_bytes"]
+    event = torch.cuda.Event()
+    event.record(engine._stream)
+    engine._gstale.append((bucket, event))
+    torch.cuda.synchronize()
+    engine._drop_outgrown_buckets()
+    assert not engine._ragged_graphs.captured(guided) and engine._ragged_graphs.captured(plain)
+    assert bucket not in engine._gdev and not engine._gstale
+    assert guided.label() not in engine.health()["graph_pool_bytes"]
+    engine.stop()

@@ -185,13 +185,15 @@ def test_extras_rows_under_speculation_equal_their_plain_streams(tiny_np, tree):
     spec_kw = dict(SPEC, spec_tree=True, spec_branch=2) if tree else SPEC
     engine = _port(tiny_np, max_batch=3, **RAGGED, **spec_kw)
     verified = []
-    accept = engine._spec_accept
+    variant_of = engine._ragged_variant
 
-    def spy(plan, spec_logits):
-        verified.append(np.nonzero(plan["spec_mask"] | plan["sspec_mask"])[0].tolist())
-        return accept(plan, spec_logits)
+    def spy(plan):
+        # a launch with verify rows: the slots its acceptance runs on
+        if plan["row_logit_idx"] is not None:
+            verified.append(np.nonzero(plan["spec_mask"] | plan["sspec_mask"])[0].tolist())
+        return variant_of(plan)
 
-    engine._spec_accept = spy
+    engine._ragged_variant = spy
     got = _run(engine, GenRequest, specs, max_new=10)
     engine.stop()
     _same(got, want)

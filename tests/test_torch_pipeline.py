@@ -397,10 +397,9 @@ def test_warmup_sweep_runs_every_bucket(tiny_np):
 
 def test_warmup_aux_knob(tiny_np):
     """Aux ``engine.warmup``: a typo fails at load naming the knob (the
-    reference's words), and so does "full" (its ragged launch variants are
-    not ported); with "startup" the first requests share one warmup
-    sweep before they are served, and the content equals an unwarmed
-    endpoint's."""
+    reference's words); with "startup" or "full" the first requests share
+    one warmup sweep before they are served, and the content equals an
+    unwarmed endpoint's."""
     from aiohttp.test_utils import TestClient, TestServer
 
     from clearml_serving_tpu_torch.llm.openai_api import build_engine, warmup_mode
@@ -412,12 +411,9 @@ def test_warmup_aux_knob(tiny_np):
     with pytest.raises(ValueError, match="aux engine.warmup must be off/startup/full"):
         build_engine(dict(cfg, warmup="sometimes"), device="cpu",
                      params=convert_params(tiny_np, device="cpu"))
-    with pytest.raises(ValueError, match="aux engine.warmup 'full' is not supported.*"
-                                         "ragged launch variants"):
-        build_engine(dict(cfg, warmup="full"), device="cpu",
-                     params=convert_params(tiny_np, device="cpu"))
     assert [warmup_mode(c) for c in ({}, {"warmup": "on"}, {"warmup": False},
-                                     {"warmup": "startup"})] == ["off", "startup", "off", "startup"]
+                                     {"warmup": "startup"}, {"warmup": "FULL"})] == [
+        "off", "startup", "off", "startup", "full"]
     body = {"model": "m", "max_tokens": 6,
             "messages": [{"role": "user", "content": "hello"}]}
 
@@ -441,3 +437,6 @@ def test_warmup_aux_knob(tiny_np):
     assert (prefills, needed) == (5, False)
     cold, prefills, _ = asyncio.run(serve("off"))
     assert prefills == 2 and warm == cold
+    # the reference's full plan on this config: one cold prompt per bucket
+    full, prefills, needed = asyncio.run(serve("full"))
+    assert (prefills, needed) == (5, False) and full == cold

@@ -413,7 +413,7 @@ def test_forced_eject_reroutes_and_rewarms_through_gate(tiny_np, monkeypatch):
         calls["jax"].append(engine)
         return {"requests": 0, "cow_buckets": 0, "fenced": False}
 
-    async def port_fake(engine):
+    async def port_fake(engine, full=False):
         calls["port"].append(engine)
         return {"requests": 0, "graph_captures": 0}
 
