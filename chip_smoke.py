@@ -103,7 +103,7 @@ exits non-zero before the result lines are printed:
    int4 weights; the graphed passes' traces must hold as many
    decode-attention, ragged-attention and int4 grids as counted;
 7. the request lifecycle of the default route: Llama-3-8B at full width
-   behind the HTTP app (bf16 KV, depth 2 with graphs, max_batch 8) with the
+   and ``LIFECYCLE_LAYERS`` (16) of its 32 layers behind the HTTP app (bf16 KV, depth 2 with graphs, max_batch 8) with the
    reference's default lifecycle knobs (max_pending 32, a 30 s watchdog,
    preemption, brownout). 8 batch-class chats at 128 tokens alone, then with
    an interactive arrival (a preemption; every batch content must equal its
@@ -120,7 +120,7 @@ exits non-zero before the result lines are printed:
    once per layer per decode step of the default engine's traffic.
 
 8. the radix prefix cache over shared, refcounted KV pages: Llama-3-8B at
-   full width (max_batch 8, max_seq_len 2048, page_size 16) with
+   full width and ``PREFIX_LAYERS`` (16) of its 32 layers (max_batch 8, max_seq_len 2048, page_size 16) with
    ``prefix_cache`` 64, ``prefix_block`` 64, ``prefix_cache_pages`` 256 and
    the KV sanitizer armed, two-dispatch at depth 2 with graphs and ragged
    at budget 256, each on bf16 and int8 KV, and the eager two-dispatch
@@ -358,6 +358,25 @@ exits non-zero before the result lines are printed:
    layer per decode step, the ragged kernel once per layer per ragged step,
    the int4 kernel once per projection per forward call (no lm_head when
    tied); TTFT and ms a decode step beside the weights' byte bound.
+17. the ``jax`` engine type behind the processor, every payload written on
+   the card from seed-0 weights into the processor's registry: the iris MLP
+   (in 4, hidden [64, 64], out 3; the default buckets), the MNIST CNN at
+   the example's endpoint spec, buckets [1, 4, 16, 64] and preprocess.py
+   as a bundle, a GraphDef and a TorchScript file, BERT-base at full width
+   (bf16, 9 labels, sequence 128, int32 ids, the default buckets) and the
+   same module exported to ONNX on the card (float32, int64 ids) through
+   the ONNX importer. Each bucket POSTed through the router once (one
+   capture per key, no fallback), then per key: the replay's and the eager
+   run's ms, bitwise equal; capture ms and pool MiB; the bound (2 x the
+   multiplying parameters x tokens, BERT's attention products beside them,
+   over the dtype's peak; or the weights' bytes); the largest gap to the
+   CPU float32 model relative to its largest logit (5% for bf16 BERT at
+   buckets 1 and 2, 1e-3 for the float32 models, TF32 off); the ONNX
+   logits within 5% of the native bundle's. Then a Llama-3-8B bundle at
+   full width (its embedding and lm_head chunked) cut to 8 of 32 layers,
+   written into a registry and served on an ``llm`` endpoint under both
+   schedulers: greedy content and token ids byte-identical to the same
+   seed's preset engine; its bytes and the seconds to write and to load.
 
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, its head_dim 256 entries and the ragged kernel's
@@ -2033,6 +2052,10 @@ PROFILE_LAYERS = 8
 # more than the counts, twice, as a first-use capture's warm-up chunk in
 # its profiled window would: the counts leave that set-up work out)
 SURFACE_LAYERS = 16
+# phases 7 and 8 run 16 of the 32 layers since phase 17 joined the script
+# (its ~45 s on the card; the whole script keeps to half its limit)
+LIFECYCLE_LAYERS = 16
+PREFIX_LAYERS = 16
 
 
 def depth_cut(params, n_layers: int) -> dict:
@@ -7254,6 +7277,428 @@ def phase_families(params, qparams) -> dict:
         "ragged_int8": gemma_launches("ragged", "int8", "ragged_launches")})
 
 
+# -- phase 17: the jax engine type's bundles -----------------------------------
+
+CARD_F32_FLOPS = 67e12     # H100 SXM float32 FLOP/s outside the tensor cores
+BUNDLE_SEQ = 128
+IRIS = {"in_dim": 4, "hidden": [64, 64], "out_dim": 3}
+MNIST = {"in_hw": [28, 28], "in_ch": 1, "channels": [32, 64], "dense": 128, "out_dim": 10}
+MNIST_BUCKETS = [1, 4, 16, 64]
+BERT_BASE = {"preset": "bert-base", "dtype": "bfloat16", "num_labels": 9}
+DEFAULT_BUCKETS = [1, 2, 4, 8, 16, 32, 64, 128]
+BUNDLE_ITERS = 10         # timed calls a key at buckets up to 16, 3 above
+# the Llama arm: Llama-3-8B at full width (the embedding and lm_head are
+# chunked leaves) cut to 8 of 32 layers
+LLAMA_BUNDLE = {"preset": "llama3-8b", "n_layers": 8}
+LLAMA_BUNDLE_ENGINE = {"cache": "paged", "max_batch": 4, "max_seq_len": 512,
+                       "prefill_buckets": [64, 128], "seed": 0}
+
+
+def cnn_flops(cfg) -> float:
+    """Multiply-adds x 2 of one image through ``models/cnn.py``."""
+    h, w = cfg["in_hw"]
+    ch, flops = cfg["in_ch"], 0
+    for c in cfg["channels"]:
+        flops += 2 * h * w * 9 * ch * c
+        h, w, ch = h // 2, w // 2, c
+    flops += 2 * h * w * ch * cfg["dense"] + 2 * cfg["dense"] * cfg["out_dim"]
+    return flops
+
+
+def bundle_flops(name: str, params, rows: int) -> float:
+    """Operations of ``rows`` inputs: 2 x (multiplying parameters) x tokens,
+    with BERT's attention products (4 x S^2 x dim a layer) beside them."""
+    if name.startswith("mnist"):
+        return cnn_flops(MNIST) * rows
+    if name == "iris":
+        return 2.0 * sum(l["w"].numel() for l in params["layers"]) * rows
+    mats = sum(t.numel() for layer in params["layers"] for k, t in layer.items()
+               if k in ("wqkv", "wo", "w1", "w2")) + params["classifier"]["w"].numel()
+    dim = params["word_embed"].shape[1]
+    return (2.0 * mats * rows * BUNDLE_SEQ
+            + 4.0 * len(params["layers"]) * rows * BUNDLE_SEQ * BUNDLE_SEQ * dim)
+
+
+def leaf_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(leaf_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(leaf_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def event_ms(fn, iters: int) -> float:
+    """ms a call of ``fn`` on the current stream, by CUDA events around
+    ``iters`` calls (host gaps included) after one untimed call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bundle_payloads(slot):
+    """The phase's payloads, written on the card from seed-0 weights into
+    ``slot(name, filename)`` (a path in the processor's registry): the iris
+    MLP, the MNIST CNN as a bundle, a GraphDef and a TorchScript file,
+    BERT-base as a bundle and as an ONNX export of the same module (f32).
+    Returns ({name: (path, endpoint spec, preprocess file)}, {model:
+    (reference-layout tree, bundle)})."""
+    from clearml_serving_tpu_torch import models
+    from clearml_serving_tpu_torch.engines.importers.graphdef_write import cnn_graphdef
+    from clearml_serving_tpu_torch.engines.importers.onnx_export import (
+        apply_module,
+        export_onnx_bytes,
+    )
+    from clearml_serving_tpu_torch.engines.jax_engine import save_bundle
+
+    paths, trees = {}, {}
+    for name, arch, cfg in (("iris", "mlp", IRIS), ("mnist", "cnn", MNIST),
+                            ("bert", "bert", BERT_BASE)):
+        bundle = models.build_model(arch, cfg)
+        tree = bundle.init(torch.Generator(DEV).manual_seed(0))
+        paths[name] = slot(name, name + "-bundle")
+        t0 = time.perf_counter()
+        n = save_bundle(paths[name], arch, cfg, tree)
+        log("  {}: {} bundle {:.1f} MB written in {:.2f} s".format(
+            name, arch, n / 1e6, time.perf_counter() - t0))
+        trees[name] = (tree, bundle)
+
+    def to_f32(node):
+        if isinstance(node, dict):
+            return {k: to_f32(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_f32(v) for v in node]
+        return node.float()
+
+    mnist_tree, mnist = trees["mnist"]
+    module = apply_module(mnist.apply, mnist.convert_params(mnist_tree, DEV))
+    np_tree = {k: [{n: t.cpu().numpy() for n, t in layer.items()} for layer in v]
+               for k, v in mnist_tree.items()}
+    paths["mnist_graphdef"] = slot("mnist_graphdef", "mnist.graphdef")
+    with open(paths["mnist_graphdef"], "wb") as f:
+        f.write(cnn_graphdef(np_tree))
+    paths["mnist_torchscript"] = slot("mnist_torchscript", "mnist.pt")
+    torch.jit.trace(module, torch.rand((1, 28, 28), device=DEV)).save(
+        paths["mnist_torchscript"])
+    bert_tree, bert = trees["bert"]
+    t0 = time.perf_counter()
+    ids = torch.zeros((1, BUNDLE_SEQ), dtype=torch.int64, device=DEV)
+    onnx_bytes = export_onnx_bytes(
+        apply_module(bert.apply, to_f32(bert.convert_params(bert_tree, DEV))), [ids, ids],
+        ["input_ids", "attention_mask"])
+    paths["bert_onnx"] = slot("bert_onnx", "bert.onnx")
+    with open(paths["bert_onnx"], "wb") as f:
+        f.write(onnx_bytes)
+    log("  bert exported to ONNX on the card (torch's classic exporter, its onnxscript "
+        "hook bypassed): {:.1f} MB in {:.1f} s".format(len(onnx_bytes) / 1e6,
+                                                       time.perf_counter() - t0))
+    del onnx_bytes
+    bert_spec = dict(input_name=["input_ids", "attention_mask"], input_size=[[128], [128]],
+                     input_type=["int32", "int32"])
+    mnist_spec = dict(input_name="image", input_type="float32", input_size=[28, 28],
+                      auxiliary_cfg={"batching": {"buckets": MNIST_BUCKETS}})
+    preprocess = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "examples", "jax_mnist", "preprocess.py")
+    specs = {
+        "iris": (dict(input_type="float32", input_size=[4]), None),
+        "mnist": (mnist_spec, preprocess),
+        "mnist_graphdef": (mnist_spec, preprocess),
+        "mnist_torchscript": (dict(mnist_spec, input_name="input_0"), None),
+        "bert": (bert_spec, None),
+        "bert_onnx": (dict(bert_spec, input_type=["int64", "int64"]), None),
+    }
+    return {name: (paths[name],) + specs[name] for name in specs}, trees
+
+
+def bundle_inputs(name: str, rows: int, gen):
+    """The HTTP body of ``rows`` inputs of endpoint ``name``."""
+    if name == "iris":
+        return torch.randn((rows, 4), generator=gen).tolist()
+    if name.startswith("mnist"):
+        images = torch.rand((rows, 28, 28), generator=gen).tolist()
+        return {"input_0" if name.endswith("torchscript") else "image": images}
+    ids = torch.randint(0, 30522, (rows, BUNDLE_SEQ), generator=gen)
+    mask = torch.ones((rows, BUNDLE_SEQ), dtype=torch.int64)
+    mask[:, 96:] = 0
+    return {"input_ids": ids.tolist(), "attention_mask": mask.tolist()}
+
+
+def bundle_reference(name, trees, body, rows):
+    """The CPU float32 model's output on the body's inputs (numpy)."""
+    from clearml_serving_tpu_torch import models
+
+    import numpy as np
+
+    arch, cfg = {"iris": ("mlp", IRIS), "bert": ("bert", BERT_BASE)}.get(
+        name.split("_")[0], ("cnn", MNIST))
+    tree, _bundle = trees[name.split("_")[0]]
+    cpu = models.build_model(arch, dict(cfg, dtype="float32"))
+
+    def f32(node):
+        if isinstance(node, dict):
+            return {k: f32(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [f32(v) for v in node]
+        return node.float().cpu()
+
+    params = cpu.convert_params(f32(tree), "cpu")
+    with torch.inference_mode():
+        if arch == "bert":
+            x = [torch.tensor(body["input_ids"]), torch.tensor(body["attention_mask"])]
+        elif arch == "mlp":
+            x = [torch.tensor(body, dtype=torch.float32)]
+        else:
+            x = [torch.tensor(next(iter(body.values())), dtype=torch.float32)]
+        return np.asarray(cpu.apply(params, *x)[:rows])
+
+
+async def bundle_requests(processor, name, buckets, gen):
+    """POST one batch of each bucket's size to ``/serve/<name>``; returns
+    {bucket: (body, JSON answer)}."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from clearml_serving_tpu_torch.serving.main import build_app
+
+    client = TestClient(TestServer(build_app(processor)))
+    await client.start_server()
+    try:
+        out = {}
+        for b in buckets:
+            body = bundle_inputs(name, b, gen)
+            r = await client.post("/serve/" + name, json=body)
+            if r.status != 200:
+                raise AssertionError("{} bucket {}: HTTP {}: {}".format(
+                    name, b, r.status, await r.text()))
+            out[b] = (body, await r.json())
+        return out
+    finally:
+        await client.close()
+
+
+def bundle_case(processor, name, buckets, trees, gen) -> list:
+    """Every bucket of endpoint ``name`` through the router, then per key:
+    the replay and eager ms, capture ms, pool MiB, bound, replay == eager
+    bitwise, and the gap to the CPU float32 model."""
+    import numpy as np
+
+    proc = processor._get_processor(name)
+    runner = proc.engine
+    answers = asyncio.run(bundle_requests(processor, name, buckets, gen))
+    health = runner.health()
+    if health["graph_captures"] != len(buckets):
+        raise AssertionError("{}: {} captures for {} buckets".format(
+            name, health["graph_captures"], len(buckets)))
+    tree, _bundle = trees[name.split("_")[0]]
+    bf16 = name == "bert"
+    rows = []
+    for b in buckets:
+        body, answer = answers[b]
+        arrays = proc._body_to_arrays(proc.preprocess(body, {}))
+        graph, inputs, out = runner.entry(arrays)
+        with torch.inference_mode():
+            graph.replay()
+            replayed = out.clone()
+            eager = runner._fn(*inputs)
+        bitwise = bool(torch.equal(replayed, eager))
+        if not bitwise:
+            raise AssertionError("{} bucket {}: the replay is not the eager run's bits".format(
+                name, b))
+        iters = BUNDLE_ITERS if b <= 16 else 3
+        with torch.inference_mode():
+            replay_ms = event_ms(graph.replay, iters)
+            eager_ms = event_ms(lambda: runner._fn(*inputs), iters)
+        key = next(k for k in health["graph_keys"] if k.startswith("b{}:".format(b)))
+        flops = bundle_flops(name, tree, b)
+        peak = CARD_BF16_FLOPS if bf16 else CARD_F32_FLOPS
+        # the ONNX export runs in float32: twice the bundle's bf16 bytes
+        weight_bytes = leaf_bytes(tree) * (2 if name == "bert_onnx" else 1)
+        ops_ms, bytes_ms = flops / peak * 1e3, weight_bytes / CARD_BW * 1e3
+        row = dict(bucket=b, replay_ms=round(replay_ms, 4), eager_ms=round(eager_ms, 4),
+                   capture_ms=health["graph_keys"][key]["capture_ms"],
+                   pool_mib=round(health["graph_keys"][key]["pool_bytes"] / 2 ** 20, 2),
+                   bound_ms=round(max(ops_ms, bytes_ms), 5),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   bitwise=bitwise)
+        if not name.startswith("bert") or b <= 2:
+            want = bundle_reference(name, trees, body, b)
+            got = replayed.float().cpu().numpy()[:b]
+            gap = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+            limit = 0.05 if bf16 else 1e-3
+            if not gap <= limit:
+                raise AssertionError("{} bucket {}: relative gap {} to the CPU float32 "
+                                     "model over {}".format(name, b, gap, limit))
+            row["rel_gap_cpu_f32"] = gap
+        if name.startswith("mnist") and not name.endswith("torchscript"):
+            row["answer"] = {"digit": answer["digit"]}
+        rows.append(row)
+        log("  {} b{}: replay {:.4f} ms, eager {:.4f} ms, capture {:.1f} ms, pool {:.2f} MiB, "
+            "bound {:.5f} ms ({}), gap {}".format(
+                name, b, row["replay_ms"], row["eager_ms"], row["capture_ms"], row["pool_mib"],
+                row["bound_ms"], row["bound_by"], row.get("rel_gap_cpu_f32", "-")))
+    return rows
+
+
+def llama_bundle_arm(card: str) -> dict:
+    """A Llama-3-8B bundle at full width, 8 of 32 layers, written by the
+    port's save_bundle into a processor's registry and served through an
+    ``llm`` endpoint; greedy content and token ids byte-identical to the
+    same seed's preset engine at 8 layers, under both schedulers."""
+    import shutil
+
+    from clearml_serving_tpu_torch.engines.jax_engine import save_bundle
+    from clearml_serving_tpu_torch.llm.openai_api import build_engine
+    from clearml_serving_tpu_torch.models.llama import init_params
+    from clearml_serving_tpu_torch.serving.endpoints import ModelEndpoint
+    from clearml_serving_tpu_torch.serving.main import build_app
+    from clearml_serving_tpu_torch.serving.model_request_processor import (
+        ModelRequestProcessor,
+    )
+
+    root = state_dir()
+    out = {}
+    try:
+        processor = ModelRequestProcessor(state_root=root, force_create=True, name="llama-b",
+                                          device=DEV)
+        rec = processor.registry.register("llama3-8b 8 layers", framework="jax")
+        bundle_dir = os.path.join(str(rec.files_dir), "llama3-8b-8l")
+        t0 = time.perf_counter()
+        params = init_params(LLAMA_BUNDLE, torch.Generator(DEV).manual_seed(0), device=DEV)
+        sync()
+        made_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["bytes"] = save_bundle(bundle_dir, "llama", LLAMA_BUNDLE, params)
+        out["write_s"] = round(time.perf_counter() - t0, 2)
+        del params
+        release_card_memory()
+        log("  llama3-8b bundle, 8 layers: {:.3f} GB (weights made in {:.1f} s), written in "
+            "{:.2f} s; free disk {:.1f} GB".format(
+                out["bytes"] / 1e9, made_s, out["write_s"],
+                shutil.disk_usage(bundle_dir).free / 1e9))
+        bodies = [{"model": "", "messages": [{"role": "user", "content": p}], "max_tokens": 16,
+                   "logprobs": True, "top_logprobs": 1, "return_tokens_as_token_ids": True}
+                  for p in PROMPTS[:3]]
+        for scheduler in ("two_dispatch", "ragged"):
+            knobs = dict(LLAMA_BUNDLE_ENGINE, scheduler=scheduler)
+            if scheduler == "ragged":
+                knobs["step_token_budget"] = 256
+            url = "bundle-" + scheduler
+            processor.add_endpoint(ModelEndpoint(engine_type="llm", serving_url=url,
+                                                 model_id=rec.id,
+                                                 auxiliary_cfg={"engine": knobs}))
+            processor.serialize()
+            processor.deserialize(skip_sync=True)
+            t0 = time.perf_counter()
+            proc = processor._get_processor(url)
+            sync()
+            load_s = round(time.perf_counter() - t0, 2)
+            got = asyncio.run(chat_bodies(build_app(processor), url, bodies))
+            preset = dict(knobs, preset=LLAMA_BUNDLE["preset"],
+                          config={k: v for k, v in LLAMA_BUNDLE.items() if k != "preset"})
+            engine, tok = build_engine(preset, device=DEV)
+            want = asyncio.run(chat_bodies(processor_app(engine, tok, url), url, bodies))
+            if got != want:
+                raise AssertionError("llama bundle under {}: {} against the preset engine's "
+                                     "{}".format(scheduler, got, want))
+            out[scheduler] = dict(load_s=load_s, tokens=[len(ids) for _t, ids in got],
+                                  content=[text[:16] for text, _ids in got])
+            log("  {}: bundle loaded through the llm endpoint in {:.2f} s; greedy content and "
+                "token ids byte-identical to the preset engine's ({} tokens)".format(
+                    scheduler, load_s, out[scheduler]["tokens"]))
+            # both apps stopped their engines at cleanup
+            processor._engine_processor_lookup.pop(url, None)
+            processor.remove_endpoint(url)
+            processor.serialize()
+            del proc, engine
+            release_card_memory()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+async def chat_bodies(app, url, bodies) -> list:
+    """(content, token ids) of each chat body POSTed to ``app`` as ``url``."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    try:
+        out = []
+        for body in bodies:
+            r = await client.post("/serve/openai/v1/chat/completions",
+                                  json=dict(body, model=url))
+            if r.status != 200:
+                raise AssertionError("HTTP {}: {}".format(r.status, await r.text()))
+            choice = (await r.json())["choices"][0]
+            out.append((choice["message"]["content"],
+                        [e["token"] for e in choice["logprobs"]["content"]]))
+        return out
+    finally:
+        await client.close()
+
+
+def phase_bundle_engines(card: str) -> dict:
+    """Phase 17: the ``jax`` engine type behind the port's processor: the
+    iris MLP, the MNIST CNN (bundle, GraphDef, TorchScript; the example's
+    endpoint, buckets and preprocess.py), BERT-base at full width in bf16
+    (sequence 128, the default buckets) and its ONNX export through the
+    ONNX importer; one CUDA graph per bucket key, each replay bitwise the
+    eager run, no fallback. Then the Llama bundle arm."""
+    import shutil
+
+    from clearml_serving_tpu_torch.serving.endpoints import ModelEndpoint
+    from clearml_serving_tpu_torch.serving.model_request_processor import (
+        ModelRequestProcessor,
+    )
+
+    root = state_dir()
+    results = {}
+    try:
+        processor = ModelRequestProcessor(state_root=root, force_create=True, name="bundles",
+                                          device=DEV)
+        records = {}
+
+        def slot(name, filename):
+            records[name] = processor.registry.register(name, framework="jax")
+            return os.path.join(str(records[name].files_dir), filename)
+
+        payloads, trees = bundle_payloads(slot)
+        for name, (_path, spec, preprocess) in payloads.items():
+            processor.add_endpoint(ModelEndpoint(engine_type="jax", serving_url=name,
+                                                 model_id=records[name].id, **spec),
+                                   preprocess_code=preprocess)
+        processor.serialize()
+        processor.deserialize(skip_sync=True)
+        gen = torch.Generator().manual_seed(17)
+        for name in payloads:
+            buckets = MNIST_BUCKETS if name.startswith("mnist") else DEFAULT_BUCKETS
+            t0 = time.perf_counter()
+            results[name] = bundle_case(processor, name, buckets, trees, gen)
+            log("  ({} in {:.1f} s)".format(name, time.perf_counter() - t0))
+        # the ONNX export's logits against the native bundle's, bucket by bucket
+        import numpy as np
+
+        for b in (1, 2):
+            body = bundle_inputs("bert", b, torch.Generator().manual_seed(b))
+            native = processor._get_processor("bert").process(body, {})
+            onnx = processor._get_processor("bert_onnx").process(
+                {k: np.asarray(v, np.int64) for k, v in body.items()}, {})
+            gap = float(np.abs(onnx - native).max() / np.abs(onnx).max())
+            if not gap <= 0.05:
+                raise AssertionError("bert onnx vs native bundle: relative gap {}".format(gap))
+            results.setdefault("bert_onnx_vs_native", []).append(dict(bucket=b, rel_gap=gap))
+        del processor
+        release_card_memory()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    results["llama"] = llama_bundle_arm(card)
+    return results
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -7408,13 +7853,14 @@ def main() -> int:
                           for scheduler in ("ragged", "ragged-tree")]
     int4_prof = phase_profile(qparams, weight_quant="int4")
     mark("6")
-    log("phase 7: request lifecycle, llama3-8b full width behind the HTTP server, default "
-        "lifecycle knobs")
-    lifecycle = phase_lifecycle(params, card)
-    log("phase 8: the radix prefix cache over shared, refcounted KV pages, llama3-8b full "
-        "width, prefix_cache 64, prefix_block 64, prefix_cache_pages 256")
+    log("phase 7: request lifecycle, llama3-8b widths at {} of its 32 layers behind the HTTP "
+        "server, default lifecycle knobs".format(LIFECYCLE_LAYERS))
+    lifecycle = phase_lifecycle(depth_cut(params, LIFECYCLE_LAYERS), card)
+    log("phase 8: the radix prefix cache over shared, refcounted KV pages, llama3-8b widths at "
+        "{} of its 32 layers, prefix_cache 64, prefix_block 64, prefix_cache_pages 256".format(
+            PREFIX_LAYERS))
     mark("7")
-    prefix = phase_prefix_cache(params, card)
+    prefix = phase_prefix_cache(depth_cut(params, PREFIX_LAYERS), card)
     mark("8")
     prefix_arm = {(r["arm"], r["kv"]): r for r in prefix["runs"]}
     log("phase 9: the prefix cache's host-RAM KV tier and the ownership ledger, llama3-8b "
@@ -7457,6 +7903,12 @@ def main() -> int:
             PROC_BASE["config"]["n_layers"]))
     pfleet = phase_process_fleet(card)
     mark("15")
+    log("phase 17: the jax engine type behind the processor: the iris MLP, the MNIST CNN "
+        "(bundle, GraphDef, TorchScript), BERT-base (bf16, sequence 128) and its ONNX "
+        "export, one CUDA graph per bucket key; a Llama-3-8B bundle (8 of 32 layers) on "
+        "the llm route")
+    bundles = phase_bundle_engines(card)
+    mark("17")
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -7741,7 +8193,8 @@ def main() -> int:
                                   "kv_tier": tier, "sampling": sampling,
                                   "guided": guided, "admission": admission,
                                   "control_plane": control, "fleet": fleet,
-                                  "process_fleet": pfleet, "families": families}))
+                                  "process_fleet": pfleet, "families": families,
+                                  "bundle_engines": bundles}))
     log("seconds by phase:", json.dumps(seconds))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)

@@ -45,7 +45,6 @@ _ENGINE_MODULES: Dict[str, List[str]] = {}
 # their endpoints deserialize (serving/endpoints.py keeps the names), and a
 # request to one is refused with this reason
 UNPORTED_ENGINES = {
-    "jax": "the in-process model engine for BERT, CNN and MLP bundles",
     "jax_grpc": "the remote engine server over gRPC",
 }
 

@@ -28,8 +28,10 @@ the fleet's ``replicas``, ``replica_roles``, ``router_affinity_blocks``,
 ``fleet_config``), and the aux ``chat`` block (its ``response_role``) sits
 beside them. With ``replicas`` > 1 the endpoint serves a ``ReplicaGroup``
 (``llm/replica.py``), and its metrics carry each replica's label.
-Weights are random, made from ``seed`` (the reference's preset mode): a
-model bundle has no loader in the port yet. The routes answer with the
+Weights are random, made from ``seed`` (the reference's preset mode), or
+read from the endpoint's model bundle (``load_bundle_engine``: a ``llama``
+bundle's ``params.msgpack``, its stored config, and its tokenizer files when
+``transformers`` can read them). The routes answer with the
 reference's response shapes, and report the reference's per-request stats
 (``gen_tokens``, ``prompt_tokens``, ``ttft``) through ``collect_fn``; a
 stream reports when it ends (``StreamingOutput.on_complete``):
@@ -88,7 +90,7 @@ from ..serving.responses import StreamingOutput
 from ..version import __version__
 from .engine import PRIORITY_CLASSES, GenRequest, LLMEngineCore
 from .guided import GuidedSpec, _regex_escape_literal
-from .tokenizer import ByteTokenizer, token_repr, token_str
+from .tokenizer import ByteTokenizer, load_tokenizer, token_repr, token_str
 from .tools import (
     TOOL_TAG,
     parse_tool_calls,
@@ -245,11 +247,14 @@ def _lifecycle_knob(engine_cfg: Dict[str, Any], key: str, default):
 
 
 def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
-                 params: Optional[Dict[str, Any]] = None, cuda_graphs: bool = True):
+                 params: Optional[Dict[str, Any]] = None, cuda_graphs: bool = True,
+                 config: Optional[Dict[str, Any]] = None, tokenizer=None):
     """(engine, tokenizer) from an aux ``engine`` block. Weights are random,
     made on ``device`` from ``seed`` (the weightless preset mode), unless
     ``params`` (``init_params``/``convert_params`` output, full precision or
-    already quantized) is given. ``weight_quant`` (or ``quantize``)
+    already quantized) is given. A model bundle's (``load_bundle_engine``)
+    gives its stored ``config`` in place of the preset and ``engine.config``,
+    and its ``tokenizer``. ``weight_quant`` (or ``quantize``)
     quantizes full-precision weights before the model is built; on an
     already-packed tree it must name the tree's format. ``cuda_graphs=False``
     builds the eager arm (``LLMEngineCore``'s argument; no aux key sets
@@ -273,9 +278,8 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     if engine_cfg.get("arch", "llama") != "llama":
         raise ValueError("aux engine.arch {!r} is not supported by the PyTorch port "
                          "yet".format(engine_cfg["arch"]))
-    if not engine_cfg.get("preset"):
-        raise ValueError("the PyTorch port serves aux engine.preset models only "
-                         "(bundle loading arrives with a later slice)")
+    if not engine_cfg.get("preset") and config is None:
+        raise ValueError("an llm engine needs a model bundle or aux engine.preset")
     # weight quantization, validated before any weight is made, with the
     # reference's load-time checks and words
     weight_quant = engine_cfg.get("weight_quant", engine_cfg.get("quantize"))
@@ -297,7 +301,8 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     dev = resolve_device(device)
     # engine.config lies over the preset: a family no preset matches (Qwen2.5,
     # Gemma) names every key there, nested rope_scaling included
-    cfg = resolve_config({"preset": engine_cfg["preset"], **(engine_cfg.get("config") or {})})
+    cfg = resolve_config(dict(config) if config is not None else
+                         {"preset": engine_cfg["preset"], **(engine_cfg.get("config") or {})})
     if engine_cfg.get("kv_quant"):
         cfg["kv_quant"] = str(engine_cfg["kv_quant"])
     # a family the paged kernels do not serve is refused with the
@@ -306,7 +311,7 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     if reason:
         raise ValueError(reason)
     seed = int(engine_cfg.get("seed", 0))
-    tokenizer = make_tokenizer(cfg)
+    tokenizer = tokenizer or make_tokenizer(cfg)
     kwargs = engine_kwargs(engine_cfg, cfg, tokenizer, weight_quant, cuda_graphs)
     n = fleet.pop("replicas")
     if fleet.pop("replica_backend") == "process":
@@ -338,6 +343,37 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
         else:
             engines.append(LLMEngineCore(model, replica="r{}".format(i), **kwargs))
     return ReplicaGroup(engines, warmup_mode=warmup, **fleet), tokenizer
+
+
+def load_bundle_engine(path, engine_cfg: Dict[str, Any], *, device="cuda",
+                       cuda_graphs: bool = True):
+    """(engine, tokenizer) over a model bundle, as the reference's
+    ``_native_load`` serves one: ``load_bundle`` with ``kv_quant`` as a
+    config override (each leaf read from the file and copied once to the
+    device, then the arch's ``convert_params``), the tokenizer from the
+    bundle's files (``load_tokenizer``; byte-level without them or without
+    ``transformers``), and ``build_engine`` over the loaded weights:
+    ``weight_quant`` quantizes them, ``replicas: N`` shares the one
+    ``Llama``. A process fleet is refused with the reference's words: its
+    workers rebuild the model from the preset."""
+    from ..engines.jax_engine import load_bundle
+
+    if fleet_config(engine_cfg)["replica_backend"] == "process":
+        raise EndpointModelError(
+            "engine.replica_backend=process needs an engine.preset "
+            "model: worker processes rebuild the model from the "
+            "preset spec, and a local-path bundle cannot be "
+            "re-materialized in them yet (docs/replication.md)"
+        )
+    overrides = {"kv_quant": str(engine_cfg["kv_quant"])} if engine_cfg.get("kv_quant") else None
+    bundle, params = load_bundle(path, config_overrides=overrides, device=resolve_device(device))
+    if "n_kv_heads" not in bundle.config:
+        raise EndpointModelError(
+            "llm endpoint bundle {} is not a decoder bundle (arch {!r}): the encoder "
+            "routes are not ported yet".format(path, bundle.config.get("arch")))
+    tokenizer = load_tokenizer(str(path), int(bundle.config.get("vocab_size", 0)))
+    return build_engine(engine_cfg, device=device, params=params, cuda_graphs=cuda_graphs,
+                        config=bundle.config, tokenizer=tokenizer)
 
 
 def make_tokenizer(cfg: Dict[str, Any]) -> ByteTokenizer:
@@ -521,10 +557,8 @@ class LLMEngineRequest(BaseEngineRequest):
             self.engine, self.tokenizer = carried
             self._carried = None
         elif self._model_local_path:
-            raise EndpointModelError(
-                "llm endpoint {!r} names a model bundle; the PyTorch port has no loader "
-                "for the bundle format yet: serve aux_config engine.preset".format(
-                    self.endpoint.serving_url))
+            self.engine, self.tokenizer = load_bundle_engine(
+                self._model_local_path, engine_cfg, device=self.device)
         elif engine_cfg.get("preset"):
             self.engine, self.tokenizer = build_engine(engine_cfg, device=self.device)
         else:

@@ -33,7 +33,6 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -42,6 +41,8 @@ from ..device import resolve_device
 from ..ops.fused_matmul import fused_int4_matmul
 from ..ops.paged_attention import paged_attention, ragged_paged_attention
 from ..ops.quant import dequantize, dequantize_int4
+from . import register_model
+from .params import DTYPES as _DTYPES, to_tensor
 
 # Named configs: full Llama-3-8B plus scaled-down variants for tests/benches
 # (copied from the reference's PRESETS).
@@ -63,9 +64,6 @@ PRESETS: Dict[str, Dict[str, Any]] = {
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm",
               "w_gate", "w_up", "w_down")
 BIAS_KEYS = ("bq", "bk", "bv")   # Qwen2's QKV biases (``attn_bias``)
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
 
 # config knobs of the reference that this slice does not serve yet, with the
 # value that means "off"
@@ -870,19 +868,13 @@ _QUANT_LEAF_KEYS = ({"_q4", "_scale4"}, {"_q8", "_scale"})
 
 
 def _to_tensor(a, device):
-    """One leaf to ``device``: an array, or a quantized leaf's dict of
-    arrays (``_q4``/``_scale4`` or ``_q8``/``_scale``)."""
+    """One leaf to ``device``: an array or a tensor, or a quantized leaf's
+    dict of them (``_q4``/``_scale4`` or ``_q8``/``_scale``)."""
     if isinstance(a, dict):
         if set(a) not in _QUANT_LEAF_KEYS:
             raise ValueError("unknown quantized leaf keys {}".format(sorted(a)))
         return {k: _to_tensor(v, device) for k, v in a.items()}
-    arr = np.asarray(a)
-    if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy())
-        t = t.view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(arr, copy=True))
-    return t.to(device)
+    return to_tensor(a, device)
 
 
 def convert_params(np_tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
@@ -911,3 +903,18 @@ def convert_params(np_tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     out["layers"] = [{k: _to_tensor(v, dev) for k, v in layer.items()} for layer in layers]
     return out
 
+
+@register_model("llama")
+def build(config: dict):
+    """The registry's ``llama`` bundle: the resolved config, ``init`` (random
+    weights on the generator's device) and ``convert_params``; the LLM
+    engine builds ``Llama`` over the converted tree."""
+    from types import SimpleNamespace
+
+    cfg = resolve_config(config)
+    check_config(cfg)
+
+    def init(generator: torch.Generator) -> Dict[str, Any]:
+        return init_params(cfg, generator, device=generator.device)
+
+    return SimpleNamespace(init=init, config=cfg, convert_params=convert_params)

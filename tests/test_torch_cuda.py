@@ -2408,3 +2408,127 @@ def test_guided_bucket_growth_drops_its_ragged_graphs(cuda):
     assert bucket not in engine._gdev and not engine._gstale
     assert guided.label() not in engine.health()["graph_pool_bytes"]
     engine.stop()
+
+
+# -- the jax engine type: one CUDA graph per bucket key ------------------------
+
+_BUNDLE_ARCHS = {
+    "mlp": ("mlp", {"in_dim": 4, "hidden": [64, 64], "out_dim": 3}),
+    "cnn": ("cnn", {"in_hw": [28, 28], "in_ch": 1, "channels": [32, 64], "dense": 128,
+                    "out_dim": 10}),
+    "bert": ("bert", {"preset": "bert-tiny", "vocab_size": 30522}),
+}
+
+
+def _bundle_payload(kind, dev, tmp_path):
+    """(payload path, endpoint spec, make inputs(batch)) of one payload
+    kind, from seed-0 weights made on the card."""
+    from clearml_serving_tpu_torch import models
+    from clearml_serving_tpu_torch.engines.importers.graphdef_write import cnn_graphdef
+    from clearml_serving_tpu_torch.engines.importers.onnx_export import (
+        apply_module,
+        export_onnx_bytes,
+    )
+    from clearml_serving_tpu_torch.engines.jax_engine import save_bundle
+
+    gen = torch.Generator(dev).manual_seed(0)
+    cpu = torch.Generator().manual_seed(1)
+    arch, cfg = _BUNDLE_ARCHS["bert" if kind == "bert" else
+                              "mlp" if kind == "mlp" else "cnn"]
+    bundle = models.build_model(arch, cfg)
+    tree = bundle.init(gen)
+    if arch == "bert":
+        spec = dict(input_name=["input_ids", "attention_mask"], input_type=["int32", "int32"],
+                    input_size=[[128], [128]])
+
+        def inputs(b):
+            ids = torch.randint(0, 30522, (b, 128), generator=cpu, dtype=torch.int32)
+            mask = torch.ones((b, 128), dtype=torch.int32)
+            mask[:, 100:] = 0
+            return {"input_ids": ids.numpy(), "attention_mask": mask.numpy()}
+    elif arch == "mlp":
+        spec = dict(input_type="float32", input_size=[4])
+
+        def inputs(b):
+            return torch.randn((b, 4), generator=cpu).numpy()
+    else:
+        spec = dict(input_name="image", input_type="float32", input_size=[28, 28])
+
+        def inputs(b):
+            return {"image": torch.rand((b, 28, 28), generator=cpu).numpy()}
+    if kind in ("mlp", "cnn", "bert"):
+        save_bundle(tmp_path, arch, cfg, tree)
+        return tmp_path, spec, inputs
+    params = bundle.convert_params(tree, dev)
+    module = apply_module(bundle.apply, params)
+    example = torch.rand((1, 28, 28), device=dev)
+    if kind == "onnx":
+        (tmp_path / "model.onnx").write_bytes(export_onnx_bytes(module, [example], ["image"]))
+        return tmp_path / "model.onnx", spec, inputs
+    if kind == "graphdef":
+        np_tree = {k: [{n: t.cpu().numpy() for n, t in layer.items()} for layer in v]
+                   for k, v in tree.items()}
+        (tmp_path / "model.graphdef").write_bytes(cnn_graphdef(np_tree))
+        return tmp_path / "model.graphdef", spec, inputs
+    torch.jit.trace(module, example).save(str(tmp_path / "model.pt"))
+    return tmp_path / "model.pt", dict(spec, input_name="input_0"), \
+        lambda b: {"input_0": inputs(b)["image"]}
+
+
+def _jax_request(path, spec, dev, cuda_graphs, buckets=None):
+    from clearml_serving_tpu_torch.engines.jax_engine import JaxEngineRequest
+    from clearml_serving_tpu_torch.serving.endpoints import ModelEndpoint
+
+    registry = types.SimpleNamespace(
+        get=lambda _id: types.SimpleNamespace(get_local_copy=lambda: str(path)))
+    aux = {"batching": {"buckets": buckets}} if buckets else None
+    ep = ModelEndpoint(engine_type="jax", serving_url="m", model_id="m",
+                       auxiliary_cfg=aux, **spec)
+    return JaxEngineRequest(ep, registry=registry, device=str(dev), cuda_graphs=cuda_graphs)
+
+
+@pytest.mark.parametrize("kind", ["mlp", "cnn", "bert", "onnx", "graphdef", "torchscript"])
+def test_bucket_graph_replay_is_bitwise_the_eager_run(cuda, tmp_path, kind):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    path, spec, inputs = _bundle_payload(kind, cuda, tmp_path)
+    graphed = _jax_request(path, spec, cuda, True, buckets=[1, 4, 16])
+    eager = _jax_request(path, spec, cuda, False, buckets=[1, 4, 16])
+    for batch in (1, 3, 4, 11):
+        data = inputs(batch)
+        got, want = graphed.process(data, {}), eager.process(data, {})
+        assert got.shape == want.shape and got.shape[0] == batch
+        assert torch.equal(torch.from_numpy(got), torch.from_numpy(want)), (kind, batch)
+    health = graphed.engine.health()
+    assert health["graph_captures"] == 3 and health["graph_replays"] == 4
+    assert health["graph_pool_bytes"] > 0 and eager.engine.health()["graph_captures"] == 0
+
+
+def test_no_capture_after_the_first_request_of_each_key(cuda, tmp_path):
+    path, spec, inputs = _bundle_payload("cnn", cuda, tmp_path)
+    req = _jax_request(path, spec, cuda, True)
+    for batch in (2, 2, 1, 7, 8, 2, 1):
+        req.process(inputs(batch), {})
+    health = req.engine.health()
+    # keys: buckets 2, 1 and 8
+    assert health["graph_captures"] == 3 and health["graph_replays"] == 7
+    assert sorted(health["graph_keys"]) == ["b1:1x28x28float32", "b2:2x28x28float32",
+                                            "b8:8x28x28float32"]
+
+
+def test_a_capture_failure_raises_and_names_the_key(cuda):
+    from clearml_serving_tpu_torch.engines.bucket_graph import BucketRunner
+
+    def syncs(x):
+        # a host read inside the capture: the capture fails
+        return x * float(x.sum().item())
+
+    runner = BucketRunner(syncs, cuda)
+    import numpy as np
+
+    with pytest.raises(RuntimeError, match=r"capture of bucket key b4:4x3float32 failed"):
+        runner.run([np.ones((4, 3), np.float32)])
+    assert runner.health()["graph_captures"] == 0
+    # the card still serves: an eager runner works after the failed capture
+    ok = BucketRunner(lambda x: x + 1, cuda, cuda_graphs=False)
+    assert float(ok.run([np.ones((1, 3), np.float32)]).sum()) == 6.0

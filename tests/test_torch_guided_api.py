@@ -74,9 +74,10 @@ def _cmpl(**kw):
     return body
 
 
-def _run(app, calls):
+def _run(app, calls, settle=None):
     """POST each (path, body) in order; per call (status, JSON or the SSE
-    chunks)."""
+    chunks). ``settle`` is awaited after the last call, before the app
+    closes."""
 
     async def runner():
         client = TestClient(TestServer(app))
@@ -93,6 +94,8 @@ def _run(app, calls):
                     if line.startswith("data: ") and line != "data: [DONE]":
                         chunks.append(json.loads(line[len("data: "):]))
                 out.append((r.status, chunks))
+            if settle is not None:
+                await settle()
             return out
         finally:
             await client.close()
@@ -117,7 +120,13 @@ def served(tmp_path_factory):
         np_params = jax.tree.map(np.asarray, mrp._engine_processor_lookup[URL].engine.params)
 
         def run_jax(calls):
-            return _run(jax_build_app(mrp), calls)
+            engine = mrp._engine_processor_lookup[URL].engine
+
+            async def settle():
+                await engine.wait_drained()
+                _clear_stale_guided_slots(engine)
+
+            return _run(jax_build_app(mrp), calls, settle)
 
         def run_port(calls):
             engine, tok = build_engine(dict(ENGINE_CFG), device="cpu",
@@ -130,6 +139,23 @@ def served(tmp_path_factory):
             os.environ.pop("TPUSERVE_STATE_ROOT", None)
         else:
             os.environ["TPUSERVE_STATE_ROOT"] = old
+
+
+def _clear_stale_guided_slots(engine):
+    """Free slots of the drained reference engine back to "no grammar"
+    after a case. At pipeline depth 2 the reference re-anchors a freed
+    slot's DFA state at the retire of a chunk dispatched while its guided
+    request was live (``_retire_chunk``,
+    clearml_serving_tpu/llm/engine.py:7210-7221), and the commit of an
+    unguided request does not reset it (``_activate_slot``, :4926-4938). A
+    chunk still in flight when a case's app closes retires when the next
+    case's app starts, so whether that case's unguided request is cut to
+    its first token and EOS depends on timing (ROADMAP §3). The port resets
+    the state at every commit; without this the comparison depended on the
+    case before and the machine's load."""
+    for slot, request in enumerate(engine._slot_req):
+        if request is None:
+            engine._gstate[slot] = -1
 
 
 _VOLATILE = {"id", "created"}
@@ -243,6 +269,21 @@ def test_tool_choice_modes_equal_the_reference(served, case):
         assert streamed and chunks[-1]["choices"][0]["finish_reason"] == "tool_calls"
     if case == "auto_with_json_object":
         assert choice["finish_reason"] != "tool_calls"
+
+
+def test_none_after_a_forced_call_keeps_its_stream(served):
+    """The port alone (the reference cuts this stream to its first token
+    and EOS when the forced call's slot state is left stale, ROADMAP §3):
+    tool_choice none right after a forced call on the same port app streams
+    what it streams on a fresh app, which is the reference's content on a
+    clean engine."""
+    run_jax, run_port = served
+    (_ws, clean), = run_jax([(CHAT, TOOLS["none"])])
+    forced, (status, after) = run_port([(CHAT, TOOLS["forced_single"]), (CHAT, TOOLS["none"])])
+    assert forced[0] == status == 200
+    assert forced[1]["choices"][0]["finish_reason"] == "tool_calls"
+    _same(after, clean)
+    assert len(after["choices"][0]["message"]["content"]) > 1
 
 
 REFUSED = {

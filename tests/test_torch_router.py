@@ -251,8 +251,9 @@ def test_binary_body_passthrough(served):
 def test_reference_document_with_a_jax_endpoint(state_root, tmp_path, capsys):
     """The reference's CLI writes a service with a ``jax`` endpoint beside a
     custom one; the port's processor reads it whole, answers the ``jax``
-    endpoint 422 naming the engine it does not serve yet, and serves the
-    custom endpoint as the reference's processor does."""
+    endpoint (whose model id the registry lacks) with the reference
+    processor's status and detail, and serves the custom endpoint as the
+    reference's processor does."""
     from clearml_serving_tpu.__main__ import cli
 
     code = tmp_path / "echo.py"
@@ -277,7 +278,12 @@ def test_reference_document_with_a_jax_endpoint(state_root, tmp_path, capsys):
         return clf, echo, health
 
     (status, body), echo, health = _run("port", mrp, fn)
-    assert status == 422
-    assert "engine 'jax' is not served by the PyTorch port yet" in body["detail"]
-    assert echo == (200, {"echo": {"a": 1}})
+    _, _, RefProcessor = _mods(PACKAGES["reference"])
+    ref = RefProcessor(service_id=svc, state_root=str(state_root))
+    assert ref.deserialize(skip_sync=True)
+    (ref_status, ref_body), ref_echo, _ = _run("reference", ref, fn)
+    assert status == ref_status == 422
+    assert body["detail"] == ref_body["detail"]
+    assert "model 'abc' not found in registry" in body["detail"]
+    assert echo == ref_echo == (200, {"echo": {"a": 1}})
     assert health[1]["endpoints"] == ["clf", "echo"]
