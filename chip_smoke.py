@@ -85,7 +85,8 @@ exits non-zero before the result lines are printed:
    (serial, eager) and depth 2 (graphs captured by the endpoint's
    ``warmup``): equal greedy contents, no capture while serving, and each
    arm's wall ms per decode step, dispatch and retire ms and tok/s;
-5f. the ragged launch as CUDA graphs: phase 5b's traffic (bf16 and int8
+5f. the ragged launch as CUDA graphs, at Llama-3-8B's widths and
+   ``GRAPH_LAYERS`` (16) of its 32 layers: phase 5b's traffic (bf16 and int8
    KV) and phase 5d's tree arm, each with aux ``warmup: full`` (every plain
    launch key captured before traffic) and each graphed and eager
    (``cuda_graphs: false``), then 5b's on int4 weights graphed: content
@@ -103,7 +104,7 @@ exits non-zero before the result lines are printed:
    int4 weights; the graphed passes' traces must hold as many
    decode-attention, ragged-attention and int4 grids as counted;
 7. the request lifecycle of the default route: Llama-3-8B at full width
-   and ``LIFECYCLE_LAYERS`` (16) of its 32 layers behind the HTTP app (bf16 KV, depth 2 with graphs, max_batch 8) with the
+   and ``LIFECYCLE_LAYERS`` (8) of its 32 layers behind the HTTP app (bf16 KV, depth 2 with graphs, max_batch 8) with the
    reference's default lifecycle knobs (max_pending 32, a 30 s watchdog,
    preemption, brownout). 8 batch-class chats at 128 tokens alone, then with
    an interactive arrival (a preemption; every batch content must equal its
@@ -120,7 +121,7 @@ exits non-zero before the result lines are printed:
    once per layer per decode step of the default engine's traffic.
 
 8. the radix prefix cache over shared, refcounted KV pages: Llama-3-8B at
-   full width and ``PREFIX_LAYERS`` (16) of its 32 layers (max_batch 8, max_seq_len 2048, page_size 16) with
+   full width and ``PREFIX_LAYERS`` (8) of its 32 layers (max_batch 8, max_seq_len 2048, page_size 16) with
    ``prefix_cache`` 64, ``prefix_block`` 64, ``prefix_cache_pages`` 256 and
    the KV sanitizer armed, two-dispatch at depth 2 with graphs and ragged
    at budget 256, each on bf16 and int8 KV, and the eager two-dispatch
@@ -157,8 +158,8 @@ exits non-zero before the result lines are printed:
    the machine.
 
 10. the sampling surface of the OpenAI routes: Llama-3-8B at full width
-   and 16 of its 32 layers (``SURFACE_LAYERS``, since phase 16 joined the
-   script; seed-0 weights, max_batch 8, max_seq_len 2048). 10a, two-dispatch at
+   and 8 of its 32 layers (``SURFACE_LAYERS``, 16 since phase 16 joined
+   the script, 8 since phase 18 did; seed-0 weights, max_batch 8, max_seq_len 2048). 10a, two-dispatch at
    depth 2 with graphs, bf16 KV: 8 concurrent ~100-token chats of 64
    tokens (four seeded sampled with penalties and ``top_logprobs`` 5, two
    greedy with ``logit_bias`` and logprobs, two plain); the four seeded
@@ -377,6 +378,31 @@ exits non-zero before the result lines are printed:
    written into a registry and served on an ``llm`` endpoint under both
    schedulers: greedy content and token ids byte-identical to the same
    seed's preset engine; its bytes and the seconds to write and to load.
+18. BERT's two routes, BERT-base at full width (bf16, 9 labels) on seed
+   weights. 18a: the BERT example's topology: two bundles written (seeds 0
+   and 1), registered by the port's CLI (``model upload --framework jax``,
+   ``model add --engine jax_grpc`` with ``input_ids``/``attention_mask``
+   int32 ``[128]`` and ``batching.preferred_batch_size=16``,
+   ``batching.max_queue_delay_us=5000``); ``tpu-serving-torch-engine``
+   started as its own process on the card, this process the router
+   (``build_app``) over loopback gRPC; 256 one-row requests (real lengths
+   16-128 from a seed) at concurrency 1, 8, 32 and 64: requests a second,
+   p50 and p99, batches, rows a batch and padded rows from ``Status`` and
+   the sidecar's ``engine_batch_rows_total``, the queue-delay histogram; a
+   capture only at a key's first batch, no eager batch; every answer
+   within 2e-2 of the port's ``jax`` endpoint on the same bundle, bitwise
+   at concurrency 1 (bucket 1 on both). 18b: the CLI repoints the endpoint
+   at the second bundle under concurrency-32 traffic; no request fails,
+   the seconds to the first answer of the new version, the server's
+   ``memory_allocated`` back within 64 MiB of its level before the swap
+   once the old model is released. 18c: SIGKILL of the server under
+   traffic: only 200s and 503s (after the client's retries), the seconds
+   from the restart to the first answer. 18d: an ``llm`` endpoint with
+   ``task: embed`` over the same preset: the five encoder routes on texts
+   of 16-512 byte-tokenizer ids, a chat refused with 422; per (function,
+   batch, seq) key the replay and eager ms, capture ms and pool; the
+   embeddings and classify logits within 5% of the CPU float32 port on the
+   same weights.
 
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, its head_dim 256 entries and the ragged kernel's
@@ -2047,15 +2073,19 @@ def device_events(prof, check: bool = False) -> list:
 # phase 6 profiles Llama-3-8B's widths at 8 of its 32 layers (the script's
 # time limit: 16 since phase 15 joined it, 8 since phase 16 did)
 PROFILE_LAYERS = 8
-# phase 10 runs 16 of its 32 layers since phase 16 joined the script
-# (phase 11 stays at 32: at 16, 11c's trace held 64 = 16 x 4 paged grids
-# more than the counts, twice, as a first-use capture's warm-up chunk in
-# its profiled window would: the counts leave that set-up work out)
-SURFACE_LAYERS = 16
+# phase 10 runs 16 of its 32 layers since phase 16 joined the script, 8
+# since phase 18 did (phase 11 stays at 32: at 16, 11c's trace held 64 =
+# 16 x 4 paged grids more than the counts, twice, as a first-use capture's
+# warm-up chunk in its profiled window would: the counts leave that set-up
+# work out)
+SURFACE_LAYERS = 8
 # phases 7 and 8 run 16 of the 32 layers since phase 17 joined the script
-# (its ~45 s on the card; the whole script keeps to half its limit)
-LIFECYCLE_LAYERS = 16
-PREFIX_LAYERS = 16
+# (its ~45 s on the card; the whole script keeps to half its limit), 8
+# since phase 18 did (605.6 s whole on a slow host)
+LIFECYCLE_LAYERS = 8
+PREFIX_LAYERS = 8
+# phase 5f runs 16 of the 32 layers since phase 18 joined the script
+GRAPH_LAYERS = 16
 
 
 def depth_cut(params, n_layers: int) -> dict:
@@ -2965,7 +2995,17 @@ async def preemption_run(engine, s, base, interactive: bool) -> dict:
     emitted0 = engine.counters["tokens_emitted"]
     batch = [asyncio.ensure_future(lifecycle_chat(s, base, p, 128, priority="batch"))
              for p in BATCH_PROMPTS]
-    await until(lambda: engine.active_slots == 8, 120, "8 batch chats decoding")
+    try:
+        await until(lambda: engine.active_slots == 8, 120, "8 batch chats decoding")
+    except AssertionError as ex:
+        stats = engine.lifecycle_stats()
+        raise AssertionError("{}: {} active slots; finished chats {}; queue depths {}, "
+                             "sheds {}, brownout {}, preemptions {}".format(
+                                 ex, engine.active_slots,
+                                 [(d.result()["status"], d.result()["code"]) for d in batch
+                                  if d.done() and not d.exception()],
+                                 stats.get("queue_depths"), stats.get("sheds_by_class"),
+                                 stats.get("brownout"), stats.get("preemptions"))) from ex
     await until(lambda: engine.counters["tokens_emitted"] - emitted0 >= 8 * 16, 120,
                 "16 tokens of each batch chat")
     ttft_ms = first_text_ms = None
@@ -7699,6 +7739,642 @@ def phase_bundle_engines(card: str) -> dict:
     return results
 
 
+# -- phase 18: BERT's two routes: the engine server (jax_grpc), the encoder ----
+
+GRPC_URL = "transformer_model"      # the BERT example's endpoint
+GRPC_ROWS = 256                     # one-row requests per concurrency
+GRPC_CONCURRENCY = [1, 8, 32, 64]
+GRPC_BATCHING = ["batching.preferred_batch_size=16", "batching.max_queue_delay_us=5000"]
+GRPC_POLL_MIN = 0.01                # the engine server's TPUSERVE_POLL_FREQ (0.6 s)
+GRPC_LOGIT_TOL = 2e-2
+GRPC_MEMORY_SLACK = 64 << 20
+GRPC_SWAP_EXTRA = 128               # answers after the first from the new version
+GRPC_START_S = 240.0                # an engine server's limit to serve its model
+# the router's channel reconnects soon after a restarted server comes back
+# (gRPC's own first reconnect backoff is 1 s, growing to 120 s)
+GRPC_CHANNEL_ENV = {"TPUSERVE_GRPC_INITIAL_RECONNECT_BACKOFF_MS": "100",
+                    "TPUSERVE_GRPC_MAX_RECONNECT_BACKOFF_MS": "500"}
+ENCODER_URL = "bert_embed"
+ENCODER_TOKENS = (16, 512)          # the byte tokenizer's ids a text (BOS included)
+ENCODER_ITERS = 5
+
+
+def free_port() -> int:
+    import socket
+
+    with contextlib.closing(socket.socket(socket.AF_INET, socket.SOCK_STREAM)) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def grpc_bodies(n: int, seed: int) -> list:
+    """``n`` one-row bodies of the example's I/O spec: ids over BERT's
+    vocabulary, real lengths 16-128 drawn from ``seed``, the rest masked."""
+    gen = torch.Generator().manual_seed(seed)
+    vocab = int(BERT_BASE.get("vocab_size", 30522))
+    out = []
+    for _ in range(n):
+        length = int(torch.randint(16, 129, (1,), generator=gen))
+        ids = torch.zeros(BUNDLE_SEQ, dtype=torch.int64)
+        ids[:length] = torch.randint(0, vocab, (length,), generator=gen)
+        mask = (torch.arange(BUNDLE_SEQ) < length).long()
+        out.append({"input_ids": [ids.tolist()], "attention_mask": [mask.tolist()]})
+    return out
+
+
+class EngineServerProcess:
+    """``tpu-serving-torch-engine`` as a child process of this script (its
+    output in ``build/engine_server.log``), on the card unless DEV says
+    otherwise."""
+
+    def __init__(self, root: str, service_id: str, port: int, metrics_port: int):
+        self.port, self.metrics_port = port, metrics_port
+        self.addr = "127.0.0.1:{}".format(port)
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.log_path = os.path.join(here, "build", "engine_server.log")
+        open(self.log_path, "w").close()  # this phase's server only (a restart appends)
+        self.env = dict(os.environ, TPUSERVE_STATE_ROOT=root, TPUSERVE_SERVICE_ID=service_id,
+                        TPUSERVE_ENGINE_PORT=str(port),
+                        TPUSERVE_ENGINE_METRICS_PORT=str(metrics_port),
+                        TPUSERVE_POLL_FREQ=str(GRPC_POLL_MIN),
+                        PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.proc = None
+
+    def start(self) -> None:
+        log_file = open(self.log_path, "a")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "clearml_serving_tpu_torch.engine_server.server",
+             "--device", str(DEV)], env=self.env, stdout=log_file, stderr=subprocess.STDOUT)
+        log_file.close()
+
+    def status(self, timeout: float = 5.0) -> dict:
+        import grpc
+
+        from clearml_serving_tpu_torch.engine_server import protocol
+
+        with grpc.insecure_channel(self.addr) as channel:
+            call = channel.unary_unary(protocol.STATUS_METHOD)
+            return protocol.decode_obj(call(b"", timeout=timeout))
+
+    def wait_serving(self, want_model_id: str, limit: float = GRPC_START_S) -> dict:
+        """Poll ``Status`` until the endpoint serves ``want_model_id``."""
+        t0 = time.perf_counter()
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError("the engine server exited with {}: {}".format(
+                    self.proc.returncode, self.log_tail()))
+            try:
+                status = self.status()
+                model = status["models"].get(GRPC_URL)
+                if model is not None and model["model_id"] == want_model_id:
+                    return status
+            except Exception:
+                pass
+            if time.perf_counter() - t0 > limit:
+                raise AssertionError("the engine server did not serve {} in {} s: {}".format(
+                    want_model_id, limit, self.log_tail()))
+            time.sleep(0.1)
+
+    def metrics(self) -> dict:
+        """The sidecar's samples: {(name, sorted labels): value}."""
+        import urllib.request
+
+        from prometheus_client.parser import text_string_to_metric_families
+
+        with urllib.request.urlopen("http://127.0.0.1:{}/metrics".format(self.metrics_port),
+                                    timeout=5) as r:
+            text = r.read().decode()
+        out = {}
+        for family in text_string_to_metric_families(text):
+            for s in family.samples:
+                out[(s.name, tuple(sorted(s.labels.items())))] = s.value
+        return out
+
+    def kill(self) -> None:
+        import signal
+
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(30)
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(15)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(15)
+
+    def log_tail(self, n: int = 4000) -> str:
+        try:
+            with open(self.log_path) as f:
+                return f.read()[-n:]
+        except OSError:
+            return ""
+
+
+def batch_rows(metrics: dict) -> dict:
+    return {kind: metrics.get(("engine_batch_rows_total", (("kind", kind),
+                                                            ("model", GRPC_URL))), 0.0)
+            for kind in ("real", "padded")}
+
+
+def queue_delay_buckets(metrics: dict) -> dict:
+    """The sidecar's queue-delay histogram: cumulative count per bound."""
+    out = {}
+    for (name, labels), value in metrics.items():
+        d = dict(labels)
+        if name == "engine_queue_delay_seconds_bucket" and d.get("model") == GRPC_URL:
+            out[d["le"]] = value
+    return dict(sorted(out.items(), key=lambda kv: float(kv[0])))
+
+
+def model_counts(status: dict) -> dict:
+    m = status["models"][GRPC_URL]
+    keys = ("requests_served", "batches_executed", "rows_executed", "padded_rows",
+            "graph_captures", "graph_replays", "eager_runs")
+    return {k: int(m[k]) for k in keys}
+
+
+def check_served_on_the_card(label: str, status: dict) -> None:
+    m = status["models"][GRPC_URL]
+    if m["graph_captures"] != len(m["graph_keys"]):
+        raise AssertionError("{}: {} captures for {} keys: a capture after a key's first "
+                             "batch".format(label, m["graph_captures"], m["graph_keys"]))
+    if torch.device(DEV).type == "cuda":
+        if m["eager_runs"] or not m["graph_replays"]:
+            raise AssertionError("{}: {} eager runs, {} replays: a batch ran off the "
+                                 "graphs".format(label, m["eager_runs"], m["graph_replays"]))
+        if not status.get("memory_allocated"):
+            raise AssertionError("{}: the engine server reports no card: {}".format(
+                label, status.get("devices")))
+
+
+def percentile(values, q: float) -> float:
+    vals = sorted(values)
+    return vals[min(len(vals) - 1, int(round(q * (len(vals) - 1))))]
+
+
+async def grpc_traffic(client, bodies, concurrency: int, stop=None, on_answer=None) -> dict:
+    """POST ``bodies`` to ``/serve/<GRPC_URL>`` with ``concurrency`` in
+    flight (round and round until ``stop`` is set, when given). Returns the
+    statuses, latencies, wall seconds and the answers by body index."""
+    import itertools
+
+    order = itertools.count()
+    statuses, lat, answers = {}, [], {}
+
+    async def worker():
+        while True:
+            i = next(order)
+            if stop is None and i >= len(bodies):
+                return
+            if stop is not None and stop.is_set():
+                return
+            t0 = time.perf_counter()
+            r = await client.post("/serve/" + GRPC_URL, json=bodies[i % len(bodies)])
+            body = await r.json()
+            t1 = time.perf_counter()
+            statuses[r.status] = statuses.get(r.status, 0) + 1
+            if r.status == 200:
+                lat.append(t1 - t0)
+                answers[i] = body
+            if on_answer is not None:
+                on_answer(i, r.status, body, t1)
+            if r.status != 200 and stop is not None:
+                await asyncio.sleep(0.05)
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*[worker() for _ in range(concurrency)])
+    wall = time.perf_counter() - t0
+    return dict(statuses=statuses, latencies=lat, wall_s=wall, answers=answers)
+
+
+def grpc_check_answers(bodies, answers, local, bitwise_rows: set) -> dict:
+    """Each answer's logits against the port's ``jax`` endpoint's on the
+    same row (``local``: index -> logits, run alone, bucket 1)."""
+    import numpy as np
+
+    worst, bitwise, compared = 0.0, 0, 0
+    for i, ans in answers.items():
+        want = local[i % len(bodies)]
+        got = np.asarray(ans, np.float32)
+        if got.shape != want.shape:
+            raise AssertionError("answer {} has shape {}, want {}".format(i, got.shape,
+                                                                           want.shape))
+        if not np.allclose(got, want, atol=GRPC_LOGIT_TOL, rtol=GRPC_LOGIT_TOL):
+            raise AssertionError("answer {}: logits {} off the jax endpoint's".format(
+                i, float(np.abs(got - want).max())))
+        worst = max(worst, float(np.abs(got - want).max()))
+        compared += 1
+        if i in bitwise_rows:
+            bitwise += int(np.array_equal(got, want))
+    return dict(compared=compared, max_abs_err=worst, bitwise=bitwise,
+                bitwise_of=len(bitwise_rows & set(answers)))
+
+
+def concurrency_row(c, run, counts0, counts1, rows0, rows1, checked) -> dict:
+    lat = run["latencies"]
+    batches = counts1["batches_executed"] - counts0["batches_executed"]
+    rows = counts1["rows_executed"] - counts0["rows_executed"]
+    return dict(
+        concurrency=c, requests=len(lat), statuses=run["statuses"],
+        req_per_s=round(len(lat) / run["wall_s"], 2),
+        p50_ms=round(1e3 * percentile(lat, 0.5), 3), p99_ms=round(1e3 * percentile(lat, 0.99), 3),
+        batches=batches, mean_rows=round(rows / max(batches, 1), 3),
+        padded_rows=counts1["padded_rows"] - counts0["padded_rows"],
+        sidecar_real=rows1["real"] - rows0["real"], sidecar_padded=rows1["padded"] - rows0["padded"],
+        captures=counts1["graph_captures"] - counts0["graph_captures"], **checked)
+
+
+async def grpc_phase_runs(processor, server, cli, record_ids) -> dict:
+    """18a-18c over one router app (the script's processor, ``build_app``)."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    import numpy as np
+
+    from clearml_serving_tpu_torch.engines import grpc_client
+    from clearml_serving_tpu_torch.serving.main import build_app
+
+    out = {}
+    bodies = grpc_bodies(GRPC_ROWS, 18)
+    local_proc = processor._get_processor("bert_local")
+    local = {i: np.asarray(local_proc.process(dict(b), {}), np.float32)
+             for i, b in enumerate(bodies)}
+    client = TestClient(TestServer(build_app(processor)))
+    await client.start_server()
+    try:
+        # 18a: the example's traffic at each concurrency
+        rows = []
+        for c in GRPC_CONCURRENCY:
+            s0 = await asyncio.to_thread(server.status)
+            m0 = await asyncio.to_thread(server.metrics)
+            run = await grpc_traffic(client, bodies, c)
+            s1 = await asyncio.to_thread(server.status)
+            m1 = await asyncio.to_thread(server.metrics)
+            if run["statuses"] != {200: len(bodies)}:
+                raise AssertionError("18a concurrency {}: statuses {}".format(c, run["statuses"]))
+            check_served_on_the_card("18a c{}".format(c), s1)
+            # alone in its batch at concurrency 1: the bucket the jax endpoint ran
+            checked = grpc_check_answers(bodies, run["answers"], local,
+                                         set(run["answers"]) if c == 1 else set())
+            row = concurrency_row(c, run, model_counts(s0), model_counts(s1),
+                                  batch_rows(m0), batch_rows(m1), checked)
+            rows.append(row)
+            log("  18a c{concurrency}: {req_per_s} req/s, p50 {p50_ms} ms, p99 {p99_ms} ms; "
+                "{batches} batches, {mean_rows} rows a batch, {padded_rows} padded rows "
+                "(sidecar: {sidecar_real} real, {sidecar_padded} padded); captures {captures}; "
+                "logits within {max_abs_err:.3g} of the jax endpoint's, {bitwise} of "
+                "{bitwise_of} bitwise".format(**row))
+        status = await asyncio.to_thread(server.status)
+        m = status["models"][GRPC_URL]
+        out["18a"] = dict(rows=rows, graph_keys=m["graph_keys"],
+                          graph_pool_mib=round(m["graph_pool_bytes"] / 2 ** 20, 2),
+                          queue_delay=queue_delay_buckets(await asyncio.to_thread(server.metrics)),
+                          devices=status["devices"],
+                          memory_allocated=status.get("memory_allocated"))
+        log("  18a: keys {}, pool {} MiB; queue-delay histogram (cumulative, s): {}".format(
+            m["graph_keys"], out["18a"]["graph_pool_mib"], out["18a"]["queue_delay"]))
+
+        # 18b: a second version published by the CLI under concurrency-32 traffic
+        before = status.get("memory_allocated", 0)
+        stop = asyncio.Event()
+        seen = {"changed_at": None, "after": 0}
+
+        def on_answer(i, code, body, t1):
+            if code != 200:
+                return
+            got = np.asarray(body, np.float32)
+            if float(np.abs(got - local[i % len(bodies)]).max()) > 0.5:
+                if seen["changed_at"] is None:
+                    seen["changed_at"] = t1
+                seen["after"] += 1
+                if seen["after"] >= GRPC_SWAP_EXTRA:
+                    stop.set()
+
+        traffic = asyncio.ensure_future(grpc_traffic(client, bodies, 32, stop=stop,
+                                                     on_answer=on_answer))
+        await asyncio.sleep(0.5)
+        t_cli = time.perf_counter()
+        argv = ["--yes", "model", "add", "--engine", "jax_grpc", "--endpoint", GRPC_URL,
+                "--model-id", record_ids[1], "--input-name", "input_ids", "attention_mask",
+                "--input-type", "int32", "int32", "--input-size", "[128]", "[128]",
+                "--output-name", "logits", "--output-type", "float32",
+                "--aux-config"] + GRPC_BATCHING
+        if await asyncio.to_thread(cli, argv) != 0:
+            raise AssertionError("the CLI failed: {}".format(argv))
+        try:
+            await asyncio.wait_for(asyncio.shield(traffic), GRPC_START_S)
+        except asyncio.TimeoutError:
+            stop.set()
+            raise AssertionError("18b: no answer from the new version in {} s".format(
+                GRPC_START_S))
+        run = traffic.result()
+        if set(run["statuses"]) != {200}:
+            raise AssertionError("18b: statuses {} under the swap".format(run["statuses"]))
+        t_seen = time.perf_counter()
+        while True:
+            status = await asyncio.to_thread(server.status)
+            after = status.get("memory_allocated", 0)
+            if status["models"][GRPC_URL]["model_id"] == record_ids[1] and \
+                    after - before <= GRPC_MEMORY_SLACK:
+                break
+            if time.perf_counter() - t_seen > 30:
+                raise AssertionError("18b: the server's memory_allocated is {} MiB over the "
+                                     "level before the swap".format((after - before) / 2 ** 20))
+            await asyncio.sleep(0.1)
+        check_served_on_the_card("18b", status)
+        out["18b"] = dict(requests=sum(run["statuses"].values()), statuses=run["statuses"],
+                          cli_to_new_s=round(seen["changed_at"] - t_cli, 3),
+                          memory_before_mib=round(before / 2 ** 20, 1),
+                          memory_after_mib=round(after / 2 ** 20, 1),
+                          reserved_after_mib=round(status.get("memory_reserved", 0) / 2 ** 20, 1))
+        log("  18b: {} requests under the swap, all 200; {} s from the CLI change to the first "
+            "answer of the new version; the server's memory_allocated {} MiB before, {} MiB "
+            "after the old model's release (reserved {} MiB)".format(
+                out["18b"]["requests"], out["18b"]["cli_to_new_s"],
+                out["18b"]["memory_before_mib"], out["18b"]["memory_after_mib"],
+                out["18b"]["reserved_after_mib"]))
+
+        # 18c: SIGKILL under traffic; retries, then 503s; a restart
+        retry0 = dict(grpc_client.RETRY_STATS)
+        stop = asyncio.Event()
+        marks = {"killed": None, "first_ok_after": None}
+
+        def on_kill_answer(i, code, body, t1):
+            if marks["killed"] is not None and code == 200 and marks["first_ok_after"] is None \
+                    and t1 > marks["restarted"]:
+                marks["first_ok_after"] = t1
+                asyncio.get_running_loop().call_later(0.5, stop.set)
+
+        marks["restarted"] = float("inf")
+        traffic = asyncio.ensure_future(grpc_traffic(client, bodies, 8, stop=stop,
+                                                     on_answer=on_kill_answer))
+        await asyncio.sleep(0.5)
+        marks["killed"] = time.perf_counter()
+        await asyncio.to_thread(server.kill)
+        await asyncio.sleep(1.0)  # in-flight calls exhaust their retries meanwhile
+        t_restart = time.perf_counter()
+        marks["restarted"] = t_restart
+        server.start()
+        try:
+            await asyncio.wait_for(asyncio.shield(traffic), GRPC_START_S)
+        except asyncio.TimeoutError:
+            stop.set()
+            raise AssertionError("18c: not served again {} s after the restart: {}".format(
+                GRPC_START_S, server.log_tail()))
+        run = traffic.result()
+        retries = {k: grpc_client.RETRY_STATS[k] - retry0[k] for k in retry0}
+        if set(run["statuses"]) - {200, 503} or not run["statuses"].get(503):
+            raise AssertionError("18c: statuses {} across the kill".format(run["statuses"]))
+        if not retries["retries"] or not retries["exhausted"]:
+            raise AssertionError("18c: retry counts {}".format(retries))
+        status = await asyncio.to_thread(server.status)
+        check_served_on_the_card("18c", status)
+        out["18c"] = dict(statuses=run["statuses"], retries=retries,
+                          restart_to_served_s=round(marks["first_ok_after"] - t_restart, 3),
+                          kill_to_served_s=round(marks["first_ok_after"] - marks["killed"], 3))
+        log("  18c: statuses across the SIGKILL {}, client retries {}; served again {} s after "
+            "the restart ({} s after the kill)".format(
+                run["statuses"], retries, out["18c"]["restart_to_served_s"],
+                out["18c"]["kill_to_served_s"]))
+    finally:
+        await client.close()
+    return out
+
+
+def phase_engine_server(card: str) -> dict:
+    """18a-18c: the BERT example's topology. A BERT-base bundle (seed 0)
+    registered by the CLI as the ``jax_grpc`` endpoint of the example's
+    I/O spec and batching knobs, served by ``tpu-serving-torch-engine`` in
+    its own process on the card; this process is the router."""
+    import shutil
+
+    from clearml_serving_tpu_torch.__main__ import cli
+    from clearml_serving_tpu_torch.engines.jax_engine import save_bundle
+    from clearml_serving_tpu_torch import models
+    from clearml_serving_tpu_torch.serving.model_request_processor import (
+        ModelRequestProcessor,
+    )
+    from clearml_serving_tpu_torch.state import StateStore
+
+    root = state_dir()
+    saved = {k: os.environ.get(k) for k in ["TPUSERVE_STATE_ROOT", "TPUSERVE_SERVICE_ID"]
+             + list(GRPC_CHANNEL_ENV)}
+    os.environ.update(GRPC_CHANNEL_ENV, TPUSERVE_STATE_ROOT=root)
+    server = None
+    try:
+        paths = []
+        bundle = models.build_model("bert", BERT_BASE)
+        for seed in (0, 1):
+            path = os.path.join(root, "bert-base-seed{}".format(seed))
+            tree = bundle.init(torch.Generator(DEV).manual_seed(seed))
+            save_bundle(path, "bert", BERT_BASE, tree)
+            paths.append(path)
+            del tree
+        release_card_memory()
+        port, metrics_port = free_port(), free_port()
+        steps = [["create", "--name", "chip-smoke-bert"],
+                 ["--yes", "config", "--engine-grpc-server", "127.0.0.1:{}".format(port)],
+                 ["--yes", "model", "upload", "--name", "bert ner v1", "--framework", "jax",
+                  "--path", paths[0]],
+                 ["--yes", "model", "upload", "--name", "bert ner v2", "--framework", "jax",
+                  "--path", paths[1]]]
+        for argv in steps:
+            if cli(argv) != 0:
+                raise AssertionError("the CLI failed: {}".format(argv))
+        service_id = StateStore(root).find_service("chip-smoke-bert").id
+        os.environ["TPUSERVE_SERVICE_ID"] = service_id
+        reader = ModelRequestProcessor(state_root=root, service_id=service_id, device=DEV)
+        record_ids = [reader.registry.query(name=name, max_results=1)[0].id
+                      for name in ("bert ner v1", "bert ner v2")]
+        spec = ["--input-name", "input_ids", "attention_mask", "--input-type", "int32", "int32",
+                "--input-size", "[128]", "[128]", "--output-name", "logits",
+                "--output-type", "float32"]
+        for argv in (["--yes", "model", "add", "--engine", "jax_grpc", "--endpoint", GRPC_URL,
+                      "--model-id", record_ids[0]] + spec + ["--aux-config"] + GRPC_BATCHING,
+                     # the same bundle served in this process: the logits' yardstick
+                     ["--yes", "model", "add", "--engine", "jax", "--endpoint", "bert_local",
+                      "--model-id", record_ids[0]] + spec):
+            if cli(argv) != 0:
+                raise AssertionError("the CLI failed: {}".format(argv))
+        server = EngineServerProcess(root, service_id, port, metrics_port)
+        t0 = time.perf_counter()
+        server.start()
+        status = server.wait_serving(record_ids[0])
+        start_s = time.perf_counter() - t0
+        log("  engine server up in {:.1f} s on {} ({} device(s)), memory_allocated {:.1f} "
+            "MiB, keys {}".format(start_s, status["devices"], status["device_count"],
+                                  status.get("memory_allocated", 0) / 2 ** 20,
+                                  status["models"][GRPC_URL]["graph_keys"]))
+        processor = ModelRequestProcessor(state_root=root, service_id=service_id, device=DEV)
+        processor.deserialize(skip_sync=True)
+        out = asyncio.run(grpc_phase_runs(processor, server, cli, record_ids))
+        out["start_s"] = round(start_s, 2)
+        del processor
+        release_card_memory()
+        return out
+    finally:
+        if server is not None:
+            server.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def encoder_texts(n: int, seed: int, lo: int, hi: int) -> list:
+    """``n`` texts of ``lo``-``hi`` byte-tokenizer ids each (BOS included)."""
+    gen = torch.Generator().manual_seed(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz     "
+    out = []
+    for _ in range(n):
+        length = int(torch.randint(lo, hi + 1, (1,), generator=gen)) - 1
+        idx = torch.randint(0, len(letters), (length,), generator=gen)
+        out.append("".join(letters[int(i)] for i in idx))
+    return out
+
+
+async def encoder_requests(processor) -> dict:
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from clearml_serving_tpu_torch.serving.main import build_app
+
+    lo, hi = ENCODER_TOKENS
+    calls = {
+        "embeddings": {"input": encoder_texts(1, 1, lo, lo + 8) + encoder_texts(
+            5, 2, lo, hi - 1) + encoder_texts(1, 3, hi, hi)},
+        "embeddings_short": {"input": encoder_texts(3, 4, lo, 100)},
+        "pooling": {"input": encoder_texts(2, 5, 64, 128), "return_token_states": True},
+        "classify": {"input": encoder_texts(4, 6, lo, 64)},
+        "score": {"text_1": encoder_texts(1, 7, 32, hi // 2)[0],
+                  "text_2": encoder_texts(3, 8, 32, hi // 2)},
+        "rerank": {"query": encoder_texts(1, 9, lo, 64)[0],
+                   "documents": encoder_texts(5, 10, 32, hi // 2), "top_n": 3},
+    }
+    client = TestClient(TestServer(build_app(processor)))
+    await client.start_server()
+    try:
+        out = {}
+        for name, body in calls.items():
+            route = name.split("_")[0]
+            t0 = time.perf_counter()
+            r = await client.post("/serve/openai/v1/" + route,
+                                  json=dict(body, model=ENCODER_URL))
+            answer = await r.json()
+            if r.status != 200:
+                raise AssertionError("18d {}: HTTP {}: {}".format(name, r.status, answer))
+            out[name] = dict(body=body, answer=answer,
+                             ms=round(1e3 * (time.perf_counter() - t0), 3))
+        r = await client.post("/serve/openai/v1/chat/completions", json={
+            "model": ENCODER_URL, "messages": [{"role": "user", "content": "x"}]})
+        if r.status != 422:
+            raise AssertionError("18d: chat on the encoder endpoint answered {}".format(r.status))
+        return out
+    finally:
+        await client.close()
+
+
+def phase_encoder_routes(card: str) -> dict:
+    """18d: BERT-base (bf16, seed 0) as an ``llm`` endpoint with ``task:
+    embed``; the five encoder routes over texts of 16-512 byte-tokenizer
+    ids; per (function, batch, seq) key the replay and eager ms and the
+    pool; the gap to the CPU float32 port on the same weights."""
+    import shutil
+
+    import numpy as np
+
+    from clearml_serving_tpu_torch import models
+    from clearml_serving_tpu_torch.llm.encoder import EncoderCore
+    from clearml_serving_tpu_torch.serving.endpoints import ModelEndpoint
+    from clearml_serving_tpu_torch.serving.model_request_processor import (
+        ModelRequestProcessor,
+    )
+
+    root = state_dir()
+    try:
+        processor = ModelRequestProcessor(state_root=root, force_create=True, name="encoder",
+                                          device=DEV)
+        engine = {"arch": "bert", "preset": BERT_BASE["preset"], "task": "embed", "seed": 0,
+                  "config": {k: v for k, v in BERT_BASE.items() if k != "preset"}}
+        processor.add_endpoint(ModelEndpoint(engine_type="llm", serving_url=ENCODER_URL,
+                                             auxiliary_cfg={"engine": engine}))
+        processor.serialize()
+        processor.deserialize(skip_sync=True)
+        t0 = time.perf_counter()
+        enc = processor._get_processor(ENCODER_URL).encoder
+        sync()
+        load_s = time.perf_counter() - t0
+        answers = asyncio.run(encoder_requests(processor))
+        health = enc.health()
+        if torch.device(DEV).type == "cuda" and (health["eager_runs"] or
+                                                 health["graph_captures"] !=
+                                                 len(health["graph_keys"])):
+            raise AssertionError("18d: {} eager runs, {} captures for {} keys".format(
+                health["eager_runs"], health["graph_captures"], len(health["graph_keys"])))
+        keys = []
+        for label, key in health["graph_keys"].items():
+            name, shape = label.split(":", 1)
+            b, s = (int(d) for d in shape.split(":")[1].split(",")[0][:-len("int32")].split("x"))
+            runner = enc.runner(name)
+            arrays = [np.zeros((b, s), np.int32), np.zeros((b, s), np.int32)]
+            graph, inputs, _out = runner.entry(arrays)
+            with torch.inference_mode():
+                replay_ms = event_ms(graph.replay, ENCODER_ITERS)
+                eager_ms = event_ms(lambda: runner._fn(*inputs), ENCODER_ITERS)
+            keys.append(dict(key=label, replay_ms=round(replay_ms, 4), eager_ms=round(eager_ms, 4),
+                             capture_ms=key["capture_ms"],
+                             pool_mib=round(key["pool_bytes"] / 2 ** 20, 2)))
+            log("  18d {}: replay {:.4f} ms, eager {:.4f} ms, capture {:.1f} ms, pool {:.2f} "
+                "MiB".format(label, replay_ms, eager_ms, key["capture_ms"], keys[-1]["pool_mib"]))
+        # the CPU float32 port on the same weights
+        cpu_bundle = models.build_model("bert", dict(BERT_BASE, dtype="float32"))
+
+        def f32(node):
+            if isinstance(node, dict):
+                return {k: f32(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [f32(v) for v in node]
+            return node.float().cpu()
+
+        cpu = EncoderCore(cpu_bundle, cpu_bundle.convert_params(f32(enc.params), "cpu"),
+                          device="cpu")
+        short = answers["embeddings_short"]
+        ids = [enc_tok for enc_tok in (processor._get_processor(ENCODER_URL).tokenizer.encode(t)
+                                       for t in short["body"]["input"])]
+        got = np.asarray([d["embedding"] for d in short["answer"]["data"]], np.float32)
+        want = cpu.embed(ids)
+        gap = float(np.abs(got - want).max() / np.abs(want).max())
+        logits, want_logits = enc.classify(ids), cpu.classify(ids)
+        gap_cls = float(np.abs(logits - want_logits).max() / np.abs(want_logits).max())
+        for what, value in (("embeddings", gap), ("classify logits", gap_cls)):
+            if not value <= 0.05:
+                raise AssertionError("18d {}: relative gap {} to the CPU float32 port".format(
+                    what, value))
+        out = dict(load_s=round(load_s, 2), keys=keys,
+                   graph_pool_mib=round(health["graph_pool_bytes"] / 2 ** 20, 2),
+                   route_ms={k: v["ms"] for k, v in answers.items()},
+                   rel_gap_cpu_f32={"embeddings": gap, "classify": gap_cls},
+                   rerank_top=[r["index"] for r in answers["rerank"]["answer"]["results"]])
+        log("  18d: routes (ms, first calls capture) {}; pool {} MiB over {} keys; relative gap "
+            "to the CPU f32 port: embeddings {:.4g}, classify logits {:.4g}".format(
+                out["route_ms"], out["graph_pool_mib"], len(keys), gap, gap_cls))
+        del processor, enc, cpu
+        release_card_memory()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_bert_routes(card: str) -> dict:
+    """Phase 18: BERT's two routes on the card (module docstring)."""
+    out = phase_engine_server(card)
+    out["18d"] = phase_encoder_routes(card)
+    return out
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -7829,9 +8505,11 @@ def main() -> int:
                    for kv, weights in GRAPH_CASES for sampled in (False, True)]
     pipeline_runs = phase_pipeline_arms(params)
     mark("5e")
-    log("phase 5f: the ragged launch as CUDA graphs, llama3-8b full width, scheduler ragged, "
-        "warmup full: phase 5b's and 5d's traffic graphed and eager, and on int4 weights")
-    ragged_graphs = phase_ragged_graphs(params, qparams, card)
+    log("phase 5f: the ragged launch as CUDA graphs, llama3-8b widths at {} of its 32 layers, "
+        "scheduler ragged, warmup full: phase 5b's and 5d's traffic graphed and eager, and on "
+        "int4 weights".format(GRAPH_LAYERS))
+    ragged_graphs = phase_ragged_graphs(depth_cut(params, GRAPH_LAYERS),
+                                        depth_cut(qparams, GRAPH_LAYERS), card)
     mark("5f")
     log("phase 16: the model families of the paged path behind the HTTP server: Llama-3.1-8B "
         "(scaled RoPE) at full depth, Qwen2.5-7B (QKV biases) and Gemma-7B (head_dim 256, "
@@ -7909,6 +8587,12 @@ def main() -> int:
         "the llm route")
     bundles = phase_bundle_engines(card)
     mark("17")
+    log("phase 18: BERT's two routes: the BERT example's jax_grpc topology (BERT-base bf16 "
+        "behind tpu-serving-torch-engine in its own process, this process the router; "
+        "traffic at concurrency {}, a hot swap, a SIGKILL and restart) and the encoder "
+        "routes of an llm endpoint with task embed".format(GRPC_CONCURRENCY))
+    bert_routes = phase_bert_routes(card)
+    mark("18")
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -8194,7 +8878,8 @@ def main() -> int:
                                   "guided": guided, "admission": admission,
                                   "control_plane": control, "fleet": fleet,
                                   "process_fleet": pfleet, "families": families,
-                                  "bundle_engines": bundles}))
+                                  "bundle_engines": bundles,
+                                  "bert_routes": bert_routes}))
     log("seconds by phase:", json.dumps(seconds))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)

@@ -19,9 +19,7 @@ changes: ``requests`` is imported where ``send_request`` posts, not with the
 module; every engine request takes the processor's ``device`` (default
 ``"cuda"``; the CPU tests pass ``"cpu"``); and ``retire()`` is called when
 the processor drops an instance, so an engine that holds the card (the LLM
-engine) can stop once its requests are done. Engines the reference serves
-and the port does not yet (``UNPORTED_ENGINES``) are refused by name when a
-request reaches them.
+engine) can stop once its requests are done.
 """
 
 from __future__ import annotations
@@ -41,14 +39,6 @@ from ..utils.files import read_json
 _ENGINE_REGISTRY: Dict[str, Type["BaseEngineRequest"]] = {}
 _ENGINE_MODULES: Dict[str, List[str]] = {}
 
-# engine types of the reference's registry that the port does not serve yet:
-# their endpoints deserialize (serving/endpoints.py keeps the names), and a
-# request to one is refused with this reason
-UNPORTED_ENGINES = {
-    "jax_grpc": "the remote engine server over gRPC",
-}
-
-
 def register_engine(name: str, modules: Optional[List[str]] = None):
     """Class decorator registering an engine implementation under ``name``."""
 
@@ -66,11 +56,6 @@ def get_engine_cls(name: str) -> Type["BaseEngineRequest"]:
     try:
         return _ENGINE_REGISTRY[name]
     except KeyError:
-        if name in UNPORTED_ENGINES:
-            raise ValueError(
-                "engine {!r} is not served by the PyTorch port yet: {}".format(
-                    name, UNPORTED_ENGINES[name])
-            ) from None
         raise ValueError(
             "unknown engine {!r}; registered: {}".format(name, sorted(_ENGINE_REGISTRY))
         ) from None

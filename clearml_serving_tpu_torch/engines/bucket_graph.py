@@ -16,7 +16,11 @@ dtypes. Each key:
   the next replay.
 
 The keys of one endpoint share one memory pool: replays are serial (one
-lock) and each one's outputs are read before the next. ``health()``
+lock) and each one's outputs are read before the next. Runners that never
+replay at once may share one pool too (``pool``: the encoder's three
+functions, ``llm/encoder.py``). ``release()`` drops a retired runner's
+graphs, buffers, function and pool; its owner calls it under
+``CAPTURE_LOCK``, after its last replay. ``health()``
 reports the captures, replays, the pool's bytes (the rise of the card's
 reserved memory inside the captures) and each key's capture ms, as the LLM
 engine's ``health()`` reports its graphs.
@@ -79,7 +83,7 @@ class BucketRunner:
     """Runs ``fn(*tensors)`` over a request's padded host arrays on
     ``device``: a CUDA graph per key (``graphs``), else eagerly."""
 
-    def __init__(self, fn: Callable, device, cuda_graphs: bool = True):
+    def __init__(self, fn: Callable, device, cuda_graphs: bool = True, pool=None):
         self._fn = fn
         self.device = torch.device(device)
         self.graphs = self.device.type == "cuda" and bool(cuda_graphs)
@@ -93,10 +97,14 @@ class BucketRunner:
         # reserved memory inside its capture)
         self.graph_keys: Dict[str, Dict[str, float]] = {}
         self._stream = torch.cuda.current_stream(self.device) if self.graphs else None
-        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self._pool = None
+        if self.graphs:
+            self._pool = pool if pool is not None else torch.cuda.graph_pool_handle()
 
     def run(self, arrays: List[np.ndarray]):
         """The outputs (numpy, the whole bucket) of one padded batch."""
+        if self._fn is None:
+            raise RuntimeError("this bucket runner was released")
         if not self.graphs:
             with torch.inference_mode():
                 out = self._fn(*[to_device(a, self.device) for a in arrays])
@@ -139,6 +147,15 @@ class BucketRunner:
 
         with torch.cuda.stream(self._stream):
             return capture_graph(run, self._stream, (), "thread_local", pool=self._pool)
+
+    def release(self) -> None:
+        """Drop the graphs, their static buffers, the function (and the
+        weights it holds) and the pool handle. The caller holds
+        ``CAPTURE_LOCK`` and collects afterwards."""
+        with self._lock:
+            self._entries.clear()
+            self._fn = None
+            self._pool = None
 
     def entry(self, arrays: List[np.ndarray]):
         """(graph, static inputs, static outputs) of the key of ``arrays``

@@ -103,6 +103,23 @@ class EngineStuckError(RequestError):
     default_retry_after = 5.0
 
 
+class UpstreamTimeoutError(RequestError):
+    """gRPC upstream DEADLINE_EXCEEDED after the retry budget
+    (``engines/grpc_client.py``)."""
+
+    status = 504
+    code = "upstream_timeout"
+
+
+class UpstreamUnavailableError(RequestError):
+    """gRPC upstream UNAVAILABLE after the retry budget
+    (``engines/grpc_client.py``)."""
+
+    status = 503
+    code = "upstream_unavailable"
+    default_retry_after = 2.0
+
+
 class HostTierAutoSizeError(ValueError):
     """``prefix_cache_host_mb: "auto"`` could not size the host KV tier from
     /proc/meminfo (a platform without it, or without MemAvailable). Raised

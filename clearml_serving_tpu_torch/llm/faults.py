@@ -107,6 +107,12 @@ Points (the context each carries):
                           ``prompt_ids`` holds the replica INDEX, so
                           ``match_token: <index>`` force-ejects exactly that
                           replica while the spec stays armed.
+- ``grpc.call``           before each attempt of the ``jax_grpc`` client
+                          (``engines/grpc_client.py``; ``attempt``); the
+                          spec's ``grpc_code`` ("UNAVAILABLE",
+                          "DEADLINE_EXCEEDED", "NOT_FOUND") stands for the
+                          upstream's status, so the retry policy runs
+                          without a server.
 
 :func:`configure` rejects specs naming any other point: a typo'd point would
 arm a fault that never fires.
@@ -152,6 +158,7 @@ KNOWN_POINTS = frozenset({
     "replica.proc.crash",
     "router.pick",
     "router.eject",
+    "grpc.call",
 })
 
 
@@ -162,6 +169,7 @@ class FaultSpec:
     times: int = -1                # firings before the spec disarms (-1 = inf)
     delay: float = 0.0             # seconds slept before acting
     match_token: Optional[int] = None  # only fire when a request's prompt has it
+    grpc_code: Optional[str] = None    # fake upstream status for grpc points
     message: str = "injected fault"
     fired: int = field(default=0, compare=False)
 
@@ -178,6 +186,10 @@ class InjectedFault(Exception):
         super().__init__("{} [{}]".format(spec.message, spec.point))
         self.spec = spec
         self.request = request
+
+    @property
+    def grpc_code(self) -> Optional[str]:
+        return self.spec.grpc_code
 
 
 class FaultInjector:

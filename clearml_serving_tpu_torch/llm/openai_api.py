@@ -56,7 +56,17 @@ stream reports when it ends (``StreamingOutput.on_complete``):
   ``echo``, ``best_of`` (ranked by cumulative logprob), and ``max_tokens:
   0`` (prompt scoring: ``echo`` + ``logprobs`` through the engine's
   ``score_prompt``); ``suffix`` is refused;
-- ``tokenize``, ``detokenize``, ``models`` and ``version``.
+- ``tokenize``, ``detokenize``, ``models`` and ``version``;
+- on an encoder endpoint (``engine_task``: an encoder bundle such as
+  ``bert``, or ``engine.arch: bert`` with a preset, or ``engine.task``
+  naming an encoder task) the generating routes answer 422 as the
+  reference's do, and ``embeddings`` (``encoding_format``,
+  ``dimensions``), ``pooling``, ``classify`` (aux ``engine.labels``),
+  ``score`` and ``rerank`` run on ``llm/encoder.py``'s ``EncoderCore``
+  (aux ``pooling``, ``normalize``, ``seq_buckets``, ``batch_buckets``; the
+  generation knobs, ``replicas`` among them, are ignored there, as the
+  reference ignores them); a plain POST is an embeddings call. Their body
+  fields are read as the reference reads them, unknown ones ignored.
 
 Admission is checked before a stream's headers, so a shed or a spent
 budget is a 429 or 408, never a mid-stream error. Text handling
@@ -119,7 +129,15 @@ ENGINE_KEYS = (
     "replicas", "replica_roles", "replica_backend", "router_affinity_blocks",
     "router_spill_queue_depth", "router_spill_stage", "router_fleet_shed_stage",
     "kv_transport_pages", "kv_transport_backend",
+    # the encoder tasks (llm/encoder.py)
+    "task", "pooling", "normalize", "seq_buckets", "batch_buckets", "labels",
 )
+
+# the reference's task names: an encoder endpoint serves the embeddings,
+# pooling, classify, score and rerank routes
+ENCODER_TASKS = frozenset({"embed", "embedding", "pooling", "classify", "classification",
+                           "score", "rerank"})
+AUDIO_TASKS = frozenset({"transcribe", "translate", "audio"})
 
 # the body fields of both generating routes
 _SAMPLING_FIELDS = (
@@ -276,8 +294,8 @@ def build_engine(engine_cfg: Dict[str, Any], *, device="cuda",
     default_priority(engine_cfg)
     fleet = fleet_config(engine_cfg)
     if engine_cfg.get("arch", "llama") != "llama":
-        raise ValueError("aux engine.arch {!r} is not supported by the PyTorch port "
-                         "yet".format(engine_cfg["arch"]))
+        raise ValueError("aux engine.arch {!r} has no decoder: task 'generate' needs "
+                         "arch 'llama'".format(engine_cfg["arch"]))
     if not engine_cfg.get("preset") and config is None:
         raise ValueError("an llm engine needs a model bundle or aux engine.preset")
     # weight quantization, validated before any weight is made, with the
@@ -369,11 +387,83 @@ def load_bundle_engine(path, engine_cfg: Dict[str, Any], *, device="cuda",
     bundle, params = load_bundle(path, config_overrides=overrides, device=resolve_device(device))
     if "n_kv_heads" not in bundle.config:
         raise EndpointModelError(
-            "llm endpoint bundle {} is not a decoder bundle (arch {!r}): the encoder "
-            "routes are not ported yet".format(path, bundle.config.get("arch")))
+            "llm endpoint bundle {} is not a decoder bundle (arch {!r}): task "
+            "'generate' needs one".format(path, bundle.config.get("arch")))
     tokenizer = load_tokenizer(str(path), int(bundle.config.get("vocab_size", 0)))
     return build_engine(engine_cfg, device=device, params=params, cuda_graphs=cuda_graphs,
                         config=bundle.config, tokenizer=tokenizer)
+
+
+def bundle_arch(path) -> Optional[str]:
+    """The ``arch`` a native bundle's ``model_config.json`` names (None for
+    a foreign graph: ONNX, GraphDef, TorchScript)."""
+    from pathlib import Path
+
+    from ..utils.files import read_json
+
+    base = Path(path)
+    meta = read_json((base if base.is_dir() else base.parent) / "model_config.json")
+    return (meta or {}).get("arch")
+
+
+def engine_task(engine_cfg: Dict[str, Any], path=None, url: str = "") -> str:
+    """The endpoint's task, gated as the reference gates it: aux
+    ``engine.task``, else ``generate`` for a decoder (a ``llama`` bundle or
+    preset) and ``embed`` for any other model. An unknown task is refused
+    with the reference's words; the audio tasks are refused by name (the
+    speech models are not ported)."""
+    task = engine_cfg.get("task")
+    if task is None:
+        arch = bundle_arch(path) if path else engine_cfg.get("arch", "llama")
+        task = "generate" if arch == "llama" else "embed"
+    if task not in ENCODER_TASKS and task not in AUDIO_TASKS and task != "generate":
+        raise EndpointModelError(
+            "unknown engine task {!r} for endpoint {!r} (expected 'generate' or one of "
+            "{})".format(task, url, sorted(ENCODER_TASKS | AUDIO_TASKS)))
+    if task in AUDIO_TASKS:
+        raise EndpointModelError(
+            "engine task {!r} is not served by the PyTorch port yet: the speech "
+            "encoder-decoder (arch 'whisper') and the audio routes".format(task))
+    return task
+
+
+def build_encoder(engine_cfg: Dict[str, Any], *, device="cuda", path=None):
+    """(``EncoderCore``, tokenizer) of an encoder task: the model payload at
+    ``path`` (a bundle, or any graph ``load_bundle`` reads), else
+    ``engine.arch``'s ``engine.preset`` (with ``engine.config`` over it; the
+    caller checks there is one) on weights drawn on ``device`` from
+    ``seed``. The tokenizer is the bundle's
+    (byte-level without tokenizer files); its ``cls``/``sep`` ids join a
+    cross-encoder's pairs. Knobs: ``pooling`` (mean/cls), ``normalize``,
+    ``seq_buckets``, ``batch_buckets``; the generation knobs are ignored,
+    as the reference ignores them here."""
+    from .. import models
+    from ..engines.jax_engine import load_bundle
+    from .encoder import EncoderCore
+
+    dev = resolve_device(device)
+    if path:
+        bundle, params = load_bundle(path, device=dev)
+    else:
+        bundle = models.build_model(engine_cfg.get("arch", "llama"), {
+            "preset": engine_cfg["preset"], **(engine_cfg.get("config") or {})})
+        EncoderCore.check_bundle(bundle)  # before any weight is made
+        gen = torch.Generator(dev)
+        gen.manual_seed(int(engine_cfg.get("seed", 0)))
+        params = bundle.convert_params(bundle.init(gen), device=dev)
+    tokenizer = load_tokenizer(str(path) if path else None,
+                               int(bundle.config.get("vocab_size", 0)))
+    hf = getattr(tokenizer, "_tok", None)
+    encoder = EncoderCore(
+        bundle, params,
+        pooling=engine_cfg.get("pooling", "mean"),
+        normalize=bool(engine_cfg.get("normalize", True)),
+        seq_buckets=engine_cfg.get("seq_buckets"),
+        batch_buckets=engine_cfg.get("batch_buckets"),
+        sep_token_id=getattr(hf, "sep_token_id", None),
+        cls_token_id=getattr(hf, "cls_token_id", None),
+        device=dev)
+    return encoder, tokenizer
 
 
 def make_tokenizer(cfg: Dict[str, Any]) -> ByteTokenizer:
@@ -512,6 +602,8 @@ class LLMEngineRequest(BaseEngineRequest):
 
     def __init__(self, *args, **kwargs):
         self.engine: Optional[LLMEngineCore] = None
+        # an encoder endpoint's core (engine_task): the encoder routes
+        self.encoder = None  # llm/encoder.py's EncoderCore
         self.tokenizer = None
         self._model_name = "model"
         # the aux engine.chat block (the reference's vLLM chat settings):
@@ -526,10 +618,11 @@ class LLMEngineRequest(BaseEngineRequest):
         super().__init__(*args, **kwargs)
 
     @classmethod
-    def wrap(cls, engine: LLMEngineCore, tokenizer, serving_url: str,
+    def wrap(cls, engine, tokenizer, serving_url: str,
              engine_cfg: Optional[Dict[str, Any]] = None, **kwargs) -> "LLMEngineRequest":
-        """The endpoint ``serving_url`` over an engine the caller built (the
-        tests' and ``chip_smoke.py``'s carried weights). ``engine_cfg`` is
+        """The endpoint ``serving_url`` over an engine (or an
+        ``EncoderCore``) the caller built (the tests' and ``chip_smoke.py``'s
+        carried weights). ``engine_cfg`` is
         the aux ``engine`` block the endpoint records; only its endpoint
         knobs (``warmup``, ``default_priority``, ``chat``) are read, since
         the engine exists. The processor's path builds the engine from the
@@ -552,10 +645,27 @@ class LLMEngineRequest(BaseEngineRequest):
         # endpoint knobs, refused at load when mistyped
         warmup = warmup_mode(engine_cfg)
         self._default_priority = default_priority(engine_cfg)
+        from .encoder import EncoderCore
+
         carried = getattr(self, "_carried", None)
+        self._carried = None
+        self._model_name = self.endpoint.serving_url
+        if isinstance(carried, tuple) and isinstance(carried[0], EncoderCore):
+            self.encoder, self.tokenizer = carried
+            return self.encoder
+        if carried is None and engine_task(engine_cfg, self._model_local_path,
+                                           self.endpoint.serving_url) in ENCODER_TASKS:
+            # task-gated as the reference's vLLM handlers: an encoder serves
+            # the embeddings, pooling, classify, score and rerank routes
+            if not self._model_local_path and not engine_cfg.get("preset"):
+                raise EndpointModelError(
+                    "llm endpoint {!r} needs a model bundle or aux_config "
+                    "engine.preset".format(self.endpoint.serving_url))
+            self.encoder, self.tokenizer = build_encoder(
+                engine_cfg, device=self.device, path=self._model_local_path)
+            return self.encoder
         if carried is not None:
             self.engine, self.tokenizer = carried
-            self._carried = None
         elif self._model_local_path:
             self.engine, self.tokenizer = load_bundle_engine(
                 self._model_local_path, engine_cfg, device=self.device)
@@ -567,7 +677,6 @@ class LLMEngineRequest(BaseEngineRequest):
                     self.endpoint.serving_url))
         self._warmup_needed = warmup != "off"
         self._warmup_full = warmup == "full"
-        self._model_name = self.endpoint.serving_url
         self._register_metrics()
         return self.engine
 
@@ -650,7 +759,7 @@ class LLMEngineRequest(BaseEngineRequest):
         this is one attribute read. A failed warmup is logged and not
         retried: a decode-graph variant it left uncaptured is captured at
         its first use, and a capture that fails there fails its step."""
-        if not self._warmup_needed:
+        if not self._warmup_needed or self.engine is None:
             return
         if self._warmup_task is None:
             self._warmup_task = asyncio.ensure_future(self.engine.warmup(full=self._warmup_full))
@@ -670,6 +779,11 @@ class LLMEngineRequest(BaseEngineRequest):
         it: once its in-flight requests end it is stopped, and the last
         reference drops under ``CAPTURE_LOCK``, outside any capture. An
         engine that never served is released now."""
+        if self.encoder is not None and not self._retiring:
+            # its release queues behind the calls already on its thread
+            self._retiring = True
+            self.encoder.retire()
+            return
         engine = self.engine
         if engine is None or self._retiring:
             return
@@ -1105,10 +1219,25 @@ class LLMEngineRequest(BaseEngineRequest):
 
     # -- routes --------------------------------------------------------------
 
+    def _require_engine(self, route: str) -> None:
+        if self.engine is None:
+            raise EndpointModelError(
+                "model {!r} does not support {} (encoder endpoint — task-gated "
+                "like the reference's vLLM handler instantiation)".format(
+                    self._model_name, route))
+
+    def _require_encoder(self, route: str) -> None:
+        if self.encoder is None:
+            raise EndpointModelError(
+                "model {!r} does not support {} (decoder-only LLM endpoint; "
+                "serve an encoder bundle or set aux_config engine.task)".format(
+                    self._model_name, route))
+
     async def v1_chat_completions(self, body: Dict[str, Any], state: Optional[dict] = None,
                                   collect_fn=None):
         """A response dict, or a ``StreamingOutput`` of SSE lines when
         ``stream`` is set (validated before the first line)."""
+        self._require_engine("v1/chat/completions")
         self._check_fields(body, CHAT_FIELDS)
         messages = body.get("messages") or []
         tool_mode, forced_tool = resolve_tool_choice(body)
@@ -1383,7 +1512,8 @@ class LLMEngineRequest(BaseEngineRequest):
         return StreamingOutput(sse())
 
     def _check_token_ids(self, ids: List[int]) -> List[int]:
-        vocab = self.engine.model.vocab_size
+        vocab = (self.engine.model.vocab_size if self.engine is not None
+                 else self.encoder.vocab_size)
         for t in ids:
             if not 0 <= int(t) < vocab:
                 raise ValueError("token id {} out of range for vocab size {}".format(t, vocab))
@@ -1408,6 +1538,7 @@ class LLMEngineRequest(BaseEngineRequest):
                              collect_fn=None):
         """A response dict, or a ``StreamingOutput`` of SSE lines when
         ``stream`` is set (one prompt; validated before the first line)."""
+        self._require_engine("v1/completions")
         self._check_fields(body, COMPLETION_FIELDS)
         if body.get("suffix") is not None:
             # fill-in-middle needs a FIM template: refused, as vLLM does,
@@ -1683,12 +1814,208 @@ class LLMEngineRequest(BaseEngineRequest):
     async def v1_tokenize(self, body: Dict[str, Any], state: Optional[dict] = None,
                           collect_fn=None) -> Dict[str, Any]:
         ids = self.tokenizer.encode(str(body.get("prompt") or body.get("text") or ""))
-        return {"tokens": ids, "count": len(ids), "max_model_len": self.engine.max_seq_len}
+        core = self.engine if self.engine is not None else self.encoder
+        return {"tokens": ids, "count": len(ids), "max_model_len": core.max_seq_len}
 
     async def v1_detokenize(self, body: Dict[str, Any], state: Optional[dict] = None,
                             collect_fn=None) -> Dict[str, Any]:
         ids = body.get("tokens") or []
         return {"prompt": self.tokenizer.decode([int(i) for i in ids])}
+
+    # -- encoder routes (OpenAI embeddings API + vLLM-compatible extensions) --
+
+    async def _encoder_call(self, fn, *args):
+        """Run an ``EncoderCore`` call on the encoder's own thread."""
+        return await asyncio.get_running_loop().run_in_executor(
+            self.encoder.worker, fn, *args)
+
+    def _encode_texts(self, value) -> List[List[int]]:
+        """The embeddings ``input``: str | [str] | [int] | [[int]], as the
+        completions ``prompt``."""
+        return self._encode_prompts(value)
+
+    @staticmethod
+    def _format_vec(vec, fmt: str):
+        if fmt == "base64":
+            import base64
+
+            import numpy as np
+
+            return base64.b64encode(np.asarray(vec, np.float32).tobytes()).decode("ascii")
+        return [float(x) for x in vec]
+
+    async def v1_embeddings(self, body: Dict[str, Any], state: Optional[dict] = None,
+                            collect_fn=None) -> Dict[str, Any]:
+        """OpenAI embeddings: ``encoding_format`` float or base64, and
+        ``dimensions`` (the leading dims, renormalized)."""
+        self._require_encoder("v1/embeddings")
+        id_lists = self._encode_texts(body.get("input") or "")
+        fmt = body.get("encoding_format", "float")
+        if fmt not in ("float", "base64"):
+            raise ValueError("encoding_format must be 'float' or 'base64'")
+        dims = body.get("dimensions")
+        if dims is not None:
+            dims = int(dims)  # type and lower bound before the device forward
+            if dims < 1:
+                raise ValueError("dimensions must be >= 1")
+        vecs = await self._encoder_call(self.encoder.embed, id_lists)
+        if dims is not None:
+            # matryoshka truncation: keep the leading dims and renormalize,
+            # so cosine similarity stays meaningful
+            import numpy as np
+
+            full = len(vecs[0]) if len(vecs) else 0
+            if full and dims > full:
+                raise ValueError("dimensions must be in [1, {}]".format(full))
+            out_vecs = []
+            for v in vecs:
+                t = np.asarray(v, np.float32)[:dims]
+                norm = float(np.linalg.norm(t))
+                out_vecs.append(t / norm if norm > 0 else t)
+            vecs = out_vecs
+        n_tokens = sum(len(ids) for ids in id_lists)
+        if collect_fn is not None:
+            collect_fn({"prompt_tokens": n_tokens, "n_inputs": len(id_lists)})
+        return {
+            "object": "list",
+            "model": body.get("model", self._model_name),
+            "data": [
+                {"object": "embedding", "index": i, "embedding": self._format_vec(vec, fmt)}
+                for i, vec in enumerate(vecs)
+            ],
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        }
+
+    async def v1_pooling(self, body: Dict[str, Any], state: Optional[dict] = None,
+                         collect_fn=None) -> Dict[str, Any]:
+        """vLLM pooling: per-token hidden states (``return_token_states``)
+        or the pooled vector."""
+        self._require_encoder("v1/pooling")
+        id_lists = self._encode_texts(body.get("input") or "")
+        if body.get("return_token_states", False):
+            states = await self._encoder_call(self.encoder.token_states, id_lists)
+            data = [{"object": "pooling", "index": i, "data": s.tolist()}
+                    for i, s in enumerate(states)]
+        else:
+            vecs = await self._encoder_call(self.encoder.embed, id_lists)
+            data = [{"object": "pooling", "index": i, "data": [float(x) for x in v]}
+                    for i, v in enumerate(vecs)]
+        n_tokens = sum(len(ids) for ids in id_lists)
+        if collect_fn is not None:
+            collect_fn({"prompt_tokens": n_tokens, "n_inputs": len(id_lists)})
+        return {
+            "object": "list",
+            "model": body.get("model", self._model_name),
+            "data": data,
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        }
+
+    async def v1_classify(self, body: Dict[str, Any], state: Optional[dict] = None,
+                          collect_fn=None) -> Dict[str, Any]:
+        """The CLS head's softmax per input, labelled by aux
+        ``engine.labels``."""
+        import numpy as np
+
+        self._require_encoder("v1/classify")
+        id_lists = self._encode_texts(body.get("input") or "")
+        logits = await self._encoder_call(self.encoder.classify, id_lists)
+        probs = np.exp(logits - logits.max(axis=-1, keepdims=True))
+        probs = probs / probs.sum(axis=-1, keepdims=True)
+        labels = self.endpoint_labels()
+        data = []
+        for i in range(len(id_lists)):
+            idx = int(np.argmax(probs[i]))
+            data.append({
+                "index": i,
+                "label": labels[idx] if idx < len(labels) else str(idx),
+                "probs": [float(p) for p in probs[i]],
+                "num_classes": int(probs.shape[-1]),
+            })
+        n_tokens = sum(len(ids) for ids in id_lists)
+        if collect_fn is not None:
+            collect_fn({"prompt_tokens": n_tokens, "n_inputs": len(id_lists)})
+        return {
+            "object": "list",
+            "model": body.get("model", self._model_name),
+            "data": data,
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        }
+
+    def endpoint_labels(self) -> List[str]:
+        aux = self.endpoint.auxiliary_cfg if isinstance(self.endpoint.auxiliary_cfg, dict) else {}
+        return list((aux.get("engine") or {}).get("labels") or [])
+
+    def _score_pairs_body(self, body: Dict[str, Any]):
+        t1, t2 = body.get("text_1"), body.get("text_2")
+        if t1 is None or t2 is None:
+            raise ValueError("score requests need text_1 and text_2")
+        list1 = t1 if isinstance(t1, list) else [t1]
+        list2 = t2 if isinstance(t2, list) else [t2]
+        if len(list1) == 1 and len(list2) > 1:
+            list1 = list1 * len(list2)
+        if len(list2) == 1 and len(list1) > 1:
+            list2 = list2 * len(list1)
+        if len(list1) != len(list2):
+            raise ValueError("text_1/text_2 lengths do not broadcast")
+        # cross-encoder: segments encoded bare (EncoderCore joins the pair);
+        # bi-encoder: full encodes
+        bare = self.encoder.is_cross_encoder
+        return [(self.tokenizer.encode(str(a), add_bos=not bare),
+                 self.tokenizer.encode(str(b), add_bos=not bare))
+                for a, b in zip(list1, list2)]
+
+    async def v1_score(self, body: Dict[str, Any], state: Optional[dict] = None,
+                       collect_fn=None) -> Dict[str, Any]:
+        """vLLM score: the pairwise relevance of text_1 x text_2."""
+        self._require_encoder("v1/score")
+        pairs = self._score_pairs_body(body)
+        scores = await self._encoder_call(self.encoder.score_pairs, pairs)
+        n_tokens = sum(len(a) + len(b) for a, b in pairs)
+        if collect_fn is not None:
+            collect_fn({"prompt_tokens": n_tokens, "n_inputs": len(pairs)})
+        return {
+            "object": "list",
+            "model": body.get("model", self._model_name),
+            "data": [{"object": "score", "index": i, "score": sc}
+                     for i, sc in enumerate(scores)],
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        }
+
+    async def v1_rerank(self, body: Dict[str, Any], state: Optional[dict] = None,
+                        collect_fn=None) -> Dict[str, Any]:
+        """Jina/Cohere-compatible rerank: each document scored against the
+        query, the ``top_n`` best first."""
+        self._require_encoder("v1/rerank")
+        query = body.get("query")
+        documents = body.get("documents") or []
+        if query is None or not documents:
+            raise ValueError("rerank requests need query and documents")
+        doc_texts = []
+        for i, d in enumerate(documents):
+            if isinstance(d, dict):
+                text = d.get("text", d.get("content"))
+                if not isinstance(text, str):
+                    raise ValueError("documents[{}] needs a string 'text' field".format(i))
+                doc_texts.append(text)
+            else:
+                doc_texts.append(str(d))
+        bare = self.encoder.is_cross_encoder
+        q_ids = self.tokenizer.encode(str(query), add_bos=not bare)
+        doc_ids = [self.tokenizer.encode(t, add_bos=not bare) for t in doc_texts]
+        scores = await self._encoder_call(self.encoder.rerank, q_ids, doc_ids)
+        order = sorted(range(len(scores)), key=lambda i: scores[i], reverse=True)
+        top_n = int(body.get("top_n") or len(order))
+        results = [{"index": i, "document": {"text": doc_texts[i]},
+                    "relevance_score": scores[i]} for i in order[:top_n]]
+        n_tokens = len(q_ids) + sum(len(d) for d in doc_ids)
+        if collect_fn is not None:
+            collect_fn({"prompt_tokens": n_tokens, "n_inputs": len(doc_ids)})
+        return {
+            "id": _gen_id("rerank"),
+            "model": body.get("model", self._model_name),
+            "results": results,
+            "usage": {"total_tokens": n_tokens},
+        }
 
     # -- phases ----------------------------------------------------------------
 
@@ -1702,7 +2029,10 @@ class LLMEngineRequest(BaseEngineRequest):
 
     async def process(self, data: Any, state: dict, collect_fn=None) -> Any:
         """A plain ``POST /serve/<endpoint>``: a non-streaming chat
-        completion (a body with ``stream`` streams)."""
+        completion (a body with ``stream`` streams), or embeddings on an
+        encoder endpoint."""
+        if self.engine is None and self.encoder is not None:
+            return await self.v1_embeddings(data or {}, state, collect_fn)
         return await self.v1_chat_completions(data or {}, state, collect_fn)
 
     async def postprocess(self, data: Any, state: dict, collect_fn=None) -> Any:

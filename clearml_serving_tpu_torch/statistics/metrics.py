@@ -382,6 +382,11 @@ class EngineLifecycleCollector(_KeyedCollector):
             p + "_step_failures_total",
             "decode dispatch failures survived by the loop",
         )
+        # the jax_grpc client's RETRY_STATS (engines/grpc_client.py)
+        grpc = CounterMetricFamily(
+            "grpc_client_upstream_total",
+            "engine-server gRPC attempts/retries/retry-budget exhaustions",
+        )
         # pipelined-decode observability (docs/pipelined_decode.md): stage
         # timing histograms + the live in-flight dispatch queue depth
         inflight = GaugeMetricFamily(
@@ -561,6 +566,7 @@ class EngineLifecycleCollector(_KeyedCollector):
                 out.append((edge, cum))
             return out, float(snap.get("sum_ms", 0.0))
 
+        any_grpc = False
         any_pipeline = False
         any_kv_pool = False
         any_kv_tier = False
@@ -697,6 +703,9 @@ class EngineLifecycleCollector(_KeyedCollector):
                 counter(trips, key, s, s["watchdog_trips"])
             if "step_failures" in s:
                 counter(failures, key, s, s["step_failures"])
+            for kind, v in (s.get("grpc") or {}).items():
+                any_grpc = True
+                counter(grpc, key, s, v, kind=kind)
         yield queue_depth
         yield active_slots
         yield ready
@@ -741,6 +750,8 @@ class EngineLifecycleCollector(_KeyedCollector):
         if any_ledger:
             yield ledger_outstanding
             yield ledger_leaks
+        if any_grpc:
+            yield grpc
 
 
 

@@ -44,6 +44,7 @@ setup(
             "tpu-serving-torch = clearml_serving_tpu_torch.__main__:main",
             "tpu-serving-torch-inference = clearml_serving_tpu_torch.serving.main:main",
             "tpu-serving-torch-statistics = clearml_serving_tpu_torch.statistics.main:main",
+            "tpu-serving-torch-engine = clearml_serving_tpu_torch.engine_server.server:main",
         ]
     },
 )

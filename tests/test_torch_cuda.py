@@ -2532,3 +2532,145 @@ def test_a_capture_failure_raises_and_names_the_key(cuda):
     # the card still serves: an eager runner works after the failed capture
     ok = BucketRunner(lambda x: x + 1, cuda, cuda_graphs=False)
     assert float(ok.run([np.ones((1, 3), np.float32)]).sum()) == 6.0
+
+
+# -- the engine server's models and the encoder (jax_grpc, llm encoder tasks) ----
+
+def _compiled_model(path, spec, dev, cuda_graphs, key="m", buckets=(1, 2, 4, 8)):
+    from clearml_serving_tpu_torch.engine_server.repo import CompiledModel
+    from clearml_serving_tpu_torch.engines.jax_engine import load_bundle
+    from clearml_serving_tpu_torch.serving.endpoints import ModelEndpoint
+
+    ep = ModelEndpoint(engine_type="jax_grpc", serving_url=key, model_id=key,
+                       auxiliary_cfg={"batching": {"buckets": list(buckets),
+                                                   "preferred_batch_size": 4,
+                                                   "max_queue_delay_us": 20000}}, **spec)
+    bundle, params = load_bundle(path, endpoint=ep, device=dev)
+    return CompiledModel(ep, bundle, params, key=key, device=dev, cuda_graphs=cuda_graphs)
+
+
+def test_compiled_model_batches_run_on_its_leased_thread_bitwise_eager(cuda, tmp_path):
+    """A jax_grpc model's batches replay its bucket graphs on the step thread
+    it leased, never on the loop's or the default executor's threads; each
+    request's rows are the bits of the same rows run eagerly."""
+    import threading
+
+    import numpy as np
+
+    path, spec, inputs = _bundle_payload("bert", cuda, tmp_path)
+    graphed = _compiled_model(path, spec, cuda, True)
+    eager = _compiled_model(path, spec, cuda, False)
+    graphed.warmup()
+    threads = []
+    run_batch = graphed.run_batch
+
+    def spy(concat):
+        threads.append(threading.current_thread().name)
+        return run_batch(concat)
+
+    graphed.batcher._run_batch = spy
+    rows = [inputs(1) for _ in range(7)]
+
+    async def traffic():
+        return await asyncio.gather(*[graphed.batcher.infer(
+            [r["input_ids"], r["attention_mask"]]) for r in rows])
+
+    outs = asyncio.run(traffic())
+    worker_names = {n for n in threads}
+    assert len(worker_names) == 1 and next(iter(worker_names)).startswith("step")
+    for r, out in zip(rows, outs):
+        want = eager.run_batch([r["input_ids"], r["attention_mask"]])[0]
+        assert torch.equal(torch.from_numpy(np.ascontiguousarray(out[0])),
+                           torch.from_numpy(want))
+    health = graphed.health()
+    assert health["graph_captures"] == len(health["graph_keys"]) >= 2
+    assert graphed.batcher.batches_executed < 7
+    graphed.retire()
+    eager.retire()
+    assert graphed.released.is_set()
+
+
+def test_retired_model_pool_is_freed_under_capture_lock_while_another_replays(cuda,
+                                                                               tmp_path):
+    """Retiring a model that captured graphs drops its graphs, pool and
+    weights under CAPTURE_LOCK, while another model replays on its own
+    thread; the survivor's answers keep their bits and the card's allocated
+    bytes return within 64 MiB of the level before the retired model."""
+    import threading
+
+    from clearml_serving_tpu_torch.device import CAPTURE_LOCK
+
+    path, spec, inputs = _bundle_payload("bert", cuda, tmp_path)
+    survivor = _compiled_model(path, spec, cuda, True, key="a")
+    x = inputs(2)
+    want = survivor.run_batch([x["input_ids"], x["attention_mask"]])[0]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    doomed = _compiled_model(path, spec, cuda, True, key="b")
+    for b in (1, 2, 4):
+        y = inputs(b)
+        doomed.run_batch([y["input_ids"], y["attention_mask"]])
+    assert doomed.health()["graph_captures"] == 3
+    held = []
+    release = doomed.runner.release
+
+    def spy():
+        held.append(CAPTURE_LOCK._is_owned())
+        release()
+
+    doomed.runner.release = spy
+    stop = threading.Event()
+    answers = []
+
+    def replay_loop():
+        while not stop.is_set():
+            answers.append(survivor._worker.submit(
+                survivor.run_batch, [x["input_ids"], x["attention_mask"]]).result()[0])
+
+    t = threading.Thread(target=replay_loop)
+    t.start()
+    try:
+        time.sleep(0.05)
+        doomed.retire()  # never served through its batcher: released now
+    finally:
+        time.sleep(0.05)
+        stop.set()
+        t.join()
+    assert held == [True] and doomed.released.is_set() and doomed.runner is None
+    assert answers and all(torch.equal(torch.from_numpy(a), torch.from_numpy(want))
+                           for a in answers)
+    del spy, release
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) - before <= 64 << 20
+    survivor.retire()
+
+
+@pytest.mark.parametrize("name", ["embed", "tokens", "classify"])
+def test_encoder_key_replay_is_bitwise_its_eager_run(cuda, name):
+    """Each EncoderCore key (function, batch bucket, seq bucket) is one graph
+    captured at its first use; its replay gives the eager run's bits."""
+    from clearml_serving_tpu_torch import models
+    from clearml_serving_tpu_torch.llm.encoder import EncoderCore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle = models.build_model("bert", {"preset": "bert-tiny", "num_labels": 3})
+    params = bundle.convert_params(bundle.init(torch.Generator(cuda).manual_seed(0)), cuda)
+    kw = dict(seq_buckets=[16, 32], batch_buckets=[1, 2, 4], device=cuda)
+    graphed = EncoderCore(bundle, params, **kw)
+    eager = EncoderCore(bundle, params, cuda_graphs=False, **kw)
+    gen = torch.Generator().manual_seed(3)
+    batches = [[torch.randint(0, 512, (int(n),), generator=gen).tolist() for n in lens]
+               for lens in ([5], [30, 7], [100, 3, 12], [9, 9, 9, 9, 9, 9])]
+    call = {"embed": "embed", "tokens": "token_states", "classify": "classify"}[name]
+    for ids in batches:
+        got = getattr(graphed, call)(ids)
+        want = getattr(eager, call)(ids)
+        for g, w in zip(got, want):
+            assert torch.equal(torch.from_numpy(g), torch.from_numpy(w)), (name, len(ids))
+    health = graphed.health()
+    assert health["graph_captures"] == len(health["graph_keys"]) == 5
+    assert all(k.startswith(name + ":") for k in health["graph_keys"])
+    assert health["graph_pool_bytes"] > 0 and eager.health()["graph_captures"] == 0
+    graphed.retire()
+    graphed.worker.submit(lambda: None).result()
+    assert graphed.health()["released"]

@@ -12,7 +12,8 @@ reference processor, over the same payload and the same example code.
   endpoint on a native ``bert-tiny`` bundle (int32 ids).
 - Statuses and bodies are equal (probabilities within 1e-4), and the
   engines' outputs on the same preprocessed batch hold within 1e-4.
-- A ``jax_grpc`` endpoint still answers the port's 422.
+- A ``jax_grpc`` endpoint (the BERT example's topology) answers through each
+  package's in-process engine server as the reference's does.
 """
 
 import asyncio
@@ -193,18 +194,65 @@ def test_bert_endpoint_equals_the_reference(tmp_path, payload):
     np.testing.assert_allclose(out, want, rtol=TOL, atol=TOL)
 
 
-def test_jax_grpc_endpoint_still_answers_422(tmp_path):
-    mrp = ModelRequestProcessor(state_root=str(tmp_path), force_create=True, name="g",
-                                device="cpu")
-    mrp.add_endpoint(ModelEndpoint(engine_type="jax_grpc", serving_url="remote", model_id="m",
-                                   input_size=[4], input_type="float32", input_name="x",
-                                   output_size=[2], output_type="float32",
-                                   output_name="y"))
-    mrp.serialize()
-    mrp.deserialize(skip_sync=True)
-    (status, body), = _post_all(build_app(mrp), "remote", [[[1, 2, 3, 4]]])
-    assert status == 422
-    assert "engine 'jax_grpc' is not served by the PyTorch port yet" in body["detail"]
+def test_jax_grpc_endpoint_serves_through_an_in_process_engine_server(tmp_path):
+    """The BERT example's topology (examples/bert/readme.md): a ``jax_grpc``
+    endpoint over a native bert-tiny bundle, the example's I/O spec,
+    preprocess.py and batching knobs. Each package's router reaches its own
+    engine server, in process, over loopback gRPC; the bodies are equal and
+    the port's engine server ran the model, not its router."""
+    from clearml_serving_tpu.engine_server.repo import EngineModelRepo as JaxRepo
+    from clearml_serving_tpu.engine_server.server import make_server as jax_make_server
+    from clearml_serving_tpu_torch.engine_server.repo import EngineModelRepo
+    from clearml_serving_tpu_torch.engine_server.server import make_server
+
+    path = _write_bundle(tmp_path / "bert-bundle", "bert",
+                         {"preset": "bert-tiny", "dtype": "float32", "vocab_size": 30522},
+                         seed=2)
+    spec = dict(BERT_ENDPOINT, input_type=["int32", "int32"], auxiliary_cfg={
+        "batching": {"preferred_batch_size": 16, "max_queue_delay_us": 5000}})
+    preprocess = spec.pop("preprocess_code")
+    bodies = [{"text": t} for t in TEXTS]
+    out = {}
+    for name, cls, ep_cls, repo_cls, serve, app, kw in (
+            ("ref", JaxProcessor, JaxEndpoint, JaxRepo, jax_make_server, jax_build_app, {}),
+            ("port", ModelRequestProcessor, ModelEndpoint, EngineModelRepo, make_server,
+             build_app, {"device": "cpu"})):
+        mrp = cls(state_root=str(tmp_path / name), force_create=True, name="g", **kw)
+        rec = mrp.registry.register("bert ner", path=path, framework="jax")
+        mrp.add_endpoint(ep_cls(engine_type="jax_grpc", serving_url="transformer_model",
+                                model_id=rec.id, **spec),
+                         preprocess_code=preprocess)
+        mrp.serialize()
+
+        async def run():
+            repo = repo_cls(cls(service_id=mrp.get_id(), state_root=str(tmp_path / name),
+                                **kw), **kw)
+            assert repo.sync() == 1
+            server, port = serve(repo, 0)
+            await server.start()
+            try:
+                mrp.configure(external_engine_grpc_address="127.0.0.1:{}".format(port))
+                mrp.deserialize(skip_sync=True)
+                client = TestClient(TestServer(app(mrp)))
+                await client.start_server()
+                try:
+                    got = []
+                    for body in bodies:
+                        r = await client.post("/serve/transformer_model", json=body)
+                        got.append((r.status, await r.json()))
+                    return got, repo.list_models()["transformer_model"]
+                finally:
+                    await client.close()
+            finally:
+                await server.stop(None)
+
+        out[name] = asyncio.run(run())
+    (got, port_info), (want, _ref_info) = out["port"], out["ref"]
+    for (gs, gb), (ws, wb) in zip(got, want):
+        assert gs == ws == 200, (gs, ws, gb, wb)
+        _same(gb, wb)
+    assert [len(body["labels"]) for _s, body in got] == [len(t.split()) for t in TEXTS]
+    assert port_info["requests_served"] == len(TEXTS) and port_info["buckets"][0] == 1
 
 
 USER_CODE = """
