@@ -86,7 +86,7 @@ exits non-zero before the result lines are printed:
    ``warmup``): equal greedy contents, no capture while serving, and each
    arm's wall ms per decode step, dispatch and retire ms and tok/s;
 5f. the ragged launch as CUDA graphs, at Llama-3-8B's widths and
-   ``GRAPH_LAYERS`` (16) of its 32 layers: phase 5b's traffic (bf16 and int8
+   ``GRAPH_LAYERS`` (8) of its 32 layers: phase 5b's traffic (bf16 and int8
    KV) and phase 5d's tree arm, each with aux ``warmup: full`` (every plain
    launch key captured before traffic) and each graphed and eager
    (``cuda_graphs: false``), then 5b's on int4 weights graphed: content
@@ -106,7 +106,7 @@ exits non-zero before the result lines are printed:
 7. the request lifecycle of the default route: Llama-3-8B at full width
    and ``LIFECYCLE_LAYERS`` (8) of its 32 layers behind the HTTP app (bf16 KV, depth 2 with graphs, max_batch 8) with the
    reference's default lifecycle knobs (max_pending 32, a 30 s watchdog,
-   preemption, brownout). 8 batch-class chats at 128 tokens alone, then with
+   preemption, brownout). 8 batch-class chats at 384 tokens alone, then with
    an interactive arrival (a preemption; every batch content must equal its
    unpreempted run), then on an engine with preemption off (the
    interactive TTFT with and without preemption); 48 concurrent chats at 16
@@ -205,7 +205,8 @@ exits non-zero before the result lines are printed:
 12. the two-dispatch admission as the reference runs it: each admission
    prefills in a worker beside the decode chunks, its first token and mini
    cache committed at the next chunk boundary, the prefill gate pacing its
-   dispatches. Llama-3-8B at full width (seed-0 weights), two-dispatch at
+   dispatches. Llama-3-8B at full width and ``ADMIT_LAYERS`` (16) of its 32
+   layers (seed-0 weights), two-dispatch at
    depth 2 with graphs, max_batch 8. 12a, bf16 KV, on one engine: seven
    ~100-token chats decode 256 tokens each; once all decode, a
    1536-token prompt (bucket 2048) is admitted, in three arms: the gate
@@ -403,6 +404,34 @@ exits non-zero before the result lines are printed:
    batch, seq) key the replay and eager ms, capture ms and pool; the
    embeddings and classify logits within 5% of the CPU float32 port on the
    same weights.
+19. Whisper's audio routes, Whisper-large-v3 at full width (openai's
+   published config: d_model 1280, 32 + 32 layers, 20 heads, ffn 5120, 128
+   mels, vocab 51866, 1500 and 448 positions; bf16, seed-0 weights with the
+   embedding's rows from 256 to EOS zeroed so the byte tokenizer renders the
+   text), its prompt and timestamp ids in large-v3's layout, written with
+   the port's ``save_bundle`` and served as an ``llm`` endpoint
+   (``decode_steps`` 16, ``max_tokens`` 224) through the processor and
+   ``build_app``. 19a: at 2 + 2 layers of the same widths, the card's
+   float32 model gives encoder states and teacher-forced decode logits
+   within 1e-3 of the CPU's float32 model (TF32 off) and the bf16 model
+   within 5%, on the same mel input and filters. 19b: the endpoint's core
+   captures its 12 graphs (encode with the cross K/V, prime, plain chunk,
+   timestamp chunk; buckets 1, 2 and 4) at ``warmup()``; per bucket the
+   encode graph's encoder states and cross K/V are bitwise an eager core's
+   and a plain and a timestamp chunk give its tokens; capture ms and
+   pool MiB per key. 19c: seeded 30 s WAVs (tones and noise) at
+   concurrency 1, 4 and 8 (rows a batch at most 4), two transcriptions
+   and two translations at once (the carried item), a 75 s file (three
+   windows), ``text``, ``json``, ``verbose_json`` and, on a 2 s clip,
+   ``verbose_json`` with ``["segment", "word"]``: the words equal a direct
+   ``words_dtw`` call (not the proportional fallback); no capture after that
+   first request; an endpoint on the same weights without ``max_tokens``,
+   whose windows step past the cache's end (the clamp), raises no device
+   assert. Prints wall s a request and the real-time factor, encode ms per
+   bucket beside its operations bound and ms a decode step beside its byte
+   bound (graph replays, CUDA events), host mel and DTW ms a window, rows a
+   batch. 19d: both endpoints removed (their cores released under
+   ``CAPTURE_LOCK``): ``memory_allocated`` back within 64 MiB.
 
 The last three lines of standard output are the card line, the ``kernels``
 JSON line (every kernel, its head_dim 256 entries and the ragged kernel's
@@ -2084,8 +2113,11 @@ SURFACE_LAYERS = 8
 # since phase 18 did (605.6 s whole on a slow host)
 LIFECYCLE_LAYERS = 8
 PREFIX_LAYERS = 8
-# phase 5f runs 16 of the 32 layers since phase 18 joined the script
-GRAPH_LAYERS = 16
+# phase 5f runs 8 of the 32 layers since phase 19 joined the script (16
+# since phase 18 did); phase 12 runs 16 since phase 19 joined it (all 32
+# before)
+GRAPH_LAYERS = 8
+ADMIT_LAYERS = 16
 
 
 def depth_cut(params, n_layers: int) -> dict:
@@ -2986,14 +3018,22 @@ def release_card_memory() -> None:
         torch.cuda.empty_cache()
 
 
+# the tokens of phase 7's batch chats (preemption runs; 128 before) and of
+# its drain's streams (64 before), since phase 19 joined the script: at 8
+# layers a shorter chat could end before the last one's prefill was
+# admitted, so they never all decoded at once
+LIFECYCLE_BATCH_TOKENS = 384
+
+
 async def preemption_run(engine, s, base, interactive: bool) -> dict:
-    """8 batch-class chats at 128 tokens; with ``interactive``, one
+    """8 batch-class chats at ``LIFECYCLE_BATCH_TOKENS``; with ``interactive``, one
     interactive chat once each has 16 tokens. Returns the batch contents,
     the interactive's engine-side TTFT and client-side first text, and the
     engine's preemptions."""
     preempted0 = engine.counters["preemptions"]
     emitted0 = engine.counters["tokens_emitted"]
-    batch = [asyncio.ensure_future(lifecycle_chat(s, base, p, 128, priority="batch"))
+    batch = [asyncio.ensure_future(lifecycle_chat(s, base, p, LIFECYCLE_BATCH_TOKENS,
+                                                  priority="batch"))
              for p in BATCH_PROMPTS]
     try:
         await until(lambda: engine.active_slots == 8, 120, "8 batch chats decoding")
@@ -3021,7 +3061,7 @@ async def preemption_run(engine, s, base, interactive: bool) -> dict:
         first_text_ms = hi["first_text_s"] and hi["first_text_s"] * 1e3
     done = await asyncio.gather(*batch)
     await engine.wait_drained()
-    if any(d["status"] != 200 or d["tokens"] != 128 for d in done):
+    if any(d["status"] != 200 or d["tokens"] != LIFECYCLE_BATCH_TOKENS for d in done):
         raise AssertionError("a batch chat failed: {}".format(
             [(d["status"], d["tokens"], d["code"]) for d in done]))
     return dict(contents=[d["content"] for d in done], ttft_ms=ttft_ms,
@@ -3087,7 +3127,8 @@ async def default_engine_runs(engine, tokenizer, card: str) -> dict:
                 cut["total_s"], card))
         await engine.wait_drained()
         # the drain: 4 streams in flight, a new chat meanwhile
-        streams = [asyncio.ensure_future(lifecycle_chat(s, base, p, 64, stream=True))
+        streams = [asyncio.ensure_future(lifecycle_chat(s, base, p, LIFECYCLE_BATCH_TOKENS,
+                                                        stream=True))
                    for p in PROMPTS]
         await until(lambda: engine.active_slots == 4, 120, "4 streams decoding")
         t0 = time.perf_counter()
@@ -8375,6 +8416,501 @@ def phase_bert_routes(card: str) -> dict:
     return out
 
 
+# -- phase 19: Whisper's audio routes ------------------------------------------------
+
+# openai/whisper-large-v3's published config.json (d_model 1280, 32 + 32
+# layers, 20 heads of 64, ffn 5120, 128 mels, vocab 51866, 1500 source and
+# 448 target positions), and its tokenizer's ids: <|startoftranscript|>
+# 50258, <|en|> 50259, <|transcribe|> 50360, <|translate|> 50359,
+# <|notimestamps|> 50364, the timestamps from 50365, <|endoftext|> 50257
+WHISPER_V3 = {
+    "vocab_size": 51866, "d_model": 1280, "n_audio_layers": 32, "n_text_layers": 32,
+    "n_heads": 20, "ffn_dim": 5120, "n_mels": 128, "max_source_positions": 1500,
+    "max_target_positions": 448, "dtype": "bfloat16",
+    "transcribe_prompt_ids": [50258, 50259, 50360, 50364],
+    "translate_prompt_ids": [50258, 50259, 50359, 50364],
+    "notimestamps_token_id": 50364, "timestamp_begin": 50365, "time_precision": 0.02,
+    "eos_token_id": 50257, "sampling_rate": 16000, "chunk_length": 30,
+}
+AUDIO_URL = "whisper-large-v3"
+AUDIO_FULL_URL = "whisper-large-v3-full"   # no max_tokens: a window reaches the cache's end
+AUDIO_ENGINE = {"decode_steps": 16, "max_tokens": 224}
+AUDIO_SMALL_LAYERS = 2        # 19a: the card's model against the CPU's, at full width
+AUDIO_CHECK_CHUNKS = 1        # 19b: chunks held graphed against eager, per bucket and mode
+AUDIO_WORD_SECONDS = 2.0      # 19c: the word-timestamp clip (the DTW over 320 heads)
+AUDIO_ITERS = 3
+AUDIO_MEMORY_SLACK = 64 << 20
+
+
+def audio_wav(seconds: float, seed: int) -> bytes:
+    """A seeded 16 kHz int16 WAV: two tones and noise."""
+    import io
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    f = 180.0 + 40.0 * seed
+    sig = (0.25 * np.sin(2 * np.pi * f * t) + 0.1 * np.sin(2 * np.pi * 2.5 * f * t)
+           + 0.05 * rng.standard_normal(len(t)))
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.clip(sig, -1, 1) * 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def whisper_encode_flops(cfg: dict, rows: int) -> float:
+    """The operations of the encode graph for ``rows`` 30 s windows: both
+    convolutions, each layer's projections and FFN (2 x the multiplying
+    parameters x positions), its attention products (QK^T and PV), and the
+    decoder's cross K/V projections the graph writes beside them."""
+    d, ffn, mels = cfg["d_model"], cfg["ffn_dim"], cfg["n_mels"]
+    t = cfg["max_source_positions"]
+    conv = 2 * (2 * t) * mels * d * 3 + 2 * t * d * d * 3
+    layer = 2 * t * (4 * d * d + 2 * d * ffn) + 2 * 2 * t * t * d
+    cross_kv = cfg["n_text_layers"] * 2 * 2 * t * d * d
+    return float(rows * (conv + cfg["n_audio_layers"] * layer + cross_kv))
+
+
+def whisper_step_bytes(cfg: dict, rows: int) -> float:
+    """The bytes one decode step must read in bf16: the decoder's weights it
+    multiplies (self q, k, v, o; cross q, o; the FFN) and the tied head,
+    once, and per row the cross K/V and the self-K/V cache (the step reads
+    every position of it, masked)."""
+    d, ffn, vocab = cfg["d_model"], cfg["ffn_dim"], cfg["vocab_size"]
+    n, t, m = cfg["n_text_layers"], cfg["max_source_positions"], cfg["max_target_positions"]
+    weights = n * (6 * d * d + 2 * d * ffn) + vocab * d
+    per_row = n * 2 * (t + m) * d
+    return 2.0 * (weights + rows * per_row)
+
+
+def audio_small_model(card: str) -> dict:
+    """19a: Whisper-large-v3's widths at 2 + 2 layers, the same weights
+    (seed 0, biases and LayerNorms perturbed) on the CPU in float32 and on
+    the card in float32 (TF32 off) and bfloat16, the same mel input (the
+    slaney filters on both sides): encoder states and teacher-forced decode
+    logits, the largest gap relative to the CPU's largest value."""
+    from clearml_serving_tpu_torch import models
+    from clearml_serving_tpu_torch.ops.audio import (
+        decode_wav,
+        log_mel_spectrogram,
+        mel_filter_bank,
+    )
+
+    cfg = dict(WHISPER_V3, n_audio_layers=AUDIO_SMALL_LAYERS, n_text_layers=AUDIO_SMALL_LAYERS,
+               dtype="float32")
+    bundle = models.build_model("whisper", cfg)
+    gen = torch.Generator().manual_seed(0)
+    tree = bundle.init(gen)
+
+    def perturb(node, key=""):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                perturb(v, k)
+        elif isinstance(node, list):
+            for v in node:
+                perturb(v, key)
+        elif key in ("b", "bias", "scale"):
+            node += 0.2 * torch.randn(node.shape, generator=gen)
+
+    perturb(tree)
+
+    def cast(node, dtype):
+        if isinstance(node, dict):
+            return {k: cast(v, dtype) for k, v in node.items()}
+        if isinstance(node, list):
+            return [cast(v, dtype) for v in node]
+        return node.to(dtype)
+
+    bf16 = models.build_model("whisper", dict(cfg, dtype="bfloat16"))
+    sides = {"cpu": (bundle, bundle.convert_params(tree, "cpu"), "cpu"),
+             "f32": (bundle, bundle.convert_params(tree, DEV), DEV),
+             "bf16": (bf16, bf16.convert_params(cast(tree, torch.bfloat16), DEV), DEV)}
+    pcm = decode_wav(audio_wav(30.0, 0))
+    mel = torch.from_numpy(log_mel_spectrogram(
+        pcm, mel_filter_bank(cfg["n_mels"]), n_samples=480000)[None])       # [1, 128, 3000]
+    tokens = cfg["transcribe_prompt_ids"] + [50365, 440, 1770, 13, 50400, 50400, 2221, 11]
+    out = {}
+    with torch.inference_mode():
+        for name, (b, params, dev) in sides.items():
+            t0 = time.perf_counter()
+            enc = b.encode(params, mel.to(dev))
+            cache = b.init_cache(params, enc, cfg["max_target_positions"])
+            logits = []
+            for tok in tokens:
+                step, cache = b.decode(params, torch.tensor([tok], dtype=torch.int32,
+                                                            device=dev), cache)
+                logits.append(step[0])
+            sync()
+            out[name] = dict(enc=enc.float().cpu(), logits=torch.stack(logits).cpu(),
+                             s=time.perf_counter() - t0)
+    gaps = {}
+    for name in ("f32", "bf16"):
+        for what in ("enc", "logits"):
+            want = out["cpu"][what]
+            gaps["{}_{}".format(name, what)] = float((out[name][what] - want).abs().max()
+                                                     / want.abs().max())
+    limits = {"f32": 1e-3, "bf16": 0.05}
+    for key, gap in gaps.items():
+        if not gap <= limits[key.split("_")[0]]:
+            raise AssertionError("19a {}: relative gap {} to the CPU float32 model".format(
+                key, gap))
+    log("  19a: whisper-large-v3 widths at {} + {} layers, {} decode steps: relative gap to the "
+        "CPU f32 model: card f32 encoder {:.3g}, logits {:.3g} (limit 1e-3); bf16 {:.3g}, "
+        "{:.3g} (limit 5%); CPU {:.1f} s, card f32 {:.2f} s".format(
+            AUDIO_SMALL_LAYERS, AUDIO_SMALL_LAYERS, len(tokens), gaps["f32_enc"],
+            gaps["f32_logits"], gaps["bf16_enc"], gaps["bf16_logits"], out["cpu"]["s"],
+            out["f32"]["s"]))
+    del sides, out
+    release_card_memory()
+    return gaps
+
+
+def whisper_v3_params(bundle) -> dict:
+    """Seed-0 weights for the served model. Random weights emit random ids,
+    and the byte tokenizer (no tokenizer files) renders only ids < 256: the
+    tied embedding's rows from 256 to <|endoftext|> are zeroed, so the
+    model writes bytes, timestamps and special ids, and never EOS (as phase
+    5 zeroes its lm_head's columns past the byte ids)."""
+    params = bundle.init(torch.Generator(DEV).manual_seed(0))
+    params["embed"][256:WHISPER_V3["eos_token_id"] + 1] = 0
+    return params
+
+
+def audio_chunks(core, pcms, prompt, ts: bool) -> list:
+    """On ``core``'s thread: a batch's encode and prime, then
+    ``AUDIO_CHECK_CHUNKS`` chunks (timestamp or plain); their tokens."""
+    with core._lock, core._device():
+        st = core._encode_and_prime(pcms, prompt, "chunk_ts" if ts else "chunk")
+        if ts:
+            core._reset_ts(st)
+        else:
+            core._run("prime", st)
+        name = "chunk_ts" if ts else "chunk"
+        return [core._run(name, st).cpu().tolist() for _ in range(AUDIO_CHECK_CHUNKS)]
+
+
+def audio_graphs_vs_eager(core, pcms_all) -> dict:
+    """19b: per bucket 1, 2 and 4, the endpoint's graphed core against an
+    eager core on its weights: the encode graph's encoder states and cross
+    K/V bitwise, the plain and timestamp chunks' tokens equal."""
+    from clearml_serving_tpu_torch.llm.audio import AudioCore
+
+    eager = AudioCore(core.bundle, core.params, decode_steps=core.decode_steps,
+                      max_new_tokens=core.max_new_tokens, device=DEV, cuda_graphs=False)
+    out = {}
+    try:
+        for b in (1, 2, 4):
+            for ts in (False, True):
+                prompt = core.prompt_ids("transcribe", ts)
+                got = core.worker.submit(audio_chunks, core, pcms_all[:b], prompt, ts).result()
+                want = eager.worker.submit(audio_chunks, eager, pcms_all[:b], prompt,
+                                           ts).result()
+                sync()
+                g, e = core._buckets[b], eager._buckets[b]
+                same = {key: bool(torch.equal(g["cache"][key], e["cache"][key]))
+                        for key in ("cross_k", "cross_v")}
+                same["enc"] = bool(torch.equal(g["enc"], e["enc"]))
+                if got != want or not all(same.values()):
+                    raise AssertionError("19b bucket {} {}: graphed tokens {} / eager {}, "
+                                         "bitwise {}".format(b, "ts" if ts else "plain",
+                                                             got[0][:8], want[0][:8], same))
+            out[b] = "equal"
+        log("  19b: buckets 1, 2, 4: encode graph's encoder states and cross K/V bitwise the "
+            "eager run's; {} plain and {} timestamp chunks of 16 steps, tokens equal".format(
+                AUDIO_CHECK_CHUNKS, AUDIO_CHECK_CHUNKS))
+    finally:
+        eager.retire()
+        eager.worker.submit(lambda: None).result()
+    return out
+
+
+async def audio_requests(app, calls, concurrent: bool) -> list:
+    """(status, body, wall s) of each (path, fields) call: a multipart
+    upload where ``fields``' file is bytes, a JSON body where it is base64
+    text."""
+    import aiohttp
+    from aiohttp.test_utils import TestClient, TestServer
+
+    async def one(client, path, fields):
+        t0 = time.perf_counter()
+        if isinstance(fields["file"], str):
+            r = await client.post(path, json=fields)
+        else:
+            form = aiohttp.FormData()
+            for k, v in fields.items():
+                if k == "file":
+                    form.add_field("file", v, filename="audio.wav", content_type="audio/wav")
+                else:
+                    form.add_field(k, v)
+            r = await client.post(path, data=form)
+        body = await r.json() if r.content_type == "application/json" else await r.text()
+        return r.status, body, time.perf_counter() - t0
+
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    try:
+        if concurrent:
+            return list(await asyncio.gather(*[one(client, p, f) for p, f in calls]))
+        return [await one(client, p, f) for p, f in calls]
+    finally:
+        await client.close()
+
+
+def audio_traffic(processor, label: str, calls, concurrent: bool = True) -> dict:
+    """``calls`` through ``build_app(processor)`` (an app a loop), at once or
+    one after another; every status 200."""
+    from clearml_serving_tpu_torch.serving.main import build_app
+
+    t0 = time.perf_counter()
+    got = asyncio.run(audio_requests(build_app(processor), calls, concurrent))
+    wall = time.perf_counter() - t0
+    bad = [(s, str(b)[:200]) for s, b, _w in got if s != 200]
+    if bad:
+        raise AssertionError("19c {}: {}".format(label, bad))
+    return dict(answers=[b for _s, b, _w in got], wall_s=[round(w, 3) for _s, _b, w in got],
+                total_s=wall)
+
+
+def phase_audio_routes(card: str) -> dict:
+    """Phase 19: Whisper-large-v3 (bf16, seed 0) behind the processor and
+    ``build_app``: 19a the model against the CPU at 2 + 2 layers, 19b
+    graphs against eager per bucket, 19c the audio routes over HTTP, 19d the
+    endpoint's removal (module docstring)."""
+    import base64
+    import shutil
+
+    from clearml_serving_tpu_torch import models
+    from clearml_serving_tpu_torch.device import lease_step_worker, return_step_worker
+    from clearml_serving_tpu_torch.engines.jax_engine import save_bundle
+    from clearml_serving_tpu_torch.llm.decode_graph import _on_capture_thread, capture_graph
+    from clearml_serving_tpu_torch.llm.audio import AudioCore
+    from clearml_serving_tpu_torch.llm.openai_api import LLMEngineRequest
+    from clearml_serving_tpu_torch.ops.audio import decode_wav
+    from clearml_serving_tpu_torch.serving.endpoints import ModelEndpoint
+    from clearml_serving_tpu_torch.serving.model_request_processor import (
+        ModelRequestProcessor,
+    )
+
+    seconds = {}
+    t0 = time.perf_counter()
+    out = {"19a": audio_small_model(card)}
+    seconds["19a"] = round(time.perf_counter() - t0, 1)
+    root = state_dir()
+    try:
+        # the phase leases two step threads of the current stream at once
+        # (the endpoint's core, and the eager and full cores in turn), and
+        # captures on the current stream's warm-up and capture streams: each
+        # (thread, stream)'s cuBLAS workspace lives as long as the process
+        # (device.py), so all exist before the baseline is read
+        stream = torch.cuda.current_stream()
+        workers = [lease_step_worker(stream) for _ in range(2)]
+        a = torch.ones((64, 64), device=DEV)
+        for w in workers:
+            w.submit(lambda: float((a @ a).sum())).result()
+            return_step_worker(stream, w)
+
+        def tiny_capture():
+            with torch.cuda.stream(stream):
+                return capture_graph(lambda: a @ a, stream, (), "thread_local")
+
+        graph = _on_capture_thread(tiny_capture)
+        del workers, a, graph
+        mem0 = card_memory()
+        processor = ModelRequestProcessor(state_root=root, force_create=True, name="audio",
+                                          device=DEV)
+        rec = processor.registry.register("whisper-large-v3 seed 0", framework="jax")
+        bundle_dir = os.path.join(str(rec.files_dir), "whisper-large-v3")
+        bundle = models.build_model("whisper", WHISPER_V3)
+        t0 = time.perf_counter()
+        n_bytes = save_bundle(bundle_dir, "whisper", WHISPER_V3, whisper_v3_params(bundle))
+        write_s = time.perf_counter() - t0
+        release_card_memory()
+        processor.add_endpoint(ModelEndpoint(engine_type="llm", serving_url=AUDIO_URL,
+                                             model_id=rec.id,
+                                             auxiliary_cfg={"engine": AUDIO_ENGINE}))
+        processor.serialize()
+        processor.deserialize(skip_sync=True)
+        t0 = time.perf_counter()
+        proc = processor._get_processor(AUDIO_URL)
+        core = proc.audio
+        sync()
+        load_s = time.perf_counter() - t0
+        seconds["bundle"] = round(time.perf_counter() - t0 + write_s, 1)
+        t0 = time.perf_counter()
+        core.warmup()
+        warm_s = time.perf_counter() - t0
+        seconds["warmup"] = round(warm_s, 1)
+        health = core.health()
+        keys = {label: dict(capture_ms=k["capture_ms"],
+                            pool_mib=round(k["pool_bytes"] / 2 ** 20, 1))
+                for label, k in health["graph_keys"].items()}
+        log("  19: bundle {:.3f} GB written in {:.2f} s, loaded through the llm endpoint in "
+            "{:.2f} s; warmup captured {} graphs in {:.2f} s, pool {:.1f} MiB".format(
+                n_bytes / 1e9, write_s, load_s, len(keys), warm_s,
+                health["graph_pool_bytes"] / 2 ** 20))
+        for label, k in keys.items():
+            log("    {}: capture {:.1f} ms, pool {} MiB".format(label, k["capture_ms"],
+                                                               k["pool_mib"]))
+        wavs = [audio_wav(30.0, i) for i in range(8)]
+        pcms = [decode_wav(w) for w in wavs]
+        t0 = time.perf_counter()
+        out["19b"] = audio_graphs_vs_eager(core, pcms)
+        out["19b"]["keys"] = keys
+        seconds["19b"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+        # 19c: HTTP
+        tr, tl = "/serve/openai/v1/audio/transcriptions", "/serve/openai/v1/audio/translations"
+        # the word request first: verbose_json with both granularities (its
+        # alignment key captured at this first use; steady traffic follows)
+        clip = audio_wav(AUDIO_WORD_SECONDS, 9)
+        runs = {}
+        runs["words"] = audio_traffic(processor, "verbose_json words", [(tr, {
+            "file": base64.b64encode(clip).decode(), "model": AUDIO_URL,
+            "response_format": "verbose_json", "timestamp_granularities": ["segment", "word"]})])
+        words_answer = runs["words"]["answers"][0]
+        captures0 = core.health()["graph_captures"]
+        runs["c1"] = audio_traffic(processor, "concurrency 1",
+                                   [(tr, {"file": wavs[0], "model": AUDIO_URL})])
+        runs["c4"] = audio_traffic(processor, "concurrency 4",
+                                   [(tr, {"file": w, "model": AUDIO_URL}) for w in wavs[:4]])
+        runs["c8"] = audio_traffic(processor, "concurrency 8",
+                                   [(tr, {"file": w, "model": AUDIO_URL}) for w in wavs])
+        # two transcriptions, then two translations, at once: the first
+        # translation breaks the first batch and is carried to the next
+        # (two batches of bucket 2)
+        runs["mixed"] = audio_traffic(processor, "transcriptions and translations at once", [
+            (tr if i < 2 else tl, {"file": w, "model": AUDIO_URL})
+            for i, w in enumerate(wavs[:4])])
+        long_wav = audio_wav(75.0, 11)
+        runs["75s"] = audio_traffic(processor, "75 s file", [(tr, {"file": long_wav,
+                                                             "model": AUDIO_URL})])
+        runs["formats"] = audio_traffic(processor, "formats", [
+            (tr, {"file": wavs[0], "model": AUDIO_URL, "response_format": "text"}),
+            (tr, {"file": wavs[1], "model": AUDIO_URL, "response_format": "verbose_json"})],
+            concurrent=False)
+        text, verbose = runs["formats"]["answers"]
+        as_json = runs["c1"]["answers"][0]
+        if not (isinstance(text, str) and text == as_json["text"]):
+            raise AssertionError("19c: text {!r} against json {!r}".format(text[:40],
+                                                                           as_json["text"][:40]))
+        if not verbose.get("segments") or verbose["duration"] != 30.0:
+            raise AssertionError("19c: verbose_json without segments: {}".format(
+                str(verbose)[:300]))
+        # the words are the DTW's: a direct words_dtw call on the same windows
+        clip_pcm = decode_wav(clip)
+
+        async def clip_windows():
+            return await core.transcribe_windows_async(clip_pcm, "transcribe", timestamps=True)
+
+        windows = asyncio.run(clip_windows())
+        direct = core.words_dtw(clip_pcm, windows, proc.tokenizer, "transcribe")
+        if not direct or words_answer.get("words") != direct or not words_answer.get("segments"):
+            raise AssertionError("19c: the words are not the DTW's: {} against {}".format(
+                str(words_answer.get("words"))[:200], str(direct)[:200]))
+        long_answer = runs["75s"]["answers"][0]
+        health = core.health()
+        if health["graph_captures"] != captures0:
+            raise AssertionError("19c: {} captures during steady traffic".format(
+                health["graph_captures"] - captures0))
+        rows = health["batch_rows"]
+        if max(rows) > 4:
+            raise AssertionError("19c: a batch of {} rows".format(max(rows)))
+        # the arm without max_tokens, on the same weights: its windows reach
+        # the cache's end (the clamp)
+        full = AudioCore(core.bundle, core.params, decode_steps=AUDIO_ENGINE["decode_steps"],
+                         device=DEV)
+        full_proc = LLMEngineRequest.wrap(full, proc.tokenizer, AUDIO_FULL_URL)
+        processor.add_endpoint(full_proc.endpoint)
+        processor.serialize()
+        processor.deserialize(skip_sync=True)
+        processor._engine_processor_lookup[AUDIO_FULL_URL] = full_proc
+        runs["full"] = audio_traffic(processor, "no max_tokens", [
+            (tr, {"file": wavs[2], "model": AUDIO_FULL_URL})])
+        sync()
+        full_length = int(full._buckets[1]["cache"]["length"][0])
+        if full_length <= WHISPER_V3["max_target_positions"]:
+            raise AssertionError("19c: the full arm's cache reached {} positions".format(
+                full_length))
+        torch.zeros(1, device=DEV).add_(1).item()   # no device-side assert
+        for label, run in runs.items():
+            secs = [{"75s": 75.0, "words": AUDIO_WORD_SECONDS}.get(label, 30.0)] * len(
+                run["wall_s"])
+            rtf = sum(secs) / run["total_s"]
+            log("  19c {}: wall s a request {}, {:.2f} s in all, real-time factor {:.1f} "
+                "(audio s per wall s)".format(label, run["wall_s"], run["total_s"], rtf))
+            run["rtf"] = round(rtf, 2)
+            del run["answers"]
+        log("  19c: 75 s file {} chars; verbose_json {} segments; {} DTW words on the {} s clip "
+            "equal a direct words_dtw call; the full arm's cache reached {} of {} positions "
+            "(clamped), no device assert; rows a batch {}; captures after warm-up: 0".format(
+                len(long_answer["text"]), len(verbose["segments"]), len(direct),
+                AUDIO_WORD_SECONDS, full_length, WHISPER_V3["max_target_positions"], rows))
+        # encode and decode-step times against their bounds (the graphs replayed)
+        timing = {}
+
+        def time_graphs():
+            with core._lock, core._device():
+                for b in (1, 2, 4):
+                    enc_ms = event_ms(core.graph("encode", b).replay, AUDIO_ITERS)
+                    step_ms = event_ms(core.graph("chunk", b).replay,
+                                       AUDIO_ITERS) / core.decode_steps
+                    enc_bound = whisper_encode_flops(WHISPER_V3, b) / 989e12 * 1e3
+                    step_bound = whisper_step_bytes(WHISPER_V3, b) / CARD_BW * 1e3
+                    timing[b] = dict(encode_ms=round(enc_ms, 3),
+                                     encode_bound_ms=round(enc_bound, 3),
+                                     step_ms=round(step_ms, 4),
+                                     step_bound_ms=round(step_bound, 4))
+
+        core.worker.submit(time_graphs).result()
+        for b, t in timing.items():
+            log("  19c bucket {}: encode {:.3f} ms (operations bound {:.3f}, {:.1f}%), decode "
+                "step {:.4f} ms (byte bound {:.4f}, {:.1f}%)".format(
+                    b, t["encode_ms"], t["encode_bound_ms"],
+                    100 * t["encode_bound_ms"] / t["encode_ms"], t["step_ms"],
+                    t["step_bound_ms"], 100 * t["step_bound_ms"] / t["step_ms"]))
+        host = core.health()["host_ms"]
+        per_window = dict(mel_ms=round(host["mel"] / max(1, host["mel_windows"]), 2),
+                          dtw_ms=round(host["dtw"] / max(1, host["dtw_windows"]), 1))
+        log("  19c host: mel {} ms a window ({} windows), DTW {} ms a window ({} windows)".format(
+            per_window["mel_ms"], host["mel_windows"], per_window["dtw_ms"], host["dtw_windows"]))
+        out["19c"] = dict(runs=runs, timing=timing, host=per_window, batch_rows=rows,
+                          full_length=full_length, words=len(direct))
+        seconds["19c"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+        # 19d: removal; the processor retires both cores, their releases
+        # queued behind the calls on their threads
+        workers = [core.worker, full.worker]
+        del proc, core, full, full_proc
+        for url in (AUDIO_URL, AUDIO_FULL_URL):
+            processor.remove_endpoint(url)
+        processor.serialize()
+        processor.deserialize()
+        for worker in workers:
+            worker.submit(lambda: None).result()
+        mem1 = card_memory()
+        release_card_memory()
+        if mem1 - mem0 > AUDIO_MEMORY_SLACK:
+            raise AssertionError("19d: memory_allocated {:.1f} MiB above its level before the "
+                                 "endpoint".format((mem1 - mem0) / 2 ** 20))
+        out["19d"] = dict(before_mib=round(mem0 / 2 ** 20, 1), after_mib=round(mem1 / 2 ** 20, 1))
+        seconds["19d"] = round(time.perf_counter() - t0, 1)
+        out["seconds"] = seconds
+        log("  19d: endpoint removed under CAPTURE_LOCK; memory_allocated {:.1f} MiB before, "
+            "{:.1f} MiB after; seconds {}".format(mem0 / 2 ** 20, mem1 / 2 ** 20, seconds))
+        del processor
+        release_card_memory()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def llama3_8b_params() -> dict:
     """Phase 5's weights: Llama-3-8B at full width on the card, random from
     seed 0. Random weights emit random ids; the byte tokenizer renders only
@@ -8556,9 +9092,11 @@ def main() -> int:
         "width: regex, choice, JSON schema, json_object, tool_choice modes")
     guided = phase_guided(params, card)
     mark("11")
-    log("phase 12: the two-dispatch admission beside decode, llama3-8b full width: prefills "
-        "in admission workers, the prefill gate, chunked prefill")
-    admission = phase_admission(params, qparams, card)
+    log("phase 12: the two-dispatch admission beside decode, llama3-8b widths at {} of its 32 "
+        "layers: prefills in admission workers, the prefill gate, chunked prefill".format(
+            ADMIT_LAYERS))
+    admission = phase_admission(depth_cut(params, ADMIT_LAYERS),
+                                depth_cut(qparams, ADMIT_LAYERS), card)
     mark("12")
     log("phase 13: the control plane in front of the LLM route: the CLI, the processor and "
         "its sync daemon, the /serve/{{tail}} router, llama3-8b widths at {} of its 32 layers, "
@@ -8593,6 +9131,11 @@ def main() -> int:
         "routes of an llm endpoint with task embed".format(GRPC_CONCURRENCY))
     bert_routes = phase_bert_routes(card)
     mark("18")
+    log("phase 19: Whisper's audio routes: whisper-large-v3 (bf16, seed 0, 32 + 32 layers) as an "
+        "llm endpoint, its encode and decode chunks as CUDA graphs per batch bucket, "
+        "transcriptions and translations over HTTP, DTW word timing")
+    audio_routes = phase_audio_routes(card)
+    mark("19")
 
     t = kern["timings"]
     rt = rkern["timings"]
@@ -8879,7 +9422,8 @@ def main() -> int:
                                   "control_plane": control, "fleet": fleet,
                                   "process_fleet": pfleet, "families": families,
                                   "bundle_engines": bundles,
-                                  "bert_routes": bert_routes}))
+                                  "bert_routes": bert_routes,
+                                  "audio_routes": audio_routes}))
     log("seconds by phase:", json.dumps(seconds))
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     print(card)

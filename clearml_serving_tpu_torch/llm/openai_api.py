@@ -66,7 +66,17 @@ stream reports when it ends (``StreamingOutput.on_complete``):
   (aux ``pooling``, ``normalize``, ``seq_buckets``, ``batch_buckets``; the
   generation knobs, ``replicas`` among them, are ignored there, as the
   reference ignores them); a plain POST is an embeddings call. Their body
-  fields are read as the reference reads them, unknown ones ignored.
+  fields are read as the reference reads them, unknown ones ignored;
+- on an audio endpoint (``engine_task``: a ``whisper`` bundle, or
+  ``engine.arch: whisper`` with a preset, or ``engine.task`` naming
+  ``transcribe``, ``translate`` or ``audio``) ``audio/transcriptions`` and
+  ``audio/translations`` run on ``llm/audio.py``'s ``AudioCore`` (aux
+  ``decode_steps``, 16 by default, and ``max_tokens``): the WAV as a
+  multipart upload or base64 in JSON, ``response_format`` ``json``,
+  ``text`` or ``verbose_json`` (timestamp-conditioned segments, and with
+  ``timestamp_granularities`` ``word`` the cross-attention DTW's words, or
+  the logged proportional fallback when that pass fails); the generating
+  routes answer 422 there as the reference's do.
 
 Admission is checked before a stream's headers, so a shed or a spent
 budget is a 429 or 408, never a mid-stream error. Text handling
@@ -131,6 +141,8 @@ ENGINE_KEYS = (
     "kv_transport_pages", "kv_transport_backend",
     # the encoder tasks (llm/encoder.py)
     "task", "pooling", "normalize", "seq_buckets", "batch_buckets", "labels",
+    # the audio tasks (llm/audio.py)
+    "max_tokens",
 )
 
 # the reference's task names: an encoder endpoint serves the embeddings,
@@ -408,23 +420,38 @@ def bundle_arch(path) -> Optional[str]:
 
 def engine_task(engine_cfg: Dict[str, Any], path=None, url: str = "") -> str:
     """The endpoint's task, gated as the reference gates it: aux
-    ``engine.task``, else ``generate`` for a decoder (a ``llama`` bundle or
-    preset) and ``embed`` for any other model. An unknown task is refused
-    with the reference's words; the audio tasks are refused by name (the
-    speech models are not ported)."""
+    ``engine.task``, else ``transcribe`` for a speech encoder-decoder (a
+    ``whisper`` bundle or arch), ``generate`` for a decoder (a ``llama``
+    bundle or preset) and ``embed`` for any other model. An unknown task is
+    refused with the reference's words."""
     task = engine_cfg.get("task")
     if task is None:
         arch = bundle_arch(path) if path else engine_cfg.get("arch", "llama")
-        task = "generate" if arch == "llama" else "embed"
+        task = {"whisper": "transcribe", "llama": "generate"}.get(arch, "embed")
     if task not in ENCODER_TASKS and task not in AUDIO_TASKS and task != "generate":
         raise EndpointModelError(
             "unknown engine task {!r} for endpoint {!r} (expected 'generate' or one of "
             "{})".format(task, url, sorted(ENCODER_TASKS | AUDIO_TASKS)))
-    if task in AUDIO_TASKS:
-        raise EndpointModelError(
-            "engine task {!r} is not served by the PyTorch port yet: the speech "
-            "encoder-decoder (arch 'whisper') and the audio routes".format(task))
     return task
+
+
+def _bundle_and_params(engine_cfg: Dict[str, Any], dev: torch.device, path, check):
+    """The model payload at ``path`` (a bundle, or any graph ``load_bundle``
+    reads), else ``engine.arch``'s ``engine.preset`` (with ``engine.config``
+    over it; the caller checks there is one) on weights drawn on ``dev``
+    from ``seed``, ``check(bundle)`` refusing an unfit preset before any
+    weight is made."""
+    from .. import models
+    from ..engines.jax_engine import load_bundle
+
+    if path:
+        return load_bundle(path, device=dev)
+    bundle = models.build_model(engine_cfg.get("arch", "llama"), {
+        "preset": engine_cfg["preset"], **(engine_cfg.get("config") or {})})
+    check(bundle)
+    gen = torch.Generator(dev)
+    gen.manual_seed(int(engine_cfg.get("seed", 0)))
+    return bundle, bundle.convert_params(bundle.init(gen), device=dev)
 
 
 def build_encoder(engine_cfg: Dict[str, Any], *, device="cuda", path=None):
@@ -437,20 +464,10 @@ def build_encoder(engine_cfg: Dict[str, Any], *, device="cuda", path=None):
     cross-encoder's pairs. Knobs: ``pooling`` (mean/cls), ``normalize``,
     ``seq_buckets``, ``batch_buckets``; the generation knobs are ignored,
     as the reference ignores them here."""
-    from .. import models
-    from ..engines.jax_engine import load_bundle
     from .encoder import EncoderCore
 
     dev = resolve_device(device)
-    if path:
-        bundle, params = load_bundle(path, device=dev)
-    else:
-        bundle = models.build_model(engine_cfg.get("arch", "llama"), {
-            "preset": engine_cfg["preset"], **(engine_cfg.get("config") or {})})
-        EncoderCore.check_bundle(bundle)  # before any weight is made
-        gen = torch.Generator(dev)
-        gen.manual_seed(int(engine_cfg.get("seed", 0)))
-        params = bundle.convert_params(bundle.init(gen), device=dev)
+    bundle, params = _bundle_and_params(engine_cfg, dev, path, EncoderCore.check_bundle)
     tokenizer = load_tokenizer(str(path) if path else None,
                                int(bundle.config.get("vocab_size", 0)))
     hf = getattr(tokenizer, "_tok", None)
@@ -464,6 +481,23 @@ def build_encoder(engine_cfg: Dict[str, Any], *, device="cuda", path=None):
         cls_token_id=getattr(hf, "cls_token_id", None),
         device=dev)
     return encoder, tokenizer
+
+
+def build_audio(engine_cfg: Dict[str, Any], *, device="cuda", path=None):
+    """(``AudioCore``, tokenizer) of an audio task, from the same two
+    sources as ``build_encoder``. Knobs: ``decode_steps`` (16) and
+    ``max_tokens`` (the reference's ``max_new_tokens``); a bundle with no
+    speech encoder-decoder surface is refused with ``AudioCore``'s
+    words."""
+    from .audio import AudioCore
+
+    dev = resolve_device(device)
+    bundle, params = _bundle_and_params(engine_cfg, dev, path, AudioCore.check_bundle)
+    tokenizer = load_tokenizer(str(path) if path else None,
+                               int(bundle.config.get("vocab_size", 0)))
+    audio = AudioCore(bundle, params, decode_steps=int(engine_cfg.get("decode_steps", 16)),
+                      max_new_tokens=engine_cfg.get("max_tokens"), device=dev)
+    return audio, tokenizer
 
 
 def make_tokenizer(cfg: Dict[str, Any]) -> ByteTokenizer:
@@ -604,6 +638,8 @@ class LLMEngineRequest(BaseEngineRequest):
         self.engine: Optional[LLMEngineCore] = None
         # an encoder endpoint's core (engine_task): the encoder routes
         self.encoder = None  # llm/encoder.py's EncoderCore
+        # an audio endpoint's core: the audio routes
+        self.audio = None  # llm/audio.py's AudioCore
         self.tokenizer = None
         self._model_name = "model"
         # the aux engine.chat block (the reference's vLLM chat settings):
@@ -621,8 +657,8 @@ class LLMEngineRequest(BaseEngineRequest):
     def wrap(cls, engine, tokenizer, serving_url: str,
              engine_cfg: Optional[Dict[str, Any]] = None, **kwargs) -> "LLMEngineRequest":
         """The endpoint ``serving_url`` over an engine (or an
-        ``EncoderCore``) the caller built (the tests' and ``chip_smoke.py``'s
-        carried weights). ``engine_cfg`` is
+        ``EncoderCore`` or ``AudioCore``) the caller built (the tests' and
+        ``chip_smoke.py``'s carried weights). ``engine_cfg`` is
         the aux ``engine`` block the endpoint records; only its endpoint
         knobs (``warmup``, ``default_priority``, ``chat``) are read, since
         the engine exists. The processor's path builds the engine from the
@@ -645,6 +681,7 @@ class LLMEngineRequest(BaseEngineRequest):
         # endpoint knobs, refused at load when mistyped
         warmup = warmup_mode(engine_cfg)
         self._default_priority = default_priority(engine_cfg)
+        from .audio import AudioCore
         from .encoder import EncoderCore
 
         carried = getattr(self, "_carried", None)
@@ -653,14 +690,23 @@ class LLMEngineRequest(BaseEngineRequest):
         if isinstance(carried, tuple) and isinstance(carried[0], EncoderCore):
             self.encoder, self.tokenizer = carried
             return self.encoder
-        if carried is None and engine_task(engine_cfg, self._model_local_path,
-                                           self.endpoint.serving_url) in ENCODER_TASKS:
+        if isinstance(carried, tuple) and isinstance(carried[0], AudioCore):
+            self.audio, self.tokenizer = carried
+            return self.audio
+        task = None if carried is not None else engine_task(
+            engine_cfg, self._model_local_path, self.endpoint.serving_url)
+        if task in ENCODER_TASKS or task in AUDIO_TASKS:
             # task-gated as the reference's vLLM handlers: an encoder serves
-            # the embeddings, pooling, classify, score and rerank routes
+            # the embeddings, pooling, classify, score and rerank routes, a
+            # speech encoder-decoder the audio routes
             if not self._model_local_path and not engine_cfg.get("preset"):
                 raise EndpointModelError(
                     "llm endpoint {!r} needs a model bundle or aux_config "
                     "engine.preset".format(self.endpoint.serving_url))
+            if task in AUDIO_TASKS:
+                self.audio, self.tokenizer = build_audio(
+                    engine_cfg, device=self.device, path=self._model_local_path)
+                return self.audio
             self.encoder, self.tokenizer = build_encoder(
                 engine_cfg, device=self.device, path=self._model_local_path)
             return self.encoder
@@ -779,10 +825,11 @@ class LLMEngineRequest(BaseEngineRequest):
         it: once its in-flight requests end it is stopped, and the last
         reference drops under ``CAPTURE_LOCK``, outside any capture. An
         engine that never served is released now."""
-        if self.encoder is not None and not self._retiring:
+        core = self.encoder if self.encoder is not None else self.audio
+        if core is not None and not self._retiring:
             # its release queues behind the calls already on its thread
             self._retiring = True
-            self.encoder.retire()
+            core.retire()
             return
         engine = self.engine
         if engine is None or self._retiring:
@@ -1815,7 +1862,8 @@ class LLMEngineRequest(BaseEngineRequest):
                           collect_fn=None) -> Dict[str, Any]:
         ids = self.tokenizer.encode(str(body.get("prompt") or body.get("text") or ""))
         core = self.engine if self.engine is not None else self.encoder
-        return {"tokens": ids, "count": len(ids), "max_model_len": core.max_seq_len}
+        return {"tokens": ids, "count": len(ids),
+                "max_model_len": core.max_seq_len if core is not None else 0}
 
     async def v1_detokenize(self, body: Dict[str, Any], state: Optional[dict] = None,
                             collect_fn=None) -> Dict[str, Any]:
@@ -2016,6 +2064,93 @@ class LLMEngineRequest(BaseEngineRequest):
             "results": results,
             "usage": {"total_tokens": n_tokens},
         }
+
+    # -- audio routes (OpenAI transcription API; whisper-family bundles) ------
+
+    def _require_audio(self, route: str) -> None:
+        if self.audio is None:
+            raise EndpointModelError(
+                "model {!r} does not support {} (serve a speech bundle — "
+                "arch 'whisper' — on this endpoint)".format(self._model_name, route))
+
+    def _audio_pcm(self, body: Dict[str, Any]):
+        from ..ops.audio import decode_wav
+
+        data = body.get("file")
+        if isinstance(data, str):
+            import base64
+
+            try:
+                data = base64.b64decode(data)
+            except Exception:
+                raise ValueError("'file' must be WAV bytes or base64-encoded WAV")
+        if not isinstance(data, (bytes, bytearray)):
+            raise ValueError(
+                "audio requests need a 'file' field (multipart upload or "
+                "base64 WAV in JSON)")
+        return decode_wav(bytes(data), target_rate=self.audio.sampling_rate)
+
+    async def _audio_route(self, body, collect_fn, task: str, route: str):
+        """The reference's ``_audio_route``: windows through the core's
+        micro-batcher, the text without timestamp markers, and the
+        ``verbose_json`` segments and words."""
+        self._require_audio(route)
+        pcm = self._audio_pcm(body)
+        duration = round(len(pcm) / self.audio.sampling_rate, 3)
+        verbose = body.get("response_format") == "verbose_json"
+        # verbose_json decodes with timestamp conditioning (segments need the
+        # marker tokens); the plain paths keep the <|notimestamps|> prompt.
+        # A bundle without the timestamp vocabulary answers text-only
+        # verbose output.
+        with_ts = verbose and self.audio.timestamp_begin is not None
+        windows = await self.audio.transcribe_windows_async(pcm, task, timestamps=with_ts)
+        ids = [t for w in windows for t in w]
+        ts_begin = self.audio.timestamp_begin
+        text_ids = [t for t in ids if t < ts_begin] if ts_begin is not None else ids
+        text = self.tokenizer.decode(text_ids)
+        if collect_fn is not None:
+            collect_fn({"gen_tokens": len(ids), "audio_seconds": duration})
+        if body.get("response_format") == "text":
+            from ..serving.responses import TextOutput
+
+            return TextOutput(text)
+        out = {"text": text}
+        if verbose:
+            out.update(task=task, duration=duration, language=body.get("language"))
+            if with_ts:
+                segments = self.audio.parse_segments(windows, duration)
+                for seg in segments:
+                    seg["text"] = self.tokenizer.decode(seg["tokens"])
+                granularities = body.get("timestamp_granularities") or ["segment"]
+                if isinstance(granularities, str):
+                    granularities = [granularities]
+                if "segment" in granularities:
+                    out["segments"] = segments
+                if "word" in granularities:
+                    # DTW over the cross-attention alignment heads; the
+                    # proportional interpolation only when the bundle lacks
+                    # the alignment surface or the DTW pass fails
+                    words = None
+                    try:
+                        words = await asyncio.to_thread(
+                            self.audio.words_dtw, pcm, windows, self.tokenizer, task)
+                    except Exception:
+                        # a degraded word timing leaves a signal: a silent
+                        # fallback would hide a DTW pass that keeps failing
+                        logging.getLogger(__name__).warning(
+                            "word-timestamp DTW failed; falling back to "
+                            "proportional interpolation", exc_info=True)
+                    out["words"] = (words if words is not None
+                                    else self.audio.words_from_segments(segments))
+        return out
+
+    async def v1_audio_transcriptions(self, body, state=None, collect_fn=None):
+        return await self._audio_route(
+            body or {}, collect_fn, "transcribe", "v1/audio/transcriptions")
+
+    async def v1_audio_translations(self, body, state=None, collect_fn=None):
+        return await self._audio_route(
+            body or {}, collect_fn, "translate", "v1/audio/translations")
 
     # -- phases ----------------------------------------------------------------
 

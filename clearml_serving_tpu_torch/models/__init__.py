@@ -10,7 +10,8 @@ module registers ``build(config) -> bundle``, a namespace with:
   JAX package's parameters pulled to numpy, or a bundle file's tensors) ->
   this module's tree on ``device``;
 - ``apply(params, *inputs)`` over the converted tree (not for ``llama``,
-  which the LLM engine runs through ``Llama``).
+  which the LLM engine runs through ``Llama``; for ``whisper`` it is the
+  teacher-forced decoder, and the audio routes run ``llm/audio.py``).
 
 Model payloads on disk are bundles: a directory with ``model_config.json``
 (``{"arch": ..., "config": {...}}``) and ``params.msgpack``
@@ -21,9 +22,6 @@ from types import SimpleNamespace
 from typing import Any, Callable, Dict
 
 _BUILDERS: Dict[str, Callable[[dict], Any]] = {}
-
-# archs of the reference's registry the port does not build yet
-UNPORTED_ARCHS = {"whisper": "the speech encoder-decoder, with the audio routes"}
 
 
 def register_model(name: str):
@@ -38,9 +36,6 @@ def build_model(arch: str, config: dict) -> SimpleNamespace:
     try:
         builder = _BUILDERS[arch]
     except KeyError:
-        if arch in UNPORTED_ARCHS:
-            raise ValueError("model arch {!r} is not ported to PyTorch yet: {}".format(
-                arch, UNPORTED_ARCHS[arch])) from None
         raise ValueError(
             "unknown model arch {!r}; registered: {}".format(arch, sorted(_BUILDERS))
         ) from None
@@ -55,3 +50,4 @@ from . import mlp  # noqa: E402,F401
 from . import cnn  # noqa: E402,F401
 from . import bert  # noqa: E402,F401
 from . import llama  # noqa: E402,F401
+from . import whisper  # noqa: E402,F401

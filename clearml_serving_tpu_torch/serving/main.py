@@ -127,12 +127,14 @@ async def _read_body(request: web.Request) -> Any:
 def _engine_health(processor: ModelRequestProcessor) -> dict:
     """Per-endpoint engine health for /ready: any loaded processor exposing
     an ``engine`` with a ``health()`` surface (the LLM engine core, or a
-    replica group's fleet aggregate, or a ``jax`` endpoint's bucket runner)
-    or an ``encoder`` (an encoder endpoint's core) contributes; plain CPU
-    engines are stateless and always ready."""
+    replica group's fleet aggregate, or a ``jax`` endpoint's bucket runner),
+    an ``encoder`` (an encoder endpoint's core) or an ``audio`` (an audio
+    endpoint's core) contributes; plain CPU engines are stateless and
+    always ready."""
     out = {}
     for url, proc in getattr(processor, "_engine_processor_lookup", {}).items():
-        engine = getattr(proc, "engine", None) or getattr(proc, "encoder", None)
+        engine = (getattr(proc, "engine", None) or getattr(proc, "encoder", None)
+                  or getattr(proc, "audio", None))
         health = getattr(engine, "health", None)
         if callable(health):
             try:

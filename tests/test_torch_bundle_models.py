@@ -59,11 +59,13 @@ def _port(arch, cfg, np_tree):
 
 
 def test_registry_refuses_unknown_and_unported_archs():
-    assert {"mlp", "cnn", "bert", "llama"} <= set(models.registered_archs())
+    """Every arch of the reference's registry builds (whisper since the
+    audio routes came); an unknown one is refused."""
+    assert {"mlp", "cnn", "bert", "llama", "whisper"} <= set(models.registered_archs())
     with pytest.raises(ValueError, match="unknown model arch 'nope'"):
         models.build_model("nope", {})
-    with pytest.raises(ValueError, match="whisper"):
-        models.build_model("whisper", {})
+    whisper = models.build_model("whisper", {"preset": "whisper-test"})
+    assert whisper.config["d_model"] == 32 and whisper.config["dtype"] == "float32"
 
 
 def test_mlp_equals_the_reference():

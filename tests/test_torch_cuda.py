@@ -2674,3 +2674,109 @@ def test_encoder_key_replay_is_bitwise_its_eager_run(cuda, name):
     graphed.retire()
     graphed.worker.submit(lambda: None).result()
     assert graphed.health()["released"]
+
+
+# -- Whisper's audio core (llm/audio.py) -------------------------------------------
+
+WHISPER_CARD = dict(preset="whisper-tiny", dtype="bfloat16", n_audio_layers=2, n_text_layers=2,
+                    transcribe_prompt_ids=[50258, 50259, 50359, 50363],
+                    translate_prompt_ids=[50258, 50259, 50358, 50363], eos_token_id=50257,
+                    notimestamps_token_id=50363, timestamp_begin=50364, chunk_length=30)
+
+
+def _audio_cores(cuda, cfg=WHISPER_CARD, **kw):
+    """(graphed, eager) cores over the same seed-0 weights on the card."""
+    from clearml_serving_tpu_torch import models
+    from clearml_serving_tpu_torch.llm.audio import AudioCore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle = models.build_model("whisper", dict(cfg))
+    params = bundle.convert_params(bundle.init(torch.Generator(cuda).manual_seed(0)), cuda)
+    return (AudioCore(bundle, params, device=cuda, **kw),
+            AudioCore(bundle, params, device=cuda, cuda_graphs=False, **kw))
+
+
+def _pcm(seconds, seed):
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.arange(int(16000 * seconds)) / 16000
+    return (0.3 * torch.sin(2 * torch.pi * (200 + 50 * seed) * t)
+            + 0.05 * torch.randn(len(t), generator=gen)).numpy()
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4])
+def test_audio_replays_are_bitwise_the_eager_steps(cuda, rows):
+    """Per batch bucket: the encode graph's encoder states and cross K/V,
+    and the plain and timestamp chunks' tokens and self-K/V, bitwise the
+    eager steps'."""
+    graphed, eager = _audio_cores(cuda, decode_steps=4, max_new_tokens=24)
+    pcms = [_pcm(12 + 6 * i, i) for i in range(rows)]
+    for task, ts in (("transcribe", False), ("translate", True)):
+        prompt = graphed.prompt_ids(task, ts)
+        fn = "_transcribe_batch_ts" if ts else "_transcribe_batch"
+        got = getattr(graphed, fn)(pcms, prompt)
+        want = getattr(eager, fn)(pcms, prompt)
+        assert got == want and all(ids for ids in got), (task, got, want)
+        g, e = graphed._buckets[rows], eager._buckets[rows]
+        assert torch.equal(g["enc"], e["enc"])
+        for key in ("cross_k", "cross_v", "k", "v", "length"):
+            assert torch.equal(g["cache"][key], e["cache"][key]), (task, key)
+    health = graphed.health()
+    assert set(health["graph_keys"]) == {"{}:b{}".format(n, rows) for n in
+                                         ("encode", "prime", "chunk", "chunk_ts")}
+    assert health["serve_captures"] == 4   # each at the first batch that needs it
+    assert health["graph_pool_bytes"] > 0 and eager.health()["graph_captures"] == 0
+    for core in (graphed, eager):
+        core.retire()
+
+
+def test_audio_window_past_the_cache_end_raises_no_device_assert(cuda):
+    """With no ``max_tokens`` a window reaches its budget at the cache's end
+    and its last chunk steps past ``max_target_positions``: the clamped
+    gather and K/V write keep the context alive, and graphed equals eager."""
+    graphed, eager = _audio_cores(cuda, decode_steps=16)
+    pcm = [_pcm(30, 7)]
+    for task, ts in (("transcribe", False), ("transcribe", True)):
+        prompt = graphed.prompt_ids(task, ts)
+        fn = "_transcribe_batch_ts" if ts else "_transcribe_batch"
+        got = getattr(graphed, fn)(pcm, prompt)
+        torch.cuda.synchronize()
+        assert got == getattr(eager, fn)(pcm, prompt)
+        assert int(graphed._buckets[1]["cache"]["length"][0]) > graphed.max_target
+    torch.zeros(1, device=cuda).add_(1).item()   # the context still serves
+    for core in (graphed, eager):
+        core.retire()
+
+
+def test_audio_retire_frees_the_pool_and_buffers(cuda):
+    """retire() releases the graphs, their pool, the buckets' buffers and the
+    weights under CAPTURE_LOCK once the queued calls ran: the card's
+    allocated bytes come back within 64 MiB."""
+    from clearml_serving_tpu_torch import models
+    from clearml_serving_tpu_torch.device import CAPTURE_LOCK
+    from clearml_serving_tpu_torch.llm.audio import AudioCore
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    bundle = models.build_model("whisper", dict(WHISPER_CARD))
+    params = bundle.convert_params(bundle.init(torch.Generator(cuda).manual_seed(0)), cuda)
+    core = AudioCore(bundle, params, device=cuda, decode_steps=4, max_new_tokens=8)
+    del params
+    core.warmup()
+    assert core.health()["serve_captures"] == 0 and len(core.health()["graph_keys"]) == 12
+    prompt = core.prompt_ids("transcribe")
+    queued = core.worker.submit(core._transcribe_batch, [_pcm(5, 1)], prompt)
+    held = []
+    release = core._align.release
+
+    def spy():
+        held.append(CAPTURE_LOCK._is_owned())
+        release()
+
+    core._align.release = spy
+    core.retire()
+    assert len(queued.result()[0]) == 8
+    core.worker.submit(lambda: None).result()
+    assert held == [True] and core.health() == {"ready": False, "released": True}
+    del spy, release, bundle
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) - before <= 64 << 20

@@ -14,8 +14,8 @@ on both packages' apps.
   encoder route's JSON equal apart from ids (values within 1e-5), the
   generation routes' refusal, a plain POST (embeddings), an unknown task.
 - The port's own: the ``arch: bert`` preset on seed weights, the audio
-  tasks refused by name, the encoder's thread and its release on
-  eviction.
+  tasks refused on a BERT model with ``AudioCore``'s words, the encoder's
+  thread and its release on eviction.
 """
 
 import asyncio
@@ -468,11 +468,13 @@ def test_bert_preset_serves_on_seed_weights(tmp_path):
 
 @pytest.mark.parametrize("task", ["transcribe", "translate", "audio"])
 def test_audio_tasks_refused_by_name(tmp_path, task):
+    """An audio task on a BERT model is refused with the reference's
+    ``AudioCore`` words, before any weight is made."""
     mrp = _port_only(tmp_path, {"arch": "bert", "preset": "bert-tiny", "task": task})
     (status, out), = _post(mrp, build_app, [(OPENAI + "embeddings",
                                              {"model": "enc", "input": "x"})])
     assert status == 422
-    assert "engine task {!r} is not served by the PyTorch port yet".format(task) in \
+    assert "audio tasks need a speech encoder-decoder bundle (arch 'whisper')" in \
         out["detail"]
 
 
